@@ -7,13 +7,24 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero with no result line:
 
 1. device: the card's name and power limit (nvidia-smi), the torch and
-   CUDA versions, and the build of every CUDA kernel from `csrc/`;
-2. kernels: the decode-attention kernels B5 (slot pool) and B6 (paged
-   pool) against their plain PyTorch versions on the card, over GQA
-   ratios, visibility modes, page lengths, shared pages and dtypes,
-   each with its time, its bound, the plain version's time and the
-   time of `F.scaled_dot_product_attention` over the gathered cache
-   with the same mask (a yardstick only: the port never calls it);
+   CUDA versions, and the build of every CUDA kernel from `csrc/` (one
+   nvcc a source, all at once);
+2. kernels: every kernel of the port against its plain PyTorch version
+   on the card, each with its time (cold L2), its bound, the plain
+   version's time and one PyTorch library call's time as a yardstick
+   (the port never calls it):
+   - the decode-attention kernels B5 (slot pool) and B6 (paged pool)
+     over GQA ratios, visibility modes, page lengths, shared pages and
+     dtypes, against `F.scaled_dot_product_attention` over the gathered
+     cache;
+   - the flash-attention forward B3a and backward B3b/B3c at the
+     training path's shape (B 8, H 8, T 2048, Dh 64, causal) and at
+     ragged, cross, narrow, wide and bfloat16 variants, against SDPA's
+     forward and backward;
+   - the fused Adam B1a over the training path's leaves and odd sizes,
+     float32 and bfloat16, steps 1 and 1000, against
+     `torch.optim.Adam(fused=True)` (which puts ε inside the bias
+     correction: a time yardstick, not the same function);
 3. path_a: decode serving of `TextGenerationTransformer` at the width
    of the repo's largest transformer (d_model 512, 8 heads, 6 blocks,
    T 2048) through `DecodeSessionManager`, prefix cache on, so the
@@ -24,10 +35,18 @@ exits non-zero with no result line:
    cannot page, so the slot pool and B5 carry it, and the streams run
    past the ring's length so it wraps;
 5. cpu_parity: the port on the card against the port on the CPU, same
-   weights, one short greedy prompt.
+   weights, one short greedy prompt;
+6. path_t: training of the same model at full width (6 blocks, T 2048,
+   batch 8, float32, its default Adam(3e-4)) through `net.fit`: 4 fixed
+   batches of random tokens, 3 epochs, 12 steps; B3a/B3b/B3c carry the
+   attention and B1a the update; steps 2-12 run under
+   `torch.cuda.set_sync_debug_mode("error")`, and the losses are read
+   after the steps;
+7. train_parity: two Adam steps of a 2-block model at T 256 on the card
+   against the same on the CPU, same weights and batch.
 
 Weights are random, from fixed seeds. Each path resets the kernels'
-launch counts just before it serves and reads them just after; a kernel
+launch counts just before it runs and reads them just after; a kernel
 of the path that was never launched, or a plain version called on a
 CUDA tensor, fails the run. The last lines are the kernels' summary, the
 card's name and power limit, and `{"ok": true, "device": {...}}`.
@@ -55,8 +74,32 @@ REPLACES = {
     "paged_decode_attention":
         "deeplearning4j_tpu/ops/banded_attention.py:487 "
         "(_paged_decode_kernel)",
+    "flash_attention_fwd":
+        "deeplearning4j_tpu/ops/attention.py:64 (_flash_kernel)",
+    "flash_attention_bwd_dkdv":
+        "deeplearning4j_tpu/ops/attention.py:211 (_flash_bwd_dkdv_kernel)",
+    "flash_attention_bwd_dq":
+        "deeplearning4j_tpu/ops/attention.py:251 (_flash_bwd_dq_kernel)",
+    "adam_update":
+        "deeplearning4j_tpu/ops/fused_update.py:46 (_adam_kernel)",
 }
-SOURCE = "deeplearning4j_tpu_torch/csrc/decode_attention.cu"
+SOURCES = {
+    "banded_decode_attention":
+        "deeplearning4j_tpu_torch/csrc/decode_attention.cu",
+    "paged_decode_attention":
+        "deeplearning4j_tpu_torch/csrc/decode_attention.cu",
+    "flash_attention_fwd": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dkdv":
+        "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dq":
+        "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
+    "adam_update": "deeplearning4j_tpu_torch/csrc/fused_update.cu",
+}
+# products a kernel computes over each visible (query, key) pair, 2 Dh
+# flops each: forward S and PV; dK/dV kernel S, dP, dV, dK; dQ kernel
+# S, dP, dQ
+FLASH_PRODUCTS = {"flash_attention_fwd": 2, "flash_attention_bwd_dkdv": 4,
+                  "flash_attention_bwd_dq": 3}
 
 
 def emit(obj) -> None:
@@ -226,12 +269,215 @@ def run_kernel_case(c, flush, gen):
     return row
 
 
+# --------------------------------------------- kernels: flash (B3a-c)
+def flash_cases():
+    """The training path's shape (B 8 x H 8 = BH 64, T 2048, Dh 64,
+    causal, float32), and the variants the kernels must hold: a ragged
+    T, Tq != Tk, head dims 32 and 128, bfloat16."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    base = dict(bh=64, causal=True, dtype=f32, main=False, dh=64)
+    return [dict(base, tq=2048, tk=2048, main=True),
+            dict(base, tq=1000, tk=1000),
+            dict(base, tq=512, tk=768, causal=False),
+            dict(base, tq=1024, tk=1024, dh=32),
+            dict(base, tq=1024, tk=1024, dh=128),
+            dict(base, tq=2048, tk=2048, dtype=bf16)]
+
+
+def flash_bound(name, c):
+    """(bound_ms, bound_by) of one flash kernel: its products over the
+    visible (query, key) pairs (causal: the lower triangle) at the peak
+    rate of the dtype, or the bytes it must move (inputs read once,
+    outputs written once, row statistics float32) over HBM bandwidth."""
+    es = torch.tensor([], dtype=c["dtype"]).element_size()
+    bh, tq, tk, dh = c["bh"], c["tq"], c["tk"], c["dh"]
+    pairs = bh * tq * (tq + 1) // 2 if c["causal"] else bh * tq * tk
+    flops = FLASH_PRODUCTS[name] * 2 * dh * pairs
+    qe, ke = bh * tq * dh, bh * tk * dh
+    nbytes = {"flash_attention_fwd": (2 * qe + 2 * ke) * es + 4 * bh * tq,
+              "flash_attention_bwd_dkdv": (2 * qe + 4 * ke) * es
+              + 8 * bh * tq,
+              "flash_attention_bwd_dq": (3 * qe + 2 * ke) * es
+              + 8 * bh * tq}[name]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[c["dtype"]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_err(got, ref, dtype, atol):
+    """(max abs error, within tolerance): float32 within `atol`; bfloat16
+    within `atol` plus one bf16 step of the reference."""
+    d = (got.float() - ref.float()).abs()
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    return d.max().item(), bool((d <= atol + rtol * ref.float().abs())
+                                .all())
+
+
+def run_flash_case(c, flush, gen):
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import attention as fa
+
+    dev, dt, causal = flush.device, c["dtype"], c["causal"]
+    bh, tq, tk, dh = c["bh"], c["tq"], c["tk"], c["dh"]
+
+    def rnd(t):
+        return torch.randn(bh, t, dh, generator=gen).to(dev, dt)
+
+    q, k, v, do = rnd(tq), rnd(tk), rnd(tk), rnd(tq)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal)
+    # the backward kernels and the plain backward from the same residuals
+    grads = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal)
+    g_ref = fa.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do, causal)
+    torch.cuda.synchronize()
+    e_o, ok_o = flash_err(o, o_ref, dt, 2e-5)
+    e_l, ok_l = flash_err(lse, lse_ref, torch.float32, 2e-5)
+    errs = {}
+    for name, g_, r_ in zip(("dq", "dk", "dv"), grads, g_ref):
+        atol = 1e-4 * r_.float().abs().max().item()
+        errs[name] = flash_err(g_, r_, dt, atol) + (atol,)
+    shape = {kk: c[kk] for kk in ("bh", "tq", "tk", "dh", "causal")}
+    check(ok_o and ok_l, f"flash_attention_fwd {shape} {dt}: o err {e_o}, "
+          f"lse err {e_l} (tolerance 2e-5, bf16 + one bf16 step)")
+    for name, (err, ok, atol) in errs.items():
+        check(ok, f"flash backward {shape} {dt}: {name} err {err}, "
+              f"tolerance {atol} (1e-4 of the largest |ref|)")
+
+    delta = (do.float() * o_ref.float()).sum(dim=-1)
+    runs = {
+        "flash_attention_fwd": lambda: fa.flash_attention_fwd(
+            q, k, v, causal, with_lse=True),
+        "flash_attention_bwd_dkdv": lambda: fa.launch_bwd_dkdv(
+            q, k, v, do, lse_ref, delta, causal),
+        "flash_attention_bwd_dq": lambda: fa.launch_bwd_dq(
+            q, k, v, do, lse_ref, delta, causal)}
+    errs_of = {"flash_attention_fwd": max(e_o, e_l),
+               "flash_attention_bwd_dkdv": max(errs["dk"][0], errs["dv"][0]),
+               "flash_attention_bwd_dq": errs["dq"][0]}
+    timed_plain = c["main"] or dt == torch.bfloat16
+    plain = lib = {}
+    if timed_plain:
+        plain_fwd = time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                             causal), flush,
+                            iters=10)
+        plain_bwd = time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o_ref, lse_ref, do, causal), flush, iters=10)
+        plain = {"flash_attention_fwd": plain_fwd,
+                 "flash_attention_bwd_dkdv": plain_bwd,
+                 "flash_attention_bwd_dq": plain_bwd}
+        b = bh // 8
+        q4, k4, v4, do4 = (t.reshape(b, 8, t.shape[1], dh).detach()
+                           for t in (q, k, v, do))
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal), flush)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q4, k4, v4))
+        og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            og, (qg, kg, vg), do4, retain_graph=True), flush)
+        lib = {"flash_attention_fwd": lib_fwd,
+               "flash_attention_bwd_dkdv": lib_bwd,
+               "flash_attention_bwd_dq": lib_bwd}
+    rows = []
+    for name, fn in runs.items():
+        bms, by = flash_bound(name, c)
+        row = {"phase": "kernels", "kernel": name,
+               "dtype": str(dt).replace("torch.", ""), **shape,
+               "max_abs_err": errs_of[name], "ms": time_ms(fn, flush),
+               "plain_ms": plain.get(name), "library_ms": lib.get(name),
+               "bound_ms": bms, "bound_by": by, "main_path_shape": c["main"]}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+# ------------------------------------------------- kernels: Adam (B1a)
+def adam_bound(n, esize):
+    """Bytes bound: read p, g, m, v and write p, m, v once (7 tensors of
+    n elements) over HBM bandwidth; ~12 flops an element is far below."""
+    return 7 * n * esize / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def run_adam_phase(flush, gen):
+    """B1a against its plain version over the training path's real
+    leaves (default hyperparameters) and odd sizes (non-default ones),
+    float32 and bfloat16, at steps 1 and 1000."""
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
+
+    dev = flush.device
+    net = build_net("cuda", num_blocks=6, seed=3)
+    real = [tuple(p.shape) for p in tree_leaves(net.params_tree)]
+    del net
+    odd = [(1,), (127,), (4097,), ((1 << 20) + 3,)]
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for step in (1, 1000):
+            for leafset, hyper in (("real", (0.9, 0.999, 1e-8)),
+                                   ("odd", (0.8, 0.99, 1e-6))):
+                shapes = real if leafset == "real" else odd
+                b1, b2, eps = hyper
+                t = step + 1
+                lrbc = torch.tensor(3e-4 * (1 - b2 ** t) ** 0.5
+                                    / (1 - b1 ** t), device=dev)
+                leaves = [(torch.randn(s, generator=gen).to(dev, dt),
+                           torch.randn(s, generator=gen).to(dev, dt),
+                           (0.1 * torch.randn(s, generator=gen)).to(dev, dt),
+                           torch.rand(s, generator=gen).to(dev, dt))
+                          for s in shapes]
+                ref = [fu.adam_update_plain(*leaf, lrbc, beta1=b1, beta2=b2,
+                                            eps=eps) for leaf in leaves]
+                fu.adam_update(*zip(*leaves), lrbc, beta1=b1, beta2=b2,
+                               eps=eps)
+                torch.cuda.synchronize()
+                rtol = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -22
+                err, ok = 0.0, True
+                for (p, _, m, v), r in zip(leaves, ref):
+                    for got, want in zip((p, m, v), r):
+                        d = (got.float() - want.float()).abs()
+                        err = max(err, d.max().item())
+                        ok = ok and bool((d <= rtol * want.float().abs())
+                                         .all())
+                check(ok, f"adam_update {leafset} {dt} step {step}: max "
+                      f"abs err {err} past {rtol} of |ref|")
+                n = sum(p.numel() for p, *_ in leaves)
+                main = leafset == "real" and dt == torch.float32 \
+                    and step == 1000
+                row = {"phase": "kernels", "kernel": "adam_update",
+                       "dtype": str(dt).replace("torch.", ""), "step": step,
+                       "leaves": leafset, "n_leaves": len(leaves),
+                       "elements": n, "beta1": b1, "beta2": b2, "eps": eps,
+                       "max_abs_err": err, "rtol": rtol,
+                       "main_path_shape": main}
+                row["bound_ms"], row["bound_by"] = adam_bound(
+                    n, leaves[0][0].element_size())
+                lists = list(zip(*leaves))
+                row["ms"] = time_ms(lambda: fu.adam_update(
+                    *lists, lrbc, beta1=b1, beta2=b2, eps=eps), flush)
+                if leafset == "real":
+                    row["plain_ms"] = time_ms(lambda: [
+                        fu.adam_update_plain(*leaf, lrbc, beta1=b1,
+                                             beta2=b2, eps=eps)
+                        for leaf in leaves], flush, iters=10)
+                    ps = [torch.nn.Parameter(p) for p, *_ in leaves]
+                    for prm, (_, g, _, _) in zip(ps, leaves):
+                        prm.grad = g
+                    opt = torch.optim.Adam(ps, lr=3e-4, betas=(b1, b2),
+                                           eps=eps, fused=True)
+                    row["library_ms"] = time_ms(opt.step, flush)
+                    del opt, ps
+                emit(row)
+                rows.append(row)
+                del leaves, ref, lists
+    return rows
+
+
 # ------------------------------------------------------ serving phases
-def build_net(device, *, num_blocks, seed, **kw):
+def build_net(device, *, num_blocks, seed, t=2048, **kw):
     from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
 
     return TextGenerationTransformer(
-        input_shape=(2048, 1), d_model=512, num_heads=8,
+        input_shape=(t, 1), d_model=512, num_heads=8,
         num_blocks=num_blocks, seed=seed, **kw).init(device=device)
 
 
@@ -422,13 +668,161 @@ def cpu_parity(rng, steps=8, tol=1e-3):
     return row
 
 
+# ------------------------------------------------------ training phases
+def lm_batches(rng, n, batch, t, vocab=256):
+    """`n` fixed DataSets of random tokens [batch, t, 1] with next-token
+    one-hot labels (the last position's target is random too)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    eye = np.eye(vocab, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, vocab, (batch, t + 1))
+        out.append(DataSet(toks[:, :t, None].astype(np.float32),
+                           eye[toks[:, 1:]]))
+    return out
+
+
+def path_t(rng, epochs=3):
+    """Full width training: 6 blocks, T 2048, batch 8, float32, the zoo's
+    default Adam(3e-4), 4 fixed batches x 3 epochs = 12 steps through
+    `net.fit`. Step times come from CUDA events recorded after each step
+    is enqueued; steps 2-12 run with host syncs made errors; the losses
+    stay on the device until the fit has returned."""
+    from deeplearning4j_tpu_torch.ops import attention as fa
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    B, T = 8, 2048
+    net = build_net("cuda", num_blocks=6, seed=5)
+    check(net.conf.updater == Adam(3e-4),
+          f"path_t: zoo updater is {net.conf.updater}, not Adam(3e-4)")
+    batches = lm_batches(rng, 4, B, T)
+
+    class Clock(TrainingListener):
+        def __init__(self):
+            self.events, self.losses = [], []
+
+        def _mark(self):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.events.append(e)
+
+        def on_fit_start(self, model):
+            self._mark()
+
+        def iteration_done(self, model, iteration, epoch, score):
+            self._mark()
+            self.losses.append(score)      # a device tensor: not read here
+
+    clock = Clock()
+    net.listeners.append(clock)
+    step_once = net._fit_batch
+
+    def guarded(ds):
+        # every step after the first: any host sync inside raises
+        if net.iteration >= 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step_once(ds)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    net._fit_batch = guarded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (fa, fu, ba):
+        mod.reset_counts()
+    t0 = time.perf_counter()
+    net.fit(batches, epochs=epochs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**fa.LAUNCHES, **fu.LAUNCHES}
+    plain_on_cuda = {**fa.PLAIN_ON_CUDA, **fu.PLAIN_ON_CUDA,
+                     **ba.PLAIN_ON_CUDA}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in clock.losses]       # read after the steps
+    steps = len(losses)
+    ev = clock.events
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    tok_s = (steps - 2) * B * T / (ev[2].elapsed_time(ev[steps]) / 1e3)
+    per_epoch = len(batches)
+    epoch_loss = [float(np.mean(losses[i:i + per_epoch]))
+                  for i in range(0, steps, per_epoch)]
+    check(steps == epochs * per_epoch, f"path_t: {steps} steps ran")
+    check(all(np.isfinite(losses)), f"path_t: losses {losses}")
+    check(epoch_loss[-1] < epoch_loss[0],
+          f"path_t: mean loss did not fall: {epoch_loss}")
+    blocks = 6
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq"):
+        check(launches[name] == blocks * steps,
+              f"path_t: {name} launched {launches[name]} times, want "
+              f"{blocks} a step x {steps}")
+    check(launches["adam_update"] == steps,
+          f"path_t: adam_update launched {launches['adam_update']} times, "
+          f"want one a step x {steps}")
+    check(sum(plain_on_cuda.values()) == 0,
+          f"path_t: plain versions ran on CUDA tensors: {plain_on_cuda}")
+    row = {"phase": "path_t", "model": "TextGenerationTransformer",
+           "d_model": 512, "heads": 8, "blocks": blocks, "T": T,
+           "batch": B, "dtype": "float32", "updater": str(net.conf.updater),
+           "steps": steps, "tokens_per_s_steps_3_12": tok_s,
+           "step_ms_p50": float(np.median(step_ms[1:])),
+           "step_ms_max": max(step_ms[1:]), "step_ms_first": step_ms[0],
+           "step_ms": step_ms, "wall_s": wall,
+           "max_memory_allocated_bytes": peak, "epoch_mean_loss": epoch_loss,
+           "losses": losses, "launches": launches,
+           "plain_on_cuda": plain_on_cuda,
+           "sync_debug_mode": "error in steps 2-12"}
+    emit(row)
+    return row
+
+
+def train_parity(rng, steps=2, tol_loss=1e-5, tol_param=1e-5):
+    """The port's train step on the card against the CPU: a 2-block model
+    at T 256, batch 2, the same seed (so the same weights) and batch,
+    `steps` Adam steps. Adam's ε is 1e-3 here so that a near-zero
+    gradient's first update (≈ lr·sign(g) at ε 1e-8) cannot flip with the
+    last bits of a sum; losses agree within `tol_loss` relative and
+    every parameter within `tol_param` absolute."""
+    from deeplearning4j_tpu_torch.optim.listeners import (
+        CollectScoresIterationListener,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import Adam, tree_leaves
+
+    batch = lm_batches(rng, 1, 2, 256)
+    losses, leaves = {}, {}
+    for d in ("cuda", "cpu"):
+        net = build_net(d, num_blocks=2, seed=17, t=256,
+                        updater=Adam(3e-4, epsilon=1e-3))
+        scores = CollectScoresIterationListener()
+        net.listeners.append(scores)
+        net.fit(batch, epochs=steps)
+        losses[d] = [sc for _, sc in scores.scores]
+        leaves[d] = [p.float().cpu() for p in tree_leaves(net.params_tree)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    dp = max((a - b).abs().max().item()
+             for a, b in zip(leaves["cuda"], leaves["cpu"]))
+    check(rel <= tol_loss, f"train_parity: losses {losses} differ by {rel} "
+          f"relative")
+    check(dp <= tol_param, f"train_parity: parameters differ by {dp}")
+    row = {"phase": "train_parity", "steps": steps, "losses": losses,
+           "loss_rel_err": rel, "tol_loss_rel": tol_loss,
+           "max_param_abs_err": dp, "tol_param_abs": tol_param}
+    emit(row)
+    return row
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
         return 2
-    from deeplearning4j_tpu_torch.ops import banded_attention as ba
     from deeplearning4j_tpu_torch.ops import cuda_build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -444,22 +838,32 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     rows = [run_kernel_case(c, flush, gen) for c in kernel_cases()]
+    for c in flash_cases():
+        rows += run_flash_case(c, flush, gen)
+    rows += run_adam_phase(flush, gen)
     del flush
+    torch.cuda.empty_cache()
 
     rng = np.random.default_rng(0)
     a = path_a("cuda", rng)
     b = path_b("cuda", rng)
     cpu_parity(rng)
+    t = path_t(rng)
+    train_parity(rng)
 
     summary = []
-    for name, path in (("banded_decode_attention", b),
-                       ("paged_decode_attention", a)):
+    for name, launches in (
+            ("banded_decode_attention", b["launches"]),
+            ("paged_decode_attention", a["launches"]),
+            ("flash_attention_fwd", t["launches"]),
+            ("flash_attention_bwd_dkdv", t["launches"]),
+            ("flash_attention_bwd_dq", t["launches"]),
+            ("adam_update", t["launches"])):
         mine = [r for r in rows if r["kernel"] == name]
         main_row = next(r for r in mine if r["main_path_shape"])
         summary.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name],
-            "launches": path["launches"][name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -13,7 +13,10 @@ Entry points run on the CUDA device unless the caller passes
 Slice 1 covers decode serving of the zoo transformer: the config DSL,
 the layers a `TextGenerationTransformer` uses, the per-slot decode path
 with the slot and paged decode-attention kernels (B5, B6), and the
-session manager over the continuous-batching scheduler.
+session manager over the continuous-batching scheduler. Slice 2 trains
+the same model: losses, updaters, schedules, listeners, the fit loop
+and data iterators, with flash attention forward and backward (B3a,
+B3b, B3c) and the fused multi-tensor Adam (B1a).
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,21 @@
-"""MultiLayerNetwork — the sequential-stack runtime of the PyTorch port,
-for serving (port of the inference and session half of
-`deeplearning4j_tpu/models/multilayer.py`; `fit` and the training
-executor come in a later slice).
+"""MultiLayerNetwork — the sequential-stack runtime of the PyTorch port
+(port of `deeplearning4j_tpu/models/multilayer.py`): inference, the
+slot-indexed serving sessions, and training (`init` with updaters,
+`make_step_fn`, `fit`, `score`).
 
 Parameters are a dict of per-layer tensor dicts keyed exactly like the
 JAX `params_tree`, so `models.convert.params_from_numpy` loads a JAX
-net's weights unchanged. The net lives on one device: CUDA unless the
-caller passes `device="cpu"`.
+net's weights unchanged; `updater_state` mirrors JAX's per-layer
+updater state, loaded by `updater_state_from_numpy`. The net lives on
+one device: CUDA unless the caller passes `device="cpu"`.
+
+A train step takes gradients with `torch.autograd.grad` over detached
+copies of the parameter leaves, then updates parameters and optimizer
+moments IN PLACE, as the JAX step donates them and the TPU kernels alias
+them: one `update_with_params` call a group of layers that share an
+updater, so the zoo transformer's Adam is one launch of kernel B1a a
+step. Its step counter lives on the device, and the loss stays there
+until the fit loop reads it once an epoch (`optim/executor.py`).
 
 Slot-indexed sessions thread their carries through `session_step` and
 `session_decode_window` as arguments, as in JAX, but the KV caches
@@ -18,13 +27,25 @@ of the cache write itself.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.data.iterators import (
+    DevicePrefetchIterator, as_iterator,
+)
 from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers import EmbeddingSequenceLayer, Layer
+from deeplearning4j_tpu_torch.optim.executor import (
+    LossTracker, TrainingExecutor,
+)
+from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
+from deeplearning4j_tpu_torch.optim.updaters import (
+    NoOp, Updater, resolve_updater, tree_leaves,
+)
 from deeplearning4j_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -52,6 +73,68 @@ def _as_tensor(x, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+def _to_device(a, dtype, device) -> Optional[torch.Tensor]:
+    """A host batch array as a tensor on `device`: cast on the host,
+    then, on a CUDA device, a non-blocking copy from pinned memory (the
+    host never waits for it). `dtype` None keeps integer arrays integer
+    and makes floating ones float32."""
+    if a is None:
+        return None
+    t = a if isinstance(a, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(a))
+    if dtype is None:
+        dtype = torch.float32 if t.is_floating_point() else torch.int64
+    if t.device == device:
+        return t.to(dtype)
+    t = t.to(dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum((g.float() ** 2).sum() for g in tree_leaves(tree)))
+
+
+def _normalize_grads(grads, mode: str, threshold: float):
+    """Gradient normalization/clipping per layer subtree (reference:
+    `GradientNormalization`), the five modes of the JAX package."""
+    if mode == "none":
+        return grads
+    if mode == "clip_elementwise_absolute_value":
+        return {n: {k: torch.clamp(g, -threshold, threshold)
+                    for k, g in sub.items()} for n, sub in grads.items()}
+
+    def per_layer(sub):
+        if mode == "renormalize_l2_per_layer":
+            n = _norm(sub)
+            return {k: g / torch.clamp(n, min=1e-8) for k, g in sub.items()}
+        if mode == "clip_l2_per_layer":
+            n = _norm(sub)
+            scale = torch.clamp(threshold / torch.clamp(n, min=1e-8),
+                                max=1.0)
+            return {k: g * scale for k, g in sub.items()}
+        if mode == "renormalize_l2_per_param_type":
+            return {k: g / torch.clamp(torch.linalg.vector_norm(g), min=1e-8)
+                    for k, g in sub.items()}
+        if mode == "clip_l2_per_param_type":
+            out = {}
+            for k, g in sub.items():
+                n = torch.linalg.vector_norm(g)
+                out[k] = g * torch.clamp(threshold / torch.clamp(n, min=1e-8),
+                                         max=1.0)
+            return out
+        raise ValueError(mode)
+
+    return {name: per_layer(sub) for name, sub in grads.items()}
+
+
+def _refuse(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md {item}); the port refuses "
+        f"it rather than ignore it")
+
+
 class MultiLayerNetwork:
     """Sequential network runtime over a MultiLayerConfiguration."""
 
@@ -61,38 +144,262 @@ class MultiLayerNetwork:
         self.dtype = _DTYPES[conf.dtype]
         self.device = resolve_device(device)
         self.params_tree: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self.state_tree: Dict[str, Any] = {}
+        self.updater_state: Optional[Dict[str, Any]] = None
+        self.iteration = 0
+        self.epoch = 0
+        self.listeners: List[TrainingListener] = []
+        self.last_batch_size: Optional[int] = None
+        self.last_seq_len: Optional[int] = None
+        self._loss_tracker = LossTracker()
+        self._layer_updaters: Dict[str, Updater] = {}
+        self._stateful: set = set()
+        self._rng = torch.Generator(device=self.device)
+        self._rng.manual_seed(int(conf.seed))
+        self._step_t: Optional[torch.Tensor] = None
+
+    @property
+    def score_(self) -> Optional[float]:
+        """Most recent training loss as a float. Reading it waits for the
+        device (a host sync) unless the fit loop already read it."""
+        return self._loss_tracker.value
 
     # ------------------------------------------------------------- init
     def init(self) -> "MultiLayerNetwork":
         """Seeded init from `conf.seed` with a torch.Generator on the CPU,
-        then moved to the device. Not the JAX weights for the same seed:
-        parity tests load those with `params_from_numpy`."""
+        then moved to the device; then the per-layer updaters and their
+        state. Not the JAX weights for the same seed: parity tests load
+        those with `params_from_numpy`."""
         gen = torch.Generator().manual_seed(int(self.conf.seed))
-        params = {}
+        params, states = {}, {}
         it = self.conf.input_type
         for layer in self.layers:
-            p, _ = layer.init_params(gen, it, self.dtype)
+            p, st = layer.init_params(gen, it, self.dtype)
             params[layer.name] = {k: v.to(self.device)
                                   for k, v in p.items()}
+            states[layer.name] = st
+            if st:
+                self._stateful.add(layer.name)
             if it is not None:
                 it = layer.output_type(it)
         self.params_tree = params
+        self.state_tree = states
+        self._build_updaters()
+        self.updater_state = {name: u.init(params[name])
+                              for name, u in self._layer_updaters.items()}
         return self
+
+    def _build_updaters(self):
+        """Per-layer updaters honoring per-layer overrides and freezing
+        (reference: MultiLayerUpdater / UpdaterBlock grouping)."""
+        global_u = resolve_updater(self.conf.updater or "sgd")
+        for layer in self.layers:
+            u = layer.updater if layer.updater is not None else global_u
+            u = resolve_updater(u)
+            if layer.learning_rate is not None and \
+                    hasattr(u, "learning_rate"):
+                u = dataclasses.replace(u, learning_rate=layer.learning_rate)
+            if layer.frozen:
+                u = NoOp()
+            self._layer_updaters[layer.name] = u
+
+    def _updater_groups(self) -> List[Tuple[Updater, List[str]]]:
+        """Layers sharing one updater configuration (equal dataclasses),
+        in layer order: each group is one `update_with_params` call, so
+        its leaves go through one fused launch."""
+        groups: List[Tuple[Updater, List[str]]] = []
+        for name, u in self._layer_updaters.items():
+            if isinstance(u, NoOp):
+                continue
+            for gu, names in groups:
+                if gu == u:
+                    names.append(name)
+                    break
+            else:
+                groups.append((u, [name]))
+        return groups
 
     def _check_init(self):
         if self.params_tree is None:
             raise RuntimeError("network not initialized: call init()")
 
     # ---------------------------------------------------------- forward
-    def _forward(self, params, x, *, fmask=None, carries=None):
-        """Run the stack; returns (output, new_states by layer name)."""
+    def _forward(self, params, x, *, train: bool = False, rng=None,
+                 fmask=None, carries=None, stop: Optional[int] = None):
+        """Run layers[:stop] (all by default); returns (output, new
+        states by layer name). Dropout draws from the generator `rng`
+        when `train`."""
         new_states = {}
-        for layer in self.layers:
+        for layer in self.layers[:stop]:
             st = carries.get(layer.name) if carries else None
             x, new_st = layer.apply(params[layer.name], x, state=st,
-                                    mask=fmask)
+                                    train=train, rng=rng, mask=fmask)
             new_states[layer.name] = new_st
         return x, new_states
+
+    # ------------------------------------------------------------- loss
+    def _loss(self, params, features, labels, fmask, lmask, rng,
+              train: bool = True, carries=None):
+        """Score = output-layer loss + L1/L2 regularization + any layer's
+        `aux_loss`. The output layer scores its INPUT (its softmax is
+        fused into the loss), so the stack runs up to it."""
+        out_layer = self.layers[-1]
+        if not out_layer.is_output_layer:
+            raise ValueError(f"the last layer ({out_layer.name}) is not an "
+                             f"output layer; nothing to score")
+        out_in, new_states = self._forward(
+            params, features, train=train, rng=rng, fmask=fmask,
+            carries=carries, stop=len(self.layers) - 1)
+        score_mask = lmask if lmask is not None else (
+            fmask if labels is not None and labels.ndim == 3 else None)
+        score = out_layer.score(params[out_layer.name], out_in, labels,
+                                score_mask)
+        reg = sum(layer.regularization(params[layer.name])
+                  for layer in self.layers
+                  if any((layer.l1, layer.l2, layer.l1_bias, layer.l2_bias)))
+        aux = sum(st["aux_loss"] for st in new_states.values()
+                  if isinstance(st, dict) and "aux_loss" in st)
+        return score + reg + aux, new_states
+
+    # ------------------------------------------------------- train step
+    def make_step_fn(self):
+        """The train step: `step_fn(params, opt_state, states, step,
+        features, labels, fmask, lmask, rng, carries)` returns
+        `(params, opt_state, states, loss, carries)`, as JAX's does.
+        Params and opt_state are updated IN PLACE and returned; the loss
+        is a 0-dim tensor on the device."""
+        mode = self.conf.gradient_normalization
+        thr = self.conf.gradient_normalization_threshold
+        groups = self._updater_groups()
+        trained = [n for _, names in groups for n in names]
+        stateful = self._stateful
+
+        def step_fn(params, opt_state, states, step, features, labels,
+                    fmask, lmask, rng, carries):
+            # gradients w.r.t. detached views of the trained leaves; the
+            # stored tensors stay plain, so the in-place update below
+            # needs no autograd bookkeeping
+            live = {n: {k: (v.detach().requires_grad_(True)
+                            if n in trained else v)
+                        for k, v in sub.items()}
+                    for n, sub in params.items()}
+            with torch.enable_grad():
+                loss, new_states = self._loss(live, features, labels,
+                                              fmask, lmask, rng, train=True,
+                                              carries=carries)
+                wrt = [live[n][k] for n in trained for k in live[n]]
+                got = torch.autograd.grad(loss, wrt, allow_unused=True)
+            it = iter(got)
+            grads = {n: {k: next(it) for k in live[n]} for n in trained}
+            grads = {n: {k: (torch.zeros_like(params[n][k]) if g is None
+                             else g) for k, g in sub.items()}
+                     for n, sub in grads.items()}
+            grads = _normalize_grads(grads, mode, thr)
+            for u, names in groups:
+                st = {n: opt_state[n] for n in names}
+                first = st[names[0]]
+                group_state = ({key: {n: st[n][key] for n in names}
+                                for key in first}
+                               if isinstance(first, dict) else ())
+                u.update_with_params({n: grads[n] for n in names},
+                                     group_state,
+                                     {n: params[n] for n in names}, step)
+            persist = {n: (new_states[n] if n in stateful
+                           else states.get(n, {})) for n in states}
+            return params, opt_state, persist, loss.detach(), {}
+
+        return step_fn
+
+    # ---------------------------------------------------------- fit API
+    def fit(self, data, labels=None, *, epochs: int = 1,
+            batch_size: int = 32, steps_per_dispatch: int = 1,
+            sync_every: int = 0, checkpointer=None, resume=None,
+            stop_fn=None, preemption=None):
+        """Train on arrays, a DataSet, a DataSetIterator or any iterable
+        of DataSets (reference: `fit(DataSetIterator)`). The loss stays
+        on the device (``score_`` reads it; ``sync_every=N`` reads it
+        every N steps), and each batch's copy to the card is enqueued one
+        batch ahead (`DevicePrefetchIterator`).
+
+        Refused rather than ignored, until ported: ``steps_per_dispatch
+        > 1``, ``checkpointer``, ``resume``, ``stop_fn``, ``preemption``,
+        truncated BPTT, gradient checkpointing and non-SGD solvers."""
+        self._check_init()
+        if int(steps_per_dispatch) > 1:
+            _refuse("steps_per_dispatch > 1 (a CUDA graph of K steps)",
+                    "A1")
+        if checkpointer is not None or resume is not None or \
+                stop_fn is not None or preemption:
+            _refuse("checkpointed, resumable or stoppable fit "
+                    "(optim/recovery.py)", "A6")
+        if self.conf.tbptt_fwd_length > 0:
+            _refuse("truncated BPTT", "A3")
+        if self.conf.gradient_checkpointing:
+            _refuse("gradient checkpointing (rematerialization)", "A4")
+        if self.conf.optimization_algo != "stochastic_gradient_descent":
+            _refuse(f"solver {self.conf.optimization_algo!r} "
+                    f"(optim/solvers.py)", "A1")
+        it = DevicePrefetchIterator(as_iterator(data, labels, batch_size),
+                                    self._put_batch)
+        self._loss_tracker.sync_every = int(sync_every)
+        # the device step counter starts from the host's: a fill, no copy
+        self._step_t = torch.full((), self.iteration, dtype=torch.int64,
+                                  device=self.device)
+        TrainingExecutor(self, step=self._fit_batch).run(it, epochs)
+        return self
+
+    def _put_batch(self, ds: DataSet) -> DataSet:
+        """A batch on the net's device: features and masks in the net's
+        dtype, floating labels as float32, integer labels as int64."""
+        dev = self.device
+        return DataSet(_to_device(ds.features, self.dtype, dev),
+                       _to_device(ds.labels, None, dev),
+                       _to_device(ds.features_mask, self.dtype, dev),
+                       _to_device(ds.labels_mask, self.dtype, dev))
+
+    def _check_input(self, x):
+        it = self.conf.input_type
+        if it is None:
+            return
+        expect = it.shape(int(x.shape[0]))
+        if it.kind == "rnn" and it.timesteps is None:
+            ok = x.ndim == 3 and x.shape[-1] == it.size
+        else:
+            ok = tuple(x.shape) == tuple(expect)
+        if not ok:
+            raise ValueError(
+                f"Input shape {tuple(x.shape)} does not match configured "
+                f"{it!r} (expected {tuple(expect)} for batch={x.shape[0]})")
+
+    def _fit_batch(self, ds: DataSet):
+        """One train step on one batch; returns the device loss."""
+        if not isinstance(ds.features, torch.Tensor) or \
+                ds.features.device != self.device:
+            ds = self._put_batch(ds)
+        self._check_input(ds.features)
+        self.last_batch_size = ds.num_examples()
+        self.last_seq_len = (int(ds.features.shape[1])
+                             if ds.features.ndim == 3 else None)
+        step_fn = self.make_step_fn()
+        (self.params_tree, self.updater_state, self.state_tree, loss,
+         _) = step_fn(self.params_tree, self.updater_state, self.state_tree,
+                      self._step_t, ds.features, ds.labels,
+                      ds.features_mask, ds.labels_mask, self._rng, None)
+        self._step_t.add_(1)
+        return loss
+
+    @torch.no_grad()
+    def score(self, data, labels=None) -> float:
+        """Mean loss (score + regularization) on data, no dropout
+        (reference: `score(DataSet)`)."""
+        self._check_init()
+        ds = data if isinstance(data, DataSet) else DataSet(
+            np.asarray(data), np.asarray(labels))
+        ds = self._put_batch(ds)
+        loss, _ = self._loss(self.params_tree, ds.features, ds.labels,
+                             ds.features_mask, ds.labels_mask, None,
+                             train=False)
+        return float(loss)
 
     @torch.no_grad()
     def output(self, x) -> torch.Tensor:

@@ -4,8 +4,10 @@ The fluent builder cascades global defaults into every layer, names the
 layers, and wires n_in from the InputType, exactly as the JAX builder
 does, so `NeuralNetConfiguration.builder()...build()` here and there
 give the same layer list. `MultiLayerConfiguration.from_json` reads a
-configuration written by either package; a JAX config's updater (not
-ported: serving never trains) is kept as opaque data.
+configuration written by either package; its updater and learning-rate
+schedule load as the port's own classes (`optim/updaters.py`,
+`optim/schedules.py`, same serde names and fields), so JSON round-trips
+in both directions.
 
 Preprocessor auto-insertion is not ported: the transformer stacks of
 this slice need none, and a config that carries preprocessors is
@@ -21,6 +23,8 @@ from deeplearning4j_tpu_torch.nn.activations import Activation
 from deeplearning4j_tpu_torch.nn.initializers import WeightInit
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.optim import schedules as _schedules  # noqa: F401  (serde registration)
+from deeplearning4j_tpu_torch.optim.updaters import Sgd, resolve_updater
 from deeplearning4j_tpu_torch.utils.serde import (
     from_json, register_serde, to_json,
 )
@@ -85,7 +89,13 @@ class Builder:
         self._activation: Optional[str] = None
         self._weight_init: Optional[str] = None
         self._updater: Any = None
+        self._learning_rate: Any = None
+        self._l1: Optional[float] = None
+        self._l2: Optional[float] = None
+        self._dropout: Optional[float] = None
         self._dtype = "float32"
+        self._grad_norm = "none"
+        self._grad_norm_threshold = 1.0
 
     def seed(self, s: int) -> "Builder":
         self._seed = int(s)
@@ -100,12 +110,33 @@ class Builder:
         return self
 
     def updater(self, u) -> "Builder":
-        """Kept as opaque config data: the port does not train yet."""
-        self._updater = u
+        self._updater = None if u is None else resolve_updater(u)
+        return self
+
+    def learning_rate(self, lr) -> "Builder":
+        self._learning_rate = lr
+        return self
+
+    def l1(self, v: float) -> "Builder":
+        self._l1 = v
+        return self
+
+    def l2(self, v: float) -> "Builder":
+        self._l2 = v
+        return self
+
+    def dropout(self, p: float) -> "Builder":
+        self._dropout = p
         return self
 
     def dtype(self, d: str) -> "Builder":
         self._dtype = d
+        return self
+
+    def gradient_normalization(self, mode: str,
+                               threshold: float = 1.0) -> "Builder":
+        self._grad_norm = mode
+        self._grad_norm_threshold = threshold
         return self
 
     def list(self, *layers: Layer) -> "ListBuilder":
@@ -114,9 +145,20 @@ class Builder:
         return ListBuilder(self, list(layers))
 
     def _defaults(self) -> Dict[str, Any]:
+        """As the JAX builder: no updater means Sgd at the builder's
+        learning rate (default 1e-2); a learning rate overrides the
+        updater's own."""
+        upd = self._updater
+        if upd is None:
+            upd = Sgd(self._learning_rate if self._learning_rate is not None
+                      else 1e-2)
+        elif self._learning_rate is not None and \
+                hasattr(upd, "learning_rate"):
+            upd = dataclasses.replace(upd, learning_rate=self._learning_rate)
         return dict(activation=self._activation,
                     weight_init=self._weight_init or "xavier",
-                    updater=self._updater)
+                    updater=upd, l1=self._l1, l2=self._l2,
+                    dropout=self._dropout)
 
 
 class ListBuilder:
@@ -156,4 +198,6 @@ class ListBuilder:
         return MultiLayerConfiguration(
             layers=tuple(layers), input_type=self._input_type,
             seed=self._base._seed, updater=defaults["updater"],
-            dtype=self._base._dtype)
+            dtype=self._base._dtype,
+            gradient_normalization=self._base._grad_norm,
+            gradient_normalization_threshold=self._base._grad_norm_threshold)

@@ -3,7 +3,7 @@ ported layer class for config serde."""
 
 from deeplearning4j_tpu_torch.nn.layers.base import LAYER_REGISTRY, Layer
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
-    DenseLayer, EmbeddingSequenceLayer, OutputLayer,
+    DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer, OutputLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.attention import (
@@ -11,7 +11,8 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
 )
 
 __all__ = [
-    "LAYER_REGISTRY", "Layer", "DenseLayer", "EmbeddingSequenceLayer",
+    "LAYER_REGISTRY", "Layer", "DenseLayer", "EmbeddingLayer",
+    "EmbeddingSequenceLayer",
     "OutputLayer", "RnnOutputLayer", "MultiHeadAttention",
     "PositionEmbeddingLayer", "TransformerEncoderBlock",
 ]

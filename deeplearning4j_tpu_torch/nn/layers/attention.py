@@ -14,9 +14,16 @@ row that lives in the cache's storage just past its last row (see
 `new_kv_cache`), the counterpart of JAX's `mode="drop"` scatter, with
 no data-dependent shape and no host sync.
 
+Full-context `apply` routes through `kernel_defaults.attention_policy`
+as JAX's does: with no padding mask, no attention dropout and no window
+it calls the flash kernels (`ops/attention.flash_attention`, B3a forward
+and B3b/B3c backward) after the GQA broadcast; otherwise the dense
+masked softmax, which also applies attention dropout.
+
 Not ported yet: the lockstep (scalar-position) decode carries of
-`rnn_time_step`, quantized KV carries, MoE blocks, attention dropout and
-the sequence-parallel ring.
+`rnn_time_step`, quantized KV carries, MoE blocks, the banded kernel B4
+(windowed full-context attention stays dense) and the sequence-parallel
+ring.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ import torch
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 from deeplearning4j_tpu_torch.ops import banded_attention as ba
+from deeplearning4j_tpu_torch.ops.attention import flash_attention
+from deeplearning4j_tpu_torch.ops.kernel_defaults import attention_policy
 
 _NEG = -1e30
 
@@ -304,7 +313,8 @@ class MultiHeadAttention(Layer):
             new_state["page_table"] = pt
         return self._act(y), new_state
 
-    def apply(self, params, x, *, state=None, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
         if state is not None and "cache_k" in state:
             return self._decode(params, x, state, mask=mask)
         B, T, _ = x.shape
@@ -319,17 +329,31 @@ class MultiHeadAttention(Layer):
             q = rope_rotate(q, positions)
             k = rope_rotate(k, positions)
         if Hkv != H:
+            # GQA: broadcast the KV heads up to the query heads for the
+            # H-wide attention cores (flash and dense), as JAX does
             k = torch.repeat_interleave(k, H // Hkv, dim=2)
             v = torch.repeat_interleave(v, H // Hkv, dim=2)
-        o = self._masked_attention(q, k, v, mask, self.causal,
-                                   window=self.window)
+        drop = (self.attn_dropout
+                if train and self.attn_dropout and rng is not None else 0.0)
+        pol = attention_policy(device=x.device, masked=mask is not None,
+                               dropout=bool(drop), window=self.window,
+                               head_dim=Dh)
+        if pol.kind == "flash":
+            o = flash_attention(q, k, v, self.causal)
+        else:
+            o = self._masked_attention(q, k, v, mask, self.causal,
+                                       dropout=drop, rng=rng,
+                                       window=self.window)
         y = o.reshape(B, T, self.n_out) @ params["Wo"] + params["b"]
         return self._act(y), state
 
     @staticmethod
-    def _masked_attention(q, k, v, mask, causal=False, window=None):
+    def _masked_attention(q, k, v, mask, causal=False, dropout=0.0,
+                          rng=None, window=None):
         """Dense full-context attention with additive -1e30 biases for
-        the padding mask, the causal band and the sliding window."""
+        the padding mask, the causal band and the sliding window, and
+        inverted dropout on the attention weights (post-softmax, pre-V),
+        drawn from the generator `rng`."""
         d = q.shape[-1]
         s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
         tq, tk = s.shape[-2], s.shape[-1]
@@ -345,6 +369,11 @@ class MultiHeadAttention(Layer):
                 ((qi - ki).abs() < window)
             bias = bias + torch.where(local, 0.0, _NEG)
         p = torch.softmax(s + bias, dim=-1)
+        if dropout:
+            keep = 1.0 - dropout
+            kept = torch.rand(p.shape, generator=rng, device=p.device) < keep
+            p = torch.where(kept, p / keep, torch.zeros((), dtype=p.dtype,
+                                                        device=p.device))
         return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
@@ -379,7 +408,8 @@ class PositionEmbeddingLayer(Layer):
         return {"pos": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
 
-    def apply(self, params, x, *, state=None, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
         t = x.shape[1]
         if t > self.max_length:
             raise ValueError(f"sequence length {t} > max_length "
@@ -486,12 +516,14 @@ class TransformerEncoderBlock(Layer):
             batch, dtype, per_slot=per_slot, kv_dtype=kv_dtype,
             page_len=page_len, pages=pages, device=device)}
 
-    def apply(self, params, x, *, state=None, mask=None):
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
         attn = self._sub()
         ap = {k[5:]: v for k, v in params.items() if k.startswith("attn_")}
         h = self._norm_apply(x, params, "ln1")
         attn_carry = state.get("attn") if state else None
-        a, a_st = attn.apply(ap, h, state=attn_carry, mask=mask)
+        a, a_st = attn.apply(ap, h, state=attn_carry, train=train, rng=rng,
+                             mask=mask)
         x = x + a
         h = self._norm_apply(x, params, "ln2")
         if self.ffn_activation == "swiglu":
@@ -504,5 +536,6 @@ class TransformerEncoderBlock(Layer):
                                          + params["ffn_b1"],
                                          approximate="tanh")
             y = y @ params["ffn_w2"] + params["ffn_b2"]
+        y = self._maybe_dropout(y, train, rng)
         new_state = {"attn": a_st} if attn_carry is not None else {}
         return x + y, new_state

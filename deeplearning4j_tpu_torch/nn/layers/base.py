@@ -5,6 +5,11 @@ package's, so configs round-trip between the two through JSON. Its
 runtime API works on plain dicts of tensors keyed like the JAX params
 tree (`"W"`, `"b"`, `"attn_Wq"`, ...), in the JAX orientation: a kernel
 is `[n_in, n_out]` and applies as `x @ W`.
+
+`apply(params, x, *, state=None, train=False, rng=None, mask=None)` has
+the JAX signature. `rng` is an explicit `torch.Generator` on the net's
+device; dropout draws from it only when `train` is true. `dropout` is
+the DROP probability, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -72,8 +77,8 @@ class Layer:
         return {}, {}
 
     def apply(self, params: Params, x, *, state: Optional[State] = None,
+              train: bool = False, rng: Optional[torch.Generator] = None,
               mask=None) -> Tuple[Any, Optional[State]]:
-        """Inference forward. Training (dropout, rng) is not ported."""
         raise NotImplementedError
 
     # ---- shared helpers ----
@@ -82,6 +87,34 @@ class Layer:
 
     def _winit(self):
         return WeightInit.get(self.weight_init)
+
+    def _maybe_dropout(self, x, train: bool, rng):
+        """Inverted dropout on the INPUT activations, drawn from the
+        explicit generator `rng` (no draw when not training)."""
+        p = self.dropout
+        if not train or not p or rng is None:
+            return x
+        keep = 1.0 - p
+        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+    def regularization(self, params: Params) -> torch.Tensor:
+        """L1/L2 penalty (0.5 * l2 * sum(w^2)); bias parameters take the
+        separate l1_bias/l2_bias coefficients."""
+        terms = []
+        for k, v in params.items():
+            is_bias = k in ("b", "beta", "bias")
+            l1 = (self.l1_bias if is_bias else self.l1) or 0.0
+            l2 = (self.l2_bias if is_bias else self.l2) or 0.0
+            if l1:
+                terms.append(l1 * v.abs().sum())
+            if l2:
+                terms.append(0.5 * l2 * (v * v).sum())
+        if not terms:
+            dev = next(iter(params.values())).device if params else None
+            return torch.zeros((), dtype=torch.float32, device=dev)
+        return sum(terms)
 
     @property
     def is_output_layer(self) -> bool:

@@ -1,7 +1,8 @@
-"""Recurrent-family layers of the slice: only `RnnOutputLayer`, the
+"""Recurrent-family layers ported so far: only `RnnOutputLayer`, the
 per-timestep head of the transformer zoo models (port of
 `deeplearning4j_tpu/nn/layers/recurrent.py`; the LSTM family comes in a
-later slice)."""
+later slice). Its `pre_output` and `score` are OutputLayer's: `x @ W`
+batches over the leading [B, T] axes, and the loss masks per timestep."""
 
 from __future__ import annotations
 

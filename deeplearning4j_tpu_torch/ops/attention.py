@@ -1,0 +1,292 @@
+"""Blockwise (flash) attention, forward and backward — the port of
+`deeplearning4j_tpu/ops/attention.py`.
+
+Three kernels, hand-written in CUDA C++ for Hopper
+(`csrc/flash_attention.cu`), over folded [BH, T, Dh] tensors:
+
+- B3a, `flash_attention_fwd` (replaces `_flash_kernel`): o and, for
+  training, the per-row log-sum-exp lse = m + log(l) in float32;
+- B3b and B3c, launched together by `flash_attention_bwd` (replace
+  `_flash_bwd_dkdv_kernel` and `_flash_bwd_dq_kernel`): dK/dV with a K/V
+  tile pinned while Q is swept, and dQ with a Q tile pinned while K is
+  swept, from the saved lse and Δ = rowsum(dO·O) (computed here in f32,
+  as JAX computes it in XLA).
+
+`flash_attention` is a `torch.autograd.Function` over the two. Beside
+each kernel stands its plain PyTorch version: `flash_attention_plain`
+(dense masked softmax) and `flash_attention_bwd_plain` (the same
+identity from the lse as the TPU kernels' `_bwd_tile`, not autograd
+through the dense forward). A wrapper takes its plain version only for
+tensors on the CPU; on a CUDA tensor it launches its kernel or raises.
+Each wrapper adds one to `LAUNCHES[name]` for each kernel it launches,
+and each plain version adds one to `PLAIN_ON_CUDA[name]` when handed
+CUDA tensors.
+
+Unlike the TPU kernels, any Tq and Tk work (no 128-multiple rule: the
+kernels mask their tail tiles) and the head dim may be anything up to
+MAX_HEAD_DIM. The scale defaults to Dh^-0.5 and the causal mask value
+is -1e30, as in JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+_NEG_INF = -1e30
+MAX_HEAD_DIM = 128        # the kernels' largest head-dim tile
+_MAX_BH = 65535           # grid.y
+
+# kernel name -> launches (wrapper) / plain-version calls on CUDA tensors
+LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
+                            "flash_attention_bwd_dkdv": 0,
+                            "flash_attention_bwd_dq": 0}
+PLAIN_ON_CUDA: Dict[str, int] = {"flash_attention_fwd": 0,
+                                 "flash_attention_bwd": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, PLAIN_ON_CUDA):
+        for k in d:
+            d[k] = 0
+
+
+def _acc_dtype(dtype):
+    """float64 stays float64 (gradcheck); everything else computes in
+    float32, as the kernels do."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, causal: bool, scale: float, acc):
+    s = torch.einsum("bqd,bkd->bqk", q.to(acc), k.to(acc)) * scale
+    if causal:
+        tq, tk = s.shape[-2], s.shape[-1]
+        keep = torch.ones((tq, tk), dtype=torch.bool,
+                          device=s.device).tril()
+        s = torch.where(keep, s, _NEG_INF)
+    return s
+
+
+# ------------------------------------------------------------ plain versions
+def flash_attention_plain(q, k, v, causal: bool,
+                          scale: Optional[float] = None):
+    """Plain version of kernel B3a: q [BH, Tq, Dh], k/v [BH, Tk, Dh];
+    returns (o in q's dtype, lse [BH, Tq] in float32, float64 for float64
+    inputs)."""
+    if q.is_cuda:
+        PLAIN_ON_CUDA["flash_attention_fwd"] += 1
+    acc = _acc_dtype(q.dtype)
+    sc = scale if scale is not None else q.shape[-1] ** -0.5
+    s = _scores(q, k, causal, sc, acc)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bqk,bkd->bqd", p, v.to(acc)) / l
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
+                              scale: Optional[float] = None):
+    """Plain version of kernels B3b and B3c: (dq, dk, dv) from the saved
+    lse through p = exp(s - L), ds = p * (dp - Δ) * scale with
+    Δ = rowsum(do · o), the identity the TPU kernels' `_bwd_tile` uses."""
+    if q.is_cuda:
+        PLAIN_ON_CUDA["flash_attention_bwd"] += 1
+    acc = _acc_dtype(q.dtype)
+    sc = scale if scale is not None else q.shape[-1] ** -0.5
+    s = _scores(q, k, causal, sc, acc)
+    p = torch.exp(s - lse.to(acc)[..., None])
+    dof = do.to(acc)
+    dp = torch.einsum("bqd,bkd->bqk", dof, v.to(acc))
+    delta = (dof * o.to(acc)).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * sc
+    dq = torch.einsum("bqk,bkd->bqd", ds, k.to(acc))
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.to(acc))
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ------------------------------------------------------------------ wrappers
+def _check_shapes(q, k, v, causal: bool) -> None:
+    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
+        raise ValueError(f"flash attention wants q [BH, Tq, Dh] and k/v "
+                         f"[BH, Tk, Dh]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         f"differ in BH or Dh")
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(
+            f"causal attention requires Tq == Tk (got {q.shape[1]} vs "
+            f"{k.shape[1]}); cross-attention is non-causal")
+
+
+def _check_cuda(tensors: dict, dtype) -> None:
+    q = tensors["q"]
+    if q.shape[2] > MAX_HEAD_DIM or q.shape[0] > _MAX_BH:
+        raise ValueError(f"the CUDA flash kernels take Dh <= {MAX_HEAD_DIM} "
+                         f"and BH <= {_MAX_BH}; got {tuple(q.shape)}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash kernels take float32 or bfloat16, got "
+                        f"{dtype}")
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        want = torch.float32 if name in ("lse", "delta") else dtype
+        if t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}, expected {want}")
+
+
+def _stream(dev) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _on_card(q) -> bool:
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {q.device}")
+    return True
+
+
+def flash_attention_fwd(q, k, v, causal: bool,
+                        scale: Optional[float] = None,
+                        with_lse: bool = True):
+    """Kernel B3a: q [BH, Tq, Dh], k/v [BH, Tk, Dh] -> (o [BH, Tq, Dh] in
+    q's dtype, lse [BH, Tq] float32 or None when `with_lse` is false)."""
+    _check_shapes(q, k, v, causal)
+    if not _on_card(q):
+        o, lse = flash_attention_plain(q, k, v, causal, scale)
+        return o, (lse if with_lse else None)
+    _check_cuda(dict(q=q, k=k, v=v), q.dtype)
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library("flash_attention")
+    bh, tq, dh = q.shape
+    o = torch.empty_like(q)
+    lse = (torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    sc = scale if scale is not None else dh ** -0.5
+    rc = lib.dl4j_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), bh, tq, k.shape[1], dh,
+        sc, int(causal), _DTYPE_CODES[q.dtype], _stream(q.device))
+    cuda_build.check(lib, rc, "flash_attention_fwd")
+    LAUNCHES["flash_attention_fwd"] += 1
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
+                        scale: Optional[float] = None):
+    """Kernels B3b (dK, dV) and B3c (dQ) from the forward's residuals:
+    returns (dq, dk, dv) in the inputs' dtypes."""
+    _check_shapes(q, k, v, causal)
+    if o.shape != q.shape or do.shape != q.shape or \
+            lse.shape != q.shape[:2]:
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} and "
+                         f"lse {tuple(lse.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if not _on_card(q):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    # Δ = rowsum(do · o) in f32: one small reduction outside the kernels,
+    # as JAX computes it in XLA (`_run_flash_bwd`)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    _check_cuda(dict(q=q, k=k, v=v, o=o, do=do, lse=lse, delta=delta),
+                q.dtype)
+    dk, dv = launch_bwd_dkdv(q, k, v, do, lse, delta, causal, scale)
+    dq = launch_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+def _bwd_args(q, k, causal, scale):
+    bh, tq, dh = q.shape
+    sc = scale if scale is not None else dh ** -0.5
+    return (bh, tq, k.shape[1], dh, sc, int(causal), _DTYPE_CODES[q.dtype],
+            _stream(q.device))
+
+
+def launch_bwd_dkdv(q, k, v, do, lse, delta, causal: bool,
+                    scale: Optional[float] = None):
+    """Kernel B3b alone, on checked CUDA tensors: returns (dk, dv)."""
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library("flash_attention")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = lib.dl4j_flash_bwd_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_bwd_args(q, k, causal, scale))
+    cuda_build.check(lib, rc, "flash_attention_bwd_dkdv")
+    LAUNCHES["flash_attention_bwd_dkdv"] += 1
+    return dk, dv
+
+
+def launch_bwd_dq(q, k, v, do, lse, delta, causal: bool,
+                  scale: Optional[float] = None):
+    """Kernel B3c alone, on checked CUDA tensors: returns dq."""
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library("flash_attention")
+    dq = torch.empty_like(q)
+    rc = lib.dl4j_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_bwd_args(q, k, causal, scale))
+    cuda_build.check(lib, rc, "flash_attention_bwd_dq")
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = attention(q, k, v) over [BH, T, Dh] with the flash kernels as
+    forward and backward. The forward saves q, k, v, o and the lse only
+    when a gradient is wanted (so `output()` skips the lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        need = any(ctx.needs_input_grad[:3])
+        o, lse = flash_attention_fwd(q, k, v, causal, scale, with_lse=need)
+        if need:
+            ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def _fold3(x):
+    """[B, T, H, D] -> contiguous [BH, T, D] (3-D inputs pass through)."""
+    if x.ndim == 3:
+        return x.contiguous(), None
+    b, t, h, d = x.shape
+    # reshape may return a strided view (batch 1): the kernels want rows
+    return x.transpose(1, 2).reshape(b * h, t, d).contiguous(), \
+        (b, t, h, d)
+
+
+def _unfold3(x, shape):
+    if shape is None:
+        return x
+    b, t, h, d = shape
+    return x.reshape(b, h, t, d).transpose(1, 2)
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None):
+    """Fused attention. q/k/v: [B, T, H, D] (the layer's layout) or
+    [BH, T, D]; returns the same layout, differentiable in q, k and v."""
+    q3, shape = _fold3(q)
+    k3, _ = _fold3(k)
+    v3, _ = _fold3(v)
+    return _unfold3(FlashAttention.apply(q3, k3, v3, causal, scale), shape)

@@ -47,6 +47,22 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
                  _I, _P]),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
+    "flash_attention": {
+        "dl4j_flash_fwd": (
+            _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
+        "dl4j_flash_bwd_dkdv": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                 _I, _P]),
+        "dl4j_flash_bwd_dq": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                 _P]),
+        "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "fused_update": {
+        "dl4j_adam_multi": (
+            _I, [_P, _I, _I, _I, _P, _F, _F, _F, _F, _F, _I, _P]),
+        "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,15 +1,18 @@
 """Dispatch policies of the port (counterpart of
-`deeplearning4j_tpu/ops/kernel_defaults.py`), for the decode-serving
-slice: decode attention, the decode loop, KV storage dtype and the
-prefix cache.
+`deeplearning4j_tpu/ops/kernel_defaults.py`): decode attention, the
+decode loop, KV storage dtype and the prefix cache (serving), and
+full-context attention and the fused optimizer update (training).
 
 Same defaults as the JAX package: the fused K=8 decode window, native
 KV storage, and the paged prefix cache whenever the model can page.
 Each verdict is capability, then the structural default: the port has
 no measured rows yet. The TPU's rules are gone: there is no backend
-check and no 128-multiple page or cache rule, because the CUDA decode
-kernels take any length. The JAX package's env hatches are not
-mirrored; callers choose through the arguments.
+check and no 128-multiple page, cache or sequence rule, because the
+CUDA kernels take any length. So full-context attention goes to the
+flash kernels at any T, and Adam to the fused kernel, wherever the
+shape allows — JAX's measured-winner tables describe another chip. The
+JAX package's env hatches are not mirrored; callers choose through the
+arguments.
 """
 
 from __future__ import annotations
@@ -146,3 +149,69 @@ def prefix_cache_policy(page_len: Optional[int] = None, *,
         record_dispatch("prefix_cache", "paged")
     return PrefixCachePolicy("paged", want, "structural default: a warm "
                              "prefix replaces its whole prefill")
+
+
+class AttentionPolicy(NamedTuple):
+    kind: str            # "flash" | "dense"
+    reason: str
+
+
+def attention_policy(*, device="cuda", masked: bool = False,
+                     dropout: bool = False, window: Optional[int] = None,
+                     head_dim: int = 64) -> AttentionPolicy:
+    """Full-context (`apply`) attention: the flash kernels B3a/B3b/B3c
+    (`ops/attention.flash_attention`) or the dense masked softmax.
+
+    Flash whenever the structure allows, at any Tq and Tk and in training
+    as in inference: the dense path holds B·H·Tq·Tk float32 scores (1 GiB
+    a layer at batch 8, 8 heads, T 2048) before softmax and its gradient.
+    A padding mask or attention dropout needs the dense path, as in JAX
+    (the weights never materialize inside the kernels); so does a sliding
+    window until the banded kernel B4 is ported. On CPU tensors "flash"
+    means the kernels' plain versions; the count records impl="plain".
+    On the card a head dim past the kernels' largest tile is refused:
+    a CUDA tensor never falls back to a plain version."""
+    from deeplearning4j_tpu_torch.ops.attention import MAX_HEAD_DIM
+
+    on_card = torch.device(device).type == "cuda"
+    if masked or dropout:
+        kind, reason = "dense", ("a padding mask" if masked
+                                 else "attention dropout") + \
+            " needs the attention weights"
+    elif window is not None:
+        kind, reason = "dense", "banded kernel B4 not ported"
+    elif on_card and head_dim > MAX_HEAD_DIM:
+        raise ValueError(f"no CUDA flash kernel for head dim {head_dim}: "
+                         f"the kernels take at most {MAX_HEAD_DIM}")
+    else:
+        kind = "flash"
+        reason = ("the hand-written CUDA flash kernels" if on_card
+                  else "the flash kernels' plain versions (CPU tensors)")
+    record_dispatch("attention", kind if (on_card or kind == "dense")
+                    else "plain")
+    return AttentionPolicy(kind, reason)
+
+
+class FusedUpdatePolicy(NamedTuple):
+    kind: str            # "fused" | "plain"
+    reason: str
+
+
+def fused_update_policy(kind: str, device="cuda") -> FusedUpdatePolicy:
+    """Optimizer read-modify-write: Adam goes to the fused kernel B1a on
+    the card (its plain version on CPU tensors); Nesterovs runs plain
+    tensor math everywhere until B1b is ported."""
+    op = {"adam": "adam_update", "nesterov": "nesterov_update"}.get(kind)
+    if op is None:
+        raise ValueError(f"unknown fused update {kind!r} "
+                         "(expected adam|nesterov)")
+    on_card = torch.device(device).type == "cuda"
+    if kind == "adam" and on_card:
+        pol = FusedUpdatePolicy("fused", "the hand-written CUDA kernel B1a")
+    elif kind == "adam":
+        pol = FusedUpdatePolicy("plain", "the kernel's plain version "
+                                "(CPU tensors)")
+    else:
+        pol = FusedUpdatePolicy("plain", "kernel B1b not ported")
+    record_dispatch(op, pol.kind)
+    return pol

@@ -1,0 +1,121 @@
+"""The fit-loop engine — port of `deeplearning4j_tpu/optim/executor.py`,
+per-step dispatch.
+
+- `LossTracker` keeps the latest loss as the device tensor the step
+  returned and turns it into a Python float only on demand: reading
+  ``score_``, a listener calling ``float(score)``, a ``sync_every=N``
+  cadence, or the one read at the end of each epoch. So the steady loop
+  makes no host sync, and the host runs ahead enqueueing steps.
+- `TrainingExecutor` owns the epoch and batch loop, iteration
+  bookkeeping, ETL timing, listener fan-out and the epoch-end read.
+
+Not ported yet: fused K-step dispatch (`steps_per_dispatch > 1`, a CUDA
+graph of the step), the recovery hooks (checkpointing, resume, stop) and
+the tracing spans.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.observe import get_registry
+
+__all__ = ["LossTracker", "TrainingExecutor"]
+
+
+class LossTracker:
+    """Deferred-sync score holder. ``host_syncs`` counts the reads that
+    waited for the device."""
+
+    def __init__(self, sync_every: int = 0):
+        self.sync_every = int(sync_every)
+        self._raw: Any = None
+        self._cached: Optional[float] = None
+        self._since_sync = 0
+        self.host_syncs = 0
+        self.updates = 0
+
+    def set(self, loss) -> None:
+        self._raw = loss
+        self._cached = None
+
+    def update(self, loss) -> None:
+        self.set(loss)
+        self.updates += 1
+        self._since_sync += 1
+        if self.sync_every and self._since_sync >= self.sync_every:
+            self.materialize()
+
+    @property
+    def value(self) -> Optional[float]:
+        """The tracked loss as a float — the sync point."""
+        if self._raw is None:
+            return None
+        if self._cached is None:
+            if isinstance(self._raw, torch.Tensor) and self._raw.is_cuda:
+                self.host_syncs += 1
+            self._cached = float(self._raw)
+            self._since_sync = 0
+        return self._cached
+
+    def peek(self):
+        """The loss without forcing a sync (a tensor if never read)."""
+        return self._raw if self._cached is None else self._cached
+
+    def materialize(self) -> Optional[float]:
+        return self.value
+
+
+class TrainingExecutor:
+    """The epoch/batch/listener loop. `step(ds) -> loss` runs one
+    training step and returns the device loss."""
+
+    def __init__(self, net, *, step: Callable):
+        self.net = net
+        self.step = step
+        reg = get_registry()
+        self._iter_counter = reg.counter("train_iterations")
+        self._etl_hist = reg.histogram("train_etl_ms")
+        self._dispatch_hist = reg.histogram("train_dispatch_ms")
+
+    def run(self, iterable, epochs: int):
+        net = self.net
+        listeners = net.listeners
+        for l in listeners:
+            l.on_fit_start(net)
+        for _ in range(epochs):
+            for l in listeners:
+                l.on_epoch_start(net, net.epoch)
+            etl_start = time.perf_counter()
+            for ds in iter(iterable):
+                etl_ms = (time.perf_counter() - etl_start) * 1e3
+                t_d = time.perf_counter()
+                loss = self.step(ds)
+                self._finish(loss, etl_ms,
+                             (time.perf_counter() - t_d) * 1e3)
+                etl_start = time.perf_counter()
+            for l in listeners:
+                l.on_epoch_end(net, net.epoch)
+            net.epoch += 1
+            # the one read an epoch: score_ is a float at every epoch end
+            net._loss_tracker.materialize()
+        for l in listeners:
+            l.on_fit_end(net)
+        return net
+
+    def _finish(self, loss, etl_ms: float, dispatch_ms: float) -> None:
+        net = self.net
+        net._loss_tracker.update(loss)
+        net.iteration += 1
+        self._iter_counter.inc()
+        self._etl_hist.observe(etl_ms)
+        # host-side enqueue time of the step, not its device time
+        self._dispatch_hist.observe(dispatch_ms)
+        for l in net.listeners:
+            if hasattr(l, "set_etl_time"):
+                l.set_etl_time(etl_ms)
+            l.iteration_done(net, net.iteration, net.epoch,
+                             net._loss_tracker.peek())

@@ -137,13 +137,18 @@ class KVSlotPool:
         """Zero the slot's carry rows and return it to the free list.
         Idempotent."""
         with self._cv:
-            if not self._active[slot]:
-                return
-            self._reset_locked(slot)
-            self._active[slot] = False
-            self._free.append(slot)
-            self._g_used.set(self.slots - len(self._free))
-            self._cv.notify_all()
+            self.free_locked(slot)
+
+    def free_locked(self, slot: int) -> None:
+        """`free` for a caller that holds `lock()`, so that a session's
+        teardown releases its pages and its slot in one critical section."""
+        if not self._active[slot]:
+            return
+        self._reset_locked(slot)
+        self._active[slot] = False
+        self._free.append(slot)
+        self._g_used.set(self.slots - len(self._free))
+        self._cv.notify_all()
 
     # ------------------------------------------------------ paged mode
     # `*_locked` methods: the caller holds `lock()` for the whole

@@ -520,14 +520,15 @@ class DecodeSessionManager:
                        else "failed")
         sess.outcome = outcome
         sess.error = error
-        self.pool.free(sess.slot)
-        if self.prefix_enabled and sess._pages:
-            # release the session's page references; pages the radix
-            # index adopted survive on its own refcount
-            with self.pool.lock():
-                for p in sess._pages:
-                    self.pool.page_unref_locked(p)
+        # release the session's page references (pages the radix index
+        # adopted survive on its own refcount) and its slot in ONE
+        # critical section: an admission waiting for a slot counts the
+        # free pages as soon as it gets one, so the pages go back first
+        with self.pool.lock():
+            for p in sess._pages if self.prefix_enabled else ():
+                self.pool.page_unref_locked(p)
             sess._pages = []
+            self.pool.free_locked(sess.slot)
         self._c_out[outcome].inc()
         self._g_active.set(n_active)
         if error is not None:

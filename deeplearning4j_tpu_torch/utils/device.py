@@ -13,14 +13,17 @@ import torch
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """`None` means the current CUDA device; raises when there is none.
-    Any explicit device (`"cpu"`, `"cuda:1"`) is taken as given."""
+    Any explicit device (`"cpu"`, `"cuda:1"`) is taken as given; a bare
+    `"cuda"` gets the current device's index, so the net's device equals
+    its tensors' `.device`."""
     if device is None:
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run "
-                "the port on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+                f"device {dev} requested but no CUDA device is available; "
+                f"pass device='cpu' to run the port on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -5,9 +5,9 @@ configuration written by the JAX package (`conf.to_json()`) loads here
 into the port's own classes with the same `@class` discriminators.
 
 One deliberate difference: a tagged dict whose class the port has not
-ported yet (an updater, say, which decode serving never reads) is kept
-as plain data instead of raising, so a JAX training config still loads
-for serving and writes back out unchanged.
+ported yet is kept as plain data instead of raising, so such a JAX
+config still loads and writes back out unchanged (`MultiLayerConfiguration
+.from_json` then refuses a layer that is not ported).
 """
 
 from __future__ import annotations

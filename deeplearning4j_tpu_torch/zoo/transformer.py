@@ -2,7 +2,8 @@
 the GPT-style causal byte LM built from EmbeddingSequenceLayer +
 PositionEmbeddingLayer + TransformerEncoderBlock + RnnOutputLayer, with
 the same options (RoPE, RMSNorm, SwiGLU, GQA, per-block windows, rolling
-cache) and the same configuration for the same arguments."""
+cache) and the same configuration for the same arguments, its default
+updater `Adam(3e-4)` included."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
     EmbeddingSequenceLayer, PositionEmbeddingLayer, RnnOutputLayer,
     TransformerEncoderBlock,
 )
+from deeplearning4j_tpu_torch.optim.updaters import Adam
 from deeplearning4j_tpu_torch.zoo.base import ZooModel, register_zoo
 
 
@@ -85,7 +87,7 @@ class TextGenerationTransformer(ZooModel):
         pos = [] if rope else [PositionEmbeddingLayer(max_length=t)]
         return (NeuralNetConfiguration.builder()
                 .seed(self.seed)
-                .updater(self.kw.get("updater"))
+                .updater(self.kw.get("updater", Adam(3e-4)))
                 .activation("identity")
                 .weight_init("xavier")
                 .list(

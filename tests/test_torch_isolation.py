@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of `deeplearning4j_tpu_torch`,
-and neither `chip_smoke.py` nor `tools/torch_decode_profile.py`, imports
+and neither `chip_smoke.py` nor the profilers under `tools/`, imports
 JAX or the JAX package, and the whole port imports in a process where
 `jax` cannot be imported at all."""
 
@@ -14,7 +14,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "deeplearning4j_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_decode_profile.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_decode_profile.py",
+    ROOT / "tools" / "torch_train_profile.py"]
 
 
 def _imported_modules(path):

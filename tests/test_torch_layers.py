@@ -3,7 +3,6 @@ package, on the CPU, from the same seeded numpy inputs and the JAX
 weights carried across with `params_from_numpy`. Tolerance 1e-5 in
 float32 (both sides float32; they differ only in summation order)."""
 
-import dataclasses
 import json
 
 import numpy as np
@@ -217,18 +216,19 @@ def test_output_logits_match_jax(variant):
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_config_from_jax_json_is_the_ports_own(variant):
     """The JAX config's JSON builds the same layers as the port's own zoo
-    model (up to the updater, training config the port keeps as opaque
-    data), and writes back out as the same JSON."""
+    model, each layer's cascaded updater (the zoo's `Adam(3e-4)`)
+    included, and writes back out as the same JSON."""
     jconf = JaxTGT(input_shape=(16, 1), d_model=32, num_heads=4,
                    num_blocks=2, **VARIANTS[variant]).conf()
     from_jax = MultiLayerConfiguration.from_json(jconf.to_json())
     own = TextGenerationTransformer(input_shape=(16, 1), d_model=32,
                                     num_heads=4, num_blocks=2,
                                     **VARIANTS[variant]).conf()
-    assert [dataclasses.replace(l, updater=None)
-            for l in from_jax.layers] == list(own.layers)
+    assert list(from_jax.layers) == list(own.layers)
+    assert from_jax.updater == own.updater
     assert from_jax.input_type == own.input_type
     assert json.loads(from_jax.to_json()) == json.loads(jconf.to_json())
+    assert json.loads(own.to_json()) == json.loads(jconf.to_json())
 
 
 def test_params_from_numpy_checks_names_and_shapes():

@@ -417,3 +417,43 @@ def test_concurrent_sessions_over_several_workers_keep_their_streams():
     # the same prompt twice in a row gives the same stream
     again = _serve("torch", pnet, [[prompts[6]]], page_len=page_len)[0][0][0]
     assert results[6] == again
+
+
+def test_session_teardown_returns_its_pages_before_its_slot():
+    """An admission blocked on a free slot counts free pages as soon as
+    it gets the slot, so a finishing session gives its pages back first,
+    in the same critical section: no page may come free after the slot
+    has. (With the slot freed first, 12 sessions through 4 slots could
+    find 'need 4 KV pages, 3 free'.)"""
+    from deeplearning4j_tpu_torch.serving import (
+        ContinuousBatchingScheduler, DecodeSessionManager, ModelRegistry,
+        ServingStats,
+    )
+
+    _, page_len, _, pnet = _build("paged")
+    registry = ModelRegistry()
+    registry.deploy("default", 1, pnet, warm=False)
+    stats = ServingStats()
+    sched = ContinuousBatchingScheduler(registry, stats, max_batch_size=8)
+    mgr = DecodeSessionManager(registry, sched, "default", slots=2,
+                               prefill_chunk=8, fused_k=4,
+                               page_len=page_len, metrics=stats.registry)
+    pool = mgr.pool
+    at_free = []
+    free_locked = pool.free_locked
+
+    def spy(slot):
+        at_free.append(pool.pages_free_locked())
+        free_locked(slot)
+
+    pool.free_locked = spy
+    try:
+        for p in _prompts(21, [9, 14]):
+            mgr.open_session(p, max_tokens=10, greedy=True).result(
+                timeout=120)
+            with pool.lock():
+                after = pool.pages_free_locked()
+            assert at_free[-1] == after
+    finally:
+        sched.shutdown()
+        registry.close()
