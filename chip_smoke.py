@@ -25,6 +25,17 @@ exits non-zero with no result line:
      float32 and bfloat16, steps 1 and 1000, against
      `torch.optim.Adam(fused=True)` (which puts ε inside the bias
      correction: a time yardstick, not the same function);
+   - the fused LSTM forward B2a (with residuals) and B2b (inference) and
+     the backward B2c (its reverse-time kernel and its weight-gradient
+     launch) at the recurrent paths' shapes (T 128, B 64, H 512; T 200,
+     50 and 1 at B 32, H 256), peepholes on and off, masked and not,
+     against cuDNN's LSTM (`torch.nn.LSTM`, which also does the input
+     projection and has no peepholes or mask: a time yardstick) and, for
+     the weight gradients, one `torch.matmul`;
+   - the fused Nesterovs B1b over the LSTM training path's leaves and
+     odd sizes, float32 and bfloat16, against `torch.optim.SGD(momentum,
+     nesterov=True, fused=True)` (PyTorch's form of Nesterov momentum,
+     not ND4J's: a time yardstick);
 3. path_a: decode serving of `TextGenerationTransformer` at the width
    of the repo's largest transformer (d_model 512, 8 heads, 6 blocks,
    T 2048) through `DecodeSessionManager`, prefix cache on, so the
@@ -43,7 +54,21 @@ exits non-zero with no result line:
    `torch.cuda.set_sync_debug_mode("error")`, and the losses are read
    after the steps;
 7. train_parity: two Adam steps of a 2-block model at T 256 on the card
-   against the same on the CPU, same weights and batch.
+   against the same on the CPU, same weights and batch;
+8. path_l: training of the repo's LSTM bench model at full width
+   (GravesLSTM(512) x 2 + RnnOutputLayer(64), input width 128, T 128,
+   batch 64, float32, Nesterovs(0.01, 0.9)) through `net.fit`: 4 fixed
+   batches, two of them with ragged feature masks, 3 epochs, 12 steps;
+   B2a and B2c run twice a step and B1b once; steps 2-12 run under
+   `torch.cuda.set_sync_debug_mode("error")`;
+9. path_g: the zoo's `TextGenerationLSTM` (LSTM(256) x 2, 77 characters,
+   Adam(1e-3), tBPTT 50) at its own width: one epoch of `fit` on 2
+   batches of 32 one-hot sequences of T 200 (four chunks of 50 with the
+   carries handed on: B2a, B2c, B1a), `output()` on one batch (B2b at
+   T 200), then a greedy loop of 200 `rnn_time_step` calls for 32
+   streams (B2b at T 1, twice a call);
+10. lstm_parity: both recurrent models at T 32, batch 4: two `fit` steps
+    and 8 `rnn_time_step` calls on the card against the same on the CPU.
 
 Weights are random, from fixed seeds. Each path resets the kernels'
 launch counts just before it runs and reads them just after; a kernel
@@ -82,6 +107,15 @@ REPLACES = {
         "deeplearning4j_tpu/ops/attention.py:251 (_flash_bwd_dq_kernel)",
     "adam_update":
         "deeplearning4j_tpu/ops/fused_update.py:46 (_adam_kernel)",
+    "nesterov_update":
+        "deeplearning4j_tpu/ops/fused_update.py:63 (_nesterov_kernel)",
+    "lstm_fwd": "deeplearning4j_tpu/ops/lstm.py:61 (_fwd_kernel)",
+    "lstm_fwd_inference":
+        "deeplearning4j_tpu/ops/lstm.py:92 (_fwd_kernel_inference)",
+    "lstm_bwd": "deeplearning4j_tpu/ops/lstm.py:166 (_bwd_kernel: dxw, "
+                "dh0, dc0)",
+    "lstm_bwd_weights": "deeplearning4j_tpu/ops/lstm.py:166 (_bwd_kernel: "
+                        "dRW, dP)",
 }
 SOURCES = {
     "banded_decode_attention":
@@ -94,6 +128,11 @@ SOURCES = {
     "flash_attention_bwd_dq":
         "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
     "adam_update": "deeplearning4j_tpu_torch/csrc/fused_update.cu",
+    "nesterov_update": "deeplearning4j_tpu_torch/csrc/fused_update.cu",
+    "lstm_fwd": "deeplearning4j_tpu_torch/csrc/lstm.cu",
+    "lstm_fwd_inference": "deeplearning4j_tpu_torch/csrc/lstm.cu",
+    "lstm_bwd": "deeplearning4j_tpu_torch/csrc/lstm.cu",
+    "lstm_bwd_weights": "deeplearning4j_tpu_torch/csrc/lstm.cu",
 }
 # products a kernel computes over each visible (query, key) pair, 2 Dh
 # flops each: forward S and PV; dK/dV kernel S, dP, dV, dK; dQ kernel
@@ -472,6 +511,228 @@ def run_adam_phase(flush, gen):
     return rows
 
 
+# --------------------------------------------- kernels: Nesterovs (B1b)
+def run_nesterov_phase(flush, gen):
+    """B1b against its plain version over the LSTM training path's real
+    leaves (its Nesterovs(0.01, 0.9)) and odd sizes (another momentum),
+    float32 and bfloat16. Bound: read p, g, v and write p, v once (5
+    tensors of n elements) over HBM bandwidth."""
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
+
+    dev = flush.device
+    net = build_lstm_net("cuda", seed=3)
+    real = [tuple(p.shape) for p in tree_leaves(net.params_tree)]
+    del net
+    odd = [(1,), (127,), (4097,), ((1 << 20) + 3,)]
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for leafset, mu in (("real", 0.9), ("odd", 0.8)):
+            shapes = real if leafset == "real" else odd
+            lr = torch.tensor(0.01, device=dev)
+            leaves = [(torch.randn(s, generator=gen).to(dev, dt),
+                       torch.randn(s, generator=gen).to(dev, dt),
+                       (0.1 * torch.randn(s, generator=gen)).to(dev, dt))
+                      for s in shapes]
+            ref = [fu.nesterov_update_plain(*leaf, lr, momentum=mu)
+                   for leaf in leaves]
+            fu.nesterov_update(*zip(*leaves), lr, momentum=mu)
+            torch.cuda.synchronize()
+            rtol = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -22
+            err, ok = 0.0, True
+            for (p, _, v), r in zip(leaves, ref):
+                for got, want in zip((p, v), r):
+                    d = (got.float() - want.float()).abs()
+                    err = max(err, d.max().item())
+                    ok = ok and bool((d <= rtol * want.float().abs()).all())
+            check(ok, f"nesterov_update {leafset} {dt}: max abs err {err} "
+                  f"past {rtol} of |ref|")
+            n = sum(p.numel() for p, *_ in leaves)
+            row = {"phase": "kernels", "kernel": "nesterov_update",
+                   "dtype": str(dt).replace("torch.", ""),
+                   "leaves": leafset, "n_leaves": len(leaves),
+                   "elements": n, "momentum": mu, "max_abs_err": err,
+                   "rtol": rtol, "main_path_shape":
+                   leafset == "real" and dt == torch.float32,
+                   "bound_ms": 5 * n * leaves[0][0].element_size()
+                   / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+            lists = list(zip(*leaves))
+            row["ms"] = time_ms(lambda: fu.nesterov_update(
+                *lists, lr, momentum=mu), flush)
+            if leafset == "real":
+                row["plain_ms"] = time_ms(lambda: [
+                    fu.nesterov_update_plain(*leaf, lr, momentum=mu)
+                    for leaf in leaves], flush, iters=10)
+                ps = [torch.nn.Parameter(p) for p, *_ in leaves]
+                for prm, (_, g, _) in zip(ps, leaves):
+                    prm.grad = g
+                opt = torch.optim.SGD(ps, lr=0.01, momentum=mu,
+                                      nesterov=True, fused=True)
+                row["library_ms"] = time_ms(opt.step, flush)
+                del opt, ps
+            emit(row)
+            rows.append(row)
+            del leaves, ref, lists
+    return rows
+
+
+# ----------------------------------------------- kernels: LSTM (B2a-c)
+def lstm_cases():
+    """(T, B, H, input width, which kernels the recurrent paths run at
+    this shape): `path_l` trains at T 128; `path_g` trains in chunks of
+    T 50, runs `output()` at T 200 and steps at T 1."""
+    return [dict(T=128, B=64, H=512, F=128, main=("lstm_fwd", "lstm_bwd",
+                                                  "lstm_bwd_weights")),
+            dict(T=200, B=32, H=256, F=77, main=("lstm_fwd_inference",)),
+            dict(T=50, B=32, H=256, F=77, main=()),
+            dict(T=1, B=32, H=256, F=77, main=())]
+
+
+def lstm_bounds(T, B, H):
+    """{kernel: (bound_ms, bound_by)}: each kernel's product, 2·T·B·H·4H
+    flops at the float32 peak, against the bytes it must move (inputs
+    read once, outputs written once) over HBM bandwidth."""
+    ops_ms = 2.0 * T * B * H * 4 * H / PEAK_FLOPS[torch.float32] * 1e3
+    seq, small = T * B * H, H * 4 * H + 3 * H + 2 * B * H
+    nbytes = {
+        # xw, rw, p, h0, c0, mask in; hs, hT, cT (+ cs, gates) out
+        "lstm_fwd_inference": 4 * seq + small + T * B + seq + 2 * B * H,
+        "lstm_fwd": 4 * seq + small + T * B + 6 * seq + 2 * B * H,
+        # dhs, gates, cs, rwT, p, mask, dhT, dcT, c0 in; dxw, dh0, dc0 out
+        "lstm_bwd": 6 * seq + small + B * H + T * B + 4 * seq + 2 * B * H,
+        # hs, h0, dxw in; drw, dp out
+        "lstm_bwd_weights": 5 * seq + B * H + H * 4 * H + 3 * H}
+    out = {}
+    for k, n in nbytes.items():
+        t_bytes = 4.0 * n / HBM_BYTES_PER_S * 1e3
+        out[k] = (t_bytes, "bytes") if t_bytes >= ops_ms \
+            else (ops_ms, "operations")
+    return out
+
+
+def run_lstm_case(c, flush, gen):
+    """Every variant (peepholes on/off x masked or not) of one shape
+    against the plain versions; the main variant (peepholes on, masked)
+    is the one timed. Tolerances (sums of H products in another order,
+    carried through T steps): 1e-4 absolute on hs and the gates, which
+    lie in [-1, 1]; 1e-4 of the reference's largest magnitude (at least
+    1) on the cell states, which are not bounded, and on each
+    gradient."""
+    from deeplearning4j_tpu_torch.ops import lstm as lk
+
+    dev = flush.device
+    T, B, H, F = c["T"], c["B"], c["H"], c["F"]
+    with_bwd = T > 1
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+
+    errs = {k: 0.0 for k in lk.LAUNCHES}
+    timed = None
+    for peep in (False, True):
+        for masked in (False, True):
+            xw, rw = rnd(T, B, 4 * H), rnd(H, 4 * H, scale=H ** -0.5)
+            p = rnd(3, H, scale=0.5) if peep else torch.zeros(3, H,
+                                                              device=dev)
+            h0, c0 = rnd(B, H, scale=0.5), rnd(B, H, scale=0.5)
+            mask = torch.ones(T, B, device=dev)
+            if masked and T > 1:
+                lens = torch.randint(T // 4, T, (B,), generator=gen)
+                mask = (torch.arange(T)[:, None] < lens[None, :]
+                        ).float().to(dev)
+            ins = (xw, rw, p, h0, c0, mask)
+            tag = f"T{T} B{B} H{H} peep={peep} masked={masked}"
+            got = lk.lstm_fwd(*ins, with_residuals=True)
+            inf = lk.lstm_fwd(*ins, with_residuals=False)
+            ref = lk.lstm_fwd_plain(*ins, with_residuals=True)
+            torch.cuda.synchronize()
+            e = 0.0
+            for name, a, b in zip(("hs", "cs", "gates", "hT", "cT"), got,
+                                  ref):
+                tol = 1e-4 * max(1.0, b.abs().max().item()) \
+                    if name in ("cs", "cT") else 1e-4
+                d = (a - b).abs().max().item()
+                check(d <= tol, f"lstm_fwd {tag}: {name} err {d} past {tol}")
+                e = max(e, d)
+            check(all(torch.equal(a, b) for a, b in
+                      ((got[0], inf[0]), (got[3], inf[3]), (got[4], inf[4]))),
+                  f"lstm_fwd_inference {tag} differs from lstm_fwd")
+            errs["lstm_fwd"] = max(errs["lstm_fwd"], e)
+            errs["lstm_fwd_inference"] = max(errs["lstm_fwd_inference"], e)
+            bw = None
+            if with_bwd:
+                hs, cs, gates = ref[0], ref[1], ref[2]
+                dhs, dhT, dcT = rnd(T, B, H), rnd(B, H), rnd(B, H)
+                bw = (rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT)
+                gk = lk.lstm_bwd(*bw)
+                gr = lk.lstm_bwd_plain(*bw)
+                torch.cuda.synchronize()
+                for name, a, b in zip(("dxw", "dh0", "dc0", "drw", "dp"),
+                                      gk, gr):
+                    tol = 1e-4 * b.abs().max().item()
+                    d = (a - b).abs().max().item()
+                    check(d <= tol, f"lstm_bwd {tag}: {name} err {d} past "
+                          f"{tol} (1e-4 of the largest |ref|)")
+                    k = "lstm_bwd_weights" if name in ("drw", "dp") \
+                        else "lstm_bwd"
+                    errs[k] = max(errs[k], d)
+            if peep and masked:
+                timed = (ins, bw)
+    ins, bw = timed
+    xw, rw, p, h0, c0, mask = ins
+    runs = {"lstm_fwd": lambda: lk.lstm_fwd(*ins, with_residuals=True),
+            "lstm_fwd_inference": lambda: lk.lstm_fwd(
+                *ins, with_residuals=False)}
+    plain = {"lstm_fwd": lambda: lk.lstm_fwd_plain(*ins),
+             "lstm_fwd_inference": lambda: lk.lstm_fwd_plain(
+                 *ins, with_residuals=False)}
+    # the library yardstick: cuDNN's LSTM over x [T, B, F], which also
+    # does the input projection and has no peepholes and no mask
+    cudnn = torch.nn.LSTM(F, H).to(dev)
+    x = rnd(T, B, F)
+    state = (h0[None].contiguous(), c0[None].contiguous())
+
+    def lib_inference():
+        with torch.no_grad():
+            return cudnn(x, state)
+
+    lib = {"lstm_fwd": lambda: cudnn(x, state),
+           "lstm_fwd_inference": lib_inference}
+    if with_bwd:
+        rwT = rw.t().contiguous()
+        _, _, _, hs, cs, gates, _, _, dhs, dhT, dcT = bw
+        dxw = lk.launch_bwd_recurrence(rwT, p, mask, cs, gates, c0, dhs,
+                                       dhT, dcT)
+        runs["lstm_bwd"] = lambda: lk.launch_bwd_recurrence(
+            rwT, p, mask, cs, gates, c0, dhs, dhT, dcT)
+        runs["lstm_bwd_weights"] = lambda: lk.launch_bwd_weights(
+            hs, h0, dxw[0], dxw[3])
+        plain["lstm_bwd"] = plain["lstm_bwd_weights"] = \
+            lambda: lk.lstm_bwd_plain(*bw)
+        y, _ = cudnn(x.requires_grad_(), state)
+        wrt = [x] + list(cudnn.parameters())
+        lib["lstm_bwd"] = lambda: torch.autograd.grad(
+            y, wrt, dhs, retain_graph=True)
+        hprev = torch.cat([h0[None], hs[:-1]]).reshape(T * B, H)
+        flat = dxw[0].reshape(T * B, 4 * H)
+        lib["lstm_bwd_weights"] = lambda: torch.matmul(hprev.t(), flat)
+    bounds = lstm_bounds(T, B, H)
+    rows = []
+    for name, fn in runs.items():
+        timed_plain = name in c["main"] or T == 128
+        row = {"phase": "kernels", "kernel": name, "dtype": "float32",
+               "T": T, "B": B, "H": H, "max_abs_err": errs[name],
+               "ms": time_ms(fn, flush),
+               "plain_ms": time_ms(plain[name], flush, iters=5)
+               if timed_plain else None,
+               "library_ms": time_ms(lib[name], flush),
+               "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+               "main_path_shape": name in c["main"]}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
 # ------------------------------------------------------ serving phases
 def build_net(device, *, num_blocks, seed, t=2048, **kw):
     from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
@@ -683,23 +944,40 @@ def lm_batches(rng, n, batch, t, vocab=256):
     return out
 
 
-def path_t(rng, epochs=3):
-    """Full width training: 6 blocks, T 2048, batch 8, float32, the zoo's
-    default Adam(3e-4), 4 fixed batches x 3 epochs = 12 steps through
-    `net.fit`. Step times come from CUDA events recorded after each step
-    is enqueued; steps 2-12 run with host syncs made errors; the losses
-    stay on the device until the fit has returned."""
+def reset_all_counts():
     from deeplearning4j_tpu_torch.ops import attention as fa
     from deeplearning4j_tpu_torch.ops import banded_attention as ba
     from deeplearning4j_tpu_torch.ops import fused_update as fu
-    from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
-    from deeplearning4j_tpu_torch.optim.updaters import Adam
+    from deeplearning4j_tpu_torch.ops import lstm as lk
 
-    B, T = 8, 2048
-    net = build_net("cuda", num_blocks=6, seed=5)
-    check(net.conf.updater == Adam(3e-4),
-          f"path_t: zoo updater is {net.conf.updater}, not Adam(3e-4)")
-    batches = lm_batches(rng, 4, B, T)
+    for mod in (fa, fu, ba, lk):
+        mod.reset_counts()
+
+
+def read_all_counts():
+    """(launches, plain calls on CUDA tensors) of every kernel module."""
+    from deeplearning4j_tpu_torch.ops import attention as fa
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.ops import lstm as lk
+
+    launches, plain = {}, {}
+    for mod in (fa, fu, ba, lk):
+        launches.update(mod.LAUNCHES)
+        plain.update({f"{mod.__name__.rsplit('.', 1)[1]}.{k}": v
+                      for k, v in mod.PLAIN_ON_CUDA.items()})
+    return launches, plain
+
+
+def timed_fit(name, net, batches, epochs, tokens_per_step):
+    """`net.fit(batches, epochs)` with every launch count zeroed just
+    before and read just after. Step times come from CUDA events recorded
+    after each step is enqueued; every step after the first runs with
+    host syncs made errors; the losses stay on the device until the fit
+    has returned. Checks the step count, finite losses and a falling
+    epoch mean loss; returns the measurements common to the training
+    paths."""
+    from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
 
     class Clock(TrainingListener):
         def __init__(self):
@@ -733,29 +1011,50 @@ def path_t(rng, epochs=3):
     net._fit_batch = guarded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in (fa, fu, ba):
-        mod.reset_counts()
+    reset_all_counts()
     t0 = time.perf_counter()
     net.fit(batches, epochs=epochs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**fa.LAUNCHES, **fu.LAUNCHES}
-    plain_on_cuda = {**fa.PLAIN_ON_CUDA, **fu.PLAIN_ON_CUDA,
-                     **ba.PLAIN_ON_CUDA}
+    launches, plain_on_cuda = read_all_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in clock.losses]       # read after the steps
     steps = len(losses)
     ev = clock.events
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
-    tok_s = (steps - 2) * B * T / (ev[2].elapsed_time(ev[steps]) / 1e3)
     per_epoch = len(batches)
     epoch_loss = [float(np.mean(losses[i:i + per_epoch]))
                   for i in range(0, steps, per_epoch)]
-    check(steps == epochs * per_epoch, f"path_t: {steps} steps ran")
-    check(all(np.isfinite(losses)), f"path_t: losses {losses}")
+    check(steps == epochs * per_epoch, f"{name}: {steps} steps ran")
+    check(all(np.isfinite(losses)), f"{name}: losses {losses}")
     check(epoch_loss[-1] < epoch_loss[0],
-          f"path_t: mean loss did not fall: {epoch_loss}")
-    blocks = 6
+          f"{name}: mean loss did not fall: {epoch_loss}")
+    check(sum(plain_on_cuda.values()) == 0,
+          f"{name}: plain versions ran on CUDA tensors: {plain_on_cuda}")
+    return {"steps": steps,
+            "tokens_per_s_steps_3_12": (steps - 2) * tokens_per_step
+            / (ev[2].elapsed_time(ev[steps]) / 1e3),
+            "step_ms_p50": float(np.median(step_ms[1:])),
+            "step_ms_max": max(step_ms[1:]), "step_ms_first": step_ms[0],
+            "step_ms": step_ms, "wall_s": wall,
+            "max_memory_allocated_bytes": peak,
+            "epoch_mean_loss": epoch_loss, "losses": losses,
+            "launches": launches, "plain_on_cuda": plain_on_cuda,
+            "sync_debug_mode": "error in steps 2-12"}
+
+
+def path_t(rng, epochs=3):
+    """Full width training: 6 blocks, T 2048, batch 8, float32, the zoo's
+    default Adam(3e-4), 4 fixed batches x 3 epochs = 12 steps through
+    `net.fit` (`timed_fit`)."""
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    B, T, blocks = 8, 2048, 6
+    net = build_net("cuda", num_blocks=blocks, seed=5)
+    check(net.conf.updater == Adam(3e-4),
+          f"path_t: zoo updater is {net.conf.updater}, not Adam(3e-4)")
+    fit = timed_fit("path_t", net, lm_batches(rng, 4, B, T), epochs, B * T)
+    steps, launches = fit["steps"], fit["launches"]
     for name in ("flash_attention_fwd", "flash_attention_bwd_dkdv",
                  "flash_attention_bwd_dq"):
         check(launches[name] == blocks * steps,
@@ -764,19 +1063,10 @@ def path_t(rng, epochs=3):
     check(launches["adam_update"] == steps,
           f"path_t: adam_update launched {launches['adam_update']} times, "
           f"want one a step x {steps}")
-    check(sum(plain_on_cuda.values()) == 0,
-          f"path_t: plain versions ran on CUDA tensors: {plain_on_cuda}")
     row = {"phase": "path_t", "model": "TextGenerationTransformer",
            "d_model": 512, "heads": 8, "blocks": blocks, "T": T,
            "batch": B, "dtype": "float32", "updater": str(net.conf.updater),
-           "steps": steps, "tokens_per_s_steps_3_12": tok_s,
-           "step_ms_p50": float(np.median(step_ms[1:])),
-           "step_ms_max": max(step_ms[1:]), "step_ms_first": step_ms[0],
-           "step_ms": step_ms, "wall_s": wall,
-           "max_memory_allocated_bytes": peak, "epoch_mean_loss": epoch_loss,
-           "losses": losses, "launches": launches,
-           "plain_on_cuda": plain_on_cuda,
-           "sync_debug_mode": "error in steps 2-12"}
+           **fit}
     emit(row)
     return row
 
@@ -817,6 +1107,234 @@ def train_parity(rng, steps=2, tol_loss=1e-5, tol_param=1e-5):
     return row
 
 
+# ----------------------------------------------------- recurrent phases
+def build_lstm_net(device, *, seed, h=512, f=128, classes=64, fused=None):
+    """The repo's LSTM bench model: GravesLSTM(h) x 2 + RnnOutputLayer,
+    tanh, Nesterovs(0.01, 0.9), sequences of any length."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
+
+    conf = (NeuralNetConfiguration.builder().seed(seed)
+            .updater(Nesterovs(0.01, 0.9)).activation("tanh")
+            .list(GravesLSTM(n_out=h, fused=fused),
+                  GravesLSTM(n_out=h, fused=fused),
+                  RnnOutputLayer(n_out=classes, activation="softmax"))
+            .set_input_type(InputType.recurrent(f)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def seq_batches(rng, n, batch, t, f, classes, masked=()):
+    """`n` fixed DataSets: standard-normal features [batch, t, f], random
+    one-hot labels; the batches listed in `masked` carry a features mask
+    of ragged lengths in [t/4, t)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    eye = np.eye(classes, dtype=np.float32)
+    out = []
+    for i in range(n):
+        x = rng.standard_normal((batch, t, f)).astype(np.float32)
+        y = eye[rng.integers(0, classes, (batch, t))]
+        fm = None
+        if i in masked:
+            lens = rng.integers(t // 4, t, batch)
+            fm = (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
+        out.append(DataSet(x, y, fm, None))
+    return out
+
+
+def onehot_batches(rng, n, batch, t, vocab):
+    """`n` fixed DataSets of random characters, one-hot [batch, t, vocab],
+    with next-character labels."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    eye = np.eye(vocab, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, vocab, (batch, t + 1))
+        out.append(DataSet(eye[ids[:, :t]], eye[ids[:, 1:]]))
+    return out
+
+
+def path_l(rng, epochs=3):
+    """Full width LSTM training: GravesLSTM(512) x 2, T 128, batch 64,
+    float32, Nesterovs(0.01, 0.9); 4 fixed batches (two masked) x 3
+    epochs = 12 steps through `net.fit` (`timed_fit`)."""
+    from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
+
+    B, T = 64, 128
+    net = build_lstm_net("cuda", seed=5)
+    check(net.conf.updater == Nesterovs(0.01, 0.9),
+          f"path_l: updater is {net.conf.updater}")
+    batches = seq_batches(rng, 4, B, T, 128, 64, masked=(1, 3))
+    fit = timed_fit("path_l", net, batches, epochs, B * T)
+    steps, launches = fit["steps"], fit["launches"]
+    for name in ("lstm_fwd", "lstm_bwd", "lstm_bwd_weights"):
+        check(launches[name] == 2 * steps,
+              f"path_l: {name} launched {launches[name]} times, want 2 a "
+              f"step x {steps}")
+    check(launches["nesterov_update"] == steps,
+          f"path_l: nesterov_update launched {launches['nesterov_update']} "
+          f"times, want one a step x {steps}")
+    check(launches["lstm_fwd_inference"] == 0,
+          "path_l: the inference kernel ran in a train step")
+    row = {"phase": "path_l", "model": "GravesLSTM x 2 + RnnOutputLayer",
+           "hidden": 512, "n_in": 128, "classes": 64, "T": T, "batch": B,
+           "dtype": "float32", "updater": str(net.conf.updater),
+           "masked_batches": 2, **fit}
+    emit(row)
+    return row
+
+
+def path_g(rng, calls=200):
+    """The zoo LSTM at its own width: tBPTT fit, `output()`, then a
+    greedy stepping loop of `calls` `rnn_time_step` calls for 32 streams,
+    each fed the one-hot of its last argmax. The loop's tokens are read
+    once, after it."""
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    B, T, V = 32, 200, 77
+    net = TextGenerationLSTM(input_shape=(T, V), seed=9).init(device="cuda")
+    check(net.conf.updater == Adam(1e-3) and net.conf.tbptt_fwd_length == 50,
+          f"path_g: zoo updater {net.conf.updater}, tbptt "
+          f"{net.conf.tbptt_fwd_length}")
+    batches = onehot_batches(rng, 2, B, T, V)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    net.fit(batches, epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches, _ = read_all_counts()
+    chunks = 2 * (T // 50)
+    for name in ("lstm_fwd", "lstm_bwd", "lstm_bwd_weights"):
+        check(fit_launches[name] == 2 * chunks,
+              f"path_g: {name} launched {fit_launches[name]} times in the "
+              f"tBPTT fit, want 2 a chunk x {chunks}")
+    check(fit_launches["adam_update"] == chunks,
+          f"path_g: adam_update launched {fit_launches['adam_update']} "
+          f"times, want one a chunk x {chunks}")
+    check(net.iteration == 2, f"path_g: {net.iteration} iterations for 2 "
+          f"batches")
+    check(np.isfinite(net.score_), f"path_g: loss {net.score_}")
+
+    probs = net.output(batches[0].features)
+    torch.cuda.synchronize()
+    after_output, _ = read_all_counts()
+    check(tuple(probs.shape) == (B, T, V), f"path_g: output {probs.shape}")
+    check(bool(torch.isfinite(probs).all()), "path_g: output is not finite")
+    check(float((probs.sum(-1) - 1).abs().max()) < 1e-4,
+          "path_g: output rows do not sum to 1")
+    check(after_output["lstm_fwd_inference"] == 2,
+          "path_g: output() did not run the inference kernel twice")
+
+    net.rnn_clear_previous_state()
+    eye = torch.eye(V, device=net.device)
+    tok = first = torch.as_tensor(rng.integers(0, V, B), device=net.device)
+    stream, stepped = [], []
+    net.rnn_time_step(eye[tok])               # warm-up call, not timed
+    net.rnn_clear_previous_state()
+    torch.cuda.synchronize()
+    before, _ = read_all_counts()
+    host_ms = []
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        t1 = time.perf_counter()
+        out = net.rnn_time_step(eye[tok])
+        tok = torch.argmax(out[:, -1, :], dim=-1)
+        stream.append(tok)
+        stepped.append(out[:, -1, :])
+        host_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches, plain_on_cuda = read_all_counts()
+    toks = torch.stack(stream, dim=1).cpu().numpy()
+    step_launches = launches["lstm_fwd_inference"] \
+        - before["lstm_fwd_inference"]
+    check(step_launches == 2 * calls,
+          f"path_g: {step_launches} inference launches in {calls} calls, "
+          f"want 2 a call")
+    check(toks.shape == (B, calls) and toks.min() >= 0 and toks.max() < V,
+          "path_g: stepping produced an out-of-vocabulary token")
+    check(sum(plain_on_cuda.values()) == 0,
+          f"path_g: plain versions ran on CUDA tensors: {plain_on_cuda}")
+    # stepping one token at a time with carried state equals `output()`
+    # over the same tokens fed at once
+    fed = torch.cat([first[:, None], torch.stack(stream, dim=1)[:, :-1]],
+                    dim=1)
+    whole = net.output(eye[fed])
+    step_err = float((whole - torch.stack(stepped, dim=1)).abs().max())
+    check(step_err <= 1e-4, f"path_g: stepping differs from output() over "
+          f"the same tokens by {step_err}")
+    row = {"phase": "path_g", "model": "TextGenerationLSTM", "hidden": 256,
+           "vocab": V, "T": T, "batch": B, "tbptt": 50, "dtype": "float32",
+           "updater": str(net.conf.updater), "fit_s": fit_s,
+           "fit_loss": net.score_, "fit_launches": fit_launches,
+           "streams": B, "calls": calls, "loop_s": loop_s,
+           "tokens_per_s": B * calls / loop_s,
+           "call_ms_p50": float(np.median(host_ms)),
+           "call_ms_p99": float(np.percentile(host_ms, 99)),
+           "stepping_vs_output_max_abs_err": step_err,
+           "launches": launches, "plain_on_cuda": plain_on_cuda}
+    emit(row)
+    return row
+
+
+def lstm_parity(rng, tol=1e-4):
+    """Both recurrent models, 2 layers at full width but T 32 and batch
+    4, on the card against the CPU (which runs the plain versions): two
+    `fit` steps, then 8 `rnn_time_step` calls. Losses within `tol`
+    relative, parameters and step outputs within `tol` absolute. Adam's
+    ε is 1e-3 here, as in `train_parity`."""
+    from deeplearning4j_tpu_torch.optim.listeners import (
+        CollectScoresIterationListener,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import Adam, tree_leaves
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    T, B = 32, 4
+    models = {
+        "lstm_bench": (lambda d: build_lstm_net(d, seed=21),
+                       seq_batches(rng, 2, B, T, 128, 64, masked=(1,)),
+                       rng.standard_normal((8, B, 128)).astype(np.float32)),
+        "text_generation_lstm": (
+            lambda d: TextGenerationLSTM(
+                input_shape=(T, 77), seed=22,
+                updater=Adam(1e-3, epsilon=1e-3)).init(device=d),
+            onehot_batches(rng, 2, B, T, 77),
+            np.eye(77, dtype=np.float32)[rng.integers(0, 77, (8, B))])}
+    row = {"phase": "lstm_parity", "tol": tol, "models": {}}
+    for name, (build, batches, steps) in models.items():
+        losses, leaves, outs = {}, {}, {}
+        for d in ("cuda", "cpu"):
+            net = build(d)
+            scores = CollectScoresIterationListener()
+            net.listeners.append(scores)
+            net.fit(batches, epochs=1)
+            losses[d] = [sc for _, sc in scores.scores]
+            leaves[d] = [p.float().cpu()
+                         for p in tree_leaves(net.params_tree)]
+            outs[d] = [net.rnn_time_step(x).float().cpu() for x in steps]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+        dp = max((a - b).abs().max().item()
+                 for a, b in zip(leaves["cuda"], leaves["cpu"]))
+        do = max((a - b).abs().max().item()
+                 for a, b in zip(outs["cuda"], outs["cpu"]))
+        check(rel <= tol, f"lstm_parity {name}: losses {losses} differ by "
+              f"{rel} relative")
+        check(dp <= tol, f"lstm_parity {name}: parameters differ by {dp}")
+        check(do <= tol, f"lstm_parity {name}: step outputs differ by {do}")
+        row["models"][name] = {"losses": losses, "loss_rel_err": rel,
+                               "max_param_abs_err": dp,
+                               "max_step_output_abs_err": do}
+    emit(row)
+    return row
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -841,6 +1359,9 @@ def main() -> int:
     for c in flash_cases():
         rows += run_flash_case(c, flush, gen)
     rows += run_adam_phase(flush, gen)
+    rows += run_nesterov_phase(flush, gen)
+    for c in lstm_cases():
+        rows += run_lstm_case(c, flush, gen)
     del flush
     torch.cuda.empty_cache()
 
@@ -850,6 +1371,9 @@ def main() -> int:
     cpu_parity(rng)
     t = path_t(rng)
     train_parity(rng)
+    lp = path_l(rng)
+    g = path_g(rng)
+    lstm_parity(rng)
 
     summary = []
     for name, launches in (
@@ -858,7 +1382,12 @@ def main() -> int:
             ("flash_attention_fwd", t["launches"]),
             ("flash_attention_bwd_dkdv", t["launches"]),
             ("flash_attention_bwd_dq", t["launches"]),
-            ("adam_update", t["launches"])):
+            ("adam_update", t["launches"]),
+            ("nesterov_update", lp["launches"]),
+            ("lstm_fwd", lp["launches"]),
+            ("lstm_fwd_inference", g["launches"]),
+            ("lstm_bwd", lp["launches"]),
+            ("lstm_bwd_weights", lp["launches"])):
         mine = [r for r in rows if r["kernel"] == name]
         main_row = next(r for r in mine if r["main_path_shape"])
         summary.append({
@@ -869,6 +1398,10 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"]})
+        if name == "lstm_fwd_inference":
+            # most of its launches on path_g are the stepping loop's, at T 1
+            summary[-1]["ms_at_T1"] = next(r["ms"] for r in mine
+                                           if r["T"] == 1)
     emit({"kernels": summary})
     print(gpu_name_and_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

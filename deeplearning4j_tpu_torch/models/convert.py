@@ -19,26 +19,19 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(net, tree: Mapping[str, Mapping[str, np.ndarray]]):
+def params_from_numpy(net, tree: Mapping[str, Any]):
     """Load a JAX net's `params_tree` (as numpy) into the port's `net`
-    in place, cast to the net's dtype on its device. Raises KeyError on a
-    missing or extra layer/parameter and ValueError on a shape mismatch.
-    Returns `net`."""
+    in place, cast to the net's dtype on its device. The LSTM leaves (`W`
+    [n_in, 4H], `RW` [H, 4H], `b` [4H], `P` [3, H]) have the same layout
+    in both packages, and the bidirectional wrappers' nested `fwd`/`bwd`
+    trees copy as they are. Raises KeyError on a missing or extra
+    layer/parameter and ValueError on a shape mismatch. Returns `net`."""
     net._check_init()
     if set(tree) != set(net.params_tree):
         raise KeyError(f"layers differ: port {sorted(net.params_tree)}, "
                        f"given {sorted(tree)}")
     for lname, params in net.params_tree.items():
-        src = tree[lname]
-        if set(src) != set(params):
-            raise KeyError(f"{lname}: parameters differ: port "
-                           f"{sorted(params)}, given {sorted(src)}")
-        for key, dst in params.items():
-            arr = np.asarray(src[key])
-            if tuple(arr.shape) != tuple(dst.shape):
-                raise ValueError(f"{lname}/{key}: shape {arr.shape} != "
-                                 f"port's {tuple(dst.shape)}")
-            dst.copy_(torch.tensor(arr, dtype=dst.dtype))
+        _copy_tree(params, tree[lname], lname)
     return net
 
 

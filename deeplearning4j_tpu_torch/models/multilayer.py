@@ -1,10 +1,11 @@
 """MultiLayerNetwork — the sequential-stack runtime of the PyTorch port
 (port of `deeplearning4j_tpu/models/multilayer.py`): inference, the
-slot-indexed serving sessions, and training (`init` with updaters,
-`make_step_fn`, `fit`, `score`).
+slot-indexed serving sessions, stateful stepping of recurrent stacks
+(`rnn_time_step`), and training (`init` with updaters, `make_step_fn`,
+`fit` with truncated BPTT, `score`).
 
-Parameters are a dict of per-layer tensor dicts keyed exactly like the
-JAX `params_tree`, so `models.convert.params_from_numpy` loads a JAX
+Parameters are a dict of per-layer tensor dicts (nested for the
+bidirectional wrappers) keyed exactly like the JAX `params_tree`, so `models.convert.params_from_numpy` loads a JAX
 net's weights unchanged; `updater_state` mirrors JAX's per-layer
 updater state, loaded by `updater_state_from_numpy`. The net lives on
 one device: CUDA unless the caller passes `device="cpu"`.
@@ -38,18 +39,27 @@ from deeplearning4j_tpu_torch.data.iterators import (
     DevicePrefetchIterator, as_iterator,
 )
 from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
-from deeplearning4j_tpu_torch.nn.layers import EmbeddingSequenceLayer, Layer
+from deeplearning4j_tpu_torch.models.decode_state import DecodeState
+from deeplearning4j_tpu_torch.nn.layers import (
+    BaseRecurrentLayer, Bidirectional, EmbeddingSequenceLayer,
+    GravesBidirectionalLSTM, Layer,
+)
 from deeplearning4j_tpu_torch.optim.executor import (
     LossTracker, TrainingExecutor,
 )
 from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
 from deeplearning4j_tpu_torch.optim.updaters import (
-    NoOp, Updater, resolve_updater, tree_leaves,
+    NoOp, Updater, resolve_updater, tree_leaves, tree_map,
 )
 from deeplearning4j_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
+
+
+def _is_recurrent(layer: Layer) -> bool:
+    return isinstance(layer, (BaseRecurrentLayer, Bidirectional,
+                              GravesBidirectionalLSTM))
 
 
 def _decode_limit(decode_layers) -> Optional[int]:
@@ -102,28 +112,25 @@ def _normalize_grads(grads, mode: str, threshold: float):
     if mode == "none":
         return grads
     if mode == "clip_elementwise_absolute_value":
-        return {n: {k: torch.clamp(g, -threshold, threshold)
-                    for k, g in sub.items()} for n, sub in grads.items()}
+        return tree_map(lambda g: torch.clamp(g, -threshold, threshold),
+                        grads)
+
+    def clip(g, n):
+        return g * torch.clamp(threshold / torch.clamp(n, min=1e-8), max=1.0)
 
     def per_layer(sub):
         if mode == "renormalize_l2_per_layer":
             n = _norm(sub)
-            return {k: g / torch.clamp(n, min=1e-8) for k, g in sub.items()}
+            return tree_map(lambda g: g / torch.clamp(n, min=1e-8), sub)
         if mode == "clip_l2_per_layer":
             n = _norm(sub)
-            scale = torch.clamp(threshold / torch.clamp(n, min=1e-8),
-                                max=1.0)
-            return {k: g * scale for k, g in sub.items()}
+            return tree_map(lambda g: clip(g, n), sub)
         if mode == "renormalize_l2_per_param_type":
-            return {k: g / torch.clamp(torch.linalg.vector_norm(g), min=1e-8)
-                    for k, g in sub.items()}
+            return tree_map(lambda g: g / torch.clamp(
+                torch.linalg.vector_norm(g), min=1e-8), sub)
         if mode == "clip_l2_per_param_type":
-            out = {}
-            for k, g in sub.items():
-                n = torch.linalg.vector_norm(g)
-                out[k] = g * torch.clamp(threshold / torch.clamp(n, min=1e-8),
-                                         max=1.0)
-            return out
+            return tree_map(lambda g: clip(g, torch.linalg.vector_norm(g)),
+                            sub)
         raise ValueError(mode)
 
     return {name: per_layer(sub) for name, sub in grads.items()}
@@ -157,6 +164,7 @@ class MultiLayerNetwork:
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(int(conf.seed))
         self._step_t: Optional[torch.Tensor] = None
+        self._decode_state = DecodeState()
 
     @property
     def score_(self) -> Optional[float]:
@@ -175,8 +183,7 @@ class MultiLayerNetwork:
         it = self.conf.input_type
         for layer in self.layers:
             p, st = layer.init_params(gen, it, self.dtype)
-            params[layer.name] = {k: v.to(self.device)
-                                  for k, v in p.items()}
+            params[layer.name] = tree_map(lambda v: v.to(self.device), p)
             states[layer.name] = st
             if st:
                 self._stateful.add(layer.name)
@@ -262,38 +269,42 @@ class MultiLayerNetwork:
         return score + reg + aux, new_states
 
     # ------------------------------------------------------- train step
-    def make_step_fn(self):
+    def make_step_fn(self, tbptt: bool = False):
         """The train step: `step_fn(params, opt_state, states, step,
         features, labels, fmask, lmask, rng, carries)` returns
         `(params, opt_state, states, loss, carries)`, as JAX's does.
         Params and opt_state are updated IN PLACE and returned; the loss
-        is a 0-dim tensor on the device."""
+        is a 0-dim tensor on the device. With `tbptt` the returned
+        carries are the recurrent layers' final states, detached, for
+        the next chunk; else `{}`."""
         mode = self.conf.gradient_normalization
         thr = self.conf.gradient_normalization_threshold
         groups = self._updater_groups()
         trained = [n for _, names in groups for n in names]
         stateful = self._stateful
+        rnn_names = self._rnn_layer_names
 
         def step_fn(params, opt_state, states, step, features, labels,
                     fmask, lmask, rng, carries):
             # gradients w.r.t. detached views of the trained leaves; the
             # stored tensors stay plain, so the in-place update below
             # needs no autograd bookkeeping
-            live = {n: {k: (v.detach().requires_grad_(True)
-                            if n in trained else v)
-                        for k, v in sub.items()}
+            live = {n: (tree_map(lambda v: v.detach().requires_grad_(True),
+                                 sub) if n in trained else sub)
                     for n, sub in params.items()}
             with torch.enable_grad():
                 loss, new_states = self._loss(live, features, labels,
                                               fmask, lmask, rng, train=True,
                                               carries=carries)
-                wrt = [live[n][k] for n in trained for k in live[n]]
+                wrt = [leaf for n in trained for leaf in tree_leaves(live[n])]
                 got = torch.autograd.grad(loss, wrt, allow_unused=True)
             it = iter(got)
-            grads = {n: {k: next(it) for k in live[n]} for n in trained}
-            grads = {n: {k: (torch.zeros_like(params[n][k]) if g is None
-                             else g) for k, g in sub.items()}
-                     for n, sub in grads.items()}
+
+            def grad_of(v):
+                g = next(it)
+                return torch.zeros_like(v) if g is None else g
+
+            grads = {n: tree_map(grad_of, params[n]) for n in trained}
             grads = _normalize_grads(grads, mode, thr)
             for u, names in groups:
                 st = {n: opt_state[n] for n in names}
@@ -306,7 +317,9 @@ class MultiLayerNetwork:
                                      {n: params[n] for n in names}, step)
             persist = {n: (new_states[n] if n in stateful
                            else states.get(n, {})) for n in states}
-            return params, opt_state, persist, loss.detach(), {}
+            out_carries = {n: tree_map(torch.detach, new_states[n])
+                           for n in rnn_names} if tbptt else {}
+            return params, opt_state, persist, loss.detach(), out_carries
 
         return step_fn
 
@@ -321,9 +334,12 @@ class MultiLayerNetwork:
         every N steps), and each batch's copy to the card is enqueued one
         batch ahead (`DevicePrefetchIterator`).
 
+        With ``conf.tbptt_fwd_length > 0`` a 3-D batch trains by
+        truncated BPTT (`_fit_tbptt`).
+
         Refused rather than ignored, until ported: ``steps_per_dispatch
         > 1``, ``checkpointer``, ``resume``, ``stop_fn``, ``preemption``,
-        truncated BPTT, gradient checkpointing and non-SGD solvers."""
+        gradient checkpointing and non-SGD solvers."""
         self._check_init()
         if int(steps_per_dispatch) > 1:
             _refuse("steps_per_dispatch > 1 (a CUDA graph of K steps)",
@@ -332,8 +348,6 @@ class MultiLayerNetwork:
                 stop_fn is not None or preemption:
             _refuse("checkpointed, resumable or stoppable fit "
                     "(optim/recovery.py)", "A6")
-        if self.conf.tbptt_fwd_length > 0:
-            _refuse("truncated BPTT", "A3")
         if self.conf.gradient_checkpointing:
             _refuse("gradient checkpointing (rematerialization)", "A4")
         if self.conf.optimization_algo != "stochastic_gradient_descent":
@@ -345,7 +359,7 @@ class MultiLayerNetwork:
         # the device step counter starts from the host's: a fill, no copy
         self._step_t = torch.full((), self.iteration, dtype=torch.int64,
                                   device=self.device)
-        TrainingExecutor(self, step=self._fit_batch).run(it, epochs)
+        TrainingExecutor(self, step=self._dispatch_batch).run(it, epochs)
         return self
 
     def _put_batch(self, ds: DataSet) -> DataSet:
@@ -357,12 +371,14 @@ class MultiLayerNetwork:
                        _to_device(ds.features_mask, self.dtype, dev),
                        _to_device(ds.labels_mask, self.dtype, dev))
 
-    def _check_input(self, x):
+    def _check_input(self, x, any_length: bool = False):
+        """Raise ValueError unless `x` fits the configured input type;
+        `any_length` (stepping) checks a sequence's feature width only."""
         it = self.conf.input_type
         if it is None:
             return
         expect = it.shape(int(x.shape[0]))
-        if it.kind == "rnn" and it.timesteps is None:
+        if it.kind == "rnn" and (it.timesteps is None or any_length):
             ok = x.ndim == 3 and x.shape[-1] == it.size
         else:
             ok = tuple(x.shape) == tuple(expect)
@@ -371,15 +387,24 @@ class MultiLayerNetwork:
                 f"Input shape {tuple(x.shape)} does not match configured "
                 f"{it!r} (expected {tuple(expect)} for batch={x.shape[0]})")
 
-    def _fit_batch(self, ds: DataSet):
-        """One train step on one batch; returns the device loss."""
+    def _on_device(self, ds: DataSet) -> DataSet:
         if not isinstance(ds.features, torch.Tensor) or \
                 ds.features.device != self.device:
             ds = self._put_batch(ds)
-        self._check_input(ds.features)
         self.last_batch_size = ds.num_examples()
         self.last_seq_len = (int(ds.features.shape[1])
                              if ds.features.ndim == 3 else None)
+        return ds
+
+    def _dispatch_batch(self, ds: DataSet):
+        if self.conf.tbptt_fwd_length > 0 and ds.features.ndim == 3:
+            return self._fit_tbptt(ds)
+        return self._fit_batch(ds)
+
+    def _fit_batch(self, ds: DataSet):
+        """One train step on one batch; returns the device loss."""
+        ds = self._on_device(ds)
+        self._check_input(ds.features)
         step_fn = self.make_step_fn()
         (self.params_tree, self.updater_state, self.state_tree, loss,
          _) = step_fn(self.params_tree, self.updater_state, self.state_tree,
@@ -387,6 +412,59 @@ class MultiLayerNetwork:
                       ds.features_mask, ds.labels_mask, self._rng, None)
         self._step_t.add_(1)
         return loss
+
+    def _fit_tbptt(self, ds: DataSet):
+        """Truncated BPTT on one batch: time is cut into chunks of
+        `tbptt_fwd_length`, each chunk is one train step, and the
+        recurrent carries are handed from chunk to chunk detached. When
+        `tbptt_back_length` is shorter, the head of each chunk only
+        advances the carries (no gradient, no update) and the step covers
+        the last `back` timesteps. Every chunk sees the same step count:
+        the iteration, and so Adam's bias correction and a schedule's
+        rate, advance once a batch. Returns the mean of the chunk losses,
+        taken on the device."""
+        L = self.conf.tbptt_fwd_length
+        Lb = min(self.conf.tbptt_back_length or L, L)
+        ds = self._on_device(ds)
+        self._check_input(ds.features)
+        if ds.labels is None or ds.labels.ndim != 3:
+            raise ValueError(
+                "Truncated BPTT requires per-timestep (3-D [batch, time, "
+                "n_out]) labels; for sequence-level labels use "
+                "tbptt_fwd_length=0")
+        T = ds.features.shape[1]
+        step_fn = self.make_step_fn(tbptt=True)
+        carries, losses = {}, []
+        for lo in range(0, T, L):
+            hi = min(lo + L, T)
+            t_lo = lo
+            if Lb < hi - lo:
+                t_lo = hi - Lb
+                carries = self._advance_carries(
+                    ds.features[:, lo:t_lo],
+                    None if ds.features_mask is None
+                    else ds.features_mask[:, lo:t_lo], carries)
+
+            def sl(a):
+                return None if a is None else a[:, t_lo:hi]
+
+            (self.params_tree, self.updater_state, self.state_tree, loss,
+             carries) = step_fn(
+                self.params_tree, self.updater_state, self.state_tree,
+                self._step_t, sl(ds.features), sl(ds.labels),
+                sl(ds.features_mask), sl(ds.labels_mask), self._rng,
+                carries or None)
+            losses.append(loss)
+        self._step_t.add_(1)
+        return torch.stack(losses).mean()
+
+    @torch.no_grad()
+    def _advance_carries(self, feats, fmask, carries):
+        """Gradient-free forward that only moves the recurrent carries
+        along: the no-update head of a fwd > back tBPTT chunk."""
+        _, new_states = self._forward(self.params_tree, feats, fmask=fmask,
+                                      carries=carries or None)
+        return {n: new_states[n] for n in self._rnn_layer_names}
 
     @torch.no_grad()
     def score(self, data, labels=None) -> float:
@@ -406,8 +484,51 @@ class MultiLayerNetwork:
         """Forward to final activations (full-context, no carries)."""
         self._check_init()
         x = _as_tensor(x, self.dtype, self.device)
+        self._check_input(x)
         y, _ = self._forward(self.params_tree, x)
         return y
+
+    # ------------------------------------------------ stateful stepping
+    @property
+    def _rnn_layer_names(self):
+        """Layers that carry RNN state (tBPTT / rnn_time_step)."""
+        return [l.name for l in self.layers if _is_recurrent(l)]
+
+    @torch.no_grad()
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Stateful inference over one or more timesteps; the recurrent
+        carries persist across calls (reference: `rnnTimeStep`). `x` is
+        [B, T, F], or [B, F] for one step. The whole read-step-write runs
+        under the decode-state lock, and the carries are replaced only
+        after a step that succeeded. Stacks with attention layers are
+        refused: their lockstep KV-cache stepping is not ported yet
+        (serving steps them through `session_step`)."""
+        self._check_init()
+        if self._decode_layer_names:
+            _refuse("rnn_time_step over attention layers (lockstep KV-cache "
+                    "decode carries)", "A4")
+        x = _as_tensor(x, self.dtype, self.device)
+        if x.ndim == 2:
+            x = x[:, None, :]
+        self._check_input(x, any_length=True)
+        st = self._decode_state
+        with st.lock():
+            out, new_states = self._forward(self.params_tree, x,
+                                            carries=st.carries or None)
+            st.update({n: new_states[n] for n in self._rnn_layer_names})
+        return out
+
+    def rnn_clear_previous_state(self) -> None:
+        self._decode_state.clear()
+
+    def rnn_reorder_state(self, idx) -> None:
+        """Reorder (or expand) the stepping carries along the batch
+        dimension (a beam search gathers each beam's h/c rows to follow
+        its parent). Every carry leaf is batch-leading."""
+        ix = torch.as_tensor(np.asarray(idx), dtype=torch.int64,
+                             device=self.device)
+        self._decode_state.reorder(lambda carries: tree_map(
+            lambda a: a[ix] if a.ndim >= 1 else a, carries))
 
     # ------------------------------------------- slot-indexed sessions
     @property

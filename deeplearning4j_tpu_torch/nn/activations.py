@@ -1,5 +1,5 @@
 """Activation functions — the subset of `deeplearning4j_tpu/nn/activations.py`
-that the decode-serving slice uses, over torch tensors.
+that the ported layers use, over torch tensors.
 
 `gelu` is the tanh approximation, matching `jax.nn.gelu`'s default."""
 
@@ -31,8 +31,24 @@ def sigmoid(x):
     return torch.sigmoid(x)
 
 
+def hardsigmoid(x):
+    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+
+
 def tanh(x):
     return torch.tanh(x)
+
+
+def hardtanh(x):
+    return torch.clamp(x, -1.0, 1.0)
+
+
+def softplus(x):
+    return F.softplus(x)
+
+
+def softsign(x):
+    return F.softsign(x)
 
 
 def softmax(x):
@@ -52,7 +68,11 @@ _REGISTRY: Dict[str, Callable] = {
     "silu": silu,
     "swish": silu,
     "sigmoid": sigmoid,
+    "hardsigmoid": hardsigmoid,
     "tanh": tanh,
+    "hardtanh": hardtanh,
+    "softplus": softplus,
+    "softsign": softsign,
     "softmax": softmax,
     "logsoftmax": log_softmax,
 }

@@ -9,8 +9,8 @@ schedule load as the port's own classes (`optim/updaters.py`,
 `optim/schedules.py`, same serde names and fields), so JSON round-trips
 in both directions.
 
-Preprocessor auto-insertion is not ported: the transformer stacks of
-this slice need none, and a config that carries preprocessors is
+Preprocessor auto-insertion is not ported: the transformer and recurrent
+stacks ported so far need none, and a config that carries preprocessors is
 refused rather than run without them.
 """
 
@@ -168,6 +168,8 @@ class ListBuilder:
         self._base = base
         self._layers = layers
         self._input_type: Optional[InputType] = None
+        self._tbptt_fwd = 0
+        self._tbptt_back = 0
 
     def layer(self, l: Layer) -> "ListBuilder":
         self._layers.append(l)
@@ -175,6 +177,14 @@ class ListBuilder:
 
     def set_input_type(self, it: InputType) -> "ListBuilder":
         self._input_type = it
+        return self
+
+    def tbptt(self, fwd_length: int,
+              back_length: Optional[int] = None) -> "ListBuilder":
+        """Truncated BPTT lengths (reference: `tBPTTForwardLength`)."""
+        self._tbptt_fwd = fwd_length
+        self._tbptt_back = back_length if back_length is not None \
+            else fwd_length
         return self
 
     def build(self) -> MultiLayerConfiguration:
@@ -200,4 +210,6 @@ class ListBuilder:
             seed=self._base._seed, updater=defaults["updater"],
             dtype=self._base._dtype,
             gradient_normalization=self._base._grad_norm,
-            gradient_normalization_threshold=self._base._grad_norm_threshold)
+            gradient_normalization_threshold=self._base._grad_norm_threshold,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back)

@@ -78,6 +78,51 @@ def relu_init(gen, shape, dtype=torch.float32):
     return _normal(gen, shape, dtype) * math.sqrt(2.0 / max(fan_in, 1))
 
 
+def xavier_fan_in(gen, shape, dtype=torch.float32):
+    """N(0, 1/fan_in)."""
+    fan_in, _ = _fans(shape)
+    return _normal(gen, shape, dtype) / math.sqrt(max(fan_in, 1))
+
+
+def relu_uniform(gen, shape, dtype=torch.float32):
+    """U[-a, a], a = sqrt(6/fan_in)."""
+    fan_in, _ = _fans(shape)
+    return _uniform(gen, shape, dtype, math.sqrt(6.0 / max(fan_in, 1)))
+
+
+def sigmoid_uniform(gen, shape, dtype=torch.float32):
+    """U[-a, a], a = 4*sqrt(6/(fan_in+fan_out))."""
+    fan_in, fan_out = _fans(shape)
+    return _uniform(gen, shape, dtype,
+                    4.0 * math.sqrt(6.0 / max(fan_in + fan_out, 1)))
+
+
+def lecun_uniform(gen, shape, dtype=torch.float32):
+    """U[-a, a], a = sqrt(3/fan_in)."""
+    fan_in, _ = _fans(shape)
+    return _uniform(gen, shape, dtype, math.sqrt(3.0 / max(fan_in, 1)))
+
+
+def identity_init(gen, shape, dtype=torch.float32):
+    """The identity matrix (square 2-D shapes only)."""
+    if len(shape) == 2 and shape[0] == shape[1]:
+        return torch.eye(shape[0], dtype=dtype)
+    raise ValueError(f"IDENTITY init needs a square 2-D shape, got {shape}")
+
+
+def orthogonal(gen, shape, dtype=torch.float32):
+    """Orthonormal rows or columns (whichever are fewer), from the QR
+    factor of a seeded normal matrix with the sign of R's diagonal."""
+    rows, cols = math.prod(shape[:-1]), shape[-1]
+    a = torch.randn((max(rows, cols), min(rows, cols)), generator=gen,
+                    dtype=torch.float32)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if rows < cols:
+        q = q.T
+    return q.reshape(tuple(shape)).to(dtype)
+
+
 _REGISTRY: Dict[str, Callable] = {
     "zero": zeros,
     "zeros": zeros,
@@ -86,8 +131,15 @@ _REGISTRY: Dict[str, Callable] = {
     "uniform": uniform,
     "xavier": xavier,
     "xavier_uniform": xavier_uniform,
+    "xavier_fan_in": xavier_fan_in,
     "relu": relu_init,
     "he": relu_init,
+    "relu_uniform": relu_uniform,
+    "sigmoid_uniform": sigmoid_uniform,
+    "lecun_normal": xavier_fan_in,      # the same N(0, 1/fan_in)
+    "lecun_uniform": lecun_uniform,
+    "identity": identity_init,
+    "orthogonal": orthogonal,
 }
 
 

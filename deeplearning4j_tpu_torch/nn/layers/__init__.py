@@ -5,7 +5,10 @@ from deeplearning4j_tpu_torch.nn.layers.base import LAYER_REGISTRY, Layer
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
     DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer, OutputLayer,
 )
-from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    GRU, LSTM, BaseRecurrentLayer, Bidirectional, GravesBidirectionalLSTM,
+    GravesLSTM, LastTimeStep, RnnOutputLayer, SimpleRnn,
+)
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     MultiHeadAttention, PositionEmbeddingLayer, TransformerEncoderBlock,
 )
@@ -13,6 +16,8 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
 __all__ = [
     "LAYER_REGISTRY", "Layer", "DenseLayer", "EmbeddingLayer",
     "EmbeddingSequenceLayer",
-    "OutputLayer", "RnnOutputLayer", "MultiHeadAttention",
+    "OutputLayer", "RnnOutputLayer", "BaseRecurrentLayer", "LSTM",
+    "GravesLSTM", "GRU", "SimpleRnn", "Bidirectional",
+    "GravesBidirectionalLSTM", "LastTimeStep", "MultiHeadAttention",
     "PositionEmbeddingLayer", "TransformerEncoderBlock",
 ]

@@ -61,6 +61,23 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
     "fused_update": {
         "dl4j_adam_multi": (
             _I, [_P, _I, _I, _I, _P, _F, _F, _F, _F, _F, _I, _P]),
+        "dl4j_nesterov_multi": (
+            _I, [_P, _I, _I, _I, _P, _F, _I, _P]),
+        "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "lstm": {
+        # xw rw p h0 c0 mask hs cs gates hT cT, T B H, residuals, stream
+        "dl4j_lstm_fwd": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                 _I, _P]),
+        # dhs gates cs rwT p mask dhT dcT c0 dxw dh0 dc0 dp_part, T B H
+        "dl4j_lstm_bwd": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                 _I, _I, _P]),
+        # hs h0 dxw dp_part drw dp, T B H, tiles
+        "dl4j_lstm_bwd_weights": (
+            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        "dl4j_lstm_batch_tile": (_I, []),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }

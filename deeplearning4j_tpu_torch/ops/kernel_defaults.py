@@ -1,7 +1,8 @@
 """Dispatch policies of the port (counterpart of
 `deeplearning4j_tpu/ops/kernel_defaults.py`): decode attention, the
 decode loop, KV storage dtype and the prefix cache (serving), and
-full-context attention and the fused optimizer update (training).
+full-context attention, the LSTM recurrence and the fused optimizer
+update (training).
 
 Same defaults as the JAX package: the fused K=8 decode window, native
 KV storage, and the paged prefix cache whenever the model can page.
@@ -9,8 +10,9 @@ Each verdict is capability, then the structural default: the port has
 no measured rows yet. The TPU's rules are gone: there is no backend
 check and no 128-multiple page, cache or sequence rule, because the
 CUDA kernels take any length. So full-context attention goes to the
-flash kernels at any T, and Adam to the fused kernel, wherever the
-shape allows — JAX's measured-winner tables describe another chip. The
+flash kernels at any T, a sigmoid/tanh LSTM to the fused sequence
+kernels, and Adam and Nesterovs to the fused update kernels, wherever
+the shape allows — JAX's measured-winner tables describe another chip. The
 JAX package's env hatches are not mirrored; callers choose through the
 arguments.
 """
@@ -198,20 +200,65 @@ class FusedUpdatePolicy(NamedTuple):
 
 
 def fused_update_policy(kind: str, device="cuda") -> FusedUpdatePolicy:
-    """Optimizer read-modify-write: Adam goes to the fused kernel B1a on
-    the card (its plain version on CPU tensors); Nesterovs runs plain
-    tensor math everywhere until B1b is ported."""
+    """Optimizer read-modify-write: Adam goes to the fused kernel B1a and
+    Nesterovs to B1b on the card, each to its kernel's plain version on
+    CPU tensors."""
     op = {"adam": "adam_update", "nesterov": "nesterov_update"}.get(kind)
     if op is None:
         raise ValueError(f"unknown fused update {kind!r} "
                          "(expected adam|nesterov)")
-    on_card = torch.device(device).type == "cuda"
-    if kind == "adam" and on_card:
-        pol = FusedUpdatePolicy("fused", "the hand-written CUDA kernel B1a")
-    elif kind == "adam":
+    if torch.device(device).type == "cuda":
+        pol = FusedUpdatePolicy("fused", "the hand-written CUDA kernel "
+                                + ("B1a" if kind == "adam" else "B1b"))
+    else:
         pol = FusedUpdatePolicy("plain", "the kernel's plain version "
                                 "(CPU tensors)")
-    else:
-        pol = FusedUpdatePolicy("plain", "kernel B1b not ported")
     record_dispatch(op, pol.kind)
+    return pol
+
+
+class LSTMPolicy(NamedTuple):
+    kind: str            # "fused" | "loop"
+    reason: str
+
+
+def lstm_policy(gate_activation: str, activation: Optional[str], *,
+                fused: Optional[bool] = None, device="cuda",
+                hidden: int = 1) -> LSTMPolicy:
+    """The LSTM recurrence: the fused sequence kernels B2a/B2b/B2c
+    (`ops/lstm.fused_lstm`) or the per-step loop in plain PyTorch.
+
+    The kernels hard-code sigmoid gates and a tanh cell, so any other
+    pair takes the loop, as the JAX package sends it to its scan (no
+    kernel exists for it there either); `activation=None` is identity,
+    not tanh. A layer's own `fused=False` takes the loop; `None` and
+    `True` take the kernels, and `True` with other activations is an
+    error. On CPU tensors "fused" means the kernels' plain versions; the
+    count records impl="plain". On the card a hidden size past the
+    kernels' shared-memory tile is refused: a CUDA tensor never falls
+    back to a plain version."""
+    from deeplearning4j_tpu_torch.ops.lstm import (
+        MAX_HIDDEN, fused_lstm_available,
+    )
+
+    ok = fused_lstm_available(gate_activation, activation)
+    if fused and not ok:
+        raise ValueError(
+            f"fused=True requires gate_activation='sigmoid' and "
+            f"activation='tanh'; got {gate_activation!r}/{activation!r}")
+    on_card = torch.device(device).type == "cuda"
+    if fused is False:
+        pol = LSTMPolicy("loop", "the layer asked for it (fused=False)")
+    elif not ok:
+        pol = LSTMPolicy("loop", "the kernels compute sigmoid gates and a "
+                         "tanh cell only")
+    elif on_card and hidden > MAX_HIDDEN:
+        raise ValueError(f"no CUDA LSTM kernel for hidden size {hidden}: "
+                         f"the kernels take at most {MAX_HIDDEN}")
+    else:
+        pol = LSTMPolicy("fused", "the hand-written CUDA LSTM kernels"
+                         if on_card else
+                         "the LSTM kernels' plain versions (CPU tensors)")
+    record_dispatch("lstm", pol.kind if (on_card or pol.kind == "loop")
+                    else "plain")
     return pol

@@ -9,8 +9,8 @@ fields, so a JAX configuration's updater loads as the port's.
 Trees are nested dicts of tensors keyed like the params tree; stateless
 updaters keep `()` as their state, as in JAX. API:
 ``state = u.init(params)``; ``updates, state = u.apply(grads, state,
-params, step)`` (not on Adam, whose arithmetic is only in its kernel's
-plain version); and the one seam the train step calls,
+params, step)`` (not on Adam and Nesterovs, whose arithmetic is only in
+their kernels' plain versions); and the one seam the train step calls,
 ``params, state = u.update_with_params(grads, state, params, step)``,
 which updates params and state IN PLACE (JAX donates them; the TPU
 kernel aliases them) and returns the same trees. `step` is the 0-based
@@ -18,12 +18,10 @@ iteration, a tensor on the params' device in the train step, so a
 schedule's learning rate and Adam's bias correction are computed there
 and never read back to the host.
 
-`Adam.update_with_params` goes through the fused kernel B1a
-(`ops/fused_update.adam_update`): one launch for every leaf of the
-trees it is given, the kernel's plain version on CPU tensors.
-`Nesterovs` runs its plain math on the card until B1b is ported, and
-says so on the metrics spine (`kernel_dispatch_total{op=
-"nesterov_update", impl="plain"}`).
+`Adam.update_with_params` and `Nesterovs.update_with_params` go
+through the fused kernels B1a and B1b (`ops/fused_update.adam_update`,
+`nesterov_update`): one launch for every leaf of the trees they are
+given, the kernels' plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -65,6 +63,15 @@ def _first_leaf(tree):
     if not leaves:
         raise ValueError("an updater needs at least one parameter")
     return leaves[0]
+
+
+def _by_dtype(*trees):
+    """The trees' leaves zipped leaf by leaf and grouped by the first
+    tree's dtype: one fused launch takes one dtype."""
+    groups = {}
+    for leaf in zip(*(tree_leaves(t) for t in trees)):
+        groups.setdefault(leaf[0].dtype, []).append(leaf)
+    return list(groups.values())
 
 
 def _lr(self, step):
@@ -134,21 +141,25 @@ class Nesterovs(Updater):
     def init(self, params):
         return {"v": tree_map(torch.zeros_like, params)}
 
-    def apply(self, grads, state, params, step):
-        lr = self.lr(_step_f32(step, _first_leaf(grads)))
-        mu = self.momentum
-        v_new = tree_map(lambda v, g: mu * v - lr * g, state["v"], grads)
-        updates = tree_map(lambda vn, g: -(mu * vn - lr * g), v_new, grads)
-        return updates, {"v": v_new}
-
     def update_with_params(self, grads, state, params, step):
+        """One fused read-modify-write of every leaf (kernel B1b): one
+        launch a dtype on the card, the plain version on the CPU. The
+        arithmetic lives only there (`ops/fused_update`), so Nesterovs
+        has no separate `apply`."""
+        from deeplearning4j_tpu_torch.ops import fused_update as fu
         from deeplearning4j_tpu_torch.ops.kernel_defaults import (
             fused_update_policy,
         )
 
-        # B1b is not ported: plain math on every device, counted
-        fused_update_policy("nesterov", _first_leaf(params).device)
-        return super().update_with_params(grads, state, params, step)
+        first = _first_leaf(params)
+        fused_update_policy("nesterov", first.device)
+        lr = torch.as_tensor(self.lr(_step_f32(step, first)),
+                             dtype=torch.float32, device=first.device)
+        with torch.no_grad():
+            for group in _by_dtype(params, grads, state["v"]):
+                fu.nesterov_update(*zip(*group), lr,
+                                   momentum=self.momentum)
+        return params, state
 
 
 @register_serde
@@ -183,12 +194,8 @@ class Adam(Updater):
         first = _first_leaf(params)
         fused_update_policy("adam", first.device)
         lrbc = self._lrbc(step, first)
-        by_dtype = {}      # one launch takes one dtype
-        for leaf in zip(tree_leaves(params), tree_leaves(grads),
-                        tree_leaves(state["m"]), tree_leaves(state["v"])):
-            by_dtype.setdefault(leaf[0].dtype, []).append(leaf)
         with torch.no_grad():
-            for group in by_dtype.values():
+            for group in _by_dtype(params, grads, state["m"], state["v"]):
                 fu.adam_update(*zip(*group), lrbc, beta1=self.beta1,
                                beta2=self.beta2, eps=self.epsilon)
         return params, state

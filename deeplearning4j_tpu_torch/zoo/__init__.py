@@ -1,6 +1,8 @@
 """Zoo models of the PyTorch port."""
 
 from deeplearning4j_tpu_torch.zoo.base import ZOO_REGISTRY, ZooModel
+from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM
 from deeplearning4j_tpu_torch.zoo.transformer import TextGenerationTransformer
 
-__all__ = ["ZOO_REGISTRY", "ZooModel", "TextGenerationTransformer"]
+__all__ = ["ZOO_REGISTRY", "ZooModel", "TextGenerationLSTM",
+           "TextGenerationTransformer"]

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the decode kernels B5 and B6, the flash-attention forward B3a and
-backward B3b/B3c, and the fused Adam B1a. These tests import only torch,
+backward B3b/B3c, the fused Adam B1a and Nesterovs B1b, and the fused
+LSTM forward B2a/B2b and backward B2c. These tests import only torch,
 so they run on a machine with a card and no JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
@@ -8,7 +9,8 @@ so they run on a machine with a card and no JAX:
 Where there is no card they skip (the kernels are CUDA C++ with no CPU
 or interpret mode; their plain versions are held against the JAX
 package in `tests/test_torch_decode_attention.py`,
-`test_torch_flash_attention.py` and `test_torch_fused_update.py`).
+`test_torch_flash_attention.py`, `test_torch_fused_update.py` and
+`test_torch_lstm.py`).
 Tolerances, in the working dtype: 2e-5 absolute in float32 on attention
 outputs and lse, 1e-4 of the reference's largest magnitude on attention
 gradients (sums of up to T products taken in another order); in
@@ -16,7 +18,12 @@ bfloat16 one bf16 step of the reference (2**-7 of its value, plus 1e-5),
 since the kernel and the plain version both compute in float32 and
 round once. The fused Adam kernel rounds every operation as the plain
 version's elementwise ops do, so it is held to 2**-22 relative (two
-float32 ulps) and, in bfloat16, one bf16 step."""
+float32 ulps) and, in bfloat16, one bf16 step; so is the fused Nesterovs
+kernel. The LSTM kernels sum H products a step in another order than the
+plain version's matmul, and the difference is carried through T steps:
+1e-4 absolute on hs and the gates (which lie in [-1, 1]), 1e-4 of the
+reference's largest magnitude on the unbounded cell states (at least 1)
+and on every gradient."""
 
 import pytest
 import torch
@@ -24,6 +31,7 @@ import torch
 from deeplearning4j_tpu_torch.ops import attention as fa
 from deeplearning4j_tpu_torch.ops import banded_attention as ba
 from deeplearning4j_tpu_torch.ops import fused_update as fu
+from deeplearning4j_tpu_torch.ops import lstm as lk
 
 MODES = [("linear", None, False), ("window", 5, False),
          ("rolling", 6, True)]
@@ -248,3 +256,155 @@ def test_cuda_b1a_refuses_mixed_dtypes(cuda_device):
     lr = torch.ones((), device=cuda_device)
     with pytest.raises(TypeError):
         fu.adam_update([p], [h], [p.clone()], [p.clone()], lr)
+
+
+# ------------------------------------------------ fused Nesterovs (B1b)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_b1b_matches_plain(cuda_device, dtype):
+    g = torch.Generator().manual_seed(11)
+    sizes = [1, 127, 4097, (1 << 20) + 3, 3 * fu.CHUNK]
+    lr = torch.tensor(0.01, dtype=torch.float32, device=cuda_device)
+
+    def leaf(n):
+        return [torch.randn(n, generator=g).to(cuda_device, dtype)
+                for _ in range(2)] + [
+            (0.1 * torch.randn(n, generator=g)).to(cuda_device, dtype)]
+
+    leaves = [leaf(n) for n in sizes]
+    ref = [fu.nesterov_update_plain(p, gr, v, lr, momentum=0.8)
+           for p, gr, v in leaves]
+    before = fu.LAUNCHES["nesterov_update"]
+    fu.nesterov_update(*zip(*leaves), lr, momentum=0.8)
+    torch.cuda.synchronize()
+    assert fu.LAUNCHES["nesterov_update"] == before + 1
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    for (p, _, v), r in zip(leaves, ref):
+        for got, want in zip((p, v), r):
+            got, want = got.float(), want.float()
+            assert ((got - want).abs() <= 1e-30 + tol * want.abs()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_b1b_refuses_a_host_learning_rate(cuda_device):
+    p = torch.zeros(8, device=cuda_device)
+    with pytest.raises(ValueError):
+        fu.nesterov_update([p], [p.clone()], [p.clone()], 0.01)
+
+
+# ------------------------------------------------- fused LSTM (B2a-c)
+def _lstm_inputs(dev, T, B, H, peephole, masked, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(dev)
+
+    xw = rnd(T, B, 4 * H)
+    rw = rnd(H, 4 * H, scale=H ** -0.5)
+    p = rnd(3, H, scale=0.5) if peephole else torch.zeros(3, H, device=dev)
+    h0, c0 = rnd(B, H, scale=0.5), rnd(B, H, scale=0.5)
+    if masked:
+        lens = torch.randint(max(1, T // 4), T + 1, (B,), generator=g)
+        mask = (torch.arange(T)[:, None] < lens[None, :]).float().to(dev)
+    else:
+        mask = torch.ones(T, B, device=dev)
+    return xw, rw, p, h0, c0, mask
+
+
+# H 37 and 10 are not multiples of 4: the kernels' 4-byte copy path
+LSTM_SHAPES = [(1, 32, 256), (12, 3, 8), (9, 5, 24), (40, 6, 100),
+               (16, 4, 640), (7, 9, 37), (5, 17, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peephole", [False, True], ids=["plain", "peep"])
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+@pytest.mark.parametrize("T,B,H", LSTM_SHAPES,
+                         ids=[f"T{t}B{b}H{h}" for t, b, h in LSTM_SHAPES])
+def test_cuda_b2ab_match_plain(cuda_device, T, B, H, masked, peephole):
+    ins = _lstm_inputs(cuda_device, T, B, H, peephole, masked)
+    before = dict(lk.LAUNCHES)
+    hs, cs, gates, hT, cT = lk.lstm_fwd(*ins, with_residuals=True)
+    hs_i, no_cs, no_g, hT_i, cT_i = lk.lstm_fwd(*ins, with_residuals=False)
+    ref = lk.lstm_fwd_plain(*ins, with_residuals=True)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES["lstm_fwd"] == before["lstm_fwd"] + 1
+    assert lk.LAUNCHES["lstm_fwd_inference"] == \
+        before["lstm_fwd_inference"] + 1
+    assert no_cs is None and no_g is None
+    for name, got, want in zip(("hs", "cs", "gates", "hT", "cT"),
+                               (hs, cs, gates, hT, cT), ref):
+        tol = 1e-4 * max(1.0, want.abs().max().item()) \
+            if name in ("cs", "cT") else 1e-4
+        assert (got - want).abs().max().item() <= tol, name
+    # the two forward kernels run the same arithmetic
+    assert torch.equal(hs, hs_i) and torch.equal(hT, hT_i) \
+        and torch.equal(cT, cT_i)
+    # the carries out are the masked carries of the last step
+    assert torch.equal(hT, hs[-1]) and torch.equal(cT, cs[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peephole", [False, True], ids=["plain", "peep"])
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+@pytest.mark.parametrize("T,B,H", LSTM_SHAPES[1:],
+                         ids=[f"T{t}B{b}H{h}" for t, b, h in LSTM_SHAPES[1:]])
+def test_cuda_b2c_matches_plain(cuda_device, T, B, H, masked, peephole):
+    xw, rw, p, h0, c0, mask = _lstm_inputs(cuda_device, T, B, H, peephole,
+                                           masked, seed=1)
+    hs, cs, gates, _, _ = lk.lstm_fwd_plain(xw, rw, p, h0, c0, mask)
+    g = torch.Generator().manual_seed(2)
+    dhs = torch.randn(T, B, H, generator=g).to(cuda_device)
+    dhT, dcT = (torch.randn(B, H, generator=g).to(cuda_device)
+                for _ in range(2))
+    before = dict(lk.LAUNCHES)
+    got = lk.lstm_bwd(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT)
+    ref = lk.lstm_bwd_plain(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT,
+                            dcT)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES["lstm_bwd"] == before["lstm_bwd"] + 1
+    assert lk.LAUNCHES["lstm_bwd_weights"] == \
+        before["lstm_bwd_weights"] + 1
+    for name, a, b in zip(("dxw", "dh0", "dc0", "drw", "dp"), got, ref):
+        tol = 1e-4 * max(b.abs().max().item(), 1e-6)
+        assert (a - b).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+def test_cuda_fused_lstm_autograd_and_kernel_choice(cuda_device):
+    """The autograd Function on the card: B2b under no_grad and when no
+    input wants a gradient, B2a and B2c otherwise; gradients against
+    autograd through the plain forward; an unused hT/cT is fine."""
+    ins = _lstm_inputs(cuda_device, 10, 4, 24, True, True, seed=3)
+    lk.reset_counts()
+    with torch.no_grad():
+        lk.fused_lstm(*ins)
+    lk.fused_lstm(*ins)
+    assert lk.LAUNCHES == {"lstm_fwd": 0, "lstm_fwd_inference": 2,
+                           "lstm_bwd": 0, "lstm_bwd_weights": 0}
+    live = [t.clone().requires_grad_() for t in ins[:5]]
+    hs, hT, cT = lk.fused_lstm(*live, ins[5])
+    grads = torch.autograd.grad((hs * hs).sum(), live)     # hT, cT unused
+    assert lk.LAUNCHES["lstm_fwd"] == 1 and lk.LAUNCHES["lstm_bwd"] == 1
+    ref_in = [t.clone().requires_grad_() for t in ins[:5]]
+    hs_r = lk.lstm_fwd_plain(*ref_in, ins[5])[0]
+    ref = torch.autograd.grad((hs_r * hs_r).sum(), ref_in)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, ref):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_refuses_what_the_kernels_do_not_take(cuda_device):
+    xw, rw, p, h0, c0, mask = _lstm_inputs(cuda_device, 4, 2, 8, False,
+                                           False)
+    with pytest.raises(TypeError):
+        lk.lstm_fwd(xw.bfloat16(), rw.bfloat16(), p.bfloat16(),
+                    h0.bfloat16(), c0.bfloat16(), mask.bfloat16())
+    with pytest.raises(ValueError):
+        lk.lstm_fwd(xw.transpose(0, 1).contiguous().transpose(0, 1), rw, p,
+                    h0, c0, mask)
+    big = lk.MAX_HIDDEN + 8
+    with pytest.raises(ValueError):
+        lk.lstm_fwd(*_lstm_inputs(cuda_device, 2, 2, big, False, False))

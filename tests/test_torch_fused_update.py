@@ -1,7 +1,9 @@
-"""The plain version of the port's fused Adam kernel B1a, and the port's
-`Adam.update_with_params`, against the JAX package on the CPU: the
-Pallas `adam_update` in interpret mode, and JAX's Adam on its XLA path
-and on its fused path (`DL4J_TPU_FUSED_UPDATE=fused`). Same seeded numpy
+"""The plain versions of the port's fused Adam kernel B1a and fused
+Nesterovs kernel B1b, and the port's `Adam.update_with_params` and
+`Nesterovs.update_with_params`, against the JAX package on the CPU: the
+Pallas `adam_update` and `nesterov_update` in interpret mode, and JAX's
+updaters on their XLA path and on their fused path
+(`DL4J_TPU_FUSED_UPDATE=fused`). Same seeded numpy
 inputs on both sides. Tolerances: float32 parameters within 1e-6
 relative (plus 1e-7 absolute: both sides round the same operations in
 float32, and XLA may fuse a multiply-add); bfloat16 parameters within
@@ -181,3 +183,109 @@ def test_other_updaters_match_jax(name, kw):
             np.testing.assert_allclose(tp[n][k].numpy(),
                                        np.asarray(jp[n][k]), rtol=1e-6,
                                        atol=1e-7)
+
+
+# ------------------------------------------------- Nesterovs (B1b)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1,), (127,), (129,), (1000,), (),
+                                   (5, 3)],
+                         ids=["1", "127", "129", "1000", "scalar", "5x3"])
+def test_plain_b1b_matches_pallas(shape, dtype):
+    """The plain version of kernel B1b against the Pallas
+    `nesterov_update` in interpret mode: odd sizes, a scalar leaf, a
+    matrix; the stored dtype is kept."""
+    from deeplearning4j_tpu.ops.fused_update import (
+        nesterov_update as jax_nesterov_update,
+    )
+
+    rng = np.random.default_rng(int(np.prod(shape)) + len(shape))
+    p, g = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    v = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    want = jax_nesterov_update(*(jnp.asarray(a, jd) for a in (p, g, v)),
+                               jnp.float32(0.05), momentum=0.8,
+                               interpret=True)
+    got = fu.nesterov_update_plain(*(torch.from_numpy(np.asarray(a)).to(td)
+                                     for a in (p, g, v)),
+                                   torch.tensor(0.05), momentum=0.8)
+    tol = (dict(rtol=2.0 ** -7, atol=1e-6) if dtype == "bfloat16"
+           else dict(rtol=1e-6, atol=1e-7))
+    for a, b in zip(got, want):
+        assert a.dtype == td and tuple(a.shape) == tuple(shape)
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b).astype(np.float32), **tol)
+
+
+def test_nesterov_multi_leaf_wrapper_updates_in_place_on_cpu():
+    rng = np.random.default_rng(2)
+    leaves = [tuple(torch.from_numpy(a) for a in _leaf(rng, n)[:3])
+              for n in SIZES]
+    lr = torch.tensor(0.05)
+    ref = [fu.nesterov_update_plain(*leaf, lr, momentum=0.7)
+           for leaf in leaves]
+    ptrs = [leaf[0].data_ptr() for leaf in leaves]
+    before = dict(fu.LAUNCHES)
+    fu.nesterov_update(*zip(*leaves), lr, momentum=0.7)
+    assert fu.LAUNCHES == before               # nothing launched on a CPU
+    for (p, _, v), r, ptr in zip(leaves, ref, ptrs):
+        assert p.data_ptr() == ptr
+        assert torch.equal(p, r[0]) and torch.equal(v, r[1])
+    with pytest.raises(ValueError, match="differ in length"):
+        fu.nesterov_update([leaves[0][0]], [], [leaves[0][2]], lr)
+
+
+@pytest.mark.parametrize("jax_path", ["xla", "fused"])
+def test_nesterovs_update_with_params_matches_jax(jax_path, monkeypatch):
+    """Three steps of the port's Nesterovs (its B1b seam, the plain
+    version on CPU tensors) with an exponential schedule against JAX's,
+    on its XLA path and on its fused path."""
+    from deeplearning4j_tpu.optim.schedules import (
+        ExponentialSchedule as JaxExp,
+    )
+    from deeplearning4j_tpu.optim.updaters import Nesterovs as JaxNesterovs
+    from deeplearning4j_tpu_torch.optim.schedules import ExponentialSchedule
+    from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
+
+    monkeypatch.setenv("DL4J_TPU_FUSED_UPDATE", jax_path)
+    params, _ = _trees(3)
+    ju = JaxNesterovs(learning_rate=JaxExp(initial=0.1, decay_rate=0.5),
+                      momentum=0.8)
+    pu = Nesterovs(learning_rate=ExponentialSchedule(initial=0.1,
+                                                     decay_rate=0.5),
+                   momentum=0.8)
+    assert "apply" not in vars(Nesterovs)    # the arithmetic lives in B1b
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    js = ju.init(jp)
+    tp = _torch_tree(params)
+    ts = pu.init(tp)
+    for step in range(3):
+        grads, _ = _trees(30 + step)
+        jp, js = ju.update_with_params(
+            jax.tree_util.tree_map(jnp.asarray, grads), js, jp,
+            jnp.asarray(step, jnp.int32))
+        tp2, ts2 = pu.update_with_params(_torch_tree(grads), ts, tp,
+                                         torch.tensor(step))
+        assert tp2 is tp and ts2 is ts       # in place
+    for n in params:
+        for k in params[n]:
+            np.testing.assert_allclose(tp[n][k].numpy(),
+                                       np.asarray(jp[n][k]),
+                                       rtol=1e-6, atol=1e-7)
+            np.testing.assert_allclose(ts["v"][n][k].numpy(),
+                                       np.asarray(js["v"][n][k]),
+                                       rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("kind,kernel", [("adam", "B1a"),
+                                         ("nesterov", "B1b")])
+def test_fused_update_policy_is_fused_on_the_card_plain_on_cpu(kind, kernel):
+    from deeplearning4j_tpu_torch.ops.kernel_defaults import (
+        fused_update_policy,
+    )
+
+    on_card = fused_update_policy(kind, "cuda")
+    assert on_card.kind == "fused" and kernel in on_card.reason
+    assert fused_update_policy(kind, "cpu").kind == "plain"
+    with pytest.raises(ValueError, match="unknown fused update"):
+        fused_update_policy("rmsprop")

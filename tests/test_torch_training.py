@@ -303,7 +303,7 @@ def test_fit_refuses_what_is_not_ported(kw, item):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("tbptt_fwd_length", 4, "A3"), ("gradient_checkpointing", True, "A4"),
+    ("gradient_checkpointing", True, "A4"),
     ("optimization_algo", "lbfgs", "A1")])
 def test_fit_refuses_unported_config(field, value, item):
     import dataclasses

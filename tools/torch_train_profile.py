@@ -1,22 +1,33 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's training step goes, on one card.
 
-    python3 tools/torch_train_profile.py
+    python3 tools/torch_train_profile.py [--path t|l|g]
 
-Builds `chip_smoke.py`'s training path (`path_t`: the 6-block GPT-style
-`TextGenerationTransformer` at d_model 512, 8 heads, T 2048, batch 8,
-float32, its default Adam(3e-4)), runs one untraced step to warm it,
-then two steps under `torch.profiler` and reads the kernels off its
-Chrome trace, with the same method as `tools/torch_decode_profile.py`.
-Prints one JSON line: the traced steps' wall time, the time the card was
-busy (the union of kernel intervals), the idle share, kernels launched a
-step, and device time by kernel class (B3a, B3b + B3c, B1a, matrix
-products, everything else) and for the ten costliest kernels. Needs a
-CUDA card.
+Builds one of `chip_smoke.py`'s paths, warms it untraced, then runs it
+under `torch.profiler` and reads the kernels off its Chrome trace, with
+the same method as `tools/torch_decode_profile.py`:
+
+- `--path t` (default), `path_t`: the 6-block GPT-style
+  `TextGenerationTransformer` at d_model 512, 8 heads, T 2048, batch 8,
+  float32, its default Adam(3e-4); two traced train steps;
+- `--path l`, `path_l`: the LSTM bench model (GravesLSTM(512) x 2 +
+  RnnOutputLayer(64), T 128, batch 64, float32, Nesterovs(0.01, 0.9));
+  six traced train steps (two batches, one of them masked, three
+  epochs), so that what `fit` does once weighs little;
+- `--path g`, `path_g`'s stepping loop: `TextGenerationLSTM` at its own
+  width, 50 traced greedy `rnn_time_step` calls for 32 streams.
+
+Prints one JSON line: the traced window's wall time, the time the card
+was busy (the union of kernel intervals), the idle share, kernels
+launched a step (or a call), and device time by kernel class (the flash
+kernels B3a and B3b + B3c, the LSTM kernels B2a, B2b and B2c with its
+weight-gradient launch, the fused updates B1a and B1b, matrix products,
+everything else) and for the ten costliest kernels. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import tempfile
@@ -37,8 +48,18 @@ def kernel_class(name):
         return "flash_fwd (B3a)"
     if "flash_bwd" in name:
         return "flash_bwd (B3b + B3c)"
-    if "adam_multi" in name:
+    if "AdamRule" in name:
         return "fused_adam (B1a)"
+    if "NesterovRule" in name:
+        return "fused_nesterov (B1b)"
+    if "lstm_fwd_kernel" in name:
+        # the template argument: true keeps the residuals (B2a)
+        return ("lstm_fwd (B2a)" if "<true>" in name
+                else "lstm_fwd_inference (B2b)")
+    if "lstm_bwd_kernel" in name:
+        return "lstm_bwd recurrence (B2c)"
+    if "lstm_drw_kernel" in name or "lstm_dp_reduce" in name:
+        return "lstm_bwd weights (B2c)"
     low = name.lower()
     if any(t in low for t in ("gemm", "gemv", "cutlass", "sm90_xmma",
                               "ampere_sgemm", "cublas")):
@@ -46,7 +67,42 @@ def kernel_class(name):
     return "other"
 
 
+def traced_window(path):
+    """(run, units, unit name, work a unit): `run()` drives the traced
+    window; the warm-up has been done when this returns."""
+    rng = np.random.default_rng(0)
+    if path == "t":
+        net = cs.build_net("cuda", num_blocks=6, seed=5)
+        batches = cs.lm_batches(rng, 3, 8, 2048)
+        tokens = 8 * 2048
+    elif path == "l":
+        net = cs.build_lstm_net("cuda", seed=5)
+        batches = cs.seq_batches(rng, 3, 64, 128, 128, 64, masked=(2,))
+        net.fit(batches[:1], epochs=1)              # warm, untraced
+        return (lambda: net.fit(batches[1:], epochs=3)), 6, "step", 64 * 128
+    else:
+        from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+        net = TextGenerationLSTM(input_shape=(200, 77),
+                                 seed=9).init(device="cuda")
+        eye = torch.eye(77, device=net.device)
+        tok = [torch.as_tensor(rng.integers(0, 77, 32), device=net.device)]
+
+        def steps(n):
+            for _ in range(n):
+                out = net.rnn_time_step(eye[tok[0]])
+                tok[0] = torch.argmax(out[:, -1, :], dim=-1)
+
+        steps(5)                                    # warm, untraced
+        return (lambda: steps(50)), 50, "call", 32
+    net.fit(batches[:1], epochs=1)                  # warm, untraced
+    return (lambda: net.fit(batches[1:], epochs=1)), 2, "step", tokens
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", choices=("t", "l", "g"), default="t")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: needs a CUDA card", file=sys.stderr)
         return 2
@@ -54,15 +110,12 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.default_rng(0)
-    net = cs.build_net("cuda", num_blocks=6, seed=5)
-    batches = cs.lm_batches(rng, 3, 8, 2048)
-    net.fit(batches[:1], epochs=1)                  # warm, untraced
+    run, units, unit, tokens = traced_window(args.path)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        net.fit(batches[1:], epochs=1)              # two traced steps
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     with tempfile.TemporaryDirectory() as tmp:
@@ -70,7 +123,6 @@ def main() -> int:
         prof.export_chrome_trace(path)
         kernels = kernel_events(path)
     cs.check(bool(kernels), "the profiler saw no device kernels")
-    steps = 2
     by_class, by_name = {}, {}
     for e in kernels:
         c = kernel_class(e["name"])
@@ -80,15 +132,16 @@ def main() -> int:
     busy = busy_us(kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     cs.emit({
-        "phase": "profile_path_t", "device": torch.cuda.get_device_name(0),
-        "nvidia_smi": cs.gpu_name_and_limit(), "steps": steps,
-        "tokens_per_step": 8 * 2048,
-        "wall_ms_per_step": wall_us / 1e3 / steps,
-        "device_busy_ms_per_step": busy / 1e3 / steps,
+        "phase": f"profile_path_{args.path}",
+        "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": cs.gpu_name_and_limit(), f"{unit}s": units,
+        f"tokens_per_{unit}": tokens,
+        f"wall_ms_per_{unit}": wall_us / 1e3 / units,
+        f"device_busy_ms_per_{unit}": busy / 1e3 / units,
         "idle_share": 1.0 - busy / wall_us,
-        "kernels_per_step": len(kernels) / steps,
-        "device_ms_per_step_by_class": {c: t / 1e3 / steps
-                                        for c, t in sorted(by_class.items())},
+        f"kernels_per_{unit}": len(kernels) / units,
+        f"device_ms_per_{unit}_by_class": {
+            c: t / 1e3 / units for c, t in sorted(by_class.items())},
         "top_kernels": [{"name": n[:120], "count": c, "ms": t / 1e3}
                         for n, (c, t) in top],
     })
