@@ -99,6 +99,14 @@ REPLACES = {
     "paged_decode_attention":
         "deeplearning4j_tpu/ops/banded_attention.py:487 "
         "(_paged_decode_kernel)",
+    "banded_decode_attention_q":
+        "deeplearning4j_tpu/ops/banded_attention.py:314 (_decode_kernel, "
+        "quant=True: :327, :364-367)",
+    "paged_decode_attention_q":
+        "deeplearning4j_tpu/ops/banded_attention.py:487 "
+        "(_paged_decode_kernel, quant=True: :499, :528-531)",
+    "banded_attention":
+        "deeplearning4j_tpu/ops/banded_attention.py:117 (_banded_kernel)",
     "flash_attention_fwd":
         "deeplearning4j_tpu/ops/attention.py:64 (_flash_kernel)",
     "flash_attention_bwd_dkdv":
@@ -122,6 +130,11 @@ SOURCES = {
         "deeplearning4j_tpu_torch/csrc/decode_attention.cu",
     "paged_decode_attention":
         "deeplearning4j_tpu_torch/csrc/decode_attention.cu",
+    "banded_decode_attention_q":
+        "deeplearning4j_tpu_torch/csrc/decode_attention.cu",
+    "paged_decode_attention_q":
+        "deeplearning4j_tpu_torch/csrc/decode_attention.cu",
+    "banded_attention": "deeplearning4j_tpu_torch/csrc/banded_attention.cu",
     "flash_attention_fwd": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dkdv":
         "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
@@ -187,33 +200,46 @@ def kv_rows(vis, page_table=None, page_len=None):
     return int(torch.unique(phys).numel())
 
 
-def bound(vis, rows, q, hkv, dtype, extra_bytes):
+def bound(vis, rows, q, hkv, dtype, extra_bytes, kv_dtype=None):
     """(bound_ms, bound_by): the larger of the bytes this call must move
-    (the `rows` distinct visible K and V rows, q, out, indices) over HBM
-    bandwidth and its operations (QK and PV, 4 flops per slot's visible
-    key, head and head dim) over the peak rate of its dtype."""
+    (the `rows` distinct visible K and V rows — quantized, one byte an
+    element plus two 4-byte scales a row and kv head — q, out, indices)
+    over HBM bandwidth and its operations (QK and PV, 4 flops per slot's
+    visible key, head and head dim) over the peak rate of its dtype."""
     esize = torch.tensor([], dtype=dtype).element_size()
+    kv_esize = torch.tensor([], dtype=kv_dtype or dtype).element_size()
     S, H, Dh = q.shape
-    nbytes = rows * 2 * hkv * Dh * esize + 2 * q.numel() * esize \
-        + extra_bytes
+    scale_bytes = 0 if kv_dtype is None else rows * 2 * hkv * 4
+    nbytes = rows * 2 * hkv * Dh * kv_esize + scale_bytes \
+        + 2 * q.numel() * esize + extra_bytes
     flops = int(vis.sum()) * 4 * H * Dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sdpa_call(q, k_log, v_log, vis):
+def sdpa_call(q, k_log, v_log, vis, scales=None):
     """One `scaled_dot_product_attention` over the logical [S, L, Hkv,
-    Dh] cache with the same boolean mask: the library yardstick."""
+    Dh] cache with the same boolean mask: the library yardstick. With
+    `scales` (the logical [S, L, Hkv] scale rows of quantized caches) a
+    dequantize pass comes first, inside the timed call."""
     import torch.nn.functional as F
 
+    from deeplearning4j_tpu_torch.ops.banded_attention import dequantize
+
     qh = q[:, :, None, :]                       # [S, H, 1, Dh]
-    kh = k_log.transpose(1, 2)                  # [S, Hkv, L, Dh]
-    vh = v_log.transpose(1, 2)
     mask = vis[:, None, None, :]
     gqa = q.shape[1] != k_log.shape[2]
-    return lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask, enable_gqa=gqa)
+
+    def call():
+        k, v = k_log, v_log
+        if scales is not None:
+            k = dequantize(k, scales[0], q.dtype)
+            v = dequantize(v, scales[1], q.dtype)
+        return F.scaled_dot_product_attention(
+            qh, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=gqa)
+    return call
 
 
 def kernel_cases():
@@ -235,17 +261,38 @@ def kernel_cases():
                                   page_len=lp,
                                   main=(dt == torch.float32 and hkv == 8
                                         and lp == 128)))
+    # B5q and B6q at the shapes path_q hands them (path_b's ring, path_a's
+    # pages), int8 and e4m3 codes under float32 queries
+    for kv in (torch.int8, torch.float8_e4m3fn):
+        main = kv == torch.int8
+        cases.append(dict(kernel="banded_decode_attention_q",
+                          dtype=torch.float32, kv=kv, hkv=2, mode="rolling",
+                          L=2303, main=main))
+        cases.append(dict(kernel="paged_decode_attention_q",
+                          dtype=torch.float32, kv=kv, hkv=8, mode="paged",
+                          L=2048, page_len=128, main=main))
     return cases
 
 
 def run_kernel_case(c, flush, gen):
+    from deeplearning4j_tpu_torch.nn.layers.attention import quantize_kv
     from deeplearning4j_tpu_torch.ops import banded_attention as ba
 
     dev = flush.device
     dt, hkv, L, S, H, Dh = c["dtype"], c["hkv"], c["L"], 8, 8, 64
+    kv = c.get("kv")
+    scales = []
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen).to(dev, dt)
+
+    def cache(*shape):
+        # quantized cases: codes, their scale rows kept in `scales`
+        if kv is None:
+            return rnd(*shape)
+        codes, sc = quantize_kv(rnd(*shape), kv)
+        scales.append(sc)
+        return codes
 
     q = rnd(S, H, Dh)
     window = None if c["mode"] in ("linear", "paged") else 256
@@ -259,27 +306,35 @@ def run_kernel_case(c, flush, gen):
     qpos = qpos.to(dev, torch.int32)
     end = qpos.clone()
     pt = lp = None
-    if c["kernel"] == "paged_decode_attention":
+    lib_scales = None
+    if c["mode"] == "paged":
         lp = c["page_len"]
         npg = L // lp
         P = S * npg
-        kc, vc = rnd(P, lp, hkv, Dh), rnd(P, lp, hkv, Dh)
+        kc, vc = cache(P, lp, hkv, Dh), cache(P, lp, hkv, Dh)
+        sk, sv = scales or (None, None)
         pt = torch.randperm(P, generator=gen).reshape(S, npg)
         pt[1:, : npg // 4] = pt[0, : npg // 4]    # a shared prefix chain
         pt = pt.to(dev, torch.int32)
-        run = lambda: ba.paged_decode_attention(q, kc, vc, pt, qpos)  # noqa
+        run = lambda: ba.paged_decode_attention(  # noqa: E731
+            q, kc, vc, pt, qpos, scale_k=sk, scale_v=sv)
         plain = lambda: ba.paged_decode_attention_plain(  # noqa: E731
-            q, kc, vc, pt, qpos)
-        k_log = kc[pt.long()].reshape(S, L, hkv, Dh)
-        v_log = vc[pt.long()].reshape(S, L, hkv, Dh)
+            q, kc, vc, pt, qpos, scale_k=sk, scale_v=sv)
+        k_log, v_log = ba.gather_pages(kc, pt), ba.gather_pages(vc, pt)
+        if kv is not None:
+            lib_scales = (ba.gather_pages(sk, pt), ba.gather_pages(sv, pt))
         extra = pt.numel() * 4 + S * 4
     else:
-        kc, vc = rnd(S, L, hkv, Dh), rnd(S, L, hkv, Dh)
+        kc, vc = cache(S, L, hkv, Dh), cache(S, L, hkv, Dh)
+        sk, sv = scales or (None, None)
         run = lambda: ba.banded_decode_attention(  # noqa: E731
-            q, kc, vc, qpos, end, window=window, rolling=rolling)
+            q, kc, vc, qpos, end, window=window, rolling=rolling,
+            scale_k=sk, scale_v=sv)
         plain = lambda: ba.decode_attention_plain(  # noqa: E731
-            q, kc, vc, qpos, end, window=window, rolling=rolling)
+            q, kc, vc, qpos, end, window=window, rolling=rolling,
+            scale_k=sk, scale_v=sv)
         k_log, v_log = kc, vc
+        lib_scales = scales or None
         extra = 2 * S * 4
     vis = ba.visibility(qpos, end, L, window, rolling)
     live = vis.any(dim=1)        # rows with no visible key are garbage
@@ -293,11 +348,12 @@ def run_kernel_case(c, flush, gen):
           f"max abs err {err}, tolerance atol {atol} + rtol {rtol} * |ref|")
     ms = time_ms(run, flush)
     plain_ms = time_ms(plain, flush)
-    library_ms = time_ms(sdpa_call(q, k_log, v_log, vis), flush)
+    library_ms = time_ms(sdpa_call(q, k_log, v_log, vis, lib_scales), flush)
     rows = kv_rows(vis, pt, lp)
-    bms, by = bound(vis, rows, q, hkv, dt, extra)
+    bms, by = bound(vis, rows, q, hkv, dt, extra, kv)
     row = {"phase": "kernels", "kernel": c["kernel"],
-           "dtype": str(dt).replace("torch.", ""), "S": S, "H": H,
+           "dtype": str(dt).replace("torch.", ""),
+           "kv_dtype": str(kv or dt).replace("torch.", ""), "S": S, "H": H,
            "Hkv": hkv, "Dh": Dh, "L": L, "mode": c["mode"],
            "page_len": c.get("page_len"), "window": window,
            "visible_keys": int(vis.sum()), "kv_rows": rows,
@@ -428,6 +484,81 @@ def run_flash_case(c, flush, gen):
         emit(row)
         rows.append(row)
     return rows
+
+
+# ------------------------------------------------ kernels: banded (B4)
+def banded_cases():
+    """`path_w`'s shape (B 8, H 8, Hkv 2, T 2048, Dh 64, window 256,
+    causal, float32), and the variants the kernel must hold: MHA (Hkv
+    8), bidirectional, a window past T, a ragged T with another window,
+    bfloat16."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    base = dict(b=8, h=8, hkv=2, t=2048, dh=64, w=256, causal=True,
+                dtype=f32, main=False)
+    return [dict(base, main=True), dict(base, hkv=8),
+            dict(base, causal=False), dict(base, w=4096),
+            dict(base, t=1000, w=100), dict(base, dtype=bf16)]
+
+
+def banded_bound(c):
+    """(bound_ms, bound_by) of B4: its two products over the visible
+    (query, key) pairs at the peak rate of its dtype, or the bytes it
+    must move (q, k, v read once, o written once) over HBM bandwidth."""
+    from deeplearning4j_tpu_torch.ops.banded_attention import band_pairs
+
+    es = torch.tensor([], dtype=c["dtype"]).element_size()
+    pairs = c["b"] * c["h"] * band_pairs(c["t"], c["w"], c["causal"])
+    flops = 2 * 2 * c["dh"] * pairs
+    nbytes = 2 * c["b"] * c["t"] * (c["h"] + c["hkv"]) * c["dh"] * es
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[c["dtype"]] * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")), pairs
+
+
+def run_banded_case(c, flush, gen):
+    """B4 against its plain version (the dense band-masked softmax);
+    yardstick: SDPA with the band as a boolean mask, GQA enabled."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+
+    dev, dt = flush.device, c["dtype"]
+    b, t, h, hkv, dh, w, causal = (c[k] for k in ("b", "t", "h", "hkv",
+                                                  "dh", "w", "causal"))
+
+    def rnd(heads):
+        return torch.randn(b, t, heads, dh, generator=gen).to(dev, dt)
+
+    q, k, v = rnd(h), rnd(hkv), rnd(hkv)
+    run = lambda: ba.banded_attention_fwd(q, k, v, w, causal)  # noqa: E731
+    plain = lambda: ba.banded_reference(q, k, v, w, causal)  # noqa: E731
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dt]
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    shape = {kk: c[kk] for kk in ("b", "t", "h", "hkv", "dh", "w", "causal")}
+    check(bool((diff <= atol + rtol * ref.float().abs()).all()),
+          f"banded_attention {shape} {dt}: max abs err {err}, tolerance "
+          f"atol {atol} + rtol {rtol} * |ref|")
+    del out, ref
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    mask = ba.band_visibility(t, w, causal, dev)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, attn_mask=mask, enable_gqa=hkv != h)
+    (bms, by), pairs = banded_bound(c)
+    timed_plain = c["main"] or dt == torch.bfloat16
+    row = {"phase": "kernels", "kernel": "banded_attention",
+           "dtype": str(dt).replace("torch.", ""), **shape,
+           "visible_pairs": pairs, "max_abs_err": err, "atol": atol,
+           "rtol": rtol, "ms": time_ms(run, flush),
+           "plain_ms": time_ms(plain, flush, iters=5) if timed_plain
+           else None,
+           "library_ms": time_ms(lib, flush, iters=10),
+           "bound_ms": bms, "bound_by": by, "main_path_shape": c["main"]}
+    emit(row)
+    return row
 
 
 # ------------------------------------------------- kernels: Adam (B1a)
@@ -742,7 +873,7 @@ def build_net(device, *, num_blocks, seed, t=2048, **kw):
         num_blocks=num_blocks, seed=seed, **kw).init(device=device)
 
 
-def control_plane(net, *, slots, chunk, k):
+def control_plane(net, *, slots, chunk, k, kv_dtype=None):
     from deeplearning4j_tpu_torch.serving import (
         ContinuousBatchingScheduler, DecodeSessionManager, ModelRegistry,
         ServingStats,
@@ -755,7 +886,7 @@ def control_plane(net, *, slots, chunk, k):
                                         max_batch_size=2 * slots)
     mgr = DecodeSessionManager(registry, sched, "default", slots=slots,
                                prefill_chunk=chunk, fused_k=k,
-                               metrics=stats.registry)
+                               kv_dtype=kv_dtype, metrics=stats.registry)
     return registry, sched, mgr
 
 
@@ -792,13 +923,14 @@ def serve_wave(mgr, prompts, greedy, max_tokens, vocab):
 
 
 def drive_path(net, name, kernel, prompts_waves, greedy, max_tokens, *,
-               slots, chunk, k):
+               slots, chunk, k, kv_dtype=None):
     """Serve each wave through the session manager with every launch
     count zeroed just before and read just after; returns the streams
     and the path's summary line."""
     from deeplearning4j_tpu_torch.ops import banded_attention as ba
 
-    registry, sched, mgr = control_plane(net, slots=slots, chunk=chunk, k=k)
+    registry, sched, mgr = control_plane(net, slots=slots, chunk=chunk, k=k,
+                                         kv_dtype=kv_dtype)
     try:
         torch.cuda.synchronize()
         ba.reset_counts()
@@ -819,6 +951,7 @@ def drive_path(net, name, kernel, prompts_waves, greedy, max_tokens, *,
           f"{name}: plain versions ran on CUDA tensors: {plain_on_cuda}")
     row = {"phase": name, "kernel": kernel, "launches": launches,
            "plain_on_cuda": plain_on_cuda, "waves": waves,
+           "slots": snap["slots"], "kv_dtype": snap["kv_dtype"],
            "prefix_cache": snap["prefix_cache"],
            "decode_loop": snap["decode_loop"],
            "dispatches": snap["dispatches"],
@@ -847,24 +980,29 @@ def path_a(device, rng):
     row["warm_vs_cold_ttft_p50"] = (row["waves"][1]["ttft_ms_p50"]
                                     / row["waves"][0]["ttft_ms_p50"])
     emit(row)
-    return row
+    return row, prompts, w1
+
+
+def build_path_b_net(device):
+    return build_net(device, num_blocks=2, seed=11, pos_encoding="rope",
+                     norm="rms", ffn_activation="swiglu", num_kv_heads=2,
+                     window=256, rolling_cache=True)
 
 
 def path_b(device, rng):
     """Llama-shaped, 2 blocks, rolling ring (L = 2048 + 256 - 1 = 2303):
     B5 on every decode step; prompts of 2240 + 128 new tokens run past
     the ring's length, so it wraps."""
-    net = build_net(device, num_blocks=2, seed=11, pos_encoding="rope",
-                    norm="rms", ffn_activation="swiglu", num_kv_heads=2,
-                    window=256, rolling_cache=True)
+    net = build_path_b_net(device)
     prompts = [rng.integers(0, 256, 2240) for _ in range(8)]
     greedy = [True] * 6 + [False] * 2
-    _, row = drive_path(net, "path_b", "banded_decode_attention",
-                        [prompts], greedy, 128, slots=8, chunk=128, k=8)
+    (streams,), row = drive_path(net, "path_b", "banded_decode_attention",
+                                 [prompts], greedy, 128, slots=8, chunk=128,
+                                 k=8)
     check(not row["prefix_cache"]["enabled"],
           "path_b: a rolling ring cannot page, yet the prefix cache is on")
     emit(row)
-    return row
+    return row, prompts, streams
 
 
 def cpu_parity(rng, steps=8, tol=1e-3):
@@ -927,6 +1065,88 @@ def cpu_parity(rng, steps=8, tol=1e-3):
            "window_checked": min(clear + 1, steps), "tokens": cpu_stream}
     emit(row)
     return row
+
+
+def prefill_slot0(net, carries, prompt, chunk=128):
+    """Step all but the last token of `prompt` through slot 0, in
+    valid-masked chunks of `chunk` (a rolling ring takes at most
+    max_cache - window + 1 tokens a step)."""
+    stem = np.asarray(prompt[:-1], np.float32)
+    for i in range(0, len(stem), chunk):
+        part = stem[i:i + chunk]
+        x = np.zeros((1, chunk, 1), np.float32)
+        x[0, :len(part), 0] = part
+        valid = np.zeros((1, chunk), np.float32)
+        valid[0, :len(part)] = 1.0
+        _, carries = net.session_step(x, carries, valid=valid)
+    return carries
+
+
+def teacher_forced_gap(net, prompt, kv_dtype, page_len=None, steps=8):
+    """JAX's contract for quantized KV (`tests/test_kv_quant.py:112-124`):
+    one native and one quantized carry of the same weights take the same
+    prompt, then the same `steps` tokens (the native stream's, so that a
+    flipped argmax cannot make the inputs part); returns the largest
+    difference of their output probabilities over those steps."""
+    carries = {}
+    for kd in ("native", kv_dtype):
+        c = net.session_carries(1, kv_dtype=kd, page_len=page_len)
+        for layer in c.values():
+            if "page_table" in layer.get("attn", {}):
+                npg = layer["attn"]["page_table"].shape[1]
+                layer["attn"]["page_table"][0] = torch.arange(npg)
+        carries[kd] = prefill_slot0(net, c, prompt)
+    tok, gap = int(prompt[-1]), 0.0
+    for _ in range(steps):
+        probs = {}
+        for kd in carries:
+            out, carries[kd] = net.session_step(
+                np.full((1, 1, 1), tok, np.float32), carries[kd])
+            probs[kd] = out[0, -1].float()
+        gap = max(gap, (probs[kv_dtype] - probs["native"]).abs().max()
+                  .item())
+        tok = int(torch.argmax(probs["native"]))
+    return gap
+
+
+def path_q(native_a, native_b, tol=0.02):
+    """Quantized-KV decode serving through `DecodeSessionManager(...,
+    kv_dtype=...)`: path_a's net with int8 pages (B6q on every decode
+    step) and path_b's ring with e4m3, then int8 codes (B5q), each a
+    wave of the native path's own prompts. Each wave is held to JAX's
+    contract for quantized KV (`teacher_forced_gap` within `tol`); the
+    share of greedy tokens equal to the native wave's is information
+    only."""
+    greedy = [True] * 6 + [False] * 2
+    waves = [("path_q_a_int8", "paged_decode_attention_q", "int8",
+              lambda: build_net("cuda", num_blocks=6, seed=7), native_a, 64,
+              128),
+             ("path_q_b_fp8", "banded_decode_attention_q", "fp8",
+              lambda: build_path_b_net("cuda"), native_b, 128, None),
+             ("path_q_b_int8", "banded_decode_attention_q", "int8",
+              lambda: build_path_b_net("cuda"), native_b, 128, None)]
+    rows = []
+    for name, kernel, kv, build, (prompts, native), new, page_len in waves:
+        net = build()
+        (streams,), row = drive_path(net, name, kernel, [prompts], greedy,
+                                     new, slots=8, chunk=128, k=8,
+                                     kv_dtype=kv)
+        native_kernel = kernel[:-2]
+        check(row["launches"][native_kernel] == 0,
+              f"{name}: the native {native_kernel} ran on a quantized pool")
+        check(row["kv_dtype"]["kind"] == row["slots"]["kv_dtype"] == kv,
+              f"{name}: pool holds {row['slots']['kv_dtype']}, asked {kv}")
+        gap = teacher_forced_gap(net, prompts[0], kv, page_len)
+        check(gap <= tol, f"{name}: quantized probabilities differ from the "
+              f"native pool's by {gap} (tolerance {tol})")
+        same = [a == b for s, n, g in zip(streams, native, greedy) if g
+                for a, b in zip(s, n)]
+        row.update(teacher_forced_max_prob_gap=gap, tol=tol,
+                   greedy_tokens_equal_native_share=sum(same) / len(same))
+        emit(row)
+        rows.append(row)
+        del net
+    return rows
 
 
 # ------------------------------------------------------ training phases
@@ -1071,13 +1291,15 @@ def path_t(rng, epochs=3):
     return row
 
 
-def train_parity(rng, steps=2, tol_loss=1e-5, tol_param=1e-5):
+def train_parity(rng, name="train_parity", kernel="flash_attention_fwd",
+                 steps=2, tol_loss=1e-5, tol_param=1e-5, **net_kw):
     """The port's train step on the card against the CPU: a 2-block model
     at T 256, batch 2, the same seed (so the same weights) and batch,
-    `steps` Adam steps. Adam's ε is 1e-3 here so that a near-zero
-    gradient's first update (≈ lr·sign(g) at ε 1e-8) cannot flip with the
-    last bits of a sum; losses agree within `tol_loss` relative and
-    every parameter within `tol_param` absolute."""
+    `steps` Adam steps; `kernel` must have run on the card. Adam's ε is
+    1e-3 here so that a near-zero gradient's first update (≈ lr·sign(g)
+    at ε 1e-8) cannot flip with the last bits of a sum; losses agree
+    within `tol_loss` relative and every parameter within `tol_param`
+    absolute."""
     from deeplearning4j_tpu_torch.optim.listeners import (
         CollectScoresIterationListener,
     )
@@ -1087,22 +1309,81 @@ def train_parity(rng, steps=2, tol_loss=1e-5, tol_param=1e-5):
     losses, leaves = {}, {}
     for d in ("cuda", "cpu"):
         net = build_net(d, num_blocks=2, seed=17, t=256,
-                        updater=Adam(3e-4, epsilon=1e-3))
+                        updater=Adam(3e-4, epsilon=1e-3), **net_kw)
         scores = CollectScoresIterationListener()
         net.listeners.append(scores)
+        reset_all_counts()
         net.fit(batch, epochs=steps)
+        if d == "cuda":
+            launches, _ = read_all_counts()
+            check(launches[kernel] == 2 * steps,
+                  f"{name}: {kernel} launched {launches[kernel]} times, "
+                  f"want 2 blocks x {steps} steps")
         losses[d] = [sc for _, sc in scores.scores]
         leaves[d] = [p.float().cpu() for p in tree_leaves(net.params_tree)]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                   losses["cpu"]))
     dp = max((a - b).abs().max().item()
              for a, b in zip(leaves["cuda"], leaves["cpu"]))
-    check(rel <= tol_loss, f"train_parity: losses {losses} differ by {rel} "
+    check(rel <= tol_loss, f"{name}: losses {losses} differ by {rel} "
           f"relative")
-    check(dp <= tol_param, f"train_parity: parameters differ by {dp}")
-    row = {"phase": "train_parity", "steps": steps, "losses": losses,
+    check(dp <= tol_param, f"{name}: parameters differ by {dp}")
+    row = {"phase": name, "steps": steps, "losses": losses,
            "loss_rel_err": rel, "tol_loss_rel": tol_loss,
            "max_param_abs_err": dp, "tol_param_abs": tol_param}
+    emit(row)
+    return row
+
+
+LLAMA = dict(pos_encoding="rope", norm="rms", ffn_activation="swiglu",
+             num_kv_heads=2)
+
+
+def path_w(rng, epochs=3):
+    """Full width training of the sliding-window (Mistral-shaped)
+    transformer: 6 Llama blocks (RoPE, RMSNorm, SwiGLU, 2 KV heads under
+    8) with window 256, T 2048, batch 8, float32, the zoo's default
+    Adam(3e-4), 4 fixed batches x 3 epochs = 12 steps through `net.fit`
+    (`timed_fit`): B4 forward in every block and B1a; then one
+    `output()` (B4 under no_grad)."""
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    B, T, blocks = 8, 2048, 6
+    net = build_net("cuda", num_blocks=blocks, seed=5, window=256, **LLAMA)
+    check(net.conf.updater == Adam(3e-4),
+          f"path_w: zoo updater is {net.conf.updater}, not Adam(3e-4)")
+    batches = lm_batches(rng, 4, B, T)
+    fit = timed_fit("path_w", net, batches, epochs, B * T)
+    steps, launches = fit["steps"], fit["launches"]
+    check(launches["banded_attention"] == blocks * steps,
+          f"path_w: banded_attention launched "
+          f"{launches['banded_attention']} times, want {blocks} a step x "
+          f"{steps}")
+    check(launches["adam_update"] == steps,
+          f"path_w: adam_update launched {launches['adam_update']} times, "
+          f"want one a step x {steps}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq"):
+        check(launches[name] == 0, f"path_w: {name} ran in a windowed model")
+    t0 = time.perf_counter()
+    probs = net.output(batches[0].features)
+    torch.cuda.synchronize()
+    output_s = time.perf_counter() - t0
+    after, plain = read_all_counts()
+    check(tuple(probs.shape) == (B, T, 256), f"path_w: output {probs.shape}")
+    check(bool(torch.isfinite(probs).all()), "path_w: output not finite")
+    check(float((probs.sum(-1) - 1).abs().max()) < 1e-4,
+          "path_w: output rows do not sum to 1")
+    out_launches = after["banded_attention"] - launches["banded_attention"]
+    check(out_launches == blocks, f"path_w: output() launched B4 "
+          f"{out_launches} times, want {blocks}")
+    check(sum(plain.values()) == 0,
+          f"path_w: plain versions ran on CUDA tensors: {plain}")
+    row = {"phase": "path_w", "model": "TextGenerationTransformer",
+           "d_model": 512, "heads": 8, "kv_heads": 2, "window": 256,
+           "blocks": blocks, "T": T, "batch": B, "dtype": "float32",
+           "updater": str(net.conf.updater), **fit, "output_s": output_s,
+           "output_launches": out_launches}
     emit(row)
     return row
 
@@ -1358,6 +1639,7 @@ def main() -> int:
     rows = [run_kernel_case(c, flush, gen) for c in kernel_cases()]
     for c in flash_cases():
         rows += run_flash_case(c, flush, gen)
+    rows += [run_banded_case(c, flush, gen) for c in banded_cases()]
     rows += run_adam_phase(flush, gen)
     rows += run_nesterov_phase(flush, gen)
     for c in lstm_cases():
@@ -1366,19 +1648,29 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(0)
-    a = path_a("cuda", rng)
-    b = path_b("cuda", rng)
+    a, *native_a = path_a("cuda", rng)
+    b, *native_b = path_b("cuda", rng)
     cpu_parity(rng)
+    qa, qb_fp8, qb_int8 = path_q(native_a, native_b)
     t = path_t(rng)
     train_parity(rng)
+    w = path_w(rng)
+    train_parity(rng, "window_parity", "banded_attention", window=32,
+                 **LLAMA)
     lp = path_l(rng)
     g = path_g(rng)
     lstm_parity(rng)
 
+    b5q = {"banded_decode_attention_q":
+           qb_fp8["launches"]["banded_decode_attention_q"]
+           + qb_int8["launches"]["banded_decode_attention_q"]}
     summary = []
     for name, launches in (
             ("banded_decode_attention", b["launches"]),
             ("paged_decode_attention", a["launches"]),
+            ("banded_decode_attention_q", b5q),
+            ("paged_decode_attention_q", qa["launches"]),
+            ("banded_attention", w["launches"]),
             ("flash_attention_fwd", t["launches"]),
             ("flash_attention_bwd_dkdv", t["launches"]),
             ("flash_attention_bwd_dq", t["launches"]),

@@ -11,10 +11,17 @@
 //     pools [P, Lp, Hkv, Dh] addressed through page_table[S, NP], linear
 //     visibility over logical positions.
 //
+// Both are templated on the cache's element type: the query's float32 or
+// bfloat16, or quantized codes (int8, or e4m3) — the TPU bodies'
+// `quant=True` branch (B5q, B6q): each K/V element is widened to float32
+// and multiplied by its (token, kv head) scale right after the load, from
+// float32 scale rows [S, L, Hkv] (slot pool) or [P, Lp, Hkv] (pages) that
+// sit beside the caches and are addressed by the same row index.
+//
 // Bound. The work is 4 * G * Dh flops per visible key against 2 * Dh
 // stored K/V elements, far below the card's compute rate: the kernels are
-// bound by the bytes of the visible keys' K and V rows, read once, over
-// the card's 3.35 TB/s.
+// bound by the bytes of the visible keys' K and V rows (plus, quantized,
+// their two 4-byte scales), read once, over the card's 3.35 TB/s.
 //
 // Design. One block per (slot, KV head) holds the G = H / Hkv query rows
 // of its group in registers. The visible keys of a slot are one
@@ -31,20 +38,23 @@
 // need nothing special: the range ends where it ends. The block's 8
 // warps take groups of U keys in turn; each lane reads its pairs of
 // neighbouring elements (d = 64 e + 2 lane and d + 1) of every K and V
-// row straight into registers, one 8-byte (float32) or 4-byte (bfloat16)
-// load a pair, neighbouring lanes on neighbouring addresses; a warp
+// row straight into registers, one 8-byte (float32), 4-byte (bfloat16) or
+// 2-byte (int8, e4m3) load a pair, neighbouring lanes on neighbouring
+// addresses, and a quantized key's two scales as one broadcast load each
+// beside its K/V pairs; a warp
 // issues its next group's loads before it folds the current group, so
 // load latency overlaps the arithmetic; and each warp folds its keys
 // into its own
 // running (max, sum, accumulator) online softmax, in f32 whatever the
-// storage type (f32 or bf16). The warps merge once, through shared
+// storage type. The warps merge once, through shared
 // memory, at the end. The register tiles are compile-time: GM >= G query
 // rows and EM >= Dh / 32 elements a lane (Dh even), launched from GM in
 // {1, 2, 4, 8} and EM in {2, 4}. Each K/V byte is read by one block; a
 // GQA group shares one sweep; nothing is gathered or broadcast to H
 // heads.
 // Not done yet: splitting L across blocks (S * Hkv blocks leave most of
-// the 132 SMs idle at small batch), wgmma and TMA — later work.
+// the 132 SMs idle at small batch), 4- or 8-code loads a lane for the
+// 1-byte caches, wgmma and TMA — later work.
 //
 // Numerics. The running max starts at -1e30, not -inf. A key past the
 // range contributes nothing (the `u < n` guard plays the part of the TPU
@@ -58,6 +68,8 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 namespace {
@@ -97,6 +109,24 @@ __device__ __forceinline__ float2 load_pair(const float* p) {
 __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+__device__ __forceinline__ float2 load_pair(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)c.x, (float)c.y);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_fp8_e4m3* p) {
+  // e4m3 -> half is exact; the lower address is .x
+  const __nv_fp8x2_storage_t raw =
+      *reinterpret_cast<const __nv_fp8x2_storage_t*>(p);
+  return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(raw, __NV_E4M3)));
+}
+
+// quantized cache codes carry float32 scale rows
+template <typename TC>
+struct Quant { static constexpr bool value = false; };
+template <>
+struct Quant<int8_t> { static constexpr bool value = true; };
+template <>
+struct Quant<__nv_fp8_e4m3> { static constexpr bool value = true; };
 
 // GM query rows and EM head-dim elements a lane (PM = EM / 2 pairs, pair e
 // holding d = 64 e + 2 lane and d + 1); a warp folds U keys a step, fewer
@@ -115,23 +145,40 @@ struct KVGroup {
 };
 
 // Issue the loads of the n <= U keys at logical positions p0, p0 + 1, ...
-// (keys past n and elements past Dh read nothing and hold zeros).
-template <typename T, int U, int PM, typename Addr>
-__device__ __forceinline__ void load_group(const T* __restrict__ kc,
-                                           const T* __restrict__ vc, int p0,
-                                           int n, int Dh, Addr addr,
+// (keys past n and elements past Dh read nothing and hold zeros). row(p)
+// is the index of position p's [Dh] row for this KV head, in units of
+// rows: its elements start at row(p) * Dh, its scales at sk/sv[row(p)].
+// Quantized codes are multiplied by their scale right after the load.
+template <typename TC, int U, int PM, typename Row>
+__device__ __forceinline__ void load_group(const TC* __restrict__ kc,
+                                           const TC* __restrict__ vc,
+                                           const float* __restrict__ sk,
+                                           const float* __restrict__ sv,
+                                           int p0, int n, int Dh, Row row,
                                            KVGroup<U, PM>& r) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const bool live = u < n;
-    const size_t off = live ? addr(p0 + u) : 0;
+    const size_t ri = live ? row(p0 + u) : 0;
+    const size_t off = ri * Dh;
+    float fk = 1.f, fv = 1.f;
+    if (Quant<TC>::value && live) {
+      fk = sk[ri];
+      fv = sv[ri];
+    }
 #pragma unroll
     for (int e = 0; e < PM; ++e) {
       const int d = 64 * e + 2 * lane;
       const bool ok = live && d < Dh;
-      r.k[u][e] = ok ? load_pair(kc + off + d) : make_float2(0.f, 0.f);
-      r.v[u][e] = ok ? load_pair(vc + off + d) : make_float2(0.f, 0.f);
+      float2 k2 = ok ? load_pair(kc + off + d) : make_float2(0.f, 0.f);
+      float2 v2 = ok ? load_pair(vc + off + d) : make_float2(0.f, 0.f);
+      if (Quant<TC>::value) {
+        k2.x *= fk; k2.y *= fk;
+        v2.x *= fv; v2.y *= fv;
+      }
+      r.k[u][e] = k2;
+      r.v[u][e] = v2;
     }
   }
 }
@@ -199,15 +246,17 @@ __device__ __forceinline__ void attend_keys(const KVGroup<U, PM>& r, int n,
 }
 
 // The block of (slot blockIdx.x, KV head blockIdx.y): attend its G query
-// rows over the visible logical positions [lo, hi]; addr(p) is the element
-// offset of position p's [Dh] row for this KV head. The two kernels differ
-// only in the range and in addr.
-template <typename T, int GM, int EM, typename Addr>
-__device__ void decode_block(const T* __restrict__ q,
-                             const T* __restrict__ kc,
-                             const T* __restrict__ vc, T* __restrict__ out,
-                             int H, int Hkv, int Dh, float scale, int lo,
-                             int hi, Addr addr) {
+// rows over the visible logical positions [lo, hi]; row(p) is the row
+// index of position p's [Dh] row for this KV head (see load_group). The
+// two kernels differ only in the range and in row.
+template <typename TQ, typename TC, int GM, int EM, typename Row>
+__device__ void decode_block(const TQ* __restrict__ q,
+                             const TC* __restrict__ kc,
+                             const TC* __restrict__ vc,
+                             const float* __restrict__ sk,
+                             const float* __restrict__ sv,
+                             TQ* __restrict__ out, int H, int Hkv, int Dh,
+                             float scale, int lo, int hi, Row row) {
   constexpr int U = Tile<GM, EM>::U;
   constexpr int PM = Tile<GM, EM>::PM;
   __shared__ float red_m[kWarps][GM];
@@ -239,11 +288,11 @@ __device__ void decode_block(const T* __restrict__ q,
   int p0 = lo + warp * U;
   int n = p0 <= hi ? min(U, hi - p0 + 1) : 0;
   KVGroup<U, PM> cur, nxt;
-  load_group<T, U, PM>(kc, vc, p0, n, Dh, addr, cur);
+  load_group<TC, U, PM>(kc, vc, sk, sv, p0, n, Dh, row, cur);
   while (n > 0) {
     const int p1 = p0 + kWarps * U;
     const int n1 = p1 <= hi ? min(U, hi - p1 + 1) : 0;
-    load_group<T, U, PM>(kc, vc, p1, n1, Dh, addr, nxt);
+    load_group<TC, U, PM>(kc, vc, sk, sv, p1, n1, Dh, row, nxt);
     attend_keys<GM, U, PM>(cur, n, qr, G, scale, st);
     cur = nxt;
     p0 = p1;
@@ -278,10 +327,12 @@ __device__ void decode_block(const T* __restrict__ q,
   }
 }
 
-template <typename T, int GM, int EM>
+template <typename TQ, typename TC, int GM, int EM>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                        const T* __restrict__ vc, T* __restrict__ out,
+decode_attention_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
+                        const TC* __restrict__ vc,
+                        const float* __restrict__ sk,
+                        const float* __restrict__ sv, TQ* __restrict__ out,
                         const int* __restrict__ qpos,
                         const int* __restrict__ endp, int L, int H,
                         int Hkv, int Dh, int window, int rolling,
@@ -296,18 +347,22 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     lo = max(lo, end - L + 1);
     hi = min(pos, end);
   }
-  decode_block<T, GM, EM>(
-      q, kc, vc, out, H, Hkv, Dh, scale, lo, hi, [=](int p) -> size_t {
+  decode_block<TQ, TC, GM, EM>(
+      q, kc, vc, sk, sv, out, H, Hkv, Dh, scale, lo, hi,
+      [=](int p) -> size_t {
         const int j = rolling ? floor_mod(p, L) : p;
-        return ((slot_base + j) * Hkv + hk) * (size_t)Dh;
+        return (slot_base + j) * Hkv + hk;
       });
 }
 
-template <typename T, int GM, int EM>
+template <typename TQ, typename TC, int GM, int EM>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_attention_kernel(const T* __restrict__ q,
-                              const T* __restrict__ kc,
-                              const T* __restrict__ vc, T* __restrict__ out,
+paged_decode_attention_kernel(const TQ* __restrict__ q,
+                              const TC* __restrict__ kc,
+                              const TC* __restrict__ vc,
+                              const float* __restrict__ sk,
+                              const float* __restrict__ sv,
+                              TQ* __restrict__ out,
                               const int* __restrict__ page_table,
                               const int* __restrict__ qpos, int NP, int Lp,
                               int H, int Hkv, int Dh, int window,
@@ -319,15 +374,17 @@ paged_decode_attention_kernel(const T* __restrict__ q,
   const int hi = min(pos, NP * Lp - 1);
   // logical position p lives at physical row pt[p / Lp], offset p % Lp;
   // the range never reaches an unmapped table entry (those hold page 0)
-  decode_block<T, GM, EM>(
-      q, kc, vc, out, H, Hkv, Dh, scale, lo, hi, [=](int p) -> size_t {
-        const size_t row = (size_t)pt[p / Lp] * Lp + (p % Lp);
-        return (row * Hkv + hk) * (size_t)Dh;
+  decode_block<TQ, TC, GM, EM>(
+      q, kc, vc, sk, sv, out, H, Hkv, Dh, scale, lo, hi,
+      [=](int p) -> size_t {
+        const size_t r = (size_t)pt[p / Lp] * Lp + (p % Lp);
+        return r * Hkv + hk;
       });
 }
 
 struct SlotArgs {
   const void *q, *k, *v;
+  const float *sk, *sv;
   void* out;
   const int *qpos, *end;
   int S, L, H, Hkv, Dh, window, rolling;
@@ -336,85 +393,113 @@ struct SlotArgs {
 
 struct PagedArgs {
   const void *q, *k, *v;
+  const float *sk, *sv;
   void* out;
   const int *page_table, *qpos;
   int S, NP, Lp, H, Hkv, Dh, window;
   float scale;
 };
 
-template <typename T, int GM, int EM>
+template <typename TQ, typename TC, int GM, int EM>
 void launch(const SlotArgs& a, cudaStream_t st) {
-  decode_attention_kernel<T, GM, EM><<<dim3(a.S, a.Hkv), kThreads, 0, st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.qpos, a.end,
-      a.L, a.H, a.Hkv, a.Dh, a.window, a.rolling, a.scale);
+  decode_attention_kernel<TQ, TC, GM, EM>
+      <<<dim3(a.S, a.Hkv), kThreads, 0, st>>>(
+          static_cast<const TQ*>(a.q), static_cast<const TC*>(a.k),
+          static_cast<const TC*>(a.v), a.sk, a.sv, static_cast<TQ*>(a.out),
+          a.qpos, a.end, a.L, a.H, a.Hkv, a.Dh, a.window, a.rolling,
+          a.scale);
 }
 
-template <typename T, int GM, int EM>
+template <typename TQ, typename TC, int GM, int EM>
 void launch(const PagedArgs& a, cudaStream_t st) {
-  paged_decode_attention_kernel<T, GM, EM>
+  paged_decode_attention_kernel<TQ, TC, GM, EM>
       <<<dim3(a.S, a.Hkv), kThreads, 0, st>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), static_cast<T*>(a.out), a.page_table,
-          a.qpos, a.NP, a.Lp, a.H, a.Hkv, a.Dh, a.window, a.scale);
+          static_cast<const TQ*>(a.q), static_cast<const TC*>(a.k),
+          static_cast<const TC*>(a.v), a.sk, a.sv, static_cast<TQ*>(a.out),
+          a.page_table, a.qpos, a.NP, a.Lp, a.H, a.Hkv, a.Dh, a.window,
+          a.scale);
 }
 
 // the smallest register tile that holds the shape
-template <typename T, typename Args>
+template <typename TQ, typename TC, typename Args>
 void launch_tiled(const Args& a, cudaStream_t st) {
   const int G = a.H / a.Hkv;
   const bool wide = a.Dh > 64;
   if (G <= 1) {
-    wide ? launch<T, 1, 4>(a, st) : launch<T, 1, 2>(a, st);
+    wide ? launch<TQ, TC, 1, 4>(a, st) : launch<TQ, TC, 1, 2>(a, st);
   } else if (G <= 2) {
-    wide ? launch<T, 2, 4>(a, st) : launch<T, 2, 2>(a, st);
+    wide ? launch<TQ, TC, 2, 4>(a, st) : launch<TQ, TC, 2, 2>(a, st);
   } else if (G <= 4) {
-    wide ? launch<T, 4, 4>(a, st) : launch<T, 4, 2>(a, st);
+    wide ? launch<TQ, TC, 4, 4>(a, st) : launch<TQ, TC, 4, 2>(a, st);
   } else {
-    wide ? launch<T, 8, 4>(a, st) : launch<T, 8, 2>(a, st);
+    wide ? launch<TQ, TC, 8, 4>(a, st) : launch<TQ, TC, 8, 2>(a, st);
   }
 }
 
+// cache_dtype: the query's own (native), 2 = int8 or 3 = e4m3 codes with
+// scale rows
+template <typename TQ, typename Args>
+int launch_cache(const Args& a, int dtype, int cache_dtype,
+                 cudaStream_t st) {
+  if (cache_dtype == dtype) {
+    launch_tiled<TQ, TQ>(a, st);
+  } else if (cache_dtype == 2 && a.sk && a.sv) {
+    launch_tiled<TQ, int8_t>(a, st);
+  } else if (cache_dtype == 3 && a.sk && a.sv) {
+    launch_tiled<TQ, __nv_fp8_e4m3>(a, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
 template <typename Args>
-int run(const Args& a, int dtype, void* stream) {
+int run(const Args& a, int dtype, int cache_dtype, void* stream) {
   if (a.Hkv < 1 || a.H % a.Hkv != 0 || a.H / a.Hkv > kMaxG || a.Dh < 2 ||
       a.Dh % 2 != 0 || a.Dh > 32 * kMaxE)
     return (int)cudaErrorInvalidValue;
   if (a.S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc;
   if (dtype == 0) {
-    launch_tiled<float>(a, st);
+    rc = launch_cache<float>(a, dtype, cache_dtype, st);
   } else if (dtype == 1) {
-    launch_tiled<__nv_bfloat16>(a, st);
+    rc = launch_cache<__nv_bfloat16>(a, dtype, cache_dtype, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns 0 or a cudaError_t code.
+// dtype (q and out): 0 = float32, 1 = bfloat16. cache_dtype: dtype for a
+// native cache, 2 = int8 or 3 = e4m3 codes with float32 scale rows
+// scale_k/scale_v (null for a native cache). Returns 0 or a cudaError_t
+// code.
 int dl4j_decode_attention(const void* q, const void* k, const void* v,
+                          const float* scale_k, const float* scale_v,
                           void* out, const int* qpos, const int* end, int S,
                           int L, int H, int Hkv, int Dh, int window,
                           int rolling, float scale, int dtype,
-                          void* stream) {
-  const SlotArgs a{q, k, v, out, qpos, end, S, L, H, Hkv, Dh, window,
-                   rolling, scale};
-  return run(a, dtype, stream);
+                          int cache_dtype, void* stream) {
+  const SlotArgs a{q, k, v, scale_k, scale_v, out, qpos, end, S, L, H,
+                   Hkv, Dh, window, rolling, scale};
+  return run(a, dtype, cache_dtype, stream);
 }
 
 int dl4j_paged_decode_attention(const void* q, const void* k, const void* v,
+                                const float* scale_k, const float* scale_v,
                                 void* out, const int* page_table,
                                 const int* qpos, int S, int NP, int Lp,
                                 int H, int Hkv, int Dh, int window,
-                                float scale, int dtype, void* stream) {
-  const PagedArgs a{q, k, v, out, page_table, qpos, S, NP, Lp, H, Hkv, Dh,
-                    window, scale};
-  return run(a, dtype, stream);
+                                float scale, int dtype, int cache_dtype,
+                                void* stream) {
+  const PagedArgs a{q, k, v, scale_k, scale_v, out, page_table, qpos, S,
+                    NP, Lp, H, Hkv, Dh, window, scale};
+  return run(a, dtype, cache_dtype, stream);
 }
 
 const char* dl4j_cuda_error_string(int code) {

@@ -1,7 +1,7 @@
-"""Attention layers — port of `deeplearning4j_tpu/nn/layers/attention.py`
-for decode serving: RoPE, `MultiHeadAttention` (dense full-context
-`apply` and the per-slot `_decode`), `PositionEmbeddingLayer` and
-`TransformerEncoderBlock` (layer/RMS norm, GELU/SwiGLU FFN).
+"""Attention layers — port of `deeplearning4j_tpu/nn/layers/attention.py`:
+RoPE, `MultiHeadAttention` (full-context `apply` and the per-slot
+`_decode`), `PositionEmbeddingLayer` and `TransformerEncoderBlock`
+(layer/RMS norm, GELU/SwiGLU FFN).
 
 Per-slot decode updates the KV caches IN PLACE. JAX threads the carries
 functionally; at full width a slot's cache is tens of MB per layer, so
@@ -12,18 +12,21 @@ lane (the session runtime folds `active` into the mask), a position past
 a linear cache — never reaches the cache: its write is routed to a drop
 row that lives in the cache's storage just past its last row (see
 `new_kv_cache`), the counterpart of JAX's `mode="drop"` scatter, with
-no data-dependent shape and no host sync.
+no data-dependent shape and no host sync. Quantized carries
+(`kv_dtype="int8"` or `"fp8"`) store int8 or e4m3 codes with one float32
+scale per (token, kv head); the scale rows ride the same drop-row
+scatter, and the decode kernels dequantize them on load.
 
 Full-context `apply` routes through `kernel_defaults.attention_policy`
-as JAX's does: with no padding mask, no attention dropout and no window
-it calls the flash kernels (`ops/attention.flash_attention`, B3a forward
-and B3b/B3c backward) after the GQA broadcast; otherwise the dense
-masked softmax, which also applies attention dropout.
+as JAX's does: with no padding mask and no attention dropout, a sliding
+window calls the banded kernel B4 (`ops/banded_attention.
+banded_attention`) on the native Hkv layout, and a full context the
+flash kernels (`ops/attention.flash_attention`, B3a forward and B3b/B3c
+backward) after the GQA broadcast; otherwise the dense masked softmax,
+which also applies attention dropout.
 
 Not ported yet: the lockstep (scalar-position) decode carries of
-`rnn_time_step`, quantized KV carries, MoE blocks, the banded kernel B4
-(windowed full-context attention stays dense) and the sequence-parallel
-ring.
+`rnn_time_step`, MoE blocks and the sequence-parallel ring.
 """
 
 from __future__ import annotations
@@ -63,20 +66,22 @@ def rope_rotate(x, positions, base: float = 10000.0):
 
 
 def new_kv_cache(shape, dtype, device) -> torch.Tensor:
-    """A zeroed [N, L, Hkv, Dh] cache whose storage holds one more
-    [Hkv, Dh] row past its end: the drop row that writes which must not
-    land (padding, inactive lanes, overflow) are routed to. The tensor
-    itself is an ordinary contiguous view of the first N * L rows, so
-    kernels and readers never see the extra row."""
-    n0, n1, hkv, dh = shape
-    buf = torch.zeros((n0 * n1 + 1) * hkv * dh, dtype=dtype, device=device)
-    return buf[:n0 * n1 * hkv * dh].view(n0, n1, hkv, dh)
+    """A zeroed [N, L, ...] cache (K/V [N, L, Hkv, Dh] or scale rows
+    [N, L, Hkv]) whose storage holds one more row past its end: the drop
+    row that writes which must not land (padding, inactive lanes,
+    overflow) are routed to. The tensor itself is an ordinary contiguous
+    view of the first N * L rows, so kernels and readers never see the
+    extra row."""
+    n0, n1, *rest = shape
+    row = math.prod(rest)
+    buf = torch.zeros((n0 * n1 + 1) * row, dtype=dtype, device=device)
+    return buf[:n0 * n1 * row].view(n0, n1, *rest)
 
 
 def _cache_rows(cache: torch.Tensor) -> torch.Tensor:
-    """[N * L + 1, Hkv * Dh] view over a cache's storage, drop row last."""
-    n0, n1, hkv, dh = cache.shape
-    row = hkv * dh
+    """[N * L + 1, row] view over a cache's storage, drop row last."""
+    n0, n1 = cache.shape[:2]
+    row = math.prod(cache.shape[2:])
     need = (cache.storage_offset() + (n0 * n1 + 1) * row) \
         * cache.element_size()
     if not cache.is_contiguous() or \
@@ -88,11 +93,39 @@ def _cache_rows(cache: torch.Tensor) -> torch.Tensor:
 
 def write_kv(cache: torch.Tensor, flat_rows: torch.Tensor,
              vals: torch.Tensor) -> None:
-    """In-place scatter of `vals` [M, Hkv, Dh] into cache rows
-    `flat_rows` [M] (row N * L = the drop row)."""
+    """In-place scatter of `vals` [M, ...] into cache rows `flat_rows`
+    [M] (row N * L = the drop row)."""
     rows = _cache_rows(cache)
-    rows.index_copy_(0, flat_rows,
-                     vals.reshape(-1, rows.shape[1]).to(cache.dtype))
+    vals = vals.reshape(-1, rows.shape[1]).to(cache.dtype)
+    if cache.dtype == torch.float8_e4m3fn:
+        # e4m3 codes move as their bytes (index_copy_ has no e4m3 kernel
+        # on every device)
+        rows, vals = rows.view(torch.uint8), vals.view(torch.uint8)
+    rows.index_copy_(0, flat_rows, vals)
+
+
+# storage dtype of each quantized KV dtype, and its largest code
+KV_QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
+
+
+def quantize_kv(val, dtype):
+    """Quantize-on-write, as JAX's `_decode` does it: one float32 scale
+    per (token, kv head) — the row's amax over the head dim divided by
+    the format's largest code (127 for int8, 448 for e4m3), 1 for an
+    all-zero row so dequantizing stays finite — and codes val / scale,
+    rounded half to even and clipped to ±127 for int8, cast for e4m3.
+    val [.., Hkv, Dh] -> (codes [.., Hkv, Dh] in `dtype`, scales
+    [.., Hkv] float32)."""
+    qmax = _QMAX[dtype]
+    amax = val.abs().amax(dim=-1)
+    sc = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    scaled = val.float() / sc.float()[..., None]
+    if dtype == torch.int8:
+        codes = torch.clamp(torch.round(scaled), -127.0, 127.0).to(dtype)
+    else:
+        codes = scaled.to(dtype)
+    return codes, sc.float()
 
 
 @register_layer
@@ -167,19 +200,24 @@ class MultiHeadAttention(Layer):
         """Per-slot decode carry: [batch, max_cache, Hkv, Dh] caches (or,
         with `page_len`, a pool of `pages` [page_len, Hkv, Dh] pages plus
         a [batch, max_cache / page_len] int32 page table) and a [batch]
-        int32 position vector. Caches come from `new_kv_cache`."""
+        int32 position vector. Caches come from `new_kv_cache`.
+        `kv_dtype` "int8" or "fp8" stores int8 or e4m3 codes with float32
+        scale rows `scale_k`/`scale_v` of the caches' [N, L, Hkv]."""
+        quant = kv_dtype in KV_QUANT
+        if not quant and kv_dtype not in (None, "native"):
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+        if quant and not per_slot:
+            raise ValueError(
+                "quantized KV carries are a session-pool feature "
+                "(per_slot=True); the lockstep rnn_time_step path stays "
+                "native")
         if not per_slot:
             raise NotImplementedError(
                 "lockstep (scalar-position) decode carries are not ported; "
                 "the port serves per-slot sessions")
         if not self.causal:
             raise ValueError("per-slot decode carries need causal=True")
-        if kv_dtype not in (None, "native"):
-            if kv_dtype in ("int8", "fp8"):
-                raise NotImplementedError(
-                    f"kv_dtype {kv_dtype!r}: quantized KV scale rows are "
-                    f"not ported yet")
-            raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+        cdt = KV_QUANT[kv_dtype] if quant else dtype
         Dh = self.n_out // self.num_heads
         L = self.max_cache
         Hkv = self._kv_heads
@@ -197,18 +235,21 @@ class MultiHeadAttention(Layer):
                 raise ValueError(
                     f"page pool of {P} pages cannot hold even one slot's "
                     f"{npg} logical pages")
-            return {
-                "cache_k": new_kv_cache((P, page_len, Hkv, Dh), dtype,
-                                        device),
-                "cache_v": new_kv_cache((P, page_len, Hkv, Dh), dtype,
-                                        device),
-                "page_table": torch.zeros((batch, npg), dtype=torch.int32,
-                                          device=device),
-                "pos": pos,
-            }
-        return {"cache_k": new_kv_cache((batch, L, Hkv, Dh), dtype, device),
-                "cache_v": new_kv_cache((batch, L, Hkv, Dh), dtype, device),
-                "pos": pos}
+            rows = (P, page_len)
+        else:
+            rows = (batch, L)
+        carry = {"cache_k": new_kv_cache((*rows, Hkv, Dh), cdt, device),
+                 "cache_v": new_kv_cache((*rows, Hkv, Dh), cdt, device)}
+        if page_len is not None:
+            carry["page_table"] = torch.zeros((batch, npg),
+                                              dtype=torch.int32,
+                                              device=device)
+        carry["pos"] = pos
+        if quant:
+            carry.update(
+                scale_k=new_kv_cache((*rows, Hkv), torch.float32, device),
+                scale_v=new_kv_cache((*rows, Hkv), torch.float32, device))
+        return carry
 
     def _decode(self, params, x, state, mask=None):
         """One per-slot decode step: write this chunk's K/V at each slot's
@@ -218,7 +259,9 @@ class MultiHeadAttention(Layer):
         carry addresses logical position j at physical row
         `page_table[j // Lp]`, offset `j % Lp`. A single-token step goes
         through the decode kernel (B6 paged, B5 otherwise); longer
-        chunks attend densely under the same visibility rules."""
+        chunks attend densely under the same visibility rules. A
+        quantized carry (`scale_k` in the state) quantizes on write and
+        dequantizes on read."""
         B, T, _ = x.shape
         H = self.num_heads
         Hkv = self._kv_heads
@@ -274,8 +317,20 @@ class MultiHeadAttention(Layer):
             flat = torch.arange(B, device=dev)[:, None] * L + tgt
             drop = B * L
         flat = torch.where(ok, flat, torch.full_like(flat, drop)).reshape(-1)
-        write_kv(ck, flat, k)
-        write_kv(cv, flat, v)
+        quant = "scale_k" in state
+        sk = sv = None
+        if quant:
+            # quantize-on-write; the scale rows take the caches' scatter
+            sk, sv = state["scale_k"], state["scale_v"]
+            kq, k_sc = quantize_kv(k, ck.dtype)
+            vq, v_sc = quantize_kv(v, cv.dtype)
+            write_kv(ck, flat, kq)
+            write_kv(cv, flat, vq)
+            write_kv(sk, flat, k_sc)
+            write_kv(sv, flat, v_sc)
+        else:
+            write_kv(ck, flat, k)
+            write_kv(cv, flat, v)
 
         if not self.rolling_cache:
             # per-row overflow poison: a chunk past a linear cache is
@@ -290,20 +345,29 @@ class MultiHeadAttention(Layer):
             # rather than fall back), its plain version on a CPU one
             q1 = q[:, 0].contiguous()
             qpos = pos.to(torch.int32)
+            # (B5q/B6q over quantized caches: dequantized on load)
             if paged:
                 o = ba.paged_decode_attention(q1, ck, cv, pt.to(torch.int32),
-                                              qpos, window=self.window)
+                                              qpos, window=self.window,
+                                              scale_k=sk, scale_v=sv)
             else:
                 o = ba.banded_decode_attention(
                     q1, ck, cv, qpos,
                     (end if self.rolling_cache else pos).to(torch.int32),
-                    window=self.window, rolling=self.rolling_cache)
+                    window=self.window, rolling=self.rolling_cache,
+                    scale_k=sk, scale_v=sv)
             o = o[:, None]
         else:
             # a prefill chunk: the decode kernels' visibility rules, one
-            # query row a token, over the whole (logical) cache
-            kk, vv = ((ba.gather_pages(ck, pt), ba.gather_pages(cv, pt))
-                      if paged else (ck, cv))
+            # query row a token, over the whole (logical) cache,
+            # dequantized on read in q's dtype
+            def logical(c):
+                return ba.gather_pages(c, pt) if paged else c
+
+            kk, vv = logical(ck), logical(cv)
+            if quant:
+                kk = ba.dequantize(kk, logical(sk), q.dtype)
+                vv = ba.dequantize(vv, logical(sv), q.dtype)
             vis = ba.visibility(q_ids, end, L, self.window,
                                 self.rolling_cache)
             o = ba.attend_plain(q, kk, vv, vis)
@@ -311,6 +375,8 @@ class MultiHeadAttention(Layer):
         new_state = {"cache_k": ck, "cache_v": cv, "pos": pos + n_new}
         if paged:
             new_state["page_table"] = pt
+        if quant:
+            new_state["scale_k"], new_state["scale_v"] = sk, sv
         return self._act(y), new_state
 
     def apply(self, params, x, *, state=None, train=False, rng=None,
@@ -328,22 +394,27 @@ class MultiHeadAttention(Layer):
             positions = torch.arange(T, device=x.device)
             q = rope_rotate(q, positions)
             k = rope_rotate(k, positions)
-        if Hkv != H:
-            # GQA: broadcast the KV heads up to the query heads for the
-            # H-wide attention cores (flash and dense), as JAX does
-            k = torch.repeat_interleave(k, H // Hkv, dim=2)
-            v = torch.repeat_interleave(v, H // Hkv, dim=2)
         drop = (self.attn_dropout
                 if train and self.attn_dropout and rng is not None else 0.0)
         pol = attention_policy(device=x.device, masked=mask is not None,
                                dropout=bool(drop), window=self.window,
                                head_dim=Dh)
-        if pol.kind == "flash":
-            o = flash_attention(q, k, v, self.causal)
+        if pol.kind == "banded":
+            # B4 reads the native Hkv layout: no broadcast
+            o = ba.banded_attention(q, k, v, self.window, self.causal)
         else:
-            o = self._masked_attention(q, k, v, mask, self.causal,
-                                       dropout=drop, rng=rng,
-                                       window=self.window)
+            if Hkv != H:
+                # GQA: broadcast the KV heads up to the query heads for
+                # the H-wide attention cores (flash and dense), as JAX
+                # does
+                k = torch.repeat_interleave(k, H // Hkv, dim=2)
+                v = torch.repeat_interleave(v, H // Hkv, dim=2)
+            if pol.kind == "flash":
+                o = flash_attention(q, k, v, self.causal)
+            else:
+                o = self._masked_attention(q, k, v, mask, self.causal,
+                                           dropout=drop, rng=rng,
+                                           window=self.window)
         y = o.reshape(B, T, self.n_out) @ params["Wo"] + params["b"]
         return self._act(y), state
 

@@ -1,15 +1,30 @@
-"""Single-query decode attention over the serving KV pool — the port of
-the decode half of `deeplearning4j_tpu/ops/banded_attention.py`.
+"""Banded (sliding-window) attention and single-query decode attention
+over the serving KV pool — the port of
+`deeplearning4j_tpu/ops/banded_attention.py`.
 
-Two kernels, hand-written in CUDA C++ for Hopper
-(`csrc/decode_attention.cu`), each with its plain PyTorch version beside
-it:
+Three kernels, hand-written in CUDA C++ for Hopper, each with its plain
+PyTorch version beside it:
 
-- `banded_decode_attention` (kernel B5, replaces `_decode_kernel`) over
-  the slot pool `[S, L, Hkv, Dh]`: linear visibility with an optional
-  window, or a rolling ring;
+- `banded_attention` (kernel B4, `csrc/banded_attention.cu`, replaces
+  `_banded_kernel`): full-sequence sliding-window attention on the JAX
+  layouts q [B, T, H, Dh], k/v [B, T, Hkv, Dh], causal
+  (`q - w < k <= q`) or bidirectional (`|q - k| < w`), GQA-native (a
+  query head reads its KV head's band by strides; K/V are never
+  broadcast to H heads). A block visits only the key tiles that meet its
+  band (`band_key_tiles`), so the work grows as T·w. Its backward is
+  the JAX package's: a dense band-masked recompute (`banded_dense`)
+  under autograd, which holds B·H·T² float32 scores transiently;
+- `banded_decode_attention` (kernel B5, `csrc/decode_attention.cu`,
+  replaces `_decode_kernel`) over the slot pool `[S, L, Hkv, Dh]`:
+  linear visibility with an optional window, or a rolling ring;
 - `paged_decode_attention` (kernel B6, replaces `_paged_decode_kernel`)
   over a physical page pool `[P, Lp, Hkv, Dh]` through `page_table`.
+
+B5 and B6 take quantized caches too (the TPU bodies' `quant=True`
+branch): int8 or e4m3 codes with float32 scale rows `[.., L, Hkv]`, one
+scale per (token, kv head), dequantized on load in float32. Their
+launches count apart, as `banded_decode_attention_q` and
+`paged_decode_attention_q`.
 
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches the kernel or raises — there is no fallback. Each
@@ -17,11 +32,9 @@ wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
 each plain version adds one to `PLAIN_ON_CUDA[name]` when it is handed
 CUDA tensors, so a run can show that its main path went through the
 kernels. The bound, design and numerics are described in the CUDA
-source. Unlike the TPU kernels, any page length that divides the cache
-and any cache length works: a kernel reads exactly the visible range of
-positions.
-
-Quantized (int8/fp8) caches with scale rows are not ported yet.
+sources. Unlike the TPU kernels, any T, window, page length and cache
+length works: the decode kernels read exactly the visible range of
+positions, and B4 masks its tail tiles.
 """
 
 from __future__ import annotations
@@ -31,19 +44,34 @@ from typing import Dict, Optional
 
 import torch
 
+# B4 runs B3a's tiles (csrc/attention_tiles.cuh): the same head-dim limit
+# and grid.y bound
+from deeplearning4j_tpu_torch.ops.attention import (
+    _MAX_BH, MAX_HEAD_DIM as BAND_MAX_HEAD_DIM,
+)
+
 _NEG_INF = -1e30
 
 # kernel name -> launches (wrapper) / plain-version calls on CUDA tensors
-LAUNCHES: Dict[str, int] = {"banded_decode_attention": 0,
-                            "paged_decode_attention": 0}
-PLAIN_ON_CUDA: Dict[str, int] = {"banded_decode_attention": 0,
-                                 "paged_decode_attention": 0}
+_NAMES = ("banded_attention", "banded_decode_attention",
+          "paged_decode_attention", "banded_decode_attention_q",
+          "paged_decode_attention_q")
+LAUNCHES: Dict[str, int] = dict.fromkeys(_NAMES, 0)
+PLAIN_ON_CUDA: Dict[str, int] = dict.fromkeys(_NAMES, 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# cache storage codes of the decode kernels: the query's dtype, or
+# quantized codes with scale rows
+_CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                torch.float8_e4m3fn: 3}
+QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
-# the kernels' register tiles (kMaxG, 32 * kMaxE in csrc/decode_attention.cu)
+# the decode kernels' register tiles (kMaxG, 32 * kMaxE in
+# csrc/decode_attention.cu)
 MAX_GROUP = 8
 MAX_HEAD_DIM = 128
+# B4's query/key tile (kTile in csrc/attention_tiles.cuh)
+BAND_TILE = 64
 
 
 def decode_eligible(h: int, hkv: int, dh: int) -> bool:
@@ -61,17 +89,193 @@ def reset_counts() -> None:
             d[k] = 0
 
 
-# ------------------------------------------------------------ plain versions
+def _stream(dev) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+# ------------------------------------------------------- B4: band geometry
+def band_key_tiles(q0: int, t: int, window: int, causal: bool,
+                   tile: int = BAND_TILE):
+    """(first, last) key tile that the query rows [q0, q0 + tile) can
+    see: the loop bounds of a B4 block (the TPU kernel's `_kb_first` and
+    `nkb`). Causal: from the tile of q0 - w + 1 to the tile holding the
+    block's last row; bidirectional: up to q0 + tile - 1 + w - 1; both
+    clipped to [0, T). At most ceil((tile + w - 1) / tile) + 1 tiles
+    (twice the band for bidirectional), whatever T: the T·w contract."""
+    lo = max(0, q0 - window + 1)
+    hi = min(t - 1, q0 + tile - 1 + (0 if causal else window - 1))
+    return lo // tile, hi // tile
+
+
+def band_pairs(t: int, window: int, causal: bool) -> int:
+    """Visible (query, key) pairs of one head's band: the work a B4
+    launch must do, per (batch, head)."""
+    if causal:
+        return sum(min(i + 1, window) for i in range(t))
+    return sum(min(t, i + window) - max(0, i - window + 1)
+               for i in range(t))
+
+
+def band_visibility(t: int, window: int, causal: bool, device=None):
+    """[T, T] bool: key j is visible to query i."""
+    qi = torch.arange(t, device=device)[:, None]
+    ki = torch.arange(t, device=device)[None, :]
+    if causal:
+        return (ki <= qi) & (ki > qi - window)
+    return (qi - ki).abs() < window
+
+
+# ------------------------------------------------------ B4: plain versions
+def banded_dense(q, k, v, window: int, causal: bool, scale: float):
+    """The dense band-masked attention over native GQA layouts (q
+    [B, T, H, Dh], k/v [B, T, Hkv, Dh]): score-level -1e30 bias and a
+    softmax in float32 (float64 stays float64), output in q's dtype. The
+    plain version of B4 and B4's backward recompute (JAX's
+    `banded_reference`)."""
+    b, t, h, dh = q.shape
+    hkv = k.shape[2]
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.to(acc).reshape(b, t, hkv, h // hkv, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(acc)) * scale
+    s = torch.where(band_visibility(t, window, causal, q.device), s,
+                    _NEG_INF)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1),
+                     v.to(acc))
+    return o.reshape(b, t, h, dh).to(q.dtype)
+
+
+def banded_reference(q, k, v, window: int, causal: bool = True,
+                     scale: Optional[float] = None):
+    """Plain version of kernel B4 (counted when handed CUDA tensors)."""
+    if q.is_cuda:
+        PLAIN_ON_CUDA["banded_attention"] += 1
+    sc = scale if scale is not None else q.shape[-1] ** -0.5
+    return banded_dense(q, k, v, window, causal, sc)
+
+
+# ------------------------------------------------------------ B4: wrapper
+def _check_banded(q, k, v, window: int) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"banded attention wants q [B, T, H, Dh] and k/v "
+                         f"[B, T, Hkv, Dh]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, t, h, dh = q.shape
+    if k.shape[0] != b or k.shape[1] != t or k.shape[3] != dh:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         f"in B, T or Dh")
+    if h % k.shape[2]:
+        raise ValueError(f"H {h} not divisible by Hkv {k.shape[2]}")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def banded_attention_fwd(q, k, v, window: int, causal: bool = True,
+                         scale: Optional[float] = None):
+    """Kernel B4: q [B, T, H, Dh], k/v [B, T, Hkv, Dh] (contiguous) ->
+    o [B, T, H, Dh] in q's dtype."""
+    _check_banded(q, k, v, window)
+    if q.device.type == "cpu":
+        return banded_reference(q, k, v, window, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no banded kernel for device {q.device}")
+    b, t, h, dh = q.shape
+    if dh > BAND_MAX_HEAD_DIM or b * h > _MAX_BH:
+        raise ValueError(f"the CUDA banded kernel takes Dh <= "
+                         f"{BAND_MAX_HEAD_DIM} and B*H <= {_MAX_BH}; got "
+                         f"{tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the banded kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}, q is "
+                             f"{q.dtype} on {q.device}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library("banded_attention")
+    o = torch.empty_like(q)
+    sc = scale if scale is not None else dh ** -0.5
+    # a window past T is the full band: clip it so the kernel's tile
+    # arithmetic stays in int range
+    rc = lib.dl4j_banded_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, t, h,
+        k.shape[2], dh, max(1, min(int(window), t)), int(causal), sc,
+        _DTYPE_CODES[q.dtype], _stream(q.device))
+    cuda_build.check(lib, rc, "banded_attention")
+    LAUNCHES["banded_attention"] += 1
+    return o
+
+
+# the profiler range of the backward's dense recompute
+# (`tools/torch_train_profile.py --path w` classes its kernels by it)
+RECOMPUTE_RANGE = "banded_attention_backward_recompute"
+
+
+class BandedAttention(torch.autograd.Function):
+    """o = banded attention(q, k, v) with B4 as the forward. The backward
+    is the JAX package's: the dense band-masked recompute through
+    `banded_dense` under autograd, from the saved (q, k, v) only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal, scale):
+        o = banded_attention_fwd(q, k, v, window, causal, scale)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.causal = window, causal
+        ctx.scale = scale if scale is not None else q.shape[-1] ** -0.5
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad(), \
+                torch.profiler.record_function(RECOMPUTE_RANGE):
+            o = banded_dense(q, k, v, ctx.window, ctx.causal, ctx.scale)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+        return dq, dk, dv, None, None, None
+
+
+def banded_attention(q, k, v, window: int, causal: bool = True,
+                     scale: Optional[float] = None):
+    """Banded (sliding-window) self-attention, GQA-native, differentiable
+    in q, k and v. q: [B, T, H, Dh]; k/v: [B, T, Hkv, Dh] with Hkv
+    dividing H (Hkv == H is plain MHA). Returns [B, T, H, Dh]."""
+    return BandedAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), int(window), bool(causal),
+                                 scale)
+
+
+# ------------------------------------------------ B5/B6: plain versions
+def _kernel_name(base: str, scale_k) -> str:
+    return base + ("_q" if scale_k is not None else "")
+
+
+def dequantize(cache, scale, dtype):
+    """Quantized codes [.., Hkv, Dh] times their scale rows [.., Hkv], in
+    `dtype` (the plain versions' dequantize-up-front, as JAX's
+    `decode_reference` does it)."""
+    return cache.to(dtype) * scale.to(dtype)[..., None]
+
+
 def decode_attention_plain(q, cache_k, cache_v, qpos, end,
                            window: Optional[int] = None,
                            rolling: bool = False,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None,
+                           scale_k=None, scale_v=None):
     """Plain version of kernel B5, mirroring the JAX `decode_reference`:
-    q [S, H, Dh], caches [S, L, Hkv, Dh], qpos/end [S] int. Math in f32,
-    output in q's dtype. Rows with no visible key are garbage by contract
-    (softmax of a constant here, zeros in the kernel)."""
+    q [S, H, Dh], caches [S, L, Hkv, Dh], qpos/end [S] int; quantized
+    caches pass their [S, L, Hkv] scale rows and are dequantized up front
+    in q's dtype. Math in f32, output in q's dtype. Rows with no visible
+    key are garbage by contract (softmax of a constant here, zeros in the
+    kernel)."""
     if q.is_cuda:
-        PLAIN_ON_CUDA["banded_decode_attention"] += 1
+        PLAIN_ON_CUDA[_kernel_name("banded_decode_attention", scale_k)] += 1
+    if scale_k is not None:
+        cache_k = dequantize(cache_k, scale_k, q.dtype)
+        cache_v = dequantize(cache_v, scale_v, q.dtype)
     vis = visibility(qpos, end, cache_k.shape[1], window, rolling)
     return attend_plain(q[:, None], cache_k, cache_v, vis[:, None],
                         scale)[:, 0]
@@ -114,28 +318,34 @@ def attend_plain(q, cache_k, cache_v, vis, scale: Optional[float] = None):
 
 
 def gather_pages(cache, page_table):
-    """Logical [S, NP * Lp, Hkv, Dh] copy of each slot's page chain out of
-    a [P, Lp, Hkv, Dh] page pool."""
+    """Logical [S, NP * Lp, ...] copy of each slot's page chain out of a
+    [P, Lp, ...] page pool (caches [.., Hkv, Dh] or scale rows
+    [.., Hkv])."""
     s_, npg = page_table.shape
-    _, lp, hkv, dh = cache.shape
-    return cache[page_table.long()].reshape(s_, npg * lp, hkv, dh)
+    lp = cache.shape[1]
+    return cache[page_table.long()].reshape(s_, npg * lp, *cache.shape[2:])
 
 
 def paged_decode_attention_plain(q, cache_k, cache_v, page_table, qpos,
                                  window: Optional[int] = None,
-                                 scale: Optional[float] = None):
-    """Plain version of kernel B6: gather each slot's page chain into a
-    logical [S, L, Hkv, Dh] copy and attend linearly over it."""
+                                 scale: Optional[float] = None,
+                                 scale_k=None, scale_v=None):
+    """Plain version of kernel B6: gather each slot's page chain (and its
+    scale rows) into a logical [S, L, Hkv, Dh] copy and attend linearly
+    over it."""
     if q.is_cuda:
-        PLAIN_ON_CUDA["paged_decode_attention"] += 1
+        PLAIN_ON_CUDA[_kernel_name("paged_decode_attention", scale_k)] += 1
     ck = gather_pages(cache_k, page_table)
     cv = gather_pages(cache_v, page_table)
+    if scale_k is not None:
+        ck = dequantize(ck, gather_pages(scale_k, page_table), q.dtype)
+        cv = dequantize(cv, gather_pages(scale_v, page_table), q.dtype)
     vis = visibility(qpos, qpos, ck.shape[1], window, False)
     return attend_plain(q[:, None], ck, cv, vis[:, None], scale)[:, 0]
 
 
-# ------------------------------------------------------------------ wrappers
-def _check_common(q, cache_k, cache_v):
+# ------------------------------------------------------ B5/B6: wrappers
+def _check_common(q, cache_k, cache_v, scale_k, scale_v):
     if q.ndim != 3 or cache_k.ndim != 4 or cache_v.shape != cache_k.shape:
         raise ValueError(f"decode attention wants q [S, H, Dh] and caches "
                          f"[N, L, Hkv, Dh]; got {tuple(q.shape)}, "
@@ -146,6 +356,19 @@ def _check_common(q, cache_k, cache_v):
         raise ValueError(f"head dim {cache_k.shape[3]} != query's {dh}")
     if h % hkv:
         raise ValueError(f"H {h} not divisible by Hkv {hkv}")
+    if (scale_k is None) != (scale_v is None):
+        raise ValueError("pass both scale rows or neither")
+    quant = cache_k.dtype in QUANT_DTYPES
+    if quant != (scale_k is not None):
+        raise ValueError(f"{cache_k.dtype} caches "
+                         + ("need" if quant else "take no")
+                         + " scale rows")
+    if quant:
+        for name, t in (("scale_k", scale_k), ("scale_v", scale_v)):
+            if tuple(t.shape) != tuple(cache_k.shape[:3]):
+                raise ValueError(f"{name} {tuple(t.shape)} is not the "
+                                 f"caches' [N, L, Hkv] "
+                                 f"{tuple(cache_k.shape[:3])}")
 
 
 def _check_cuda(tensors: dict, dtype) -> None:
@@ -162,37 +385,53 @@ def _check_cuda(tensors: dict, dtype) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if dtype not in _DTYPE_CODES:
-        raise TypeError(f"decode kernels take float32 or bfloat16, "
+        raise TypeError(f"decode kernels take float32 or bfloat16 queries, "
                         f"got {dtype}")
+    cdt = tensors["cache_k"].dtype
     for name in ("cache_k", "cache_v"):
         t = tensors[name]
-        if t.dtype != dtype:
-            raise TypeError(f"{name} is {t.dtype}, q is {dtype}")
+        if t.dtype != cdt or (t.dtype != dtype and t.dtype
+                              not in QUANT_DTYPES):
+            raise TypeError(f"{name} is {t.dtype}, q is {dtype}: caches "
+                            f"hold q's dtype or int8/e4m3 codes")
         if t.data_ptr() % (2 * t.element_size()):
             raise ValueError(f"{name} must start on a {2 * t.element_size()}"
                              f"-byte boundary (the kernels load element "
                              f"pairs)")
+    for name in ("scale_k", "scale_v"):
+        if name in tensors and tensors[name].dtype != torch.float32:
+            raise TypeError(f"{name} must be float32")
     for name in ("qpos", "end", "page_table"):
         if name in tensors and tensors[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32")
 
 
-def _stream(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+def _scale_ptrs(scale_k, scale_v):
+    if scale_k is None:
+        return None, None
+    return scale_k.data_ptr(), scale_v.data_ptr()
+
+
+def _with_scales(tensors: dict, scale_k, scale_v) -> dict:
+    if scale_k is not None:
+        tensors.update(scale_k=scale_k, scale_v=scale_v)
+    return tensors
 
 
 def banded_decode_attention(q, cache_k, cache_v, qpos, end,
                             window: Optional[int] = None,
                             rolling: bool = False,
-                            scale: Optional[float] = None):
+                            scale: Optional[float] = None,
+                            scale_k=None, scale_v=None):
     """Single-query attention over the slot pool (kernel B5).
 
     q: [S, H, Dh] (this step's query per slot, post-RoPE); caches
-    [S, L, Hkv, Dh] (this step's K/V already written); qpos: [S] int32
-    position of each slot's query; end: [S] int32 newest written
-    position (rolling ring only; pass qpos otherwise). Returns
-    [S, H, Dh] in q's dtype."""
-    _check_common(q, cache_k, cache_v)
+    [S, L, Hkv, Dh] (this step's K/V already written), in q's dtype or
+    int8/e4m3 codes with float32 scale rows `scale_k`/`scale_v`
+    [S, L, Hkv]; qpos: [S] int32 position of each slot's query; end: [S]
+    int32 newest written position (rolling ring only; pass qpos
+    otherwise). Returns [S, H, Dh] in q's dtype."""
+    _check_common(q, cache_k, cache_v, scale_k, scale_v)
     if rolling and window is None:
         raise ValueError("rolling decode requires a window")
     s_, h, dh = q.shape
@@ -200,11 +439,13 @@ def banded_decode_attention(q, cache_k, cache_v, qpos, end,
         raise ValueError("slot counts of q, caches, qpos and end differ")
     if q.device.type == "cpu":
         return decode_attention_plain(q, cache_k, cache_v, qpos, end,
-                                      window, rolling, scale)
+                                      window, rolling, scale, scale_k,
+                                      scale_v)
     if q.device.type != "cuda":
         raise ValueError(f"no decode kernel for device {q.device}")
-    _check_cuda(dict(q=q, cache_k=cache_k, cache_v=cache_v, qpos=qpos,
-                     end=end), q.dtype)
+    _check_cuda(_with_scales(dict(q=q, cache_k=cache_k, cache_v=cache_v,
+                                  qpos=qpos, end=end), scale_k, scale_v),
+                q.dtype)
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("decode_attention")
@@ -212,36 +453,42 @@ def banded_decode_attention(q, cache_k, cache_v, qpos, end,
     l, hkv = cache_k.shape[1], cache_k.shape[2]
     sc = scale if scale is not None else dh ** -0.5
     rc = lib.dl4j_decode_attention(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
-        qpos.data_ptr(), end.data_ptr(), s_, l, h, hkv, dh,
-        window or 0, int(rolling), sc, _DTYPE_CODES[q.dtype],
+        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+        *_scale_ptrs(scale_k, scale_v), out.data_ptr(), qpos.data_ptr(),
+        end.data_ptr(), s_, l, h, hkv, dh, window or 0, int(rolling), sc,
+        _DTYPE_CODES[q.dtype], _CACHE_CODES[cache_k.dtype],
         _stream(q.device))
-    cuda_build.check(lib, rc, "banded_decode_attention")
-    LAUNCHES["banded_decode_attention"] += 1
+    name = _kernel_name("banded_decode_attention", scale_k)
+    cuda_build.check(lib, rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
 def paged_decode_attention(q, cache_k, cache_v, page_table, qpos,
                            window: Optional[int] = None,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None,
+                           scale_k=None, scale_v=None):
     """Single-query attention over the paged pool (kernel B6).
 
-    q: [S, H, Dh]; caches [P, Lp, Hkv, Dh] (post-write); page_table
+    q: [S, H, Dh]; caches [P, Lp, Hkv, Dh] (post-write), in q's dtype or
+    int8/e4m3 codes with float32 scale rows [P, Lp, Hkv]; page_table
     [S, NP] int32 mapping logical pages to physical ones (unmapped
     entries hold a valid page, 0); qpos [S] int32 logical position of
     each slot's query. Returns [S, H, Dh]. Any page length works."""
-    _check_common(q, cache_k, cache_v)
+    _check_common(q, cache_k, cache_v, scale_k, scale_v)
     s_, h, dh = q.shape
     if page_table.ndim != 2 or page_table.shape[0] != s_ or \
             qpos.shape != (s_,):
         raise ValueError("slot counts of q, page_table and qpos differ")
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, cache_k, cache_v, page_table,
-                                            qpos, window, scale)
+                                            qpos, window, scale, scale_k,
+                                            scale_v)
     if q.device.type != "cuda":
         raise ValueError(f"no decode kernel for device {q.device}")
-    _check_cuda(dict(q=q, cache_k=cache_k, cache_v=cache_v,
-                     page_table=page_table, qpos=qpos), q.dtype)
+    _check_cuda(_with_scales(dict(q=q, cache_k=cache_k, cache_v=cache_v,
+                                  page_table=page_table, qpos=qpos),
+                             scale_k, scale_v), q.dtype)
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("decode_attention")
@@ -249,10 +496,12 @@ def paged_decode_attention(q, cache_k, cache_v, page_table, qpos,
     lp, hkv = cache_k.shape[1], cache_k.shape[2]
     sc = scale if scale is not None else dh ** -0.5
     rc = lib.dl4j_paged_decode_attention(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+        *_scale_ptrs(scale_k, scale_v), out.data_ptr(),
         page_table.data_ptr(), qpos.data_ptr(), s_, page_table.shape[1], lp,
         h, hkv, dh, window or 0, sc, _DTYPE_CODES[q.dtype],
-        _stream(q.device))
-    cuda_build.check(lib, rc, "paged_decode_attention")
-    LAUNCHES["paged_decode_attention"] += 1
+        _CACHE_CODES[cache_k.dtype], _stream(q.device))
+    name = _kernel_name("paged_decode_attention", scale_k)
+    cuda_build.check(lib, rc, name)
+    LAUNCHES[name] += 1
     return out

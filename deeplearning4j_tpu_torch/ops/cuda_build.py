@@ -39,12 +39,22 @@ _F = ctypes.c_float
 # stream are c_void_p so ctypes never truncates them to 32 bits
 SOURCES: Dict[str, Dict[str, tuple]] = {
     "decode_attention": {
+        # q k v scale_k scale_v out qpos end, S L H Hkv Dh window
+        # rolling, scale, dtype cache_dtype, stream
         "dl4j_decode_attention": (
-            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                 _I, _P]),
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                 _I, _F, _I, _I, _P]),
+        # q k v scale_k scale_v out page_table qpos, S NP Lp H Hkv Dh
+        # window, scale, dtype cache_dtype, stream
         "dl4j_paged_decode_attention": (
-            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                 _I, _P]),
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                 _I, _F, _I, _I, _P]),
+        "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "banded_attention": {
+        # q k v o, B T H Hkv Dh window causal, scale, dtype, stream
+        "dl4j_banded_attention": (
+            _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {
@@ -96,8 +106,12 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    # the digest covers the shared headers too: an edited header rebuilds
+    # every source
+    text = b"".join(p.read_bytes() for p in
+                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,8 +1,8 @@
 """Dispatch policies of the port (counterpart of
 `deeplearning4j_tpu/ops/kernel_defaults.py`): decode attention, the
 decode loop, KV storage dtype and the prefix cache (serving), and
-full-context attention, the LSTM recurrence and the fused optimizer
-update (training).
+full-context and sliding-window attention, the LSTM recurrence and the
+fused optimizer update (training).
 
 Same defaults as the JAX package: the fused K=8 decode window, native
 KV storage, and the paged prefix cache whenever the model can page.
@@ -10,7 +10,8 @@ Each verdict is capability, then the structural default: the port has
 no measured rows yet. The TPU's rules are gone: there is no backend
 check and no 128-multiple page, cache or sequence rule, because the
 CUDA kernels take any length. So full-context attention goes to the
-flash kernels at any T, a sigmoid/tanh LSTM to the fused sequence
+flash kernels and windowed attention to the banded kernel at any T, a
+sigmoid/tanh LSTM to the fused sequence
 kernels, and Adam and Nesterovs to the fused update kernels, wherever
 the shape allows — JAX's measured-winner tables describe another chip. The
 JAX package's env hatches are not mirrored; callers choose through the
@@ -104,16 +105,32 @@ class KVDtypePolicy(NamedTuple):
     reason: str
 
 
-def kv_dtype_policy(kind: Optional[str] = None, *,
+def fp8_capable(device="cuda") -> bool:
+    """e4m3 KV storage needs a card where e4m3 is native: a CUDA device
+    of compute capability 8.9 or later (the counterpart of JAX's
+    `_fp8_capable`, which asks for a TPU backend)."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return False
+    return torch.cuda.get_device_capability(dev) >= (8, 9)
+
+
+def kv_dtype_policy(kind: Optional[str] = None, *, device="cuda",
                     record: bool = True) -> KVDtypePolicy:
     """KV cache storage dtype: the caller's request, else the model
-    dtype. int8/fp8 are recognised (the pool then refuses them: their
-    scale rows are not ported yet), unknown names fail."""
+    dtype (quantization is opt-in per deployment). "int8" stores K/V as
+    int8 codes with one float32 scale per (token, kv head); "fp8" stores
+    e4m3 codes with the same scale rows where the device has native e4m3
+    (`fp8_capable`) and falls back to int8 elsewhere, as the JAX policy
+    does. Unknown names fail."""
     want = (kind or "").strip().lower()
     if want not in ("", "auto", "native", "int8", "fp8"):
         raise ValueError(f"unknown kv_dtype {want!r} "
                          "(expected native|int8|fp8)")
-    if want in ("native", "int8", "fp8"):
+    if want == "fp8" and not fp8_capable(device):
+        kd, reason = "int8", ("caller=fp8 but backend lacks e4m3 support; "
+                              "int8 carries the same scale rows")
+    elif want in ("native", "int8", "fp8"):
         kd, reason = want, f"asked for by the caller: {want}"
     else:
         kd, reason = "native", "quantization is opt-in per deployment"
@@ -154,7 +171,7 @@ def prefix_cache_policy(page_len: Optional[int] = None, *,
 
 
 class AttentionPolicy(NamedTuple):
-    kind: str            # "flash" | "dense"
+    kind: str            # "flash" | "banded" | "dense"
     reason: str
 
 
@@ -162,17 +179,19 @@ def attention_policy(*, device="cuda", masked: bool = False,
                      dropout: bool = False, window: Optional[int] = None,
                      head_dim: int = 64) -> AttentionPolicy:
     """Full-context (`apply`) attention: the flash kernels B3a/B3b/B3c
-    (`ops/attention.flash_attention`) or the dense masked softmax.
+    (`ops/attention.flash_attention`), the banded kernel B4
+    (`ops/banded_attention.banded_attention`) or the dense masked
+    softmax.
 
-    Flash whenever the structure allows, at any Tq and Tk and in training
-    as in inference: the dense path holds B·H·Tq·Tk float32 scores (1 GiB
-    a layer at batch 8, 8 heads, T 2048) before softmax and its gradient.
-    A padding mask or attention dropout needs the dense path, as in JAX
-    (the weights never materialize inside the kernels); so does a sliding
-    window until the banded kernel B4 is ported. On CPU tensors "flash"
-    means the kernels' plain versions; the count records impl="plain".
-    On the card a head dim past the kernels' largest tile is refused:
-    a CUDA tensor never falls back to a plain version."""
+    A sliding window goes to B4 and a full context to flash, at any T
+    and in training as in inference: the dense path holds B·H·Tq·Tk
+    float32 scores (1 GiB a layer at batch 8, 8 heads, T 2048) before
+    softmax and its gradient. A padding mask or attention dropout needs
+    the dense path, as in JAX (the weights never materialize inside the
+    kernels). On CPU tensors "flash" and "banded" mean the kernels'
+    plain versions; the count records impl="plain". On the card a head
+    dim past the kernels' largest tile is refused: a CUDA tensor never
+    falls back to a plain version."""
     from deeplearning4j_tpu_torch.ops.attention import MAX_HEAD_DIM
 
     on_card = torch.device(device).type == "cuda"
@@ -180,15 +199,14 @@ def attention_policy(*, device="cuda", masked: bool = False,
         kind, reason = "dense", ("a padding mask" if masked
                                  else "attention dropout") + \
             " needs the attention weights"
-    elif window is not None:
-        kind, reason = "dense", "banded kernel B4 not ported"
-    elif on_card and head_dim > MAX_HEAD_DIM:
-        raise ValueError(f"no CUDA flash kernel for head dim {head_dim}: "
-                         f"the kernels take at most {MAX_HEAD_DIM}")
     else:
-        kind = "flash"
-        reason = ("the hand-written CUDA flash kernels" if on_card
-                  else "the flash kernels' plain versions (CPU tensors)")
+        kind = "flash" if window is None else "banded"
+        if on_card and head_dim > MAX_HEAD_DIM:
+            raise ValueError(f"no CUDA {kind} kernel for head dim "
+                             f"{head_dim}: the kernels take at most "
+                             f"{MAX_HEAD_DIM}")
+        reason = (f"the hand-written CUDA {kind} kernels" if on_card
+                  else f"the {kind} kernels' plain versions (CPU tensors)")
     record_dispatch("attention", kind if (on_card or kind == "dense")
                     else "plain")
     return AttentionPolicy(kind, reason)

@@ -4,7 +4,10 @@ carries (port of `deeplearning4j_tpu/serving/kv_pool.py`).
 The pool owns ONE carry tree built by `net.session_carries(slots)` on the
 net's device: per attention layer either [slots, L, Hkv, Dh] caches, or
 (paged mode) [pages, page_len, Hkv, Dh] page pools with per-slot page
-tables, plus per-slot positions. A slot is the unit of admission; a page
+tables, plus per-slot positions. A quantized pool (`kv_dtype` "int8" or
+"fp8") holds int8 or e4m3 caches with float32 scale rows
+[.., L, Hkv] beside them, which slot reset, page copy-on-write and the
+accounting treat as part of the cache. A slot is the unit of admission; a page
 is the unit of prefix sharing. Where the JAX pool ran small jitted
 programs (reset, install, copy page, poison), the port runs in-place
 tensor ops on the same tree under the pool lock; they are ordered with
@@ -15,8 +18,7 @@ Against cross-session leakage the pool is belt-and-braces, as in JAX:
 mode — shared pages stay), and the visibility arithmetic never shows a
 fresh slot anything it did not write itself.
 
-Not ported yet: quantized (int8/fp8) carries, fleet page export/import
-and hot-swap `rebind`.
+Not ported yet: fleet page export/import and hot-swap `rebind`.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ class KVSlotPool:
     """Slot-indexed decode carries + free-list allocation + per-slot
     reset; in paged mode also a page free list with refcounts."""
 
-    _CACHE_KEYS = ("cache_k", "cache_v")
+    _CACHE_KEYS = ("cache_k", "cache_v", "scale_k", "scale_v")
 
     def __init__(self, net, slots: int, *, model: str = "default",
                  metrics=None, kv_dtype: Optional[str] = None,
@@ -206,7 +208,8 @@ class KVSlotPool:
                 a[slot] = int(pos)
 
     def copy_page_locked(self, src: int, dst: int) -> None:
-        """Copy one physical page's K/V: the copy-on-write fork."""
+        """Copy one physical page's K/V (and scale rows): the
+        copy-on-write fork."""
         for path, a in _leaves(self.carries):
             if path[-1] in self._CACHE_KEYS:
                 a[dst].copy_(a[src])
@@ -217,15 +220,34 @@ class KVSlotPool:
         self.carries = new_carries
 
     # ------------------------------------------------------ inspection
+    def _slot_bytes(self) -> tuple:
+        """(actual, native) bytes a slot across the carry tree: the
+        caches at their stored width against the net dtype's, the scale
+        rows against nothing, every other leaf the same on both sides.
+        native / actual is the slots-per-card multiplier quantization
+        buys at a fixed carry budget."""
+        dtype = getattr(self.net, "dtype", torch.float32)
+        native_size = torch.tensor([], dtype=dtype).element_size()
+        actual = native = 0
+        for path, a in _leaves(self.carries):
+            nbytes = a.numel() * a.element_size()
+            actual += nbytes
+            if path[-1] in ("cache_k", "cache_v"):
+                native += a.numel() * native_size
+            elif path[-1] not in ("scale_k", "scale_v"):
+                native += nbytes
+        return actual / self.slots, native / self.slots
+
     def describe(self) -> dict:
         with self._cv:
-            nbytes = sum(a.numel() * a.element_size()
-                         for _, a in _leaves(self.carries))
+            actual, native = self._slot_bytes()
             out = {"total": self.slots,
                    "in_use": self.slots - len(self._free),
                    "model": self.model,
                    "kv_dtype": self.kv_dtype,
-                   "slot_bytes": int(nbytes / self.slots)}
+                   "slot_bytes": int(actual),
+                   "slots_per_chip_factor": round(native / actual, 2)
+                   if actual else 1.0}
             if self.page_len:
                 out["page_len"] = self.page_len
                 out["pages"] = self.pages

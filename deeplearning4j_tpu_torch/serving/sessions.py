@@ -187,7 +187,7 @@ class DecodeSessionManager:
         self._encoding = _input_encoding(first)
         self._limit = base.net.decode_limit()
 
-        kvp = kv_dtype_policy(kv_dtype)
+        kvp = kv_dtype_policy(kv_dtype, device=base.net.device)
         self.kv_dtype = kvp.kind
         self._kv_reason = kvp.reason
 

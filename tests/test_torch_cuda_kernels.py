@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the decode kernels B5 and B6, the flash-attention forward B3a and
-backward B3b/B3c, the fused Adam B1a and Nesterovs B1b, and the fused
-LSTM forward B2a/B2b and backward B2c. These tests import only torch,
+card: the decode kernels B5 and B6 (native, and their int8/e4m3
+scale-row variants B5q and B6q), the banded attention B4, the
+flash-attention forward B3a and backward B3b/B3c, the fused Adam B1a and
+Nesterovs B1b, and the fused LSTM forward B2a/B2b and backward B2c. These tests import only torch,
 so they run on a machine with a card and no JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
@@ -9,6 +10,7 @@ so they run on a machine with a card and no JAX:
 Where there is no card they skip (the kernels are CUDA C++ with no CPU
 or interpret mode; their plain versions are held against the JAX
 package in `tests/test_torch_decode_attention.py`,
+`test_torch_kv_quant.py`, `test_torch_banded_attention.py`,
 `test_torch_flash_attention.py`, `test_torch_fused_update.py` and
 `test_torch_lstm.py`).
 Tolerances, in the working dtype: 2e-5 absolute in float32 on attention
@@ -32,6 +34,7 @@ from deeplearning4j_tpu_torch.ops import attention as fa
 from deeplearning4j_tpu_torch.ops import banded_attention as ba
 from deeplearning4j_tpu_torch.ops import fused_update as fu
 from deeplearning4j_tpu_torch.ops import lstm as lk
+from deeplearning4j_tpu_torch.nn.layers.attention import quantize_kv
 
 MODES = [("linear", None, False), ("window", 5, False),
          ("rolling", 6, True)]
@@ -408,3 +411,154 @@ def test_cuda_lstm_refuses_what_the_kernels_do_not_take(cuda_device):
     big = lk.MAX_HIDDEN + 8
     with pytest.raises(ValueError):
         lk.lstm_fwd(*_lstm_inputs(cuda_device, 2, 2, big, False, False))
+
+
+# ----------------------------------------------- quantized decode (B5q, B6q)
+QDTYPES = [torch.int8, torch.float8_e4m3fn]
+
+
+def _quantized(g, shape, dtype, device):
+    codes, scales = quantize_kv(torch.randn(*shape, generator=g), dtype)
+    return codes.to(device), scales.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+@pytest.mark.parametrize("cdtype", QDTYPES, ids=["int8", "fp8"])
+@pytest.mark.parametrize("mode,window,rolling", MODES,
+                         ids=[m[0] for m in MODES])
+def test_cuda_b5q_matches_plain(cuda_device, mode, window, rolling, cdtype,
+                                qdtype):
+    g = torch.Generator().manual_seed(13)
+    S, L, H, Hkv, Dh = 5, 37, 8, 2, 64
+    q = torch.randn(S, H, Dh, generator=g).to(cuda_device, qdtype)
+    k, sk = _quantized(g, (S, L, Hkv, Dh), cdtype, cuda_device)
+    v, sv = _quantized(g, (S, L, Hkv, Dh), cdtype, cuda_device)
+    qpos = torch.tensor([0, 4, 36, 37, 100] if rolling else
+                        [0, 4, 20, 30, 36], dtype=torch.int32,
+                        device=cuda_device)
+    before = dict(ba.LAUNCHES)
+    out = ba.banded_decode_attention(q, k, v, qpos, qpos, window=window,
+                                     rolling=rolling, scale_k=sk, scale_v=sv)
+    # the kernel dequantizes in float32, as the TPU body does; the plain
+    # version dequantizes in q's dtype, as JAX's reference does, so with
+    # bfloat16 queries it is fed the same queries in float32 and the
+    # kernel is held to one bf16 step of that
+    ref = ba.decode_attention_plain(q.float(), k, v, qpos, qpos,
+                                    window=window, rolling=rolling,
+                                    scale_k=sk, scale_v=sv)
+    torch.cuda.synchronize()
+    assert ba.LAUNCHES["banded_decode_attention_q"] == \
+        before["banded_decode_attention_q"] + 1
+    assert ba.LAUNCHES["banded_decode_attention"] == \
+        before["banded_decode_attention"]
+    atol, rtol = (2e-5, 0.0) if qdtype == torch.float32 else \
+        (1e-5, 2.0 ** -7)
+    ref = ref.float()
+    assert ((out.float() - ref).abs() <= atol + rtol * ref.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype", QDTYPES, ids=["int8", "fp8"])
+@pytest.mark.parametrize("page_len,hkv", [(16, 8), (128, 2), (7, 1)])
+def test_cuda_b6q_matches_plain(cuda_device, cdtype, page_len, hkv):
+    g = torch.Generator().manual_seed(14)
+    S, NP, H, Dh = 4, 256 // page_len, 8, 64
+    P = S * NP
+    q = torch.randn(S, H, Dh, generator=g).to(cuda_device)
+    ck, sk = _quantized(g, (P, page_len, hkv, Dh), cdtype, cuda_device)
+    cv, sv = _quantized(g, (P, page_len, hkv, Dh), cdtype, cuda_device)
+    pt = torch.randperm(P, generator=g).reshape(S, NP)
+    pt[1, :2] = pt[0, :2]
+    pt = pt.to(cuda_device, torch.int32)
+    qpos = torch.tensor([0, 100, 200, NP * page_len - 1], dtype=torch.int32,
+                        device=cuda_device)
+    before = ba.LAUNCHES["paged_decode_attention_q"]
+    out = ba.paged_decode_attention(q, ck, cv, pt, qpos, scale_k=sk,
+                                    scale_v=sv)
+    ref = ba.paged_decode_attention_plain(q, ck, cv, pt, qpos, scale_k=sk,
+                                          scale_v=sv)
+    torch.cuda.synchronize()
+    assert ba.LAUNCHES["paged_decode_attention_q"] == before + 1
+    assert (out - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_quantized_wrapper_refuses_missing_scale_rows(cuda_device):
+    q = torch.zeros(2, 8, 64, device=cuda_device)
+    k = torch.zeros(2, 8, 2, 64, dtype=torch.int8, device=cuda_device)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="scale rows"):
+        ba.banded_decode_attention(q, k, k, pos, pos)
+
+
+# --------------------------------------------------- banded attention (B4)
+BANDED_CASES = [
+    # (B, T, H, Hkv, Dh, window, causal, dtype)
+    (2, 24, 4, 2, 32, 5, True, torch.float32),       # T < one tile
+    (1, 37, 4, 4, 64, 1, True, torch.float32),       # window 1
+    (2, 100, 8, 2, 64, 200, True, torch.float32),    # window >= T
+    (2, 300, 8, 1, 64, 33, False, torch.float32),    # bidirectional, G 8
+    (1, 1000, 8, 2, 64, 100, True, torch.float32),   # ragged tail tile
+    (2, 200, 4, 2, 128, 64, True, torch.float32),
+    (2, 130, 4, 1, 48, 17, False, torch.float32),    # Dh inside a tile
+    (2, 300, 8, 2, 64, 64, True, torch.bfloat16),
+]
+
+
+def _banded_inputs(b, t, h, hkv, dh, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def mk(heads):
+        return torch.randn(b, t, heads, dh, generator=g).to(device, dtype)
+    return mk(h), mk(hkv), mk(hkv), mk(h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,hkv,dh,w,causal,dtype", BANDED_CASES)
+def test_cuda_b4_matches_plain(cuda_device, b, t, h, hkv, dh, w, causal,
+                               dtype):
+    q, k, v, _ = _banded_inputs(b, t, h, hkv, dh, dtype, cuda_device,
+                                t + w)
+    before = ba.LAUNCHES["banded_attention"]
+    o = ba.banded_attention_fwd(q, k, v, w, causal)
+    ref = ba.banded_reference(q, k, v, w, causal)
+    torch.cuda.synchronize()
+    assert ba.LAUNCHES["banded_attention"] == before + 1
+    assert _close(o, ref, dtype, 2e-5)
+    if w >= t and causal and dtype == torch.float32:
+        # a window past T is causal full-context attention
+        def fold(x):
+            x = torch.repeat_interleave(x, h // x.shape[2], dim=2)
+            return x.transpose(1, 2).reshape(b * h, t, dh)
+
+        flat, _ = fa.flash_attention_plain(fold(q), fold(k), fold(v), True)
+        assert _close(o, flat.reshape(b, h, t, dh).transpose(1, 2), dtype,
+                      2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_b4_autograd_matches_dense(cuda_device):
+    """The autograd Function on the card (B4 forward, dense recompute
+    backward) against autograd through the dense band-masked softmax."""
+    q, k, v, do = _banded_inputs(2, 150, 8, 2, 64, torch.float32,
+                                 cuda_device, 5)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = ba.banded_attention(*leaves, 40, True)
+    got = torch.autograd.grad(o, leaves, do)
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_ref = ba.banded_dense(*ref_leaves, 40, True, 64 ** -0.5)
+    want = torch.autograd.grad(o_ref, ref_leaves, do)
+    torch.cuda.synchronize()
+    assert (o - o_ref).abs().max().item() <= 2e-5
+    for g_, r_ in zip(got, want):
+        assert (g_ - r_).abs().max().item() <= \
+            1e-4 * r_.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_b4_refuses_head_dims_past_its_tile(cuda_device):
+    q = torch.zeros(1, 8, 2, 160, device=cuda_device)
+    with pytest.raises(ValueError, match="Dh <= 128"):
+        ba.banded_attention_fwd(q, q, q, 4)

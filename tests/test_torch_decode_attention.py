@@ -144,10 +144,10 @@ def test_wrappers_on_cpu_take_the_plain_version_and_count_no_launch():
     ba.banded_decode_attention(q, k, v, pos, pos)
     ba.paged_decode_attention(q, k, v, torch.tensor([[0], [1]],
                                                     dtype=torch.int32), pos)
-    assert ba.LAUNCHES == {"banded_decode_attention": 0,
-                           "paged_decode_attention": 0}
-    assert ba.PLAIN_ON_CUDA == {"banded_decode_attention": 0,
-                                "paged_decode_attention": 0}
+    for counts in (ba.LAUNCHES, ba.PLAIN_ON_CUDA):
+        assert {"banded_decode_attention", "paged_decode_attention"} <= \
+            set(counts)
+        assert not any(counts.values()), counts
 
 
 def test_nan_query_passes_through_the_plain_version():

@@ -65,3 +65,30 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_every_counted_kernel_has_a_source_and_a_tpu_body():
+    """Each kernel the port counts launches of is named in
+    `chip_smoke.py`'s summary with its CUDA source (which exists) and the
+    TPU body it replaces, and every source `ops/cuda_build.py` builds is
+    in the tree."""
+    import importlib.util
+
+    from deeplearning4j_tpu_torch.ops import (
+        attention, banded_attention, cuda_build, fused_update, lstm,
+    )
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    counted = set().union(*(m.LAUNCHES for m in (attention,
+                                                 banded_attention,
+                                                 fused_update, lstm)))
+    assert counted == set(smoke.SOURCES) == set(smoke.REPLACES)
+    for src in smoke.SOURCES.values():
+        assert (ROOT / src).is_file(), src
+    for path in smoke.REPLACES.values():
+        assert (ROOT / path.split(":")[0]).is_file(), path
+    for stem in cuda_build.SOURCES:
+        assert (cuda_build.CSRC / f"{stem}.cu").is_file(), stem

@@ -327,9 +327,17 @@ def test_decode_kernels_refuse_shapes_past_their_register_tiles(h, hkv, dh):
 
 
 def test_quantized_kv_is_refused_until_its_scale_rows_are_ported(nets):
-    _, _, _, pnet = nets
-    with pytest.raises(NotImplementedError):
-        pnet.session_carries(2, kv_dtype="int8")
+    """The scale rows are ported: an int8 request builds int8 caches with
+    float32 [N, L, Hkv] scale rows beside them, in every attention
+    layer, slot and paged pools alike."""
+    _, page_len, _, pnet = nets
+    carries = pnet.session_carries(2, kv_dtype="int8", page_len=page_len)
+    blocks = [c["attn"] for c in carries.values() if "attn" in c]
+    assert blocks
+    for attn in blocks:
+        assert attn["cache_k"].dtype == attn["cache_v"].dtype == torch.int8
+        assert attn["scale_k"].dtype == torch.float32
+        assert attn["scale_v"].shape == attn["cache_k"].shape[:3]
 
 
 def test_pool_free_resets_the_slot_and_pages_follow_their_refcounts():

@@ -275,7 +275,11 @@ def test_attention_policy_routes():
     assert attention_policy(device="cuda", head_dim=128).kind == "flash"
     assert attention_policy(device="cpu").kind == "flash"
     w = attention_policy(device="cuda", window=4)
-    assert (w.kind, w.reason) == ("dense", "banded kernel B4 not ported")
+    assert (w.kind, w.reason) == ("banded",
+                                  "the hand-written CUDA banded kernels")
+    assert attention_policy(device="cpu", window=4).kind == "banded"
+    assert attention_policy(device="cuda", window=4, masked=True).kind == \
+        "dense"
     assert attention_policy(device="cuda", masked=True).kind == "dense"
     assert attention_policy(device="cuda", dropout=True).kind == "dense"
 

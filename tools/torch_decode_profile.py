@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's decode serving goes, on one card.
 
-    python3 tools/torch_decode_profile.py
+    python3 tools/torch_decode_profile.py [--kv-dtype native|int8|fp8]
 
 Builds the two serving paths of `chip_smoke.py` (Path A: the 6-block
 GPT-style transformer at d_model 512 on the paged pool and kernel B6;
@@ -11,8 +11,11 @@ under `torch.profiler` and reads the kernels off its Chrome trace. For
 each path it prints one JSON line: the wave's wall time, the time the
 card was busy (the union of kernel intervals), the idle share, kernel
 launches per generated token, and device time by kernel class
-(the decode-attention kernels, matrix products, everything else) and
-for the ten costliest kernels. Needs a CUDA card.
+(the decode-attention kernels, their quantized variants B5q/B6q,
+matrix products, everything else) and for the ten costliest kernels.
+`--kv-dtype int8` or `fp8` serves both paths from a quantized pool (int8
+or e4m3 codes with float32 scale rows), so B5q and B6q carry the decode
+steps. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -56,7 +59,9 @@ def busy_us(kernels):
 
 def kernel_class(name):
     if "decode_attention" in name:
-        return "decode_attention"
+        # the cache type is the second template argument
+        quant = "signed char" in name or "fp8" in name
+        return "decode_attention_q" if quant else "decode_attention"
     low = name.lower()
     if any(t in low for t in ("gemm", "gemv", "cutlass", "sm90_xmma",
                               "ampere_sgemm", "cublas")):
@@ -64,10 +69,11 @@ def kernel_class(name):
     return "other"
 
 
-def profile_path(name, net, prompts, greedy, max_tokens):
+def profile_path(name, net, prompts, greedy, max_tokens, kv_dtype=None):
     from torch.profiler import ProfilerActivity, profile
 
-    registry, sched, mgr = cs.control_plane(net, slots=8, chunk=128, k=8)
+    registry, sched, mgr = cs.control_plane(net, slots=8, chunk=128, k=8,
+                                            kv_dtype=kv_dtype)
     try:
         cs.serve_wave(mgr, prompts, greedy, max_tokens, mgr.vocab)
         torch.cuda.synchronize()
@@ -94,7 +100,8 @@ def profile_path(name, net, prompts, greedy, max_tokens):
     busy = busy_us(kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     row = {
-        "phase": f"profile_{name}", "device": torch.cuda.get_device_name(0),
+        "phase": f"profile_{name}", "kv_dtype": mgr.kv_dtype,
+        "device": torch.cuda.get_device_name(0),
         "nvidia_smi": cs.gpu_name_and_limit(),
         "sessions": wave["sessions"], "new_tokens": wave["new_tokens"],
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
@@ -111,6 +118,12 @@ def profile_path(name, net, prompts, greedy, max_tokens):
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kv-dtype", choices=("native", "int8", "fp8"),
+                    default="native")
+    kv = ap.parse_args().kv_dtype
     if not torch.cuda.is_available():
         print("torch_decode_profile: needs a CUDA card", file=sys.stderr)
         return 2
@@ -122,14 +135,11 @@ def main() -> int:
     stem = rng.integers(0, 256, 1024)
     warm = [np.concatenate([stem, rng.integers(0, 256, 8)])
             for _ in range(8)]
-    profile_path("path_a", net_a, warm, greedy, 32)
+    profile_path("path_a", net_a, warm, greedy, 32, kv)
     del net_a
-    net_b = cs.build_net("cuda", num_blocks=2, seed=11,
-                         pos_encoding="rope", norm="rms",
-                         ffn_activation="swiglu", num_kv_heads=2,
-                         window=256, rolling_cache=True)
+    net_b = cs.build_path_b_net("cuda")
     long = [rng.integers(0, 256, 2240) for _ in range(8)]
-    profile_path("path_b", net_b, long, greedy, 32)
+    profile_path("path_b", net_b, long, greedy, 32, kv)
     return 0
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's training step goes, on one card.
 
-    python3 tools/torch_train_profile.py [--path t|l|g]
+    python3 tools/torch_train_profile.py [--path t|w|l|g]
 
 Builds one of `chip_smoke.py`'s paths, warms it untraced, then runs it
 under `torch.profiler` and reads the kernels off its Chrome trace, with
@@ -10,6 +10,11 @@ the same method as `tools/torch_decode_profile.py`:
 - `--path t` (default), `path_t`: the 6-block GPT-style
   `TextGenerationTransformer` at d_model 512, 8 heads, T 2048, batch 8,
   float32, its default Adam(3e-4); two traced train steps;
+- `--path w`, `path_w`: the same width as the 6-block Llama-shaped
+  sliding-window model (RoPE, RMSNorm, SwiGLU, 2 KV heads, window 256);
+  two traced train steps, B4 forward and the dense band-masked recompute
+  backward (every kernel launched inside `BandedAttention.backward`'s
+  profiler range is classed as the recompute);
 - `--path l`, `path_l`: the LSTM bench model (GravesLSTM(512) x 2 +
   RnnOutputLayer(64), T 128, batch 64, float32, Nesterovs(0.01, 0.9));
   six traced train steps (two batches, one of them masked, three
@@ -20,7 +25,8 @@ the same method as `tools/torch_decode_profile.py`:
 Prints one JSON line: the traced window's wall time, the time the card
 was busy (the union of kernel intervals), the idle share, kernels
 launched a step (or a call), and device time by kernel class (the flash
-kernels B3a and B3b + B3c, the LSTM kernels B2a, B2b and B2c with its
+kernels B3a and B3b + B3c, the banded kernel B4 and the banded backward's
+dense recompute, the LSTM kernels B2a, B2b and B2c with its
 weight-gradient launch, the fused updates B1a and B1b, matrix products,
 everything else) and for the ten costliest kernels. Needs a CUDA card.
 """
@@ -43,7 +49,28 @@ import chip_smoke as cs  # noqa: E402
 from torch_decode_profile import busy_us, kernel_events  # noqa: E402
 
 
+def recompute_correlations(trace_path):
+    """Correlation ids of the kernels launched inside the banded
+    backward's profiler range (`ops/banded_attention.RECOMPUTE_RANGE`):
+    the runtime launch calls on the range's thread within its span."""
+    import json
+
+    from deeplearning4j_tpu_torch.ops.banded_attention import RECOMPUTE_RANGE
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e.get("name") == RECOMPUTE_RANGE]
+    return {e["args"]["correlation"] for e in events
+            if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+            and "correlation" in e.get("args", {})
+            and any(tid == e["tid"] and t0 <= e["ts"] <= t1
+                    for tid, t0, t1 in spans)}
+
+
 def kernel_class(name):
+    if "banded_fwd" in name:
+        return "banded (B4)"
     if "flash_fwd" in name:
         return "flash_fwd (B3a)"
     if "flash_bwd" in name:
@@ -71,8 +98,9 @@ def traced_window(path):
     """(run, units, unit name, work a unit): `run()` drives the traced
     window; the warm-up has been done when this returns."""
     rng = np.random.default_rng(0)
-    if path == "t":
-        net = cs.build_net("cuda", num_blocks=6, seed=5)
+    if path in ("t", "w"):
+        kw = dict(window=256, **cs.LLAMA) if path == "w" else {}
+        net = cs.build_net("cuda", num_blocks=6, seed=5, **kw)
         batches = cs.lm_batches(rng, 3, 8, 2048)
         tokens = 8 * 2048
     elif path == "l":
@@ -101,7 +129,7 @@ def traced_window(path):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("t", "l", "g"), default="t")
+    ap.add_argument("--path", choices=("t", "w", "l", "g"), default="t")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: needs a CUDA card", file=sys.stderr)
@@ -122,10 +150,13 @@ def main() -> int:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         kernels = kernel_events(path)
+        recompute = recompute_correlations(path)
     cs.check(bool(kernels), "the profiler saw no device kernels")
     by_class, by_name = {}, {}
     for e in kernels:
-        c = kernel_class(e["name"])
+        c = ("banded backward recompute"
+             if e.get("args", {}).get("correlation") in recompute
+             else kernel_class(e["name"]))
         by_class[c] = by_class.get(c, 0.0) + e["dur"]
         n, t = by_name.get(e["name"], (0, 0.0))
         by_name[e["name"]] = (n + 1, t + e["dur"])
