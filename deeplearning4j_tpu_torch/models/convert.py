@@ -7,8 +7,12 @@ Nesterovs, `()` for stateless updaters), so conversion is a checked
 copy: every layer and key must match, with identical shapes. The caller
 produces the tree on the JAX side as nested dicts of numpy arrays, e.g.
 `jax.tree_util.tree_map(np.asarray, net.params_tree)`; this module never
-imports jax. With both trees carried across, a trajectory resumes
-mid-training in either package (the step count is `net.iteration`).
+imports jax. A ComputationGraph's trees are keyed by vertex name (a
+parameterless vertex has an empty dict) and load the same way; its
+batch-norm and fused conv+BN running statistics are `state_tree`,
+loaded by `state_from_numpy`. With the trees carried across, a
+trajectory resumes mid-training in either package (the step count is
+`net.iteration`).
 """
 
 from __future__ import annotations
@@ -68,5 +72,20 @@ def updater_state_from_numpy(net, tree: Mapping[str, Any]):
         raise KeyError(f"layers differ: port {sorted(net.updater_state)}, "
                        f"given {sorted(tree)}")
     for lname, state in net.updater_state.items():
+        _copy_tree(state, tree[lname], lname)
+    return net
+
+
+def state_from_numpy(net, tree: Mapping[str, Any]):
+    """Load a JAX net's `state_tree` (as numpy) into the port's `net` in
+    place: the running mean/var of `BatchNormalization` (in the net's
+    dtype) and of `FusedConvBNLayer` (float32), each cast to the port
+    tensor's own dtype. Vertices or layers without state are empty dicts
+    on both sides. Checks as `params_from_numpy`. Returns `net`."""
+    net._check_init()
+    if set(tree) != set(net.state_tree):
+        raise KeyError(f"layers differ: port {sorted(net.state_tree)}, "
+                       f"given {sorted(tree)}")
+    for lname, state in net.state_tree.items():
         _copy_tree(state, tree[lname], lname)
     return net

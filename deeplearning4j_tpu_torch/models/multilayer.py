@@ -136,6 +136,60 @@ def _normalize_grads(grads, mode: str, threshold: float):
     return {name: per_layer(sub) for name, sub in grads.items()}
 
 
+def _updater_groups(updaters: Dict[str, Updater]
+                    ) -> List[Tuple[Updater, List[str]]]:
+    """Layers (or vertices) sharing one updater configuration (equal
+    dataclasses), in order: each group is one `update_with_params` call,
+    so its leaves go through one fused launch. Frozen ones (NoOp) are
+    left out."""
+    groups: List[Tuple[Updater, List[str]]] = []
+    for name, u in updaters.items():
+        if isinstance(u, NoOp):
+            continue
+        for gu, names in groups:
+            if gu == u:
+                names.append(name)
+                break
+        else:
+            groups.append((u, [name]))
+    return groups
+
+
+def _grad_and_update(loss_fn, params, opt_state, groups, mode: str,
+                     threshold: float, step):
+    """One train step's gradients and update. `loss_fn(live)` returns
+    (loss, aux) for `live`, the params with every trained leaf replaced
+    by a detached view that requires grad: the stored tensors stay plain,
+    so the update, IN PLACE into `params` and `opt_state`, needs no
+    autograd bookkeeping. Gradients are made contiguous (the fused update
+    kernels read them densely; a convolution's weight gradient can come
+    back permuted). Returns (loss detached, aux)."""
+    trained = [n for _, names in groups for n in names]
+    live = {n: (tree_map(lambda v: v.detach().requires_grad_(True), sub)
+                if n in trained else sub)
+            for n, sub in params.items()}
+    with torch.enable_grad():
+        loss, aux = loss_fn(live)
+        wrt = [leaf for n in trained for leaf in tree_leaves(live[n])]
+        got = torch.autograd.grad(loss, wrt, allow_unused=True)
+    it = iter(got)
+
+    def grad_of(v):
+        g = next(it)
+        return torch.zeros_like(v) if g is None else g.contiguous()
+
+    grads = {n: tree_map(grad_of, params[n]) for n in trained}
+    grads = _normalize_grads(grads, mode, threshold)
+    for u, names in groups:
+        st = {n: opt_state[n] for n in names}
+        first = st[names[0]]
+        group_state = ({key: {n: st[n][key] for n in names} for key in first}
+                       if isinstance(first, dict) else ())
+        u.update_with_params({n: grads[n] for n in names}, group_state,
+                             {n: params[n] for n in names}, step)
+    return loss.detach(), aux
+
+
 def _refuse(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md {item}); the port refuses "
@@ -210,22 +264,6 @@ class MultiLayerNetwork:
                 u = NoOp()
             self._layer_updaters[layer.name] = u
 
-    def _updater_groups(self) -> List[Tuple[Updater, List[str]]]:
-        """Layers sharing one updater configuration (equal dataclasses),
-        in layer order: each group is one `update_with_params` call, so
-        its leaves go through one fused launch."""
-        groups: List[Tuple[Updater, List[str]]] = []
-        for name, u in self._layer_updaters.items():
-            if isinstance(u, NoOp):
-                continue
-            for gu, names in groups:
-                if gu == u:
-                    names.append(name)
-                    break
-            else:
-                groups.append((u, [name]))
-        return groups
-
     def _check_init(self):
         if self.params_tree is None:
             raise RuntimeError("network not initialized: call init()")
@@ -279,47 +317,22 @@ class MultiLayerNetwork:
         the next chunk; else `{}`."""
         mode = self.conf.gradient_normalization
         thr = self.conf.gradient_normalization_threshold
-        groups = self._updater_groups()
-        trained = [n for _, names in groups for n in names]
+        groups = _updater_groups(self._layer_updaters)
         stateful = self._stateful
         rnn_names = self._rnn_layer_names
 
         def step_fn(params, opt_state, states, step, features, labels,
                     fmask, lmask, rng, carries):
-            # gradients w.r.t. detached views of the trained leaves; the
-            # stored tensors stay plain, so the in-place update below
-            # needs no autograd bookkeeping
-            live = {n: (tree_map(lambda v: v.detach().requires_grad_(True),
-                                 sub) if n in trained else sub)
-                    for n, sub in params.items()}
-            with torch.enable_grad():
-                loss, new_states = self._loss(live, features, labels,
-                                              fmask, lmask, rng, train=True,
-                                              carries=carries)
-                wrt = [leaf for n in trained for leaf in tree_leaves(live[n])]
-                got = torch.autograd.grad(loss, wrt, allow_unused=True)
-            it = iter(got)
-
-            def grad_of(v):
-                g = next(it)
-                return torch.zeros_like(v) if g is None else g
-
-            grads = {n: tree_map(grad_of, params[n]) for n in trained}
-            grads = _normalize_grads(grads, mode, thr)
-            for u, names in groups:
-                st = {n: opt_state[n] for n in names}
-                first = st[names[0]]
-                group_state = ({key: {n: st[n][key] for n in names}
-                                for key in first}
-                               if isinstance(first, dict) else ())
-                u.update_with_params({n: grads[n] for n in names},
-                                     group_state,
-                                     {n: params[n] for n in names}, step)
+            loss, new_states = _grad_and_update(
+                lambda live: self._loss(live, features, labels, fmask,
+                                        lmask, rng, train=True,
+                                        carries=carries),
+                params, opt_state, groups, mode, thr, step)
             persist = {n: (new_states[n] if n in stateful
                            else states.get(n, {})) for n in states}
             out_carries = {n: tree_map(torch.detach, new_states[n])
                            for n in rnn_names} if tbptt else {}
-            return params, opt_state, persist, loss.detach(), out_carries
+            return params, opt_state, persist, loss, out_carries
 
         return step_fn
 

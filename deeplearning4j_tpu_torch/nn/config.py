@@ -144,6 +144,12 @@ class Builder:
             layers = tuple(layers[0])
         return ListBuilder(self, list(layers))
 
+    def graph_builder(self):
+        """The ComputationGraph DSL (`nn/graph.GraphBuilder`)."""
+        from deeplearning4j_tpu_torch.nn.graph import GraphBuilder
+
+        return GraphBuilder(self)
+
     def _defaults(self) -> Dict[str, Any]:
         """As the JAX builder: no updater means Sgd at the builder's
         learning rate (default 1e-2); a learning rate overrides the
@@ -196,11 +202,7 @@ class ListBuilder:
             if layer.name is None:
                 layer = dataclasses.replace(
                     layer, name=f"layer{i}_{type(layer).__name__.lower()}")
-            try:
-                Activation.get(layer.activation)
-                WeightInit.get(layer.weight_init)
-            except ValueError as e:
-                raise ValueError(f"layer {i} ({layer.name}): {e}") from None
+            _validate_layer(layer, i)
             if cur is not None:
                 layer = layer.infer_n_in(cur)
                 cur = layer.output_type(cur)
@@ -213,3 +215,17 @@ class ListBuilder:
             gradient_normalization_threshold=self._base._grad_norm_threshold,
             tbptt_fwd_length=self._tbptt_fwd,
             tbptt_back_length=self._tbptt_back)
+
+
+def _validate_layer(layer: Layer, idx: int) -> None:
+    """Fail at build() on an unknown activation, weight init or loss
+    name."""
+    from deeplearning4j_tpu_torch.nn.losses import LossFunction
+
+    try:
+        Activation.get(layer.activation)
+        WeightInit.get(layer.weight_init)
+        if hasattr(layer, "loss"):
+            LossFunction.get(layer.loss)
+    except ValueError as e:
+        raise ValueError(f"layer {idx} ({layer.name}): {e}") from None

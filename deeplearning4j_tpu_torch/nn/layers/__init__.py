@@ -3,8 +3,17 @@ ported layer class for config serde."""
 
 from deeplearning4j_tpu_torch.nn.layers.base import LAYER_REGISTRY, Layer
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
-    DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer, OutputLayer,
+    ActivationLayer, DenseLayer, DropoutLayer, EmbeddingLayer,
+    EmbeddingSequenceLayer, OutputLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.convolution import (
+    ConvolutionLayer, FusedConvBNLayer, SpaceToDepthLayer, SubsamplingLayer,
+    ZeroPaddingLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.normalization import (
+    BatchNormalization,
+)
+from deeplearning4j_tpu_torch.nn.layers.pooling import GlobalPoolingLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     GRU, LSTM, BaseRecurrentLayer, Bidirectional, GravesBidirectionalLSTM,
     GravesLSTM, LastTimeStep, RnnOutputLayer, SimpleRnn,
@@ -19,5 +28,8 @@ __all__ = [
     "OutputLayer", "RnnOutputLayer", "BaseRecurrentLayer", "LSTM",
     "GravesLSTM", "GRU", "SimpleRnn", "Bidirectional",
     "GravesBidirectionalLSTM", "LastTimeStep", "MultiHeadAttention",
-    "PositionEmbeddingLayer", "TransformerEncoderBlock",
+    "PositionEmbeddingLayer", "TransformerEncoderBlock", "ActivationLayer",
+    "DropoutLayer", "ConvolutionLayer", "SubsamplingLayer",
+    "ZeroPaddingLayer", "SpaceToDepthLayer", "FusedConvBNLayer",
+    "BatchNormalization", "GlobalPoolingLayer",
 ]

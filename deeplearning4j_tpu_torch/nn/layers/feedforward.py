@@ -1,5 +1,5 @@
-"""Feed-forward layers: Dense, Output, Embedding, EmbeddingSequence
-(port of `deeplearning4j_tpu/nn/layers/feedforward.py`).
+"""Feed-forward layers: Dense, Output, Activation, Dropout, Embedding,
+EmbeddingSequence (port of `deeplearning4j_tpu/nn/layers/feedforward.py`).
 
 Kernels are stored [n_in, n_out] and applied as `x @ W`, the JAX
 package's orientation, so its params tree loads without transposes."""
@@ -71,6 +71,27 @@ class OutputLayer(DenseLayer):
         applies."""
         return LossFunction.get(self.loss)(labels, self.pre_output(params, x),
                                            self.activation, mask)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class ActivationLayer(Layer):
+    """Parameterless activation."""
+
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
+        return self._act(x), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class DropoutLayer(Layer):
+    """Standalone inverted dropout of its input (drop probability
+    `dropout`), drawn from `rng` only when training."""
+
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
+        return self._maybe_dropout(x, train, rng), state
 
 
 @register_layer

@@ -90,6 +90,15 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "dl4j_lstm_batch_tile": (_I, []),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
+    "conv_fused": {
+        "dl4j_conv_stats_tile_m": (_I, []),
+        # x w y part sums, M K N, dtype, stream
+        "dl4j_matmul_stats": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        # x w y part sums, B H W C N, dtype, stream
+        "dl4j_conv3x3_stats": (
+            _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,8 @@
 """Dispatch policies of the port (counterpart of
 `deeplearning4j_tpu/ops/kernel_defaults.py`): decode attention, the
 decode loop, KV storage dtype and the prefix cache (serving), and
-full-context and sliding-window attention, the LSTM recurrence and the
-fused optimizer update (training).
+full-context and sliding-window attention, the LSTM recurrence, the
+fused optimizer update and the fused conv+BN statistics (training).
 
 Same defaults as the JAX package: the fused K=8 decode window, native
 KV storage, and the paged prefix cache whenever the model can page.
@@ -279,4 +279,34 @@ def lstm_policy(gate_activation: str, activation: Optional[str], *,
                          "the LSTM kernels' plain versions (CPU tensors)")
     record_dispatch("lstm", pol.kind if (on_card or pol.kind == "loop")
                     else "plain")
+    return pol
+
+
+class ConvFusedPolicy(NamedTuple):
+    kind: str            # "fused" | "plain" | "fold"
+    reason: str
+
+
+def conv_fused_policy(dtype, *, train: bool,
+                      device="cuda") -> ConvFusedPolicy:
+    """A `FusedConvBNLayer` forward: in training, the conv+BN statistics
+    kernels B7a (1x1) and B7b (3x3) on the card, their plain versions on
+    CPU tensors; in eval, the running statistics folded into one epilogue
+    of a plain product or convolution (no kernel, as in JAX). The kernels
+    take float32 and bfloat16: another dtype on the card is refused here,
+    never sent to a plain version."""
+    on_card = torch.device(device).type == "cuda"
+    if not train:
+        pol = ConvFusedPolicy("fold", "eval folds the running statistics "
+                              "into one affine epilogue")
+    elif on_card:
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"the conv+BN statistics kernels take float32 "
+                            f"or bfloat16, got {dtype}")
+        pol = ConvFusedPolicy("fused", "the hand-written CUDA kernels "
+                              "B7a/B7b")
+    else:
+        pol = ConvFusedPolicy("plain", "the kernels' plain versions (CPU "
+                              "tensors)")
+    record_dispatch("conv_fused", pol.kind)
     return pol

@@ -35,7 +35,15 @@ class ZooModel:
         raise NotImplementedError
 
     def init(self, device=None):
-        """Build + seed the network on `device` (CUDA by default)."""
-        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+        """Build + seed the network on `device` (CUDA by default): a
+        MultiLayerNetwork or, for a graph configuration, a
+        ComputationGraph."""
+        from deeplearning4j_tpu_torch.models import (
+            ComputationGraph, MultiLayerNetwork,
+        )
+        from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 
-        return MultiLayerNetwork(self.conf(), device=device).init()
+        conf = self.conf()
+        if isinstance(conf, MultiLayerConfiguration):
+            return MultiLayerNetwork(conf, device=device).init()
+        return ComputationGraph(conf, device=device).init()

@@ -2,7 +2,8 @@
 card: the decode kernels B5 and B6 (native, and their int8/e4m3
 scale-row variants B5q and B6q), the banded attention B4, the
 flash-attention forward B3a and backward B3b/B3c, the fused Adam B1a and
-Nesterovs B1b, and the fused LSTM forward B2a/B2b and backward B2c. These tests import only torch,
+Nesterovs B1b, the fused LSTM forward B2a/B2b and backward B2c, and the
+conv+BN statistics kernels B7a/B7b. These tests import only torch,
 so they run on a machine with a card and no JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
@@ -11,8 +12,8 @@ Where there is no card they skip (the kernels are CUDA C++ with no CPU
 or interpret mode; their plain versions are held against the JAX
 package in `tests/test_torch_decode_attention.py`,
 `test_torch_kv_quant.py`, `test_torch_banded_attention.py`,
-`test_torch_flash_attention.py`, `test_torch_fused_update.py` and
-`test_torch_lstm.py`).
+`test_torch_flash_attention.py`, `test_torch_fused_update.py`,
+`test_torch_lstm.py` and `test_torch_conv_fused.py`).
 Tolerances, in the working dtype: 2e-5 absolute in float32 on attention
 outputs and lse, 1e-4 of the reference's largest magnitude on attention
 gradients (sums of up to T products taken in another order); in
@@ -25,13 +26,16 @@ kernel. The LSTM kernels sum H products a step in another order than the
 plain version's matmul, and the difference is carried through T steps:
 1e-4 absolute on hs and the gates (which lie in [-1, 1]), 1e-4 of the
 reference's largest magnitude on the unbounded cell states (at least 1)
-and on every gradient."""
+and on every gradient. B7a/B7b: y within 2e-5 of its largest magnitude
+in float32 or one bf16 step; the statistics, from the float32
+accumulator in both dtypes, within 1e-5 of Σ|y| and of Σy²."""
 
 import pytest
 import torch
 
 from deeplearning4j_tpu_torch.ops import attention as fa
 from deeplearning4j_tpu_torch.ops import banded_attention as ba
+from deeplearning4j_tpu_torch.ops import conv_fused as cfk
 from deeplearning4j_tpu_torch.ops import fused_update as fu
 from deeplearning4j_tpu_torch.ops import lstm as lk
 from deeplearning4j_tpu_torch.nn.layers.attention import quantize_kv
@@ -562,3 +566,116 @@ def test_cuda_b4_refuses_head_dims_past_its_tile(cuda_device):
     q = torch.zeros(1, 8, 2, 160, device=cuda_device)
     with pytest.raises(ValueError, match="Dh <= 128"):
         ba.banded_attention_fwd(q, q, q, 4)
+
+
+# ------------------------------------------ conv + BN statistics (B7a, B7b)
+# (M, K, N): ResNet-50 1x1 shapes at small M, and ragged M, K and N
+B7A_SHAPES = [(3136, 64, 256), (784, 1024, 256), (98, 2048, 512),
+              (1000, 37, 130), (129, 19, 65), (1, 1, 1)]
+# (B, H, W, C_in, C_out): a 7x7 map at batch 3, ragged channels
+B7B_SHAPES = [(3, 7, 7, 64, 64), (2, 14, 14, 32, 48), (2, 5, 6, 3, 4),
+              (1, 1, 1, 5, 7)]
+
+
+def _stats_close(got, ref, y_ref, dtype):
+    """y within 2e-5 of its largest magnitude in float32 (sums of K
+    products in another order) or one bf16 step; Σy and Σy² within 1e-5
+    of Σ|y| and Σy² (sums of M values in another order)."""
+    y, s, q = got
+    yr, sr, qr = ref
+    yf, yrf = y.float(), yr.float()
+    if dtype == torch.float32:
+        ok_y = (yf - yrf).abs().max().item() <= \
+            2e-5 * max(1.0, yrf.abs().max().item())
+    else:
+        ok_y = bool(((yf - yrf).abs() <= 1e-5 + 2.0 ** -7 * yrf.abs()).all())
+    scale = y_ref.abs().reshape(-1, y_ref.shape[-1]).sum(0) + 1e-6
+    ok_s = bool(((s - sr).abs() <= 1e-5 * scale).all())
+    ok_q = bool(((q - qr).abs() <= 1e-5 * qr.abs() + 1e-6).all())
+    return ok_y and ok_s and ok_q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", B7A_SHAPES)
+def test_cuda_b7a_matches_plain(cuda_device, m, k, n, dtype):
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g).to(cuda_device, dtype)
+    w = (torch.randn(k, n, generator=g) / k ** 0.5).to(cuda_device, dtype)
+    before = cfk.LAUNCHES["conv1x1_bn_stats"]
+    got = cfk.matmul_with_channel_stats(x, w)
+    ref = cfk.matmul_with_channel_stats_plain(x, w)
+    torch.cuda.synchronize()
+    assert cfk.LAUNCHES["conv1x1_bn_stats"] == before + 1
+    assert got[1].dtype == torch.float32 and got[0].dtype == dtype
+    assert _stats_close(got, ref, x.float() @ w.float(), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,w,cin,cout", B7B_SHAPES)
+def test_cuda_b7b_matches_plain(cuda_device, b, h, w, cin, cout, dtype):
+    g = torch.Generator().manual_seed(b + h + w + cin + cout)
+    x = torch.randn(b, h, w, cin, generator=g).to(cuda_device, dtype)
+    wt = (torch.randn(3, 3, cin, cout, generator=g)
+          / (9 * cin) ** 0.5).to(cuda_device, dtype)
+    before = cfk.LAUNCHES["conv3x3_bn_stats"]
+    got = cfk.conv3x3_with_channel_stats(x, wt)
+    ref = cfk.conv3x3_with_channel_stats_plain(x, wt)
+    torch.cuda.synchronize()
+    assert cfk.LAUNCHES["conv3x3_bn_stats"] == before + 1
+    assert _stats_close(got, ref, ref[0].float(), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_b7_statistics_are_deterministic(cuda_device):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(40000, 64, generator=g).to(cuda_device)
+    w = torch.randn(64, 96, generator=g).to(cuda_device)
+    a = cfk.matmul_with_channel_stats(x, w)
+    b = cfk.matmul_with_channel_stats(x, w)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_cuda_b7_refuses_other_dtypes(cuda_device, dtype):
+    x = torch.zeros(4, 8, dtype=dtype, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cfk.matmul_with_channel_stats(x, torch.zeros(8, 4, dtype=dtype,
+                                                     device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,stride", [("1x1", 1), ("1x1", 2),
+                                         ("3x3", 1)])
+def test_cuda_fused_conv_bn_train_matches_cpu(cuda_device, kind, stride):
+    """The training Functions on the card (B7a/B7b forward, the BN
+    backward and the transposes / cuDNN convolution backward) against the
+    same on the CPU (plain versions), float32 with TF32 off: outputs
+    within 1e-4, gradients within 1e-4 of each gradient's largest."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(stride)
+    k3 = kind == "3x3"
+    x = torch.randn(4, 9, 9, 32, generator=g)
+    w = torch.randn(*((3, 3, 32, 48) if k3 else (32, 48)), generator=g) \
+        / (32 * (9 if k3 else 1)) ** 0.5
+    gamma = 1.0 + 0.2 * torch.randn(48, generator=g)
+    beta = 0.1 * torch.randn(48, generator=g)
+    r = torch.randn(4, -(-9 // stride), -(-9 // stride), 48, generator=g)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [t.to(dev).requires_grad_() for t in (x, w, gamma, beta)]
+        if k3:
+            out, m, v = cfk.conv3x3_bn_act(*leaves, train=True)
+        else:
+            out, m, v = cfk.conv1x1_bn_act(*leaves, stride=(stride, stride),
+                                           train=True)
+        grads = torch.autograd.grad((out * r.to(dev)).sum(), leaves)
+        res[str(dev)] = [t.cpu() for t in (out, m, v, *grads)]
+    torch.backends.cudnn.allow_tf32 = tf32
+    for a, b in zip(res["cpu"], res[str(cuda_device)]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, a.abs().max())

@@ -75,7 +75,8 @@ def test_every_counted_kernel_has_a_source_and_a_tpu_body():
     import importlib.util
 
     from deeplearning4j_tpu_torch.ops import (
-        attention, banded_attention, cuda_build, fused_update, lstm,
+        attention, banded_attention, conv_fused, cuda_build, fused_update,
+        lstm,
     )
 
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -84,7 +85,8 @@ def test_every_counted_kernel_has_a_source_and_a_tpu_body():
     spec.loader.exec_module(smoke)
     counted = set().union(*(m.LAUNCHES for m in (attention,
                                                  banded_attention,
-                                                 fused_update, lstm)))
+                                                 conv_fused, fused_update,
+                                                 lstm)))
     assert counted == set(smoke.SOURCES) == set(smoke.REPLACES)
     for src in smoke.SOURCES.values():
         assert (ROOT / src).is_file(), src

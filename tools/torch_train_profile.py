@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's training step goes, on one card.
 
-    python3 tools/torch_train_profile.py [--path t|w|l|g]
+    python3 tools/torch_train_profile.py [--path t|w|l|g|r]
 
 Builds one of `chip_smoke.py`'s paths, warms it untraced, then runs it
 under `torch.profiler` and reads the kernels off its Chrome trace, with
@@ -20,15 +20,21 @@ the same method as `tools/torch_decode_profile.py`:
   six traced train steps (two batches, one of them masked, three
   epochs), so that what `fit` does once weighs little;
 - `--path g`, `path_g`'s stepping loop: `TextGenerationLSTM` at its own
-  width, 50 traced greedy `rnn_time_step` calls for 32 streams.
+  width, 50 traced greedy `rnn_time_step` calls for 32 streams;
+- `--path r`, `path_r`: the fused ResNet-50 ComputationGraph at 224x224,
+  1000 classes, bfloat16, batch 128, Nesterovs(0.01, 0.9); two traced
+  train steps (B7a 36 and B7b 16 launches a step, B1b once).
 
 Prints one JSON line: the traced window's wall time, the time the card
 was busy (the union of kernel intervals), the idle share, kernels
 launched a step (or a call), and device time by kernel class (the flash
 kernels B3a and B3b + B3c, the banded kernel B4 and the banded backward's
 dense recompute, the LSTM kernels B2a, B2b and B2c with its
-weight-gradient launch, the fused updates B1a and B1b, matrix products,
-everything else) and for the ten costliest kernels. Needs a CUDA card.
+weight-gradient launch, the fused updates B1a and B1b, the conv+BN
+statistics kernels B7a and B7b and their reduction, cuDNN convolutions,
+matrix products, elementwise passes (the batch-norm epilogues among
+them), reductions, everything else) and for the ten costliest kernels.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -87,10 +93,23 @@ def kernel_class(name):
         return "lstm_bwd recurrence (B2c)"
     if "lstm_drw_kernel" in name or "lstm_dp_reduce" in name:
         return "lstm_bwd weights (B2c)"
+    if "stats_gemm_kernel" in name:
+        # the template's second argument: true is the 3x3 conv (B7b)
+        return ("conv3x3_bn_stats (B7b)" if "true>" in name
+                else "conv1x1_bn_stats (B7a)")
+    if "stats_reduce_kernel" in name:
+        return "B7 statistics reduction"
     low = name.lower()
+    if any(t in low for t in ("conv", "cudnn", "dgrad", "wgrad", "fprop",
+                              "nchwtonhwc", "nhwctonchw")):
+        return "convolution (cuDNN)"
     if any(t in low for t in ("gemm", "gemv", "cutlass", "sm90_xmma",
                               "ampere_sgemm", "cublas")):
         return "matmul"
+    if "elementwise" in low:
+        return "elementwise"
+    if "reduce" in low:
+        return "reduction"
     return "other"
 
 
@@ -98,6 +117,13 @@ def traced_window(path):
     """(run, units, unit name, work a unit): `run()` drives the traced
     window; the warm-up has been done when this returns."""
     rng = np.random.default_rng(0)
+    if path == "r":
+        from deeplearning4j_tpu_torch.models import ComputationGraph
+
+        net = ComputationGraph(cs.resnet_conf(), device="cuda").init()
+        batches = cs.image_batches(rng, 3, 128, 224, 1000)
+        net.fit(batches[:1], epochs=1)              # warm, untraced
+        return (lambda: net.fit(batches[1:], epochs=1)), 2, "step", 128
     if path in ("t", "w"):
         kw = dict(window=256, **cs.LLAMA) if path == "w" else {}
         net = cs.build_net("cuda", num_blocks=6, seed=5, **kw)
@@ -129,7 +155,8 @@ def traced_window(path):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("t", "w", "l", "g"), default="t")
+    ap.add_argument("--path", choices=("t", "w", "l", "g", "r"),
+                    default="t")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: needs a CUDA card", file=sys.stderr)
@@ -166,7 +193,7 @@ def main() -> int:
         "phase": f"profile_path_{args.path}",
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": cs.gpu_name_and_limit(), f"{unit}s": units,
-        f"tokens_per_{unit}": tokens,
+        f"{'images' if args.path == 'r' else 'tokens'}_per_{unit}": tokens,
         f"wall_ms_per_{unit}": wall_us / 1e3 / units,
         f"device_busy_ms_per_{unit}": busy / 1e3 / units,
         "idle_share": 1.0 - busy / wall_us,
