@@ -40,6 +40,10 @@ exits non-zero with no result line:
      SAME) at every distinct shape of `path_r` (ResNet-50 at batch 128:
      15 and 4 shapes) and at ragged ones, float32 and bfloat16, against
      `torch.matmul` / `F.conv2d` computing y alone (a time yardstick);
+     each row names the design that ran (bfloat16 on the tensor cores,
+     "wgmma", or float32 FMA, "ffma"), its TFLOP/s and its share of the
+     bound; then design 2 twice on a shape of each kernel, y and the
+     statistics bit-equal;
 3. path_a: decode serving of `TextGenerationTransformer` at the width
    of the repo's largest transformer (d_model 512, 8 heads, 6 blocks,
    T 2048) through `DecodeSessionManager`, prefix cache on, so the
@@ -77,13 +81,13 @@ exits non-zero with no result line:
     batch 128; Nesterovs at 0.01 where the bench has 0.1, so that the
     loss falls) as a fused ComputationGraph through
     `net.fit`: 4 fixed batches, 3 epochs, 12 steps; B7a 36 and B7b 16
-    times a step, B1b once; steps 2-12 under
+    times a step, every launch on design 2, B1b once; steps 2-12 under
     `torch.cuda.set_sync_debug_mode("error")`; then `output()`, which
     launches no B7; then the same 12 steps unfused (cuDNN convolutions,
     plain batch norms), as information;
-12. resnet_parity: the fused ResNet-50 at 64x64, batch 16, float32: two
-    Nesterovs steps on the card against the CPU, then `output()` of both
-    on the card's trained weights.
+12. resnet_parity: the fused ResNet-50 at 64x64, batch 16, float32 (B7
+    on design 1): two Nesterovs steps on the card against the CPU, then
+    `output()` of both on the card's trained weights.
 
 Weights are random, from fixed seeds. Each path resets the kernels'
 launch counts just before it runs and reads them just after; a kernel
@@ -949,6 +953,15 @@ def b7_cases():
     return cases
 
 
+def b7_flops(kernel, shape):
+    """2·M·K·N of one B7 call (K = 9·C for the 3x3)."""
+    if kernel == "conv1x1_bn_stats":
+        m, k, n = shape
+        return 2.0 * m * k * n
+    b, h, w, c, n = shape
+    return 2.0 * b * h * w * 9 * c * n
+
+
 def b7_bound(kernel, shape, dtype):
     """(bound_ms, bound_by): 2·M·K·N flops over the dtype's peak against
     x, w read once, y written once and the 2·N float32 sums over HBM."""
@@ -959,7 +972,7 @@ def b7_bound(kernel, shape, dtype):
     else:
         b, h, w, c, n = shape
         m, k, x_elems = b * h * w, 9 * c, b * h * w * c
-    ops_ms = 2.0 * m * k * n / PEAK_FLOPS[dtype] * 1e3
+    ops_ms = b7_flops(kernel, shape) / PEAK_FLOPS[dtype] * 1e3
     bytes_ms = ((x_elems + k * n + m * n) * es + 8 * n) \
         / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms \
@@ -975,7 +988,9 @@ def run_b7_case(c, dtype, flush, gen):
     Timed with a cold L2: the kernel, the plain version, and the library
     yardstick — `torch.matmul` (B7a) or `F.conv2d` (B7b) computing y
     alone, without the statistics, in the same dtype (bf16 on the tensor
-    cores; float32 with TF32 off)."""
+    cores; float32 with TF32 off). The row names the design that ran
+    (`ops.conv_fused.b7_design`: "wgmma" for aligned bfloat16, "ffma"
+    otherwise), its TFLOP/s and its share of the bound."""
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.ops import conv_fused as cf
@@ -999,10 +1014,14 @@ def run_b7_case(c, dtype, flush, gen):
         xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
         lib = lambda: F.conv2d(xc, wc, padding=1)  # noqa: E731
     before = cf.LAUNCHES[kernel]
+    by_design = dict(cf.LAUNCHES_BY_DESIGN)
     y, s, q = run()
     yr, sr, qr = plain()
     torch.cuda.synchronize()
     check(cf.LAUNCHES[kernel] == before + 1, f"{kernel} did not launch")
+    ran = [d for d in cf.DESIGNS if cf.LAUNCHES_BY_DESIGN[(kernel, d)]
+           == by_design[(kernel, d)] + 1]
+    check(len(ran) == 1, f"{kernel}: launches by design {ran}")
     yf, yrf = y.float(), yr.float()
     err_y = (yf - yrf).abs().max().item()
     tag = f"{kernel} {shape} {dtype}"
@@ -1031,25 +1050,75 @@ def run_b7_case(c, dtype, flush, gen):
            "library": "torch.matmul (y only)" if kernel == "conv1x1_bn_stats"
            else "F.conv2d (y only)",
            "main_path_shape": c["per_step"] > 0
-           and dtype == torch.bfloat16}
+           and dtype == torch.bfloat16, "design": ran[0]}
     row["bound_ms"], row["bound_by"] = b7_bound(kernel, shape, dtype)
+    row["tflops"] = b7_flops(kernel, shape) / row["ms"] / 1e9
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    if ran[0] == "wgmma":
+        # design 1 on the same inputs, timed only: the redesign's gain
+        row["ffma_ms"] = time_ms(
+            lambda: cf._launch(kernel, x, w, shape, "ffma"), flush)
     emit(row)
     return row
+
+
+def run_b7_repeat(gen):
+    """Design 2 launched twice on two `path_r` shapes, one of each
+    kernel: y and the statistics must be bit-equal (fixed-order sums, no
+    atomics)."""
+    from deeplearning4j_tpu_torch.ops import conv_fused as cf
+
+    rows = []
+    for kernel, shape in (("conv1x1_bn_stats", (401408, 64, 256)),
+                          ("conv3x3_bn_stats", (128, 14, 14, 256, 256))):
+        *lead, cin, n = shape
+        x = torch.randn(*lead, cin, generator=gen).to("cuda", torch.bfloat16)
+        if kernel == "conv1x1_bn_stats":
+            w = torch.randn(cin, n, generator=gen).to("cuda", torch.bfloat16)
+            run = cf.matmul_with_channel_stats
+        else:
+            w = torch.randn(3, 3, cin, n, generator=gen).to("cuda",
+                                                            torch.bfloat16)
+            run = cf.conv3x3_with_channel_stats
+        before = cf.LAUNCHES_BY_DESIGN[(kernel, "wgmma")]
+        a, b = run(x, w), run(x, w)
+        torch.cuda.synchronize()
+        check(cf.LAUNCHES_BY_DESIGN[(kernel, "wgmma")] == before + 2,
+              f"{kernel} {shape}: design 2 did not take both launches")
+        equal = [torch.equal(u, v) for u, v in zip(a, b)]
+        check(all(equal), f"{kernel} {shape}: two launches differ "
+              f"(y, sums, sums of squares equal: {equal})")
+        rows.append({"phase": "b7_repeat", "kernel": kernel,
+                     "shape": list(shape), "design": "wgmma",
+                     "bit_equal": equal})
+        emit(rows[-1])
+        del x, w, a, b
+    return rows
 
 
 def b7_step_totals(rows, kernel):
     """A summary row of one B7 kernel: its times a `path_r` step (bf16),
     each shape's per-launch time times its launches a step, summed; the
-    bound by the larger summed side."""
+    bound by the larger summed side; design 1's bf16 time on the same
+    inputs (`ffma_ms`) and the same kernel's float32 time."""
     mine = [r for r in rows if r["kernel"] == kernel]
     main = [r for r in mine if r["main_path_shape"]]
-    tot = {key: sum(r[key] * r["launches_per_path_r_step"] for r in main)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    tot = {key: sum(r.get(key, r["ms"]) * r["launches_per_path_r_step"]
+                    for r in main)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                       "ffma_ms")}
+    tot["ms_float32"] = sum(r["ms"] * r["launches_per_path_r_step"]
+                            for r in mine if r["dtype"] == "float32")
     by_ops = sum(r["bound_ms"] * r["launches_per_path_r_step"]
                  for r in main if r["bound_by"] == "operations")
+    flops = sum(b7_flops(kernel, tuple(r["shape"]))
+                * r["launches_per_path_r_step"] for r in main)
     return {**tot, "max_abs_err": max(r["max_abs_err"] for r in mine),
             "bound_by": "operations" if by_ops >= tot["bound_ms"] / 2
-            else "bytes",
+            else "bytes", "design": sorted({r["design"] for r in main}),
+            "tflops": flops / tot["ms"] / 1e9,
+            "bound_share": tot["bound_ms"] / tot["ms"],
+            "speedup_over_ffma": tot["ffma_ms"] / tot["ms"],
             "per": f"path_r step: {sum(r['launches_per_path_r_step'] for r in main)} "
                    f"launches over {len(main)} shapes, bfloat16"}
 
@@ -1825,6 +1894,13 @@ def image_batches(rng, n, batch, size, classes):
 B7_KERNELS = ("conv1x1_bn_stats", "conv3x3_bn_stats")
 
 
+def b7_launches_by_design():
+    """{"kernel/design": launches} of B7 since the counts were reset."""
+    from deeplearning4j_tpu_torch.ops import conv_fused as cf
+
+    return {f"{k}/{d}": n for (k, d), n in cf.LAUNCHES_BY_DESIGN.items()}
+
+
 def path_r(batches, epochs=3, fused=True):
     """`bench.py`'s ResNet-50 at full width (224x224, 1000 classes,
     bfloat16, batch 128; Nesterovs(0.01, 0.9): `resnet_conf`), 4 fixed
@@ -1849,9 +1925,15 @@ def path_r(batches, epochs=3, fused=True):
     check(launches["nesterov_update"] == steps,
           f"{name}: nesterov_update launched {launches['nesterov_update']} "
           f"times, want one a step x {steps}")
+    by_design = b7_launches_by_design()
+    for k, n in per_step.items():
+        check(by_design[f"{k}/wgmma"] == n * steps
+              and by_design[f"{k}/ffma"] == 0,
+              f"{name}: bfloat16 {k} not all on design 2: {by_design}")
     row = {"phase": name, "model": "ResNet50", "fused": fused,
            "input": [224, 224, 3], "classes": 1000, "batch": batch,
-           "dtype": "bfloat16", "updater": str(net.conf.updater), **fit}
+           "dtype": "bfloat16", "updater": str(net.conf.updater), **fit,
+           "launches_by_design": by_design}
     if fused:
         t0 = time.perf_counter()
         probs = net.output(batches[0].features)
@@ -1917,6 +1999,10 @@ def resnet_parity(rng, tol_first=1e-4, tol_loss=2e-2, tol_param=5e-3,
             check(launches["conv1x1_bn_stats"] == 72
                   and launches["conv3x3_bn_stats"] == 32,
                   f"resnet_parity: B7 launches {launches}")
+            by_design = b7_launches_by_design()
+            check(by_design["conv1x1_bn_stats/ffma"] == 72
+                  and by_design["conv3x3_bn_stats/ffma"] == 32,
+                  f"resnet_parity: float32 B7 not on design 1: {by_design}")
             check(sum(plain.values()) == 0,
                   f"resnet_parity: plain versions on CUDA: {plain}")
         nets[d], losses[d] = net, [sc for _, sc in scores.scores]
@@ -1944,7 +2030,7 @@ def resnet_parity(rng, tol_first=1e-4, tol_loss=2e-2, tol_param=5e-3,
            "tol_loss_rel": tol_loss, "max_param_abs_err": dp,
            "tol_param_abs": tol_param,
            "max_output_abs_err_shared_weights": do,
-           "tol_output_abs": tol_out}
+           "tol_output_abs": tol_out, "launches_by_design": by_design}
     emit(row)
     return row
 
@@ -1981,6 +2067,7 @@ def main() -> int:
         for dt in (torch.float32, torch.bfloat16):
             rows.append(run_b7_case(c, dt, flush, gen))
             torch.cuda.empty_cache()
+    run_b7_repeat(gen)
     del flush
     torch.cuda.empty_cache()
 

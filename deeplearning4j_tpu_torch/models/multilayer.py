@@ -235,7 +235,9 @@ class MultiLayerNetwork:
         gen = torch.Generator().manual_seed(int(self.conf.seed))
         params, states = {}, {}
         it = self.conf.input_type
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
+            if it is not None and i in self.conf.preprocessors:
+                it = self.conf.preprocessors[i].output_type(it)
             p, st = layer.init_params(gen, it, self.dtype)
             params[layer.name] = tree_map(lambda v: v.to(self.device), p)
             states[layer.name] = st
@@ -271,11 +273,14 @@ class MultiLayerNetwork:
     # ---------------------------------------------------------- forward
     def _forward(self, params, x, *, train: bool = False, rng=None,
                  fmask=None, carries=None, stop: Optional[int] = None):
-        """Run layers[:stop] (all by default); returns (output, new
-        states by layer name). Dropout draws from the generator `rng`
-        when `train`."""
+        """Run layers[:stop] (all by default), each after its input
+        preprocessor; returns (output, new states by layer name). Dropout
+        draws from the generator `rng` when `train`."""
         new_states = {}
-        for layer in self.layers[:stop]:
+        pps = self.conf.preprocessors
+        for i, layer in enumerate(self.layers[:stop]):
+            if i in pps:
+                x = pps[i].apply(x, fmask)
             st = carries.get(layer.name) if carries else None
             x, new_st = layer.apply(params[layer.name], x, state=st,
                                     train=train, rng=rng, mask=fmask)
@@ -292,9 +297,12 @@ class MultiLayerNetwork:
         if not out_layer.is_output_layer:
             raise ValueError(f"the last layer ({out_layer.name}) is not an "
                              f"output layer; nothing to score")
+        last = len(self.layers) - 1
         out_in, new_states = self._forward(
             params, features, train=train, rng=rng, fmask=fmask,
-            carries=carries, stop=len(self.layers) - 1)
+            carries=carries, stop=last)
+        if last in self.conf.preprocessors:
+            out_in = self.conf.preprocessors[last].apply(out_in, fmask)
         score_mask = lmask if lmask is not None else (
             fmask if labels is not None and labels.ndim == 3 else None)
         score = out_layer.score(params[out_layer.name], out_in, labels,

@@ -9,9 +9,12 @@ schedule load as the port's own classes (`optim/updaters.py`,
 `optim/schedules.py`, same serde names and fields), so JSON round-trips
 in both directions.
 
-Preprocessor auto-insertion is not ported: the transformer and recurrent
-stacks ported so far need none, and a config that carries preprocessors is
-refused rather than run without them.
+At each change of layer family (a convolution after a flat input, a
+dense layer after a convolution, ...) the list builder inserts the input
+preprocessor JAX inserts (`nn/preprocessors.auto_preprocessor`), unless
+`input_preprocessor(idx, pp)` gave one for that layer, and wires n_in
+through its output type; the preprocessors travel in the configuration
+(and its JSON, keyed by layer index) to `MultiLayerNetwork`.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ from deeplearning4j_tpu_torch.nn.activations import Activation
 from deeplearning4j_tpu_torch.nn.initializers import WeightInit
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.preprocessors import (
+    Preprocessor, auto_preprocessor,
+)
 from deeplearning4j_tpu_torch.optim import schedules as _schedules  # noqa: F401  (serde registration)
 from deeplearning4j_tpu_torch.optim.updaters import Sgd, resolve_updater
 from deeplearning4j_tpu_torch.utils.serde import (
@@ -59,17 +65,20 @@ class MultiLayerConfiguration:
     @staticmethod
     def from_json(s: str) -> "MultiLayerConfiguration":
         conf = from_json(s)
-        if conf.preprocessors:
-            raise NotImplementedError(
-                "input preprocessors are not ported yet; this config "
-                f"carries {sorted(conf.preprocessors)}")
         for layer in conf.layers:
             if not isinstance(layer, Layer):
                 raise NotImplementedError(
                     f"layer {layer.get('name', layer.get('@class'))!r} "
                     f"({layer.get('@class')}) is not ported yet")
+        # JSON keys are strings: restore the int layer indices
+        pp = {int(k): v for k, v in conf.preprocessors.items()}
+        for idx, v in pp.items():
+            if not isinstance(v, Preprocessor):
+                raise NotImplementedError(
+                    f"input preprocessor {v.get('@class')!r} of layer {idx} "
+                    f"is not ported yet")
         return dataclasses.replace(conf, layers=tuple(conf.layers),
-                                   preprocessors={})
+                                   preprocessors=pp)
 
 
 class NeuralNetConfiguration:
@@ -174,6 +183,7 @@ class ListBuilder:
         self._base = base
         self._layers = layers
         self._input_type: Optional[InputType] = None
+        self._preprocessors: Dict[int, Preprocessor] = {}
         self._tbptt_fwd = 0
         self._tbptt_back = 0
 
@@ -183,6 +193,13 @@ class ListBuilder:
 
     def set_input_type(self, it: InputType) -> "ListBuilder":
         self._input_type = it
+        return self
+
+    def input_preprocessor(self, idx: int,
+                           pp: Preprocessor) -> "ListBuilder":
+        """Apply `pp` to the input of layer `idx` (it replaces the one the
+        builder would insert there)."""
+        self._preprocessors[idx] = pp
         return self
 
     def tbptt(self, fwd_length: int,
@@ -196,6 +213,7 @@ class ListBuilder:
     def build(self) -> MultiLayerConfiguration:
         defaults = self._base._defaults()
         layers: List[Layer] = []
+        preprocessors = dict(self._preprocessors)
         cur = self._input_type
         for i, layer in enumerate(self._layers):
             layer = layer.with_defaults(**defaults)
@@ -204,13 +222,19 @@ class ListBuilder:
                     layer, name=f"layer{i}_{type(layer).__name__.lower()}")
             _validate_layer(layer, i)
             if cur is not None:
+                if i not in preprocessors:
+                    pp = auto_preprocessor(cur, _expected_kind(layer, cur))
+                    if pp is not None:
+                        preprocessors[i] = pp
+                if i in preprocessors:
+                    cur = preprocessors[i].output_type(cur)
                 layer = layer.infer_n_in(cur)
                 cur = layer.output_type(cur)
             layers.append(layer)
         return MultiLayerConfiguration(
             layers=tuple(layers), input_type=self._input_type,
-            seed=self._base._seed, updater=defaults["updater"],
-            dtype=self._base._dtype,
+            preprocessors=preprocessors, seed=self._base._seed,
+            updater=defaults["updater"], dtype=self._base._dtype,
             gradient_normalization=self._base._grad_norm,
             gradient_normalization_threshold=self._base._grad_norm_threshold,
             tbptt_fwd_length=self._tbptt_fwd,
@@ -229,3 +253,32 @@ def _validate_layer(layer: Layer, idx: int) -> None:
             LossFunction.get(layer.loss)
     except ValueError as e:
         raise ValueError(f"layer {idx} ({layer.name}): {e}") from None
+
+
+def _expected_kind(layer: Layer, cur: InputType) -> str:
+    """The input family a layer consumes ("cnn", "rnn", "ff", or the
+    arriving one for shape-preserving layers), as the JAX builder's
+    `_expected_kind` decides it for the layers the port has: a declared
+    `CONSUMES` first, then the layer's type."""
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BaseRecurrentLayer, BatchNormalization, Bidirectional,
+        ConvolutionLayer, GlobalPoolingLayer, GravesBidirectionalLSTM,
+        LastTimeStep, MultiHeadAttention, RnnOutputLayer, SubsamplingLayer,
+        ZeroPaddingLayer,
+    )
+
+    declared = getattr(layer, "CONSUMES", None)
+    if declared == "any":
+        return cur.kind
+    if declared is not None:
+        return declared
+    if isinstance(layer, (ConvolutionLayer, SubsamplingLayer,
+                          ZeroPaddingLayer)):
+        return "cnn"
+    if isinstance(layer, (BaseRecurrentLayer, Bidirectional,
+                          GravesBidirectionalLSTM, RnnOutputLayer,
+                          LastTimeStep, MultiHeadAttention)):
+        return "rnn"
+    if isinstance(layer, (BatchNormalization, GlobalPoolingLayer)):
+        return cur.kind
+    return "ff"

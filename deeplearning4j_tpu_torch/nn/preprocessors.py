@@ -1,14 +1,16 @@
 """Input preprocessors — shape adapters between layer families (port of
 `deeplearning4j_tpu/nn/preprocessors.py`, same serde names and fields).
 
-A `LayerVertex` of a computation graph may carry one (`nn/graph.py`);
-each is a pure reshape or slice of the NHWC / [batch, time, features]
-activations the JAX package uses. Auto-insertion in the sequential
-builder is not ported (`nn/config.py` refuses such configs)."""
+A `LayerVertex` of a computation graph may carry one (`nn/graph.py`),
+and the sequential builder inserts one at each change of layer family
+(`auto_preprocessor`, called from `nn/config.py`) or keeps one given by
+`input_preprocessor`; each is a pure reshape or slice of the NHWC /
+[batch, time, features] activations the JAX package uses."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.utils.serde import register_serde
@@ -104,3 +106,30 @@ class CnnToRnn(Preprocessor):
     def apply(self, x, mask=None):
         return x.reshape(x.shape[0], 1, -1)
 
+
+
+def auto_preprocessor(from_type: InputType,
+                      to_kind: str) -> Optional[Preprocessor]:
+    """The adapter for an InputType transition into a layer that consumes
+    `to_kind` ("ff", "cnn" or "rnn"), or None, as the JAX builder picks
+    it (the reference's `getPreProcessorForInputType`)."""
+    f = from_type.kind
+    if f == to_kind or (f == "cnn_flat" and to_kind == "ff"):
+        return None
+    if f == "cnn" and to_kind == "ff":
+        return CnnToFeedForward(from_type.height, from_type.width,
+                                from_type.channels)
+    if f in ("ff", "cnn_flat") and to_kind == "cnn":
+        if f == "cnn_flat":
+            return FeedForwardToCnn(from_type.height, from_type.width,
+                                    from_type.channels)
+        raise ValueError(
+            "Cannot infer CNN shape from a plain feed-forward input; use "
+            "InputType.convolutional_flat(h, w, c)")
+    if f == "ff" and to_kind == "rnn":
+        return FeedForwardToRnn()
+    if f == "rnn" and to_kind == "ff":
+        return RnnToFeedForward()
+    if f == "cnn" and to_kind == "rnn":
+        return CnnToRnn()
+    return None

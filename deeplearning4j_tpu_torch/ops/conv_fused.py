@@ -15,11 +15,22 @@ epilogue then reads y once.
 - B7b, `conv3x3_with_channel_stats(x, w)`: the 3×3 stride-1 SAME
   convolution over NHWC input with an HWIO kernel, as an implicit GEMM.
 
-Both are hand-written CUDA C++ for Hopper (`csrc/conv_fused.cu`): a
-tiled FFMA GEMM whose epilogue writes y rounded once to the working
-dtype and per-tile column partials of Σy and Σy², then a second launch
-that sums the partials in a fixed order (deterministic, no atomics).
-They take float32 and bfloat16 and accumulate in float32; on a CUDA
+Both are hand-written CUDA C++ for Hopper (`csrc/conv_fused.cu`), in
+two designs chosen by `b7_design` from the dtype and the shape before the
+launch (neither is a fallback of the other):
+- "wgmma" (design 2): bfloat16 whose rows are 16-byte aligned (K or C,
+  and N, multiples of 8; 16-byte aligned data) — every `path_r` shape.
+  A producer warp keeps TMA loads of 64-deep K slices in flight into a
+  shared-memory ring; two warpgroups multiply them on the tensor cores
+  (`wgmma`, float32 accumulators) into a 128 x BN tile of y, BN from
+  `wgmma_tile`; the 3x3 reads each tap's rows of x shifted by the tap's
+  offset and zeroes the rows whose tap pixel is off the map;
+- "ffma" (design 1): exact float32 FMA tiles, every other shape and
+  every float32 call.
+In both, the epilogue writes y rounded once to the working dtype and
+per-tile column partials of Σy and Σy² from the unrounded float32
+accumulator, then a second launch sums the partials in a fixed order
+(deterministic, no atomics). They take float32 and bfloat16; on a CUDA
 tensor any other dtype raises. Each returns (y in x's dtype, sums,
 sumsqs in the accumulation dtype: float32, or float64 for float64 CPU
 tensors, as JAX's `_acc_dtype`).
@@ -29,8 +40,8 @@ accumulation dtype then the sums over rows; B7b nine shifted products
 over a zero-padded input, as the Pallas body does. A wrapper takes its
 plain version only for CPU tensors; on a CUDA tensor it launches its
 kernel or raises. `LAUNCHES[name]` counts launches (one a call: the
-GEMM and its reduction), `PLAIN_ON_CUDA[name]` plain calls handed CUDA
-tensors.
+GEMM and its reduction), `LAUNCHES_BY_DESIGN[(name, design)]` the same
+by design, `PLAIN_ON_CUDA[name]` plain calls handed CUDA tensors.
 
 Around the kernels, as in JAX: `_bn_train_epilogue` (normalize from the
 sums, biased and clamped E[y²] − E[y]²), `_bn_eval_fold` (running
@@ -45,12 +56,15 @@ op's own transpose (two matrix products for the 1×1, one
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 LAUNCHES: Dict[str, int] = {"conv1x1_bn_stats": 0, "conv3x3_bn_stats": 0}
+DESIGNS = ("ffma", "wgmma")
+LAUNCHES_BY_DESIGN: Dict[Tuple[str, str], int] = {
+    (k, d): 0 for k in LAUNCHES for d in DESIGNS}
 PLAIN_ON_CUDA: Dict[str, int] = {"conv1x1_bn_stats": 0,
                                  "conv3x3_bn_stats": 0}
 
@@ -58,7 +72,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
+    for d in (LAUNCHES, LAUNCHES_BY_DESIGN, PLAIN_ON_CUDA):
         for k in d:
             d[k] = 0
 
@@ -122,23 +136,63 @@ def _check_cuda(**tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(fn_name, kernel, x, w, m, n, *dims):
-    """Allocate y and the statistics, launch `fn_name` (GEMM + fixed-order
-    reduction of the per-tile partials) and count it under `kernel`."""
+def b7_design(dtype, shape: Sequence[int], ptrs: Sequence[int]) -> str:
+    """The design that takes a B7 call: "wgmma" for bfloat16 whose rows
+    are 16-byte aligned — K (B7a) or C (B7b) and N multiples of 8 and
+    the data pointers in `ptrs` (x, w) multiples of 16, as the tensor
+    maps need — else "ffma" (float32, and the unaligned bfloat16
+    shapes). `shape` is (M, K, N) for B7a and (B, H, W, C, N) for B7b.
+    y is fresh from the allocator, so aligned."""
+    k, n = shape[-2], shape[-1]
+    if dtype != torch.bfloat16 or k % 8 or n % 8 or \
+            any(p % 16 for p in ptrs):
+        return "ffma"
+    return "wgmma"
+
+
+def wgmma_tile(shape: Sequence[int]) -> Tuple[int, int]:
+    """(bn, stages) of design 2 for a B7a (M, K, N) or B7b (B, H, W, C,
+    N) shape: the columns of a y tile, N rounded up to 64, 128 or 256 (so
+    x is read once where N <= 256), and the depth of the shared-memory
+    ring, as many stages as fit beside the staged y tile (3 at 256
+    columns, else 4). The block is persistent and its ring runs on from
+    one tile to the next, so the depth does not depend on K."""
+    n = shape[-1]
+    bn = 64 if n <= 64 else 128 if n <= 128 else 256
+    return bn, 3 if bn == 256 else 4
+
+
+_C_NAMES = {"conv1x1_bn_stats": "dl4j_matmul_stats",
+            "conv3x3_bn_stats": "dl4j_conv3x3_stats"}
+
+
+def _launch(kernel, x, w, shape, design):
+    """Allocate y [M, N] and the statistics, launch `kernel` (GEMM +
+    fixed-order reduction of the per-tile partials) in `design` and
+    count it. The wrappers pass `b7_design`'s choice; `chip_smoke.py`
+    also times design 1 on bfloat16 shapes to compare the two."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("conv_fused")
     dev = x.device
+    n = shape[-1]
+    m = shape[0] if kernel == "conv1x1_bn_stats" else \
+        shape[0] * shape[1] * shape[2]
     tiles = -(-m // lib.dl4j_conv_stats_tile_m())
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     part = torch.empty((2, tiles, n), dtype=torch.float32, device=dev)
     sums = torch.empty((2, n), dtype=torch.float32, device=dev)
-    rc = getattr(lib, fn_name)(
+    if design == "wgmma":
+        fn, extra = f"{_C_NAMES[kernel]}_wgmma", wgmma_tile(shape)
+    else:
+        fn, extra = _C_NAMES[kernel], (_DTYPE_CODES[x.dtype],)
+    rc = getattr(lib, fn)(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
-        sums.data_ptr(), *dims, _DTYPE_CODES[x.dtype],
+        sums.data_ptr(), *shape, *extra,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    cuda_build.check(lib, rc, kernel)
+    cuda_build.check(lib, rc, f"{kernel} ({design})")
     LAUNCHES[kernel] += 1
+    LAUNCHES_BY_DESIGN[(kernel, design)] += 1
     return y, sums[0], sums[1]
 
 
@@ -152,10 +206,9 @@ def matmul_with_channel_stats(x2d, w):
     if not _on_card(x2d):
         return matmul_with_channel_stats_plain(x2d, w)
     _check_cuda(x2d=x2d, w=w)
-    m, k = x2d.shape
-    n = w.shape[1]
-    return _launch("dl4j_matmul_stats", "conv1x1_bn_stats", x2d, w, m, n,
-                   m, k, n)
+    shape = (*x2d.shape, w.shape[1])
+    return _launch("conv1x1_bn_stats", x2d, w, shape, b7_design(
+        x2d.dtype, shape, (x2d.data_ptr(), w.data_ptr())))
 
 
 def conv3x3_with_channel_stats(x, w):
@@ -175,8 +228,9 @@ def conv3x3_with_channel_stats(x, w):
     if max(h, wd) >= 0x7fff:
         raise ValueError(f"the 3x3 kernel takes maps below 32767 a side; "
                          f"got {h}x{wd}")
-    y, s, q = _launch("dl4j_conv3x3_stats", "conv3x3_bn_stats", x, w,
-                      b * h * wd, cout, b, h, wd, cin, cout)
+    shape = (b, h, wd, cin, cout)
+    y, s, q = _launch("conv3x3_bn_stats", x, w, shape, b7_design(
+        x.dtype, shape, (x.data_ptr(), w.data_ptr())))
     return y.reshape(b, h, wd, cout), s, q
 
 

@@ -97,6 +97,12 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         # x w y part sums, B H W C N, dtype, stream
         "dl4j_conv3x3_stats": (
             _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        # x w y part sums, M K N, bn stages, stream
+        "dl4j_matmul_stats_wgmma": (
+            _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        # x w y part sums, B H W C N, bn stages, stream
+        "dl4j_conv3x3_stats_wgmma": (
+            _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }

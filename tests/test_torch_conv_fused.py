@@ -255,3 +255,92 @@ def test_policy_verdicts():
                              device="cuda").kind == "fused"
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         conv_fused_policy(torch.float16, train=True, device="cuda")
+
+
+# ------------------------------------------- the choice of CUDA design
+# (kernel, shape): bfloat16 shapes design 1 keeps (K or C, or N, not a
+# multiple of 8) and ragged ones design 2 takes (M off its 128-row tile)
+RAGGED = {("conv1x1_bn_stats", (1000, 37, 130)): "ffma",
+          ("conv1x1_bn_stats", (129, 19, 65)): "ffma",
+          ("conv3x3_bn_stats", (2, 5, 6, 3, 4)): "ffma",
+          ("conv1x1_bn_stats", (147, 2048, 512)): "wgmma",
+          ("conv3x3_bn_stats", (3, 7, 7, 512, 512)): "wgmma"}
+
+
+def _path_r_shapes():
+    import chip_smoke
+
+    return sorted(chip_smoke.b7_path_shapes())
+
+
+def test_b7_design_routes_by_dtype_shape_and_alignment():
+    """Design 2 takes every path_r bfloat16 shape and the aligned ragged
+    ones; float32, the unaligned shapes and a pointer off 16 bytes stay
+    on design 1."""
+    aligned = (0, 256, 4096)
+    for _, shape in _path_r_shapes():
+        assert cf.b7_design(torch.bfloat16, shape, aligned) == "wgmma"
+        assert cf.b7_design(torch.float32, shape, aligned) == "ffma"
+        assert cf.b7_design(torch.bfloat16, shape, (8, 256, 4096)) == \
+            "ffma"
+    for (_, shape), want in RAGGED.items():
+        assert cf.b7_design(torch.bfloat16, shape, aligned) == want
+
+
+def test_cuda_test_shapes_are_the_path_r_shapes():
+    """`tests/test_torch_cuda_kernels.py` holds design 2 on the shapes
+    `chip_smoke.b7_path_shapes()` reads off the configuration."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).with_name("test_torch_cuda_kernels.py")
+    spec = importlib.util.spec_from_file_location("_cuda_tests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert sorted(mod.B7_PATH_R_SHAPES) == _path_r_shapes()
+    for kernel, shape in mod.B7_RAGGED_WGMMA:
+        assert cf.b7_design(torch.bfloat16, shape, (0, 0, 0)) == "wgmma"
+
+
+TILES = [((401408, 64, 64), (64, 4)), ((401408, 64, 256), (256, 3)),
+         ((401408, 256, 64), (64, 4)), ((100352, 256, 128), (128, 4)),
+         ((25088, 1024, 256), (256, 3)), ((6272, 2048, 512), (256, 3)),
+         ((1000, 40, 136), (256, 3)), ((77, 8, 8), (64, 4)),
+         ((100, 128, 96), (128, 4)), ((128, 7, 7, 512, 512), (256, 3)),
+         ((128, 56, 56, 64, 64), (64, 4)), ((2, 5, 6, 8, 16), (64, 4))]
+
+
+def _smem_bytes(bn, stages):
+    """Design 2's shared memory (`tc::smem_bytes` in csrc/conv_fused.cu):
+    alignment slack, the ring (a 128 x 64 slice of x and bn/64 boxes of
+    64 x 64 of w a stage), the staged 128 x bn y tile, the partials and
+    the barriers."""
+    return 1024 + stages * (128 * 64 * 2 + bn // 64 * 64 * 64 * 2) \
+        + 128 * bn * 2 + 2 * 8 * bn * 4 + 2 * stages * 8
+
+
+@pytest.mark.parametrize("shape,want", TILES,
+                         ids=["x".join(map(str, s)) for s, _ in TILES])
+def test_wgmma_tile_columns_and_ring_depth(shape, want):
+    """BN is N rounded up to 64, 128 or 256; the ring is as deep as fits
+    in a block's 227 KB of shared memory beside the y tile, and never
+    under two stages (a consumer gives a stage back one slice after it
+    was filled)."""
+    bn, stages = cf.wgmma_tile(shape)
+    assert (bn, stages) == want
+    assert 2 <= stages and _smem_bytes(bn, stages) <= 232448
+    assert _smem_bytes(bn, stages + 1) > 232448 or stages == 4
+
+
+def test_cpu_calls_take_the_plain_versions_and_count_no_design():
+    before = dict(cf.LAUNCHES_BY_DESIGN)
+    x = torch.randn(40, 16, dtype=torch.bfloat16)
+    w = torch.randn(16, 8, dtype=torch.bfloat16)
+    got = cf.matmul_with_channel_stats(x, w)
+    want = cf.matmul_with_channel_stats_plain(x, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert cf.LAUNCHES_BY_DESIGN == before
+    cf.reset_counts()
+    assert set(cf.LAUNCHES_BY_DESIGN.values()) == {0}
+    assert set(cf.LAUNCHES_BY_DESIGN) == {
+        (k, d) for k in cf.LAUNCHES for d in cf.DESIGNS}

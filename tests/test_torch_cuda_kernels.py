@@ -26,9 +26,10 @@ kernel. The LSTM kernels sum H products a step in another order than the
 plain version's matmul, and the difference is carried through T steps:
 1e-4 absolute on hs and the gates (which lie in [-1, 1]), 1e-4 of the
 reference's largest magnitude on the unbounded cell states (at least 1)
-and on every gradient. B7a/B7b: y within 2e-5 of its largest magnitude
-in float32 or one bf16 step; the statistics, from the float32
-accumulator in both dtypes, within 1e-5 of Σ|y| and of Σy²."""
+and on every gradient. B7a/B7b, in both designs (bfloat16 on the tensor
+cores, float32 FMA): y within 2e-5 of its largest magnitude in float32
+or one bf16 step; the statistics, from the float32 accumulator in both
+dtypes, within 1e-5 of Σ|y| and of Σy²."""
 
 import pytest
 import torch
@@ -627,6 +628,132 @@ def test_cuda_b7b_matches_plain(cuda_device, b, h, w, cin, cout, dtype):
     torch.cuda.synchronize()
     assert cfk.LAUNCHES["conv3x3_bn_stats"] == before + 1
     assert _stats_close(got, ref, ref[0].float(), dtype)
+
+
+# every B7 shape of `path_r` (ResNet-50 at batch 128, bfloat16):
+# `chip_smoke.b7_path_shapes()`, held equal by `test_torch_conv_fused.py`
+B7_PATH_R_SHAPES = [
+    ("conv1x1_bn_stats", (6272, 512, 2048)),
+    ("conv1x1_bn_stats", (6272, 1024, 512)),
+    ("conv1x1_bn_stats", (6272, 1024, 2048)),
+    ("conv1x1_bn_stats", (6272, 2048, 512)),
+    ("conv1x1_bn_stats", (25088, 256, 1024)),
+    ("conv1x1_bn_stats", (25088, 512, 256)),
+    ("conv1x1_bn_stats", (25088, 512, 1024)),
+    ("conv1x1_bn_stats", (25088, 1024, 256)),
+    ("conv1x1_bn_stats", (100352, 128, 512)),
+    ("conv1x1_bn_stats", (100352, 256, 128)),
+    ("conv1x1_bn_stats", (100352, 256, 512)),
+    ("conv1x1_bn_stats", (100352, 512, 128)),
+    ("conv1x1_bn_stats", (401408, 64, 64)),
+    ("conv1x1_bn_stats", (401408, 64, 256)),
+    ("conv1x1_bn_stats", (401408, 256, 64)),
+    ("conv3x3_bn_stats", (128, 7, 7, 512, 512)),
+    ("conv3x3_bn_stats", (128, 14, 14, 256, 256)),
+    ("conv3x3_bn_stats", (128, 28, 28, 128, 128)),
+    ("conv3x3_bn_stats", (128, 56, 56, 64, 64)),
+]
+# bfloat16 shapes design 2 takes with M off its 128-row tile, N off the
+# block's columns, K or C off the 64-deep slice
+B7_RAGGED_WGMMA = [
+    ("conv1x1_bn_stats", (147, 2048, 512)),
+    ("conv1x1_bn_stats", (1000, 40, 136)),
+    ("conv1x1_bn_stats", (77, 8, 8)),
+    ("conv3x3_bn_stats", (3, 7, 7, 512, 512)),
+    ("conv3x3_bn_stats", (2, 5, 6, 8, 16)),
+    ("conv3x3_bn_stats", (2, 14, 14, 32, 48)),
+]
+
+
+def _b7_inputs(kernel, shape, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    if kernel == "conv1x1_bn_stats":
+        m, k, n = shape
+        x = torch.randn(m, k, generator=g)
+        w = torch.randn(k, n, generator=g) / k ** 0.5
+        run, plain = cfk.matmul_with_channel_stats, \
+            cfk.matmul_with_channel_stats_plain
+    else:
+        b, h, wd, cin, n = shape
+        x = torch.randn(b, h, wd, cin, generator=g)
+        w = torch.randn(3, 3, cin, n, generator=g) / (9 * cin) ** 0.5
+        run, plain = cfk.conv3x3_with_channel_stats, \
+            cfk.conv3x3_with_channel_stats_plain
+    return x.to(device, dtype), w.to(device, dtype), run, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape", B7_PATH_R_SHAPES + B7_RAGGED_WGMMA,
+                         ids=[f"{k[:7]}-{'x'.join(map(str, s))}" for k, s in
+                              B7_PATH_R_SHAPES + B7_RAGGED_WGMMA])
+def test_cuda_b7_bf16_takes_the_wgmma_design(cuda_device, kernel, shape):
+    """Design 2 (wgmma fed by TMA) on every path_r bfloat16 shape and on
+    ragged ones, against the plain version at `_stats_close`'s
+    tolerances; the launch is counted under design 2."""
+    x, w, run, plain = _b7_inputs(kernel, shape, torch.bfloat16,
+                                  cuda_device, sum(shape))
+    before = cfk.LAUNCHES_BY_DESIGN[(kernel, "wgmma")]
+    got = run(x, w)
+    ref = plain(x, w)
+    torch.cuda.synchronize()
+    assert cfk.LAUNCHES_BY_DESIGN[(kernel, "wgmma")] == before + 1
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    assert _stats_close(got, ref, ref[0].float(), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape", [
+    ("conv1x1_bn_stats", (401408, 64, 256)),
+    ("conv1x1_bn_stats", (147, 2048, 512)),
+    ("conv3x3_bn_stats", (128, 14, 14, 256, 256)),
+    ("conv3x3_bn_stats", (3, 7, 7, 512, 512))])
+def test_cuda_b7_wgmma_statistics_are_bit_equal(cuda_device, kernel, shape):
+    x, w, run, _ = _b7_inputs(kernel, shape, torch.bfloat16, cuda_device, 3)
+    before = cfk.LAUNCHES_BY_DESIGN[(kernel, "wgmma")]
+    a, b = run(x, w), run(x, w)
+    torch.cuda.synchronize()
+    assert cfk.LAUNCHES_BY_DESIGN[(kernel, "wgmma")] == before + 2
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape,dtype", [
+    ("conv1x1_bn_stats", (3136, 64, 256), torch.float32),
+    ("conv3x3_bn_stats", (3, 7, 7, 64, 64), torch.float32),
+    ("conv1x1_bn_stats", (1000, 37, 130), torch.bfloat16),
+    ("conv1x1_bn_stats", (129, 19, 65), torch.bfloat16),
+    ("conv3x3_bn_stats", (2, 5, 6, 3, 4), torch.bfloat16)])
+def test_cuda_b7_float32_and_unaligned_take_the_ffma_design(
+        cuda_device, kernel, shape, dtype):
+    x, w, run, plain = _b7_inputs(kernel, shape, dtype, cuda_device, 4)
+    before = dict(cfk.LAUNCHES_BY_DESIGN)
+    got = run(x, w)
+    ref = plain(x, w)
+    torch.cuda.synchronize()
+    assert cfk.LAUNCHES_BY_DESIGN[(kernel, "ffma")] == \
+        before[(kernel, "ffma")] + 1
+    assert cfk.LAUNCHES_BY_DESIGN[(kernel, "wgmma")] == \
+        before[(kernel, "wgmma")]
+    assert _stats_close(got, ref, ref[0].float(), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_b7_unaligned_bf16_pointer_takes_the_ffma_design(cuda_device):
+    """A contiguous view 8 bytes into its storage is not 16-byte aligned:
+    the tensor maps cannot read it, so design 1 takes it."""
+    g = torch.Generator().manual_seed(5)
+    buf = torch.randn(4 + 256 * 64, generator=g).to(cuda_device,
+                                                    torch.bfloat16)
+    x = buf[4:].view(256, 64)
+    w = (torch.randn(64, 128, generator=g) / 8).to(cuda_device,
+                                                   torch.bfloat16)
+    before = cfk.LAUNCHES_BY_DESIGN[("conv1x1_bn_stats", "ffma")]
+    got = cfk.matmul_with_channel_stats(x, w)
+    ref = cfk.matmul_with_channel_stats_plain(x, w)
+    torch.cuda.synchronize()
+    assert cfk.LAUNCHES_BY_DESIGN[("conv1x1_bn_stats", "ffma")] == \
+        before + 1
+    assert _stats_close(got, ref, ref[0].float(), torch.bfloat16)
 
 
 @pytest.mark.cuda

@@ -31,7 +31,8 @@ launched a step (or a call), and device time by kernel class (the flash
 kernels B3a and B3b + B3c, the banded kernel B4 and the banded backward's
 dense recompute, the LSTM kernels B2a, B2b and B2c with its
 weight-gradient launch, the fused updates B1a and B1b, the conv+BN
-statistics kernels B7a and B7b and their reduction, cuDNN convolutions,
+statistics kernels B7a and B7b by design (`ops/conv_fused.b7_design`:
+wgmma or ffma) and their reduction, cuDNN convolutions,
 matrix products, elementwise passes (the batch-norm epilogues among
 them), reductions, everything else) and for the ten costliest kernels.
 Needs a CUDA card.
@@ -93,10 +94,12 @@ def kernel_class(name):
         return "lstm_bwd recurrence (B2c)"
     if "lstm_drw_kernel" in name or "lstm_dp_reduce" in name:
         return "lstm_bwd weights (B2c)"
-    if "stats_gemm_kernel" in name:
-        # the template's second argument: true is the 3x3 conv (B7b)
-        return ("conv3x3_bn_stats (B7b)" if "true>" in name
+    if "stats_gemm_kernel" in name or "tc_stats_kernel" in name:
+        # the templates' last argument: true is the 3x3 conv (B7b); design
+        # 2 (bfloat16 on the tensor cores) is `tc::tc_stats_kernel`
+        kind = ("conv3x3_bn_stats (B7b)" if "true>" in name
                 else "conv1x1_bn_stats (B7a)")
+        return kind + (" wgmma" if "tc_stats_kernel" in name else " ffma")
     if "stats_reduce_kernel" in name:
         return "B7 statistics reduction"
     low = name.lower()
