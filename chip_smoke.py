@@ -18,9 +18,16 @@ exits non-zero with no result line:
      dtypes, against `F.scaled_dot_product_attention` over the gathered
      cache;
    - the flash-attention forward B3a and backward B3b/B3c at the
-     training path's shape (B 8, H 8, T 2048, Dh 64, causal) and at
-     ragged, cross, narrow, wide and bfloat16 variants, against SDPA's
-     forward and backward;
+     training paths' shape (B 8, H 8, T 2048, Dh 64, causal) in float32
+     and bfloat16 and at ragged, cross, narrow and wide variants of
+     both, against SDPA's forward and backward; each backward row names
+     the design that ran (bfloat16 at Dh 64 and 128 on the tensor cores,
+     "wgmma", else float32 FMA, "ffma"), its TFLOP/s and its share of
+     the bound, and the bfloat16 main shape also times design 1 on the
+     same inputs (`ffma_ms`); a bfloat16 backward must lie nearer the
+     plain version that rounds P and dS (C6) than the one that does not;
+     then design 2 twice at that shape and at Dh 128, dq, dk and dv
+     bit-equal (`flash_repeat`);
    - the fused Adam B1a over the training path's leaves and odd sizes,
      float32 and bfloat16, steps 1 and 1000, against
      `torch.optim.Adam(fused=True)` (which puts ε inside the bias
@@ -63,6 +70,13 @@ exits non-zero with no result line:
    after the steps;
 7. train_parity: two Adam steps of a 2-block model at T 256 on the card
    against the same on the CPU, same weights and batch;
+   then path_t_bf16: `path_t` in bfloat16, the dtype `bench.py` trains
+   this model in (`BENCH_DTYPE`'s default; the zoo conf with its dtype
+   replaced, as `_bench_transformer` builds it): B3b and B3c six times a
+   step each, all on design 2, B3a six and B1a once, the same sync
+   guard; and train_parity_bf16, `train_parity` in bfloat16 with the
+   tolerances bf16 training allows (`TRAIN_PARITY_BF16`), each leaf's
+   update also within 15% of the CPU's;
 8. path_l: training of the repo's LSTM bench model at full width
    (GravesLSTM(512) x 2 + RnnOutputLayer(64), input width 128, T 128,
    batch 64, float32, Nesterovs(0.01, 0.9)) through `net.fit`: 4 fixed
@@ -212,6 +226,24 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 30) -> float:
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def graph_ms(fn, flush: torch.Tensor, side: torch.cuda.Stream,
+             iters: int = 30) -> float:
+    """`time_ms` of `fn` captured once in a CUDA graph on stream `side`
+    and replayed: the device time of a call that launches many kernels
+    from the host (a library yardstick such as SDPA's autograd backward,
+    whose forward the caller ran on `side`, where autograd then runs the
+    backward), without the gaps where the card waits for the host."""
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    return time_ms(graph.replay, flush, iters)
 
 
 # ------------------------------------------------------- phase 2: kernels
@@ -391,28 +423,38 @@ def run_kernel_case(c, flush, gen):
 
 # --------------------------------------------- kernels: flash (B3a-c)
 def flash_cases():
-    """The training path's shape (B 8 x H 8 = BH 64, T 2048, Dh 64,
-    causal, float32), and the variants the kernels must hold: a ragged
-    T, Tq != Tk, head dims 32 and 128, bfloat16."""
+    """The training paths' shape (B 8 x H 8 = BH 64, T 2048, Dh 64,
+    causal) in float32 (`path_t`) and bfloat16 (`path_t_bf16`), and the
+    variants the kernels must hold: a ragged T, Tq != Tk, head dims 32
+    and 128, in float32 (B3b/B3c design 1) and bfloat16 (design 2 at Dh
+    64 and 128, design 1 at Dh 32)."""
     f32, bf16 = torch.float32, torch.bfloat16
     base = dict(bh=64, causal=True, dtype=f32, main=False, dh=64)
-    return [dict(base, tq=2048, tk=2048, main=True),
-            dict(base, tq=1000, tk=1000),
-            dict(base, tq=512, tk=768, causal=False),
-            dict(base, tq=1024, tk=1024, dh=32),
-            dict(base, tq=1024, tk=1024, dh=128),
-            dict(base, tq=2048, tk=2048, dtype=bf16)]
+    cases = [dict(base, tq=2048, tk=2048, main=True),
+             dict(base, tq=2048, tk=2048, dtype=bf16, main=True)]
+    for dt in (f32, bf16):
+        cases += [dict(base, dtype=dt, tq=1000, tk=1000),
+                  dict(base, dtype=dt, tq=512, tk=768, causal=False),
+                  dict(base, dtype=dt, tq=1024, tk=1024, dh=32),
+                  dict(base, dtype=dt, tq=1024, tk=1024, dh=128)]
+    return cases
+
+
+def flash_flops(name, c):
+    """The products a flash kernel computes over the visible (query,
+    key) pairs (causal: the lower triangle), 2 Dh flops a pair each."""
+    bh, tq, tk, dh = c["bh"], c["tq"], c["tk"], c["dh"]
+    pairs = bh * tq * (tq + 1) // 2 if c["causal"] else bh * tq * tk
+    return FLASH_PRODUCTS[name] * 2 * dh * pairs
 
 
 def flash_bound(name, c):
-    """(bound_ms, bound_by) of one flash kernel: its products over the
-    visible (query, key) pairs (causal: the lower triangle) at the peak
-    rate of the dtype, or the bytes it must move (inputs read once,
-    outputs written once, row statistics float32) over HBM bandwidth."""
+    """(bound_ms, bound_by) of one flash kernel: its products
+    (`flash_flops`) at the peak rate of the dtype, or the bytes it must
+    move (inputs read once, outputs written once, row statistics float32)
+    over HBM bandwidth."""
     es = torch.tensor([], dtype=c["dtype"]).element_size()
     bh, tq, tk, dh = c["bh"], c["tq"], c["tk"], c["dh"]
-    pairs = bh * tq * (tq + 1) // 2 if c["causal"] else bh * tq * tk
-    flops = FLASH_PRODUCTS[name] * 2 * dh * pairs
     qe, ke = bh * tq * dh, bh * tk * dh
     nbytes = {"flash_attention_fwd": (2 * qe + 2 * ke) * es + 4 * bh * tq,
               "flash_attention_bwd_dkdv": (2 * qe + 4 * ke) * es
@@ -420,7 +462,7 @@ def flash_bound(name, c):
               "flash_attention_bwd_dq": (3 * qe + 2 * ke) * es
               + 8 * bh * tq}[name]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[c["dtype"]] * 1e3
+    t_ops = flash_flops(name, c) / PEAK_FLOPS[c["dtype"]] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -431,6 +473,38 @@ def flash_err(got, ref, dtype, atol):
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
     return d.max().item(), bool((d <= atol + rtol * ref.float().abs())
                                 .all())
+
+
+# the gradients' absolute tolerance, a share of the largest |ref|, past
+# `flash_err`'s one bf16 step of each element. float32: sums taken in
+# another order, 1e-4. bfloat16, both designs: both sides round P and dS
+# to bfloat16 operands (C6) from float32 values that differ in their last
+# bits wherever their sums run in another order, so an operand may land a
+# bf16 step apart and move a row by that step; 1e-3, the plain version's
+# bound against the Pallas kernels. That limit alone does not catch the
+# C6 fault everywhere (a kernel that kept P and dS in float32 reads 8e-4
+# to 2.1e-3 against the rounded plain version), so every bfloat16 row also
+# reads the excess (`excess_share`) against the plain version left
+# unrounded (`unrounded_excess_share`) and must lie nearer the rounded one.
+FLASH_GRAD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+
+def grad_errs(grads, refs, dt, names=("dq", "dk", "dv")):
+    """{name: (max abs error, within tolerance, atol, excess share)} of
+    the gradients `names` against `refs`, at FLASH_GRAD_ATOL[dt] of the
+    largest |ref| (`flash_err`); the excess share is the largest error
+    past one bf16 step of its element (bfloat16) over the largest |ref|,
+    the reading that limit bounds."""
+    errs = {}
+    rtol = 2.0 ** -7 if dt == torch.bfloat16 else 0.0
+    for name, g_, r_ in zip(names, grads, refs):
+        r_ = r_.float()
+        big = r_.abs().max().item()
+        err, ok = flash_err(g_, r_, dt, FLASH_GRAD_ATOL[dt] * big)
+        past = ((g_.float() - r_).abs() - rtol * r_.abs()).max().item()
+        errs[name] = (err, ok, FLASH_GRAD_ATOL[dt] * big,
+                      max(past, 0.0) / big)
+    return errs
 
 
 def run_flash_case(c, flush, gen):
@@ -446,37 +520,63 @@ def run_flash_case(c, flush, gen):
 
     q, k, v, do = rnd(tq), rnd(tk), rnd(tk), rnd(tq)
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
-    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal)
+    # bfloat16: p rounded against the running max of the kernel's tile
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal,
+                                              block_k=fa.KERNEL_BLOCK_K)
     # the backward kernels and the plain backward from the same residuals
+    before = dict(fa.LAUNCHES_BY_DESIGN)
     grads = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal)
+    design = next(d for (kk, d), n in fa.LAUNCHES_BY_DESIGN.items()
+                  if kk == "flash_attention_bwd_dq" and n > before[(kk, d)])
     g_ref = fa.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do, causal)
     torch.cuda.synchronize()
     e_o, ok_o = flash_err(o, o_ref, dt, 2e-5)
     e_l, ok_l = flash_err(lse, lse_ref, torch.float32, 2e-5)
-    errs = {}
-    for name, g_, r_ in zip(("dq", "dk", "dv"), grads, g_ref):
-        atol = 1e-4 * r_.float().abs().max().item()
-        errs[name] = flash_err(g_, r_, dt, atol) + (atol,)
+    errs = grad_errs(grads, g_ref, dt)
     shape = {kk: c[kk] for kk in ("bh", "tq", "tk", "dh", "causal")}
     check(ok_o and ok_l, f"flash_attention_fwd {shape} {dt}: o err {e_o}, "
           f"lse err {e_l} (tolerance 2e-5, bf16 + one bf16 step)")
-    for name, (err, ok, atol) in errs.items():
-        check(ok, f"flash backward {shape} {dt}: {name} err {err}, "
-              f"tolerance {atol} (1e-4 of the largest |ref|)")
+    for name, (err, ok, atol, _) in errs.items():
+        check(ok, f"flash backward {shape} {dt} ({design}): {name} err "
+              f"{err}, tolerance {atol} ({FLASH_GRAD_ATOL[dt]} of the "
+              f"largest |ref|)")
+    want = "wgmma" if dt == torch.bfloat16 and dh in fa.WGMMA_HEAD_DIMS \
+        else "ffma"
+    check(design == want, f"flash backward {shape} {dt} ran design "
+          f"{design}, want {want}")
 
     delta = (do.float() * o_ref.float()).sum(dim=-1)
     runs = {
         "flash_attention_fwd": lambda: fa.flash_attention_fwd(
             q, k, v, causal, with_lse=True),
         "flash_attention_bwd_dkdv": lambda: fa.launch_bwd_dkdv(
-            q, k, v, do, lse_ref, delta, causal),
+            q, k, v, do, lse_ref, delta, causal, design=design),
         "flash_attention_bwd_dq": lambda: fa.launch_bwd_dq(
-            q, k, v, do, lse_ref, delta, causal)}
+            q, k, v, do, lse_ref, delta, causal, design=design)}
     errs_of = {"flash_attention_fwd": max(e_o, e_l),
                "flash_attention_bwd_dkdv": max(errs["dk"][0], errs["dv"][0]),
                "flash_attention_bwd_dq": errs["dq"][0]}
+    share = {"flash_attention_bwd_dkdv": max(errs["dk"][3], errs["dv"][3]),
+             "flash_attention_bwd_dq": errs["dq"][3]}
+    unrounded = {}
+    if dt == torch.bfloat16:
+        # the control: the same gradients against the plain backward left
+        # unrounded (float32 throughout), the fault C6 repaired
+        g_f32 = fa.flash_attention_bwd_plain(
+            *(x.float() for x in (q, k, v, o_ref)), lse_ref, do.float(),
+            causal)
+        ctrl = grad_errs(grads, g_f32, dt)
+        del g_f32
+        unrounded = {"flash_attention_bwd_dkdv": max(ctrl["dk"][3],
+                                                     ctrl["dv"][3]),
+                     "flash_attention_bwd_dq": ctrl["dq"][3]}
+        for name, x in unrounded.items():
+            check(share[name] < x, f"{name} {shape} {dt} ({design}) lies "
+                  f"{share[name]} of the largest |ref| past one bf16 step "
+                  f"from the plain version that rounds P and dS, and {x} "
+                  f"from the one that does not (C6)")
     timed_plain = c["main"] or dt == torch.bfloat16
-    plain = lib = {}
+    plain = lib = host = {}
     if timed_plain:
         plain_fwd = time_ms(lambda: fa.flash_attention_plain(q, k, v,
                                                              causal), flush,
@@ -492,22 +592,89 @@ def run_flash_case(c, flush, gen):
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal), flush)
         qg, kg, vg = (t.clone().requires_grad_() for t in (q4, k4, v4))
-        og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            og = F.scaled_dot_product_attention(qg, kg, vg,
+                                                is_causal=causal)
+        torch.cuda.current_stream().wait_stream(side)
+        # SDPA's backward launches several kernels through autograd: its
+        # device time is taken from a CUDA graph of the call (its host
+        # launches can outlast the flush and leave the card waiting)
+        lib_bwd = graph_ms(lambda: torch.autograd.grad(
+            og, (qg, kg, vg), do4, retain_graph=True), flush, side)
+        host_bwd = time_ms(lambda: torch.autograd.grad(
             og, (qg, kg, vg), do4, retain_graph=True), flush)
         lib = {"flash_attention_fwd": lib_fwd,
                "flash_attention_bwd_dkdv": lib_bwd,
                "flash_attention_bwd_dq": lib_bwd}
+        # the same backward timed from the host, as the other yardsticks
+        host = {"flash_attention_bwd_dkdv": host_bwd,
+                "flash_attention_bwd_dq": host_bwd}
     rows = []
     for name, fn in runs.items():
         bms, by = flash_bound(name, c)
+        ms = time_ms(fn, flush)
         row = {"phase": "kernels", "kernel": name,
                "dtype": str(dt).replace("torch.", ""), **shape,
-               "max_abs_err": errs_of[name], "ms": time_ms(fn, flush),
+               "design": "ffma" if name == "flash_attention_fwd" else design,
+               "max_abs_err": errs_of[name],
+               "excess_share": share.get(name),
+               "grad_limit_share": None if name == "flash_attention_fwd"
+               else FLASH_GRAD_ATOL[dt],
+               "unrounded_excess_share": unrounded.get(name), "ms": ms,
+               "tflops": flash_flops(name, c) / ms / 1e9,
                "plain_ms": plain.get(name), "library_ms": lib.get(name),
-               "bound_ms": bms, "bound_by": by, "main_path_shape": c["main"]}
+               "library_ms_with_host_launches": host.get(name),
+               "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
+               "main_path_shape": c["main"]}
+        if design == "wgmma" and name != "flash_attention_fwd" and \
+                c["main"]:
+            # design 1 on the same inputs, to compare the two in one run
+            launch = fa.launch_bwd_dkdv if name.endswith("dkdv") \
+                else fa.launch_bwd_dq
+            run1 = lambda: launch(  # noqa: E731
+                q, k, v, do, lse_ref, delta, causal, design="ffma")
+            # and held to the same limit
+            if name.endswith("dq"):
+                e1 = grad_errs((run1(),), g_ref[:1], dt, ("dq",))
+            else:
+                e1 = grad_errs(run1(), g_ref[1:], dt, ("dk", "dv"))
+            for gname, (err, ok, atol, _) in e1.items():
+                check(ok, f"flash backward {shape} {dt} (ffma): {gname} "
+                      f"err {err}, tolerance {atol}")
+            row["ffma_excess_share"] = max(e[3] for e in e1.values())
+            row["ffma_ms"] = time_ms(run1, flush)
+            row["speedup_over_ffma"] = row["ffma_ms"] / ms
         emit(row)
         rows.append(row)
+    return rows
+
+
+def run_flash_repeat(gen):
+    """Design 2 launched twice at `path_t_bf16`'s shape and at Dh 128:
+    dq, dk and dv bit-equal (two kernels, no atomics)."""
+    from deeplearning4j_tpu_torch.ops import attention as fa
+
+    rows = []
+    for bh, t, dh in ((64, 2048, 64), (16, 2048, 128)):
+        q, k, v, do = (torch.randn(bh, t, dh, generator=gen)
+                       .to("cuda", torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        before = fa.LAUNCHES_BY_DESIGN[("flash_attention_bwd_dkdv", "wgmma")]
+        a = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+        b = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        check(fa.LAUNCHES_BY_DESIGN[("flash_attention_bwd_dkdv", "wgmma")]
+              == before + 2, f"flash repeat BH {bh} T {t} Dh {dh}: design "
+              f"2 did not take both launches")
+        equal = [torch.equal(x, y) for x, y in zip(a, b)]
+        check(all(equal), f"flash repeat BH {bh} T {t} Dh {dh}: two "
+              f"launches differ (dq, dk, dv equal: {equal})")
+        rows.append({"phase": "flash_repeat", "bh": bh, "t": t, "dh": dh,
+                     "causal": True, "dtype": "bfloat16", "design": "wgmma",
+                     "bit_equal": equal})
+        emit(rows[-1])
     return rows
 
 
@@ -557,7 +724,9 @@ def run_banded_case(c, flush, gen):
 
     q, k, v = rnd(h), rnd(hkv), rnd(hkv)
     run = lambda: ba.banded_attention_fwd(q, k, v, w, causal)  # noqa: E731
-    plain = lambda: ba.banded_reference(q, k, v, w, causal)  # noqa: E731
+    # bfloat16: p rounded against the running max of the kernel's tile
+    plain = lambda: ba.banded_reference(  # noqa: E731
+        q, k, v, w, causal, block_k=ba.BAND_TILE)
     out, ref = run(), plain()
     torch.cuda.synchronize()
     atol, rtol = TOL[dt]
@@ -1124,12 +1293,20 @@ def b7_step_totals(rows, kernel):
 
 
 # ------------------------------------------------------ serving phases
-def build_net(device, *, num_blocks, seed, t=2048, **kw):
+def build_net(device, *, num_blocks, seed, t=2048, dtype="float32", **kw):
+    """The zoo transformer at the repo's largest width; another `dtype`
+    replaces the zoo conf's, as `bench.py`'s `_bench_transformer` does
+    (`bench.py:497-501`)."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
     from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
 
-    return TextGenerationTransformer(
+    zoo = TextGenerationTransformer(
         input_shape=(t, 1), d_model=512, num_heads=8,
-        num_blocks=num_blocks, seed=seed, **kw).init(device=device)
+        num_blocks=num_blocks, seed=seed, **kw)
+    conf = dataclasses.replace(zoo.conf(), dtype=dtype)
+    return MultiLayerNetwork(conf, device=device).init()
 
 
 def control_plane(net, *, slots, chunk, k, kv_dtype=None):
@@ -1525,53 +1702,80 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
             "sync_debug_mode": "error in steps 2-12"}
 
 
-def path_t(rng, epochs=3):
-    """Full width training: 6 blocks, T 2048, batch 8, float32, the zoo's
-    default Adam(3e-4), 4 fixed batches x 3 epochs = 12 steps through
-    `net.fit` (`timed_fit`)."""
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq")
+
+
+def path_t(rng, epochs=3, dtype="float32"):
+    """Full width training: 6 blocks, T 2048, batch 8, the zoo's default
+    Adam(3e-4), 4 fixed batches x 3 epochs = 12 steps through `net.fit`
+    (`timed_fit`). float32 (`path_t`): B3b/B3c on design 1; bfloat16
+    (`path_t_bf16`, `bench.py`'s dtype for this model: BENCH_DTYPE's
+    default, `bench.py:586`): B3b/B3c on design 2, the tensor cores."""
+    from deeplearning4j_tpu_torch.ops import attention as fa
     from deeplearning4j_tpu_torch.optim.updaters import Adam
 
+    name = {"float32": "path_t", "bfloat16": "path_t_bf16"}[dtype]
     B, T, blocks = 8, 2048, 6
-    net = build_net("cuda", num_blocks=blocks, seed=5)
+    net = build_net("cuda", num_blocks=blocks, seed=5, dtype=dtype)
     check(net.conf.updater == Adam(3e-4),
-          f"path_t: zoo updater is {net.conf.updater}, not Adam(3e-4)")
-    fit = timed_fit("path_t", net, lm_batches(rng, 4, B, T), epochs, B * T)
+          f"{name}: zoo updater is {net.conf.updater}, not Adam(3e-4)")
+    check(str(net.dtype) == f"torch.{dtype}",
+          f"{name}: the net computes in {net.dtype}, not {dtype}")
+    fit = timed_fit(name, net, lm_batches(rng, 4, B, T), epochs, B * T)
     steps, launches = fit["steps"], fit["launches"]
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dkdv",
-                 "flash_attention_bwd_dq"):
-        check(launches[name] == blocks * steps,
-              f"path_t: {name} launched {launches[name]} times, want "
+    for kernel in FLASH_KERNELS:
+        check(launches[kernel] == blocks * steps,
+              f"{name}: {kernel} launched {launches[kernel]} times, want "
               f"{blocks} a step x {steps}")
     check(launches["adam_update"] == steps,
-          f"path_t: adam_update launched {launches['adam_update']} times, "
+          f"{name}: adam_update launched {launches['adam_update']} times, "
           f"want one a step x {steps}")
-    row = {"phase": "path_t", "model": "TextGenerationTransformer",
+    by_design = launches_by_design(fa)
+    design = "wgmma" if dtype == "bfloat16" else "ffma"
+    other = "ffma" if design == "wgmma" else "wgmma"
+    for kernel in FLASH_KERNELS[1:]:
+        check(by_design[f"{kernel}/{design}"] == blocks * steps
+              and by_design[f"{kernel}/{other}"] == 0,
+              f"{name}: {kernel} not all on {design}: {by_design}")
+    row = {"phase": name, "model": "TextGenerationTransformer",
            "d_model": 512, "heads": 8, "blocks": blocks, "T": T,
-           "batch": B, "dtype": "float32", "updater": str(net.conf.updater),
-           **fit}
+           "batch": B, "dtype": dtype, "updater": str(net.conf.updater),
+           **fit, "launches_by_design": by_design}
     emit(row)
+    del net
+    torch.cuda.empty_cache()
     return row
 
 
 def train_parity(rng, name="train_parity", kernel="flash_attention_fwd",
-                 steps=2, tol_loss=1e-5, tol_param=1e-5, **net_kw):
+                 steps=2, tol_loss=1e-5, tol_param=1e-5, rtol_param=0.0,
+                 tol_update_gap=None, dtype="float32", **net_kw):
     """The port's train step on the card against the CPU: a 2-block model
     at T 256, batch 2, the same seed (so the same weights) and batch,
-    `steps` Adam steps; `kernel` must have run on the card. Adam's ε is
-    1e-3 here so that a near-zero gradient's first update (≈ lr·sign(g)
-    at ε 1e-8) cannot flip with the last bits of a sum; losses agree
-    within `tol_loss` relative and every parameter within `tol_param`
-    absolute."""
+    `steps` Adam steps in `dtype`; `kernel` must have run on the card
+    (in bfloat16 B3b and B3c on design 2). Adam's ε is 1e-3 here so that
+    a near-zero gradient's first update (≈ lr·sign(g) at ε 1e-8) cannot
+    flip with the last bits of a sum; losses agree within `tol_loss`
+    relative and every parameter within `tol_param` absolute plus
+    `rtol_param` of the larger of its two values. The row also reads how
+    far the card's updates (final less initial parameters) lie from the
+    CPU's, as a share of the CPU's: over the whole tree
+    (`update_gap_tree`) and the largest over the leaves
+    (`update_gap_leaf_max`), which must stay within `tol_update_gap`
+    where that is given."""
+    from deeplearning4j_tpu_torch.ops import attention as fa
     from deeplearning4j_tpu_torch.optim.listeners import (
         CollectScoresIterationListener,
     )
     from deeplearning4j_tpu_torch.optim.updaters import Adam, tree_leaves
 
     batch = lm_batches(rng, 1, 2, 256)
-    losses, leaves = {}, {}
+    losses, leaves, moves = {}, {}, {}
     for d in ("cuda", "cpu"):
-        net = build_net(d, num_blocks=2, seed=17, t=256,
+        net = build_net(d, num_blocks=2, seed=17, t=256, dtype=dtype,
                         updater=Adam(3e-4, epsilon=1e-3), **net_kw)
+        start = [p.double().cpu() for p in tree_leaves(net.params_tree)]
         scores = CollectScoresIterationListener()
         net.listeners.append(scores)
         reset_all_counts()
@@ -1581,20 +1785,58 @@ def train_parity(rng, name="train_parity", kernel="flash_attention_fwd",
             check(launches[kernel] == 2 * steps,
                   f"{name}: {kernel} launched {launches[kernel]} times, "
                   f"want 2 blocks x {steps} steps")
+            if dtype == "bfloat16" and kernel == "flash_attention_fwd":
+                by_design = launches_by_design(fa)
+                check(all(by_design[f"{k}/wgmma"] == 2 * steps
+                          for k in FLASH_KERNELS[1:]),
+                      f"{name}: B3b/B3c not on design 2: {by_design}")
         losses[d] = [sc for _, sc in scores.scores]
         leaves[d] = [p.float().cpu() for p in tree_leaves(net.params_tree)]
+        moves[d] = [p.double() - p0 for p, p0 in zip(leaves[d], start)]
+    gaps = [((a - b).norm().item(), b.norm().item())
+            for a, b in zip(moves["cuda"], moves["cpu"])]
+    gap_tree = (sum(g * g for g, _ in gaps)
+                / max(sum(n * n for _, n in gaps), 1e-300)) ** 0.5
+    gap_leaf = max(g / n for g, n in gaps if n > 0)
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                   losses["cpu"]))
     dp = max((a - b).abs().max().item()
              for a, b in zip(leaves["cuda"], leaves["cpu"]))
+    over = sum(int(((a - b).abs() > tol_param
+                    + rtol_param * torch.maximum(a.abs(), b.abs())).sum())
+               for a, b in zip(leaves["cuda"], leaves["cpu"]))
     check(rel <= tol_loss, f"{name}: losses {losses} differ by {rel} "
           f"relative")
-    check(dp <= tol_param, f"{name}: parameters differ by {dp}")
-    row = {"phase": name, "steps": steps, "losses": losses,
+    check(over == 0, f"{name}: {over} parameters differ by more than "
+          f"{tol_param} + {rtol_param} of their size (largest {dp})")
+    check(tol_update_gap is None or gap_leaf <= tol_update_gap,
+          f"{name}: a leaf's update lies {gap_leaf} of its size from the "
+          f"CPU's (limit {tol_update_gap})")
+    row = {"phase": name, "dtype": dtype, "steps": steps, "losses": losses,
            "loss_rel_err": rel, "tol_loss_rel": tol_loss,
-           "max_param_abs_err": dp, "tol_param_abs": tol_param}
+           "max_param_abs_err": dp, "tol_param_abs": tol_param,
+           "rtol_param": rtol_param, "params_over_tolerance": over,
+           "update_gap_tree": gap_tree, "update_gap_leaf_max": gap_leaf,
+           "tol_update_gap": tol_update_gap}
     emit(row)
     return row
+
+
+# `train_parity` in bfloat16. The card and the CPU round activations at
+# other places, so their gradients and Adam's updates differ a little (the
+# 1e-5), and each of the two steps stores a parameter to a bf16 step (2^-7
+# of it at most), where the two sides may land a step apart: 2^-6 over two
+# steps. Sound runs (`tools/torch_parity_faults.py`, three batches, in
+# three runs of it): losses up to 1.3e-4 relative apart, no parameter
+# past that, each leaf's update within 10.2% of the CPU's. A wrong update
+# moves a parameter by about the learning rate, past the per-parameter
+# limit wherever |p| < 0.018; the planted faults there (a skipped update,
+# a lost dK tile, swapped dQ rows) broke it in 7,956-22,560 parameters,
+# and dQ 2^-5 too large, which it let pass, moved a leaf's update by
+# 23.4-23.7%, past the 15% update-gap limit.
+TRAIN_PARITY_BF16 = dict(tol_loss=1e-3, tol_param=1e-5,
+                         rtol_param=2.0 ** -6, tol_update_gap=0.15,
+                         dtype="bfloat16")
 
 
 LLAMA = dict(pos_encoding="rope", norm="rms", ffn_activation="swiglu",
@@ -1894,11 +2136,11 @@ def image_batches(rng, n, batch, size, classes):
 B7_KERNELS = ("conv1x1_bn_stats", "conv3x3_bn_stats")
 
 
-def b7_launches_by_design():
-    """{"kernel/design": launches} of B7 since the counts were reset."""
-    from deeplearning4j_tpu_torch.ops import conv_fused as cf
-
-    return {f"{k}/{d}": n for (k, d), n in cf.LAUNCHES_BY_DESIGN.items()}
+def launches_by_design(mod):
+    """{"kernel/design": launches} of a kernel module with two designs
+    (`ops.attention`: B3b/B3c, `ops.conv_fused`: B7) since the counts
+    were reset."""
+    return {f"{k}/{d}": n for (k, d), n in mod.LAUNCHES_BY_DESIGN.items()}
 
 
 def path_r(batches, epochs=3, fused=True):
@@ -1910,6 +2152,7 @@ def path_r(batches, epochs=3, fused=True):
     the running statistics and launches no B7. Unfused (information
     only): cuDNN convolutions and plain batch norms, no B7."""
     from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import conv_fused as cf
 
     name = "path_r" if fused else "path_r_unfused"
     batch = batches[0].features.shape[0]
@@ -1925,7 +2168,7 @@ def path_r(batches, epochs=3, fused=True):
     check(launches["nesterov_update"] == steps,
           f"{name}: nesterov_update launched {launches['nesterov_update']} "
           f"times, want one a step x {steps}")
-    by_design = b7_launches_by_design()
+    by_design = launches_by_design(cf)
     for k, n in per_step.items():
         check(by_design[f"{k}/wgmma"] == n * steps
               and by_design[f"{k}/ffma"] == 0,
@@ -1978,6 +2221,7 @@ def resnet_parity(rng, tol_first=1e-4, tol_loss=2e-2, tol_param=5e-3,
     the eval path (float32 against float64 on shared weights: 8.6e-5);
     `tol_out` absolute on the probabilities."""
     from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import conv_fused as cf
     from deeplearning4j_tpu_torch.optim.listeners import (
         CollectScoresIterationListener,
     )
@@ -1999,7 +2243,7 @@ def resnet_parity(rng, tol_first=1e-4, tol_loss=2e-2, tol_param=5e-3,
             check(launches["conv1x1_bn_stats"] == 72
                   and launches["conv3x3_bn_stats"] == 32,
                   f"resnet_parity: B7 launches {launches}")
-            by_design = b7_launches_by_design()
+            by_design = launches_by_design(cf)
             check(by_design["conv1x1_bn_stats/ffma"] == 72
                   and by_design["conv3x3_bn_stats/ffma"] == 32,
                   f"resnet_parity: float32 B7 not on design 1: {by_design}")
@@ -2068,6 +2312,7 @@ def main() -> int:
             rows.append(run_b7_case(c, dt, flush, gen))
             torch.cuda.empty_cache()
     run_b7_repeat(gen)
+    run_flash_repeat(gen)
     del flush
     torch.cuda.empty_cache()
 
@@ -2076,8 +2321,10 @@ def main() -> int:
     b, *native_b = path_b("cuda", rng)
     cpu_parity(rng)
     qa, qb_fp8, qb_int8 = path_q(native_a, native_b)
-    t = path_t(rng)
+    t32 = path_t(rng)
     train_parity(rng)
+    t = path_t(rng, dtype="bfloat16")
+    train_parity(rng, "train_parity_bf16", **TRAIN_PARITY_BF16)
     w = path_w(rng)
     train_parity(rng, "window_parity", "banded_attention", window=32,
                  **LLAMA)
@@ -2103,14 +2350,17 @@ def main() -> int:
             ("flash_attention_fwd", t["launches"]),
             ("flash_attention_bwd_dkdv", t["launches"]),
             ("flash_attention_bwd_dq", t["launches"]),
-            ("adam_update", t["launches"]),
+            ("adam_update", t32["launches"]),
             ("nesterov_update", lp["launches"]),
             ("lstm_fwd", lp["launches"]),
             ("lstm_fwd_inference", g["launches"]),
             ("lstm_bwd", lp["launches"]),
             ("lstm_bwd_weights", lp["launches"])):
         mine = [r for r in rows if r["kernel"] == name]
-        main_row = next(r for r in mine if r["main_path_shape"])
+        mains = [r for r in mine if r["main_path_shape"]]
+        # the flash kernels: path_t_bf16's row (this slice's path), with
+        # path_t's float32 row beside it
+        main_row = mains[-1]
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
@@ -2119,6 +2369,18 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"]})
+        if name in FLASH_KERNELS:
+            f32 = mains[0]
+            summary[-1].update(
+                {k: main_row[k] for k in ("dtype", "design", "tflops",
+                                          "bound_share", "ffma_ms",
+                                          "speedup_over_ffma")
+                 if k in main_row},
+                float32={"ms": f32["ms"], "design": f32["design"],
+                         "bound_ms": f32["bound_ms"],
+                         "plain_ms": f32["plain_ms"],
+                         "library_ms": f32["library_ms"],
+                         "launches_path_t": t32["launches"][name]})
         if name == "lstm_fwd_inference":
             # most of its launches on path_g are the stepping loop's, at T 1
             summary[-1]["ms_at_T1"] = next(r["ms"] for r in mine

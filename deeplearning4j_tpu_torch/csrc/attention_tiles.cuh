@@ -9,13 +9,17 @@
 // tile goes through shared memory (rows padded to 68) to the second
 // product, where the thread owns 4 rows and Dh / 16 output columns in
 // registers. The head dim is a compile-time tile DM in {32, 64, 128}.
-// Exact float32 FMA arithmetic; bfloat16 is widened as it is staged.
+// Exact float32 FMA arithmetic; bfloat16 is widened as it is staged, and
+// the probabilities (and score gradients) meet the second product rounded
+// to bfloat16, as the TPU kernels' `p.astype(v.dtype)` feeds them (C6).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -31,6 +35,18 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+
+// An operand of a second product (p before P·V, dS before dS·K) as the
+// TPU kernels feed it: rounded to the input type, so in bfloat16 through
+// bfloat16 and in float32 unchanged (the float32 kernels compile to the
+// same code as without it).
+template <typename T>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(__float2bfloat16(x));
+  else
+    return x;
 }
 
 // Geometry of head-dim tile DM: padded smem row LD; a thread's NO = DM / 16

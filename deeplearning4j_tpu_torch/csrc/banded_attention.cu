@@ -38,8 +38,10 @@
 // max starts there; masked entries get p = 0 explicitly, since the first
 // tile a row visits can lie wholly outside its band (its running max is
 // then still -1e30, and exp(s - m) would give masked keys weight 1); l is
-// clamped at 1e-30 before the division. Build without --use_fast_math so
-// expf and the division stay IEEE.
+// clamped at 1e-30 before the division. In bfloat16 p meets V rounded to
+// bfloat16 against the running max of this kernel's 64-key tiles, as the
+// TPU kernel's `p.astype(v.dtype)` rounds it against its blocks' (C6).
+// Build without --use_fast_math so expf and the division stay IEEE.
 
 #include "attention_tiles.cuh"
 
@@ -111,7 +113,8 @@ banded_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         // explicit zero: a row whose band has not started yet has
         // m_new == -1e30, where exp(s - m_new) would be 1
         const float p = vis[j] ? expf(s[i][j] - m_new) : 0.f;
-        sP[(ty * 4 + i) * kLDP + tx + 16 * j] = p;
+        // l sums the unrounded p; P·V takes it rounded (C6)
+        sP[(ty * 4 + i) * kLDP + tx + 16 * j] = operand<T>(p);
         rs += p;
       }
       rs = group_sum(rs);

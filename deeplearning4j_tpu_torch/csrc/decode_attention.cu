@@ -65,6 +65,14 @@
 // are mapped to ring slots only from p >= 0, with a floor modulo all the
 // same (CUDA's % truncates toward zero). Build without --use_fast_math
 // so expf and the NaN path stay exact.
+// bfloat16 caches: p meets V rounded to bfloat16, as the TPU bodies'
+// `p.astype(vc.dtype)` feeds it (C6), against the row max. The TPU
+// kernels round against the running max of their cache blocks; here the
+// warps' running maxima differ, so a bfloat16 block first sweeps the K
+// rows of its range for the row max (K is read twice), the warps share
+// it through shared memory, and the second sweep starts every warp from
+// it. l sums the unrounded p. Quantized codes are widened to float32
+// (as the TPU bodies widen them) and float32 caches never round.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -128,6 +136,12 @@ struct Quant<int8_t> { static constexpr bool value = true; };
 template <>
 struct Quant<__nv_fp8_e4m3> { static constexpr bool value = true; };
 
+// bfloat16 caches round p where it meets V (C6)
+template <typename TC>
+struct RoundsP { static constexpr bool value = false; };
+template <>
+struct RoundsP<__nv_bfloat16> { static constexpr bool value = true; };
+
 // GM query rows and EM head-dim elements a lane (PM = EM / 2 pairs, pair e
 // holding d = 64 e + 2 lane and d + 1); a warp folds U keys a step, fewer
 // as the tile grows, so two groups' K/V fit in registers at once
@@ -149,7 +163,8 @@ struct KVGroup {
 // is the index of position p's [Dh] row for this KV head, in units of
 // rows: its elements start at row(p) * Dh, its scales at sk/sv[row(p)].
 // Quantized codes are multiplied by their scale right after the load.
-template <typename TC, int U, int PM, typename Row>
+// kV false loads the K rows alone.
+template <typename TC, int U, int PM, bool kV = true, typename Row>
 __device__ __forceinline__ void load_group(const TC* __restrict__ kc,
                                            const TC* __restrict__ vc,
                                            const float* __restrict__ sk,
@@ -165,14 +180,15 @@ __device__ __forceinline__ void load_group(const TC* __restrict__ kc,
     float fk = 1.f, fv = 1.f;
     if (Quant<TC>::value && live) {
       fk = sk[ri];
-      fv = sv[ri];
+      if (kV) fv = sv[ri];
     }
 #pragma unroll
     for (int e = 0; e < PM; ++e) {
       const int d = 64 * e + 2 * lane;
       const bool ok = live && d < Dh;
       float2 k2 = ok ? load_pair(kc + off + d) : make_float2(0.f, 0.f);
-      float2 v2 = ok ? load_pair(vc + off + d) : make_float2(0.f, 0.f);
+      float2 v2 = kV && ok ? load_pair(vc + off + d)
+                           : make_float2(0.f, 0.f);
       if (Quant<TC>::value) {
         k2.x *= fk; k2.y *= fk;
         v2.x *= fv; v2.y *= fv;
@@ -193,9 +209,41 @@ struct WarpState {
   float2 acc[GM][PM];
 };
 
-// The online-softmax step both kernels share: fold the first n keys of a
-// loaded group into the warp's state.
+// One query row's scaled score against one key row, summed over the warp.
+template <int PM>
+__device__ __forceinline__ float score(const float2 (&q)[PM],
+                                       const float2 (&k)[PM], float scale) {
+  float part = 0.f;
+#pragma unroll
+  for (int e = 0; e < PM; ++e) {
+    part = fmaf(q[e].x, k[e].x, part);
+    part = fmaf(q[e].y, k[e].y, part);
+  }
+  return warp_sum(part) * scale;
+}
+
+// The first sweep of a rounding (bfloat16) block: fold the first n keys'
+// scores of a loaded group into the warp's running max alone.
 template <int GM, int U, int PM>
+__device__ __forceinline__ void max_keys(const KVGroup<U, PM>& r, int n,
+                                         const float2 (&q)[GM][PM], int G,
+                                         float scale, float (&m)[GM]) {
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g < G) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float s = score(q[g], r.k[u], scale);
+        if (u < n) m[g] = fmaxf(m[g], s);
+      }
+    }
+  }
+}
+
+// The online-softmax step both kernels share: fold the first n keys of a
+// loaded group into the warp's state; kRound feeds p to P·V rounded to
+// bfloat16 (C6).
+template <bool kRound, int GM, int U, int PM>
 __device__ __forceinline__ void attend_keys(const KVGroup<U, PM>& r, int n,
                                             const float2 (&q)[GM][PM],
                                             int G, float scale,
@@ -207,13 +255,7 @@ __device__ __forceinline__ void attend_keys(const KVGroup<U, PM>& r, int n,
       float mx = kNegInf;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < PM; ++e) {
-          part = fmaf(q[g][e].x, r.k[u][e].x, part);
-          part = fmaf(q[g][e].y, r.k[u][e].y, part);
-        }
-        s[u] = warp_sum(part) * scale;
+        s[u] = score(q[g], r.k[u], scale);
         if (u < n) mx = fmaxf(mx, s[u]);
       }
       const float m_new = fmaxf(st.m[g], mx);
@@ -230,10 +272,12 @@ __device__ __forceinline__ void attend_keys(const KVGroup<U, PM>& r, int n,
         if (u < n) {
           const float p = expf(s[u] - m_new);
           l += p;
+          const float pv =
+              kRound ? __bfloat162float(__float2bfloat16(p)) : p;
 #pragma unroll
           for (int e = 0; e < PM; ++e) {
-            a[e].x = fmaf(p, r.v[u][e].x, a[e].x);
-            a[e].y = fmaf(p, r.v[u][e].y, a[e].y);
+            a[e].x = fmaf(pv, r.v[u][e].x, a[e].x);
+            a[e].y = fmaf(pv, r.v[u][e].y, a[e].y);
           }
         }
       }
@@ -242,6 +286,31 @@ __device__ __forceinline__ void attend_keys(const KVGroup<U, PM>& r, int n,
 #pragma unroll
       for (int e = 0; e < PM; ++e) st.acc[g][e] = a[e];
     }
+  }
+}
+
+// One warp's sweep over the keys [lo, hi]: the warps take groups of U
+// keys in turn, and each issues its next group's loads before it folds
+// the current one, fold(group, n).
+template <typename TC, int U, int PM, bool kV, typename Row, typename Fold>
+__device__ __forceinline__ void sweep(const TC* __restrict__ kc,
+                                      const TC* __restrict__ vc,
+                                      const float* __restrict__ sk,
+                                      const float* __restrict__ sv, int lo,
+                                      int hi, int Dh, Row row, Fold fold) {
+  const int warp = threadIdx.x >> 5;
+  int p0 = lo + warp * U;
+  int n = p0 <= hi ? min(U, hi - p0 + 1) : 0;
+  KVGroup<U, PM> cur, nxt;
+  load_group<TC, U, PM, kV>(kc, vc, sk, sv, p0, n, Dh, row, cur);
+  while (n > 0) {
+    const int p1 = p0 + kWarps * U;
+    const int n1 = p1 <= hi ? min(U, hi - p1 + 1) : 0;
+    load_group<TC, U, PM, kV>(kc, vc, sk, sv, p1, n1, Dh, row, nxt);
+    fold(cur, n);
+    cur = nxt;
+    p0 = p1;
+    n = n1;
   }
 }
 
@@ -283,21 +352,28 @@ __device__ void decode_block(const TQ* __restrict__ q,
       st.acc[g][e] = make_float2(0.f, 0.f);
     }
   }
-  // warps take groups of U keys in turn; each warp issues its next
-  // group's loads before it folds the current one
-  int p0 = lo + warp * U;
-  int n = p0 <= hi ? min(U, hi - p0 + 1) : 0;
-  KVGroup<U, PM> cur, nxt;
-  load_group<TC, U, PM>(kc, vc, sk, sv, p0, n, Dh, row, cur);
-  while (n > 0) {
-    const int p1 = p0 + kWarps * U;
-    const int n1 = p1 <= hi ? min(U, hi - p1 + 1) : 0;
-    load_group<TC, U, PM>(kc, vc, sk, sv, p1, n1, Dh, row, nxt);
-    attend_keys<GM, U, PM>(cur, n, qr, G, scale, st);
-    cur = nxt;
-    p0 = p1;
-    n = n1;
+  constexpr bool kRound = RoundsP<TC>::value;
+  if constexpr (kRound) {
+    // the row max first, shared by the warps, so that every warp rounds
+    // p against it (C6)
+    sweep<TC, U, PM, false>(kc, vc, sk, sv, lo, hi, Dh, row,
+                            [&](const KVGroup<U, PM>& r, int n) {
+                              max_keys<GM, U, PM>(r, n, qr, G, scale, st.m);
+                            });
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (lane == 0) red_m[warp][g] = st.m[g];
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      for (int w = 0; w < kWarps; ++w) st.m[g] = fmaxf(st.m[g], red_m[w][g]);
+    __syncthreads();   // red_m is written again at the merge
   }
+  sweep<TC, U, PM, true>(kc, vc, sk, sv, lo, hi, Dh, row,
+                         [&](const KVGroup<U, PM>& r, int n) {
+                           attend_keys<kRound, GM, U, PM>(r, n, qr, G, scale,
+                                                          st);
+                         });
 
   // merge the warps' partial softmaxes
 #pragma unroll

@@ -10,6 +10,11 @@
 //   flash_bwd_dq_kernel    — replaces B3c, `_flash_bwd_dq_kernel`: dQ with
 //     one Q tile pinned while the K tiles are swept.
 //
+// B3b and B3c come in two designs, chosen per call by `b3_design` in
+// ops/attention.py (by dtype, head dim and alignment, before the launch;
+// neither falls back to the other): design 1 above, and design 2,
+// `tc::bwd_dkdv_wgmma_kernel` and `tc::bwd_dq_wgmma_kernel`, below.
+//
 // The backward rematerializes each score tile from the saved lse, as the
 // TPU kernels do (`_bwd_tile`): p = exp(s - L), ds = p * (dp - delta) *
 // scale, with delta = rowsum(dO * O) computed by the caller in f32. The
@@ -18,9 +23,10 @@
 // Bound. Attention is matrix products over the visible (query, key) pairs:
 // 2 products forward and 5 backward (S, dP, dV, dK, dQ), 2 Dh flops a pair
 // each. At T 2048 and Dh 64 that is about 64 flops a byte moved, so the
-// kernels are bound by the arithmetic rate, not by memory.
+// kernels are bound by the arithmetic rate, not by memory: 67 TFLOP/s on
+// the FMA units in float32, 989 on the tensor cores in bfloat16.
 //
-// Design. Exact float32 arithmetic on the FMA units (no tensor cores and
+// Design 1. Exact float32 arithmetic on the FMA units (no tensor cores and
 // no TF32: the port's float32 path is exact float32); bfloat16 inputs are
 // widened to float32 as they are staged and rounded once on output. One
 // block of 256 threads owns a 64-row tile; its partner tiles (64 keys, or
@@ -33,21 +39,57 @@
 // 68) to the second product, where the thread owns 4 rows and Dh / 16
 // output columns in registers (that tile arithmetic lives in
 // attention_tiles.cuh, shared with the banded kernel B4). The head dim is
-// a compile-time tile DM in {32, 64, 128}; the smallest that holds Dh is launched and columns past
-// Dh are zeros. Any Tq and Tk work: rows and keys past the end are staged
-// as zeros and masked out of the softmax (p = 0). A causal block stops at
-// its last row's tile (the forward and dQ kernels) or starts at its first
-// row's (dK/dV). Shared memory is 45-170 KB, above the 48 KB static limit,
-// so each instantiation raises its dynamic limit once.
-// Not done yet: tensor cores (wgmma in bf16, TF32 if allowed), TMA and a
-// pipelined K/V ring — later work.
+// a compile-time tile DM in {32, 64, 128}; the smallest that holds Dh is
+// launched and columns past Dh are zeros. Any Tq and Tk work: rows and
+// keys past the end are staged as zeros and masked out of the softmax
+// (p = 0). A causal block stops at its last row's tile (the forward and
+// dQ kernels) or starts at its first row's (dK/dV). Shared memory is
+// 45-170 KB, above the 48 KB static limit, so each instantiation raises
+// its dynamic limit once.
+//
+// Design 2 (B3b and B3c in bfloat16 at Dh 64 and 128, 16-byte aligned
+// q, k, v, dO): the five products on the tensor cores, `wgmma` m64nNk16
+// with float32 accumulators, fed by TMA (128-byte swizzled 64 x 64 boxes
+// of a 3-D [BH, T, Dh] tensor map, zero-filled past T). A block is two
+// consumer warpgroups of 64 rows each and a producer warpgroup whose one
+// warp keeps a ring of kStages streamed tiles in flight, guarded by
+// full/empty mbarriers (csrc/hopper_gemm.cuh). dK/dV: the block's 128 keys
+// pinned, Q and dO tiles (and their 64 lse and delta values) streamed;
+// each warpgroup computes S^T and dP^T with its keys as the 64 rows, P^T
+// and dS^T in registers, then dV += P^T dO and dK += dS^T Q with A taken
+// from registers (P^T, dS^T rounded to bfloat16 in place: the
+// accumulator fragment is the A fragment, `acc_to_a`) and B the streamed
+// tile read N-major through the transpose bit. dQ: the block's 128
+// queries pinned, K and V tiles streamed; S, dP, then dQ += dS K.
+// Causal: dead tiles are skipped and only tiles that cross the diagonal
+// or an end are masked; the dK/dV grid puts the key blocks on y, so the
+// first key blocks (which sweep the most Q tiles) start first, and the dQ
+// grid reverses its query blocks for the same reason. The exponent is
+// exp2 of the score times scale * log2 e less lse * log2 e. Each
+// warpgroup's sweep is software-pipelined: tile i + 1's first products
+// are issued right behind tile i's last, and only waited for at tile
+// i + 1, while the other warpgroup's products fill the tensor cores
+// during this one's softmax. ptxas serializes `wgmma`s (warnings C7515,
+// C7518) where a product is in flight across a branch it cannot prove
+// uniform, or where an accumulator is written outside the products; so
+// the warpgroup index is broadcast with a shuffle, barrier waits and
+// lane branches sit where nothing is in flight, the last tile is peeled,
+// each product's first k-slice overwrites its accumulator (scale-d 0)
+// instead of a zeroing, and P and dS go from the accumulators straight
+// into the A fragments.
+// Not done yet: the forward B3a on the tensor cores, and a ping-pong of
+// the two warpgroups' softmax phases — later work.
 //
 // Numerics. As the TPU kernels: the causal mask value is -1e30, the
 // running max starts at -1e30, l is clamped at 1e-30 before the division
-// and the log. Build without --use_fast_math so expf, logf and the
-// division stay IEEE.
+// and the log. In bfloat16 every design rounds p (forward: against the
+// running max of its 64-key tile), and dS, to bfloat16 where they meet the
+// second products, as the TPU kernels' `.astype` does (C6); l, the running
+// statistics and dS itself come from the unrounded float32 p. Build
+// without --use_fast_math so expf, logf and the division stay IEEE.
 
 #include "attention_tiles.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -141,8 +183,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
+        // l sums the unrounded p; P·V takes it rounded (C6)
         const float p = kj < Tk ? expf(s[i][j] - m_new) : 0.f;
-        sP[(ty * 4 + i) * kLDP + tx + 16 * j] = p;
+        sP[(ty * 4 + i) * kLDP + tx + 16 * j] = operand<T>(p);
         rs += p;
       }
       rs = group_sum(rs);
@@ -227,8 +270,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qc = q0 + lc;
         const bool live = kr < Tk && qc < Tq && (!causal || qc >= kr);
         const float p = live ? expf(st[i][j] * scale - sL[lc]) : 0.f;
-        sPt[(ty * 4 + i) * kLDP + lc] = p;
-        sSt[(ty * 4 + i) * kLDP + lc] = p * (dpt[i][j] - sD[lc]) * scale;
+        // dS from the unrounded p; both meet dO and Q rounded (C6)
+        sPt[(ty * 4 + i) * kLDP + lc] = operand<T>(p);
+        sSt[(ty * 4 + i) * kLDP + lc] =
+            operand<T>(p * (dpt[i][j] - sD[lc]) * scale);
       }
     }
     __syncthreads();
@@ -291,7 +336,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kc = k0 + tx + 16 * j;
         const bool live = qr < Tq && kc < Tk && (!causal || kc <= qr);
         const float p = live ? expf(s[i][j] * scale - sL[li]) : 0.f;
-        sS[li * kLDP + tx + 16 * j] = p * (dp[i][j] - sD[li]) * scale;
+        sS[li * kLDP + tx + 16 * j] =
+            operand<T>(p * (dp[i][j] - sD[li]) * scale);
       }
     }
     __syncthreads();
@@ -400,6 +446,504 @@ int run(Which w, const Args& a, int dtype, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------------------
+// Design 2 of B3b and B3c: bfloat16 on the tensor cores (wgmma fed by TMA)
+// ------------------------------------------------------------------------
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kThreads = 384;          // warpgroups 0, 1 compute; 2 loads
+constexpr int kBox = 64 * 64 * 2;      // a 64 x 64 bfloat16 TMA box: 8 KB
+constexpr int kStages = 3;             // depth of the streamed-tile ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A 64-row tile of a [BH, T, DH] operand is DH / 64 boxes of 64 columns,
+// each 64 rows of 128 bytes, 128B-swizzled, kBox apart.
+template <int DH>
+struct Tile {
+  static constexpr int kChunks = DH / 64;
+  static constexpr int kBytes = kChunks * kBox;
+  static constexpr int kAcc = DH / 2;  // floats of an m64nDH accumulator
+  // setmaxnreg split of the 64K registers (2 x 128 consumers + 128
+  // producers): dK, dV and the S, dP fragments at DH 128 need 240
+  static constexpr int kConsumerRegs = DH == 128 ? 240 : 224;
+  static constexpr int kProducerRegs = DH == 128 ? 24 : 56;
+};
+
+// descriptor of k16 slice kk of a K-major tile (A, or B with kTransB 0):
+// box kk / 4, 32 bytes a slice along the swizzled 128-byte rows
+__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * kBox + (kk & 3) * 32, 16, 1024);
+}
+// descriptor of k16 slice kk (rows 16 kk ..) of an N-major B tile whose
+// N = DH columns are its boxes, kBox apart
+__device__ __forceinline__ uint64_t nmajor(const uint8_t* tile, int kk) {
+  return sw128_desc(tile + kk * 2048, kBox, 1024);
+}
+
+// issue the loads of one 64-row tile (all its boxes) of a [BH, T, DH] map
+template <int DH>
+__device__ __forceinline__ void load_tile_tma(uint8_t* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int row,
+                                              int bh) {
+#pragma unroll
+  for (int c = 0; c < Tile<DH>::kChunks; ++c)
+    tma_load_3d(dst + c * kBox, map, bar, 64 * c, row, bh);
+}
+
+// an m64nDH float32 accumulator of rows r0 + (fragment row) into a
+// row-major [n, DH] bfloat16 output, rounded once; rows past n skipped
+template <int DH>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ out,
+                                          const float (&d)[DH / 2], int r0,
+                                          int n, int lane, int warp) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 16 * warp + lane / 4 + 8 * h;
+    if (r >= n) continue;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + (size_t)r * DH + 8 * j +
+                                   2 * (lane % 4)) =
+          pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+  }
+}
+
+template <int DH>
+__host__ __device__ constexpr int dkdv_stage() {
+  // Q tile, dO tile, 64 lse and 64 delta values
+  return 2 * Tile<DH>::kBytes + 1024;
+}
+template <int DH>
+__host__ __device__ constexpr int dkdv_smem() {
+  return 1024 + 4 * Tile<DH>::kBytes + kStages * dkdv_stage<DH>() +
+         8 * (2 * kStages + 1);
+}
+template <int DH>
+__host__ __device__ constexpr int dq_smem() {
+  return 1024 + 4 * Tile<DH>::kBytes + kStages * 2 * Tile<DH>::kBytes +
+         8 * (2 * kStages + 1);
+}
+
+// B3b, design 2. Block (bh, kb) owns keys 128 kb .. + 127: warpgroup w
+// the 64 from kw0 = 128 kb + 64 w, its K and V tiles loaded once. The
+// producer warp streams the Q and dO tiles the block's keys see (causal:
+// from the tile of its first key on) with their 64 lse (times log2 e) and
+// 64 delta values through a ring of kStages. Per Q tile each warpgroup
+// computes, transposed so that its keys are the M rows:
+//   S^T = K Q^T, dP^T = V dO^T            (A, B K-major, from shared memory)
+//   P^T = exp(S^T scale - lse[col]), dS^T = P^T (dP^T - delta[col]) scale
+//   dV += P^T dO, dK += dS^T Q            (A from registers: P^T, dS^T
+//                                          rounded to bfloat16; B N-major)
+// with dK, dV in float32 registers across the sweep, rounded once.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap omap,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int Tq, int Tk,
+                      float scale, int causal) {
+  using G = Tile<DH>;
+  constexpr int kStage = dkdv_stage<DH>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sK = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sV = sK + 2 * G::kBytes;
+  uint8_t* ring = sV + 2 * G::kBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+  const int bh = blockIdx.x, k0 = blockIdx.y * 128;
+  // the warpgroup and warp broadcast from lane 0, so that the compiler
+  // knows them uniform: loops bounded by them then keep the products in
+  // flight across iterations asynchronous
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int warp = __shfl_sync(0xffffffffu, t / 32, 0);
+  const int qt0 = causal ? k0 / 64 : 0;
+  const int ntiles = (Tq + 63) / 64 - qt0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 33);     // the TMA arrival + 32 lanes' stats
+      mbar_init(&empty[s], 8);     // one arrival from each consumer warp
+    }
+    mbar_init(kv_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    reg_dealloc<G::kProducerRegs>();
+    if (warp == 0) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 4 * G::kBytes);
+        for (int w = 0; w < 2; ++w) {
+          load_tile_tma<DH>(sK + w * G::kBytes, &kmap, kv_full, k0 + 64 * w,
+                            bh);
+          load_tile_tma<DH>(sV + w * G::kBytes, &vmap, kv_full, k0 + 64 * w,
+                            bh);
+        }
+      }
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % kStages, round = i / kStages;
+        if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+        uint8_t* st = ring + s * kStage;
+        const int q0 = (qt0 + i) * 64;
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * G::kBytes);
+          load_tile_tma<DH>(st, &qmap, &full[s], q0, bh);
+          load_tile_tma<DH>(st + G::kBytes, &omap, &full[s], q0, bh);
+        }
+        float* stats = reinterpret_cast<float*>(st + 2 * G::kBytes);
+        for (int r = lane; r < 64; r += 32) {
+          const int q = q0 + r;
+          const bool in = q < Tq;
+          stats[r] = in ? lse[(size_t)bh * Tq + q] * kLog2e : 0.f;
+          stats[64 + r] = in ? delta[(size_t)bh * Tq + q] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    reg_alloc<G::kConsumerRegs>();
+    const int kw0 = k0 + 64 * wg;
+    const uint8_t* myK = sK + wg * G::kBytes;
+    const uint8_t* myV = sV + wg * G::kBytes;
+    const float sl2 = scale * kLog2e;
+    float dka[G::kAcc], dva[G::kAcc];
+#pragma unroll
+    for (int i = 0; i < G::kAcc; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(kv_full, 0);
+    // dead tiles (past Tk, or causal: every query of the tile before this
+    // warpgroup's first key) form a prefix of the sweep; they are only
+    // handed back
+    auto dead = [&](int i) {
+      return kw0 >= Tk || (causal && (qt0 + i) * 64 + 63 < kw0);
+    };
+    int first = 0;
+    for (; first < ntiles && dead(first); ++first) {
+      mbar_wait(&full[first % kStages], (first / kStages) & 1);
+      if (lane == 0) mbar_arrive(&empty[first % kStages]);
+    }
+    // Software-pipelined over the live tiles: tile i + 1's S^T and dP^T
+    // are issued right behind tile i's dV/dK products. Every wait on a
+    // barrier and every branch on a lane sits where no product is in
+    // flight, and the last tile is peeled (`next` false), so the issues
+    // are never conditional: ptxas then keeps the products asynchronous.
+    // Each first k-slice overwrites its accumulator (scale-d 0).
+    float st[32] = {}, dpt[32] = {};
+    auto issue_sdp = [&](int i) {
+      const uint8_t* sq = ring + (i % kStages) * kStage;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        WgmmaBf16<64, 0>::run(st, kmajor(myK, kk), kmajor(sq, kk),
+                              kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        WgmmaBf16<64, 0>::run(dpt, kmajor(myV, kk),
+                              kmajor(sq + G::kBytes, kk), kk > 0);
+      wgmma_commit();
+    };
+    auto step = [&](int i, auto next) {
+      const uint8_t* sq = ring + (i % kStages) * kStage;
+      const uint8_t* so = sq + G::kBytes;
+      const float* stats = reinterpret_cast<const float*>(so + G::kBytes);
+      const int q0 = (qt0 + i) * 64;
+      // S^T and dP^T of tile i, and the dV/dK products of tile i - 1,
+      // are done; tile i - 1's stage is free
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      if (i > first && lane == 0) mbar_arrive(&empty[(i - 1) % kStages]);
+      // P^T (rows are keys, columns queries) and dS^T, 16 queries at a
+      // time, straight into the rounded A fragments: the accumulators are
+      // only read, never written, outside the products. Masks only on
+      // the tiles that cross the diagonal or the ends: keys past Tk and
+      // queries past Tq were zero-filled, so their scores are 0, not -inf.
+      const bool edge = (causal && q0 < kw0 + 64) || q0 + 64 > Tq ||
+                        kw0 + 64 > Tk;
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float p[8], ds[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int x = 8 * kk + e;
+          const int c = 8 * (x / 4) + 2 * (lane % 4) + (x & 1);
+          float pe = exp2f(fmaf(st[x], sl2, -stats[c]));
+          if (edge) {
+            const int key = kw0 + 16 * warp + lane / 4 + 8 * ((x >> 1) & 1);
+            const int q = q0 + c;
+            if (key >= Tk || q >= Tq || (causal && q < key)) pe = 0.f;
+          }
+          p[e] = pe;
+          ds[e] = pe * (dpt[x] - stats[64 + c]) * scale;
+        }
+        acc_to_a(p, 0, pa[kk]);
+        acc_to_a(ds, 0, da[kk]);
+      }
+      if constexpr (decltype(next)::value)
+        mbar_wait(&full[(i + 1) % kStages], ((i + 1) / kStages) & 1);
+      fence_regs(dva);
+      fence_regs(dka);
+      wgmma_fence();   // the A registers were just written
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaBf16RS<DH, 1>::run(dva, pa[kk], nmajor(so, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaBf16RS<DH, 1>::run(dka, da[kk], nmajor(sq, kk));
+      wgmma_commit();
+      if constexpr (decltype(next)::value) issue_sdp(i + 1);
+    };
+    if (first < ntiles) {
+      mbar_wait(&full[first % kStages], (first / kStages) & 1);
+      issue_sdp(first);
+      int i = first;
+      for (; i + 1 < ntiles; ++i) step(i, std::true_type{});
+      step(i, std::false_type{});
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      if (lane == 0) mbar_arrive(&empty[i % kStages]);
+    }
+    store_acc<DH>(dk + (size_t)bh * Tk * DH, dka, kw0, Tk, lane, warp);
+    store_acc<DH>(dv + (size_t)bh * Tk * DH, dva, kw0, Tk, lane, warp);
+  }
+}
+
+// B3c, design 2. Block (bh, y) owns queries q0 .. q0 + 127, the last
+// query blocks first (causal: they sweep the most key tiles): warpgroup w
+// the 64 from qw0 = q0 + 64 w, its Q and dO tiles loaded once and its
+// rows' lse and delta in registers. The producer streams the K and V tiles
+// (causal: up to the tile of the block's last query). Per K tile:
+//   S = Q K^T, dP = dO V^T                  (A, B K-major)
+//   P = exp(S scale - lse[row]), dS = P (dP - delta[row]) scale
+//   dQ += dS K                              (A from registers: dS rounded
+//                                            to bfloat16; B N-major)
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap omap,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int Tq, int Tk,
+                    float scale, int causal) {
+  using G = Tile<DH>;
+  constexpr int kStage = 2 * G::kBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sO = sQ + 2 * G::kBytes;
+  uint8_t* ring = sO + 2 * G::kBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  uint64_t* empty = full + kStages;
+  uint64_t* qo_full = empty + kStages;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 128;
+  // the warpgroup and warp broadcast from lane 0, so that the compiler
+  // knows them uniform: loops bounded by them then keep the products in
+  // flight across iterations asynchronous
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int warp = __shfl_sync(0xffffffffu, t / 32, 0);
+  int nkt = (Tk + 63) / 64;
+  if (causal) nkt = min(nkt, min(q0 + 127, Tq - 1) / 64 + 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init(qo_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    reg_dealloc<G::kProducerRegs>();
+    if (t == 0) {
+      mbar_expect_tx(qo_full, 4 * G::kBytes);
+      for (int w = 0; w < 2; ++w) {
+        load_tile_tma<DH>(sQ + w * G::kBytes, &qmap, qo_full, q0 + 64 * w,
+                          bh);
+        load_tile_tma<DH>(sO + w * G::kBytes, &omap, qo_full, q0 + 64 * w,
+                          bh);
+      }
+      for (int i = 0; i < nkt; ++i) {
+        const int s = i % kStages, round = i / kStages;
+        if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+        uint8_t* st = ring + s * kStage;
+        mbar_expect_tx(&full[s], kStage);
+        load_tile_tma<DH>(st, &kmap, &full[s], 64 * i, bh);
+        load_tile_tma<DH>(st + G::kBytes, &vmap, &full[s], 64 * i, bh);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    reg_alloc<G::kConsumerRegs>();
+    const int qw0 = q0 + 64 * wg;
+    const uint8_t* myQ = sQ + wg * G::kBytes;
+    const uint8_t* myO = sO + wg * G::kBytes;
+    const float sl2 = scale * kLog2e;
+    // this thread's two rows: lse (times log2 e) and delta
+    float rl[2], rd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = qw0 + 16 * warp + lane / 4 + 8 * h;
+      rl[h] = q < Tq ? lse[(size_t)bh * Tq + q] * kLog2e : 0.f;
+      rd[h] = q < Tq ? delta[(size_t)bh * Tq + q] : 0.f;
+    }
+    float dqa[G::kAcc];
+#pragma unroll
+    for (int i = 0; i < G::kAcc; ++i) dqa[i] = 0.f;
+    mbar_wait(qo_full, 0);
+    // live tiles are a prefix of the sweep: none past Tq, and (causal)
+    // none past this warpgroup's last query; the rest are only handed back
+    const int nlive = qw0 >= Tq ? 0
+                      : causal ? min(nkt, (qw0 + 63) / 64 + 1) : nkt;
+    // Software-pipelined as the dK/dV kernel: tile i + 1's S and dP are
+    // issued right behind tile i's dQ product.
+    float sc[32] = {}, dp[32] = {};
+    auto issue_sdp = [&](int i) {
+      const uint8_t* sk = ring + (i % kStages) * kStage;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        WgmmaBf16<64, 0>::run(sc, kmajor(myQ, kk), kmajor(sk, kk),
+                              kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        WgmmaBf16<64, 0>::run(dp, kmajor(myO, kk),
+                              kmajor(sk + G::kBytes, kk), kk > 0);
+      wgmma_commit();
+    };
+    auto step = [&](int i, auto next) {
+      const uint8_t* sk = ring + (i % kStages) * kStage;
+      const int kt0 = 64 * i;
+      // S and dP of tile i, and the dQ product of tile i - 1, are done
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % kStages]);
+      const bool edge = (causal && kt0 + 63 > qw0) || kt0 + 64 > Tk ||
+                        qw0 + 64 > Tq;
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float ds[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int x = 8 * kk + e;
+          const int h = (x >> 1) & 1;
+          float p = exp2f(fmaf(sc[x], sl2, -rl[h]));
+          if (edge) {
+            const int q = qw0 + 16 * warp + lane / 4 + 8 * h;
+            const int key = kt0 + 8 * (x / 4) + 2 * (lane % 4) + (x & 1);
+            if (key >= Tk || q >= Tq || (causal && key > q)) p = 0.f;
+          }
+          ds[e] = p * (dp[x] - rd[h]) * scale;
+        }
+        acc_to_a(ds, 0, da[kk]);
+      }
+      if constexpr (decltype(next)::value)
+        mbar_wait(&full[(i + 1) % kStages], ((i + 1) / kStages) & 1);
+      fence_regs(dqa);
+      wgmma_fence();   // the A registers were just written
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaBf16RS<DH, 1>::run(dqa, da[kk], nmajor(sk, kk));
+      wgmma_commit();
+      if constexpr (decltype(next)::value) issue_sdp(i + 1);
+    };
+    if (nlive > 0) {
+      mbar_wait(&full[0], 0);
+      issue_sdp(0);
+      int i = 0;
+      for (; i + 1 < nlive; ++i) step(i, std::true_type{});
+      step(i, std::false_type{});
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      if (lane == 0) mbar_arrive(&empty[i % kStages]);
+    }
+    for (int i = nlive; i < nkt; ++i) {
+      mbar_wait(&full[i % kStages], (i / kStages) & 1);
+      if (lane == 0) mbar_arrive(&empty[i % kStages]);
+    }
+    store_acc<DH>(dq + (size_t)bh * Tq * DH, dqa, qw0, Tq, lane, warp);
+  }
+}
+
+// 3-D [BH, T, DH] bfloat16 tensor map read in 64 x 64 boxes
+int encode_rows(CUtensorMap* map, const void* base, int BH, int T, int DH) {
+  const uint64_t dims[3] = {(uint64_t)DH, (uint64_t)T, (uint64_t)BH};
+  const uint64_t strides[2] = {(uint64_t)DH * 2, (uint64_t)T * DH * 2};
+  const uint32_t box[3] = {64, 64, 1};
+  return encode_tensor_map(map, base, 3, dims, strides, box);
+}
+
+template <int DH>
+int launch(Which w, const Args& a, cudaStream_t st) {
+  CUtensorMap qm, km, vm, om;
+  int rc = encode_rows(&qm, a.q, a.BH, a.Tq, DH);
+  if (!rc) rc = encode_rows(&km, a.k, a.BH, a.Tk, DH);
+  if (!rc) rc = encode_rows(&vm, a.v, a.BH, a.Tk, DH);
+  if (!rc) rc = encode_rows(&om, a.dout, a.BH, a.Tq, DH);
+  if (rc) return rc;
+  using B = __nv_bfloat16;
+  if (w == kDkdv) {
+    constexpr int smem = dkdv_smem<DH>();
+    static const cudaError_t once = cudaFuncSetAttribute(
+        bwd_dkdv_wgmma_kernel<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (once != cudaSuccess) return (int)once;
+    bwd_dkdv_wgmma_kernel<DH>
+        <<<dim3(a.BH, (a.Tk + 127) / 128), kThreads, smem, st>>>(
+            qm, km, vm, om, a.lse, a.delta, static_cast<B*>(a.dk),
+            static_cast<B*>(a.dv), a.Tq, a.Tk, a.scale, a.causal);
+  } else {
+    constexpr int smem = dq_smem<DH>();
+    static const cudaError_t once = cudaFuncSetAttribute(
+        bwd_dq_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (once != cudaSuccess) return (int)once;
+    bwd_dq_wgmma_kernel<DH>
+        <<<dim3(a.BH, (a.Tq + 127) / 128), kThreads, smem, st>>>(
+            qm, km, vm, om, a.lse, a.delta, static_cast<B*>(a.dq), a.Tq,
+            a.Tk, a.scale, a.causal);
+  }
+  return (int)cudaGetLastError();
+}
+
+int run(Which w, const Args& a, void* stream) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) |
+                         reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v) |
+                         reinterpret_cast<uintptr_t>(a.dout);
+  if ((a.Dh != 64 && a.Dh != 128) || (ptrs & 15) || a.Tq < 0 ||
+      a.Tk < 1 || a.BH < 0 || (a.causal && a.Tq != a.Tk) ||
+      (a.Tq + 127) / 128 > 65535 || (a.Tk + 127) / 128 > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (a.BH == 0 || a.Tq == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return a.Dh == 64 ? launch<64>(w, a, st) : launch<128>(w, a, st);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -440,6 +984,35 @@ int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
   a.BH = BH; a.Tq = Tq; a.Tk = Tk; a.Dh = Dh; a.scale = scale;
   a.causal = causal;
   return run(kDq, a, dtype, stream);
+}
+
+// Design 2 of B3b and B3c, bfloat16 on the tensor cores: q, k, v, dout
+// bfloat16 [BH, T, Dh] with Dh 64 or 128 and 16-byte aligned data; lse and
+// delta float32 [BH, Tq]; dk, dv, dq bfloat16. Returns 0 or a cudaError_t.
+int dl4j_flash_bwd_dkdv_wgmma(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* delta, void* dk, void* dv,
+                              int BH, int Tq, int Tk, int Dh, float scale,
+                              int causal, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = const_cast<float*>(lse);
+  a.delta = delta; a.dk = dk; a.dv = dv;
+  a.BH = BH; a.Tq = Tq; a.Tk = Tk; a.Dh = Dh; a.scale = scale;
+  a.causal = causal;
+  return tc::run(kDkdv, a, stream);
+}
+
+int dl4j_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dq, int BH, int Tq,
+                            int Tk, int Dh, float scale, int causal,
+                            void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = const_cast<float*>(lse);
+  a.delta = delta; a.dq = dq;
+  a.BH = BH; a.Tq = Tq; a.Tk = Tk; a.Dh = Dh; a.scale = scale;
+  a.causal = causal;
+  return tc::run(kDq, a, stream);
 }
 
 const char* dl4j_cuda_error_string(int code) {

@@ -17,7 +17,10 @@
 // - `wgmma.mma_async` m64nNk16, bfloat16 in, float32 accumulators, for
 //   N in {64, 128, 256}, A K-major from shared memory, B K-major or
 //   N-major (the transpose bit: a [K, N] row-major operand is read as it
-//   lies, without a transposed copy);
+//   lies, without a transposed copy); and for N in {64, 128} with A from
+//   registers (the RS form), whose A fragments `acc_to_a` makes from the
+//   float32 accumulator of an earlier product (first user: the flash
+//   backward of flash_attention.cu, where P and dS feed the next product);
 // - named barriers and `setmaxnreg` for warp-specialised blocks;
 // - on the host, `encode_tensor_map`: `cuTensorMapEncodeTiled` reached
 //   through `cudaGetDriverEntryPointByVersion`, so a library needs no
@@ -26,6 +29,12 @@
 // Accumulator fragment of m64nNk16 (float32): thread t of the warpgroup
 // holds d[4 j + e], j < N / 8, at row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2)
 // and column 8 j + 2 (t % 4) + (e % 2).
+// A fragment of m64nNk16 with A in registers (bfloat16): thread t holds
+// four 32-bit registers a[i], each a pair of bfloat16 (low half first),
+// at row 16 (t / 32) + (t % 32) / 4 + 8 (i % 2) and columns
+// 2 (t % 4) + 8 (i / 2) and the next one. Column block 2 kk + i / 2 of an
+// accumulator is thus k16 slice kk of A in the same thread: no data moves
+// between threads (`acc_to_a`).
 
 #pragma once
 
@@ -192,15 +201,18 @@ struct WgmmaBf16;
 
 template <int kTransB>
 struct WgmmaBf16<64, kTransB> {
+  // d = A x B where scale_d is 0 (d's old values are ignored: a product
+  // starts without zeroing d, so no other instruction defines d while
+  // earlier wgmmas are in flight), d += A x B where it is 1
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
         "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %34;\n}\n"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -208,7 +220,11 @@ struct WgmmaBf16<64, kTransB> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "n"(kTransB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+  }
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+    run(d, a, b, 1);
   }
 };
 
@@ -289,6 +305,83 @@ struct WgmmaBf16<256, kTransB> {
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
           "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "l"(a), "l"(b), "n"(kTransB));
+  }
+};
+
+// bfloat16 pair of (lo, hi), lo in the low half, rounded to nearest
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The A fragment of k16 slice kk of the next product from an m64nN float32
+// accumulator d whose columns are that product's K dimension, each value
+// rounded once to bfloat16 (see the fragment layouts above).
+template <int kN>
+__device__ __forceinline__ void acc_to_a(const float (&d)[kN], int kk,
+                                         uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// d[N / 2] += A (64 x 16, from registers: `acc_to_a`) x B (16 x N,
+// descriptor b; kTransB 1: N-major, 0: K-major)
+template <int N, int kTransB>
+struct WgmmaBf16RS;
+
+template <int kTransB>
+struct WgmmaBf16RS<64, kTransB> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(kTransB));
+  }
+};
+
+template <int kTransB>
+struct WgmmaBf16RS<128, kTransB> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(kTransB));
   }
 };
 

@@ -12,6 +12,16 @@ Three kernels, hand-written in CUDA C++ for Hopper
   swept, from the saved lse and Δ = rowsum(dO·O) (computed here in f32,
   as JAX computes it in XLA).
 
+B3b and B3c come in two designs, chosen by `b3_design` from the dtype
+and the shape before the launch (neither is a fallback of the other):
+"wgmma" (design 2) for bfloat16 at Dh 64 and 128 — TMA-fed tiles and
+`wgmma` on the tensor cores, P and dS rounded to bfloat16 as operands —
+and "ffma" (design 1, exact float32 FMA) for float32 and every other
+shape. `LAUNCHES_BY_DESIGN[(kernel, design)]` counts their launches.
+In bfloat16 every design, and the plain versions, round the
+probabilities and score gradients to bfloat16 where they meet the
+second products, as the TPU kernels do (C6); float32 never rounds.
+
 `flash_attention` is a `torch.autograd.Function` over the two. Beside
 each kernel stands its plain PyTorch version: `flash_attention_plain`
 (dense masked softmax) and `flash_attention_bwd_plain` (the same
@@ -31,18 +41,25 @@ is -1e30, as in JAX.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128        # the kernels' largest head-dim tile
 _MAX_BH = 65535           # grid.y
+KERNEL_BLOCK_K = 64       # keys a B3a block folds into its running max
+WGMMA_HEAD_DIMS = (64, 128)
 
 # kernel name -> launches (wrapper) / plain-version calls on CUDA tensors
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd_dkdv": 0,
                             "flash_attention_bwd_dq": 0}
+DESIGNS = ("ffma", "wgmma")
+LAUNCHES_BY_DESIGN: Dict[Tuple[str, str], int] = {
+    (k, d): 0 for k in ("flash_attention_bwd_dkdv",
+                        "flash_attention_bwd_dq") for d in DESIGNS}
 PLAIN_ON_CUDA: Dict[str, int] = {"flash_attention_fwd": 0,
                                  "flash_attention_bwd": 0}
 
@@ -50,7 +67,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
+    for d in (LAUNCHES, LAUNCHES_BY_DESIGN, PLAIN_ON_CUDA):
         for k in d:
             d[k] = 0
 
@@ -72,28 +89,63 @@ def _scores(q, k, causal: bool, scale: float, acc):
 
 
 # ------------------------------------------------------------ plain versions
+def _pv(s, v, acc, block_k):
+    """(P·V, l, m) for scores s [BH, Tq, Tk] (masked entries -1e30):
+    p = exp(s - m) with m the running max over key blocks of `block_k`
+    (None: one block, the row max), l = Σp unrounded, m [BH, Tq, 1] the
+    row max.
+    Where v is narrower than the accumulation dtype (bfloat16), p meets v
+    rounded to v's dtype, as the TPU kernel's `p.astype(v.dtype)`; each
+    block's product is then rescaled to the final max, as an online
+    softmax rescales its accumulator. Float32 and float64 never round,
+    so there the blocks change nothing and one block is taken."""
+    tk = s.shape[-1]
+    bk = tk if block_k is None or v.dtype == acc else block_k
+    nb = -(-tk // bk)
+    pad = nb * bk - tk
+    sb = F.pad(s, (0, pad), value=_NEG_INF).unflatten(-1, (nb, bk))
+    m_run = sb.amax(dim=-1).cummax(dim=-1).values          # [BH, Tq, nb]
+    # masked keys get p = 0 outright: a row with no visible key in the
+    # blocks so far still has the running max -1e30 there
+    p = torch.where(sb > _NEG_INF, torch.exp(sb - m_run[..., None]), 0.0)
+    c = torch.exp(m_run - m_run[..., -1:])                  # block rescale
+    l = torch.clamp((p.sum(dim=-1) * c).sum(dim=-1, keepdim=True),
+                    min=1e-30)
+    vb = F.pad(v.to(acc), (0, 0, 0, pad)).unflatten(-2, (nb, bk))
+    pv = torch.einsum("bqnk,bnkd->bqnd", p.to(v.dtype).to(acc), vb)
+    return (pv * c[..., None]).sum(dim=-2), l, m_run[..., -1:]
+
+
 def flash_attention_plain(q, k, v, causal: bool,
-                          scale: Optional[float] = None):
+                          scale: Optional[float] = None,
+                          block_k: Optional[int] = None):
     """Plain version of kernel B3a: q [BH, Tq, Dh], k/v [BH, Tk, Dh];
     returns (o in q's dtype, lse [BH, Tq] in float32, float64 for float64
-    inputs)."""
+    inputs). In bfloat16 the probabilities meet v rounded to bfloat16
+    (C6), against the row max by default. The TPU kernel rounds them
+    against the running max of its key blocks, so its rounding point
+    depends on its `block_k`; `block_k` here rounds against the running
+    max of blocks of that many keys, as a kernel with that tile does
+    (the CUDA kernel's is `KERNEL_BLOCK_K`). The row sum l is taken from
+    the unrounded p, and o is rounded once."""
     if q.is_cuda:
         PLAIN_ON_CUDA["flash_attention_fwd"] += 1
     acc = _acc_dtype(q.dtype)
     sc = scale if scale is not None else q.shape[-1] ** -0.5
-    s = _scores(q, k, causal, sc, acc)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    o = torch.einsum("bqk,bkd->bqd", p, v.to(acc)) / l
-    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+    pv, l, m = _pv(_scores(q, k, causal, sc, acc), v, acc, block_k)
+    return (pv / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
                               scale: Optional[float] = None):
     """Plain version of kernels B3b and B3c: (dq, dk, dv) from the saved
     lse through p = exp(s - L), ds = p * (dp - Δ) * scale with
-    Δ = rowsum(do · o), the identity the TPU kernels' `_bwd_tile` uses."""
+    Δ = rowsum(do · o), the identity the TPU kernels' `_bwd_tile` uses.
+    As there, ds is taken from the unrounded p, and in bfloat16 p meets
+    dO rounded to do's dtype and ds meets q and k rounded to theirs (C6:
+    `_flash_bwd_dkdv_kernel`'s `p.astype(do.dtype)`,
+    `ds.astype(q.dtype)`; `_flash_bwd_dq_kernel`'s `ds.astype(k.dtype)`);
+    float32 and float64 do not round."""
     if q.is_cuda:
         PLAIN_ON_CUDA["flash_attention_bwd"] += 1
     acc = _acc_dtype(q.dtype)
@@ -104,9 +156,13 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
     dp = torch.einsum("bqd,bkd->bqk", dof, v.to(acc))
     delta = (dof * o.to(acc)).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta) * sc
-    dq = torch.einsum("bqk,bkd->bqd", ds, k.to(acc))
-    dk = torch.einsum("bqk,bqd->bkd", ds, q.to(acc))
-    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+
+    def operand(x, dtype):
+        return x.to(dtype).to(acc)
+
+    dq = torch.einsum("bqk,bkd->bqd", operand(ds, k.dtype), k.to(acc))
+    dk = torch.einsum("bqk,bqd->bkd", operand(ds, q.dtype), q.to(acc))
+    dv = torch.einsum("bqk,bqd->bkd", operand(p, do.dtype), dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -199,47 +255,71 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
     delta = (do.float() * o.float()).sum(dim=-1)
     _check_cuda(dict(q=q, k=k, v=v, o=o, do=do, lse=lse, delta=delta),
                 q.dtype)
-    dk, dv = launch_bwd_dkdv(q, k, v, do, lse, delta, causal, scale)
-    dq = launch_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    design = b3_design(q.dtype, q.shape[2], (q, k, v, do))
+    dk, dv = launch_bwd_dkdv(q, k, v, do, lse, delta, causal, scale, design)
+    dq = launch_bwd_dq(q, k, v, do, lse, delta, causal, scale, design)
     return dq, dk, dv
 
 
-def _bwd_args(q, k, causal, scale):
+def b3_design(dtype, dh: int, tensors: Sequence[torch.Tensor]) -> str:
+    """The design that takes a B3b/B3c call: "wgmma" (design 2, the
+    tensor cores) for bfloat16 with Dh 64 or 128 whose `tensors` (q, k,
+    v, dO: the operands the tensor maps read) start 16-byte aligned;
+    "ffma" (design 1, exact float32 FMA) for float32 and every other
+    shape. The wrapper has checked that they are contiguous."""
+    if dtype != torch.bfloat16 or dh not in WGMMA_HEAD_DIMS or \
+            any(t.data_ptr() % 16 for t in tensors):
+        return "ffma"
+    return "wgmma"
+
+
+def _bwd_args(q, k, causal, scale, design):
     bh, tq, dh = q.shape
     sc = scale if scale is not None else dh ** -0.5
-    return (bh, tq, k.shape[1], dh, sc, int(causal), _DTYPE_CODES[q.dtype],
+    dtype = () if design == "wgmma" else (_DTYPE_CODES[q.dtype],)
+    return (bh, tq, k.shape[1], dh, sc, int(causal), *dtype,
             _stream(q.device))
 
 
+def _count(kernel, design):
+    LAUNCHES[kernel] += 1
+    LAUNCHES_BY_DESIGN[(kernel, design)] += 1
+
+
 def launch_bwd_dkdv(q, k, v, do, lse, delta, causal: bool,
-                    scale: Optional[float] = None):
-    """Kernel B3b alone, on checked CUDA tensors: returns (dk, dv)."""
+                    scale: Optional[float] = None, design: str = "ffma"):
+    """Kernel B3b alone, on checked CUDA tensors, in `design` (the
+    wrapper passes `b3_design`'s choice; `chip_smoke.py` also times
+    design 1 on bfloat16 to compare the two): returns (dk, dv)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("flash_attention")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = lib.dl4j_flash_bwd_dkdv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_bwd_args(q, k, causal, scale))
-    cuda_build.check(lib, rc, "flash_attention_bwd_dkdv")
-    LAUNCHES["flash_attention_bwd_dkdv"] += 1
+    fn = lib.dl4j_flash_bwd_dkdv_wgmma if design == "wgmma" \
+        else lib.dl4j_flash_bwd_dkdv
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_bwd_args(q, k, causal, scale, design))
+    cuda_build.check(lib, rc, f"flash_attention_bwd_dkdv ({design})")
+    _count("flash_attention_bwd_dkdv", design)
     return dk, dv
 
 
 def launch_bwd_dq(q, k, v, do, lse, delta, causal: bool,
-                  scale: Optional[float] = None):
-    """Kernel B3c alone, on checked CUDA tensors: returns dq."""
+                  scale: Optional[float] = None, design: str = "ffma"):
+    """Kernel B3c alone, on checked CUDA tensors, in `design`: returns
+    dq."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("flash_attention")
     dq = torch.empty_like(q)
-    rc = lib.dl4j_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_bwd_args(q, k, causal, scale))
-    cuda_build.check(lib, rc, "flash_attention_bwd_dq")
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    fn = lib.dl4j_flash_bwd_dq_wgmma if design == "wgmma" \
+        else lib.dl4j_flash_bwd_dq
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_bwd_args(q, k, causal, scale, design))
+    cuda_build.check(lib, rc, f"flash_attention_bwd_dq ({design})")
+    _count("flash_attention_bwd_dq", design)
     return dq
 
 

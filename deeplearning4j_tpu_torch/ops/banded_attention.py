@@ -47,7 +47,7 @@ import torch
 # B4 runs B3a's tiles (csrc/attention_tiles.cuh): the same head-dim limit
 # and grid.y bound
 from deeplearning4j_tpu_torch.ops.attention import (
-    _MAX_BH, MAX_HEAD_DIM as BAND_MAX_HEAD_DIM,
+    _MAX_BH, MAX_HEAD_DIM as BAND_MAX_HEAD_DIM, _pv,
 )
 
 _NEG_INF = -1e30
@@ -126,12 +126,16 @@ def band_visibility(t: int, window: int, causal: bool, device=None):
 
 
 # ------------------------------------------------------ B4: plain versions
-def banded_dense(q, k, v, window: int, causal: bool, scale: float):
+def banded_dense(q, k, v, window: int, causal: bool, scale: float,
+                 block_k: Optional[int] = None):
     """The dense band-masked attention over native GQA layouts (q
-    [B, T, H, Dh], k/v [B, T, Hkv, Dh]): score-level -1e30 bias and a
+    [B, T, H, Dh], k/v [B, T, Hkv, Dh]): score-level -1e30 bias and the
     softmax in float32 (float64 stays float64), output in q's dtype. The
     plain version of B4 and B4's backward recompute (JAX's
-    `banded_reference`)."""
+    `banded_reference`). In bfloat16 the probabilities meet v rounded to
+    bfloat16 (C6), against the running max of key blocks of `block_k`,
+    or of the row (None), as `flash_attention_plain` rounds them; the
+    CUDA kernel's blocks are BAND_TILE keys."""
     b, t, h, dh = q.shape
     hkv = k.shape[2]
     acc = torch.float64 if q.dtype == torch.float64 else torch.float32
@@ -139,18 +143,26 @@ def banded_dense(q, k, v, window: int, causal: bool, scale: float):
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(acc)) * scale
     s = torch.where(band_visibility(t, window, causal, q.device), s,
                     _NEG_INF)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1),
-                     v.to(acc))
+    if v.dtype == acc:
+        # nothing is rounded: one softmax, which keeps the recompute's
+        # transient [B, H, T, T] tensors few
+        o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1), v)
+        return o.reshape(b, t, h, dh).to(q.dtype)
+    pv, l, _ = _pv(s.reshape(b * hkv, -1, t),
+                   v.transpose(1, 2).reshape(b * hkv, t, dh), acc, block_k)
+    o = (pv / l).reshape(b, hkv, h // hkv, t, dh).permute(0, 3, 1, 2, 4)
     return o.reshape(b, t, h, dh).to(q.dtype)
 
 
 def banded_reference(q, k, v, window: int, causal: bool = True,
-                     scale: Optional[float] = None):
-    """Plain version of kernel B4 (counted when handed CUDA tensors)."""
+                     scale: Optional[float] = None,
+                     block_k: Optional[int] = None):
+    """Plain version of kernel B4 (counted when handed CUDA tensors):
+    `banded_dense`."""
     if q.is_cuda:
         PLAIN_ON_CUDA["banded_attention"] += 1
     sc = scale if scale is not None else q.shape[-1] ** -0.5
-    return banded_dense(q, k, v, window, causal, sc)
+    return banded_dense(q, k, v, window, causal, sc, block_k)
 
 
 # ------------------------------------------------------------ B4: wrapper
@@ -264,21 +276,26 @@ def decode_attention_plain(q, cache_k, cache_v, qpos, end,
                            window: Optional[int] = None,
                            rolling: bool = False,
                            scale: Optional[float] = None,
-                           scale_k=None, scale_v=None):
+                           scale_k=None, scale_v=None,
+                           block_k: Optional[int] = None):
     """Plain version of kernel B5, mirroring the JAX `decode_reference`:
     q [S, H, Dh], caches [S, L, Hkv, Dh], qpos/end [S] int; quantized
     caches pass their [S, L, Hkv] scale rows and are dequantized up front
     in q's dtype. Math in f32, output in q's dtype. Rows with no visible
     key are garbage by contract (softmax of a constant here, zeros in the
-    kernel)."""
+    kernel). bfloat16 caches feed p to P·V rounded to bfloat16 (C6), as
+    the kernel does against the row max, or against the running max of
+    blocks of `block_k` cache slots, as the TPU kernel does with its
+    `block_l`."""
     if q.is_cuda:
         PLAIN_ON_CUDA[_kernel_name("banded_decode_attention", scale_k)] += 1
+    rounded = cache_v.dtype == torch.bfloat16
     if scale_k is not None:
         cache_k = dequantize(cache_k, scale_k, q.dtype)
         cache_v = dequantize(cache_v, scale_v, q.dtype)
     vis = visibility(qpos, end, cache_k.shape[1], window, rolling)
-    return attend_plain(q[:, None], cache_k, cache_v, vis[:, None],
-                        scale)[:, 0]
+    return attend_plain(q[:, None], cache_k, cache_v, vis[:, None], scale,
+                        rounded, block_k)[:, 0]
 
 
 def visibility(qpos, end, L: int, window: Optional[int], rolling: bool):
@@ -302,18 +319,29 @@ def visibility(qpos, end, L: int, window: Optional[int], rolling: bool):
     return vis
 
 
-def attend_plain(q, cache_k, cache_v, vis, scale: Optional[float] = None):
+def attend_plain(q, cache_k, cache_v, vis, scale: Optional[float] = None,
+                 rounded: bool = False, block_k: Optional[int] = None):
     """Grouped masked softmax attention with the math in f32: q
     [S, T, H, Dh] over caches [S, L, Hkv, Dh] where `vis` [S, T, L] is
-    true; returns [S, T, H, Dh] in q's dtype."""
+    true; returns [S, T, H, Dh] in q's dtype. `rounded` (the decode
+    kernels' plain versions over bfloat16 caches) feeds p to P·V rounded
+    to the caches' dtype, against the running max of blocks of `block_k`
+    slots or the row max (None), as `_pv` does; a row with no visible key
+    then comes out as zeros."""
     s_, t, h, dh = q.shape
-    hkv = cache_k.shape[2]
+    hkv, g = cache_k.shape[2], h // cache_k.shape[2]
     sc = scale if scale is not None else dh ** -0.5
-    qg = q.float().reshape(s_, t, hkv, h // hkv, dh)
+    qg = q.float().reshape(s_, t, hkv, g, dh)
     s = torch.einsum("sthgd,slhd->shgtl", qg, cache_k.float()) * sc
     s = torch.where(vis[:, None, None], s, _NEG_INF)
-    o = torch.einsum("shgtl,slhd->sthgd", torch.softmax(s, dim=-1),
-                     cache_v.float())
+    if not rounded:
+        o = torch.einsum("shgtl,slhd->sthgd", torch.softmax(s, dim=-1),
+                         cache_v.float())
+        return o.reshape(s_, t, h, dh).to(q.dtype)
+    pv, l, _ = _pv(s.reshape(s_ * hkv, g * t, -1),
+                   cache_v.transpose(1, 2).reshape(s_ * hkv, -1, dh),
+                   torch.float32, block_k)
+    o = (pv / l).reshape(s_, hkv, g, t, dh).permute(0, 3, 1, 2, 4)
     return o.reshape(s_, t, h, dh).to(q.dtype)
 
 
@@ -329,19 +357,23 @@ def gather_pages(cache, page_table):
 def paged_decode_attention_plain(q, cache_k, cache_v, page_table, qpos,
                                  window: Optional[int] = None,
                                  scale: Optional[float] = None,
-                                 scale_k=None, scale_v=None):
+                                 scale_k=None, scale_v=None,
+                                 block_k: Optional[int] = None):
     """Plain version of kernel B6: gather each slot's page chain (and its
     scale rows) into a logical [S, L, Hkv, Dh] copy and attend linearly
-    over it."""
+    over it. bfloat16 caches round p as `decode_attention_plain` does
+    (the TPU kernel's blocks are its pages: `block_k` = Lp)."""
     if q.is_cuda:
         PLAIN_ON_CUDA[_kernel_name("paged_decode_attention", scale_k)] += 1
+    rounded = cache_v.dtype == torch.bfloat16
     ck = gather_pages(cache_k, page_table)
     cv = gather_pages(cache_v, page_table)
     if scale_k is not None:
         ck = dequantize(ck, gather_pages(scale_k, page_table), q.dtype)
         cv = dequantize(cv, gather_pages(scale_v, page_table), q.dtype)
     vis = visibility(qpos, qpos, ck.shape[1], window, False)
-    return attend_plain(q[:, None], ck, cv, vis[:, None], scale)[:, 0]
+    return attend_plain(q[:, None], ck, cv, vis[:, None], scale, rounded,
+                        block_k)[:, 0]
 
 
 # ------------------------------------------------------ B5/B6: wrappers

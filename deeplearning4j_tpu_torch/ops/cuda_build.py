@@ -66,6 +66,14 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "dl4j_flash_bwd_dq": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                  _P]),
+        # design 2, bfloat16: q k v dout lse delta dk dv, BH Tq Tk Dh,
+        # scale, causal, stream
+        "dl4j_flash_bwd_dkdv_wgmma": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                 _P]),
+        # q k v dout lse delta dq, BH Tq Tk Dh, scale, causal, stream
+        "dl4j_flash_bwd_dq_wgmma": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_update": {

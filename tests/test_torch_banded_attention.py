@@ -71,6 +71,34 @@ def test_plain_b4_matches_jax_kernel(t, w, hkv, causal):
     assert not any(ba.LAUNCHES.values())          # CPU: the plain version
 
 
+# bfloat16 (C6): the Pallas kernel rounds p to bfloat16 where it meets v,
+# against the running max of its key blocks (8 here); so does the plain
+# version, against blocks of `block_k` keys or the row max (the default)
+BF16_BANDS = [(24, 5, 2, True), (64, 16, 4, True), (128, 40, 2, True),
+              (64, 20, 2, False)]
+
+
+@pytest.mark.parametrize("t,w,hkv,causal", BF16_BANDS)
+def test_plain_b4_bf16_rounds_p_like_jax_kernel(t, w, hkv, causal):
+    """o within 1e-3 of the largest |JAX| value with the kernel's blocks
+    (repaired: 0 on these shapes; unrounded p before C6: 3.9e-3 to
+    1.6e-2, 2.4-7.2x the tolerance), and within one bf16 step of |o|
+    (2^-7, plus that 1e-3) against the row max (3.9e-3 at most)."""
+    rng = np.random.default_rng(t + w + hkv)
+    arrs = [jnp.asarray(a, jnp.bfloat16) for a in _qkv(rng, 2, t, 4, hkv, 8)]
+    want = np.asarray(jax_banded(*arrs, w, causal, None, 8, 8,
+                                 interpret=True).astype(jnp.float32))
+    q, k, v = (torch.tensor(np.asarray(a.astype(jnp.float32)))
+               .to(torch.bfloat16) for a in arrs)
+    tol = 1e-3 * np.abs(want).max()
+    got = ba.banded_reference(q, k, v, w, causal, block_k=8)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+    row = ba.banded_attention(q, k, v, w, causal)      # the CPU wrapper
+    np.testing.assert_allclose(row.float().numpy(), want, rtol=2.0 ** -7,
+                               atol=tol)
+
+
 def test_autograd_gradients_match_jax_grad():
     """The loss of the JAX package's own gradient test: sum(o^2)."""
     rng = np.random.default_rng(5)

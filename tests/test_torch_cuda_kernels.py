@@ -19,7 +19,9 @@ outputs and lse, 1e-4 of the reference's largest magnitude on attention
 gradients (sums of up to T products taken in another order); in
 bfloat16 one bf16 step of the reference (2**-7 of its value, plus 1e-5),
 since the kernel and the plain version both compute in float32 and
-round once. The fused Adam kernel rounds every operation as the plain
+round once, and on the bfloat16 flash gradients 1e-3 of the largest
+magnitude (`_grad_atol`: P and dS are rounded to bfloat16 operands on
+both sides). The fused Adam kernel rounds every operation as the plain
 version's elementwise ops do, so it is held to 2**-22 relative (two
 float32 ulps) and, in bfloat16, one bf16 step; so is the fused Nesterovs
 kernel. The LSTM kernels sum H products a step in another order than the
@@ -102,6 +104,31 @@ def test_cuda_b6_matches_plain(cuda_device, page_len):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("page_len,hkv", [(8, 8), (128, 2)])
+def test_cuda_b6_bf16_matches_plain(cuda_device, page_len, hkv):
+    """bfloat16 pages: the kernel rounds p against the row max, found by
+    its first sweep over the K rows, as the plain version does (C6)."""
+    g = torch.Generator().manual_seed(6)
+    S, NP, H, Dh = 4, 256 // page_len, 8, 64
+    P = S * NP
+    q, ck, cv = (torch.randn(*shape, generator=g).to(cuda_device,
+                                                     torch.bfloat16)
+                 for shape in ((S, H, Dh), (P, page_len, hkv, Dh),
+                               (P, page_len, hkv, Dh)))
+    pt = torch.randperm(P, generator=g).reshape(S, NP).to(cuda_device,
+                                                          torch.int32)
+    qpos = torch.tensor([0, 100, 200, 255], dtype=torch.int32,
+                        device=cuda_device)
+    before = ba.LAUNCHES["paged_decode_attention"]
+    out = ba.paged_decode_attention(q, ck, cv, pt, qpos, window=150)
+    ref = ba.paged_decode_attention_plain(q, ck, cv, pt, qpos, window=150)
+    torch.cuda.synchronize()
+    assert ba.LAUNCHES["paged_decode_attention"] == before + 1
+    ref = ref.float()
+    assert ((out.float() - ref).abs() <= 1e-5 + 2.0 ** -7 * ref.abs()).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv,dh", [(8, 1, 64), (4, 4, 32), (8, 2, 80),
                                       (2, 2, 128)])
 def test_cuda_b5_group_and_head_dim_shapes(cuda_device, h, hkv, dh):
@@ -165,6 +192,22 @@ def _flash_inputs(bh, tq, tk, dh, dtype, device, seed):
     return mk(tq), mk(tk), mk(tk), mk(tq)
 
 
+def _grad_atol(ref, dtype):
+    """Absolute tolerance of a flash gradient against the plain version:
+    1e-4 of the largest |ref| in float32; in bfloat16 1e-3 of it, in both
+    designs. There both sides round P and dS to bfloat16 before the
+    second products (C6), from float32 values that differ in their last
+    bits wherever their sums run in another order (tensor-core or FMA
+    against cuBLAS sums), so an operand can land one bf16 step apart and
+    move an output row by that step times its partner (`chip_smoke.py`'s
+    flash rows read it: past 1e-4 on design 1 at Dh 32, T 1024, as on
+    design 2 at T 2048); 1e-3 is also the bound the plain version is held
+    to against the Pallas kernels, and the kernels against the plain
+    version left unrounded miss it."""
+    scale = 1e-3 if dtype == torch.bfloat16 else 1e-4
+    return scale * ref.float().abs().max().item()
+
+
 def _close(got, ref, dtype, atol):
     """float32: within `atol`; bfloat16: within `atol` plus one bf16 step
     of the reference (the float32 results may straddle a rounding
@@ -180,7 +223,9 @@ def test_cuda_b3a_matches_plain(cuda_device, bh, tq, tk, dh, causal, dtype):
     q, k, v, _ = _flash_inputs(bh, tq, tk, dh, dtype, cuda_device, tq + dh)
     before = fa.LAUNCHES["flash_attention_fwd"]
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
-    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal)
+    # bfloat16 rounds p against the running max of the kernel's key tile
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal,
+                                              block_k=fa.KERNEL_BLOCK_K)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention_fwd"] == before + 1
     assert _close(o, o_ref, dtype, 2e-5)
@@ -200,6 +245,98 @@ def test_cuda_b3b_b3c_match_plain(cuda_device, bh, tq, tk, dh, causal,
     torch.cuda.synchronize()
     for g_, r_ in zip(got, ref):
         assert _close(g_, r_, dtype, 1e-4 * r_.float().abs().max().item())
+
+
+# bfloat16 shapes of design 2 (wgmma): path_t_bf16's, a ragged T, Tq != Tk
+# not causal, Dh 128 causal and not
+B3_WGMMA_CASES = [(64, 2048, 2048, 64, True), (3, 1000, 1000, 64, True),
+                  (2, 130, 77, 64, False), (2, 200, 200, 128, True),
+                  (2, 512, 768, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,dh,causal", B3_WGMMA_CASES)
+def test_cuda_b3b_b3c_bf16_take_the_wgmma_design(cuda_device, bh, tq, tk,
+                                                 dh, causal):
+    """Design 2 (wgmma fed by TMA) on every bfloat16 Dh 64/128 shape,
+    against the plain version (which rounds P and dS as the kernel does)
+    at `test_cuda_b3b_b3c_match_plain`'s tolerance; both launches counted
+    under design 2."""
+    dt = torch.bfloat16
+    q, k, v, do = _flash_inputs(bh, tq, tk, dh, dt, cuda_device, tq + tk)
+    o, lse = fa.flash_attention_plain(q, k, v, causal)
+    before = dict(fa.LAUNCHES_BY_DESIGN)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for kern in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        assert fa.LAUNCHES_BY_DESIGN[(kern, "wgmma")] == \
+            before[(kern, "wgmma")] + 1
+        assert fa.LAUNCHES_BY_DESIGN[(kern, "ffma")] == \
+            before[(kern, "ffma")]
+    for g_, r_ in zip(got, ref):
+        assert g_.dtype == dt
+        assert _close(g_, r_, dt, _grad_atol(r_, dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,dh,causal", [B3_WGMMA_CASES[0],
+                                                 B3_WGMMA_CASES[3]])
+def test_cuda_b3_wgmma_gradients_are_bit_equal(cuda_device, bh, tq, tk, dh,
+                                               causal):
+    """No atomics: two launches of design 2 give the same bits."""
+    q, k, v, do = _flash_inputs(bh, tq, tk, dh, torch.bfloat16, cuda_device,
+                                3)
+    o, lse = fa.flash_attention_plain(q, k, v, causal)
+    a = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    b = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,dtype", [(32, torch.bfloat16),
+                                      (48, torch.bfloat16),
+                                      (64, torch.float32),
+                                      (128, torch.float32)])
+def test_cuda_b3_float32_and_other_head_dims_take_the_ffma_design(
+        cuda_device, dh, dtype):
+    q, k, v, do = _flash_inputs(2, 256, 256, dh, dtype, cuda_device, dh)
+    o, lse = fa.flash_attention_plain(q, k, v, True)
+    before = dict(fa.LAUNCHES_BY_DESIGN)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    for kern in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        assert fa.LAUNCHES_BY_DESIGN[(kern, "ffma")] == \
+            before[(kern, "ffma")] + 1
+        assert fa.LAUNCHES_BY_DESIGN[(kern, "wgmma")] == \
+            before[(kern, "wgmma")]
+    for g_, r_ in zip(got, ref):
+        assert _close(g_, r_, dtype, _grad_atol(r_, dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_b3_unaligned_bf16_takes_the_ffma_design(cuda_device):
+    """A contiguous q 8 bytes into its storage: the tensor maps cannot
+    read it, so design 1 takes the call."""
+    g = torch.Generator().manual_seed(9)
+    buf = torch.randn(4 + 2 * 128 * 64, generator=g).to(cuda_device,
+                                                        torch.bfloat16)
+    q = buf[4:].view(2, 128, 64)
+    _, k, v, do = _flash_inputs(2, 128, 128, 64, torch.bfloat16, cuda_device,
+                                10)
+    assert fa.b3_design(q.dtype, 64, (q, k, v, do)) == "ffma"
+    o, lse = fa.flash_attention_plain(q, k, v, True)
+    before = fa.LAUNCHES_BY_DESIGN[("flash_attention_bwd_dq", "ffma")]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_BY_DESIGN[("flash_attention_bwd_dq", "ffma")] == \
+        before + 1
+    for g_, r_ in zip(got, ref):
+        assert _close(g_, r_, torch.bfloat16,
+                      _grad_atol(r_, torch.bfloat16))
 
 
 @pytest.mark.cuda
@@ -528,7 +665,8 @@ def test_cuda_b4_matches_plain(cuda_device, b, t, h, hkv, dh, w, causal,
                                 t + w)
     before = ba.LAUNCHES["banded_attention"]
     o = ba.banded_attention_fwd(q, k, v, w, causal)
-    ref = ba.banded_reference(q, k, v, w, causal)
+    # bfloat16 rounds p against the running max of the kernel's key tile
+    ref = ba.banded_reference(q, k, v, w, causal, block_k=ba.BAND_TILE)
     torch.cuda.synchronize()
     assert ba.LAUNCHES["banded_attention"] == before + 1
     assert _close(o, ref, dtype, 2e-5)

@@ -136,6 +136,69 @@ def test_plain_b6_matches_jax_paged_kernel(hkv, window):
     np.testing.assert_allclose(got, flat, **TOL)
 
 
+# bfloat16 (C6). JAX's decode kernels round p to bfloat16 where it meets
+# v, against the running max of their cache blocks (block_l, or a page).
+# The plain versions do the same: with JAX's blocks (`block_k`) they are
+# held to 1e-3 of the largest |JAX| value (they agree exactly on these
+# shapes), and with the row max (the default, where the CUDA decode
+# kernels round) to one bf16 step of |o| (2^-7) plus that 1e-3 (at most
+# 4e-4 past the step). Unrounded, as before the repair, they were 1.7e-3
+# to 3.4e-3 of it apart: 1.7-3.4x the tolerance.
+BF16_DECODE_ATOL = 1e-3
+
+
+def _bf16(rng, shape):
+    a = jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
+    return a, torch.tensor(np.asarray(a.astype(jnp.float32))).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode,window,rolling", MODES,
+                         ids=[m[0] for m in MODES])
+def test_plain_b5_bf16_rounds_p_like_jax_kernel(mode, window, rolling):
+    rng = np.random.default_rng([7, len(mode)])
+    S, L, H, Hkv, Dh = 6, 24, 4, 2, 8
+    (jq, q), (jk, k), (jv, v) = (_bf16(rng, s) for s in (
+        (S, H, Dh), (S, L, Hkv, Dh), (S, L, Hkv, Dh)))
+    qpos = np.array([0, 3, 23, 24, 37, 90] if rolling
+                    else [0, 3, 7, 12, 20, 23], np.int32)
+    want = np.asarray(jax_banded_decode(
+        jq, jk, jv, jnp.asarray(qpos), jnp.asarray(qpos), window=window,
+        rolling=rolling, block_l=8, interpret=True).astype(jnp.float32))
+    tol = BF16_DECODE_ATOL * np.abs(want).max()
+    pos = torch.from_numpy(qpos)
+    got = ba.decode_attention_plain(q, k, v, pos, pos, window=window,
+                                    rolling=rolling, block_k=8)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+    row = ba.banded_decode_attention(q, k, v, pos, pos, window=window,
+                                     rolling=rolling)   # the CPU wrapper
+    np.testing.assert_allclose(row.float().numpy(), want, rtol=2.0 ** -7,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_plain_b6_bf16_rounds_p_like_jax_kernel(window):
+    rng = np.random.default_rng(21)
+    S, Lp, H, Hkv, Dh, P = 4, 8, 4, 2, 8, 12
+    (jq, q), (jk, k), (jv, v) = (_bf16(rng, s) for s in (
+        (S, H, Dh), (P, Lp, Hkv, Dh), (P, Lp, Hkv, Dh)))
+    pt = np.array([[3, 7, 1, 0], [3, 7, 9, 0], [3, 5, 0, 0], [11, 2, 6, 4]],
+                  np.int32)
+    qpos = np.array([17, 20, 9, 31], np.int32)
+    want = np.asarray(jax_paged_decode(
+        jq, jk, jv, jnp.asarray(pt), jnp.asarray(qpos), window=window,
+        interpret=True).astype(jnp.float32))
+    tol = BF16_DECODE_ATOL * np.abs(want).max()
+    tp, pos = torch.from_numpy(pt), torch.from_numpy(qpos)
+    got = ba.paged_decode_attention_plain(q, k, v, tp, pos, window=window,
+                                          block_k=Lp)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+    row = ba.paged_decode_attention(q, k, v, tp, pos, window=window)
+    np.testing.assert_allclose(row.float().numpy(), want, rtol=2.0 ** -7,
+                               atol=tol)
+
+
 def test_wrappers_on_cpu_take_the_plain_version_and_count_no_launch():
     ba.reset_counts()
     rng = np.random.default_rng(0)

@@ -114,3 +114,104 @@ def test_wrappers_refuse_bad_shapes():
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(x, torch.zeros(3, 4, 8), torch.zeros(3, 4, 8),
                                False)
+
+
+# ------------------------------------------------ bfloat16: C6, P and dS
+# In bfloat16 the Pallas kernels round p (and ds) to the input dtype where
+# they meet the second products; the plain versions do the same. Inputs
+# are bfloat16 values of seeded normals; both sides get the same bits.
+# (BH, T, Dh, causal, Pallas block): the first is the shape the fault was
+# found at; the small ones take Pallas blocks of 8.
+BF16_SHAPES = [(2, 256, 64, True, 64), (3, 16, 8, True, 8),
+               (3, 24, 8, False, 8)]
+
+
+def _bf16_inputs(bh, t, d, seed):
+    rng = np.random.default_rng(seed)
+    arrs = [jnp.asarray(rng.standard_normal((bh, t, d)), jnp.bfloat16)
+            for _ in range(4)]
+    return arrs, [torch.tensor(np.asarray(a.astype(jnp.float32)))
+                  .to(torch.bfloat16) for a in arrs]
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32)) \
+        if not isinstance(a, torch.Tensor) else a.float().numpy()
+
+
+@pytest.mark.parametrize("bh,t,d,causal,blk", BF16_SHAPES)
+def test_plain_backward_bf16_rounds_p_and_ds_like_pallas(bh, t, d, causal,
+                                                         blk):
+    """dq, dk, dv within 1e-3 of the largest |JAX| value. Repaired: at
+    most 4.9e-4, 1.2e-8, 0 (first shape) and 0 (small ones); unrounded P
+    and dS (before C6) gave one or two bf16 steps, 3.9e-3 to 1.6e-2,
+    2-8x the tolerance, on every shape."""
+    (jq, jk, jv, jdo), (q, k, v, do) = _bf16_inputs(bh, t, d, t + d)
+    scale = d ** -0.5
+    o, lse = _run_flash(jq, jk, jv, causal=causal, scale=scale, block_q=blk,
+                        block_k=blk, interpret=True, with_lse=True)
+    want = _run_flash_bwd(jq, jk, jv, o, lse, jdo, causal=causal,
+                          scale=scale, block_q=blk, block_k=blk,
+                          interpret=True)
+    got = fa.flash_attention_bwd(q, k, v, torch.tensor(_f32(o)).to(
+        torch.bfloat16), _t(lse), do, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        w = _f32(w)
+        np.testing.assert_allclose(_f32(g), w, rtol=0,
+                                   atol=1e-3 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("bh,t,d,causal,blk", BF16_SHAPES)
+def test_plain_forward_bf16_rounds_p_like_pallas(bh, t, d, causal, blk):
+    """o within 1e-3 of the largest |JAX| value when the plain version
+    rounds p against the running max of the same key blocks as the
+    Pallas kernel (repaired: 2.4e-4 on the first shape, 0 on the small
+    ones; before C6: 3.9e-3 to 7.8e-3, 3-6x the tolerance), and within
+    one bf16 step of |o| (at most 2^-7 of it, plus that 1e-3) against the
+    row max, the default; lse within 1e-6 (float32, never rounded)."""
+    (jq, jk, jv, _), (q, k, v, _) = _bf16_inputs(bh, t, d, t + d)
+    want_o, want_lse = _run_flash(jq, jk, jv, causal=causal,
+                                  scale=d ** -0.5, block_q=blk, block_k=blk,
+                                  interpret=True, with_lse=True)
+    want_o, want_lse = _f32(want_o), np.asarray(want_lse)
+    tol = 1e-3 * np.abs(want_o).max()
+    o, lse = fa.flash_attention_plain(q, k, v, causal, block_k=blk)
+    np.testing.assert_allclose(_f32(o), want_o, rtol=0, atol=tol)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=1e-6)
+    o_row, _ = fa.flash_attention_plain(q, k, v, causal)
+    np.testing.assert_allclose(_f32(o_row), want_o, rtol=2.0 ** -7,
+                               atol=tol)
+
+
+def test_plain_forward_blocks_change_nothing_in_float32():
+    q, k, v, _ = (_t(a) for a in _inputs(20, 20, 4))
+    a = fa.flash_attention_plain(q, k, v, True)
+    b = fa.flash_attention_plain(q, k, v, True, block_k=8)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ------------------------------------- B3b/B3c design choice (b3_design)
+@pytest.mark.parametrize("dtype,dh,offset,want", [
+    (torch.bfloat16, 64, 0, "wgmma"),     # path_t_bf16's shape
+    (torch.bfloat16, 128, 0, "wgmma"),
+    (torch.bfloat16, 32, 0, "ffma"),      # no 64-column box
+    (torch.bfloat16, 48, 0, "ffma"),
+    (torch.bfloat16, 64, 4, "ffma"),      # q 8 bytes into its storage
+    (torch.float32, 64, 0, "ffma"),       # float32 stays exact
+    (torch.float32, 128, 0, "ffma"),
+])
+def test_b3_design_by_dtype_head_dim_and_alignment(dtype, dh, offset, want):
+    buf = torch.zeros(offset + 2 * 100 * dh, dtype=dtype)
+    q = buf[offset:].view(2, 100, dh)
+    k, v, do = (torch.zeros(2, 77, dh, dtype=dtype) for _ in range(3))
+    assert fa.b3_design(dtype, dh, (q, k, v, do)) == want
+
+
+def test_launch_counts_reset_by_design():
+    fa.LAUNCHES_BY_DESIGN[("flash_attention_bwd_dq", "wgmma")] = 3
+    fa.reset_counts()
+    assert set(fa.LAUNCHES_BY_DESIGN.values()) == {0}
+    assert set(fa.LAUNCHES_BY_DESIGN) == {
+        (k, d) for k in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+        for d in ("ffma", "wgmma")}

@@ -15,7 +15,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "deeplearning4j_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_decode_profile.py",
-    ROOT / "tools" / "torch_train_profile.py"]
+    ROOT / "tools" / "torch_train_profile.py",
+    ROOT / "tools" / "torch_parity_faults.py"]
 
 
 def _imported_modules(path):

@@ -2,6 +2,7 @@
 """Where the time of the PyTorch port's training step goes, on one card.
 
     python3 tools/torch_train_profile.py [--path t|w|l|g|r]
+                                         [--dtype float32|bfloat16]
 
 Builds one of `chip_smoke.py`'s paths, warms it untraced, then runs it
 under `torch.profiler` and reads the kernels off its Chrome trace, with
@@ -9,7 +10,9 @@ the same method as `tools/torch_decode_profile.py`:
 
 - `--path t` (default), `path_t`: the 6-block GPT-style
   `TextGenerationTransformer` at d_model 512, 8 heads, T 2048, batch 8,
-  float32, its default Adam(3e-4); two traced train steps;
+  float32, its default Adam(3e-4); two traced train steps. With
+  `--dtype bfloat16`, `path_t_bf16`: the same model at `bench.py`'s
+  dtype, B3b/B3c on design 2 (`wgmma`);
 - `--path w`, `path_w`: the same width as the 6-block Llama-shaped
   sliding-window model (RoPE, RMSNorm, SwiGLU, 2 KV heads, window 256);
   two traced train steps, B4 forward and the dense band-masked recompute
@@ -28,7 +31,8 @@ the same method as `tools/torch_decode_profile.py`:
 Prints one JSON line: the traced window's wall time, the time the card
 was busy (the union of kernel intervals), the idle share, kernels
 launched a step (or a call), and device time by kernel class (the flash
-kernels B3a and B3b + B3c, the banded kernel B4 and the banded backward's
+kernels B3a and B3b + B3c by design (`ops/attention.b3_design`: wgmma
+or ffma), the banded kernel B4 and the banded backward's
 dense recompute, the LSTM kernels B2a, B2b and B2c with its
 weight-gradient launch, the fused updates B1a and B1b, the conv+BN
 statistics kernels B7a and B7b by design (`ops/conv_fused.b7_design`:
@@ -80,8 +84,11 @@ def kernel_class(name):
         return "banded (B4)"
     if "flash_fwd" in name:
         return "flash_fwd (B3a)"
-    if "flash_bwd" in name:
-        return "flash_bwd (B3b + B3c)"
+    if "flash_bwd" in name or "bwd_dkdv_wgmma" in name or \
+            "bwd_dq_wgmma" in name:
+        # design 2 (bfloat16 on the tensor cores) is `tc::bwd_*_wgmma`
+        return "flash_bwd (B3b + B3c) " + (
+            "wgmma" if "wgmma" in name else "ffma")
     if "AdamRule" in name:
         return "fused_adam (B1a)"
     if "NesterovRule" in name:
@@ -107,7 +114,7 @@ def kernel_class(name):
                               "nchwtonhwc", "nhwctonchw")):
         return "convolution (cuDNN)"
     if any(t in low for t in ("gemm", "gemv", "cutlass", "sm90_xmma",
-                              "ampere_sgemm", "cublas")):
+                              "ampere_sgemm", "cublas", "nvjet")):
         return "matmul"
     if "elementwise" in low:
         return "elementwise"
@@ -116,9 +123,10 @@ def kernel_class(name):
     return "other"
 
 
-def traced_window(path):
+def traced_window(path, dtype="float32"):
     """(run, units, unit name, work a unit): `run()` drives the traced
-    window; the warm-up has been done when this returns."""
+    window; the warm-up has been done when this returns. `dtype` is
+    `path_t`'s."""
     rng = np.random.default_rng(0)
     if path == "r":
         from deeplearning4j_tpu_torch.models import ComputationGraph
@@ -129,6 +137,8 @@ def traced_window(path):
         return (lambda: net.fit(batches[1:], epochs=1)), 2, "step", 128
     if path in ("t", "w"):
         kw = dict(window=256, **cs.LLAMA) if path == "w" else {}
+        if path == "t":
+            kw["dtype"] = dtype
         net = cs.build_net("cuda", num_blocks=6, seed=5, **kw)
         batches = cs.lm_batches(rng, 3, 8, 2048)
         tokens = 8 * 2048
@@ -160,7 +170,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", choices=("t", "w", "l", "g", "r"),
                     default="t")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="path_t's dtype (--path t only)")
     args = ap.parse_args()
+    if args.dtype != "float32" and args.path != "t":
+        ap.error("--dtype applies to --path t only")
     if not torch.cuda.is_available():
         print("torch_train_profile: needs a CUDA card", file=sys.stderr)
         return 2
@@ -168,7 +183,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run, units, unit, tokens = traced_window(args.path)
+    run, units, unit, tokens = traced_window(args.path, args.dtype)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -193,7 +208,9 @@ def main() -> int:
     busy = busy_us(kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     cs.emit({
-        "phase": f"profile_path_{args.path}",
+        "phase": f"profile_path_{args.path}"
+                 + ("" if args.dtype == "float32" else "_bf16"),
+        "dtype": args.dtype,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": cs.gpu_name_and_limit(), f"{unit}s": units,
         f"{'images' if args.path == 'r' else 'tokens'}_per_{unit}": tokens,
