@@ -20,14 +20,14 @@ exits non-zero with no result line:
    - the flash-attention forward B3a and backward B3b/B3c at the
      training paths' shape (B 8, H 8, T 2048, Dh 64, causal) in float32
      and bfloat16 and at ragged, cross, narrow and wide variants of
-     both, against SDPA's forward and backward; each backward row names
-     the design that ran (bfloat16 at Dh 64 and 128 on the tensor cores,
+     both, against SDPA's forward and backward; each row names the
+     design that ran (bfloat16 at Dh 64 and 128 on the tensor cores,
      "wgmma", else float32 FMA, "ffma"), its TFLOP/s and its share of
      the bound, and the bfloat16 main shape also times design 1 on the
-     same inputs (`ffma_ms`); a bfloat16 backward must lie nearer the
-     plain version that rounds P and dS (C6) than the one that does not;
-     then design 2 twice at that shape and at Dh 128, dq, dk and dv
-     bit-equal (`flash_repeat`);
+     same inputs (`ffma_ms`); a bfloat16 forward or backward must lie
+     nearer the plain version that rounds P and dS (C6) than the one
+     that does not; then design 2 twice at that shape and at Dh 128, o,
+     lse, dq, dk and dv bit-equal (`flash_repeat`);
    - the fused Adam B1a over the training path's leaves and odd sizes,
      float32 and bfloat16, steps 1 and 1000, against
      `torch.optim.Adam(fused=True)` (which puts ε inside the bias
@@ -35,10 +35,13 @@ exits non-zero with no result line:
    - the fused LSTM forward B2a (with residuals) and B2b (inference) and
      the backward B2c (its reverse-time kernel and its weight-gradient
      launch) at the recurrent paths' shapes (T 128, B 64, H 512; T 200,
-     50 and 1 at B 32, H 256), peepholes on and off, masked and not,
-     against cuDNN's LSTM (`torch.nn.LSTM`, which also does the input
-     projection and has no peepholes or mask: a time yardstick) and, for
-     the weight gradients, one `torch.matmul`;
+     50, 8, 4 and 1 at B 32, H 256), peepholes on and off, masked and
+     not, against cuDNN's LSTM (`torch.nn.LSTM`, which also does the
+     input projection and has no peepholes or mask: a time yardstick)
+     and, for the weight gradients, one `torch.matmul`; each forward row
+     names the design `b2_design` picked (the persistent grid, design 2,
+     from T 8, else the cluster design 1) and holds and times the other
+     one on the same inputs; design 2 twice, bit-equal;
    - the fused Nesterovs B1b over the LSTM training path's leaves and
      odd sizes, float32 and bfloat16, against `torch.optim.SGD(momentum,
      nesterov=True, fused=True)` (PyTorch's form of Nesterov momentum,
@@ -73,7 +76,7 @@ exits non-zero with no result line:
    then path_t_bf16: `path_t` in bfloat16, the dtype `bench.py` trains
    this model in (`BENCH_DTYPE`'s default; the zoo conf with its dtype
    replaced, as `_bench_transformer` builds it): B3b and B3c six times a
-   step each, all on design 2, B3a six and B1a once, the same sync
+   step each, B3a six, all on design 2, and B1a once, the same sync
    guard; and train_parity_bf16, `train_parity` in bfloat16 with the
    tolerances bf16 training allows (`TRAIN_PARITY_BF16`), each leaf's
    update also within 15% of the CPU's;
@@ -81,14 +84,16 @@ exits non-zero with no result line:
    (GravesLSTM(512) x 2 + RnnOutputLayer(64), input width 128, T 128,
    batch 64, float32, Nesterovs(0.01, 0.9)) through `net.fit`: 4 fixed
    batches, two of them with ragged feature masks, 3 epochs, 12 steps;
-   B2a and B2c run twice a step and B1b once; steps 2-12 run under
+   B2a (all on design 2) and B2c run twice a step and B1b once; steps
+   2-12 run under
    `torch.cuda.set_sync_debug_mode("error")`;
 9. path_g: the zoo's `TextGenerationLSTM` (LSTM(256) x 2, 77 characters,
    Adam(1e-3), tBPTT 50) at its own width: one epoch of `fit` on 2
    batches of 32 one-hot sequences of T 200 (four chunks of 50 with the
-   carries handed on: B2a, B2c, B1a), `output()` on one batch (B2b at
-   T 200), then a greedy loop of 200 `rnn_time_step` calls for 32
-   streams (B2b at T 1, twice a call);
+   carries handed on: B2a on design 2, B2c, B1a), `output()` on one
+   batch (B2b at T 200, design 2), then a greedy loop of 200
+   `rnn_time_step` calls for 32 streams (B2b at T 1, design 1, twice a
+   call);
 10. lstm_parity: both recurrent models at T 32, batch 4: two `fit` steps
     and 8 `rnn_time_step` calls on the card against the same on the CPU;
 11. path_r: `bench.py`'s ResNet-50 (224x224, 1000 classes, bfloat16,
@@ -489,6 +494,13 @@ def flash_err(got, ref, dtype, atol):
 FLASH_GRAD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 
 
+def new_design(by_design, before, kernel):
+    """The design under which `kernel` was launched since `before` (a
+    copy of a module's LAUNCHES_BY_DESIGN)."""
+    return next(d for (k, d), n in by_design.items()
+                if k == kernel and n > before[(k, d)])
+
+
 def grad_errs(grads, refs, dt, names=("dq", "dk", "dv")):
     """{name: (max abs error, within tolerance, atol, excess share)} of
     the gradients `names` against `refs`, at FLASH_GRAD_ATOL[dt] of the
@@ -519,31 +531,46 @@ def run_flash_case(c, flush, gen):
         return torch.randn(bh, t, dh, generator=gen).to(dev, dt)
 
     q, k, v, do = rnd(tq), rnd(tk), rnd(tk), rnd(tq)
+    before = dict(fa.LAUNCHES_BY_DESIGN)
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    fwd_design = new_design(fa.LAUNCHES_BY_DESIGN, before,
+                            "flash_attention_fwd")
     # bfloat16: p rounded against the running max of the kernel's tile
     o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal,
                                               block_k=fa.KERNEL_BLOCK_K)
     # the backward kernels and the plain backward from the same residuals
     before = dict(fa.LAUNCHES_BY_DESIGN)
     grads = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal)
-    design = next(d for (kk, d), n in fa.LAUNCHES_BY_DESIGN.items()
-                  if kk == "flash_attention_bwd_dq" and n > before[(kk, d)])
+    design = new_design(fa.LAUNCHES_BY_DESIGN, before,
+                        "flash_attention_bwd_dq")
     g_ref = fa.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do, causal)
     torch.cuda.synchronize()
-    e_o, ok_o = flash_err(o, o_ref, dt, 2e-5)
-    e_l, ok_l = flash_err(lse, lse_ref, torch.float32, 2e-5)
-    errs = grad_errs(grads, g_ref, dt)
     shape = {kk: c[kk] for kk in ("bh", "tq", "tk", "dh", "causal")}
-    check(ok_o and ok_l, f"flash_attention_fwd {shape} {dt}: o err {e_o}, "
-          f"lse err {e_l} (tolerance 2e-5, bf16 + one bf16 step)")
+
+    def fwd_errs(o_, lse_, d):
+        e_o, ok_o = flash_err(o_, o_ref, dt, fa.fwd_atol(o_ref, d))
+        e_l, ok_l = flash_err(lse_, lse_ref, torch.float32, 2e-5)
+        check(ok_o and ok_l, f"flash_attention_fwd {shape} {dt} ({d}): o "
+              f"err {e_o} (tolerance {fa.fwd_atol(o_ref, d)} plus one bf16 "
+              f"step), lse err {e_l} (tolerance 2e-5)")
+        # the outputs past design 1's limit
+        past = (o_.float() - o_ref.float()).abs() \
+            - (fa.fwd_atol(o_ref, "ffma")
+               + (2.0 ** -7 if dt == torch.bfloat16 else 0.0)
+               * o_ref.float().abs())
+        return max(e_o, e_l), int((past > 0).sum())
+
+    e_fwd, past_fwd = fwd_errs(o, lse, fwd_design)
+    errs = grad_errs(grads, g_ref, dt)
     for name, (err, ok, atol, _) in errs.items():
         check(ok, f"flash backward {shape} {dt} ({design}): {name} err "
               f"{err}, tolerance {atol} ({FLASH_GRAD_ATOL[dt]} of the "
               f"largest |ref|)")
     want = "wgmma" if dt == torch.bfloat16 and dh in fa.WGMMA_HEAD_DIMS \
         else "ffma"
-    check(design == want, f"flash backward {shape} {dt} ran design "
-          f"{design}, want {want}")
+    check(design == want and fwd_design == want,
+          f"flash {shape} {dt} ran designs {fwd_design} (forward) and "
+          f"{design} (backward), want {want}")
 
     delta = (do.float() * o_ref.float()).sum(dim=-1)
     runs = {
@@ -553,25 +580,33 @@ def run_flash_case(c, flush, gen):
             q, k, v, do, lse_ref, delta, causal, design=design),
         "flash_attention_bwd_dq": lambda: fa.launch_bwd_dq(
             q, k, v, do, lse_ref, delta, causal, design=design)}
-    errs_of = {"flash_attention_fwd": max(e_o, e_l),
+    errs_of = {"flash_attention_fwd": e_fwd,
                "flash_attention_bwd_dkdv": max(errs["dk"][0], errs["dv"][0]),
                "flash_attention_bwd_dq": errs["dq"][0]}
     share = {"flash_attention_bwd_dkdv": max(errs["dk"][3], errs["dv"][3]),
              "flash_attention_bwd_dq": errs["dq"][3]}
     unrounded = {}
     if dt == torch.bfloat16:
-        # the control: the same gradients against the plain backward left
+        # the control: the same outputs against the plain versions left
         # unrounded (float32 throughout), the fault C6 repaired
         g_f32 = fa.flash_attention_bwd_plain(
             *(x.float() for x in (q, k, v, o_ref)), lse_ref, do.float(),
             causal)
         ctrl = grad_errs(grads, g_f32, dt)
         del g_f32
-        unrounded = {"flash_attention_bwd_dkdv": max(ctrl["dk"][3],
+        o_f32, _ = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                            causal)
+        share["flash_attention_fwd"] = grad_errs((o,), (o_ref,), dt,
+                                                 ("o",))["o"][3]
+        unrounded = {"flash_attention_fwd": grad_errs(
+                         (o,), (o_f32,), dt, ("o",))["o"][3],
+                     "flash_attention_bwd_dkdv": max(ctrl["dk"][3],
                                                      ctrl["dv"][3]),
                      "flash_attention_bwd_dq": ctrl["dq"][3]}
+        del o_f32
         for name, x in unrounded.items():
-            check(share[name] < x, f"{name} {shape} {dt} ({design}) lies "
+            d = fwd_design if name == "flash_attention_fwd" else design
+            check(share[name] < x, f"{name} {shape} {dt} ({d}) lies "
                   f"{share[name]} of the largest |ref| past one bf16 step "
                   f"from the plain version that rounds P and dS, and {x} "
                   f"from the one that does not (C6)")
@@ -617,11 +652,15 @@ def run_flash_case(c, flush, gen):
         ms = time_ms(fn, flush)
         row = {"phase": "kernels", "kernel": name,
                "dtype": str(dt).replace("torch.", ""), **shape,
-               "design": "ffma" if name == "flash_attention_fwd" else design,
+               "design": fwd_design if name == "flash_attention_fwd"
+               else design,
                "max_abs_err": errs_of[name],
                "excess_share": share.get(name),
                "grad_limit_share": None if name == "flash_attention_fwd"
                else FLASH_GRAD_ATOL[dt],
+               "o_limit_share": fa.FWD_WGMMA_SHARE
+               if name == "flash_attention_fwd" and fwd_design == "wgmma"
+               else None,
                "unrounded_excess_share": unrounded.get(name), "ms": ms,
                "tflops": flash_flops(name, c) / ms / 1e9,
                "plain_ms": plain.get(name), "library_ms": lib.get(name),
@@ -646,6 +685,16 @@ def run_flash_case(c, flush, gen):
             row["ffma_excess_share"] = max(e[3] for e in e1.values())
             row["ffma_ms"] = time_ms(run1, flush)
             row["speedup_over_ffma"] = row["ffma_ms"] / ms
+        if name == "flash_attention_fwd":
+            row["past_2e-5_limit"] = past_fwd
+            if fwd_design == "wgmma" and c["main"]:
+                # design 1 on the same inputs, held to its own limit
+                def run1():
+                    return fa.launch_fwd(q, k, v, causal, design="ffma")
+
+                row["ffma_max_abs_err"] = fwd_errs(*run1(), "ffma")[0]
+                row["ffma_ms"] = time_ms(run1, flush)
+                row["speedup_over_ffma"] = row["ffma_ms"] / ms
         emit(row)
         rows.append(row)
     return rows
@@ -653,27 +702,32 @@ def run_flash_case(c, flush, gen):
 
 def run_flash_repeat(gen):
     """Design 2 launched twice at `path_t_bf16`'s shape and at Dh 128:
-    dq, dk and dv bit-equal (two kernels, no atomics)."""
+    o and lse bit-equal (B3a), dq, dk and dv bit-equal (B3b, B3c: two
+    kernels, no atomics)."""
     from deeplearning4j_tpu_torch.ops import attention as fa
 
     rows = []
     for bh, t, dh in ((64, 2048, 64), (16, 2048, 128)):
         q, k, v, do = (torch.randn(bh, t, dh, generator=gen)
                        .to("cuda", torch.bfloat16) for _ in range(4))
+        before = dict(fa.LAUNCHES_BY_DESIGN)
         o, lse = fa.flash_attention_fwd(q, k, v, True)
-        before = fa.LAUNCHES_BY_DESIGN[("flash_attention_bwd_dkdv", "wgmma")]
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, True)
         a = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
         b = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
         torch.cuda.synchronize()
-        check(fa.LAUNCHES_BY_DESIGN[("flash_attention_bwd_dkdv", "wgmma")]
-              == before + 2, f"flash repeat BH {bh} T {t} Dh {dh}: design "
-              f"2 did not take both launches")
-        equal = [torch.equal(x, y) for x, y in zip(a, b)]
+        check(all(fa.LAUNCHES_BY_DESIGN[(kk, "wgmma")] == before[(kk, "wgmma")]
+                  + 2 for kk in FLASH_KERNELS),
+              f"flash repeat BH {bh} T {t} Dh {dh}: design 2 did not take "
+              f"both launches of every kernel")
+        equal = [torch.equal(x, y) for x, y in zip((o, lse, *a),
+                                                   (o2, lse2, *b))]
         check(all(equal), f"flash repeat BH {bh} T {t} Dh {dh}: two "
-              f"launches differ (dq, dk, dv equal: {equal})")
+              f"launches differ (o, lse, dq, dk, dv equal: {equal})")
         rows.append({"phase": "flash_repeat", "bh": bh, "t": t, "dh": dh,
                      "causal": True, "dtype": "bfloat16", "design": "wgmma",
-                     "bit_equal": equal})
+                     "bit_equal": dict(zip(("o", "lse", "dq", "dk", "dv"),
+                                           equal))})
         emit(rows[-1])
     return rows
 
@@ -905,11 +959,14 @@ def run_nesterov_phase(flush, gen):
 def lstm_cases():
     """(T, B, H, input width, which kernels the recurrent paths run at
     this shape): `path_l` trains at T 128; `path_g` trains in chunks of
-    T 50, runs `output()` at T 200 and steps at T 1."""
+    T 50, runs `output()` at T 200 and steps at T 1; T 8 and 4 straddle
+    `b2_design`'s shortest sequence for design 2."""
     return [dict(T=128, B=64, H=512, F=128, main=("lstm_fwd", "lstm_bwd",
                                                   "lstm_bwd_weights")),
             dict(T=200, B=32, H=256, F=77, main=("lstm_fwd_inference",)),
             dict(T=50, B=32, H=256, F=77, main=()),
+            dict(T=8, B=32, H=256, F=77, main=()),
+            dict(T=4, B=32, H=256, F=77, main=()),
             dict(T=1, B=32, H=256, F=77, main=())]
 
 
@@ -935,19 +992,39 @@ def lstm_bounds(T, B, H):
     return out
 
 
+def lstm_fwd_errs(got, ref, tag, what):
+    """The largest error of a forward's outputs against the plain
+    version's; raises past the tolerances of `run_lstm_case`."""
+    e = 0.0
+    for name, a, b in zip(("hs", "cs", "gates", "hT", "cT"), got, ref):
+        if a is None:
+            continue
+        tol = 1e-4 * max(1.0, b.abs().max().item()) \
+            if name in ("cs", "cT") else 1e-4
+        d = (a - b).abs().max().item()
+        check(d <= tol, f"{what} {tag}: {name} err {d} past {tol}")
+        e = max(e, d)
+    return e
+
+
 def run_lstm_case(c, flush, gen):
     """Every variant (peepholes on/off x masked or not) of one shape
     against the plain versions; the main variant (peepholes on, masked)
     is the one timed. Tolerances (sums of H products in another order,
     carried through T steps): 1e-4 absolute on hs and the gates, which
     lie in [-1, 1]; 1e-4 of the reference's largest magnitude (at least
-    1) on the cell states, which are not bounded, and on each
-    gradient."""
+    1) on the cell states, which are not bounded, and on each gradient.
+    The forwards run in the design `b2_design` picks (one rule for B2a
+    and B2b, so their common outputs are bit-equal); the other design is
+    also held to the plain version and timed on the same inputs, and
+    where design 2 runs it is launched twice for bit-equal outputs."""
     from deeplearning4j_tpu_torch.ops import lstm as lk
 
     dev = flush.device
     T, B, H, F = c["T"], c["B"], c["H"], c["F"]
     with_bwd = T > 1
+    design = lk.b2_design(T, B, H, *lk.card_limits(dev))
+    other = next(d for d in lk.DESIGNS if d != design)
 
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=gen)).to(dev)
@@ -967,23 +1044,31 @@ def run_lstm_case(c, flush, gen):
                         ).float().to(dev)
             ins = (xw, rw, p, h0, c0, mask)
             tag = f"T{T} B{B} H{H} peep={peep} masked={masked}"
+            before = dict(lk.LAUNCHES_BY_DESIGN)
             got = lk.lstm_fwd(*ins, with_residuals=True)
             inf = lk.lstm_fwd(*ins, with_residuals=False)
+            check(lk.LAUNCHES_BY_DESIGN[("lstm_fwd", design)]
+                  == before[("lstm_fwd", design)] + 1
+                  and lk.LAUNCHES_BY_DESIGN[("lstm_fwd_inference", design)]
+                  == before[("lstm_fwd_inference", design)] + 1,
+                  f"lstm {tag}: the forwards did not run on {design}")
             ref = lk.lstm_fwd_plain(*ins, with_residuals=True)
             torch.cuda.synchronize()
-            e = 0.0
-            for name, a, b in zip(("hs", "cs", "gates", "hT", "cT"), got,
-                                  ref):
-                tol = 1e-4 * max(1.0, b.abs().max().item()) \
-                    if name in ("cs", "cT") else 1e-4
-                d = (a - b).abs().max().item()
-                check(d <= tol, f"lstm_fwd {tag}: {name} err {d} past {tol}")
-                e = max(e, d)
+            e = lstm_fwd_errs(got, ref, tag, f"lstm_fwd ({design})")
             check(all(torch.equal(a, b) for a, b in
                       ((got[0], inf[0]), (got[3], inf[3]), (got[4], inf[4]))),
                   f"lstm_fwd_inference {tag} differs from lstm_fwd")
             errs["lstm_fwd"] = max(errs["lstm_fwd"], e)
             errs["lstm_fwd_inference"] = max(errs["lstm_fwd_inference"], e)
+            # the other design on the same inputs, held to the same limits
+            e = lstm_fwd_errs(lk.launch_fwd(*ins, True, other), ref, tag,
+                              f"lstm_fwd ({other})")
+            errs[f"lstm_fwd/{other}"] = max(errs.get(f"lstm_fwd/{other}",
+                                                     0.0), e)
+            if design == "persistent":
+                again = lk.lstm_fwd(*ins, with_residuals=True)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"lstm_fwd {tag}: two design-2 launches differ")
             bw = None
             if with_bwd:
                 hs, cs, gates = ref[0], ref[1], ref[2]
@@ -1045,14 +1130,23 @@ def run_lstm_case(c, flush, gen):
     rows = []
     for name, fn in runs.items():
         timed_plain = name in c["main"] or T == 128
+        ms = time_ms(fn, flush)
         row = {"phase": "kernels", "kernel": name, "dtype": "float32",
                "T": T, "B": B, "H": H, "max_abs_err": errs[name],
-               "ms": time_ms(fn, flush),
+               "ms": ms,
                "plain_ms": time_ms(plain[name], flush, iters=5)
                if timed_plain else None,
                "library_ms": time_ms(lib[name], flush),
                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                "main_path_shape": name in c["main"]}
+        if name in ("lstm_fwd", "lstm_fwd_inference"):
+            resid = name == "lstm_fwd"
+            other_ms = time_ms(lambda: lk.launch_fwd(*ins, resid, other),
+                               flush)
+            row.update({"design": design, "bound_share": bounds[name][0] / ms,
+                        f"{other}_ms": other_ms,
+                        f"speedup_over_{other}": other_ms / ms,
+                        f"{other}_max_abs_err": errs[f"lstm_fwd/{other}"]})
         emit(row)
         rows.append(row)
     return rows
@@ -1629,9 +1723,10 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
               loss_must_fall=True):
     """`net.fit(batches, epochs)` with every launch count zeroed just
     before and read just after. Step times come from CUDA events recorded
-    after each step is enqueued; every step after the first runs with
-    host syncs made errors; the losses stay on the device until the fit
-    has returned. Checks the step count, finite losses and (unless
+    after each step is enqueued, beside the host's time fetching each
+    step's batch (`etl_ms`, the executor's); every step after the first
+    runs with host syncs made errors; the losses stay on the device until
+    the fit has returned. Checks the step count, finite losses and (unless
     `loss_must_fall` is false) a falling epoch mean loss; returns the
     measurements common to the training paths, the rate counted in
     `unit` (`tokens_per_step` of them a step)."""
@@ -1639,7 +1734,7 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
 
     class Clock(TrainingListener):
         def __init__(self):
-            self.events, self.losses = [], []
+            self.events, self.losses, self.etl = [], [], []
 
         def _mark(self):
             e = torch.cuda.Event(enable_timing=True)
@@ -1648,6 +1743,9 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
 
         def on_fit_start(self, model):
             self._mark()
+
+        def set_etl_time(self, ms):
+            self.etl.append(ms)
 
         def iteration_done(self, model, iteration, epoch, score):
             self._mark()
@@ -1695,7 +1793,7 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
             / (ev[2].elapsed_time(ev[steps]) / 1e3),
             "step_ms_p50": float(np.median(step_ms[1:])),
             "step_ms_max": max(step_ms[1:]), "step_ms_first": step_ms[0],
-            "step_ms": step_ms, "wall_s": wall,
+            "step_ms": step_ms, "etl_ms": clock.etl, "wall_s": wall,
             "max_memory_allocated_bytes": peak,
             "epoch_mean_loss": epoch_loss, "losses": losses,
             "launches": launches, "plain_on_cuda": plain_on_cuda,
@@ -1709,9 +1807,9 @@ FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
 def path_t(rng, epochs=3, dtype="float32"):
     """Full width training: 6 blocks, T 2048, batch 8, the zoo's default
     Adam(3e-4), 4 fixed batches x 3 epochs = 12 steps through `net.fit`
-    (`timed_fit`). float32 (`path_t`): B3b/B3c on design 1; bfloat16
+    (`timed_fit`). float32 (`path_t`): B3a-c on design 1; bfloat16
     (`path_t_bf16`, `bench.py`'s dtype for this model: BENCH_DTYPE's
-    default, `bench.py:586`): B3b/B3c on design 2, the tensor cores."""
+    default, `bench.py:586`): B3a-c on design 2, the tensor cores."""
     from deeplearning4j_tpu_torch.ops import attention as fa
     from deeplearning4j_tpu_torch.optim.updaters import Adam
 
@@ -1734,7 +1832,7 @@ def path_t(rng, epochs=3, dtype="float32"):
     by_design = launches_by_design(fa)
     design = "wgmma" if dtype == "bfloat16" else "ffma"
     other = "ffma" if design == "wgmma" else "wgmma"
-    for kernel in FLASH_KERNELS[1:]:
+    for kernel in FLASH_KERNELS:
         check(by_design[f"{kernel}/{design}"] == blocks * steps
               and by_design[f"{kernel}/{other}"] == 0,
               f"{name}: {kernel} not all on {design}: {by_design}")
@@ -1946,7 +2044,9 @@ def onehot_batches(rng, n, batch, t, vocab):
 def path_l(rng, epochs=3):
     """Full width LSTM training: GravesLSTM(512) x 2, T 128, batch 64,
     float32, Nesterovs(0.01, 0.9); 4 fixed batches (two masked) x 3
-    epochs = 12 steps through `net.fit` (`timed_fit`)."""
+    epochs = 12 steps through `net.fit` (`timed_fit`); B2a on design 2,
+    the persistent grid."""
+    from deeplearning4j_tpu_torch.ops import lstm as lk
     from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
 
     B, T = 64, 128
@@ -1965,10 +2065,14 @@ def path_l(rng, epochs=3):
           f"times, want one a step x {steps}")
     check(launches["lstm_fwd_inference"] == 0,
           "path_l: the inference kernel ran in a train step")
+    by_design = launches_by_design(lk)
+    check(by_design["lstm_fwd/persistent"] == 2 * steps
+          and by_design["lstm_fwd/cluster"] == 0,
+          f"path_l: lstm_fwd not all on design 2: {by_design}")
     row = {"phase": "path_l", "model": "GravesLSTM x 2 + RnnOutputLayer",
            "hidden": 512, "n_in": 128, "classes": 64, "T": T, "batch": B,
            "dtype": "float32", "updater": str(net.conf.updater),
-           "masked_batches": 2, **fit}
+           "masked_batches": 2, **fit, "launches_by_design": by_design}
     emit(row)
     return row
 
@@ -1977,7 +2081,9 @@ def path_g(rng, calls=200):
     """The zoo LSTM at its own width: tBPTT fit, `output()`, then a
     greedy stepping loop of `calls` `rnn_time_step` calls for 32 streams,
     each fed the one-hot of its last argmax. The loop's tokens are read
-    once, after it."""
+    once, after it. The fit's B2a (T 50 chunks) and `output()`'s B2b
+    (T 200) run on design 2, the loop's B2b (T 1) on design 1."""
+    from deeplearning4j_tpu_torch.ops import lstm as lk
     from deeplearning4j_tpu_torch.optim.updaters import Adam
     from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
 
@@ -1994,7 +2100,11 @@ def path_g(rng, calls=200):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_launches, _ = read_all_counts()
+    fit_by_design = launches_by_design(lk)
     chunks = 2 * (T // 50)
+    check(fit_by_design["lstm_fwd/persistent"] == 2 * chunks,
+          f"path_g: the tBPTT fit's B2a not all on design 2: "
+          f"{fit_by_design}")
     for name in ("lstm_fwd", "lstm_bwd", "lstm_bwd_weights"):
         check(fit_launches[name] == 2 * chunks,
               f"path_g: {name} launched {fit_launches[name]} times in the "
@@ -2013,8 +2123,10 @@ def path_g(rng, calls=200):
     check(bool(torch.isfinite(probs).all()), "path_g: output is not finite")
     check(float((probs.sum(-1) - 1).abs().max()) < 1e-4,
           "path_g: output rows do not sum to 1")
-    check(after_output["lstm_fwd_inference"] == 2,
-          "path_g: output() did not run the inference kernel twice")
+    check(after_output["lstm_fwd_inference"] == 2
+          and launches_by_design(lk)["lstm_fwd_inference/persistent"] == 2,
+          "path_g: output() did not run the inference kernel twice on "
+          "design 2")
 
     net.rnn_clear_previous_state()
     eye = torch.eye(V, device=net.device)
@@ -2042,6 +2154,10 @@ def path_g(rng, calls=200):
     check(step_launches == 2 * calls,
           f"path_g: {step_launches} inference launches in {calls} calls, "
           f"want 2 a call")
+    by_design = launches_by_design(lk)
+    check(by_design["lstm_fwd_inference/cluster"] == 2 * calls + 2,
+          f"path_g: the stepping loop's B2b not all on design 1: "
+          f"{by_design}")
     check(toks.shape == (B, calls) and toks.min() >= 0 and toks.max() < V,
           "path_g: stepping produced an out-of-vocabulary token")
     check(sum(plain_on_cuda.values()) == 0,
@@ -2063,7 +2179,9 @@ def path_g(rng, calls=200):
            "call_ms_p50": float(np.median(host_ms)),
            "call_ms_p99": float(np.percentile(host_ms, 99)),
            "stepping_vs_output_max_abs_err": step_err,
-           "launches": launches, "plain_on_cuda": plain_on_cuda}
+           "launches": launches, "launches_by_design": by_design,
+           "fit_launches_by_design": fit_by_design,
+           "plain_on_cuda": plain_on_cuda}
     emit(row)
     return row
 
@@ -2138,8 +2256,8 @@ B7_KERNELS = ("conv1x1_bn_stats", "conv3x3_bn_stats")
 
 def launches_by_design(mod):
     """{"kernel/design": launches} of a kernel module with two designs
-    (`ops.attention`: B3b/B3c, `ops.conv_fused`: B7) since the counts
-    were reset."""
+    (`ops.attention`: B3a-c, `ops.lstm`: B2a/B2b, `ops.conv_fused`: B7)
+    since the counts were reset."""
     return {f"{k}/{d}": n for (k, d), n in mod.LAUNCHES_BY_DESIGN.items()}
 
 
@@ -2376,11 +2494,23 @@ def main() -> int:
                                           "bound_share", "ffma_ms",
                                           "speedup_over_ffma")
                  if k in main_row},
+                launches_by_design={
+                    d: t["launches_by_design"][f"{name}/{d}"]
+                    for d in ("ffma", "wgmma")},
                 float32={"ms": f32["ms"], "design": f32["design"],
                          "bound_ms": f32["bound_ms"],
                          "plain_ms": f32["plain_ms"],
                          "library_ms": f32["library_ms"],
                          "launches_path_t": t32["launches"][name]})
+        if name in ("lstm_fwd", "lstm_fwd_inference"):
+            by = (lp["launches_by_design"] if name == "lstm_fwd"
+                  else g["launches_by_design"])
+            summary[-1].update(
+                {k: main_row[k] for k in main_row
+                 if k in ("design", "bound_share", "cluster_ms",
+                          "speedup_over_cluster", "persistent_ms")},
+                launches_by_design={d: by[f"{name}/{d}"]
+                                    for d in ("cluster", "persistent")})
         if name == "lstm_fwd_inference":
             # most of its launches on path_g are the stepping loop's, at T 1
             summary[-1]["ms_at_T1"] = next(r["ms"] for r in mine
@@ -2390,7 +2520,14 @@ def main() -> int:
         summary.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": r["launches"][name],
-                        **b7_step_totals(rows, name)})
+                        **b7_step_totals(rows, name),
+                        "launches_by_design": {
+                            d: r["launches_by_design"][f"{name}/{d}"]
+                            for d in ("ffma", "wgmma")}})
+    for entry in summary:
+        # a kernel with one design: all its launches are design 1's
+        entry.setdefault("launches_by_design",
+                         {"design 1": entry["launches"]})
     emit({"kernels": summary})
     print(gpu_name_and_limit(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,10 +10,11 @@
 //   flash_bwd_dq_kernel    — replaces B3c, `_flash_bwd_dq_kernel`: dQ with
 //     one Q tile pinned while the K tiles are swept.
 //
-// B3b and B3c come in two designs, chosen per call by `b3_design` in
+// Each comes in two designs, chosen per call by `b3_design` in
 // ops/attention.py (by dtype, head dim and alignment, before the launch;
 // neither falls back to the other): design 1 above, and design 2,
-// `tc::bwd_dkdv_wgmma_kernel` and `tc::bwd_dq_wgmma_kernel`, below.
+// `tc::fwd_wgmma_kernel`, `tc::bwd_dkdv_wgmma_kernel` and
+// `tc::bwd_dq_wgmma_kernel`, below.
 //
 // The backward rematerializes each score tile from the saved lse, as the
 // TPU kernels do (`_bwd_tile`): p = exp(s - L), ds = p * (dp - delta) *
@@ -47,8 +48,8 @@
 // 45-170 KB, above the 48 KB static limit, so each instantiation raises
 // its dynamic limit once.
 //
-// Design 2 (B3b and B3c in bfloat16 at Dh 64 and 128, 16-byte aligned
-// q, k, v, dO): the five products on the tensor cores, `wgmma` m64nNk16
+// Design 2 (bfloat16 at Dh 64 and 128, 16-byte aligned q, k, v and, for
+// the backward, dO): the products on the tensor cores, `wgmma` m64nNk16
 // with float32 accumulators, fed by TMA (128-byte swizzled 64 x 64 boxes
 // of a 3-D [BH, T, Dh] tensor map, zero-filled past T). A block is two
 // consumer warpgroups of 64 rows each and a producer warpgroup whose one
@@ -60,7 +61,9 @@
 // from registers (P^T, dS^T rounded to bfloat16 in place: the
 // accumulator fragment is the A fragment, `acc_to_a`) and B the streamed
 // tile read N-major through the transpose bit. dQ: the block's 128
-// queries pinned, K and V tiles streamed; S, dP, then dQ += dS K.
+// queries pinned, K and V tiles streamed; S, dP, then dQ += dS K. The
+// forward is the dQ loop without dO, dP and delta: S, the online softmax
+// in registers, then O += P V.
 // Causal: dead tiles are skipped and only tiles that cross the diagonal
 // or an end are masked; the dK/dV grid puts the key blocks on y, so the
 // first key blocks (which sweep the most Q tiles) start first, and the dQ
@@ -77,8 +80,8 @@
 // each product's first k-slice overwrites its accumulator (scale-d 0)
 // instead of a zeroing, and P and dS go from the accumulators straight
 // into the A fragments.
-// Not done yet: the forward B3a on the tensor cores, and a ping-pong of
-// the two warpgroups' softmax phases — later work.
+// Not done yet: a ping-pong of the two warpgroups' softmax phases — later
+// work.
 //
 // Numerics. As the TPU kernels: the causal mask value is -1e30, the
 // running max starts at -1e30, l is clamped at 1e-30 before the division
@@ -447,7 +450,8 @@ int run(Which w, const Args& a, int dtype, void* stream) {
 }
 
 // ------------------------------------------------------------------------
-// Design 2 of B3b and B3c: bfloat16 on the tensor cores (wgmma fed by TMA)
+// Design 2 of B3a, B3b and B3c: bfloat16 on the tensor cores (wgmma fed by
+// TMA)
 // ------------------------------------------------------------------------
 namespace tc {
 
@@ -887,6 +891,261 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// 2^x, subnormal results flushed to zero (p that small vanishes beside
+// the row's largest p = 1)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p's exponential in B3a design 2: 2^(s scale log2 e - m log2 e) on the
+// SFU (0, the default), or design 1's and the plain version's
+// expf(s scale - m) (1); `tools/torch_b3a_exp_forms.py` builds both and
+// holds each against the plain version
+#ifndef DL4J_FWD_EXPF
+#define DL4J_FWD_EXPF 0
+#endif
+
+// the forward's ring is a stage deeper: a stage is handed back a softmax
+// later, once the P V that overlaps the next tile's softmax is done
+constexpr int kFwdStages = 4;
+
+template <int DH>
+__host__ __device__ constexpr int fwd_smem() {
+  return 1024 + 2 * Tile<DH>::kBytes + kFwdStages * 2 * Tile<DH>::kBytes +
+         8 * (2 * kFwdStages + 1);
+}
+
+// B3a, design 2: B3c's loop with dO, dP and delta taken out. Block (bh, y)
+// owns queries q0 .. q0 + 127, the last query blocks first (causal: they
+// sweep the most key tiles): warpgroup w the 64 from qw0 = q0 + 64 w, its Q
+// tile loaded once. The producer streams the K and V tiles (causal: up to
+// the tile of the block's last query). Per K tile, with m and l a row's
+// running max (of s scale) and row sum:
+//   S = Q K^T                               (A, B K-major)
+//   m' = max(m, max(S scale)), alpha = exp(m - m')
+//   P = exp(S scale - m'), l = l alpha + rowsum(P)
+//   A = P V                                 (A from registers: P rounded
+//                                            to bfloat16; B N-major)
+//   O = O alpha + A                         (once that product is done)
+// then o = O / l (divided, rounded once) and lse = m + log(l). The running
+// O lives in registers that no product writes, and each tile's P V starts
+// its accumulator afresh (scale-d 0): an accumulator that other
+// instructions write (an O rescaled in place) makes ptxas serialize the
+// products (C7515). l is summed from the unrounded P over this thread's
+// columns, and over the quad of lanes that shares a row at the end.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int Tq, int Tk, float scale, int causal) {
+  using G = Tile<DH>;
+  constexpr int kStage = 2 * G::kBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = sQ + 2 * G::kBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kFwdStages * kStage);
+  uint64_t* empty = full + kFwdStages;
+  uint64_t* q_full = empty + kFwdStages;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 128;
+  // the warpgroup and warp broadcast from lane 0, as in the dQ kernel
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int warp = __shfl_sync(0xffffffffu, t / 32, 0);
+  int nkt = (Tk + 63) / 64;
+  if (causal) nkt = min(nkt, min(q0 + 127, Tq - 1) / 64 + 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    reg_dealloc<G::kProducerRegs>();
+    if (t == 0) {
+      mbar_expect_tx(q_full, 2 * G::kBytes);
+      for (int w = 0; w < 2; ++w)
+        load_tile_tma<DH>(sQ + w * G::kBytes, &qmap, q_full, q0 + 64 * w,
+                          bh);
+      for (int i = 0; i < nkt; ++i) {
+        const int s = i % kFwdStages, round = i / kFwdStages;
+        if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+        uint8_t* st = ring + s * kStage;
+        mbar_expect_tx(&full[s], kStage);
+        load_tile_tma<DH>(st, &kmap, &full[s], 64 * i, bh);
+        load_tile_tma<DH>(st + G::kBytes, &vmap, &full[s], 64 * i, bh);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    reg_alloc<G::kConsumerRegs>();
+    const int qw0 = q0 + 64 * wg;
+    const uint8_t* myQ = sQ + wg * G::kBytes;
+    const float sl2 = scale * kLog2e;
+    // this thread's two rows (h = 0, 1): running max and its share of l
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    // ov: O; oa: the accumulator of a tile's P V, folded into O once done
+    // (only the products write it); alpha_o: the rescale O takes before
+    // that tile's P V is added
+    float ov[G::kAcc], oa[G::kAcc], alpha_o[2];
+#pragma unroll
+    for (int i = 0; i < G::kAcc; ++i) ov[i] = 0.f;
+    mbar_wait(q_full, 0);
+    // live tiles are a prefix of the sweep, as in the dQ kernel
+    const int nlive = qw0 >= Tq ? 0
+                      : causal ? min(nkt, qw0 / 64 + 1) : nkt;
+    float sc[32] = {};
+    auto issue_s = [&](int i) {
+      const uint8_t* sk = ring + (i % kFwdStages) * kStage;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        WgmmaBf16<64, 0>::run(sc, kmajor(myQ, kk), kmajor(sk, kk), kk > 0);
+      wgmma_commit();
+    };
+    // Software-pipelined: tile i + 1's S is issued ahead of tile i's P V,
+    // so that P V runs on the tensor cores during the next tile's softmax
+    // (`wgmma_wait<1>` waits for S alone); the registers that P V reads
+    // (its A fragments) and writes are touched only after `wgmma_wait<0>`.
+    // Waits on barriers and lane branches sit where nothing is in flight
+    // (the mask's branch is warp-uniform); the last tile is peeled.
+    auto step = [&](int i, auto next) {
+      const uint8_t* sv = ring + (i % kFwdStages) * kStage + G::kBytes;
+      const int kt0 = 64 * i;
+      wgmma_wait<1>();      // S of tile i is done; P V of tile i - 1 runs
+      fence_regs(sc);
+      // Keys past Tk (zero-filled: score 0, not -inf) and, causal, keys
+      // past a row's query are masked: s = -inf, so p = 0, on the tiles
+      // that cross the diagonal or the end only (a warp-uniform branch).
+      // Column x of the fragment is key kt0 + 2 (lane % 4) + 8 (x / 4) +
+      // (x & 1), so with lim[h] the last key row h sees less kt0 +
+      // 2 (lane % 4), each test is a compare with a constant.
+      const float kMinusInf = __int_as_float(0xff800000);
+      float sm[32];
+      if ((causal && kt0 + 63 > qw0) || kt0 + 64 > Tk) {
+        int lim[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = qw0 + 16 * warp + lane / 4 + 8 * h;
+          lim[h] = (causal ? min(Tk - 1, q) : Tk - 1) - kt0 - 2 * (lane % 4);
+        }
+#pragma unroll
+        for (int x = 0; x < 32; ++x)
+          sm[x] = 8 * (x / 4) + (x & 1) > lim[(x >> 1) & 1] ? kMinusInf
+                                                            : sc[x];
+      } else {
+#pragma unroll
+        for (int x = 0; x < 32; ++x) sm[x] = sc[x];
+      }
+      // the row max of s (over this thread's 16 columns, then the quad of
+      // lanes that holds the row), scaled once: scale > 0, so this is the
+      // max of the scaled scores bit for bit
+      float mx[2] = {kMinusInf, kMinusInf};
+#pragma unroll
+      for (int x = 0; x < 32; ++x)
+        mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], sm[x]);
+      float alpha[2], ml2[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h] * scale);
+        alpha[h] = expf(m[h] - m_new);
+        m[h] = m_new;
+        ml2[h] = m_new * kLog2e;
+      }
+      // P in float32 (S is only read); rounded into the A fragments only
+      // once tile i - 1's P V is done, since that product still reads the
+      // A registers
+      float p[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        p[x] = DL4J_FWD_EXPF
+                   ? expf(__fsub_rn(__fmul_rn(sm[x], scale), m[(x >> 1) & 1]))
+                   : ex2_ftz(fmaf(sm[x], sl2, -ml2[(x >> 1) & 1]));
+        rs[(x >> 1) & 1] += p[x];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+      wgmma_wait<0>();      // P V of tile i - 1 is done: fold it into O
+      fence_regs(oa);
+      fence_regs(p);        // the rounding below stays after the wait
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(p, kk, pa[kk]);
+      if (i > 0) {
+        if (lane == 0) mbar_arrive(&empty[(i - 1) % kFwdStages]);
+#pragma unroll
+        for (int x = 0; x < G::kAcc; ++x)
+          ov[x] = fmaf(ov[x], alpha_o[(x >> 1) & 1], oa[x]);
+      }
+      alpha_o[0] = alpha[0];
+      alpha_o[1] = alpha[1];
+      if constexpr (decltype(next)::value) {
+        mbar_wait(&full[(i + 1) % kFwdStages], ((i + 1) / kFwdStages) & 1);
+        issue_s(i + 1);
+      }
+      fence_regs(oa);
+      wgmma_fence();   // the A registers were just written
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaBf16RS<DH, 1>::run(oa, pa[kk], nmajor(sv, kk), kk > 0);
+      wgmma_commit();
+    };
+    if (nlive > 0) {
+      mbar_wait(&full[0], 0);
+      issue_s(0);
+      wgmma_commit();       // an empty group in place of tile -1's P V
+      int i = 0;
+      for (; i + 1 < nlive; ++i) step(i, std::true_type{});
+      step(i, std::false_type{});
+      wgmma_wait<0>();
+      fence_regs(oa);
+      if (lane == 0) mbar_arrive(&empty[i % kFwdStages]);
+#pragma unroll
+      for (int x = 0; x < G::kAcc; ++x)
+        ov[x] = fmaf(ov[x], alpha_o[(x >> 1) & 1], oa[x]);
+    }
+    for (int i = nlive; i < nkt; ++i) {
+      mbar_wait(&full[i % kFwdStages], (i / kFwdStages) & 1);
+      if (lane == 0) mbar_arrive(&empty[i % kFwdStages]);
+    }
+    // o = O / l, divided as the TPU kernel divides (not times 1 / l)
+    float li[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      li[h] = fmaxf(l[h], 1e-30f);
+      const int q = qw0 + 16 * warp + lane / 4 + 8 * h;
+      if (lse != nullptr && lane % 4 == 0 && q < Tq)
+        lse[(size_t)bh * Tq + q] = m[h] + logf(li[h]);
+    }
+    __nv_bfloat16* ob = o + (size_t)bh * Tq * DH;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = qw0 + 16 * warp + lane / 4 + 8 * h;
+      if (r >= Tq) continue;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)r * DH + 8 * j +
+                                     2 * (lane % 4)) =
+            pack_bf16(ov[4 * j + 2 * h] / li[h],
+                      ov[4 * j + 2 * h + 1] / li[h]);
+    }
+  }
+}
+
 // 3-D [BH, T, DH] bfloat16 tensor map read in 64 x 64 boxes
 int encode_rows(CUtensorMap* map, const void* base, int BH, int T, int DH) {
   const uint64_t dims[3] = {(uint64_t)DH, (uint64_t)T, (uint64_t)BH};
@@ -901,10 +1160,20 @@ int launch(Which w, const Args& a, cudaStream_t st) {
   int rc = encode_rows(&qm, a.q, a.BH, a.Tq, DH);
   if (!rc) rc = encode_rows(&km, a.k, a.BH, a.Tk, DH);
   if (!rc) rc = encode_rows(&vm, a.v, a.BH, a.Tk, DH);
-  if (!rc) rc = encode_rows(&om, a.dout, a.BH, a.Tq, DH);
+  if (!rc && w != kFwd) rc = encode_rows(&om, a.dout, a.BH, a.Tq, DH);
   if (rc) return rc;
   using B = __nv_bfloat16;
-  if (w == kDkdv) {
+  if (w == kFwd) {
+    constexpr int smem = fwd_smem<DH>();
+    static const cudaError_t once = cudaFuncSetAttribute(
+        fwd_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (once != cudaSuccess) return (int)once;
+    fwd_wgmma_kernel<DH>
+        <<<dim3(a.BH, (a.Tq + 127) / 128), kThreads, smem, st>>>(
+            qm, km, vm, static_cast<B*>(a.o), a.lse, a.Tq, a.Tk, a.scale,
+            a.causal);
+  } else if (w == kDkdv) {
     constexpr int smem = dkdv_smem<DH>();
     static const cudaError_t once = cudaFuncSetAttribute(
         bwd_dkdv_wgmma_kernel<DH>,
@@ -959,6 +1228,19 @@ int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* o,
   a.BH = BH; a.Tq = Tq; a.Tk = Tk; a.Dh = Dh; a.scale = scale;
   a.causal = causal;
   return run(kFwd, a, dtype, stream);
+}
+
+// Design 2 of B3a, bfloat16 on the tensor cores: q, k, v bfloat16 [BH, T,
+// Dh] with Dh 64 or 128 and 16-byte aligned data; o bfloat16; lse float32
+// [BH, Tq] or null. Returns 0 or a cudaError_t.
+int dl4j_flash_fwd_wgmma(const void* q, const void* k, const void* v,
+                         void* o, float* lse, int BH, int Tq, int Tk, int Dh,
+                         float scale, int causal, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
+  a.BH = BH; a.Tq = Tq; a.Tk = Tk; a.Dh = Dh; a.scale = scale;
+  a.causal = causal;
+  return tc::run(kFwd, a, stream);
 }
 
 int dl4j_flash_bwd_dkdv(const void* q, const void* k, const void* v,

@@ -6,6 +6,8 @@
 //     gates) and the final carries hT, cT.
 //   lstm_fwd_kernel<false> — replaces B2b, `_fwd_kernel_inference`: the
 //     same recurrence, writing hs, hT and cT only.
+//   persist::lstm_fwd_persistent_kernel<BR, RESID> — design 2 of B2a
+//     (RESID) and B2b, below.
 //   lstm_bwd_kernel + lstm_drw_kernel + lstm_dp_reduce_kernel — replace
 //     B2c, `_bwd_kernel`: reverse time, dxw, dh0, dc0, then dRW and dP.
 //
@@ -50,9 +52,23 @@
 // dgates RW^T, hprev^T dxw) over the card's 67 TFLOP/s float32 rate
 // exceed the bytes bound (xw in, hs/cs/gates out) at the training shapes.
 // What this design pays instead: every cluster re-reads RW (4 MiB at H 512)
-// from L2 each step, and at most 8 clusters are resident at once. Keeping
-// RW's strips resident in the shared memory of a persistent grid with a
-// barrier a step is the next design.
+// from L2 each step, and at most 8 clusters are resident at once.
+//
+// Design 2 of the forward (B2a, and B2b where ops/lstm.py `b2_design`
+// sends it), `persist::lstm_fwd_persistent_kernel`: RW does not fit one
+// cluster even at H 512 (4 MiB), so the grid is persistent, one block an SM,
+// launched cooperatively so that all its blocks are resident or the launch
+// fails. Block (s, r) owns HC hidden columns (their four gate columns of RW,
+// staged once into shared memory and resident for all T steps) and a tile
+// of BR batch rows, with BR x 4 HC = 1024 pre-activations (`b2_rows` picks
+// the smallest BR whose grid and shared memory fit, so that a step moves
+// the least of h). Each step the block copies its BR rows of h_{t-1} from a
+// double-buffered global h (k-major, through L2 only), its 8 warps each sum
+// an eighth of K for all 1024 outputs (a lane 8 rows x 4 gates: 32 FFMA
+// from three 16-byte shared loads), the partials are added in warp order,
+// a thread does the cell of one (row, column) with c in a register and
+// writes h_t, and the blocks of a batch tile pass one barrier (a counter,
+// release and acquire). No atomics on data: two launches are bit-equal.
 //
 // Numerics. expf and tanhf, no fast-math: 128 steps of drift would break
 // the tolerance. A sum of H products is taken as Q interleaved partial
@@ -641,6 +657,239 @@ cudaError_t raise_smem_limit(Kernel kernel, bool* raised) {
   return e;
 }
 
+// ------------------------------------------------------ forward, design 2
+// The persistent grid (see the top of this file). A block computes the
+// pre-activations of a tile of BR batch rows x NC = 1024 / BR gate columns:
+// HC = NC / 4 hidden columns, each with its four gates side by side.
+namespace persist {
+
+constexpr int kThreads = 256;   // 8 warps; warp w sums the w-th eighth of K
+constexpr int kWarps = kThreads / 32;
+
+template <int BR>
+struct Tile {
+  static constexpr int NC = 1024 / BR;   // gate columns
+  static constexpr int HC = NC / 4;      // hidden columns (and a warp's
+                                         // column groups: BR / 8 x HC = 32)
+  static constexpr int NCP = NC + 4;     // padded row of the partial sums
+};
+
+// floats of shared memory: the resident strip [H][NC], then the h tile
+// [H][BR], whose space the warps' partial sums [kWarps][BR][NCP] reuse
+template <int BR>
+__host__ __device__ constexpr size_t smem_floats(int H) {
+  using G = Tile<BR>;
+  const size_t h = (size_t)H * BR, red = (size_t)kWarps * BR * G::NCP;
+  return (size_t)H * G::NC + (h > red ? h : red);
+}
+
+__device__ __forceinline__ void cp_async16_cg(float* dst, const float* src) {
+  // .cg: through L2 only, never a stale L1 line of an earlier step's h
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// The blocks of one batch tile (gridDim.x of them) wait for each other: a
+// counter that only grows, `target` its value once this barrier is done.
+// Release: the block's writes, then one arrival; acquire: the spin, then a
+// fence. A spin past ~2^35 cycles traps instead of hanging the card.
+__device__ __forceinline__ void tile_barrier(unsigned* counter,
+                                             unsigned& target) {
+  __syncthreads();
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    unsigned seen;
+    long long start = 0;
+    for (;;) {
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];\n"
+                   : "=r"(seen) : "l"(counter) : "memory");
+      if (seen >= target) break;
+      if (start == 0) start = clock64();
+      else if (clock64() - start > (1LL << 35)) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The arguments of `dl4j_lstm_fwd_persistent`: hbuf [2][H][Bp] (Bp =
+// gridDim.y BR) carries h between steps, k-major so that a block's tile of
+// it is BR contiguous floats a row; counters [gridDim.y] start at 0.
+struct Args {
+  const float *xw, *rw, *p, *h0, *c0, *mask;
+  float *hs, *cs, *gates, *hT, *cT, *hbuf;
+  unsigned* counters;
+  int T, B, H;
+};
+
+// Block (s, r): hidden columns j0 = s HC .., batch rows b0 = r BR ..
+template <int BR, bool RESID>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd_persistent_kernel(const Args a) {
+  using G = Tile<BR>;
+  const float* __restrict__ xw = a.xw;
+  const float* __restrict__ mask = a.mask;
+  float* hbuf = a.hbuf;
+  const int T = a.T, B = a.B, H = a.H;
+  extern __shared__ float4 smem4[];
+  float* ws = reinterpret_cast<float*>(smem4);    // [H][NC]
+  float* hsm = ws + (size_t)H * G::NC;            // [H][BR] / partials
+  const int j0 = blockIdx.x * G::HC, b0 = blockIdx.y * BR;
+  const int Bp = gridDim.y * BR, H4 = 4 * H;
+  unsigned* counter = a.counters + blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the product: lane (rg, cgrp) sums rows 4 rg + i and BR / 2 + 4 rg + i
+  // (i < 4) against gate columns 4 cgrp .. + 3 over K rows [k0, k1)
+  const int rg = lane / G::HC, cgrp = lane % G::HC;
+  const int kw = (H + kWarps - 1) / kWarps;
+  const int k0 = min(H, warp * kw), k1 = min(H, k0 + kw);
+  // the cell: thread (row, jj) owns batch row b and hidden column j
+  const int row = threadIdx.x / G::HC, jj = threadIdx.x % G::HC;
+  const int b = b0 + row, j = j0 + jj;
+  const bool col_ok = j < H, row_ok = b < B;
+
+  // RW's strip, resident for the whole sequence: ws[k][4 jj + g] =
+  // RW[k][g H + j0 + jj], zeros past H
+  for (int idx = threadIdx.x; idx < H * G::NC; idx += kThreads) {
+    const int k = idx / G::NC, c = idx % G::NC;
+    const int g = c / G::HC, cj = j0 + c % G::HC;
+    ws[k * G::NC + 4 * (c % G::HC) + g] =
+        cj < H ? a.rw[(size_t)k * H4 + g * H + cj] : 0.f;
+  }
+  float c_reg = 0.f, h_reg = 0.f, p0 = 0.f, p1 = 0.f, p2 = 0.f;
+  if (col_ok && row_ok) {
+    c_reg = a.c0[(size_t)b * H + j];
+    h_reg = a.h0[(size_t)b * H + j];
+  }
+  if (col_ok) {
+    p0 = a.p[j];
+    p1 = a.p[H + j];
+    p2 = a.p[2 * H + j];
+    hbuf[(size_t)j * Bp + b] = h_reg;    // rows past B carry zeros
+  }
+  unsigned target = 0;
+  tile_barrier(counter, target);         // h0 is complete in hbuf[0]
+
+  for (int t = 0; t < T; ++t) {
+    // this step's inputs for the cell, in flight during the product
+    float xv[4] = {0.f, 0.f, 0.f, 0.f}, m = 0.f;
+    if (col_ok && row_ok) {
+      const float* x = xw + ((size_t)t * B + b) * H4 + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xv[g] = __ldg(x + g * H);
+      m = __ldg(mask + (size_t)t * B + b);
+    }
+    // h_{t-1}'s tile: hsm[k][i] = hbuf[t & 1][k][b0 + i]
+    const float* hin = hbuf + (size_t)(t & 1) * H * Bp + b0;
+    for (int idx = threadIdx.x; idx < H * (BR / 4); idx += kThreads) {
+      const int k = idx / (BR / 4), q = idx % (BR / 4);
+      cp_async16_cg(hsm + k * BR + 4 * q, hin + (size_t)k * Bp + 4 * q);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) acc[i][g] = 0.f;
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) {
+      const float4 ha = *reinterpret_cast<const float4*>(hsm + k * BR +
+                                                         4 * rg);
+      const float4 hb = *reinterpret_cast<const float4*>(
+          hsm + k * BR + BR / 2 + 4 * rg);
+      const float4 w4 = *reinterpret_cast<const float4*>(ws + k * G::NC +
+                                                         4 * cgrp);
+      const float hv[8] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
+      const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[i][g] = fmaf(hv[i], wv[g], acc[i][g]);
+    }
+    __syncthreads();     // every warp is done with the h tile
+    float* red = hsm;    // [kWarps][BR][NCP]
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int rr = (i < 4 ? 0 : BR / 2) + 4 * rg + (i & 3);
+      *reinterpret_cast<float4*>(red + ((size_t)warp * BR + rr) * G::NCP +
+                                 4 * cgrp) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+    __syncthreads();
+    // the cell: the warps' partial sums added in warp order
+    float z[4] = {xv[0], xv[1], xv[2], xv[3]};
+    {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            red + ((size_t)w * BR + row) * G::NCP + 4 * jj);
+        s[0] += v.x;
+        s[1] += v.y;
+        s[2] += v.z;
+        s[3] += v.w;
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g) z[g] = s[g] + z[g];
+    }
+    const float ig = sigm(z[0] + c_reg * p0);
+    const float fg = sigm(z[1] + c_reg * p1);
+    const float gg = tanhf(z[2]);
+    const float c_new = fg * c_reg + ig * gg;
+    const float og = sigm(z[3] + c_new * p2);
+    const float h_new = og * tanhf(c_new);
+    h_reg = m * h_new + (1.0f - m) * h_reg;
+    c_reg = m * c_new + (1.0f - m) * c_reg;
+    if (col_ok) {
+      if (row_ok) {
+        const size_t at = ((size_t)t * B + b) * H + j;
+        a.hs[at] = h_reg;
+        if (RESID) {
+          a.cs[at] = c_reg;
+          float* gt = a.gates + ((size_t)t * B + b) * H4 + j;
+          gt[0] = ig;
+          gt[H] = fg;
+          gt[2 * H] = gg;
+          gt[3 * H] = og;
+        }
+      }
+      hbuf[(size_t)((t + 1) & 1) * H * Bp + (size_t)j * Bp + b] = h_reg;
+    }
+    tile_barrier(counter, target);   // h_t is complete in hbuf
+  }
+  if (col_ok && row_ok) {
+    a.hT[(size_t)b * H + j] = h_reg;
+    a.cT[(size_t)b * H + j] = c_reg;
+  }
+}
+
+template <int BR, bool RESID>
+cudaError_t launch(Args a, cudaStream_t st) {
+  using G = Tile<BR>;
+  auto kernel = lstm_fwd_persistent_kernel<BR, RESID>;
+  const size_t smem = sizeof(float) * smem_floats<BR>(a.H);
+  if (smem > (size_t)kSmemFloats * sizeof(float)) return cudaErrorInvalidValue;
+  static bool raised = false;
+  cudaError_t e = raise_smem_limit(kernel, &raised);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.H + G::HC - 1) / G::HC, (a.B + BR - 1) / BR);
+  // every block must be resident at once: the cooperative launch refuses
+  // (cudaErrorCooperativeLaunchTooLarge) a grid that cannot be, rather
+  // than letting the barriers wait forever
+  void* args[] = {&a};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid,
+                                     dim3(kThreads), args, smem, st);
+}
+
+}  // namespace persist
+
 }  // namespace
 
 extern "C" {
@@ -686,6 +935,45 @@ int dl4j_lstm_fwd(const void* xw, const void* rw, const void* p,
   }
 #undef DL4J_LSTM_FWD
   return (int)cudaGetLastError();
+}
+
+// Design 2 of B2a (`residuals`) and B2b: the persistent grid, `rows`
+// batch rows a block (64, 32, 16 or 8; ops/lstm.py `b2_rows` chooses it
+// from the shape). The arguments of `dl4j_lstm_fwd`, and hbuf [2, H, Bp]
+// float32 scratch (Bp = B rounded up to `rows`) and counters [Bp / rows]
+// uint32 zeros. Returns 0 or a cudaError_t (cudaErrorCooperativeLaunchTooLarge
+// where the grid cannot be resident at once).
+int dl4j_lstm_fwd_persistent(const void* xw, const void* rw, const void* p,
+                             const void* h0, const void* c0,
+                             const void* mask, void* hs, void* cs,
+                             void* gates, void* hT, void* cT, void* hbuf,
+                             void* counters, int T, int B, int H, int rows,
+                             int residuals, void* stream) {
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (residuals && (cs == nullptr || gates == nullptr))
+    return (int)cudaErrorInvalidValue;
+  using F = const float*;
+  const persist::Args a{
+      static_cast<F>(xw), static_cast<F>(rw), static_cast<F>(p),
+      static_cast<F>(h0), static_cast<F>(c0), static_cast<F>(mask),
+      static_cast<float*>(hs), static_cast<float*>(cs),
+      static_cast<float*>(gates), static_cast<float*>(hT),
+      static_cast<float*>(cT), static_cast<float*>(hbuf),
+      static_cast<unsigned*>(counters), T, B, H};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+#define DL4J_LSTM_PERSIST(R)                                                \
+  e = residuals ? persist::launch<R, true>(a, st)                           \
+                : persist::launch<R, false>(a, st)
+  switch (rows) {
+    case 64: DL4J_LSTM_PERSIST(64); break;
+    case 32: DL4J_LSTM_PERSIST(32); break;
+    case 16: DL4J_LSTM_PERSIST(16); break;
+    case 8: DL4J_LSTM_PERSIST(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DL4J_LSTM_PERSIST
+  return (int)e;
 }
 
 // The reverse-time recurrence of B2c. Contiguous float32: dhs [T, B, H],

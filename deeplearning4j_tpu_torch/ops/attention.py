@@ -12,7 +12,7 @@ Three kernels, hand-written in CUDA C++ for Hopper
   swept, from the saved lse and Δ = rowsum(dO·O) (computed here in f32,
   as JAX computes it in XLA).
 
-B3b and B3c come in two designs, chosen by `b3_design` from the dtype
+Each kernel comes in two designs, chosen by `b3_design` from the dtype
 and the shape before the launch (neither is a fallback of the other):
 "wgmma" (design 2) for bfloat16 at Dh 64 and 128 — TMA-fed tiles and
 `wgmma` on the tensor cores, P and dS rounded to bfloat16 as operands —
@@ -49,8 +49,13 @@ import torch.nn.functional as F
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128        # the kernels' largest head-dim tile
 _MAX_BH = 65535           # grid.y
-KERNEL_BLOCK_K = 64       # keys a B3a block folds into its running max
+KERNEL_BLOCK_K = 64       # keys a B3a tile folds into its running max
+                          # (both designs)
 WGMMA_HEAD_DIMS = (64, 128)
+# B3a's o against `flash_attention_plain` at KERNEL_BLOCK_K, past one bf16
+# step of each element: 2e-5, and on design 2 this share of the largest
+# |o| besides (`fwd_atol`)
+FWD_WGMMA_SHARE = 4e-4
 
 # kernel name -> launches (wrapper) / plain-version calls on CUDA tensors
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
@@ -58,8 +63,7 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd_dq": 0}
 DESIGNS = ("ffma", "wgmma")
 LAUNCHES_BY_DESIGN: Dict[Tuple[str, str], int] = {
-    (k, d): 0 for k in ("flash_attention_bwd_dkdv",
-                        "flash_attention_bwd_dq") for d in DESIGNS}
+    (k, d): 0 for k in LAUNCHES for d in DESIGNS}
 PLAIN_ON_CUDA: Dict[str, int] = {"flash_attention_fwd": 0,
                                  "flash_attention_bwd": 0}
 
@@ -221,6 +225,15 @@ def flash_attention_fwd(q, k, v, causal: bool,
         o, lse = flash_attention_plain(q, k, v, causal, scale)
         return o, (lse if with_lse else None)
     _check_cuda(dict(q=q, k=k, v=v), q.dtype)
+    design = b3_design(q.dtype, q.shape[2], (q, k, v))
+    return launch_fwd(q, k, v, causal, scale, with_lse, design)
+
+
+def launch_fwd(q, k, v, causal: bool, scale: Optional[float] = None,
+               with_lse: bool = True, design: str = "ffma"):
+    """Kernel B3a alone, on checked CUDA tensors, in `design` (the
+    wrapper passes `b3_design`'s choice; `chip_smoke.py` also times
+    design 1 on bfloat16 to compare the two): returns (o, lse or None)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("flash_attention")
@@ -229,12 +242,16 @@ def flash_attention_fwd(q, k, v, causal: bool,
     lse = (torch.empty((bh, tq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     sc = scale if scale is not None else dh ** -0.5
-    rc = lib.dl4j_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(), bh, tq, k.shape[1], dh,
-        sc, int(causal), _DTYPE_CODES[q.dtype], _stream(q.device))
-    cuda_build.check(lib, rc, "flash_attention_fwd")
-    LAUNCHES["flash_attention_fwd"] += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), bh, tq, k.shape[1], dh,
+            sc, int(causal))
+    if design == "wgmma":
+        rc = lib.dl4j_flash_fwd_wgmma(*args, _stream(q.device))
+    else:
+        rc = lib.dl4j_flash_fwd(*args, _DTYPE_CODES[q.dtype],
+                                _stream(q.device))
+    cuda_build.check(lib, rc, f"flash_attention_fwd ({design})")
+    _count("flash_attention_fwd", design)
     return o, lse
 
 
@@ -261,12 +278,31 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
     return dq, dk, dv
 
 
+def fwd_atol(o_ref: torch.Tensor, design: str) -> float:
+    """B3a's absolute tolerance on o in `design` against the plain version
+    that rounds p against KERNEL_BLOCK_K-key tiles, past one bf16 step of
+    each element: 2e-5, plus FWD_WGMMA_SHARE of the largest |o_ref| on
+    design 2. Both sides round p to bfloat16 where it meets V (C6), from
+    float32 scores: design 1's FMA sums give the plain version's scores,
+    design 2's tensor-core sums differ in their last bits, so a p near a
+    rounding boundary lands on the other bf16 neighbour and moves its row
+    by a step of p v / l (design 1's form of the exponential does not
+    remove it). On an H100, at the bfloat16 shapes of `chip_smoke.py`'s
+    flash rows (and `tools/torch_b3a_exp_forms.py`'s), design 2 lies at
+    most 2.4e-4 of the largest |o| past one step from this plain version,
+    and at least 4.9e-4 from the one that leaves p unrounded (C6's
+    fault): the share lies between the two."""
+    share = FWD_WGMMA_SHARE if design == "wgmma" else 0.0
+    return 2e-5 + share * o_ref.float().abs().max().item()
+
+
 def b3_design(dtype, dh: int, tensors: Sequence[torch.Tensor]) -> str:
-    """The design that takes a B3b/B3c call: "wgmma" (design 2, the
-    tensor cores) for bfloat16 with Dh 64 or 128 whose `tensors` (q, k,
-    v, dO: the operands the tensor maps read) start 16-byte aligned;
-    "ffma" (design 1, exact float32 FMA) for float32 and every other
-    shape. The wrapper has checked that they are contiguous."""
+    """The design that takes a B3a or B3b/B3c call: "wgmma" (design 2,
+    the tensor cores) for bfloat16 with Dh 64 or 128 whose `tensors` (the
+    operands the tensor maps read: q, k, v forward, and dO backward)
+    start 16-byte aligned; "ffma" (design 1, exact float32 FMA) for
+    float32 and every other shape. The wrapper has checked that they are
+    contiguous."""
     if dtype != torch.bfloat16 or dh not in WGMMA_HEAD_DIMS or \
             any(t.data_ptr() % 16 for t in tensors):
         return "ffma"

@@ -60,6 +60,10 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
     "flash_attention": {
         "dl4j_flash_fwd": (
             _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
+        # design 2, bfloat16: q k v o lse, BH Tq Tk Dh, scale, causal,
+        # stream
+        "dl4j_flash_fwd_wgmma": (
+            _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
         "dl4j_flash_bwd_dkdv": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                  _I, _P]),
@@ -88,6 +92,11 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "dl4j_lstm_fwd": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                  _I, _P]),
+        # design 2: the same, then hbuf counters, T B H, rows, residuals,
+        # stream
+        "dl4j_lstm_fwd_persistent": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                 _I, _I, _I, _P]),
         # dhs gates cs rwT p mask dhT dcT c0 dxw dh0 dc0 dp_part, T B H
         "dl4j_lstm_bwd": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

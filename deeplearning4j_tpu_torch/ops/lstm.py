@@ -16,6 +16,14 @@ recurrence. Three kernels, hand-written in CUDA C++ for Hopper
   [h0; hs[:-1]]^T dxw and dP, which the TPU kernel sums in scratch
   across its sequential grid.
 
+The forward comes in two designs, chosen by `b2_design` from the shape
+and the card before the launch (neither is a fallback of the other):
+"cluster" (design 1: a cluster of 8 blocks walks T for 8 batch rows,
+re-reading RW from L2 every step) and "persistent" (design 2: one block
+an SM for the whole sequence, each holding its strip of RW in shared
+memory, a barrier a step between the blocks of a batch tile).
+`LAUNCHES_BY_DESIGN[(kernel, design)]` counts the forward launches.
+
 `fused_lstm` chooses before it applies its `torch.autograd.Function`:
 B2b when no input wants a gradient (or grad is disabled), else the
 Function, B2a with the residuals saved and B2c as its backward, as JAX's primal call runs the inference kernel and only the VJP's
@@ -35,20 +43,25 @@ one to `PLAIN_ON_CUDA[name]` when handed CUDA tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 MAX_HIDDEN = 1024         # 8 blocks a cluster x 128 hidden columns a block
+DESIGNS = ("cluster", "persistent")
+PERSISTENT_ROWS = (8, 16, 32, 64)     # batch rows a design-2 block takes
+PERSISTENT_MIN_STEPS = 8              # shorter sequences stay on design 1
 
 LAUNCHES: Dict[str, int] = {"lstm_fwd": 0, "lstm_fwd_inference": 0,
                             "lstm_bwd": 0, "lstm_bwd_weights": 0}
 PLAIN_ON_CUDA: Dict[str, int] = {"lstm_fwd": 0, "lstm_fwd_inference": 0,
                                  "lstm_bwd": 0}
+LAUNCHES_BY_DESIGN: Dict[Tuple[str, str], int] = {
+    (k, d): 0 for k in ("lstm_fwd", "lstm_fwd_inference") for d in DESIGNS}
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
+    for d in (LAUNCHES, LAUNCHES_BY_DESIGN, PLAIN_ON_CUDA):
         for k in d:
             d[k] = 0
 
@@ -181,6 +194,49 @@ def _stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def b2_rows(B: int, H: int, sms: int, smem: int) -> Optional[int]:
+    """The batch rows a design-2 block takes (BR; it computes BR x 1024
+    / BR pre-activations, so 256 / BR hidden columns), or None where no BR
+    fits: the smallest BR of `PERSISTENT_ROWS` (the least of h a block
+    copies a step) whose grid, ceil(B / BR) x ceil(H / (256 / BR))
+    blocks, fits one block on each of `sms` SMs, and whose shared memory
+    (the resident strip of RW, [H, 1024 / BR] float32, beside the h tile
+    [H, BR] or the 8 warps' partial sums, whichever is larger) fits the
+    `smem` bytes a block may ask for. `csrc/lstm.cu` `persist::launch`
+    computes the same grid and shared memory."""
+    for br in PERSISTENT_ROWS:
+        nc = 1024 // br
+        blocks = -(-B // br) * -(-H // (nc // 4))
+        floats = H * nc + max(H * br, 8 * br * (nc + 4))
+        if blocks <= sms and 4 * floats <= smem:
+            return br
+    return None
+
+
+def card_limits(device) -> Tuple[int, int]:
+    """(SMs, shared-memory bytes a block may ask for) of a CUDA card:
+    the SM's shared memory less the 1 KB the runtime keeps a block."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, \
+        props.shared_memory_per_multiprocessor - 1024
+
+
+def b2_design(T: int, B: int, H: int, sms: int, smem: int) -> str:
+    """The design that takes a forward call (B2a with residuals, B2b
+    without: the same rule) on a card of `sms` SMs and `smem` bytes of
+    shared memory a block: "persistent" (design 2) for sequences of at
+    least PERSISTENT_MIN_STEPS steps where `b2_rows` finds a tile that
+    fits, else "cluster" (design 1, which takes every hidden size up to
+    MAX_HIDDEN). Design 2 pays a fixed cost a call (a cooperative launch
+    whose blocks stage their strips of RW) for cheaper steps, so a short
+    sequence (`rnn_time_step`'s T 1) stays on design 1 (`chip_smoke.py`
+    times both designs at T 1, 4, 8, 50 and 200). A pure function of the
+    shape and the card, decided before the launch."""
+    if T < PERSISTENT_MIN_STEPS or b2_rows(B, H, sms, smem) is None:
+        return "cluster"
+    return "persistent"
+
+
 def lstm_fwd(xw, rw, p, h0, c0, mask, with_residuals: bool = True):
     """Kernel B2a (`with_residuals`) or B2b: returns (hs, cs, gates, hT,
     cT), cs and gates None without residuals."""
@@ -189,24 +245,51 @@ def lstm_fwd(xw, rw, p, h0, c0, mask, with_residuals: bool = True):
         return lstm_fwd_plain(xw, rw, p, h0, c0, mask, with_residuals)
     _check_cuda(dict(xw=xw, rw=rw, p=p, h0=h0, c0=c0, mask=mask))
     T, B, H4 = xw.shape
-    H = H4 // 4
-    _check_hidden(H)
+    _check_hidden(H4 // 4)
+    design = b2_design(T, B, H4 // 4, *card_limits(xw.device))
+    return launch_fwd(xw, rw, p, h0, c0, mask, with_residuals, design)
+
+
+def launch_fwd(xw, rw, p, h0, c0, mask, with_residuals: bool = True,
+               design: str = "cluster"):
+    """Kernel B2a (`with_residuals`) or B2b alone, on checked CUDA
+    tensors, in `design` (the wrapper passes `b2_design`'s choice;
+    `chip_smoke.py` also times design 1 where design 2 runs): returns
+    (hs, cs, gates, hT, cT)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("lstm")
+    T, B, H4 = xw.shape
+    H = H4 // 4
     new = lambda *s: torch.empty(s, dtype=xw.dtype, device=xw.device)  # noqa
     hs, hT, cT = new(T, B, H), new(B, H), new(B, H)
     cs = new(T, B, H) if with_residuals else None
     gates = new(T, B, H4) if with_residuals else None
-    rc = lib.dl4j_lstm_fwd(
-        xw.data_ptr(), rw.data_ptr(), p.data_ptr(), h0.data_ptr(),
-        c0.data_ptr(), mask.data_ptr(), hs.data_ptr(),
-        None if cs is None else cs.data_ptr(),
-        None if gates is None else gates.data_ptr(), hT.data_ptr(),
-        cT.data_ptr(), T, B, H, int(with_residuals), _stream(xw.device))
+    args = (xw.data_ptr(), rw.data_ptr(), p.data_ptr(), h0.data_ptr(),
+            c0.data_ptr(), mask.data_ptr(), hs.data_ptr(),
+            None if cs is None else cs.data_ptr(),
+            None if gates is None else gates.data_ptr(), hT.data_ptr(),
+            cT.data_ptr())
+    if design == "persistent":
+        rows = b2_rows(B, H, *card_limits(xw.device))
+        if rows is None:
+            raise ValueError(f"no design-2 LSTM tile fits B {B}, H {H} on "
+                             f"this card")
+        bp = -(-B // rows) * rows
+        # h between the steps, double-buffered, and the barriers' counters
+        hbuf = torch.empty((2, H, bp), dtype=xw.dtype, device=xw.device)
+        counters = torch.zeros(bp // rows, dtype=torch.int32,
+                               device=xw.device)
+        rc = lib.dl4j_lstm_fwd_persistent(
+            *args, hbuf.data_ptr(), counters.data_ptr(), T, B, H, rows,
+            int(with_residuals), _stream(xw.device))
+    else:
+        rc = lib.dl4j_lstm_fwd(*args, T, B, H, int(with_residuals),
+                               _stream(xw.device))
     name = "lstm_fwd" if with_residuals else "lstm_fwd_inference"
-    cuda_build.check(lib, rc, name)
+    cuda_build.check(lib, rc, f"{name} ({design})")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_DESIGN[(name, design)] += 1
     return hs, cs, gates, hT, cT
 
 

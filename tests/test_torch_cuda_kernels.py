@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the decode kernels B5 and B6 (native, and their int8/e4m3
 scale-row variants B5q and B6q), the banded attention B4, the
-flash-attention forward B3a and backward B3b/B3c, the fused Adam B1a and
-Nesterovs B1b, the fused LSTM forward B2a/B2b and backward B2c, and the
-conv+BN statistics kernels B7a/B7b. These tests import only torch,
-so they run on a machine with a card and no JAX:
+flash-attention forward B3a and backward B3b/B3c (each in both designs),
+the fused Adam B1a and Nesterovs B1b, the fused LSTM forward B2a/B2b (both
+designs) and backward B2c, and the conv+BN statistics kernels B7a/B7b.
+These tests import only torch, so they run on a machine with a card and
+no JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
 
@@ -19,12 +20,14 @@ outputs and lse, 1e-4 of the reference's largest magnitude on attention
 gradients (sums of up to T products taken in another order); in
 bfloat16 one bf16 step of the reference (2**-7 of its value, plus 1e-5),
 since the kernel and the plain version both compute in float32 and
-round once, and on the bfloat16 flash gradients 1e-3 of the largest
-magnitude (`_grad_atol`: P and dS are rounded to bfloat16 operands on
-both sides). The fused Adam kernel rounds every operation as the plain
-version's elementwise ops do, so it is held to 2**-22 relative (two
-float32 ulps) and, in bfloat16, one bf16 step; so is the fused Nesterovs
-kernel. The LSTM kernels sum H products a step in another order than the
+round once; on the bfloat16 flash gradients 1e-3 of the largest
+magnitude (`_grad_atol`), and on the outputs of B3a's tensor-core design
+`ops/attention.FWD_WGMMA_SHARE` of it besides (`fwd_atol`): P and dS are
+rounded to bfloat16 operands on both sides, from scores summed in
+another order. The fused Adam kernel rounds
+every operation as the plain version's elementwise ops do, so it is held
+to 2**-22 relative (two float32 ulps) and, in bfloat16, one bf16 step; so
+is the fused Nesterovs kernel. The LSTM kernels sum H products a step in another order than the
 plain version's matmul, and the difference is carried through T steps:
 1e-4 absolute on hs and the gates (which lie in [-1, 1]), 1e-4 of the
 reference's largest magnitude on the unbounded cell states (at least 1)
@@ -340,6 +343,98 @@ def test_cuda_b3_unaligned_bf16_takes_the_ffma_design(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [True, False], ids=["lse", "no_lse"])
+@pytest.mark.parametrize("bh,tq,tk,dh,causal", B3_WGMMA_CASES)
+def test_cuda_b3a_bf16_takes_the_wgmma_design(cuda_device, bh, tq, tk, dh,
+                                              causal, with_lse):
+    """B3a design 2 on every bfloat16 Dh 64/128 shape (causal, Tq != Tk
+    not causal, a ragged T), with and without the lse, against the plain
+    version rounding p against the kernel's 64-key tiles, at design 2's
+    tolerance (`fwd_atol`); the launch counted under design 2."""
+    dt = torch.bfloat16
+    q, k, v, _ = _flash_inputs(bh, tq, tk, dh, dt, cuda_device, tq + 3 * dh)
+    assert fa.b3_design(dt, dh, (q, k, v)) == "wgmma"
+    before = dict(fa.LAUNCHES_BY_DESIGN)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, with_lse=with_lse)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal,
+                                              block_k=fa.KERNEL_BLOCK_K)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_BY_DESIGN[("flash_attention_fwd", "wgmma")] == \
+        before[("flash_attention_fwd", "wgmma")] + 1
+    assert fa.LAUNCHES_BY_DESIGN[("flash_attention_fwd", "ffma")] == \
+        before[("flash_attention_fwd", "ffma")]
+    assert o.dtype == dt and _close(o, o_ref, dt, fa.fwd_atol(o_ref, "wgmma"))
+    # C6: nearer the plain version that rounds p than the one that does not
+    o_f32, _ = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal)
+    past = (o.float() - o_ref.float()).abs() - 2.0 ** -7 * o_ref.float().abs()
+    past_f32 = (o.float() - o_f32).abs() - 2.0 ** -7 * o_f32.abs()
+    assert past.max().item() < past_f32.max().item()
+    if with_lse:
+        assert (lse - lse_ref).abs().max().item() <= 2e-5
+    else:
+        assert lse is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,dh,causal", [B3_WGMMA_CASES[0],
+                                                 B3_WGMMA_CASES[4]])
+def test_cuda_b3a_wgmma_is_bit_equal(cuda_device, bh, tq, tk, dh, causal):
+    """No atomics: two launches of design 2 give the same o and lse."""
+    q, k, v, _ = _flash_inputs(bh, tq, tk, dh, torch.bfloat16, cuda_device,
+                               4)
+    a = fa.flash_attention_fwd(q, k, v, causal)
+    b = fa.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,dtype", [(32, torch.bfloat16),
+                                      (48, torch.bfloat16),
+                                      (64, torch.float32),
+                                      (128, torch.float32)])
+def test_cuda_b3a_float32_and_other_head_dims_take_the_ffma_design(
+        cuda_device, dh, dtype):
+    q, k, v, _ = _flash_inputs(2, 256, 256, dh, dtype, cuda_device, dh + 1)
+    before = dict(fa.LAUNCHES_BY_DESIGN)
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, True,
+                                              block_k=fa.KERNEL_BLOCK_K)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_BY_DESIGN[("flash_attention_fwd", "ffma")] == \
+        before[("flash_attention_fwd", "ffma")] + 1
+    assert fa.LAUNCHES_BY_DESIGN[("flash_attention_fwd", "wgmma")] == \
+        before[("flash_attention_fwd", "wgmma")]
+    assert _close(o, o_ref, dtype, 2e-5)
+    assert (lse - lse_ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_b3a_unaligned_bf16_takes_the_ffma_design(cuda_device):
+    """q 8 bytes into its storage: the tensor maps cannot read it, so
+    design 1 takes the forward too; an aligned copy of q goes to design 2,
+    and both agree with the plain version."""
+    g = torch.Generator().manual_seed(12)
+    buf = torch.randn(4 + 2 * 128 * 64, generator=g).to(cuda_device,
+                                                        torch.bfloat16)
+    q = buf[4:].view(2, 128, 64)
+    _, k, v, _ = _flash_inputs(2, 128, 128, 64, torch.bfloat16, cuda_device,
+                               13)
+    assert fa.b3_design(q.dtype, 64, (q, k, v)) == "ffma"
+    before = fa.LAUNCHES_BY_DESIGN[("flash_attention_fwd", "ffma")]
+    o, _ = fa.flash_attention_fwd(q, k, v, True)
+    o2, _ = fa.flash_attention_fwd(q.contiguous().clone(), k, v, True)
+    o_ref, _ = fa.flash_attention_plain(q, k, v, True,
+                                        block_k=fa.KERNEL_BLOCK_K)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_BY_DESIGN[("flash_attention_fwd", "ffma")] == \
+        before + 1
+    for got, design in ((o, "ffma"), (o2, "wgmma")):
+        assert _close(got, o_ref, torch.bfloat16, fa.fwd_atol(o_ref, design))
+
+
+@pytest.mark.cuda
 def test_cuda_flash_autograd_matches_dense(cuda_device):
     """The autograd Function on the card against autograd through a
     dense float32 attention, [B, T, H, D] layout."""
@@ -488,6 +583,90 @@ def test_cuda_b2ab_match_plain(cuda_device, T, B, H, masked, peephole):
         and torch.equal(cT, cT_i)
     # the carries out are the masked carries of the last step
     assert torch.equal(hT, hs[-1]) and torch.equal(cT, cs[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", lk.DESIGNS)
+@pytest.mark.parametrize("residuals", [True, False], ids=["b2a", "b2b"])
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+@pytest.mark.parametrize("T,B,H", LSTM_SHAPES,
+                         ids=[f"T{t}B{b}H{h}" for t, b, h in LSTM_SHAPES])
+def test_cuda_b2ab_each_design_matches_plain(cuda_device, T, B, H, masked,
+                                             residuals, design):
+    """Each design launched by hand at every shape, whichever `b2_design`
+    picks there, with peepholes, at `test_cuda_b2ab_match_plain`'s
+    tolerance."""
+    ins = _lstm_inputs(cuda_device, T, B, H, True, masked, seed=4)
+    name = "lstm_fwd" if residuals else "lstm_fwd_inference"
+    before = lk.LAUNCHES_BY_DESIGN[(name, design)]
+    got = lk.launch_fwd(*ins, with_residuals=residuals, design=design)
+    ref = lk.lstm_fwd_plain(*ins, with_residuals=True)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES_BY_DESIGN[(name, design)] == before + 1
+    for name, a, b in zip(("hs", "cs", "gates", "hT", "cT"), got, ref):
+        if a is None:
+            assert not residuals and name in ("cs", "gates")
+            continue
+        tol = 1e-4 * max(1.0, b.abs().max().item()) \
+            if name in ("cs", "cT") else 1e-4
+        assert (a - b).abs().max().item() <= tol, name
+
+
+# path_l's shape; path_g's T 200 and the shortest sequence design 2 takes
+# at B 32, H 256; lstm_parity's batch of 4
+B2_PERSISTENT_SHAPES = [(128, 64, 512), (200, 32, 256),
+                        (lk.PERSISTENT_MIN_STEPS, 32, 256), (32, 4, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peephole", [False, True], ids=["plain", "peep"])
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+@pytest.mark.parametrize("T,B,H", B2_PERSISTENT_SHAPES,
+                         ids=[f"T{t}B{b}H{h}"
+                              for t, b, h in B2_PERSISTENT_SHAPES])
+def test_cuda_b2a_takes_the_persistent_design(cuda_device, T, B, H, masked,
+                                              peephole):
+    """Design 2 (the persistent grid) on the recurrent paths' shapes in
+    all four peephole/mask variants, against the plain version at
+    `test_cuda_b2ab_match_plain`'s tolerance; two launches bit-equal;
+    counted under design 2."""
+    ins = _lstm_inputs(cuda_device, T, B, H, peephole, masked, seed=T + B)
+    sms, smem = lk.card_limits(cuda_device)
+    assert lk.b2_design(T, B, H, sms, smem) == "persistent"
+    before = dict(lk.LAUNCHES_BY_DESIGN)
+    got = lk.lstm_fwd(*ins, with_residuals=True)
+    again = lk.lstm_fwd(*ins, with_residuals=True)
+    ref = lk.lstm_fwd_plain(*ins, with_residuals=True)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES_BY_DESIGN[("lstm_fwd", "persistent")] == \
+        before[("lstm_fwd", "persistent")] + 2
+    assert lk.LAUNCHES_BY_DESIGN[("lstm_fwd", "cluster")] == \
+        before[("lstm_fwd", "cluster")]
+    for name, a, b in zip(("hs", "cs", "gates", "hT", "cT"), got, ref):
+        tol = 1e-4 * max(1.0, b.abs().max().item()) \
+            if name in ("cs", "cT") else 1e-4
+        assert (a - b).abs().max().item() <= tol, name
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(8, 64, 1024), (1, 32, 256)],
+                         ids=["H1024", "T1"])
+def test_cuda_b2_shapes_past_design_2_take_the_cluster_design(cuda_device, T,
+                                                              B, H):
+    """H 1024 at B 64 (no design-2 tile fits the SMs) and a one-step call
+    (`rnn_time_step`'s) go to design 1, still against the plain
+    version."""
+    ins = _lstm_inputs(cuda_device, T, B, H, True, True, seed=8)
+    sms, smem = lk.card_limits(cuda_device)
+    assert lk.b2_design(T, B, H, sms, smem) == "cluster"
+    before = lk.LAUNCHES_BY_DESIGN[("lstm_fwd_inference", "cluster")]
+    got = lk.lstm_fwd(*ins, with_residuals=False)
+    ref = lk.lstm_fwd_plain(*ins, with_residuals=False)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES_BY_DESIGN[("lstm_fwd_inference", "cluster")] == \
+        before + 1
+    assert (got[0] - ref[0]).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda

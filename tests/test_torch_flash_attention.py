@@ -191,7 +191,7 @@ def test_plain_forward_blocks_change_nothing_in_float32():
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-# ------------------------------------- B3b/B3c design choice (b3_design)
+# ----------------------------------- B3a-c design choice (b3_design)
 @pytest.mark.parametrize("dtype,dh,offset,want", [
     (torch.bfloat16, 64, 0, "wgmma"),     # path_t_bf16's shape
     (torch.bfloat16, 128, 0, "wgmma"),
@@ -208,10 +208,43 @@ def test_b3_design_by_dtype_head_dim_and_alignment(dtype, dh, offset, want):
     assert fa.b3_design(dtype, dh, (q, k, v, do)) == want
 
 
+@pytest.mark.parametrize("dtype,dh,offset,want", [
+    (torch.bfloat16, 64, 0, "wgmma"),     # path_t_bf16's forward
+    (torch.bfloat16, 128, 0, "wgmma"),
+    (torch.bfloat16, 32, 0, "ffma"),
+    (torch.bfloat16, 48, 0, "ffma"),
+    (torch.bfloat16, 64, 4, "ffma"),      # k 8 bytes into its storage
+    (torch.float32, 64, 0, "ffma"),       # float32 stays exact
+    (torch.float32, 128, 0, "ffma"),
+])
+def test_b3_design_of_the_forward_by_dtype_head_dim_and_alignment(
+        dtype, dh, offset, want):
+    """B3a reads q, k and v through tensor maps: the same rule as the
+    backward, on the three operands it has."""
+    buf = torch.zeros(offset + 2 * 77 * dh, dtype=dtype)
+    k = buf[offset:].view(2, 77, dh)
+    q, v = torch.zeros(2, 100, dh, dtype=dtype), torch.zeros(2, 77, dh,
+                                                             dtype=dtype)
+    assert fa.b3_design(dtype, dh, (q, k, v)) == want
+
+
+def test_forward_on_cpu_counts_no_launch_of_either_design():
+    """The wrapper takes the plain version for CPU tensors: nothing is
+    counted under either design."""
+    fa.reset_counts()
+    q, k, v, _ = (_t(a).to(torch.bfloat16) for a in _inputs(20, 20, 64))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert set(fa.LAUNCHES_BY_DESIGN.values()) == {0}
+    assert sum(fa.LAUNCHES.values()) == 0
+
+
 def test_launch_counts_reset_by_design():
     fa.LAUNCHES_BY_DESIGN[("flash_attention_bwd_dq", "wgmma")] = 3
+    fa.LAUNCHES_BY_DESIGN[("flash_attention_fwd", "wgmma")] = 2
     fa.reset_counts()
     assert set(fa.LAUNCHES_BY_DESIGN.values()) == {0}
     assert set(fa.LAUNCHES_BY_DESIGN) == {
-        (k, d) for k in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+        (k, d) for k in ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+                         "flash_attention_bwd_dq")
         for d in ("ffma", "wgmma")}

@@ -16,7 +16,9 @@ PORT = ROOT / "deeplearning4j_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_decode_profile.py",
     ROOT / "tools" / "torch_train_profile.py",
-    ROOT / "tools" / "torch_parity_faults.py"]
+    ROOT / "tools" / "torch_parity_faults.py",
+    ROOT / "tools" / "torch_b3a_exp_forms.py",
+    ROOT / "tools" / "torch_path_l_steps.py"]
 
 
 def _imported_modules(path):

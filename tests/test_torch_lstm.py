@@ -218,3 +218,54 @@ def test_lstm_policy_refusals():
                     hidden=lk.MAX_HIDDEN + 1)
     assert lstm_policy("sigmoid", "tanh", device="cpu",
                        hidden=lk.MAX_HIDDEN + 1).kind == "fused"
+
+
+# ------------------------------------------- B2a/B2b design choice (b2_design)
+H100 = (132, 232448)      # SMs, shared-memory bytes a block may ask for
+
+
+@pytest.mark.parametrize("B,H,rows", [
+    (64, 512, 16),        # path_l: 4 x 32 blocks of 16 rows x 16 columns
+    (32, 256, 8),         # path_g: 4 x 8 blocks of 8 rows x 32 columns
+    (4, 512, 16),         # lstm_parity: 8 rows would need 256 KB
+    (3, 8, 8),
+    (64, 1024, None),     # 256 blocks at every tile: past 132 SMs
+    (128, 512, None),
+])
+def test_b2_rows_fit_the_sms_and_shared_memory(B, H, rows):
+    """The smallest tile of `PERSISTENT_ROWS` whose grid fits one block on
+    each SM and whose strip of RW beside the h tile (or the partial sums)
+    fits a block's shared memory."""
+    assert lk.b2_rows(B, H, *H100) == rows
+    if rows is not None:
+        nc = 1024 // rows
+        assert -(-B // rows) * -(-H // (nc // 4)) <= H100[0]
+        assert 4 * (H * nc + max(H * rows, 8 * rows * (nc + 4))) <= H100[1]
+
+
+@pytest.mark.parametrize("T,B,H,want", [
+    (128, 64, 512, "persistent"),     # path_l's B2a
+    (200, 32, 256, "persistent"),     # path_g's output()
+    (50, 32, 256, "persistent"),      # path_g's tBPTT chunks
+    (lk.PERSISTENT_MIN_STEPS, 32, 256, "persistent"),
+    (lk.PERSISTENT_MIN_STEPS - 1, 32, 256, "cluster"),
+    (1, 32, 256, "cluster"),          # rnn_time_step
+    (128, 64, 1024, "cluster"),       # no design-2 tile fits
+])
+def test_b2_design_by_shape(T, B, H, want):
+    """One rule for B2a and B2b, from the shape and the card."""
+    assert lk.b2_design(T, B, H, *H100) == want
+    # a card with fewer SMs keeps design 2 only where the grid still fits
+    assert lk.b2_design(T, B, H, 64, H100[1]) == (
+        "cluster" if want == "cluster" or lk.b2_rows(B, H, 64, H100[1])
+        is None else "persistent")
+
+
+def test_lstm_launch_counts_by_design_reset_and_stay_zero_on_cpu():
+    lk.LAUNCHES_BY_DESIGN[("lstm_fwd", "persistent")] = 4
+    lk.reset_counts()
+    assert set(lk.LAUNCHES_BY_DESIGN) == {
+        (k, d) for k in ("lstm_fwd", "lstm_fwd_inference")
+        for d in ("cluster", "persistent")}
+    lk.lstm_fwd(*_t(_inputs()), with_residuals=True)
+    assert set(lk.LAUNCHES_BY_DESIGN.values()) == {0}

@@ -12,7 +12,9 @@ the same method as `tools/torch_decode_profile.py`:
   `TextGenerationTransformer` at d_model 512, 8 heads, T 2048, batch 8,
   float32, its default Adam(3e-4); two traced train steps. With
   `--dtype bfloat16`, `path_t_bf16`: the same model at `bench.py`'s
-  dtype, B3b/B3c on design 2 (`wgmma`);
+  dtype, B3a-c on design 2 (`wgmma`). `--dtype` is refused with the
+  other paths, whose dtype is fixed (float32; `--path r` bfloat16) and
+  reported as such;
 - `--path w`, `path_w`: the same width as the 6-block Llama-shaped
   sliding-window model (RoPE, RMSNorm, SwiGLU, 2 KV heads, window 256);
   two traced train steps, B4 forward and the dense band-masked recompute
@@ -33,7 +35,8 @@ was busy (the union of kernel intervals), the idle share, kernels
 launched a step (or a call), and device time by kernel class (the flash
 kernels B3a and B3b + B3c by design (`ops/attention.b3_design`: wgmma
 or ffma), the banded kernel B4 and the banded backward's
-dense recompute, the LSTM kernels B2a, B2b and B2c with its
+dense recompute, the LSTM kernels B2a and B2b by design
+(`ops/lstm.b2_design`: persistent or cluster) and B2c with its
 weight-gradient launch, the fused updates B1a and B1b, the conv+BN
 statistics kernels B7a and B7b by design (`ops/conv_fused.b7_design`:
 wgmma or ffma) and their reduction, cuDNN convolutions,
@@ -60,6 +63,11 @@ import chip_smoke as cs  # noqa: E402
 from torch_decode_profile import busy_us, kernel_events  # noqa: E402
 
 
+# the dtype each path trains or runs in (`--dtype` changes path t's only)
+PATH_DTYPES = {"t": "float32", "w": "float32", "l": "float32",
+               "g": "float32", "r": "bfloat16"}
+
+
 def recompute_correlations(trace_path):
     """Correlation ids of the kernels launched inside the banded
     backward's profiler range (`ops/banded_attention.RECOMPUTE_RANGE`):
@@ -82,8 +90,9 @@ def recompute_correlations(trace_path):
 def kernel_class(name):
     if "banded_fwd" in name:
         return "banded (B4)"
-    if "flash_fwd" in name:
-        return "flash_fwd (B3a)"
+    if "flash_fwd" in name or "fwd_wgmma" in name:
+        # design 2 (bfloat16 on the tensor cores) is `tc::fwd_wgmma_kernel`
+        return "flash_fwd (B3a) " + ("wgmma" if "wgmma" in name else "ffma")
     if "flash_bwd" in name or "bwd_dkdv_wgmma" in name or \
             "bwd_dq_wgmma" in name:
         # design 2 (bfloat16 on the tensor cores) is `tc::bwd_*_wgmma`
@@ -93,10 +102,12 @@ def kernel_class(name):
         return "fused_adam (B1a)"
     if "NesterovRule" in name:
         return "fused_nesterov (B1b)"
-    if "lstm_fwd_kernel" in name:
-        # the template argument: true keeps the residuals (B2a)
-        return ("lstm_fwd (B2a)" if "<true>" in name
-                else "lstm_fwd_inference (B2b)")
+    if "lstm_fwd_kernel" in name or "lstm_fwd_persistent" in name:
+        # the (last) template argument: true keeps the residuals (B2a);
+        # design 2 is `persist::lstm_fwd_persistent_kernel`
+        return ("lstm_fwd (B2a)" if "true>" in name
+                else "lstm_fwd_inference (B2b)") + (
+            " persistent" if "persistent" in name else " cluster")
     if "lstm_bwd_kernel" in name:
         return "lstm_bwd recurrence (B2c)"
     if "lstm_drw_kernel" in name or "lstm_dp_reduce" in name:
@@ -171,11 +182,12 @@ def main() -> int:
     ap.add_argument("--path", choices=("t", "w", "l", "g", "r"),
                     default="t")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
-                    default="float32",
-                    help="path_t's dtype (--path t only)")
+                    help="path_t's dtype (--path t only; default float32)")
     args = ap.parse_args()
-    if args.dtype != "float32" and args.path != "t":
-        ap.error("--dtype applies to --path t only")
+    if args.dtype is not None and args.path != "t":
+        ap.error(f"--dtype applies to --path t only: --path {args.path} "
+                 f"runs in {PATH_DTYPES[args.path]}")
+    dtype = args.dtype or PATH_DTYPES[args.path]
     if not torch.cuda.is_available():
         print("torch_train_profile: needs a CUDA card", file=sys.stderr)
         return 2
@@ -183,7 +195,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run, units, unit, tokens = traced_window(args.path, args.dtype)
+    run, units, unit, tokens = traced_window(args.path, dtype)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -209,8 +221,9 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     cs.emit({
         "phase": f"profile_path_{args.path}"
-                 + ("" if args.dtype == "float32" else "_bf16"),
-        "dtype": args.dtype,
+                 + ("_bf16" if args.path == "t" and dtype == "bfloat16"
+                    else ""),
+        "dtype": dtype,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": cs.gpu_name_and_limit(), f"{unit}s": units,
         f"{'images' if args.path == 'r' else 'tokens'}_per_{unit}": tokens,
