@@ -16,7 +16,11 @@ exits non-zero with no result line:
    - the decode-attention kernels B5 (slot pool) and B6 (paged pool)
      over GQA ratios, visibility modes, page lengths, shared pages and
      dtypes, against `F.scaled_dot_product_attention` over the gathered
-     cache;
+     cache; each B6/B6q row names its design (float32 queries on the
+     split grid, "split", bfloat16 pages on design 1, "ffma") and its
+     share of the bound, and a design-2 row also holds and times design
+     1 on the same inputs (`ffma_ms`); then design 2 twice at Path A's
+     shape over float32, int8 and e4m3 pages, bit-equal (`b6_repeat`);
    - the flash-attention forward B3a and backward B3b/B3c at the
      training paths' shape (B 8, H 8, T 2048, Dh 64, causal) in float32
      and bfloat16 and at ragged, cross, narrow and wide variants of
@@ -57,8 +61,8 @@ exits non-zero with no result line:
 3. path_a: decode serving of `TextGenerationTransformer` at the width
    of the repo's largest transformer (d_model 512, 8 heads, 6 blocks,
    T 2048) through `DecodeSessionManager`, prefix cache on, so the
-   paged pool and B6 carry every decode step; a second wave shares a
-   1024-token stem and hits the prefix cache;
+   paged pool and B6 carry every decode step, every launch on design 2;
+   a second wave shares a 1024-token stem and hits the prefix cache;
 4. path_b: the Llama-shaped variant (RoPE, RMSNorm, SwiGLU, 2 KV heads
    under 8, window 256, rolling cache) at 2 blocks; the rolling ring
    cannot page, so the slot pool and B5 carry it, and the streams run
@@ -400,14 +404,24 @@ def run_kernel_case(c, flush, gen):
         extra = 2 * S * 4
     vis = ba.visibility(qpos, end, L, window, rolling)
     live = vis.any(dim=1)        # rows with no visible key are garbage
+    atol, rtol = TOL[dt]
+
+    def held(out, ref, what):
+        diff = (out[live].float() - ref[live].float()).abs()
+        err = diff.max().item()
+        ok = bool((diff <= atol + rtol * ref[live].float().abs()).all())
+        check(ok, f"{what} {c} disagrees with its plain version: max abs "
+              f"err {err}, tolerance atol {atol} + rtol {rtol} * |ref|")
+        return err
+
+    before = dict(ba.LAUNCHES_BY_DESIGN)
     out, ref = run(), plain()
     torch.cuda.synchronize()
-    atol, rtol = TOL[dt]
-    diff = (out[live].float() - ref[live].float()).abs()
-    err = diff.max().item()
-    ok = bool((diff <= atol + rtol * ref[live].float().abs()).all())
-    check(ok, f"{c['kernel']} {c} disagrees with its plain version: "
-          f"max abs err {err}, tolerance atol {atol} + rtol {rtol} * |ref|")
+    paged = c["mode"] == "paged"
+    # B5 has one design
+    design = new_design(ba.LAUNCHES_BY_DESIGN, before, c["kernel"]) \
+        if paged else None
+    err = held(out, ref, c["kernel"])
     ms = time_ms(run, flush)
     plain_ms = time_ms(plain, flush)
     library_ms = time_ms(sdpa_call(q, k_log, v_log, vis, lib_scales), flush)
@@ -421,9 +435,59 @@ def run_kernel_case(c, flush, gen):
            "visible_keys": int(vis.sum()), "kv_rows": rows,
            "max_abs_err": err, "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+           "bound_share": bms / ms, "design": design,
            "main_path_shape": c["main"]}
+    if design == "split":
+        row["split_pages"] = ba.b6_splits(S, hkv, pt.shape[1], lp,
+                                          ba._sm_count(q.device))
+        row["nsplit"] = -(-pt.shape[1] // row["split_pages"])
+
+        # design 1 on the same inputs, held to the same limit
+        def run1():
+            return ba.paged_decode_attention(q, kc, vc, pt, qpos,
+                                             scale_k=sk, scale_v=sv,
+                                             design="ffma")
+
+        row["ffma_max_abs_err"] = held(run1(), ref, f"{c['kernel']} (ffma)")
+        row["ffma_ms"] = time_ms(run1, flush)
+        row["speedup_over_ffma"] = row["ffma_ms"] / ms
     emit(row)
     return row
+
+
+def run_b6_repeat(gen):
+    """Design 2 of B6 (float32 pages) and B6q (int8, e4m3) launched
+    twice at Path A's and path_q's shape (S 8, H 8, Hkv 8, Dh 64, L
+    2048, pages of 128): outputs bit-equal (each slot's splits merged in
+    split order by the last block to arrive, whichever it is)."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import quantize_kv
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+
+    rows = []
+    S, H, hkv, Dh, lp, npg = 8, 8, 8, 64, 128, 16
+    qpos = torch.linspace(0, lp * npg - 1, S).round().to("cuda", torch.int32)
+    pt = torch.randperm(S * npg, generator=gen).reshape(S, npg)
+    pt = pt.to("cuda", torch.int32)
+    q = torch.randn(S, H, Dh, generator=gen).to("cuda")
+    for kv in (torch.float32, torch.int8, torch.float8_e4m3fn):
+        k, v = (torch.randn(S * npg, lp, hkv, Dh, generator=gen).to("cuda")
+                for _ in range(2))
+        sk = sv = None
+        if kv != torch.float32:
+            (k, sk), (v, sv) = quantize_kv(k, kv), quantize_kv(v, kv)
+        name = "paged_decode_attention" + ("" if sk is None else "_q")
+        before = ba.LAUNCHES_BY_DESIGN[(name, "split")]
+        a, b = (ba.paged_decode_attention(q, k, v, pt, qpos, scale_k=sk,
+                                          scale_v=sv) for _ in range(2))
+        torch.cuda.synchronize()
+        check(ba.LAUNCHES_BY_DESIGN[(name, "split")] == before + 2,
+              f"b6 repeat {kv}: design 2 did not take both launches")
+        check(torch.equal(a, b), f"b6 repeat {kv}: two launches differ")
+        rows.append({"phase": "b6_repeat", "kernel": name,
+                     "kv_dtype": str(kv).replace("torch.", ""),
+                     "design": "split", "bit_equal": True})
+        emit(rows[-1])
+    return rows
 
 
 # --------------------------------------------- kernels: flash (B3a-c)
@@ -1471,6 +1535,7 @@ def drive_path(net, name, kernel, prompts_waves, greedy, max_tokens, *,
             waves.append(w)
         torch.cuda.synchronize()
         launches = dict(ba.LAUNCHES)
+        by_design = launches_by_design(ba)
         plain_on_cuda = dict(ba.PLAIN_ON_CUDA)
         snap = mgr.snapshot()
     finally:
@@ -1479,7 +1544,13 @@ def drive_path(net, name, kernel, prompts_waves, greedy, max_tokens, *,
     check(launches[kernel] > 0, f"{name}: {kernel} was never launched")
     check(sum(plain_on_cuda.values()) == 0,
           f"{name}: plain versions ran on CUDA tensors: {plain_on_cuda}")
+    if kernel.startswith("paged"):
+        # float32 queries: every B6/B6q launch on design 2
+        check(by_design[f"{kernel}/split"] == launches[kernel]
+              and by_design[f"{kernel}/ffma"] == 0,
+              f"{name}: {kernel} not all on design 2: {by_design}")
     row = {"phase": name, "kernel": kernel, "launches": launches,
+           "launches_by_design": by_design,
            "plain_on_cuda": plain_on_cuda, "waves": waves,
            "slots": snap["slots"], "kv_dtype": snap["kv_dtype"],
            "prefix_cache": snap["prefix_cache"],
@@ -2256,8 +2327,8 @@ B7_KERNELS = ("conv1x1_bn_stats", "conv3x3_bn_stats")
 
 def launches_by_design(mod):
     """{"kernel/design": launches} of a kernel module with two designs
-    (`ops.attention`: B3a-c, `ops.lstm`: B2a/B2b, `ops.conv_fused`: B7)
-    since the counts were reset."""
+    (`ops.attention`: B3a-c, `ops.lstm`: B2a/B2b, `ops.conv_fused`: B7,
+    `ops.banded_attention`: B6/B6q) since the counts were reset."""
     return {f"{k}/{d}": n for (k, d), n in mod.LAUNCHES_BY_DESIGN.items()}
 
 
@@ -2418,6 +2489,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     rows = [run_kernel_case(c, flush, gen) for c in kernel_cases()]
+    run_b6_repeat(gen)
     for c in flash_cases():
         rows += run_flash_case(c, flush, gen)
     rows += [run_banded_case(c, flush, gen) for c in banded_cases()]
@@ -2511,6 +2583,21 @@ def main() -> int:
                           "speedup_over_cluster", "persistent_ms")},
                 launches_by_design={d: by[f"{name}/{d}"]
                                     for d in ("cluster", "persistent")})
+        if name in ("paged_decode_attention", "paged_decode_attention_q"):
+            by = (a if name == "paged_decode_attention"
+                  else qa)["launches_by_design"]
+            summary[-1].update(
+                {k: main_row[k] for k in ("design", "bound_share", "ffma_ms",
+                                          "speedup_over_ffma", "split_pages",
+                                          "nsplit")},
+                launches_by_design={d: by[f"{name}/{d}"]
+                                    for d in ("ffma", "split")})
+            if name == "paged_decode_attention_q":
+                e4m3 = next(r for r in mine if r["kv_dtype"] ==
+                            "float8_e4m3fn")
+                summary[-1]["e4m3"] = {k: e4m3[k] for k in (
+                    "ms", "ffma_ms", "speedup_over_ffma", "plain_ms",
+                    "library_ms", "bound_ms", "bound_share")}
         if name == "lstm_fwd_inference":
             # most of its launches on path_g are the stepping loop's, at T 1
             summary[-1]["ms_at_T1"] = next(r["ms"] for r in mine

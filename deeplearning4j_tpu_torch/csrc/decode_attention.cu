@@ -52,9 +52,13 @@
 // {1, 2, 4, 8} and EM in {2, 4}. Each K/V byte is read by one block; a
 // GQA group shares one sweep; nothing is gathered or broadcast to H
 // heads.
-// Not done yet: splitting L across blocks (S * Hkv blocks leave most of
-// the 132 SMs idle at small batch), 4- or 8-code loads a lane for the
-// 1-byte caches, wgmma and TMA — later work.
+// Design 1 leaves most of the 132 SMs idle at small batch (S * Hkv
+// blocks, one slot's whole range through one SM) and loads 2-8 bytes a
+// lane behind a dependent page-table read a key. B6/B6q have a second
+// design for float32 queries (`split`, below the design-1 kernels): the
+// key range split over many blocks, pages streamed through shared memory
+// 16 bytes a thread, one merge in fixed order. B5/B5q and bfloat16 pages
+// stay on design 1.
 //
 // Numerics. The running max starts at -1e30, not -inf. A key past the
 // range contributes nothing (the `u < n` guard plays the part of the TPU
@@ -547,6 +551,562 @@ int run(const Args& a, int dtype, int cache_dtype, void* stream) {
   return rc ? rc : (int)cudaGetLastError();
 }
 
+// ===========================================================================
+// Design 2 of B6 and B6q: float32 queries over float32, int8 or e4m3 pages,
+// Dh 64 or 128, G <= 8 (`b6_design` in ops/banded_attention.py).
+//
+// Grid (S, Hkv, NSPLIT). Block (s, hk, z) owns the C logical pages
+// [zC, zC + C) of slot s's table (NSPLIT = ceil(NP / C); the host picks C
+// from the shapes alone, `b6_splits`, so that the grid holds at least two
+// blocks an SM where the table allows) and the part of the visible range
+// [lo, hi] that lies in them; positions stay on the device. The block
+// reads its page-table entries once into shared memory, then streams its
+// keys in tiles of TK keys (16 KB of K and V rows a tile: 32 keys of
+// float32 at Dh 64, 128 of 1-byte codes) through a ring of kStages tiles
+// filled by cp.async.cg, 16 bytes a thread (16 codes of a 1-byte cache),
+// each tile's scale rows beside it (4 bytes a thread): three tiles (48 KB)
+// are in flight while one is folded, and one barrier a tile frees a stage.
+// Keys past the block's range are zero-filled by the copy.
+// Each of the 4 warps folds its own KW = TK / 4 keys of a tile into its own
+// online softmax (as design 1's warps do), with no barrier: LPK = 32 / KW
+// neighbouring lanes share a key, each taking CPL = 4 of its K row's
+// 16-byte chunks (chunk i LPK + lane % LPK), so log2(LPK) shuffles finish
+// a score, never a 5-step reduction a key; the warp's max and sum over its
+// keys take 5 - log2(LPK) shuffles a tile; for P·V each lane owns Dh / 32
+// output elements of every query row and reads them from each of the
+// warp's V rows, with p broadcast by a shuffle. The G rows of a GQA group
+// share every loaded row. Rows are stored with their 16-byte chunks
+// XOR-swizzled by row (`swz`), so the 8 lanes of a quarter-warp that read
+// one chunk each of 8 / LPK keys meet 8 distinct bank groups.
+// At the end the warps merge through shared memory in warp order. The
+// live splits of a (slot, KV head) are those whose pages meet [lo, hi],
+// zlo .. zhi, which every block reads off qpos. A block outside them
+// returns at once: an empty split's partial (m -1e30, l 0, acc 0) would
+// add exact zeros to the merge's sums, and writing, counting and reading
+// it made a launch's time grow with NSPLIT (an all-empty grid in
+// `tools/torch_b6_splits.py`). With one live split its block writes
+// o; otherwise each live block writes its (m, l, acc[G][Dh]) in float32
+// to a workspace, and the last of them to arrive at a counter (each writer
+// fences first) merges the live partials in split order and sets the
+// counter back to 0 for the next launch: one launch, the same bits
+// whichever block arrives last. With no visible key, split 0 writes the
+// zero rows.
+// Numerics as design 1's: float32 FMA and expf, codes widened to float32
+// and scaled as they leave shared memory, the running max from -1e30,
+// zeros for a row with no visible key, NaN from a NaN query (fmaxf drops
+// it from every max, so m stays finite and exp(s - m) carries it into l
+// and acc, which the merges' sums carry on).
+namespace split {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 4;
+constexpr int kTileBytes = 16384;   // K and V rows of one tile
+// ops/banded_attention.py (MAX_SPLIT_PAGES, MAX_SPLITS) keeps C and
+// NSPLIT within these: the page-table entries of a block, and the merge's
+// NSPLIT x G factors, which it keeps in the ring
+constexpr int kMaxPages = 256;
+constexpr int kMaxSplits = 1024;
+
+template <typename TC, int DH>
+struct Geo {
+  static constexpr int kRowBytes = DH * (int)sizeof(TC);
+  static constexpr int kChunks = kRowBytes / 16;             // a row's
+  static constexpr int kTK = kTileBytes / (2 * kRowBytes);   // keys a tile
+  static constexpr int kKW = kTK / kWarps;        // keys a warp a tile
+  static constexpr int kLPK = 32 / kKW;           // lanes a key (scores)
+  static constexpr int kLB = kLPK == 1 ? 0 : kLPK == 2 ? 1 : kLPK == 4 ? 2
+                                                                      : 3;
+  static constexpr int kCPL = kChunks / kLPK;     // chunks a lane (scores)
+  static constexpr int kEPC = 16 / (int)sizeof(TC);   // elements a chunk
+  static constexpr int kDPL = DH / 32;            // output elements a lane
+  // each thread issues kRows K and kRows V chunks a tile
+  static constexpr int kRows = kTK * kChunks / kThreads;
+  static_assert(kLPK * kKW == 32 && (1 << kLB) == kLPK && kCPL == 4 &&
+                    kRows * kThreads == kTK * kChunks,
+                "tile geometry");
+};
+
+// The stored chunk of chunk c of tile row r (CH chunks a row, LPK lanes a
+// key in the scores): XOR by the row's place among the 8 / LPK rows that a
+// quarter-warp reads, so that their chunks i LPK + (0 .. LPK - 1) fall on
+// distinct 16-byte bank groups; 64-byte rows (two a 128-byte line) by the
+// row's place among the rows of its parity. Within every aligned group of
+// 8 chunks, so a warp reading whole rows meets no conflict either.
+template <int CH, int LPK>
+__device__ __forceinline__ int swz(int r, int c) {
+  if constexpr (CH >= 8) return c ^ ((r % (8 / LPK)) * LPK);
+  return c ^ ((r >> 1) & (CH - 1));
+}
+
+// One 16-byte chunk as floats: 4 float32, or 16 int8 / e4m3 codes (the
+// lowest address first).
+__device__ __forceinline__ void widen(uint4 w, float (&x)[4], const float*) {
+  x[0] = __uint_as_float(w.x);
+  x[1] = __uint_as_float(w.y);
+  x[2] = __uint_as_float(w.z);
+  x[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void widen(uint4 w, float (&x)[16],
+                                      const int8_t*) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      x[4 * i + b] = (float)(int8_t)(u[i] >> (8 * b));
+}
+__device__ __forceinline__ void widen(uint4 w, float (&x)[16],
+                                      const __nv_fp8_e4m3*) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_fp8x2_storage_t raw =
+          (__nv_fp8x2_storage_t)((u[i] >> (16 * h)) & 0xffffu);
+      const float2 f = __half22float2(
+          __half2(__nv_cvt_fp8x2_to_halfraw2(raw, __NV_E4M3)));
+      x[4 * i + 2 * h] = f.x;
+      x[4 * i + 2 * h + 1] = f.y;
+    }
+}
+
+// n = 16 bytes, or 0 to zero-fill the destination
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A lane's DPL neighbouring elements of a stored V row, as floats: 8 or 16
+// bytes of float32, 2 or 4 codes.
+template <int DPL>
+__device__ __forceinline__ void widen_v(const unsigned char* p,
+                                        float (&x)[DPL], const float*) {
+  if constexpr (DPL == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    x[0] = f.x;
+    x[1] = f.y;
+  } else {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    x[0] = f.x;
+    x[1] = f.y;
+    x[2] = f.z;
+    x[3] = f.w;
+  }
+}
+template <int DPL>
+__device__ __forceinline__ void widen_v(const unsigned char* p,
+                                        float (&x)[DPL], const int8_t*) {
+#pragma unroll
+  for (int e = 0; e < DPL; ++e)
+    x[e] = (float)reinterpret_cast<const int8_t*>(p)[e];
+}
+template <int DPL>
+__device__ __forceinline__ void widen_v(const unsigned char* p,
+                                        float (&x)[DPL],
+                                        const __nv_fp8_e4m3*) {
+#pragma unroll
+  for (int e = 0; e < DPL; e += 2) {
+    const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        *reinterpret_cast<const __nv_fp8x2_storage_t*>(p + e), __NV_E4M3)));
+    x[e] = f.x;
+    x[e + 1] = f.y;
+  }
+}
+
+// Dynamic shared memory, in bytes, in this order.
+template <typename TC, int GM, int DH>
+struct Smem {
+  using Gm = Geo<TC, DH>;
+  static constexpr int kRing = kStages * kTileBytes;
+  static constexpr int kScales =
+      Quant<TC>::value ? kStages * 2 * Gm::kTK * 4 : 0;
+  static constexpr int kQ = GM * DH * 4;
+  static constexpr int kPT = kMaxPages * 4;
+  static constexpr int kRowv = GM * 4 + 16;   // the merge's l; a flag
+  static constexpr int bytes = kRing + kScales + kQ + kPT + kRowv;
+  // the end of a block reuses the ring: the warps' states, then the
+  // merge's factors
+  static_assert(kWarps * GM * (DH + 2) * 4 <= kRing &&
+                    2 * kMaxSplits * GM * 4 <= kRing,
+                "ring reuse");
+};
+
+template <typename TC, int GM, int DH>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_attention_split_kernel(
+    const float* __restrict__ q, const TC* __restrict__ kc,
+    const TC* __restrict__ vc, const float* __restrict__ sk,
+    const float* __restrict__ sv, float* __restrict__ out,
+    const int* __restrict__ page_table, const int* __restrict__ qpos,
+    float* __restrict__ work, int* __restrict__ counters, int NP, int Lp,
+    int lp_shift, int H, int Hkv, int window, int C, float scale) {
+  using Gm = Geo<TC, DH>;
+  using Sm = Smem<TC, GM, DH>;
+  constexpr int TK = Gm::kTK, CH = Gm::kChunks, EPC = Gm::kEPC;
+  constexpr int KW = Gm::kKW, LPK = Gm::kLPK, LB = Gm::kLB;
+  constexpr int CPL = Gm::kCPL, DPL = Gm::kDPL, RB = Gm::kRowBytes;
+  constexpr bool kQuant = Quant<TC>::value;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* scl = reinterpret_cast<float*>(smem + Sm::kRing);   // [st][2][TK]
+  float* qs = reinterpret_cast<float*>(smem + Sm::kRing + Sm::kScales);
+  int* pts = reinterpret_cast<int*>(qs + GM * DH);
+  float* rowv = reinterpret_cast<float*>(pts + kMaxPages);   // [GM]
+  int* last = reinterpret_cast<int*>(rowv + GM);
+
+  const int s_ = blockIdx.x, hk = blockIdx.y, z = blockIdx.z;
+  const int nsplit = gridDim.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = H / Hkv;
+  const size_t row0 = ((size_t)s_ * H + (size_t)hk * G) * DH;
+  const int pos = qpos[s_];
+  const int pfirst = z * C;
+  // the block's C table entries (known from the grid alone, so their
+  // loads go out beside qpos's) and the query rows
+  for (int i = tid; i < min(C, NP - pfirst); i += kThreads)
+    pts[i] = page_table[(size_t)s_ * NP + pfirst + i];
+  for (int i = tid; i < GM * DH; i += kThreads)
+    qs[i] = i < G * DH ? q[row0 + i] : 0.f;
+  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
+  const int hi = min(pos, NP * Lp - 1);
+  // the live splits zlo .. zhi: those whose pages meet [lo, hi]
+  const int zlo = lo / (C * Lp), zhi = hi >= lo ? hi / (C * Lp) : zlo - 1;
+  const int nlive = zhi - zlo + 1;
+  if (z < zlo || z > zhi) {
+    // outside the range: no partial and no count; with no visible key at
+    // all, split 0 writes the zero rows
+    if (nlive == 0 && z == 0)
+      for (int i = tid; i < G * DH; i += kThreads) out[row0 + i] = 0.f;
+    return;
+  }
+  const int blo = max(lo, pfirst * Lp);
+  const int bhi = min(hi, (pfirst + C) * Lp - 1);
+  const int nkeys = bhi - blo + 1;
+  const int ntiles = (nkeys + TK - 1) / TK;
+  __syncthreads();
+
+  // the row index of position p's [Dh] row for this KV head (a shift for
+  // a power-of-two page length, lp_shift >= 0)
+  auto row_of = [&](int p) -> size_t {
+    const int pg = lp_shift >= 0 ? p >> lp_shift : p / Lp;
+    return ((size_t)pts[pg - pfirst] * Lp + (p - pg * Lp)) * Hkv + hk;
+  };
+  // the copies of tile `tile` into its stage, as one commit group (empty
+  // past the last tile, so that the group count stays in step)
+  auto issue = [&](int tile) {
+    if (tile < ntiles) {
+      const int stage = tile % kStages;
+      const int p0 = blo + tile * TK;
+      unsigned char* kst = ring + stage * kTileBytes;
+#pragma unroll
+      for (int k = 0; k < Gm::kRows; ++k) {
+        const int j = tid + k * kThreads;
+        const int r = j / CH, c = j % CH;
+        const int p = p0 + r;
+        const bool live = p <= bhi;
+        const size_t row = live ? row_of(p) : 0;
+        const int off = r * RB + swz<CH, LPK>(r, c) * 16;
+        cp_async16(kst + off, kc + row * DH + c * EPC, live);
+        cp_async16(kst + kTileBytes / 2 + off, vc + row * DH + c * EPC,
+                   live);
+      }
+      if constexpr (kQuant) {
+        for (int j = tid; j < 2 * TK; j += kThreads) {
+          const int kv = j / TK, r = j % TK, p = p0 + r;
+          const bool live = p <= bhi;
+          const size_t row = live ? row_of(p) : 0;
+          cp_async4(scl + (stage * 2 + kv) * TK + r, (kv ? sv : sk) + row,
+                    live);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // this warp's online softmax: m and l (the same in every lane), and the
+  // lane's elements lane DPL .. + DPL - 1 of each query row's accumulator
+  float m[GM], l[GM], acc[GM][DPL];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[g][e] = 0.f;
+  }
+  const int u = lane >> LB, li = lane & (LPK - 1);
+  const int r = warp * KW + u;   // this lane's key in a tile (scores)
+  // P·V: this lane's elements of a V row, in the chunk vchunk at vbyte
+  const int vchunk = lane * DPL * (int)sizeof(TC) / 16;
+  const int vbyte = lane * DPL * (int)sizeof(TC) % 16;
+
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) issue(t);
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // tile landed; every warp is done with tile - 1
+    issue(tile + kStages - 1);
+    const int stage = tile % kStages;
+    const unsigned char* kst = ring + stage * kTileBytes;
+    const unsigned char* vst = kst + kTileBytes / 2;
+    const float* sks = scl + stage * 2 * TK;
+    const float* svs = sks + TK;
+    // the warp's live keys in this tile
+    const int nw = min(KW, nkeys - tile * TK - warp * KW);
+    if (nw <= 0) continue;
+
+    // scores of key r over this lane's chunks, then over its LPK lanes
+    float sc[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) sc[g] = 0.f;
+    const float fk = kQuant ? sks[r] : 1.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = i * LPK + li;
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          kst + r * RB + swz<CH, LPK>(r, c) * 16);
+      float x[EPC];
+      widen(w, x, static_cast<const TC*>(nullptr));
+      if (kQuant) {
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) x[e] *= fk;
+      }
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+#pragma unroll
+        for (int e4 = 0; e4 < EPC / 4; ++e4) {
+          const float4 qq = *reinterpret_cast<const float4*>(
+              qs + g * DH + c * EPC + 4 * e4);
+          sc[g] = fmaf(qq.x, x[4 * e4], sc[g]);
+          sc[g] = fmaf(qq.y, x[4 * e4 + 1], sc[g]);
+          sc[g] = fmaf(qq.z, x[4 * e4 + 2], sc[g]);
+          sc[g] = fmaf(qq.w, x[4 * e4 + 3], sc[g]);
+        }
+      }
+    }
+    const bool live = u < nw;
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+#pragma unroll
+      for (int o = 1; o < LPK; o <<= 1)
+        sc[g] += __shfl_xor_sync(0xffffffffu, sc[g], o);
+      const float s = sc[g] * scale;
+      // the warp's max over its live keys (fmaxf leaves out a NaN score)
+      float mx = live ? fmaxf(kNegInf, s) : kNegInf;
+#pragma unroll
+      for (int o = LPK; o < 32; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = expf(m[g] - m_new);
+      const float p = live ? expf(s - m_new) : 0.f;
+      float lt = p;
+#pragma unroll
+      for (int o = LPK; o < 32; o <<= 1)
+        lt += __shfl_xor_sync(0xffffffffu, lt, o);
+      l[g] = l[g] * alpha + lt;
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[g][e] *= alpha;
+      sc[g] = p;
+    }
+
+    // P·V over the warp's keys, in key order (unrolled, so the V loads
+    // and p's broadcasts of the KW keys go out together; a key past the
+    // range has p 0 and a zero-filled V row)
+#pragma unroll
+    for (int uu = 0; uu < KW; ++uu) {
+      const int rr = warp * KW + uu;
+      float v[DPL];
+      widen_v<DPL>(vst + rr * RB + swz<CH, LPK>(rr, vchunk) * 16 + vbyte, v,
+                   static_cast<const TC*>(nullptr));
+      if (kQuant) {
+        const float fv = svs[rr];
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) v[e] *= fv;
+      }
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        const float p = __shfl_sync(0xffffffffu, sc[g], uu * LPK);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(p, v[e], acc[g][e]);
+      }
+    }
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: the warps' states go there
+  float* wm = reinterpret_cast<float*>(ring);   // [kWarps][GM]
+  float* wl = wm + kWarps * GM;                 // [kWarps][GM]
+  float* wacc = wl + kWarps * GM;               // [kWarps][GM][DH]
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (lane == 0) {
+      wm[warp * GM + g] = m[g];
+      wl[warp * GM + g] = l[g];
+    }
+#pragma unroll
+    for (int e = 0; e < DPL; ++e)
+      wacc[(warp * GM + g) * DH + lane * DPL + e] = acc[g][e];
+  }
+  __syncthreads();
+
+  // the warps' partial softmaxes merged in warp order, then written: o
+  // (the only live split), or this split's (m, l, acc)
+  const int stride = G * (DH + 2);   // a partial: m[G], l[G], acc[G][DH]
+  float* mine =
+      nlive > 1
+          ? work + ((size_t)(s_ * Hkv + hk) * nsplit + z) * (size_t)stride
+          : nullptr;
+  for (int i = tid; i < G * DH; i += kThreads) {
+    const int g = i / DH;
+    float mb = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mb = fmaxf(mb, wm[w * GM + g]);
+    float lb = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = expf(wm[w * GM + g] - mb);
+      lb = fmaf(wl[w * GM + g], c, lb);
+      o = fmaf(wacc[w * GM * DH + i], c, o);
+    }
+    if (nlive == 1) {
+      out[row0 + i] = o / fmaxf(lb, 1e-30f);
+    } else {
+      mine[2 * G + i] = o;
+      if (i % DH == 0) {
+        mine[g] = mb;
+        mine[G + g] = lb;
+      }
+    }
+  }
+  if (nlive == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    *last = atomicAdd(counters + s_ * Hkv + hk, 1) == nlive - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+
+  // The last live block: merge the live splits' partials in split order.
+  // Their loads go out together (from L2), not one split after another:
+  // m and l of every split, and this thread's first output over the first
+  // 8 splits.
+  const float* all =
+      work + ((size_t)(s_ * Hkv + hk) * nsplit + zlo) * (size_t)stride;
+  float* cf = reinterpret_cast<float*>(ring);   // [live][G]: m, then c
+  float* lf = cf + kMaxSplits * GM;             // [live][G]: l
+  float a0[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    a0[k] = tid < G * DH && k < nlive
+                ? __ldcg(all + (size_t)k * stride + 2 * G + tid)
+                : 0.f;
+  for (int i = tid; i < nlive * G; i += kThreads) {
+    const float* pj = all + (size_t)(i / G) * stride + i % G;
+    const float mj = __ldcg(pj), lj = __ldcg(pj + G);
+    cf[i] = mj;
+    lf[i] = lj;
+  }
+  __syncthreads();
+  if (tid < G) {
+    float mt = kNegInf;
+    for (int j = 0; j < nlive; ++j) mt = fmaxf(mt, cf[j * G + tid]);
+    float lt = 0.f;
+    for (int j = 0; j < nlive; ++j) {
+      const float c = expf(cf[j * G + tid] - mt);
+      cf[j * G + tid] = c;
+      lt = fmaf(lf[j * G + tid], c, lt);
+    }
+    rowv[tid] = lt;
+  }
+  __syncthreads();
+  for (int i = tid; i < G * DH; i += kThreads) {
+    const int g = i / DH;
+    float o = 0.f;
+    for (int j0 = 0; j0 < nlive; j0 += 8) {
+      float a[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        a[k] = i == tid && j0 == 0 ? a0[k]
+               : j0 + k < nlive
+                   ? __ldcg(all + (size_t)(j0 + k) * stride + 2 * G + i)
+                   : 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (j0 + k < nlive) o = fmaf(a[k], cf[(j0 + k) * G + g], o);
+    }
+    out[row0 + i] = o / fmaxf(rowv[g], 1e-30f);
+  }
+  if (tid == 0) counters[s_ * Hkv + hk] = 0;
+}
+
+struct Args {
+  const float* q;
+  const void *k, *v;
+  const float *sk, *sv;
+  float* out;
+  const int *page_table, *qpos;
+  float* work;
+  int* counters;
+  int S, NP, Lp, lp_shift, H, Hkv, window, C;
+  float scale;
+};
+
+// Each launcher instantiation raises its kernel's dynamic shared-memory
+// limit once (a function-local static is per instantiation).
+template <typename TC, int GM, int DH>
+int launch(const Args& a, int nsplit, cudaStream_t st) {
+  constexpr int smem = Smem<TC, GM, DH>::bytes;
+  static const cudaError_t once = cudaFuncSetAttribute(
+      paged_decode_attention_split_kernel<TC, GM, DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (once != cudaSuccess) return (int)once;
+  paged_decode_attention_split_kernel<TC, GM, DH>
+      <<<dim3(a.S, a.Hkv, nsplit), kThreads, smem, st>>>(
+          a.q, static_cast<const TC*>(a.k), static_cast<const TC*>(a.v),
+          a.sk, a.sv, a.out, a.page_table, a.qpos, a.work, a.counters, a.NP,
+          a.Lp, a.lp_shift, a.H, a.Hkv, a.window, a.C, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename TC, int DH>
+int launch_group(const Args& a, int nsplit, cudaStream_t st) {
+  const int G = a.H / a.Hkv;
+  if (G <= 1) return launch<TC, 1, DH>(a, nsplit, st);
+  if (G <= 2) return launch<TC, 2, DH>(a, nsplit, st);
+  if (G <= 4) return launch<TC, 4, DH>(a, nsplit, st);
+  return launch<TC, 8, DH>(a, nsplit, st);
+}
+
+template <typename TC>
+int launch_cache(const Args& a, int Dh, int nsplit, cudaStream_t st) {
+  return Dh == 64 ? launch_group<TC, 64>(a, nsplit, st)
+                  : launch_group<TC, 128>(a, nsplit, st);
+}
+
+}  // namespace split
+
 }  // namespace
 
 extern "C" {
@@ -576,6 +1136,41 @@ int dl4j_paged_decode_attention(const void* q, const void* k, const void* v,
   const PagedArgs a{q, k, v, scale_k, scale_v, out, page_table, qpos, S,
                     NP, Lp, H, Hkv, Dh, window, scale};
   return run(a, dtype, cache_dtype, stream);
+}
+
+// Design 2 of B6/B6q: float32 q and out over cache_dtype 0 = float32, 2 =
+// int8 or 3 = e4m3 codes with scale rows; Dh 64 or 128; split_pages C
+// pages a block. With NSPLIT = ceil(NP / C) > 1, work holds
+// S * Hkv * NSPLIT * G * (Dh + 2) floats and counters S * Hkv ints, zero
+// before the first launch (each launch leaves them zero). Returns 0 or a
+// cudaError_t code.
+int dl4j_paged_decode_attention_split(
+    const float* q, const void* k, const void* v, const float* scale_k,
+    const float* scale_v, float* out, const int* page_table, const int* qpos,
+    float* work, int* counters, int S, int NP, int Lp, int H, int Hkv,
+    int Dh, int window, int split_pages, float scale, int cache_dtype,
+    void* stream) {
+  if (Hkv < 1 || H % Hkv != 0 || H / Hkv > kMaxG || (Dh != 64 && Dh != 128)
+      || NP < 1 || Lp < 1 || split_pages < 1
+      || split_pages > split::kMaxPages)
+    return (int)cudaErrorInvalidValue;
+  const int nsplit = (NP + split_pages - 1) / split_pages;
+  if (nsplit > split::kMaxSplits || (nsplit > 1 && (!work || !counters)))
+    return (int)cudaErrorInvalidValue;
+  if (S == 0) return 0;
+  const int lp_shift = (Lp & (Lp - 1)) == 0 ? __builtin_ctz(Lp) : -1;
+  const split::Args a{q, k, v, scale_k, scale_v, out, page_table, qpos,
+                      work, counters, S, NP, Lp, lp_shift, H, Hkv, window,
+                      split_pages, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cache_dtype == 0)
+    return split::launch_cache<float>(a, Dh, nsplit, st);
+  if (!scale_k || !scale_v) return (int)cudaErrorInvalidValue;
+  if (cache_dtype == 2)
+    return split::launch_cache<int8_t>(a, Dh, nsplit, st);
+  if (cache_dtype == 3)
+    return split::launch_cache<__nv_fp8_e4m3>(a, Dh, nsplit, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* dl4j_cuda_error_string(int code) {

@@ -26,6 +26,13 @@ scale per (token, kv head), dequantized on load in float32. Their
 launches count apart, as `banded_decode_attention_q` and
 `paged_decode_attention_q`.
 
+B6 and B6q come in two designs, chosen by `b6_design` before the launch:
+"split" (design 2) for float32 queries over float32, int8 or e4m3 pages
+at Dh 64 or 128 — each slot's key range split over `b6_splits` pages a
+block, pages streamed through shared memory, one merge in fixed order —
+and "ffma" (design 1, one block a slot and KV head) for bfloat16 and
+every other shape. `LAUNCHES_BY_DESIGN[(kernel, design)]` counts them.
+
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches the kernel or raises — there is no fallback. Each
 wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
@@ -40,7 +47,8 @@ positions, and B4 masks its tail tiles.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,6 +66,11 @@ _NAMES = ("banded_attention", "banded_decode_attention",
           "paged_decode_attention_q")
 LAUNCHES: Dict[str, int] = dict.fromkeys(_NAMES, 0)
 PLAIN_ON_CUDA: Dict[str, int] = dict.fromkeys(_NAMES, 0)
+# B6/B6q launches by design (`b6_design`)
+DESIGNS = ("ffma", "split")
+LAUNCHES_BY_DESIGN: Dict[Tuple[str, str], int] = {
+    (k, d): 0 for k in ("paged_decode_attention", "paged_decode_attention_q")
+    for d in DESIGNS}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # cache storage codes of the decode kernels: the query's dtype, or
@@ -72,6 +85,13 @@ MAX_GROUP = 8
 MAX_HEAD_DIM = 128
 # B4's query/key tile (kTile in csrc/attention_tiles.cuh)
 BAND_TILE = 64
+# B6 design 2 (namespace split in csrc/decode_attention.cu): its head
+# dims, the page-table entries a block holds (kMaxPages), the splits one
+# block merges (kMaxSplits); a split holds at least SPLIT_MIN_KEYS keys
+SPLIT_HEAD_DIMS = (64, 128)
+MAX_SPLIT_PAGES = 256
+MAX_SPLITS = 1024
+SPLIT_MIN_KEYS = 64
 
 
 def decode_eligible(h: int, hkv: int, dh: int) -> bool:
@@ -84,9 +104,48 @@ def decode_eligible(h: int, hkv: int, dh: int) -> bool:
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
+    for d in (LAUNCHES, LAUNCHES_BY_DESIGN, PLAIN_ON_CUDA):
         for k in d:
             d[k] = 0
+
+
+def b6_design(q_dtype, cache_dtype, h: int, hkv: int, dh: int,
+              tensors: Sequence[torch.Tensor] = ()) -> str:
+    """The design that takes a B6 or B6q call: "split" (design 2) for
+    float32 queries over float32, int8 or e4m3 pages at Dh 64 or 128 whose
+    `tensors` (the caches: 16-byte copies) start 16-byte aligned; "ffma"
+    (design 1) for everything else the kernels take. bfloat16 pages stay
+    on design 1: they round p against the row max (C6b), which a block
+    holding part of the range does not know."""
+    if q_dtype != torch.float32 or \
+            cache_dtype not in (torch.float32,) + QUANT_DTYPES or \
+            dh not in SPLIT_HEAD_DIMS or not decode_eligible(h, hkv, dh) or \
+            any(t.data_ptr() % 16 for t in tensors):
+        return "ffma"
+    return "split"
+
+
+@functools.lru_cache(maxsize=256)
+def b6_splits(s: int, hkv: int, npg: int, page_len: int, sms: int) -> int:
+    """C, the logical pages a block of design 2 takes (NSPLIT =
+    ceil(NP / C) blocks a slot and KV head), from the shapes alone: the
+    largest C whose grid S * Hkv * NSPLIT holds at least 2 * `sms`
+    blocks, then evened out over the same NSPLIT; at least SPLIT_MIN_KEYS
+    keys (where the table holds them) and at most MAX_SPLIT_PAGES pages a
+    split, at most MAX_SPLITS splits. Where even the smallest C gives
+    fewer blocks, the smallest."""
+    if npg > MAX_SPLIT_PAGES * MAX_SPLITS:
+        raise ValueError(f"design 2 takes at most "
+                         f"{MAX_SPLIT_PAGES * MAX_SPLITS} pages a slot, "
+                         f"got {npg}")
+    least = min(npg, max(-(-SPLIT_MIN_KEYS // page_len),
+                         -(-npg // MAX_SPLITS)))
+    c = least
+    for cand in range(min(npg, MAX_SPLIT_PAGES), least - 1, -1):
+        if s * hkv * -(-npg // cand) >= 2 * sms:
+            c = cand
+            break
+    return max(least, -(-npg // -(-npg // c)))
 
 
 def _stream(dev) -> ctypes.c_void_p:
@@ -358,11 +417,14 @@ def paged_decode_attention_plain(q, cache_k, cache_v, page_table, qpos,
                                  window: Optional[int] = None,
                                  scale: Optional[float] = None,
                                  scale_k=None, scale_v=None,
-                                 block_k: Optional[int] = None):
+                                 block_k: Optional[int] = None,
+                                 split_pages: Optional[int] = None):
     """Plain version of kernel B6: gather each slot's page chain (and its
     scale rows) into a logical [S, L, Hkv, Dh] copy and attend linearly
     over it. bfloat16 caches round p as `decode_attention_plain` does
-    (the TPU kernel's blocks are its pages: `block_k` = Lp)."""
+    (the TPU kernel's blocks are its pages: `block_k` = Lp).
+    `split_pages` C walks design 2's splits instead (`split_merge`): the
+    same function, and zeros for a row with no visible key."""
     if q.is_cuda:
         PLAIN_ON_CUDA[_kernel_name("paged_decode_attention", scale_k)] += 1
     rounded = cache_v.dtype == torch.bfloat16
@@ -372,8 +434,46 @@ def paged_decode_attention_plain(q, cache_k, cache_v, page_table, qpos,
         ck = dequantize(ck, gather_pages(scale_k, page_table), q.dtype)
         cv = dequantize(cv, gather_pages(scale_v, page_table), q.dtype)
     vis = visibility(qpos, qpos, ck.shape[1], window, False)
+    if split_pages is not None:
+        if rounded:
+            raise ValueError("design 2 takes float32, int8 or e4m3 pages, "
+                             "not bfloat16")
+        return split_merge(q, ck, cv, vis, split_pages * cache_k.shape[1],
+                           scale)
     return attend_plain(q[:, None], ck, cv, vis[:, None], scale, rounded,
                         block_k)[:, 0]
+
+
+def split_merge(q, ck, cv, vis, split_keys: int,
+                scale: Optional[float] = None):
+    """Design 2's arithmetic in plain PyTorch: q [S, H, Dh] over logical
+    caches [S, L, Hkv, Dh] where `vis` [S, L] is true, in splits of
+    `split_keys` logical positions. Each split keeps (m, l, acc) with m
+    its max over visible scores (-1e30 for none; a NaN score is left out
+    of the max, as fmaxf leaves it, and carried by exp(s - m) into l and
+    acc); the splits merge in order: M = max m_z, c_z = exp(m_z - M),
+    o = sum acc_z c_z / max(sum l_z c_z, 1e-30). Math in f32."""
+    s_, h, dh = q.shape
+    L, hkv = ck.shape[1], ck.shape[2]
+    sc = scale if scale is not None else dh ** -0.5
+    qg = q.float().reshape(s_, hkv, h // hkv, dh)
+    parts = []
+    for z0 in range(0, L, split_keys):
+        sl = slice(z0, z0 + split_keys)
+        s = torch.einsum("shgd,slhd->shgl", qg, ck[:, sl].float()) * sc
+        live = vis[:, None, None, sl]
+        m = torch.where(live & ~torch.isnan(s), s, _NEG_INF).amax(dim=-1)
+        p = torch.where(live, torch.exp(s - m[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("shgl,slhd->shgd", p, cv[:, sl].float())))
+    big_m = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l = o = 0.0
+    for m, lz, acc in parts:
+        c = torch.exp(m - big_m)
+        l = l + lz * c
+        o = o + acc * c[..., None]
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(s_, h, dh).to(q.dtype)
 
 
 # ------------------------------------------------------ B5/B6: wrappers
@@ -499,14 +599,18 @@ def banded_decode_attention(q, cache_k, cache_v, qpos, end,
 def paged_decode_attention(q, cache_k, cache_v, page_table, qpos,
                            window: Optional[int] = None,
                            scale: Optional[float] = None,
-                           scale_k=None, scale_v=None):
+                           scale_k=None, scale_v=None,
+                           design: Optional[str] = None):
     """Single-query attention over the paged pool (kernel B6).
 
     q: [S, H, Dh]; caches [P, Lp, Hkv, Dh] (post-write), in q's dtype or
     int8/e4m3 codes with float32 scale rows [P, Lp, Hkv]; page_table
     [S, NP] int32 mapping logical pages to physical ones (unmapped
     entries hold a valid page, 0); qpos [S] int32 logical position of
-    each slot's query. Returns [S, H, Dh]. Any page length works."""
+    each slot's query. Returns [S, H, Dh]. Any page length works. On the
+    card the kernel runs in `b6_design`'s design, or in `design` where
+    the caller names one (`chip_smoke.py` times design 1 on design 2's
+    inputs); a design that cannot take the call raises."""
     _check_common(q, cache_k, cache_v, scale_k, scale_v)
     s_, h, dh = q.shape
     if page_table.ndim != 2 or page_table.shape[0] != s_ or \
@@ -525,15 +629,66 @@ def paged_decode_attention(q, cache_k, cache_v, page_table, qpos,
 
     lib = cuda_build.library("decode_attention")
     out = torch.empty_like(q)
+    npg = page_table.shape[1]
     lp, hkv = cache_k.shape[1], cache_k.shape[2]
     sc = scale if scale is not None else dh ** -0.5
-    rc = lib.dl4j_paged_decode_attention(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        *_scale_ptrs(scale_k, scale_v), out.data_ptr(),
-        page_table.data_ptr(), qpos.data_ptr(), s_, page_table.shape[1], lp,
-        h, hkv, dh, window or 0, sc, _DTYPE_CODES[q.dtype],
-        _CACHE_CODES[cache_k.dtype], _stream(q.device))
+    chosen = b6_design(q.dtype, cache_k.dtype, h, hkv, dh, (cache_k, cache_v))
+    design = design or chosen
+    if design not in DESIGNS or (design == "split" and chosen != "split"):
+        raise ValueError(f"B6 design {design!r} cannot take q {q.dtype} "
+                         f"over {cache_k.dtype} pages at H {h}, Hkv {hkv}, "
+                         f"Dh {dh}")
+    if design == "split":
+        c = b6_splits(s_, hkv, npg, lp, _sm_count(q.device))
+        work, counters = _split_workspace(q.device, s_, hkv, -(-npg // c),
+                                          h // hkv, dh)
+        rc = lib.dl4j_paged_decode_attention_split(
+            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            *_scale_ptrs(scale_k, scale_v), out.data_ptr(),
+            page_table.data_ptr(), qpos.data_ptr(), work, counters, s_, npg,
+            lp, h, hkv, dh, window or 0, c, sc, _CACHE_CODES[cache_k.dtype],
+            _stream(q.device))
+    else:
+        rc = lib.dl4j_paged_decode_attention(
+            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            *_scale_ptrs(scale_k, scale_v), out.data_ptr(),
+            page_table.data_ptr(), qpos.data_ptr(), s_, npg, lp, h, hkv, dh,
+            window or 0, sc, _DTYPE_CODES[q.dtype],
+            _CACHE_CODES[cache_k.dtype], _stream(q.device))
     name = _kernel_name("paged_decode_attention", scale_k)
-    cuda_build.check(lib, rc, name)
+    cuda_build.check(lib, rc, f"{name} ({design})")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_DESIGN[(name, design)] += 1
     return out
+
+
+_SMS: Dict[int, int] = {}
+# (device index, stream, S, Hkv, NSPLIT, G, Dh) -> (work, counters) of
+# design 2
+_WORKSPACES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _sm_count(dev) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _split_workspace(dev, s_: int, hkv: int, nsplit: int, g: int, dh: int):
+    """Design 2's partials (NSPLIT x G (Dh + 2) float32 a slot and KV head)
+    and arrival counters (zero; each launch leaves them zero), allocated
+    once per device, stream and shape and kept: pointers (None for NSPLIT
+    1). Launches on one stream run one after another, so they may share
+    them; launches on two streams must not."""
+    if nsplit == 1:
+        return None, None
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, s_, hkv,
+           nsplit, g, dh)
+    if key not in _WORKSPACES:
+        _WORKSPACES[key] = (
+            torch.empty(s_ * hkv * nsplit * g * (dh + 2), dtype=torch.float32,
+                        device=dev),
+            torch.zeros(s_ * hkv, dtype=torch.int32, device=dev))
+    work, counters = _WORKSPACES[key]
+    return work.data_ptr(), counters.data_ptr()

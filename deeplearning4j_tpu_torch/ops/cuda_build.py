@@ -49,6 +49,12 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "dl4j_paged_decode_attention": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                  _I, _F, _I, _I, _P]),
+        # design 2 of B6/B6q: q k v scale_k scale_v out page_table qpos
+        # work counters, S NP Lp H Hkv Dh window split_pages, scale,
+        # cache_dtype, stream
+        "dl4j_paged_decode_attention_split": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                 _I, _I, _I, _F, _I, _P]),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "banded_attention": {

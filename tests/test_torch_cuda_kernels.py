@@ -223,6 +223,15 @@ def _close(got, ref, dtype, atol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,tq,tk,dh,causal,dtype", FLASH_CASES)
 def test_cuda_b3a_matches_plain(cuda_device, bh, tq, tk, dh, causal, dtype):
+    """float32: design 1 within 2e-5. bfloat16 (C7): both designs on the
+    same inputs, design 1 within 2e-5 plus one bf16 step, design 2 (the
+    wrapper's choice at Dh 64) within `fwd_atol(o_ref, "wgmma")` and
+    nearer the plain version that rounds p than the one that does not —
+    its tensor-core score sums differ from the plain version's in the
+    last bits, and the plain version misses 2e-5 plus a step against
+    itself under another exact summation order
+    (`test_plain_b3a_bf16_misses_a_step_against_itself_in_another_sum_
+    order`); the lse within 2e-5 in both."""
     q, k, v, _ = _flash_inputs(bh, tq, tk, dh, dtype, cuda_device, tq + dh)
     before = fa.LAUNCHES["flash_attention_fwd"]
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
@@ -231,8 +240,22 @@ def test_cuda_b3a_matches_plain(cuda_device, bh, tq, tk, dh, causal, dtype):
                                               block_k=fa.KERNEL_BLOCK_K)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention_fwd"] == before + 1
-    assert _close(o, o_ref, dtype, 2e-5)
     assert (lse - lse_ref).abs().max().item() <= 2e-5
+    if dtype == torch.bfloat16:
+        assert fa.b3_design(dtype, dh, (q, k, v)) == "wgmma"
+        o1, lse1 = fa.launch_fwd(q, k, v, causal, design="ffma")
+        torch.cuda.synchronize()
+        assert _close(o1, o_ref, dtype, 2e-5)
+        assert (lse1 - lse_ref).abs().max().item() <= 2e-5
+        assert _close(o, o_ref, dtype, fa.fwd_atol(o_ref, "wgmma"))
+        o_f32, _ = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                            causal)
+        rf = o_ref.float()
+        past = (o.float() - rf).abs() - 2.0 ** -7 * rf.abs()
+        past_f32 = (o.float() - o_f32).abs() - 2.0 ** -7 * o_f32.abs()
+        assert past.max().item() < past_f32.max().item()
+    else:
+        assert _close(o, o_ref, dtype, 2e-5)
     o2, none = fa.flash_attention_fwd(q, k, v, causal, with_lse=False)
     assert none is None and torch.equal(o2, o)
 
@@ -803,6 +826,128 @@ def test_cuda_b6q_matches_plain(cuda_device, cdtype, page_len, hkv):
     torch.cuda.synchronize()
     assert ba.LAUNCHES["paged_decode_attention_q"] == before + 1
     assert (out - ref).abs().max().item() <= 2e-5
+
+
+# ------------------------------------- B6 / B6q design 2 ("split")
+B6_CACHES = [torch.float32, torch.int8, torch.float8_e4m3fn]
+
+
+def _pages(g, shape, cdtype, device):
+    """(cache, scale rows or None) of `cdtype` from seeded normals."""
+    if cdtype == torch.float32:
+        return torch.randn(*shape, generator=g).to(device), None
+    return _quantized(g, shape, cdtype, device)
+
+
+def _paged_case(device, cdtype, page_len, hkv, dh, seed, L=1024, S=4, H=8):
+    """q, caches, scale rows, a page table whose slot 1 shares slot 0's
+    first two pages, and positions from 0 (one key: most splits lie past
+    it) to the table's last, the rest of S > 4 slots spread between."""
+    g = torch.Generator().manual_seed(seed)
+    NP = L // page_len
+    P = S * NP
+    q = torch.randn(S, H, dh, generator=g).to(device)
+    ck, sk = _pages(g, (P, page_len, hkv, dh), cdtype, device)
+    cv, sv = _pages(g, (P, page_len, hkv, dh), cdtype, device)
+    pt = torch.randperm(P, generator=g).reshape(S, NP)
+    pt[1, :2] = pt[0, :2]
+    pt = pt.to(device, torch.int32)
+    qpos = torch.tensor([0, 2 * page_len - 1, L // 2 + 3, L - 1]
+                        + torch.linspace(1, L - 2, S).long().tolist()[4:],
+                        dtype=torch.int32, device=device)[:S]
+    return q, ck, cv, sk, sv, pt, qpos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 200], ids=["full", "window"])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("page_len,hkv", [(128, 8), (16, 8), (128, 2),
+                                          (16, 2)])
+@pytest.mark.parametrize("cdtype", B6_CACHES, ids=["f32", "int8", "fp8"])
+def test_cuda_b6_split_matches_plain(cuda_device, cdtype, page_len, hkv, dh,
+                                     window):
+    """Design 2 of B6 (float32 pages) and B6q (int8, e4m3) against the
+    plain version at the B6/B6q tolerance (2e-5): every split a block's
+    pages allow, splits wholly past qpos (slot 0 sees one key), a range
+    ending on a page boundary, shared prefix pages, a window; the launch
+    counted under "split"."""
+    q, ck, cv, sk, sv, pt, qpos = _paged_case(cuda_device, cdtype, page_len,
+                                              hkv, dh, page_len + hkv + dh)
+    name = "paged_decode_attention" + ("" if sk is None else "_q")
+    assert ba.b6_design(q.dtype, ck.dtype, 8, hkv, dh, (ck, cv)) == "split"
+    nsplit = -(-pt.shape[1] // ba.b6_splits(
+        4, hkv, pt.shape[1], page_len, ba._sm_count(q.device)))
+    assert nsplit > 1
+    before = dict(ba.LAUNCHES_BY_DESIGN)
+    out = ba.paged_decode_attention(q, ck, cv, pt, qpos, window=window,
+                                    scale_k=sk, scale_v=sv)
+    ref = ba.paged_decode_attention_plain(q, ck, cv, pt, qpos, window=window,
+                                          scale_k=sk, scale_v=sv)
+    torch.cuda.synchronize()
+    assert ba.LAUNCHES_BY_DESIGN[(name, "split")] == \
+        before[(name, "split")] + 1
+    assert ba.LAUNCHES_BY_DESIGN[(name, "ffma")] == before[(name, "ffma")]
+    assert (out - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype", B6_CACHES, ids=["f32", "int8", "fp8"])
+def test_cuda_b6_split_is_bit_equal_and_design_1_agrees(cuda_device, cdtype):
+    """Two launches of design 2 give the same bits (the last block to
+    arrive merges the splits in split order); design 1 on the same inputs
+    agrees within 2e-5."""
+    q, ck, cv, sk, sv, pt, qpos = _paged_case(cuda_device, cdtype, 128, 8,
+                                              64, 31, L=2048, S=8)
+    a = ba.paged_decode_attention(q, ck, cv, pt, qpos, scale_k=sk,
+                                  scale_v=sv)
+    b = ba.paged_decode_attention(q, ck, cv, pt, qpos, scale_k=sk,
+                                  scale_v=sv)
+    one = ba.paged_decode_attention(q, ck, cv, pt, qpos, scale_k=sk,
+                                    scale_v=sv, design="ffma")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert (a - one).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype", B6_CACHES, ids=["f32", "int8", "fp8"])
+def test_cuda_b6_split_nan_query_and_empty_rows(cuda_device, cdtype):
+    """The paged counterpart of `test_cuda_nan_query_and_empty_rows` on
+    design 2: a NaN query comes out NaN (the merge keeps it), a slot at
+    qpos -1 sees no key and comes out as zeros, as on design 1."""
+    q, ck, cv, sk, sv, pt, _ = _paged_case(cuda_device, cdtype, 16, 2, 64, 9)
+    q[1] = float("nan")
+    qpos = torch.tensor([5, 700, -1, 1023], dtype=torch.int32,
+                        device=cuda_device)
+    outs = {d: ba.paged_decode_attention(q, ck, cv, pt, qpos, scale_k=sk,
+                                         scale_v=sv, design=d)
+            for d in ba.DESIGNS}
+    torch.cuda.synchronize()
+    for out in outs.values():
+        assert torch.isfinite(out[[0, 3]]).all()
+        assert torch.isnan(out[1]).all()
+        assert torch.equal(out[2], torch.zeros_like(out[2]))
+
+
+@pytest.mark.cuda
+def test_cuda_b6_bf16_and_other_head_dims_take_design_1(cuda_device):
+    """bfloat16 pages (C6b: p rounded against the row max) and head dims
+    other than 64 and 128 are counted under design 1; design 2 refuses
+    them when named."""
+    g = torch.Generator().manual_seed(5)
+    for dtype, dh in ((torch.bfloat16, 64), (torch.float32, 80)):
+        q = torch.randn(2, 8, dh, generator=g).to(cuda_device, dtype)
+        ck = torch.randn(4, 16, 2, dh, generator=g).to(cuda_device, dtype)
+        pt = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32,
+                          device=cuda_device)
+        qpos = torch.tensor([3, 30], dtype=torch.int32, device=cuda_device)
+        before = dict(ba.LAUNCHES_BY_DESIGN)
+        ba.paged_decode_attention(q, ck, ck, pt, qpos)
+        torch.cuda.synchronize()
+        key = ("paged_decode_attention", "ffma")
+        assert ba.LAUNCHES_BY_DESIGN[key] == before[key] + 1
+        with pytest.raises(ValueError, match="design"):
+            ba.paged_decode_attention(q, ck, ck, pt, qpos, design="split")
 
 
 @pytest.mark.cuda

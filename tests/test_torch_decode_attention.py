@@ -21,6 +21,7 @@ from deeplearning4j_tpu.ops.banded_attention import (
     decode_reference as jax_decode_reference,
     paged_decode_attention as jax_paged_decode,
 )
+from deeplearning4j_tpu_torch.nn.layers.attention import quantize_kv
 from deeplearning4j_tpu_torch.ops import banded_attention as ba
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -238,3 +239,142 @@ def test_wrapper_rejects_bad_shapes(bad):
         else:
             ba.banded_decode_attention(torch.zeros(2, 4, 4), k, k, pos,
                                        pos, rolling=True)
+
+
+# ------------------------------------- B6/B6q design 2: choice and splits
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("q_dtype,cache_dtype,h,hkv,dh,want", [
+    (torch.float32, torch.float32, 8, 8, 64, "split"),     # Path A's shape
+    (torch.float32, torch.int8, 8, 8, 64, "split"),        # path_q's
+    (torch.float32, torch.float8_e4m3fn, 8, 8, 64, "split"),
+    (torch.float32, torch.float32, 8, 1, 128, "split"),    # G 8, Dh 128
+    (torch.float32, torch.int8, 6, 2, 128, "split"),       # G 3
+    (torch.bfloat16, torch.bfloat16, 8, 8, 64, "ffma"),    # C6b: row max
+    (torch.bfloat16, torch.int8, 8, 8, 64, "ffma"),
+    (torch.float32, torch.float32, 8, 2, 80, "ffma"),      # Dh not 64/128
+    (torch.float32, torch.float32, 8, 2, 32, "ffma"),
+    (torch.float32, torch.float32, 16, 1, 64, "ffma"),     # G past 8
+])
+def test_b6_design_by_dtypes_and_shape(q_dtype, cache_dtype, h, hkv, dh,
+                                       want):
+    assert ba.b6_design(q_dtype, cache_dtype, h, hkv, dh) == want
+
+
+def test_b6_design_wants_16_byte_aligned_pages():
+    buf = torch.zeros(4 + 2 * 16 * 8 * 64)       # 8 bytes in: unaligned
+    assert ba.b6_design(torch.float32, torch.float32, 8, 8, 64,
+                        (buf[2:-2].view(2, 16, 8, 64),)) == "ffma"
+    assert ba.b6_design(torch.float32, torch.float32, 8, 8, 64,
+                        (buf[4:].view(2, 16, 8, 64),)) == "split"
+
+
+@pytest.mark.parametrize("s,hkv,npg,lp", [
+    (8, 8, 16, 128),      # Path A and path_q: L 2048 in pages of 128
+    (8, 8, 128, 16),
+    (8, 2, 18, 128),      # Path B's widths, paged
+    (1, 1, 16, 128),      # one slot: every page its own split
+    (1, 1, 512, 4),       # tiny pages: at least SPLIT_MIN_KEYS keys a split
+    (64, 8, 16, 128),     # enough slots: no split
+    (3, 8, 37, 7),        # ragged: NP prime, odd page length
+    (2, 1, 200000, 1),    # more pages than MAX_SPLITS splits of 64 keys
+])
+def test_b6_splits_cover_every_page_once_and_fill_the_card(s, hkv, npg, lp):
+    c = ba.b6_splits(s, hkv, npg, lp, H100_SMS)
+    nsplit = -(-npg // c)
+    assert 1 <= c <= ba.MAX_SPLIT_PAGES and nsplit <= ba.MAX_SPLITS
+    pages = [p for z in range(nsplit) for p in range(z * c,
+                                                    min(z * c + c, npg))]
+    assert pages == list(range(npg))
+    least = min(npg, -(-ba.SPLIT_MIN_KEYS // lp))
+    if s * hkv * -(-npg // least) >= 2 * H100_SMS:
+        assert s * hkv * nsplit >= 2 * H100_SMS
+    # no more splits than that asks for: C is the largest that fills it
+    if c < min(npg, ba.MAX_SPLIT_PAGES) and c > least:
+        assert s * hkv * -(-npg // (c + 1)) < 2 * H100_SMS or \
+            -(-npg // (c + 1)) == nsplit
+
+
+def test_b6_splits_refuses_tables_past_its_limits():
+    with pytest.raises(ValueError, match="pages a slot"):
+        ba.b6_splits(1, 1, ba.MAX_SPLIT_PAGES * ba.MAX_SPLITS + 1, 16,
+                     H100_SMS)
+
+
+# the plain split-and-merge version (design 2's arithmetic) against JAX's
+# paged kernel: float32 pages and int8 / e4m3 codes with scale rows
+def _pool(rng, shape, kv):
+    x = rng.standard_normal(shape).astype(np.float32)
+    if kv is None:
+        return torch.from_numpy(x), None, jnp.asarray(x), None
+    codes, sc = quantize_kv(torch.from_numpy(x), kv)
+    raw = codes.view(torch.uint8).numpy() if kv == torch.float8_e4m3fn \
+        else codes.numpy()
+    jcodes = jnp.asarray(raw.view(jnp.float8_e4m3fn)
+                         if kv == torch.float8_e4m3fn else raw)
+    return codes, sc, jcodes, jnp.asarray(sc.numpy())
+
+
+@pytest.mark.parametrize("split_pages", [1, 2, 3])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("kv", [None, torch.int8, torch.float8_e4m3fn],
+                         ids=["f32", "int8", "fp8"])
+def test_plain_b6_split_merge_matches_jax_paged_kernel(kv, window,
+                                                       split_pages):
+    """Splits of `split_pages` pages, merged in split order, against JAX's
+    paged kernel in interpret mode, at 1e-5: qpos 0 (one key; every
+    other split lies past it), a range ending on a page boundary (15),
+    slots sharing a prefix chain, unmapped entries holding page 0, a
+    window; and a NaN query comes out NaN on both."""
+    rng = np.random.default_rng([split_pages, 0 if window is None else 1])
+    S, Lp, H, Hkv, Dh, P = 5, 8, 4, 2, 8, 14
+    q = rng.standard_normal((S, H, Dh)).astype(np.float32)
+    q[4] = np.nan
+    ck, sk, jck, jsk = _pool(rng, (P, Lp, Hkv, Dh), kv)
+    cv, sv, jcv, jsv = _pool(rng, (P, Lp, Hkv, Dh), kv)
+    pt = np.array([[3, 7, 1, 0],
+                   [3, 7, 9, 0],          # shares slot 0's first pages
+                   [3, 5, 0, 0],
+                   [11, 2, 6, 4],
+                   [12, 13, 0, 0]], np.int32)
+    qpos = np.array([0, 15, 20, 31, 9], np.int32)
+    want = np.asarray(jax_paged_decode(
+        jnp.asarray(q), jck, jcv, jnp.asarray(pt), jnp.asarray(qpos),
+        window=window, interpret=True, scale_k=jsk, scale_v=jsv))
+    got = ba.paged_decode_attention_plain(
+        torch.from_numpy(q), ck, cv, torch.from_numpy(pt),
+        torch.from_numpy(qpos), window=window, scale_k=sk, scale_v=sv,
+        split_pages=split_pages).numpy()
+    assert np.isnan(want[4]).all() and np.isnan(got[4]).all()
+    np.testing.assert_allclose(got[:4], want[:4], **TOL)
+
+
+def test_plain_b6_split_merge_gives_zeros_for_a_row_with_no_key():
+    """Design 2 writes zeros where no key is visible (qpos -1), as
+    design 1 does; the unsplit plain version leaves such rows as garbage
+    by contract."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(rng, 2, 16, 4, 2, 8))
+    pt = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    pages = k.reshape(4, 8, 2, 8)
+    qpos = torch.tensor([-1, 12], dtype=torch.int32)
+    got = ba.paged_decode_attention_plain(q, pages, pages, pt, qpos,
+                                          split_pages=1)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = ba.paged_decode_attention_plain(q, pages, pages, pt, qpos)
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), **TOL)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ba.paged_decode_attention_plain(q.bfloat16(), pages.bfloat16(),
+                                        pages.bfloat16(), pt, qpos,
+                                        split_pages=1)
+
+
+def test_b6_launch_counts_by_design_reset():
+    ba.LAUNCHES_BY_DESIGN[("paged_decode_attention", "split")] = 3
+    ba.LAUNCHES_BY_DESIGN[("paged_decode_attention_q", "ffma")] = 1
+    ba.reset_counts()
+    assert set(ba.LAUNCHES_BY_DESIGN.values()) == {0}
+    assert set(ba.LAUNCHES_BY_DESIGN) == {
+        (k, d) for k in ("paged_decode_attention", "paged_decode_attention_q")
+        for d in ("ffma", "split")}

@@ -248,3 +248,65 @@ def test_launch_counts_reset_by_design():
         (k, d) for k in ("flash_attention_fwd", "flash_attention_bwd_dkdv",
                          "flash_attention_bwd_dq")
         for d in ("ffma", "wgmma")}
+
+
+# --------------------- C7: the contract of a tensor-core forward (bf16)
+def _scores_in_float64(q, k, causal, scale, acc):
+    """The same exact products (bf16 x bf16 fits float32), summed in
+    float64 and rounded once."""
+    return _PLAIN_SCORES(q.double(), k.double(), causal, scale,
+                         torch.float64).to(acc)
+
+
+def _scores_dh_reversed(q, k, causal, scale, acc):
+    """The same products, summed over Dh in reversed order."""
+    return _PLAIN_SCORES(q.flip(-1), k.flip(-1), causal, scale, acc)
+
+
+_PLAIN_SCORES = fa._scores
+
+
+def test_plain_b3a_bf16_misses_a_step_against_itself_in_another_sum_order(
+        monkeypatch):
+    """Why B3a design 2 is held to `fwd_atol(o_ref, "wgmma")` and not to
+    2e-5 plus one bf16 step (C7). The plain version, rounding p against
+    64-key blocks as the kernels do, is run against itself with only the
+    order of the score sums changed (float64 sums rounded once; Dh
+    reversed), at the card test's bf16 shape and inputs (BH 2, T 300, Dh
+    64, seeded as `test_cuda_b3a_matches_plain` seeds them) and two
+    larger ones: p near a bf16 rounding boundary lands on the other
+    neighbour where it meets V (C6), so some outputs lie past 2e-5 plus a
+    step of the unchanged version (on a CPU: 61 of 1.6 M outputs over
+    both orders, 3, 53 and 5 a shape). All of them stay within design 2's `fwd_atol`, every row that
+    C6's rounding moves lies nearer the rounded version than the one
+    that leaves p unrounded (both with o in bf16), and the lse (never
+    rounded) within 2e-5. A step-tight limit tests the summation order,
+    not the kernel."""
+    past = 0
+    for bh, t, dh in ((2, 300, 64), (8, 1000, 64), (4, 512, 128)):
+        g = torch.Generator().manual_seed(t + dh)
+        q, k, v = (torch.randn(bh, t, dh, generator=g).to(torch.bfloat16)
+                   for _ in range(3))
+        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, True,
+                                                  block_k=fa.KERNEL_BLOCK_K)
+        rf = o_ref.float()
+        unrounded = fa.flash_attention_plain(
+            q.float(), k.float(), v.float(), True)[0].to(
+                torch.bfloat16).float()
+        moved = (rf != unrounded).any(dim=-1)
+        assert moved.any()
+        for scores in (_scores_in_float64, _scores_dh_reversed):
+            with monkeypatch.context() as m:
+                m.setattr(fa, "_scores", scores)
+                o, lse = fa.flash_attention_plain(q, k, v, True,
+                                                  block_k=fa.KERNEL_BLOCK_K)
+            of = o.float()
+            err = (of - rf).abs()
+            past += int((err > 2e-5 + 2.0 ** -7 * rf.abs()).sum())
+            assert bool((err <= fa.fwd_atol(o_ref, "wgmma")
+                         + 2.0 ** -7 * rf.abs()).all())
+            near = err.sum(dim=-1)
+            far = (of - unrounded).abs().sum(dim=-1)
+            assert bool((near < far)[moved].all())
+            assert (lse - lse_ref).abs().max().item() <= 2e-5
+    assert past > 0

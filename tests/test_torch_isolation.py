@@ -18,7 +18,8 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "torch_train_profile.py",
     ROOT / "tools" / "torch_parity_faults.py",
     ROOT / "tools" / "torch_b3a_exp_forms.py",
-    ROOT / "tools" / "torch_path_l_steps.py"]
+    ROOT / "tools" / "torch_path_l_steps.py",
+    ROOT / "tools" / "torch_b6_splits.py"]
 
 
 def _imported_modules(path):

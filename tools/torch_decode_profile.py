@@ -2,6 +2,7 @@
 """Where the time of the PyTorch port's decode serving goes, on one card.
 
     python3 tools/torch_decode_profile.py [--kv-dtype native|int8|fp8]
+                                          [--b6-design auto|ffma|both]
 
 Builds the two serving paths of `chip_smoke.py` (Path A: the 6-block
 GPT-style transformer at d_model 512 on the paged pool and kernel B6;
@@ -12,14 +13,18 @@ each path it prints one JSON line: the wave's wall time, the time the
 card was busy (the union of kernel intervals), the idle share, kernel
 launches per generated token, and device time by kernel class
 (the decode-attention kernels, their quantized variants B5q/B6q,
-matrix products, everything else) and for the ten costliest kernels.
+each with `_split` where design 2 of B6/B6q ran, matrix products,
+everything else) and for the ten costliest kernels.
 `--kv-dtype int8` or `fp8` serves both paths from a quantized pool (int8
 or e4m3 codes with float32 scale rows), so B5q and B6q carry the decode
-steps. Needs a CUDA card.
+steps. `--b6-design ffma` keeps B6/B6q on design 1 where `b6_design`
+would pick design 2; `both` profiles Path A on design 2 and then on
+design 1 in the same run (Path B has no B6). Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -59,9 +64,11 @@ def busy_us(kernels):
 
 def kernel_class(name):
     if "decode_attention" in name:
-        # the cache type is the second template argument
+        # the cache type is a template argument; design 2 of B6/B6q is
+        # `split::paged_decode_attention_split_kernel`
         quant = "signed char" in name or "fp8" in name
-        return "decode_attention_q" if quant else "decode_attention"
+        return "decode_attention" + ("_q" if quant else "") \
+            + ("_split" if "split" in name else "")
     low = name.lower()
     if any(t in low for t in ("gemm", "gemv", "cutlass", "sm90_xmma",
                               "ampere_sgemm", "cublas")):
@@ -69,7 +76,8 @@ def kernel_class(name):
     return "other"
 
 
-def profile_path(name, net, prompts, greedy, max_tokens, kv_dtype=None):
+def profile_path(name, net, prompts, greedy, max_tokens, kv_dtype=None,
+                 b6_design="auto"):
     from torch.profiler import ProfilerActivity, profile
 
     registry, sched, mgr = cs.control_plane(net, slots=8, chunk=128, k=8,
@@ -112,9 +120,25 @@ def profile_path(name, net, prompts, greedy, max_tokens, kv_dtype=None):
         "top_kernels": [{"name": n[:120], "count": c, "ms": t / 1e3}
                         for n, (c, t) in top],
         "tokens_per_s_traced": wave["tokens_per_s"],
+        "b6_design": b6_design,
     }
     cs.emit(row)
     return row
+
+
+@contextlib.contextmanager
+def b6_forced(design):
+    """`b6_design` answering "ffma" for every call (design 1), or left as
+    it is ("auto")."""
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+
+    saved = ba.b6_design
+    if design == "ffma":
+        ba.b6_design = lambda *a, **k: "ffma"
+    try:
+        yield
+    finally:
+        ba.b6_design = saved
 
 
 def main() -> int:
@@ -123,7 +147,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kv-dtype", choices=("native", "int8", "fp8"),
                     default="native")
-    kv = ap.parse_args().kv_dtype
+    ap.add_argument("--b6-design", choices=("auto", "ffma", "both"),
+                    default="auto")
+    args = ap.parse_args()
+    kv = args.kv_dtype
     if not torch.cuda.is_available():
         print("torch_decode_profile: needs a CUDA card", file=sys.stderr)
         return 2
@@ -135,7 +162,11 @@ def main() -> int:
     stem = rng.integers(0, 256, 1024)
     warm = [np.concatenate([stem, rng.integers(0, 256, 8)])
             for _ in range(8)]
-    profile_path("path_a", net_a, warm, greedy, 32, kv)
+    designs = {"auto": ["auto"], "ffma": ["ffma"],
+               "both": ["auto", "ffma"]}[args.b6_design]
+    for design in designs:
+        with b6_forced(design):
+            profile_path("path_a", net_a, warm, greedy, 32, kv, design)
     del net_a
     net_b = cs.build_path_b_net("cuda")
     long = [rng.integers(0, 256, 2240) for _ in range(8)]
