@@ -45,7 +45,11 @@ exits non-zero with no result line:
      and, for the weight gradients, one `torch.matmul`; each forward row
      names the design `b2_design` picked (the persistent grid, design 2,
      from T 8, else the cluster design 1) and holds and times the other
-     one on the same inputs; design 2 twice, bit-equal;
+     one on the same inputs; design 2 twice, bit-equal; B2c's rows the
+     same with its two designs a launch (the recurrence by
+     `b2c_design`: "persistent" from T 8, else "cluster"; the weight
+     product "pipelined", design 1 "tiled"), both designs of both
+     launches held to the plain backward at every shape with T > 1;
    - the fused Nesterovs B1b over the LSTM training path's leaves and
      odd sizes, float32 and bfloat16, against `torch.optim.SGD(momentum,
      nesterov=True, fused=True)` (PyTorch's form of Nesterov momentum,
@@ -88,13 +92,14 @@ exits non-zero with no result line:
    (GravesLSTM(512) x 2 + RnnOutputLayer(64), input width 128, T 128,
    batch 64, float32, Nesterovs(0.01, 0.9)) through `net.fit`: 4 fixed
    batches, two of them with ragged feature masks, 3 epochs, 12 steps;
-   B2a (all on design 2) and B2c run twice a step and B1b once; steps
+   B2a and B2c (all on design 2, both launches) run twice a step and
+   B1b once; steps
    2-12 run under
    `torch.cuda.set_sync_debug_mode("error")`;
 9. path_g: the zoo's `TextGenerationLSTM` (LSTM(256) x 2, 77 characters,
    Adam(1e-3), tBPTT 50) at its own width: one epoch of `fit` on 2
    batches of 32 one-hot sequences of T 200 (four chunks of 50 with the
-   carries handed on: B2a on design 2, B2c, B1a), `output()` on one
+   carries handed on: B2a and B2c on design 2, B1a), `output()` on one
    batch (B2b at T 200, design 2), then a greedy loop of 200
    `rnn_time_step` calls for 32 streams (B2b at T 1, design 1, twice a
    call);
@@ -1044,7 +1049,7 @@ def lstm_bounds(T, B, H):
         # xw, rw, p, h0, c0, mask in; hs, hT, cT (+ cs, gates) out
         "lstm_fwd_inference": 4 * seq + small + T * B + seq + 2 * B * H,
         "lstm_fwd": 4 * seq + small + T * B + 6 * seq + 2 * B * H,
-        # dhs, gates, cs, rwT, p, mask, dhT, dcT, c0 in; dxw, dh0, dc0 out
+        # dhs, gates, cs, rw, p, mask, dhT, dcT, c0 in; dxw, dh0, dc0 out
         "lstm_bwd": 6 * seq + small + B * H + T * B + 4 * seq + 2 * B * H,
         # hs, h0, dxw in; drw, dp out
         "lstm_bwd_weights": 5 * seq + B * H + H * 4 * H + 3 * H}
@@ -1081,7 +1086,12 @@ def run_lstm_case(c, flush, gen):
     The forwards run in the design `b2_design` picks (one rule for B2a
     and B2b, so their common outputs are bit-equal); the other design is
     also held to the plain version and timed on the same inputs, and
-    where design 2 runs it is launched twice for bit-equal outputs."""
+    where design 2 runs it is launched twice for bit-equal outputs. The
+    backward (T > 1) runs through `lstm_bwd`, its recurrence in the
+    design `b2c_design` picks and its weight product "pipelined"; the
+    other recurrence design and the "tiled" weight product are held to
+    the same limits and timed on the same inputs, and design 2 of both
+    launches runs twice for bit-equal outputs."""
     from deeplearning4j_tpu_torch.ops import lstm as lk
 
     dev = flush.device
@@ -1089,6 +1099,11 @@ def run_lstm_case(c, flush, gen):
     with_bwd = T > 1
     design = lk.b2_design(T, B, H, *lk.card_limits(dev))
     other = next(d for d in lk.DESIGNS if d != design)
+    # B2c: the design each launch takes, and the other one
+    bwd_design = {"lstm_bwd": lk.b2c_design(T, B, H, *lk.card_limits(dev)),
+                  "lstm_bwd_weights": "pipelined"}
+    bwd_other = {k: next(d for d in lk.B2C_DESIGNS[k] if d != v)
+                 for k, v in bwd_design.items()}
 
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=gen)).to(dev)
@@ -1138,18 +1153,41 @@ def run_lstm_case(c, flush, gen):
                 hs, cs, gates = ref[0], ref[1], ref[2]
                 dhs, dhT, dcT = rnd(T, B, H), rnd(B, H), rnd(B, H)
                 bw = (rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT)
+                before = dict(lk.LAUNCHES_BY_DESIGN)
                 gk = lk.lstm_bwd(*bw)
+                check(all(lk.LAUNCHES_BY_DESIGN[(k, d)] == before[(k, d)] + 1
+                          for k, d in bwd_design.items()),
+                      f"lstm_bwd {tag}: not on {bwd_design}")
                 gr = lk.lstm_bwd_plain(*bw)
+                # the other design of each launch, by hand
+                rec = lk.launch_bwd_recurrence(
+                    rw, p, mask, cs, gates, c0, dhs, dhT, dcT,
+                    bwd_other["lstm_bwd"])
+                go = rec[:3] + lk.launch_bwd_weights(
+                    hs, h0, rec[0], rec[3], bwd_other["lstm_bwd_weights"])
                 torch.cuda.synchronize()
-                for name, a, b in zip(("dxw", "dh0", "dc0", "drw", "dp"),
-                                      gk, gr):
-                    tol = 1e-4 * b.abs().max().item()
-                    d = (a - b).abs().max().item()
-                    check(d <= tol, f"lstm_bwd {tag}: {name} err {d} past "
-                          f"{tol} (1e-4 of the largest |ref|)")
-                    k = "lstm_bwd_weights" if name in ("drw", "dp") \
-                        else "lstm_bwd"
-                    errs[k] = max(errs[k], d)
+                for got, suffix in ((gk, ""), (go, "other")):
+                    for name, a, b in zip(("dxw", "dh0", "dc0", "drw", "dp"),
+                                          got, gr):
+                        k = "lstm_bwd_weights" if name in ("drw", "dp") \
+                            else "lstm_bwd"
+                        d_name = (bwd_design if not suffix else bwd_other)[k]
+                        tol = 1e-4 * b.abs().max().item()
+                        d = (a - b).abs().max().item()
+                        check(d <= tol, f"lstm_bwd {tag}: {name} ({d_name}) "
+                              f"err {d} past {tol} (1e-4 of the largest "
+                              f"|ref|)")
+                        key = k if not suffix else f"{k}/{d_name}"
+                        errs[key] = max(errs.get(key, 0.0), d)
+                # design 2 of both launches twice: bit-equal
+                rec2 = [lk.launch_bwd_recurrence(
+                    rw, p, mask, cs, gates, c0, dhs, dhT, dcT, "persistent")
+                    for _ in range(2)]
+                wts2 = [lk.launch_bwd_weights(hs, h0, r[0], r[3],
+                                              "pipelined") for r in rec2]
+                check(all(torch.equal(a, b) for a, b in
+                          zip(rec2[0] + wts2[0], rec2[1] + wts2[1])),
+                      f"lstm_bwd {tag}: two design-2 launches differ")
             if peep and masked:
                 timed = (ins, bw)
     ins, bw = timed
@@ -1172,15 +1210,24 @@ def run_lstm_case(c, flush, gen):
 
     lib = {"lstm_fwd": lambda: cudnn(x, state),
            "lstm_fwd_inference": lib_inference}
+    others = {}
     if with_bwd:
-        rwT = rw.t().contiguous()
         _, _, _, hs, cs, gates, _, _, dhs, dhT, dcT = bw
-        dxw = lk.launch_bwd_recurrence(rwT, p, mask, cs, gates, c0, dhs,
-                                       dhT, dcT)
-        runs["lstm_bwd"] = lambda: lk.launch_bwd_recurrence(
-            rwT, p, mask, cs, gates, c0, dhs, dhT, dcT)
-        runs["lstm_bwd_weights"] = lambda: lk.launch_bwd_weights(
-            hs, h0, dxw[0], dxw[3])
+        rec = {d: lk.launch_bwd_recurrence(rw, p, mask, cs, gates, c0, dhs,
+                                           dhT, dcT, d)
+               for d in lk.B2C_DESIGNS["lstm_bwd"]}
+
+        def bwd_run(name, d):
+            if name == "lstm_bwd":
+                return lambda: lk.launch_bwd_recurrence(
+                    rw, p, mask, cs, gates, c0, dhs, dhT, dcT, d)
+            r = rec[bwd_design["lstm_bwd"]]
+            return lambda: lk.launch_bwd_weights(hs, h0, r[0], r[3], d)
+
+        for name in bwd_design:
+            runs[name] = bwd_run(name, bwd_design[name])
+            others[name] = bwd_run(name, bwd_other[name])
+        dxw = rec[bwd_design["lstm_bwd"]]
         plain["lstm_bwd"] = plain["lstm_bwd_weights"] = \
             lambda: lk.lstm_bwd_plain(*bw)
         y, _ = cudnn(x.requires_grad_(), state)
@@ -1211,6 +1258,13 @@ def run_lstm_case(c, flush, gen):
                         f"{other}_ms": other_ms,
                         f"speedup_over_{other}": other_ms / ms,
                         f"{other}_max_abs_err": errs[f"lstm_fwd/{other}"]})
+        else:
+            d, o = bwd_design[name], bwd_other[name]
+            other_ms = time_ms(others[name], flush)
+            row.update({"design": d, "bound_share": bounds[name][0] / ms,
+                        f"{o}_ms": other_ms,
+                        f"speedup_over_{o}": other_ms / ms,
+                        f"{o}_max_abs_err": errs[f"{name}/{o}"]})
         emit(row)
         rows.append(row)
     return rows
@@ -2140,12 +2194,25 @@ def path_l(rng, epochs=3):
     check(by_design["lstm_fwd/persistent"] == 2 * steps
           and by_design["lstm_fwd/cluster"] == 0,
           f"path_l: lstm_fwd not all on design 2: {by_design}")
+    check_b2c_design_2("path_l", by_design, 2 * steps)
     row = {"phase": "path_l", "model": "GravesLSTM x 2 + RnnOutputLayer",
            "hidden": 512, "n_in": 128, "classes": 64, "T": T, "batch": B,
            "dtype": "float32", "updater": str(net.conf.updater),
            "masked_batches": 2, **fit, "launches_by_design": by_design}
     emit(row)
     return row
+
+
+def check_b2c_design_2(name, by_design, launches):
+    """Every launch of both B2c kernels ran on design 2: the recurrence
+    on "persistent", the weight product on "pipelined"."""
+    from deeplearning4j_tpu_torch.ops import lstm as lk
+
+    for kernel, (d1, d2) in lk.B2C_DESIGNS.items():
+        check(by_design[f"{kernel}/{d2}"] == launches
+              and by_design[f"{kernel}/{d1}"] == 0,
+              f"{name}: {kernel} not all {launches} launches on design 2 "
+              f"({d2}): {by_design}")
 
 
 def path_g(rng, calls=200):
@@ -2176,6 +2243,7 @@ def path_g(rng, calls=200):
     check(fit_by_design["lstm_fwd/persistent"] == 2 * chunks,
           f"path_g: the tBPTT fit's B2a not all on design 2: "
           f"{fit_by_design}")
+    check_b2c_design_2("path_g's fit", fit_by_design, 2 * chunks)
     for name in ("lstm_fwd", "lstm_bwd", "lstm_bwd_weights"):
         check(fit_launches[name] == 2 * chunks,
               f"path_g: {name} launched {fit_launches[name]} times in the "
@@ -2486,6 +2554,7 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0, "built": built})
 
+    from deeplearning4j_tpu_torch.ops import lstm as lk
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     rows = [run_kernel_case(c, flush, gen) for c in kernel_cases()]
@@ -2574,15 +2643,16 @@ def main() -> int:
                          "plain_ms": f32["plain_ms"],
                          "library_ms": f32["library_ms"],
                          "launches_path_t": t32["launches"][name]})
-        if name in ("lstm_fwd", "lstm_fwd_inference"):
-            by = (lp["launches_by_design"] if name == "lstm_fwd"
-                  else g["launches_by_design"])
+        if name in lk.LAUNCHES:
+            by = (g["launches_by_design"] if name == "lstm_fwd_inference"
+                  else lp["launches_by_design"])
+            designs = lk.B2C_DESIGNS.get(name, lk.DESIGNS)
             summary[-1].update(
                 {k: main_row[k] for k in main_row
-                 if k in ("design", "bound_share", "cluster_ms",
-                          "speedup_over_cluster", "persistent_ms")},
-                launches_by_design={d: by[f"{name}/{d}"]
-                                    for d in ("cluster", "persistent")})
+                 if k in ("design", "bound_share")
+                 or any(k == f"{d}_ms" or k == f"speedup_over_{d}"
+                        for d in designs)},
+                launches_by_design={d: by[f"{name}/{d}"] for d in designs})
         if name in ("paged_decode_attention", "paged_decode_attention_q"):
             by = (a if name == "paged_decode_attention"
                   else qa)["launches_by_design"]
@@ -2600,8 +2670,9 @@ def main() -> int:
                     "library_ms", "bound_ms", "bound_share")}
         if name == "lstm_fwd_inference":
             # most of its launches on path_g are the stepping loop's, at T 1
-            summary[-1]["ms_at_T1"] = next(r["ms"] for r in mine
-                                           if r["T"] == 1)
+            t1 = next(r for r in mine if r["T"] == 1)
+            summary[-1].update({f"{k}_at_T1": t1[k] for k in (
+                "ms", "design", "bound_ms", "bound_by", "library_ms")})
     for name in B7_KERNELS:
         # many shapes a step: the times are a path_r step's, summed
         summary.append({"name": name, "route": "cuda",

@@ -10,6 +10,9 @@
 //     (RESID) and B2b, below.
 //   lstm_bwd_kernel + lstm_drw_kernel + lstm_dp_reduce_kernel — replace
 //     B2c, `_bwd_kernel`: reverse time, dxw, dh0, dc0, then dRW and dP.
+//   persist::lstm_bwd_persistent_kernel<BR> and
+//     pipe::lstm_drw_pipelined_kernel — design 2 of B2c's two launches
+//     (ops/lstm.py `b2c_design`), below the forward's design 2.
 //
 // One step (gate order i, f, g, o; sigmoid gates, tanh cell; peepholes p,
 // zeros disable them):
@@ -888,7 +891,489 @@ cudaError_t launch(Args a, cudaStream_t st) {
                                      dim3(kThreads), args, smem, st);
 }
 
+// ----------------------------------------------------- backward, design 2
+// The same grid as the forward's: block (s, r) owns HC = 256 / BR hidden
+// columns and BR batch rows, a thread the cell of one (row, column), and
+// the block's strip of RW (the four gate columns of its HC columns) stays
+// in shared memory for all T steps, transposed: wsT[g HC + jc][k] =
+// RW[k][g H + j0 + jc]. A step, in reverse time:
+//   1. the cell: the thread forms the four gate gradients of its (row,
+//      column) from dh and dc (registers) and the residuals, writes dxw[t]
+//      and puts them in dgT[c][row] (c = g HC + jc);
+//   2. the product: the block's partial dh_prev[b, k] = sum over its NC =
+//      4 HC gate columns c of dgT[c][b] wsT[c][k], for its BR rows and all
+//      H values of k (a thread 8 rows x 4 k: 32 FFMA from three 16-byte
+//      shared loads a c), into a global buffer double-buffered by t & 1;
+//      where the block's BR / 8 x H / 4 thread tiles are fewer than its
+//      threads, Q thread groups take Q slices of c and their sums are added
+//      in group order through shared memory;
+//   3. the exchange: after one tile barrier the thread loads the H / HC
+//      blocks' partials of its (row, column) through L2 only, up to 32 in
+//      flight at once, and sums them in block order, then adds the mask's
+//      pass-through (1 - m) dh_in.
+// A step moves BR x H floats each way a block, as the forward's h tile,
+// and needs no transposed copy of RW. dP: each thread sums its three
+// peephole terms over T in registers, the block adds its rows in order
+// into dp_part [batch tile][3][H], and lstm_dp_reduce_kernel adds the
+// tiles in order. No atomics on data: two launches are bit-equal.
+
+// the product's thread tiles (8 rows x 4 k each) of a block
+template <int BR>
+__host__ __device__ constexpr int bwd_tiles(int H) {
+  return BR / 8 * ((H + 3) / 4);
+}
+
+// Q: the thread groups that split the product's gate columns, so that
+// the tiles keep all threads busy (at most one group a warp)
+__host__ __device__ inline int bwd_ksplit(int tiles) {
+  int q = 1;
+  while (q < kWarps && 2 * q * tiles <= kThreads) q *= 2;
+  return q;
+}
+
+// floats of shared memory: the strip [NC][Hp + 4] (Hp = H rounded up to 4;
+// the pad spreads the staging writes over the banks), dgT [NC][BR] and,
+// where Q > 1, the groups' sums [Q][BR][Hp]
+template <int BR>
+__host__ __device__ size_t bwd_smem_floats(int H) {
+  constexpr int NC = 1024 / BR;
+  const int Hp = (H + 3) / 4 * 4;
+  const int Q = bwd_ksplit(bwd_tiles<BR>(H));
+  return (size_t)NC * (Hp + 4) + NC * BR + (Q > 1 ? (size_t)Q * BR * Hp : 0);
+}
+
+// The arguments of `dl4j_lstm_bwd_persistent`: part [2][S][Bp][Hp] (S =
+// gridDim.x, Bp = gridDim.y BR) carries the partial dh_prev of each block
+// between the product and the exchange; counters [gridDim.y] start at 0.
+struct BwdArgs {
+  const float *dhs, *gates, *cs, *rw, *p, *mask, *dhT, *dcT, *c0;
+  float *dxw, *dh0, *dc0, *dp_part, *part;
+  unsigned* counters;
+  int T, B, H;
+};
+
+// what the cell of (b, j) reads at step t: the gates, c_t, c_{t-1} (c0 at
+// t = 0), the output's cotangent and the mask; zeros outside the shape
+struct Resid {
+  float i, f, g, o, c, cp, dho, m;
+};
+
+__device__ __forceinline__ Resid load_resid(const BwdArgs& a, int t, int b,
+                                            int j, bool ok) {
+  Resid r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (ok) {
+    const int B = a.B, H = a.H;
+    const size_t at = ((size_t)t * B + b) * H + j;
+    const float* gt = a.gates + ((size_t)t * B + b) * 4 * H + j;
+    r.i = __ldg(gt);
+    r.f = __ldg(gt + H);
+    r.g = __ldg(gt + 2 * H);
+    r.o = __ldg(gt + 3 * H);
+    r.c = __ldg(a.cs + at);
+    r.cp = t == 0 ? __ldg(a.c0 + (size_t)b * H + j)
+                  : __ldg(a.cs + at - (size_t)B * H);
+    r.dho = __ldg(a.dhs + at);
+    r.m = __ldg(a.mask + (size_t)t * B + b);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void add4(float4& s, const float4 v) {
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+
+// Block (s, r): hidden columns j0 = s HC .., batch rows b0 = r BR ..
+template <int BR>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_persistent_kernel(const BwdArgs a) {
+  constexpr int NC = 1024 / BR, HC = 256 / BR;
+  const int T = a.T, B = a.B, H = a.H, H4 = 4 * H;
+  const int Hp = (H + 3) / 4 * 4, HS = Hp + 4, KQ = Hp / 4;
+  const int tiles = bwd_tiles<BR>(H), Q = bwd_ksplit(tiles);
+  extern __shared__ float4 smem4[];
+  float* wsT = reinterpret_cast<float*>(smem4);   // [NC][HS]
+  float* dgT = wsT + (size_t)NC * HS;             // [NC][BR]
+  float* red = dgT + NC * BR;                     // [Q][BR][Hp]
+  const int S = gridDim.x, Bp = gridDim.y * BR;
+  const int j0 = blockIdx.x * HC, b0 = blockIdx.y * BR;
+  unsigned* counter = a.counters + blockIdx.y;
+  // the cell: thread (row, jj) owns batch row b and hidden column j
+  const int row = threadIdx.x / HC, jj = threadIdx.x % HC;
+  const int b = b0 + row, j = j0 + jj;
+  const bool col_ok = j < H, ok = col_ok && b < B;
+  // the product: group q sums gate columns [c_lo, c_hi) for tiles u,
+  // u + per, ..; tile i holds rows 8 (i / KQ) .. + 7, k 4 (i % KQ) .. + 3
+  const int per = kThreads / Q;
+  const int q = threadIdx.x / per, u = threadIdx.x % per;
+  const int c_lo = q * (NC / Q), c_hi = c_lo + NC / Q;
+
+  // the strip, resident for the whole sequence; zeros past H
+  for (int idx = threadIdx.x; idx < NC * Hp; idx += kThreads) {
+    const int c = idx % NC, k = idx / NC;
+    const int cj = j0 + c % HC;
+    wsT[(size_t)c * HS + k] =
+        (cj < H && k < H) ? a.rw[(size_t)k * H4 + (c / HC) * H + cj] : 0.f;
+  }
+  float p0 = 0.f, p1 = 0.f, p2 = 0.f, dh = 0.f, dc = 0.f;
+  if (col_ok) {
+    p0 = a.p[j];
+    p1 = a.p[H + j];
+    p2 = a.p[2 * H + j];
+  }
+  if (ok) {
+    dh = a.dhT[(size_t)b * H + j];
+    dc = a.dcT[(size_t)b * H + j];
+  }
+  float dpa[3] = {0.f, 0.f, 0.f};
+  Resid cur = load_resid(a, T - 1, b, j, ok);
+  unsigned target = 0;
+
+  for (int t = T - 1; t >= 0; --t) {
+    // 1. the cell
+    const float dh_in = cur.dho + dh;
+    const float dh_t = cur.m * dh_in;
+    const float pass_h = (1.0f - cur.m) * dh_in;
+    const float tanh_c = tanhf(cur.c);
+    const float do_pre = dh_t * tanh_c * cur.o * (1.0f - cur.o);
+    const float dc_new = cur.m * dc
+        + dh_t * cur.o * (1.0f - tanh_c * tanh_c) + do_pre * p2;
+    const float di_pre = dc_new * cur.g * cur.i * (1.0f - cur.i);
+    const float df_pre = dc_new * cur.cp * cur.f * (1.0f - cur.f);
+    const float dg_pre = dc_new * cur.i * (1.0f - cur.g * cur.g);
+    dc = dc_new * cur.f + (1.0f - cur.m) * dc + di_pre * p0 + df_pre * p1;
+    dpa[0] += di_pre * cur.cp;
+    dpa[1] += df_pre * cur.cp;
+    dpa[2] += do_pre * cur.c;
+    if (ok) {
+      float* dx = a.dxw + ((size_t)t * B + b) * H4 + j;
+      dx[0] = di_pre;
+      dx[H] = df_pre;
+      dx[2 * H] = dg_pre;
+      dx[3 * H] = do_pre;
+    }
+    dgT[(0 * HC + jj) * BR + row] = di_pre;
+    dgT[(1 * HC + jj) * BR + row] = df_pre;
+    dgT[(2 * HC + jj) * BR + row] = dg_pre;
+    dgT[(3 * HC + jj) * BR + row] = do_pre;
+    // the next step's residuals, in flight during the product and the wait
+    if (t > 0) cur = load_resid(a, t - 1, b, j, ok);
+    __syncthreads();     // dgT is complete (and at t = T - 1, the strip)
+
+    // 2. the product
+    float* out = a.part + ((size_t)((t & 1) * S + blockIdx.x) * Bp + b0) * Hp;
+    for (int i = u; i < tiles; i += per) {
+      const int kq = i % KQ, rg = i / KQ;
+      float acc[8][4];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc[r][kk] = 0.f;
+#pragma unroll 16
+      for (int c = c_lo; c < c_hi; ++c) {
+        const float4 w4 =
+            *reinterpret_cast<const float4*>(wsT + (size_t)c * HS + 4 * kq);
+        const float4 da =
+            *reinterpret_cast<const float4*>(dgT + c * BR + 8 * rg);
+        const float4 db =
+            *reinterpret_cast<const float4*>(dgT + c * BR + 8 * rg + 4);
+        const float dv[8] = {da.x, da.y, da.z, da.w, db.x, db.y, db.z, db.w};
+        const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            acc[r][kk] = fmaf(dv[r], wv[kk], acc[r][kk]);
+      }
+      float* dst = Q == 1 ? out : red + (size_t)q * BR * Hp;
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        *reinterpret_cast<float4*>(dst + (size_t)(8 * rg + r) * Hp + 4 * kq) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+    if (Q > 1) {        // the groups' sums, added in group order
+      __syncthreads();
+      for (int o = threadIdx.x; o < BR * KQ; o += kThreads) {
+        const size_t at = (size_t)(o / KQ) * Hp + 4 * (o % KQ);
+        float4 s = *reinterpret_cast<const float4*>(red + at);
+        for (int qq = 1; qq < Q; ++qq)
+          add4(s, *reinterpret_cast<const float4*>(
+                      red + (size_t)qq * BR * Hp + at));
+        *reinterpret_cast<float4*>(out + at) = s;
+      }
+    }
+    tile_barrier(counter, target);   // every block's partial is written
+
+    // 3. the exchange: the blocks' partials in block order, through L2
+    if (col_ok) {
+      const float* in = a.part + ((size_t)(t & 1) * S * Bp + b) * Hp + j;
+      const size_t step = (size_t)Bp * Hp;
+      float v[32];       // up to 32 blocks' partials in flight at once
+#pragma unroll
+      for (int sb = 0; sb < 32; ++sb)
+        v[sb] = sb < S ? __ldcg(in + sb * step) : 0.f;
+      float s = 0.f;
+#pragma unroll
+      for (int sb = 0; sb < 32; ++sb)
+        if (sb < S) s += v[sb];
+      for (int sb = 32; sb < S; ++sb) s += __ldcg(in + sb * step);
+      dh = s + pass_h;
+    }
+  }
+
+  if (ok) {
+    a.dh0[(size_t)b * H + j] = dh;
+    a.dc0[(size_t)b * H + j] = dc;
+  }
+  // dP: the block's rows added in row order (dgT is free after the last
+  // barrier)
+  float* sdp = dgT;                       // [3][BR][HC]
+#pragma unroll
+  for (int qq = 0; qq < 3; ++qq) sdp[(qq * BR + row) * HC + jj] = dpa[qq];
+  __syncthreads();
+  if (threadIdx.x < 3 * HC) {
+    const int qq = threadIdx.x / HC, jc = threadIdx.x % HC;
+    if (j0 + jc < H) {
+      float s = 0.f;
+      for (int r = 0; r < BR; ++r) s += sdp[(qq * BR + r) * HC + jc];
+      a.dp_part[((size_t)blockIdx.y * 3 + qq) * H + j0 + jc] = s;
+    }
+  }
+}
+
+template <int BR>
+cudaError_t launch_bwd(BwdArgs a, cudaStream_t st) {
+  constexpr int HC = 256 / BR;
+  auto kernel = lstm_bwd_persistent_kernel<BR>;
+  const size_t smem = sizeof(float) * bwd_smem_floats<BR>(a.H);
+  if (smem > (size_t)kSmemFloats * sizeof(float)) return cudaErrorInvalidValue;
+  static bool raised = false;
+  cudaError_t e = raise_smem_limit(kernel, &raised);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.H + HC - 1) / HC, (a.B + BR - 1) / BR);
+  // as the forward's: the launch fails where the grid cannot be resident
+  void* args[] = {&a};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid,
+                                     dim3(kThreads), args, smem, st);
+}
+
 }  // namespace persist
+
+// ------------------------------------------- weight gradients, design 2
+// dRW [H, 4H] = hprev^T dxw over K = T·B rows (hprev = [h0; hs[:-1]]), a
+// float32 SGEMM whose operands are both K-major: a row of either is
+// contiguous along M (H) or N (4H). A block owns a 128x128 tile of dRW
+// and one of `splits` slices of K; 256 threads, each an 8x8 tile of
+// outputs (rows 4 ty .. + 3 and 64 + 4 ty .., columns likewise with tx),
+// fed by four 16-byte shared loads a row of K. The operands go straight
+// from global to shared memory with cp.async (16 bytes a thread; 4 where
+// H is not a multiple of 4), through a ring of kStages stages of 16 rows
+// of K, one barrier a stage. Two blocks an SM (64 KB of ring, at most 128
+// registers a thread). Where K is split, each block writes its partial
+// tile, and the last block of a tile to arrive (a counter, after a fence)
+// adds the partials in slice order: no atomics on data, two launches are
+// bit-equal.
+namespace pipe {
+
+constexpr int BM = 128, BN = 128, BK = 16, kStages = 4;
+// a thread's rows: MI groups of 4, BM / MI apart; its columns: two groups
+// of 4, 64 apart
+constexpr int MI = 2;
+constexpr int kThreads = 16 * BM / (4 * MI);
+constexpr int kSmemBytes = kStages * BK * (BM + BN) * (int)sizeof(float);
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  // src-size 0 fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// counters [tiles] start at 0; part [splits][H][4H] when splits > 1
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+lstm_drw_pipelined_kernel(const float* __restrict__ hs,
+                          const float* __restrict__ h0,
+                          const float* __restrict__ dxw,
+                          float* __restrict__ drw, float* __restrict__ part,
+                          unsigned* __restrict__ counters, int T, int B,
+                          int H, int splits, long long kchunk) {
+  extern __shared__ float4 smem4[];
+  float* a_s = reinterpret_cast<float*>(smem4);     // [kStages][BK][BM]
+  float* b_s = a_s + kStages * BK * BM;             // [kStages][BK][BN]
+  __shared__ int last;
+  const int M = H, N = 4 * H;
+  const long long K = (long long)T * B;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const long long kbeg = blockIdx.z * kchunk;
+  const long long kend = kbeg + kchunk < K ? kbeg + kchunk : K;
+  const int nk = kend > kbeg ? (int)((kend - kbeg + BK - 1) / BK) : 0;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  constexpr int RM = 4 * MI;          // rows a thread
+  auto mrow = [&](int i) { return m0 + (i / 4) * (BM / MI) + 4 * ty + i % 4; };
+
+  // stage kt's rows of K into ring slot `slot`; zeros past the slice,
+  // past M and past N
+  auto load = [&](int kt, int slot) {
+    const long long kb = kbeg + (long long)kt * BK;
+    float* as = a_s + slot * BK * BM;
+    float* bs = b_s + slot * BK * BN;
+    if (VEC) {
+#pragma unroll
+      for (int i = 0; i < BK * BM / 4 / kThreads; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int r = idx / (BM / 4), m = m0 + 4 * (idx % (BM / 4));
+        const long long k = kb + r;
+        const bool ok = k < kend && m < M;
+        const float* src = !ok ? h0
+            : k < B ? h0 + k * H + m : hs + (k - B) * H + m;
+        cp_async16(as + r * BM + 4 * (idx % (BM / 4)), src, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK * BM / kThreads; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int r = idx / BM, m = m0 + idx % BM;
+        const long long k = kb + r;
+        const bool ok = k < kend && m < M;
+        const float* src = !ok ? h0
+            : k < B ? h0 + k * H + m : hs + (k - B) * H + m;
+        cp_async4(as + r * BM + idx % BM, src, ok);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BK * BN / 4 / kThreads; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / (BN / 4), n = n0 + 4 * (idx % (BN / 4));
+      const long long k = kb + r;
+      const bool ok = k < kend && n < N;
+      cp_async16(bs + r * BN + 4 * (idx % (BN / 4)),
+                 ok ? dxw + k * N + n : dxw, ok);
+    }
+  };
+
+  float acc[RM][8];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) acc[i][jn] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+    __syncthreads();     // stage kt has landed; stage kt - 1 is consumed
+    const int nxt = kt + kStages - 1;
+    if (nxt < nk) load(nxt, nxt % kStages);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const float* as = a_s + (kt % kStages) * BK * BM;
+    const float* bs = b_s + (kt % kStages) * BK * BN;
+#pragma unroll
+    for (int r = 0; r < BK; ++r) {
+      float av[RM];
+#pragma unroll
+      for (int g = 0; g < MI; ++g) {
+        const float4 a4 = *reinterpret_cast<const float4*>(
+            as + r * BM + g * (BM / MI) + 4 * ty);
+        av[4 * g] = a4.x;
+        av[4 * g + 1] = a4.y;
+        av[4 * g + 2] = a4.z;
+        av[4 * g + 3] = a4.w;
+      }
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + r * BN + 4 * tx);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(bs + r * BN + 64 + 4 * tx);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn)
+          acc[i][jn] = fmaf(av[i], bv[jn], acc[i][jn]);
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // the thread's outputs: rows mrow(i), the two float4 columns n0 + 4 tx
+  // and n0 + 64 + 4 tx
+  float* dst = splits == 1 ? drw : part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int m = mrow(i);
+    if (m >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 64 * h + 4 * tx;
+      if (n < N)
+        *reinterpret_cast<float4*>(dst + (size_t)m * N + n) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+    }
+  }
+  if (splits == 1) return;
+  __threadfence();       // this block's partial, before its arrival
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned tile = blockIdx.y * gridDim.x + blockIdx.x;
+    last = atomicAdd(counters + tile, 1u) == (unsigned)splits - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();       // every partial of the tile is visible
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int m = mrow(i);
+    if (m >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 64 * h + 4 * tx;
+      if (n >= N) continue;
+      const size_t at = (size_t)m * N + n;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int sp = 0; sp < splits; ++sp)
+        persist::add4(s, __ldcg(reinterpret_cast<const float4*>(
+                             part + (size_t)sp * M * N + at)));
+      *reinterpret_cast<float4*>(drw + at) = s;
+    }
+  }
+}
+
+template <bool VEC>
+cudaError_t launch(const float* hs, const float* h0, const float* dxw,
+                   float* drw, float* part, unsigned* counters, int T, int B,
+                   int H, int splits, cudaStream_t st) {
+  auto kernel = lstm_drw_pipelined_kernel<VEC>;
+  static bool raised = false;
+  if (!raised) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e != cudaSuccess) return e;
+    raised = true;
+  }
+  const long long K = (long long)T * B;
+  const long long kchunk = ((K + splits - 1) / splits + BK - 1) / BK * BK;
+  const dim3 grid((4 * H + BN - 1) / BN, (H + BM - 1) / BM, splits);
+  kernel<<<grid, kThreads, kSmemBytes, st>>>(hs, h0, dxw, drw, part,
+                                             counters, T, B, H, splits,
+                                             kchunk);
+  return cudaGetLastError();
+}
+
+}  // namespace pipe
 
 }  // namespace
 
@@ -1023,6 +1508,64 @@ int dl4j_lstm_bwd_weights(const void* hs, const void* h0, const void* dxw,
   if (e != cudaSuccess) return (int)e;
   lstm_dp_reduce_kernel<<<(3 * H + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(dp_part), static_cast<float*>(dp), tiles, H);
+  return (int)cudaGetLastError();
+}
+
+// Design 2 of B2c's recurrence: the persistent grid, `rows` batch rows a
+// block (64, 32, 16 or 8; ops/lstm.py `b2c_rows` chooses it). The
+// arguments of `dl4j_lstm_bwd` with RW itself [H, 4H] in place of rwT,
+// dp_part [Bp / rows, 3, H] (Bp = B rounded up to `rows`), and scratch:
+// part [2, ceil(H / (256 / rows)), Bp, Hp] float32 (Hp = H rounded up to
+// 4) and counters [Bp / rows] uint32 zeros. Returns 0 or a cudaError_t
+// (cudaErrorCooperativeLaunchTooLarge where the grid cannot be resident).
+int dl4j_lstm_bwd_persistent(const void* dhs, const void* gates,
+                             const void* cs, const void* rw, const void* p,
+                             const void* mask, const void* dhT,
+                             const void* dcT, const void* c0, void* dxw,
+                             void* dh0, void* dc0, void* dp_part, void* part,
+                             void* counters, int T, int B, int H, int rows,
+                             void* stream) {
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  using F = const float*;
+  const persist::BwdArgs a{
+      static_cast<F>(dhs), static_cast<F>(gates), static_cast<F>(cs),
+      static_cast<F>(rw), static_cast<F>(p), static_cast<F>(mask),
+      static_cast<F>(dhT), static_cast<F>(dcT), static_cast<F>(c0),
+      static_cast<float*>(dxw), static_cast<float*>(dh0),
+      static_cast<float*>(dc0), static_cast<float*>(dp_part),
+      static_cast<float*>(part), static_cast<unsigned*>(counters), T, B, H};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+    case 64: return (int)persist::launch_bwd<64>(a, st);
+    case 32: return (int)persist::launch_bwd<32>(a, st);
+    case 16: return (int)persist::launch_bwd<16>(a, st);
+    case 8: return (int)persist::launch_bwd<8>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Design 2 of B2c's weight gradients: drw [H, 4H] by the pipelined SGEMM
+// over `splits` slices of K = T·B (ops/lstm.py `b2c_splits`), then dp [3,
+// H] from dp_part [tiles, 3, H] as design 1. Scratch: part [splits, H, 4H]
+// float32 (unused, and may be null, at splits 1) and counters
+// [ceil(H / 128) x ceil(4H / 128)] uint32 zeros.
+int dl4j_lstm_bwd_weights_pipelined(const void* hs, const void* h0,
+                                    const void* dxw, const void* dp_part,
+                                    void* drw, void* dp, void* part,
+                                    void* counters, int T, int B, int H,
+                                    int tiles, int splits, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || tiles < 1 || splits < 1 || splits > 65535
+      || (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using F = const float*;
+  cudaError_t e = (H % 4 == 0 ? pipe::launch<true> : pipe::launch<false>)(
+      static_cast<F>(hs), static_cast<F>(h0), static_cast<F>(dxw),
+      static_cast<float*>(drw), static_cast<float*>(part),
+      static_cast<unsigned*>(counters), T, B, H, splits, st);
+  if (e != cudaSuccess) return (int)e;
+  lstm_dp_reduce_kernel<<<(3 * H + 255) / 256, 256, 0, st>>>(
+      static_cast<F>(dp_part), static_cast<float*>(dp), tiles, H);
   return (int)cudaGetLastError();
 }
 

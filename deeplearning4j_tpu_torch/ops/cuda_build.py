@@ -110,6 +110,15 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         # hs h0 dxw dp_part drw dp, T B H, tiles
         "dl4j_lstm_bwd_weights": (
             _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        # design 2: dhs gates cs rw p mask dhT dcT c0 dxw dh0 dc0 dp_part
+        # part counters, T B H, rows, stream
+        "dl4j_lstm_bwd_persistent": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _P]),
+        # design 2: hs h0 dxw dp_part drw dp part counters, T B H, tiles
+        # splits, stream
+        "dl4j_lstm_bwd_weights_pipelined": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "dl4j_lstm_batch_tile": (_I, []),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -21,8 +21,15 @@ and the card before the launch (neither is a fallback of the other):
 "cluster" (design 1: a cluster of 8 blocks walks T for 8 batch rows,
 re-reading RW from L2 every step) and "persistent" (design 2: one block
 an SM for the whole sequence, each holding its strip of RW in shared
-memory, a barrier a step between the blocks of a batch tile).
-`LAUNCHES_BY_DESIGN[(kernel, design)]` counts the forward launches.
+memory, a barrier a step between the blocks of a batch tile). B2c's
+two launches have two designs each (`B2C_DESIGNS`): its recurrence
+"cluster" (design 1, from a transposed copy of RW) or "persistent"
+(design 2, the forward's grid run in reverse time, each block's partial
+dh exchanged through L2 at one barrier a step), chosen by `b2c_design`
+as the forward is; its weight product "tiled" (design 1) or "pipelined"
+(design 2, a cp.async-fed SGEMM over `b2c_splits` slices of T·B), which
+needs no residency and takes every shape. `LAUNCHES_BY_DESIGN[(kernel,
+design)]` counts the launches of each.
 
 `fused_lstm` chooses before it applies its `torch.autograd.Function`:
 B2b when no input wants a gradient (or grad is disabled), else the
@@ -56,8 +63,14 @@ LAUNCHES: Dict[str, int] = {"lstm_fwd": 0, "lstm_fwd_inference": 0,
                             "lstm_bwd": 0, "lstm_bwd_weights": 0}
 PLAIN_ON_CUDA: Dict[str, int] = {"lstm_fwd": 0, "lstm_fwd_inference": 0,
                                  "lstm_bwd": 0}
+B2C_DESIGNS = {"lstm_bwd": ("cluster", "persistent"),
+               "lstm_bwd_weights": ("tiled", "pipelined")}
+WEIGHT_TILE = 128                     # the pipelined SGEMM's tile of dRW
+
 LAUNCHES_BY_DESIGN: Dict[Tuple[str, str], int] = {
-    (k, d): 0 for k in ("lstm_fwd", "lstm_fwd_inference") for d in DESIGNS}
+    **{(k, d): 0 for k in ("lstm_fwd", "lstm_fwd_inference")
+       for d in DESIGNS},
+    **{(k, d): 0 for k, ds in B2C_DESIGNS.items() for d in ds}}
 
 
 def reset_counts() -> None:
@@ -237,6 +250,63 @@ def b2_design(T: int, B: int, H: int, sms: int, smem: int) -> str:
     return "persistent"
 
 
+def _b2c_ksplit(tiles: int) -> int:
+    """The thread groups (at most one a warp of 8) that split a design-2
+    backward block's product over its gate columns, so that its
+    `tiles` thread tiles of 8 rows x 4 k keep 256 threads busy
+    (`csrc/lstm.cu` `persist::bwd_ksplit`)."""
+    q = 1
+    while q < 8 and 2 * q * tiles <= 256:
+        q *= 2
+    return q
+
+
+def b2c_rows(B: int, H: int, sms: int, smem: int) -> Optional[int]:
+    """The batch rows a block of B2c's design-2 recurrence takes (BR; its
+    256 threads hold BR x 256 / BR cells, so 256 / BR hidden columns and
+    their NC = 1024 / BR gate columns), or None where none fits: the
+    smallest BR of `PERSISTENT_ROWS` (the least partial dh a block
+    writes and reads a step) whose grid, ceil(B / BR) x ceil(H / (256 /
+    BR)) blocks, fits one block on each of `sms` SMs, and whose shared
+    memory fits the `smem` bytes a block may ask for: the resident strip
+    of RW transposed, [NC, Hp + 4] float32 (Hp = H rounded up to 4), the
+    step's gate gradients [NC, BR], and where the product's thread tiles
+    are fewer than the threads (`_b2c_ksplit`), the groups' sums [Q, BR,
+    Hp]. `csrc/lstm.cu` `persist::launch_bwd` computes the same."""
+    hp = -(-H // 4) * 4
+    for br in PERSISTENT_ROWS:
+        nc = 1024 // br
+        blocks = -(-B // br) * -(-H // (nc // 4))
+        q = _b2c_ksplit(br // 8 * hp // 4)
+        floats = nc * (hp + 4) + nc * br + (q * br * hp if q > 1 else 0)
+        if blocks <= sms and 4 * floats <= smem:
+            return br
+    return None
+
+
+def b2c_design(T: int, B: int, H: int, sms: int, smem: int) -> str:
+    """The design of B2c's recurrence on a card of `sms` SMs and `smem`
+    bytes of shared memory a block, by `b2_design`'s rule: "persistent"
+    (design 2) for sequences of at least PERSISTENT_MIN_STEPS steps where
+    `b2c_rows` finds a tile whose grid can be resident at once, else
+    "cluster" (design 1, which takes every hidden size up to MAX_HIDDEN;
+    `chip_smoke.py` times both at its LSTM shapes from T 4 to 200). The
+    weight product takes "pipelined" at every shape. A pure function of
+    the shape and the card, decided before the launch."""
+    if T < PERSISTENT_MIN_STEPS or b2c_rows(B, H, sms, smem) is None:
+        return "cluster"
+    return "persistent"
+
+
+def b2c_splits(T: int, B: int, H: int, sms: int) -> int:
+    """The slices of K = T·B that the pipelined weight product splits
+    over: as many as two resident blocks on each of `sms` SMs allow for
+    its ceil(H / 128) x ceil(4H / 128) tiles, with at least 256 rows of K
+    a slice, and at most 16 (`path_l`: 4 on 132 SMs)."""
+    tiles = -(-H // WEIGHT_TILE) * -(-4 * H // WEIGHT_TILE)
+    return max(1, min(2 * sms // tiles, T * B // 256, 16))
+
+
 def lstm_fwd(xw, rw, p, h0, c0, mask, with_residuals: bool = True):
     """Kernel B2a (`with_residuals`) or B2b: returns (hs, cs, gates, hT,
     cT), cs and gates None without residuals."""
@@ -301,53 +371,97 @@ def lstm_bwd(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT):
                               dcT)
     T, B, H = hs.shape
     _check_hidden(H)
-    # RW transposed once a call (a copy, not a product), so the kernel's
-    # reads of RW^T coalesce as the forward's reads of RW do
-    rwT = rw.t().contiguous()
-    _check_cuda(dict(hs=hs, rwT=rwT, p=p, mask=mask, cs=cs, gates=gates,
+    _check_cuda(dict(hs=hs, rw=rw, p=p, mask=mask, cs=cs, gates=gates,
                      h0=h0, c0=c0, dhs=dhs, dhT=dhT, dcT=dcT))
+    design = b2c_design(T, B, H, *card_limits(hs.device))
     dxw, dh0, dc0, dp_part = launch_bwd_recurrence(
-        rwT, p, mask, cs, gates, c0, dhs, dhT, dcT)
-    drw, dp = launch_bwd_weights(hs, h0, dxw, dp_part)
+        rw, p, mask, cs, gates, c0, dhs, dhT, dcT, design)
+    drw, dp = launch_bwd_weights(hs, h0, dxw, dp_part, "pipelined")
     return dxw, dh0, dc0, drw, dp
 
 
-def launch_bwd_recurrence(rwT, p, mask, cs, gates, c0, dhs, dhT, dcT):
-    """The reverse-time kernel of B2c alone, on checked CUDA tensors:
-    returns (dxw, dh0, dc0, dp_part [tiles, 3, H])."""
+def launch_bwd_recurrence(rw, p, mask, cs, gates, c0, dhs, dhT, dcT,
+                          design: str = "cluster"):
+    """The reverse-time kernel of B2c alone, on checked CUDA tensors, in
+    `design` (the wrapper passes `b2c_design`'s choice; `chip_smoke.py`
+    also times the other design on the same inputs): returns (dxw, dh0,
+    dc0, dp_part [batch tiles, 3, H], the tiles the design's)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("lstm")
     T, B, H = cs.shape
-    tiles = -(-B // lib.dl4j_lstm_batch_tile())
-    new = lambda *s: torch.empty(s, dtype=cs.dtype, device=cs.device)  # noqa
+    dev = cs.device
+    new = lambda *s: torch.empty(s, dtype=cs.dtype, device=dev)  # noqa
     dxw, dh0, dc0 = new(T, B, 4 * H), new(B, H), new(B, H)
-    dp_part = new(tiles, 3, H)
-    rc = lib.dl4j_lstm_bwd(
-        dhs.data_ptr(), gates.data_ptr(), cs.data_ptr(), rwT.data_ptr(),
-        p.data_ptr(), mask.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
-        c0.data_ptr(), dxw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        dp_part.data_ptr(), T, B, H, _stream(cs.device))
-    cuda_build.check(lib, rc, "lstm_bwd")
+    if design == "persistent":
+        rows = b2c_rows(B, H, *card_limits(dev))
+        if rows is None:
+            raise ValueError(f"no design-2 LSTM backward tile fits B {B}, "
+                             f"H {H} on this card")
+        tiles = -(-B // rows)
+        dp_part = new(tiles, 3, H)
+        # each block's partial dh between the steps, double-buffered, and
+        # the barriers' counters
+        part = new(2, -(-H // (256 // rows)), tiles * rows, -(-H // 4) * 4)
+        counters = torch.zeros(tiles, dtype=torch.int32, device=dev)
+        rc = lib.dl4j_lstm_bwd_persistent(
+            dhs.data_ptr(), gates.data_ptr(), cs.data_ptr(), rw.data_ptr(),
+            p.data_ptr(), mask.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
+            c0.data_ptr(), dxw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            dp_part.data_ptr(), part.data_ptr(), counters.data_ptr(), T, B,
+            H, rows, _stream(dev))
+    elif design == "cluster":
+        # RW transposed once a call (a copy, not a product), so the
+        # kernel's reads of RW^T coalesce as the forward's reads of RW do
+        rwT = rw.t().contiguous()
+        dp_part = new(-(-B // lib.dl4j_lstm_batch_tile()), 3, H)
+        rc = lib.dl4j_lstm_bwd(
+            dhs.data_ptr(), gates.data_ptr(), cs.data_ptr(), rwT.data_ptr(),
+            p.data_ptr(), mask.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
+            c0.data_ptr(), dxw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            dp_part.data_ptr(), T, B, H, _stream(dev))
+    else:
+        raise ValueError(f"no LSTM backward design {design!r}")
+    cuda_build.check(lib, rc, f"lstm_bwd ({design})")
     LAUNCHES["lstm_bwd"] += 1
+    LAUNCHES_BY_DESIGN[("lstm_bwd", design)] += 1
     return dxw, dh0, dc0, dp_part
 
 
-def launch_bwd_weights(hs, h0, dxw, dp_part):
-    """The weight-gradient launch of B2c alone, on checked CUDA tensors:
-    returns (dRW [H, 4H], dP [3, H])."""
+def launch_bwd_weights(hs, h0, dxw, dp_part, design: str = "tiled"):
+    """The weight-gradient launch of B2c alone, on checked CUDA tensors,
+    in `design` ("pipelined" is the wrapper's): returns (dRW [H, 4H],
+    dP [3, H])."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("lstm")
     T, B, H = hs.shape
-    drw = torch.empty((H, 4 * H), dtype=hs.dtype, device=hs.device)
-    dp = torch.empty((3, H), dtype=hs.dtype, device=hs.device)
-    rc = lib.dl4j_lstm_bwd_weights(
-        hs.data_ptr(), h0.data_ptr(), dxw.data_ptr(), dp_part.data_ptr(),
-        drw.data_ptr(), dp.data_ptr(), T, B, H, dp_part.shape[0],
-        _stream(hs.device))
-    cuda_build.check(lib, rc, "lstm_bwd_weights")
+    dev = hs.device
+    drw = torch.empty((H, 4 * H), dtype=hs.dtype, device=dev)
+    dp = torch.empty((3, H), dtype=hs.dtype, device=dev)
+    args = (hs.data_ptr(), h0.data_ptr(), dxw.data_ptr(), dp_part.data_ptr(),
+            drw.data_ptr(), dp.data_ptr())
+    if design == "pipelined":
+        splits = b2c_splits(T, B, H, card_limits(dev)[0])
+        # the slices' partial tiles, and a counter a tile for the last
+        # slice to arrive, which adds them in slice order
+        part = torch.empty((splits, H, 4 * H), dtype=hs.dtype,
+                           device=dev) if splits > 1 else None
+        counters = torch.zeros(
+            -(-H // WEIGHT_TILE) * -(-4 * H // WEIGHT_TILE),
+            dtype=torch.int32, device=dev)
+        rc = lib.dl4j_lstm_bwd_weights_pipelined(
+            *args, None if part is None else part.data_ptr(),
+            counters.data_ptr(), T, B, H, dp_part.shape[0], splits,
+            _stream(dev))
+    elif design == "tiled":
+        rc = lib.dl4j_lstm_bwd_weights(*args, T, B, H, dp_part.shape[0],
+                                       _stream(dev))
+    else:
+        raise ValueError(f"no LSTM weight-gradient design {design!r}")
+    cuda_build.check(lib, rc, f"lstm_bwd_weights ({design})")
     LAUNCHES["lstm_bwd_weights"] += 1
+    LAUNCHES_BY_DESIGN[("lstm_bwd_weights", design)] += 1
     return drw, dp
 
 

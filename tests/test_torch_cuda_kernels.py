@@ -2,8 +2,8 @@
 card: the decode kernels B5 and B6 (native, and their int8/e4m3
 scale-row variants B5q and B6q), the banded attention B4, the
 flash-attention forward B3a and backward B3b/B3c (each in both designs),
-the fused Adam B1a and Nesterovs B1b, the fused LSTM forward B2a/B2b (both
-designs) and backward B2c, and the conv+BN statistics kernels B7a/B7b.
+the fused Adam B1a and Nesterovs B1b, the fused LSTM forward B2a/B2b and
+backward B2c (both designs of each), and the conv+BN statistics kernels B7a/B7b.
 These tests import only torch, so they run on a machine with a card and
 no JAX:
 
@@ -692,30 +692,112 @@ def test_cuda_b2_shapes_past_design_2_take_the_cluster_design(cuda_device, T,
     assert (got[0] - ref[0]).abs().max().item() <= 1e-4
 
 
+def _b2c_inputs(dev, T, B, H, peephole, masked, seed=1):
+    """The backward's inputs: the plain forward's residuals of seeded
+    inputs, and seeded cotangents."""
+    xw, rw, p, h0, c0, mask = _lstm_inputs(dev, T, B, H, peephole, masked,
+                                           seed=seed)
+    hs, cs, gates, _, _ = lk.lstm_fwd_plain(xw, rw, p, h0, c0, mask)
+    g = torch.Generator().manual_seed(seed + 1)
+    dhs = torch.randn(T, B, H, generator=g).to(dev)
+    dhT, dcT = (torch.randn(B, H, generator=g).to(dev) for _ in range(2))
+    return rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT
+
+
+def _b2c_by_hand(bw, rec_design, w_design):
+    """B2c's two launches in the given designs: (dxw, dh0, dc0, drw,
+    dp)."""
+    rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT = bw
+    dxw, dh0, dc0, dp_part = lk.launch_bwd_recurrence(
+        rw, p, mask, cs, gates, c0, dhs, dhT, dcT, rec_design)
+    drw, dp = lk.launch_bwd_weights(hs, h0, dxw, dp_part, w_design)
+    return dxw, dh0, dc0, drw, dp
+
+
+def _assert_b2c_close(got, ref):
+    for name, a, b in zip(("dxw", "dh0", "dc0", "drw", "dp"), got, ref):
+        tol = 1e-4 * max(b.abs().max().item(), 1e-6)
+        assert (a - b).abs().max().item() <= tol, name
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", [("cluster", "tiled"),
+                                    ("persistent", "pipelined")],
+                         ids=["design1", "design2"])
 @pytest.mark.parametrize("peephole", [False, True], ids=["plain", "peep"])
 @pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
 @pytest.mark.parametrize("T,B,H", LSTM_SHAPES[1:],
                          ids=[f"T{t}B{b}H{h}" for t, b, h in LSTM_SHAPES[1:]])
-def test_cuda_b2c_matches_plain(cuda_device, T, B, H, masked, peephole):
-    xw, rw, p, h0, c0, mask = _lstm_inputs(cuda_device, T, B, H, peephole,
-                                           masked, seed=1)
-    hs, cs, gates, _, _ = lk.lstm_fwd_plain(xw, rw, p, h0, c0, mask)
-    g = torch.Generator().manual_seed(2)
-    dhs = torch.randn(T, B, H, generator=g).to(cuda_device)
-    dhT, dcT = (torch.randn(B, H, generator=g).to(cuda_device)
-                for _ in range(2))
-    before = dict(lk.LAUNCHES)
-    got = lk.lstm_bwd(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT)
-    ref = lk.lstm_bwd_plain(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT,
-                            dcT)
+def test_cuda_b2c_matches_plain(cuda_device, T, B, H, masked, peephole,
+                                design):
+    """Each design of both B2c launches by hand at every shape (H 37 and
+    10 take the weight product's 4-byte copies), whichever `b2c_design`
+    picks there, against the plain backward."""
+    bw = _b2c_inputs(cuda_device, T, B, H, peephole, masked)
+    before = dict(lk.LAUNCHES_BY_DESIGN)
+    got = _b2c_by_hand(bw, *design)
+    ref = lk.lstm_bwd_plain(*bw)
     torch.cuda.synchronize()
-    assert lk.LAUNCHES["lstm_bwd"] == before["lstm_bwd"] + 1
-    assert lk.LAUNCHES["lstm_bwd_weights"] == \
-        before["lstm_bwd_weights"] + 1
-    for name, a, b in zip(("dxw", "dh0", "dc0", "drw", "dp"), got, ref):
-        tol = 1e-4 * max(b.abs().max().item(), 1e-6)
-        assert (a - b).abs().max().item() <= tol, name
+    for kernel, d in zip(("lstm_bwd", "lstm_bwd_weights"), design):
+        assert lk.LAUNCHES_BY_DESIGN[(kernel, d)] == before[(kernel, d)] + 1
+    _assert_b2c_close(got, ref)
+
+
+# path_l's and path_g's tBPTT shapes; lstm_parity's batch of 4
+B2C_PERSISTENT_SHAPES = [(128, 64, 512), (50, 32, 256), (32, 4, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peephole", [False, True], ids=["plain", "peep"])
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+@pytest.mark.parametrize("T,B,H", B2C_PERSISTENT_SHAPES,
+                         ids=[f"T{t}B{b}H{h}"
+                              for t, b, h in B2C_PERSISTENT_SHAPES])
+def test_cuda_b2c_takes_the_persistent_design(cuda_device, T, B, H, masked,
+                                              peephole):
+    """`lstm_bwd` on the recurrent paths' shapes runs design 2 of both
+    launches (the recurrence "persistent", the weight product
+    "pipelined"), within `test_cuda_b2c_matches_plain`'s tolerance; two
+    calls bit-equal."""
+    bw = _b2c_inputs(cuda_device, T, B, H, peephole, masked, seed=T + B)
+    sms, smem = lk.card_limits(cuda_device)
+    assert lk.b2c_design(T, B, H, sms, smem) == "persistent"
+    before = dict(lk.LAUNCHES_BY_DESIGN)
+    got = lk.lstm_bwd(*bw)
+    again = lk.lstm_bwd(*bw)
+    ref = lk.lstm_bwd_plain(*bw)
+    torch.cuda.synchronize()
+    for kernel, (d1, d2) in lk.B2C_DESIGNS.items():
+        assert lk.LAUNCHES_BY_DESIGN[(kernel, d2)] == before[(kernel, d2)] + 2
+        assert lk.LAUNCHES_BY_DESIGN[(kernel, d1)] == before[(kernel, d1)]
+    _assert_b2c_close(got, ref)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(8, 64, 1024), (4, 32, 256)],
+                         ids=["H1024", "T4"])
+def test_cuda_b2c_shapes_past_design_2_take_the_cluster_design(cuda_device,
+                                                               T, B, H):
+    """H 1024 at B 64 (no design-2 grid fits the SMs) and a sequence
+    shorter than PERSISTENT_MIN_STEPS run the recurrence on design 1;
+    the weight product stays on "pipelined"."""
+    bw = _b2c_inputs(cuda_device, T, B, H, True, True, seed=8)
+    sms, smem = lk.card_limits(cuda_device)
+    assert lk.b2c_design(T, B, H, sms, smem) == "cluster"
+    before = dict(lk.LAUNCHES_BY_DESIGN)
+    got = lk.lstm_bwd(*bw)
+    ref = lk.lstm_bwd_plain(*bw)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES_BY_DESIGN[("lstm_bwd", "cluster")] == \
+        before[("lstm_bwd", "cluster")] + 1
+    assert lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", "pipelined")] == \
+        before[("lstm_bwd_weights", "pipelined")] + 1
+    _assert_b2c_close(got, ref)
+    if H == 1024:
+        with pytest.raises(ValueError, match="no design-2 LSTM backward"):
+            lk.launch_bwd_recurrence(*bw[:3], *bw[4:6], bw[7], *bw[8:],
+                                     "persistent")
 
 
 @pytest.mark.cuda

@@ -263,9 +263,182 @@ def test_b2_design_by_shape(T, B, H, want):
 
 def test_lstm_launch_counts_by_design_reset_and_stay_zero_on_cpu():
     lk.LAUNCHES_BY_DESIGN[("lstm_fwd", "persistent")] = 4
+    lk.LAUNCHES_BY_DESIGN[("lstm_bwd", "persistent")] = 2
+    lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", "pipelined")] = 2
     lk.reset_counts()
     assert set(lk.LAUNCHES_BY_DESIGN) == {
         (k, d) for k in ("lstm_fwd", "lstm_fwd_inference")
-        for d in ("cluster", "persistent")}
-    lk.lstm_fwd(*_t(_inputs()), with_residuals=True)
+        for d in ("cluster", "persistent")} | {
+        ("lstm_bwd", "cluster"), ("lstm_bwd", "persistent"),
+        ("lstm_bwd_weights", "tiled"), ("lstm_bwd_weights", "pipelined")}
+    tin = _t(_inputs(masked=True), grad=True)
+    hs, _, _ = lk.fused_lstm(*tin)
+    torch.autograd.grad(hs.sum(), tin[:5])      # B2c's plain version
     assert set(lk.LAUNCHES_BY_DESIGN.values()) == {0}
+    assert set(lk.LAUNCHES.values()) == {0}
+
+
+# ------------------------------------------------ B2c design choice (b2c_*)
+@pytest.mark.parametrize("B,H,rows", [
+    (64, 512, 16),        # path_l: 4 x 32 blocks; 8 rows would need 294 KB
+    (32, 256, 8),         # path_g's tBPTT chunks: 4 x 8 blocks
+    (4, 512, 16),         # lstm_parity
+    (5, 37, 8),           # H not a multiple of 4: Hp 40
+    (4, 640, 16),
+    (64, 1024, None),     # 256 blocks at every tile: past 132 SMs
+    (128, 512, None),
+])
+def test_b2c_rows_fit_the_sms_and_shared_memory(B, H, rows):
+    """The smallest tile of `PERSISTENT_ROWS` whose grid fits one block on
+    each SM and whose transposed strip of RW, the step's gate gradients
+    and (where the product splits its gate columns over Q thread groups)
+    the groups' sums fit a block's shared memory."""
+    assert lk.b2c_rows(B, H, *H100) == rows
+    if rows is not None:
+        nc, hp = 1024 // rows, -(-H // 4) * 4
+        assert -(-B // rows) * -(-H // (nc // 4)) <= H100[0]
+        tiles = rows // 8 * hp // 4
+        q = lk._b2c_ksplit(tiles)
+        # as many groups as fill the 256 threads, at most one a warp
+        assert q in (1, 2, 4, 8) and (q == 1 or tiles * q <= 256)
+        assert q == 8 or 2 * q * tiles > 256
+        assert 4 * (nc * (hp + 4) + nc * rows
+                    + (q * rows * hp if q > 1 else 0)) <= H100[1]
+    # one tile smaller does not fit, where there is one
+    smaller = [r for r in lk.PERSISTENT_ROWS if rows is None or r < rows]
+    for r in smaller:
+        nc, hp = 1024 // r, -(-H // 4) * 4
+        q = lk._b2c_ksplit(r // 8 * hp // 4)
+        assert (-(-B // r) * -(-H // (nc // 4)) > H100[0]
+                or 4 * (nc * (hp + 4) + nc * r
+                        + (q * r * hp if q > 1 else 0)) > H100[1])
+
+
+def test_b2c_ksplit_keeps_the_threads_busy():
+    assert [lk._b2c_ksplit(n) for n in (256, 320, 128, 64, 10, 1)] == \
+        [1, 1, 2, 4, 8, 8]
+
+
+@pytest.mark.parametrize("T,B,H,want", [
+    (128, 64, 512, "persistent"),     # path_l
+    (50, 32, 256, "persistent"),      # path_g's tBPTT chunks
+    (32, 4, 512, "persistent"),       # lstm_parity
+    (lk.PERSISTENT_MIN_STEPS, 32, 256, "persistent"),
+    (lk.PERSISTENT_MIN_STEPS - 1, 32, 256, "cluster"),
+    (128, 64, 1024, "cluster"),       # no design-2 grid fits
+    (128, 128, 512, "cluster"),
+])
+def test_b2c_design_by_shape(T, B, H, want):
+    """B2c's recurrence by `b2_design`'s rule over `b2c_rows`."""
+    assert lk.b2c_design(T, B, H, *H100) == want
+    # a card with fewer SMs keeps design 2 only where the grid still fits:
+    # path_l's 128 blocks do not fit 64
+    small = lk.b2c_design(T, B, H, 64, H100[1])
+    assert small == ("cluster" if want == "cluster" or lk.b2c_rows(
+        B, H, 64, H100[1]) is None else "persistent")
+    if (B, H) == (64, 512):
+        assert small == "cluster"
+
+
+@pytest.mark.parametrize("T,B,H,sms,want", [
+    (128, 64, 512, 132, 4),     # path_l: 64 tiles x 4 slices = 256 blocks
+    (50, 32, 256, 132, 6),      # path_g's chunks: 1600 rows of K
+    (32, 4, 512, 132, 1),       # lstm_parity: 128 rows of K
+    (128, 64, 512, 64, 2),
+    (128, 64, 1024, 132, 1),    # 256 tiles fill the card alone
+])
+def test_b2c_splits_fill_two_blocks_an_sm(T, B, H, sms, want):
+    assert lk.b2c_splits(T, B, H, sms) == want
+    tiles = -(-H // lk.WEIGHT_TILE) * -(-4 * H // lk.WEIGHT_TILE)
+    assert want == 1 or (tiles * want <= 2 * sms and T * B // want >= 256)
+
+
+def _bwd_in_design_2_order(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT,
+                           dcT, hc, br, splits):
+    """The backward with design 2's sums (`csrc/lstm.cu`): dh_prev as the
+    partials of column blocks of `hc` hidden columns (their four gate
+    columns each) added in block order, then the mask's pass-through; dP
+    summed over time for each (row, column), then over the rows of each
+    batch tile of `br` in row order, then over the tiles in order; dRW as
+    `splits` slices of the T·B rows, added in slice order."""
+    T, B, H = hs.shape
+    dh, dc = dhT, dcT
+    dxw = [None] * T
+    dpa = torch.zeros(3, B, H, dtype=hs.dtype)
+    blocks = [torch.cat([torch.arange(g * H + s, g * H + min(s + hc, H))
+                         for g in range(4)]) for s in range(0, H, hc)]
+    for t in range(T - 1, -1, -1):
+        gt = gates[t]
+        i, f, g, o = (gt[:, :H], gt[:, H:2 * H], gt[:, 2 * H:3 * H],
+                      gt[:, 3 * H:])
+        c_t = cs[t]
+        c_prev = c0 if t == 0 else cs[t - 1]
+        m = mask[t][:, None]
+        dh_in = dhs[t] + dh
+        dh_t = m * dh_in
+        pass_h = (1.0 - m) * dh_in
+        tanh_c = torch.tanh(c_t)
+        do_pre = dh_t * tanh_c * o * (1.0 - o)
+        dc_new = (m * dc + dh_t * o * (1.0 - tanh_c * tanh_c)
+                  + do_pre * p[2:3])
+        di_pre = dc_new * g * i * (1.0 - i)
+        df_pre = dc_new * c_prev * f * (1.0 - f)
+        dg_pre = dc_new * i * (1.0 - g * g)
+        dc = (dc_new * f + (1.0 - m) * dc + di_pre * p[0:1]
+              + df_pre * p[1:2])
+        dgates = torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=-1)
+        total = torch.zeros_like(dh)
+        for cols in blocks:
+            total = total + dgates[:, cols] @ rw[:, cols].T
+        dh = total + pass_h
+        dxw[t] = dgates
+        dpa = dpa + torch.stack([di_pre * c_prev, df_pre * c_prev,
+                                 do_pre * c_t])
+    dp = torch.zeros_like(p)
+    for b0 in range(0, B, br):
+        tile = torch.zeros_like(p)
+        for b in range(b0, min(b0 + br, B)):
+            tile = tile + dpa[:, b]
+        dp = dp + tile
+    dxw = torch.stack(dxw)
+    hprev = torch.cat([h0[None], hs[:-1]]).reshape(T * B, H)
+    flat = dxw.reshape(T * B, 4 * H)
+    chunk = -(-T * B // splits)
+    drw = torch.zeros_like(rw)
+    for k0 in range(0, T * B, chunk):
+        drw = drw + hprev[k0:k0 + chunk].T @ flat[k0:k0 + chunk]
+    return dxw, dh, dc, drw, dp
+
+
+@pytest.mark.parametrize("hc,br,splits", [(8, 2, 1), (16, 4, 3), (5, 8, 2)],
+                         ids=["hc8", "hc16", "hc5"])
+def test_design_2_summation_order_matches_the_pallas_backward(hc, br,
+                                                              splits):
+    """Design 2 of B2c sums dh_prev, dP and dRW in another order than the
+    plain version (`_bwd_in_design_2_order`): masked rows, peepholes, H
+    24 in column blocks of 8, 16 (a ragged last block) or 5, batch tiles
+    that do not divide B, against the VJP of the JAX package's
+    `fused_lstm` with its Pallas backward in interpret mode, within the
+    1e-4 relative + 1e-6 absolute of
+    `test_autograd_function_matches_jax_grad`."""
+    T, B, H = 7, 5, 24
+    arrs = _inputs(T, B, H, peephole=True, masked=True, seed=11)
+    rng = np.random.default_rng(12)
+    cts = [rng.standard_normal(s).astype(np.float32)
+           for s in ((T, B, H), (B, H), (B, H))]
+    mask = jnp.asarray(arrs[5])
+    _, vjp = jax.vjp(lambda *a: jax_lstm(*a, mask, True),
+                     *[jnp.asarray(a) for a in arrs[:5]])
+    want = vjp(tuple(jnp.asarray(c) for c in cts))   # dxw drw dp dh0 dc0
+    xw, rw, p, h0, c0, m = _t(arrs)
+    hs, cs, gates, _, _ = lk.lstm_fwd_plain(xw, rw, p, h0, c0, m)
+    dhs, dhT, dcT = (torch.from_numpy(c) for c in cts)
+    dxw, dh0, dc0, drw, dp = _bwd_in_design_2_order(
+        rw, p, m, hs, cs, gates, h0, c0, dhs, dhT, dcT, hc, br, splits)
+    for name, a, b in zip(NAMES, (dxw, drw, dp, dh0, dc0), want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-6, err_msg=f"d{name}")
+    # and the order does differ from the plain version's somewhere
+    ref = lk.lstm_bwd_plain(rw, p, m, hs, cs, gates, h0, c0, dhs, dhT, dcT)
+    assert any(not torch.equal(a, b) for a, b in
+               zip((dxw, dh0, dc0, drw, dp), ref))

@@ -36,8 +36,9 @@ launched a step (or a call), and device time by kernel class (the flash
 kernels B3a and B3b + B3c by design (`ops/attention.b3_design`: wgmma
 or ffma), the banded kernel B4 and the banded backward's
 dense recompute, the LSTM kernels B2a and B2b by design
-(`ops/lstm.b2_design`: persistent or cluster) and B2c with its
-weight-gradient launch, the fused updates B1a and B1b, the conv+BN
+(`ops/lstm.b2_design`: persistent or cluster) and B2c's recurrence
+and weight-gradient launch by design (`ops/lstm.b2c_design`: persistent
+or cluster; pipelined or tiled), the fused updates B1a and B1b, the conv+BN
 statistics kernels B7a and B7b by design (`ops/conv_fused.b7_design`:
 wgmma or ffma) and their reduction, cuDNN convolutions,
 matrix products, elementwise passes (the batch-norm epilogues among
@@ -108,10 +109,16 @@ def kernel_class(name):
         return ("lstm_fwd (B2a)" if "true>" in name
                 else "lstm_fwd_inference (B2b)") + (
             " persistent" if "persistent" in name else " cluster")
-    if "lstm_bwd_kernel" in name:
-        return "lstm_bwd recurrence (B2c)"
-    if "lstm_drw_kernel" in name or "lstm_dp_reduce" in name:
-        return "lstm_bwd weights (B2c)"
+    if "lstm_bwd_kernel" in name or "lstm_bwd_persistent" in name:
+        # design 2 is `persist::lstm_bwd_persistent_kernel`
+        return "lstm_bwd recurrence (B2c)" + (
+            " persistent" if "persistent" in name else " cluster")
+    if "lstm_drw_kernel" in name or "lstm_drw_pipelined" in name:
+        # design 2 is `pipe::lstm_drw_pipelined_kernel`
+        return "lstm_bwd weights (B2c)" + (
+            " pipelined" if "pipelined" in name else " tiled")
+    if "lstm_dp_reduce" in name:
+        return "lstm_bwd weights (B2c) dP"
     if "stats_gemm_kernel" in name or "tc_stats_kernel" in name:
         # the templates' last argument: true is the 3x3 conv (B7b); design
         # 2 (bfloat16 on the tensor cores) is `tc::tc_stats_kernel`
