@@ -16,11 +16,13 @@ exits non-zero with no result line:
    - the decode-attention kernels B5 (slot pool) and B6 (paged pool)
      over GQA ratios, visibility modes, page lengths, shared pages and
      dtypes, against `F.scaled_dot_product_attention` over the gathered
-     cache; each B6/B6q row names its design (float32 queries on the
-     split grid, "split", bfloat16 pages on design 1, "ffma") and its
-     share of the bound, and a design-2 row also holds and times design
-     1 on the same inputs (`ffma_ms`); then design 2 twice at Path A's
-     shape over float32, int8 and e4m3 pages, bit-equal (`b6_repeat`);
+     cache; each B5/B5q and B6/B6q row names its design (float32
+     queries on the split grid, "split", bfloat16 caches on design 1,
+     "ffma") and its share of the bound, and a design-2 row also holds
+     and times design 1 on the same inputs (`ffma_ms`); then design 2
+     twice at Path A's shape over float32, int8 and e4m3 pages
+     (`b6_repeat`) and at Path B's over its ring (`b5_repeat`),
+     bit-equal;
    - the flash-attention forward B3a and backward B3b/B3c at the
      training paths' shape (B 8, H 8, T 2048, Dh 64, causal) in float32
      and bfloat16 and at ragged, cross, narrow and wide variants of
@@ -32,6 +34,12 @@ exits non-zero with no result line:
      nearer the plain version that rounds P and dS (C6) than the one
      that does not; then design 2 twice at that shape and at Dh 128, o,
      lse, dq, dk and dv bit-equal (`flash_repeat`);
+   - the banded forward B4 at `path_w`'s shape and its variants
+     (`banded_cases`), against SDPA with the band as a mask; each row
+     names its design (float32 at Dh 32/64/128 on the folded grid,
+     "folded"; bfloat16 on design 1, "ffma"), and a design-2 row also
+     holds and times design 1 on the same inputs (`ffma_ms`) and checks
+     two launches of design 2 bit-equal;
    - the fused Adam B1a over the training path's leaves and odd sizes,
      float32 and bfloat16, steps 1 and 1000, against
      `torch.optim.Adam(fused=True)` (which puts ε inside the bias
@@ -69,8 +77,8 @@ exits non-zero with no result line:
    a second wave shares a 1024-token stem and hits the prefix cache;
 4. path_b: the Llama-shaped variant (RoPE, RMSNorm, SwiGLU, 2 KV heads
    under 8, window 256, rolling cache) at 2 blocks; the rolling ring
-   cannot page, so the slot pool and B5 carry it, and the streams run
-   past the ring's length so it wraps;
+   cannot page, so the slot pool and B5 carry it, every launch on design
+   2, and the streams run past the ring's length so it wraps;
 5. cpu_parity: the port on the card against the port on the CPU, same
    weights, one short greedy prompt;
 6. path_t: training of the same model at full width (6 blocks, T 2048,
@@ -423,11 +431,14 @@ def run_kernel_case(c, flush, gen):
     out, ref = run(), plain()
     torch.cuda.synchronize()
     paged = c["mode"] == "paged"
-    # B5 has one design
-    design = new_design(ba.LAUNCHES_BY_DESIGN, before, c["kernel"]) \
-        if paged else None
+    design = new_design(ba.LAUNCHES_BY_DESIGN, before, c["kernel"])
     err = held(out, ref, c["kernel"])
-    ms = time_ms(run, flush)
+    # the kernel's device time from a CUDA graph: a decode wrapper's host
+    # path (tens of microseconds a call, `tools/torch_b5_splits.py`) can
+    # outlast the flush before it, so an eager launch's events time the
+    # host
+    side = torch.cuda.Stream(device=dev)
+    ms = graph_ms(run, flush, side)
     plain_ms = time_ms(plain, flush)
     library_ms = time_ms(sdpa_call(q, k_log, v_log, vis, lib_scales), flush)
     rows = kv_rows(vis, pt, lp)
@@ -442,7 +453,7 @@ def run_kernel_case(c, flush, gen):
            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
            "bound_share": bms / ms, "design": design,
            "main_path_shape": c["main"]}
-    if design == "split":
+    if design == "split" and paged:
         row["split_pages"] = ba.b6_splits(S, hkv, pt.shape[1], lp,
                                           ba._sm_count(q.device))
         row["nsplit"] = -(-pt.shape[1] // row["split_pages"])
@@ -452,9 +463,18 @@ def run_kernel_case(c, flush, gen):
             return ba.paged_decode_attention(q, kc, vc, pt, qpos,
                                              scale_k=sk, scale_v=sv,
                                              design="ffma")
+    elif design == "split":
+        row["split_keys"], row["nsplit"] = ba.b5_splits(
+            S, hkv, L, window, ba._sm_count(q.device),
+            ba.split_tile_keys(Dh, kc.dtype))
 
+        def run1():
+            return ba.banded_decode_attention(
+                q, kc, vc, qpos, end, window=window, rolling=rolling,
+                scale_k=sk, scale_v=sv, design="ffma")
+    if design == "split":
         row["ffma_max_abs_err"] = held(run1(), ref, f"{c['kernel']} (ffma)")
-        row["ffma_ms"] = time_ms(run1, flush)
+        row["ffma_ms"] = graph_ms(run1, flush, side)
         row["speedup_over_ffma"] = row["ffma_ms"] / ms
     emit(row)
     return row
@@ -489,6 +509,42 @@ def run_b6_repeat(gen):
               f"b6 repeat {kv}: design 2 did not take both launches")
         check(torch.equal(a, b), f"b6 repeat {kv}: two launches differ")
         rows.append({"phase": "b6_repeat", "kernel": name,
+                     "kv_dtype": str(kv).replace("torch.", ""),
+                     "design": "split", "bit_equal": True})
+        emit(rows[-1])
+    return rows
+
+
+def run_b5_repeat(gen):
+    """Design 2 of B5 (float32 ring) and B5q (int8, e4m3) launched twice
+    at Path B's and path_q's shape (S 8, H 8, Hkv 2, Dh 64, a ring of
+    2303, window 256, positions before, at and past its length): outputs
+    bit-equal (each slot's chunks merged in chunk order by the last block
+    to arrive, whichever it is)."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import quantize_kv
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+
+    rows = []
+    S, H, hkv, Dh, L = 8, 8, 2, 64, 2303
+    qpos = torch.tensor([0, 5, 255, 1000, 2302, 2303, 2900, 5000],
+                        dtype=torch.int32, device="cuda")
+    q = torch.randn(S, H, Dh, generator=gen).to("cuda")
+    for kv in (torch.float32, torch.int8, torch.float8_e4m3fn):
+        k, v = (torch.randn(S, L, hkv, Dh, generator=gen).to("cuda")
+                for _ in range(2))
+        sk = sv = None
+        if kv != torch.float32:
+            (k, sk), (v, sv) = quantize_kv(k, kv), quantize_kv(v, kv)
+        name = "banded_decode_attention" + ("" if sk is None else "_q")
+        before = ba.LAUNCHES_BY_DESIGN[(name, "split")]
+        a, b = (ba.banded_decode_attention(q, k, v, qpos, qpos, window=256,
+                                           rolling=True, scale_k=sk,
+                                           scale_v=sv) for _ in range(2))
+        torch.cuda.synchronize()
+        check(ba.LAUNCHES_BY_DESIGN[(name, "split")] == before + 2,
+              f"b5 repeat {kv}: design 2 did not take both launches")
+        check(torch.equal(a, b), f"b5 repeat {kv}: two launches differ")
+        rows.append({"phase": "b5_repeat", "kernel": name,
                      "kv_dtype": str(kv).replace("torch.", ""),
                      "design": "split", "bit_equal": True})
         emit(rows[-1])
@@ -850,15 +906,36 @@ def run_banded_case(c, flush, gen):
     # bfloat16: p rounded against the running max of the kernel's tile
     plain = lambda: ba.banded_reference(  # noqa: E731
         q, k, v, w, causal, block_k=ba.BAND_TILE)
+    before = dict(ba.LAUNCHES_BY_DESIGN)
     out, ref = run(), plain()
     torch.cuda.synchronize()
+    design = new_design(ba.LAUNCHES_BY_DESIGN, before, "banded_attention")
     atol, rtol = TOL[dt]
-    diff = (out.float() - ref.float()).abs()
-    err = diff.max().item()
     shape = {kk: c[kk] for kk in ("b", "t", "h", "hkv", "dh", "w", "causal")}
-    check(bool((diff <= atol + rtol * ref.float().abs()).all()),
-          f"banded_attention {shape} {dt}: max abs err {err}, tolerance "
-          f"atol {atol} + rtol {rtol} * |ref|")
+
+    def held(o, what):
+        diff = (o.float() - ref.float()).abs()
+        err = diff.max().item()
+        check(bool((diff <= atol + rtol * ref.float().abs()).all()),
+              f"banded_attention ({what}) {shape} {dt}: max abs err {err}, "
+              f"tolerance atol {atol} + rtol {rtol} * |ref|")
+        return err
+
+    err = held(out, design)
+    extra = {}
+    if design == "folded":
+        # design 1 on the same inputs, held to the same limit; design 2
+        # launched again gives the same bits
+        run1 = lambda: ba.banded_attention_fwd(  # noqa: E731
+            q, k, v, w, causal, design="ffma")
+        extra["ffma_max_abs_err"] = held(run1(), "ffma")
+        again = run()
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"banded_attention (folded) {shape}: "
+              f"two launches differ")
+        extra["bit_equal"] = True
+        del again
+        extra["ffma_ms"] = time_ms(run1, flush)
     del out, ref
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
     mask = ba.band_visibility(t, w, causal, dev)
@@ -866,14 +943,18 @@ def run_banded_case(c, flush, gen):
         qh, kh, vh, attn_mask=mask, enable_gqa=hkv != h)
     (bms, by), pairs = banded_bound(c)
     timed_plain = c["main"] or dt == torch.bfloat16
+    ms = time_ms(run, flush)
     row = {"phase": "kernels", "kernel": "banded_attention",
            "dtype": str(dt).replace("torch.", ""), **shape,
            "visible_pairs": pairs, "max_abs_err": err, "atol": atol,
-           "rtol": rtol, "ms": time_ms(run, flush),
+           "rtol": rtol, "ms": ms,
            "plain_ms": time_ms(plain, flush, iters=5) if timed_plain
            else None,
            "library_ms": time_ms(lib, flush, iters=10),
-           "bound_ms": bms, "bound_by": by, "main_path_shape": c["main"]}
+           "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
+           "design": design, **extra, "main_path_shape": c["main"]}
+    if "ffma_ms" in row:
+        row["speedup_over_ffma"] = row["ffma_ms"] / ms
     emit(row)
     return row
 
@@ -1598,11 +1679,10 @@ def drive_path(net, name, kernel, prompts_waves, greedy, max_tokens, *,
     check(launches[kernel] > 0, f"{name}: {kernel} was never launched")
     check(sum(plain_on_cuda.values()) == 0,
           f"{name}: plain versions ran on CUDA tensors: {plain_on_cuda}")
-    if kernel.startswith("paged"):
-        # float32 queries: every B6/B6q launch on design 2
-        check(by_design[f"{kernel}/split"] == launches[kernel]
-              and by_design[f"{kernel}/ffma"] == 0,
-              f"{name}: {kernel} not all on design 2: {by_design}")
+    # float32 queries: every B5/B5q and B6/B6q launch on design 2
+    check(by_design[f"{kernel}/split"] == launches[kernel]
+          and by_design[f"{kernel}/ffma"] == 0,
+          f"{name}: {kernel} not all on design 2: {by_design}")
     row = {"phase": name, "kernel": kernel, "launches": launches,
            "launches_by_design": by_design,
            "plain_on_cuda": plain_on_cuda, "waves": waves,
@@ -2071,8 +2151,10 @@ def path_w(rng, epochs=3):
     transformer: 6 Llama blocks (RoPE, RMSNorm, SwiGLU, 2 KV heads under
     8) with window 256, T 2048, batch 8, float32, the zoo's default
     Adam(3e-4), 4 fixed batches x 3 epochs = 12 steps through `net.fit`
-    (`timed_fit`): B4 forward in every block and B1a; then one
-    `output()` (B4 under no_grad)."""
+    (`timed_fit`): B4 forward in every block, every launch on design 2
+    ("folded"), and B1a; then one `output()` (B4 under no_grad, design 2
+    too)."""
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
     from deeplearning4j_tpu_torch.optim.updaters import Adam
 
     B, T, blocks = 8, 2048, 6
@@ -2082,10 +2164,15 @@ def path_w(rng, epochs=3):
     batches = lm_batches(rng, 4, B, T)
     fit = timed_fit("path_w", net, batches, epochs, B * T)
     steps, launches = fit["steps"], fit["launches"]
+    by_design = launches_by_design(ba)
     check(launches["banded_attention"] == blocks * steps,
           f"path_w: banded_attention launched "
           f"{launches['banded_attention']} times, want {blocks} a step x "
           f"{steps}")
+    # float32 at Dh 64, G 4: every B4 launch on design 2
+    check(by_design["banded_attention/folded"] == blocks * steps
+          and by_design["banded_attention/ffma"] == 0,
+          f"path_w: B4 not all on design 2: {by_design}")
     check(launches["adam_update"] == steps,
           f"path_w: adam_update launched {launches['adam_update']} times, "
           f"want one a step x {steps}")
@@ -2104,13 +2191,21 @@ def path_w(rng, epochs=3):
     out_launches = after["banded_attention"] - launches["banded_attention"]
     check(out_launches == blocks, f"path_w: output() launched B4 "
           f"{out_launches} times, want {blocks}")
+    out_by_design = {d: n - by_design[d]
+                     for d, n in launches_by_design(ba).items()
+                     if d.startswith("banded_attention/")}
+    check(out_by_design["banded_attention/folded"] == blocks,
+          f"path_w: output()'s B4 not all on design 2: {out_by_design}")
     check(sum(plain.values()) == 0,
           f"path_w: plain versions ran on CUDA tensors: {plain}")
     row = {"phase": "path_w", "model": "TextGenerationTransformer",
            "d_model": 512, "heads": 8, "kv_heads": 2, "window": 256,
            "blocks": blocks, "T": T, "batch": B, "dtype": "float32",
            "updater": str(net.conf.updater), **fit, "output_s": output_s,
-           "output_launches": out_launches}
+           "output_launches": out_launches,
+           "launches_by_design": {d: n for d, n in by_design.items()
+                                  if d.startswith("banded_attention/")},
+           "output_launches_by_design": out_by_design}
     emit(row)
     return row
 
@@ -2559,6 +2654,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     rows = [run_kernel_case(c, flush, gen) for c in kernel_cases()]
     run_b6_repeat(gen)
+    run_b5_repeat(gen)
     for c in flash_cases():
         rows += run_flash_case(c, flush, gen)
     rows += [run_banded_case(c, flush, gen) for c in banded_cases()]
@@ -2653,21 +2749,36 @@ def main() -> int:
                  or any(k == f"{d}_ms" or k == f"speedup_over_{d}"
                         for d in designs)},
                 launches_by_design={d: by[f"{name}/{d}"] for d in designs})
-        if name in ("paged_decode_attention", "paged_decode_attention_q"):
-            by = (a if name == "paged_decode_attention"
-                  else qa)["launches_by_design"]
+        if "decode_attention" in name:
+            by = {"paged_decode_attention": a, "paged_decode_attention_q": qa,
+                  "banded_decode_attention": b}.get(name)
+            by = by["launches_by_design"] if by else {
+                k: qb_fp8["launches_by_design"][k]
+                + qb_int8["launches_by_design"][k]
+                for k in qb_fp8["launches_by_design"]}
             summary[-1].update(
                 {k: main_row[k] for k in ("design", "bound_share", "ffma_ms",
                                           "speedup_over_ffma", "split_pages",
-                                          "nsplit")},
+                                          "split_keys", "nsplit")
+                 if k in main_row},
                 launches_by_design={d: by[f"{name}/{d}"]
                                     for d in ("ffma", "split")})
-            if name == "paged_decode_attention_q":
+            if name.endswith("_q"):
                 e4m3 = next(r for r in mine if r["kv_dtype"] ==
                             "float8_e4m3fn")
                 summary[-1]["e4m3"] = {k: e4m3[k] for k in (
                     "ms", "ffma_ms", "speedup_over_ffma", "plain_ms",
                     "library_ms", "bound_ms", "bound_share")}
+        if name == "banded_attention":
+            summary[-1].update(
+                {k: main_row[k] for k in ("design", "bound_share", "ffma_ms",
+                                          "speedup_over_ffma")},
+                launches_by_design={
+                    d: w["launches_by_design"][f"{name}/{d}"]
+                    for d in ("ffma", "folded")},
+                output_launches_by_design={
+                    d: w["output_launches_by_design"][f"{name}/{d}"]
+                    for d in ("ffma", "folded")})
         if name == "lstm_fwd_inference":
             # most of its launches on path_g are the stepping loop's, at T 1
             t1 = next(r for r in mine if r["T"] == 1)

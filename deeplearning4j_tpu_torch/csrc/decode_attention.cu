@@ -54,11 +54,11 @@
 // heads.
 // Design 1 leaves most of the 132 SMs idle at small batch (S * Hkv
 // blocks, one slot's whole range through one SM) and loads 2-8 bytes a
-// lane behind a dependent page-table read a key. B6/B6q have a second
-// design for float32 queries (`split`, below the design-1 kernels): the
-// key range split over many blocks, pages streamed through shared memory
-// 16 bytes a thread, one merge in fixed order. B5/B5q and bfloat16 pages
-// stay on design 1.
+// lane behind a dependent page-table read a key. B6/B6q and B5/B5q have a
+// second design for float32 queries (`split`, below the design-1
+// kernels): the key range split over many blocks, keys streamed through
+// shared memory 16 bytes a thread, one merge in fixed order. bfloat16
+// caches stay on design 1.
 //
 // Numerics. The running max starts at -1e30, not -inf. A key past the
 // range contributes nothing (the `u < n` guard plays the part of the TPU
@@ -552,14 +552,20 @@ int run(const Args& a, int dtype, int cache_dtype, void* stream) {
 }
 
 // ===========================================================================
-// Design 2 of B6 and B6q: float32 queries over float32, int8 or e4m3 pages,
-// Dh 64 or 128, G <= 8 (`b6_design` in ops/banded_attention.py).
+// Design 2 of B6 and B6q, and of B5 and B5q: float32 queries over float32,
+// int8 or e4m3 caches, Dh 64 or 128, G <= 8 (`b6_design` and `b5_design` in
+// ops/banded_attention.py).
 //
-// Grid (S, Hkv, NSPLIT). Block (s, hk, z) owns the C logical pages
+// Grid (S, Hkv, NSPLIT). B6: block (s, hk, z) owns the C logical pages
 // [zC, zC + C) of slot s's table (NSPLIT = ceil(NP / C); the host picks C
 // from the shapes alone, `b6_splits`, so that the grid holds at least two
 // blocks an SM where the table allows) and the part of the visible range
-// [lo, hi] that lies in them; positions stay on the device. The block
+// [lo, hi] that lies in them; positions stay on the device. B5: the slot's
+// logical positions split in chunks of C aligned to multiples of C, and
+// block (s, hk, z) owns chunk lo / C + z, so a windowed cache needs only
+// NSPLIT = ceil(min(w, L) / C) + 1 blocks a slot and KV head, a linear one
+// ceil(L / C) (`b5_splits`); position p lives in ring slot p mod L, so a
+// chunk may wrap the ring once. A B6 block
 // reads its page-table entries once into shared memory, then streams its
 // keys in tiles of TK keys (16 KB of K and V rows a tile: 32 keys of
 // float32 at Dh 64, 128 of 1-byte codes) through a ring of kStages tiles
@@ -750,15 +756,19 @@ struct Smem {
                 "ring reuse");
 };
 
-template <typename TC, int GM, int DH>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_attention_split_kernel(
-    const float* __restrict__ q, const TC* __restrict__ kc,
-    const TC* __restrict__ vc, const float* __restrict__ sk,
-    const float* __restrict__ sv, float* __restrict__ out,
-    const int* __restrict__ page_table, const int* __restrict__ qpos,
-    float* __restrict__ work, int* __restrict__ counters, int NP, int Lp,
-    int lp_shift, int H, int Hkv, int window, int C, float scale) {
+// The part of a design-2 block that both pools share: attend the G query
+// rows of (slot s_, KV head hk), already in qs, over the keys [blo, bhi]
+// (at least one) of live split zi of nlive, row_of(p) the row index of
+// position p's [Dh] row for this KV head (its elements start at
+// row_of(p) * Dh, its scales at sk/sv[row_of(p)]); then merge.
+template <typename TC, int GM, int DH, typename RowOf>
+__device__ __forceinline__ void split_body(
+    const TC* __restrict__ kc, const TC* __restrict__ vc,
+    const float* __restrict__ sk, const float* __restrict__ sv,
+    float* __restrict__ out, float* __restrict__ work,
+    int* __restrict__ counters, unsigned char* smem, int s_, int hk, int G,
+    int Hkv, size_t row0, int blo, int bhi, int zi, int nlive, int nsplit,
+    float scale, RowOf row_of) {
   using Gm = Geo<TC, DH>;
   using Sm = Smem<TC, GM, DH>;
   constexpr int TK = Gm::kTK, CH = Gm::kChunks, EPC = Gm::kEPC;
@@ -766,51 +776,16 @@ paged_decode_attention_split_kernel(
   constexpr int CPL = Gm::kCPL, DPL = Gm::kDPL, RB = Gm::kRowBytes;
   constexpr bool kQuant = Quant<TC>::value;
 
-  extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
   float* scl = reinterpret_cast<float*>(smem + Sm::kRing);   // [st][2][TK]
   float* qs = reinterpret_cast<float*>(smem + Sm::kRing + Sm::kScales);
   int* pts = reinterpret_cast<int*>(qs + GM * DH);
   float* rowv = reinterpret_cast<float*>(pts + kMaxPages);   // [GM]
   int* last = reinterpret_cast<int*>(rowv + GM);
-
-  const int s_ = blockIdx.x, hk = blockIdx.y, z = blockIdx.z;
-  const int nsplit = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int G = H / Hkv;
-  const size_t row0 = ((size_t)s_ * H + (size_t)hk * G) * DH;
-  const int pos = qpos[s_];
-  const int pfirst = z * C;
-  // the block's C table entries (known from the grid alone, so their
-  // loads go out beside qpos's) and the query rows
-  for (int i = tid; i < min(C, NP - pfirst); i += kThreads)
-    pts[i] = page_table[(size_t)s_ * NP + pfirst + i];
-  for (int i = tid; i < GM * DH; i += kThreads)
-    qs[i] = i < G * DH ? q[row0 + i] : 0.f;
-  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
-  const int hi = min(pos, NP * Lp - 1);
-  // the live splits zlo .. zhi: those whose pages meet [lo, hi]
-  const int zlo = lo / (C * Lp), zhi = hi >= lo ? hi / (C * Lp) : zlo - 1;
-  const int nlive = zhi - zlo + 1;
-  if (z < zlo || z > zhi) {
-    // outside the range: no partial and no count; with no visible key at
-    // all, split 0 writes the zero rows
-    if (nlive == 0 && z == 0)
-      for (int i = tid; i < G * DH; i += kThreads) out[row0 + i] = 0.f;
-    return;
-  }
-  const int blo = max(lo, pfirst * Lp);
-  const int bhi = min(hi, (pfirst + C) * Lp - 1);
   const int nkeys = bhi - blo + 1;
   const int ntiles = (nkeys + TK - 1) / TK;
-  __syncthreads();
 
-  // the row index of position p's [Dh] row for this KV head (a shift for
-  // a power-of-two page length, lp_shift >= 0)
-  auto row_of = [&](int p) -> size_t {
-    const int pg = lp_shift >= 0 ? p >> lp_shift : p / Lp;
-    return ((size_t)pts[pg - pfirst] * Lp + (p - pg * Lp)) * Hkv + hk;
-  };
   // the copies of tile `tile` into its stage, as one commit group (empty
   // past the last tile, so that the group count stays in step)
   auto issue = [&](int tile) {
@@ -971,12 +946,10 @@ paged_decode_attention_split_kernel(
   __syncthreads();
 
   // the warps' partial softmaxes merged in warp order, then written: o
-  // (the only live split), or this split's (m, l, acc)
+  // (the only live split), or this split's (m, l, acc) in live split zi
   const int stride = G * (DH + 2);   // a partial: m[G], l[G], acc[G][DH]
-  float* mine =
-      nlive > 1
-          ? work + ((size_t)(s_ * Hkv + hk) * nsplit + z) * (size_t)stride
-          : nullptr;
+  float* all = work + (size_t)(s_ * Hkv + hk) * nsplit * (size_t)stride;
+  float* mine = nlive > 1 ? all + (size_t)zi * stride : nullptr;
   for (int i = tid; i < G * DH; i += kThreads) {
     const int g = i / DH;
     float mb = kNegInf;
@@ -1012,8 +985,6 @@ paged_decode_attention_split_kernel(
   // Their loads go out together (from L2), not one split after another:
   // m and l of every split, and this thread's first output over the first
   // 8 splits.
-  const float* all =
-      work + ((size_t)(s_ * Hkv + hk) * nsplit + zlo) * (size_t)stride;
   float* cf = reinterpret_cast<float*>(ring);   // [live][G]: m, then c
   float* lf = cf + kMaxSplits * GM;             // [live][G]: l
   float a0[8];
@@ -1061,6 +1032,117 @@ paged_decode_attention_split_kernel(
   if (tid == 0) counters[s_ * Hkv + hk] = 0;
 }
 
+// The block's query rows into qs (rows past G zeros).
+template <int GM, int DH>
+__device__ __forceinline__ void load_q(const float* __restrict__ q,
+                                       float* qs, size_t row0, int G) {
+  for (int i = threadIdx.x; i < GM * DH; i += kThreads)
+    qs[i] = i < G * DH ? q[row0 + i] : 0.f;
+}
+
+// B6 / B6q: block (s, hk, z) owns the C logical pages [zC, zC + C).
+template <typename TC, int GM, int DH>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_attention_split_kernel(
+    const float* __restrict__ q, const TC* __restrict__ kc,
+    const TC* __restrict__ vc, const float* __restrict__ sk,
+    const float* __restrict__ sv, float* __restrict__ out,
+    const int* __restrict__ page_table, const int* __restrict__ qpos,
+    float* __restrict__ work, int* __restrict__ counters, int NP, int Lp,
+    int lp_shift, int H, int Hkv, int window, int C, float scale) {
+  using Sm = Smem<TC, GM, DH>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + Sm::kRing + Sm::kScales);
+  int* pts = reinterpret_cast<int*>(qs + GM * DH);
+
+  const int s_ = blockIdx.x, hk = blockIdx.y, z = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int G = H / Hkv;
+  const size_t row0 = ((size_t)s_ * H + (size_t)hk * G) * DH;
+  const int pos = qpos[s_];
+  const int pfirst = z * C;
+  // the block's C table entries (known from the grid alone, so their
+  // loads go out beside qpos's) and the query rows
+  for (int i = tid; i < min(C, NP - pfirst); i += kThreads)
+    pts[i] = page_table[(size_t)s_ * NP + pfirst + i];
+  load_q<GM, DH>(q, qs, row0, G);
+  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
+  const int hi = min(pos, NP * Lp - 1);
+  // the live splits zlo .. zhi: those whose pages meet [lo, hi]
+  const int zlo = lo / (C * Lp), zhi = hi >= lo ? hi / (C * Lp) : zlo - 1;
+  const int nlive = zhi - zlo + 1;
+  if (z < zlo || z > zhi) {
+    // outside the range: no partial and no count; with no visible key at
+    // all, split 0 writes the zero rows
+    if (nlive == 0 && z == 0)
+      for (int i = tid; i < G * DH; i += kThreads) out[row0 + i] = 0.f;
+    return;
+  }
+  const int blo = max(lo, pfirst * Lp);
+  const int bhi = min(hi, (pfirst + C) * Lp - 1);
+  __syncthreads();
+
+  // the row index of position p's [Dh] row for this KV head (a shift for
+  // a power-of-two page length, lp_shift >= 0)
+  auto row_of = [&](int p) -> size_t {
+    const int pg = lp_shift >= 0 ? p >> lp_shift : p / Lp;
+    return ((size_t)pts[pg - pfirst] * Lp + (p - pg * Lp)) * Hkv + hk;
+  };
+  split_body<TC, GM, DH>(kc, vc, sk, sv, out, work, counters, smem, s_, hk,
+                         G, Hkv, row0, blo, bhi, z - zlo, nlive, gridDim.z,
+                         scale, row_of);
+}
+
+// B5 / B5q: block (s, hk, z) owns the live split zlo + z of the slot's
+// logical positions in chunks of C, zlo = lo / C; the ring's slot of
+// position p is p mod L (p >= 0), so a chunk that wraps the ring reads
+// its keys from two runs of rows, each key by its own row.
+template <typename TC, int GM, int DH>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_split_kernel(
+    const float* __restrict__ q, const TC* __restrict__ kc,
+    const TC* __restrict__ vc, const float* __restrict__ sk,
+    const float* __restrict__ sv, float* __restrict__ out,
+    const int* __restrict__ qpos, const int* __restrict__ endp,
+    float* __restrict__ work, int* __restrict__ counters, int L, int H,
+    int Hkv, int window, int rolling, int C, float scale) {
+  using Sm = Smem<TC, GM, DH>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + Sm::kRing + Sm::kScales);
+
+  const int s_ = blockIdx.x, hk = blockIdx.y, z = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int G = H / Hkv;
+  const size_t row0 = ((size_t)s_ * H + (size_t)hk * G) * DH;
+  const int pos = qpos[s_];
+  const int end = rolling ? endp[s_] : 0;
+  load_q<GM, DH>(q, qs, row0, G);
+  // the visible range, as design 1 reads it
+  int lo = window > 0 ? max(0, pos - window + 1) : 0;
+  int hi = min(pos, L - 1);
+  if (rolling) {
+    lo = max(lo, end - L + 1);
+    hi = min(pos, end);
+  }
+  const int nlive = hi >= lo ? hi / C - lo / C + 1 : 0;
+  if (z >= nlive) {
+    if (nlive == 0 && z == 0)
+      for (int i = tid; i < G * DH; i += kThreads) out[row0 + i] = 0.f;
+    return;
+  }
+  const int c0 = (lo / C + z) * C;
+  const int blo = max(lo, c0), bhi = min(hi, c0 + C - 1);
+  __syncthreads();
+
+  const size_t slot0 = (size_t)s_ * L;
+  auto row_of = [=](int p) -> size_t {
+    return (slot0 + (rolling ? p % L : p)) * Hkv + hk;
+  };
+  split_body<TC, GM, DH>(kc, vc, sk, sv, out, work, counters, smem, s_, hk,
+                         G, Hkv, row0, blo, bhi, z, nlive, gridDim.z, scale,
+                         row_of);
+}
+
 struct Args {
   const float* q;
   const void *k, *v;
@@ -1070,6 +1152,18 @@ struct Args {
   float* work;
   int* counters;
   int S, NP, Lp, lp_shift, H, Hkv, window, C;
+  float scale;
+};
+
+struct SlotArgs {
+  const float* q;
+  const void *k, *v;
+  const float *sk, *sv;
+  float* out;
+  const int *qpos, *end;
+  float* work;
+  int* counters;
+  int S, L, H, Hkv, window, rolling, C;
   float scale;
 };
 
@@ -1090,8 +1184,23 @@ int launch(const Args& a, int nsplit, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <typename TC, int DH>
-int launch_group(const Args& a, int nsplit, cudaStream_t st) {
+template <typename TC, int GM, int DH>
+int launch(const SlotArgs& a, int nsplit, cudaStream_t st) {
+  constexpr int smem = Smem<TC, GM, DH>::bytes;
+  static const cudaError_t once = cudaFuncSetAttribute(
+      decode_attention_split_kernel<TC, GM, DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (once != cudaSuccess) return (int)once;
+  decode_attention_split_kernel<TC, GM, DH>
+      <<<dim3(a.S, a.Hkv, nsplit), kThreads, smem, st>>>(
+          a.q, static_cast<const TC*>(a.k), static_cast<const TC*>(a.v),
+          a.sk, a.sv, a.out, a.qpos, a.end, a.work, a.counters, a.L, a.H,
+          a.Hkv, a.window, a.rolling, a.C, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename TC, int DH, typename A>
+int launch_group(const A& a, int nsplit, cudaStream_t st) {
   const int G = a.H / a.Hkv;
   if (G <= 1) return launch<TC, 1, DH>(a, nsplit, st);
   if (G <= 2) return launch<TC, 2, DH>(a, nsplit, st);
@@ -1099,10 +1208,22 @@ int launch_group(const Args& a, int nsplit, cudaStream_t st) {
   return launch<TC, 8, DH>(a, nsplit, st);
 }
 
-template <typename TC>
-int launch_cache(const Args& a, int Dh, int nsplit, cudaStream_t st) {
+template <typename TC, typename A>
+int launch_cache(const A& a, int Dh, int nsplit, cudaStream_t st) {
   return Dh == 64 ? launch_group<TC, 64>(a, nsplit, st)
                   : launch_group<TC, 128>(a, nsplit, st);
+}
+
+// float32 q and out over cache_dtype 0 = float32, 2 = int8 or 3 = e4m3
+// codes with scale rows
+template <typename A>
+int launch_dtype(const A& a, int Dh, int nsplit, int cache_dtype,
+                 cudaStream_t st) {
+  if (cache_dtype == 0) return launch_cache<float>(a, Dh, nsplit, st);
+  if (!a.sk || !a.sv) return (int)cudaErrorInvalidValue;
+  if (cache_dtype == 2) return launch_cache<int8_t>(a, Dh, nsplit, st);
+  if (cache_dtype == 3) return launch_cache<__nv_fp8_e4m3>(a, Dh, nsplit, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace split
@@ -1162,15 +1283,38 @@ int dl4j_paged_decode_attention_split(
   const split::Args a{q, k, v, scale_k, scale_v, out, page_table, qpos,
                       work, counters, S, NP, Lp, lp_shift, H, Hkv, window,
                       split_pages, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cache_dtype == 0)
-    return split::launch_cache<float>(a, Dh, nsplit, st);
-  if (!scale_k || !scale_v) return (int)cudaErrorInvalidValue;
-  if (cache_dtype == 2)
-    return split::launch_cache<int8_t>(a, Dh, nsplit, st);
-  if (cache_dtype == 3)
-    return split::launch_cache<__nv_fp8_e4m3>(a, Dh, nsplit, st);
-  return (int)cudaErrorInvalidValue;
+  return split::launch_dtype(a, Dh, nsplit, cache_dtype,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// Design 2 of B5/B5q: float32 q and out over cache_dtype 0 = float32, 2 =
+// int8 or 3 = e4m3 codes with scale rows; Dh 64 or 128; chunks of
+// split_keys C positions, NSPLIT blocks a slot and KV head, at least the
+// live chunks a range can meet (ceil(min(window, L) / C) + 1 with a window,
+// ceil(L / C) without). With NSPLIT > 1, work holds
+// S * Hkv * NSPLIT * G * (Dh + 2) floats and counters S * Hkv ints, zero
+// before the first launch (each launch leaves them zero). Returns 0 or a
+// cudaError_t code.
+int dl4j_decode_attention_split(
+    const float* q, const void* k, const void* v, const float* scale_k,
+    const float* scale_v, float* out, const int* qpos, const int* end,
+    float* work, int* counters, int S, int L, int H, int Hkv, int Dh,
+    int window, int rolling, int split_keys, int nsplit, float scale,
+    int cache_dtype, void* stream) {
+  if (Hkv < 1 || H % Hkv != 0 || H / Hkv > kMaxG || (Dh != 64 && Dh != 128)
+      || L < 1 || split_keys < 1 || (rolling && window < 1))
+    return (int)cudaErrorInvalidValue;
+  const int span = window > 0 && window < L ? window : L;
+  const int need = (span + split_keys - 1) / split_keys + (window > 0);
+  if (nsplit < need || nsplit > split::kMaxSplits ||
+      (nsplit > 1 && (!work || !counters)))
+    return (int)cudaErrorInvalidValue;
+  if (S == 0) return 0;
+  const split::SlotArgs a{q, k, v, scale_k, scale_v, out, qpos, end, work,
+                          counters, S, L, H, Hkv, window, rolling,
+                          split_keys, scale};
+  return split::launch_dtype(a, Dh, nsplit, cache_dtype,
+                             static_cast<cudaStream_t>(stream));
 }
 
 const char* dl4j_cuda_error_string(int code) {

@@ -11,7 +11,13 @@ PyTorch version beside it:
   (`q - w < k <= q`) or bidirectional (`|q - k| < w`), GQA-native (a
   query head reads its KV head's band by strides; K/V are never
   broadcast to H heads). A block visits only the key tiles that meet its
-  band (`band_key_tiles`), so the work grows as T·w. Its backward is
+  band (`band_key_tiles`), so the work grows as T·w. Two designs, chosen
+  by `b4_design` before the launch: "folded" (design 2) for float32 at
+  Dh 32, 64 or 128 with H / Hkv in {1, 2, 4, 8} — the G heads of a group
+  folded into one block's 128 rows, so K/V tiles are staged once a
+  group, through a cp.async ring, masked only where the band cuts them
+  (`band_tile_whole`) — and "ffma" (design 1, one head's 64 rows a
+  block) for bfloat16 and every other shape. Its backward is
   the JAX package's: a dense band-masked recompute (`banded_dense`)
   under autograd, which holds B·H·T² float32 scores transiently;
 - `banded_decode_attention` (kernel B5, `csrc/decode_attention.cu`,
@@ -26,12 +32,14 @@ scale per (token, kv head), dequantized on load in float32. Their
 launches count apart, as `banded_decode_attention_q` and
 `paged_decode_attention_q`.
 
-B6 and B6q come in two designs, chosen by `b6_design` before the launch:
-"split" (design 2) for float32 queries over float32, int8 or e4m3 pages
-at Dh 64 or 128 — each slot's key range split over `b6_splits` pages a
-block, pages streamed through shared memory, one merge in fixed order —
-and "ffma" (design 1, one block a slot and KV head) for bfloat16 and
-every other shape. `LAUNCHES_BY_DESIGN[(kernel, design)]` counts them.
+B6/B6q and B5/B5q come in two designs, chosen by `b6_design` and
+`b5_design` before the launch: "split" (design 2) for float32 queries
+over float32, int8 or e4m3 caches at Dh 64 or 128 — each slot's key
+range split over many blocks (`b6_splits` pages, `b5_splits` positions
+a block), keys streamed through shared memory, one merge in fixed order
+— and "ffma" (design 1, one block a slot and KV head) for bfloat16 and
+every other shape. `LAUNCHES_BY_DESIGN[(kernel, design)]` counts the
+launches of all three kernels by design.
 
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches the kernel or raises — there is no fallback. Each
@@ -66,11 +74,13 @@ _NAMES = ("banded_attention", "banded_decode_attention",
           "paged_decode_attention_q")
 LAUNCHES: Dict[str, int] = dict.fromkeys(_NAMES, 0)
 PLAIN_ON_CUDA: Dict[str, int] = dict.fromkeys(_NAMES, 0)
-# B6/B6q launches by design (`b6_design`)
+# launches by design: B5/B5q and B6/B6q (`b5_design`, `b6_design`), B4
+# (`b4_design`)
 DESIGNS = ("ffma", "split")
+B4_DESIGNS = ("ffma", "folded")
 LAUNCHES_BY_DESIGN: Dict[Tuple[str, str], int] = {
-    (k, d): 0 for k in ("paged_decode_attention", "paged_decode_attention_q")
-    for d in DESIGNS}
+    (k, d): 0 for k in _NAMES
+    for d in (B4_DESIGNS if k == "banded_attention" else DESIGNS)}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # cache storage codes of the decode kernels: the query's dtype, or
@@ -85,6 +95,13 @@ MAX_GROUP = 8
 MAX_HEAD_DIM = 128
 # B4's query/key tile (kTile in csrc/attention_tiles.cuh)
 BAND_TILE = 64
+# B4 design 2 (namespace folded in csrc/banded_attention.cu): the query
+# rows of a block (G heads x 128 / G positions), the keys of a tile, its
+# head dims and GQA groups
+FOLD_ROWS = 128
+FOLD_KEYS = 32
+FOLD_HEAD_DIMS = (32, 64, 128)
+FOLD_GROUPS = (1, 2, 4, 8)
 # B6 design 2 (namespace split in csrc/decode_attention.cu): its head
 # dims, the page-table entries a block holds (kMaxPages), the splits one
 # block merges (kMaxSplits); a split holds at least SPLIT_MIN_KEYS keys
@@ -92,6 +109,8 @@ SPLIT_HEAD_DIMS = (64, 128)
 MAX_SPLIT_PAGES = 256
 MAX_SPLITS = 1024
 SPLIT_MIN_KEYS = 64
+# the K and V rows of one tile of its ring (kTileBytes)
+SPLIT_TILE_BYTES = 16384
 
 
 def decode_eligible(h: int, hkv: int, dh: int) -> bool:
@@ -125,6 +144,49 @@ def b6_design(q_dtype, cache_dtype, h: int, hkv: int, dh: int,
     return "split"
 
 
+def b5_design(q_dtype, cache_dtype, h: int, hkv: int, dh: int,
+              tensors: Sequence[torch.Tensor] = ()) -> str:
+    """The design that takes a B5 or B5q call: `b6_design`'s rule, since
+    the two kernels share design 2's body ("split": float32 queries over
+    float32, int8 or e4m3 caches at Dh 64 or 128, 16-byte aligned;
+    "ffma" for bfloat16 caches and every other shape)."""
+    return b6_design(q_dtype, cache_dtype, h, hkv, dh, tensors)
+
+
+def split_tile_keys(dh: int, cache_dtype) -> int:
+    """Keys in one tile of design 2's ring: SPLIT_TILE_BYTES of K and V
+    rows (32 float32 keys at Dh 64, 128 of 1-byte codes)."""
+    esize = torch.tensor([], dtype=cache_dtype).element_size()
+    return SPLIT_TILE_BYTES // (2 * dh * esize)
+
+
+@functools.lru_cache(maxsize=256)
+def b5_splits(s: int, hkv: int, l: int, window: Optional[int], sms: int,
+              tile_keys: int) -> Tuple[int, int]:
+    """(C, NSPLIT) of B5/B5q design 2: C logical positions a split, the
+    chunks aligned to multiples of C (so the merge order is a function of
+    the positions and shapes alone), and NSPLIT blocks a slot and KV head,
+    enough for the chunks any visible range meets: ceil(N / C) + 1 with
+    a window (N = min(w, L): a range of up to N positions that may start
+    anywhere), ceil(L / C) without (the range starts at 0). C is the
+    largest whose grid S * Hkv * NSPLIT holds at least 2 * `sms` blocks,
+    at least SPLIT_MIN_KEYS keys and one tile of the ring (`tile_keys`,
+    `split_tile_keys`; where N holds them) and NSPLIT at most MAX_SPLITS,
+    then evened out over the same chunk count. A split's chain of
+    loads, folds and the merge sets the time at these sizes, not the
+    bytes (`tools/torch_b5_splits.py`): the fewest splits of at least a
+    tile each."""
+    extra = 1 if window else 0
+    n = min(window, l) if window else l
+    least = min(n, max(SPLIT_MIN_KEYS, tile_keys,
+                       -(-n // (MAX_SPLITS - extra))))
+    want = -(-2 * sms // (s * hkv)) - extra       # chunks of N to fill it
+    c = n if want <= 1 else -(-n // (want - 1)) - 1
+    c = max(least, min(c, n))
+    c = max(least, -(-n // -(-n // c)))
+    return c, -(-n // c) + extra
+
+
 @functools.lru_cache(maxsize=256)
 def b6_splits(s: int, hkv: int, npg: int, page_len: int, sms: int) -> int:
     """C, the logical pages a block of design 2 takes (NSPLIT =
@@ -154,16 +216,30 @@ def _stream(dev) -> ctypes.c_void_p:
 
 # ------------------------------------------------------- B4: band geometry
 def band_key_tiles(q0: int, t: int, window: int, causal: bool,
-                   tile: int = BAND_TILE):
-    """(first, last) key tile that the query rows [q0, q0 + tile) can
-    see: the loop bounds of a B4 block (the TPU kernel's `_kb_first` and
-    `nkb`). Causal: from the tile of q0 - w + 1 to the tile holding the
-    block's last row; bidirectional: up to q0 + tile - 1 + w - 1; both
-    clipped to [0, T). At most ceil((tile + w - 1) / tile) + 1 tiles
-    (twice the band for bidirectional), whatever T: the T·w contract."""
+                   tile: int = BAND_TILE, block_q: Optional[int] = None):
+    """(first, last) key tile of `tile` keys that the query positions
+    [q0, q0 + block_q) (default: `tile` of them) can see: the loop bounds
+    of a B4 block (the TPU kernel's `_kb_first` and `nkb`; design 2 has
+    FOLD_KEYS-key tiles and FOLD_ROWS / G positions a block). Causal:
+    from the tile of q0 - w + 1 to the tile holding the block's last
+    row; bidirectional: up to q0 + block_q - 1 + w - 1; both clipped to
+    [0, T). At most ceil((block_q + w - 1) / tile) + 1 tiles (twice the
+    band for bidirectional), whatever T: the T·w contract."""
+    bq = tile if block_q is None else block_q
     lo = max(0, q0 - window + 1)
-    hi = min(t - 1, q0 + tile - 1 + (0 if causal else window - 1))
+    hi = min(t - 1, q0 + bq - 1 + (0 if causal else window - 1))
     return lo // tile, hi // tile
+
+
+def band_tile_whole(q0: int, k0: int, t: int, window: int, causal: bool,
+                    block_q: int, block_k: int) -> bool:
+    """Whether the keys [k0, k0 + block_k) lie inside T and inside the
+    band of every query position [q0, q0 + block_q): the tiles design 2
+    of B4 folds without the mask. Only a block's first tile and those on
+    its diagonal (and past T) are cut."""
+    last = k0 + block_k - 1
+    return (last < t and k0 > q0 + block_q - 1 - window
+            and (last <= q0 if causal else last < q0 + window))
 
 
 def band_pairs(t: int, window: int, causal: bool) -> int:
@@ -240,10 +316,29 @@ def _check_banded(q, k, v, window: int) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def b4_design(dtype, h: int, hkv: int, dh: int,
+              tensors: Sequence[torch.Tensor] = ()) -> str:
+    """The design that takes a B4 call: "folded" (design 2) for float32
+    at Dh 32, 64 or 128 with H / Hkv in {1, 2, 4, 8} whose `tensors` (q,
+    k, v: 16-byte copies) start 16-byte aligned; "ffma" (design 1) for
+    everything else the kernel takes. bfloat16 stays on design 1: its
+    64-key tiles are the blocks p is rounded against (C6). T and the
+    window do not enter: design 2's loop bounds and masks take any."""
+    if dtype != torch.float32 or dh not in FOLD_HEAD_DIMS or hkv < 1 or \
+            h % hkv or h // hkv not in FOLD_GROUPS or \
+            any(t.data_ptr() % 16 for t in tensors):
+        return "ffma"
+    return "folded"
+
+
 def banded_attention_fwd(q, k, v, window: int, causal: bool = True,
-                         scale: Optional[float] = None):
+                         scale: Optional[float] = None,
+                         design: Optional[str] = None):
     """Kernel B4: q [B, T, H, Dh], k/v [B, T, Hkv, Dh] (contiguous) ->
-    o [B, T, H, Dh] in q's dtype."""
+    o [B, T, H, Dh] in q's dtype. On the card the kernel runs in
+    `b4_design`'s design, or in `design` where the caller names one
+    (`chip_smoke.py` times design 1 on design 2's inputs); a design that
+    cannot take the call raises."""
     _check_banded(q, k, v, window)
     if q.device.type == "cpu":
         return banded_reference(q, k, v, window, causal, scale)
@@ -266,17 +361,31 @@ def banded_attention_fwd(q, k, v, window: int, causal: bool = True,
             raise ValueError(f"{name} must be contiguous")
     from deeplearning4j_tpu_torch.ops import cuda_build
 
+    hkv = k.shape[2]
+    chosen = b4_design(q.dtype, h, hkv, dh, (q, k, v))
+    design = design or chosen
+    if design not in B4_DESIGNS or (design == "folded" and
+                                    chosen != "folded"):
+        raise ValueError(f"B4 design {design!r} cannot take {q.dtype} at "
+                         f"H {h}, Hkv {hkv}, Dh {dh}")
     lib = cuda_build.library("banded_attention")
     o = torch.empty_like(q)
     sc = scale if scale is not None else dh ** -0.5
     # a window past T is the full band: clip it so the kernel's tile
     # arithmetic stays in int range
-    rc = lib.dl4j_banded_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, t, h,
-        k.shape[2], dh, max(1, min(int(window), t)), int(causal), sc,
-        _DTYPE_CODES[q.dtype], _stream(q.device))
-    cuda_build.check(lib, rc, "banded_attention")
+    w = max(1, min(int(window), t))
+    if design == "folded":
+        rc = lib.dl4j_banded_attention_folded(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, t, h,
+            hkv, dh, w, int(causal), sc, _stream(q.device))
+    else:
+        rc = lib.dl4j_banded_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, t, h,
+            hkv, dh, w, int(causal), sc, _DTYPE_CODES[q.dtype],
+            _stream(q.device))
+    cuda_build.check(lib, rc, f"banded_attention ({design})")
     LAUNCHES["banded_attention"] += 1
+    LAUNCHES_BY_DESIGN[("banded_attention", design)] += 1
     return o
 
 
@@ -336,7 +445,8 @@ def decode_attention_plain(q, cache_k, cache_v, qpos, end,
                            rolling: bool = False,
                            scale: Optional[float] = None,
                            scale_k=None, scale_v=None,
-                           block_k: Optional[int] = None):
+                           block_k: Optional[int] = None,
+                           split_keys: Optional[int] = None):
     """Plain version of kernel B5, mirroring the JAX `decode_reference`:
     q [S, H, Dh], caches [S, L, Hkv, Dh], qpos/end [S] int; quantized
     caches pass their [S, L, Hkv] scale rows and are dequantized up front
@@ -345,16 +455,48 @@ def decode_attention_plain(q, cache_k, cache_v, qpos, end,
     kernel). bfloat16 caches feed p to P·V rounded to bfloat16 (C6), as
     the kernel does against the row max, or against the running max of
     blocks of `block_k` cache slots, as the TPU kernel does with its
-    `block_l`."""
+    `block_l`. `split_keys` C walks design 2's splits instead
+    (`split_merge` over each slot's positions in order from a multiple of
+    C, so the chunks are the kernel's): the same function, and zeros for
+    a row with no visible key."""
     if q.is_cuda:
         PLAIN_ON_CUDA[_kernel_name("banded_decode_attention", scale_k)] += 1
     rounded = cache_v.dtype == torch.bfloat16
     if scale_k is not None:
         cache_k = dequantize(cache_k, scale_k, q.dtype)
         cache_v = dequantize(cache_v, scale_v, q.dtype)
-    vis = visibility(qpos, end, cache_k.shape[1], window, rolling)
+    L = cache_k.shape[1]
+    if split_keys is not None:
+        if rounded:
+            raise ValueError("design 2 takes float32, int8 or e4m3 caches, "
+                             "not bfloat16")
+        lo, hi = decode_range(qpos, end, L, window, rolling)
+        p = (lo // split_keys * split_keys)[:, None] + torch.arange(
+            L + split_keys, device=q.device)
+        rows = torch.arange(q.shape[0], device=q.device)[:, None]
+        idx = torch.remainder(p, L)
+        vis = (p >= lo[:, None]) & (p <= hi[:, None])
+        return split_merge(q, cache_k[rows, idx], cache_v[rows, idx], vis,
+                           split_keys, scale)
+    vis = visibility(qpos, end, L, window, rolling)
     return attend_plain(q[:, None], cache_k, cache_v, vis[:, None], scale,
                         rounded, block_k)[:, 0]
+
+
+def decode_range(qpos, end, L: int, window: Optional[int], rolling: bool):
+    """[lo, hi] of the positions each slot's query sees, as the decode
+    kernels read them from qpos and end [S] (empty where lo > hi):
+    linear `max(0, qpos - w + 1) .. min(qpos, L - 1)`; on the ring also
+    from `end - L + 1` and up to `min(qpos, end)`, position p held by
+    slot p mod L. The same set as `visibility`."""
+    pos = qpos.long()
+    lo = (pos - window + 1).clamp(min=0) if window else torch.zeros_like(pos)
+    hi = pos.clamp(max=L - 1)
+    if rolling:
+        e = end.long()
+        lo = torch.maximum(lo, e - L + 1)
+        hi = torch.minimum(pos, e)
+    return lo, hi
 
 
 def visibility(qpos, end, L: int, window: Optional[int], rolling: bool):
@@ -554,7 +696,8 @@ def banded_decode_attention(q, cache_k, cache_v, qpos, end,
                             window: Optional[int] = None,
                             rolling: bool = False,
                             scale: Optional[float] = None,
-                            scale_k=None, scale_v=None):
+                            scale_k=None, scale_v=None,
+                            design: Optional[str] = None):
     """Single-query attention over the slot pool (kernel B5).
 
     q: [S, H, Dh] (this step's query per slot, post-RoPE); caches
@@ -562,7 +705,9 @@ def banded_decode_attention(q, cache_k, cache_v, qpos, end,
     int8/e4m3 codes with float32 scale rows `scale_k`/`scale_v`
     [S, L, Hkv]; qpos: [S] int32 position of each slot's query; end: [S]
     int32 newest written position (rolling ring only; pass qpos
-    otherwise). Returns [S, H, Dh] in q's dtype."""
+    otherwise). Returns [S, H, Dh] in q's dtype. On the card the kernel
+    runs in `b5_design`'s design, or in `design` where the caller names
+    one; a design that cannot take the call raises."""
     _check_common(q, cache_k, cache_v, scale_k, scale_v)
     if rolling and window is None:
         raise ValueError("rolling decode requires a window")
@@ -584,15 +729,35 @@ def banded_decode_attention(q, cache_k, cache_v, qpos, end,
     out = torch.empty_like(q)
     l, hkv = cache_k.shape[1], cache_k.shape[2]
     sc = scale if scale is not None else dh ** -0.5
-    rc = lib.dl4j_decode_attention(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        *_scale_ptrs(scale_k, scale_v), out.data_ptr(), qpos.data_ptr(),
-        end.data_ptr(), s_, l, h, hkv, dh, window or 0, int(rolling), sc,
-        _DTYPE_CODES[q.dtype], _CACHE_CODES[cache_k.dtype],
-        _stream(q.device))
+    chosen = b5_design(q.dtype, cache_k.dtype, h, hkv, dh, (cache_k, cache_v))
+    design = design or chosen
+    if design not in DESIGNS or (design == "split" and chosen != "split"):
+        raise ValueError(f"B5 design {design!r} cannot take q {q.dtype} "
+                         f"over {cache_k.dtype} caches at H {h}, Hkv {hkv}, "
+                         f"Dh {dh}")
+    if design == "split":
+        c, nsplit = b5_splits(s_, hkv, l, window or None,
+                              _sm_count(q.device),
+                              split_tile_keys(dh, cache_k.dtype))
+        work, counters = _split_workspace(q.device, s_, hkv, nsplit,
+                                          h // hkv, dh)
+        rc = lib.dl4j_decode_attention_split(
+            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            *_scale_ptrs(scale_k, scale_v), out.data_ptr(), qpos.data_ptr(),
+            end.data_ptr(), work, counters, s_, l, h, hkv, dh, window or 0,
+            int(rolling), c, nsplit, sc, _CACHE_CODES[cache_k.dtype],
+            _stream(q.device))
+    else:
+        rc = lib.dl4j_decode_attention(
+            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            *_scale_ptrs(scale_k, scale_v), out.data_ptr(), qpos.data_ptr(),
+            end.data_ptr(), s_, l, h, hkv, dh, window or 0, int(rolling), sc,
+            _DTYPE_CODES[q.dtype], _CACHE_CODES[cache_k.dtype],
+            _stream(q.device))
     name = _kernel_name("banded_decode_attention", scale_k)
-    cuda_build.check(lib, rc, name)
+    cuda_build.check(lib, rc, f"{name} ({design})")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_DESIGN[(name, design)] += 1
     return out
 
 

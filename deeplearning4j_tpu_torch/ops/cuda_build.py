@@ -55,12 +55,22 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "dl4j_paged_decode_attention_split": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                  _I, _I, _I, _F, _I, _P]),
+        # design 2 of B5/B5q: q k v scale_k scale_v out qpos end work
+        # counters, S L H Hkv Dh window rolling split_keys nsplit, scale,
+        # cache_dtype, stream
+        "dl4j_decode_attention_split": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                 _I, _I, _I, _I, _F, _I, _P]),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "banded_attention": {
         # q k v o, B T H Hkv Dh window causal, scale, dtype, stream
         "dl4j_banded_attention": (
             _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
+        # design 2 (float32): q k v o, B T H Hkv Dh window causal, scale,
+        # stream
+        "dl4j_banded_attention_folded": (
+            _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {

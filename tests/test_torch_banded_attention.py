@@ -133,6 +133,91 @@ def test_band_key_tiles_cover_exactly_the_band(t, w, causal):
     assert ba.band_pairs(t, w, causal) == int(vis.sum())
 
 
+# ------------------------------------------- B4 design 2: choice and tiles
+@pytest.mark.parametrize("dtype,h,hkv,dh,want", [
+    (torch.float32, 8, 2, 64, "folded"),     # path_w's shape
+    (torch.float32, 8, 8, 64, "folded"),     # G 1
+    (torch.float32, 8, 4, 32, "folded"),     # G 2, Dh 32
+    (torch.float32, 8, 1, 128, "folded"),    # G 8, Dh 128
+    (torch.bfloat16, 8, 2, 64, "ffma"),      # C6: design 1's key tiles
+    (torch.float32, 4, 1, 48, "ffma"),       # Dh not 32/64/128
+    (torch.float32, 6, 2, 64, "ffma"),       # G 3
+    (torch.float32, 16, 1, 64, "ffma"),      # G 16
+])
+def test_b4_design_by_dtype_and_shape(dtype, h, hkv, dh, want):
+    assert ba.b4_design(dtype, h, hkv, dh) == want
+    buf = torch.zeros(4 + 2 * 8 * h * dh)         # 8 bytes in: unaligned
+    assert ba.b4_design(dtype, h, hkv, dh,
+                        (buf[2:-2].view(2, 8, h, dh),)) == "ffma"
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("t,w", [(2048, 256), (300, 33), (37, 1),
+                                 (100, 200), (1000, 100)])
+def test_design_2_tiles_cover_the_band_and_mask_only_cut_tiles(t, w, g,
+                                                               causal):
+    """Design 2's loop bounds (FOLD_ROWS / G positions a block, tiles of
+    FOLD_KEYS keys) hold every visible pair of a block and no dead tile
+    at either end; `band_tile_whole` calls a tile whole exactly when all
+    its pairs are visible (rows past T aside), so the unmasked path never
+    sees a hidden key; at path_w's shape 2 of a full block's 9 tiles are
+    cut, the first and the diagonal."""
+    bq, bk = ba.FOLD_ROWS // g, ba.FOLD_KEYS
+    vis = ba.band_visibility(t, w, causal)
+    for q0 in range(0, t, bq):
+        first, last = ba.band_key_tiles(q0, t, w, causal, tile=bk,
+                                        block_q=bq)
+        cols = vis[q0:q0 + bq].any(dim=0).nonzero().flatten()
+        assert int(cols.min()) // bk == first
+        assert int(cols.max()) // bk == last
+        cut = 0
+        for kt in range(first, last + 1):
+            k0 = kt * bk
+            whole = ba.band_tile_whole(q0, k0, t, w, causal, bq, bk)
+            all_vis = k0 + bk <= t and bool(vis[q0:q0 + bq,
+                                                k0:k0 + bk].all())
+            if whole:
+                assert all_vis
+            elif q0 + bq <= t:
+                assert not all_vis
+            cut += not whole
+        if (t, w, g, causal) == (2048, 256, 4, True) and q0 >= w:
+            assert (last - first + 1, cut) == (9, 2)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("hkv", [1, 2], ids=["G4", "G2"])
+def test_plain_b4_at_design_2_tiles_matches_jax_kernel(hkv, causal):
+    """The plain version at design 2's key tiles (`block_k` FOLD_KEYS)
+    against JAX's Pallas kernel in interpret mode with 32-key blocks and
+    128 / G query positions (its folded [G x Bq, Dh] tile is design 2's
+    128 rows), float32, at 1e-5; `block_k` rounds only bfloat16, so this
+    is the function design 2 computes."""
+    t, w, h = 192, 40, 4
+    rng = np.random.default_rng(hkv + 10 * causal)
+    q, k, v = _qkv(rng, 2, t, h, hkv, 8)
+    want = np.asarray(jax_banded(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), w, causal, None,
+                                 ba.FOLD_ROWS // (h // hkv), ba.FOLD_KEYS,
+                                 interpret=True))
+    got = ba.banded_reference(_t(q), _t(k), _t(v), w, causal,
+                              block_k=ba.FOLD_KEYS)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_b4_launch_counts_by_design_reset_and_stay_zero_on_cpu():
+    ba.LAUNCHES_BY_DESIGN[("banded_attention", "folded")] = 4
+    ba.reset_counts()
+    assert ba.LAUNCHES_BY_DESIGN[("banded_attention", "folded")] == 0
+    rng = np.random.default_rng(1)
+    q, k, v = (_t(a) for a in _qkv(rng, 1, 40, 4, 1, 32))
+    for design in (None, "folded", "ffma"):
+        ba.banded_attention_fwd(q, k, v, 8, True, design=design)
+    assert set(ba.LAUNCHES_BY_DESIGN.values()) == {0}
+    assert ba.LAUNCHES["banded_attention"] == 0
+
+
 def test_wrapper_rejects_bad_shapes():
     q = torch.zeros(1, 8, 4, 8)
     with pytest.raises(ValueError, match="divisible"):

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the decode kernels B5 and B6 (native, and their int8/e4m3
-scale-row variants B5q and B6q), the banded attention B4, the
+scale-row variants B5q and B6q; each in both designs), the banded
+attention B4 (both designs), the
 flash-attention forward B3a and backward B3b/B3c (each in both designs),
 the fused Adam B1a and Nesterovs B1b, the fused LSTM forward B2a/B2b and
 backward B2c (both designs of each), and the conv+BN statistics kernels B7a/B7b.
@@ -58,15 +59,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (dtype, atol, rtol, design): float32 queries in both designs of B5/B5q,
+# bfloat16 on design 1 alone (`b5_design`)
+B5_DESIGN_CASES = [(torch.float32, 2e-5, 0.0, "ffma"),
+                   (torch.float32, 2e-5, 0.0, "split"),
+                   (torch.bfloat16, 1e-5, 2.0 ** -7, "ffma")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol,rtol",
-                         [(torch.float32, 2e-5, 0.0),
-                          (torch.bfloat16, 1e-5, 2.0 ** -7)],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype,atol,rtol,design", B5_DESIGN_CASES,
+                         ids=["f32-ffma", "f32-split", "bf16-ffma"])
 @pytest.mark.parametrize("mode,window,rolling", MODES,
                          ids=[m[0] for m in MODES])
 def test_cuda_b5_matches_plain(cuda_device, mode, window, rolling, dtype,
-                               atol, rtol):
+                               atol, rtol, design):
     g = torch.Generator().manual_seed(3)
     S, L, H, Hkv, Dh = 5, 37, 8, 2, 64          # ragged last tile
     q = torch.randn(S, H, Dh, generator=g).to(cuda_device, dtype)
@@ -75,13 +81,14 @@ def test_cuda_b5_matches_plain(cuda_device, mode, window, rolling, dtype,
     qpos = torch.tensor([0, 4, 36, 37, 100] if rolling else
                         [0, 4, 20, 30, 36], dtype=torch.int32,
                         device=cuda_device)
-    before = ba.LAUNCHES["banded_decode_attention"]
+    before = dict(ba.LAUNCHES_BY_DESIGN)
     out = ba.banded_decode_attention(q, k, v, qpos, qpos, window=window,
-                                     rolling=rolling)
+                                     rolling=rolling, design=design)
     ref = ba.decode_attention_plain(q, k, v, qpos, qpos, window=window,
                                     rolling=rolling)
     torch.cuda.synchronize()
-    assert ba.LAUNCHES["banded_decode_attention"] == before + 1
+    key = ("banded_decode_attention", design)
+    assert ba.LAUNCHES_BY_DESIGN[key] == before[key] + 1
     ref = ref.float()
     assert ((out.float() - ref).abs() <= atol + rtol * ref.abs()).all()
 
@@ -849,13 +856,15 @@ def _quantized(g, shape, dtype, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16],
-                         ids=["q_f32", "q_bf16"])
+@pytest.mark.parametrize("qdtype,design",
+                         [(torch.float32, "ffma"), (torch.float32, "split"),
+                          (torch.bfloat16, "ffma")],
+                         ids=["q_f32-ffma", "q_f32-split", "q_bf16-ffma"])
 @pytest.mark.parametrize("cdtype", QDTYPES, ids=["int8", "fp8"])
 @pytest.mark.parametrize("mode,window,rolling", MODES,
                          ids=[m[0] for m in MODES])
 def test_cuda_b5q_matches_plain(cuda_device, mode, window, rolling, cdtype,
-                                qdtype):
+                                qdtype, design):
     g = torch.Generator().manual_seed(13)
     S, L, H, Hkv, Dh = 5, 37, 8, 2, 64
     q = torch.randn(S, H, Dh, generator=g).to(cuda_device, qdtype)
@@ -865,8 +874,10 @@ def test_cuda_b5q_matches_plain(cuda_device, mode, window, rolling, cdtype,
                         [0, 4, 20, 30, 36], dtype=torch.int32,
                         device=cuda_device)
     before = dict(ba.LAUNCHES)
+    by_design = dict(ba.LAUNCHES_BY_DESIGN)
     out = ba.banded_decode_attention(q, k, v, qpos, qpos, window=window,
-                                     rolling=rolling, scale_k=sk, scale_v=sv)
+                                     rolling=rolling, scale_k=sk, scale_v=sv,
+                                     design=design)
     # the kernel dequantizes in float32, as the TPU body does; the plain
     # version dequantizes in q's dtype, as JAX's reference does, so with
     # bfloat16 queries it is fed the same queries in float32 and the
@@ -879,6 +890,8 @@ def test_cuda_b5q_matches_plain(cuda_device, mode, window, rolling, cdtype,
         before["banded_decode_attention_q"] + 1
     assert ba.LAUNCHES["banded_decode_attention"] == \
         before["banded_decode_attention"]
+    key = ("banded_decode_attention_q", design)
+    assert ba.LAUNCHES_BY_DESIGN[key] == by_design[key] + 1
     atol, rtol = (2e-5, 0.0) if qdtype == torch.float32 else \
         (1e-5, 2.0 ** -7)
     ref = ref.float()
@@ -1032,6 +1045,123 @@ def test_cuda_b6_bf16_and_other_head_dims_take_design_1(cuda_device):
             ba.paged_decode_attention(q, ck, ck, pt, qpos, design="split")
 
 
+# ------------------------------------- B5 / B5q design 2 ("split")
+def _slot_case(device, cdtype, L, hkv, dh, seed, S=8, H=8, rolling=False):
+    """q, caches, scale rows, and positions over the whole cache, first
+    and last included (on the ring: before, at and well past its length,
+    so it wraps)."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(S, H, dh, generator=g).to(device)
+    ck, sk = _pages(g, (S, L, hkv, dh), cdtype, device)
+    cv, sv = _pages(g, (S, L, hkv, dh), cdtype, device)
+    if rolling:
+        qpos = torch.tensor([0, 5, L // 8, L // 2, L - 1, L, 2 * L - 7,
+                             5 * L + 3])[:S]
+    else:
+        qpos = torch.linspace(0, L - 1, S).round().long()
+    return q, ck, cv, sk, sv, qpos.to(device, torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("mode,window,rolling",
+                         [("linear", None, False), ("window", 200, False),
+                          ("rolling", 256, True), ("rolling_wide", 1500,
+                                                   True)],
+                         ids=["linear", "window", "rolling", "rolling_wide"])
+@pytest.mark.parametrize("hkv", [8, 2])
+@pytest.mark.parametrize("cdtype", B6_CACHES, ids=["f32", "int8", "fp8"])
+def test_cuda_b5_split_matches_plain(cuda_device, cdtype, hkv, mode, window,
+                                     rolling, dh):
+    """Design 2 of B5 (float32 caches) and B5q (int8, e4m3) against the
+    plain version at the B5/B5q tolerance (2e-5): chunks wholly past a
+    short range, a ring read across its wrap (a window of 1500 on a ring
+    of 1031: chunks of positions that wrap the ring), the launch counted
+    under "split" with more than one split a slot."""
+    L = 1031 if rolling else 1024
+    q, ck, cv, sk, sv, qpos = _slot_case(cuda_device, cdtype, L, hkv, dh,
+                                         hkv + dh + (window or 0),
+                                         rolling=rolling)
+    name = "banded_decode_attention" + ("" if sk is None else "_q")
+    assert ba.b5_design(q.dtype, ck.dtype, 8, hkv, dh, (ck, cv)) == "split"
+    assert ba.b5_splits(8, hkv, L, window, ba._sm_count(q.device),
+                        ba.split_tile_keys(dh, ck.dtype))[1] > 1
+    before = dict(ba.LAUNCHES_BY_DESIGN)
+    out = ba.banded_decode_attention(q, ck, cv, qpos, qpos, window=window,
+                                     rolling=rolling, scale_k=sk, scale_v=sv)
+    ref = ba.decode_attention_plain(q, ck, cv, qpos, qpos, window=window,
+                                    rolling=rolling, scale_k=sk, scale_v=sv)
+    torch.cuda.synchronize()
+    assert ba.LAUNCHES_BY_DESIGN[(name, "split")] == \
+        before[(name, "split")] + 1
+    assert ba.LAUNCHES_BY_DESIGN[(name, "ffma")] == before[(name, "ffma")]
+    assert (out - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype", B6_CACHES, ids=["f32", "int8", "fp8"])
+def test_cuda_b5_split_is_bit_equal_and_design_1_agrees(cuda_device, cdtype):
+    """At Path B's shape (S 8, H 8, Hkv 2, Dh 64, a ring of 2303, window
+    256): two launches of design 2 give the same bits, and design 1 on the
+    same inputs agrees within 2e-5; `end` ahead of `qpos` as a prefill
+    chunk's first query sees it."""
+    q, ck, cv, sk, sv, qpos = _slot_case(cuda_device, cdtype, 2303, 2, 64,
+                                         41, rolling=True)
+    end = qpos + torch.tensor([0, 3, 0, 7, 0, 0, 100, 0],
+                              dtype=torch.int32, device=cuda_device)
+    outs = [ba.banded_decode_attention(q, ck, cv, qpos, end, window=256,
+                                       rolling=True, scale_k=sk, scale_v=sv,
+                                       design=d)
+            for d in ("split", "split", "ffma")]
+    ref = ba.decode_attention_plain(q, ck, cv, qpos, end, window=256,
+                                    rolling=True, scale_k=sk, scale_v=sv)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert (outs[0] - outs[2]).abs().max().item() <= 2e-5
+    assert (outs[0] - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdtype", B6_CACHES, ids=["f32", "int8", "fp8"])
+def test_cuda_b5_split_nan_query_and_empty_rows(cuda_device, cdtype):
+    """`test_cuda_nan_query_and_empty_rows` on both designs over float32,
+    int8 and e4m3 caches: a NaN query comes out NaN, a lane with no
+    visible key (end = -1 on the ring) as zeros."""
+    q, ck, cv, sk, sv, _ = _slot_case(cuda_device, cdtype, 300, 2, 64, 9,
+                                      S=3)
+    q[1] = float("nan")
+    qpos = torch.tensor([250, 7, 0], dtype=torch.int32, device=cuda_device)
+    end = torch.tensor([250, 7, -1], dtype=torch.int32, device=cuda_device)
+    for d in ba.DESIGNS:
+        out = ba.banded_decode_attention(q, ck, cv, qpos, end, window=200,
+                                         rolling=True, scale_k=sk,
+                                         scale_v=sv, design=d)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out[0]).all()
+        assert torch.isnan(out[1]).all()
+        assert torch.equal(out[2], torch.zeros_like(out[2]))
+
+
+@pytest.mark.cuda
+def test_cuda_b5_bf16_and_other_head_dims_take_design_1(cuda_device):
+    """bfloat16 caches (C6b) and head dims other than 64 and 128 are
+    counted under design 1; design 2 refuses them when named."""
+    g = torch.Generator().manual_seed(8)
+    for dtype, dh in ((torch.bfloat16, 64), (torch.float32, 80),
+                      (torch.float32, 32)):
+        q = torch.randn(2, 8, dh, generator=g).to(cuda_device, dtype)
+        ck = torch.randn(2, 40, 2, dh, generator=g).to(cuda_device, dtype)
+        qpos = torch.tensor([3, 30], dtype=torch.int32, device=cuda_device)
+        before = dict(ba.LAUNCHES_BY_DESIGN)
+        ba.banded_decode_attention(q, ck, ck, qpos, qpos, window=16)
+        torch.cuda.synchronize()
+        key = ("banded_decode_attention", "ffma")
+        assert ba.LAUNCHES_BY_DESIGN[key] == before[key] + 1
+        with pytest.raises(ValueError, match="design"):
+            ba.banded_decode_attention(q, ck, ck, qpos, qpos, window=16,
+                                       design="split")
+
+
 @pytest.mark.cuda
 def test_cuda_quantized_wrapper_refuses_missing_scale_rows(cuda_device):
     q = torch.zeros(2, 8, 64, device=cuda_device)
@@ -1063,18 +1193,27 @@ def _banded_inputs(b, t, h, hkv, dh, dtype, device, seed):
     return mk(h), mk(hkv), mk(hkv), mk(h)
 
 
+# every case in each design that takes it (`b4_design`: float32 at Dh
+# 32/64/128 also on "folded")
+B4_DESIGN_CASES = [c + (d,) for c in BANDED_CASES for d in ba.B4_DESIGNS
+                   if d == "ffma" or ba.b4_design(c[7], c[2], c[3], c[4])
+                   == "folded"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,h,hkv,dh,w,causal,dtype", BANDED_CASES)
+@pytest.mark.parametrize("b,t,h,hkv,dh,w,causal,dtype,design",
+                         B4_DESIGN_CASES)
 def test_cuda_b4_matches_plain(cuda_device, b, t, h, hkv, dh, w, causal,
-                               dtype):
+                               dtype, design):
     q, k, v, _ = _banded_inputs(b, t, h, hkv, dh, dtype, cuda_device,
                                 t + w)
-    before = ba.LAUNCHES["banded_attention"]
-    o = ba.banded_attention_fwd(q, k, v, w, causal)
+    before = dict(ba.LAUNCHES_BY_DESIGN)
+    o = ba.banded_attention_fwd(q, k, v, w, causal, design=design)
     # bfloat16 rounds p against the running max of the kernel's key tile
     ref = ba.banded_reference(q, k, v, w, causal, block_k=ba.BAND_TILE)
     torch.cuda.synchronize()
-    assert ba.LAUNCHES["banded_attention"] == before + 1
+    key = ("banded_attention", design)
+    assert ba.LAUNCHES_BY_DESIGN[key] == before[key] + 1
     assert _close(o, ref, dtype, 2e-5)
     if w >= t and causal and dtype == torch.float32:
         # a window past T is causal full-context attention
@@ -1104,6 +1243,59 @@ def test_cuda_b4_autograd_matches_dense(cuda_device):
     for g_, r_ in zip(got, want):
         assert (g_ - r_).abs().max().item() <= \
             1e-4 * r_.abs().max().item()
+
+
+# design 2 of B4 by group and head dim: path_w's shape cut in T, every
+# group and head dim it takes, ragged T, a window past T, bidirectional
+B4_FOLDED_CASES = [
+    # (B, T, H, Hkv, Dh, window, causal)
+    (2, 512, 8, 2, 64, 256, True),       # path_w's widths, T cut
+    (1, 300, 8, 8, 64, 40, True),        # G 1: 128 positions a block
+    (2, 301, 8, 4, 32, 77, True),        # G 2, Dh 32, ragged T
+    (1, 200, 8, 1, 128, 63, False),      # G 8, Dh 128, bidirectional
+    (2, 90, 4, 1, 64, 500, True),        # window past T, G 4
+    (1, 64, 4, 4, 64, 1, True),          # window 1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,hkv,dh,w,causal", B4_FOLDED_CASES)
+def test_cuda_b4_takes_the_folded_design(cuda_device, b, t, h, hkv, dh, w,
+                                         causal):
+    """float32 B4 at Dh 32/64/128 and G 1/2/4/8 runs on design 2 (counted
+    under "folded"), within 2e-5 of the plain version and bit-equal over
+    two launches; design 1 on the same inputs agrees within 2e-5."""
+    q, k, v, _ = _banded_inputs(b, t, h, hkv, dh, torch.float32,
+                                cuda_device, t * 7 + w)
+    before = dict(ba.LAUNCHES_BY_DESIGN)
+    o1, o2 = (ba.banded_attention_fwd(q, k, v, w, causal) for _ in range(2))
+    one = ba.banded_attention_fwd(q, k, v, w, causal, design="ffma")
+    ref = ba.banded_reference(q, k, v, w, causal)
+    torch.cuda.synchronize()
+    key = ("banded_attention", "folded")
+    assert ba.LAUNCHES_BY_DESIGN[key] == before[key] + 2
+    assert torch.equal(o1, o2)
+    assert (o1 - ref).abs().max().item() <= 2e-5
+    assert (o1 - one).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_b4_bf16_and_other_shapes_take_design_1(cuda_device):
+    """bfloat16 (C6: design 1's 64-key tiles round p), head dims other
+    than 32/64/128 and groups other than 1/2/4/8 are counted under design
+    1; design 2 refuses them when named."""
+    for dtype, h, hkv, dh in ((torch.bfloat16, 8, 2, 64),
+                              (torch.float32, 4, 1, 48),
+                              (torch.float32, 6, 2, 64)):
+        q, k, v, _ = _banded_inputs(2, 100, h, hkv, dh, dtype, cuda_device,
+                                    dh)
+        before = dict(ba.LAUNCHES_BY_DESIGN)
+        ba.banded_attention_fwd(q, k, v, 20, True)
+        torch.cuda.synchronize()
+        key = ("banded_attention", "ffma")
+        assert ba.LAUNCHES_BY_DESIGN[key] == before[key] + 1
+        with pytest.raises(ValueError, match="design"):
+            ba.banded_attention_fwd(q, k, v, 20, True, design="folded")
 
 
 @pytest.mark.cuda

@@ -371,10 +371,168 @@ def test_plain_b6_split_merge_gives_zeros_for_a_row_with_no_key():
 
 
 def test_b6_launch_counts_by_design_reset():
+    """The counts of B5/B5q and B6/B6q by design (and B4's) reset, and
+    calls on CPU tensors (the plain versions) leave them at 0."""
     ba.LAUNCHES_BY_DESIGN[("paged_decode_attention", "split")] = 3
     ba.LAUNCHES_BY_DESIGN[("paged_decode_attention_q", "ffma")] = 1
+    ba.LAUNCHES_BY_DESIGN[("banded_decode_attention", "split")] = 2
+    ba.LAUNCHES_BY_DESIGN[("banded_decode_attention_q", "ffma")] = 5
     ba.reset_counts()
     assert set(ba.LAUNCHES_BY_DESIGN.values()) == {0}
     assert set(ba.LAUNCHES_BY_DESIGN) == {
-        (k, d) for k in ("paged_decode_attention", "paged_decode_attention_q")
-        for d in ("ffma", "split")}
+        (k, d) for k in ("paged_decode_attention", "paged_decode_attention_q",
+                         "banded_decode_attention",
+                         "banded_decode_attention_q")
+        for d in ("ffma", "split")} | {
+        ("banded_attention", d) for d in ("ffma", "folded")}
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(rng, 2, 16, 4, 2, 64))
+    pos = torch.tensor([3, 12], dtype=torch.int32)
+    ba.banded_decode_attention(q, k, v, pos, pos, window=8, rolling=True)
+    ba.banded_decode_attention(q, k, v, pos, pos, design="split")
+    assert set(ba.LAUNCHES_BY_DESIGN.values()) == {0}
+    assert set(ba.LAUNCHES.values()) == {0}
+
+
+# ------------------------------------- B5/B5q design 2: choice and splits
+@pytest.mark.parametrize("q_dtype,cache_dtype,h,hkv,dh,want", [
+    (torch.float32, torch.float32, 8, 2, 64, "split"),     # Path B's shape
+    (torch.float32, torch.int8, 8, 2, 64, "split"),        # path_q's
+    (torch.float32, torch.float8_e4m3fn, 8, 2, 64, "split"),
+    (torch.float32, torch.float32, 8, 1, 128, "split"),    # G 8, Dh 128
+    (torch.float32, torch.int8, 6, 2, 128, "split"),       # G 3
+    (torch.bfloat16, torch.bfloat16, 8, 2, 64, "ffma"),    # C6b: row max
+    (torch.bfloat16, torch.int8, 8, 2, 64, "ffma"),
+    (torch.float32, torch.float32, 8, 2, 80, "ffma"),      # Dh not 64/128
+    (torch.float32, torch.float32, 8, 2, 32, "ffma"),
+    (torch.float32, torch.float32, 16, 1, 64, "ffma"),     # G past 8
+])
+def test_b5_design_by_dtypes_and_shape(q_dtype, cache_dtype, h, hkv, dh,
+                                       want):
+    assert ba.b5_design(q_dtype, cache_dtype, h, hkv, dh) == want
+    buf = torch.zeros(4 + 2 * 16 * hkv * dh)     # 8 bytes in: unaligned
+    assert ba.b5_design(q_dtype, cache_dtype, h, hkv, dh,
+                        (buf[2:-2].view(2, 16, hkv, dh),)) == "ffma"
+
+
+# (S, Hkv, L, window, tile keys, C, NSPLIT) on an H100's 132 SMs
+B5_SPLITS = [
+    (8, 2, 2303, 256, 32, 64, 5),      # Path B: the float32 ring
+    (8, 2, 2303, 256, 128, 128, 3),    # path_q: 1-byte codes, a tile each
+    (8, 2, 2048, None, 32, 121, 17),   # linear, no window: L / C blocks
+    (8, 2, 2048, 256, 32, 64, 5),      # linear with Path B's window
+    (1, 1, 2048, None, 32, 64, 32),    # one slot: SPLIT_MIN_KEYS a split
+    (64, 8, 2048, 256, 32, 256, 2),    # enough slots: one chunk, + 1
+    (8, 8, 37, 6, 32, 6, 2),           # a window under a tile
+    (2, 1, 200000, None, 32, 1516, 132),   # a long cache: 2 x 132 blocks
+]
+
+
+@pytest.mark.parametrize("s,hkv,L,window,tile,c,nsplit", B5_SPLITS)
+def test_b5_splits_by_shape(s, hkv, L, window, tile, c, nsplit):
+    got_c, got_n = ba.b5_splits(s, hkv, L, window, H100_SMS, tile)
+    assert (got_c, got_n) == (c, nsplit)
+    assert got_n <= ba.MAX_SPLITS
+    least = min(L if window is None else min(window, L),
+                max(ba.SPLIT_MIN_KEYS, tile))
+    if s * hkv * got_n < 2 * H100_SMS:
+        assert got_c == least or got_n == ba.MAX_SPLITS
+
+
+def test_split_tile_keys_are_one_16_kb_tile():
+    assert ba.split_tile_keys(64, torch.float32) == 32
+    assert ba.split_tile_keys(64, torch.int8) == 128
+    assert ba.split_tile_keys(64, torch.float8_e4m3fn) == 128
+    assert ba.split_tile_keys(128, torch.float32) == 16
+
+
+@pytest.mark.parametrize("s,hkv,L,window,tile,c,nsplit", B5_SPLITS[:5] + [
+    (4, 1, 23, 9, 32, 9, 3), (4, 1, 23, 40, 32, 23, 2)])
+def test_b5_splits_cover_every_visible_position_once(s, hkv, L, window,
+                                                      tile, c, nsplit):
+    """Blocks z < NSPLIT own chunk lo // C + z of a slot's positions; the
+    live ones (those meeting [lo, hi]) hold every visible position once,
+    in order, whatever qpos and end (a ring read across its wrap, end
+    ahead of qpos, qpos 0, -1), and their ring slots are distinct."""
+    c, nsplit = ba.b5_splits(s, hkv, L, window, H100_SMS, tile)
+    rng = np.random.default_rng(L)
+    qpos = np.concatenate([[0, -1, L - 1, L, 3 * L + 1],
+                           rng.integers(0, 4 * L, 40)])
+    for rolling in ((False, True) if window else (False,)):
+        end = qpos + (rng.integers(0, 5, qpos.size) if rolling else 0)
+        lo, hi = ba.decode_range(torch.from_numpy(qpos),
+                                 torch.from_numpy(end), L, window, rolling)
+        vis = ba.visibility(torch.from_numpy(qpos), torch.from_numpy(end),
+                            L, window, rolling)
+        for i in range(qpos.size):
+            a, b = int(lo[i]), int(hi[i])
+            want = list(range(a, b + 1))
+            got = []
+            for z in range(nsplit):
+                c0 = (a // c + z) * c
+                got += list(range(max(a, c0), min(b, c0 + c - 1) + 1))
+            assert got == want
+            slots = [p % L for p in got]
+            assert len(set(slots)) == len(slots)
+            # the same set as the held-index rule
+            assert sorted(slots) == vis[i].nonzero().flatten().tolist()
+
+
+def _slot_pool(rng, shape, kv):
+    """`_pool` for the slot pool: torch codes and scales, JAX's."""
+    return _pool(rng, shape, kv)
+
+
+@pytest.mark.parametrize("split_keys", [3, 8, 64])
+@pytest.mark.parametrize("mode,window,rolling", MODES,
+                         ids=[m[0] for m in MODES])
+@pytest.mark.parametrize("kv", [None, torch.int8, torch.float8_e4m3fn],
+                         ids=["f32", "int8", "fp8"])
+def test_plain_b5_split_merge_matches_jax_kernel(kv, mode, window, rolling,
+                                                 split_keys):
+    """Design 2's arithmetic (`decode_attention_plain(split_keys=C)`: the
+    chunks of C positions aligned to multiples of C, merged in order)
+    against JAX's slot-pool kernel in interpret mode, at 1e-5: linear,
+    windowed and rolling caches (the ring wrapped, end ahead of qpos on
+    one slot), float32 caches and int8 / e4m3 codes with scale rows; a
+    NaN query comes out NaN on both."""
+    rng = np.random.default_rng([split_keys, len(mode)])
+    S, L, H, Hkv, Dh = 6, 24, 4, 2, 8
+    q = rng.standard_normal((S, H, Dh)).astype(np.float32)
+    q[5] = np.nan
+    ck, sk, jck, jsk = _slot_pool(rng, (S, L, Hkv, Dh), kv)
+    cv, sv, jcv, jsv = _slot_pool(rng, (S, L, Hkv, Dh), kv)
+    if rolling:
+        qpos = np.array([0, 3, 23, 24, 37, 90], np.int32)
+        end = qpos + np.array([0, 2, 0, 5, 0, 0], np.int32)
+    else:
+        qpos = np.array([0, 3, 7, 12, 23, 20], np.int32)
+        end = qpos.copy()
+    want = np.asarray(jax_banded_decode(
+        jnp.asarray(q), jck, jcv, jnp.asarray(qpos), jnp.asarray(end),
+        window=window, rolling=rolling, block_l=8, interpret=True,
+        scale_k=jsk, scale_v=jsv))
+    got = ba.decode_attention_plain(
+        torch.from_numpy(q), ck, cv, torch.from_numpy(qpos),
+        torch.from_numpy(end), window, rolling, scale_k=sk, scale_v=sv,
+        split_keys=split_keys).numpy()
+    assert np.isnan(want[5]).all() and np.isnan(got[5]).all()
+    np.testing.assert_allclose(got[:5], want[:5], **TOL)
+
+
+def test_plain_b5_split_merge_gives_zeros_for_a_row_with_no_key():
+    """Design 2 writes zeros where no key is visible (end -1 on the
+    ring), as design 1 does; the unsplit plain version leaves such rows
+    as garbage by contract."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(rng, 2, 16, 4, 2, 8))
+    qpos = torch.tensor([0, 20], dtype=torch.int32)
+    end = torch.tensor([-1, 20], dtype=torch.int32)
+    got = ba.decode_attention_plain(q, k, v, qpos, end, 6, True,
+                                    split_keys=4)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = ba.decode_attention_plain(q, k, v, qpos, end, 6, True)
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), **TOL)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ba.decode_attention_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                  qpos, end, 6, True, split_keys=4)

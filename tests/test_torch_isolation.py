@@ -20,6 +20,9 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "torch_b3a_exp_forms.py",
     ROOT / "tools" / "torch_path_l_steps.py",
     ROOT / "tools" / "torch_b6_splits.py",
+    ROOT / "tools" / "torch_b5_splits.py",
+    ROOT / "tools" / "torch_b5_phases.py",
+    ROOT / "tools" / "torch_b4_exp_forms.py",
     ROOT / "tools" / "torch_b2c_phases.py",
     ROOT / "tools" / "torch_lstm_graph.py"]
 

@@ -3,6 +3,7 @@
 
     python3 tools/torch_decode_profile.py [--kv-dtype native|int8|fp8]
                                           [--b6-design auto|ffma|both]
+                                          [--b5-design auto|ffma|both]
 
 Builds the two serving paths of `chip_smoke.py` (Path A: the 6-block
 GPT-style transformer at d_model 512 on the paged pool and kernel B6;
@@ -13,13 +14,14 @@ each path it prints one JSON line: the wave's wall time, the time the
 card was busy (the union of kernel intervals), the idle share, kernel
 launches per generated token, and device time by kernel class
 (the decode-attention kernels, their quantized variants B5q/B6q,
-each with `_split` where design 2 of B6/B6q ran, matrix products,
-everything else) and for the ten costliest kernels.
+each with `_split` where design 2 ran, matrix products, everything
+else) and for the ten costliest kernels.
 `--kv-dtype int8` or `fp8` serves both paths from a quantized pool (int8
 or e4m3 codes with float32 scale rows), so B5q and B6q carry the decode
 steps. `--b6-design ffma` keeps B6/B6q on design 1 where `b6_design`
 would pick design 2; `both` profiles Path A on design 2 and then on
-design 1 in the same run (Path B has no B6). Needs a CUDA card.
+design 1 in the same run (Path B has no B6). `--b5-design` does the same
+for B5/B5q on Path B (`b5_design`). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ def busy_us(kernels):
 def kernel_class(name):
     if "decode_attention" in name:
         # the cache type is a template argument; design 2 of B6/B6q is
-        # `split::paged_decode_attention_split_kernel`
+        # `split::paged_decode_attention_split_kernel`, of B5/B5q
+        # `split::decode_attention_split_kernel`
         quant = "signed char" in name or "fp8" in name
         return "decode_attention" + ("_q" if quant else "") \
             + ("_split" if "split" in name else "")
@@ -77,7 +80,7 @@ def kernel_class(name):
 
 
 def profile_path(name, net, prompts, greedy, max_tokens, kv_dtype=None,
-                 b6_design="auto"):
+                 designs=None):
     from torch.profiler import ProfilerActivity, profile
 
     registry, sched, mgr = cs.control_plane(net, slots=8, chunk=128, k=8,
@@ -120,25 +123,25 @@ def profile_path(name, net, prompts, greedy, max_tokens, kv_dtype=None,
         "top_kernels": [{"name": n[:120], "count": c, "ms": t / 1e3}
                         for n, (c, t) in top],
         "tokens_per_s_traced": wave["tokens_per_s"],
-        "b6_design": b6_design,
+        **(designs or {}),
     }
     cs.emit(row)
     return row
 
 
 @contextlib.contextmanager
-def b6_forced(design):
-    """`b6_design` answering "ffma" for every call (design 1), or left as
-    it is ("auto")."""
+def forced(chooser, design):
+    """`ba.<chooser>` (`b6_design` or `b5_design`) answering "ffma" for
+    every call (design 1), or left as it is ("auto")."""
     from deeplearning4j_tpu_torch.ops import banded_attention as ba
 
-    saved = ba.b6_design
+    saved = getattr(ba, chooser)
     if design == "ffma":
-        ba.b6_design = lambda *a, **k: "ffma"
+        setattr(ba, chooser, lambda *a, **k: "ffma")
     try:
         yield
     finally:
-        ba.b6_design = saved
+        setattr(ba, chooser, saved)
 
 
 def main() -> int:
@@ -147,8 +150,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kv-dtype", choices=("native", "int8", "fp8"),
                     default="native")
-    ap.add_argument("--b6-design", choices=("auto", "ffma", "both"),
-                    default="auto")
+    for flag in ("--b6-design", "--b5-design"):
+        ap.add_argument(flag, choices=("auto", "ffma", "both"),
+                        default="auto")
     args = ap.parse_args()
     kv = args.kv_dtype
     if not torch.cuda.is_available():
@@ -162,15 +166,18 @@ def main() -> int:
     stem = rng.integers(0, 256, 1024)
     warm = [np.concatenate([stem, rng.integers(0, 256, 8)])
             for _ in range(8)]
-    designs = {"auto": ["auto"], "ffma": ["ffma"],
-               "both": ["auto", "ffma"]}[args.b6_design]
-    for design in designs:
-        with b6_forced(design):
-            profile_path("path_a", net_a, warm, greedy, 32, kv, design)
+    designs = {"auto": ["auto"], "ffma": ["ffma"], "both": ["auto", "ffma"]}
+    for design in designs[args.b6_design]:
+        with forced("b6_design", design):
+            profile_path("path_a", net_a, warm, greedy, 32, kv,
+                         {"b6_design": design})
     del net_a
     net_b = cs.build_path_b_net("cuda")
     long = [rng.integers(0, 256, 2240) for _ in range(8)]
-    profile_path("path_b", net_b, long, greedy, 32, kv)
+    for design in designs[args.b5_design]:
+        with forced("b5_design", design):
+            profile_path("path_b", net_b, long, greedy, 32, kv,
+                         {"b5_design": design})
     return 0
 
 
