@@ -41,7 +41,8 @@ exits non-zero with no result line:
      holds and times design 1 on the same inputs (`ffma_ms`) and checks
      two launches of design 2 bit-equal;
    - the fused Adam B1a over the training path's leaves and odd sizes,
-     float32 and bfloat16, steps 1 and 1000, against
+     float32 and bfloat16, steps 1 and 1000, and over LeNet's bfloat16
+     leaves (`path_m`), against
      `torch.optim.Adam(fused=True)` (which puts ε inside the bias
      correction: a time yardstick, not the same function);
    - the fused LSTM forward B2a (with residuals) and B2b (inference) and
@@ -123,7 +124,18 @@ exits non-zero with no result line:
     plain batch norms), as information;
 12. resnet_parity: the fused ResNet-50 at 64x64, batch 16, float32 (B7
     on design 1): two Nesterovs steps on the card against the CPU, then
-    `output()` of both on the card's trained weights.
+    `output()` of both on the card's trained weights;
+13. path_m: LeNet as a user drives it (the zoo's LeNet, bfloat16 as
+    `bench.py` trains it, its default Adam(1e-3): B1a once a step) on the
+    port's `MnistDataSetIterator` (synthetic unless MNIST files are
+    present) at batch 1024: 4 batches x 3 epochs = 12 steps through
+    `net.fit`, steps 2-12 under the same sync guard; `evaluate()` over the
+    10,000-image test split against the card's argmax of `output()` on the
+    same batches; `save_model` / `load_model` onto the card, `output()`
+    bit-equal;
+14. lenet_parity: LeNet in float32 at batch 64, 8 steps, card against
+    CPU from the same JSON and weights, under Sgd, Adam (B1a) and
+    Nesterovs (B1b).
 
 Weights are random, from fixed seeds. Each path resets the kernels'
 launch counts just before it runs and reads them just after; a kernel
@@ -969,74 +981,81 @@ def adam_bound(n, esize):
 def run_adam_phase(flush, gen):
     """B1a against its plain version over the training path's real
     leaves (default hyperparameters) and odd sizes (non-default ones),
-    float32 and bfloat16, at steps 1 and 1000."""
+    float32 and bfloat16, at steps 1 and 1000; then over LeNet's 8
+    bfloat16 leaves (`path_m`'s update: 431,080 parameters, Adam(1e-3),
+    step 12), with its own time, bound and `Adam(fused=True)` time."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import fused_update as fu
     from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
 
     dev = flush.device
     net = build_net("cuda", num_blocks=6, seed=3)
     real = [tuple(p.shape) for p in tree_leaves(net.params_tree)]
+    net = MultiLayerNetwork(lenet_conf(), device="cuda").init()
+    lenet = [tuple(p.shape) for p in tree_leaves(net.params_tree)]
     del net
     odd = [(1,), (127,), (4097,), ((1 << 20) + 3,)]
     rows = []
-    for dt in (torch.float32, torch.bfloat16):
-        for step in (1, 1000):
-            for leafset, hyper in (("real", (0.9, 0.999, 1e-8)),
-                                   ("odd", (0.8, 0.99, 1e-6))):
-                shapes = real if leafset == "real" else odd
-                b1, b2, eps = hyper
-                t = step + 1
-                lrbc = torch.tensor(3e-4 * (1 - b2 ** t) ** 0.5
-                                    / (1 - b1 ** t), device=dev)
-                leaves = [(torch.randn(s, generator=gen).to(dev, dt),
-                           torch.randn(s, generator=gen).to(dev, dt),
-                           (0.1 * torch.randn(s, generator=gen)).to(dev, dt),
-                           torch.rand(s, generator=gen).to(dev, dt))
-                          for s in shapes]
-                ref = [fu.adam_update_plain(*leaf, lrbc, beta1=b1, beta2=b2,
-                                            eps=eps) for leaf in leaves]
-                fu.adam_update(*zip(*leaves), lrbc, beta1=b1, beta2=b2,
-                               eps=eps)
-                torch.cuda.synchronize()
-                rtol = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -22
-                err, ok = 0.0, True
-                for (p, _, m, v), r in zip(leaves, ref):
-                    for got, want in zip((p, m, v), r):
-                        d = (got.float() - want.float()).abs()
-                        err = max(err, d.max().item())
-                        ok = ok and bool((d <= rtol * want.float().abs())
-                                         .all())
-                check(ok, f"adam_update {leafset} {dt} step {step}: max "
-                      f"abs err {err} past {rtol} of |ref|")
-                n = sum(p.numel() for p, *_ in leaves)
-                main = leafset == "real" and dt == torch.float32 \
-                    and step == 1000
-                row = {"phase": "kernels", "kernel": "adam_update",
-                       "dtype": str(dt).replace("torch.", ""), "step": step,
-                       "leaves": leafset, "n_leaves": len(leaves),
-                       "elements": n, "beta1": b1, "beta2": b2, "eps": eps,
-                       "max_abs_err": err, "rtol": rtol,
-                       "main_path_shape": main}
-                row["bound_ms"], row["bound_by"] = adam_bound(
-                    n, leaves[0][0].element_size())
-                lists = list(zip(*leaves))
-                row["ms"] = time_ms(lambda: fu.adam_update(
-                    *lists, lrbc, beta1=b1, beta2=b2, eps=eps), flush)
-                if leafset == "real":
-                    row["plain_ms"] = time_ms(lambda: [
-                        fu.adam_update_plain(*leaf, lrbc, beta1=b1,
-                                             beta2=b2, eps=eps)
-                        for leaf in leaves], flush, iters=10)
-                    ps = [torch.nn.Parameter(p) for p, *_ in leaves]
-                    for prm, (_, g, _, _) in zip(ps, leaves):
-                        prm.grad = g
-                    opt = torch.optim.Adam(ps, lr=3e-4, betas=(b1, b2),
-                                           eps=eps, fused=True)
-                    row["library_ms"] = time_ms(opt.step, flush)
-                    del opt, ps
-                emit(row)
-                rows.append(row)
-                del leaves, ref, lists
+    cases = [(dt, step, leafset, hyper, 3e-4)
+             for dt in (torch.float32, torch.bfloat16) for step in (1, 1000)
+             for leafset, hyper in (("real", (0.9, 0.999, 1e-8)),
+                                    ("odd", (0.8, 0.99, 1e-6)))]
+    cases.append((torch.bfloat16, 12, "lenet", (0.9, 0.999, 1e-8), 1e-3))
+    for dt, step, leafset, hyper, lr in cases:
+        shapes = {"real": real, "odd": odd, "lenet": lenet}[leafset]
+        b1, b2, eps = hyper
+        t = step + 1
+        lrbc = torch.tensor(lr * (1 - b2 ** t) ** 0.5
+                            / (1 - b1 ** t), device=dev)
+        leaves = [(torch.randn(s, generator=gen).to(dev, dt),
+                   torch.randn(s, generator=gen).to(dev, dt),
+                   (0.1 * torch.randn(s, generator=gen)).to(dev, dt),
+                   torch.rand(s, generator=gen).to(dev, dt))
+                  for s in shapes]
+        ref = [fu.adam_update_plain(*leaf, lrbc, beta1=b1, beta2=b2,
+                                    eps=eps) for leaf in leaves]
+        fu.adam_update(*zip(*leaves), lrbc, beta1=b1, beta2=b2,
+                       eps=eps)
+        torch.cuda.synchronize()
+        rtol = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -22
+        err, ok = 0.0, True
+        for (p, _, m, v), r in zip(leaves, ref):
+            for got, want in zip((p, m, v), r):
+                d = (got.float() - want.float()).abs()
+                err = max(err, d.max().item())
+                ok = ok and bool((d <= rtol * want.float().abs())
+                                 .all())
+        check(ok, f"adam_update {leafset} {dt} step {step}: max "
+              f"abs err {err} past {rtol} of |ref|")
+        n = sum(p.numel() for p, *_ in leaves)
+        main = leafset == "real" and dt == torch.float32 \
+            and step == 1000
+        row = {"phase": "kernels", "kernel": "adam_update",
+               "dtype": str(dt).replace("torch.", ""), "step": step,
+               "leaves": leafset, "n_leaves": len(leaves),
+               "elements": n, "beta1": b1, "beta2": b2, "eps": eps,
+               "max_abs_err": err, "rtol": rtol,
+               "main_path_shape": main}
+        row["bound_ms"], row["bound_by"] = adam_bound(
+            n, leaves[0][0].element_size())
+        lists = list(zip(*leaves))
+        row["ms"] = time_ms(lambda: fu.adam_update(
+            *lists, lrbc, beta1=b1, beta2=b2, eps=eps), flush)
+        if leafset != "odd":
+            row["plain_ms"] = time_ms(lambda: [
+                fu.adam_update_plain(*leaf, lrbc, beta1=b1,
+                                     beta2=b2, eps=eps)
+                for leaf in leaves], flush, iters=10)
+            ps = [torch.nn.Parameter(p) for p, *_ in leaves]
+            for prm, (_, g, _, _) in zip(ps, leaves):
+                prm.grad = g
+            opt = torch.optim.Adam(ps, lr=lr, betas=(b1, b2),
+                                   eps=eps, fused=True)
+            row["library_ms"] = time_ms(opt.step, flush)
+            del opt, ps
+        emit(row)
+        rows.append(row)
+        del leaves, ref, lists
     return rows
 
 
@@ -1925,7 +1944,7 @@ def read_all_counts():
 
 
 def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
-              loss_must_fall=True):
+              loss_must_fall=True, per_epoch=None):
     """`net.fit(batches, epochs)` with every launch count zeroed just
     before and read just after. Step times come from CUDA events recorded
     after each step is enqueued, beside the host's time fetching each
@@ -1934,7 +1953,8 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
     the fit has returned. Checks the step count, finite losses and (unless
     `loss_must_fall` is false) a falling epoch mean loss; returns the
     measurements common to the training paths, the rate counted in
-    `unit` (`tokens_per_step` of them a step)."""
+    `unit` (`tokens_per_step` of them a step). `batches` is a list of
+    DataSets or an iterator of `per_epoch` batches an epoch."""
     from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
 
     class Clock(TrainingListener):
@@ -1983,7 +2003,7 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
     steps = len(losses)
     ev = clock.events
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
-    per_epoch = len(batches)
+    per_epoch = per_epoch or len(batches)
     epoch_loss = [float(np.mean(losses[i:i + per_epoch]))
                   for i in range(0, steps, per_epoch)]
     check(steps == epochs * per_epoch, f"{name}: {steps} steps ran")
@@ -2631,6 +2651,176 @@ def resnet_parity(rng, tol_first=1e-4, tol_loss=2e-2, tol_param=5e-3,
     return row
 
 
+# ------------------------------------------------------------ LeNet (A1a)
+LENET_LEAVES = 431_080        # LeNet's parameters: 8 leaves, 28x28x1 input
+
+
+def lenet_conf(dtype="bfloat16", updater=None, seed=123):
+    """The zoo's LeNet (its default Adam(1e-3) unless `updater`) with its
+    dtype replaced, as `bench.py`'s `_bench_lenet` builds it."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    kw = {} if updater is None else {"updater": updater}
+    return dataclasses.replace(LeNet(seed=seed, **kw).conf(), dtype=dtype)
+
+
+def path_m(epochs=3, batch=1024, batches_per_epoch=4):
+    """LeNet as a MultiLayerNetwork, as a user drives it: the zoo's LeNet
+    in bfloat16 with its default Adam(1e-3) (B1a once a step) on the
+    port's `MnistDataSetIterator` (the synthetic surrogate when no MNIST
+    files are present) at batch 1024, 4 batches x 3 epochs = 12 steps
+    through `net.fit` (`timed_fit`); then `evaluate()` on the 10,000-image
+    test split, held to the card's own argmax of `output()` over the same
+    batches (the same forward at the same shapes, so the same classes),
+    and a `save_model` / `load_model` round trip onto the card whose
+    `output()` must equal the saved net's bit for bit."""
+    import os
+    import tempfile
+
+    from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.models.serialize import (
+        load_model, save_model,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    net = MultiLayerNetwork(lenet_conf(), device="cuda").init()
+    check(net.conf.updater == Adam(1e-3),
+          f"path_m: zoo updater is {net.conf.updater}, not Adam(1e-3)")
+    check(net.dtype == torch.bfloat16 and net.num_params() == LENET_LEAVES,
+          f"path_m: {net.dtype}, {net.num_params()} parameters")
+    train = MnistDataSetIterator(batch, num_examples=batches_per_epoch
+                                 * batch, seed=0)
+    fit = timed_fit("path_m", net, train, epochs, batch, unit="images",
+                    per_epoch=batches_per_epoch)
+    steps, launches = fit["steps"], fit["launches"]
+    check(launches["adam_update"] == steps,
+          f"path_m: adam_update launched {launches['adam_update']} times, "
+          f"want one a step x {steps}")
+    row = {"phase": "path_m", "model": "LeNet", "input": [28, 28, 1],
+           "classes": 10, "parameters": net.num_params(), "batch": batch,
+           "dtype": "bfloat16", "updater": str(net.conf.updater),
+           "data": "synthetic" if train.synthetic else "MNIST files",
+           **fit}
+    print(f"path_m: MNIST {row['data']}", flush=True)
+
+    test = MnistDataSetIterator(batch, train=False, shuffle=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = net.evaluate(test)
+    row["evaluate_s"] = time.perf_counter() - t0
+    cm = ev.confusion.matrix
+    hits = torch.zeros((), dtype=torch.int64, device="cuda")
+    n_test = 0
+    for ds in test:
+        lab = torch.as_tensor(ds.labels.argmax(-1), device="cuda")
+        hits += (torch.argmax(net.output(ds.features), -1) == lab).sum()
+        n_test += ds.num_examples()
+    row.update(test_examples=n_test, accuracy=ev.accuracy(),
+               correct=int(np.trace(cm)), correct_by_output=int(hits))
+    check(int(cm.sum()) == n_test == 10000,
+          f"path_m: the confusion matrix counts {int(cm.sum())} of "
+          f"{n_test} examples")
+    check(row["correct"] == row["correct_by_output"],
+          f"path_m: evaluate() counts {row['correct']} right, argmax of "
+          f"output() on the card {row['correct_by_output']}")
+
+    xb = next(iter(test)).features
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lenet.zip")
+        t0 = time.perf_counter()
+        save_model(net, path)
+        back = load_model(path, device="cuda")
+        torch.cuda.synchronize()
+        row["save_load_s"] = time.perf_counter() - t0
+        row["model_file_bytes"] = os.path.getsize(path)
+    check(back.device == net.device and back.dtype == torch.bfloat16
+          and (back.iteration, back.epoch) == (net.iteration, net.epoch),
+          f"path_m: reloaded {back.device} {back.dtype} at iteration "
+          f"{back.iteration}, epoch {back.epoch}")
+    check(torch.equal(back.output(xb), net.output(xb)),
+          "path_m: the reloaded net's output() differs from the saved one's")
+    row["reload_output_bit_equal"] = True
+    emit(row)
+    del net, back
+    torch.cuda.empty_cache()
+    return row
+
+
+def lenet_parity(rng, steps=8, batch=64, tol_loss=1e-5, tol_param=1e-5):
+    """LeNet in float32 on the card against the CPU (plain versions), TF32
+    off: the same configuration JSON and the same weights (the seeded
+    init runs on the CPU for both), `steps` steps of `fit` on one fixed
+    batch of 64, under Sgd(0.1), Adam (B1a on the card) and Nesterovs
+    (B1b). Adam's ε is 1e-3, as in `train_parity`: at 1e-8 a near-zero
+    gradient's first update is ±lr whatever its size. Losses within
+    `tol_loss` relative and every parameter within `tol_param` absolute,
+    as `train_parity`. The whole batch is one step: on halves of it
+    Sgd(0.1) is chaotic (float32 against float64 on the CPU drift from
+    1e-7 to 1.4e-4 apart by the 14th step), while on the whole batch they
+    stay within 1e-7 over the 8 steps under all three updaters."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.optim.listeners import (
+        CollectScoresIterationListener,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import (
+        Adam, Nesterovs, Sgd, tree_leaves,
+    )
+
+    ds = DataSet(rng.random((batch, 784), dtype=np.float32),
+                 np.eye(10, dtype=np.float32)[rng.integers(0, 10, batch)])
+    kernels = {"sgd": None, "adam": "adam_update",
+               "nesterovs": "nesterov_update"}
+    updaters = {"sgd": Sgd(0.1), "adam": Adam(1e-3, epsilon=1e-3),
+                "nesterovs": Nesterovs(0.01, 0.9)}
+    row = {"phase": "lenet_parity", "dtype": "float32", "batch": batch,
+           "steps": steps, "tol_loss_rel": tol_loss,
+           "tol_param_abs": tol_param}
+    for name, u in updaters.items():
+        js = lenet_conf("float32", updater=u).to_json()
+        losses, leaves = {}, {}
+        for d in ("cuda", "cpu"):
+            net = MultiLayerNetwork(MultiLayerConfiguration.from_json(js),
+                                    device=d).init()
+            scores = CollectScoresIterationListener()
+            net.listeners.append(scores)
+            reset_all_counts()
+            net.fit(ds, epochs=steps, batch_size=batch)
+            if d == "cuda":
+                launches, plain = read_all_counts()
+                check(sum(plain.values()) == 0,
+                      f"lenet_parity {name}: plain versions on CUDA: {plain}")
+                for k in ("adam_update", "nesterov_update"):
+                    want = steps if k == kernels[name] else 0
+                    check(launches[k] == want,
+                          f"lenet_parity {name}: {k} launched "
+                          f"{launches[k]} times, want {want}")
+            losses[d] = [sc for _, sc in scores.scores]
+            leaves[d] = [p.float().cpu() for p in tree_leaves(net.params_tree)]
+        rels = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                    losses["cpu"])]
+        rel = max(rels)
+        dp = max((a - b).abs().max().item()
+                 for a, b in zip(leaves["cuda"], leaves["cpu"]))
+        check(len(rels) == steps, f"lenet_parity {name}: {len(rels)} steps")
+        check(rel <= tol_loss, f"lenet_parity {name}: losses {losses} "
+              f"differ by {rel} relative")
+        check(dp <= tol_param, f"lenet_parity {name}: parameters differ by "
+              f"{dp}")
+        check(losses["cuda"][-1] < losses["cuda"][0],
+              f"lenet_parity {name}: loss did not fall: {losses['cuda']}")
+        row[name] = {"updater": str(u), "losses": losses,
+                     "loss_rel_err": rel, "loss_rel_err_by_step": rels,
+                     "max_param_abs_err": dp,
+                     "kernel": kernels[name]}
+    emit(row)
+    return row
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2691,6 +2881,8 @@ def main() -> int:
     path_r(images, fused=False)
     del images
     resnet_parity(rng)
+    m = path_m()
+    lenet_parity(rng)
 
     b5q = {"banded_decode_attention_q":
            qb_fp8["launches"]["banded_decode_attention_q"]
@@ -2724,6 +2916,12 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"]})
+        if name == "adam_update":
+            lenet = next(r for r in mine if r["leaves"] == "lenet")
+            summary[-1]["launches_path_m"] = m["launches"][name]
+            summary[-1]["path_m"] = {k: lenet[k] for k in (
+                "dtype", "elements", "n_leaves", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "max_abs_err")}
         if name in FLASH_KERNELS:
             f32 = mains[0]
             summary[-1].update(

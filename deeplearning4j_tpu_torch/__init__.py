@@ -16,7 +16,12 @@ with the slot and paged decode-attention kernels (B5, B6), and the
 session manager over the continuous-batching scheduler. Slice 2 trains
 the same model: losses, updaters, schedules, listeners, the fit loop
 and data iterators, with flash attention forward and backward (B3a,
-B3b, B3c) and the fused multi-tensor Adam (B1a).
+B3b, B3c) and the fused multi-tensor Adam (B1a). Later slices add the
+recurrent family, sliding-window attention, quantized KV caches and
+ResNet-50 with fused conv+BN; slice 13 the CNN zoo (LeNet, SimpleCNN,
+VGG), the canned datasets, evaluation (`eval/`, `predict` and
+`evaluate*` on both runtimes), model files both packages read
+(`models/serialize.py`), gradient checks and early stopping.
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,8 @@
 `deeplearning4j_tpu/models/computation_graph.py`): `init` with per-vertex
 updaters, the forward fold over the topological order, the loss (the
 sum of the output layers' scores, regularization and any vertex's
-`aux_loss`), the train step, `fit`, `output` and `score`.
+`aux_loss`), the train step, `fit`, `output`, `score`, and evaluation
+(`predict`, `evaluate*`).
 
 Parameters, states and updater states are dicts keyed by vertex name,
 each a dict of tensors keyed like the JAX trees, so
@@ -27,7 +28,7 @@ and one output.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,8 +38,8 @@ from deeplearning4j_tpu_torch.data.iterators import (
     DevicePrefetchIterator, as_iterator,
 )
 from deeplearning4j_tpu_torch.models.multilayer import (
-    _DTYPES, _as_tensor, _grad_and_update, _refuse, _to_device,
-    _updater_groups,
+    _DTYPES, _argmax_i32, _as_tensor, _grad_and_update, _host, _refuse,
+    _to_device, _updater_groups,
 )
 from deeplearning4j_tpu_torch.nn.graph import (
     ComputationGraphConfiguration, LayerVertex, resolve_output_type,
@@ -48,7 +49,7 @@ from deeplearning4j_tpu_torch.optim.executor import (
 )
 from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
 from deeplearning4j_tpu_torch.optim.updaters import (
-    NoOp, Updater, resolve_updater, tree_map,
+    NoOp, Updater, resolve_updater, tree_leaves, tree_map,
 )
 from deeplearning4j_tpu_torch.utils.device import resolve_device
 
@@ -285,10 +286,15 @@ class ComputationGraph:
         it = DevicePrefetchIterator(as_iterator(data, labels, batch_size),
                                     self._put_batch)
         self._loss_tracker.sync_every = int(sync_every)
-        self._step_t = torch.full((), self.iteration, dtype=torch.int64,
-                                  device=self.device)
+        self._start_steps()
         TrainingExecutor(self, step=self._fit_batch).run(it, epochs)
         return self
+
+    def _start_steps(self):
+        """Fill the device step counter from `iteration` (a fill, no
+        copy), as `MultiLayerNetwork._start_steps`."""
+        self._step_t = torch.full((), self.iteration, dtype=torch.int64,
+                                  device=self.device)
 
     def _fit_batch(self, ds: DataSet):
         """One train step on one batch; returns the device loss."""
@@ -337,3 +343,124 @@ class ComputationGraph:
         loss, _ = self._loss(self.params_tree, self.state_tree, feats, labs,
                              fmasks, lmasks, None, train=False)
         return float(loss)
+
+    # ------------------------------------------------------- evaluation
+    def predict(self, *xs):
+        """Argmax class predictions (int32), one array per output."""
+        out = self.output(*xs)
+        if isinstance(out, list):
+            return [_argmax_i32(o).cpu().numpy() for o in out]
+        return _argmax_i32(out).cpu().numpy()
+
+    def _first_output_host(self, x) -> np.ndarray:
+        out = self.output(x)
+        return _host(out[0] if isinstance(out, list) else out)
+
+    def _head_index(self, output_name: Optional[str]) -> int:
+        order = list(self.conf.network_outputs)
+        if output_name is None:
+            return 0
+        if output_name not in order:
+            raise ValueError(
+                f"Unknown output {output_name!r}; graph outputs: {order}")
+        return order.index(output_name)
+
+    def evaluate(self, iterator, output_name: Optional[str] = None):
+        """Classification metrics of one head (the first output by
+        default) over an iterator of DataSets, whose labels belong to
+        that head. For plain per-example labels the argmax runs ON THE
+        DEVICE and only int32 class indices cross to the host; masked or
+        time-series labels take the full output. RecordMetaData from a
+        meta-collecting iterator flows into per-example Prediction
+        records."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+
+        self._check_init()
+        idx = self._head_index(output_name)
+
+        def head(out):
+            return out[idx] if isinstance(out, list) else out
+
+        ev = Evaluation()
+        for ds in iterator:
+            meta = getattr(iterator, "last_meta", None)
+            lab = np.asarray(ds.labels)
+            mask = ds.labels_mask
+            o = head(self.output(ds.features))
+            if lab.ndim == 3 or mask is not None:
+                ev.eval(lab, _host(o), mask=mask,
+                        record_meta=None if lab.ndim == 3 else meta)
+                continue
+            pred = _argmax_i32(o).cpu().numpy()
+            actual = (lab.argmax(-1) if lab.ndim == 2
+                      else lab.astype(np.int64))
+            n = lab.shape[-1] if lab.ndim == 2 else int(o.shape[-1])
+            ev.eval_indices(actual, pred, num_classes=n, record_meta=meta)
+        return ev
+
+    def evaluate_outputs(self, iterator,
+                         output_names: Optional[Sequence[str]] = None
+                         ) -> Dict[str, Any]:
+        """Per-output metrics in one forward pass a batch:
+        {output_name: Evaluation}. DataSet batches carry one labels
+        array, so they evaluate one head (MultiDataSet batches, labels
+        per output, are not ported)."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+
+        self._check_init()
+        order = list(self.conf.network_outputs)
+        names = list(output_names) if output_names is not None else order
+        for n in names:
+            if n not in order:
+                raise ValueError(
+                    f"Unknown output {n!r}; graph outputs: {order}")
+        if len(order) > 1 and len(names) != 1:
+            raise ValueError(
+                "DataSet batches carry ONE labels array; evaluating "
+                f"{len(names)} heads of a multi-output graph needs "
+                "MultiDataSet batches (labels per output)")
+        evals = {n: Evaluation() for n in names}
+        for ds in iterator:
+            outs = self.output(ds.features)
+            if not isinstance(outs, list):
+                outs = [outs]
+            meta = getattr(iterator, "last_meta", None)
+            lab = np.asarray(ds.labels)
+            for n in names:
+                evals[n].eval(
+                    lab, _host(outs[order.index(n)]), mask=ds.labels_mask,
+                    record_meta=None if lab.ndim == 3 else meta)
+        return evals
+
+    def evaluate_regression(self, iterator):
+        """Reference: `ComputationGraph.evaluateRegression`."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        from deeplearning4j_tpu_torch.eval.regression import (
+            RegressionEvaluation,
+        )
+
+        self._check_init()
+        return Evaluation.run_evaluation(RegressionEvaluation(), iterator,
+                                         self._first_output_host)
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 0):
+        """Binary ROC over the first output. Reference: evaluateROC."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        from deeplearning4j_tpu_torch.eval.roc import ROC
+
+        self._check_init()
+        return Evaluation.run_evaluation(ROC(threshold_steps), iterator,
+                                         self._first_output_host)
+
+    def evaluate_roc_multi_class(self, iterator):
+        """Reference: evaluateROCMultiClass."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        from deeplearning4j_tpu_torch.eval.roc import ROCMultiClass
+
+        self._check_init()
+        return Evaluation.run_evaluation(ROCMultiClass(), iterator,
+                                         self._first_output_host)
+
+    def num_params(self) -> int:
+        self._check_init()
+        return sum(p.numel() for p in tree_leaves(self.params_tree))

@@ -1,14 +1,16 @@
 """MultiLayerNetwork — the sequential-stack runtime of the PyTorch port
 (port of `deeplearning4j_tpu/models/multilayer.py`): inference, the
 slot-indexed serving sessions, stateful stepping of recurrent stacks
-(`rnn_time_step`), and training (`init` with updaters, `make_step_fn`,
-`fit` with truncated BPTT, `score`).
+(`rnn_time_step`), training (`init` with updaters, `make_step_fn`,
+`fit` with truncated BPTT, `score`) and evaluation (`predict`,
+`evaluate*`: the argmax on the device, class indices to the host).
 
 Parameters are a dict of per-layer tensor dicts (nested for the
 bidirectional wrappers) keyed exactly like the JAX `params_tree`, so `models.convert.params_from_numpy` loads a JAX
 net's weights unchanged; `updater_state` mirrors JAX's per-layer
-updater state, loaded by `updater_state_from_numpy`. The net lives on
-one device: CUDA unless the caller passes `device="cpu"`.
+updater state, loaded by `updater_state_from_numpy`; `state_tree` holds
+the batch-norm running statistics, which every forward reads. The net
+lives on one device: CUDA unless the caller passes `device="cpu"`.
 
 A train step takes gradients with `torch.autograd.grad` over detached
 copies of the parameter leaves, then updates parameters and optimizer
@@ -100,6 +102,21 @@ def _to_device(a, dtype, device) -> Optional[torch.Tensor]:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor as a host numpy array (bfloat16 as float32,
+    which numpy lacks)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def _argmax_i32(y: torch.Tensor) -> torch.Tensor:
+    """Class indices of the last axis, on `y`'s device, as int32 (what
+    crosses to the host in `evaluate`)."""
+    return torch.argmax(y, dim=-1).to(torch.int32)
 
 
 def _norm(tree) -> torch.Tensor:
@@ -240,7 +257,7 @@ class MultiLayerNetwork:
                 it = self.conf.preprocessors[i].output_type(it)
             p, st = layer.init_params(gen, it, self.dtype)
             params[layer.name] = tree_map(lambda v: v.to(self.device), p)
-            states[layer.name] = st
+            states[layer.name] = tree_map(lambda v: v.to(self.device), st)
             if st:
                 self._stateful.add(layer.name)
             if it is not None:
@@ -272,16 +289,24 @@ class MultiLayerNetwork:
 
     # ---------------------------------------------------------- forward
     def _forward(self, params, x, *, train: bool = False, rng=None,
-                 fmask=None, carries=None, stop: Optional[int] = None):
+                 fmask=None, carries=None, stop: Optional[int] = None,
+                 states=None):
         """Run layers[:stop] (all by default), each after its input
-        preprocessor; returns (output, new states by layer name). Dropout
-        draws from the generator `rng` when `train`."""
+        preprocessor; returns (output, new states by layer name). A
+        layer's state is its entry in `carries` (recurrent carries), else
+        in `states` (`state_tree` by default: batch-norm running
+        statistics). Dropout draws from the generator `rng` when
+        `train`."""
         new_states = {}
         pps = self.conf.preprocessors
+        states = self.state_tree if states is None else states
         for i, layer in enumerate(self.layers[:stop]):
             if i in pps:
                 x = pps[i].apply(x, fmask)
-            st = carries.get(layer.name) if carries else None
+            if carries and layer.name in carries:
+                st = carries[layer.name]
+            else:
+                st = states.get(layer.name) or None
             x, new_st = layer.apply(params[layer.name], x, state=st,
                                     train=train, rng=rng, mask=fmask)
             new_states[layer.name] = new_st
@@ -289,7 +314,7 @@ class MultiLayerNetwork:
 
     # ------------------------------------------------------------- loss
     def _loss(self, params, features, labels, fmask, lmask, rng,
-              train: bool = True, carries=None):
+              train: bool = True, carries=None, states=None):
         """Score = output-layer loss + L1/L2 regularization + any layer's
         `aux_loss`. The output layer scores its INPUT (its softmax is
         fused into the loss), so the stack runs up to it."""
@@ -300,7 +325,7 @@ class MultiLayerNetwork:
         last = len(self.layers) - 1
         out_in, new_states = self._forward(
             params, features, train=train, rng=rng, fmask=fmask,
-            carries=carries, stop=last)
+            carries=carries, stop=last, states=states)
         if last in self.conf.preprocessors:
             out_in = self.conf.preprocessors[last].apply(out_in, fmask)
         score_mask = lmask if lmask is not None else (
@@ -334,10 +359,11 @@ class MultiLayerNetwork:
             loss, new_states = _grad_and_update(
                 lambda live: self._loss(live, features, labels, fmask,
                                         lmask, rng, train=True,
-                                        carries=carries),
+                                        carries=carries, states=states),
                 params, opt_state, groups, mode, thr, step)
-            persist = {n: (new_states[n] if n in stateful
-                           else states.get(n, {})) for n in states}
+            persist = {n: (tree_map(torch.detach, new_states[n])
+                           if n in stateful else states.get(n, {}))
+                       for n in states}
             out_carries = {n: tree_map(torch.detach, new_states[n])
                            for n in rnn_names} if tbptt else {}
             return params, opt_state, persist, loss, out_carries
@@ -377,11 +403,17 @@ class MultiLayerNetwork:
         it = DevicePrefetchIterator(as_iterator(data, labels, batch_size),
                                     self._put_batch)
         self._loss_tracker.sync_every = int(sync_every)
-        # the device step counter starts from the host's: a fill, no copy
-        self._step_t = torch.full((), self.iteration, dtype=torch.int64,
-                                  device=self.device)
+        self._start_steps()
         TrainingExecutor(self, step=self._dispatch_batch).run(it, epochs)
         return self
+
+    def _start_steps(self):
+        """Fill the device step counter from `iteration` (a fill, no
+        copy): every fit starts there, so a loaded or resumed net carries
+        on with Adam's bias correction and a schedule's rate where it
+        stopped."""
+        self._step_t = torch.full((), self.iteration, dtype=torch.int64,
+                                  device=self.device)
 
     def _put_batch(self, ds: DataSet) -> DataSet:
         """A batch on the net's device: features and masks in the net's
@@ -508,6 +540,63 @@ class MultiLayerNetwork:
         self._check_input(x)
         y, _ = self._forward(self.params_tree, x)
         return y
+
+    def predict(self, x) -> np.ndarray:
+        """Argmax class predictions (int32). Reference:
+        `predict(INDArray)`."""
+        return _argmax_i32(self.output(x)).cpu().numpy()
+
+    def _output_host(self, x) -> np.ndarray:
+        return _host(self.output(x))
+
+    def evaluate(self, iterator):
+        """Classification metrics over an iterator of DataSets.
+        Reference: `MultiLayerNetwork.evaluate(DataSetIterator)`.
+
+        For plain per-example labels the argmax runs ON THE DEVICE and
+        only int32 class indices cross to the host; masked or
+        time-series labels take the full output through `output_fn`,
+        which the Evaluation flattens on the host."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+
+        self._check_init()
+        width = getattr(self.layers[-1], "n_out", None)
+        return Evaluation().evaluate_iterator(
+            iterator, output_fn=self._output_host,
+            predict_indices_fn=lambda feats: (self.predict(feats), width))
+
+    def evaluate_regression(self, iterator):
+        """Reference: `MultiLayerNetwork.evaluateRegression`."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        from deeplearning4j_tpu_torch.eval.regression import (
+            RegressionEvaluation,
+        )
+
+        self._check_init()
+        return Evaluation.run_evaluation(RegressionEvaluation(), iterator,
+                                         self._output_host)
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 0):
+        """Binary ROC. Reference: `evaluateROC`."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        from deeplearning4j_tpu_torch.eval.roc import ROC
+
+        self._check_init()
+        return Evaluation.run_evaluation(ROC(threshold_steps), iterator,
+                                         self._output_host)
+
+    def evaluate_roc_multi_class(self, iterator):
+        """One-vs-all ROC per class. Reference: `evaluateROCMultiClass`."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        from deeplearning4j_tpu_torch.eval.roc import ROCMultiClass
+
+        self._check_init()
+        return Evaluation.run_evaluation(ROCMultiClass(), iterator,
+                                         self._output_host)
+
+    def num_params(self) -> int:
+        self._check_init()
+        return sum(p.numel() for p in tree_leaves(self.params_tree))
 
     # ------------------------------------------------ stateful stepping
     @property

@@ -115,3 +115,57 @@ class PerformanceListener(TrainingListener):
                      f"{self.last_step_ms:.1f} ms/step, "
                      f"ETL {self.last_etl_ms:.1f} ms")
         self._last_time, self._last_iter = now, iteration
+
+
+class TimeIterationListener(TrainingListener):
+    """ETA logging every `frequency` iterations on the host clock (reads
+    no score, so no sync: in a pipelined loop its rate is the host's
+    enqueue rate until the queue fills). Reference:
+    TimeIterationListener."""
+
+    def __init__(self, total_iterations: int, frequency: int = 100):
+        self.total = total_iterations
+        self.frequency = max(1, frequency)
+        self._start = None
+        self._start_iter = 0
+
+    def on_fit_start(self, model):
+        self._start = time.perf_counter()
+        self._start_iter = getattr(model, "iteration", 0)
+
+    def iteration_done(self, model, iteration, epoch, score):
+        if self._start is None:
+            # attached mid-fit: anchor the clock one step back so this
+            # report still has a rate
+            self._start = time.perf_counter()
+            self._start_iter = iteration - 1
+        if iteration % self.frequency == 0 and iteration > 0:
+            done = iteration - self._start_iter
+            if done <= 0:
+                return
+            rate = (time.perf_counter() - self._start) / done
+            if self.total and self.total > 0:
+                remaining = rate * max(self.total - iteration, 0)
+                logger.info(f"iteration {iteration}/{self.total}, "
+                            f"ETA {remaining:.0f}s")
+            else:
+                logger.info(f"iteration {iteration}, "
+                            f"{rate * 1e3:.1f} ms/iter")
+
+
+class EvaluativeListener(TrainingListener):
+    """`model.evaluate` on a held-out iterator every `frequency` epochs
+    (the evaluation reads class indices back: a host sync). Reference:
+    EvaluativeListener."""
+
+    def __init__(self, iterator, frequency: int = 1, on_epoch: bool = True):
+        self.iterator = iterator
+        self.frequency = max(1, frequency)
+        self.on_epoch = on_epoch
+        self.evaluations: List = []
+
+    def on_epoch_end(self, model, epoch):
+        if self.on_epoch and epoch % self.frequency == 0:
+            e = model.evaluate(self.iterator)
+            self.evaluations.append(e)
+            logger.info(f"epoch {epoch} eval: accuracy={e.accuracy():.4f}")

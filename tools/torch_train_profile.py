@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's training step goes, on one card.
 
-    python3 tools/torch_train_profile.py [--path t|w|l|g|r]
+    python3 tools/torch_train_profile.py [--path t|w|l|g|r|m]
                                          [--dtype float32|bfloat16]
 
 Builds one of `chip_smoke.py`'s paths, warms it untraced, then runs it
@@ -28,7 +28,10 @@ the same method as `tools/torch_decode_profile.py`:
   width, 50 traced greedy `rnn_time_step` calls for 32 streams;
 - `--path r`, `path_r`: the fused ResNet-50 ComputationGraph at 224x224,
   1000 classes, bfloat16, batch 128, Nesterovs(0.01, 0.9); two traced
-  train steps (B7a 36 and B7b 16 launches a step, B1b once).
+  train steps (B7a 36 and B7b 16 launches a step, B1b once);
+- `--path m`, `path_m`: the zoo's LeNet, bfloat16, batch 1024, its
+  default Adam(1e-3) (B1a once a step), on the synthetic MNIST
+  surrogate; six traced train steps (two batches, three epochs).
 
 Prints one JSON line: the traced window's wall time, the time the card
 was busy (the union of kernel intervals), the idle share, kernels
@@ -66,7 +69,7 @@ from torch_decode_profile import busy_us, kernel_events  # noqa: E402
 
 # the dtype each path trains or runs in (`--dtype` changes path t's only)
 PATH_DTYPES = {"t": "float32", "w": "float32", "l": "float32",
-               "g": "float32", "r": "bfloat16"}
+               "g": "float32", "r": "bfloat16", "m": "bfloat16"}
 
 
 def recompute_correlations(trace_path):
@@ -146,6 +149,14 @@ def traced_window(path, dtype="float32"):
     window; the warm-up has been done when this returns. `dtype` is
     `path_t`'s."""
     rng = np.random.default_rng(0)
+    if path == "m":
+        from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+        from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+
+        net = MultiLayerNetwork(cs.lenet_conf(), device="cuda").init()
+        it = MnistDataSetIterator(1024, num_examples=2048, seed=0)
+        net.fit(it, epochs=1)                       # warm, untraced
+        return (lambda: net.fit(it, epochs=3)), 6, "step", 1024
     if path == "r":
         from deeplearning4j_tpu_torch.models import ComputationGraph
 
@@ -186,7 +197,7 @@ def traced_window(path, dtype="float32"):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("t", "w", "l", "g", "r"),
+    ap.add_argument("--path", choices=("t", "w", "l", "g", "r", "m"),
                     default="t")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     help="path_t's dtype (--path t only; default float32)")
@@ -233,7 +244,7 @@ def main() -> int:
         "dtype": dtype,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": cs.gpu_name_and_limit(), f"{unit}s": units,
-        f"{'images' if args.path == 'r' else 'tokens'}_per_{unit}": tokens,
+        f"{'images' if args.path in 'rm' else 'tokens'}_per_{unit}": tokens,
         f"wall_ms_per_{unit}": wall_us / 1e3 / units,
         f"device_busy_ms_per_{unit}": busy / 1e3 / units,
         "idle_share": 1.0 - busy / wall_us,
