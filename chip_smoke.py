@@ -76,6 +76,9 @@ exits non-zero with no result line:
    T 2048) through `DecodeSessionManager`, prefix cache on, so the
    paged pool and B6 carry every decode step, every launch on design 2;
    a second wave shares a 1024-token stem and hits the prefix cache;
+   every decode window of every serving path is one CUDA graph replay
+   (captured at the manager's warm-up), and Path A serves both waves
+   again through the eager loop, every stream equal token for token;
 4. path_b: the Llama-shaped variant (RoPE, RMSNorm, SwiGLU, 2 KV heads
    under 8, window 256, rolling cache) at 2 blocks; the rolling ring
    cannot page, so the slot pool and B5 carry it, every launch on design
@@ -94,9 +97,13 @@ exits non-zero with no result line:
    this model in (`BENCH_DTYPE`'s default; the zoo conf with its dtype
    replaced, as `_bench_transformer` builds it): B3b and B3c six times a
    step each, B3a six, all on design 2, and B1a once, the same sync
-   guard; and train_parity_bf16, `train_parity` in bfloat16 with the
-   tolerances bf16 training allows (`TRAIN_PARITY_BF16`), each leaf's
-   update also within 15% of the CPU's;
+   guard; then `path_t_bf16_k`: the same 12 steps at K 1 twice and at
+   K 4 (`fit(steps_per_dispatch=4)`: window 1 eager, then captured,
+   windows 2-3 replayed), K 4 bit-equal to K 1 or within the two K 1
+   runs' spread, with the same launch counts; and train_parity_bf16,
+   `train_parity` in bfloat16 with the tolerances bf16 training allows
+   (`TRAIN_PARITY_BF16`), each leaf's update also within 15% of the
+   CPU's;
 8. path_l: training of the repo's LSTM bench model at full width
    (GravesLSTM(512) x 2 + RnnOutputLayer(64), input width 128, T 128,
    batch 64, float32, Nesterovs(0.01, 0.9)) through `net.fit`: 4 fixed
@@ -111,7 +118,8 @@ exits non-zero with no result line:
    carries handed on: B2a and B2c on design 2, B1a), `output()` on one
    batch (B2b at T 200, design 2), then a greedy loop of 200
    `rnn_time_step` calls for 32 streams (B2b at T 1, design 1, twice a
-   call);
+   call), each call a graph replay, and the same loop eagerly, tokens
+   equal;
 10. lstm_parity: both recurrent models at T 32, batch 4: two `fit` steps
     and 8 `rnn_time_step` calls on the card against the same on the CPU;
 11. path_r: `bench.py`'s ResNet-50 (224x224, 1000 classes, bfloat16,
@@ -132,10 +140,18 @@ exits non-zero with no result line:
     `net.fit`, steps 2-12 under the same sync guard; `evaluate()` over the
     10,000-image test split against the card's argmax of `output()` on the
     same batches; `save_model` / `load_model` onto the card, `output()`
-    bit-equal;
+    bit-equal; then `path_m_k`, as `path_t_bf16_k`;
 14. lenet_parity: LeNet in float32 at batch 64, 8 steps, card against
     CPU from the same JSON and weights, under Sgd, Adam (B1a) and
-    Nesterovs (B1b).
+    Nesterovs (B1b);
+15. host_overhead: `bench.py`'s host-overhead mode on its MLP: ms a step
+    in sync, deferred, fused (K 8, one graph a window) and floor (one
+    graph of 256 steps) modes;
+16. graph_parity: SimpleCNN (batch norm, dropout) and a small
+    Nesterovs ComputationGraph at K 4 against K 1, bit for bit, with
+    the same launch counts; a 2-block transformer's graphed decode
+    windows against the eager loop, and a lane whose EOS falls inside
+    a window stops AT it.
 
 Weights are random, from fixed seeds. Each path resets the kernels'
 launch counts just before it runs and reads them just after; a kernel
@@ -146,6 +162,7 @@ card's name and power limit, and `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1682,6 +1699,7 @@ def drive_path(net, name, kernel, prompts_waves, greedy, max_tokens, *,
     try:
         torch.cuda.synchronize()
         ba.reset_counts()
+        before = window_graph_counts(net)
         waves, streams = [], []
         for prompts in prompts_waves:
             s, w = serve_wave(mgr, prompts, greedy, max_tokens, mgr.vocab)
@@ -1692,10 +1710,21 @@ def drive_path(net, name, kernel, prompts_waves, greedy, max_tokens, *,
         by_design = launches_by_design(ba)
         plain_on_cuda = dict(ba.PLAIN_ON_CUDA)
         snap = mgr.snapshot()
+        graphs = {c: v - before[c]
+                  for c, v in window_graph_counts(net).items()}
     finally:
         sched.shutdown()
         registry.close()
     check(launches[kernel] > 0, f"{name}: {kernel} was never launched")
+    windows = snap["dispatches"]["windows"]
+    if net.cuda_graphs:
+        # the manager's warm-up captured the window: every window of the
+        # waves is one replay
+        check(graphs["replays"] == windows and graphs["eager"] == 0,
+              f"{name}: {windows} windows, graph counts {graphs}")
+    else:
+        check(graphs["replays"] == 0, f"{name}: the eager loop replayed "
+              f"graphs: {graphs}")
     check(sum(plain_on_cuda.values()) == 0,
           f"{name}: plain versions ran on CUDA tensors: {plain_on_cuda}")
     # float32 queries: every B5/B5q and B6/B6q launch on design 2
@@ -1708,13 +1737,23 @@ def drive_path(net, name, kernel, prompts_waves, greedy, max_tokens, *,
            "slots": snap["slots"], "kv_dtype": snap["kv_dtype"],
            "prefix_cache": snap["prefix_cache"],
            "decode_loop": snap["decode_loop"],
+           "window_graphs": net.cuda_graphs, "window_graph_counts": graphs,
            "dispatches": snap["dispatches"],
            "kernel_policy": snap["kernel_policy"]}
     return streams, row
 
 
+def window_graph_counts(net):
+    st = net._graphs.stats.get("decode_window", {})
+    return {c: st.get(c, 0) for c in ("replays", "eager", "captures",
+                                      "capture_ms")}
+
+
 def path_a(device, rng):
-    """Full width, 6 blocks, prefix cache on: B6 on every decode step."""
+    """Full width, 6 blocks, prefix cache on: B6 on every decode step,
+    each decode window one CUDA graph replay; then the same waves through
+    the eager loop (`cuda_graphs` off, the plain version of the graphs),
+    every stream, greedy and sampled, equal token for token."""
     net = build_net(device, num_blocks=6, seed=7)
     prompts = [rng.integers(0, 256, 1024) for _ in range(8)]
     stem = prompts[0]
@@ -1733,6 +1772,17 @@ def path_a(device, rng):
           "differs from the cold one")
     row["warm_vs_cold_ttft_p50"] = (row["waves"][1]["ttft_ms_p50"]
                                     / row["waves"][0]["ttft_ms_p50"])
+    net.cuda_graphs = False
+    (e1, e2), eager = drive_path(net, "path_a_eager", "paged_decode_attention",
+                                 [prompts, wave2], greedy, 64, slots=8,
+                                 chunk=128, k=8)
+    net.cuda_graphs = True
+    check(e1 == w1 and e2 == w2, "path_a: the graphed windows' streams "
+          "differ from the eager loop's")
+    row["eager_loop"] = {k: eager[k] for k in ("waves", "launches",
+                                               "dispatches",
+                                               "window_graph_counts")}
+    row["graphed_streams_equal_eager"] = True
     emit(row)
     return row, prompts, w1
 
@@ -1944,17 +1994,21 @@ def read_all_counts():
 
 
 def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
-              loss_must_fall=True, per_epoch=None):
-    """`net.fit(batches, epochs)` with every launch count zeroed just
-    before and read just after. Step times come from CUDA events recorded
-    after each step is enqueued, beside the host's time fetching each
-    step's batch (`etl_ms`, the executor's); every step after the first
-    runs with host syncs made errors; the losses stay on the device until
-    the fit has returned. Checks the step count, finite losses and (unless
+              loss_must_fall=True, per_epoch=None, k=1):
+    """`net.fit(batches, epochs, steps_per_dispatch=k)` with every launch
+    count zeroed just before and read just after. Step times come from
+    CUDA events recorded after each step is enqueued (at K > 1 a window's
+    K steps are enqueued at once, so a step's time is its window's over
+    K), beside the host's time fetching each step's batch (`etl_ms`, the
+    executor's); every step (K 1) or window (K > 1) after the first runs
+    with host syncs made errors; the losses stay on the device until the
+    fit has returned. Checks the step count, finite losses and (unless
     `loss_must_fall` is false) a falling epoch mean loss; returns the
     measurements common to the training paths, the rate counted in
-    `unit` (`tokens_per_step` of them a step). `batches` is a list of
-    DataSets or an iterator of `per_epoch` batches an epoch."""
+    `unit` (`tokens_per_step` of them a step) over steps 3-12 (K 1) and
+    over steps 5-12 (any K: windows 2-3 at K 4), and the net's graph
+    windows and eager steps. `batches` is a list of DataSets or an
+    iterator of `per_epoch` batches an epoch."""
     from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
 
     class Clock(TrainingListener):
@@ -1978,23 +2032,26 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
 
     clock = Clock()
     net.listeners.append(clock)
-    step_once = net._fit_batch
 
-    def guarded(ds):
-        # every step after the first: any host sync inside raises
-        if net.iteration >= 1:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            return step_once(ds)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    def guarded(dispatch):
+        def run(arg):
+            # every dispatch after the first: any host sync inside raises
+            if net.iteration >= 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return dispatch(arg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
 
-    net._fit_batch = guarded
+    net._fit_batch = guarded(net._fit_batch)
+    net._fused_dispatch = guarded(net._fused_dispatch)
+    stats0 = dict(net.fit_stats)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_all_counts()
     t0 = time.perf_counter()
-    net.fit(batches, epochs=epochs)
+    net.fit(batches, epochs=epochs, steps_per_dispatch=k)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_on_cuda = read_all_counts()
@@ -2002,7 +2059,8 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
     losses = [float(x) for x in clock.losses]       # read after the steps
     steps = len(losses)
     ev = clock.events
-    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    step_ms = [ev[i].elapsed_time(ev[i + k]) / k
+               for i in range(0, steps - k + 1, k)]
     per_epoch = per_epoch or len(batches)
     epoch_loss = [float(np.mean(losses[i:i + per_epoch]))
                   for i in range(0, steps, per_epoch)]
@@ -2013,16 +2071,25 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
               f"{name}: mean loss did not fall: {epoch_loss}")
     check(sum(plain_on_cuda.values()) == 0,
           f"{name}: plain versions ran on CUDA tensors: {plain_on_cuda}")
-    return {"steps": steps,
-            f"{unit}_per_s_steps_3_12": (steps - 2) * tokens_per_step
-            / (ev[2].elapsed_time(ev[steps]) / 1e3),
+    graphs = net._graphs.stats.get("fit", {})
+    rates = {f"{unit}_per_s_steps_5_12": (steps - 4) * tokens_per_step
+             / (ev[4].elapsed_time(ev[steps]) / 1e3)}
+    if k == 1:
+        rates[f"{unit}_per_s_steps_3_12"] = (
+            (steps - 2) * tokens_per_step
+            / (ev[2].elapsed_time(ev[steps]) / 1e3))
+    return {"steps": steps, "steps_per_dispatch": k, **rates,
             "step_ms_p50": float(np.median(step_ms[1:])),
             "step_ms_max": max(step_ms[1:]), "step_ms_first": step_ms[0],
             "step_ms": step_ms, "etl_ms": clock.etl, "wall_s": wall,
             "max_memory_allocated_bytes": peak,
             "epoch_mean_loss": epoch_loss, "losses": losses,
             "launches": launches, "plain_on_cuda": plain_on_cuda,
-            "sync_debug_mode": "error in steps 2-12"}
+            **{c: net.fit_stats[c] - stats0[c] for c in stats0},
+            "graph_captures": graphs.get("captures", 0),
+            "capture_ms": graphs.get("capture_ms", 0.0),
+            "sync_debug_mode": "error after the first "
+                               + ("step" if k == 1 else "window")}
 
 
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
@@ -2068,6 +2135,87 @@ def path_t(rng, epochs=3, dtype="float32"):
     emit(row)
     del net
     torch.cuda.empty_cache()
+    return row
+
+
+def leaves_of(net):
+    from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
+
+    return [t.detach().clone() for tree in (
+        net.params_tree, net.updater_state, net.state_tree)
+        for t in tree_leaves(tree)]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (warning where a call has none)
+    without the NaN fill of new tensors: `index_select`'s backward, an
+    `index_add_` by atomics otherwise (the zoo transformer's embedding),
+    then sums in a fixed order."""
+    import torch.utils.deterministic as td
+
+    fill = td.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    td.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        td.fill_uninitialized_memory = fill
+        torch.use_deterministic_algorithms(False)
+
+
+def k_parity(name, make_net, make_batches, tokens_per_step, kernels,
+             unit="tokens", per_epoch=None, epochs=3):
+    """`name`'s 12 steps at K 1, again at K 1, then at K 4 (`timed_fit`),
+    each a fresh net of the same seeded weights on the same batches, on
+    PyTorch's deterministic algorithms (`deterministic`): the
+    rate over steps 5-12, step ms, peak memory, graph windows and eager
+    steps of each. After the steps, parameters, optimizer state, running
+    statistics and losses at K 4 must equal K 1's bit for bit; if the two
+    K 1 runs already differ, K 4 is held to their spread instead (the
+    largest difference of any leaf or loss between them), never looser.
+    `kernels` launch at K 4 as often as at K 1."""
+    runs = {}
+    for tag, k in (("k1", 1), ("k1_again", 1), ("k4", 4)):
+        net = make_net()
+        with deterministic():
+            fit = timed_fit(f"{name} {tag}", net, make_batches(), epochs,
+                            tokens_per_step, unit=unit, per_epoch=per_epoch,
+                            k=k)
+        runs[tag] = (fit, leaves_of(net))
+        del net
+        torch.cuda.empty_cache()
+
+    def gap(a, b):
+        (fa, la), (fb, lb) = runs[a], runs[b]
+        return max([max(abs(x - y) for x, y in zip(fa["losses"],
+                                                   fb["losses"]))]
+                   + [(x.float() - y.float()).abs().max().item()
+                      for x, y in zip(la, lb)])
+
+    spread, k4_gap = gap("k1", "k1_again"), gap("k4", "k1")
+    check(k4_gap <= spread, f"{name}: K 4 differs from K 1 by {k4_gap}, "
+          f"two K 1 runs by {spread}")
+    k1, k4 = runs["k1"][0], runs["k4"][0]
+    for kernel in kernels:
+        check(k4["launches"][kernel] == k1["launches"][kernel],
+              f"{name}: {kernel} launched {k4['launches'][kernel]} times at "
+              f"K 4, {k1['launches'][kernel]} at K 1")
+    check(k4["graph_windows"] == 2 and k4["eager_steps"] == 4
+          and k4["graph_captures"] == 1,
+          f"{name}: K 4 ran {k4['graph_windows']} graph windows, "
+          f"{k4['eager_steps']} eager steps")
+    keep = ("steps", f"{unit}_per_s_steps_5_12", "step_ms_p50",
+            "step_ms_max", "step_ms_first", "step_ms", "etl_ms",
+            "max_memory_allocated_bytes", "graph_windows", "eager_steps",
+            "graph_captures", "capture_ms", "epoch_mean_loss")
+    row = {"phase": f"{name}_k", "k1_runs_spread": spread,
+           "k4_vs_k1_max_abs": k4_gap, "k4_bit_equal_k1": k4_gap == 0.0,
+           "k4_vs_k1_again_max_abs": gap("k4", "k1_again"),
+           "launches": {kernel: k4["launches"][kernel] for kernel in kernels},
+           **{tag: {c: f[c] for c in keep} for tag, (f, _) in runs.items()}}
+    row["k1"][f"{unit}_per_s_steps_3_12"] = k1[f"{unit}_per_s_steps_3_12"]
+    emit(row)
     return row
 
 
@@ -2382,40 +2530,60 @@ def path_g(rng, calls=200):
           "path_g: output() did not run the inference kernel twice on "
           "design 2")
 
-    net.rnn_clear_previous_state()
     eye = torch.eye(V, device=net.device)
-    tok = first = torch.as_tensor(rng.integers(0, V, B), device=net.device)
-    stream, stepped = [], []
-    net.rnn_time_step(eye[tok])               # warm-up call, not timed
-    net.rnn_clear_previous_state()
-    torch.cuda.synchronize()
-    before, _ = read_all_counts()
-    host_ms = []
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        t1 = time.perf_counter()
-        out = net.rnn_time_step(eye[tok])
-        tok = torch.argmax(out[:, -1, :], dim=-1)
-        stream.append(tok)
-        stepped.append(out[:, -1, :])
-        host_ms.append((time.perf_counter() - t1) * 1e3)
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t0
-    launches, plain_on_cuda = read_all_counts()
+    first = torch.as_tensor(rng.integers(0, V, B), device=net.device)
+
+    def stepping():
+        """The greedy loop from `first`: (tokens, last rows, loop
+        figures, launches, launches by design, plain calls on CUDA
+        tensors) of its `calls` calls."""
+        net.rnn_clear_previous_state()
+        net.rnn_time_step(eye[first])      # warm-up calls, not timed: they
+        net.rnn_time_step(eye[first])      # capture both graphs
+        net.rnn_clear_previous_state()
+        torch.cuda.synchronize()
+        reset_all_counts()
+        tok, stream, stepped, host_ms = first, [], [], []
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            t1 = time.perf_counter()
+            out = net.rnn_time_step(eye[tok])
+            tok = torch.argmax(out[:, -1, :], dim=-1)
+            stream.append(tok)
+            stepped.append(out[:, -1, :])
+            host_ms.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        launches, plain_on_cuda = read_all_counts()
+        check(sum(plain_on_cuda.values()) == 0,
+              f"path_g: plain versions ran on CUDA tensors: {plain_on_cuda}")
+        check(launches["lstm_fwd_inference"] == 2 * calls,
+              f"path_g: {launches['lstm_fwd_inference']} inference "
+              f"launches in {calls} calls, want 2 a call")
+        by_design = launches_by_design(lk)
+        check(by_design["lstm_fwd_inference/cluster"] == 2 * calls,
+              f"path_g: the stepping loop's B2b not all on design 1: "
+              f"{by_design}")
+        figures = {"loop_s": loop_s, "tokens_per_s": B * calls / loop_s,
+                   "call_ms_p50": float(np.median(host_ms)),
+                   "call_ms_p99": float(np.percentile(host_ms, 99))}
+        return stream, stepped, figures, launches, by_design, plain_on_cuda
+
+    stream, stepped, graphed, launches, by_design, plain_on_cuda = stepping()
+    st = net._graphs.stats["rnn_time_step"]
+    check(st["replays"] >= calls and st["captures"] == 2,
+          f"path_g: the graphed loop's graph counts {st}")
+    graphed["graph_counts"] = dict(st)
+    net.cuda_graphs = False
+    eager_stream, _, eager, _, _, _ = stepping()
+    net.cuda_graphs = True
     toks = torch.stack(stream, dim=1).cpu().numpy()
-    step_launches = launches["lstm_fwd_inference"] \
-        - before["lstm_fwd_inference"]
-    check(step_launches == 2 * calls,
-          f"path_g: {step_launches} inference launches in {calls} calls, "
-          f"want 2 a call")
-    by_design = launches_by_design(lk)
-    check(by_design["lstm_fwd_inference/cluster"] == 2 * calls + 2,
-          f"path_g: the stepping loop's B2b not all on design 1: "
-          f"{by_design}")
+    check(np.array_equal(toks, torch.stack(eager_stream, dim=1)
+                         .cpu().numpy()),
+          "path_g: the graphed stepping's tokens differ from the eager "
+          "call's")
     check(toks.shape == (B, calls) and toks.min() >= 0 and toks.max() < V,
           "path_g: stepping produced an out-of-vocabulary token")
-    check(sum(plain_on_cuda.values()) == 0,
-          f"path_g: plain versions ran on CUDA tensors: {plain_on_cuda}")
     # stepping one token at a time with carried state equals `output()`
     # over the same tokens fed at once
     fed = torch.cat([first[:, None], torch.stack(stream, dim=1)[:, :-1]],
@@ -2428,10 +2596,8 @@ def path_g(rng, calls=200):
            "vocab": V, "T": T, "batch": B, "tbptt": 50, "dtype": "float32",
            "updater": str(net.conf.updater), "fit_s": fit_s,
            "fit_loss": net.score_, "fit_launches": fit_launches,
-           "streams": B, "calls": calls, "loop_s": loop_s,
-           "tokens_per_s": B * calls / loop_s,
-           "call_ms_p50": float(np.median(host_ms)),
-           "call_ms_p99": float(np.percentile(host_ms, 99)),
+           "streams": B, "calls": calls, **graphed, "eager_call": eager,
+           "graphed_tokens_equal_eager": True,
            "stepping_vs_output_max_abs_err": step_err,
            "launches": launches, "launches_by_design": by_design,
            "fit_launches_by_design": fit_by_design,
@@ -2651,6 +2817,250 @@ def resnet_parity(rng, tol_first=1e-4, tol_loss=2e-2, tol_param=5e-3,
     return row
 
 
+# ------------------------------------------------- K steps a dispatch (A1c)
+def overhead_mlp():
+    """`bench.py`'s host-overhead model (`bench.py:878-886`): MLP
+    16 -> 32 -> 4, Sgd(0.01), seed 0."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.optim.updaters import Sgd
+
+    conf = (NeuralNetConfiguration.builder().seed(0).updater(Sgd(0.01))
+            .list(DenseLayer(n_out=32, activation="relu"),
+                  OutputLayer(n_out=4, activation="softmax",
+                              loss="mcxent"))
+            .set_input_type(InputType.feed_forward(16)).build())
+    return MultiLayerNetwork(conf, device="cuda").init()
+
+
+def host_overhead(batch=64, steps=256, k=8):
+    """The port of `bench.py`'s host-overhead mode (`bench.py:843-990`)
+    with its model and sizes: ms a step of the fit path's own step
+    methods on batches already on the card (so no ETL), best of 3, in
+    four modes: `sync` (`float()` of every step's loss), `deferred` (the
+    default loop: the loss stays on the card), `fused` (`_fused_dispatch`
+    of K steps: one graph replay a window) and `floor` (one graph of all
+    `steps` steps). Host overhead a step = mode - floor, and
+    `host_overhead_reduction` = (sync - floor) / (fused - floor), as
+    JAX defines them; then the host syncs a step of a default `fit`."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    rng = np.random.default_rng(0)
+    dss = [DataSet(rng.standard_normal((batch, 16)).astype(np.float32),
+                   np.eye(4, dtype=np.float32)[rng.integers(0, 4, batch)])
+           for _ in range(steps)]
+
+    def measure(mode, kk=k):
+        net = overhead_mlp()
+        dev = [net._put_batch(d) for d in dss]
+        if mode in ("fused", "floor"):
+            net._fused_dispatch(dev[:kk])        # eager warm-up, capture
+        else:
+            net._fit_batch(dev[0])
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            if mode == "sync":
+                for ds in dev:
+                    float(net._fit_batch(ds))
+            elif mode == "deferred":
+                for ds in dev:
+                    net._fit_batch(ds)
+            else:
+                for i in range(0, steps, kk):
+                    net._fused_dispatch(dev[i:i + kk])
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) / steps * 1e3)
+        graphs = net._graphs.stats.get("fit", {})
+        want = 3 * steps // kk if mode in ("fused", "floor") else 0
+        check(graphs.get("replays", 0) == want,
+              f"host_overhead {mode}: {graphs} graph replays, want {want}")
+        loss = float(net.score(dss[0]))
+        check(np.isfinite(loss), f"host_overhead {mode}: loss {loss}")
+        return best, graphs.get("capture_ms", 0.0)
+
+    (sync_ms, _), (deferred_ms, _) = measure("sync"), measure("deferred")
+    fused_ms, fused_capture = measure("fused")
+    floor_ms, floor_capture = measure("floor", steps)
+
+    def overhead(ms):
+        return max(ms - floor_ms, 0.0)
+
+    def reduction(ms):
+        return overhead(sync_ms) / overhead(ms) if overhead(ms) > 0 else None
+
+    net = overhead_mlp()
+    feats = np.concatenate([d.features for d in dss[:32]])
+    labs = np.concatenate([d.labels for d in dss[:32]])
+    net.fit(feats, labs, batch_size=batch, epochs=2)
+    tracked = net._loss_tracker
+    row = {"phase": "host_overhead", "model": "MLP 16-32-4, Sgd(0.01)",
+           "unit": "ms/step", "batch": batch, "steps": steps,
+           "steps_per_dispatch": k, "sync_ms_per_step": sync_ms,
+           "deferred_ms_per_step": deferred_ms,
+           "fused_ms_per_step": fused_ms,
+           "compute_floor_ms_per_step": floor_ms,
+           "host_overhead_ms_per_step": {
+               "sync": overhead(sync_ms), "deferred": overhead(deferred_ms),
+               "fused": overhead(fused_ms)},
+           "host_overhead_reduction": reduction(fused_ms),
+           "host_overhead_reduction_deferred_only": reduction(deferred_ms),
+           "capture_ms": {"fused": fused_capture, "floor": floor_capture},
+           "host_sync_per_step": {
+               "sync": 1.0,
+               "deferred_fit": tracked.host_syncs / max(1, tracked.updates)}}
+    check(fused_ms < sync_ms, f"host_overhead: fused {fused_ms} ms a step "
+          f"is not below sync {sync_ms}")
+    emit(row)
+    return row
+
+
+def decode_streams(net, prompts, k, n, eos=-1):
+    """Greedy streams of `prompts` through `session_step` (one prefill
+    chunk) and `session_decode_window`s of `k` until every lane has `n`
+    tokens or met `eos`."""
+    S = len(prompts)
+    c = net.session_carries(S)
+    L = max(len(p) for p in prompts) - 1
+    tok = np.zeros((S, L), np.float32)
+    val = np.zeros((S, L), np.float32)
+    for i, p in enumerate(prompts):
+        tok[i, :len(p) - 1] = p[:-1]
+        val[i, :len(p) - 1] = 1.0
+    _, c = net.session_step(tok[:, :, None], c, active=np.ones(S, bool),
+                            valid=val)
+    first = np.array([p[-1] for p in prompts], np.int32)
+    streams = [[] for _ in range(S)]
+    live = np.ones(S, bool)
+    while live.any():
+        offs = np.array([len(x) for x in streams], np.int32)
+        toks, emits, c = net.session_decode_window(
+            first, c, active=live, k=k, temperature=np.ones(S, np.float32),
+            top_k=np.full(S, 256, np.int32), top_p=np.ones(S, np.float32),
+            greedy=np.ones(S, bool), keys=np.zeros((S, 2), np.uint32),
+            offsets=offs, budgets=n - offs,
+            eos_ids=np.full(S, eos, np.int32))
+        toks, emits = toks.cpu().numpy(), emits.cpu().numpy()
+        for i in range(S):
+            new = [int(t) for t, e in zip(toks[i], emits[i]) if e]
+            streams[i] += new
+            if new:
+                first[i] = new[-1]
+            if len(streams[i]) >= n or eos in new:
+                live[i] = False
+    return streams
+
+
+def graph_parity(rng):
+    """Small shapes on the card: SimpleCNN (batch norm, dropout 0.5,
+    Adam: B1a) at K 4 against K 1, and a small ComputationGraph with
+    batch norm under Nesterovs (B1b) likewise: losses, parameters,
+    optimizer state and running statistics bit-equal (equal parameters
+    after dropout need the same masks), the same launch counts; then a
+    2-block transformer's decode windows graphed against the eager loop,
+    and with a lane's EOS inside a window that lane stops AT the EOS
+    under the graph too."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import (
+        ComputationGraph, MultiLayerNetwork,
+    )
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization, ConvolutionLayer, GlobalPoolingLayer,
+        OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.optim.listeners import (
+        CollectScoresIterationListener,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.zoo import SimpleCNN
+
+    def simple_cnn():
+        return MultiLayerNetwork(SimpleCNN(input_shape=(16, 16, 3),
+                                           num_classes=5).conf(),
+                                 device="cuda").init()
+
+    def small_graph():
+        g = (NeuralNetConfiguration.builder().seed(5)
+             .updater(Nesterovs(0.05, 0.9)).graph_builder()
+             .add_inputs("in")
+             .set_input_types(InputType.convolutional(8, 8, 3)))
+        g.add_layer("c", ConvolutionLayer(n_out=8, kernel=(3, 3),
+                                          convolution_mode="same"), "in")
+        g.add_layer("b", BatchNormalization(activation="relu"), "c")
+        g.add_layer("gap", GlobalPoolingLayer(pooling="avg"), "b")
+        g.add_layer("output", OutputLayer(n_out=3, activation="softmax"),
+                    "gap")
+        g.set_outputs("output")
+        return ComputationGraph(g.build(), device="cuda").init()
+
+    def batches(n, b, shape, classes):
+        return [DataSet(rng.random((b, *shape), dtype=np.float32),
+                        np.eye(classes, dtype=np.float32)[
+                            rng.integers(0, classes, b)])
+                for _ in range(n)]
+
+    row = {"phase": "graph_parity"}
+    for name, make, data, kernel in (
+            ("simple_cnn", simple_cnn, batches(8, 8, (16, 16, 3), 5),
+             "adam_update"),
+            ("graph_nesterovs", small_graph, batches(8, 4, (8, 8, 3), 3),
+             "nesterov_update")):
+        out = {}
+        for k in (1, 4):
+            net = make()
+            scores = CollectScoresIterationListener()
+            net.listeners.append(scores)
+            reset_all_counts()
+            net.fit(data, epochs=2, steps_per_dispatch=k)
+            launches, plain = read_all_counts()
+            check(sum(plain.values()) == 0,
+                  f"graph_parity {name}: plain versions on CUDA: {plain}")
+            out[k] = ([sc for _, sc in scores.scores], leaves_of(net),
+                      launches, dict(net.fit_stats))
+            del net
+        (l1, t1, n1, _), (l4, t4, n4, st4) = out[1], out[4]
+        check(l1 == l4 and all(torch.equal(a, b) for a, b in zip(t1, t4)),
+              f"graph_parity {name}: K 4 differs from K 1")
+        check(n4 == n1 and n4[kernel] == 16, f"graph_parity {name}: "
+              f"launches {n4[kernel]} at K 4, {n1[kernel]} at K 1")
+        check(st4 == {"graph_windows": 3, "eager_steps": 4},
+              f"graph_parity {name}: {st4}")
+        row[name] = {"losses": l4, "launches": n4[kernel], **st4,
+                     "bit_equal_k1": True}
+
+    net = build_net("cuda", num_blocks=2, seed=3, t=64)
+    prompts = [rng.integers(0, 256, n) for n in (9, 17, 5)]
+    free = decode_streams(net, prompts, 4, 16)
+    net.cuda_graphs = False
+    check(decode_streams(net, prompts, 4, 16) == free,
+          "graph_parity: graphed windows differ from the eager loop")
+    net.cuda_graphs = True
+    # a token a lane meets first inside a window (not at a window's end)
+    firsts = [(lane, j) for lane, st in enumerate(free)
+              for j in range(1, len(st))
+              if st[j] not in st[:j] and j % 4 != 3]
+    check(bool(firsts), f"graph_parity: streams too repetitive: {free}")
+    lane, i = firsts[0]
+    eos = free[lane][i]
+    before = window_graph_counts(net)["replays"]
+    stopped = decode_streams(net, prompts, 4, 16, eos=eos)
+    for st, want in zip(stopped, free):
+        cut = want[:want.index(eos) + 1] if eos in want else want
+        check(st == cut, f"graph_parity: a lane did not stop AT its EOS "
+              f"{eos}: {st}, free-running {want}")
+    check(window_graph_counts(net)["replays"] > before,
+          "graph_parity: the EOS run replayed no window graph")
+    row["eos_mid_window"] = {"lane": lane, "eos_at": i, "window": 4,
+                             "stream": stopped[lane]}
+    emit(row)
+    return row
+
+
 # ------------------------------------------------------------ LeNet (A1a)
 LENET_LEAVES = 431_080        # LeNet's parameters: 8 leaves, 28x28x1 input
 
@@ -2749,6 +3159,19 @@ def path_m(epochs=3, batch=1024, batches_per_epoch=4):
     return row
 
 
+def path_m_k():
+    """`path_m`'s 12 steps at K 1 (twice) and K 4 (`k_parity`), each on
+    a fresh iterator of the same seed."""
+    from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+
+    return k_parity(
+        "path_m", lambda: MultiLayerNetwork(lenet_conf(),
+                                            device="cuda").init(),
+        lambda: MnistDataSetIterator(1024, num_examples=4096, seed=0),
+        1024, ("adam_update",), unit="images", per_epoch=4)
+
+
 def lenet_parity(rng, steps=8, batch=64, tol_loss=1e-5, tol_param=1e-5):
     """LeNet in float32 on the card against the CPU (plain versions), TF32
     off: the same configuration JSON and the same weights (the seeded
@@ -2760,7 +3183,10 @@ def lenet_parity(rng, steps=8, batch=64, tol_loss=1e-5, tol_param=1e-5):
     as `train_parity`. The whole batch is one step: on halves of it
     Sgd(0.1) is chaotic (float32 against float64 on the CPU drift from
     1e-7 to 1.4e-4 apart by the 14th step), while on the whole batch they
-    stay within 1e-7 over the 8 steps under all three updaters."""
+    stay within 1e-7 over the 8 steps under all three updaters. The card
+    runs cuDNN's deterministic algorithms (`cudnn.deterministic`): under
+    its default ones one batch's Sgd and Nesterovs runs land 2e-8 or
+    7e-6 to 2.4e-5 from the CPU's from call to call (ROADMAP C10)."""
     from deeplearning4j_tpu_torch.data import DataSet
     from deeplearning4j_tpu_torch.models import MultiLayerNetwork
     from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
@@ -2789,7 +3215,11 @@ def lenet_parity(rng, steps=8, batch=64, tol_loss=1e-5, tol_param=1e-5):
             scores = CollectScoresIterationListener()
             net.listeners.append(scores)
             reset_all_counts()
-            net.fit(ds, epochs=steps, batch_size=batch)
+            torch.backends.cudnn.deterministic = True
+            try:
+                net.fit(ds, epochs=steps, batch_size=batch)
+            finally:
+                torch.backends.cudnn.deterministic = False
             if d == "cuda":
                 launches, plain = read_all_counts()
                 check(sum(plain.values()) == 0,
@@ -2869,6 +3299,15 @@ def main() -> int:
     t32 = path_t(rng)
     train_parity(rng)
     t = path_t(rng, dtype="bfloat16")
+    # batches of their own: the shared stream stays as the phases after
+    # it have always drawn from it
+    bf16_batches = lm_batches(np.random.default_rng(14), 4, 8, 2048)
+    k_parity("path_t_bf16",
+             lambda: build_net("cuda", num_blocks=6, seed=5,
+                               dtype="bfloat16"),
+             lambda: bf16_batches, 8 * 2048,
+             FLASH_KERNELS + ("adam_update",))
+    del bf16_batches
     train_parity(rng, "train_parity_bf16", **TRAIN_PARITY_BF16)
     w = path_w(rng)
     train_parity(rng, "window_parity", "banded_attention", window=32,
@@ -2882,7 +3321,10 @@ def main() -> int:
     del images
     resnet_parity(rng)
     m = path_m()
+    path_m_k()
     lenet_parity(rng)
+    host_overhead()
+    graph_parity(rng)
 
     b5q = {"banded_decode_attention_q":
            qb_fp8["launches"]["banded_decode_attention_q"]

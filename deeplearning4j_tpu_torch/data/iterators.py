@@ -1,23 +1,26 @@
 """DataSet iterators — port of the training half of
 `deeplearning4j_tpu/data/iterators.py`: the base protocol,
 `ArrayDataSetIterator`, `IterableDataSetIterator`, `as_iterator`, and
-`DevicePrefetchIterator`, which moves each batch to the net's device one
-batch ahead of the step that consumes it.
+`DevicePrefetchIterator`, which keeps `depth` batches' copies to the
+net's device in flight ahead of the step that consumes them.
 
-The device copy is a `non_blocking` copy from pinned host memory on the
-current stream, so the host enqueues batch N+1's transfer while batch
-N's step is still running and never waits for it. (JAX's iterator
-relies on async `device_put`; a copy on a side stream of its own, and
-the background-thread `AsyncDataSetIterator`, come later.)
+On a CUDA device each copy is a `non_blocking` copy from pinned host
+memory on a side stream of the iterator's own, so the copy of batch N+1
+overlaps step N's kernels; the consumer's stream waits on the copy's
+event only when it takes the batch. (The background-thread
+`AsyncDataSetIterator` comes later.)
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Callable, Iterator, List, Optional
 
 import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.observe import get_registry
 
 
 class DataSetIterator:
@@ -126,38 +129,80 @@ class IterableDataSetIterator(DataSetIterator):
 
 
 class DevicePrefetchIterator(DataSetIterator):
-    """Run one batch ahead of the consumer: when batch N is handed out,
-    batch N+1 is fetched and moved to the device by `put(ds) -> ds`.
+    """Run `depth` batches ahead of the consumer: each batch is fetched
+    and moved to the device by `put(ds) -> ds` as soon as a place in the
+    buffer frees (JAX's `depth=max(2, K)` under `fit(steps_per_dispatch=
+    K)`).
 
-    Only the host's work is ahead. The `non_blocking` copy is issued on
-    the current stream, before step N's kernels are enqueued, so on the
-    device it runs in stream order ahead of step N and does not overlap
-    its compute; that overlap needs the side-stream copy (ROADMAP A1)."""
+    With a CUDA `device`, `put` runs on the iterator's side stream, and
+    an event recorded after it is waited on by the consumer's stream when
+    the batch is handed out; each tensor of the batch is marked used on
+    that stream (`record_stream`), so the allocator does not hand its
+    memory back to the side stream early. Counters (stage "device"):
+    `prefetch_hits_total` (the batch was in the buffer when asked for),
+    `prefetch_misses_total` (it was fetched in line) and
+    `etl_batches_total`."""
 
-    def __init__(self, base: DataSetIterator, put: Callable):
+    def __init__(self, base: DataSetIterator, put: Callable,
+                 depth: int = 2, device=None):
         self._base = base
         self._put = put
+        self._depth = max(1, int(depth))
+        self._device = None if device is None else torch.device(device)
+        self._stream = None
         self._inner: Optional[Iterator] = None
-        self._next: Optional[DataSet] = None
+        self._buf: collections.deque = collections.deque()
+        self._exhausted = False
+        reg = get_registry()
+        self._m_hits = reg.counter("prefetch_hits_total", stage="device")
+        self._m_misses = reg.counter("prefetch_misses_total",
+                                     stage="device")
+        self._m_batches = reg.counter("etl_batches_total", stage="device")
 
     def reset(self):
         self._inner = iter(self._base)
-        self._next = None
-        self._fetch()
+        self._buf.clear()
+        self._exhausted = False
 
-    def _fetch(self):
-        try:
-            self._next = self._put(next(self._inner))
-        except StopIteration:
-            self._next = None
+    def _copy(self, ds: DataSet):
+        """(batch on the device, its copy's event or None)."""
+        dev = self._device
+        if dev is None or dev.type != "cuda":
+            return self._put(ds), None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self._stream):
+            out = self._put(ds)
+            ev = torch.cuda.Event()
+            ev.record(self._stream)
+        return out, ev
+
+    def _fill(self):
+        while not self._exhausted and len(self._buf) < self._depth:
+            try:
+                self._buf.append(self._copy(next(self._inner)))
+            except StopIteration:
+                self._exhausted = True
 
     def __next__(self):
         if self._inner is None:
             self.reset()
-        item = self._next
-        if item is None:
+        ready = bool(self._buf)
+        self._fill()
+        if not self._buf:
             raise StopIteration
-        self._fetch()      # enqueue the next batch's copy right away
+        (self._m_hits if ready else self._m_misses).inc()
+        self._m_batches.inc()
+        item, ev = self._buf.popleft()
+        if ev is not None:
+            cur = torch.cuda.current_stream(self._device)
+            cur.wait_event(ev)
+            for t in (item.features, item.labels, item.features_mask,
+                      item.labels_mask):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    t.record_stream(cur)
+        self._fill()      # enqueue the replacement copy right away
         return item
 
     @property

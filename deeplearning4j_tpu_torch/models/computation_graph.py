@@ -16,13 +16,14 @@ As `MultiLayerNetwork`: the step takes gradients with
 (one fused launch per group of vertices that share an updater and a
 dtype), keeps its step counter and its loss on the device, and the fit
 loop reads the loss once an epoch. Batch-norm running statistics are
-vertex state, replaced after every step.
+vertex state, copied into the stored tensors after every step, and
+`fit(steps_per_dispatch=K)` runs K steps as one CUDA graph on the card,
+as `MultiLayerNetwork`'s does.
 
 Not ported yet, and refused by `fit` rather than ignored: truncated BPTT
-and `rnn_time_step` (ROADMAP A3), `steps_per_dispatch > 1` and the
-full-batch solvers and `pretrain` (A1), the recovery arguments (A6) and
-gradient checkpointing (A4). Batches are `DataSet`s: one network input
-and one output.
+and `rnn_time_step` (ROADMAP A3), the full-batch solvers and `pretrain`
+(A1), the recovery arguments (A6) and gradient checkpointing (A4).
+Batches are `DataSet`s: one network input and one output.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ from deeplearning4j_tpu_torch.data.iterators import (
     DevicePrefetchIterator, as_iterator,
 )
 from deeplearning4j_tpu_torch.models.multilayer import (
-    _DTYPES, _argmax_i32, _as_tensor, _grad_and_update, _host, _refuse,
-    _to_device, _updater_groups,
+    _DTYPES, MultiLayerNetwork, _argmax_i32, _as_tensor, _copy_states,
+    _grad_and_update, _host, _refuse, _to_device, _updater_groups,
 )
 from deeplearning4j_tpu_torch.nn.graph import (
     ComputationGraphConfiguration, LayerVertex, resolve_output_type,
@@ -51,6 +52,7 @@ from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
 from deeplearning4j_tpu_torch.optim.updaters import (
     NoOp, Updater, resolve_updater, tree_leaves, tree_map,
 )
+from deeplearning4j_tpu_torch.utils.cuda_graphs import NetGraphs
 from deeplearning4j_tpu_torch.utils.device import resolve_device
 
 
@@ -74,6 +76,9 @@ class ComputationGraph:
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(int(conf.seed))
         self._step_t: Optional[torch.Tensor] = None
+        self.cuda_graphs = True
+        self._graphs = NetGraphs(self.device)
+        self.fit_stats = {"graph_windows": 0, "eager_steps": 0}
 
     @property
     def score_(self) -> Optional[float]:
@@ -106,6 +111,7 @@ class ComputationGraph:
         self._build_updaters()
         self.updater_state = {n: u.init(params[n])
                               for n, u in self._vertex_updaters.items()}
+        self._start_steps()
         return self
 
     def _build_updaters(self):
@@ -260,20 +266,20 @@ class ComputationGraph:
     # ---------------------------------------------------------- fit API
     def fit(self, data, labels=None, *, epochs: int = 1,
             batch_size: int = 32, steps_per_dispatch: int = 1,
-            sync_every: int = 0, checkpointer=None, resume=None,
-            stop_fn=None, preemption=None):
+            device_prefetch: bool = True, sync_every: int = 0,
+            checkpointer=None, resume=None, stop_fn=None, preemption=None):
         """Train on arrays, a DataSet, a DataSetIterator or any iterable
         of DataSets. The loss stays on the device (``score_`` reads it;
-        ``sync_every=N`` reads it every N steps) and each batch's copy to
-        the card is enqueued one batch ahead. Refused rather than ignored,
-        until ported: truncated BPTT, ``steps_per_dispatch > 1``, the
-        recovery arguments, gradient checkpointing and non-SGD solvers."""
+        ``sync_every=N`` reads it every N steps); ``device_prefetch``
+        keeps max(2, K) batches' copies to the card in flight on a side
+        stream. ``steps_per_dispatch=K`` runs K same-shape batches as one
+        dispatch, a CUDA graph of K train steps on the card, as
+        `MultiLayerNetwork.fit`. Refused rather than ignored, until
+        ported: truncated BPTT, the recovery arguments, gradient
+        checkpointing and non-SGD solvers."""
         self._check_init()
         if self.conf.tbptt_fwd_length > 0:
             _refuse("truncated BPTT of a ComputationGraph", "A3")
-        if int(steps_per_dispatch) > 1:
-            _refuse("steps_per_dispatch > 1 (a CUDA graph of K steps)",
-                    "A1")
         if checkpointer is not None or resume is not None or \
                 stop_fn is not None or preemption:
             _refuse("checkpointed, resumable or stoppable fit "
@@ -283,33 +289,59 @@ class ComputationGraph:
         if self.conf.optimization_algo != "stochastic_gradient_descent":
             _refuse(f"solver {self.conf.optimization_algo!r} "
                     f"(optim/solvers.py)", "A1")
-        it = DevicePrefetchIterator(as_iterator(data, labels, batch_size),
-                                    self._put_batch)
+        k = max(1, int(steps_per_dispatch))
+        it = as_iterator(data, labels, batch_size)
+        if device_prefetch:
+            it = DevicePrefetchIterator(it, self._put_batch,
+                                        depth=max(2, k), device=self.device)
         self._loss_tracker.sync_every = int(sync_every)
         self._start_steps()
-        TrainingExecutor(self, step=self._fit_batch).run(it, epochs)
+        TrainingExecutor(self, step=self._fit_batch,
+                         fused_step=self._fused_dispatch,
+                         can_fuse=self._can_fuse,
+                         steps_per_dispatch=k).run(it, epochs)
         return self
 
-    def _start_steps(self):
-        """Fill the device step counter from `iteration` (a fill, no
-        copy), as `MultiLayerNetwork._start_steps`."""
-        self._step_t = torch.full((), self.iteration, dtype=torch.int64,
-                                  device=self.device)
+    # the step counter, the addresses a graph reads, the generators it
+    # draws from and the K-step dispatch, as `MultiLayerNetwork`'s
+    _start_steps = MultiLayerNetwork._start_steps
+    _state_addresses = MultiLayerNetwork._state_addresses
+    _generators = MultiLayerNetwork._generators
+    _fused_dispatch = MultiLayerNetwork._fused_dispatch
 
-    def _fit_batch(self, ds: DataSet):
-        """One train step on one batch; returns the device loss."""
+    def _on_device(self, ds: DataSet) -> DataSet:
         if not isinstance(ds.features, torch.Tensor) or \
                 ds.features.device != self.device:
             ds = self._put_batch(ds)
-        feats, labs, fmasks, lmasks = self._to_dicts(ds)
-        self._check_inputs(feats)
         self.last_batch_size = ds.num_examples()
-        (self.params_tree, self.updater_state, self.state_tree,
-         loss) = self.make_step_fn()(
+        return ds
+
+    def _check_batch(self, ds: DataSet) -> None:
+        self._check_inputs(self._to_dicts(ds)[0])
+
+    def _fit_batch(self, ds: DataSet):
+        """One train step on one batch; returns the device loss."""
+        ds = self._on_device(ds)
+        self._check_batch(ds)
+        self.fit_stats["eager_steps"] += 1
+        return self._train_step(ds.features, ds.labels, ds.features_mask,
+                                ds.labels_mask)
+
+    def _train_step(self, features, labels, fmask, lmask):
+        """The train step over the net's own trees, all in place (the
+        new running statistics copied into `state_tree`, the step
+        counter advanced where it lies). Returns the device loss."""
+        feats, labs, fmasks, lmasks = self._to_dicts(
+            DataSet(features, labels, fmask, lmask))
+        _, _, persist, loss = self.make_step_fn()(
             self.params_tree, self.updater_state, self.state_tree,
             self._step_t, feats, labs, fmasks, lmasks, self._rng)
+        _copy_states(self.state_tree, persist)
         self._step_t.add_(1)
         return loss
+
+    def _can_fuse(self, ds: DataSet) -> bool:
+        return self.conf.optimization_algo == "stochastic_gradient_descent"
 
     def pretrain(self, *args, **kwargs):
         _refuse("layerwise pretraining of a ComputationGraph", "A1")

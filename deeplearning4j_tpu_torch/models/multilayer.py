@@ -20,6 +20,14 @@ updater, so the zoo transformer's Adam is one launch of kernel B1a a
 step. Its step counter lives on the device, and the loss stays there
 until the fit loop reads it once an epoch (`optim/executor.py`).
 
+On the card, `fit(steps_per_dispatch=K)` runs K train steps as one CUDA
+graph, and each `session_decode_window` and `rnn_time_step` call is one
+graph replay (`utils/cuda_graphs.py`): so a step reads and writes every
+tensor of the net where the graph found it. Parameters, optimizer
+moments, the batch-norm running statistics and the step counter are
+updated in place, never rebound. `cuda_graphs = False` runs those calls
+eagerly instead (the plain version of the graphs).
+
 Slot-indexed sessions thread their carries through `session_step` and
 `session_decode_window` as arguments, as in JAX, but the KV caches
 inside those carries are updated in place (see
@@ -53,6 +61,7 @@ from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
 from deeplearning4j_tpu_torch.optim.updaters import (
     NoOp, Updater, resolve_updater, tree_leaves, tree_map,
 )
+from deeplearning4j_tpu_torch.utils.cuda_graphs import NetGraphs
 from deeplearning4j_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -207,6 +216,72 @@ def _grad_and_update(loss_fn, params, opt_state, groups, mode: str,
     return loss.detach(), aux
 
 
+def _copy_states(states: dict, new: dict) -> None:
+    """Copy a step's new states into `states`' tensors in place, key by
+    key (a leaf the step passed through is the same tensor: skipped). A
+    key `states` lacks, or a leaf whose dtype or shape the step changed
+    (a float64 net's float32 statistics), is bound anew, as JAX's step
+    returns it; the next dispatch then captures its graph anew."""
+    for k, nxt in new.items():
+        old = states.get(k)
+        if isinstance(nxt, dict):
+            if old is None:
+                old = states[k] = {}
+            _copy_states(old, nxt)
+        elif old is None or old.dtype != nxt.dtype or \
+                old.shape != nxt.shape:
+            states[k] = nxt
+        elif nxt is not old:
+            old.copy_(nxt)
+
+
+def _field_lists(batches):
+    """The batches' features, labels and masks, one list of K tensors a
+    field (None for a field the batches lack)."""
+    return [None if getattr(batches[0], f) is None
+            else [getattr(b, f) for b in batches]
+            for f in ("features", "labels", "features_mask", "labels_mask")]
+
+
+def _carry_leaves(tree, path=()):
+    """(path, tensor) of every leaf of a carry tree, in key order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _carry_leaves(v, (*path, k))
+        else:
+            yield (*path, k), v
+
+
+def _leaf_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _with_leaves(tree, leaves: dict, path=()):
+    """A copy of the dict tree with the leaves at `leaves`' paths
+    replaced (every other leaf is the same tensor)."""
+    return {k: (_with_leaves(v, leaves, (*path, k)) if isinstance(v, dict)
+                else leaves.get((*path, k), v))
+            for k, v in tree.items()}
+
+
+def _lane_pack(values, dev) -> torch.Tensor:
+    """Per-lane arrays as one float64 [len(values), S] tensor on `dev`
+    (tokens, seed words, counts and float32 knobs are all exact in
+    float64): one pinned copy to the card when they are host arrays."""
+    if any(isinstance(v, torch.Tensor) and v.device.type != "cpu"
+           for v in values):
+        return torch.stack([_as_tensor(v, torch.float64, dev)
+                            for v in values])
+    host = torch.from_numpy(np.stack([
+        (v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+        .astype(np.float64) for v in values]))
+    if dev.type == "cuda":
+        return host.pin_memory().to(dev, non_blocking=True)
+    return host
+
+
 def _refuse(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md {item}); the port refuses "
@@ -236,6 +311,9 @@ class MultiLayerNetwork:
         self._rng.manual_seed(int(conf.seed))
         self._step_t: Optional[torch.Tensor] = None
         self._decode_state = DecodeState()
+        self.cuda_graphs = True
+        self._graphs = NetGraphs(self.device)
+        self.fit_stats = {"graph_windows": 0, "eager_steps": 0}
 
     @property
     def score_(self) -> Optional[float]:
@@ -267,6 +345,7 @@ class MultiLayerNetwork:
         self._build_updaters()
         self.updater_state = {name: u.init(params[name])
                               for name, u in self._layer_updaters.items()}
+        self._start_steps()
         return self
 
     def _build_updaters(self):
@@ -373,24 +452,28 @@ class MultiLayerNetwork:
     # ---------------------------------------------------------- fit API
     def fit(self, data, labels=None, *, epochs: int = 1,
             batch_size: int = 32, steps_per_dispatch: int = 1,
-            sync_every: int = 0, checkpointer=None, resume=None,
-            stop_fn=None, preemption=None):
+            device_prefetch: bool = True, sync_every: int = 0,
+            checkpointer=None, resume=None, stop_fn=None, preemption=None):
         """Train on arrays, a DataSet, a DataSetIterator or any iterable
         of DataSets (reference: `fit(DataSetIterator)`). The loss stays
         on the device (``score_`` reads it; ``sync_every=N`` reads it
-        every N steps), and each batch's copy to the card is enqueued one
-        batch ahead (`DevicePrefetchIterator`).
+        every N steps); ``device_prefetch`` keeps max(2, K) batches'
+        copies to the card in flight on a side stream
+        (`DevicePrefetchIterator`).
+
+        ``steps_per_dispatch=K`` runs K same-shape batches as one
+        dispatch (`_fused_dispatch`: one CUDA graph of K train steps on
+        the card). A tail shorter than K, a batch whose shapes differ
+        from the window's and a tBPTT batch run per step, as in JAX;
+        `fit_stats` counts graph windows and eager steps.
 
         With ``conf.tbptt_fwd_length > 0`` a 3-D batch trains by
         truncated BPTT (`_fit_tbptt`).
 
-        Refused rather than ignored, until ported: ``steps_per_dispatch
-        > 1``, ``checkpointer``, ``resume``, ``stop_fn``, ``preemption``,
-        gradient checkpointing and non-SGD solvers."""
+        Refused rather than ignored, until ported: ``checkpointer``,
+        ``resume``, ``stop_fn``, ``preemption``, gradient checkpointing
+        and non-SGD solvers."""
         self._check_init()
-        if int(steps_per_dispatch) > 1:
-            _refuse("steps_per_dispatch > 1 (a CUDA graph of K steps)",
-                    "A1")
         if checkpointer is not None or resume is not None or \
                 stop_fn is not None or preemption:
             _refuse("checkpointed, resumable or stoppable fit "
@@ -400,20 +483,40 @@ class MultiLayerNetwork:
         if self.conf.optimization_algo != "stochastic_gradient_descent":
             _refuse(f"solver {self.conf.optimization_algo!r} "
                     f"(optim/solvers.py)", "A1")
-        it = DevicePrefetchIterator(as_iterator(data, labels, batch_size),
-                                    self._put_batch)
+        k = max(1, int(steps_per_dispatch))
+        it = as_iterator(data, labels, batch_size)
+        if device_prefetch:
+            it = DevicePrefetchIterator(it, self._put_batch,
+                                        depth=max(2, k), device=self.device)
         self._loss_tracker.sync_every = int(sync_every)
         self._start_steps()
-        TrainingExecutor(self, step=self._dispatch_batch).run(it, epochs)
+        TrainingExecutor(self, step=self._dispatch_batch,
+                         fused_step=self._fused_dispatch,
+                         can_fuse=self._can_fuse,
+                         steps_per_dispatch=k).run(it, epochs)
         return self
 
     def _start_steps(self):
         """Fill the device step counter from `iteration` (a fill, no
-        copy): every fit starts there, so a loaded or resumed net carries
-        on with Adam's bias correction and a schedule's rate where it
-        stopped."""
-        self._step_t = torch.full((), self.iteration, dtype=torch.int64,
-                                  device=self.device)
+        copy), in place once it exists, so a graph captured in an earlier
+        fit reads the live counter: every fit starts there, so a loaded
+        or resumed net carries on with Adam's bias correction and a
+        schedule's rate where it stopped."""
+        if self._step_t is None:
+            self._step_t = torch.zeros((), dtype=torch.int64,
+                                       device=self.device)
+        self._step_t.fill_(self.iteration)
+
+    def _state_addresses(self) -> tuple:
+        """Where a train step reads and writes in place: a graph
+        captured over other addresses is captured anew."""
+        return tuple(t.data_ptr() for t in (
+            *tree_leaves(self.params_tree),
+            *tree_leaves(self.updater_state),
+            *tree_leaves(self.state_tree), self._step_t))
+
+    def _generators(self) -> tuple:
+        return (self._rng,) if self.device.type == "cuda" else ()
 
     def _put_batch(self, ds: DataSet) -> DataSet:
         """A batch on the net's device: features and masks in the net's
@@ -454,17 +557,66 @@ class MultiLayerNetwork:
             return self._fit_tbptt(ds)
         return self._fit_batch(ds)
 
+    def _check_batch(self, ds: DataSet) -> None:
+        self._check_input(ds.features)
+
     def _fit_batch(self, ds: DataSet):
         """One train step on one batch; returns the device loss."""
         ds = self._on_device(ds)
-        self._check_input(ds.features)
-        step_fn = self.make_step_fn()
-        (self.params_tree, self.updater_state, self.state_tree, loss,
-         _) = step_fn(self.params_tree, self.updater_state, self.state_tree,
-                      self._step_t, ds.features, ds.labels,
-                      ds.features_mask, ds.labels_mask, self._rng, None)
+        self._check_batch(ds)
+        self.fit_stats["eager_steps"] += 1
+        return self._train_step(ds.features, ds.labels, ds.features_mask,
+                                ds.labels_mask)
+
+    def _train_step(self, features, labels, fmask, lmask):
+        """The train step over the net's own trees, all in place: the
+        new running statistics are copied into `state_tree` and the step
+        counter advances where it lies. Returns the device loss."""
+        _, _, persist, loss, _ = self.make_step_fn()(
+            self.params_tree, self.updater_state, self.state_tree,
+            self._step_t, features, labels, fmask, lmask, self._rng, None)
+        _copy_states(self.state_tree, persist)
         self._step_t.add_(1)
         return loss
+
+    def _can_fuse(self, ds: DataSet) -> bool:
+        """Fused dispatch takes the plain SGD step: a 3-D batch under
+        truncated BPTT runs per step (its chunks hand carries on)."""
+        return (self.conf.optimization_algo == "stochastic_gradient_descent"
+                and not (self.conf.tbptt_fwd_length > 0
+                         and ds.features.ndim == 3))
+
+    def _fused_dispatch(self, batches: List[DataSet]):
+        """K same-shape batches as ONE dispatch (JAX's `lax.scan` of the
+        step; `ComputationGraph` shares it): on the card one CUDA graph
+        of K whole train steps, cached by K and the batches' shapes,
+        dtypes and mask presence. The batches are stacked into the
+        graph's static [K, ...] buffers and step j reads slice j. The
+        first window of a key runs its K steps eagerly (the warm-up),
+        then is captured; later windows replay. Returns the (K,) device
+        losses."""
+        batches = [self._on_device(b) for b in batches]
+        self._check_batch(batches[0])
+        k = len(batches)
+        if not self.cuda_graphs:
+            return torch.stack([self._fit_batch(b) for b in batches])
+
+        def k_steps(feats, labs, fms, lms):
+            def at(a, j):
+                return None if a is None else a[j]
+            return torch.stack([
+                self._train_step(feats[j], at(labs, j), at(fms, j),
+                                 at(lms, j)) for j in range(k)])
+
+        losses = self._graphs.run(
+            ("fit", k), k_steps, _field_lists(batches),
+            addresses=self._state_addresses(),
+            generators=self._generators())
+        if self._graphs.replayed:
+            self.fit_stats["graph_windows"] += 1
+        else:
+            self.fit_stats["eager_steps"] += k
+        return losses
 
     def _fit_tbptt(self, ds: DataSet):
         """Truncated BPTT on one batch: time is cut into chunks of
@@ -501,14 +653,15 @@ class MultiLayerNetwork:
             def sl(a):
                 return None if a is None else a[:, t_lo:hi]
 
-            (self.params_tree, self.updater_state, self.state_tree, loss,
-             carries) = step_fn(
+            _, _, persist, loss, carries = step_fn(
                 self.params_tree, self.updater_state, self.state_tree,
                 self._step_t, sl(ds.features), sl(ds.labels),
                 sl(ds.features_mask), sl(ds.labels_mask), self._rng,
                 carries or None)
+            _copy_states(self.state_tree, persist)
             losses.append(loss)
         self._step_t.add_(1)
+        self.fit_stats["eager_steps"] += 1
         return torch.stack(losses).mean()
 
     @torch.no_grad()
@@ -612,7 +765,12 @@ class MultiLayerNetwork:
         under the decode-state lock, and the carries are replaced only
         after a step that succeeded. Stacks with attention layers are
         refused: their lockstep KV-cache stepping is not ported yet
-        (serving steps them through `session_step`)."""
+        (serving steps them through `session_step`).
+
+        One graph per (x's shape and dtype, carries present), as JAX
+        jits one program per pair (`utils/cuda_graphs`): once carries
+        exist they live in that graph's static buffers, which the graph
+        reads and writes back in place."""
         self._check_init()
         if self._decode_layer_names:
             _refuse("rnn_time_step over attention layers (lockstep KV-cache "
@@ -622,23 +780,56 @@ class MultiLayerNetwork:
             x = x[:, None, :]
         self._check_input(x, any_length=True)
         st = self._decode_state
+        names = self._rnn_layer_names
         with st.lock():
-            out, new_states = self._forward(self.params_tree, x,
-                                            carries=st.carries or None)
-            st.update({n: new_states[n] for n in self._rnn_layer_names})
+            carries = st.carries or None
+            if not self.cuda_graphs:
+                out, new_states = self._forward(self.params_tree, x,
+                                                carries=carries)
+                st.update({n: new_states[n] for n in names})
+                return out
+
+            def step(xs, c):
+                out, new_states = self._forward(self.params_tree, xs,
+                                                carries=c)
+                new = {n: new_states[n] for n in names}
+                if c is None:
+                    return out, new
+                _copy_states(c, new)       # written back in place
+                return out, None
+
+            key = ("rnn_time_step", carries is not None)
+            out, new = self._graphs.run(
+                key, step, (x, carries),
+                addresses=tuple(t.data_ptr()
+                                for t in tree_leaves(self.params_tree)))
+            if new is None:
+                new = self._graphs.inputs(self._graphs.last_key)[1]
+            st.update(new)
         return out
 
     def rnn_clear_previous_state(self) -> None:
+        """Drop the carries: the next call starts from zeros (the
+        no-carry graph)."""
         self._decode_state.clear()
 
     def rnn_reorder_state(self, idx) -> None:
         """Reorder (or expand) the stepping carries along the batch
         dimension (a beam search gathers each beam's h/c rows to follow
-        its parent). Every carry leaf is batch-leading."""
+        its parent). Every carry leaf is batch-leading. A reorder that
+        keeps the batch gathers in place, into the graph's static
+        buffers."""
         ix = torch.as_tensor(np.asarray(idx), dtype=torch.int64,
                              device=self.device)
-        self._decode_state.reorder(lambda carries: tree_map(
-            lambda a: a[ix] if a.ndim >= 1 else a, carries))
+
+        def gather(a):
+            if a.ndim < 1:
+                return a
+            if a.shape[0] == ix.shape[0]:
+                return a.copy_(a[ix])
+            return a[ix]
+
+        self._decode_state.reorder(lambda carries: tree_map(gather, carries))
 
     # ------------------------------------------- slot-indexed sessions
     @property
@@ -749,8 +940,8 @@ class MultiLayerNetwork:
         lane's token, samples the next one on the device
         (`utils.sampling.sample_token_lanes`), feeds it back, and retires
         a lane AT its EOS token or at its budget through the active mask.
-        A Python loop of K steps with no host read inside: the caller
-        reads the packed result once per window.
+        No host read inside: the caller reads the packed result once per
+        window.
 
         Arguments are per lane (S = slots): `tokens` i32[S] first inputs;
         `active` bool[S]; sampling knobs f32/i32/f32/bool[S]; `keys`
@@ -759,32 +950,71 @@ class MultiLayerNetwork:
         to co-batching; `offsets` i32[S] tokens already generated;
         `budgets` i32[S] tokens left; `eos_ids` i32[S] (-1 = none).
 
+        One graph replay a window (`utils/cuda_graphs`), keyed by k, S,
+        the carries' layout and the addresses of the KV caches and the
+        parameters, which the graph reads and writes where they lie (a
+        pool rebuilt elsewhere is captured anew). The per-lane arguments
+        go to the card as one packed copy; the carries' `pos` and
+        `page_table` leaves are copied into the graph's buffers, and the
+        returned carries are the caller's tree with new `pos` leaves.
+        With `cuda_graphs` off, the same K steps run eagerly.
+
         Returns (tokens i32[S, k], emitted bool[S, k], new_carries);
         positions not emitted hold -1."""
-        from deeplearning4j_tpu_torch.utils import sampling as _sampling
-
         self._check_init()
         k = int(k)
         if k < 1:
             raise ValueError(f"window length k must be >= 1, got {k}")
-        dev, dt = self.device, self.dtype
-        tok = _as_tensor(tokens, torch.int64, dev)
-        act = _as_tensor(active, torch.bool, dev)
-        temps = _as_tensor(temperature, torch.float32, dev)
-        tks = _as_tensor(top_k, torch.int64, dev)
-        tps = _as_tensor(top_p, torch.float32, dev)
-        grdy = _as_tensor(greedy, torch.bool, dev)
-        keys_ = _as_tensor(np.asarray(keys).astype(np.int64), torch.int64,
-                           dev)
-        offs = _as_tensor(offsets, torch.int64, dev)
-        buds = _as_tensor(budgets, torch.int64, dev)
-        eos = _as_tensor(eos_ids, torch.int64, dev)
+        dev = self.device
+        lanes = (tokens, active, temperature, top_k, top_p, greedy,
+                 np.asarray(keys).astype(np.int64)[:, 0],
+                 np.asarray(keys).astype(np.int64)[:, 1], offsets, budgets,
+                 eos_ids)
+        if not self.cuda_graphs:
+            return self._window(_lane_pack(lanes, dev), carries, k)
+        # by path: a step returns a layer's carry keys in another order
+        leaves = sorted(_carry_leaves(carries), key=lambda pa: pa[0])
+        small = [(path, a) for path, a in leaves
+                 if path[-1] in ("pos", "page_table")]
+        in_place = tuple(a.data_ptr() for path, a in leaves
+                         if path[-1] not in ("pos", "page_table"))
+
+        def window(packed, leaves):
+            c = _with_leaves(carries, dict(zip((p for p, _ in small),
+                                               leaves)))
+            toks, emits, new = self._window(packed, c, k)
+            return toks, emits, [_leaf_at(new, p) for p, _ in small
+                                 if p[-1] == "pos"]
+
+        toks, emits, pos = self._graphs.run(
+            ("decode_window", k), window,
+            (_lane_pack(lanes, dev), tuple(a for _, a in small)),
+            addresses=in_place + tuple(
+                t.data_ptr() for t in tree_leaves(self.params_tree)))
+        new_pos = dict(zip((p for p, _ in small if p[-1] == "pos"), pos))
+        return toks, emits, _with_leaves(carries, new_pos)
+
+    def _window(self, packed, carries, k: int):
+        """The K steps of `session_decode_window` over its per-lane
+        arguments packed as float64 rows (every value exact)."""
+        from deeplearning4j_tpu_torch.utils import sampling as _sampling
+
+        dt = self.dtype
+        (tok, act, temps, tks, tps, grdy, key0, key1, offs, buds,
+         eos) = packed
+        tok = tok.to(torch.int64)
+        act = act.to(torch.bool)
+        temps, tps = temps.to(torch.float32), tps.to(torch.float32)
+        tks, grdy = tks.to(torch.int64), grdy.to(torch.bool)
+        keys_ = torch.stack((key0, key1), dim=1).to(torch.int64)
+        offs, buds, eos = (a.to(torch.int64) for a in (offs, buds, eos))
         ids_input = isinstance(self.layers[0], EmbeddingSequenceLayer)
         feat = None if ids_input else int(self.layers[0].n_in)
         S = tok.shape[0]
-        n = torch.zeros((S,), dtype=torch.int64, device=dev)
-        toks_out = torch.full((S, k), -1, dtype=torch.int32, device=dev)
-        emits = torch.zeros((S, k), dtype=torch.bool, device=dev)
+        n = torch.zeros((S,), dtype=torch.int64, device=tok.device)
+        toks_out = torch.full((S, k), -1, dtype=torch.int32,
+                              device=tok.device)
+        emits = torch.zeros((S, k), dtype=torch.bool, device=tok.device)
         c = carries
         for i in range(k):
             if ids_input:

@@ -41,6 +41,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = 1 << 11
 _TABLES: "collections.OrderedDict" = collections.OrderedDict()
 _TABLES_KEPT = 8
+# tables made while a CUDA graph is captured, with their pinned host rows:
+# the graph copies the rows in and reads the table at every replay, so
+# both live as long as the process
+_GRAPH_TABLES: list = []
 
 
 def reset_counts() -> None:
@@ -83,7 +87,8 @@ def nesterov_update_plain(p, g, v, lr, *, momentum: float = 0.9):
 
 def _table(params, grads, ms, vs, dev):
     """The device leaf table (int64 [L, 6]: p, g, m, v, n, first chunk)
-    and the chunk count; built and copied once per set of addresses.
+    and the chunk count; built and copied once per set of addresses
+    (once per capture inside a CUDA graph).
     `ms` None (Nesterovs has no first moment) leaves the m column 0."""
     if ms is None:
         ms = [None] * len(params)
@@ -94,6 +99,13 @@ def _table(params, grads, ms, vs, dev):
                      0 if m is None else m.data_ptr(), v.data_ptr(),
                      n, chunk0])
         chunk0 += -(-n // CHUNK)
+    if torch.cuda.is_current_stream_capturing():
+        # a table of the graph's own, copied in by the graph itself: a
+        # kept eager table may be evicted, and another graph's table is
+        # written only when that graph replays
+        host = torch.tensor(rows, dtype=torch.int64).pin_memory()
+        _GRAPH_TABLES.append((host, host.to(dev, non_blocking=True)))
+        return _GRAPH_TABLES[-1][1], chunk0
     key = (dev.index, tuple(tuple(r[:5]) for r in rows))
     hit = _TABLES.get(key)
     if hit is not None:

@@ -1,5 +1,4 @@
-"""The fit-loop engine — port of `deeplearning4j_tpu/optim/executor.py`,
-per-step dispatch.
+"""The fit-loop engine — port of `deeplearning4j_tpu/optim/executor.py`.
 
 - `LossTracker` keeps the latest loss as the device tensor the step
   returned and turns it into a Python float only on demand: reading
@@ -8,22 +7,28 @@ per-step dispatch.
   makes no host sync, and the host runs ahead enqueueing steps.
 - `TrainingExecutor` owns the epoch and batch loop, iteration
   bookkeeping, ETL timing, listener fan-out and the epoch-end read.
+- Fused dispatch (`steps_per_dispatch=K`): K batches of one
+  `batch_signature` are buffered and handed to the net's `fused_step`
+  at once, which runs them as one dispatch (a CUDA graph of K train
+  steps on the card) and returns a (K,) device loss; listeners get
+  `losses[j]` for each step. A short tail, a batch whose signature
+  differs from the buffer's and a batch `can_fuse` turns down (a tBPTT
+  batch) drain the buffer through the per-step path.
 
-Not ported yet: fused K-step dispatch (`steps_per_dispatch > 1`, a CUDA
-graph of the step), the recovery hooks (checkpointing, resume, stop) and
-the tracing spans.
+Not ported yet: the recovery hooks (checkpointing, resume, stop) and the
+tracing spans.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.observe import get_registry
 
-__all__ = ["LossTracker", "TrainingExecutor"]
+__all__ = ["LossTracker", "TrainingExecutor", "batch_signature"]
 
 
 class LossTracker:
@@ -69,13 +74,33 @@ class LossTracker:
         return self.value
 
 
+def _arr_sig(a):
+    return None if a is None else (tuple(a.shape), str(a.dtype))
+
+
+def batch_signature(ds):
+    """Two batches fuse into one dispatch only when their signatures
+    match: the same shapes, dtypes and mask presence, so the same
+    graph."""
+    return (_arr_sig(ds.features), _arr_sig(ds.labels),
+            _arr_sig(ds.features_mask), _arr_sig(ds.labels_mask))
+
+
 class TrainingExecutor:
     """The epoch/batch/listener loop. `step(ds) -> loss` runs one
-    training step and returns the device loss."""
+    training step and returns the device loss; `fused_step(batches) ->
+    losses` runs K steps as one dispatch, for batches `can_fuse(ds)`
+    accepts, when `steps_per_dispatch` K > 1."""
 
-    def __init__(self, net, *, step: Callable):
+    def __init__(self, net, *, step: Callable,
+                 fused_step: Optional[Callable] = None,
+                 can_fuse: Optional[Callable] = None,
+                 steps_per_dispatch: int = 1):
         self.net = net
         self.step = step
+        self.fused_step = fused_step
+        self.can_fuse = can_fuse or (lambda ds: False)
+        self.k = max(1, int(steps_per_dispatch or 1))
         reg = get_registry()
         self._iter_counter = reg.counter("train_iterations")
         self._etl_hist = reg.histogram("train_etl_ms")
@@ -89,14 +114,27 @@ class TrainingExecutor:
         for _ in range(epochs):
             for l in listeners:
                 l.on_epoch_start(net, net.epoch)
+            buf: List = []
             etl_start = time.perf_counter()
             for ds in iter(iterable):
                 etl_ms = (time.perf_counter() - etl_start) * 1e3
-                t_d = time.perf_counter()
-                loss = self.step(ds)
-                self._finish(loss, etl_ms,
-                             (time.perf_counter() - t_d) * 1e3)
+                fusible = (self.k > 1 and self.fused_step is not None
+                           and self.can_fuse(ds))
+                if fusible and buf and \
+                        batch_signature(buf[0][0]) != batch_signature(ds):
+                    self._drain(buf)
+                    buf = []
+                if fusible:
+                    buf.append((ds, etl_ms))
+                    if len(buf) == self.k:
+                        self._run_fused(buf)
+                        buf = []
+                else:
+                    self._drain(buf)
+                    buf = []
+                    self._drain([(ds, etl_ms)])
                 etl_start = time.perf_counter()
+            self._drain(buf)
             for l in listeners:
                 l.on_epoch_end(net, net.epoch)
             net.epoch += 1
@@ -105,6 +143,23 @@ class TrainingExecutor:
         for l in listeners:
             l.on_fit_end(net)
         return net
+
+    def _drain(self, buf) -> None:
+        """Batches through the per-step path (a short tail would need a
+        K'-step graph of its own)."""
+        for ds, etl_ms in buf:
+            t_d = time.perf_counter()
+            loss = self.step(ds)
+            self._finish(loss, etl_ms, (time.perf_counter() - t_d) * 1e3)
+
+    def _run_fused(self, buf) -> None:
+        t_d = time.perf_counter()
+        losses = self.fused_step([ds for ds, _ in buf])
+        # one dispatch for K steps: its enqueue time shared evenly
+        dispatch_ms = (time.perf_counter() - t_d) * 1e3 / len(buf)
+        for j, (_, etl_ms) in enumerate(buf):
+            # losses[j] stays on the device: indexing does not sync
+            self._finish(losses[j], etl_ms, dispatch_ms)
 
     def _finish(self, loss, etl_ms: float, dispatch_ms: float) -> None:
         net = self.net

@@ -582,15 +582,13 @@ def test_resnet50_fused_nesterovs_steps_match_jax():
 
 # ----------------------------------------------------------------- refusals
 REFUSALS = [
-    (dict(steps_per_dispatch=2), "A1"),
     (dict(checkpointer=object()), "A6"),
     (dict(stop_fn=lambda *_: False), "A6"),
 ]
 
 
 @pytest.mark.parametrize("kw,item", REFUSALS,
-                         ids=["steps_per_dispatch", "checkpointer",
-                              "stop_fn"])
+                         ids=["checkpointer", "stop_fn"])
 def test_fit_refuses_what_is_not_ported(kw, item):
     net = _graph()
     with pytest.raises(NotImplementedError, match=item):

@@ -294,7 +294,6 @@ def test_attention_policy_refuses_head_dims_past_the_kernels_on_the_card():
 
 # ------------------------------------------------------------- refusals
 @pytest.mark.parametrize("kw,item", [
-    (dict(steps_per_dispatch=2), "A1"),
     (dict(checkpointer=object()), "A6"),
     (dict(resume="auto"), "A6"),
     (dict(preemption=True), "A6"),

@@ -4,6 +4,7 @@
     python3 tools/torch_decode_profile.py [--kv-dtype native|int8|fp8]
                                           [--b6-design auto|ffma|both]
                                           [--b5-design auto|ffma|both]
+                                          [--window-graphs on|off|both]
 
 Builds the two serving paths of `chip_smoke.py` (Path A: the 6-block
 GPT-style transformer at d_model 512 on the paged pool and kernel B6;
@@ -21,7 +22,10 @@ or e4m3 codes with float32 scale rows), so B5q and B6q carry the decode
 steps. `--b6-design ffma` keeps B6/B6q on design 1 where `b6_design`
 would pick design 2; `both` profiles Path A on design 2 and then on
 design 1 in the same run (Path B has no B6). `--b5-design` does the same
-for B5/B5q on Path B (`b5_design`). Needs a CUDA card.
+for B5/B5q on Path B (`b5_design`). Each decode window is one CUDA graph
+replay (`--window-graphs on`, the default); `off` runs the windows'
+steps eagerly (`cuda_graphs` off), `both` profiles each path both ways in
+the same run. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -83,6 +87,9 @@ def profile_path(name, net, prompts, greedy, max_tokens, kv_dtype=None,
                  designs=None):
     from torch.profiler import ProfilerActivity, profile
 
+    # a new pool may land at a dropped one's addresses: capture anew, so
+    # a forced design is the one the window graph runs
+    net._graphs.clear()
     registry, sched, mgr = cs.control_plane(net, slots=8, chunk=128, k=8,
                                             kv_dtype=kv_dtype)
     try:
@@ -123,6 +130,7 @@ def profile_path(name, net, prompts, greedy, max_tokens, kv_dtype=None,
         "top_kernels": [{"name": n[:120], "count": c, "ms": t / 1e3}
                         for n, (c, t) in top],
         "tokens_per_s_traced": wave["tokens_per_s"],
+        "window_graphs": net.cuda_graphs,
         **(designs or {}),
     }
     cs.emit(row)
@@ -153,7 +161,11 @@ def main() -> int:
     for flag in ("--b6-design", "--b5-design"):
         ap.add_argument(flag, choices=("auto", "ffma", "both"),
                         default="auto")
+    ap.add_argument("--window-graphs", choices=("on", "off", "both"),
+                    default="on")
     args = ap.parse_args()
+    graphs = {"on": [True], "off": [False],
+              "both": [True, False]}[args.window_graphs]
     kv = args.kv_dtype
     if not torch.cuda.is_available():
         print("torch_decode_profile: needs a CUDA card", file=sys.stderr)
@@ -168,16 +180,20 @@ def main() -> int:
             for _ in range(8)]
     designs = {"auto": ["auto"], "ffma": ["ffma"], "both": ["auto", "ffma"]}
     for design in designs[args.b6_design]:
-        with forced("b6_design", design):
-            profile_path("path_a", net_a, warm, greedy, 32, kv,
-                         {"b6_design": design})
+        for on in graphs:
+            net_a.cuda_graphs = on
+            with forced("b6_design", design):
+                profile_path("path_a", net_a, warm, greedy, 32, kv,
+                             {"b6_design": design})
     del net_a
     net_b = cs.build_path_b_net("cuda")
     long = [rng.integers(0, 256, 2240) for _ in range(8)]
     for design in designs[args.b5_design]:
-        with forced("b5_design", design):
-            profile_path("path_b", net_b, long, greedy, 32, kv,
-                         {"b5_design": design})
+        for on in graphs:
+            net_b.cuda_graphs = on
+            with forced("b5_design", design):
+                profile_path("path_b", net_b, long, greedy, 32, kv,
+                             {"b5_design": design})
     return 0
 
 

@@ -3,6 +3,7 @@
 
     python3 tools/torch_train_profile.py [--path t|w|l|g|r|m]
                                          [--dtype float32|bfloat16]
+                                         [--steps-per-dispatch K]
 
 Builds one of `chip_smoke.py`'s paths, warms it untraced, then runs it
 under `torch.profiler` and reads the kernels off its Chrome trace, with
@@ -32,6 +33,11 @@ the same method as `tools/torch_decode_profile.py`:
 - `--path m`, `path_m`: the zoo's LeNet, bfloat16, batch 1024, its
   default Adam(1e-3) (B1a once a step), on the synthetic MNIST
   surrogate; six traced train steps (two batches, three epochs).
+
+`--steps-per-dispatch K` (paths t and m) trains through
+`fit(steps_per_dispatch=K)`, K steps one CUDA graph replay: the warm-up
+fit runs one window (eager, then captured) and the traced window is
+replayed windows of K batches (t: one window; m: three epochs of one).
 
 Prints one JSON line: the traced window's wall time, the time the card
 was busy (the union of kernel intervals), the idle share, kernels
@@ -144,11 +150,26 @@ def kernel_class(name):
     return "other"
 
 
-def traced_window(path, dtype="float32"):
+def traced_window(path, dtype="float32", k=1):
     """(run, units, unit name, work a unit): `run()` drives the traced
     window; the warm-up has been done when this returns. `dtype` is
-    `path_t`'s."""
+    `path_t`'s; `k` > 1 trains paths t and m K steps a dispatch."""
     rng = np.random.default_rng(0)
+    if k > 1:
+        if path == "m":
+            from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+            from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+
+            net = MultiLayerNetwork(cs.lenet_conf(), device="cuda").init()
+            data = MnistDataSetIterator(1024, num_examples=k * 1024, seed=0)
+            units, work, epochs = 3 * k, 1024, 3
+        else:
+            net = cs.build_net("cuda", num_blocks=6, seed=5, dtype=dtype)
+            data = cs.lm_batches(rng, k, 8, 2048)
+            units, work, epochs = k, 8 * 2048, 1
+        net.fit(data, epochs=1, steps_per_dispatch=k)   # warm, captured
+        return (lambda: net.fit(data, epochs=epochs, steps_per_dispatch=k)
+                ), units, "step", work
     if path == "m":
         from deeplearning4j_tpu_torch.data import MnistDataSetIterator
         from deeplearning4j_tpu_torch.models import MultiLayerNetwork
@@ -201,10 +222,15 @@ def main() -> int:
                     default="t")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     help="path_t's dtype (--path t only; default float32)")
+    ap.add_argument("--steps-per-dispatch", type=int, default=1,
+                    help="K train steps a CUDA graph (--path t or m)")
     args = ap.parse_args()
     if args.dtype is not None and args.path != "t":
         ap.error(f"--dtype applies to --path t only: --path {args.path} "
                  f"runs in {PATH_DTYPES[args.path]}")
+    k = args.steps_per_dispatch
+    if k > 1 and args.path not in ("t", "m"):
+        ap.error("--steps-per-dispatch applies to --path t and m only")
     dtype = args.dtype or PATH_DTYPES[args.path]
     if not torch.cuda.is_available():
         print("torch_train_profile: needs a CUDA card", file=sys.stderr)
@@ -213,7 +239,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run, units, unit, tokens = traced_window(args.path, dtype)
+    run, units, unit, tokens = traced_window(args.path, dtype, k)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -241,7 +267,7 @@ def main() -> int:
         "phase": f"profile_path_{args.path}"
                  + ("_bf16" if args.path == "t" and dtype == "bfloat16"
                     else ""),
-        "dtype": dtype,
+        "dtype": dtype, "steps_per_dispatch": k,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": cs.gpu_name_and_limit(), f"{unit}s": units,
         f"{'images' if args.path in 'rm' else 'tokens'}_per_{unit}": tokens,
