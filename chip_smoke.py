@@ -15,10 +15,11 @@ exits non-zero with no result line:
    (the port never calls it):
    - the decode-attention kernels B5 (slot pool) and B6 (paged pool)
      over GQA ratios, visibility modes, page lengths, shared pages and
-     dtypes, against `F.scaled_dot_product_attention` over the gathered
-     cache; each B5/B5q and B6/B6q row names its design (float32
-     queries on the split grid, "split", bfloat16 caches on design 1,
-     "ffma") and its share of the bound, and a design-2 row also holds
+     dtypes (B5q also at path_s's linear pools, Hkv 8, L 2048), against
+     `F.scaled_dot_product_attention` over the gathered cache; each
+     B5/B5q and B6/B6q row names its design (float32 queries on the
+     split grid, "split", bfloat16 caches on design 1, "ffma") and its
+     share of the bound, and a design-2 row also holds
      and times design 1 on the same inputs (`ffma_ms`); then design 2
      twice at Path A's shape over float32, int8 and e4m3 pages
      (`b6_repeat`) and at Path B's over its ring (`b5_repeat`),
@@ -84,7 +85,25 @@ exits non-zero with no result line:
    cannot page, so the slot pool and B5 carry it, every launch on design
    2, and the streams run past the ring's length so it wraps;
 5. cpu_parity: the port on the card against the port on the CPU, same
-   weights, one short greedy prompt;
+   weights, one short greedy prompt; then path_q (quantized pools, see
+   `path_q`), and:
+   - path_h: Path A's model and 8 cold prompts through
+     `InferenceServer` on 127.0.0.1 (8 client threads, SSE, 64 greedy
+     tokens), every stream equal to the direct `DecodeSessionManager`'s;
+     `/metrics` reconciles; `/models`, `/healthz`, "stream": false and
+     `POST /output` (batch 8, within 1e-5 of `net.output`); `deploy()`
+     of another seed while 4 streams run (they complete, a later stream
+     equals the new net's), and a candidate with 2 KV heads rolled back;
+     B6 on design 2 throughout, B3a on `/output` and the warm-ups; a
+     padded `/output` batch (9 rows in the bucket of 32) timed against
+     the exact one;
+   - path_s: speculative decoding with a 1-block truncated draft sharing
+     the target's weights (spec_k 8) through `InferenceServer`: streams
+     equal the non-spec decode's; the windows eager against graphed
+     (packed rows and streams); the silenced pair's acceptance at least
+     0.85 and an EOS inside a window; an int8 leg (B5q) against
+     non-spec int8, and the silenced pair at int8 (acceptance at least
+     0.85); the draft's steps on B5 (B5q), design 2;
 6. path_t: training of the same model at full width (6 blocks, T 2048,
    batch 8, float32, its default Adam(3e-4)) through `net.fit`: 4 fixed
    batches of random tokens, 3 epochs, 12 steps; B3a/B3b/B3c carry the
@@ -362,7 +381,9 @@ def kernel_cases():
                                   hkv=hkv, mode=mode,
                                   L=2303 if mode == "rolling" else 2048,
                                   main=(dt == torch.float32 and hkv == 2
-                                        and mode == "rolling")))
+                                        and mode == "rolling"),
+                                  path_s=(dt == torch.float32 and hkv == 8
+                                          and mode == "linear")))
             for lp in (128, 16):
                 cases.append(dict(kernel="paged_decode_attention", dtype=dt,
                                   hkv=hkv, mode="paged", L=2048,
@@ -370,12 +391,17 @@ def kernel_cases():
                                   main=(dt == torch.float32 and hkv == 8
                                         and lp == 128)))
     # B5q and B6q at the shapes path_q hands them (path_b's ring, path_a's
-    # pages), int8 and e4m3 codes under float32 queries
+    # pages), and B5q at path_s's int8 leg's (the draft's and the
+    # target's linear slot pools of Path A's width), int8 and e4m3 codes
+    # under float32 queries
     for kv in (torch.int8, torch.float8_e4m3fn):
         main = kv == torch.int8
         cases.append(dict(kernel="banded_decode_attention_q",
                           dtype=torch.float32, kv=kv, hkv=2, mode="rolling",
                           L=2303, main=main))
+        cases.append(dict(kernel="banded_decode_attention_q",
+                          dtype=torch.float32, kv=kv, hkv=8, mode="linear",
+                          L=2048, main=False, path_s=main))
         cases.append(dict(kernel="paged_decode_attention_q",
                           dtype=torch.float32, kv=kv, hkv=8, mode="paged",
                           L=2048, page_len=128, main=main))
@@ -481,7 +507,8 @@ def run_kernel_case(c, flush, gen):
            "max_abs_err": err, "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
            "bound_share": bms / ms, "design": design,
-           "main_path_shape": c["main"]}
+           "main_path_shape": c["main"],
+           "path_s_shape": c.get("path_s", False)}
     if design == "split" and paged:
         row["split_pages"] = ba.b6_splits(S, hkv, pt.shape[1], lp,
                                           ba._sm_count(q.device))
@@ -1638,19 +1665,21 @@ def build_net(device, *, num_blocks, seed, t=2048, dtype="float32", **kw):
     return MultiLayerNetwork(conf, device=device).init()
 
 
-def control_plane(net, *, slots, chunk, k, kv_dtype=None):
+def control_plane(net, *, slots, chunk, k, kv_dtype=None, draft=None,
+                  spec_k=None):
     from deeplearning4j_tpu_torch.serving import (
         ContinuousBatchingScheduler, DecodeSessionManager, ModelRegistry,
         ServingStats,
     )
 
     registry = ModelRegistry()
-    registry.deploy("default", 1, net)
+    registry.deploy("default", 1, net, warm=False)
     stats = ServingStats()
     sched = ContinuousBatchingScheduler(registry, stats,
                                         max_batch_size=2 * slots)
     mgr = DecodeSessionManager(registry, sched, "default", slots=slots,
                                prefill_chunk=chunk, fused_k=k,
+                               draft_net=draft, spec_k=spec_k,
                                kv_dtype=kv_dtype, metrics=stats.registry)
     return registry, sched, mgr
 
@@ -1706,16 +1735,13 @@ def drive_path(net, name, kernel, prompts_waves, greedy, max_tokens, *,
             streams.append(s)
             waves.append(w)
         torch.cuda.synchronize()
-        launches = dict(ba.LAUNCHES)
-        by_design = launches_by_design(ba)
-        plain_on_cuda = dict(ba.PLAIN_ON_CUDA)
+        launches, by_design, plain_on_cuda = decode_counts(ba)
         snap = mgr.snapshot()
         graphs = {c: v - before[c]
                   for c, v in window_graph_counts(net).items()}
     finally:
         sched.shutdown()
         registry.close()
-    check(launches[kernel] > 0, f"{name}: {kernel} was never launched")
     windows = snap["dispatches"]["windows"]
     if net.cuda_graphs:
         # the manager's warm-up captured the window: every window of the
@@ -1725,12 +1751,8 @@ def drive_path(net, name, kernel, prompts_waves, greedy, max_tokens, *,
     else:
         check(graphs["replays"] == 0, f"{name}: the eager loop replayed "
               f"graphs: {graphs}")
-    check(sum(plain_on_cuda.values()) == 0,
-          f"{name}: plain versions ran on CUDA tensors: {plain_on_cuda}")
     # float32 queries: every B5/B5q and B6/B6q launch on design 2
-    check(by_design[f"{kernel}/split"] == launches[kernel]
-          and by_design[f"{kernel}/ffma"] == 0,
-          f"{name}: {kernel} not all on design 2: {by_design}")
+    check_design_2(name, kernel, launches, by_design, plain_on_cuda)
     row = {"phase": name, "kernel": kernel, "launches": launches,
            "launches_by_design": by_design,
            "plain_on_cuda": plain_on_cuda, "waves": waves,
@@ -1951,6 +1973,577 @@ def path_q(native_a, native_b, tol=0.02):
         rows.append(row)
         del net
     return rows
+
+
+# ------------------------------------------ HTTP front, speculative decoding
+HTTP_TIMEOUT = 120
+
+
+def http_call(port, path, body=None, headers=None):
+    """(status, content type, parsed JSON or raw bytes) of one request
+    to the server on 127.0.0.1."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            status, ctype, raw = r.status, r.headers.get("Content-Type"), \
+                r.read()
+    except urllib.error.HTTPError as e:
+        status, ctype, raw = e.code, e.headers.get("Content-Type"), e.read()
+    if ctype == "application/json":
+        raw = json.loads(raw)
+    return status, ctype, raw
+
+
+class SseClient:
+    """One streamed POST /generate on a thread of its own: its frames,
+    the host time each arrived at, and the error that ended it if any."""
+
+    def __init__(self, port, prompt, max_tokens, **kw):
+        import threading
+
+        self.body = {"prompt_ids": [int(t) for t in prompt],
+                     "max_tokens": max_tokens, "greedy": True, **kw}
+        self.port = port
+        self.frames, self.times = [], []
+        self.error = None
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        import urllib.request
+
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{self.port}/generate",
+                data=json.dumps(self.body).encode())
+            with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+                for line in r:
+                    if line.startswith(b"data: "):
+                        self.frames.append(json.loads(line[6:]))
+                        self.times.append(time.perf_counter())
+        except Exception as e:          # reported by result()
+            self.error = e
+
+    def tokens(self):
+        return [f["token"] for f in self.frames if "token" in f]
+
+    def result(self):
+        """Wait for the stream's end; returns its tokens, or fails."""
+        self.thread.join(HTTP_TIMEOUT)
+        check(not self.thread.is_alive(), "an SSE stream hung")
+        check(self.error is None, f"an SSE stream failed: {self.error!r}")
+        last = self.frames[-1] if self.frames else {}
+        check(last.get("outcome") == "completed",
+              f"a stream ended with {last}")
+        toks = self.tokens()
+        check(len(toks) == self.body["max_tokens"],
+              f"a stream gave {len(toks)} of {self.body['max_tokens']}")
+        return toks
+
+    def ttft_ms(self):
+        first = next(t for f, t in zip(self.frames, self.times)
+                     if "token" in f)
+        return (first - self.t0) * 1e3
+
+
+def wait_first_tokens(clients, timeout=HTTP_TIMEOUT):
+    deadline = time.monotonic() + timeout
+    while not all(c.tokens() for c in clients):
+        check(time.monotonic() < deadline, "no stream got its first token")
+        check(all(c.error is None for c in clients),
+              f"a stream failed: {[c.error for c in clients]}")
+        time.sleep(0.002)
+
+
+def http_wave(port, prompts, max_tokens):
+    """Every prompt as one streamed greedy /generate at once, 8 client
+    threads; returns the streams and the wave's client-side numbers."""
+    t0 = time.perf_counter()
+    clients = [SseClient(port, p, max_tokens) for p in prompts]
+    streams = [c.result() for c in clients]
+    wall = time.perf_counter() - t0
+    ttft = [c.ttft_ms() for c in clients]
+    n_tok = sum(len(s) for s in streams)
+    return streams, {"sessions": len(clients), "new_tokens": n_tok,
+                     "wall_s": wall, "tokens_per_s": n_tok / wall,
+                     "ttft_ms_p50": pct(ttft, 50),
+                     "ttft_ms_p99": pct(ttft, 99)}
+
+
+def truncated_draft(target, blocks=1):
+    """A draft of the target's embedding, positions, first `blocks`
+    blocks and output layer, sharing the target's weight tensors."""
+    draft = build_net(target.device, num_blocks=blocks, seed=0)
+    tl = [l.name for l in target.layers]
+    dl = [l.name for l in draft.layers]
+    for d, t in zip(dl[:-1], tl):
+        draft.params_tree[d] = target.params_tree[t]
+    draft.params_tree[dl[-1]] = target.params_tree[tl[-1]]
+    return draft
+
+
+def silence(net, keep=1):
+    """Zero the residual write-backs (attn_Wo, attn_b, ffn_w2, ffn_b2) of
+    every block after the first `keep`, in place: under pre-norm those
+    blocks become identities, so the net computes what a `keep`-block
+    truncated draft computes (`bench.py:1228-1262`'s silenced pair)."""
+    blocks = [name for name, p in net.params_tree.items()
+              if "attn_Wo" in p]
+    for name in blocks[keep:]:
+        for key in ("attn_Wo", "attn_b", "ffn_w2", "ffn_b2"):
+            net.params_tree[name][key].zero_()
+    return net
+
+
+def first_divergence(net, prompt, got, want):
+    """Where two greedy streams part: the position and the target's top-
+    two probability gap there (teacher-forced on `want`'s prefix)."""
+    i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    c = net.session_carries(1)
+    c = prefill_slot0(net, c, np.concatenate([prompt, want[:i]]))
+    last = want[i - 1] if i else prompt[-1]
+    out, _ = net.session_step(np.full((1, 1, 1), last, np.float32), c)
+    top2 = torch.topk(out[0, -1].float(), 2).values
+    return {"position": i, "got": got[i], "want": want[i],
+            "top2_gap": float(top2[0] - top2[1])}
+
+
+def check_streams(net, prompts, got, want, what):
+    for p, g, w in zip(prompts, got, want):
+        if g != w:
+            check(False, f"{what}: a stream diverges: "
+                  f"{first_divergence(net, p, g, w)}")
+
+
+def decode_counts(ba):
+    return (dict(ba.LAUNCHES), launches_by_design(ba),
+            dict(ba.PLAIN_ON_CUDA))
+
+
+def check_design_2(name, kernel, launches, by_design, plain):
+    check(launches[kernel] > 0, f"{name}: {kernel} was never launched")
+    check(by_design[f"{kernel}/split"] == launches[kernel]
+          and by_design[f"{kernel}/ffma"] == 0,
+          f"{name}: {kernel} not all on design 2: {by_design}")
+    check(sum(plain.values()) == 0,
+          f"{name}: plain versions ran on CUDA tensors: {plain}")
+
+
+@contextlib.contextmanager
+def uncounted(mod):
+    """Launches inside are a yardstick's, not the path's: every count of
+    kernel module `mod` is put back as it was on the way out."""
+    saved = [(d, dict(d)) for d in (mod.LAUNCHES, mod.LAUNCHES_BY_DESIGN,
+                                    mod.PLAIN_ON_CUDA)]
+    try:
+        yield
+    finally:
+        for d, was in saved:
+            d.clear()
+            d.update(was)
+
+
+def padded_output_cost(srv, net, rng, rows=9, reps=3):
+    """What the registry's bucket padding costs `/output`: `rows` rows
+    through the deployed runner (padded to the next bucket, 32 for 9)
+    against `net.output` of exactly those rows (a yardstick: its B3a
+    launches are not counted), each to host numpy, best of `reps` wall
+    times after one untimed call; the two must agree within 1e-5."""
+    from deeplearning4j_tpu_torch.ops import attention as fa
+
+    runner = srv.registry.get("default").runner
+    x = rng.integers(0, 256, (rows, net.conf.input_type.timesteps, 1)
+                     ).astype(np.float32)
+
+    def exact():
+        with torch.no_grad(), uncounted(fa):
+            return net.output(x).float().cpu().numpy()
+
+    out = {"rows": rows, "bucket": runner._bucket(rows)}
+    got = {}
+    for name, fn in (("padded", lambda: runner.run_batch(x)),
+                     ("exact", exact)):
+        got[name] = fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name}_ms"] = min(times)
+    err = float(np.abs(got["padded"] - got["exact"]).max())
+    check(err <= 1e-5, f"path_h: the padded /output batch differs from "
+          f"the exact one by {err}")
+    out["max_abs_err"] = err
+    out["padded_over_exact"] = out["padded_ms"] / out["exact_ms"]
+    return out
+
+
+def path_h(prompts, max_new=64, long_prompt=128, long_new=1900,
+           after_new=512):
+    """The HTTP front and hot-swap at Path A's width: Path A's 8 cold
+    1024-token prompts through the direct `DecodeSessionManager` (the
+    reference and the yardstick), then through `InferenceServer` on
+    127.0.0.1 by 8 client threads as SSE streams, token for token equal;
+    `/metrics`' decode block reconciles with the clients; `/models`,
+    `/healthz`, a "stream": false request and `POST /output` of a batch
+    of 8 (within 1e-5 of `net.output`); then `deploy()` of another seed
+    while 4 long streams run (all complete; a stream opened after it
+    equals the new net's direct stream) and of a candidate with 2 KV
+    heads, which rolls back while 2 streams run. The 4 streams live across
+    the flip take the prompts' first `long_prompt` tokens and `long_new`
+    new ones, so that they outlast the candidate's warm-up. B6 carries
+    every decode step, all on design 2; B3a the full forwards of
+    `/output` and of the deploy warm-ups (its count runs from the
+    server's start to its stop). A batch of 9 rows, which the registry
+    pads to its bucket of 32, is timed against `net.output` of the 9."""
+    from deeplearning4j_tpu_torch.ops import attention as fa
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+    from deeplearning4j_tpu_torch.serving import (
+        DeployRolledBackError, InferenceServer,
+    )
+
+    rng = np.random.default_rng(15)
+    net = build_net("cuda", num_blocks=6, seed=7)
+    registry, sched, mgr = control_plane(net, slots=8, chunk=128, k=8)
+    try:
+        direct, dwave = serve_wave(mgr, prompts, [True] * 8, max_new, 256)
+    finally:
+        sched.shutdown()
+        registry.close()
+    x = rng.integers(0, 256, (8, net.conf.input_type.timesteps, 1)
+                     ).astype(np.float32)
+    want = net.output(x).cpu().numpy()
+    # B3a carries /output's and the deploy warm-ups' full forwards: its
+    # count runs from the server's start to its stop
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    srv = InferenceServer(net, decode_slots=8, decode_prefill_chunk=128,
+                          decode_fused_k=8)
+    row = {"phase": "path_h", "kernel": "paged_decode_attention",
+           "direct": dwave}
+    flips = []
+    try:
+        port = srv.start()
+        # a process's first request pays one-time costs of the HTTP
+        # stack: timed apart from the wave
+        t0 = time.perf_counter()
+        st, _, _ = http_call(port, "/healthz")
+        first_ms = (time.perf_counter() - t0) * 1e3
+        check(st == 200, f"path_h: /healthz answered {st}")
+        torch.cuda.synchronize()
+        ba.reset_counts()
+        streams, wave = http_wave(port, prompts, max_new)
+        wave["first_request_ms"] = first_ms
+        check_streams(net, prompts, streams, direct, "path_h HTTP")
+        st, _, metrics = http_call(port, "/metrics")
+        dec = metrics["decode"]["default"]
+        check(st == 200 and dec["tokens_streamed"] == wave["new_tokens"],
+              f"path_h: /metrics streamed {dec['tokens_streamed']}, the "
+              f"clients got {wave['new_tokens']}")
+        wave["itl_ms_p50"] = dec["itl_ms"]["p50"]
+        row.update(http=wave, prefix_cache=dec["prefix_cache"],
+                   dispatches=dec["dispatches"])
+        st_m, _, models = http_call(port, "/models")
+        st_h, _, health = http_call(port, "/healthz")
+        check(st_m == 200 and models["models"]["default"]["version"] == 1
+              and st_h == 200 and health["status"] == "ok",
+              f"path_h: /models {models}, /healthz {health}")
+        st, _, whole = http_call(port, "/generate", {
+            "prompt_ids": prompts[0].tolist(), "max_tokens": 16,
+            "greedy": True, "stream": False})
+        check(st == 200 and whole["tokens"] == direct[0][:16],
+              f"path_h: a \"stream\": false request gave {whole}")
+        t0 = time.perf_counter()
+        st, _, out = http_call(port, "/output", {"ndarray": x.tolist()})
+        out_s = time.perf_counter() - t0
+        check(st == 200, f"path_h: /output answered {st}: {out}")
+        err = float(np.abs(np.asarray(out["output"], np.float32)
+                           - want).max())
+        check(err <= 1e-5, f"path_h: /output differs from net.output by "
+              f"{err}")
+        row["output"] = {"rows": 8, "max_abs_err": err, "wall_s": out_s,
+                         "padded": padded_output_cost(srv, net, rng)}
+
+        # hot-swap while streams run
+        def probe(phase, name, version, net_):
+            if phase == "flipped":
+                _, _, s = http_call(port, "/sessions")
+                flips.append(s["decode"]["default"]["sessions"]["active"])
+
+        srv.registry.add_deploy_hook("default", probe)
+        net2 = build_net("cuda", num_blocks=6, seed=8)
+        live = [SseClient(port, p[:long_prompt], long_new)
+                for p in prompts[:4]]
+        wait_first_tokens(live)
+        t0 = time.perf_counter()
+        srv.deploy("default", 2, net2)
+        deploy_s = time.perf_counter() - t0
+        after = [SseClient(port, p, after_new) for p in prompts[4:6]]
+        wait_first_tokens(after)
+        bad = build_net("cuda", num_blocks=6, seed=9, num_kv_heads=2)
+        t0 = time.perf_counter()
+        try:
+            srv.deploy("default", 3, bad)
+            check(False, "path_h: a candidate with 2 KV heads was deployed")
+        except DeployRolledBackError as e:
+            rollback = {"error": str(e)[:160],
+                        "wall_s": time.perf_counter() - t0}
+        del bad
+        for c in live:
+            c.result()
+        after_streams = [c.result() for c in after]
+        st, _, models = http_call(port, "/models")
+        check(models["models"]["default"]["version"] == 2,
+              f"path_h: after the swaps /models says {models}")
+        check(flips == [len(live)], f"path_h: {flips} sessions were live "
+              f"at the flip, want {len(live)}")
+        torch.cuda.synchronize()
+        launches, by_design, plain = decode_counts(ba)
+        g2 = dict(net2._graphs.stats.get("decode_window", {}))
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    flash, flash_by_design = dict(fa.LAUNCHES), launches_by_design(fa)
+    registry, sched, mgr = control_plane(net2, slots=8, chunk=128, k=8)
+    try:
+        want, _ = serve_wave(mgr, prompts[4:6], [True] * 2, after_new, 256)
+    finally:
+        sched.shutdown()
+        registry.close()
+    check_streams(net2, prompts[4:6], after_streams, want,
+                  "path_h after deploy()")
+    check_design_2("path_h", "paged_decode_attention", launches, by_design,
+                   plain)
+    check(flash["flash_attention_fwd"] > 0,
+          "path_h: /output and the warm-ups never launched B3a")
+    row.update(launches=launches, launches_by_design=by_design,
+               plain_on_cuda=plain, flash_launches=flash,
+               flash_launches_by_design=flash_by_design,
+               streams_equal_direct=True,
+               hot_swap={"deploy_s": deploy_s, "live_at_flip": flips[0],
+                         "live_tokens": long_new, "after_tokens": after_new,
+                         "after_equal_v2_direct": True,
+                         "v2_window_graphs": g2, "rollback": rollback})
+    emit(row)
+    return row, direct
+
+
+def spec_wave(net, draft, prompts, max_new, *, kv_dtype=None):
+    """A greedy wave through a speculating manager (spec_k 8); returns the
+    streams, the wave's numbers and the manager's snapshot."""
+    registry, sched, mgr = control_plane(net, slots=8, chunk=128, k=8,
+                                         kv_dtype=kv_dtype, draft=draft,
+                                         spec_k=8)
+    try:
+        check(mgr.spec_enabled, f"spec decoding is off: {mgr._spec_reason}")
+        streams, wave = serve_wave(mgr, prompts, [True] * len(prompts),
+                                   max_new, 256)
+        return streams, wave, mgr.snapshot()
+    finally:
+        sched.shutdown()
+        registry.close()
+
+
+def spec_window_rows(net, draft, prompts, k=8, windows=3):
+    """`windows` propose + verify windows over freshly prefilled slot
+    pools, with the manager's bookkeeping: the packed rows and draft
+    tokens of each."""
+    S = len(prompts)
+    stem = np.stack([p[:-1] for p in prompts]).astype(np.float32)[:, :, None]
+    val = np.ones(stem.shape[:2], np.float32)
+    tc, dc = net.session_carries(S), draft.session_carries(S)
+    _, tc = net.session_step(stem, tc, active=np.ones(S, bool), valid=val)
+    _, dc = draft.session_step(stem, dc, active=np.ones(S, bool), valid=val)
+    tok0 = np.array([p[-1] for p in prompts], np.int64)
+    rew, ptk = np.zeros(S, np.int32), np.zeros(S, np.int32)
+    pvl, offs = np.zeros(S, bool), np.zeros(S, np.int32)
+    knobs = dict(temperature=np.ones(S, np.float32),
+                 top_k=np.full(S, 256, np.int32),
+                 top_p=np.ones(S, np.float32), greedy=np.ones(S, bool),
+                 keys=np.zeros((S, 2), np.uint32))
+    rows = []
+    for _ in range(windows):
+        d_t, d_p, dc = draft.session_propose_window(
+            tok0, dc, active=np.ones(S, bool), k=k, rewind=rew,
+            pre_tokens=ptk, pre_valid=pvl, offsets=offs, **knobs)
+        packed, tc = net.session_verify_window(
+            tok0, tc, active=np.ones(S, bool), k=k, draft_tokens=d_t,
+            draft_probs=d_p, offsets=offs, budgets=np.full(S, 64, np.int32),
+            eos_ids=np.full(S, -1, np.int32), **knobs)
+        ph = packed.cpu().numpy()
+        rows.append((ph, d_t.cpu().numpy(), d_p.cpu()))
+        n = ph[:, 0]
+        tok0 = ph[np.arange(S), 2 + n].astype(np.int64)
+        rew = np.maximum(k - n, 0).astype(np.int32)
+        ptk, pvl = ph[:, 2].astype(np.int32), n == k + 1
+        offs = (offs + n).astype(np.int32)
+    return rows
+
+
+def spec_graph_counts(net, draft):
+    return {kind: {c: n._graphs.stats.get(kind, {}).get(c, 0)
+                   for c in ("replays", "eager", "captures")}
+            for kind, n in (("propose_window", draft),
+                            ("verify_window", net))}
+
+
+def path_s(prompts, plain, http_plain, max_new=64):
+    """Speculative decoding at Path A's width: the target is Path A's net,
+    the draft its embedding, first block and output layer sharing the
+    target's weights (spec_k 8). Path A's 8 prompts as streamed greedy
+    /generate requests to `InferenceServer(net, decode_slots=8,
+    decode_draft_net=draft, decode_spec_k=8)`: every stream equals the
+    non-spec fused decode's (`plain`, `path_h`'s direct wave); the same
+    wave with the windows eager (`cuda_graphs` off), and 3 windows'
+    packed rows graphed against eager; the silenced pair (blocks 2-6
+    identities: the target computes what the draft computes), greedy
+    acceptance at least 0.85, and a lane whose EOS falls inside a window
+    stops AT it; the int8 leg (B5q) against non-spec int8, and the
+    silenced pair again at int8, acceptance at least 0.85 (a wrong B5q
+    draft step lowers acceptance and nothing else). B5 carries the
+    draft's steps (B5q on the int8 legs), all on design 2."""
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    net = build_net("cuda", num_blocks=6, seed=7)
+    draft = truncated_draft(net)
+    srv = InferenceServer(net, decode_slots=8, decode_prefill_chunk=128,
+                          decode_draft_net=draft, decode_spec_k=8)
+    row = {"phase": "path_s", "kernel": "banded_decode_attention",
+           "spec_k": 8, "draft_blocks": 1, "target_blocks": 6}
+    try:
+        port = srv.start()
+        before = spec_graph_counts(net, draft)
+        torch.cuda.synchronize()
+        ba.reset_counts()
+        streams, wave = http_wave(port, prompts, max_new)
+        torch.cuda.synchronize()
+        launches, by_design, plain_cuda = decode_counts(ba)
+        _, _, metrics = http_call(port, "/metrics")
+    finally:
+        srv.stop()
+    dec = metrics["decode"]["default"]
+    graphs = {kind: {c: v - before[kind][c] for c, v in counts.items()}
+              for kind, counts in spec_graph_counts(net, draft).items()}
+    check_streams(net, prompts, streams, plain, "path_s spec vs plain")
+    check_design_2("path_s", "banded_decode_attention", launches, by_design,
+                   plain_cuda)
+    check(launches["paged_decode_attention"] == 0,
+          "path_s: a speculating target ran on the paged pool")
+    windows = dec["dispatches"]["windows"]
+    for kind, g in graphs.items():
+        check(g["replays"] == windows and g["eager"] == 0,
+              f"path_s: {windows} windows, {kind} graph counts {g}")
+    wave["itl_ms_p50"] = dec["itl_ms"]["p50"]
+    row.update(http=wave, launches=launches, launches_by_design=by_design,
+               plain_on_cuda=plain_cuda, spec_decode=dec["spec_decode"],
+               dispatches=dec["dispatches"], window_graph_counts=graphs,
+               tokens_per_s_vs_plain_http=wave["tokens_per_s"]
+               / http_plain["tokens_per_s"],
+               streams_equal_plain=True)
+
+    # the same windows eagerly: streams and packed rows
+    graphed_rows = spec_window_rows(net, draft, prompts)
+    net.cuda_graphs = draft.cuda_graphs = False
+    try:
+        eager_rows = spec_window_rows(net, draft, prompts)
+        eager, ewave, _ = spec_wave(net, draft, prompts, max_new)
+    finally:
+        net.cuda_graphs = draft.cuda_graphs = True
+    for (gp, gt, gq), (ep, et, eq) in zip(graphed_rows, eager_rows):
+        check(np.array_equal(gp, ep) and np.array_equal(gt, et)
+              and torch.equal(gq, eq),
+              "path_s: graphed windows' packed rows differ from eager ones")
+    check(eager == streams, "path_s: the eager windows' streams differ")
+    row["eager"] = {"tokens_per_s": ewave["tokens_per_s"],
+                    "packed_rows_equal": True, "streams_equal": True}
+    del draft
+
+    # the silenced pair: full acceptance and the bonus token; EOS
+    snet = silence(build_net("cuda", num_blocks=6, seed=7))
+    sdraft = truncated_draft(snet)
+    ba.reset_counts()
+    sil, swave, ssnap = spec_wave(snet, sdraft, prompts, max_new)
+    launches_sil = dict(ba.LAUNCHES)
+    acc = ssnap["spec_decode"]["acceptance_rate"]
+    check(acc is not None and acc >= 0.85,
+          f"path_s: the silenced pair accepts {acc} of its drafts")
+    firsts = [(lane, i) for lane, st in enumerate(sil)
+              for i in range(1, max_new - 1)
+              if st[i] not in st[:i] and i % 9 != 8]
+    check(bool(firsts), f"path_s: silenced streams too repetitive: {sil}")
+    lane, i = firsts[0]
+    registry, sched, mgr = control_plane(snet, slots=8, chunk=128, k=8,
+                                         draft=sdraft, spec_k=8)
+    try:
+        got = mgr.open_session(prompts[lane], max_tokens=max_new,
+                               greedy=True, eos_id=sil[lane][i]).result(
+                                   timeout=HTTP_TIMEOUT)
+    finally:
+        sched.shutdown()
+        registry.close()
+    check(got == sil[lane][:i + 1], f"path_s: a lane did not stop AT its "
+          f"EOS {sil[lane][i]} (index {i}): {got}")
+    row["silenced"] = {"acceptance_rate": acc,
+                       "spec_decode": ssnap["spec_decode"],
+                       "tokens_per_s": swave["tokens_per_s"],
+                       "launches": launches_sil["banded_decode_attention"],
+                       "eos": {"lane": lane, "index": i,
+                               "stream": got}}
+
+    # the int8 leg: spec against non-spec, both from int8 caches
+    draft = truncated_draft(net)
+    ba.reset_counts()
+    q_spec, qwave, qsnap = spec_wave(net, draft, prompts, max_new,
+                                     kv_dtype="int8")
+    q_launches, q_by_design, q_plain = decode_counts(ba)
+    registry, sched, mgr = control_plane(net, slots=8, chunk=128, k=8,
+                                         kv_dtype="int8")
+    try:
+        q_ref, q_ref_wave = serve_wave(mgr, prompts, [True] * 8, max_new,
+                                       256)
+    finally:
+        sched.shutdown()
+        registry.close()
+    check_design_2("path_s int8", "banded_decode_attention_q", q_launches,
+                   q_by_design, q_plain)
+    check(q_launches["banded_decode_attention"] == 0,
+          "path_s int8: the native B5 ran on an int8 pool")
+    check_streams(net, prompts, q_spec, q_ref, "path_s int8 spec vs plain")
+    row["int8"] = {"launches": q_launches["banded_decode_attention_q"],
+                   "launches_by_design": q_by_design,
+                   "spec_decode": qsnap["spec_decode"],
+                   "tokens_per_s": qwave["tokens_per_s"],
+                   "plain_tokens_per_s": q_ref_wave["tokens_per_s"],
+                   "streams_equal_plain": True}
+    del draft
+
+    # the silenced pair at int8: the target's tokens come from its dense
+    # verify chunk, so only the acceptance floor holds B5q's draft steps
+    ba.reset_counts()
+    _, sqwave, sqsnap = spec_wave(snet, sdraft, prompts, max_new,
+                                  kv_dtype="int8")
+    sq_launches, sq_by_design, sq_plain = decode_counts(ba)
+    check_design_2("path_s silenced int8", "banded_decode_attention_q",
+                   sq_launches, sq_by_design, sq_plain)
+    acc = sqsnap["spec_decode"]["acceptance_rate"]
+    check(acc is not None and acc >= 0.85,
+          f"path_s: the silenced pair at int8 accepts {acc} of its drafts")
+    row["silenced_int8"] = {
+        "acceptance_rate": acc, "spec_decode": sqsnap["spec_decode"],
+        "tokens_per_s": sqwave["tokens_per_s"],
+        "launches": sq_launches["banded_decode_attention_q"]}
+    del snet, sdraft
+    emit(row)
+    return row
 
 
 # ------------------------------------------------------ training phases
@@ -3296,6 +3889,8 @@ def main() -> int:
     b, *native_b = path_b("cuda", rng)
     cpu_parity(rng)
     qa, qb_fp8, qb_int8 = path_q(native_a, native_b)
+    ph, ph_direct = path_h(native_a[0])
+    ps = path_s(native_a[0], ph_direct, ph["http"])
     t32 = path_t(rng)
     train_parity(rng)
     t = path_t(rng, dtype="bfloat16")
@@ -3358,6 +3953,25 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"]})
+        if name == "paged_decode_attention":
+            summary[-1]["launches_path_h"] = ph["launches"][name]
+        if name in FLASH_KERNELS:
+            summary[-1]["launches_path_h"] = ph["flash_launches"][name]
+        at_s = [r for r in mine if r.get("path_s_shape")]
+        if at_s:
+            # the slot pools path_s decodes from: Hkv 8, linear, L 2048
+            summary[-1]["path_s_shape"] = {k: at_s[0][k] for k in (
+                "kv_dtype", "Hkv", "mode", "L", "design", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "bound_share",
+                "max_abs_err")}
+        if name == "banded_decode_attention":
+            summary[-1]["launches_path_s"] = ps["launches"][name]
+            summary[-1]["launches_path_s_silenced"] = \
+                ps["silenced"]["launches"]
+        if name == "banded_decode_attention_q":
+            summary[-1]["launches_path_s_int8"] = ps["int8"]["launches"]
+            summary[-1]["launches_path_s_silenced_int8"] = \
+                ps["silenced_int8"]["launches"]
         if name == "adam_update":
             lenet = next(r for r in mine if r["leaves"] == "lenet")
             summary[-1]["launches_path_m"] = m["launches"][name]

@@ -21,9 +21,10 @@ step. Its step counter lives on the device, and the loss stays there
 until the fit loop reads it once an epoch (`optim/executor.py`).
 
 On the card, `fit(steps_per_dispatch=K)` runs K train steps as one CUDA
-graph, and each `session_decode_window` and `rnn_time_step` call is one
-graph replay (`utils/cuda_graphs.py`): so a step reads and writes every
-tensor of the net where the graph found it. Parameters, optimizer
+graph, and each `session_decode_window`, speculative
+`session_propose_window` / `session_verify_window` and `rnn_time_step`
+call is one graph replay (`utils/cuda_graphs.py`): so a step reads and
+writes every tensor of the net where the graph found it. Parameters, optimizer
 moments, the batch-norm running statistics and the step counter are
 updated in place, never rebound. `cuda_graphs = False` runs those calls
 eagerly instead (the plain version of the graphs).
@@ -280,6 +281,13 @@ def _lane_pack(values, dev) -> torch.Tensor:
     if dev.type == "cuda":
         return host.pin_memory().to(dev, non_blocking=True)
     return host
+
+
+def _window_k(k, what: str) -> int:
+    k = int(k)
+    if k < 1:
+        raise ValueError(f"{what} k must be >= 1, got {k}")
+    return k
 
 
 def _refuse(what: str, item: str):
@@ -844,12 +852,13 @@ class MultiLayerNetwork:
 
     def session_carries(self, slots: int, kv_dtype: Optional[str] = None,
                         page_len: Optional[int] = None,
-                        pages: Optional[int] = None):
+                        pages: Optional[int] = None, device=None):
         """Per-slot decode carries for `slots` sessions on the net's
-        device: the KVSlotPool's backing tree. `page_len` switches every
-        attention cache to the paged layout, which needs a uniform
-        `max_cache` across decode layers (one logical page id = one
-        physical row in every layer's pool); `pages` defaults to
+        device (or `device`: "meta" gives the tree's shapes and dtypes
+        without memory): the KVSlotPool's backing tree. `page_len`
+        switches every attention cache to the paged layout, which needs
+        a uniform `max_cache` across decode layers (one logical page id =
+        one physical row in every layer's pool); `pages` defaults to
         `slots * max_cache / page_len`."""
         self._check_init()
         decode = [l for l in self.layers if hasattr(l, "decode_carry")]
@@ -871,7 +880,8 @@ class MultiLayerNetwork:
                 pages = slots * (next(iter(caches)) // page_len)
         return {l.name: l.decode_carry(slots, self.dtype, per_slot=True,
                                        kv_dtype=kv_dtype, page_len=page_len,
-                                       pages=pages, device=self.device)
+                                       pages=pages,
+                                       device=device or self.device)
                 for l in decode}
 
     def spec_decode_capable(self) -> bool:
@@ -962,37 +972,57 @@ class MultiLayerNetwork:
         Returns (tokens i32[S, k], emitted bool[S, k], new_carries);
         positions not emitted hold -1."""
         self._check_init()
-        k = int(k)
-        if k < 1:
-            raise ValueError(f"window length k must be >= 1, got {k}")
-        dev = self.device
+        k = _window_k(k, "window length")
+        keys = np.asarray(keys).astype(np.int64)
         lanes = (tokens, active, temperature, top_k, top_p, greedy,
-                 np.asarray(keys).astype(np.int64)[:, 0],
-                 np.asarray(keys).astype(np.int64)[:, 1], offsets, budgets,
-                 eos_ids)
+                 keys[:, 0], keys[:, 1], offsets, budgets, eos_ids)
+        (toks, emits), new = self._run_window(
+            "decode_window", k, self._window,
+            _lane_pack(lanes, self.device), carries)
+        return toks, emits, new
+
+    def _run_window(self, kind: str, k: int, body, packed, carries,
+                    extra: tuple = ()):
+        """`body(packed, carries, k, *extra)` -> (outputs, new carries)
+        as one graph replay keyed (kind, k), S, the carries' layout and
+        the addresses of the KV caches and the parameters, which the
+        graph reads and writes where they lie (a pool rebuilt elsewhere
+        is captured anew). The carries' `pos` and `page_table` leaves are
+        copied into the graph's buffers; the returned carries are the
+        caller's tree with the new `pos` leaves. With `cuda_graphs` off,
+        `body` runs eagerly."""
         if not self.cuda_graphs:
-            return self._window(_lane_pack(lanes, dev), carries, k)
+            return body(packed, carries, k, *extra)
         # by path: a step returns a layer's carry keys in another order
         leaves = sorted(_carry_leaves(carries), key=lambda pa: pa[0])
         small = [(path, a) for path, a in leaves
                  if path[-1] in ("pos", "page_table")]
         in_place = tuple(a.data_ptr() for path, a in leaves
                          if path[-1] not in ("pos", "page_table"))
+        pos_paths = [p for p, _ in small if p[-1] == "pos"]
 
-        def window(packed, leaves):
+        def window(packed, leaves, *extra):
             c = _with_leaves(carries, dict(zip((p for p, _ in small),
                                                leaves)))
-            toks, emits, new = self._window(packed, c, k)
-            return toks, emits, [_leaf_at(new, p) for p, _ in small
-                                 if p[-1] == "pos"]
+            out, new = body(packed, c, k, *extra)
+            return out, [_leaf_at(new, p) for p in pos_paths]
 
-        toks, emits, pos = self._graphs.run(
-            ("decode_window", k), window,
-            (_lane_pack(lanes, dev), tuple(a for _, a in small)),
+        out, pos = self._graphs.run(
+            (kind, k), window,
+            (packed, tuple(a for _, a in small), *extra),
             addresses=in_place + tuple(
                 t.data_ptr() for t in tree_leaves(self.params_tree)))
-        new_pos = dict(zip((p for p, _ in small if p[-1] == "pos"), pos))
-        return toks, emits, _with_leaves(carries, new_pos)
+        return out, _with_leaves(carries, dict(zip(pos_paths, pos)))
+
+    def _encode_ids(self, tok: torch.Tensor) -> torch.Tensor:
+        """Token ids [S] or [S, T] as the first layer's input [S, T, F]:
+        the id itself for an embedding layer, else one-hot."""
+        if tok.ndim == 1:
+            tok = tok[:, None]
+        if isinstance(self.layers[0], EmbeddingSequenceLayer):
+            return tok[:, :, None].to(self.dtype)
+        return torch.nn.functional.one_hot(
+            tok, int(self.layers[0].n_in)).to(self.dtype)
 
     def _window(self, packed, carries, k: int):
         """The K steps of `session_decode_window` over its per-lane
@@ -1008,8 +1038,6 @@ class MultiLayerNetwork:
         tks, grdy = tks.to(torch.int64), grdy.to(torch.bool)
         keys_ = torch.stack((key0, key1), dim=1).to(torch.int64)
         offs, buds, eos = (a.to(torch.int64) for a in (offs, buds, eos))
-        ids_input = isinstance(self.layers[0], EmbeddingSequenceLayer)
-        feat = None if ids_input else int(self.layers[0].n_in)
         S = tok.shape[0]
         n = torch.zeros((S,), dtype=torch.int64, device=tok.device)
         toks_out = torch.full((S, k), -1, dtype=torch.int32,
@@ -1017,13 +1045,10 @@ class MultiLayerNetwork:
         emits = torch.zeros((S, k), dtype=torch.bool, device=tok.device)
         c = carries
         for i in range(k):
-            if ids_input:
-                x = tok[:, None, None].to(dt)
-            else:
-                x = torch.nn.functional.one_hot(tok, feat).to(dt)[:, None]
             val = act.to(dt)[:, None]
-            out, new_states = self._forward(self.params_tree, x, fmask=val,
-                                            carries=c)
+            out, new_states = self._forward(self.params_tree,
+                                            self._encode_ids(tok),
+                                            fmask=val, carries=c)
             new = {nm: new_states[nm] for nm in self._decode_layer_names}
             c = self._lane_merge(c, new, act)
             nxt = _sampling.sample_token_lanes(
@@ -1036,4 +1061,174 @@ class MultiLayerNetwork:
             tok = torch.where(emit, nxt, tok)
             act = act & ~finished
             n = n2
-        return toks_out, emits, c
+        return (toks_out, emits), c
+
+    # ------------------------------------------- speculative decoding
+    #
+    # The draft/target window pair shares one invariant: every carry is
+    # position-addressed (linear caches and per-slot positions:
+    # `spec_decode_capable`), so a rejected token is un-written by
+    # rewinding `pos`: entries past it are invisible and the next write
+    # overwrites them. For a lane that accepted n_acc of k drafts and
+    # emitted n = n_acc + 1 tokens:
+    #   target: the verify writes k+1 entries, pos snaps back to old + n;
+    #   draft:  the propose wrote k entries ([t0, d_1..d_{k-1}]); the next
+    #           window enters with rewind = max(k - n, 0), and after full
+    #           acceptance (n = k+1) it first writes d_k's entry, which it
+    #           never wrote (pre_tokens / pre_valid).
+    # The acceptance and residual draws come from streams of their own
+    # (salts), independent of both models' sampling draws: the rejection
+    # rule assumes the acceptance coin is independent of the proposal.
+    _SPEC_U_SALT = 0x5EC0DE
+    _SPEC_R_SALT = 0xDEC0DE5
+
+    @staticmethod
+    def _pos_rewind(carries, delta):
+        """Subtract `delta` [S] from every per-slot `pos` leaf (every
+        other leaf is the same tensor)."""
+        return {kk: (MultiLayerNetwork._pos_rewind(v, delta)
+                     if isinstance(v, dict)
+                     else v - delta.to(v.dtype) if kk == "pos" else v)
+                for kk, v in carries.items()}
+
+    @torch.no_grad()
+    def session_propose_window(self, tokens, carries, *, active, k,
+                               temperature, top_k, top_p, greedy, keys,
+                               offsets, rewind, pre_tokens, pre_valid):
+        """The draft half of a speculative window: k decode steps in one
+        call, each proposal sampled on the device from the warped
+        distribution it records (the q the rejection rule needs). On
+        entry `rewind` [S] is subtracted from the active lanes' positions
+        and, where `pre_valid`, one masked catch-up step writes
+        `pre_tokens`' entry first. Proposals draw from the same stream as
+        the plain window (counter `offsets + i`); there is no EOS or
+        budget cut here: the verify applies them.
+
+        One graph replay a window, keyed ("propose_window", k), as
+        `session_decode_window` is. Returns (draft_tokens i32[S, k],
+        draft_probs f32[S, k, V], new_carries)."""
+        self._check_init()
+        k = _window_k(k, "draft window")
+        keys = np.asarray(keys).astype(np.int64)
+        lanes = (tokens, active, temperature, top_k, top_p, greedy,
+                 keys[:, 0], keys[:, 1], offsets, rewind, pre_tokens,
+                 pre_valid)
+        (toks, probs), new = self._run_window(
+            "propose_window", k, self._propose,
+            _lane_pack(lanes, self.device), carries)
+        return toks, probs, new
+
+    def _propose(self, packed, carries, k: int):
+        from deeplearning4j_tpu_torch.utils import sampling as _sampling
+
+        dt = self.dtype
+        (tok, act, temps, tks, tps, grdy, key0, key1, offs, rew, ptok,
+         pval) = packed
+        tok, ptok = tok.to(torch.int64), ptok.to(torch.int64)
+        act, pval, grdy = (a.to(torch.bool) for a in (act, pval, grdy))
+        temps, tps = temps.to(torch.float32), tps.to(torch.float32)
+        tks, offs = tks.to(torch.int64), offs.to(torch.int64)
+        keys_ = torch.stack((key0, key1), dim=1).to(torch.int64)
+        names = self._decode_layer_names
+        c = self._pos_rewind(carries, torch.where(act, rew, 0))
+        cu = act & pval
+        _, st = self._forward(self.params_tree, self._encode_ids(ptok),
+                              fmask=cu.to(dt)[:, None], carries=c)
+        c = self._lane_merge(c, {nm: st[nm] for nm in names}, cu)
+        toks, pws = [], []
+        for i in range(k):
+            out, st = self._forward(self.params_tree, self._encode_ids(tok),
+                                    fmask=act.to(dt)[:, None], carries=c)
+            c = self._lane_merge(c, {nm: st[nm] for nm in names}, act)
+            p = out[:, -1, :].to(torch.float32)
+            pw = _sampling.warp_probs_lanes(p, temps, tks, tps)
+            drawn = _sampling.draw_lanes(
+                pw, _sampling.lane_uniforms(keys_, offs + i))
+            nxt = torch.where(grdy, torch.argmax(p, dim=-1), drawn)
+            toks.append(nxt)
+            pws.append(pw)
+            tok = torch.where(act, nxt, tok)
+        return (torch.stack(toks, dim=1).to(torch.int32),
+                torch.stack(pws, dim=1)), c
+
+    @torch.no_grad()
+    def session_verify_window(self, tokens, carries, *, active, k,
+                              draft_tokens, draft_probs, temperature,
+                              top_k, top_p, greedy, keys, offsets,
+                              budgets, eos_ids):
+        """The target half of a speculative window: one chunked forward
+        over [t0, d_1..d_k] scores every draft position, accept/reject
+        runs on the device (`utils.sampling.spec_accept_lanes`), the EOS
+        and budget prefix cuts apply (a lane stops AT its EOS token), and
+        the positions snap back to old + n_emit, which rewinds the
+        rejected entries. An active lane emits n_acc + 1 tokens unless
+        cut.
+
+        One graph replay a window, keyed ("verify_window", k): the
+        per-lane arguments go in as one packed copy, `draft_tokens` and
+        `draft_probs` (the propose window's outputs, on the device) are
+        copied into the graph's buffers. Returns (packed i32[S, k+4],
+        new_carries), rows `[n_emit, n_acc, last_draft, tok_0..tok_k]`
+        (-1 past n_emit): one tensor, so the caller's one host read
+        covers counts, the catch-up token and the emissions. `n_acc` is
+        the verdict before the cuts, so that a caller can count the
+        accepted drafts actually emitted, min(n_acc, n_emit)."""
+        self._check_init()
+        k = _window_k(k, "verify window")
+        keys = np.asarray(keys).astype(np.int64)
+        lanes = (tokens, active, temperature, top_k, top_p, greedy,
+                 keys[:, 0], keys[:, 1], offsets, budgets, eos_ids)
+        dev = self.device
+        d_toks = _as_tensor(draft_tokens, torch.int32, dev)
+        d_probs = _as_tensor(draft_probs, torch.float32, dev)
+        return self._run_window(
+            "verify_window", k, self._verify, _lane_pack(lanes, dev),
+            carries, (d_toks, d_probs))
+
+    def _verify(self, packed, carries, k: int, d_toks, q_pw):
+        from deeplearning4j_tpu_torch.utils import sampling as _sampling
+
+        (tok, act, temps, tks, tps, grdy, key0, key1, offs, buds,
+         eos) = packed
+        tok = tok.to(torch.int64)
+        act, grdy = act.to(torch.bool), grdy.to(torch.bool)
+        temps, tps = temps.to(torch.float32), tps.to(torch.float32)
+        tks = tks.to(torch.int64)
+        offs, buds, eos = (a.to(torch.int64) for a in (offs, buds, eos))
+        keys_ = torch.stack((key0, key1), dim=1).to(torch.int64)
+        d = d_toks.to(torch.int64)
+        S = tok.shape[0]
+        chunk = torch.cat([tok[:, None], d], dim=1)              # [S, k+1]
+        val = act.to(self.dtype)[:, None].expand(S, k + 1).contiguous()
+        out, _ = self._forward(self.params_tree, self._encode_ids(chunk),
+                               fmask=val, carries=carries)
+        p_raw = out.to(torch.float32)                            # [S, k+1, V]
+        V = p_raw.shape[-1]
+        rep = k + 1
+        pw = _sampling.warp_probs_lanes(
+            p_raw.reshape(S * rep, V), temps.repeat_interleave(rep),
+            tks.repeat_interleave(rep),
+            tps.repeat_interleave(rep)).reshape(S, rep, V)
+        u = torch.stack([_sampling.lane_uniforms(keys_, offs + i,
+                                                 self._SPEC_U_SALT)
+                         for i in range(k)], dim=1)
+        ru = _sampling.lane_uniforms(keys_, offs, self._SPEC_R_SALT)
+        n_acc, extra = _sampling.spec_accept_lanes(p_raw, pw, q_pw, d, grdy,
+                                                   u, ru)
+        idx = torch.arange(k + 1, device=tok.device)[None, :]
+        d_pad = torch.cat([d, torch.zeros_like(d[:, :1])], dim=1)
+        cand = torch.where(idx == n_acc[:, None], extra[:, None], d_pad)
+        base = idx <= n_acc[:, None]
+        eos_hit = base & (cand == eos[:, None]) & (eos[:, None] >= 0)
+        prior_eos = torch.cumsum(eos_hit.to(torch.int64), dim=1) - \
+            eos_hit.to(torch.int64)
+        emitted = (base & (prior_eos == 0) & (idx < buds[:, None])
+                   & act[:, None])
+        n_emit = emitted.sum(dim=1)
+        toks_out = torch.where(emitted, cand, -1)
+        # the caches were written in place; the confirmed history is
+        # old + n_emit for an active lane, old for the others
+        new = self._pos_rewind(carries, -torch.where(act, n_emit, 0))
+        rows = torch.cat([n_emit[:, None], n_acc[:, None], d[:, -1:],
+                          toks_out], dim=1)
+        return rows.to(torch.int32), new

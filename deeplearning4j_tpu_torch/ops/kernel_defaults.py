@@ -1,11 +1,13 @@
 """Dispatch policies of the port (counterpart of
 `deeplearning4j_tpu/ops/kernel_defaults.py`): decode attention, the
-decode loop, KV storage dtype and the prefix cache (serving), and
+decode loop, speculative decoding, KV storage dtype and the prefix cache
+(serving), and
 full-context and sliding-window attention, the LSTM recurrence, the
 fused optimizer update and the fused conv+BN statistics (training).
 
-Same defaults as the JAX package: the fused K=8 decode window, native
-KV storage, and the paged prefix cache whenever the model can page.
+Same defaults as the JAX package: the fused K=8 decode window, spec
+decoding at k=8 whenever a rewindable draft is wired up, native KV
+storage, and the paged prefix cache whenever the model can page.
 Each verdict is capability, then the structural default: the port has
 no measured rows yet. The TPU's rules are gone: there is no backend
 check and no 128-multiple page, cache or sequence rule, because the
@@ -98,6 +100,35 @@ def decode_loop_policy(k: Optional[int] = None, *, capable: bool = True,
         "fused", _bucket_k(8 if k is None else max(1, int(k))),
         "structural default: K-fold fewer host round-trips for the same "
         "per-step forward")
+
+
+class SpecDecodePolicy(NamedTuple):
+    kind: str            # "spec" | "plain"
+    k: int               # draft window length (0 when plain)
+    reason: str
+
+
+def spec_decode_policy(k: Optional[int] = None, *, capable: bool = True,
+                       record: bool = True) -> SpecDecodePolicy:
+    """Draft-model speculative decoding (the draft proposes k tokens a
+    lane, the target verifies all of them in one chunked forward,
+    accept/reject on the device) vs the plain fused window. On whenever
+    a draft is wired up and both nets can rewind their caches;
+    `capable=False` (no draft, recurrent carries or rolling rings)
+    degrades to plain. `k` (default 8) is snapped to DECODE_K_BUCKETS.
+    Counts `kernel_dispatch_total{op="spec_decode"}`."""
+    if not capable:
+        if record:
+            record_dispatch("spec_decode", "plain")
+        return SpecDecodePolicy(
+            "plain", 0, "no rewindable draft/target pair (draft missing, "
+            "recurrent carries, or rolling KV rings)")
+    if record:
+        record_dispatch("spec_decode", "spec")
+    return SpecDecodePolicy(
+        "spec", _bucket_k(8 if k is None else max(1, int(k))),
+        "structural default: one chunk verify replaces D sequential "
+        "target dispatches")
 
 
 class KVDtypePolicy(NamedTuple):

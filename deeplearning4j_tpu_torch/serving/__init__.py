@@ -1,17 +1,24 @@
-"""Serving of the PyTorch port: the control plane (registry, scheduler,
-metrics) and stateful decode sessions over the KV slot pool.
+"""Serving of the PyTorch port: the HTTP front (`InferenceServer`), the
+control plane (registry with hot-swap, scheduler, metrics) and stateful
+decode sessions over the KV slot pool, speculative decoding included.
 
-The HTTP front (`http_base`, `inference_server`), `ParallelInference`
-and the k-NN server are not ported yet.
+The fleet (`serving/fleet/`), the k-NN server and the Keras gateway are
+not ported yet (ROADMAP S5, A7).
 """
 
+from deeplearning4j_tpu_torch.serving.http_base import (
+    HttpError, JsonHttpServer, StreamResponse, TextResponse,
+)
+from deeplearning4j_tpu_torch.serving.inference_server import (
+    InferenceServer, ModelServer,
+)
 from deeplearning4j_tpu_torch.serving.kv_pool import (
-    KVSlotPool, SlotPoolExhaustedError,
+    IncompatibleSessionSwapError, KVSlotPool, SlotPoolExhaustedError,
 )
 from deeplearning4j_tpu_torch.serving.metrics import ServingStats
 from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixCache
 from deeplearning4j_tpu_torch.serving.registry import (
-    ModelEntry, ModelRegistry,
+    DeployRolledBackError, ModelEntry, ModelRegistry,
 )
 from deeplearning4j_tpu_torch.serving.scheduler import (
     AdmissionPolicy, ContinuousBatchingScheduler, DeadlineExceededError,
@@ -23,8 +30,10 @@ from deeplearning4j_tpu_torch.serving.sessions import (
 
 __all__ = [
     "AdmissionPolicy", "ContinuousBatchingScheduler", "DecodeSession",
-    "DecodeSessionManager", "DeadlineExceededError", "KVSlotPool",
-    "ModelEntry", "ModelRegistry", "PrefixCache", "RequestShedError",
+    "DecodeSessionManager", "DeadlineExceededError",
+    "DeployRolledBackError", "HttpError", "IncompatibleSessionSwapError",
+    "InferenceServer", "JsonHttpServer", "KVSlotPool", "ModelEntry",
+    "ModelRegistry", "ModelServer", "PrefixCache", "RequestShedError",
     "SchedulerClosedError", "ServingStats", "SlotPoolExhaustedError",
-    "WorkerCrashError",
+    "StreamResponse", "TextResponse", "WorkerCrashError",
 ]

@@ -18,7 +18,14 @@ Against cross-session leakage the pool is belt-and-braces, as in JAX:
 mode — shared pages stay), and the visibility arithmetic never shows a
 fresh slot anything it did not write itself.
 
-Not ported yet: fleet page export/import and hot-swap `rebind`.
+Hot-swap: `rebind(net)` points the pool at a deployed net whose carry
+tree has the live one's layout (the same leaves, shapes and dtypes),
+keeping the live carries, so sessions survive the flip; the caches keep
+their addresses, so graphs captured over them stay valid. `reset(slot)`
+zeroes a slot's rows without releasing it (the draft pool mirrors the
+target pool's slots and is reset, not freed).
+
+Not ported yet: fleet page export/import (ROADMAP A8, S5).
 """
 
 from __future__ import annotations
@@ -34,6 +41,12 @@ class SlotPoolExhaustedError(RuntimeError):
     depth)."""
 
 
+class IncompatibleSessionSwapError(RuntimeError):
+    """A deploy candidate's session-carry tree (structure, shapes,
+    dtypes) does not match the live pool's: live sessions cannot migrate
+    onto it, so the deploy must roll back rather than drop them."""
+
+
 def _leaves(tree, path=()):
     """(path, tensor) pairs of a nested carry dict."""
     for k, v in tree.items():
@@ -41,6 +54,12 @@ def _leaves(tree, path=()):
             yield from _leaves(v, path + (k,))
         else:
             yield path + (k,), v
+
+
+def carry_layout(tree) -> list:
+    """(path, shape, dtype) of every leaf of a carry tree, by path."""
+    return sorted((path, tuple(a.shape), a.dtype)
+                  for path, a in _leaves(tree))
 
 
 class KVSlotPool:
@@ -135,6 +154,11 @@ class KVSlotPool:
             a[slot].zero_()
         self._c_resets.inc()
 
+    def reset(self, slot: int) -> None:
+        """Zero a slot's rows without releasing it."""
+        with self._cv:
+            self._reset_locked(slot)
+
     def free(self, slot: int) -> None:
         """Zero the slot's carry rows and return it to the free list.
         Idempotent."""
@@ -218,6 +242,40 @@ class KVSlotPool:
     def swap_carries(self, new_carries) -> None:
         """Install the post-step carry tree (callers hold `lock()`)."""
         self.carries = new_carries
+
+    # -------------------------------------------------------- hot swap
+    def candidate_layout(self, net, kv_dtype: Optional[str] = None) -> list:
+        """The carry layout `net` would build for this pool (its slots,
+        pages and KV dtype), made on the meta device: no memory."""
+        kd = self.kv_dtype if kv_dtype is None else kv_dtype
+        kd = None if kd == "native" else kd
+        if self.page_len:
+            tree = net.session_carries(self.slots, kv_dtype=kd,
+                                       page_len=self.page_len,
+                                       pages=self.pages, device="meta")
+        else:
+            tree = net.session_carries(self.slots, kv_dtype=kd,
+                                       device="meta")
+        return carry_layout(tree)
+
+    def rebind(self, net, kv_dtype: Optional[str] = None) -> None:
+        """Point the pool at a hot-swapped net, keeping the live carries
+        (sessions survive the flip). The candidate must build a carry
+        tree of the live one's layout, KV dtype included (live int8
+        caches cannot migrate onto a native tree, nor the other way);
+        otherwise IncompatibleSessionSwapError."""
+        want = self.candidate_layout(net, kv_dtype)
+        with self._cv:
+            have = carry_layout(self.carries)
+            if want != have:
+                diff = next((w, h) for w, h in zip(want + [None],
+                                                   have + [None])
+                            if w != h)
+                raise IncompatibleSessionSwapError(
+                    f"session carries of the deploy candidate do not "
+                    f"match the live pool (candidate, live: {diff}); "
+                    f"live sessions cannot migrate")
+            self.net = net
 
     # ------------------------------------------------------ inspection
     def _slot_bytes(self) -> tuple:

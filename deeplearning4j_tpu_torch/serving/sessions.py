@@ -26,12 +26,35 @@ the first decode row. The single-token decode steps run the paged
 decode kernel (B6) on the paged pool and the slot decode kernel (B5) on
 the monolithic one.
 
+Speculative decoding: with a DRAFT net wired in, `spec_decode_policy`
+turns each window into draft-propose + target-verify: the draft proposes
+`spec_k` tokens through its own window over a pool that mirrors the
+target's slots (registered as `<model>@draft`), the target scores all of
+them in one chunked forward, and accept/reject stays on the device
+(`utils/sampling.spec_accept_lanes`). Rejected proposals are un-written
+by rewinding per-slot positions, so both nets must be rewind-capable (no
+rolling rings), and a speculating manager keeps the target off the
+prefix cache (the draft must prefill every prompt token). Propose and
+verify are one graph replay each; the one host read of a window is the
+verify's packed [S, spec_k + 4] rows, after both pool locks are
+released. Every acquirer takes the target pool's lock before the
+draft's.
+
 EOS: a lane stops AT its EOS token — the token is emitted, nothing
 after it is.
 
-Not ported yet: speculative decoding with a draft model, the fleet's
-prefill-only role and page export/import, hot-swap deploy hooks, and the
-request-trace / flight-recorder / comms-monitor hooks.
+Hot-swap: the manager subscribes to the registry's deploy hooks for its
+model. In the "warm" phase it checks that the candidate can host the
+live carry tree (else IncompatibleSessionSwapError, and the deploy rolls
+back with the sessions untouched) and runs the candidate's session
+calls once over the live pool with every lane inactive, which writes
+nothing and captures the candidate's window graphs over the caches it
+will use; in the "flipped" phase it rebinds the pool, so every live
+session continues on the new weights.
+
+Not ported yet: the fleet's prefill-only role and page export/import
+(`open_prefill`, ROADMAP S5), and the request-trace, flight-recorder and
+comms-monitor hooks (S6): both wait for the observe modules (A8).
 """
 
 from __future__ import annotations
@@ -48,10 +71,11 @@ import torch
 
 from deeplearning4j_tpu_torch.ops.kernel_defaults import (
     decode_attention_policy, decode_loop_policy, kv_dtype_policy,
-    prefix_cache_policy,
+    prefix_cache_policy, spec_decode_policy,
 )
 from deeplearning4j_tpu_torch.serving.kv_pool import (
-    KVSlotPool, SlotPoolExhaustedError,
+    IncompatibleSessionSwapError, KVSlotPool, SlotPoolExhaustedError,
+    carry_layout,
 )
 from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixCache
 from deeplearning4j_tpu_torch.serving.registry import ModelEntry
@@ -103,10 +127,20 @@ class DecodeSession:
         self._off = 0              # prompt tokens already submitted
         self._last_tok_at: Optional[float] = None
         self._finished = False     # guarded by the manager lock
+        # speculative bookkeeping (manager-owned; the session has one row
+        # in flight): how far the draft's position must rewind on window
+        # entry, and the catch-up token (d_k) the draft never wrote when
+        # the previous window accepted every draft
+        self._spec_rewind = 0
+        self._spec_pre_tok = 0
+        self._spec_pre_valid = False
         # paged prefix-cache bookkeeping (manager-owned)
         self._pages: List[int] = []
         self._cached_len = 0
         self._prefix_inserted = False
+        # the prefix generation at admission: after a hot-swap flip this
+        # session's KV belongs to the old weights and is never indexed
+        self._gen = 0
 
     # -------------------------------------------------------- client API
     def stream(self, timeout: Optional[float] = None):
@@ -154,6 +188,7 @@ class DecodeSessionManager:
     def __init__(self, registry, scheduler, model: str = "default", *,
                  slots: int = 4, prefill_chunk: int = 8,
                  fused_k: Optional[int] = None,
+                 draft_net=None, spec_k: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  page_len: Optional[int] = None,
                  metrics=None, warm: bool = True):
@@ -176,7 +211,6 @@ class DecodeSessionManager:
         self.fused_k = int(loop.k)
         self._loop_reason = loop.reason
         self._lock = threading.Lock()
-        self._net = base.net
         self._sessions: Dict[str, DecodeSession] = {}
         self._sid = itertools.count(1)
         self._seed_rng = np.random.default_rng()
@@ -191,13 +225,32 @@ class DecodeSessionManager:
         self.kv_dtype = kvp.kind
         self._kv_reason = kvp.reason
 
+        # speculation needs a draft of the target's vocabulary, and both
+        # nets must rewind their caches (no rolling rings)
+        self.draft_net = draft_net
+        spec_capable = False
+        if draft_net is not None and \
+                hasattr(draft_net, "session_propose_window"):
+            _, dv = _resolve_net(draft_net)
+            spec_capable = (int(dv) == self.vocab
+                            and base.net.spec_decode_capable()
+                            and draft_net.spec_decode_capable())
+        spec = spec_decode_policy(spec_k, capable=spec_capable)
+        self.spec_enabled = spec.kind == "spec"
+        self.spec_k = int(spec.k)
+        self._spec_reason = spec.reason
+        self.draft_name = f"{model}@draft" if self.spec_enabled else None
+
         mc = None
         for layer in getattr(base.net, "layers", ()):
             if hasattr(layer, "decode_carry") and \
                     hasattr(layer, "max_cache"):
                 mc = int(layer.max_cache)
                 break
-        pcap = mc is not None and base.net.prefix_cache_capable()
+        # the draft's mirrored pool prefills every prompt token, so a
+        # speculating target cannot skip a cached prefix
+        pcap = (mc is not None and base.net.prefix_cache_capable()
+                and not self.spec_enabled)
         ppol = prefix_cache_policy(page_len, max_cache=mc, capable=pcap)
         self.prefix_enabled = ppol.kind == "paged"
         self.page_len = int(ppol.page_len)
@@ -211,6 +264,9 @@ class DecodeSessionManager:
             # mirror the policy verdicts onto a private server registry
             metrics.counter("kernel_dispatch_total", op="decode_loop",
                             impl=self.loop_kind).inc()
+            metrics.counter("kernel_dispatch_total", op="spec_decode",
+                            impl="spec" if self.spec_enabled
+                            else "plain").inc()
             metrics.counter("kernel_dispatch_total", op="kv_dtype",
                             impl=self.kv_dtype).inc()
             metrics.counter("kernel_dispatch_total", op="prefix_cache",
@@ -222,6 +278,17 @@ class DecodeSessionManager:
             page_len=self.page_len if self.prefix_enabled else None)
         self.prefix_cache = (PrefixCache(self.pool, metrics=metrics)
                              if self.prefix_enabled else None)
+        # bumped (under the pool lock) at every hot-swap flip, with the
+        # radix index flushed: a session admitted under an older
+        # generation prefilled with the old weights and is never indexed
+        self._prefix_gen = 0
+        # the draft's pool: slot i belongs to the session holding the
+        # target's slot i, so it is reset, never allocated or freed
+        self.draft_pool = None
+        if self.spec_enabled:
+            self.draft_pool = KVSlotPool(
+                draft_net, slots, model=self.draft_name, metrics=metrics,
+                kv_dtype=self.kv_dtype)
         self._g_active = metrics.gauge("serving_sessions_active",
                                        model=model)
         self._c_opened = metrics.counter("serving_sessions_total",
@@ -243,12 +310,26 @@ class DecodeSessionManager:
             "serving_decode_windows_total", model=model)
         self._c_window_tokens = metrics.counter(
             "serving_decode_window_tokens_total", model=model)
+        # accepted / draft tokens is the acceptance rate; the histogram
+        # holds each lane-window's share
+        self._c_draft_toks = metrics.counter("draft_tokens_total",
+                                             model=model)
+        self._c_accepted = metrics.counter("accepted_tokens_total",
+                                           model=model)
+        self._h_accept = metrics.histogram(
+            "serving_spec_acceptance_rate", model=model)
 
         self.entry = registry.register_entry(
             self.decode_name,
             ModelEntry(self.decode_name, getattr(base, "version", None),
                        base.net, runner=self))
-        self._kernel_policy_rows = self._kernel_policy()
+        if self.spec_enabled:
+            registry.register_entry(
+                self.draft_name,
+                ModelEntry(self.draft_name, getattr(base, "version", None),
+                           draft_net, runner=self))
+        registry.add_deploy_hook(model, self._deploy_hook)
+        self._kernel_policy_rows = self._kernel_policy(base.net)
         if warm:
             self.warmup()
 
@@ -257,30 +338,53 @@ class DecodeSessionManager:
         return 1 if self._encoding == "ids" else self.vocab
 
     def warmup(self) -> None:
+        """Run the pool's net once through every call a dispatch can make
+        (see `_warm`): the first dispatch pays no one-time costs (kernel
+        build, allocator growth, window graph captures)."""
+        self._warm(self.pool.net)
+
+    def _warm(self, net) -> None:
         """One all-lanes-inactive step per prefill bucket and one
-        all-lanes-inactive window on the live pool: the first dispatch
-        pays no one-time costs (kernel build, allocator growth). Inactive
-        lanes write nothing, so the pool is unchanged."""
-        net = self.pool.net
+        all-lanes-inactive window (the plain window, or the draft's
+        prefill buckets, propose and verify when speculating) of `net`
+        over the live pools, under their locks. Inactive lanes write
+        nothing, so the pools are unchanged; the window graphs are
+        captured over the caches the live windows use."""
         S, F = self.pool.slots, self._feat_dim()
         act = np.zeros((S,), bool)
+        knobs = dict(temperature=np.ones((S,), np.float32),
+                     top_k=np.full((S,), self.vocab, np.int32),
+                     top_p=np.ones((S,), np.float32),
+                     greedy=np.ones((S,), bool),
+                     keys=np.zeros((S, 2), np.uint32),
+                     offsets=np.zeros((S,), np.int32))
+        stop = dict(budgets=np.zeros((S,), np.int32),
+                    eos_ids=np.full((S,), -1, np.int32))
+        z = np.zeros((S,), np.int64)
         with self.pool.lock():
             carries = self.pool.carries
             for b in self.buckets:
                 net.session_step(np.zeros((S, b, F), np.float32), carries,
                                  active=act,
                                  valid=np.zeros((S, b), np.float32))
-            toks, _, _ = net.session_decode_window(
-                np.zeros((S,), np.int64), carries, active=act,
-                k=self.fused_k, temperature=np.ones((S,), np.float32),
-                top_k=np.full((S,), self.vocab, np.int32),
-                top_p=np.ones((S,), np.float32),
-                greedy=np.ones((S,), bool),
-                keys=np.zeros((S, 2), np.uint32),
-                offsets=np.zeros((S,), np.int32),
-                budgets=np.zeros((S,), np.int32),
-                eos_ids=np.full((S,), -1, np.int32))
-        toks.cpu()      # warmup barrier, before any traffic
+            if not self.spec_enabled:
+                out, _, _ = net.session_decode_window(
+                    z, carries, active=act, k=self.fused_k, **knobs, **stop)
+            else:
+                with self.draft_pool.lock():
+                    dnet, dcar = self.draft_pool.net, self.draft_pool.carries
+                    for b in self.buckets:
+                        dnet.session_step(np.zeros((S, b, F), np.float32),
+                                          dcar, active=act,
+                                          valid=np.zeros((S, b), np.float32))
+                    d_toks, d_probs, _ = dnet.session_propose_window(
+                        z, dcar, active=act, k=self.spec_k, rewind=z,
+                        pre_tokens=z, pre_valid=act, **knobs)
+                out, _ = net.session_verify_window(
+                    z, carries, active=act, k=self.spec_k,
+                    draft_tokens=d_toks, draft_probs=d_probs, **knobs,
+                    **stop)
+        out.cpu()       # warm-up barrier, before any traffic
 
     # ---------------------------------------------------------- sessions
     def open_session(self, prompt_ids, *, max_tokens: int = 16,
@@ -305,10 +409,14 @@ class DecodeSessionManager:
             raise ValueError("max_tokens must be >= 1")
         params = SamplingParams(temperature=temperature, top_k=top_k,
                                 top_p=top_p, greedy=greedy)
+        # a verify writes spec_k + 1 entries past the confirmed position
+        # before the cut snaps it back: the cache must leave that room
+        head = (self.spec_k + 1) if self.spec_enabled else 0
         if self._limit is not None and \
-                int(prompt.size) + int(max_tokens) > self._limit:
+                int(prompt.size) + int(max_tokens) + head > self._limit:
             raise ValueError(
-                f"prompt ({prompt.size}) + max_tokens ({max_tokens}) "
+                f"prompt ({prompt.size}) + max_tokens ({max_tokens})"
+                f"{f' + spec headroom ({head})' if head else ''} "
                 f"exceeds the decode budget of {self._limit} for this "
                 f"net (non-rolling cache)")
         with self._lock:
@@ -317,10 +425,11 @@ class DecodeSessionManager:
             if seed is None:
                 seed = int(self._seed_rng.integers(0, 2 ** 63))
         slot = self.pool.alloc(alloc_timeout_s)
-        cached_len, pages = 0, []
+        cached_len, pages, gen = 0, [], 0
         if self.prefix_enabled:
             try:
                 with self.pool.lock():
+                    gen = self._prefix_gen
                     cached_len, pages = self._admit_pages(
                         slot, prompt, int(max_tokens))
             except BaseException:
@@ -332,6 +441,7 @@ class DecodeSessionManager:
             deadline_ms=deadline_ms, eos_id=eos_id)
         sess._pages = pages
         sess._cached_len = cached_len
+        sess._gen = gen
         # prefill resumes AFTER the cached prefix
         sess._off = cached_len
         with self._lock:
@@ -409,6 +519,8 @@ class DecodeSessionManager:
             return
         try:
             with self.pool.lock():
+                if sess._gen != self._prefix_gen:
+                    return      # old-weight KV: a flip happened since
                 self.prefix_cache.insert(sess.prompt[:stem], sess._pages)
         except Exception:
             logger.exception("prefix-cache insert failed (session %s)",
@@ -523,11 +635,15 @@ class DecodeSessionManager:
         # release the session's page references (pages the radix index
         # adopted survive on its own refcount) and its slot in ONE
         # critical section: an admission waiting for a slot counts the
-        # free pages as soon as it gets one, so the pages go back first
+        # free pages as soon as it gets one, so the pages go back first;
+        # the draft's mirror row is zeroed before the slot's next tenant
+        # can prefill it (target lock, then draft lock)
         with self.pool.lock():
             for p in sess._pages if self.prefix_enabled else ():
                 self.pool.page_unref_locked(p)
             sess._pages = []
+            if self.draft_pool is not None:
+                self.draft_pool.reset(sess.slot)
             self.pool.free_locked(sess.slot)
         self._c_out[outcome].inc()
         self._g_active.set(n_active)
@@ -546,7 +662,12 @@ class DecodeSessionManager:
         one `session_decode_window` advancing every decoding lane K
         tokens. After the lock, ONE device-to-host copy of the window's
         packed tokens and emit flags. Returns one row per request row:
-        `[count, tok_0..tok_{K-1}]` (count 0 for prefill legs)."""
+        `[count, tok_0..]` (count 0 for prefill legs).
+
+        Speculating, the draft's pool lock nests inside the target's:
+        the prefill is mirrored into the draft, and the window becomes
+        the draft's propose plus the target's verify; the one host read
+        is the verify's packed rows (counts, catch-up token, tokens)."""
         xs = np.asarray(xs)
         if xs.ndim != 2 or xs.shape[1] != 3 + self.prefill_chunk:
             raise ValueError(
@@ -559,7 +680,9 @@ class DecodeSessionManager:
         pre = np.nonzero(phase == 0)[0]
         dec = np.nonzero(phase == 1)[0]
         S, K = self.pool.slots, self.fused_k
-        ys = np.zeros((k, 1 + K), np.float32)
+        # a spec window emits up to spec_k accepted drafts plus one
+        W = (self.spec_k + 1) if self.spec_enabled else K
+        ys = np.zeros((k, 1 + W), np.float32)
 
         if pre.size:
             need = int(nvalid[pre].max())
@@ -576,6 +699,7 @@ class DecodeSessionManager:
         # window lanes: sampling knobs / seeds / budgets from the session
         # table (safe: each session has exactly this one row in flight)
         act_d = np.zeros((S,), bool)
+        by_slot: Dict[int, DecodeSession] = {}
         if dec.size:
             with self._lock:
                 by_slot = {s.slot: s for s in self._sessions.values()}
@@ -585,6 +709,9 @@ class DecodeSessionManager:
             offs = np.zeros((S,), np.int32)
             buds = np.zeros((S,), np.int32)
             eos = np.full((S,), -1, np.int32)
+            rew = np.zeros((S,), np.int32)
+            ptk = np.zeros((S,), np.int32)
+            pvl = np.zeros((S,), bool)
             for i in dec:
                 s = int(slots_idx[i])
                 sess = by_slot.get(s)
@@ -598,10 +725,15 @@ class DecodeSessionManager:
                 buds[s] = sess.max_tokens - len(sess.generated)
                 if sess.eos_id is not None:
                     eos[s] = sess.eos_id
+                rew[s] = sess._spec_rewind
+                ptk[s] = sess._spec_pre_tok
+                pvl[s] = sess._spec_pre_valid
             temps, tks, tps, grd = lane_param_arrays(lane_params,
                                                      self.vocab)
+            knobs = dict(temperature=temps, top_k=tks, top_p=tps,
+                         greedy=grd, keys=keys, offsets=offs)
 
-        packed_d = None
+        packed_d = spec_d = None
         with self.pool.lock():
             # drop rows whose slot was freed while the row was queued
             for i in range(k):
@@ -615,13 +747,61 @@ class DecodeSessionManager:
                 x = _encode(tok, self._encoding, self.vocab)
                 _, carries = net.session_step(
                     x, carries, active=act_p, valid=val)
-            if dec.size and act_d.any():
+            if self.spec_enabled:
+                # target pool, then draft pool: every acquirer nests them
+                # in this order
+                with self.draft_pool.lock():
+                    dnet = self.draft_pool.net
+                    dcarries = self.draft_pool.carries
+                    if pre.size and act_p.any():
+                        _, dcarries = dnet.session_step(
+                            x, dcarries, active=act_p, valid=val)
+                    if dec.size and act_d.any():
+                        d_toks, d_probs, dcarries = \
+                            dnet.session_propose_window(
+                                tok0, dcarries, active=act_d,
+                                k=self.spec_k, rewind=rew, pre_tokens=ptk,
+                                pre_valid=pvl, **knobs)
+                        spec_d, carries = net.session_verify_window(
+                            tok0, carries, active=act_d, k=self.spec_k,
+                            draft_tokens=d_toks, draft_probs=d_probs,
+                            budgets=buds, eos_ids=eos, **knobs)
+                    self.draft_pool.swap_carries(dcarries)
+            elif dec.size and act_d.any():
                 toks_d, emits_d, carries = net.session_decode_window(
-                    tok0, carries, active=act_d, k=K,
-                    temperature=temps, top_k=tks, top_p=tps, greedy=grd,
-                    keys=keys, offsets=offs, budgets=buds, eos_ids=eos)
+                    tok0, carries, active=act_d, k=K, budgets=buds,
+                    eos_ids=eos, **knobs)
                 packed_d = torch.stack((toks_d, emits_d.to(toks_d.dtype)))
             self.pool.swap_carries(carries)
+        if spec_d is not None:
+            # the one host read of the window, after both locks
+            ph = spec_d.cpu().numpy()
+            wtoks = wdraft = wacc = 0
+            for i in dec:
+                s = int(slots_idx[i])
+                if not act_d[s]:
+                    continue
+                n = int(ph[s, 0])
+                # the accepted drafts actually emitted: a budget or EOS
+                # cut truncates an accepted run
+                acc = min(int(ph[s, 1]), n)
+                ys[i, 0] = n
+                ys[i, 1:1 + n] = ph[s, 3:3 + n]
+                sess = by_slot.get(s)
+                if sess is not None:
+                    # the next window's draft entry (this was the
+                    # session's one row in flight)
+                    sess._spec_rewind = max(self.spec_k - n, 0)
+                    sess._spec_pre_valid = n == self.spec_k + 1
+                    sess._spec_pre_tok = int(ph[s, 2])
+                wtoks += n
+                wdraft += self.spec_k
+                wacc += acc
+                self._h_accept.observe(acc / self.spec_k)
+            self._c_windows.inc()
+            self._c_window_tokens.inc(wtoks)
+            self._c_draft_toks.inc(wdraft)
+            self._c_accepted.inc(wacc)
         if packed_d is not None:
             # the one host read of the window, after releasing the lock
             packed = packed_d.cpu().numpy()
@@ -643,10 +823,68 @@ class DecodeSessionManager:
             self._c_shared.inc()
         return ys
 
+    # --------------------------------------------------------- hot-swap
+    def _deploy_hook(self, phase: str, name: str, version, net) -> None:
+        if phase == "warm":
+            # the canary: live sessions must fit on the candidate (else
+            # the deploy rolls back, sessions untouched), and its session
+            # calls run once now, so the flip costs no capture
+            self._check_swap_compat(net)
+            self._warm(net)
+            return
+        if phase == "flipped":
+            self.pool.rebind(net)
+            if self.prefix_enabled:
+                # old-weight KV must not serve NEW sessions: bump the
+                # generation first (in-flight old sessions then never
+                # re-index), then drop every cached chain; live sessions
+                # finish on the pages they hold
+                with self.pool.lock():
+                    self._prefix_gen += 1
+                    self.prefix_cache.flush()
+            rows = self._kernel_policy(net)
+            with self._lock:
+                self._kernel_policy_rows = rows
+                n = len(self._sessions)
+            self.entry.net = net
+            self.entry.version = version
+            logger.info("decode sessions migrated to %s@%r (%d live)",
+                        name, version, n)
+
+    def _check_swap_compat(self, net) -> None:
+        """Raise IncompatibleSessionSwapError unless the live sessions can
+        move onto `net`: the same vocabulary, rewindable caches when
+        speculating, pageable ones under the prefix cache, and a carry
+        tree of the live pool's layout."""
+        _, vocab = _resolve_net(net)
+        if int(vocab) != self.vocab:
+            raise IncompatibleSessionSwapError(
+                f"deploy candidate for {self.model!r} has vocabulary "
+                f"{vocab}, the live sessions {self.vocab}; rolling back")
+        if self.spec_enabled and not net.spec_decode_capable():
+            raise IncompatibleSessionSwapError(
+                f"deploy candidate for {self.model!r} cannot rewind its "
+                f"decode caches (rolling rings) and this manager "
+                f"speculates; rolling back")
+        if self.prefix_enabled and not net.prefix_cache_capable():
+            raise IncompatibleSessionSwapError(
+                f"deploy candidate for {self.model!r} cannot page its KV "
+                f"caches and this manager runs the prefix cache; rolling "
+                f"back")
+        with self.pool.lock():
+            have = carry_layout(self.pool.carries)
+        if self.pool.candidate_layout(net) != have:
+            raise IncompatibleSessionSwapError(
+                f"deploy candidate for {self.model!r} cannot host the live "
+                f"session carries; rolling back")
+
     # -------------------------------------------------------- lifecycle
     def snapshot(self) -> dict:
         with self._lock:
             active = len(self._sessions)
+            policy = list(self._kernel_policy_rows)
+        drafted = int(self._c_draft_toks.value)
+        accepted = int(self._c_accepted.value)
         snap = {
             "model": self.model,
             "endpoint": self.decode_name,
@@ -666,9 +904,15 @@ class DecodeSessionManager:
                            "window_tokens":
                                int(self._c_window_tokens.value)},
             "buckets": list(self.buckets),
-            "kernel_policy": list(self._kernel_policy_rows),
+            "kernel_policy": policy,
             "decode_loop": {"kind": self.loop_kind, "k": self.fused_k,
                             "reason": self._loop_reason},
+            "spec_decode": {
+                "enabled": self.spec_enabled, "k": self.spec_k,
+                "reason": self._spec_reason, "draft": self.draft_name,
+                "draft_tokens": drafted, "accepted_tokens": accepted,
+                "acceptance_rate": (round(accepted / drafted, 4)
+                                    if drafted else None)},
             "kv_dtype": {"kind": self.kv_dtype,
                          "reason": self._kv_reason},
             "prefix_cache": {"enabled": self.prefix_enabled,
@@ -684,27 +928,35 @@ class DecodeSessionManager:
                     self.pool.pages_free_locked()
         return snap
 
-    def _kernel_policy(self) -> list:
-        """Which decode kernel each attention shape runs single-token
-        steps on: B6 over a paged pool, B5 over the slot pool. Recorded
-        once here; a shape the CUDA kernels cannot take fails here."""
-        seen, out = set(), []
-        for layer in getattr(self._net, "layers", ()):
-            heads = getattr(layer, "num_heads", None)
-            if heads is None or not hasattr(layer, "decode_carry"):
+    def _kernel_policy(self, net) -> list:
+        """Which decode kernel each attention shape of `net` (and of the
+        draft, whose rows say `"net": "draft"`) runs single-token steps
+        on: B6 over a paged pool, B5 over the slot pool. Recorded at
+        construction and at a hot-swap flip; a shape the CUDA kernels
+        cannot take fails here."""
+        out = []
+        for who, n, paged in (("target", net, self.prefix_enabled),
+                              ("draft", self.draft_net, False)):
+            if who == "draft" and not self.spec_enabled:
                 continue
-            hkv = getattr(layer, "num_kv_heads", None) or heads
-            key = (layer.max_cache, heads, hkv)
-            if key in seen:
-                continue
-            seen.add(key)
-            width = getattr(layer, "n_out", None) or layer.n_in
-            pol = decode_attention_policy(
-                heads, hkv, width // heads, paged=self.prefix_enabled,
-                device=self._net.device)
-            out.append({"layer": layer.name, "cache_len": key[0],
-                        "heads": heads, "kv_heads": hkv,
-                        "kernel": pol.kernel, "reason": pol.reason})
+            seen = set()
+            for layer in getattr(n, "layers", ()):
+                heads = getattr(layer, "num_heads", None)
+                if heads is None or not hasattr(layer, "decode_carry"):
+                    continue
+                hkv = getattr(layer, "num_kv_heads", None) or heads
+                key = (layer.max_cache, heads, hkv)
+                if key in seen:
+                    continue
+                seen.add(key)
+                width = getattr(layer, "n_out", None) or layer.n_in
+                pol = decode_attention_policy(
+                    heads, hkv, width // heads, paged=paged,
+                    device=n.device)
+                out.append({"net": who, "layer": layer.name,
+                            "cache_len": key[0], "heads": heads,
+                            "kv_heads": hkv, "kernel": pol.kernel,
+                            "reason": pol.reason})
         return out
 
     def drain(self, timeout: Optional[float] = None) -> bool:
@@ -731,3 +983,4 @@ class DecodeSessionManager:
         for sess in live:
             self._finish(sess, error=SchedulerClosedError(
                 "decode session manager shut down"))
+        self.registry.remove_deploy_hook(self.model, self._deploy_hook)

@@ -1,6 +1,7 @@
 """The port's CUDA graphs on the card (`utils/cuda_graphs.py`):
-`fit(steps_per_dispatch=K)`'s K-step graphs, the graphed `rnn_time_step`
-and decode window, against the same calls run eagerly. These tests
+`fit(steps_per_dispatch=K)`'s K-step graphs, the graphed `rnn_time_step`,
+decode window and speculative propose/verify windows, and a window after
+a pool's `rebind`, against the same calls run eagerly. These tests
 import only torch, so they run on a machine with a card and no JAX:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_graphs.py
 Where there is no card they skip: a graph is captured and replayed only
@@ -302,3 +303,118 @@ def test_a_dead_nets_graph_is_not_freed_inside_a_capture(cuda_device):
         gc.set_threshold(*threshold)
     assert g.stats["f"]["captures"] == 1
     assert all(torch.equal(o, x * 2) for o in outs)
+
+
+def _spec_nets(seed=3, blocks=2):
+    from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
+
+    return MultiLayerNetwork(TextGenerationTransformer(
+        input_shape=(64, 1), d_model=256, num_heads=4, num_blocks=blocks,
+        seed=seed).conf(), device="cuda").init()
+
+
+def _spec_round(target, draft, tc, dc, S, k, state):
+    """One propose + verify window with the manager's bookkeeping."""
+    tok0, rew, ptk, pvl, offs = state
+    knobs = dict(temperature=np.full(S, 0.9, np.float32),
+                 top_k=np.full(S, 40, np.int32), top_p=np.ones(S, np.float32),
+                 greedy=np.arange(S) % 2 == 0,
+                 keys=np.arange(2 * S, dtype=np.uint32).reshape(S, 2),
+                 offsets=offs)
+    d_t, d_p, dc = draft.session_propose_window(
+        tok0, dc, active=np.ones(S, bool), k=k, rewind=rew, pre_tokens=ptk,
+        pre_valid=pvl, **knobs)
+    packed, tc = target.session_verify_window(
+        tok0, tc, active=np.ones(S, bool), k=k, draft_tokens=d_t,
+        draft_probs=d_p, budgets=np.full(S, 48, np.int32),
+        eos_ids=np.full(S, -1, np.int32), **knobs)
+    ph = packed.cpu().numpy()
+    n = ph[:, 0]
+    state = (np.where(n > 0, ph[np.arange(S), 2 + n], tok0),
+             np.maximum(k - n, 0).astype(np.int32), ph[:, 2].copy(),
+             n == k + 1, (offs + n).astype(np.int32))
+    return (d_t, d_p, packed), tc, dc, state
+
+
+@pytest.mark.cuda
+def test_spec_windows_graph_equal_eager(cuda_device):
+    """Propose and verify windows (k 4, greedy and sampled lanes, a
+    1-block draft; head dim 64) as graph replays against the same calls
+    run eagerly, over slot pools: draft tokens, draft probabilities and
+    the packed rows bit-equal, window after window (rewinds, catch-up);
+    each window's first call eager, then captured, then replayed; the
+    draft's steps launch B5, on design 2."""
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+
+    S, k = 4, 4
+    nets = {g: (_spec_nets(), _spec_nets(blocks=1)) for g in (True, False)}
+    for g, (t, d) in nets.items():
+        t.cuda_graphs = d.cuda_graphs = g
+    rng = np.random.default_rng(0)
+    stem = rng.integers(0, 256, (S, 11)).astype(np.float32)[:, :, None]
+    tok0 = rng.integers(0, 256, S)
+    out = {}
+    ba.reset_counts()
+    for g, (t, d) in nets.items():
+        tc, dc = t.session_carries(S), d.session_carries(S)
+        val = np.ones((S, 11), np.float32)
+        _, tc = t.session_step(stem, tc, active=np.ones(S, bool), valid=val)
+        _, dc = d.session_step(stem, dc, active=np.ones(S, bool), valid=val)
+        state = (tok0, np.zeros(S, np.int32), np.zeros(S, np.int32),
+                 np.zeros(S, bool), np.zeros(S, np.int32))
+        rows = []
+        for _ in range(4):
+            r, tc, dc, state = _spec_round(t, d, tc, dc, S, k, state)
+            rows.append(r)
+        out[g] = rows
+    for a, b in zip(out[True], out[False]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    t, d = nets[True]
+    for net, kind in ((d, "propose_window"), (t, "verify_window")):
+        st = net._graphs.stats[kind]
+        assert (st["eager"], st["captures"], st["replays"]) == (1, 1, 3)
+    # the draft's 4 steps + catch-up a window, 1 block, both runs
+    assert ba.LAUNCHES["banded_decode_attention"] == 2 * 4 * (k + 1)
+    assert ba.LAUNCHES_BY_DESIGN[("banded_decode_attention", "split")] == \
+        ba.LAUNCHES["banded_decode_attention"]
+
+
+@pytest.mark.cuda
+def test_rebind_then_a_window_recaptures(cuda_device):
+    """A pool rebound to another net keeps its caches where they lie; the
+    new net's first window over them is eager, then captured, and its
+    replays equal the eager calls of a copy on the same carries."""
+    from deeplearning4j_tpu_torch.observe import MetricsRegistry
+    from deeplearning4j_tpu_torch.serving import KVSlotPool
+
+    S = 4
+    v1, v2, v2_eager = _spec_nets(3), _spec_nets(8), _spec_nets(8)
+    v2_eager.cuda_graphs = False
+    pool = KVSlotPool(v1, S, metrics=MetricsRegistry(), page_len=16)
+    for layer in pool.carries.values():
+        if "attn" in layer:
+            layer["attn"]["page_table"].copy_(torch.arange(
+                S * 4, dtype=torch.int32, device="cuda").view(S, 4))
+    _, _, c = _window(v1, pool.carries, S)
+    ptrs = [a.data_ptr() for layer in pool.carries.values()
+            for a in layer.get("attn", {}).values()]
+    pool.rebind(v2)
+    assert pool.net is v2
+    assert ptrs == [a.data_ptr() for layer in pool.carries.values()
+                    for a in layer.get("attn", {}).values()]
+    snapshot = {n: {kk: t.clone() for kk, t in layer.get("attn", {}).items()}
+                for n, layer in c.items()}
+    for _ in range(3):
+        ta, ea, c_next = _window(v2, c, S)
+        # the eager copy on the same caches, restored to the same state
+        for n, leaves in snapshot.items():
+            for kk, t in leaves.items():
+                c[n]["attn"][kk].copy_(t)
+        tb, eb, _ = _window(v2_eager, c, S)
+        assert torch.equal(ta, tb) and torch.equal(ea, eb)
+        c = c_next
+        snapshot = {n: {kk: t.clone()
+                        for kk, t in layer.get("attn", {}).items()}
+                    for n, layer in c.items()}
+    st = v2._graphs.stats["decode_window"]
+    assert (st["eager"], st["captures"], st["replays"]) == (1, 1, 2)

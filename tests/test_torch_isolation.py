@@ -24,7 +24,9 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "torch_b5_phases.py",
     ROOT / "tools" / "torch_b4_exp_forms.py",
     ROOT / "tools" / "torch_b2c_phases.py",
-    ROOT / "tools" / "torch_lstm_graph.py"]
+    ROOT / "tools" / "torch_lstm_graph.py",
+    ROOT / "tools" / "torch_c10_lenet.py",
+    ROOT / "tools" / "torch_http_probe.py"]
 
 
 def _imported_modules(path):
