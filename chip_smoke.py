@@ -171,6 +171,29 @@ exits non-zero with no result line:
     the same launch counts; a 2-block transformer's graphed decode
     windows against the eager loop, and a lane whose EOS falls inside
     a window stops AT it.
+17. path_gen: lockstep generation through `utils.textgen` at Path A's
+    width (6 blocks, T 2048, batch 8, float32): greedy `generate` over
+    8 prompts of 1024 tokens (prefill chunks of 128) to the end of the
+    cache, every decode step one `rnn_time_step` graph replay with B5
+    six times on design 2, its probabilities against `output()`'s
+    teacher-forced ones within 1e-4, a step past the cache refused
+    before anything launches, B5 at the broadcast position against its
+    plain version; nucleus sampling (every token in its step's nucleus
+    of the teacher-forced probabilities); `beam_search` over 2 prompts
+    at width 1 (= greedy) and 4, the beam's probabilities followed
+    back through the recorded parents against `output()`'s; Path B's
+    ring (B5 twice a step) past its length against the port on the
+    CPU; the 2-block stack and `TextGenerationLSTM` (B2b) as
+    ComputationGraphs against the sequential nets;
+18. path_ckpt: `path_t_bf16`'s model with gradient checkpointing, 8
+    steps at K 1 and at K 4 against 8 without it from the same weights
+    (B3a twelve times a step, B3b/B3c six, design 2; B1a once), the
+    peak memory lower; a float32 2-block model with dropout,
+    checkpointed against plain;
+19. path_x: `examples/seq2seq_cross_attention.py`'s graph at width
+    (Tq 2048, Tk 1024, batch 8) fed MultiDataSets, 8 Adam steps at K 1
+    and K 4 in bfloat16 (B3a-c non-causal on design 2) and float32
+    (design 1), then card against CPU at Tq 256, Tk 200.
 
 Weights are random, from fixed seeds. Each path resets the kernels'
 launch counts just before it runs and reads them just after; a kernel
@@ -626,6 +649,17 @@ def flash_cases():
     return cases
 
 
+def cross_flash_cases():
+    """`path_x`'s cross-attention shape (BH 64, Tq 2048, Tk 1024, Dh 64,
+    not causal) and Tk 1000, which ends in a partial key tile, in
+    float32 (design 1) and bfloat16 (design 2). They draw their inputs
+    from a generator of their own, so the cases before them keep the
+    inputs they always had."""
+    base = dict(bh=64, causal=False, main=False, dh=64, tq=2048)
+    return [dict(base, dtype=dt, tk=tk, path_x=tk == 1024)
+            for dt in (torch.float32, torch.bfloat16) for tk in (1024, 1000)]
+
+
 def flash_flops(name, c):
     """The products a flash kernel computes over the visible (query,
     key) pairs (causal: the lower triangle), 2 Dh flops a pair each."""
@@ -791,7 +825,7 @@ def run_flash_case(c, flush, gen):
                   f"{share[name]} of the largest |ref| past one bf16 step "
                   f"from the plain version that rounds P and dS, and {x} "
                   f"from the one that does not (C6)")
-    timed_plain = c["main"] or dt == torch.bfloat16
+    timed_plain = c["main"] or dt == torch.bfloat16 or c.get("path_x")
     plain = lib = host = {}
     if timed_plain:
         plain_fwd = time_ms(lambda: fa.flash_attention_plain(q, k, v,
@@ -847,7 +881,8 @@ def run_flash_case(c, flush, gen):
                "plain_ms": plain.get(name), "library_ms": lib.get(name),
                "library_ms_with_host_launches": host.get(name),
                "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
-               "main_path_shape": c["main"]}
+               "main_path_shape": c["main"],
+               "path_x_shape": c.get("path_x", False)}
         if design == "wgmma" and name != "flash_attention_fwd" and \
                 c["main"]:
             # design 1 on the same inputs, to compare the two in one run
@@ -998,7 +1033,7 @@ def run_banded_case(c, flush, gen):
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qh, kh, vh, attn_mask=mask, enable_gqa=hkv != h)
     (bms, by), pairs = banded_bound(c)
-    timed_plain = c["main"] or dt == torch.bfloat16
+    timed_plain = c["main"] or dt == torch.bfloat16 or c.get("path_x")
     ms = time_ms(run, flush)
     row = {"phase": "kernels", "kernel": "banded_attention",
            "dtype": str(dt).replace("torch.", ""), **shape,
@@ -1649,19 +1684,30 @@ def b7_step_totals(rows, kernel):
 
 
 # ------------------------------------------------------ serving phases
-def build_net(device, *, num_blocks, seed, t=2048, dtype="float32", **kw):
+def build_net(device, *, num_blocks, seed, t=2048, dtype="float32",
+              gradient_checkpointing=False, dropout=None, d_model=512,
+              **kw):
     """The zoo transformer at the repo's largest width; another `dtype`
     replaces the zoo conf's, as `bench.py`'s `_bench_transformer` does
-    (`bench.py:497-501`)."""
+    (`bench.py:497-501`); `gradient_checkpointing` and a `dropout` on
+    every block change the conf too."""
     import dataclasses
 
     from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.layers import TransformerEncoderBlock
     from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
 
     zoo = TextGenerationTransformer(
-        input_shape=(t, 1), d_model=512, num_heads=8,
+        input_shape=(t, 1), d_model=d_model, num_heads=8,
         num_blocks=num_blocks, seed=seed, **kw)
-    conf = dataclasses.replace(zoo.conf(), dtype=dtype)
+    conf = dataclasses.replace(
+        zoo.conf(), dtype=dtype,
+        gradient_checkpointing=gradient_checkpointing)
+    if dropout:
+        conf = dataclasses.replace(conf, layers=tuple(
+            dataclasses.replace(l, dropout=dropout)
+            if isinstance(l, TransformerEncoderBlock) else l
+            for l in conf.layers))
     return MultiLayerNetwork(conf, device=device).init()
 
 
@@ -2139,8 +2185,9 @@ def check_design_2(name, kernel, launches, by_design, plain):
 def uncounted(mod):
     """Launches inside are a yardstick's, not the path's: every count of
     kernel module `mod` is put back as it was on the way out."""
-    saved = [(d, dict(d)) for d in (mod.LAUNCHES, mod.LAUNCHES_BY_DESIGN,
-                                    mod.PLAIN_ON_CUDA)]
+    saved = [(d, dict(d)) for d in (
+        getattr(mod, n) for n in ("LAUNCHES", "LAUNCHES_BY_DESIGN",
+                                  "PLAIN_ON_CUDA") if hasattr(mod, n))]
     try:
         yield
     finally:
@@ -3845,6 +3892,604 @@ def lenet_parity(rng, steps=8, batch=64, tol_loss=1e-5, tol_param=1e-5):
 
 
 # ------------------------------------------------------------------ main
+# ------------------------------------------------------ slice 16 (A4)
+def chain_graph(seq_conf):
+    """The layers of a sequential configuration as a chain
+    ComputationGraph configuration, vertices named after the layers, so
+    the sequential net's params tree fits it unchanged."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+
+    g = (NeuralNetConfiguration.builder().seed(seq_conf.seed)
+         .updater(seq_conf.updater).graph_builder().add_inputs("in")
+         .set_input_types(seq_conf.input_type))
+    prev = "in"
+    for layer in seq_conf.layers:
+        g.add_layer(layer.name, layer, prev)
+        prev = layer.name
+    g.set_outputs(prev)
+    return dataclasses.replace(g.build(), dtype=seq_conf.dtype)
+
+
+def graph_twin(net):
+    """`net`'s layers as a chain ComputationGraph on its device, with its
+    weights."""
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+
+    twin = ComputationGraph(chain_graph(net.conf), device=net.device).init()
+    for name, sub in net.params_tree.items():
+        for k, v in sub.items():
+            twin.params_tree[name][k].copy_(v)
+    return twin
+
+
+class StepRecorder:
+    """Wraps a net's `rnn_time_step` and `rnn_reorder_state`, in order:
+    each call's last-position probabilities (float32, left on the card)
+    or reorder indices, and CUDA events around each step call (its time
+    on the card's clock, with no host sync in the loop)."""
+
+    def __init__(self, net):
+        self.net = net
+        self.events = []               # ("step", probs) | ("reorder", idx)
+        self.marks = []
+        self._step, self._reorder = net.rnn_time_step, net.rnn_reorder_state
+        net.rnn_time_step = self.step
+        net.rnn_reorder_state = self.reorder
+
+    def step(self, *xs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self._step(*xs)
+        b.record()
+        self.marks.append((a, b))
+        self.events.append(("step", out[:, -1, :].float()))
+        return out
+
+    def reorder(self, idx):
+        self.events.append(("reorder", np.asarray(idx)))
+        return self._reorder(idx)
+
+    def close(self):
+        del self.net.rnn_time_step, self.net.rnn_reorder_state
+
+    def steps(self):
+        return [p for kind, p in self.events if kind == "step"]
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.marks]
+
+
+@contextlib.contextmanager
+def uncounted_all():
+    """Launches inside are a check's, not the path's (`uncounted` over
+    every kernel module)."""
+    with contextlib.ExitStack() as stack:
+        for mod in kernel_modules():
+            stack.enter_context(uncounted(mod))
+        yield
+
+
+def teacher_forced(net, streams, t):
+    """`output()` probabilities [B, t, V] of token streams [B, n <= t],
+    each padded with zeros to the net's fixed length `t` (a causal model:
+    no position sees the padding after it); float32, on the host."""
+    ids = np.zeros((streams.shape[0], t), np.float32)
+    ids[:, :streams.shape[1]] = streams
+    with uncounted_all():
+        probs = net.output(ids[:, :, None])
+    return probs.float().cpu().numpy()
+
+
+def nucleus_mass_above(p, tok, temperature):
+    """The tempered, normalized mass of the tokens ranked above `tok` in
+    a stable descending order: `tok` lies in the top-p nucleus iff this
+    is below top_p (`utils.sampling.warp_probs_lanes`)."""
+    w = np.exp(np.log(np.maximum(p.astype(np.float64), 1e-30))
+               / temperature)
+    w /= w.sum()
+    order = np.argsort(-w, kind="stable")
+    rank = int(np.nonzero(order == tok)[0][0])
+    return float(w[order[:rank]].sum())
+
+
+def beam_calls_and_parents(events, prefill_calls):
+    """Parse a `StepRecorder`'s events of one `beam_search` into the
+    probabilities each selection drew from (the last prefill call's [B,
+    V], then each step call's [B*W, V]) and each selection's reorder
+    indices (None where every beam kept its own parent, which
+    `beam_search` skips): prefill calls, the tiling reorder, then per
+    selection an optional reorder and, but after the last, a step."""
+    steps = [i for i, (kind, _) in enumerate(events) if kind == "step"]
+    tile = steps[prefill_calls - 1] + 1
+    check(events[tile][0] == "reorder", "path_gen: no tiling reorder after "
+          "the beam prefill")
+    calls = [events[steps[prefill_calls - 1]][1].cpu().numpy()]
+    parents, pending = [], None
+    for kind, val in events[tile + 1:]:
+        if kind == "reorder":
+            pending = val
+        else:
+            parents.append(pending)
+            pending = None
+            calls.append(val.cpu().numpy())
+    parents.append(pending)
+    return calls, parents
+
+
+def lineage_probs(calls, parents, width, tokens):
+    """The probability each returned beam's token had where it was drawn,
+    [B, n]: with no length penalty and no EOS the returned beam is slot 0
+    (the top-W selection keeps the slots sorted by score), and following
+    it back through the parents picks, at each step, the row of the
+    call its token was drawn from."""
+    batch, n = tokens.shape
+    probs = np.empty((batch, n))
+    for b in range(batch):
+        s = 0
+        for t in range(n - 1, -1, -1):
+            idx = parents[t]
+            prev = s if idx is None else int(idx[b * width + s]) - b * width
+            row = calls[0][b] if t == 0 else calls[t][b * width + prev]
+            probs[b, t] = row[tokens[b, t]]
+            s = prev
+    return probs
+
+
+def path_gen(rng, t=2048, batch=8, prompt_len=1024, chunk=128,
+             nucleus_new=256, beam_new=256, ring_new=2048, graph_new=64,
+             lstm_calls=50):
+    """Lockstep generation at full width (A4), through the entry points a
+    user calls (`utils.textgen.generate`, `beam_search`): Path A's model
+    (6 blocks, d_model 512, T 2048, float32, learned positions), every
+    decode step one `rnn_time_step` graph replay with B5 six times on
+    design 2, against `output()`'s teacher-forced probabilities; Path B's
+    Llama-shaped ring (B5 twice a step) wrapping its ring, against the
+    port on the CPU; the same stacks as ComputationGraphs; and
+    `TextGenerationLSTM` as a graph (B2b)."""
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+    from deeplearning4j_tpu_torch.ops import lstm as lk
+    from deeplearning4j_tpu_torch.utils.textgen import beam_search, generate
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    B, T, V, blocks = batch, t, 256, 6
+    new = T - prompt_len
+    chunks = prompt_len // chunk
+    net = build_net("cuda", num_blocks=blocks, seed=21, t=T)
+    prompts = rng.integers(0, V, (B, prompt_len))
+    row = {"phase": "path_gen", "model": "TextGenerationTransformer",
+           "d_model": 512, "heads": 8, "blocks": blocks, "T": T,
+           "batch": B, "dtype": "float32", "prompt_len": prompt_len,
+           "prefill_chunk": chunk}
+
+    # 1. greedy, to the end of the cache
+    rec = StepRecorder(net)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    toks = generate(net, prompts, new, greedy=True, prefill_chunk=chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the last token too: the cache then holds exactly max_cache
+    last = torch.as_tensor(toks[:, -1:, None], dtype=torch.float32)
+    net.rnn_time_step(last)
+    launches, plain = read_all_counts()
+    by_design = launches_by_design(ba)
+    step_ms = rec.step_ms()
+    probs = torch.stack(rec.steps()[chunks - 1:], dim=1).cpu().numpy()
+    rec.close()
+    check(net._decode_state.pos == T,
+          f"path_gen: decode position {net._decode_state.pos}, want {T}")
+    reset_all_counts()
+    try:
+        net.rnn_time_step(last)
+        check(False, "path_gen: a step past max_cache was not refused")
+    except ValueError as e:
+        check(f"limit {T}" in str(e),
+              f"path_gen: the refusal names no limit: {e}")
+    refused, _ = read_all_counts()
+    check(sum(refused.values()) == 0,
+          f"path_gen: the refused step launched kernels: {refused}")
+    check_design_2("path_gen", "banded_decode_attention", launches,
+                   by_design, plain)
+    check(launches["banded_decode_attention"] == blocks * new,
+          f"path_gen: B5 launched {launches['banded_decode_attention']} "
+          f"times, want {blocks} a step x {new}")
+    tf = teacher_forced(net, np.concatenate([prompts, toks], 1), T)
+    gap = float(np.abs(probs - tf[:, prompt_len - 1:]).max())
+    check(gap <= 1e-4, f"path_gen: lockstep probabilities differ from "
+          f"output()'s by {gap}")
+    decode_ms = step_ms[chunks:]
+    row["greedy"] = {
+        "new_tokens": new, "wall_s": wall, "tokens_per_s": B * new / wall,
+        "decode_tokens_per_s": B * len(decode_ms) / (sum(decode_ms) / 1e3),
+        "step_ms_p50": float(np.median(decode_ms)),
+        "step_ms_p99": pct(decode_ms, 99),
+        "prefill_chunk_ms": step_ms[:chunks],
+        "teacher_forced_max_abs_err": gap,
+        "graph_counts": dict(net._graphs.stats["rnn_time_step"]),
+        "refused_past_cache": True, "launches": launches,
+        "launches_by_design": by_design}
+    # B5 held to its plain version at this path's shape: block 0's live
+    # caches, every row's query at the same (broadcast) position
+    carry = net._decode_state.carries[net.layers[2].name]["attn"]
+    ck, cv = carry["cache_k"], carry["cache_v"]
+    q = torch.randn((B, net.layers[2].num_heads, ck.shape[-1]),
+                    generator=torch.Generator().manual_seed(3)
+                    ).to(ck.device)
+    qpos = (carry["pos"] - 1).expand(B).contiguous()
+    with uncounted(ba):
+        o = ba.banded_decode_attention(q, ck, cv, qpos, qpos)
+        o_ref = ba.decode_attention_plain(q, ck, cv, qpos, qpos)
+    b5_err = float((o - o_ref).abs().max())
+    check(b5_err <= TOL[torch.float32][0],
+          f"path_gen: B5 at a broadcast position differs from its plain "
+          f"version by {b5_err}")
+    row["b5_broadcast_pos_max_abs_err"] = b5_err
+
+    # 2. nucleus
+    reset_all_counts()
+    t0 = time.perf_counter()
+    nuc = generate(net, prompts, nucleus_new, temperature=0.9, top_p=0.9,
+                   prefill_chunk=chunk, rng=np.random.default_rng(0))
+    nuc_wall = time.perf_counter() - t0
+    nuc_launches, _ = read_all_counts()
+    tf = teacher_forced(net, np.concatenate([prompts, nuc], 1), T)
+    above = max(nucleus_mass_above(tf[b, prompt_len - 1 + i], nuc[b, i],
+                                   0.9)
+                for b in range(B) for i in range(nucleus_new))
+    check(above < 0.9 + 1e-4, f"path_gen: a nucleus token lies outside "
+          f"its nucleus (mass above it {above})")
+    row["nucleus"] = {"new_tokens": nucleus_new, "wall_s": nuc_wall,
+                      "largest_mass_above_a_token": above,
+                      "distinct_tokens": int(len(np.unique(nuc))),
+                      "b5_launches": nuc_launches["banded_decode_attention"]}
+
+    # 3. beam search over 2 prompts
+    two = prompts[:2]
+    greedy2 = generate(net, two, beam_new, greedy=True, prefill_chunk=chunk)
+    w1 = beam_search(net, two, beam_new, beam_width=1, length_penalty=0.0,
+                     prefill_chunk=chunk)
+    check(np.array_equal(w1, greedy2),
+          "path_gen: beam width 1 differs from greedy")
+    rec = StepRecorder(net)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    beams = beam_search(net, two, beam_new, beam_width=4,
+                        length_penalty=0.0, prefill_chunk=chunk)
+    beam_wall = time.perf_counter() - t0
+    beam_launches, _ = read_all_counts()
+    rec.close()
+    calls, parents = beam_calls_and_parents(rec.events, chunks)
+    check(len(calls) == beam_new and len(parents) == beam_new,
+          f"path_gen: {len(calls)} beam calls, {len(parents)} selections")
+    got = lineage_probs(calls, parents, 4, beams)
+    window = slice(prompt_len - 1, prompt_len - 1 + beam_new)
+
+    def tf_probs(stream):
+        p = teacher_forced(net, np.concatenate([two, stream], 1), T)
+        return np.take_along_axis(p[:, window], stream[:, :, None],
+                                  axis=2)[..., 0]
+
+    want = tf_probs(beams)
+    lin = float(np.abs(got - want).max())
+    check(lin <= 1e-4, f"path_gen: the beam's probabilities along its "
+          f"lineage differ from output()'s by {lin}")
+    check(beam_launches["banded_decode_attention"]
+          == blocks * (beam_new - 1),
+          f"path_gen: B5 launched {beam_launches['banded_decode_attention']}"
+          f" times in the beam search, want {blocks} x {beam_new - 1}")
+    reorders = sum(1 for kind, _ in rec.events if kind == "reorder")
+    row["beam"] = {
+        "prompts": 2, "beam_width": 4, "new_tokens": beam_new,
+        "wall_s": beam_wall, "ms_per_token": beam_wall * 1e3 / beam_new,
+        "reorders": reorders, "lineage_max_abs_err": lin,
+        "width_1_equals_greedy": True,
+        "teacher_forced_logprob_beam": float(np.log(want).sum()),
+        "teacher_forced_logprob_greedy": float(np.log(
+            tf_probs(greedy2)).sum()),
+        "b5_launches": beam_launches["banded_decode_attention"]}
+
+    # 4. the 2-block stack as a ComputationGraph
+    small = build_net("cuda", num_blocks=2, seed=23, t=T)
+    g = graph_twin(small)
+    a = generate(small, prompts, graph_new, greedy=True, prefill_chunk=chunk)
+    b = generate(g, prompts, graph_new, greedy=True, prefill_chunk=chunk)
+    check(np.array_equal(a, b), "path_gen: the ComputationGraph's greedy "
+          "tokens differ from the sequential net's")
+    row["graph_equals_sequential_tokens"] = graph_new
+    del net, small, g
+    torch.cuda.empty_cache()
+
+    # 5. Path B's ring, past its length, against the CPU
+    ring = build_path_b_net("cuda")
+    rec = StepRecorder(ring)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    rtoks = generate(ring, prompts, ring_new, greedy=True,
+                     prefill_chunk=chunk)
+    ring_wall = time.perf_counter() - t0
+    ring_launches, ring_plain = read_all_counts()
+    ring_design = launches_by_design(ba)
+    rec.close()
+    check_design_2("path_gen ring", "banded_decode_attention",
+                   ring_launches, ring_design, ring_plain)
+    check(ring_launches["banded_decode_attention"] == 2 * (ring_new - 1),
+          f"path_gen: the ring's B5 launched "
+          f"{ring_launches['banded_decode_attention']} times, want 2 x "
+          f"{ring_new - 1}")
+    tail = torch.stack(rec.steps()[-64:], dim=1)[0].cpu().numpy()
+    cpu = build_path_b_net("cpu")
+    fed = np.concatenate([prompts[:1], rtoks[:1, :-1]], 1)
+    outs = [cpu.rnn_time_step(fed[:, s:s + chunk, None].astype(np.float32))
+            for s in range(0, fed.shape[1], chunk)]
+    ref = torch.cat(outs, dim=1)[0, -64:].numpy()
+    ring_gap = float(np.abs(tail - ref).max())
+    check(ring_gap <= 1e-4, f"path_gen: the ring's last 64 probabilities "
+          f"differ from the CPU's by {ring_gap}")
+    ring_ms = rec.step_ms()[chunks:]
+    row["ring"] = {"model": "Path B (RoPE, RMSNorm, SwiGLU, 2 KV heads, "
+                            "window 256, ring 2303, 2 blocks)",
+                   "new_tokens": ring_new, "positions": fed.shape[1],
+                   "wall_s": ring_wall,
+                   "step_ms_p50": float(np.median(ring_ms)),
+                   "decode_tokens_per_s": B * len(ring_ms)
+                   / (sum(ring_ms) / 1e3),
+                   "cpu_last_64_max_abs_err": ring_gap,
+                   "launches": ring_launches,
+                   "launches_by_design": ring_design}
+    del ring, cpu
+    torch.cuda.empty_cache()
+
+    # 6. TextGenerationLSTM as a ComputationGraph (B2b)
+    lstm = TextGenerationLSTM(input_shape=(200, 77), seed=9).init(
+        device="cuda")
+    lg = graph_twin(lstm)
+    eye = torch.eye(77, device="cuda")
+    tok = torch.as_tensor(rng.integers(0, 77, 32), device="cuda")
+    reset_all_counts()
+    lstm_gap = 0.0
+    for _ in range(lstm_calls):
+        a = lstm.rnn_time_step(eye[tok])
+        b = lg.rnn_time_step(eye[tok])
+        lstm_gap = max(lstm_gap, float((a - b).abs().max()))
+        tok = torch.argmax(a[:, -1, :], dim=-1)
+    lstm_launches, _ = read_all_counts()
+    check(lstm_gap <= 1e-5, f"path_gen: the LSTM graph's steps differ from "
+          f"the sequential net's by {lstm_gap}")
+    check(lstm_launches["lstm_fwd_inference"] == 2 * 2 * lstm_calls,
+          f"path_gen: B2b launched {lstm_launches['lstm_fwd_inference']} "
+          f"times, want 2 layers x 2 nets x {lstm_calls}")
+    row["lstm_graph"] = {"calls": lstm_calls, "streams": 32,
+                         "max_abs_err": lstm_gap,
+                         "b2b_launches": lstm_launches["lstm_fwd_inference"],
+                         "b2b_by_design": {
+                             d: launches_by_design(lk)[
+                                 f"lstm_fwd_inference/{d}"]
+                             for d in lk.DESIGNS}}
+    del lstm, lg
+    torch.cuda.empty_cache()
+    emit(row)
+    return row
+
+
+def path_ckpt(epochs=2, batch=8, t=2048, drop_t=512):
+    """Gradient checkpointing (A4): `path_t_bf16`'s model (6 blocks, T
+    2048, batch 8, bfloat16, Adam(3e-4)) trained 8 steps (4 batches x 2
+    epochs) without it, with it at K 1 and with it at K 4, each from the
+    same seeded weights on PyTorch's deterministic algorithms: losses
+    within 1e-3 relative and parameters within `train_parity_bf16`'s
+    rule of the plain run; B3a twelve times a step (the forward and the
+    backward's recompute), B3b and B3c six, all on design 2, B1a once;
+    the checkpointed peak memory below the plain one. Then a float32
+    2-block model with dropout 0.1 on its blocks, 2 steps checkpointed
+    against 2 plain: parameters within 1e-6 (the recompute replays the
+    forward's masks)."""
+    from deeplearning4j_tpu_torch.ops import attention as fa
+    from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
+
+    B, T, blocks = batch, t, 6
+    batches = lm_batches(np.random.default_rng(16), 4, B, T)
+    runs = {}
+    for tag, ckpt, k in (("plain", False, 1), ("ckpt", True, 1),
+                         ("ckpt_k4", True, 4)):
+        net = build_net("cuda", num_blocks=blocks, seed=5, t=T,
+                        dtype="bfloat16", gradient_checkpointing=ckpt)
+        with deterministic():
+            fit = timed_fit(f"path_ckpt {tag}", net, batches, epochs,
+                            B * T, k=k)
+        by_design = launches_by_design(fa)
+        steps = fit["steps"]
+        want = {"flash_attention_fwd": (2 if ckpt else 1) * blocks,
+                "flash_attention_bwd_dkdv": blocks,
+                "flash_attention_bwd_dq": blocks, "adam_update": 1}
+        for kernel, per_step in want.items():
+            check(fit["launches"][kernel] == per_step * steps,
+                  f"path_ckpt {tag}: {kernel} launched "
+                  f"{fit['launches'][kernel]} times, want {per_step} a "
+                  f"step x {steps}")
+            if kernel in FLASH_KERNELS:
+                check(by_design[f"{kernel}/wgmma"] == per_step * steps,
+                      f"path_ckpt {tag}: {kernel} not all on design 2: "
+                      f"{by_design}")
+        runs[tag] = (fit, [p.detach().float().cpu()
+                           for p in tree_leaves(net.params_tree)])
+        del net
+        torch.cuda.empty_cache()
+    rule = TRAIN_PARITY_BF16
+    base_fit, base = runs["plain"]
+    row = {"phase": "path_ckpt", "model": "TextGenerationTransformer",
+           "blocks": blocks, "T": T, "batch": B, "dtype": "bfloat16",
+           "steps": base_fit["steps"]}
+    for tag in ("ckpt", "ckpt_k4"):
+        fit, leaves = runs[tag]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(fit["losses"],
+                                                      base_fit["losses"]))
+        over = sum(int(((a - b).abs() > rule["tol_param"] + rule[
+            "rtol_param"] * torch.maximum(a.abs(), b.abs())).sum())
+            for a, b in zip(leaves, base))
+        dp = max((a - b).abs().max().item() for a, b in zip(leaves, base))
+        check(rel <= rule["tol_loss"], f"path_ckpt {tag}: losses differ "
+              f"from the plain run's by {rel} relative")
+        check(over == 0, f"path_ckpt {tag}: {over} parameters past the "
+              f"bf16 rule (largest gap {dp})")
+        check(fit["max_memory_allocated_bytes"]
+              < base_fit["max_memory_allocated_bytes"],
+              f"path_ckpt {tag}: peak memory "
+              f"{fit['max_memory_allocated_bytes']} not below the plain "
+              f"run's {base_fit['max_memory_allocated_bytes']}")
+        row[tag] = {"steps_per_dispatch": fit["steps_per_dispatch"],
+                    "loss_rel_err_vs_plain": rel,
+                    "max_param_abs_err_vs_plain": dp,
+                    "bit_equal_to_plain": dp == 0.0 and rel == 0.0,
+                    **{c: fit[c] for c in (
+                        "tokens_per_s_steps_5_12", "step_ms_p50",
+                        "max_memory_allocated_bytes", "graph_windows",
+                        "eager_steps", "launches")}}
+    row["plain"] = {c: base_fit[c] for c in (
+        "tokens_per_s_steps_5_12", "step_ms_p50",
+        "max_memory_allocated_bytes", "launches")}
+    row["launches"] = runs["ckpt"][0]["launches"]
+
+    # float32, dropout 0.1: checkpointed against plain
+    leaves = {}
+    drop_batches = lm_batches(np.random.default_rng(17), 2, 4, drop_t)
+    for ckpt in (False, True):
+        net = build_net("cuda", num_blocks=2, seed=7, t=drop_t,
+                        gradient_checkpointing=ckpt, dropout=0.1)
+        net.fit(drop_batches)
+        leaves[ckpt] = [p.detach().cpu()
+                        for p in tree_leaves(net.params_tree)]
+        del net
+    drop_gap = max((a - b).abs().max().item()
+                   for a, b in zip(leaves[True], leaves[False]))
+    check(drop_gap <= 1e-6, f"path_ckpt: with dropout, the checkpointed "
+          f"parameters differ from the plain ones by {drop_gap}")
+    row["dropout_float32_max_param_abs_err"] = drop_gap
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def seq2seq_conf(dtype, tq, tk, width=512, heads=8, classes=256,
+                 feats=64):
+    """`examples/seq2seq_cross_attention.py`'s graph at width: a
+    DenseLayer(width) on each branch, CrossAttentionVertex(heads, width)
+    (queries from the decoder, keys and values from the encoder),
+    RnnOutputLayer(classes); Adam(1e-2) and relu as the example has."""
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.graph import CrossAttentionVertex
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, RnnOutputLayer
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    return (NeuralNetConfiguration.builder().seed(0).updater(Adam(1e-2))
+            .activation("relu").dtype(dtype).graph_builder()
+            .add_inputs("dec", "enc")
+            .add_layer("enc_ff", DenseLayer(n_out=width), "enc")
+            .add_layer("dec_ff", DenseLayer(n_out=width), "dec")
+            .add_vertex("xattn", CrossAttentionVertex(num_heads=heads,
+                                                      n_out=width),
+                        "dec_ff", "enc_ff")
+            .add_layer("out", RnnOutputLayer(n_out=classes,
+                                             activation="softmax"), "xattn")
+            .set_outputs("out")
+            .set_input_types(InputType.recurrent(feats, tq),
+                             InputType.recurrent(feats, tk))
+            .build())
+
+
+def seq2seq_batches(rng, n, batch, tq, tk, feats=64, classes=256):
+    """`n` fixed MultiDataSets: standard-normal decoder [batch, tq,
+    feats] and encoder [batch, tk, feats] inputs, one-hot labels."""
+    from deeplearning4j_tpu_torch.data import MultiDataSet
+
+    eye = np.eye(classes, dtype=np.float32)
+    return [MultiDataSet(
+        [rng.standard_normal((batch, tq, feats)).astype(np.float32),
+         rng.standard_normal((batch, tk, feats)).astype(np.float32)],
+        [eye[rng.integers(0, classes, (batch, tq))]])
+        for _ in range(n)]
+
+
+def path_x(rng, epochs=2, batch=8, tq=2048, tk=1024, width=512):
+    """Cross-attention through MultiDataSet feeding (A4): the seq2seq
+    graph at width (Tq 2048, Tk 1024, batch 8) trained 8 Adam steps (4
+    MultiDataSets x 2 epochs) at K 1 and at K 4, in bfloat16 (B3a-c
+    non-causal at Tq != Tk on design 2) and float32 (design 1), each
+    kernel once a step and B1a once; K 4 against K 1; then the graph at
+    Tq 256, Tk 200 in float32, 2 steps on the card against the CPU."""
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import attention as fa
+    from deeplearning4j_tpu_torch.optim.listeners import (
+        CollectScoresIterationListener,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
+
+    B, TQ, TK = batch, tq, tk
+    batches = seq2seq_batches(rng, 4, B, TQ, TK)
+    row = {"phase": "path_x", "Tq": TQ, "Tk": TK, "batch": B,
+           "width": width, "heads": 8, "classes": 256}
+    for dtype, design in (("bfloat16", "wgmma"), ("float32", "ffma")):
+        runs = {}
+        for k in (1, 4):
+            net = ComputationGraph(seq2seq_conf(dtype, TQ, TK, width),
+                                   device="cuda").init()
+            with deterministic():
+                fit = timed_fit(f"path_x {dtype} K{k}", net, batches,
+                                epochs, B * TQ, k=k)
+            by_design = launches_by_design(fa)
+            for kernel in FLASH_KERNELS + ("adam_update",):
+                check(fit["launches"][kernel] == fit["steps"],
+                      f"path_x {dtype} K{k}: {kernel} launched "
+                      f"{fit['launches'][kernel]} times, want one a step")
+                if kernel in FLASH_KERNELS:
+                    check(by_design[f"{kernel}/{design}"] == fit["steps"],
+                          f"path_x {dtype}: {kernel} not all on {design}: "
+                          f"{by_design}")
+            runs[k] = (fit, [p.detach().float().cpu()
+                             for p in tree_leaves(net.params_tree)])
+            del net
+            torch.cuda.empty_cache()
+        (f1, l1), (f4, l4) = runs[1], runs[4]
+        k4_gap = max([abs(a - b) for a, b in zip(f1["losses"],
+                                                 f4["losses"])]
+                     + [(a - b).abs().max().item() for a, b in zip(l1, l4)])
+        check(f4["graph_windows"] == 1 and f4["eager_steps"] == 4,
+              f"path_x {dtype}: K 4 ran {f4['graph_windows']} graph "
+              f"windows, {f4['eager_steps']} eager steps")
+        row[dtype] = {
+            "design": design, "k4_vs_k1_max_abs": k4_gap,
+            **{f"k{k}": {c: f[c] for c in (
+                "tokens_per_s_steps_5_12", "step_ms_p50",
+                "max_memory_allocated_bytes", "epoch_mean_loss",
+                "graph_windows", "eager_steps", "launches")}
+               for k, (f, _) in runs.items()}}
+    row["launches"] = row["bfloat16"]["k1"]["launches"]
+
+    # the card against the CPU, float32, Tq 256, Tk 200 (a tail tile)
+    small = seq2seq_batches(np.random.default_rng(18), 1, 2, 256, 200)
+    losses = {}
+    for d in ("cuda", "cpu"):
+        net = ComputationGraph(seq2seq_conf("float32", 256, 200, width),
+                               device=d).init()
+        scores = CollectScoresIterationListener()
+        net.listeners.append(scores)
+        net.fit(small, epochs=2)
+        losses[d] = [s for _, s in scores.scores]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    check(rel <= 1e-5, f"path_x: card and CPU losses {losses} differ by "
+          f"{rel} relative")
+    row["cpu_parity"] = {"Tq": 256, "Tk": 200, "losses": losses,
+                         "loss_rel_err": rel}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3881,6 +4526,9 @@ def main() -> int:
             torch.cuda.empty_cache()
     run_b7_repeat(gen)
     run_flash_repeat(gen)
+    cross_gen = torch.Generator().manual_seed(16)
+    for c in cross_flash_cases():
+        rows += run_flash_case(c, flush, cross_gen)
     del flush
     torch.cuda.empty_cache()
 
@@ -3920,6 +4568,9 @@ def main() -> int:
     lenet_parity(rng)
     host_overhead()
     graph_parity(rng)
+    gen = path_gen(rng)
+    ckpt = path_ckpt()
+    xa = path_x(rng)
 
     b5q = {"banded_decode_attention_q":
            qb_fp8["launches"]["banded_decode_attention_q"]
@@ -3955,6 +4606,25 @@ def main() -> int:
             "library_ms": main_row["library_ms"]})
         if name == "paged_decode_attention":
             summary[-1]["launches_path_h"] = ph["launches"][name]
+        if name == "banded_decode_attention":
+            summary[-1].update(
+                launches_path_gen=gen["greedy"]["launches"][name],
+                launches_path_gen_nucleus=gen["nucleus"]["b5_launches"],
+                launches_path_gen_beam=gen["beam"]["b5_launches"],
+                launches_path_gen_ring=gen["ring"]["launches"][name])
+        if name == "lstm_fwd_inference":
+            summary[-1]["launches_path_gen"] = \
+                gen["lstm_graph"]["b2b_launches"]
+        if name in FLASH_KERNELS + ("adam_update",):
+            summary[-1]["launches_path_ckpt"] = ckpt["launches"][name]
+            summary[-1]["launches_path_x"] = xa["launches"][name]
+        at_x = [r for r in mine if r.get("path_x_shape")]
+        if at_x:
+            # path_x's cross-attention shape: non-causal, Tq 2048, Tk 1024
+            summary[-1]["path_x_shape"] = [{k: r[k] for k in (
+                "dtype", "tq", "tk", "design", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "bound_share",
+                "max_abs_err")} for r in at_x]
         if name in FLASH_KERNELS:
             summary[-1]["launches_path_h"] = ph["flash_launches"][name]
         at_s = [r for r in mine if r.get("path_s_shape")]

@@ -2,7 +2,8 @@
 `deeplearning4j_tpu/data/iterators.py`: the base protocol,
 `ArrayDataSetIterator`, `IterableDataSetIterator`, `as_iterator`, and
 `DevicePrefetchIterator`, which keeps `depth` batches' copies to the
-net's device in flight ahead of the step that consumes them.
+net's device in flight ahead of the step that consumes them. The last
+three carry `MultiDataSet` batches as well as `DataSet`s.
 
 On a CUDA device each copy is a `non_blocking` copy from pinned host
 memory on a side stream of the iterator's own, so the copy of batch N+1
@@ -19,7 +20,7 @@ from typing import Callable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.observe import get_registry
 
 
@@ -198,8 +199,7 @@ class DevicePrefetchIterator(DataSetIterator):
         if ev is not None:
             cur = torch.cuda.current_stream(self._device)
             cur.wait_event(ev)
-            for t in (item.features, item.labels, item.features_mask,
-                      item.labels_mask):
+            for t in _batch_tensors(item):
                 if isinstance(t, torch.Tensor) and t.is_cuda:
                     t.record_stream(cur)
         self._fill()      # enqueue the replacement copy right away
@@ -214,11 +214,22 @@ class DevicePrefetchIterator(DataSetIterator):
         return self._base.num_outcomes
 
 
+def _batch_tensors(ds) -> list:
+    """Every array of a DataSet or MultiDataSet (None where absent)."""
+    if isinstance(ds, MultiDataSet):
+        return [*ds.features, *ds.labels, *(ds.features_masks or ()),
+                *(ds.labels_masks or ())]
+    return [ds.features, ds.labels, ds.features_mask, ds.labels_mask]
+
+
 def as_iterator(data, labels=None, batch_size: int = 32) -> DataSetIterator:
-    """Coerce arrays / a DataSet / an iterable of DataSets / an iterator
-    into a DataSetIterator."""
+    """Coerce arrays / a DataSet / a MultiDataSet (one batch) / an
+    iterable of DataSets or MultiDataSets / an iterator into a
+    DataSetIterator."""
     if isinstance(data, DataSetIterator):
         return data
+    if isinstance(data, MultiDataSet):
+        return IterableDataSetIterator([data])
     if isinstance(data, DataSet):
         return ArrayDataSetIterator(data.features, data.labels, batch_size,
                                     data.features_mask, data.labels_mask)

@@ -20,10 +20,16 @@ vertex state, copied into the stored tensors after every step, and
 `fit(steps_per_dispatch=K)` runs K steps as one CUDA graph on the card,
 as `MultiLayerNetwork`'s does.
 
-Not ported yet, and refused by `fit` rather than ignored: truncated BPTT
-and `rnn_time_step` (ROADMAP A3), the full-batch solvers and `pretrain`
-(A1), the recovery arguments (A6) and gradient checkpointing (A4).
-Batches are `DataSet`s: one network input and one output.
+Batches are `DataSet`s (the first network input and output) or
+`MultiDataSet`s (every input and output, by position). `rnn_time_step`
+steps recurrent and attention vertices alike, as the sequential
+runtime's does (lockstep KV caches, one graph replay a call), for
+`utils/textgen`'s `generate` and `beam_search` too; gradient
+checkpointing recomputes each layer vertex in the backward.
+
+Not ported yet, and refused rather than ignored: truncated BPTT (ROADMAP
+A3), the full-batch solvers and `pretrain` (A1) and the recovery
+arguments (A6).
 """
 
 from __future__ import annotations
@@ -34,13 +40,16 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.data.iterators import (
     DevicePrefetchIterator, as_iterator,
 )
+from deeplearning4j_tpu_torch.models.decode_state import DecodeState
 from deeplearning4j_tpu_torch.models.multilayer import (
-    _DTYPES, MultiLayerNetwork, _argmax_i32, _as_tensor, _copy_states,
-    _grad_and_update, _host, _refuse, _to_device, _updater_groups,
+    _DTYPES, MultiLayerNetwork, _argmax_i32, _as_tensor, _check_decode_budget,
+    _checkpointed, _copy_states, _grad_and_update, _host, _is_recurrent,
+    _refuse, _reorder_carries, _stateful_step, _to_device, _updater_groups,
+    _validate_causal_decode,
 )
 from deeplearning4j_tpu_torch.nn.graph import (
     ComputationGraphConfiguration, LayerVertex, resolve_output_type,
@@ -79,6 +88,7 @@ class ComputationGraph:
         self.cuda_graphs = True
         self._graphs = NetGraphs(self.device)
         self.fit_stats = {"graph_windows": 0, "eager_steps": 0}
+        self._decode_state = DecodeState()
 
     @property
     def score_(self) -> Optional[float]:
@@ -141,24 +151,53 @@ class ComputationGraph:
     def _is_output(self, v) -> bool:
         return isinstance(v, LayerVertex) and v.layer.is_output_layer
 
+    @property
+    def _rnn_vertex_names(self) -> List[str]:
+        """Vertices that carry RNN state (`rnn_time_step`)."""
+        return [n for n, v in self.conf.vertices.items()
+                if isinstance(v, LayerVertex) and _is_recurrent(v.layer)]
+
+    @property
+    def _decode_vertex_names(self) -> List[str]:
+        """Vertices with KV-cache decode carries (attention stepping)."""
+        return [n for n, v in self.conf.vertices.items()
+                if isinstance(v, LayerVertex)
+                and hasattr(v.layer, "decode_carry")]
+
     def _forward(self, params, states, inputs: Dict[str, Any], *,
                  train: bool, rng=None, fmasks=None,
-                 scoring: bool = False):
+                 scoring: bool = False, carries=None):
         """Fold over the topological order. Returns (values, out_inputs,
         new_states): `out_inputs[name]` is the input each output layer
         saw (after its preprocessor), which its fused loss scores. With
-        `scoring` the output layers themselves are not applied."""
+        `scoring` the output layers themselves are not applied. A
+        vertex's state is its entry in `carries` (stepping carries), else
+        in `states`. A vertex gets the mask of its first input that has
+        one, or, with `key_mask_input` (`CrossAttentionVertex`), only the
+        named network input's. Under `gradient_checkpointing` every
+        layer vertex but an output layer is checkpointed in training
+        (`_checkpointed`); parameterless vertices are not wrapped."""
         values: Dict[str, Any] = dict(inputs)
         out_inputs: Dict[str, Any] = {}
         new_states: Dict[str, Any] = {}
+        ckpt = train and self.conf.gradient_checkpointing
         for name in self.conf.topological_order:
             v = self.conf.vertices[name]
             ins = [values[i] for i in self.conf.vertex_inputs[name]]
             st = states.get(name) or None
+            if carries is not None and name in carries:
+                st = carries[name]
             mask = None
             if fmasks:
-                mask = next((fmasks[i] for i in self.conf.vertex_inputs[name]
-                             if i in fmasks), None)
+                pref = getattr(v, "key_mask_input", None)
+                if pref is not None:
+                    # the named input's mask only: another stream's mask
+                    # would be taken for a key mask
+                    mask = fmasks.get(pref)
+                else:
+                    mask = next((fmasks[i]
+                                 for i in self.conf.vertex_inputs[name]
+                                 if i in fmasks), None)
             if self._is_output(v):
                 x = ins[0]
                 if v.preprocessor is not None:
@@ -169,6 +208,9 @@ class ComputationGraph:
                     continue
                 y, new_st = v.layer.apply(params[name], x, state=st,
                                           train=train, rng=rng, mask=mask)
+            elif ckpt and isinstance(v, LayerVertex):
+                y, new_st = _checkpointed(v.apply, params[name], ins, st,
+                                          rng, mask)
             else:
                 y, new_st = v.apply(params[name], ins, state=st, train=train,
                                     rng=rng, mask=mask)
@@ -227,22 +269,41 @@ class ComputationGraph:
         return step_fn
 
     # ---------------------------------------------------- data plumbing
-    def _put_batch(self, ds: DataSet) -> DataSet:
-        """A batch on the net's device: features and masks in the net's
-        dtype, floating labels as float32, integer labels as int64."""
+    def _put_batch(self, ds):
+        """A DataSet or MultiDataSet on the net's device: features and
+        masks in the net's dtype, floating labels as float32, integer
+        labels as int64."""
         dev = self.device
-        return DataSet(_to_device(ds.features, self.dtype, dev),
-                       _to_device(ds.labels, None, dev),
-                       _to_device(ds.features_mask, self.dtype, dev),
-                       _to_device(ds.labels_mask, self.dtype, dev))
 
-    def _to_dicts(self, ds: DataSet):
-        """A DataSet onto the first network input and output by name:
-        (features, labels, feature masks, label masks)."""
+        def put(a, dtype):
+            return _to_device(a, dtype, dev)
+
+        if isinstance(ds, MultiDataSet):
+            def each(xs, dtype):
+                return None if xs is None else [put(a, dtype) for a in xs]
+
+            return MultiDataSet(each(ds.features, self.dtype),
+                                each(ds.labels, None),
+                                each(ds.features_masks, self.dtype),
+                                each(ds.labels_masks, self.dtype))
+        return DataSet(put(ds.features, self.dtype), put(ds.labels, None),
+                       put(ds.features_mask, self.dtype),
+                       put(ds.labels_mask, self.dtype))
+
+    def _to_dicts(self, ds):
+        """A batch onto the network inputs and outputs by name:
+        (features, labels, feature masks, label masks). A MultiDataSet
+        maps by position; a DataSet feeds the first input and output
+        (a graph with more inputs then lacks one, as in JAX)."""
         ins, outs = self.conf.network_inputs, self.conf.network_outputs
-        if len(ins) != 1 or len(outs) != 1:
-            _refuse(f"feeding a graph of {len(ins)} inputs and {len(outs)} "
-                    f"outputs (MultiDataSet)", "A1")
+        if isinstance(ds, MultiDataSet):
+            def named(names, xs):
+                return {n: a for n, a in zip(names, xs or ())
+                        if a is not None} or None
+
+            return (dict(zip(ins, ds.features)), dict(zip(outs, ds.labels)),
+                    named(ins, ds.features_masks),
+                    named(outs, ds.labels_masks))
         feats = {ins[0]: ds.features}
         labs = {outs[0]: ds.labels} if ds.labels is not None else {}
         fmasks = ({ins[0]: ds.features_mask}
@@ -274,9 +335,10 @@ class ComputationGraph:
         keeps max(2, K) batches' copies to the card in flight on a side
         stream. ``steps_per_dispatch=K`` runs K same-shape batches as one
         dispatch, a CUDA graph of K train steps on the card, as
-        `MultiLayerNetwork.fit`. Refused rather than ignored, until
-        ported: truncated BPTT, the recovery arguments, gradient
-        checkpointing and non-SGD solvers."""
+        `MultiLayerNetwork.fit`. A MultiDataSet (or an iterable of them)
+        feeds every input and output. Refused rather than ignored, until
+        ported: truncated BPTT, the recovery arguments and non-SGD
+        solvers."""
         self._check_init()
         if self.conf.tbptt_fwd_length > 0:
             _refuse("truncated BPTT of a ComputationGraph", "A3")
@@ -284,8 +346,6 @@ class ComputationGraph:
                 stop_fn is not None or preemption:
             _refuse("checkpointed, resumable or stoppable fit "
                     "(optim/recovery.py)", "A6")
-        if self.conf.gradient_checkpointing:
-            _refuse("gradient checkpointing (rematerialization)", "A4")
         if self.conf.optimization_algo != "stochastic_gradient_descent":
             _refuse(f"solver {self.conf.optimization_algo!r} "
                     f"(optim/solvers.py)", "A1")
@@ -309,30 +369,32 @@ class ComputationGraph:
     _generators = MultiLayerNetwork._generators
     _fused_dispatch = MultiLayerNetwork._fused_dispatch
 
-    def _on_device(self, ds: DataSet) -> DataSet:
-        if not isinstance(ds.features, torch.Tensor) or \
-                ds.features.device != self.device:
+    def _on_device(self, ds):
+        first = ds.features[0] if isinstance(ds, MultiDataSet) \
+            else ds.features
+        if not isinstance(first, torch.Tensor) or first.device != self.device:
             ds = self._put_batch(ds)
         self.last_batch_size = ds.num_examples()
         return ds
 
-    def _check_batch(self, ds: DataSet) -> None:
+    def _check_batch(self, ds) -> None:
         self._check_inputs(self._to_dicts(ds)[0])
 
-    def _fit_batch(self, ds: DataSet):
+    def _fit_batch(self, ds):
         """One train step on one batch; returns the device loss."""
         ds = self._on_device(ds)
         self._check_batch(ds)
         self.fit_stats["eager_steps"] += 1
-        return self._train_step(ds.features, ds.labels, ds.features_mask,
-                                ds.labels_mask)
+        return self._train_step(*self._batch_fields(ds))
 
-    def _train_step(self, features, labels, fmask, lmask):
+    def _batch_fields(self, ds) -> tuple:
+        """A batch as `_train_step`'s arguments: dicts by name."""
+        return self._to_dicts(ds)
+
+    def _train_step(self, feats, labs, fmasks, lmasks):
         """The train step over the net's own trees, all in place (the
         new running statistics copied into `state_tree`, the step
         counter advanced where it lies). Returns the device loss."""
-        feats, labs, fmasks, lmasks = self._to_dicts(
-            DataSet(features, labels, fmask, lmask))
         _, _, persist, loss = self.make_step_fn()(
             self.params_tree, self.updater_state, self.state_tree,
             self._step_t, feats, labs, fmasks, lmasks, self._rng)
@@ -340,14 +402,75 @@ class ComputationGraph:
         self._step_t.add_(1)
         return loss
 
-    def _can_fuse(self, ds: DataSet) -> bool:
+    def _can_fuse(self, ds) -> bool:
         return self.conf.optimization_algo == "stochastic_gradient_descent"
 
     def pretrain(self, *args, **kwargs):
         _refuse("layerwise pretraining of a ComputationGraph", "A1")
 
+    # ------------------------------------------------ stateful stepping
+    @torch.no_grad()
     def rnn_time_step(self, *xs):
-        _refuse("rnn_time_step of a ComputationGraph", "A3")
+        """Stateful inference, one array per network input ([B, T, F],
+        or [B, F] for one step); the carries of recurrent and attention
+        vertices persist across calls (reference: `rnnTimeStep`), as in
+        `MultiLayerNetwork.rnn_time_step`: attention vertices are
+        validated (causal only) and seeded with lockstep carries on the
+        first call, and when every input steps by the same T the
+        host-side budget guards the step and the decode position
+        advances after it. One graph replay a call on the card
+        (`_stateful_step`). Returns one tensor per network output (a
+        single tensor for one output)."""
+        self._check_init()
+        inputs = {}
+        for n, x in zip(self.conf.network_inputs, xs):
+            x = _as_tensor(x, self.dtype, self.device)
+            inputs[n] = x[:, None, :] if x.ndim == 2 else x
+        decode = [(n, self.conf.vertices[n].layer)
+                  for n in self._decode_vertex_names]
+        names = self._rnn_vertex_names + [n for n, _ in decode]
+        st = self._decode_state
+        with st.lock():
+            t_step = None
+            if decode:
+                # a graph whose inputs step by different lengths (a whole
+                # encoder context beside one decoder token) has no single
+                # position: the NaN poison is its only overflow signal
+                lens = {v.shape[1] for v in inputs.values() if v.ndim >= 3}
+                if len(lens) == 1:
+                    t_step = lens.pop()
+                    _check_decode_budget(st.pos, [l for _, l in decode],
+                                         t_step)
+            if not st.carries and decode:
+                _validate_causal_decode(decode, kind="vertex")
+                batch = next(iter(inputs.values())).shape[0]
+                st.seed({n: l.decode_carry(batch, self.dtype,
+                                           device=self.device)
+                         for n, l in decode})
+            order = list(inputs)
+
+            def fwd(xs_, c):
+                values, _, new_states = self._forward(
+                    self.params_tree, self.state_tree, dict(zip(order, xs_)),
+                    train=False, carries=c)
+                return ([values[o] for o in self.conf.network_outputs],
+                        {n: new_states[n] for n in names})
+
+            outs, new = _stateful_step(self, fwd, tuple(inputs.values()),
+                                       st.carries or None)
+            st.update(new, advance=t_step or 0)
+        return outs[0] if len(outs) == 1 else outs
+
+    def rnn_clear_previous_state(self) -> None:
+        """Drop the carries and the decode position (reference:
+        `rnnClearPreviousState`)."""
+        self._decode_state.clear()
+
+    def rnn_reorder_state(self, idx) -> None:
+        """Reorder (or expand) the stepping carries along the batch
+        dimension, as `MultiLayerNetwork.rnn_reorder_state`."""
+        self._decode_state.reorder(
+            lambda c: _reorder_carries(c, idx, self.device))
 
     # -------------------------------------------------------- inference
     @torch.no_grad()
@@ -366,10 +489,10 @@ class ComputationGraph:
 
     @torch.no_grad()
     def score(self, data, labels=None) -> float:
-        """Mean loss (scores + regularization) on one batch, running
-        statistics, no dropout."""
+        """Mean loss (scores + regularization) on one batch (a DataSet, a
+        MultiDataSet, or arrays), running statistics, no dropout."""
         self._check_init()
-        ds = data if isinstance(data, DataSet) else DataSet(
+        ds = data if isinstance(data, (DataSet, MultiDataSet)) else DataSet(
             np.asarray(data), np.asarray(labels))
         feats, labs, fmasks, lmasks = self._to_dicts(self._put_batch(ds))
         loss, _ = self._loss(self.params_tree, self.state_tree, feats, labs,

@@ -1,9 +1,10 @@
 """MultiLayerNetwork — the sequential-stack runtime of the PyTorch port
 (port of `deeplearning4j_tpu/models/multilayer.py`): inference, the
-slot-indexed serving sessions, stateful stepping of recurrent stacks
-(`rnn_time_step`), training (`init` with updaters, `make_step_fn`,
-`fit` with truncated BPTT, `score`) and evaluation (`predict`,
-`evaluate*`: the argmax on the device, class indices to the host).
+slot-indexed serving sessions, stateful stepping (`rnn_time_step`) of
+recurrent and attention stacks (lockstep KV caches), training (`init`
+with updaters, `make_step_fn`, `fit` with truncated BPTT and gradient
+checkpointing, `score`) and evaluation (`predict`, `evaluate*`: the
+argmax on the device, class indices to the host).
 
 Parameters are a dict of per-layer tensor dicts (nested for the
 bidirectional wrappers) keyed exactly like the JAX `params_tree`, so `models.convert.params_from_numpy` loads a JAX
@@ -44,6 +45,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.data.iterators import (
@@ -55,6 +57,8 @@ from deeplearning4j_tpu_torch.nn.layers import (
     BaseRecurrentLayer, Bidirectional, EmbeddingSequenceLayer,
     GravesBidirectionalLSTM, Layer,
 )
+from deeplearning4j_tpu_torch.nn.layers.attention import new_kv_cache
+from deeplearning4j_tpu_torch.nn.layers.base import RngTape
 from deeplearning4j_tpu_torch.optim.executor import (
     LossTracker, TrainingExecutor,
 )
@@ -87,6 +91,109 @@ def _decode_limit(decode_layers) -> Optional[int]:
         if ml is not None:
             limits.append(ml)
     return min(limits) if limits else None
+
+
+def _check_decode_budget(pos0: int, decode_layers, t_step: int) -> None:
+    """The host-side decode-length guard of `rnn_time_step`: raises
+    before a step that would run past the smallest cache/position limit,
+    from the decode position the net keeps on the host (`DecodeState`),
+    so a graphed step never reads one. The caller advances it only
+    after a step that succeeded."""
+    limit = _decode_limit(decode_layers)
+    if limit is not None and pos0 + t_step > limit:
+        raise ValueError(
+            f"decode position {pos0} + step {t_step} exceeds the "
+            f"smallest cache/position limit {limit}; raise "
+            f"max_cache/max_length or rnn_clear_previous_state()")
+
+
+def _validate_causal_decode(named_layers, kind: str = "layer") -> None:
+    """Validate every (name, layer) before seeding any carry: a raise
+    midway would leave partial carries behind and disarm the budget
+    guard."""
+    for name, l in named_layers:
+        if not getattr(l, "causal", True):
+            raise ValueError(
+                f"rnn_time_step requires causal attention; {kind} {name!r} is "
+                f"non-causal (stepped decoding cannot see future tokens, "
+                f"so it cannot reproduce a bidirectional forward)")
+
+
+def _checkpointed(apply_fn, params, x, st, rng, mask):
+    """One layer (or vertex) apply of the train path under gradient
+    checkpointing (`torch.utils.checkpoint`, non-reentrant): its
+    activations are recomputed in the backward instead of stored. The
+    recompute replays the forward's dropout draws from an `RngTape`, so
+    a checkpointed step equals the plain one bit for bit. Shared by
+    `MultiLayerNetwork` and `ComputationGraph`, as JAX's `_checkpointed`
+    is."""
+    tape = None if rng is None else RngTape(rng)
+
+    def run(p, inp):
+        if tape is not None:
+            tape.start()
+        return apply_fn(p, inp, state=st, train=True, rng=tape, mask=mask)
+
+    return torch.utils.checkpoint.checkpoint(
+        run, params, x, use_reentrant=False, preserve_rng_state=False)
+
+
+def _stateful_step(net, fwd, xs: tuple, carries):
+    """One `rnn_time_step` call of either runtime: `fwd(xs, carries) ->
+    (out, new carries)`, as one graph replay per (inputs' layout,
+    carries present) on the card (`utils/cuda_graphs`). The KV caches
+    are written in place where they lie (the graph is keyed by their
+    addresses), and the other carry leaves (positions, recurrent h/c)
+    live in the graph's static buffers, which the step writes back in
+    place: the returned carries hold the caches and those buffers, so
+    the next call copies nothing. With `cuda_graphs` off, `fwd` runs
+    eagerly."""
+    if not net.cuda_graphs:
+        return fwd(xs, carries)
+    leaves = sorted(_carry_leaves(carries or {}), key=lambda pa: pa[0])
+    small = [(path, a) for path, a in leaves
+             if path[-1] not in ("cache_k", "cache_v")]
+    in_place = tuple(a.data_ptr() for path, a in leaves
+                     if path[-1] in ("cache_k", "cache_v"))
+
+    def step(xs_, small_):
+        c = None if carries is None else _with_leaves(
+            carries, dict(zip((p for p, _ in small), small_)))
+        out, new = fwd(xs_, c)
+        if c is None:
+            return out, new
+        _copy_states(c, new)       # written back in place
+        return out, None
+
+    out, new = net._graphs.run(
+        ("rnn_time_step", carries is not None), step,
+        (xs, tuple(a for _, a in small)),
+        addresses=in_place + tuple(
+            t.data_ptr() for t in tree_leaves(net.params_tree)))
+    if new is None:
+        static = net._graphs.inputs(net._graphs.last_key)[1]
+        new = _with_leaves(carries, dict(zip((p for p, _ in small),
+                                             static)))
+    return out, new
+
+
+def _reorder_carries(carries, idx, device):
+    """Beam reselection over the stepping carries: gather each batch-
+    leading leaf's rows to `idx` (0-d positions pass through). A
+    reorder that keeps the batch gathers in place (a graph keyed by
+    the caches' addresses replays over them); one that expands it
+    builds new tensors, caches with their drop row (`new_kv_cache`)."""
+    ix = torch.as_tensor(np.asarray(idx), dtype=torch.int64, device=device)
+
+    def gather(a):
+        if a.ndim < 1:
+            return a
+        if a.shape[0] == ix.shape[0]:
+            return a.copy_(a[ix])
+        out = new_kv_cache((ix.shape[0], *a.shape[1:]), a.dtype, a.device)
+        return torch.index_select(a, 0, ix, out=out)
+
+    return tree_map(gather, carries)
 
 
 def _as_tensor(x, dtype, device) -> torch.Tensor:
@@ -236,12 +343,29 @@ def _copy_states(states: dict, new: dict) -> None:
             old.copy_(nxt)
 
 
-def _field_lists(batches):
-    """The batches' features, labels and masks, one list of K tensors a
-    field (None for a field the batches lack)."""
-    return [None if getattr(batches[0], f) is None
-            else [getattr(b, f) for b in batches]
-            for f in ("features", "labels", "features_mask", "labels_mask")]
+def _field_lists(fields):
+    """K batches' fields (each batch a tuple: tensors, dicts of tensors
+    by input or output name, or None) as one entry a field: a list of K
+    tensors, a dict of such lists, or None for a field the batches
+    lack."""
+    out = []
+    for i, f0 in enumerate(fields[0]):
+        if f0 is None:
+            out.append(None)
+        elif isinstance(f0, dict):
+            out.append({k: [f[i][k] for f in fields] for k in f0})
+        else:
+            out.append([f[i] for f in fields])
+    return out
+
+
+def _field_at(a, j):
+    """Step j's slice of a stacked field (`_field_lists`' layout)."""
+    if a is None:
+        return None
+    if isinstance(a, dict):
+        return {k: v[j] for k, v in a.items()}
+    return a[j]
 
 
 def _carry_leaves(tree, path=()):
@@ -383,10 +507,13 @@ class MultiLayerNetwork:
         layer's state is its entry in `carries` (recurrent carries), else
         in `states` (`state_tree` by default: batch-norm running
         statistics). Dropout draws from the generator `rng` when
-        `train`."""
+        `train`. Under `gradient_checkpointing` every layer but the
+        output layer is checkpointed in training (`_checkpointed`); the
+        output layer's input is kept for the loss anyway."""
         new_states = {}
         pps = self.conf.preprocessors
         states = self.state_tree if states is None else states
+        n = len(self.layers)
         for i, layer in enumerate(self.layers[:stop]):
             if i in pps:
                 x = pps[i].apply(x, fmask)
@@ -394,8 +521,13 @@ class MultiLayerNetwork:
                 st = carries[layer.name]
             else:
                 st = states.get(layer.name) or None
-            x, new_st = layer.apply(params[layer.name], x, state=st,
-                                    train=train, rng=rng, mask=fmask)
+            if train and self.conf.gradient_checkpointing and not (
+                    layer.is_output_layer and i == n - 1):
+                x, new_st = _checkpointed(layer.apply, params[layer.name],
+                                          x, st, rng, fmask)
+            else:
+                x, new_st = layer.apply(params[layer.name], x, state=st,
+                                        train=train, rng=rng, mask=fmask)
             new_states[layer.name] = new_st
         return x, new_states
 
@@ -478,16 +610,16 @@ class MultiLayerNetwork:
         With ``conf.tbptt_fwd_length > 0`` a 3-D batch trains by
         truncated BPTT (`_fit_tbptt`).
 
+        ``conf.gradient_checkpointing`` recomputes each layer's
+        activations in the backward (`_checkpointed`).
+
         Refused rather than ignored, until ported: ``checkpointer``,
-        ``resume``, ``stop_fn``, ``preemption``, gradient checkpointing
-        and non-SGD solvers."""
+        ``resume``, ``stop_fn``, ``preemption`` and non-SGD solvers."""
         self._check_init()
         if checkpointer is not None or resume is not None or \
                 stop_fn is not None or preemption:
             _refuse("checkpointed, resumable or stoppable fit "
                     "(optim/recovery.py)", "A6")
-        if self.conf.gradient_checkpointing:
-            _refuse("gradient checkpointing (rematerialization)", "A4")
         if self.conf.optimization_algo != "stochastic_gradient_descent":
             _refuse(f"solver {self.conf.optimization_algo!r} "
                     f"(optim/solvers.py)", "A1")
@@ -573,8 +705,12 @@ class MultiLayerNetwork:
         ds = self._on_device(ds)
         self._check_batch(ds)
         self.fit_stats["eager_steps"] += 1
-        return self._train_step(ds.features, ds.labels, ds.features_mask,
-                                ds.labels_mask)
+        return self._train_step(*self._batch_fields(ds))
+
+    @staticmethod
+    def _batch_fields(ds: DataSet) -> tuple:
+        """A batch as `_train_step`'s arguments."""
+        return ds.features, ds.labels, ds.features_mask, ds.labels_mask
 
     def _train_step(self, features, labels, fmask, lmask):
         """The train step over the net's own trees, all in place: the
@@ -609,15 +745,14 @@ class MultiLayerNetwork:
         if not self.cuda_graphs:
             return torch.stack([self._fit_batch(b) for b in batches])
 
-        def k_steps(feats, labs, fms, lms):
-            def at(a, j):
-                return None if a is None else a[j]
+        def k_steps(*stacked):
             return torch.stack([
-                self._train_step(feats[j], at(labs, j), at(fms, j),
-                                 at(lms, j)) for j in range(k)])
+                self._train_step(*(_field_at(a, j) for a in stacked))
+                for j in range(k)])
 
         losses = self._graphs.run(
-            ("fit", k), k_steps, _field_lists(batches),
+            ("fit", k), k_steps,
+            _field_lists([self._batch_fields(b) for b in batches]),
             addresses=self._state_addresses(),
             generators=self._generators())
         if self._graphs.replayed:
@@ -767,77 +902,59 @@ class MultiLayerNetwork:
 
     @torch.no_grad()
     def rnn_time_step(self, x) -> torch.Tensor:
-        """Stateful inference over one or more timesteps; the recurrent
-        carries persist across calls (reference: `rnnTimeStep`). `x` is
-        [B, T, F], or [B, F] for one step. The whole read-step-write runs
-        under the decode-state lock, and the carries are replaced only
-        after a step that succeeded. Stacks with attention layers are
-        refused: their lockstep KV-cache stepping is not ported yet
-        (serving steps them through `session_step`).
+        """Stateful inference over one or more timesteps; the carries
+        persist across calls (reference: `rnnTimeStep`). `x` is
+        [B, T, F], or [B, F] for one step. Attention stacks step the same
+        way: on the first call every layer with `decode_carry` is
+        validated (causal attention only), then seeded with a lockstep
+        carry (a KV cache and a 0-d position), so a transformer
+        generates token by token without re-running its prefix. Before
+        each step the host-side budget (`_check_decode_budget`) refuses
+        one that would run past the smallest cache or position limit;
+        the decode position advances only after a step that succeeded.
+        The whole read-step-write runs under the decode-state lock.
 
         One graph per (x's shape and dtype, carries present), as JAX
-        jits one program per pair (`utils/cuda_graphs`): once carries
-        exist they live in that graph's static buffers, which the graph
-        reads and writes back in place."""
+        jits one program per pair (`_stateful_step`)."""
         self._check_init()
-        if self._decode_layer_names:
-            _refuse("rnn_time_step over attention layers (lockstep KV-cache "
-                    "decode carries)", "A4")
         x = _as_tensor(x, self.dtype, self.device)
         if x.ndim == 2:
             x = x[:, None, :]
         self._check_input(x, any_length=True)
+        decode = [l for l in self.layers if hasattr(l, "decode_carry")]
+        names = self._rnn_layer_names + [l.name for l in decode]
         st = self._decode_state
-        names = self._rnn_layer_names
         with st.lock():
-            carries = st.carries or None
-            if not self.cuda_graphs:
-                out, new_states = self._forward(self.params_tree, x,
-                                                carries=carries)
-                st.update({n: new_states[n] for n in names})
-                return out
+            if not st.carries and decode:
+                _validate_causal_decode((l.name, l) for l in decode)
+                st.seed({l.name: l.decode_carry(x.shape[0], self.dtype,
+                                                device=self.device)
+                         for l in decode})
+            if decode:
+                _check_decode_budget(st.pos, decode, x.shape[1])
 
-            def step(xs, c):
-                out, new_states = self._forward(self.params_tree, xs,
+            def fwd(xs, c):
+                out, new_states = self._forward(self.params_tree, xs[0],
                                                 carries=c)
-                new = {n: new_states[n] for n in names}
-                if c is None:
-                    return out, new
-                _copy_states(c, new)       # written back in place
-                return out, None
+                return out, {n: new_states[n] for n in names}
 
-            key = ("rnn_time_step", carries is not None)
-            out, new = self._graphs.run(
-                key, step, (x, carries),
-                addresses=tuple(t.data_ptr()
-                                for t in tree_leaves(self.params_tree)))
-            if new is None:
-                new = self._graphs.inputs(self._graphs.last_key)[1]
-            st.update(new)
+            out, new = _stateful_step(self, fwd, (x,), st.carries or None)
+            # advance only after a successful step
+            st.update(new, advance=x.shape[1] if decode else 0)
         return out
 
     def rnn_clear_previous_state(self) -> None:
-        """Drop the carries: the next call starts from zeros (the
-        no-carry graph)."""
+        """Drop the carries and the decode position: the next call
+        starts from zeros."""
         self._decode_state.clear()
 
     def rnn_reorder_state(self, idx) -> None:
         """Reorder (or expand) the stepping carries along the batch
-        dimension (a beam search gathers each beam's h/c rows to follow
-        its parent). Every carry leaf is batch-leading. A reorder that
-        keeps the batch gathers in place, into the graph's static
-        buffers."""
-        ix = torch.as_tensor(np.asarray(idx), dtype=torch.int64,
-                             device=self.device)
-
-        def gather(a):
-            if a.ndim < 1:
-                return a
-            if a.shape[0] == ix.shape[0]:
-                return a.copy_(a[ix])
-            return a[ix]
-
-        self._decode_state.reorder(lambda carries: tree_map(gather, carries))
+        dimension: a beam search gathers each beam's KV cache and h/c
+        rows to follow its parent (`_reorder_carries`). Every carry leaf
+        but a 0-d position is batch-leading."""
+        self._decode_state.reorder(
+            lambda c: _reorder_carries(c, idx, self.device))
 
     # ------------------------------------------- slot-indexed sessions
     @property

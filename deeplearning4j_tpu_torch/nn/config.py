@@ -105,6 +105,7 @@ class Builder:
         self._dtype = "float32"
         self._grad_norm = "none"
         self._grad_norm_threshold = 1.0
+        self._grad_ckpt = False
 
     def seed(self, s: int) -> "Builder":
         self._seed = int(s)
@@ -146,6 +147,13 @@ class Builder:
                                threshold: float = 1.0) -> "Builder":
         self._grad_norm = mode
         self._grad_norm_threshold = threshold
+        return self
+
+    def gradient_checkpointing(self, v: bool = True) -> "Builder":
+        """Recompute layer activations in the backward pass
+        (`torch.utils.checkpoint` a layer or layer vertex): memory for
+        operations."""
+        self._grad_ckpt = v
         return self
 
     def list(self, *layers: Layer) -> "ListBuilder":
@@ -237,6 +245,7 @@ class ListBuilder:
             updater=defaults["updater"], dtype=self._base._dtype,
             gradient_normalization=self._base._grad_norm,
             gradient_normalization_threshold=self._base._grad_norm_threshold,
+            gradient_checkpointing=self._base._grad_ckpt,
             tbptt_fwd_length=self._tbptt_fwd,
             tbptt_back_length=self._tbptt_back)
 

@@ -6,14 +6,14 @@ two packages).
 The DAG is data: named vertices and their input names. The topological
 order is computed once at build() and the runtime
 (`models/computation_graph.py`) folds over it. Not ported yet:
-`CrossAttentionVertex` and `LastTimeStepVertex` (ROADMAP A3/A4) and
-`DuplicateToTimeSeriesVertex`; a configuration holding one is refused
-when it is read.
+`LastTimeStepVertex` and `DuplicateToTimeSeriesVertex` (ROADMAP A3); a
+configuration holding one is refused when it is read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -297,6 +297,98 @@ class LayerVertex(GraphVertex):
 
 @register_serde
 @dataclasses.dataclass(frozen=True)
+class CrossAttentionVertex(GraphVertex):
+    """Cross-attention: queries from inputs[0], keys and values from
+    inputs[1] (the encoder-decoder attention pattern), non-causal: the
+    context is visible to every query. With no key mask the core is the
+    flash kernels (`ops/attention.flash_attention`: B3a forward, B3b/B3c
+    backward, at Tq != Tk); with a key mask the dense masked softmax,
+    through `kernel_defaults.attention_policy`, as JAX routes it."""
+
+    num_heads: int = 4
+    n_out: Optional[int] = None
+    # Name of the network input whose padding mask masks the KEYS (the
+    # encoder stream). Without it, a mask is only applied when its length
+    # unambiguously matches the context (Tk != Tq).
+    key_mask_input: Optional[str] = None
+
+    def output_type(self, *input_types: InputType) -> InputType:
+        d = self.n_out or input_types[0].size
+        return InputType.recurrent(d, input_types[0].timesteps)
+
+    def init_params(self, gen, input_types: Sequence[InputType],
+                    dtype=torch.float32):
+        from deeplearning4j_tpu_torch.nn.initializers import xavier
+
+        d_q = input_types[0].size
+        d_kv = input_types[1].size
+        d = self.n_out or d_q
+        if d % self.num_heads:
+            raise ValueError(
+                f"n_out {d} not divisible by num_heads {self.num_heads}")
+        return {
+            "Wq": xavier(gen, (d_q, d), dtype),
+            "Wk": xavier(gen, (d_kv, d), dtype),
+            "Wv": xavier(gen, (d_kv, d), dtype),
+            "Wo": xavier(gen, (d, d), dtype),
+            "b": torch.zeros((d,), dtype=dtype),
+        }, {}
+
+    def _key_mask(self, mask, tq: int, tk: int):
+        """The key mask a [B, T] mask gives, or None; JAX's rules."""
+        if mask is None:
+            return None
+        if self.key_mask_input is not None:
+            if mask.shape[1] != tk:
+                raise ValueError(f"key_mask_input mask length "
+                                 f"{mask.shape[1]} != context length {tk}")
+            return mask
+        if mask.shape[1] == tk and tq != tk:
+            return mask
+        if mask.shape[1] == tk and tq == tk:
+            raise ValueError(
+                "ambiguous mask (Tq == Tk): set key_mask_input to the "
+                "encoder input's name so the key mask is delivered "
+                "unambiguously")
+        if mask.shape[1] != tq:
+            raise ValueError(
+                f"mask time axis {mask.shape[1]} matches neither the query "
+                f"length {tq} nor the context length {tk}")
+        # a query-length mask carries no attention semantics here: the
+        # loss masks the output positions
+        return None
+
+    def apply(self, params, inputs, *, state=None, train=False, rng=None,
+              mask=None):
+        from deeplearning4j_tpu_torch.ops.attention import flash_attention
+        from deeplearning4j_tpu_torch.ops.kernel_defaults import (
+            attention_policy,
+        )
+
+        x, ctx = inputs
+        B, Tq, _ = x.shape
+        Tk = ctx.shape[1]
+        d = params["Wo"].shape[0]
+        H = self.num_heads
+        Dh = d // H
+        q = (x @ params["Wq"]).reshape(B, Tq, H, Dh)
+        k = (ctx @ params["Wk"]).reshape(B, Tk, H, Dh)
+        v = (ctx @ params["Wv"]).reshape(B, Tk, H, Dh)
+        key_mask = self._key_mask(mask, Tq, Tk)
+        pol = attention_policy(device=x.device, masked=key_mask is not None,
+                               head_dim=Dh)
+        if pol.kind == "flash":
+            o = flash_attention(q, k, v, False)
+        else:
+            s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(Dh)
+            s = s + torch.where(key_mask[:, None, None, :] > 0, 0.0, -1e30)
+            o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+        y = o.reshape(B, Tq, d) @ params["Wo"] + params["b"]
+        return y, state
+
+
+@register_serde
+@dataclasses.dataclass(frozen=True)
 class ComputationGraphConfiguration:
     """A finalized DAG configuration."""
 
@@ -459,5 +551,6 @@ class GraphBuilder:
             dtype=self._base._dtype,
             gradient_normalization=self._base._grad_norm,
             gradient_normalization_threshold=self._base._grad_norm_threshold,
+            gradient_checkpointing=self._base._grad_ckpt,
             tbptt_fwd_length=self._tbptt_fwd,
             tbptt_back_length=self._tbptt_back)

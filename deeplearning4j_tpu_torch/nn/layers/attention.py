@@ -1,7 +1,17 @@
 """Attention layers — port of `deeplearning4j_tpu/nn/layers/attention.py`:
-RoPE, `MultiHeadAttention` (full-context `apply` and the per-slot
-`_decode`), `PositionEmbeddingLayer` and `TransformerEncoderBlock`
+RoPE, `MultiHeadAttention` (full-context `apply` and `_decode`, per-slot
+and lockstep), `PositionEmbeddingLayer` and `TransformerEncoderBlock`
 (layer/RMS norm, GELU/SwiGLU FFN).
+
+Two decode carry layouts, as in JAX: a per-slot carry (`per_slot=True`,
+the serving sessions) holds a [B] position vector, and a lockstep carry
+(`per_slot=False`, the default: `rnn_time_step`, `generate`,
+`beam_search`) one 0-d position shared by every row. The lockstep step
+runs the per-slot code with its position broadcast to [B] and returns
+a 0-d position; its `mask` is ignored, as JAX ignores it. Its overflow
+guard is the NaN poison in the graph and the runtime's host-side budget
+(`models/multilayer._check_decode_budget`): `_decode` never reads a
+position on the host.
 
 Per-slot decode updates the KV caches IN PLACE. JAX threads the carries
 functionally; at full width a slot's cache is tens of MB per layer, so
@@ -25,8 +35,7 @@ flash kernels (`ops/attention.flash_attention`, B3a forward and B3b/B3c
 backward) after the GQA broadcast; otherwise the dense masked softmax,
 which also applies attention dropout.
 
-Not ported yet: the lockstep (scalar-position) decode carries of
-`rnn_time_step`, MoE blocks and the sequence-parallel ring.
+Not ported yet: MoE blocks and the sequence-parallel ring.
 """
 
 from __future__ import annotations
@@ -38,7 +47,9 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn.inputs import InputType
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    Layer, keep_mask, register_layer,
+)
 from deeplearning4j_tpu_torch.ops import banded_attention as ba
 from deeplearning4j_tpu_torch.ops.attention import flash_attention
 from deeplearning4j_tpu_torch.ops.kernel_defaults import attention_policy
@@ -194,15 +205,18 @@ class MultiHeadAttention(Layer):
         }, {}
 
     def decode_carry(self, batch: int, dtype=torch.float32, *,
-                     per_slot: bool = True, kv_dtype: str = None,
+                     per_slot: bool = False, kv_dtype: str = None,
                      page_len: int = None, pages: int = None,
                      device=None):
-        """Per-slot decode carry: [batch, max_cache, Hkv, Dh] caches (or,
-        with `page_len`, a pool of `pages` [page_len, Hkv, Dh] pages plus
-        a [batch, max_cache / page_len] int32 page table) and a [batch]
-        int32 position vector. Caches come from `new_kv_cache`.
-        `kv_dtype` "int8" or "fp8" stores int8 or e4m3 codes with float32
-        scale rows `scale_k`/`scale_v` of the caches' [N, L, Hkv]."""
+        """Decode carry: [batch, max_cache, Hkv, Dh] caches (or, with
+        `page_len`, a pool of `pages` [page_len, Hkv, Dh] pages plus a
+        [batch, max_cache / page_len] int32 page table) and an int32
+        position: 0-d for a lockstep carry (the default), [batch] for a
+        per-slot one (`per_slot=True`, which needs causal attention).
+        Caches come from `new_kv_cache`. `kv_dtype` "int8" or "fp8"
+        stores int8 or e4m3 codes with float32 scale rows
+        `scale_k`/`scale_v` of the caches' [N, L, Hkv]; quantized and
+        paged carries are per-slot only."""
         quant = kv_dtype in KV_QUANT
         if not quant and kv_dtype not in (None, "native"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
@@ -211,17 +225,17 @@ class MultiHeadAttention(Layer):
                 "quantized KV carries are a session-pool feature "
                 "(per_slot=True); the lockstep rnn_time_step path stays "
                 "native")
-        if not per_slot:
-            raise NotImplementedError(
-                "lockstep (scalar-position) decode carries are not ported; "
-                "the port serves per-slot sessions")
-        if not self.causal:
+        if page_len is not None and not per_slot:
+            raise ValueError("paged KV carries are a session-pool feature "
+                             "(per_slot=True)")
+        if per_slot and not self.causal:
             raise ValueError("per-slot decode carries need causal=True")
         cdt = KV_QUANT[kv_dtype] if quant else dtype
         Dh = self.n_out // self.num_heads
         L = self.max_cache
         Hkv = self._kv_heads
-        pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+        pos = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
+                          device=device)
         if page_len is not None:
             if self.rolling_cache:
                 raise ValueError(
@@ -252,11 +266,15 @@ class MultiHeadAttention(Layer):
         return carry
 
     def _decode(self, params, x, state, mask=None):
-        """One per-slot decode step: write this chunk's K/V at each slot's
+        """One decode step: write this chunk's K/V at the carry's
         position (in place), attend every query over its visible cache.
-        `mask` [B, T] marks the valid prefix of a padded chunk; invalid
-        tokens do not write and do not advance the position. A paged
-        carry addresses logical position j at physical row
+        A per-slot carry ([B] `pos`) steps each slot at its own position:
+        `mask` [B, T] marks the valid prefix of a padded chunk, and
+        invalid tokens do not write and do not advance the position. A
+        lockstep carry (0-d `pos`) steps every row together, as JAX's
+        scalar branch: `mask` is ignored, the position is broadcast to
+        [B] for the shared code, and the new position stays 0-d. A
+        paged carry addresses logical position j at physical row
         `page_table[j // Lp]`, offset `j % Lp`. A single-token step goes
         through the decode kernel (B6 paged, B5 otherwise); longer
         chunks attend densely under the same visibility rules. A
@@ -267,6 +285,7 @@ class MultiHeadAttention(Layer):
         Hkv = self._kv_heads
         Dh = self.n_out // H
         paged = "page_table" in state
+        quant = "scale_k" in state
         ck, cv = state["cache_k"], state["cache_v"]
         if paged:
             if self.rolling_cache:
@@ -286,10 +305,20 @@ class MultiHeadAttention(Layer):
                     f"have {L}")
         elif T > L:
             raise ValueError(f"decode step of {T} tokens > max_cache {L}")
-        pos = state["pos"]
-        if pos.ndim != 1:
-            raise NotImplementedError(
-                "lockstep (scalar-position) decode is not ported")
+        pos0 = state["pos"]
+        lockstep = pos0.ndim == 0
+        if lockstep:
+            if paged:
+                raise ValueError("paged KV caches require per-slot mode")
+            if quant:
+                raise ValueError(
+                    "quantized KV carries require per-slot mode")
+            mask = None
+            pos = pos0.expand(B).contiguous()
+        else:
+            if not self.causal:
+                raise ValueError("per-slot decode needs causal=True")
+            pos = pos0
         dev = x.device
 
         q = (x @ params["Wq"]).reshape(B, T, H, Dh)
@@ -317,7 +346,6 @@ class MultiHeadAttention(Layer):
             flat = torch.arange(B, device=dev)[:, None] * L + tgt
             drop = B * L
         flat = torch.where(ok, flat, torch.full_like(flat, drop)).reshape(-1)
-        quant = "scale_k" in state
         sk = sv = None
         if quant:
             # quantize-on-write; the scale rows take the caches' scatter
@@ -368,11 +396,22 @@ class MultiHeadAttention(Layer):
             if quant:
                 kk = ba.dequantize(kk, logical(sk), q.dtype)
                 vv = ba.dequantize(vv, logical(sv), q.dtype)
-            vis = ba.visibility(q_ids, end, L, self.window,
-                                self.rolling_cache)
+            if self.causal:
+                vis = ba.visibility(q_ids, end, L, self.window,
+                                    self.rolling_cache)
+            else:
+                # lockstep, bidirectional (JAX's scalar branch): the
+                # written prefix, and |i - j| < window
+                j = torch.arange(L, device=dev)
+                qe = q_ids[..., None]
+                vis = (j < (pos + T)[:, None, None]).expand(B, T, L)
+                if self.window is not None:
+                    vis = vis & (j > qe - self.window) & \
+                        (j < qe + self.window)
             o = ba.attend_plain(q, kk, vv, vis)
         y = o.reshape(B, T, self.n_out) @ params["Wo"] + params["b"]
-        new_state = {"cache_k": ck, "cache_v": cv, "pos": pos + n_new}
+        new_state = {"cache_k": ck, "cache_v": cv,
+                     "pos": pos0 + T if lockstep else pos + n_new}
         if paged:
             new_state["page_table"] = pt
         if quant:
@@ -442,7 +481,7 @@ class MultiHeadAttention(Layer):
         p = torch.softmax(s + bias, dim=-1)
         if dropout:
             keep = 1.0 - dropout
-            kept = torch.rand(p.shape, generator=rng, device=p.device) < keep
+            kept = keep_mask(p.shape, keep, rng, p.device)
             p = torch.where(kept, p / keep, torch.zeros((), dtype=p.dtype,
                                                         device=p.device))
         return torch.einsum("bhqk,bkhd->bqhd", p, v)
@@ -469,15 +508,12 @@ class PositionEmbeddingLayer(Layer):
                                         dtype=torch.float32).to(dtype)}, {}
 
     def decode_carry(self, batch: int, dtype=torch.float32, *,
-                     per_slot: bool = True, kv_dtype: str = None,
+                     per_slot: bool = False, kv_dtype: str = None,
                      page_len: int = None, pages: int = None, device=None):
         # no KV here — the KV options are accepted (and ignored) so the
         # session-carry builder can pass one policy to every decode layer
-        if not per_slot:
-            raise NotImplementedError(
-                "lockstep decode carries are not ported")
-        return {"pos": torch.zeros((batch,), dtype=torch.int32,
-                                   device=device)}
+        return {"pos": torch.zeros((batch,) if per_slot else (),
+                                   dtype=torch.int32, device=device)}
 
     def apply(self, params, x, *, state=None, train=False, rng=None,
               mask=None):
@@ -487,11 +523,19 @@ class PositionEmbeddingLayer(Layer):
                              f"{self.max_length}")
         if state is not None and "pos" in state:
             pos = state["pos"]
+            offs = torch.arange(t, device=x.device)
+            if pos.ndim == 0:
+                # lockstep: every row at the same offset; `mask` ignored
+                positions = pos.long() + offs
+                p = params["P"][torch.clamp(positions,
+                                            max=self.max_length - 1)]
+                p = torch.where(pos + t <= self.max_length, p,
+                                torch.full_like(p, float("nan")))
+                return x + p[None], {"pos": pos + t}
             valid = None if mask is None else (mask > 0)
             n_new = (torch.full_like(pos, t) if valid is None
                      else valid.sum(dim=1, dtype=pos.dtype))
-            positions = pos.long()[:, None] + torch.arange(t,
-                                                           device=x.device)
+            positions = pos.long()[:, None] + offs
             p = params["P"][torch.clamp(positions, max=self.max_length - 1)]
             # per-row overflow poison
             p = torch.where((pos + n_new <= self.max_length)[:, None, None],
@@ -581,7 +625,7 @@ class TransformerEncoderBlock(Layer):
         return (x - mu) * torch.rsqrt(var + 1e-5) * g + params[f"{prefix}_b"]
 
     def decode_carry(self, batch: int, dtype=torch.float32, *,
-                     per_slot: bool = True, kv_dtype: str = None,
+                     per_slot: bool = False, kv_dtype: str = None,
                      page_len: int = None, pages: int = None, device=None):
         return {"attn": self._sub().decode_carry(
             batch, dtype, per_slot=per_slot, kv_dtype=kv_dtype,

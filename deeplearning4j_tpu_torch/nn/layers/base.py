@@ -8,8 +8,9 @@ is `[n_in, n_out]` and applies as `x @ W`.
 
 `apply(params, x, *, state=None, train=False, rng=None, mask=None)` has
 the JAX signature. `rng` is an explicit `torch.Generator` on the net's
-device; dropout draws from it only when `train` is true. `dropout` is
-the DROP probability, as in the JAX package.
+device (or an `RngTape` over one); dropout draws from it, through
+`keep_mask`, only when `train` is true. `dropout` is the DROP
+probability, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +29,44 @@ LAYER_REGISTRY: Dict[str, type] = {}
 
 Params = Dict[str, torch.Tensor]
 State = Dict[str, Any]
+
+
+class RngTape:
+    """A generator's draws, recorded on the first run of a function and
+    replayed in order on every later run: under gradient checkpointing
+    the backward recomputes a layer, and its dropout masks must be the
+    ones the forward drew. (JAX folds a key per layer, so its recompute
+    draws the same bits; `torch.utils.checkpoint` restores only the
+    default generators, and a replay of the draws also needs no
+    generator state read or written, which a CUDA graph's capture
+    would refuse.) `start()` begins a run."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+        self._draws: list = []
+        self._recorded = False
+        self._i = 0
+
+    def start(self) -> None:
+        self._recorded = self._recorded or bool(self._draws)
+        self._i = 0
+
+    def keep(self, shape, keep: float, device) -> torch.Tensor:
+        if self._recorded:
+            m = self._draws[self._i]
+            self._i += 1
+            return m
+        m = torch.rand(shape, generator=self.gen, device=device) < keep
+        self._draws.append(m)
+        return m
+
+
+def keep_mask(shape, keep: float, rng, device) -> torch.Tensor:
+    """The dropout keep mask (uniform draws below `keep`) from the
+    generator `rng`, or from an `RngTape`."""
+    if isinstance(rng, RngTape):
+        return rng.keep(shape, keep, device)
+    return torch.rand(shape, generator=rng, device=device) < keep
 
 
 def register_layer(cls):
@@ -95,7 +134,7 @@ class Layer:
         if not train or not p or rng is None:
             return x
         keep = 1.0 - p
-        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        mask = keep_mask(x.shape, keep, rng, x.device)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 

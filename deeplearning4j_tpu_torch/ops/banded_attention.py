@@ -522,7 +522,8 @@ def visibility(qpos, end, L: int, window: Optional[int], rolling: bool):
 
 def attend_plain(q, cache_k, cache_v, vis, scale: Optional[float] = None,
                  rounded: bool = False, block_k: Optional[int] = None):
-    """Grouped masked softmax attention with the math in f32: q
+    """Grouped masked softmax attention with the math in f32 (f64 for
+    float64 queries): q
     [S, T, H, Dh] over caches [S, L, Hkv, Dh] where `vis` [S, T, L] is
     true; returns [S, T, H, Dh] in q's dtype. `rounded` (the decode
     kernels' plain versions over bfloat16 caches) feeds p to P·V rounded
@@ -532,12 +533,13 @@ def attend_plain(q, cache_k, cache_v, vis, scale: Optional[float] = None,
     s_, t, h, dh = q.shape
     hkv, g = cache_k.shape[2], h // cache_k.shape[2]
     sc = scale if scale is not None else dh ** -0.5
-    qg = q.float().reshape(s_, t, hkv, g, dh)
-    s = torch.einsum("sthgd,slhd->shgtl", qg, cache_k.float()) * sc
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.to(acc).reshape(s_, t, hkv, g, dh)
+    s = torch.einsum("sthgd,slhd->shgtl", qg, cache_k.to(acc)) * sc
     s = torch.where(vis[:, None, None], s, _NEG_INF)
     if not rounded:
         o = torch.einsum("shgtl,slhd->sthgd", torch.softmax(s, dim=-1),
-                         cache_v.float())
+                         cache_v.to(acc))
         return o.reshape(s_, t, h, dh).to(q.dtype)
     pv, l, _ = _pv(s.reshape(s_ * hkv, g * t, -1),
                    cache_v.transpose(1, 2).reshape(s_ * hkv, -1, dh),

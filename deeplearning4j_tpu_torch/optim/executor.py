@@ -80,9 +80,15 @@ def _arr_sig(a):
 
 def batch_signature(ds):
     """Two batches fuse into one dispatch only when their signatures
-    match: the same shapes, dtypes and mask presence, so the same
-    graph."""
-    return (_arr_sig(ds.features), _arr_sig(ds.labels),
+    match: the same kind (DataSet or MultiDataSet), shapes, dtypes and
+    mask presence, so the same graph."""
+    if hasattr(ds, "features_masks"):   # MultiDataSet
+        return ("m",
+                tuple(_arr_sig(f) for f in ds.features),
+                tuple(_arr_sig(l) for l in ds.labels),
+                tuple(_arr_sig(x) for x in (ds.features_masks or ())),
+                tuple(_arr_sig(x) for x in (ds.labels_masks or ())))
+    return ("d", _arr_sig(ds.features), _arr_sig(ds.labels),
             _arr_sig(ds.features_mask), _arr_sig(ds.labels_mask))
 
 

@@ -1,7 +1,9 @@
 """The port's CUDA graphs on the card (`utils/cuda_graphs.py`):
-`fit(steps_per_dispatch=K)`'s K-step graphs, the graphed `rnn_time_step`,
-decode window and speculative propose/verify windows, and a window after
-a pool's `rebind`, against the same calls run eagerly. These tests
+`fit(steps_per_dispatch=K)`'s K-step graphs (with gradient
+checkpointing and dropout too), the graphed `rnn_time_step` (over LSTM
+carries and lockstep KV caches, with beam reorders), decode window and
+speculative propose/verify windows, and a window after a pool's
+`rebind`, against the same calls run eagerly. These tests
 import only torch, so they run on a machine with a card and no JAX:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_graphs.py
 Where there is no card they skip: a graph is captured and replayed only
@@ -418,3 +420,93 @@ def test_rebind_then_a_window_recaptures(cuda_device):
                     for n, layer in c.items()}
     st = v2._graphs.stats["decode_window"]
     assert (st["eager"], st["captures"], st["replays"]) == (1, 1, 2)
+
+
+def _tiny_transformer(**kw):
+    from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
+
+    return TextGenerationTransformer(input_shape=(64, 1), d_model=64,
+                                     num_heads=4, num_blocks=2, seed=4,
+                                     **kw).init(device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(pos_encoding="rope", norm="rms",
+                                         ffn_activation="swiglu",
+                                         num_kv_heads=2, window=16,
+                                         rolling_cache=True)],
+                         ids=["linear", "ring"])
+def test_lockstep_stepping_and_beam_reorders_graph_equal_eager(cuda_device,
+                                                               kw):
+    """Prefill chunks and single-token steps over lockstep KV caches, a
+    beam expansion (new caches: a new graph) and same-batch reorders
+    (in place: replays), graphed against eager, bit for bit; B5 on every
+    single-token step."""
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+
+    graphed, eager = _tiny_transformer(**kw), _tiny_transformer(**kw)
+    eager.cuda_graphs = False
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 256, (2, 48, 1)).astype(np.float32)
+    for net in (graphed, eager):
+        net.rnn_clear_previous_state()
+    outs = []
+    for lo, hi in ((0, 16), (16, 32), (32, 33), (33, 34)):
+        outs.append([n.rnn_time_step(x[:, lo:hi]) for n in (graphed, eager)])
+    for n in (graphed, eager):
+        n.rnn_reorder_state([0, 0, 1, 1])
+    before = ba.LAUNCHES["banded_decode_attention"]
+    for i in range(34, 44):
+        idx = rng.permutation(4)
+        for n in (graphed, eager):
+            n.rnn_reorder_state(idx)
+        step = np.repeat(x[:, i:i + 1], 2, axis=0)
+        outs.append([n.rnn_time_step(step) for n in (graphed, eager)])
+    torch.cuda.synchronize()
+    assert ba.LAUNCHES["banded_decode_attention"] == before + 2 * 2 * 10
+    for a, b in outs:
+        assert torch.equal(a, b)
+    st = graphed._graphs.stats["rnn_time_step"]
+    # one graph a (step length, batch): the second 16-token chunk, the
+    # second step at batch 2 and the 9 steps after the first at batch 4
+    # replay
+    assert st["captures"] == 3 and st["replays"] == 11
+
+
+@pytest.mark.cuda
+def test_checkpointed_k4_graph_equals_eager_checkpointed_steps(cuda_device):
+    """Gradient checkpointing with dropout inside a K 4 graph (the
+    recompute replays the forward's masks): bit for bit against the
+    same steps eager, and against the steps without checkpointing."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.nn.layers import TransformerEncoderBlock
+
+    def net(ckpt):
+        n = _tiny_transformer()
+        conf = dataclasses.replace(n.conf, gradient_checkpointing=ckpt,
+                                   layers=tuple(
+            dataclasses.replace(l, dropout=0.1)
+            if isinstance(l, TransformerEncoderBlock) else l
+            for l in n.conf.layers))
+        return MultiLayerNetwork(conf, device="cuda").init()
+
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, 256, (8, 4, 65))
+    batches = [DataSet(t[:, :64, None].astype(np.float32),
+                       np.eye(256, dtype=np.float32)[t[:, 1:]])
+               for t in toks]
+    k4, k1, plain = net(True), net(True), net(False)
+    k1.cuda_graphs = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        k4.fit(batches, steps_per_dispatch=4)
+        k1.fit(batches)
+        plain.fit(batches)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert k4.fit_stats["graph_windows"] == 1
+    for a, b, c in zip(tree_leaves(k4.params_tree),
+                       tree_leaves(k1.params_tree),
+                       tree_leaves(plain.params_tree)):
+        assert torch.equal(a, b) and torch.equal(b, c)

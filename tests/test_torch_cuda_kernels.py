@@ -193,6 +193,9 @@ FLASH_CASES = [
     (2, 200, 200, 128, True, torch.float32),
     (2, 100, 100, 48, True, torch.float32),         # Dh inside the 64 tile
     (2, 300, 300, 64, True, torch.bfloat16),
+    # cross-attention (path_x): not causal, Tq != Tk, a tail key tile, on
+    # design 1 (design 2's bf16 case is in B3_WGMMA_CASES)
+    (2, 2048, 1000, 64, False, torch.float32),
 ]
 
 
@@ -284,7 +287,7 @@ def test_cuda_b3b_b3c_match_plain(cuda_device, bh, tq, tk, dh, causal,
 # not causal, Dh 128 causal and not
 B3_WGMMA_CASES = [(64, 2048, 2048, 64, True), (3, 1000, 1000, 64, True),
                   (2, 130, 77, 64, False), (2, 200, 200, 128, True),
-                  (2, 512, 768, 128, False)]
+                  (2, 512, 768, 128, False), (2, 2048, 1000, 64, False)]
 
 
 @pytest.mark.cuda
@@ -1542,3 +1545,39 @@ def test_cuda_fused_conv_bn_train_matches_cpu(cuda_device, kind, stride):
     torch.backends.cudnn.allow_tf32 = tf32
     for a, b in zip(res["cpu"], res[str(cuda_device)]):
         assert (a - b).abs().max().item() <= 1e-4 * max(1.0, a.abs().max())
+
+
+# --------------------------------- B5 at a lockstep (0-d) position
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["ffma", "split"])
+@pytest.mark.parametrize("hkv,window,rolling", [(8, None, False),
+                                                (2, 256, True)],
+                         ids=["linear", "ring"])
+def test_cuda_b5_at_a_broadcast_lockstep_position(cuda_device, hkv, window,
+                                                  rolling, design):
+    """A lockstep carry's 0-d position broadcast to every slot (the
+    `rnn_time_step` path): both designs against the plain version (design
+    2's in its own split order), 2e-5 in float32."""
+    g = torch.Generator().manual_seed(21)
+    S, H, Dh = 8, 8, 64
+    L = 2303 if rolling else 2048
+    q = torch.randn(S, H, Dh, generator=g).to(cuda_device)
+    ck = torch.randn(S, L, hkv, Dh, generator=g).to(cuda_device)
+    cv = torch.randn(S, L, hkv, Dh, generator=g).to(cuda_device)
+    pos = torch.tensor(3000 if rolling else 1500, dtype=torch.int32,
+                       device=cuda_device)
+    qpos = pos.expand(S).contiguous()
+    before = dict(ba.LAUNCHES_BY_DESIGN)
+    o = ba.banded_decode_attention(q, ck, cv, qpos, qpos, window=window,
+                                   rolling=rolling, design=design)
+    kw = {}
+    if design == "split":
+        c, _ = ba.b5_splits(S, hkv, L, window, ba._sm_count(q.device),
+                            ba.split_tile_keys(Dh, ck.dtype))
+        kw = dict(split_keys=c)
+    ref = ba.decode_attention_plain(q, ck, cv, qpos, qpos, window, rolling,
+                                    **kw)
+    torch.cuda.synchronize()
+    key = ("banded_decode_attention", design)
+    assert ba.LAUNCHES_BY_DESIGN[key] == before[key] + 1
+    assert (o - ref).abs().max().item() <= 2e-5

@@ -147,7 +147,8 @@ def test_quantized_decode_matches_jax(kv, layout, lkw, page_len):
     jl, params, pl_, pp = _mha_pair(**lkw)
     ckw = {} if page_len is None else dict(page_len=page_len, pages=14)
     jst = jl.decode_carry(B, jnp.float32, per_slot=True, kv_dtype=kv, **ckw)
-    pst = pl_.decode_carry(B, torch.float32, kv_dtype=kv, **ckw)
+    pst = pl_.decode_carry(B, torch.float32, per_slot=True, kv_dtype=kv,
+                           **ckw)
     if page_len is not None:
         pt = np.array([[0, 5, 9, 2], [7, 1, 11, 4], [3, 13, 0, 0]],
                       np.int32)

@@ -161,7 +161,8 @@ def test_padding_never_writes_through_an_unmapped_page():
                                max_cache=L, weight_init="xavier",
                                activation="identity")
     params, _ = layer.init_params(torch.Generator().manual_seed(0), None)
-    st = layer.decode_carry(2, page_len=Lp, pages=8, device="cpu")
+    st = layer.decode_carry(2, per_slot=True, page_len=Lp, pages=8,
+                            device="cpu")
     st["page_table"].copy_(torch.tensor([[0, 1, 2, 3], [4, 0, 0, 0]],
                                         dtype=torch.int32))
     st["cache_k"][0].fill_(7.0)
@@ -182,7 +183,7 @@ def test_linear_overflow_poisons_the_lane_not_the_cache():
                                max_cache=4, weight_init="xavier",
                                activation="identity")
     params, _ = layer.init_params(torch.Generator().manual_seed(0), None)
-    st = layer.decode_carry(2, device="cpu")
+    st = layer.decode_carry(2, per_slot=True, device="cpu")
     st["pos"].copy_(torch.tensor([1, 3], dtype=torch.int32))
     before = st["cache_k"].clone()
     y, st = layer.apply(params, torch.randn(2, 2, 8), state=st)

@@ -458,13 +458,22 @@ def test_output_and_rnn_time_step_check_the_input_width():
 
 
 def test_rnn_time_step_refuses_attention_stacks():
+    """Attention stacks step (once refused naming A4) through lockstep
+    KV caches: token by token equals the full forward; a step past the
+    cache is refused before it runs."""
     from deeplearning4j_tpu_torch.zoo import TextGenerationTransformer
 
     net = TextGenerationTransformer(input_shape=(8, 1), d_model=16,
                                     num_heads=2, num_blocks=1
                                     ).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        net.rnn_time_step(np.zeros((1, 1, 1), np.float32))
+    x = np.random.default_rng(19).integers(0, 256, (2, 8, 1)).astype(
+        np.float32)
+    stepped = torch.cat([net.rnn_time_step(x[:, i:i + 1])
+                         for i in range(8)], dim=1)
+    torch.testing.assert_close(stepped, net.output(x), rtol=1e-5,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="exceeds the smallest"):
+        net.rnn_time_step(x[:, :1])
 
 
 @pytest.mark.parametrize("chunk", [None, 3])

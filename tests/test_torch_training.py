@@ -306,7 +306,6 @@ def test_fit_refuses_what_is_not_ported(kw, item):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("gradient_checkpointing", True, "A4"),
     ("optimization_algo", "lbfgs", "A1")])
 def test_fit_refuses_unported_config(field, value, item):
     import dataclasses
@@ -316,6 +315,27 @@ def test_fit_refuses_unported_config(field, value, item):
     x, y = _lm_batch(np.random.default_rng(9), 2, 8)
     with pytest.raises(NotImplementedError, match=item):
         pnet.fit(x, y)
+
+
+def test_fit_with_gradient_checkpointing_matches_jax():
+    """Gradient checkpointing (once refused naming A4): 2 Adam steps of
+    the checkpointed transformer against JAX's checkpointed steps."""
+    import dataclasses
+
+    jnet, _ = _pair("gqa", T=8, d=16, blocks=2)
+    jnet.conf = dataclasses.replace(jnet.conf, gradient_checkpointing=True)
+    pnet = MultiLayerNetwork(MultiLayerConfiguration.from_json(
+        jnet.conf.to_json()), device="cpu").init()
+    params_from_numpy(pnet, _np(jnet.params_tree))
+    assert pnet.conf.gradient_checkpointing
+    rng = np.random.default_rng(10)
+    for _ in range(2):
+        x, y = _lm_batch(rng, 2, 8)
+        jnet.fit(x, y, batch_size=2)
+        pnet.fit(x, y, batch_size=2)
+        np.testing.assert_allclose(pnet.score_, float(jnet.score_),
+                                   **LOSS_TOL)
+    _assert_trees(pnet.params_tree, jnet.params_tree, **PARAM_TOL)
 
 
 # ------------------------------------------------------------ config serde
