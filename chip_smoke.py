@@ -194,6 +194,20 @@ exits non-zero with no result line:
     (Tq 2048, Tk 1024, batch 8) fed MultiDataSets, 8 Adam steps at K 1
     and K 4 in bfloat16 (B3a-c non-causal on design 2) and float32
     (design 1), then card against CPU at Tq 256, Tk 200.
+20. path_p: DL4J's fit stages besides SGD (A1b) at its examples' widths
+    on the MNIST iterator: `pretrain` of DeepAutoEncoderExample's nine
+    RBMs (784-1000-500-250-100-30 and back, batch 1000, 4 batches a
+    layer, Nesterovs: B1b once a step, 36), `fit` of one batch under
+    line_gradient_descent and lbfgs (20 iterations each, the loss
+    history non-increasing, one host read a line-search probe), the
+    VariationalAutoEncoderExample VAE pretrained 12 steps (Adam: B1a
+    once a step, the ELBO improving), the frozen encoder under a
+    center-loss head (B1a over the head alone, frozen leaves bit-equal,
+    K 4 against K 1); then `p_parity`: AutoEncoder pretraining, line
+    gradient descent and every activation on the card against the CPU;
+21. path_m_async: `path_m` at K 1 and K 4 fed through
+    `AsyncDataSetIterator` beside the bare iterator: losses bit-equal,
+    images/s, the idle share (profiler) and the pump's hit ratio.
 
 Weights are random, from fixed seeds. Each path resets the kernels'
 launch counts just before it runs and reads them just after; a kernel
@@ -1142,7 +1156,8 @@ def run_adam_phase(flush, gen):
 def run_nesterov_phase(flush, gen):
     """B1b against its plain version over the LSTM training path's real
     leaves (its Nesterovs(0.01, 0.9)) and odd sizes (another momentum),
-    float32 and bfloat16. Bound: read p, g, v and write p, v once (5
+    float32 and bfloat16, and over `path_p`'s first RBM's leaves (784 x
+    1000, float32: its largest pretrain step). Bound: read p, g, v and write p, v once (5
     tensors of n elements) over HBM bandwidth."""
     from deeplearning4j_tpu_torch.ops import fused_update as fu
     from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
@@ -1153,9 +1168,13 @@ def run_nesterov_phase(flush, gen):
     del net
     odd = [(1,), (127,), (4097,), ((1 << 20) + 3,)]
     rows = []
+    # path_p's largest pretrain step: the first RBM's W, hb, vb
+    rbm = [(DEEP_AE[0], DEEP_AE[1]), (DEEP_AE[1],), (DEEP_AE[0],)]
     for dt in (torch.float32, torch.bfloat16):
-        for leafset, mu in (("real", 0.9), ("odd", 0.8)):
-            shapes = real if leafset == "real" else odd
+        for leafset, mu in (("real", 0.9), ("odd", 0.8), ("rbm", 0.9)):
+            if leafset == "rbm" and dt != torch.float32:
+                continue
+            shapes = {"real": real, "odd": odd, "rbm": rbm}[leafset]
             lr = torch.tensor(0.01, device=dev)
             leaves = [(torch.randn(s, generator=gen).to(dev, dt),
                        torch.randn(s, generator=gen).to(dev, dt),
@@ -1186,7 +1205,7 @@ def run_nesterov_phase(flush, gen):
             lists = list(zip(*leaves))
             row["ms"] = time_ms(lambda: fu.nesterov_update(
                 *lists, lr, momentum=mu), flush)
-            if leafset == "real":
+            if leafset != "odd":
                 row["plain_ms"] = time_ms(lambda: [
                     fu.nesterov_update_plain(*leaf, lr, momentum=mu)
                     for leaf in leaves], flush, iters=10)
@@ -4490,6 +4509,492 @@ def path_x(rng, epochs=2, batch=8, tq=2048, tk=1024, width=512):
     return row
 
 
+# ----------------------------------------------------- slice 17 (A1b)
+# DL4J's DeepAutoEncoderExample (dl4j-examples 0.x): nine RBMs, 784 down
+# to 30 and back up to 1000, then a sigmoid MSE output layer 1000 -> 784
+DEEP_AE = (784, 1000, 500, 250, 100, 30, 100, 250, 500, 1000)
+
+
+def deep_ae_conf(widths=DEEP_AE, updater=None, algo=None, iterations=20,
+                 seed=123):
+    """The deep autoencoder's stack: an RBM per width after the first,
+    then OutputLayer(widths[-1] -> widths[0], sigmoid, MSE); Nesterovs
+    (0.1, 0.9) unless `updater`; `algo` sets the full-batch solver."""
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import RBM, OutputLayer
+    from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
+
+    b = (NeuralNetConfiguration.builder().seed(seed)
+         .updater(updater or Nesterovs(0.1, 0.9)))
+    if algo is not None:
+        b = b.optimization_algo(algo, iterations)
+    layers = [RBM(n_out=n) for n in widths[1:]]
+    layers.append(OutputLayer(n_out=widths[0], activation="sigmoid",
+                              loss="mse"))
+    return (b.list(*layers).set_input_type(InputType.feed_forward(widths[0]))
+            .pretrain(True).backprop(True).build())
+
+
+def vae_conf(n_in=784, hidden=(256, 256), latent=2, updater=None):
+    """DL4J's VariationalAutoEncoderExample widths: 784 -> encoder (256,
+    256) -> latent 2 -> decoder (256, 256), bernoulli reconstruction,
+    leakyrelu; Adam(1e-3) where the example has RmsProp, so that B1a
+    runs once a pretrain step."""
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import VariationalAutoencoder
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    return (NeuralNetConfiguration.builder().seed(123)
+            .updater(updater or Adam(1e-3)).activation("leakyrelu")
+            .list(VariationalAutoencoder(
+                n_out=latent, encoder_sizes=hidden, decoder_sizes=hidden,
+                reconstruction_distribution="bernoulli"))
+            .set_input_type(InputType.feed_forward(n_in))
+            .pretrain(True).backprop(False).build())
+
+
+def finetune_net(device, encoder, widths=DEEP_AE[:6], classes=10,
+                 lr=1e-2):
+    """The pretrained encoder half as FrozenLayers (its RBMs' weights
+    `encoder`, a list of per-layer dicts) under a CenterLossOutputLayer
+    of `classes`, trained by Adam(lr)."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        RBM, CenterLossOutputLayer, FrozenLayer,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    layers = [FrozenLayer(layer=RBM(n_out=n)) for n in widths[1:]]
+    layers.append(CenterLossOutputLayer(n_out=classes, activation="softmax",
+                                        alpha=0.1, lambda_=1e-2))
+    net = MultiLayerNetwork(
+        NeuralNetConfiguration.builder().seed(7).updater(Adam(lr))
+        .list(*layers).set_input_type(InputType.feed_forward(widths[0]))
+        .build(), device=device).init()
+    for layer, src in zip(net.conf.layers, encoder):
+        for k, v in net.params_tree[layer.name].items():
+            v.copy_(src[k])
+    return net
+
+
+def kernel_events(trace_path):
+    """The device kernels of a `torch.profiler` Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
+def busy_us(kernels):
+    """Length of the union of the kernel intervals, in microseconds."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def device_idle_share(run):
+    """(wall ms, device busy ms, idle share) of `run()` under
+    `torch.profiler`: busy is the union of the kernel intervals of its
+    Chrome trace (`busy_us`), wall the host clock to a synchronize."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        kernels = kernel_events(path)
+    check(bool(kernels), "the profiler saw no device kernels")
+    busy = busy_us(kernels)
+    return wall_us / 1e3, busy / 1e3, 1.0 - busy / wall_us
+
+
+def path_p(batch=1000, pretrain_batches=4, solver_iterations=20,
+           vae_batch=128, vae_steps=12):
+    """Layerwise pretraining, the full-batch solvers and a frozen-encoder
+    fine-tune (A1b) at DL4J's example widths, float32, on the port's
+    MNIST iterator (the synthetic surrogate unless MNIST files are
+    present):
+
+    - pretrain: `deep_ae_conf`'s nine RBMs, each on its input featurized
+      through the RBMs before it, 4 batches of 1000 a layer under
+      Nesterovs(0.1, 0.9): B1b once a pretrain step (36), ms a step;
+    - solvers: one batch of 1000 (the images as their own labels)
+      through `fit` under line_gradient_descent (the example's algorithm)
+      and lbfgs, 20 iterations each, from the pretrained weights (loaded
+      by `set_params(params())`): the loss history non-increasing, ms and
+      host reads (`solver_syncs`) an iteration, then the same fit traced
+      for the card's busy ms and idle share;
+    - VAE: `vae_conf` pretrained 12 steps at batch 128 (B1a once a
+      step): the mean negative ELBO of the last 4 below the first 4's;
+    - fine-tune: the pretrained encoder half frozen under a 10-class
+      CenterLossOutputLayer, Adam(1e-2), 4 batches of 1000 x 3 epochs
+      (`timed_fit`): the frozen leaves bit-equal to theirs before, B1a
+      once a step over the head's leaves alone, the centers moved; then
+      K 1 (twice) against K 4 (`k_parity`).
+
+    Each timed part follows an untimed warm-up of the same calls on a
+    throwaway net."""
+    from deeplearning4j_tpu_torch.data import DataSet, MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.models.multilayer import _updater_groups
+
+    row = {"phase": "path_p", "model": "DeepAutoEncoder (9 RBMs) + VAE",
+           "widths": list(DEEP_AE), "batch": batch, "dtype": "float32"}
+    n_rbm = len(DEEP_AE) - 1
+
+    def warm_batch():
+        return MnistDataSetIterator(batch, num_examples=batch, seed=9)
+
+    # warm-ups, untimed: each phase's kernels and cuBLAS plans load on
+    # their first call
+    MultiLayerNetwork(deep_ae_conf(), device="cuda").init().pretrain(
+        warm_batch())
+    net = MultiLayerNetwork(deep_ae_conf(), device="cuda").init()
+    out_name = net.conf.layers[-1].name
+    w_out = net.params_tree[out_name]["W"].clone()
+    w_first = net.params_tree[net.conf.layers[0].name]["W"].clone()
+    data = MnistDataSetIterator(batch, num_examples=pretrain_batches * batch,
+                                seed=0)
+    t0 = time.perf_counter()
+    list(data)                  # one pass on the host: its shuffle, slices
+    pass_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    reset_all_counts()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    net.pretrain(data, epochs=1)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_all_counts()
+    steps = n_rbm * pretrain_batches
+    check(sum(plain.values()) == 0, f"path_p pretrain: plain on CUDA {plain}")
+    check(launches["nesterov_update"] == steps,
+          f"path_p pretrain: nesterov_update launched "
+          f"{launches['nesterov_update']} times, want {steps}")
+    check(launches["adam_update"] == 0, "path_p pretrain: adam_update ran")
+    losses = {n: [float(v) for v in ls]
+              for n, ls in net.pretrain_losses.items()}
+    check(len(losses) == n_rbm and all(
+        len(v) == pretrain_batches and np.all(np.isfinite(v))
+        for v in losses.values()), f"path_p pretrain: losses {losses}")
+    check(torch.equal(w_out, net.params_tree[out_name]["W"])
+          and not torch.equal(w_first, net.params_tree[
+              net.conf.layers[0].name]["W"]),
+          "path_p pretrain: the wrong layers moved")
+    row["pretrain"] = {
+        "updater": str(net.conf.updater), "rbms": n_rbm,
+        "batches_a_layer": pretrain_batches, "steps": steps,
+        "launches": {k: launches[k] for k in ("nesterov_update",
+                                              "adam_update")},
+        "ms_per_step": e0.elapsed_time(e1) / steps, "wall_s": wall,
+        "host_pass_ms": pass_ms, "losses": losses}
+    flat = net.params()
+
+    x = next(iter(MnistDataSetIterator(batch, num_examples=batch,
+                                       seed=1))).features
+    ds = DataSet(x, x)
+    row["solvers"] = {}
+    for algo in ("line_gradient_descent", "lbfgs"):
+        MultiLayerNetwork(deep_ae_conf(algo=algo, iterations=2),
+                          device="cuda").init().fit(ds, batch_size=batch)
+        sn = MultiLayerNetwork(deep_ae_conf(algo=algo,
+                                            iterations=solver_iterations),
+                               device="cuda").init()
+        sn.set_params(flat)
+        check(torch.equal(sn.params(), flat),
+              f"path_p {algo}: set_params did not load params()")
+        before = sn.score(ds)
+        torch.cuda.synchronize()
+        reset_all_counts()
+        e0.record()
+        t0 = time.perf_counter()
+        sn.fit(ds, batch_size=batch)
+        e1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hist = sn._solver.last_history.cpu().tolist()
+        syncs = sn._solver.solver_syncs
+        launches, plain = read_all_counts()
+        check(sum(plain.values()) == 0 and not any(launches.values()),
+              f"path_p {algo}: kernels {launches}, plain {plain}")
+        check(len(hist) == solver_iterations and np.all(np.isfinite(hist)),
+              f"path_p {algo}: history {hist}")
+        check(all(b <= a for a, b in zip(hist, hist[1:])),
+              f"path_p {algo}: the loss history rose: {hist}")
+        check(hist[-1] < before, f"path_p {algo}: loss {before} -> "
+              f"{hist[-1]}")
+        traced = MultiLayerNetwork(deep_ae_conf(
+            algo=algo, iterations=solver_iterations), device="cuda").init()
+        traced.set_params(flat)
+        t_wall, t_busy, t_idle = device_idle_share(
+            lambda: traced.fit(ds, batch_size=batch))
+        row["solvers"][algo] = {
+            "iterations": solver_iterations, "score_before": before,
+            "history": hist, "solver_syncs": syncs,
+            "syncs_per_iteration": syncs / solver_iterations,
+            "ms_per_iteration": e0.elapsed_time(e1) / solver_iterations,
+            "wall_s": wall,
+            "traced_busy_ms_per_iteration": t_busy / solver_iterations,
+            "traced_wall_ms_per_iteration": t_wall / solver_iterations,
+            "idle_share": t_idle}
+        del sn, traced
+
+    MultiLayerNetwork(vae_conf(), device="cuda").init().pretrain(
+        MnistDataSetIterator(vae_batch, num_examples=vae_batch, seed=9))
+    vnet = MultiLayerNetwork(vae_conf(), device="cuda").init()
+    vname = vnet.conf.layers[0].name
+    vdata = MnistDataSetIterator(vae_batch, num_examples=vae_batch
+                                 * vae_steps, seed=2)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    e0.record()
+    vnet.pretrain(vdata, epochs=1)
+    e1.record()
+    torch.cuda.synchronize()
+    launches, plain = read_all_counts()
+    elbo = [float(v) for v in vnet.pretrain_losses[vname]]
+    check(sum(plain.values()) == 0, f"path_p vae: plain on CUDA {plain}")
+    check(launches["adam_update"] == vae_steps,
+          f"path_p vae: adam_update launched {launches['adam_update']} "
+          f"times, want {vae_steps}")
+    check(len(elbo) == vae_steps and np.all(np.isfinite(elbo))
+          and np.mean(elbo[-4:]) < np.mean(elbo[:4]),
+          f"path_p vae: negative ELBO {elbo}")
+    row["vae"] = {"widths": [784, 256, 256, 2, 256, 256, 784],
+                  "batch": vae_batch, "steps": vae_steps,
+                  "updater": str(vnet.conf.updater),
+                  "launches": launches["adam_update"],
+                  "ms_per_step": e0.elapsed_time(e1) / vae_steps,
+                  "neg_elbo": elbo}
+    del vnet
+
+    encoder = [{k: v.detach().clone() for k, v in
+                net.params_tree[layer.name].items()}
+               for layer in net.conf.layers[:5]]
+    del net
+    ft = finetune_net("cuda", encoder)
+    head = ft.conf.layers[-1].name
+    groups = _updater_groups(ft._layer_updaters)
+    check([names for _, names in groups] == [[head]],
+          f"path_p finetune: updater groups {groups}")
+    frozen = {l.name: {k: v.clone() for k, v in ft.params_tree[l.name]
+                       .items()} for l in ft.conf.layers[:-1]}
+
+    def ft_data():
+        return MnistDataSetIterator(batch, num_examples=4 * batch, seed=3)
+
+    fit = timed_fit("path_p finetune", ft, ft_data(), 3, batch,
+                    unit="images", per_epoch=4)
+    check(fit["launches"]["adam_update"] == fit["steps"],
+          f"path_p finetune: adam_update launched "
+          f"{fit['launches']['adam_update']} times, want {fit['steps']}")
+    check(all(torch.equal(v, frozen[n][k]) for n in frozen
+              for k, v in ft.params_tree[n].items()),
+          "path_p finetune: a frozen leaf moved")
+    centers = ft.state_tree[head]["centers"]
+    check(bool(centers.abs().sum() > 0), "path_p finetune: centers at 0")
+    head_elems = sum(v.numel() for v in ft.params_tree[head].values())
+    row["finetune"] = {
+        "frozen_layers": len(frozen), "head": "CenterLossOutputLayer(10)",
+        "trained_elements": head_elems,
+        "frozen_elements": sum(v.numel() for d in frozen.values()
+                               for v in d.values()),
+        "centers_abs_sum": float(centers.abs().sum()),
+        **{k: fit[k] for k in ("steps", "images_per_s_steps_5_12",
+                               "step_ms_p50", "epoch_mean_loss",
+                               "launches")}}
+    del ft
+    kp = k_parity("path_p_finetune", lambda: finetune_net("cuda", encoder),
+                  ft_data, batch, ("adam_update",), unit="images",
+                  per_epoch=4)
+    row["finetune"]["k4_bit_equal_k1"] = kp["k4_bit_equal_k1"]
+    row["launches"] = {
+        "nesterov_update": row["pretrain"]["launches"]["nesterov_update"],
+        "adam_update": row["vae"]["launches"]
+        + fit["launches"]["adam_update"]}
+    row["nvidia_smi"] = gpu_name_and_limit()
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def p_parity(width=64, batch=64, tol_param=1e-5, tol_loss=1e-5,
+             tol_act=1e-6):
+    """path_p's arithmetic on the card against the CPU, TF32 off, the
+    same seeded weights: two AutoEncoders of width 64 (corruption 0)
+    under a 10-class output, pretrained 8 steps (4 batches of 64 a
+    layer) under Adam (ε 1e-3, as `lenet_parity`): every parameter
+    within `tol_param`; a 2-layer width-64 net's first 5
+    line_gradient_descent iterations on one batch: losses within
+    `tol_loss` relative; every activation name (and the parametrised
+    forms), forward and gradient, within `tol_act` of the CPU's (relative
+    above 1 in magnitude, absolute below)."""
+    from deeplearning4j_tpu_torch.data import DataSet, MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.activations import Activation
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        AutoEncoder, DenseLayer, OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import Adam, tree_leaves
+
+    row = {"phase": "p_parity", "width": width, "batch": batch}
+    ae = (NeuralNetConfiguration.builder().seed(11)
+          .updater(Adam(1e-3, epsilon=1e-3)).activation("sigmoid")
+          .list(AutoEncoder(n_out=width, corruption_level=0.0),
+                AutoEncoder(n_out=width, corruption_level=0.0),
+                OutputLayer(n_out=10, activation="softmax"))
+          .set_input_type(InputType.feed_forward(784)).build())
+    leaves = {}
+    for d in ("cuda", "cpu"):
+        net = MultiLayerNetwork(ae, device=d).init()
+        reset_all_counts()
+        net.pretrain(MnistDataSetIterator(batch, num_examples=4 * batch,
+                                          seed=4), epochs=1)
+        if d == "cuda":
+            launches, plain = read_all_counts()
+            check(launches["adam_update"] == 8 and not sum(plain.values()),
+                  f"p_parity pretrain: launches {launches}, plain {plain}")
+        leaves[d] = [t.float().cpu() for t in tree_leaves(net.params_tree)]
+    dp = max((a - b).abs().max().item()
+             for a, b in zip(leaves["cuda"], leaves["cpu"]))
+    check(dp <= tol_param, f"p_parity pretrain: parameters differ by {dp}")
+    row["pretrain"] = {"steps": 8, "max_param_abs_err": dp}
+
+    gd = (NeuralNetConfiguration.builder().seed(12)
+          .optimization_algo("line_gradient_descent", 5)
+          .list(DenseLayer(n_out=width, activation="tanh"),
+                OutputLayer(n_out=10, activation="softmax"))
+          .set_input_type(InputType.feed_forward(784)).build())
+    ds = next(iter(MnistDataSetIterator(batch, num_examples=batch, seed=5)))
+    hist = {}
+    for d in ("cuda", "cpu"):
+        net = MultiLayerNetwork(gd, device=d).init()
+        net.fit(DataSet(ds.features, ds.labels), batch_size=batch)
+        hist[d] = net._solver.last_history.cpu().tolist()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hist["cuda"], hist["cpu"]))
+    check(rel <= tol_loss, f"p_parity solver: histories {hist} differ by "
+          f"{rel} relative")
+    row["line_gradient_descent"] = {"iterations": 5, "histories": hist,
+                                    "loss_rel_err": rel}
+
+    gen = torch.Generator().manual_seed(6)
+    x = (torch.rand((64, 33), generator=gen) * 6 - 3)
+    w = torch.randn((64, 33), generator=gen)
+    worst = {}
+    for name in Activation.names() + ["leakyrelu:0.2", "elu:0.5",
+                                      "clippedrelu:2.5",
+                                      "thresholdedrelu:0.7"]:
+        f = Activation.get(name)
+        got = {}
+        for d in ("cuda", "cpu"):
+            xd = x.to(d).requires_grad_(True)
+            y = f(xd)
+            g, = torch.autograd.grad((y * w.to(d)).sum(), xd)
+            got[d] = (y.detach().cpu(), g.cpu())
+        err = max(((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
+                  for a, b in zip(got["cuda"], got["cpu"]))
+        check(err <= tol_act, f"p_parity activation {name}: {err}")
+        worst[name] = err
+    row["activations"] = {"names": len(worst),
+                          "max_err": max(worst.values()), "by_name": worst}
+    emit(row)
+    return row
+
+
+def path_m_async(epochs=3, batch=1024, per_epoch=4):
+    """`path_m`'s LeNet (bfloat16, Adam(1e-3), batch 1024, 12 steps) at K
+    1 and K 4, each fed by the bare `MnistDataSetIterator` and by
+    `AsyncDataSetIterator(MnistDataSetIterator(...), prefetch=2)` (DL4J's
+    fit wrap), on PyTorch's deterministic algorithms: the async run's
+    losses bit-equal to the bare run's at the same K (the same batches in
+    the same order), B1a once a step. Each run is then traced for
+    another 3 epochs (`device_idle_share`): wall and busy ms a step, the
+    idle share, and the async pump's prefetch hit ratio. A measurement,
+    not a bar: whether the pump moves the idle share."""
+    from deeplearning4j_tpu_torch.data import (
+        AsyncDataSetIterator, MnistDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.observe import get_registry
+
+    reg = get_registry()
+    hits = reg.counter("prefetch_hits_total", stage="async")
+    misses = reg.counter("prefetch_misses_total", stage="async")
+    row = {"phase": "path_m_async", "model": "LeNet", "batch": batch,
+           "dtype": "bfloat16", "prefetch": 2}
+    launches = {"adam_update": 0, "nesterov_update": 0}
+    for k in (1, 4):
+        runs = {}
+        for tag in ("bare", "async"):
+            base = MnistDataSetIterator(batch, num_examples=per_epoch * batch,
+                                        seed=0)
+            it = AsyncDataSetIterator(base, prefetch=2) \
+                if tag == "async" else base
+            net = MultiLayerNetwork(lenet_conf(), device="cuda").init()
+            h0, m0 = hits.value, misses.value
+            with deterministic():
+                fit = timed_fit(f"path_m_async {tag} k{k}", net, it, epochs,
+                                batch, unit="images", per_epoch=per_epoch,
+                                k=k)
+                wall, busy, idle = device_idle_share(
+                    lambda: net.fit(it, epochs=epochs, steps_per_dispatch=k))
+            if tag == "async":
+                it.close()
+                for kern in launches:
+                    launches[kern] += fit["launches"][kern]
+            check(fit["launches"]["adam_update"] == fit["steps"],
+                  f"path_m_async {tag} k{k}: adam_update launched "
+                  f"{fit['launches']['adam_update']} times")
+            dh, dm = hits.value - h0, misses.value - m0
+            runs[tag] = {
+                "images_per_s_steps_5_12": fit["images_per_s_steps_5_12"],
+                "step_ms_p50": fit["step_ms_p50"],
+                "traced_wall_ms_per_step": wall / (epochs * per_epoch),
+                "traced_busy_ms_per_step": busy / (epochs * per_epoch),
+                "idle_share": idle,
+                "async_prefetch_hit_ratio": (dh / (dh + dm)) if dh + dm
+                else None,
+                "etl_ms_p50": float(np.median(fit["etl_ms"])),
+                "graph_windows": fit["graph_windows"],
+                "losses": fit["losses"]}
+            del net
+        check(runs["async"]["losses"] == runs["bare"]["losses"],
+              f"path_m_async k{k}: async losses {runs['async']['losses']} "
+              f"differ from the bare iterator's {runs['bare']['losses']}")
+        row[f"k{k}"] = runs
+    row["launches"] = launches
+    row["nvidia_smi"] = gpu_name_and_limit()
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -4571,6 +5076,9 @@ def main() -> int:
     gen = path_gen(rng)
     ckpt = path_ckpt()
     xa = path_x(rng)
+    pp = path_p()
+    p_parity()
+    ma = path_m_async()
 
     b5q = {"banded_decode_attention_q":
            qb_fp8["launches"]["banded_decode_attention_q"]
@@ -4642,6 +5150,14 @@ def main() -> int:
             summary[-1]["launches_path_s_int8"] = ps["int8"]["launches"]
             summary[-1]["launches_path_s_silenced_int8"] = \
                 ps["silenced_int8"]["launches"]
+        if name in ("adam_update", "nesterov_update"):
+            summary[-1]["launches_path_p"] = pp["launches"][name]
+            summary[-1]["launches_path_m_async"] = ma["launches"][name]
+        if name == "nesterov_update":
+            rbm = next(r for r in mine if r["leaves"] == "rbm")
+            summary[-1]["path_p"] = {k: rbm[k] for k in (
+                "dtype", "elements", "n_leaves", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "max_abs_err")}
         if name == "adam_update":
             lenet = next(r for r in mine if r["leaves"] == "lenet")
             summary[-1]["launches_path_m"] = m["launches"][name]

@@ -6,12 +6,15 @@ from deeplearning4j_tpu_torch.data.datasets import (
     MnistDataSetIterator, load_cifar10, load_iris, load_lfw, load_mnist,
 )
 from deeplearning4j_tpu_torch.data.iterators import (
-    ArrayDataSetIterator, DataSetIterator, DevicePrefetchIterator,
-    as_iterator,
+    ArrayDataSetIterator, AsyncDataSetIterator, BenchmarkDataSetIterator,
+    DataSetIterator, DevicePrefetchIterator, EarlyTerminationDataSetIterator,
+    FileSplitDataSetIterator, MultipleEpochsIterator, as_iterator,
 )
 
 __all__ = ["DataSet", "MultiDataSet", "DataSetIterator", "ArrayDataSetIterator",
            "DevicePrefetchIterator", "as_iterator", "load_mnist",
            "MnistDataSetIterator", "load_cifar10", "CifarDataSetIterator",
            "load_iris", "IrisDataSetIterator", "load_lfw",
-           "LFWDataSetIterator"]
+           "LFWDataSetIterator", "AsyncDataSetIterator",
+           "MultipleEpochsIterator", "EarlyTerminationDataSetIterator",
+           "BenchmarkDataSetIterator", "FileSplitDataSetIterator"]

@@ -30,6 +30,31 @@ class DataSet:
         return DataSet(self.features[idx], pick(self.labels),
                        pick(self.features_mask), pick(self.labels_mask))
 
+    def save(self, path) -> str:
+        """One .npz in the JAX package's layout (arrays `features`,
+        `labels`, `features_mask`, `labels_mask`, each only where
+        present); returns the path written (".npz" appended if
+        missing)."""
+        path = os.fspath(path)
+        if not path.endswith(".npz"):
+            path += ".npz"
+        arrays = {"features": np.asarray(self.features)}
+        for k in ("labels", "features_mask", "labels_mask"):
+            v = getattr(self, k)
+            if v is not None:
+                arrays[k] = np.asarray(v)
+        with open(path, "wb") as f:
+            np.savez(f, **arrays)
+        return path
+
+    @staticmethod
+    def load(path) -> "DataSet":
+        with np.load(os.fspath(path)) as blob:
+            def get(k):
+                return blob[k] if k in blob.files else None
+            return DataSet(blob["features"], get("labels"),
+                           get("features_mask"), get("labels_mask"))
+
 
 @dataclasses.dataclass
 class MultiDataSet:

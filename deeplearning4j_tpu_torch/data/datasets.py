@@ -11,8 +11,9 @@ bit-equal to the JAX package's for the same split.
 
 The IDX reader, the byte-to-float scaling and the one-hot encoding are
 numpy (the JAX package's fallbacks for its host C++ helpers). Iris ships
-embedded (150 rows, public-domain Fisher data). LFW needs the image
-record reader, which is not ported: its loader and iterator refuse.
+embedded (150 rows, public-domain Fisher data). LFW reads its
+directory-per-person layout through `data/records.ImageRecordReader`
+(PIL, imported only then) or falls back to the synthetic surrogate.
 """
 
 from __future__ import annotations
@@ -232,17 +233,71 @@ class IrisDataSetIterator(ArrayDataSetIterator):
 
 
 # ---------------------------------------------------------------------- LFW
-def load_lfw(*args, **kwargs):
-    """Labeled Faces in the Wild: reads its directory-per-person layout
-    through the image record reader, which is not ported."""
-    from deeplearning4j_tpu_torch.models.multilayer import _refuse
+def load_lfw(*, height: int = 64, width: int = 64, channels: int = 3,
+             num_labels: Optional[int] = None,
+             num_examples: Optional[int] = None
+             ) -> Tuple[np.ndarray, np.ndarray, list, bool]:
+    """Labeled Faces in the Wild: (images [N, H, W, C] float32 in [0, 1],
+    one-hot labels [N, num_labels], label names, synthetic flag).
 
-    _refuse("load_lfw (data/records.ImageRecordReader)", "A1b")
+    Reads `<data_dir>/lfw/<person>/<image>` through `ImageRecordReader`;
+    absent or empty, falls back to the deterministic synthetic surrogate
+    (per-identity prototypes blended at 0.7), flagged by the returned
+    bool, bit-equal to the JAX package's. `num_labels` keeps the people
+    with the most images; `num_examples` truncates after a seeded
+    shuffle."""
+    base = os.path.join(data_dir(), "lfw")
+    per_label: dict = {}
+    if os.path.isdir(base):
+        from deeplearning4j_tpu_torch.data.records import ImageRecordReader
+
+        rr = ImageRecordReader(base, height=height, width=width,
+                               channels=channels)
+        for arr, li in rr:
+            per_label.setdefault(li, []).append(arr)
+    if per_label:
+        keep = sorted(per_label, key=lambda li: (-len(per_label[li]), li))
+        if num_labels:
+            keep = keep[:num_labels]
+        names = [rr.labels[li] for li in keep]
+        xs, ys = [], []
+        for new_li, li in enumerate(keep):
+            xs.extend(per_label[li])
+            ys.extend([new_li] * len(per_label[li]))
+        x = np.asarray(xs, np.float32)
+        y = np.eye(len(keep), dtype=np.float32)[np.asarray(ys)]
+        if num_examples:
+            # examples are grouped by identity: shuffle before cutting
+            sel = np.random.default_rng(12345).permutation(len(x))[
+                :num_examples]
+            x, y = x[sel], y[sel]
+        return x, y, names, False
+    k = num_labels or 10
+    n = num_examples or 40 * k
+    x, y = _synthetic_surrogate(n, k, (height, width, channels),
+                                proto_seed=9, sample_seed=46, blend=0.7)
+    return x, y, [f"person_{i:04d}" for i in range(k)], True
 
 
 class LFWDataSetIterator(ArrayDataSetIterator):
-    """Reference: `datasets/iterator/impl/LFWDataSetIterator.java`; refuses
-    with `load_lfw`."""
+    """Reference: `datasets/iterator/impl/LFWDataSetIterator.java`: the
+    batch size, image shape, example and label counts, and a seeded
+    train/test split (`split_train_test` of the examples train)."""
 
-    def __init__(self, *args, **kwargs):
-        load_lfw()
+    def __init__(self, batch_size: int,
+                 image_shape: Tuple[int, int, int] = (64, 64, 3), *,
+                 train: bool = True, split_train_test: float = 0.8,
+                 num_examples: Optional[int] = None,
+                 num_labels: Optional[int] = None, shuffle: bool = True,
+                 seed: int = 123):
+        h, w, c = image_shape
+        x, y, names, synthetic = load_lfw(
+            height=h, width=w, channels=c, num_labels=num_labels,
+            num_examples=num_examples)
+        perm = np.random.default_rng(seed).permutation(len(x))
+        cut = int(len(x) * split_train_test)
+        sel = perm[:cut] if train else perm[cut:]
+        self.synthetic = synthetic
+        self.label_names = names
+        super().__init__(x[sel], y[sel], batch_size, shuffle=shuffle,
+                         seed=seed)

@@ -1,20 +1,33 @@
-"""DataSet iterators — port of the training half of
-`deeplearning4j_tpu/data/iterators.py`: the base protocol,
-`ArrayDataSetIterator`, `IterableDataSetIterator`, `as_iterator`, and
-`DevicePrefetchIterator`, which keeps `depth` batches' copies to the
-net's device in flight ahead of the step that consumes them. The last
-three carry `MultiDataSet` batches as well as `DataSet`s.
+"""DataSet iterators — port of `deeplearning4j_tpu/data/iterators.py`:
+the base protocol, `ArrayDataSetIterator`, `IterableDataSetIterator`,
+`as_iterator`, `DevicePrefetchIterator`, which keeps `depth` batches'
+copies to the net's device in flight ahead of the step that consumes
+them, the background-thread `AsyncDataSetIterator` (DL4J's, which
+`MultiLayerNetwork.fit` wraps around its iterator), and the decorators
+`MultipleEpochsIterator`, `EarlyTerminationDataSetIterator`,
+`BenchmarkDataSetIterator` and `FileSplitDataSetIterator`. The
+prefetching iterators carry `MultiDataSet` batches as well as
+`DataSet`s.
 
 On a CUDA device each copy is a `non_blocking` copy from pinned host
 memory on a side stream of the iterator's own, so the copy of batch N+1
 overlaps step N's kernels; the consumer's stream waits on the copy's
-event only when it takes the batch. (The background-thread
-`AsyncDataSetIterator` comes later.)
+event only when it takes the batch.
+
+The two compose: `AsyncDataSetIterator` hides host-side ETL (decoding,
+collation) on its thread, `DevicePrefetchIterator` the copy. The async
+pump thread makes no CUDA call at all (no pinning, no copy, no tensor on
+the card): under `fit(steps_per_dispatch=K)` the main thread captures
+CUDA graphs, and a CUDA call from another thread during a capture
+invalidates it.
 """
 
 from __future__ import annotations
 
 import collections
+import os
+import queue
+import threading
 from typing import Callable, Iterator, List, Optional
 
 import numpy as np
@@ -44,6 +57,9 @@ class DataSetIterator:
     @property
     def num_outcomes(self) -> Optional[int]:
         return None
+
+    def async_(self, prefetch: int = 2) -> "AsyncDataSetIterator":
+        return AsyncDataSetIterator(self, prefetch)
 
 
 class ArrayDataSetIterator(DataSetIterator):
@@ -212,6 +228,248 @@ class DevicePrefetchIterator(DataSetIterator):
     @property
     def num_outcomes(self):
         return self._base.num_outcomes
+
+
+class AsyncDataSetIterator(DataSetIterator):
+    """Background-thread prefetch (reference: `AsyncDataSetIterator.java`): a
+    pump thread iterates `base` and keeps up to `prefetch` batches in a
+    queue ahead of the consumer. The pump is stop-aware (a `reset()` or
+    `close()` stops it and it exits instead of blocking on a full queue;
+    `reset()` joins it before the next pump touches `base`), always ends
+    its pass with a sentinel, and an error it raises reaches the
+    consumer on its next batch, before any batch still buffered (fail
+    fast: no silently truncated epoch). `close()` (or leaving a `with`
+    block) stops the pump and joins it.
+
+    The pump only calls `base`'s iteration: it must yield host batches
+    (numpy), as every dataset iterator of the port does; the copy to the
+    card happens in the consumer's thread (`DevicePrefetchIterator`).
+    Counters (stage "async"): `etl_batches_total`, `prefetch_hits_total`
+    (a batch was waiting in the queue), `prefetch_misses_total` (the
+    consumer waited for the pump) and the gauge
+    `prefetch_queue_depth`."""
+
+    _SENTINEL = object()
+
+    def __init__(self, base: DataSetIterator, prefetch: int = 2):
+        self._base = base
+        self._prefetch = prefetch
+        self._queue: Optional[queue.Queue] = None
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._stop: Optional[threading.Event] = None
+        reg = get_registry()
+        self._m_batches = reg.counter("etl_batches_total", stage="async")
+        self._m_hits = reg.counter("prefetch_hits_total", stage="async")
+        self._m_misses = reg.counter("prefetch_misses_total", stage="async")
+        self._m_depth = reg.gauge("prefetch_queue_depth", stage="async")
+
+    def _put(self, q: queue.Queue, stop: threading.Event, item) -> bool:
+        """A bounded put that gives up when `stop` is set."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _pump(self, q: queue.Queue, stop: threading.Event):
+        try:
+            for d in self._base:
+                if not self._put(q, stop, d):
+                    return
+        except BaseException as e:  # surfaced on the consumer side
+            self._error = e
+        finally:
+            # the sentinel must reach the consumer, or it waits forever
+            self._put(q, stop, self._SENTINEL)
+
+    def reset(self):
+        # the previous pump is stopped and joined before a new one starts:
+        # both would iterate the one `base`, and an orphaned pump could
+        # take a batch of the new pass and drop it (`for ds in
+        # iter(iterable)` resets twice before its first batch)
+        self.close(timeout=None)
+        self._queue = queue.Queue(maxsize=self._prefetch + 1)  # + sentinel
+        self._error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._pump, args=(self._queue, self._stop), daemon=True,
+            name="async-dataset-pump")
+        self._thread.start()
+
+    def __next__(self) -> DataSet:
+        if self._queue is None:
+            self.reset()
+        if self._error is not None:
+            err, self._error = self._error, None
+            self.close()
+            raise err
+        # non-empty before the get: the pump stayed ahead (a hit)
+        depth = self._queue.qsize()
+        self._m_depth.set(depth)
+        item = self._queue.get()
+        if item is self._SENTINEL:
+            self._queue = None
+            if self._error is not None:
+                err, self._error = self._error, None
+                raise err
+            raise StopIteration
+        (self._m_hits if depth > 0 else self._m_misses).inc()
+        self._m_batches.inc()
+        return item
+
+    def close(self, timeout: Optional[float] = 5.0) -> None:
+        """Stop the pump and join its thread (waiting at most `timeout`
+        seconds; `reset` waits as long as it takes); safe to call
+        twice."""
+        if self._stop is not None:
+            self._stop.set()
+        q, t = self._queue, self._thread
+        if q is not None:
+            # drain, so a pump blocked on a full queue sees the stop
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+        if t is not None and t.is_alive():
+            t.join(timeout=timeout)
+        self._queue = None
+        self._thread = None
+
+    def __enter__(self) -> "AsyncDataSetIterator":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+    @property
+    def batch_size(self):
+        return self._base.batch_size
+
+    @property
+    def num_outcomes(self):
+        return self._base.num_outcomes
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """`base` repeated `epochs` times as one pass (reference:
+    `MultipleEpochsIterator`)."""
+
+    def __init__(self, base: DataSetIterator, epochs: int):
+        self._base = base
+        self._epochs = epochs
+        self._epoch = 0
+        self._inner: Optional[Iterator] = None
+
+    def reset(self):
+        self._epoch = 0
+        self._inner = iter(self._base)
+
+    def __next__(self) -> DataSet:
+        if self._inner is None:
+            self.reset()
+        while True:
+            try:
+                return next(self._inner)
+            except StopIteration:
+                self._epoch += 1
+                if self._epoch >= self._epochs:
+                    raise
+                self._inner = iter(self._base)
+
+
+class EarlyTerminationDataSetIterator(DataSetIterator):
+    """At most `max_batches` batches of `base` a pass (reference:
+    `EarlyTerminationDataSetIterator`)."""
+
+    def __init__(self, base: DataSetIterator, max_batches: int):
+        self._base = base
+        self._max = max_batches
+        self._count = 0
+        self._inner: Optional[Iterator] = None
+
+    def reset(self):
+        self._count = 0
+        self._inner = iter(self._base)
+
+    def __next__(self) -> DataSet:
+        if self._inner is None:
+            self.reset()
+        if self._count >= self._max:
+            raise StopIteration
+        self._count += 1
+        return next(self._inner)
+
+
+class BenchmarkDataSetIterator(DataSetIterator):
+    """The same synthetic batch `num_batches` times, for throughput
+    measurement (reference: `BenchmarkDataSetIterator`): features
+    standard normal of `feature_shape` (its first axis the batch),
+    one-hot labels over `num_classes` unless `label_shape` asks for
+    normal ones; numpy draws from `seed`, as the JAX package's."""
+
+    def __init__(self, feature_shape, num_classes: int, num_batches: int,
+                 seed: int = 0, label_shape=None):
+        rng = np.random.default_rng(seed)
+        self._features = rng.standard_normal(feature_shape, dtype=np.float32)
+        b = feature_shape[0]
+        if label_shape is None:
+            labels = np.zeros((b, num_classes), dtype=np.float32)
+            labels[np.arange(b), rng.integers(0, num_classes, b)] = 1.0
+        else:
+            labels = rng.standard_normal(label_shape).astype(np.float32)
+        self._labels = labels
+        self._n = num_batches
+        self._i = 0
+
+    def reset(self):
+        self._i = 0
+
+    def __next__(self) -> DataSet:
+        if self._i >= self._n:
+            raise StopIteration
+        self._i += 1
+        return DataSet(self._features, self._labels)
+
+    @property
+    def batch_size(self):
+        return int(self._features.shape[0])
+
+    @property
+    def num_outcomes(self):
+        return int(self._labels.shape[-1])
+
+
+class FileSplitDataSetIterator(DataSetIterator):
+    """One saved DataSet file a batch (reference:
+    `FileSplitDataSetIterator`): `files` is an iterable of paths or a
+    directory (its `*.npz`, sorted); `loader` defaults to
+    `DataSet.load`."""
+
+    def __init__(self, files, loader=None):
+        if isinstance(files, (str, os.PathLike)):
+            d = os.fspath(files)
+            self.files = [os.path.join(d, n) for n in sorted(os.listdir(d))
+                          if n.endswith(".npz")]
+        else:
+            self.files = [os.fspath(f) for f in files]
+        if not self.files:
+            raise ValueError("FileSplitDataSetIterator: no files")
+        self.loader = loader or DataSet.load
+        self._i = 0
+
+    def reset(self):
+        self._i = 0
+
+    def __next__(self):
+        if self._i >= len(self.files):
+            raise StopIteration
+        ds = self.loader(self.files[self._i])
+        self._i += 1
+        return ds
 
 
 def _batch_tensors(ds) -> list:

@@ -27,9 +27,13 @@ runtime's does (lockstep KV caches, one graph replay a call), for
 `utils/textgen`'s `generate` and `beam_search` too; gradient
 checkpointing recomputes each layer vertex in the backward.
 
+`pretrain` trains the pretrainable layer vertices in topological
+order, and a non-SGD `optimization_algo` fits each batch with a
+full-batch solver, as `MultiLayerNetwork`'s do; `params()` /
+`set_params()` are the flat view (vertex names sorted, depth first).
+
 Not ported yet, and refused rather than ignored: truncated BPTT (ROADMAP
-A3), the full-batch solvers and `pretrain` (A1) and the recovery
-arguments (A6).
+A3) and the recovery arguments (A6).
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from deeplearning4j_tpu_torch.models.multilayer import (
 from deeplearning4j_tpu_torch.nn.graph import (
     ComputationGraphConfiguration, LayerVertex, resolve_output_type,
 )
+from deeplearning4j_tpu_torch.nn.layers.special import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.optim.executor import (
     LossTracker, TrainingExecutor,
 )
@@ -89,6 +94,8 @@ class ComputationGraph:
         self._graphs = NetGraphs(self.device)
         self.fit_stats = {"graph_windows": 0, "eager_steps": 0}
         self._decode_state = DecodeState()
+        self._solver = None
+        self.pretrain_losses: Dict[str, List[torch.Tensor]] = {}
 
     @property
     def score_(self) -> Optional[float]:
@@ -166,7 +173,8 @@ class ComputationGraph:
 
     def _forward(self, params, states, inputs: Dict[str, Any], *,
                  train: bool, rng=None, fmasks=None,
-                 scoring: bool = False, carries=None):
+                 scoring: bool = False, carries=None,
+                 stop_before: Optional[str] = None):
         """Fold over the topological order. Returns (values, out_inputs,
         new_states): `out_inputs[name]` is the input each output layer
         saw (after its preprocessor), which its fused loss scores. With
@@ -176,12 +184,15 @@ class ComputationGraph:
         one, or, with `key_mask_input` (`CrossAttentionVertex`), only the
         named network input's. Under `gradient_checkpointing` every
         layer vertex but an output layer is checkpointed in training
-        (`_checkpointed`); parameterless vertices are not wrapped."""
+        (`_checkpointed`); parameterless vertices are not wrapped. The
+        fold stops at `stop_before`, which is not run."""
         values: Dict[str, Any] = dict(inputs)
         out_inputs: Dict[str, Any] = {}
         new_states: Dict[str, Any] = {}
         ckpt = train and self.conf.gradient_checkpointing
         for name in self.conf.topological_order:
+            if name == stop_before:
+                break
             v = self.conf.vertices[name]
             ins = [values[i] for i in self.conf.vertex_inputs[name]]
             st = states.get(name) or None
@@ -230,8 +241,14 @@ class ComputationGraph:
             if not self._is_output(v):
                 continue
             lm = lmasks.get(name) if lmasks else None
-            total = total + v.layer.score(params[name], out_inputs[name],
-                                          labels[name], lm)
+            if isinstance(v.layer, CenterLossOutputLayer):
+                sc, new_states[name] = v.layer.score_and_state(
+                    params[name], out_inputs[name], labels[name],
+                    states[name], lm)
+            else:
+                sc = v.layer.score(params[name], out_inputs[name],
+                                   labels[name], lm)
+            total = total + sc
         for name, v in self.conf.vertices.items():
             if isinstance(v, LayerVertex) and any(
                     (v.layer.l1, v.layer.l2, v.layer.l1_bias,
@@ -346,9 +363,6 @@ class ComputationGraph:
                 stop_fn is not None or preemption:
             _refuse("checkpointed, resumable or stoppable fit "
                     "(optim/recovery.py)", "A6")
-        if self.conf.optimization_algo != "stochastic_gradient_descent":
-            _refuse(f"solver {self.conf.optimization_algo!r} "
-                    f"(optim/solvers.py)", "A1")
         k = max(1, int(steps_per_dispatch))
         it = as_iterator(data, labels, batch_size)
         if device_prefetch:
@@ -368,6 +382,13 @@ class ComputationGraph:
     _state_addresses = MultiLayerNetwork._state_addresses
     _generators = MultiLayerNetwork._generators
     _fused_dispatch = MultiLayerNetwork._fused_dispatch
+    # the solver step, the flat parameter view and the listener calls
+    _fit_solver = MultiLayerNetwork._fit_solver
+    params = MultiLayerNetwork.params
+    set_params = MultiLayerNetwork.set_params
+    set_listeners = MultiLayerNetwork.set_listeners
+    add_listener = MultiLayerNetwork.add_listener
+    _pretrain_layer = MultiLayerNetwork._pretrain_layer
 
     def _on_device(self, ds):
         first = ds.features[0] if isinstance(ds, MultiDataSet) \
@@ -381,7 +402,10 @@ class ComputationGraph:
         self._check_inputs(self._to_dicts(ds)[0])
 
     def _fit_batch(self, ds):
-        """One train step on one batch; returns the device loss."""
+        """One train step on one batch (one solver run under a non-SGD
+        algorithm); returns the device loss."""
+        if self.conf.optimization_algo != "stochastic_gradient_descent":
+            return self._fit_solver(ds)
         ds = self._on_device(ds)
         self._check_batch(ds)
         self.fit_stats["eager_steps"] += 1
@@ -405,8 +429,41 @@ class ComputationGraph:
     def _can_fuse(self, ds) -> bool:
         return self.conf.optimization_algo == "stochastic_gradient_descent"
 
-    def pretrain(self, *args, **kwargs):
-        _refuse("layerwise pretraining of a ComputationGraph", "A1")
+    def _solver_loss(self, params, states, fields):
+        """The deterministic train-mode loss a solver minimizes: (loss,
+        new states) of `params` on one batch's dicts."""
+        feats, labs, fmasks, lmasks = fields
+        return self._loss(params, states, feats, labs, fmasks, lmasks, None,
+                          train=True)
+
+    def pretrain(self, data, *, epochs: int = 1, batch_size: int = 32):
+        """Greedy layerwise pretraining of the pretrainable layer vertices
+        (AutoEncoder, RBM, VAE) in topological order (reference:
+        `ComputationGraph.pretrain`), each on its first input's
+        activation: the graph folded in eval mode up to that vertex, then
+        its preprocessor. One gradient a batch through the vertex's own
+        updater, as `MultiLayerNetwork.pretrain`. Returns the net."""
+        self._check_init()
+        it = as_iterator(data, None, batch_size)
+        self.pretrain_losses = {}
+        for name in self.conf.topological_order:
+            v = self.conf.vertices[name]
+            if not (isinstance(v, LayerVertex) and v.layer.is_pretrainable):
+                continue
+
+            def featurize(feats, name=name, v=v):
+                values, _, _ = self._forward(self.params_tree,
+                                             self.state_tree, feats,
+                                             train=False, stop_before=name)
+                x = values[self.conf.vertex_inputs[name][0]]
+                if v.preprocessor is not None:
+                    x = v.preprocessor.apply(x)
+                return x
+
+            self._pretrain_layer(v.layer, name, self._vertex_updaters[name],
+                                 featurize, it, epochs,
+                                 lambda ds: self._to_dicts(ds)[0])
+        return self
 
     # ------------------------------------------------ stateful stepping
     @torch.no_grad()

@@ -13,6 +13,13 @@ batch-norm and fused conv+BN running statistics are `state_tree`,
 loaded by `state_from_numpy`. With the trees carried across, a
 trajectory resumes mid-training in either package (the step count is
 `net.iteration`).
+
+The pretrainable and special layers load the same way: a `FrozenLayer`'s
+tree is its inner layer's, the variational autoencoder's is nested
+(`enc` / `dec` blocks "0", "1", ... of `W` and `b`, then `mu`, `logvar`
+and `rec`), an RBM's is `W`, `hb`, `vb`, an AutoEncoder's `W`, `b`, `vb`,
+and a `CenterLossOutputLayer`'s class centers are its `state_tree`
+entry (`centers`, [n_out, n_in]), loaded by `state_from_numpy`.
 """
 
 from __future__ import annotations

@@ -30,6 +30,13 @@ moments, the batch-norm running statistics and the step counter are
 updated in place, never rebound. `cuda_graphs = False` runs those calls
 eagerly instead (the plain version of the graphs).
 
+`pretrain` trains each pretrainable layer (AutoEncoder, RBM, VAE) on
+its `reconstruction_score`, layer by layer, through that layer's own
+updater (kernel B1a under Adam, B1b under Nesterovs); a configuration
+whose `optimization_algo` is not SGD fits each batch with a full-batch
+solver (`optim/solvers.py`) over the flat parameter view (`params()` /
+`set_params()`, which copy into the net's tensors in place).
+
 Slot-indexed sessions thread their carries through `session_step` and
 `session_decode_window` as arguments, as in JAX, but the KV caches
 inside those carries are updated in place (see
@@ -59,6 +66,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
 )
 from deeplearning4j_tpu_torch.nn.layers.attention import new_kv_cache
 from deeplearning4j_tpu_torch.nn.layers.base import RngTape
+from deeplearning4j_tpu_torch.nn.layers.special import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.optim.executor import (
     LossTracker, TrainingExecutor,
 )
@@ -68,6 +76,9 @@ from deeplearning4j_tpu_torch.optim.updaters import (
 )
 from deeplearning4j_tpu_torch.utils.cuda_graphs import NetGraphs
 from deeplearning4j_tpu_torch.utils.device import resolve_device
+from deeplearning4j_tpu_torch.utils.pytrees import (
+    copy_flat_, flatten_params,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -446,6 +457,8 @@ class MultiLayerNetwork:
         self.cuda_graphs = True
         self._graphs = NetGraphs(self.device)
         self.fit_stats = {"graph_windows": 0, "eager_steps": 0}
+        self._solver = None
+        self.pretrain_losses: Dict[str, List[torch.Tensor]] = {}
 
     @property
     def score_(self) -> Optional[float]:
@@ -501,7 +514,7 @@ class MultiLayerNetwork:
     # ---------------------------------------------------------- forward
     def _forward(self, params, x, *, train: bool = False, rng=None,
                  fmask=None, carries=None, stop: Optional[int] = None,
-                 states=None):
+                 states=None, acts: Optional[list] = None):
         """Run layers[:stop] (all by default), each after its input
         preprocessor; returns (output, new states by layer name). A
         layer's state is its entry in `carries` (recurrent carries), else
@@ -509,7 +522,8 @@ class MultiLayerNetwork:
         statistics). Dropout draws from the generator `rng` when
         `train`. Under `gradient_checkpointing` every layer but the
         output layer is checkpointed in training (`_checkpointed`); the
-        output layer's input is kept for the loss anyway."""
+        output layer's input is kept for the loss anyway. With `acts` a
+        list, each layer's output is appended to it."""
         new_states = {}
         pps = self.conf.preprocessors
         states = self.state_tree if states is None else states
@@ -529,6 +543,8 @@ class MultiLayerNetwork:
                 x, new_st = layer.apply(params[layer.name], x, state=st,
                                         train=train, rng=rng, mask=fmask)
             new_states[layer.name] = new_st
+            if acts is not None:
+                acts.append(x)
         return x, new_states
 
     # ------------------------------------------------------------- loss
@@ -536,7 +552,9 @@ class MultiLayerNetwork:
               train: bool = True, carries=None, states=None):
         """Score = output-layer loss + L1/L2 regularization + any layer's
         `aux_loss`. The output layer scores its INPUT (its softmax is
-        fused into the loss), so the stack runs up to it."""
+        fused into the loss), so the stack runs up to it. A
+        `CenterLossOutputLayer` adds its center term and returns its
+        moved centers as its new state."""
         out_layer = self.layers[-1]
         if not out_layer.is_output_layer:
             raise ValueError(f"the last layer ({out_layer.name}) is not an "
@@ -549,8 +567,14 @@ class MultiLayerNetwork:
             out_in = self.conf.preprocessors[last].apply(out_in, fmask)
         score_mask = lmask if lmask is not None else (
             fmask if labels is not None and labels.ndim == 3 else None)
-        score = out_layer.score(params[out_layer.name], out_in, labels,
-                                score_mask)
+        if isinstance(out_layer, CenterLossOutputLayer):
+            st = (self.state_tree if states is None else states)
+            score, new_states[out_layer.name] = out_layer.score_and_state(
+                params[out_layer.name], out_in, labels, st[out_layer.name],
+                score_mask)
+        else:
+            score = out_layer.score(params[out_layer.name], out_in, labels,
+                                    score_mask)
         reg = sum(layer.regularization(params[layer.name])
                   for layer in self.layers
                   if any((layer.l1, layer.l2, layer.l1_bias, layer.l2_bias)))
@@ -613,16 +637,17 @@ class MultiLayerNetwork:
         ``conf.gradient_checkpointing`` recomputes each layer's
         activations in the backward (`_checkpointed`).
 
+        Under a non-SGD ``conf.optimization_algo`` each batch is one
+        full-batch solver run of ``conf.solver_iterations`` iterations
+        (`optim/solvers.fit_with_solver`), never fused.
+
         Refused rather than ignored, until ported: ``checkpointer``,
-        ``resume``, ``stop_fn``, ``preemption`` and non-SGD solvers."""
+        ``resume``, ``stop_fn`` and ``preemption``."""
         self._check_init()
         if checkpointer is not None or resume is not None or \
                 stop_fn is not None or preemption:
             _refuse("checkpointed, resumable or stoppable fit "
                     "(optim/recovery.py)", "A6")
-        if self.conf.optimization_algo != "stochastic_gradient_descent":
-            _refuse(f"solver {self.conf.optimization_algo!r} "
-                    f"(optim/solvers.py)", "A1")
         k = max(1, int(steps_per_dispatch))
         it = as_iterator(data, labels, batch_size)
         if device_prefetch:
@@ -693,9 +718,29 @@ class MultiLayerNetwork:
         return ds
 
     def _dispatch_batch(self, ds: DataSet):
+        if self.conf.optimization_algo != "stochastic_gradient_descent":
+            return self._fit_solver(ds)
         if self.conf.tbptt_fwd_length > 0 and ds.features.ndim == 3:
             return self._fit_tbptt(ds)
         return self._fit_batch(ds)
+
+    def _fit_solver(self, ds):
+        """One batch under the configured full-batch solver; returns the
+        final loss on the device (shared with `ComputationGraph`)."""
+        from deeplearning4j_tpu_torch.optim.solvers import fit_with_solver
+
+        ds = self._on_device(ds)
+        self._check_batch(ds)
+        self.fit_stats["eager_steps"] += 1
+        return fit_with_solver(self, *self._batch_fields(ds))
+
+    def _solver_loss(self, params, states, fields):
+        """The deterministic train-mode loss (no dropout) a solver
+        minimizes: (loss, new states) of `params` on one batch's
+        fields."""
+        features, labels, fmask, lmask = fields
+        return self._loss(params, features, labels, fmask, lmask, None,
+                          train=True, states=states)
 
     def _check_batch(self, ds: DataSet) -> None:
         self._check_input(ds.features)
@@ -893,6 +938,105 @@ class MultiLayerNetwork:
     def num_params(self) -> int:
         self._check_init()
         return sum(p.numel() for p in tree_leaves(self.params_tree))
+
+    @torch.no_grad()
+    def feed_forward(self, x, train: bool = False) -> List[torch.Tensor]:
+        """Every layer's activations, in order (reference:
+        `feedForward`); no dropout."""
+        self._check_init()
+        acts: List[torch.Tensor] = []
+        self._forward(self.params_tree, _as_tensor(x, self.dtype, self.device),
+                      train=train, acts=acts)
+        return acts
+
+    # ------------------------------------------------------ pretraining
+    def pretrain(self, data, *, epochs: int = 1, batch_size: int = 32):
+        """Greedy layerwise unsupervised pretraining (reference:
+        `pretrain`): each pretrainable layer in order (AutoEncoder, RBM,
+        VAE) is trained for `epochs` passes over `data` (features only)
+        on its `reconstruction_score` of its input, the batch featurized
+        through the layers before it and their preprocessors in eval
+        mode. One gradient a batch, applied by the layer's own updater
+        (`_grad_and_update` with a one-layer group: one B1a launch a step
+        under Adam, one B1b under Nesterovs), from fresh optimizer state
+        and a step count from 0, as in JAX; a frozen layer is skipped.
+        The losses stay on the device, in `pretrain_losses[layer name]`.
+        Returns the net."""
+        self._check_init()
+        it = as_iterator(data, None, batch_size)
+        self.pretrain_losses = {}
+        for idx, layer in enumerate(self.layers):
+            if not layer.is_pretrainable:
+                continue
+
+            def featurize(feats, idx=idx):
+                x, _ = self._forward(self.params_tree, feats, stop=idx)
+                if idx in self.conf.preprocessors:
+                    x = self.conf.preprocessors[idx].apply(x)
+                return x
+
+            self._pretrain_layer(layer, layer.name,
+                                 self._layer_updaters[layer.name], featurize,
+                                 it, epochs, lambda ds: ds.features)
+        return self
+
+    def _pretrain_layer(self, layer, name: str, updater: Updater, featurize,
+                        it, epochs: int, features_of):
+        """`pretrain`'s loop for one layer (or layer vertex) `name` under
+        its `updater`; `featurize(batch features) -> its input`,
+        `features_of(batch on the device)` picks what `featurize`
+        reads."""
+        if isinstance(updater, NoOp):
+            return
+        params = {name: self.params_tree[name]}
+        opt = {name: updater.init(params[name])}
+        step = torch.zeros((), dtype=torch.int64, device=self.device)
+        losses = self.pretrain_losses.setdefault(name, [])
+        for _ in range(epochs):
+            for ds in it:
+                with torch.no_grad():
+                    x = featurize(features_of(self._put_batch(ds)))
+                loss, _ = _grad_and_update(
+                    lambda live: (layer.reconstruction_score(
+                        live[name], x, rng=self._rng), None),
+                    params, opt, [(updater, [name])], "none", 1.0, step)
+                losses.append(loss)
+                step.add_(1)
+
+    # ------------------------------------------------------ param views
+    def params(self) -> torch.Tensor:
+        """Every parameter in one flat vector, on the net's device
+        (reference: `Model.params()`), in the JAX package's order (keys
+        sorted, depth first): equal element for element to the JAX net's
+        `params()` on the same weights."""
+        self._check_init()
+        return flatten_params(self.params_tree)[0]
+
+    def set_params(self, flat) -> None:
+        """Load a flat vector (a tensor or an array, `params()`'s order)
+        by copying into the net's tensors in place: a captured CUDA graph
+        keeps reading the live weights."""
+        self._check_init()
+        if not isinstance(flat, torch.Tensor):
+            flat = torch.tensor(np.asarray(flat))
+        copy_flat_(self.params_tree, flat.to(self.device))
+
+    def set_listeners(self, *listeners: TrainingListener) -> None:
+        self.listeners = list(listeners)
+
+    def add_listener(self, listener: TrainingListener) -> None:
+        self.listeners.append(listener)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A new net on the same configuration and device with copies of
+        the parameters and layer states (reference: `clone()`)."""
+        self._check_init()
+        other = type(self)(self.conf, device=self.device).init()
+        with torch.no_grad():
+            tree_map(lambda d, s: d.copy_(s), other.params_tree,
+                     self.params_tree)
+            _copy_states(other.state_tree, self.state_tree)
+        return other
 
     # ------------------------------------------------ stateful stepping
     @property

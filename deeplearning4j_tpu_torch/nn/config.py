@@ -80,6 +80,14 @@ class MultiLayerConfiguration:
         return dataclasses.replace(conf, layers=tuple(conf.layers),
                                    preprocessors=pp)
 
+    def layer_names(self) -> List[str]:
+        return [l.name for l in self.layers]
+
+
+OPTIMIZATION_ALGOS = frozenset({"stochastic_gradient_descent",
+                                "conjugate_gradient", "lbfgs",
+                                "line_gradient_descent"})
+
 
 class NeuralNetConfiguration:
     """Entry point: `NeuralNetConfiguration.builder()`."""
@@ -105,7 +113,10 @@ class Builder:
         self._dtype = "float32"
         self._grad_norm = "none"
         self._grad_norm_threshold = 1.0
+        self._mini_batch = True
         self._grad_ckpt = False
+        self._opt_algo = "stochastic_gradient_descent"
+        self._solver_iterations = 100
 
     def seed(self, s: int) -> "Builder":
         self._seed = int(s)
@@ -149,12 +160,43 @@ class Builder:
         self._grad_norm_threshold = threshold
         return self
 
+    def mini_batch(self, v: bool) -> "Builder":
+        self._mini_batch = v
+        return self
+
     def gradient_checkpointing(self, v: bool = True) -> "Builder":
         """Recompute layer activations in the backward pass
         (`torch.utils.checkpoint` a layer or layer vertex): memory for
         operations."""
         self._grad_ckpt = v
         return self
+
+    def optimization_algo(self, algo: str,
+                          iterations: Optional[int] = None) -> "Builder":
+        """DL4J's `optimizationAlgo`: stochastic_gradient_descent (or
+        "sgd", the default), conjugate_gradient (or "cg"), lbfgs or
+        line_gradient_descent; a solver runs `iterations` full-batch
+        iterations a fit batch (`optim/solvers.py`)."""
+        algo = str(algo).lower()
+        algo = {"sgd": "stochastic_gradient_descent",
+                "cg": "conjugate_gradient"}.get(algo, algo)
+        if algo not in OPTIMIZATION_ALGOS:
+            raise ValueError(
+                f"Unknown optimization algorithm {algo!r}; known: "
+                f"{sorted(OPTIMIZATION_ALGOS)}")
+        self._opt_algo = algo
+        if iterations is not None:
+            self._solver_iterations = int(iterations)
+        return self
+
+    def _check_tbptt(self, tbptt_fwd: int) -> None:
+        """A full-batch solver cannot hand tBPTT carries from chunk to
+        chunk: the combination is refused at build()."""
+        if self._opt_algo != "stochastic_gradient_descent" and tbptt_fwd > 0:
+            raise ValueError(
+                "Truncated BPTT is only supported with "
+                "stochastic_gradient_descent; full-batch solvers "
+                f"({self._opt_algo}) cannot carry tBPTT state")
 
     def list(self, *layers: Layer) -> "ListBuilder":
         if len(layers) == 1 and isinstance(layers[0], (list, tuple)):
@@ -194,6 +236,8 @@ class ListBuilder:
         self._preprocessors: Dict[int, Preprocessor] = {}
         self._tbptt_fwd = 0
         self._tbptt_back = 0
+        self._pretrain = False
+        self._backprop = True
 
     def layer(self, l: Layer) -> "ListBuilder":
         self._layers.append(l)
@@ -218,7 +262,16 @@ class ListBuilder:
             else fwd_length
         return self
 
+    def pretrain(self, v: bool) -> "ListBuilder":
+        self._pretrain = v
+        return self
+
+    def backprop(self, v: bool) -> "ListBuilder":
+        self._backprop = v
+        return self
+
     def build(self) -> MultiLayerConfiguration:
+        self._base._check_tbptt(self._tbptt_fwd)
         defaults = self._base._defaults()
         layers: List[Layer] = []
         preprocessors = dict(self._preprocessors)
@@ -245,9 +298,13 @@ class ListBuilder:
             updater=defaults["updater"], dtype=self._base._dtype,
             gradient_normalization=self._base._grad_norm,
             gradient_normalization_threshold=self._base._grad_norm_threshold,
+            mini_batch=self._base._mini_batch,
             gradient_checkpointing=self._base._grad_ckpt,
             tbptt_fwd_length=self._tbptt_fwd,
-            tbptt_back_length=self._tbptt_back)
+            tbptt_back_length=self._tbptt_back,
+            backprop=self._backprop, pretrain=self._pretrain,
+            optimization_algo=self._base._opt_algo,
+            solver_iterations=self._base._solver_iterations)
 
 
 def _validate_layer(layer: Layer, idx: int) -> None:

@@ -516,6 +516,7 @@ class GraphBuilder:
     def build(self) -> ComputationGraphConfiguration:
         from deeplearning4j_tpu_torch.nn.config import _validate_layer
 
+        self._base._check_tbptt(self._tbptt_fwd)
         defaults = self._base._defaults()
         order = toposort(self._inputs, self._network_inputs)
         known: Dict[str, InputType] = dict(self._input_types)
@@ -553,4 +554,6 @@ class GraphBuilder:
             gradient_normalization_threshold=self._base._grad_norm_threshold,
             gradient_checkpointing=self._base._grad_ckpt,
             tbptt_fwd_length=self._tbptt_fwd,
-            tbptt_back_length=self._tbptt_back)
+            tbptt_back_length=self._tbptt_back,
+            optimization_algo=self._base._opt_algo,
+            solver_iterations=self._base._solver_iterations)

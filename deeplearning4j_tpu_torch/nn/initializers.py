@@ -97,6 +97,12 @@ def sigmoid_uniform(gen, shape, dtype=torch.float32):
                     4.0 * math.sqrt(6.0 / max(fan_in + fan_out, 1)))
 
 
+def lecun_normal(gen, shape, dtype=torch.float32):
+    """N(0, 1/fan_in)."""
+    fan_in, _ = _fans(shape)
+    return _normal(gen, shape, dtype) * math.sqrt(1.0 / max(fan_in, 1))
+
+
 def lecun_uniform(gen, shape, dtype=torch.float32):
     """U[-a, a], a = sqrt(3/fan_in)."""
     fan_in, _ = _fans(shape)
@@ -123,6 +129,50 @@ def orthogonal(gen, shape, dtype=torch.float32):
     return q.reshape(tuple(shape)).to(dtype)
 
 
+def _truncated_normal(gen, shape):
+    """Standard normal draws truncated to (-2, 2), by the inverse CDF of
+    uniforms on (Phi(-2), Phi(2)), as `jax.random.truncated_normal`."""
+    lo, hi = (0.5 * (1.0 + math.erf(v / math.sqrt(2.0))) for v in (-2.0, 2.0))
+    u = torch.rand(tuple(shape), generator=gen, dtype=torch.float64)
+    z = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0)
+    return torch.clamp(z, -2.0, 2.0)
+
+
+def distribution(dist: str = "normal", **kw) -> Callable:
+    """WeightInit.DISTRIBUTION: an initializer drawing every element from
+    one law, as the JAX package's `distribution`: normal (or gaussian)
+    (mean, std), uniform(lower, upper), constant(value),
+    truncated_normal(mean, std) (the standard normal cut at +-2 std),
+    lognormal(mean, std) (exp of a normal) and binomial(n, p) (the sum of
+    n Bernoulli(p) draws). Draws come from the explicit generator."""
+    d = dist.lower()
+    mean, std = kw.get("mean", 0.0), kw.get("std", 1.0)
+
+    def init(gen, shape, dtype=torch.float32):
+        shape = tuple(shape)
+        if d in ("normal", "gaussian"):
+            return (mean + std * _normal(gen, shape, torch.float64)).to(dtype)
+        if d == "uniform":
+            lo, hi = kw.get("lower", -1.0), kw.get("upper", 1.0)
+            u = torch.rand(shape, generator=gen, dtype=torch.float64)
+            return (lo + (hi - lo) * u).to(dtype)
+        if d == "constant":
+            return torch.full(shape, kw.get("value", 0.0), dtype=dtype)
+        if d == "truncated_normal":
+            return (mean + std * _truncated_normal(gen, shape)).to(dtype)
+        if d == "lognormal":
+            return torch.exp(mean + std * _normal(gen, shape,
+                                                  torch.float64)).to(dtype)
+        if d == "binomial":
+            n, p = int(kw.get("n", 1)), kw.get("p", 0.5)
+            u = torch.rand(shape + (n,), generator=gen, dtype=torch.float64)
+            return (u < p).sum(-1).to(dtype)
+        raise ValueError(f"Unknown distribution {dist!r}")
+
+    init.__name__ = f"distribution_{d}"
+    return init
+
+
 _REGISTRY: Dict[str, Callable] = {
     "zero": zeros,
     "zeros": zeros,
@@ -136,7 +186,7 @@ _REGISTRY: Dict[str, Callable] = {
     "he": relu_init,
     "relu_uniform": relu_uniform,
     "sigmoid_uniform": sigmoid_uniform,
-    "lecun_normal": xavier_fan_in,      # the same N(0, 1/fan_in)
+    "lecun_normal": lecun_normal,
     "lecun_uniform": lecun_uniform,
     "identity": identity_init,
     "orthogonal": orthogonal,
@@ -144,7 +194,24 @@ _REGISTRY: Dict[str, Callable] = {
 
 
 class WeightInit:
-    """Name lookup mirroring the JAX package's `WeightInit.get`."""
+    """Name lookup and constants mirroring the JAX package's
+    `WeightInit` (DL4J's `WeightInit` enum)."""
+
+    ZERO = "zero"
+    ONES = "ones"
+    NORMAL = "normal"
+    UNIFORM = "uniform"
+    XAVIER = "xavier"
+    XAVIER_UNIFORM = "xavier_uniform"
+    XAVIER_FAN_IN = "xavier_fan_in"
+    RELU = "relu"
+    RELU_UNIFORM = "relu_uniform"
+    SIGMOID_UNIFORM = "sigmoid_uniform"
+    LECUN_NORMAL = "lecun_normal"
+    LECUN_UNIFORM = "lecun_uniform"
+    IDENTITY = "identity"
+    ORTHOGONAL = "orthogonal"
+    DISTRIBUTION = "distribution"
 
     @staticmethod
     def get(name_or_fn: Union[str, Callable, None]) -> Callable:
@@ -155,6 +222,16 @@ class WeightInit:
         key = str(name_or_fn).lower()
         if key not in _REGISTRY:
             raise ValueError(
-                f"Unknown weight init {name_or_fn!r}; the port has "
+                f"Unknown weight init {name_or_fn!r}; known: "
                 f"{sorted(_REGISTRY)}")
         return _REGISTRY[key]
+
+    @staticmethod
+    def register(name: str, fn: Callable) -> None:
+        """Add a custom initializer `fn(gen, shape, dtype)` under
+        `name` (lower-cased)."""
+        _REGISTRY[name.lower()] = fn
+
+
+def resolve(name_or_fn) -> Callable:
+    return WeightInit.get(name_or_fn)

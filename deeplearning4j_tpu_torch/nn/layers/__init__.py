@@ -3,8 +3,11 @@ ported layer class for config serde."""
 
 from deeplearning4j_tpu_torch.nn.layers.base import LAYER_REGISTRY, Layer
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
-    ActivationLayer, DenseLayer, DropoutLayer, EmbeddingLayer,
-    EmbeddingSequenceLayer, OutputLayer,
+    ActivationLayer, AutoEncoder, DenseLayer, DropoutLayer, EmbeddingLayer,
+    EmbeddingSequenceLayer, LossLayer, OutputLayer, PReLULayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.special import (
+    RBM, CenterLossOutputLayer, FrozenLayer, VariationalAutoencoder,
 )
 from deeplearning4j_tpu_torch.nn.layers.convolution import (
     ConvolutionLayer, FusedConvBNLayer, SpaceToDepthLayer, SubsamplingLayer,
@@ -31,5 +34,7 @@ __all__ = [
     "PositionEmbeddingLayer", "TransformerEncoderBlock", "ActivationLayer",
     "DropoutLayer", "ConvolutionLayer", "SubsamplingLayer",
     "ZeroPaddingLayer", "SpaceToDepthLayer", "FusedConvBNLayer",
-    "BatchNormalization", "GlobalPoolingLayer",
+    "BatchNormalization", "GlobalPoolingLayer", "LossLayer", "PReLULayer",
+    "AutoEncoder", "FrozenLayer", "CenterLossOutputLayer",
+    "VariationalAutoencoder", "RBM",
 ]

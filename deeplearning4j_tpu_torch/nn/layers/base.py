@@ -158,3 +158,9 @@ class Layer:
     @property
     def is_output_layer(self) -> bool:
         return False
+
+    @property
+    def is_pretrainable(self) -> bool:
+        """Layerwise-pretrainable (AutoEncoder, RBM, VAE): `pretrain`
+        minimizes its `reconstruction_score`."""
+        return False

@@ -1,8 +1,12 @@
-"""Feed-forward layers: Dense, Output, Activation, Dropout, Embedding,
-EmbeddingSequence (port of `deeplearning4j_tpu/nn/layers/feedforward.py`).
+"""Feed-forward layers: Dense, Output, Loss, Activation, PReLU, Dropout,
+Embedding, EmbeddingSequence and the pretrainable AutoEncoder (port of
+`deeplearning4j_tpu/nn/layers/feedforward.py`).
 
 Kernels are stored [n_in, n_out] and applied as `x @ W`, the JAX
-package's orientation, so its params tree loads without transposes."""
+package's orientation, so its params tree loads without transposes.
+
+The AutoEncoder's corruption mask is drawn by `_keep_mask` alone, so a
+test can put JAX's draws in its place."""
 
 from __future__ import annotations
 
@@ -75,12 +79,64 @@ class OutputLayer(DenseLayer):
 
 @register_layer
 @dataclasses.dataclass(frozen=True)
+class LossLayer(Layer):
+    """A loss head without parameters: the activation and the loss of
+    its input (DL4J's `LossLayer`)."""
+
+    loss: Any = "mcxent"
+
+    @property
+    def is_output_layer(self) -> bool:
+        return True
+
+    def pre_output(self, params, x):
+        return x
+
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
+        return self._act(x), state
+
+    def score(self, params, x, labels, mask=None):
+        return LossFunction.get(self.loss)(labels, x, self.activation, mask)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
 class ActivationLayer(Layer):
     """Parameterless activation."""
 
     def apply(self, params, x, *, state=None, train=False, rng=None,
               mask=None):
         return self._act(x), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class PReLULayer(Layer):
+    """Parametric ReLU: a learnable slope `alpha` per feature (the
+    trailing axis: channels of a convolution's output), initialised to
+    `alpha_init`."""
+
+    n_out: Optional[int] = None
+    alpha_init: float = 0.0
+
+    def _width(self, input_type: InputType) -> int:
+        return (input_type.channels if input_type.kind in ("cnn", "cnn3d")
+                else input_type.size)
+
+    def infer_n_in(self, input_type: InputType) -> "PReLULayer":
+        if self.n_out is None:
+            return dataclasses.replace(self, n_out=self._width(input_type))
+        return self
+
+    def init_params(self, gen, input_type, dtype=torch.float32):
+        n = self.n_out if self.n_out is not None else \
+            self._width(input_type)
+        return {"alpha": torch.full((n,), self.alpha_init, dtype=dtype)}, {}
+
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
+        return torch.where(x >= 0, x, params["alpha"] * x), state
 
 
 @register_layer
@@ -153,3 +209,61 @@ class EmbeddingSequenceLayer(Layer):
         emb = torch.index_select(params["W"], 0, idx).reshape(
             *x.shape, params["W"].shape[1])
         return self._act(emb), state
+
+
+def _keep_mask(gen, keep: float, shape, device) -> torch.Tensor:
+    """AutoEncoder's corruption: True where an input is kept, each with
+    probability `keep`, from the generator `gen`."""
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class AutoEncoder(Layer):
+    """Denoising autoencoder with tied weights, layerwise-pretrainable
+    (DL4J's `AutoEncoder`). The supervised forward is the encoder;
+    `reconstruction_score` (the pretraining objective) decodes through
+    W transposed and the visible bias `vb`, with the input corrupted
+    (each entry zeroed with probability `corruption_level`) only when a
+    generator is given and the level is above 0."""
+
+    n_in: Optional[int] = None
+    n_out: Optional[int] = None
+    corruption_level: float = 0.3
+    loss: Any = "mse"
+
+    @property
+    def is_pretrainable(self) -> bool:
+        return True
+
+    def infer_n_in(self, input_type: InputType) -> "AutoEncoder":
+        if self.n_in is None:
+            return dataclasses.replace(self, n_in=input_type.flat_size())
+        return self
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+    def init_params(self, gen, input_type, dtype=torch.float32):
+        return {"W": self._winit()(gen, (self.n_in, self.n_out), dtype),
+                "b": torch.zeros((self.n_out,), dtype=dtype),
+                "vb": torch.zeros((self.n_in,), dtype=dtype)}, {}
+
+    def encode(self, params, x):
+        return self._act(x @ params["W"] + params["b"])
+
+    def decode(self, params, h):
+        return self._act(h @ params["W"].T + params["vb"])
+
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
+        return self.encode(params, x), state
+
+    def reconstruction_score(self, params, x, *, rng=None):
+        corrupted = x
+        if rng is not None and self.corruption_level > 0:
+            keep = _keep_mask(rng, 1.0 - self.corruption_level, x.shape,
+                              x.device)
+            corrupted = torch.where(keep, x, torch.zeros_like(x))
+        recon = self.decode(params, self.encode(params, corrupted))
+        return LossFunction.get(self.loss)(x, recon, "identity")

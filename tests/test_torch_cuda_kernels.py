@@ -1581,3 +1581,98 @@ def test_cuda_b5_at_a_broadcast_lockstep_position(cuda_device, hkv, window,
     key = ("banded_decode_attention", design)
     assert ba.LAUNCHES_BY_DESIGN[key] == before[key] + 1
     assert (o - ref).abs().max().item() <= 2e-5
+
+
+# ---------------------------------------------------- slice 17 (A1b)
+@pytest.mark.cuda
+@pytest.mark.parametrize("updater", ["adam", "nesterovs"])
+def test_cuda_pretrain_launches_one_fused_update_a_step(cuda_device,
+                                                        updater,
+                                                        monkeypatch):
+    """`pretrain` under Adam (B1a) or Nesterovs (B1b): one launch a
+    pretrain step, over the pretrained layer's leaves alone (a frozen
+    AutoEncoder is skipped, the output layer untouched)."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        RBM, AutoEncoder, FrozenLayer, OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import Adam, Nesterovs
+
+    upd = Adam(1e-2) if updater == "adam" else Nesterovs(0.1, 0.9)
+    kernel = "adam_update" if updater == "adam" else "nesterov_update"
+    net = MultiLayerNetwork(
+        NeuralNetConfiguration.builder().seed(3).updater(upd)
+        .activation("sigmoid")
+        .list(FrozenLayer(layer=AutoEncoder(n_out=8)),
+              AutoEncoder(n_out=6, corruption_level=0.2), RBM(n_out=5),
+              OutputLayer(n_out=3, activation="softmax"))
+        .set_input_type(InputType.feed_forward(10)).build(),
+        device=cuda_device).init()
+    names = [l.name for l in net.conf.layers]
+    before = {n: {k: v.clone() for k, v in net.params_tree[n].items()}
+              for n in names}
+    seen = []
+    launch = getattr(fu, kernel)
+
+    def record(params, *rest, **kw):
+        seen.append({p.data_ptr() for p in params})
+        return launch(params, *rest, **kw)
+
+    monkeypatch.setattr(fu, kernel, record)
+    fu.reset_counts()
+    x = torch.rand(32, 10, generator=torch.Generator().manual_seed(0))
+    net.pretrain(x.numpy(), epochs=1, batch_size=8)
+    torch.cuda.synchronize()
+    assert fu.LAUNCHES[kernel] == 8 and sum(fu.PLAIN_ON_CUDA.values()) == 0
+    other = "nesterov_update" if updater == "adam" else "adam_update"
+    assert fu.LAUNCHES[other] == 0
+    leaves = {n: {v.data_ptr() for v in net.params_tree[n].values()}
+              for n in names}
+    assert seen == [leaves[names[1]]] * 4 + [leaves[names[2]]] * 4
+    for n in (names[0], names[3]):
+        for k, v in net.params_tree[n].items():
+            assert torch.equal(v, before[n][k]), f"{n}/{k}"
+    for n in names[1:3]:
+        assert not torch.equal(net.params_tree[n]["W"], before[n]["W"])
+
+
+@pytest.mark.cuda
+def test_cuda_async_iterator_feeds_a_captured_fit(cuda_device):
+    """`AsyncDataSetIterator` under `fit(steps_per_dispatch=4)`: its pump
+    thread makes no CUDA call, so the window is captured and replayed
+    (window 1 eager, then one capture, two replays) and the weights
+    equal the bare iterator's fit bit for bit."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.data import (
+        ArrayDataSetIterator, AsyncDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    conf = (NeuralNetConfiguration.builder().seed(4).updater(Adam(1e-2))
+            .list(DenseLayer(n_out=32, activation="tanh"),
+                  OutputLayer(n_out=4, activation="softmax"))
+            .set_input_type(InputType.feed_forward(16)).build())
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((64, 16)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, 64)]
+    nets = []
+    for wrap in (lambda b: b, lambda b: AsyncDataSetIterator(b, 2)):
+        net = MultiLayerNetwork(conf, device=cuda_device).init()
+        it = wrap(ArrayDataSetIterator(x, y, 16))
+        fu.reset_counts()
+        net.fit(it, epochs=3, steps_per_dispatch=4)
+        torch.cuda.synchronize()
+        if isinstance(it, AsyncDataSetIterator):
+            it.close()
+        assert net.fit_stats == {"graph_windows": 2, "eager_steps": 4}
+        assert net._graphs.stats["fit"]["captures"] == 1
+        assert fu.LAUNCHES["adam_update"] == 12
+        nets.append(net)
+    assert torch.equal(nets[0].params(), nets[1].params())

@@ -3,7 +3,7 @@ synthetic MNIST, CIFAR-10 and Iris data (the surrogates when no files
 are present, and Iris's embedded rows) bit-equal; an IDX pair and a
 CIFAR `.bin` written under a temporary `DL4J_TPU_DATA_DIR` load
 bit-equal through both packages' loaders; `MnistDataSetIterator` gives
-JAX's batches for the same seed; LFW refuses (A1b). Exact equality
+JAX's batches for the same seed; LFW's surrogate (once refused, A1b). Exact equality
 throughout: the same numpy arithmetic on the same bytes."""
 
 import gzip
@@ -113,8 +113,18 @@ def test_mnist_iterator_batches_match_jax(no_data):
             _equal(p.labels, j.labels)
 
 
-def test_lfw_refuses_naming_a1b():
-    with pytest.raises(NotImplementedError, match="A1b"):
-        pds.load_lfw()
-    with pytest.raises(NotImplementedError, match="A1b"):
-        pds.LFWDataSetIterator(8)
+def test_lfw_refuses_naming_a1b(no_data):
+    """Once refused naming A1b: with no `lfw/` directory the loader and
+    iterator give JAX's synthetic surrogate, bit for bit."""
+    kw = dict(height=16, width=12, channels=3, num_labels=4,
+              num_examples=30)
+    got, want = pds.load_lfw(**kw), jds.load_lfw(**kw)
+    assert got[3] and want[3] and got[2] == want[2]
+    _equal(got[0], want[0])
+    _equal(got[1], want[1])
+    pit = pds.LFWDataSetIterator(8, (16, 12, 3), num_examples=30, seed=3)
+    jit = jds.LFWDataSetIterator(8, (16, 12, 3), num_examples=30, seed=3)
+    assert pit.synthetic and pit.label_names == jit.label_names
+    for p, j in zip(pit, jit):
+        _equal(p.features, j.features)
+        _equal(p.labels, j.labels)

@@ -598,12 +598,22 @@ def test_fit_refuses_what_is_not_ported(kw, item):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("optimization_algo", "lbfgs", "A1"),
+    ("optimization_algo", "lbfgs", None),
     ("tbptt_fwd_length", 5, "A3"),
 ], ids=["solver", "tbptt"])
 def test_fit_refuses_unported_config(field, value, item):
+    """tBPTT is still refused (A3); a solver (once refused naming A1)
+    fits: one L-BFGS run a batch lowers the loss (its parity with JAX
+    is in `test_torch_a1b_solvers.py`)."""
     net = _graph()
     net.conf = dataclasses.replace(net.conf, **{field: value})
+    if item is None:
+        net.conf = dataclasses.replace(net.conf, solver_iterations=5)
+        before = net.score(_data())
+        net.fit(_data())
+        assert net.score(_data()) < before
+        assert net._solver.algo == value and net._solver.solver_syncs >= 5
+        return
     with pytest.raises(NotImplementedError, match=item):
         net.fit(_data())
 
@@ -625,13 +635,16 @@ def test_fit_with_gradient_checkpointing_runs():
 
 
 def test_stepping_pretraining_and_multi_input_feeding_are_refused():
-    """`pretrain` is still refused (A1). Stepping (once refused naming
-    A3) runs: an LSTM graph stepped in two calls equals its full
-    forward; multi-input feeding (once refused naming A1) takes a
-    MultiDataSet, while a plain DataSet lacks the second input."""
+    """`pretrain` (once refused naming A1) runs: a graph without a
+    pretrainable vertex is left as it was (its parity with JAX is in
+    `test_torch_a1b_layers.py`). Stepping (once refused naming A3) runs:
+    an LSTM graph stepped in two calls equals its full forward;
+    multi-input feeding (once refused naming A1) takes a MultiDataSet,
+    while a plain DataSet lacks the second input."""
     net = _graph()
-    with pytest.raises(NotImplementedError, match="A1"):
-        net.pretrain(_data())
+    before = net.params().clone()
+    assert net.pretrain(_data()) is net
+    assert torch.equal(net.params(), before) and not net.pretrain_losses
     r = (NeuralNetConfiguration.builder().seed(2).graph_builder()
          .add_inputs("in").set_input_types(InputType.recurrent(3, 5)))
     r.add_layer("lstm", players.LSTM(n_out=4, activation="tanh"), "in")

@@ -308,13 +308,19 @@ def test_fit_refuses_what_is_not_ported(kw, item):
 @pytest.mark.parametrize("field,value,item", [
     ("optimization_algo", "lbfgs", "A1")])
 def test_fit_refuses_unported_config(field, value, item):
+    """Once refused naming `item`: the transformer now fits under the
+    L-BFGS solver, one full-batch run a batch that lowers its loss (its
+    parity with JAX is in `test_torch_a1b_solvers.py`)."""
     import dataclasses
 
     _, pnet = _pair("gpt", T=8, d=16, blocks=1)
-    pnet.conf = dataclasses.replace(pnet.conf, **{field: value})
+    pnet.conf = dataclasses.replace(pnet.conf, solver_iterations=3,
+                                    **{field: value})
     x, y = _lm_batch(np.random.default_rng(9), 2, 8)
-    with pytest.raises(NotImplementedError, match=item):
-        pnet.fit(x, y)
+    before = pnet.score(x, y)
+    pnet.fit(x, y)
+    assert pnet.score(x, y) < before
+    assert pnet._solver.algo == value and pnet.fit_stats["eager_steps"] == 1
 
 
 def test_fit_with_gradient_checkpointing_matches_jax():

@@ -31,7 +31,6 @@ the same run. Needs a CUDA card.
 from __future__ import annotations
 
 import contextlib
-import json
 import os
 import sys
 import tempfile
@@ -45,27 +44,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 
 
-def kernel_events(trace_path):
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    return [e for e in events
-            if e.get("ph") == "X" and e.get("cat") == "kernel"]
-
-
-def busy_us(kernels):
-    """Length of the union of the kernel intervals, in microseconds."""
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
+kernel_events, busy_us = cs.kernel_events, cs.busy_us
 
 
 def kernel_class(name):
