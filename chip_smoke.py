@@ -42,8 +42,9 @@ exits non-zero with no result line:
      holds and times design 1 on the same inputs (`ffma_ms`) and checks
      two launches of design 2 bit-equal;
    - the fused Adam B1a over the training path's leaves and odd sizes,
-     float32 and bfloat16, steps 1 and 1000, and over LeNet's bfloat16
-     leaves (`path_m`), against
+     float32 and bfloat16, steps 1 and 1000, over LeNet's bfloat16
+     leaves (`path_m`) and over `path_p`'s VAE and center-loss head
+     (float32, step 12), against
      `torch.optim.Adam(fused=True)` (which puts ε inside the bias
      correction: a time yardstick, not the same function);
    - the fused LSTM forward B2a (with residuals) and B2b (inference) and
@@ -206,8 +207,11 @@ exits non-zero with no result line:
     K 4 against K 1); then `p_parity`: AutoEncoder pretraining, line
     gradient descent and every activation on the card against the CPU;
 21. path_m_async: `path_m` at K 1 and K 4 fed through
-    `AsyncDataSetIterator` beside the bare iterator: losses bit-equal,
-    images/s, the idle share (profiler) and the pump's hit ratio.
+    `AsyncDataSetIterator` beside the bare iterator, three times each in
+    alternating order: losses bit-equal, images/s, the host's split of a
+    step (the source's reshuffle and slices, the fit loop's wait for a
+    batch, its enqueue), the idle share (profiler) and the pump's hit
+    ratio.
 
 Weights are random, from fixed seeds. Each path resets the kernels'
 launch counts just before it runs and reads them just after; a kernel
@@ -1074,28 +1078,41 @@ def adam_bound(n, esize):
 def run_adam_phase(flush, gen):
     """B1a against its plain version over the training path's real
     leaves (default hyperparameters) and odd sizes (non-default ones),
-    float32 and bfloat16, at steps 1 and 1000; then over LeNet's 8
-    bfloat16 leaves (`path_m`'s update: 431,080 parameters, Adam(1e-3),
-    step 12), with its own time, bound and `Adam(fused=True)` time."""
+    float32 and bfloat16, at steps 1 and 1000; then, each with its own
+    time, bound and `Adam(fused=True)` time, over LeNet's 8 bfloat16
+    leaves (`path_m`'s update: 431,080 parameters, Adam(1e-3), step 12)
+    and over `path_p`'s two float32 updates at step 12: the VAE's 14
+    leaves (535,828 elements, Adam(1e-3)) and the fine-tune's
+    center-loss head, 30 x 10 and 10 (Adam(1e-2))."""
     from deeplearning4j_tpu_torch.models import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import fused_update as fu
     from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
 
     dev = flush.device
-    net = build_net("cuda", num_blocks=6, seed=3)
-    real = [tuple(p.shape) for p in tree_leaves(net.params_tree)]
-    net = MultiLayerNetwork(lenet_conf(), device="cuda").init()
-    lenet = [tuple(p.shape) for p in tree_leaves(net.params_tree)]
-    del net
+
+    def shapes_of(tree):
+        return [tuple(p.shape) for p in tree_leaves(tree)]
+
+    real = shapes_of(build_net("cuda", num_blocks=6, seed=3).params_tree)
+    lenet = shapes_of(MultiLayerNetwork(lenet_conf(), device="cuda")
+                      .init().params_tree)
+    vae = shapes_of(MultiLayerNetwork(vae_conf(), device="cuda")
+                    .init().params_tree)
+    ft = finetune_net("cuda", [])
+    head = shapes_of(ft.params_tree[ft.conf.layers[-1].name])
+    del ft
     odd = [(1,), (127,), (4097,), ((1 << 20) + 3,)]
     rows = []
     cases = [(dt, step, leafset, hyper, 3e-4)
              for dt in (torch.float32, torch.bfloat16) for step in (1, 1000)
              for leafset, hyper in (("real", (0.9, 0.999, 1e-8)),
                                     ("odd", (0.8, 0.99, 1e-6)))]
-    cases.append((torch.bfloat16, 12, "lenet", (0.9, 0.999, 1e-8), 1e-3))
+    cases += [(torch.bfloat16, 12, "lenet", (0.9, 0.999, 1e-8), 1e-3),
+              (torch.float32, 12, "vae", (0.9, 0.999, 1e-8), 1e-3),
+              (torch.float32, 12, "head", (0.9, 0.999, 1e-8), 1e-2)]
     for dt, step, leafset, hyper, lr in cases:
-        shapes = {"real": real, "odd": odd, "lenet": lenet}[leafset]
+        shapes = {"real": real, "odd": odd, "lenet": lenet, "vae": vae,
+                  "head": head}[leafset]
         b1, b2, eps = hyper
         t = step + 1
         lrbc = torch.tensor(lr * (1 - b2 ** t) ** 0.5
@@ -4927,67 +4944,123 @@ def p_parity(width=64, batch=64, tol_param=1e-5, tol_loss=1e-5,
     return row
 
 
-def path_m_async(epochs=3, batch=1024, per_epoch=4):
+def path_m_async(epochs=3, batch=1024, per_epoch=4, reps=3):
     """`path_m`'s LeNet (bfloat16, Adam(1e-3), batch 1024, 12 steps) at K
     1 and K 4, each fed by the bare `MnistDataSetIterator` and by
     `AsyncDataSetIterator(MnistDataSetIterator(...), prefetch=2)` (DL4J's
-    fit wrap), on PyTorch's deterministic algorithms: the async run's
-    losses bit-equal to the bare run's at the same K (the same batches in
-    the same order), B1a once a step. Each run is then traced for
-    another 3 epochs (`device_idle_share`): wall and busy ms a step, the
-    idle share, and the async pump's prefetch hit ratio. A measurement,
-    not a bar: whether the pump moves the idle share."""
+    fit wrap), `reps` times in alternating order (bare first on even
+    repeats), on PyTorch's deterministic algorithms: every run's losses
+    bit-equal to the first bare run's at the same K (the same batches in
+    the same order), B1a once a step. Each run records images/s and the
+    host's split of a step: the source iterator's `reset()` (its
+    reshuffle) and `next()` (a slice) in whichever thread iterates it,
+    the pump's or the fit loop's; the fit loop's wait for each batch
+    (the executor's `etl_ms`, an epoch's first batch apart from the
+    rest); its enqueue time each step (`train_dispatch_ms`); the pump's
+    prefetch hit ratio. The first repeat of each is then traced for
+    another 3 epochs (`device_idle_share`): wall and busy ms a step and
+    the idle share. A measurement, not a bar: whether the pump moves the
+    idle share, and what holds the card back."""
     from deeplearning4j_tpu_torch.data import (
-        AsyncDataSetIterator, MnistDataSetIterator,
+        AsyncDataSetIterator, DataSetIterator, MnistDataSetIterator,
     )
     from deeplearning4j_tpu_torch.models import MultiLayerNetwork
     from deeplearning4j_tpu_torch.observe import get_registry
 
+    class Timed(DataSetIterator):
+        """`base` with the host ms of each `reset()` and `next()`."""
+
+        def __init__(self, base):
+            self._base = base
+            self.reset_ms, self.next_ms = [], []
+
+        def reset(self):
+            t0 = time.perf_counter()
+            self._base.reset()
+            self.reset_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def __next__(self):
+            t0 = time.perf_counter()
+            d = next(self._base)
+            self.next_ms.append((time.perf_counter() - t0) * 1e3)
+            return d
+
+        @property
+        def batch_size(self):
+            return self._base.batch_size
+
+        @property
+        def num_outcomes(self):
+            return self._base.num_outcomes
+
     reg = get_registry()
     hits = reg.counter("prefetch_hits_total", stage="async")
     misses = reg.counter("prefetch_misses_total", stage="async")
+    dispatch = reg.histogram("train_dispatch_ms")
     row = {"phase": "path_m_async", "model": "LeNet", "batch": batch,
-           "dtype": "bfloat16", "prefetch": 2}
+           "dtype": "bfloat16", "prefetch": 2, "reps": reps}
     launches = {"adam_update": 0, "nesterov_update": 0}
     for k in (1, 4):
-        runs = {}
-        for tag in ("bare", "async"):
-            base = MnistDataSetIterator(batch, num_examples=per_epoch * batch,
-                                        seed=0)
-            it = AsyncDataSetIterator(base, prefetch=2) \
-                if tag == "async" else base
-            net = MultiLayerNetwork(lenet_conf(), device="cuda").init()
-            h0, m0 = hits.value, misses.value
-            with deterministic():
-                fit = timed_fit(f"path_m_async {tag} k{k}", net, it, epochs,
-                                batch, unit="images", per_epoch=per_epoch,
-                                k=k)
-                wall, busy, idle = device_idle_share(
-                    lambda: net.fit(it, epochs=epochs, steps_per_dispatch=k))
-            if tag == "async":
-                it.close()
-                for kern in launches:
-                    launches[kern] += fit["launches"][kern]
-            check(fit["launches"]["adam_update"] == fit["steps"],
-                  f"path_m_async {tag} k{k}: adam_update launched "
-                  f"{fit['launches']['adam_update']} times")
-            dh, dm = hits.value - h0, misses.value - m0
-            runs[tag] = {
-                "images_per_s_steps_5_12": fit["images_per_s_steps_5_12"],
-                "step_ms_p50": fit["step_ms_p50"],
-                "traced_wall_ms_per_step": wall / (epochs * per_epoch),
-                "traced_busy_ms_per_step": busy / (epochs * per_epoch),
-                "idle_share": idle,
-                "async_prefetch_hit_ratio": (dh / (dh + dm)) if dh + dm
-                else None,
-                "etl_ms_p50": float(np.median(fit["etl_ms"])),
-                "graph_windows": fit["graph_windows"],
-                "losses": fit["losses"]}
-            del net
-        check(runs["async"]["losses"] == runs["bare"]["losses"],
-              f"path_m_async k{k}: async losses {runs['async']['losses']} "
-              f"differ from the bare iterator's {runs['bare']['losses']}")
-        row[f"k{k}"] = runs
+        runs = {"bare": [], "async": []}
+        for rep in range(reps):
+            for tag in ("bare", "async")[::1 if rep % 2 == 0 else -1]:
+                src = Timed(MnistDataSetIterator(
+                    batch, num_examples=per_epoch * batch, seed=0))
+                it = AsyncDataSetIterator(src, prefetch=2) \
+                    if tag == "async" else src
+                net = MultiLayerNetwork(lenet_conf(), device="cuda").init()
+                h0, m0 = hits.value, misses.value
+                c0 = dispatch.count
+                with deterministic():
+                    fit = timed_fit(f"path_m_async {tag} k{k} rep {rep}",
+                                    net, it, epochs, batch, unit="images",
+                                    per_epoch=per_epoch, k=k)
+                check(fit["launches"]["adam_update"] == fit["steps"],
+                      f"path_m_async {tag} k{k}: adam_update launched "
+                      f"{fit['launches']['adam_update']} times")
+                if tag == "async":
+                    for kern in launches:
+                        launches[kern] += fit["launches"][kern]
+                dh, dm = hits.value - h0, misses.value - m0
+                etl = fit["etl_ms"]
+                run = {
+                    "images_per_s_steps_5_12":
+                    fit["images_per_s_steps_5_12"],
+                    "step_ms_p50": fit["step_ms_p50"],
+                    "async_prefetch_hit_ratio": (dh / (dh + dm))
+                    if dh + dm else None,
+                    "etl_ms_first_of_epoch": etl[::per_epoch],
+                    "etl_ms_others_p50": float(np.median(
+                        [e for i, e in enumerate(etl) if i % per_epoch])),
+                    "source_reset_ms": list(src.reset_ms),
+                    "source_next_ms_p50": float(np.median(src.next_ms)),
+                    "source_next_ms_max": max(src.next_ms),
+                    # the fit loop's enqueue a step (at K 4 a window's
+                    # over K: eager, capture, replay)
+                    "dispatch_ms": dispatch.values()[c0 - dispatch.count:],
+                    "graph_windows": fit["graph_windows"],
+                    "losses": fit["losses"]}
+                if rep == 0:
+                    with deterministic():
+                        wall, busy, idle = device_idle_share(
+                            lambda: net.fit(it, epochs=epochs,
+                                            steps_per_dispatch=k))
+                    run.update(
+                        traced_wall_ms_per_step=wall / (epochs * per_epoch),
+                        traced_busy_ms_per_step=busy / (epochs * per_epoch),
+                        idle_share=idle)
+                if tag == "async":
+                    it.close()
+                runs[tag].append(run)
+                del net
+        want = runs["bare"][0]["losses"]
+        check(all(r["losses"] == want
+                  for r in runs["bare"][1:] + runs["async"]),
+              f"path_m_async k{k}: a run's losses differ from the first "
+              f"bare run's {want}")
+        rate = "images_per_s_steps_5_12"
+        row[f"k{k}"] = {**runs, "async_over_bare": [
+            a[rate] / b[rate] for a, b in zip(runs["async"], runs["bare"])]}
     row["launches"] = launches
     row["nvidia_smi"] = gpu_name_and_limit()
     emit(row)
@@ -5159,11 +5232,15 @@ def main() -> int:
                 "dtype", "elements", "n_leaves", "ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_by", "max_abs_err")}
         if name == "adam_update":
+            keys = ("dtype", "elements", "n_leaves", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "max_abs_err")
             lenet = next(r for r in mine if r["leaves"] == "lenet")
             summary[-1]["launches_path_m"] = m["launches"][name]
-            summary[-1]["path_m"] = {k: lenet[k] for k in (
-                "dtype", "elements", "n_leaves", "ms", "plain_ms",
-                "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+            summary[-1]["path_m"] = {k: lenet[k] for k in keys}
+            # path_p's two updates: the VAE's pretrain step, the head's
+            summary[-1]["path_p"] = [
+                {"leaves": r["leaves"], **{k: r[k] for k in keys}}
+                for r in mine if r["leaves"] in ("vae", "head")]
         if name in FLASH_KERNELS:
             f32 = mains[0]
             summary[-1].update(

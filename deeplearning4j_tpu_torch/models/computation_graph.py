@@ -384,6 +384,7 @@ class ComputationGraph:
     _fused_dispatch = MultiLayerNetwork._fused_dispatch
     # the solver step, the flat parameter view and the listener calls
     _fit_solver = MultiLayerNetwork._fit_solver
+    _solver_finish = MultiLayerNetwork._solver_finish
     params = MultiLayerNetwork.params
     set_params = MultiLayerNetwork.set_params
     set_listeners = MultiLayerNetwork.set_listeners

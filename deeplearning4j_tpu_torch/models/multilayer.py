@@ -742,6 +742,22 @@ class MultiLayerNetwork:
         return self._loss(params, features, labels, fmask, lmask, None,
                           train=True, states=states)
 
+    def _solver_finish(self, fields, passes: int, loss) -> None:
+        """After a solver run has copied its parameters into
+        `params_tree`: `passes` train-mode forwards at them refresh the
+        stateful layers' running statistics, written back in place (the
+        JAX package's loop), and the score becomes `loss` (shared with
+        `ComputationGraph`)."""
+        if self._stateful and self.state_tree:
+            cur = self.state_tree
+            with torch.no_grad():
+                for _ in range(passes):
+                    _, ns = self._solver_loss(self.params_tree, cur, fields)
+                    cur = {n: (ns[n] if n in self._stateful and n in ns
+                               else cur[n]) for n in cur}
+            _copy_states(self.state_tree, cur)
+        self._loss_tracker.set(loss)
+
     def _check_batch(self, ds: DataSet) -> None:
         self._check_input(ds.features)
 

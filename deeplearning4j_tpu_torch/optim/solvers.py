@@ -24,7 +24,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from deeplearning4j_tpu_torch.utils.pytrees import (
-    copy_flat_, flatten_params, unflatten_params,
+    copy_flat_, flatten_params,
 )
 
 
@@ -221,7 +221,9 @@ class Solver:
     flattened into one vector (`MultiLayerNetwork.params()`'s order),
     minimized on one batch by the configured algorithm, and copied back
     into the net's tensors in place. The model supplies
-    `_solver_loss(params, states, fields)` over its batch fields."""
+    `_solver_loss(params, states, fields)` over its batch fields and
+    `_solver_finish(fields, passes, loss)`, which refreshes its running
+    statistics and keeps the score."""
 
     def __init__(self, model, algo: str = "lbfgs", *, iterations: int = 100,
                  history: int = 10):
@@ -260,20 +262,7 @@ class Solver:
         res = _ALGOS[self.algo](flat_loss, x0, **kw)
         self.solver_syncs += res.syncs
         copy_flat_(model.params_tree, res.x)
-        stateful = getattr(model, "_stateful", set())
-        if stateful and model.state_tree:
-            params = unflatten_params(res.x, model.params_tree)
-            cur = model.state_tree
-            with torch.no_grad():
-                for _ in range(min(4 * self.iterations, 60)):
-                    _, ns = model._solver_loss(params, cur, fields)
-                    cur = {n: (ns[n] if n in stateful and n in ns
-                               else cur[n]) for n in cur}
-            from deeplearning4j_tpu_torch.models.multilayer import (
-                _copy_states,
-            )
-            _copy_states(model.state_tree, cur)
-        model._loss_tracker.set(res.loss)
+        model._solver_finish(fields, min(4 * self.iterations, 60), res.loss)
         self.last_history = res.history
         return res.history
 

@@ -27,26 +27,19 @@ given, the kernels' plain versions on CPU tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List
+from typing import Any, List
 
 import torch
 
 from deeplearning4j_tpu_torch.optim.schedules import as_schedule
+from deeplearning4j_tpu_torch.utils.pytrees import tree_map
 from deeplearning4j_tpu_torch.utils.serde import register_serde
 
 
-def tree_map(fn: Callable, tree, *rest):
-    """Map over the leaves of nested dicts (and `()` for no state)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
-                for k in tree}
-    if isinstance(tree, tuple) and not tree:
-        return ()
-    return fn(tree, *rest)
-
-
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """Leaves of nested dicts in key order."""
+    """Leaves of nested dicts in key (insertion) order, the order the
+    fused updates and the graphs walk; `utils/pytrees.ravel_leaves` is
+    the flat parameter view's sorted order."""
     if isinstance(tree, dict):
         return [leaf for k in tree for leaf in tree_leaves(tree[k])]
     if isinstance(tree, tuple) and not tree:

@@ -30,11 +30,13 @@ import numpy as np
 import torch
 
 
-def tree_leaves(tree: Any) -> List[torch.Tensor]:
+def ravel_leaves(tree: Any) -> List[torch.Tensor]:
     """Leaves of nested dicts in the flat order (keys sorted, depth
-    first); `()` and `None` hold no leaf."""
+    first), the order of `flatten_params`; `()` and `None` hold no leaf.
+    `optim/updaters.tree_leaves` walks the keys in insertion order
+    instead: never zip one list with the other."""
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+        return [leaf for k in sorted(tree) for leaf in ravel_leaves(tree[k])]
     if tree is None or (isinstance(tree, tuple) and not tree):
         return []
     return [tree]
@@ -42,7 +44,8 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """`fn` over the leaves of nested dicts (and of the trees `rest` of
-    the same structure)."""
+    the same structure); `()` and `None` pass through. The port's one
+    tree map (the updaters and the runtimes use it)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
@@ -63,7 +66,7 @@ def flatten_params(tree: Any) -> Tuple[torch.Tensor, Callable]:
     the same structure whose leaves are views of `v` in each leaf's
     dtype and shape (differentiable: the solvers take gradients through
     it)."""
-    leaves = tree_leaves(tree)
+    leaves = ravel_leaves(tree)
     dt = _flat_dtype(leaves)
     if leaves:
         flat = torch.cat([t.detach().reshape(-1).to(dt) for t in leaves])
@@ -81,7 +84,7 @@ def unflatten_params(flat: torch.Tensor, like: Any) -> Any:
                          f"tree of {n} parameters")
     offsets = {}
     pos = 0
-    for t in tree_leaves(like):
+    for t in ravel_leaves(like):
         offsets[id(t)] = pos
         pos += t.numel()
 
@@ -97,7 +100,7 @@ def unflatten_params(flat: torch.Tensor, like: Any) -> Any:
 def copy_flat_(tree: Any, flat) -> Any:
     """Copy the flat vector (a tensor or an array) into the leaves of
     `tree` in place, in the flat order; returns `tree`."""
-    leaves = tree_leaves(tree)
+    leaves = ravel_leaves(tree)
     n = sum(t.numel() for t in leaves)
     if not isinstance(flat, torch.Tensor):
         flat = torch.tensor(np.asarray(flat))
@@ -113,13 +116,13 @@ def copy_flat_(tree: Any, flat) -> Any:
 
 def param_count(tree: Any) -> int:
     """Reference: `Model.numParams()`."""
-    return sum(math.prod(t.shape) for t in tree_leaves(tree))
+    return sum(math.prod(t.shape) for t in ravel_leaves(tree))
 
 
 def tree_norm(tree: Any) -> torch.Tensor:
     """Global L2 norm over every leaf, in float32 (0 for an empty
     tree)."""
-    leaves = tree_leaves(tree)
+    leaves = ravel_leaves(tree)
     if not leaves:
         return torch.zeros(())
     return torch.sqrt(sum((t.float() ** 2).sum() for t in leaves))

@@ -109,8 +109,8 @@ def test_params_equal_jax_and_set_params_copies_in_place():
 
 
 def _leaves(tree):
-    from deeplearning4j_tpu_torch.utils.pytrees import tree_leaves
-    return tree_leaves(tree)
+    from deeplearning4j_tpu_torch.utils.pytrees import ravel_leaves
+    return ravel_leaves(tree)
 
 
 def test_conv_params_share_jax_layout():

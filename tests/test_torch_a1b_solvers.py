@@ -34,7 +34,7 @@ from deeplearning4j_tpu_torch.models.convert import (
 from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.optim import solvers as ps
-from deeplearning4j_tpu_torch.utils.pytrees import tree_leaves
+from deeplearning4j_tpu_torch.utils.pytrees import ravel_leaves
 
 TOL = dict(rtol=1e-8, atol=1e-10)
 ALGOS = ["conjugate_gradient", "lbfgs", "line_gradient_descent"]
@@ -134,7 +134,7 @@ def test_sequential_fit_matches_jax(algo, bn):
                                                    jnet.params_tree))
     state_from_numpy(pnet, jax.tree_util.tree_map(np.asarray,
                                                   jnet.state_tree))
-    ptrs = [t.data_ptr() for t in tree_leaves(pnet.params_tree)]
+    ptrs = [t.data_ptr() for t in ravel_leaves(pnet.params_tree)]
     x, y = _data()
     jnet.fit(x, y, batch_size=len(x))
     pnet.fit(x, y, batch_size=len(x))
@@ -144,7 +144,7 @@ def test_sequential_fit_matches_jax(algo, bn):
         for k, v in st.items():
             np.testing.assert_allclose(
                 v.numpy(), np.asarray(jnet.state_tree[name][k]), **TOL)
-    assert ptrs == [t.data_ptr() for t in tree_leaves(pnet.params_tree)]
+    assert ptrs == [t.data_ptr() for t in ravel_leaves(pnet.params_tree)]
     hist = pnet._solver.optimize(*pnet._batch_fields(
         pnet._put_batch(pnet_ds(x, y))))
     jh = jnet._solver.optimize(jnp.asarray(x), jnp.asarray(y))
