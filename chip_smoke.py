@@ -268,6 +268,15 @@ REPLACES = {
                 "dh0, dc0)",
     "lstm_bwd_weights": "deeplearning4j_tpu/ops/lstm.py:166 (_bwd_kernel: "
                         "dRW, dP)",
+    "lstm_fwd_bf16": "deeplearning4j_tpu/ops/lstm.py:61 (_fwd_kernel, "
+                     "bfloat16 xw)",
+    "lstm_fwd_inference_bf16":
+        "deeplearning4j_tpu/ops/lstm.py:92 (_fwd_kernel_inference, "
+        "bfloat16 xw)",
+    "lstm_bwd_bf16": "deeplearning4j_tpu/ops/lstm.py:166 (_bwd_kernel: "
+                     "dxw, dh0, dc0; bfloat16)",
+    "lstm_bwd_weights_bf16": "deeplearning4j_tpu/ops/lstm.py:166 "
+                             "(_bwd_kernel: dRW, dP; bfloat16)",
     "conv1x1_bn_stats":
         "deeplearning4j_tpu/ops/conv_fused.py:69 (_mm_stats_kernel)",
     "conv3x3_bn_stats":
@@ -294,6 +303,10 @@ SOURCES = {
     "lstm_fwd_inference": "deeplearning4j_tpu_torch/csrc/lstm.cu",
     "lstm_bwd": "deeplearning4j_tpu_torch/csrc/lstm.cu",
     "lstm_bwd_weights": "deeplearning4j_tpu_torch/csrc/lstm.cu",
+    "lstm_fwd_bf16": "deeplearning4j_tpu_torch/csrc/lstm.cu",
+    "lstm_fwd_inference_bf16": "deeplearning4j_tpu_torch/csrc/lstm.cu",
+    "lstm_bwd_bf16": "deeplearning4j_tpu_torch/csrc/lstm.cu",
+    "lstm_bwd_weights_bf16": "deeplearning4j_tpu_torch/csrc/lstm.cu",
     "conv1x1_bn_stats": "deeplearning4j_tpu_torch/csrc/conv_fused.cu",
     "conv3x3_bn_stats": "deeplearning4j_tpu_torch/csrc/conv_fused.cu",
 }
@@ -1254,11 +1267,13 @@ def lstm_cases():
             dict(T=1, B=32, H=256, F=77, main=())]
 
 
-def lstm_bounds(T, B, H):
+def lstm_bounds(T, B, H, dtype=torch.float32):
     """{kernel: (bound_ms, bound_by)}: each kernel's product, 2·T·B·H·4H
-    flops at the float32 peak, against the bytes it must move (inputs
-    read once, outputs written once) over HBM bandwidth."""
-    ops_ms = 2.0 * T * B * H * 4 * H / PEAK_FLOPS[torch.float32] * 1e3
+    flops at the peak of `dtype`, against the bytes it must move (inputs
+    read once, outputs written once, each element of `dtype`) over HBM
+    bandwidth."""
+    ops_ms = 2.0 * T * B * H * 4 * H / PEAK_FLOPS[dtype] * 1e3
+    esize = torch.tensor([], dtype=dtype).element_size()
     seq, small = T * B * H, H * 4 * H + 3 * H + 2 * B * H
     nbytes = {
         # xw, rw, p, h0, c0, mask in; hs, hT, cT (+ cs, gates) out
@@ -1270,7 +1285,7 @@ def lstm_bounds(T, B, H):
         "lstm_bwd_weights": 5 * seq + B * H + H * 4 * H + 3 * H}
     out = {}
     for k, n in nbytes.items():
-        t_bytes = 4.0 * n / HBM_BYTES_PER_S * 1e3
+        t_bytes = esize * n / HBM_BYTES_PER_S * 1e3
         out[k] = (t_bytes, "bytes") if t_bytes >= ops_ms \
             else (ops_ms, "operations")
     return out
@@ -1486,6 +1501,175 @@ def run_lstm_case(c, flush, gen):
 
 
 # ------------------------------------ kernels: conv + BN statistics (B7)
+def lstm_bf16_cases():
+    """bfloat16 B2a/B2b/B2c at `path_l_bf16`'s shape (T 128, B 64, H 512,
+    its main path), `path_g`'s chunk (T 50) and step (T 1) at B 32, H 256,
+    and an odd shape (H 37: the strip copies 4 bytes at a time)."""
+    main = ("lstm_fwd_bf16", "lstm_fwd_inference_bf16", "lstm_bwd_bf16",
+            "lstm_bwd_weights_bf16")
+    return [dict(T=128, B=64, H=512, F=128, main=main),
+            dict(T=50, B=32, H=256, F=77, main=()),
+            dict(T=1, B=32, H=256, F=77, main=()),
+            dict(T=7, B=5, H=37, F=11, main=())]
+
+
+def run_lstm_bf16_case(c, flush, gen):
+    """The bfloat16 kernels of one shape, peepholes on and masked (a row
+    of T 1 held), against their plain versions on the same bfloat16
+    inputs, run on the CPU, whose arithmetic is JAX's bit for bit. The
+    forwards (design 1, "cluster_bf16") held by `ops/lstm.bf16_check`
+    (2^-5 absolute on hs and the gates, 2^-5 of the largest magnitude on
+    cs, at most 2^-3 of hs, cs and the gates different at all); B2b
+    bit-equal to B2a's common outputs. The backward from the CPU's
+    residuals: dxw, dh0, dc0 by `bf16_check` (2^-4 of the largest
+    magnitude, at most 2^-3 of dxw different); dRW and dP (the
+    "tiled_bf16" weight product on the kernel's own dxw) within contract
+    C13's elementwise bound (`c13_bound`) of the plain running bfloat16
+    sum, and within a bfloat16 step of their own size plus two float32
+    sums' error (`weights_f32_err`) of a float32 sum rounded once
+    (`lstm_weights_plain(..., running=False)`). Times (cold L2) beside
+    the bound at the bfloat16 peak and element size, the plain versions'
+    on the card at the main shape, and cuDNN's LSTM in bfloat16 (a
+    yardstick the port never calls, with the
+    input projection and no peepholes or mask)."""
+    from deeplearning4j_tpu_torch.ops import lstm as lk
+
+    dev = flush.device
+    bf = torch.bfloat16
+    T, B, H, F = c["T"], c["B"], c["H"], c["F"]
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev, bf)
+
+    xw, rw = rnd(T, B, 4 * H), rnd(H, 4 * H, scale=H ** -0.5)
+    p, h0, c0 = rnd(3, H, scale=0.5), rnd(B, H, scale=0.5), rnd(B, H,
+                                                              scale=0.5)
+    lens = torch.randint(0 if T == 1 else T // 4, T + 1, (B,), generator=gen)
+    mask = (torch.arange(T)[:, None] < lens[None, :]).to(dev, bf)
+    ins = (xw, rw, p, h0, c0, mask)
+    tag = f"bf16 T{T} B{B} H{H}"
+    before = dict(lk.LAUNCHES_BY_DESIGN)
+    got = lk.lstm_fwd(*ins, with_residuals=True)
+    inf = lk.lstm_fwd(*ins, with_residuals=False)
+    check(all(lk.LAUNCHES_BY_DESIGN[(k, "cluster_bf16")]
+              == before[(k, "cluster_bf16")] + 1
+              for k in ("lstm_fwd", "lstm_fwd_inference")),
+          f"lstm {tag}: the forwards did not run on cluster_bf16")
+    host = [t.cpu() for t in ins]
+    ref = lk.lstm_fwd_plain(*host, with_residuals=True)
+    errs, shares = {}, {}
+    for name, a, b in zip(("hs", "cs", "gates", "hT", "cT"), got, ref):
+        a = a.cpu()
+        ok, d, share = lk.bf16_check(name, a, b)
+        check(a.dtype == bf and ok, f"lstm_fwd {tag}: {name} err {d} "
+              f"(limit {lk.bf16_atol(name, b)}), {share} of it differs")
+        errs["fwd"] = max(errs.get("fwd", 0.0), d)
+        shares[name] = share
+    check(all(torch.equal(a, b) for a, b in
+              ((got[0], inf[0]), (got[3], inf[3]), (got[4], inf[4]))),
+          f"lstm_fwd_inference {tag} differs from lstm_fwd")
+    dhs, dhT, dcT = rnd(T, B, H), rnd(B, H), rnd(B, H)
+    hs, cs, gates = (t.to(dev) for t in ref[:3])
+    bw = (rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT)
+    bw_host = [t.cpu() for t in bw]
+    before = dict(lk.LAUNCHES_BY_DESIGN)
+    gk = lk.lstm_bwd(*bw)
+    check(lk.LAUNCHES_BY_DESIGN[("lstm_bwd", "cluster_bf16")]
+          == before[("lstm_bwd", "cluster_bf16")] + 1
+          and lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", "tiled_bf16")]
+          == before[("lstm_bwd_weights", "tiled_bf16")] + 1,
+          f"lstm_bwd {tag}: not on cluster_bf16 + tiled_bf16")
+    gr = lk.lstm_bwd_plain(*bw_host)
+    gk_host = [t.cpu() for t in gk]
+    for name, a, b in zip(("dxw", "dh0", "dc0"), gk_host, gr):
+        ok, d, share = lk.bf16_check(name, a, b)
+        check(a.dtype == bf and ok, f"lstm_bwd {tag}: {name} err {d} "
+              f"(limit {lk.bf16_atol(name, b)}), {share} of it differs")
+        errs["bwd"] = max(errs.get("bwd", 0.0), d)
+        shares[name] = share
+    # the weight launch on the kernel's own dxw, on the CPU
+    wts = (bw_host[3], bw_host[6], gk_host[0], bw_host[4], bw_host[7])
+    run = lk.lstm_weights_plain(*wts)
+    once = lk.lstm_weights_plain(*wts, running=False)
+    c13 = {}
+    for name, a, r, o, bnd, f32 in zip(
+            ("drw", "dp"), gk_host[3:], run, once, lk.c13_bound(*wts),
+            lk.weights_f32_err(*wts)):
+        e_run = (a.float() - r.float()).abs()
+        check(bool((e_run <= bnd).all()),
+              f"lstm_bwd_weights {tag}: {name} outside C13's bound at "
+              f"{int((e_run > bnd).sum())} elements")
+        o = o.float()
+        e_once = (a.float() - o).abs()
+        tol_once = lk.BF16_STEP * o.abs() + 2 * f32
+        check(bool((e_once <= tol_once).all()),
+              f"lstm_bwd_weights {tag}: {name} more than a bfloat16 step "
+              f"from a float32 sum rounded once")
+        c13[name] = {"max_abs_err_running": e_run.max().item(),
+                     "max_bound": bnd.max().item(),
+                     "max_err_share_of_bound":
+                         (e_run / bnd.clamp_min(1e-30)).max().item(),
+                     "max_abs_err_once": e_once.max().item(),
+                     "max_abs": r.float().abs().max().item()}
+        errs["weights"] = max(errs.get("weights", 0.0), e_once.max().item())
+    emit({"phase": "kernels", "kernel": "lstm_bwd_weights_bf16",
+          "check": "c13", "T": T, "B": B, "H": H, **c13,
+          "share_differing": shares})
+
+    rec = lk.launch_bwd_recurrence(rw, p, mask, cs, gates, c0, dhs, dhT,
+                                   dcT, "cluster")
+    runs = {"lstm_fwd_bf16": lambda: lk.lstm_fwd(*ins, with_residuals=True),
+            "lstm_fwd_inference_bf16": lambda: lk.lstm_fwd(
+                *ins, with_residuals=False),
+            "lstm_bwd_bf16": lambda: lk.launch_bwd_recurrence(
+                rw, p, mask, cs, gates, c0, dhs, dhT, dcT, "cluster"),
+            "lstm_bwd_weights_bf16": lambda: lk.launch_bwd_weights(
+                hs, h0, rec[0], rec[3], "tiled")}
+    plain = {"lstm_fwd_bf16": lambda: lk.lstm_fwd_plain(*ins),
+             "lstm_fwd_inference_bf16": lambda: lk.lstm_fwd_plain(
+                 *ins, with_residuals=False),
+             "lstm_bwd_bf16": lambda: lk.lstm_bwd_plain(*bw),
+             "lstm_bwd_weights_bf16": lambda: lk.lstm_weights_plain(
+                 hs, h0, rec[0], cs, c0)}
+    cudnn = torch.nn.LSTM(F, H).to(dev, bf)
+    x = rnd(T, B, F)
+    state = (h0[None].contiguous(), c0[None].contiguous())
+
+    def lib_inference():
+        with torch.no_grad():
+            return cudnn(x, state)
+
+    y, _ = cudnn(x.requires_grad_(), state)
+    wrt = [x] + list(cudnn.parameters())
+    hprev = torch.cat([h0[None], hs[:-1]]).reshape(T * B, H)
+    flat = rec[0].reshape(T * B, 4 * H)
+    lib = {"lstm_fwd_bf16": lambda: cudnn(x, state),
+           "lstm_fwd_inference_bf16": lib_inference,
+           "lstm_bwd_bf16": lambda: torch.autograd.grad(
+               y, wrt, dhs, retain_graph=True),
+           "lstm_bwd_weights_bf16": lambda: torch.matmul(hprev.t(), flat)}
+    bounds = lstm_bounds(T, B, H, bf)
+    err_of = {"lstm_fwd_bf16": "fwd", "lstm_fwd_inference_bf16": "fwd",
+              "lstm_bwd_bf16": "bwd", "lstm_bwd_weights_bf16": "weights"}
+    rows = []
+    for name, fn in runs.items():
+        base = name[:-len("_bf16")]
+        ms = time_ms(fn, flush)
+        row = {"phase": "kernels", "kernel": name, "dtype": "bfloat16",
+               "T": T, "B": B, "H": H, "max_abs_err": errs[err_of[name]],
+               "ms": ms,
+               "plain_ms": time_ms(plain[name], flush, iters=3)
+               if name in c["main"] else None,
+               "library_ms": time_ms(lib[name], flush),
+               "bound_ms": bounds[base][0], "bound_by": bounds[base][1],
+               "bound_share": bounds[base][0] / ms,
+               "design": lk.BF16_DESIGNS[base] + "_bf16",
+               "main_path_shape": name in c["main"]}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
 def resnet_conf(num_classes=1000, size=224, fused=True, dtype="bfloat16",
                 **kw):
     """`bench.py`'s ResNet-50 configuration (`_bench_resnet50`), `fused`
@@ -2897,11 +3081,13 @@ def k_parity(name, make_net, make_batches, tokens_per_step, kernels,
 
 def train_parity(rng, name="train_parity", kernel="flash_attention_fwd",
                  steps=2, tol_loss=1e-5, tol_param=1e-5, rtol_param=0.0,
-                 tol_update_gap=None, dtype="float32", **net_kw):
+                 tol_update_gap=None, dtype="float32", build=None,
+                 batch=None, **net_kw):
     """The port's train step on the card against the CPU: a 2-block model
     at T 256, batch 2, the same seed (so the same weights) and batch,
-    `steps` Adam steps in `dtype`; `kernel` must have run on the card
-    (in bfloat16 B3b and B3c on design 2). Adam's ε is 1e-3 here so that
+    `steps` Adam steps in `dtype`; `kernel` must have run twice a step on
+    the card (in bfloat16 B3b and B3c on design 2). `build(device)` and
+    `batch` replace the model and the batch (`lstm_parity_bf16`). Adam's ε is 1e-3 here so that
     a near-zero gradient's first update (≈ lr·sign(g) at ε 1e-8) cannot
     flip with the last bits of a sum; losses agree within `tol_loss`
     relative and every parameter within `tol_param` absolute plus
@@ -2917,11 +3103,15 @@ def train_parity(rng, name="train_parity", kernel="flash_attention_fwd",
     )
     from deeplearning4j_tpu_torch.optim.updaters import Adam, tree_leaves
 
-    batch = lm_batches(rng, 1, 2, 256)
+    if batch is None:
+        batch = lm_batches(rng, 1, 2, 256)
+    if build is None:
+        def build(d):
+            return build_net(d, num_blocks=2, seed=17, t=256, dtype=dtype,
+                             updater=Adam(3e-4, epsilon=1e-3), **net_kw)
     losses, leaves, moves = {}, {}, {}
     for d in ("cuda", "cpu"):
-        net = build_net(d, num_blocks=2, seed=17, t=256, dtype=dtype,
-                        updater=Adam(3e-4, epsilon=1e-3), **net_kw)
+        net = build(d)
         start = [p.double().cpu() for p in tree_leaves(net.params_tree)]
         scores = CollectScoresIterationListener()
         net.listeners.append(scores)
@@ -2931,7 +3121,7 @@ def train_parity(rng, name="train_parity", kernel="flash_attention_fwd",
             launches, _ = read_all_counts()
             check(launches[kernel] == 2 * steps,
                   f"{name}: {kernel} launched {launches[kernel]} times, "
-                  f"want 2 blocks x {steps} steps")
+                  f"want 2 layers x {steps} steps")
             if dtype == "bfloat16" and kernel == "flash_attention_fwd":
                 by_design = launches_by_design(fa)
                 check(all(by_design[f"{k}/wgmma"] == 2 * steps
@@ -3055,9 +3245,13 @@ def path_w(rng, epochs=3):
 
 
 # ----------------------------------------------------- recurrent phases
-def build_lstm_net(device, *, seed, h=512, f=128, classes=64, fused=None):
+def build_lstm_net(device, *, seed, h=512, f=128, classes=64, fused=None,
+                   dtype="float32", updater=None):
     """The repo's LSTM bench model: GravesLSTM(h) x 2 + RnnOutputLayer,
-    tanh, Nesterovs(0.01, 0.9), sequences of any length."""
+    tanh, Nesterovs(0.01, 0.9) (or `updater`), sequences of any length,
+    in `dtype`."""
+    import dataclasses
+
     from deeplearning4j_tpu_torch.models import MultiLayerNetwork
     from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.inputs import InputType
@@ -3065,12 +3259,13 @@ def build_lstm_net(device, *, seed, h=512, f=128, classes=64, fused=None):
     from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
 
     conf = (NeuralNetConfiguration.builder().seed(seed)
-            .updater(Nesterovs(0.01, 0.9)).activation("tanh")
+            .updater(updater or Nesterovs(0.01, 0.9)).activation("tanh")
             .list(GravesLSTM(n_out=h, fused=fused),
                   GravesLSTM(n_out=h, fused=fused),
                   RnnOutputLayer(n_out=classes, activation="softmax"))
             .set_input_type(InputType.recurrent(f)).build())
-    return MultiLayerNetwork(conf, device=device).init()
+    return MultiLayerNetwork(dataclasses.replace(conf, dtype=dtype),
+                             device=device).init()
 
 
 def seq_batches(rng, n, batch, t, f, classes, masked=()):
@@ -3279,7 +3474,7 @@ def path_g(rng, calls=200):
            "fit_launches_by_design": fit_by_design,
            "plain_on_cuda": plain_on_cuda}
     emit(row)
-    return row
+    return row, batches
 
 
 def lstm_parity(rng, tol=1e-4):
@@ -3332,6 +3527,404 @@ def lstm_parity(rng, tol=1e-4):
                                "max_step_output_abs_err": do}
     emit(row)
     return row
+
+
+def path_l_bf16(rng, epochs=3):
+    """`path_l` in bfloat16: GravesLSTM(512) x 2, T 128, batch 64, its
+    Nesterovs(0.01, 0.9) on bfloat16 leaves, 4 fixed batches (two
+    masked) x 3 epochs = 12 steps through `net.fit` (`timed_fit`): B2a
+    and B2c in bfloat16 twice a step, every launch on design 1
+    ("cluster_bf16", the weight product "tiled_bf16"), no float32 LSTM
+    launch, B1b once a step; then `output()`, B2b in bfloat16 twice."""
+    from deeplearning4j_tpu_torch.ops import lstm as lk
+    from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
+
+    B, T = 64, 128
+    net = build_lstm_net("cuda", seed=5, dtype="bfloat16")
+    check(net.conf.updater == Nesterovs(0.01, 0.9)
+          and net.dtype == torch.bfloat16,
+          f"path_l_bf16: {net.conf.updater}, {net.dtype}")
+    batches = seq_batches(rng, 4, B, T, 128, 64, masked=(1, 3))
+    fit = timed_fit("path_l_bf16", net, batches, epochs, B * T)
+    steps, launches = fit["steps"], fit["launches"]
+    for name in ("lstm_fwd_bf16", "lstm_bwd_bf16", "lstm_bwd_weights_bf16"):
+        check(launches[name] == 2 * steps,
+              f"path_l_bf16: {name} launched {launches[name]} times, want "
+              f"2 a step x {steps}")
+    check(all(launches[k] == 0 for k in lk.KERNELS)
+          and launches["lstm_fwd_inference_bf16"] == 0,
+          f"path_l_bf16: a float32 or inference LSTM kernel ran: {launches}")
+    check(launches["nesterov_update"] == steps,
+          f"path_l_bf16: nesterov_update launched "
+          f"{launches['nesterov_update']} times, want one a step")
+    by_design = launches_by_design(lk)
+    check(by_design["lstm_fwd/cluster_bf16"] == 2 * steps
+          and by_design["lstm_bwd/cluster_bf16"] == 2 * steps
+          and by_design["lstm_bwd_weights/tiled_bf16"] == 2 * steps,
+          f"path_l_bf16: not all on design 1: {by_design}")
+    torch.cuda.synchronize()
+    reset_all_counts()
+    probs = net.output(batches[0].features)
+    torch.cuda.synchronize()
+    out_launches, plain = read_all_counts()
+    check(probs.dtype == torch.bfloat16 and tuple(probs.shape) == (B, T, 64)
+          and bool(torch.isfinite(probs).all()),
+          f"path_l_bf16: output {probs.dtype} {tuple(probs.shape)}")
+    check(out_launches["lstm_fwd_inference_bf16"] == 2
+          and launches_by_design(lk)["lstm_fwd_inference/cluster_bf16"] == 2
+          and sum(plain.values()) == 0,
+          f"path_l_bf16: output() launches {out_launches}, plain {plain}")
+    row = {"phase": "path_l_bf16",
+           "model": "GravesLSTM x 2 + RnnOutputLayer", "hidden": 512,
+           "n_in": 128, "classes": 64, "T": T, "batch": B,
+           "dtype": "bfloat16", "updater": str(net.conf.updater),
+           "masked_batches": 2, **fit, "launches_by_design": by_design,
+           "output_launches": {k: v for k, v in out_launches.items()
+                               if k.startswith("lstm")}}
+    emit(row)
+    row["launches"] = {**launches, "lstm_fwd_inference_bf16":
+                       out_launches["lstm_fwd_inference_bf16"]}
+    return row
+
+
+def lstm_greedy_loop(net, prompts, chunk, max_new):
+    """Greedy streams of every prompt at once by `rnn_time_step`
+    (`path_g`'s loop): the prompt's stem in the session manager's chunks,
+    then one-hot tokens one a call from the last prompt token, each the
+    argmax of the last."""
+    V = int(net.layers[0].n_in)
+    eye = torch.eye(V, device=net.device)
+    stems = torch.as_tensor(np.stack([p[:-1] for p in prompts]),
+                            device=net.device)
+    net.rnn_clear_previous_state()
+    for lo in range(0, stems.shape[1], chunk):
+        net.rnn_time_step(eye[stems[:, lo:lo + chunk]])
+    tok = torch.as_tensor([int(p[-1]) for p in prompts], device=net.device)
+    toks = []
+    for _ in range(max_new):
+        tok = torch.argmax(net.rnn_time_step(eye[tok])[:, -1, :], dim=-1)
+        toks.append(tok)
+    net.rnn_clear_previous_state()
+    return torch.stack(toks, dim=1).cpu().numpy().tolist()
+
+
+def check_lstm_streams(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            at = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+            check(False, f"{what}: stream {i} parts from the reference at "
+                  f"token {at} ({g[at]} against {w[at]})")
+
+
+def path_ls(rng, prompt_len=200, max_new=200, slots=32, chunk=50, k=8):
+    """S7, recurrent decode sessions, at the zoo's width:
+    `TextGenerationLSTM` (LSTM(256) x 2, 77 characters, one-hot,
+    float32) serving `slots` prompts of `prompt_len` characters through
+    `DecodeSessionManager` (prefill chunks of `chunk`, windows of K `k`
+    as graph replays, `max_new` greedy tokens each). Every stream equals
+    token for token the greedy `rnn_time_step` loop on the same weights
+    (`lstm_greedy_loop`); the eager windows give the same streams; the
+    prefix cache and speculation are off, their reasons naming the
+    recurrent carries. B2b runs on design 2 for the prefill chunks (T 50)
+    and on design 1 for the decode steps (T 1), 2 a step, and nothing
+    else launches. Then the same prompts through `InferenceServer`, 8
+    SSE clients at a time, every stream equal to the direct one; then a
+    same-shape `deploy()` (a copy of the weights) under 4 live streams,
+    which complete equal to the direct ones: the flip carried their
+    h/c."""
+    from deeplearning4j_tpu_torch.ops import lstm as lk
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    V = 77
+    net = TextGenerationLSTM(input_shape=(prompt_len, V),
+                             seed=31).init(device="cuda")
+    prompts = [rng.integers(0, V, prompt_len) for _ in range(slots)]
+    t0 = time.perf_counter()
+    want = lstm_greedy_loop(net, prompts, chunk, max_new)
+    loop_s = time.perf_counter() - t0
+
+    def serve(graphs):
+        net.cuda_graphs = graphs
+        registry, sched, mgr = control_plane(net, slots=slots, chunk=chunk,
+                                             k=k)
+        try:
+            torch.cuda.synchronize()
+            reset_all_counts()
+            before = window_graph_counts(net)
+            streams, wave = serve_wave(mgr, prompts, [True] * slots,
+                                       max_new, V)
+            torch.cuda.synchronize()
+            launches, plain = read_all_counts()
+            by_design = launches_by_design(lk)
+            snap = mgr.snapshot()
+            counts = {c: v - before[c]
+                      for c, v in window_graph_counts(net).items()}
+        finally:
+            sched.shutdown()
+            registry.close()
+            net.cuda_graphs = True
+        check(sum(plain.values()) == 0,
+              f"path_ls: plain versions ran on CUDA tensors: {plain}")
+        return streams, wave, launches, by_design, snap, counts
+
+    streams, wave, launches, by_design, snap, counts = serve(True)
+    check_lstm_streams(streams, want, "path_ls")
+    windows = snap["dispatches"]["windows"]
+    check(counts["replays"] == windows and counts["eager"] == 0,
+          f"path_ls: {windows} windows, graph counts {counts}")
+    d1 = by_design["lstm_fwd_inference/cluster"]
+    d2 = by_design["lstm_fwd_inference/persistent"]
+    check(d1 == 2 * k * windows and d2 > 0 and d2 % 2 == 0
+          and d1 + d2 == launches["lstm_fwd_inference"],
+          f"path_ls: B2b launches by design {by_design} for {windows} "
+          f"windows of {k}")
+    others = {n: v for n, v in launches.items()
+              if v and n != "lstm_fwd_inference"}
+    check(not others, f"path_ls: other kernels launched: {others}")
+    pc, sd = snap["prefix_cache"], snap["spec_decode"]
+    check(not pc["enabled"] and "recurrent carries" in pc["reason"]
+          and not sd["enabled"] and "recurrent carries" in sd["reason"],
+          f"path_ls: prefix {pc}, spec {sd}")
+    slot_bytes = snap["slots"]["slot_bytes"]
+    check(slot_bytes == 2 * 2 * 256 * 4,
+          f"path_ls: {slot_bytes} bytes a slot, want two layers' h and c")
+    eager_streams, eager_wave, _, _, _, eager_counts = serve(False)
+    check(eager_streams == streams and eager_counts["replays"] == 0,
+          f"path_ls: the eager windows differ from the replayed ones "
+          f"({eager_counts})")
+
+    srv = InferenceServer(net, decode_slots=slots,
+                          decode_prefill_chunk=chunk, decode_fused_k=k)
+    try:
+        port = srv.start()
+        http, waves = [], []
+        for lo in range(0, slots, 8):
+            got, w = http_wave(port, prompts[lo:lo + 8], max_new)
+            http += got
+            waves.append(w)
+        check_lstm_streams(http, streams, "path_ls HTTP")
+        live = [SseClient(port, p, max_new) for p in prompts[:4]]
+        wait_first_tokens(live)
+        t0 = time.perf_counter()
+        srv.deploy("default", 2, net.clone())
+        deploy_s = time.perf_counter() - t0
+        swapped = [c.result() for c in live]
+        check_lstm_streams(swapped, streams[:4], "path_ls across deploy()")
+        _, _, models = http_call(port, "/models")
+        check(models["models"]["default"]["version"] == 2,
+              f"path_ls: after the deploy /models says {models}")
+    finally:
+        srv.stop()
+    row = {"phase": "path_ls", "model": "TextGenerationLSTM", "hidden": 256,
+           "vocab": V, "dtype": "float32", "slots": slots,
+           "prompt_len": prompt_len, "max_new": max_new,
+           "prefill_chunk": chunk, "k": k, "direct": wave,
+           "eager": eager_wave, "rnn_time_step_loop_s": loop_s,
+           "streams_equal_rnn_time_step": True,
+           "eager_equal_replayed": True, "http_waves": waves,
+           "http_equal_direct": True,
+           "hot_swap": {"deploy_s": deploy_s, "live": len(live),
+                        "live_equal_direct": True},
+           "slot_bytes": slot_bytes, "prefix_cache": pc,
+           "spec_decode": {"enabled": sd["enabled"],
+                           "reason": sd["reason"]},
+           "dispatches": snap["dispatches"], "window_graph_counts": counts,
+           "launches": launches, "launches_by_design": by_design}
+    emit(row)
+    return row
+
+
+def path_gt(batches):
+    """`path_g`'s tBPTT fit as a ComputationGraph: the same three layers as
+    vertices (`graph_twin`), tBPTT 50, Adam(1e-3), from the same initial
+    weights (`TextGenerationLSTM(seed=9)`'s seeded init) on `path_g`'s
+    two batches (B 32, T 200), beside the sequential fit run again on
+    the same inputs. The per-batch losses (each the mean of its 4 chunk
+    losses) and the final parameters agree within 1e-6 relative (the row
+    says whether bit for bit); B2a, B2c and B1a launch as often on both;
+    then one more batch under tbptt(50, 25): each chunk's head advances
+    the carries through B2b, its tail trains."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.ops import lstm as lk
+    from deeplearning4j_tpu_torch.optim.listeners import (
+        CollectScoresIterationListener,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    B, T, V = 32, 200, 77
+    seq = TextGenerationLSTM(input_shape=(T, V), seed=9).init(device="cuda")
+    graph = graph_twin(seq)
+    graph.conf = dataclasses.replace(graph.conf, tbptt_fwd_length=50,
+                                     tbptt_back_length=50)
+    runs = {}
+    for name, net in (("sequential", seq), ("graph", graph)):
+        scores = CollectScoresIterationListener()
+        net.listeners.append(scores)
+        torch.cuda.synchronize()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        net.fit(batches, epochs=1)
+        torch.cuda.synchronize()
+        launches, plain = read_all_counts()
+        check(sum(plain.values()) == 0,
+              f"path_gt {name}: plain versions ran on CUDA tensors")
+        runs[name] = {"losses": [sc for _, sc in scores.scores],
+                      "fit_s": time.perf_counter() - t0,
+                      "launches": launches,
+                      "by_design": launches_by_design(lk),
+                      "leaves": [p.detach().clone()
+                                 for p in tree_leaves(net.params_tree)]}
+    sq, gr = runs["sequential"], runs["graph"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gr["losses"],
+                                                       sq["losses"]))
+    param_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(gr["leaves"], sq["leaves"]))
+    bit_equal = gr["losses"] == sq["losses"] and all(
+        torch.equal(a, b) for a, b in zip(gr["leaves"], sq["leaves"]))
+    check(len(gr["losses"]) == 2 and loss_rel <= 1e-6 and param_rel <= 1e-6,
+          f"path_gt: the graph's fit differs from the sequential one: "
+          f"losses {gr['losses']} against {sq['losses']}, parameters "
+          f"{param_rel} relative")
+    kernels = ("lstm_fwd", "lstm_bwd", "lstm_bwd_weights", "adam_update")
+    check(all(gr["launches"][n] == sq["launches"][n] > 0 for n in kernels)
+          and gr["by_design"] == sq["by_design"],
+          f"path_gt: launches {gr['launches']} against {sq['launches']}")
+    graph.conf = dataclasses.replace(graph.conf, tbptt_back_length=25)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    graph.fit(batches[:1], epochs=1)
+    torch.cuda.synchronize()
+    back, _ = read_all_counts()
+    check(all(back[n] == 8 for n in ("lstm_fwd", "lstm_fwd_inference",
+                                     "lstm_bwd", "lstm_bwd_weights"))
+          and back["adam_update"] == 4 and np.isfinite(graph.score_),
+          f"path_gt tbptt(50, 25): launches {back}, loss {graph.score_}")
+    row = {"phase": "path_gt", "model": "TextGenerationLSTM as a "
+           "ComputationGraph", "T": T, "batch": B, "tbptt": 50,
+           "losses": gr["losses"], "sequential_losses": sq["losses"],
+           "loss_rel_err": loss_rel, "param_rel_err": param_rel,
+           "bit_equal": bit_equal, "fit_s": gr["fit_s"],
+           "sequential_fit_s": sq["fit_s"],
+           "launches": {n: gr["launches"][n] for n in kernels},
+           "launches_by_design": gr["by_design"],
+           "tbptt_50_25": {"loss": graph.score_,
+                           "launches": {n: back[n] for n in kernels
+                                        + ("lstm_fwd_inference",)}}}
+    emit(row)
+    return row
+
+
+ADDITION_VOCAB = 12          # the digits, "+" and the go/pad " "
+
+
+def addition_conf(hidden=256, digits=2, seed=41):
+    """dl4j-examples `AdditionRNN`'s encoder-decoder graph: the encoder
+    GravesLSTM reads "a+b" (2 x digits + 1 characters, one-hot), its
+    last step (`LastTimeStepVertex`) is broadcast over the decoder's
+    digits + 1 steps (`DuplicateToTimeSeriesVertex`) and merged with the
+    decoder's input (the sum shifted behind a go symbol), a GravesLSTM
+    decodes and a softmax reads each digit of the sum. Adam(1e-2),
+    float32."""
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.graph import (
+        DuplicateToTimeSeriesVertex, LastTimeStepVertex, MergeVertex,
+    )
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    te, td = 2 * digits + 1, digits + 1
+    g = (NeuralNetConfiguration.builder().seed(seed).updater(Adam(1e-2))
+         .activation("tanh").graph_builder()
+         .add_inputs("additionIn", "sumIn")
+         .set_input_types(InputType.recurrent(ADDITION_VOCAB, te),
+                          InputType.recurrent(ADDITION_VOCAB, td)))
+    g.add_layer("encoder", GravesLSTM(n_out=hidden), "additionIn")
+    g.add_vertex("lastTimeStep", LastTimeStepVertex(mask_input="additionIn"),
+                 "encoder")
+    g.add_vertex("duplicateTimeStep",
+                 DuplicateToTimeSeriesVertex(timesteps=td), "lastTimeStep")
+    g.add_vertex("merge", MergeVertex(), "sumIn", "duplicateTimeStep")
+    g.add_layer("decoder", GravesLSTM(n_out=hidden), "merge")
+    g.add_layer("output", RnnOutputLayer(n_out=ADDITION_VOCAB,
+                                         activation="softmax",
+                                         loss="mcxent"), "decoder")
+    g.set_outputs("output")
+    return ComputationGraph, g.build()
+
+
+def addition_batches(rng, n, batch, digits=2):
+    """`n` MultiDataSets of random sums a + b (a, b < 10^digits), one-hot:
+    the encoder's "a+b", the decoder's go symbol and the sum's first
+    digits, the sum's digits + 1 digits as labels."""
+    from deeplearning4j_tpu_torch.data import MultiDataSet
+
+    eye = np.eye(ADDITION_VOCAB, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        a, b = (rng.integers(0, 10 ** digits, batch) for _ in range(2))
+
+        def digits_of(v, width):
+            return np.stack([(v // 10 ** i) % 10
+                             for i in range(width - 1, -1, -1)], axis=1)
+
+        enc = np.concatenate([digits_of(a, digits),
+                              np.full((batch, 1), 10),
+                              digits_of(b, digits)], axis=1)
+        total = digits_of(a + b, digits + 1)
+        dec = np.concatenate([np.full((batch, 1), 11), total[:, :-1]],
+                             axis=1)
+        out.append(MultiDataSet([eye[enc], eye[dec]], [eye[total]]))
+    return out
+
+
+def path_s2s(rng, batch=512, hidden=256):
+    """The two recurrent vertices: `AdditionRNN`'s graph (`addition_conf`)
+    at hidden 256 and batch 512, 4 fixed batches x 3 epochs = 12 Adam
+    steps at K 1, again at K 1, and at K 4 (`k_parity`: K 4 bit-equal to
+    K 1, the loss falling); B2a, B2c (T 5 and T 3: design 1) twice a
+    step and B1a once; then `output()`: B2b twice."""
+    from deeplearning4j_tpu_torch.ops import lstm as lk
+
+    batches = addition_batches(rng, 4, batch)
+
+    def make():
+        cls, conf = addition_conf(hidden)
+        return cls(conf, device="cuda").init()
+
+    kernels = ("lstm_fwd", "lstm_bwd", "lstm_bwd_weights", "adam_update")
+    row = k_parity("path_s2s", make, lambda: batches, batch, kernels,
+                   unit="sequences")
+    check(row["k4_bit_equal_k1"], "path_s2s: K 4 is not bit-equal to K 1")
+    check(all(row["launches"][n] == 24 for n in kernels[:3])
+          and row["launches"]["adam_update"] == 12,
+          f"path_s2s: launches {row['launches']}")
+    net = make()
+    torch.cuda.synchronize()
+    reset_all_counts()
+    probs = net.output(*batches[0].features)
+    torch.cuda.synchronize()
+    launches, plain = read_all_counts()
+    by_design = launches_by_design(lk)
+    check(tuple(probs.shape) == (batch, 3, ADDITION_VOCAB)
+          and bool(torch.isfinite(probs).all())
+          and float((probs.sum(-1) - 1).abs().max()) < 1e-4,
+          f"path_s2s: output {tuple(probs.shape)}")
+    check(launches["lstm_fwd_inference"] == 2
+          and by_design["lstm_fwd_inference/cluster"] == 2
+          and sum(plain.values()) == 0,
+          f"path_s2s: output() launches {launches}, plain {plain}")
+    out = {"phase": "path_s2s", "graph": "AdditionRNN", "hidden": hidden,
+           "batch": batch, "T_encoder": 5, "T_decoder": 3,
+           "launches": row["launches"],
+           "epoch_mean_loss": row["k1"]["epoch_mean_loss"],
+           "output_launches": launches["lstm_fwd_inference"]}
+    emit(out)
+    return out
 
 
 # ------------------------------------------------ ResNet-50 phases (B7)
@@ -5098,6 +5691,9 @@ def main() -> int:
     rows += run_nesterov_phase(flush, gen)
     for c in lstm_cases():
         rows += run_lstm_case(c, flush, gen)
+    bf16_gen = torch.Generator().manual_seed(18)
+    for c in lstm_bf16_cases():
+        rows += run_lstm_bf16_case(c, flush, bf16_gen)
     for c in b7_cases():
         for dt in (torch.float32, torch.bfloat16):
             rows.append(run_b7_case(c, dt, flush, gen))
@@ -5134,8 +5730,22 @@ def main() -> int:
     train_parity(rng, "window_parity", "banded_attention", window=32,
                  **LLAMA)
     lp = path_l(rng)
-    g = path_g(rng)
+    g, g_batches = path_g(rng)
     lstm_parity(rng)
+    # the recurrent paths of slice 18 draw from streams of their own: the
+    # shared one stays as the phases after them have always drawn from it
+    ls = path_ls(np.random.default_rng(18))
+    gt = path_gt(g_batches)
+    del g_batches
+    s2s = path_s2s(np.random.default_rng(19))
+    lb = path_l_bf16(np.random.default_rng(20))
+    bf16_rng = np.random.default_rng(21)
+    train_parity(bf16_rng, "lstm_parity_bf16", "lstm_fwd_bf16",
+                 build=lambda d: build_lstm_net(d, seed=23,
+                                                dtype="bfloat16"),
+                 batch=seq_batches(bf16_rng, 1, 8, 32, 128, 64,
+                                   masked=(0,)),
+                 **TRAIN_PARITY_BF16)
     images = image_batches(rng, 4, 128, 224, 1000)
     r = path_r(images)
     path_r(images, fused=False)
@@ -5171,7 +5781,11 @@ def main() -> int:
             ("lstm_fwd", lp["launches"]),
             ("lstm_fwd_inference", g["launches"]),
             ("lstm_bwd", lp["launches"]),
-            ("lstm_bwd_weights", lp["launches"])):
+            ("lstm_bwd_weights", lp["launches"]),
+            ("lstm_fwd_bf16", lb["launches"]),
+            ("lstm_fwd_inference_bf16", lb["launches"]),
+            ("lstm_bwd_bf16", lb["launches"]),
+            ("lstm_bwd_weights_bf16", lb["launches"])):
         mine = [r for r in rows if r["kernel"] == name]
         mains = [r for r in mine if r["main_path_shape"]]
         # the flash kernels: path_t_bf16's row (this slice's path), with
@@ -5196,6 +5810,12 @@ def main() -> int:
         if name == "lstm_fwd_inference":
             summary[-1]["launches_path_gen"] = \
                 gen["lstm_graph"]["b2b_launches"]
+            summary[-1]["launches_path_ls"] = ls["launches"][name]
+            summary[-1]["launches_path_s2s"] = s2s["output_launches"]
+        if name in ("lstm_fwd", "lstm_bwd", "lstm_bwd_weights",
+                    "adam_update"):
+            summary[-1]["launches_path_gt"] = gt["launches"][name]
+            summary[-1]["launches_path_s2s"] = s2s["launches"][name]
         if name in FLASH_KERNELS + ("adam_update",):
             summary[-1]["launches_path_ckpt"] = ckpt["launches"][name]
             summary[-1]["launches_path_x"] = xa["launches"][name]
@@ -5256,7 +5876,21 @@ def main() -> int:
                          "plain_ms": f32["plain_ms"],
                          "library_ms": f32["library_ms"],
                          "launches_path_t": t32["launches"][name]})
-        if name in lk.LAUNCHES:
+        if name.endswith("_bf16"):
+            base = name[:-len("_bf16")]
+            d = lk.BF16_DESIGNS[base] + "_bf16"
+            by = (lb["output_launches"] if base == "lstm_fwd_inference"
+                  else lb["launches_by_design"])
+            summary[-1].update(
+                dtype="bfloat16", design=d,
+                bound_share=main_row["bound_share"],
+                launches_by_design={d: by[name] if base ==
+                                    "lstm_fwd_inference"
+                                    else by[f"{base}/{d}"]},
+                shapes=[{k: r[k] for k in (
+                    "T", "B", "H", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "max_abs_err")} for r in mine])
+        elif name in lk.LAUNCHES:
             by = (g["launches_by_design"] if name == "lstm_fwd_inference"
                   else lp["launches_by_design"])
             designs = lk.B2C_DESIGNS.get(name, lk.DESIGNS)

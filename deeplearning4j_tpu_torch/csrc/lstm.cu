@@ -1,4 +1,5 @@
-// Fused LSTM sequence kernels for Hopper (sm_90a), float32.
+// Fused LSTM sequence kernels for Hopper (sm_90a), float32 and, in design
+// 1, bfloat16.
 //
 //   lstm_fwd_kernel<true>  — replaces the TPU kernel B2a,
 //     deeplearning4j_tpu/ops/lstm.py `_fwd_kernel`: the recurrence over all
@@ -76,8 +77,23 @@
 // Numerics. expf and tanhf, no fast-math: 128 steps of drift would break
 // the tolerance. A sum of H products is taken as Q interleaved partial
 // sums; the plain version's matmul sums in another order.
+//
+// bfloat16 (design 1 only: ops/lstm.py `b2_design` and `b2c_design` send
+// it there). Every tensor is read and written as bfloat16 except RW, which
+// the wrapper widens to float32 once a call (as the backward already takes
+// a transposed copy), and dP's per-cluster partials, float32 scratch. The
+// math is float32 and rounds to bfloat16 (`rnd<E>`) after each operation
+// of the cell, as the Pallas body evaluated by XLA does: the recurrent
+// product is rounded, then added to xw[t]; sigmoid is 1 / (1 + exp(-x)),
+// each of its three operations rounded; h and c are carried rounded. So
+// the kernel differs from the plain version only where a float32 sum in
+// another order, or expf/tanhf against the host's, lands on the other
+// side of a bfloat16 rounding. dRW and dP are float32 sums rounded once,
+// where the Pallas kernel keeps a running bfloat16 sum over T: contract
+// C13 (ROADMAP §C) bounds the difference.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,6 +111,41 @@ constexpr int kSmemFloats = 232448 / 4;   // what a block can ask for
 
 __device__ __forceinline__ float sigm(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// Design 1's element types. Loads widen to float32 and stores round to E;
+// the math is float32, and rnd<E> rounds a result to E where the Pallas
+// body holds it in E (bfloat16: after every operation, as XLA evaluates
+// the interpreted body and the plain version's bfloat16 tensors do;
+// float32: nothing).
+template <typename E> struct Elt;
+template <> struct Elt<float> {
+  static __device__ __forceinline__ float ld(float x) { return x; }
+  static __device__ __forceinline__ float st(float x) { return x; }
+};
+template <> struct Elt<__nv_bfloat16> {
+  static __device__ __forceinline__ float ld(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 st(float x) {
+    return __float2bfloat16_rn(x);
+  }
+};
+
+template <typename E>
+__device__ __forceinline__ float ldf(const E* a, size_t i) {
+  return Elt<E>::ld(a[i]);
+}
+
+template <typename E>
+__device__ __forceinline__ float rnd(float x) {
+  return Elt<E>::ld(Elt<E>::st(x));
+}
+
+// sigm with each of its three operations rounded to E
+template <typename E>
+__device__ __forceinline__ float sigm_r(float x) {
+  return rnd<E>(1.0f / rnd<E>(1.0f + rnd<E>(expf(-x))));
 }
 
 // How a block's threads and shared memory are cut for a hidden size.
@@ -246,14 +297,17 @@ __device__ __forceinline__ size_t vat(int rows, int r, int b) {
 }
 
 // ------------------------------------------------------------------ forward
-template <bool RESID>
+// E: the element type of every tensor but rw, which the wrapper hands over
+// in float32 (a widened copy for bfloat16), so the streamed strip is the
+// same float32 pipeline in both.
+template <typename E, bool RESID>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kMaxThreads)
-lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ rw,
-                const float* __restrict__ p, const float* __restrict__ h0,
-                const float* __restrict__ c0, const float* __restrict__ mask,
-                float* __restrict__ hs, float* __restrict__ cs,
-                float* __restrict__ gates, float* __restrict__ hT,
-                float* __restrict__ cT, int T, int B, int H, Geom geo,
+lstm_fwd_kernel(const E* __restrict__ xw, const float* __restrict__ rw,
+                const E* __restrict__ p, const E* __restrict__ h0,
+                const E* __restrict__ c0, const E* __restrict__ mask,
+                E* __restrict__ hs, E* __restrict__ cs,
+                E* __restrict__ gates, E* __restrict__ hT,
+                E* __restrict__ cT, int T, int B, int H, Geom geo,
                 int stages) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -286,20 +340,20 @@ lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ rw,
 #pragma unroll
     for (int b = 0; b < kBT; ++b)
       h_buf[0][vat(H, k, b)] =
-          b0 + b < B ? h0[(size_t)(b0 + b) * H + k] : 0.f;
+          b0 + b < B ? ldf(h0, (size_t)(b0 + b) * H + k) : 0.f;
   float c_reg[2], h_reg[2];
 #pragma unroll
   for (int pi = 0; pi < 2; ++pi) {
     const int row = b0 + 2 * rp + pi;
     const bool ok = col_ok && row < B;
-    c_reg[pi] = ok ? c0[(size_t)row * H + j] : 0.f;
-    h_reg[pi] = ok ? h0[(size_t)row * H + j] : 0.f;
+    c_reg[pi] = ok ? ldf(c0, (size_t)row * H + j) : 0.f;
+    h_reg[pi] = ok ? ldf(h0, (size_t)row * H + j) : 0.f;
   }
   float p0 = 0.f, p1 = 0.f, p2 = 0.f;
   if (col_ok) {
-    p0 = p[j];
-    p1 = p[H + j];
-    p2 = p[2 * H + j];
+    p0 = ldf(p, j);
+    p1 = ldf(p, H + j);
+    p2 = ldf(p, 2 * H + j);
   }
   cluster.sync();     // every block of the cluster runs and holds h0
 
@@ -311,11 +365,12 @@ lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ rw,
     for (int pi = 0; pi < 2; ++pi) {
       const int row = b0 + 2 * rp + pi;
       const bool ok = col_ok && row < B;
-      m[pi] = ok ? mask[(size_t)t * B + row] : 0.f;
-      const float* x = xw + ((size_t)t * B + (ok ? row : 0)) * H4
+      m[pi] = ok ? ldf(mask, (size_t)t * B + row) : 0.f;
+      const E* x = xw + ((size_t)t * B + (ok ? row : 0)) * H4
           + (ok ? j : 0);
 #pragma unroll
-      for (int gg = 0; gg < 4; ++gg) xv[pi][gg] = ok ? x[gg * H] : 0.f;
+      for (int gg = 0; gg < 4; ++gg)
+        xv[pi][gg] = ok ? Elt<E>::ld(x[gg * H]) : 0.f;
     }
     float acc[4][kBT];      // [gate][batch row] of column jj
     const float4* hv = reinterpret_cast<const float4*>(h_buf[cur]);
@@ -325,31 +380,33 @@ lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ rw,
 #pragma unroll
     for (int pi = 0; pi < 2; ++pi) {
       const int row = b0 + 2 * rp + pi;
-      const float zi = pick(acc[0], rp, pi) + xv[pi][0];
-      const float zf = pick(acc[1], rp, pi) + xv[pi][1];
-      const float zg = pick(acc[2], rp, pi) + xv[pi][2];
-      const float zo = pick(acc[3], rp, pi) + xv[pi][3];
-      const float cp = c_reg[pi], hp = h_reg[pi];
-      const float ig = sigm(zi + cp * p0);
-      const float fg = sigm(zf + cp * p1);
-      const float gg = tanhf(zg);
-      const float c_new = fg * cp + ig * gg;
-      const float og = sigm(zo + c_new * p2);
-      const float h_new = og * tanhf(c_new);
-      const float hn = m[pi] * h_new + (1.0f - m[pi]) * hp;
-      const float cn = m[pi] * c_new + (1.0f - m[pi]) * cp;
+      // the product is emitted in E, then added to xw[t]
+      const float zi = rnd<E>(rnd<E>(pick(acc[0], rp, pi)) + xv[pi][0]);
+      const float zf = rnd<E>(rnd<E>(pick(acc[1], rp, pi)) + xv[pi][1]);
+      const float zg = rnd<E>(rnd<E>(pick(acc[2], rp, pi)) + xv[pi][2]);
+      const float zo = rnd<E>(rnd<E>(pick(acc[3], rp, pi)) + xv[pi][3]);
+      const float cp = c_reg[pi], hp = h_reg[pi], mm = m[pi];
+      const float ig = sigm_r<E>(rnd<E>(zi + rnd<E>(cp * p0)));
+      const float fg = sigm_r<E>(rnd<E>(zf + rnd<E>(cp * p1)));
+      const float gg = rnd<E>(tanhf(zg));
+      const float c_new = rnd<E>(rnd<E>(fg * cp) + rnd<E>(ig * gg));
+      const float og = sigm_r<E>(rnd<E>(zo + rnd<E>(c_new * p2)));
+      const float h_new = rnd<E>(og * rnd<E>(tanhf(c_new)));
+      const float keep = rnd<E>(1.0f - mm);
+      const float hn = rnd<E>(rnd<E>(mm * h_new) + rnd<E>(keep * hp));
+      const float cn = rnd<E>(rnd<E>(mm * c_new) + rnd<E>(keep * cp));
       c_reg[pi] = cn;
       h_reg[pi] = hn;
       if (col_ok && row < B) {
         const size_t at = ((size_t)t * B + row) * H + j;
-        hs[at] = hn;
+        hs[at] = Elt<E>::st(hn);
         if (RESID) {
-          cs[at] = cn;
-          float* gt = gates + ((size_t)t * B + row) * H4 + j;
-          gt[0] = ig;
-          gt[H] = fg;
-          gt[2 * H] = gg;
-          gt[3 * H] = og;
+          cs[at] = Elt<E>::st(cn);
+          E* gt = gates + ((size_t)t * B + row) * H4 + j;
+          gt[0] = Elt<E>::st(ig);
+          gt[H] = Elt<E>::st(fg);
+          gt[2 * H] = Elt<E>::st(gg);
+          gt[3 * H] = Elt<E>::st(og);
         }
       }
     }
@@ -369,22 +426,25 @@ lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ rw,
   for (int pi = 0; pi < 2; ++pi) {
     const int row = b0 + 2 * rp + pi;
     if (col_ok && row < B) {
-      hT[(size_t)row * H + j] = h_reg[pi];
-      cT[(size_t)row * H + j] = c_reg[pi];
+      hT[(size_t)row * H + j] = Elt<E>::st(h_reg[pi]);
+      cT[(size_t)row * H + j] = Elt<E>::st(c_reg[pi]);
     }
   }
 }
 
 // ----------------------------------------------------------------- backward
-// rwT is RW transposed, [4H, H]; dp_part is [batch tiles, 3, H], one partial
-// of dP a cluster, summed afterwards in tile order.
+// rwT is RW transposed, [4H, H], float32 for every E; dp_part is float32
+// [batch tiles, 3, H], one partial of dP a cluster, summed afterwards in
+// tile order. In bfloat16 the step's arithmetic rounds where the Pallas
+// body's does; dP's partials stay float32 (contract C13, ops/lstm.py).
+template <typename E>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kMaxThreads)
-lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ gates,
-                const float* __restrict__ cs, const float* __restrict__ rwT,
-                const float* __restrict__ p, const float* __restrict__ mask,
-                const float* __restrict__ dhT, const float* __restrict__ dcT,
-                const float* __restrict__ c0, float* __restrict__ dxw,
-                float* __restrict__ dh0, float* __restrict__ dc0,
+lstm_bwd_kernel(const E* __restrict__ dhs, const E* __restrict__ gates,
+                const E* __restrict__ cs, const float* __restrict__ rwT,
+                const E* __restrict__ p, const E* __restrict__ mask,
+                const E* __restrict__ dhT, const E* __restrict__ dcT,
+                const E* __restrict__ c0, E* __restrict__ dxw,
+                E* __restrict__ dh0, E* __restrict__ dc0,
                 float* __restrict__ dp_part, int T, int B, int H, Geom geo,
                 int stages) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -419,14 +479,14 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ gates,
   for (int pi = 0; pi < 2; ++pi) {
     const int row = b0 + 2 * rp + pi;
     const bool ok = col_ok && row < B;
-    dh_reg[pi] = ok ? dhT[(size_t)row * H + j] : 0.f;
-    dc_reg[pi] = ok ? dcT[(size_t)row * H + j] : 0.f;
+    dh_reg[pi] = ok ? ldf(dhT, (size_t)row * H + j) : 0.f;
+    dc_reg[pi] = ok ? ldf(dcT, (size_t)row * H + j) : 0.f;
   }
   float p0 = 0.f, p1 = 0.f, p2 = 0.f;
   if (col_ok) {
-    p0 = p[j];
-    p1 = p[H + j];
-    p2 = p[2 * H + j];
+    p0 = ldf(p, j);
+    p1 = ldf(p, H + j);
+    p2 = ldf(p, 2 * H + j);
   }
   cluster.sync();     // every block of the cluster runs
 
@@ -442,38 +502,51 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ gates,
       const bool ok = col_ok && row < B;
       if (ok) {
         const size_t at = ((size_t)t * B + row) * H + j;
-        const float* gt = gates + ((size_t)t * B + row) * H4 + j;
-        ig = gt[0];
-        fg = gt[H];
-        gg = gt[2 * H];
-        og = gt[3 * H];
-        c_t = cs[at];
+        const E* gt = gates + ((size_t)t * B + row) * H4 + j;
+        ig = Elt<E>::ld(gt[0]);
+        fg = Elt<E>::ld(gt[H]);
+        gg = Elt<E>::ld(gt[2 * H]);
+        og = Elt<E>::ld(gt[3 * H]);
+        c_t = ldf(cs, at);
         // the predecessor of step 0 is the initial carry
-        c_prev = t == 0 ? c0[(size_t)row * H + j] : cs[at - (size_t)B * H];
-        dh_o = dhs[at];
-        m = mask[(size_t)t * B + row];
+        c_prev = t == 0 ? ldf(c0, (size_t)row * H + j)
+                        : ldf(cs, at - (size_t)B * H);
+        dh_o = ldf(dhs, at);
+        m = ldf(mask, (size_t)t * B + row);
       }
-      const float dh_in = dh_o + dh_reg[pi];
-      const float dh_t = m * dh_in;
-      pass_h[pi] = (1.0f - m) * dh_in;
-      const float tanh_c = tanhf(c_t);
-      const float do_pre = dh_t * tanh_c * og * (1.0f - og);
-      const float dc_new = m * dc_reg[pi]
-          + dh_t * og * (1.0f - tanh_c * tanh_c) + do_pre * p2;
-      const float di_pre = dc_new * gg * ig * (1.0f - ig);
-      const float df_pre = dc_new * c_prev * fg * (1.0f - fg);
-      const float dg_pre = dc_new * ig * (1.0f - gg * gg);
-      dc_reg[pi] = dc_new * fg + (1.0f - m) * dc_reg[pi] + di_pre * p0
-          + df_pre * p1;
+      // each operation rounded to E in the order the plain version
+      // (lstm_bwd_plain) writes it; in float32 rnd is nothing
+      const float keep = rnd<E>(1.0f - m);
+      const float dh_in = rnd<E>(dh_o + dh_reg[pi]);
+      const float dh_t = rnd<E>(m * dh_in);
+      pass_h[pi] = rnd<E>(keep * dh_in);
+      const float tanh_c = rnd<E>(tanhf(c_t));
+      const float do_pre = rnd<E>(rnd<E>(rnd<E>(dh_t * tanh_c) * og)
+                                  * rnd<E>(1.0f - og));
+      const float dc_new = rnd<E>(
+          rnd<E>(rnd<E>(m * dc_reg[pi])
+                 + rnd<E>(rnd<E>(dh_t * og)
+                          * rnd<E>(1.0f - rnd<E>(tanh_c * tanh_c))))
+          + rnd<E>(do_pre * p2));
+      const float di_pre = rnd<E>(rnd<E>(rnd<E>(dc_new * gg) * ig)
+                                  * rnd<E>(1.0f - ig));
+      const float df_pre = rnd<E>(rnd<E>(rnd<E>(dc_new * c_prev) * fg)
+                                  * rnd<E>(1.0f - fg));
+      const float dg_pre = rnd<E>(rnd<E>(dc_new * ig)
+                                  * rnd<E>(1.0f - rnd<E>(gg * gg)));
+      dc_reg[pi] = rnd<E>(rnd<E>(rnd<E>(rnd<E>(dc_new * fg)
+                                        + rnd<E>(keep * dc_reg[pi]))
+                                 + rnd<E>(di_pre * p0))
+                          + rnd<E>(df_pre * p1));
       dpa[0] += di_pre * c_prev;
       dpa[1] += df_pre * c_prev;
       dpa[2] += do_pre * c_t;
       if (ok) {
-        float* dx = dxw + ((size_t)t * B + row) * H4 + j;
-        dx[0] = di_pre;
-        dx[H] = df_pre;
-        dx[2 * H] = dg_pre;
-        dx[3 * H] = do_pre;
+        E* dx = dxw + ((size_t)t * B + row) * H4 + j;
+        dx[0] = Elt<E>::st(di_pre);
+        dx[H] = Elt<E>::st(df_pre);
+        dx[2 * H] = Elt<E>::st(dg_pre);
+        dx[3 * H] = Elt<E>::st(do_pre);
       }
       dgate[0][pi] = di_pre;
       dgate[1][pi] = df_pre;
@@ -508,7 +581,7 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ gates,
     __syncthreads();
 #pragma unroll
     for (int pi = 0; pi < 2; ++pi)
-      dh_reg[pi] = pass_h[pi] + z_s[jj * kBT + 2 * rp + pi];
+      dh_reg[pi] = rnd<E>(rnd<E>(z_s[jj * kBT + 2 * rp + pi]) + pass_h[pi]);
     cluster.sync();     // every block is done with dg_s and z_s
   }
 
@@ -516,8 +589,8 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ gates,
   for (int pi = 0; pi < 2; ++pi) {
     const int row = b0 + 2 * rp + pi;
     if (col_ok && row < B) {
-      dh0[(size_t)row * H + j] = dh_reg[pi];
-      dc0[(size_t)row * H + j] = dc_reg[pi];
+      dh0[(size_t)row * H + j] = Elt<E>::st(dh_reg[pi]);
+      dc0[(size_t)row * H + j] = Elt<E>::st(dc_reg[pi]);
     }
   }
   // the column's dP partial: its four threads are neighbouring lanes
@@ -543,9 +616,12 @@ constexpr int kTileM = 128;
 constexpr int kTileN = 64;
 constexpr int kDepth = 16;
 
+// E: hs, h0, dxw and drw; the sum is float32 and rounds once (in
+// bfloat16 the Pallas kernel keeps a running sum in E: contract C13).
+template <typename E>
 __global__ void __launch_bounds__(256)
-lstm_drw_kernel(const float* __restrict__ hs, const float* __restrict__ h0,
-                const float* __restrict__ dxw, float* __restrict__ drw,
+lstm_drw_kernel(const E* __restrict__ hs, const E* __restrict__ h0,
+                const E* __restrict__ dxw, E* __restrict__ drw,
                 int T, int B, int H) {
   __shared__ __align__(16) float a_s[2][kDepth][kTileM];
   __shared__ __align__(16) float b_s[2][kDepth][kTileN];
@@ -568,14 +644,14 @@ lstm_drw_kernel(const float* __restrict__ hs, const float* __restrict__ h0,
       const int64_t kk = k0 + idx / kTileM;
       const int m = m0 + idx % kTileM;
       ra[i] = (kk < K && m < H)
-          ? (kk < B ? h0[kk * H + m] : hs[(kk - B) * H + m]) : 0.f;
+          ? (kk < B ? ldf(h0, kk * H + m) : ldf(hs, (kk - B) * H + m)) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < kB; ++i) {
       const int idx = threadIdx.x + i * 256;
       const int64_t kk = k0 + idx / kTileN;
       const int n = n0 + idx % kTileN;
-      rb[i] = (kk < K && n < H4) ? dxw[kk * H4 + n] : 0.f;
+      rb[i] = (kk < K && n < H4) ? ldf(dxw, kk * H4 + n) : 0.f;
     }
   };
   auto stage = [&](int buf) {
@@ -623,20 +699,22 @@ lstm_drw_kernel(const float* __restrict__ hs, const float* __restrict__ h0,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int ncol = n0 + tx * 4 + j;
-      if (ncol < H4) drw[(size_t)mrow * H4 + ncol] = acc[i][j];
+      if (ncol < H4) drw[(size_t)mrow * H4 + ncol] = Elt<E>::st(acc[i][j]);
     }
   }
 }
 
-// dP[q, j] = the batch tiles' partials summed in tile order
+// dP[q, j] = the batch tiles' float32 partials summed in tile order,
+// rounded once to E
+template <typename E>
 __global__ void lstm_dp_reduce_kernel(const float* __restrict__ dp_part,
-                                      float* __restrict__ dp, int tiles,
+                                      E* __restrict__ dp, int tiles,
                                       int H) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= 3 * H) return;
   float s = 0.f;
   for (int t = 0; t < tiles; ++t) s += dp_part[(size_t)t * 3 * H + i];
-  dp[i] = s;
+  dp[i] = Elt<E>::st(s);
 }
 
 bool bad_shape(int T, int B, int H) {
@@ -1377,49 +1455,97 @@ cudaError_t launch(const float* hs, const float* h0, const float* dxw,
 
 }  // namespace
 
+// Design 1's launches by element type (the C functions below pick one).
+template <typename E, bool R>
+cudaError_t launch_fwd1(const void* xw, const void* rw, const void* p,
+                        const void* h0, const void* c0, const void* mask,
+                        void* hs, void* cs, void* gates, void* hT, void* cT,
+                        int T, int B, int H, cudaStream_t st) {
+  const Geom geo = geometry(H, 4);
+  const int fixed = 2 * H * kBT;
+  const int stages = stages_for(fixed);
+  if (stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)fixed + stages * kStageFloats);
+  const dim3 grid(kCluster, (B + kBT - 1) / kBT);
+  // each instantiation raises its own dynamic shared-memory limit, once
+  static bool raised = false;
+  cudaError_t e = raise_smem_limit(lstm_fwd_kernel<E, R>, &raised);
+  if (e != cudaSuccess) return e;
+  lstm_fwd_kernel<E, R><<<grid, 4 * geo.Hcp, smem, st>>>(
+      static_cast<const E*>(xw), static_cast<const float*>(rw),
+      static_cast<const E*>(p), static_cast<const E*>(h0),
+      static_cast<const E*>(c0), static_cast<const E*>(mask),
+      static_cast<E*>(hs), static_cast<E*>(cs), static_cast<E*>(gates),
+      static_cast<E*>(hT), static_cast<E*>(cT), T, B, H, geo, stages);
+  return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t launch_bwd1(const void* dhs, const void* gates, const void* cs,
+                        const void* rwT, const void* p, const void* mask,
+                        const void* dhT, const void* dcT, const void* c0,
+                        void* dxw, void* dh0, void* dc0, void* dp_part, int T,
+                        int B, int H, cudaStream_t st) {
+  const Geom geo = geometry(H, 1);
+  const int fixed = 4 * H * kBT + kBT * geo.Hcp;
+  const int stages = stages_for(fixed);
+  if (stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)fixed + stages * kStageFloats);
+  const dim3 grid(kCluster, (B + kBT - 1) / kBT);
+  static bool raised = false;
+  cudaError_t e = raise_smem_limit(lstm_bwd_kernel<E>, &raised);
+  if (e != cudaSuccess) return e;
+  using C = const E*;
+  lstm_bwd_kernel<E><<<grid, 4 * geo.Hcp, smem, st>>>(
+      static_cast<C>(dhs), static_cast<C>(gates), static_cast<C>(cs),
+      static_cast<const float*>(rwT), static_cast<C>(p),
+      static_cast<C>(mask), static_cast<C>(dhT), static_cast<C>(dcT),
+      static_cast<C>(c0), static_cast<E*>(dxw), static_cast<E*>(dh0),
+      static_cast<E*>(dc0), static_cast<float*>(dp_part), T, B, H, geo,
+      stages);
+  return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t launch_weights1(const void* hs, const void* h0, const void* dxw,
+                            const void* dp_part, void* drw, void* dp, int T,
+                            int B, int H, int tiles, cudaStream_t st) {
+  const dim3 grid((4 * H + kTileN - 1) / kTileN, (H + kTileM - 1) / kTileM);
+  lstm_drw_kernel<E><<<grid, 256, 0, st>>>(
+      static_cast<const E*>(hs), static_cast<const E*>(h0),
+      static_cast<const E*>(dxw), static_cast<E*>(drw), T, B, H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  lstm_dp_reduce_kernel<E><<<(3 * H + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(dp_part), static_cast<E*>(dp), tiles, H);
+  return cudaGetLastError();
+}
+
 extern "C" {
 
 // batch rows a cluster: the caller sizes dp_part [ceil(B / tile), 3, H]
 int dl4j_lstm_batch_tile() { return kBT; }
 
-// Contiguous float32: xw [T, B, 4H], rw [H, 4H], p [3, H], h0/c0 [B, H],
-// mask [T, B]; out hs [T, B, H], hT/cT [B, H] and, when `residuals`, cs
-// [T, B, H] and gates [T, B, 4H] (else those two may be null).
-// Returns 0 or a cudaError_t.
+// Design 1 of B2a (`residuals`) and B2b. Contiguous, of `dtype` (0
+// float32, 1 bfloat16) but rw, which is float32 in both: xw [T, B, 4H], rw
+// [H, 4H], p [3, H], h0/c0 [B, H], mask [T, B]; out hs [T, B, H], hT/cT
+// [B, H] and, when `residuals`, cs [T, B, H] and gates [T, B, 4H] (else
+// those two may be null). Returns 0 or a cudaError_t.
 int dl4j_lstm_fwd(const void* xw, const void* rw, const void* p,
                   const void* h0, const void* c0, const void* mask, void* hs,
                   void* cs, void* gates, void* hT, void* cT, int T, int B,
-                  int H, int residuals, void* stream) {
-  if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
-  const Geom geo = geometry(H, 4);
-  const int fixed = 2 * H * kBT;
-  const int stages = stages_for(fixed);
-  if (stages < 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)fixed + stages * kStageFloats);
-  const dim3 grid(kCluster, (B + kBT - 1) / kBT);
+                  int H, int residuals, int dtype, void* stream) {
+  if (bad_shape(T, B, H) || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  if (residuals && (cs == nullptr || gates == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // each instantiation raises its own dynamic shared-memory limit, once
-  static bool raised[2] = {false, false};
-  cudaError_t e = residuals
-      ? raise_smem_limit(lstm_fwd_kernel<true>, &raised[1])
-      : raise_smem_limit(lstm_fwd_kernel<false>, &raised[0]);
-  if (e != cudaSuccess) return (int)e;
-#define DL4J_LSTM_FWD(R)                                                     \
-  lstm_fwd_kernel<R><<<grid, 4 * geo.Hcp, smem, st>>>(                       \
-      static_cast<const float*>(xw), static_cast<const float*>(rw),          \
-      static_cast<const float*>(p), static_cast<const float*>(h0),           \
-      static_cast<const float*>(c0), static_cast<const float*>(mask),        \
-      static_cast<float*>(hs), static_cast<float*>(cs),                      \
-      static_cast<float*>(gates), static_cast<float*>(hT),                   \
-      static_cast<float*>(cT), T, B, H, geo, stages)
-  if (residuals) {
-    if (cs == nullptr || gates == nullptr) return (int)cudaErrorInvalidValue;
-    DL4J_LSTM_FWD(true);
-  } else {
-    DL4J_LSTM_FWD(false);
-  }
-#undef DL4J_LSTM_FWD
-  return (int)cudaGetLastError();
+  using BF = __nv_bfloat16;
+  const auto fn = dtype == 1
+      ? (residuals ? launch_fwd1<BF, true> : launch_fwd1<BF, false>)
+      : (residuals ? launch_fwd1<float, true> : launch_fwd1<float, false>);
+  return (int)fn(xw, rw, p, h0, c0, mask, hs, cs, gates, hT, cT, T, B, H,
+                 st);
 }
 
 // Design 2 of B2a (`residuals`) and B2b: the persistent grid, `rows`
@@ -1461,54 +1587,38 @@ int dl4j_lstm_fwd_persistent(const void* xw, const void* rw, const void* p,
   return (int)e;
 }
 
-// The reverse-time recurrence of B2c. Contiguous float32: dhs [T, B, H],
-// gates [T, B, 4H], cs [T, B, H], rwT [4H, H] (RW transposed), p [3, H],
-// mask [T, B], dhT/dcT/c0 [B, H]; out dxw [T, B, 4H], dh0/dc0 [B, H],
+// The reverse-time recurrence of B2c, design 1. Contiguous, of `dtype`
+// (0 float32, 1 bfloat16) but rwT and dp_part, float32 in both: dhs [T, B,
+// H], gates [T, B, 4H], cs [T, B, H], rwT [4H, H] (RW transposed), p [3,
+// H], mask [T, B], dhT/dcT/c0 [B, H]; out dxw [T, B, 4H], dh0/dc0 [B, H],
 // dp_part [ceil(B / tile), 3, H].
+
 int dl4j_lstm_bwd(const void* dhs, const void* gates, const void* cs,
                   const void* rwT, const void* p, const void* mask,
                   const void* dhT, const void* dcT, const void* c0,
                   void* dxw, void* dh0, void* dc0, void* dp_part, int T,
-                  int B, int H, void* stream) {
-  if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
-  const Geom geo = geometry(H, 1);
-  const int fixed = 4 * H * kBT + kBT * geo.Hcp;
-  const int stages = stages_for(fixed);
-  if (stages < 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)fixed + stages * kStageFloats);
-  const dim3 grid(kCluster, (B + kBT - 1) / kBT);
-  static bool raised = false;
-  cudaError_t e = raise_smem_limit(lstm_bwd_kernel, &raised);
-  if (e != cudaSuccess) return (int)e;
-  lstm_bwd_kernel<<<grid, 4 * geo.Hcp, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dhs), static_cast<const float*>(gates),
-      static_cast<const float*>(cs), static_cast<const float*>(rwT),
-      static_cast<const float*>(p), static_cast<const float*>(mask),
-      static_cast<const float*>(dhT), static_cast<const float*>(dcT),
-      static_cast<const float*>(c0), static_cast<float*>(dxw),
-      static_cast<float*>(dh0), static_cast<float*>(dc0),
-      static_cast<float*>(dp_part), T, B, H, geo, stages);
-  return (int)cudaGetLastError();
+                  int B, int H, int dtype, void* stream) {
+  if (bad_shape(T, B, H) || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)(dtype == 1 ? launch_bwd1<__nv_bfloat16> : launch_bwd1<float>)(
+      dhs, gates, cs, rwT, p, mask, dhT, dcT, c0, dxw, dh0, dc0, dp_part, T,
+      B, H, static_cast<cudaStream_t>(stream));
 }
 
-// The weight gradients of B2c, after the recurrence: drw [H, 4H] from hs
-// [T, B, H], h0 [B, H] and dxw [T, B, 4H]; dp [3, H] from dp_part
+// The weight gradients of B2c, design 1, after the recurrence: drw [H, 4H]
+// from hs [T, B, H], h0 [B, H] and dxw [T, B, 4H], all of `dtype` (0
+// float32, 1 bfloat16); dp [3, H] of `dtype` from the float32 dp_part
 // [tiles, 3, H].
+
 int dl4j_lstm_bwd_weights(const void* hs, const void* h0, const void* dxw,
                           const void* dp_part, void* drw, void* dp, int T,
-                          int B, int H, int tiles, void* stream) {
-  if (bad_shape(T, B, H) || tiles < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((4 * H + kTileN - 1) / kTileN, (H + kTileM - 1) / kTileM);
-  lstm_drw_kernel<<<grid, 256, 0, st>>>(
-      static_cast<const float*>(hs), static_cast<const float*>(h0),
-      static_cast<const float*>(dxw), static_cast<float*>(drw), T, B, H);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  lstm_dp_reduce_kernel<<<(3 * H + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(dp_part), static_cast<float*>(dp), tiles, H);
-  return (int)cudaGetLastError();
+                          int B, int H, int tiles, int dtype, void* stream) {
+  if (bad_shape(T, B, H) || tiles < 1 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)(dtype == 1 ? launch_weights1<__nv_bfloat16>
+                          : launch_weights1<float>)(
+      hs, h0, dxw, dp_part, drw, dp, T, B, H, tiles,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Design 2 of B2c's recurrence: the persistent grid, `rows` batch rows a
@@ -1564,7 +1674,7 @@ int dl4j_lstm_bwd_weights_pipelined(const void* hs, const void* h0,
       static_cast<float*>(drw), static_cast<float*>(part),
       static_cast<unsigned*>(counters), T, B, H, splits, st);
   if (e != cudaSuccess) return (int)e;
-  lstm_dp_reduce_kernel<<<(3 * H + 255) / 256, 256, 0, st>>>(
+  lstm_dp_reduce_kernel<float><<<(3 * H + 255) / 256, 256, 0, st>>>(
       static_cast<F>(dp_part), static_cast<float*>(dp), tiles, H);
   return (int)cudaGetLastError();
 }

@@ -32,8 +32,13 @@ order, and a non-SGD `optimization_algo` fits each batch with a
 full-batch solver, as `MultiLayerNetwork`'s do; `params()` /
 `set_params()` are the flat view (vertex names sorted, depth first).
 
-Not ported yet, and refused rather than ignored: truncated BPTT (ROADMAP
-A3) and the recovery arguments (A6).
+Truncated BPTT (`tbptt_fwd_length`, `tbptt_back_length`) cuts every
+3-D input and label of a batch into chunks of time, one train step a
+chunk, and hands the recurrent vertices' carries from chunk to chunk
+detached, as JAX's `_fit_tbptt` does.
+
+Not ported yet, and refused rather than ignored: the recovery arguments
+(ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -231,10 +236,10 @@ class ComputationGraph:
 
     # ------------------------------------------------------------- loss
     def _loss(self, params, states, inputs, labels: Dict[str, Any], fmasks,
-              lmasks, rng, train: bool = True):
+              lmasks, rng, train: bool = True, carries=None):
         _, out_inputs, new_states = self._forward(
             params, states, inputs, train=train, rng=rng, fmasks=fmasks,
-            scoring=True)
+            scoring=True, carries=carries)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for name in self.conf.network_outputs:
             v = self.conf.vertices[name]
@@ -260,27 +265,35 @@ class ComputationGraph:
         return total, new_states
 
     # ------------------------------------------------------- train step
-    def make_step_fn(self):
+    def make_step_fn(self, tbptt: bool = False):
         """The train step: `step_fn(params, opt_state, states, step,
-        inputs, labels, fmasks, lmasks, rng)` returns `(params, opt_state,
-        states, loss)`, as JAX's does; params and opt_state are updated IN
-        PLACE, the loss is a 0-dim tensor on the device, and the stateful
-        vertices' new states (batch-norm running statistics) replace the
-        old."""
+        inputs, labels, fmasks, lmasks, rng, carries=None)` returns
+        `(params, opt_state, states, loss)`, as JAX's does; params and
+        opt_state are updated IN PLACE, the loss is a 0-dim tensor on the
+        device, and the stateful vertices' new states (batch-norm running
+        statistics) replace the old. With `tbptt` the recurrent vertices
+        start from `carries` and the step also returns their final
+        states, detached, for the next chunk."""
         mode = self.conf.gradient_normalization
         thr = self.conf.gradient_normalization_threshold
         groups = _updater_groups(self._vertex_updaters)
         stateful = self._stateful
+        rnn_names = self._rnn_vertex_names
 
         def step_fn(params, opt_state, states, step, inputs, labels, fmasks,
-                    lmasks, rng):
+                    lmasks, rng, carries=None):
             loss, new_states = _grad_and_update(
                 lambda live: self._loss(live, states, inputs, labels, fmasks,
-                                        lmasks, rng, train=True),
+                                        lmasks, rng, train=True,
+                                        carries=carries),
                 params, opt_state, groups, mode, thr, step)
             persist = {n: (tree_map(torch.detach, new_states[n])
                            if n in stateful else states.get(n, {}))
                        for n in states}
+            if tbptt:
+                return params, opt_state, persist, loss, {
+                    n: tree_map(torch.detach, new_states[n])
+                    for n in rnn_names}
             return params, opt_state, persist, loss
 
         return step_fn
@@ -352,13 +365,12 @@ class ComputationGraph:
         keeps max(2, K) batches' copies to the card in flight on a side
         stream. ``steps_per_dispatch=K`` runs K same-shape batches as one
         dispatch, a CUDA graph of K train steps on the card, as
-        `MultiLayerNetwork.fit`. A MultiDataSet (or an iterable of them)
-        feeds every input and output. Refused rather than ignored, until
-        ported: truncated BPTT, the recovery arguments and non-SGD
-        solvers."""
+        `MultiLayerNetwork.fit`; under truncated BPTT a batch whose inputs
+        are all 3-D runs step by step instead (`_fit_tbptt`: its chunks
+        hand carries on). A MultiDataSet (or an iterable of them) feeds
+        every input and output. Refused rather than ignored, until
+        ported: the recovery arguments."""
         self._check_init()
-        if self.conf.tbptt_fwd_length > 0:
-            _refuse("truncated BPTT of a ComputationGraph", "A3")
         if checkpointer is not None or resume is not None or \
                 stop_fn is not None or preemption:
             _refuse("checkpointed, resumable or stoppable fit "
@@ -404,13 +416,70 @@ class ComputationGraph:
 
     def _fit_batch(self, ds):
         """One train step on one batch (one solver run under a non-SGD
-        algorithm); returns the device loss."""
+        algorithm, the chunks of `_fit_tbptt` under truncated BPTT when
+        every input is 3-D); returns the device loss."""
         if self.conf.optimization_algo != "stochastic_gradient_descent":
             return self._fit_solver(ds)
         ds = self._on_device(ds)
         self._check_batch(ds)
         self.fit_stats["eager_steps"] += 1
-        return self._train_step(*self._batch_fields(ds))
+        fields = self._batch_fields(ds)
+        if self.conf.tbptt_fwd_length > 0 and all(
+                v.ndim == 3 for v in fields[0].values()):
+            return self._fit_tbptt(*fields)
+        return self._train_step(*fields)
+
+    def _fit_tbptt(self, feats, labs, fmasks, lmasks):
+        """Truncated BPTT on one batch (reference: `ComputationGraph.fit`'s
+        tBPTT dispatch and `doTruncatedBPTT`): every input, label and mask
+        is cut into chunks of `tbptt_fwd_length` steps, each chunk is one
+        train step, and the recurrent vertices' carries are handed from
+        chunk to chunk detached. When `tbptt_back_length` is shorter, the
+        head of each chunk only advances the carries (no gradient, no
+        update) and the step covers the last `back` steps. Every chunk
+        sees the same step count: the iteration, and so Adam's bias
+        correction, advances once a batch. Returns the mean of the chunk
+        losses, taken on the device."""
+        L = self.conf.tbptt_fwd_length
+        Lb = min(self.conf.tbptt_back_length or L, L)
+        T = next(iter(feats.values())).shape[1]
+        for name, lab in labs.items():
+            if lab.ndim != 3:
+                raise ValueError(
+                    f"Truncated BPTT requires per-timestep 3-D labels; "
+                    f"output {name!r} has shape {tuple(lab.shape)}")
+        step_fn = self.make_step_fn(tbptt=True)
+
+        def sl(d, a, b):
+            return None if d is None else {n: v[:, a:b]
+                                           for n, v in d.items()}
+
+        carries, losses = {}, []
+        for lo in range(0, T, L):
+            hi = min(lo + L, T)
+            t_lo = lo
+            if Lb < hi - lo:
+                t_lo = hi - Lb
+                carries = self._advance_carries(
+                    sl(feats, lo, t_lo), sl(fmasks, lo, t_lo), carries)
+            _, _, persist, loss, carries = step_fn(
+                self.params_tree, self.updater_state, self.state_tree,
+                self._step_t, sl(feats, t_lo, hi), sl(labs, t_lo, hi),
+                sl(fmasks, t_lo, hi), sl(lmasks, t_lo, hi), self._rng,
+                carries or None)
+            _copy_states(self.state_tree, persist)
+            losses.append(loss)
+        self._step_t.add_(1)
+        return torch.stack(losses).mean()
+
+    @torch.no_grad()
+    def _advance_carries(self, feats, fmasks, carries):
+        """Gradient-free forward that only moves the recurrent vertices'
+        carries along: the no-update head of a fwd > back tBPTT chunk."""
+        _, _, new_states = self._forward(
+            self.params_tree, self.state_tree, feats, train=False,
+            fmasks=fmasks, carries=carries or None)
+        return {n: new_states[n] for n in self._rnn_vertex_names}
 
     def _batch_fields(self, ds) -> tuple:
         """A batch as `_train_step`'s arguments: dicts by name."""
@@ -428,7 +497,17 @@ class ComputationGraph:
         return loss
 
     def _can_fuse(self, ds) -> bool:
-        return self.conf.optimization_algo == "stochastic_gradient_descent"
+        """Fused dispatch takes the plain SGD step: a batch whose inputs
+        are all 3-D under truncated BPTT runs per step (JAX's
+        `_can_fuse`)."""
+        if self.conf.optimization_algo != "stochastic_gradient_descent":
+            return False
+        if self.conf.tbptt_fwd_length > 0:
+            fs = ds.features if isinstance(ds, MultiDataSet) \
+                else [ds.features]
+            if all(f.ndim == 3 for f in fs):
+                return False
+        return True
 
     def _solver_loss(self, params, states, fields):
         """The deterministic train-mode loss a solver minimizes: (loss,

@@ -62,7 +62,7 @@ from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.models.decode_state import DecodeState
 from deeplearning4j_tpu_torch.nn.layers import (
     BaseRecurrentLayer, Bidirectional, EmbeddingSequenceLayer,
-    GravesBidirectionalLSTM, Layer,
+    GravesBidirectionalLSTM, LastTimeStep, Layer,
 )
 from deeplearning4j_tpu_torch.nn.layers.attention import new_kv_cache
 from deeplearning4j_tpu_torch.nn.layers.base import RngTape
@@ -400,6 +400,27 @@ def _with_leaves(tree, leaves: dict, path=()):
     return {k: (_with_leaves(v, leaves, (*path, k)) if isinstance(v, dict)
                 else leaves.get((*path, k), v))
             for k, v in tree.items()}
+
+
+_GRAPH_LEAVES = ("pos", "page_table")
+
+
+def _write_back(old_tree, new_tree):
+    """`new_tree` with every leaf but the positions and page tables
+    copied into `old_tree`'s tensor where the step built a new one (the
+    recurrent h/c; the KV caches were written in place already): the
+    pool's carries keep their addresses, which a captured window reads
+    and writes, and the caller's tree advances."""
+    out = {}
+    for k, new in new_tree.items():
+        old = old_tree.get(k) if old_tree else None
+        if isinstance(new, dict):
+            out[k] = _write_back(old, new)
+        elif old is None or new is old or k in _GRAPH_LEAVES:
+            out[k] = new
+        else:
+            out[k] = old.copy_(new)
+    return out
 
 
 def _lane_pack(values, dev) -> torch.Tensor:
@@ -1117,10 +1138,6 @@ class MultiLayerNetwork:
             lambda c: _reorder_carries(c, idx, self.device))
 
     # ------------------------------------------- slot-indexed sessions
-    @property
-    def _decode_layer_names(self):
-        return [l.name for l in self.layers if hasattr(l, "decode_carry")]
-
     def decode_limit(self) -> Optional[int]:
         """Smallest non-rolling cache/position bound across decode layers
         (None = unbounded): the session manager's budget ceiling."""
@@ -1132,16 +1149,27 @@ class MultiLayerNetwork:
                         pages: Optional[int] = None, device=None):
         """Per-slot decode carries for `slots` sessions on the net's
         device (or `device`: "meta" gives the tree's shapes and dtypes
-        without memory): the KVSlotPool's backing tree. `page_len`
-        switches every attention cache to the paged layout, which needs
-        a uniform `max_cache` across decode layers (one logical page id =
-        one physical row in every layer's pool); `pages` defaults to
-        `slots * max_cache / page_len`."""
+        without memory): the KVSlotPool's backing tree. Attention layers
+        get per-slot positions and caches, recurrent layers their h/c
+        carries [slots, n] (held by the step's mask, so a padded chunk or
+        an inactive lane keeps them). `page_len` switches every attention
+        cache to the paged layout, which needs a uniform `max_cache`
+        across decode layers (one logical page id = one physical row in
+        every layer's pool); `pages` defaults to `slots * max_cache /
+        page_len`."""
         self._check_init()
         decode = [l for l in self.layers if hasattr(l, "decode_carry")]
-        if not decode:
-            raise ValueError("session_carries needs at least one decode "
-                             "layer (attention decode_carry)")
+        rnn = [l for l in self.layers if _is_recurrent(l)]
+        if not decode and not rnn:
+            raise ValueError(
+                "session_carries needs at least one stateful decode "
+                "layer (attention decode_carry or recurrent carry)")
+        for l in rnn:
+            if isinstance(l, (Bidirectional, GravesBidirectionalLSTM,
+                              LastTimeStep)):
+                raise ValueError(
+                    f"session decoding is causal left-to-right; layer "
+                    f"{l.name!r} ({type(l).__name__}) cannot stream")
         for l in decode:
             if not getattr(l, "causal", True):
                 raise ValueError(
@@ -1155,22 +1183,38 @@ class MultiLayerNetwork:
                     f"across decode layers; got {sorted(caches)}")
             if pages is None and caches:
                 pages = slots * (next(iter(caches)) // page_len)
-        return {l.name: l.decode_carry(slots, self.dtype, per_slot=True,
-                                       kv_dtype=kv_dtype, page_len=page_len,
-                                       pages=pages,
-                                       device=device or self.device)
-                for l in decode}
+        dev = device or self.device
+        carries = {l.name: l.decode_carry(slots, self.dtype, per_slot=True,
+                                          kv_dtype=kv_dtype,
+                                          page_len=page_len, pages=pages,
+                                          device=dev)
+                   for l in decode}
+        for l in rnn:
+            carries[l.name] = l.initial_carry(slots, self.dtype, device=dev)
+        return carries
+
+    @property
+    def _session_layer_names(self):
+        """Layers whose state a session step carries: the recurrent ones
+        and the attention decode layers."""
+        return [l.name for l in self.layers
+                if _is_recurrent(l) or hasattr(l, "decode_carry")]
 
     def spec_decode_capable(self) -> bool:
-        """Every carry position-addressed (no rolling rings): the rewind
-        condition paged prefix caching shares."""
+        """Every carry position-addressed, so a rejected token is
+        un-written by rewinding `pos`: recurrent h/c carries hold state
+        that cannot be un-written, and rolling rings misattribute stale
+        slots, so either disqualifies the net (the rewind condition
+        paged prefix caching shares)."""
+        if self._rnn_layer_names:
+            return False
         decode = [l for l in self.layers if hasattr(l, "decode_carry")]
         return bool(decode) and not any(
             getattr(l, "rolling_cache", False) for l in decode)
 
     def prefix_cache_capable(self) -> bool:
-        """Can the session carries run paged? No rolling rings and one
-        uniform max_cache across decode layers."""
+        """Can the session carries run paged? No recurrent carries, no
+        rolling rings and one uniform max_cache across decode layers."""
         if not self.spec_decode_capable():
             return False
         caches = {l.max_cache for l in self.layers
@@ -1182,8 +1226,10 @@ class MultiLayerNetwork:
         """Revert inactive lanes' position leaves (`pos`). Every other
         leaf passes through: the KV caches (slot pools and paged pools
         alike) were updated in place and an inactive lane never wrote
-        them — its tokens are masked out of the cache write — and a
-        page table never changes during a step."""
+        them — its tokens are masked out of the cache write — a page
+        table never changes during a step, and a recurrent layer held an
+        inactive lane's h/c, because `active` is folded into the mask it
+        sees."""
         def merge(old, new):
             if isinstance(new, dict):
                 return {k: (torch.where(act, new[k], old[k]) if k == "pos"
@@ -1197,8 +1243,11 @@ class MultiLayerNetwork:
         """One slot-indexed step: `x` [S, T, F] (T = the chunk bucket),
         `valid` an optional [S, T] prefix mask, `active` an optional [S]
         bool. Inactive lanes compute but do not write: `active` is folded
-        into the cache-write mask (the caches update in place) and their
-        positions are reverted. Returns (out, new_carries)."""
+        into the mask (the caches update in place and the recurrent
+        layers hold the lane's h/c, as a padded position of `valid`
+        holds them) and their positions are reverted. The new h/c are
+        copied into `carries`' own tensors (`_write_back`), so a pool's
+        carries keep their addresses. Returns (out, new_carries)."""
         self._check_init()
         dev = self.device
         x = _as_tensor(x, self.dtype, dev)
@@ -1214,10 +1263,10 @@ class MultiLayerNetwork:
             fmask = base * act[:, None].to(self.dtype)
         out, new_states = self._forward(self.params_tree, x, fmask=fmask,
                                         carries=carries)
-        new = {n: new_states[n] for n in self._decode_layer_names}
+        new = {n: new_states[n] for n in self._session_layer_names}
         if act is not None:
             new = self._lane_merge(carries, new, act)
-        return out, new
+        return out, _write_back(carries, new)
 
     @torch.no_grad()
     def session_decode_window(self, tokens, carries, *, active, k,
@@ -1242,9 +1291,10 @@ class MultiLayerNetwork:
         parameters, which the graph reads and writes where they lie (a
         pool rebuilt elsewhere is captured anew). The per-lane arguments
         go to the card as one packed copy; the carries' `pos` and
-        `page_table` leaves are copied into the graph's buffers, and the
-        returned carries are the caller's tree with new `pos` leaves.
-        With `cuda_graphs` off, the same K steps run eagerly.
+        `page_table` leaves are copied into the graph's buffers, the
+        recurrent h/c are written back into the caller's tensors, and
+        the returned carries are the caller's tree with new `pos`
+        leaves. With `cuda_graphs` off, the same K steps run eagerly.
 
         Returns (tokens i32[S, k], emitted bool[S, k], new_carries);
         positions not emitted hold -1."""
@@ -1265,23 +1315,28 @@ class MultiLayerNetwork:
         the addresses of the KV caches and the parameters, which the
         graph reads and writes where they lie (a pool rebuilt elsewhere
         is captured anew). The carries' `pos` and `page_table` leaves are
-        copied into the graph's buffers; the returned carries are the
-        caller's tree with the new `pos` leaves. With `cuda_graphs` off,
-        `body` runs eagerly."""
+        copied into the graph's buffers; the recurrent h/c, which a step
+        builds anew, are copied back into the caller's tensors inside the
+        window (`_write_back`), so a replay reads and advances the pool's
+        own carries; the returned carries are the caller's tree with the
+        new `pos` leaves. With `cuda_graphs` off, `body` runs eagerly,
+        with the same write-back."""
         if not self.cuda_graphs:
-            return body(packed, carries, k, *extra)
+            out, new = body(packed, carries, k, *extra)
+            return out, _write_back(carries, new)
         # by path: a step returns a layer's carry keys in another order
         leaves = sorted(_carry_leaves(carries), key=lambda pa: pa[0])
         small = [(path, a) for path, a in leaves
-                 if path[-1] in ("pos", "page_table")]
+                 if path[-1] in _GRAPH_LEAVES]
         in_place = tuple(a.data_ptr() for path, a in leaves
-                         if path[-1] not in ("pos", "page_table"))
+                         if path[-1] not in _GRAPH_LEAVES)
         pos_paths = [p for p, _ in small if p[-1] == "pos"]
 
         def window(packed, leaves, *extra):
             c = _with_leaves(carries, dict(zip((p for p, _ in small),
                                                leaves)))
             out, new = body(packed, c, k, *extra)
+            new = _write_back(c, new)
             return out, [_leaf_at(new, p) for p in pos_paths]
 
         out, pos = self._graphs.run(
@@ -1326,7 +1381,7 @@ class MultiLayerNetwork:
             out, new_states = self._forward(self.params_tree,
                                             self._encode_ids(tok),
                                             fmask=val, carries=c)
-            new = {nm: new_states[nm] for nm in self._decode_layer_names}
+            new = {nm: new_states[nm] for nm in self._session_layer_names}
             c = self._lane_merge(c, new, act)
             nxt = _sampling.sample_token_lanes(
                 out[:, -1, :], temps, tks, tps, grdy, keys_, offs + n)
@@ -1406,7 +1461,7 @@ class MultiLayerNetwork:
         temps, tps = temps.to(torch.float32), tps.to(torch.float32)
         tks, offs = tks.to(torch.int64), offs.to(torch.int64)
         keys_ = torch.stack((key0, key1), dim=1).to(torch.int64)
-        names = self._decode_layer_names
+        names = self._session_layer_names
         c = self._pos_rewind(carries, torch.where(act, rew, 0))
         cu = act & pval
         _, st = self._forward(self.params_tree, self._encode_ids(ptok),

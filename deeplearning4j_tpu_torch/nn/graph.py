@@ -5,9 +5,11 @@ two packages).
 
 The DAG is data: named vertices and their input names. The topological
 order is computed once at build() and the runtime
-(`models/computation_graph.py`) folds over it. Not ported yet:
-`LastTimeStepVertex` and `DuplicateToTimeSeriesVertex` (ROADMAP A3); a
-configuration holding one is refused when it is read.
+(`models/computation_graph.py`) folds over it. The recurrent vertices
+`LastTimeStepVertex` and `DuplicateToTimeSeriesVertex` are DL4J's
+seq2seq glue (an encoder's last step broadcast over the decoder's
+length); a vertex, layer or preprocessor the port lacks is refused when
+a configuration is read.
 """
 
 from __future__ import annotations
@@ -263,6 +265,49 @@ class PreprocessorVertex(GraphVertex):
 
     def apply(self, params, inputs, **kw):
         return self.preprocessor.apply(inputs[0]), kw.get("state")
+
+
+@register_serde
+@dataclasses.dataclass(frozen=True)
+class LastTimeStepVertex(GraphVertex):
+    """[B, T, F] -> [B, F], each row's last unmasked step (the last step
+    with no mask). Reference: `nn/conf/graph/rnn/LastTimeStepVertex.java`.
+    `mask_input` is kept for the configuration, as in the JAX package,
+    whose runtime hands a vertex the first network-input mask among its
+    own inputs: a vertex fed by a layer gets none and takes `x[:, -1]`,
+    which after a masked LSTM is the last valid h (the layer holds it)."""
+
+    mask_input: Optional[str] = None
+
+    def output_type(self, *input_types: InputType) -> InputType:
+        return InputType.feed_forward(input_types[0].size)
+
+    def apply(self, params, inputs, *, mask=None, **kw):
+        x = inputs[0]
+        if mask is None:
+            return x[:, -1, :], kw.get("state")
+        idx = torch.clamp(mask.sum(dim=1).to(torch.int64) - 1, min=0)
+        return torch.take_along_dim(x, idx[:, None, None], dim=1)[:, 0, :], \
+            kw.get("state")
+
+
+@register_serde
+@dataclasses.dataclass(frozen=True)
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """[B, F] -> [B, T, F], broadcast over `timesteps` steps. Reference:
+    `nn/conf/graph/rnn/DuplicateToTimeSeriesVertex.java` (which reads T
+    from a named input; here, as in the JAX package, it is the config's
+    `timesteps`)."""
+
+    timesteps: int = 1
+
+    def output_type(self, *input_types: InputType) -> InputType:
+        return InputType.recurrent(input_types[0].flat_size(), self.timesteps)
+
+    def apply(self, params, inputs, **kw):
+        x = inputs[0]
+        return x[:, None, :].expand(x.shape[0], self.timesteps,
+                                    x.shape[-1]), kw.get("state")
 
 
 @register_serde

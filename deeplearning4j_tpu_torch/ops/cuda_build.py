@@ -104,22 +104,24 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "lstm": {
-        # xw rw p h0 c0 mask hs cs gates hT cT, T B H, residuals, stream
+        # xw rw p h0 c0 mask hs cs gates hT cT, T B H, residuals, dtype,
+        # stream
         "dl4j_lstm_fwd": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                 _I, _P]),
+                 _I, _I, _P]),
         # design 2: the same, then hbuf counters, T B H, rows, residuals,
         # stream
         "dl4j_lstm_fwd_persistent": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                  _I, _I, _I, _P]),
-        # dhs gates cs rwT p mask dhT dcT c0 dxw dh0 dc0 dp_part, T B H
+        # dhs gates cs rwT p mask dhT dcT c0 dxw dh0 dc0 dp_part, T B H,
+        # dtype, stream
         "dl4j_lstm_bwd": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                 _I, _I, _P]),
-        # hs h0 dxw dp_part drw dp, T B H, tiles
+                 _I, _I, _I, _P]),
+        # hs h0 dxw dp_part drw dp, T B H, tiles, dtype, stream
         "dl4j_lstm_bwd_weights": (
-            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         # design 2: dhs gates cs rw p mask dhT dcT c0 dxw dh0 dc0 dp_part
         # part counters, T B H, rows, stream
         "dl4j_lstm_bwd_persistent": (

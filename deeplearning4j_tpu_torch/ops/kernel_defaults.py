@@ -181,14 +181,17 @@ def prefix_cache_policy(page_len: Optional[int] = None, *,
                         capable: bool = True,
                         record: bool = True) -> PrefixCachePolicy:
     """Paged KV storage + radix prefix cache vs monolithic per-slot
-    caches. On whenever the model is capable (no rolling rings, uniform
-    max_cache). The page length (default 128) is snapped down to the
-    largest divisor of `max_cache`; the paged kernel takes any length."""
+    caches. On whenever the model is capable (no recurrent carries, no
+    rolling rings, uniform max_cache, no active draft). The page length
+    (default 128) is snapped down to the largest divisor of `max_cache`;
+    the paged kernel takes any length."""
     if not capable:
         if record:
             record_dispatch("prefix_cache", "off")
         return PrefixCachePolicy("off", 0, "model cannot page its KV "
-                                 "(rolling rings or non-uniform max_cache)")
+                                 "(recurrent carries, rolling rings, "
+                                 "non-uniform max_cache, or active draft "
+                                 "model)")
     want = max(1, int(page_len)) if page_len else 128
     if max_cache:
         mc = int(max_cache)
@@ -285,7 +288,10 @@ def lstm_policy(gate_activation: str, activation: Optional[str], *,
     error. On CPU tensors "fused" means the kernels' plain versions; the
     count records impl="plain". On the card a hidden size past the
     kernels' shared-memory tile is refused: a CUDA tensor never falls
-    back to a plain version."""
+    back to a plain version. The kernels take float32 (`b2_design` and
+    `b2c_design` choose design 1 or 2 by shape) and bfloat16 (design 1,
+    "cluster" and "tiled", at every shape); another dtype on the card is
+    refused by the kernels' wrapper."""
     from deeplearning4j_tpu_torch.ops.lstm import (
         MAX_HIDDEN, fused_lstm_available,
     )

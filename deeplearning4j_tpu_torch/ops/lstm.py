@@ -4,7 +4,7 @@
 The input projection x@W+b for ALL timesteps happens outside, as one
 `torch.matmul` (as JAX leaves it to XLA); the kernels fuse the sequential
 recurrence. Three kernels, hand-written in CUDA C++ for Hopper
-(`csrc/lstm.cu`), float32:
+(`csrc/lstm.cu`), in float32 and bfloat16:
 
 - B2a, `lstm_fwd(..., with_residuals=True)` (replaces `_fwd_kernel`):
   hs, the final carries hT and cT, and the residuals cs and the activated
@@ -30,6 +30,18 @@ as the forward is; its weight product "tiled" (design 1) or "pipelined"
 (design 2, a cp.async-fed SGEMM over `b2c_splits` slices of T·B), which
 needs no residency and takes every shape. `LAUNCHES_BY_DESIGN[(kernel,
 design)]` counts the launches of each.
+
+bfloat16 runs design 1 of every launch (`b2_design`, `b2c_design`,
+`b2c_weights_design`), counted as `LAUNCHES["<kernel>_bf16"]` and
+`LAUNCHES_BY_DESIGN[(kernel, "<design>_bf16")]`. Its arithmetic rounds
+where the Pallas body's does, which is after every operation (the plain
+versions, run on bfloat16 tensors, equal JAX's interpret run bit for
+bit, sigmoid written as 1 / (1 + exp(-x)) as XLA expands it); dRW and dP
+alone differ by design: the Pallas kernel keeps a running bfloat16 sum
+over T, the CUDA kernels a float32 sum rounded once, and `c13_bound`
+states how far apart that may put them (contract C13). `bf16_check`
+holds every other output to its plain version (`bf16_atol`, and the
+share of elements that differ, `BF16_SHARE`).
 
 `fused_lstm` chooses before it applies its `torch.autograd.Function`:
 B2b when no input wants a gradient (or grad is disabled), else the
@@ -59,18 +71,26 @@ DESIGNS = ("cluster", "persistent")
 PERSISTENT_ROWS = (8, 16, 32, 64)     # batch rows a design-2 block takes
 PERSISTENT_MIN_STEPS = 8              # shorter sequences stay on design 1
 
-LAUNCHES: Dict[str, int] = {"lstm_fwd": 0, "lstm_fwd_inference": 0,
-                            "lstm_bwd": 0, "lstm_bwd_weights": 0}
+KERNELS = ("lstm_fwd", "lstm_fwd_inference", "lstm_bwd", "lstm_bwd_weights")
+# bfloat16 launches count under their own names ("lstm_fwd_bf16", ...)
+LAUNCHES: Dict[str, int] = {k + sfx: 0 for k in KERNELS
+                            for sfx in ("", "_bf16")}
 PLAIN_ON_CUDA: Dict[str, int] = {"lstm_fwd": 0, "lstm_fwd_inference": 0,
                                  "lstm_bwd": 0}
 B2C_DESIGNS = {"lstm_bwd": ("cluster", "persistent"),
                "lstm_bwd_weights": ("tiled", "pipelined")}
 WEIGHT_TILE = 128                     # the pipelined SGEMM's tile of dRW
 
+# bfloat16 runs design 1 of each launch, counted as "<design>_bf16"
+BF16_DESIGNS = {"lstm_fwd": "cluster", "lstm_fwd_inference": "cluster",
+                "lstm_bwd": "cluster", "lstm_bwd_weights": "tiled"}
+
 LAUNCHES_BY_DESIGN: Dict[Tuple[str, str], int] = {
     **{(k, d): 0 for k in ("lstm_fwd", "lstm_fwd_inference")
        for d in DESIGNS},
-    **{(k, d): 0 for k, ds in B2C_DESIGNS.items() for d in ds}}
+    **{(k, d): 0 for k, ds in B2C_DESIGNS.items() for d in ds},
+    **{(k, d + "_bf16"): 0 for k, d in BF16_DESIGNS.items()}}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype codes
 
 
 def reset_counts() -> None:
@@ -87,6 +107,22 @@ def fused_lstm_available(gate_activation: str,
 
 
 # ------------------------------------------------------------ plain versions
+def _sigmoid(x):
+    """The gates' sigmoid. In bfloat16 (and float16) 1 / (1 + exp(-x)),
+    each operation rounded to x's dtype: the form XLA expands the Pallas
+    body's sigmoid into, and the kernels' `sigm_r`, where `torch.sigmoid`
+    rounds once and differs in the last bit. In float32 and float64,
+    `torch.sigmoid`."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return 1.0 / (1.0 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
+def _wide(x):
+    """x in float32 where it is narrower (a sum taken unrounded)."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
 def lstm_fwd_plain(xw, rw, p, h0, c0, mask, with_residuals: bool = True):
     """Plain version of kernels B2a (`with_residuals`) and B2b: returns
     (hs [T, B, H], cs [T, B, H] | None, gates [T, B, 4H] | None, hT, cT).
@@ -100,11 +136,11 @@ def lstm_fwd_plain(xw, rw, p, h0, c0, mask, with_residuals: bool = True):
     hs, cs, gs = [], [], []
     for t in range(T):
         z = xw[t] + h @ rw
-        i = torch.sigmoid(z[:, :H] + c * p[0:1])
-        f = torch.sigmoid(z[:, H:2 * H] + c * p[1:2])
+        i = _sigmoid(z[:, :H] + c * p[0:1])
+        f = _sigmoid(z[:, H:2 * H] + c * p[1:2])
         g = torch.tanh(z[:, 2 * H:3 * H])
         c_new = f * c + i * g
-        o = torch.sigmoid(z[:, 3 * H:] + c_new * p[2:3])
+        o = _sigmoid(z[:, 3 * H:] + c_new * p[2:3])
         h_new = o * torch.tanh(c_new)
         m = mask[t][:, None]
         h = m * h_new + (1.0 - m) * h
@@ -125,17 +161,14 @@ def lstm_bwd_plain(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT):
         PLAIN_ON_CUDA["lstm_bwd"] += 1
     T, _, H = hs.shape
     dh, dc = dhT, dcT
-    drw = torch.zeros_like(rw)
-    dp = torch.zeros_like(p)
     dxw = [None] * T
     for t in range(T - 1, -1, -1):
         gt = gates[t]
         i, f, g, o = (gt[:, :H], gt[:, H:2 * H], gt[:, 2 * H:3 * H],
                       gt[:, 3 * H:])
         c_t = cs[t]
-        # the predecessors of step 0 are the initial carries
+        # the predecessor of step 0 is the initial carry
         c_prev = c0 if t == 0 else cs[t - 1]
-        h_prev = h0 if t == 0 else hs[t - 1]
         m = mask[t][:, None]
         dh_in = dhs[t] + dh
         dh_t = m * dh_in
@@ -152,11 +185,135 @@ def lstm_bwd_plain(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT):
         dgates = torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=-1)
         dh = dgates @ rw.T + pass_h
         dxw[t] = dgates
-        drw = drw + h_prev.T @ dgates
-        dp = dp + torch.stack([(di_pre * c_prev).sum(0),
-                               (df_pre * c_prev).sum(0),
-                               (do_pre * c_t).sum(0)])
-    return torch.stack(dxw), dh, dc, drw, dp
+    dxw = torch.stack(dxw)
+    return (dxw, dh, dc, *lstm_weights_plain(hs, h0, dxw, cs, c0))
+
+
+def lstm_weights_plain(hs, h0, dxw, cs, c0, running: bool = True):
+    """(dRW, dP) of B2c's second launch from the recurrence's dxw, as
+    plain tensor ops: with `running`, the Pallas kernel's running sum
+    over T (from T - 1 down) in the tensors' dtype, `lstm_bwd_plain`'s;
+    else each a float32 sum over T·B rounded once to the dtype, the CUDA
+    kernels' arithmetic. In float32 the two differ only in summation
+    order. dP's products are summed unrounded, as XLA fuses them into
+    the reduce; a step's sums round before the running sum."""
+    T, _, H = hs.shape
+    dt = hs.dtype
+    h_prev = torch.cat([h0[None], hs[:-1]])
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    if not running:
+        w = _wide
+        drw = torch.einsum("tbk,tbn->kn", w(h_prev), w(dxw))
+        dp = torch.stack([(w(dxw[..., :H]) * w(c_prev)).sum((0, 1)),
+                          (w(dxw[..., H:2 * H]) * w(c_prev)).sum((0, 1)),
+                          (w(dxw[..., 3 * H:]) * w(cs)).sum((0, 1))])
+        return drw.to(dt), dp.to(dt)
+    drw = torch.zeros((H, 4 * H), dtype=dt, device=hs.device)
+    dp = torch.zeros((3, H), dtype=dt, device=hs.device)
+    for t in range(T - 1, -1, -1):
+        d = dxw[t]
+        drw = drw + h_prev[t].T @ d
+        dp = dp + torch.stack([(_wide(d[:, :H]) * _wide(c_prev[t])).sum(0),
+                               (_wide(d[:, H:2 * H]) * _wide(c_prev[t])
+                                ).sum(0),
+                               (_wide(d[:, 3 * H:]) * _wide(cs[t])).sum(0)]
+                              ).to(dt)
+    return drw, dp
+
+
+# --------------------------------------------------------- bfloat16 contract
+BF16_STEP = 2.0 ** -7          # a bfloat16 step (ulp) at [1, 2)
+# the share of a sequence-long output's elements that may differ at all
+BF16_SHARE = 2.0 ** -3
+_SEQUENCE_OUTPUTS = ("hs", "cs", "gates", "dxw")
+
+
+def bf16_atol(name: str, want: torch.Tensor) -> float:
+    """The bfloat16 tolerance of a B2 output against its plain version.
+    The kernels round after every operation where the plain version
+    does, so the two part only where a float32 sum in another order (or
+    the card's expf/tanhf) lands across a rounding; the recurrence then
+    carries that step on, as it carries the plain version's against
+    itself with its products summed in another exact order (at T 128, B
+    64, H 512: hs 3 steps apart, dxw 0.0127 of its largest magnitude;
+    `tests/test_torch_lstm_bf16.py`). So: 2^-5 absolute on hs, hT and the
+    gates, which lie in [-1, 1]; 2^-5 of the largest magnitude on cs and
+    cT, and 2^-4 on the gradients dxw, dh0 and dc0, which are not bounded
+    by 1."""
+    if name in ("hs", "hT", "gates"):
+        return 2.0 ** -5
+    scale = float(want.float().abs().max())
+    return (2.0 ** -5 if name in ("cs", "cT") else 2.0 ** -4) * scale
+
+
+def bf16_check(name: str, got: torch.Tensor,
+               want: torch.Tensor) -> Tuple[bool, float, float]:
+    """(within the contract, largest error, share of elements that
+    differ): the largest error within `bf16_atol`, and for a
+    sequence-long output (hs, cs, gates, dxw) at most `BF16_SHARE` of its
+    elements different at all. The share is what tells rounding points
+    apart: at `path_l`'s shape the plain version against itself in
+    another sum order differs in about 1% of hs, the CUDA kernel against
+    the plain version run on the CPU (JAX's arithmetic bit for bit) in
+    4% (and the plain version run on the card in 12%: its bfloat16
+    products land otherwise), a version rounding only where it stores
+    in 70%. So the card's kernels are held to the plain version run on
+    the CPU."""
+    d = (got.float() - want.float()).abs()
+    err, share = float(d.max()), float((d > 0).float().mean())
+    ok = err <= bf16_atol(name, want) and (
+        name not in _SEQUENCE_OUTPUTS or share <= BF16_SHARE)
+    return ok, err, share
+
+
+def _weight_products(hs, h0, dxw, cs, c0):
+    """B2c's weight launch step by step in float32: the steps' products
+    P [T, H, 4H] and [T, 3, H] (dRW's and dP's) and the sums of their
+    terms' magnitudes A, of the same shapes."""
+    H = hs.shape[2]
+    w = _wide
+    h_prev = w(torch.cat([h0[None], hs[:-1]]))
+    c_prev = w(torch.cat([c0[None], cs[:-1]]))
+    d = w(dxw)
+    prw = torch.einsum("tbk,tbn->tkn", h_prev, d)
+    arw = torch.einsum("tbk,tbn->tkn", h_prev.abs(), d.abs())
+    terms = (d[..., :H] * c_prev, d[..., H:2 * H] * c_prev,
+             d[..., 3 * H:] * w(cs))
+    pp = torch.stack([x.sum(1) for x in terms], dim=1)
+    ap = torch.stack([x.abs().sum(1) for x in terms], dim=1)
+    return (prw, arw), (pp, ap)
+
+
+def c13_bound(hs, h0, dxw, cs, c0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Contract C13: the elementwise bound on |kernel - plain| for B2c's
+    dRW and dP in bfloat16, on the same dxw. The plain version (and the
+    Pallas kernel) keeps a running bfloat16 sum S_t = rnd(S_{t-1} +
+    rnd(P_t)) over the steps' products P_t; the CUDA kernel sums in
+    float32 and rounds once. Each bfloat16 rounding errs by at most u =
+    2^-8 of its value, so to first order the two lie within u (|S_T| +
+    sum_t (|P_t| + |S_t|)), S and P in float32 from the same inputs;
+    each float32 sum of the n = T·B terms errs by at most n 2^-24 of the
+    sum of their magnitudes A (`weights_f32_err`), which the two sides'
+    float32 sums add twice."""
+    T, B, _ = hs.shape
+    out = []
+    for prod, mag in _weight_products(hs, h0, dxw, cs, c0):
+        srt = torch.cumsum(prod.flip(0), 0)      # S_t, in the sum's order
+        out.append(2.0 ** -8 * (srt[-1].abs() + prod.abs().sum(0)
+                                + srt.abs().sum(0))
+                   + 2 * T * B * 2.0 ** -24 * mag.sum(0))
+    return out[0], out[1]
+
+
+def weights_f32_err(hs, h0, dxw, cs, c0) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """The elementwise bound on how far a float32 sum of dRW's (dP's)
+    n = T·B terms may lie from the exact sum: n 2^-24 of the sum of the
+    terms' magnitudes (the standard bound of recursive summation; it
+    matters where the terms cancel)."""
+    T, B, _ = hs.shape
+    return tuple(T * B * 2.0 ** -24 * mag.sum(0)
+                 for _, mag in _weight_products(hs, h0, dxw, cs, c0))
 
 
 # ------------------------------------------------------------------ wrappers
@@ -176,12 +333,15 @@ def _check_shapes(xw, rw, p, h0, c0, mask) -> None:
 
 def _check_cuda(tensors: dict) -> None:
     first = next(iter(tensors.values()))
+    if first.dtype not in DTYPES:
+        raise TypeError(f"the CUDA LSTM kernels take float32 or bfloat16; "
+                        f"got {first.dtype}")
     for name, t in tensors.items():
         if t.device != first.device:
             raise ValueError(f"{name} on {t.device}, not {first.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA LSTM kernels take float32; {name} "
-                            f"is {t.dtype}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"the CUDA LSTM kernels take one dtype a call; "
+                            f"{name} is {t.dtype}, not {first.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
@@ -234,7 +394,8 @@ def card_limits(device) -> Tuple[int, int]:
         props.shared_memory_per_multiprocessor - 1024
 
 
-def b2_design(T: int, B: int, H: int, sms: int, smem: int) -> str:
+def b2_design(T: int, B: int, H: int, sms: int, smem: int,
+              dtype=torch.float32) -> str:
     """The design that takes a forward call (B2a with residuals, B2b
     without: the same rule) on a card of `sms` SMs and `smem` bytes of
     shared memory a block: "persistent" (design 2) for sequences of at
@@ -243,9 +404,12 @@ def b2_design(T: int, B: int, H: int, sms: int, smem: int) -> str:
     MAX_HIDDEN). Design 2 pays a fixed cost a call (a cooperative launch
     whose blocks stage their strips of RW) for cheaper steps, so a short
     sequence (`rnn_time_step`'s T 1) stays on design 1 (`chip_smoke.py`
-    times both designs at T 1, 4, 8, 50 and 200). A pure function of the
-    shape and the card, decided before the launch."""
-    if T < PERSISTENT_MIN_STEPS or b2_rows(B, H, sms, smem) is None:
+    times both designs at T 1, 4, 8, 50 and 200). bfloat16 takes design
+    1 at every shape: design 2 is float32 only (as B5 and B6 keep bf16
+    caches on design 1). A pure function of the shape, the dtype and the
+    card, decided before the launch."""
+    if dtype == torch.bfloat16 or T < PERSISTENT_MIN_STEPS \
+            or b2_rows(B, H, sms, smem) is None:
         return "cluster"
     return "persistent"
 
@@ -284,18 +448,28 @@ def b2c_rows(B: int, H: int, sms: int, smem: int) -> Optional[int]:
     return None
 
 
-def b2c_design(T: int, B: int, H: int, sms: int, smem: int) -> str:
+def b2c_design(T: int, B: int, H: int, sms: int, smem: int,
+               dtype=torch.float32) -> str:
     """The design of B2c's recurrence on a card of `sms` SMs and `smem`
     bytes of shared memory a block, by `b2_design`'s rule: "persistent"
     (design 2) for sequences of at least PERSISTENT_MIN_STEPS steps where
     `b2c_rows` finds a tile whose grid can be resident at once, else
     "cluster" (design 1, which takes every hidden size up to MAX_HIDDEN;
     `chip_smoke.py` times both at its LSTM shapes from T 4 to 200). The
-    weight product takes "pipelined" at every shape. A pure function of
-    the shape and the card, decided before the launch."""
-    if T < PERSISTENT_MIN_STEPS or b2c_rows(B, H, sms, smem) is None:
+    weight product takes "pipelined" at every shape (`b2c_weights_design`).
+    bfloat16 takes design 1 of both launches at every shape. A pure
+    function of the shape, the dtype and the card, decided before the
+    launch."""
+    if dtype == torch.bfloat16 or T < PERSISTENT_MIN_STEPS \
+            or b2c_rows(B, H, sms, smem) is None:
         return "cluster"
     return "persistent"
+
+
+def b2c_weights_design(dtype=torch.float32) -> str:
+    """The design of B2c's weight product: "pipelined" (design 2) in
+    float32, "tiled" (design 1) in bfloat16."""
+    return "tiled" if dtype == torch.bfloat16 else "pipelined"
 
 
 def b2c_splits(T: int, B: int, H: int, sms: int) -> int:
@@ -316,7 +490,7 @@ def lstm_fwd(xw, rw, p, h0, c0, mask, with_residuals: bool = True):
     _check_cuda(dict(xw=xw, rw=rw, p=p, h0=h0, c0=c0, mask=mask))
     T, B, H4 = xw.shape
     _check_hidden(H4 // 4)
-    design = b2_design(T, B, H4 // 4, *card_limits(xw.device))
+    design = b2_design(T, B, H4 // 4, *card_limits(xw.device), xw.dtype)
     return launch_fwd(xw, rw, p, h0, c0, mask, with_residuals, design)
 
 
@@ -324,13 +498,16 @@ def launch_fwd(xw, rw, p, h0, c0, mask, with_residuals: bool = True,
                design: str = "cluster"):
     """Kernel B2a (`with_residuals`) or B2b alone, on checked CUDA
     tensors, in `design` (the wrapper passes `b2_design`'s choice;
-    `chip_smoke.py` also times design 1 where design 2 runs): returns
-    (hs, cs, gates, hT, cT)."""
+    `chip_smoke.py` also times design 1 where design 2 runs; bfloat16
+    runs design 1 only): returns (hs, cs, gates, hT, cT)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("lstm")
     T, B, H4 = xw.shape
     H = H4 // 4
+    bf16 = _bf16_design(xw, design, "cluster")
+    if bf16:
+        rw = rw.float()      # the streamed strip is float32 in both
     new = lambda *s: torch.empty(s, dtype=xw.dtype, device=xw.device)  # noqa
     hs, hT, cT = new(T, B, H), new(B, H), new(B, H)
     cs = new(T, B, H) if with_residuals else None
@@ -355,12 +532,27 @@ def launch_fwd(xw, rw, p, h0, c0, mask, with_residuals: bool = True,
             int(with_residuals), _stream(xw.device))
     else:
         rc = lib.dl4j_lstm_fwd(*args, T, B, H, int(with_residuals),
-                               _stream(xw.device))
+                               DTYPES[xw.dtype], _stream(xw.device))
     name = "lstm_fwd" if with_residuals else "lstm_fwd_inference"
-    cuda_build.check(lib, rc, f"{name} ({design})")
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_DESIGN[(name, design)] += 1
+    cuda_build.check(lib, rc, f"{name} ({design}, {xw.dtype})")
+    _count(name, design, bf16)
     return hs, cs, gates, hT, cT
+
+
+def _bf16_design(x, design: str, want: str) -> bool:
+    """True for a bfloat16 launch, which only `want` (design 1) takes."""
+    if x.dtype != torch.bfloat16:
+        return False
+    if design != want:
+        raise ValueError(f"the bfloat16 LSTM kernels run design {want!r}, "
+                         f"not {design!r}")
+    return True
+
+
+def _count(name: str, design: str, bf16: bool) -> None:
+    sfx = "_bf16" if bf16 else ""
+    LAUNCHES[name + sfx] += 1
+    LAUNCHES_BY_DESIGN[(name, design + sfx)] += 1
 
 
 def lstm_bwd(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT):
@@ -373,10 +565,11 @@ def lstm_bwd(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT):
     _check_hidden(H)
     _check_cuda(dict(hs=hs, rw=rw, p=p, mask=mask, cs=cs, gates=gates,
                      h0=h0, c0=c0, dhs=dhs, dhT=dhT, dcT=dcT))
-    design = b2c_design(T, B, H, *card_limits(hs.device))
+    design = b2c_design(T, B, H, *card_limits(hs.device), hs.dtype)
     dxw, dh0, dc0, dp_part = launch_bwd_recurrence(
         rw, p, mask, cs, gates, c0, dhs, dhT, dcT, design)
-    drw, dp = launch_bwd_weights(hs, h0, dxw, dp_part, "pipelined")
+    drw, dp = launch_bwd_weights(hs, h0, dxw, dp_part,
+                                 b2c_weights_design(hs.dtype))
     return dxw, dh0, dc0, drw, dp
 
 
@@ -384,13 +577,15 @@ def launch_bwd_recurrence(rw, p, mask, cs, gates, c0, dhs, dhT, dcT,
                           design: str = "cluster"):
     """The reverse-time kernel of B2c alone, on checked CUDA tensors, in
     `design` (the wrapper passes `b2c_design`'s choice; `chip_smoke.py`
-    also times the other design on the same inputs): returns (dxw, dh0,
-    dc0, dp_part [batch tiles, 3, H], the tiles the design's)."""
+    also times the other design on the same inputs; bfloat16 runs design
+    1 only): returns (dxw, dh0, dc0, dp_part [batch tiles, 3, H] float32,
+    the tiles the design's)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("lstm")
     T, B, H = cs.shape
     dev = cs.device
+    bf16 = _bf16_design(cs, design, "cluster")
     new = lambda *s: torch.empty(s, dtype=cs.dtype, device=dev)  # noqa
     dxw, dh0, dc0 = new(T, B, 4 * H), new(B, H), new(B, H)
     if design == "persistent":
@@ -411,32 +606,36 @@ def launch_bwd_recurrence(rw, p, mask, cs, gates, c0, dhs, dhT, dcT,
             dp_part.data_ptr(), part.data_ptr(), counters.data_ptr(), T, B,
             H, rows, _stream(dev))
     elif design == "cluster":
-        # RW transposed once a call (a copy, not a product), so the
-        # kernel's reads of RW^T coalesce as the forward's reads of RW do
-        rwT = rw.t().contiguous()
-        dp_part = new(-(-B // lib.dl4j_lstm_batch_tile()), 3, H)
+        # RW transposed once a call, in float32 (a copy, not a product), so
+        # the kernel's reads of RW^T coalesce as the forward's reads of RW
+        # do
+        rwT = torch.empty((4 * H, H), dtype=torch.float32, device=dev)
+        rwT.copy_(rw.t())
+        dp_part = torch.empty((-(-B // lib.dl4j_lstm_batch_tile()), 3, H),
+                              dtype=torch.float32, device=dev)
         rc = lib.dl4j_lstm_bwd(
             dhs.data_ptr(), gates.data_ptr(), cs.data_ptr(), rwT.data_ptr(),
             p.data_ptr(), mask.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
             c0.data_ptr(), dxw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            dp_part.data_ptr(), T, B, H, _stream(dev))
+            dp_part.data_ptr(), T, B, H, DTYPES[cs.dtype], _stream(dev))
     else:
         raise ValueError(f"no LSTM backward design {design!r}")
-    cuda_build.check(lib, rc, f"lstm_bwd ({design})")
-    LAUNCHES["lstm_bwd"] += 1
-    LAUNCHES_BY_DESIGN[("lstm_bwd", design)] += 1
+    cuda_build.check(lib, rc, f"lstm_bwd ({design}, {cs.dtype})")
+    _count("lstm_bwd", design, bf16)
     return dxw, dh0, dc0, dp_part
 
 
 def launch_bwd_weights(hs, h0, dxw, dp_part, design: str = "tiled"):
     """The weight-gradient launch of B2c alone, on checked CUDA tensors,
-    in `design` ("pipelined" is the wrapper's): returns (dRW [H, 4H],
-    dP [3, H])."""
+    in `design` (the wrapper's `b2c_weights_design`: "pipelined" in
+    float32, "tiled" in bfloat16, which runs design 1 only): returns
+    (dRW [H, 4H], dP [3, H])."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("lstm")
     T, B, H = hs.shape
     dev = hs.device
+    bf16 = _bf16_design(hs, design, "tiled")
     drw = torch.empty((H, 4 * H), dtype=hs.dtype, device=dev)
     dp = torch.empty((3, H), dtype=hs.dtype, device=dev)
     args = (hs.data_ptr(), h0.data_ptr(), dxw.data_ptr(), dp_part.data_ptr(),
@@ -456,12 +655,11 @@ def launch_bwd_weights(hs, h0, dxw, dp_part, design: str = "tiled"):
             _stream(dev))
     elif design == "tiled":
         rc = lib.dl4j_lstm_bwd_weights(*args, T, B, H, dp_part.shape[0],
-                                       _stream(dev))
+                                       DTYPES[hs.dtype], _stream(dev))
     else:
         raise ValueError(f"no LSTM weight-gradient design {design!r}")
-    cuda_build.check(lib, rc, f"lstm_bwd_weights ({design})")
-    LAUNCHES["lstm_bwd_weights"] += 1
-    LAUNCHES_BY_DESIGN[("lstm_bwd_weights", design)] += 1
+    cuda_build.check(lib, rc, f"lstm_bwd_weights ({design}, {hs.dtype})")
+    _count("lstm_bwd_weights", design, bf16)
     return drw, dp
 
 

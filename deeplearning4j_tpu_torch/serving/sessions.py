@@ -33,7 +33,7 @@ target's slots (registered as `<model>@draft`), the target scores all of
 them in one chunked forward, and accept/reject stays on the device
 (`utils/sampling.spec_accept_lanes`). Rejected proposals are un-written
 by rewinding per-slot positions, so both nets must be rewind-capable (no
-rolling rings), and a speculating manager keeps the target off the
+recurrent carries, no rolling rings), and a speculating manager keeps the target off the
 prefix cache (the draft must prefill every prompt token). Propose and
 verify are one graph replay each; the one host read of a window is the
 verify's packed [S, spec_k + 4] rows, after both pool locks are
@@ -50,7 +50,14 @@ back with the sessions untouched) and runs the candidate's session
 calls once over the live pool with every lane inactive, which writes
 nothing and captures the candidate's window graphs over the caches it
 will use; in the "flipped" phase it rebinds the pool, so every live
-session continues on the new weights.
+session continues on the new weights (a recurrent net's h/c included).
+
+Recurrent nets (an LSTM, GRU or SimpleRnn stack, one-hot or embedded
+input) serve through the same seam: the pool holds each recurrent
+layer's h/c rows beside any attention caches, a step's mask holds them
+for padded and inactive lanes, and the windows write them back into the
+pool's tensors. Their carries cannot rewind or be paged, so such a
+manager runs with speculation and the prefix cache off.
 
 Not ported yet: the fleet's prefill-only role and page export/import
 (`open_prefill`, ROADMAP S5), and the request-trace, flight-recorder and
@@ -864,13 +871,13 @@ class DecodeSessionManager:
         if self.spec_enabled and not net.spec_decode_capable():
             raise IncompatibleSessionSwapError(
                 f"deploy candidate for {self.model!r} cannot rewind its "
-                f"decode caches (rolling rings) and this manager "
-                f"speculates; rolling back")
+                f"decode caches (recurrent carries or rolling rings) — "
+                f"this manager speculates; rolling back")
         if self.prefix_enabled and not net.prefix_cache_capable():
             raise IncompatibleSessionSwapError(
-                f"deploy candidate for {self.model!r} cannot page its KV "
-                f"caches and this manager runs the prefix cache; rolling "
-                f"back")
+                f"deploy candidate for {self.model!r} cannot page its "
+                f"KV caches — this manager runs the prefix cache; "
+                f"rolling back")
         with self.pool.lock():
             have = carry_layout(self.pool.carries)
         if self.pool.candidate_layout(net) != have:

@@ -820,8 +820,8 @@ def test_cuda_fused_lstm_autograd_and_kernel_choice(cuda_device):
     with torch.no_grad():
         lk.fused_lstm(*ins)
     lk.fused_lstm(*ins)
-    assert lk.LAUNCHES == {"lstm_fwd": 0, "lstm_fwd_inference": 2,
-                           "lstm_bwd": 0, "lstm_bwd_weights": 0}
+    assert lk.LAUNCHES == {**{k: 0 for k in lk.LAUNCHES},
+                           "lstm_fwd_inference": 2}
     live = [t.clone().requires_grad_() for t in ins[:5]]
     hs, hT, cT = lk.fused_lstm(*live, ins[5])
     grads = torch.autograd.grad((hs * hs).sum(), live)     # hT, cT unused
@@ -838,15 +838,132 @@ def test_cuda_fused_lstm_autograd_and_kernel_choice(cuda_device):
 def test_cuda_lstm_refuses_what_the_kernels_do_not_take(cuda_device):
     xw, rw, p, h0, c0, mask = _lstm_inputs(cuda_device, 4, 2, 8, False,
                                            False)
+    # float32 and bfloat16 only, one dtype a call
     with pytest.raises(TypeError):
-        lk.lstm_fwd(xw.bfloat16(), rw.bfloat16(), p.bfloat16(),
-                    h0.bfloat16(), c0.bfloat16(), mask.bfloat16())
+        lk.lstm_fwd(xw.half(), rw.half(), p.half(), h0.half(), c0.half(),
+                    mask.half())
+    with pytest.raises(TypeError):
+        lk.lstm_fwd(xw.bfloat16(), rw, p, h0, c0, mask)
+    with pytest.raises(ValueError, match="design 'cluster'"):
+        lk.launch_fwd(xw.bfloat16(), rw.bfloat16(), p.bfloat16(),
+                      h0.bfloat16(), c0.bfloat16(), mask.bfloat16(),
+                      design="persistent")
     with pytest.raises(ValueError):
         lk.lstm_fwd(xw.transpose(0, 1).contiguous().transpose(0, 1), rw, p,
                     h0, c0, mask)
     big = lk.MAX_HIDDEN + 8
     with pytest.raises(ValueError):
         lk.lstm_fwd(*_lstm_inputs(cuda_device, 2, 2, big, False, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+@pytest.mark.parametrize("T,B,H", LSTM_SHAPES,
+                         ids=[f"T{t}B{b}H{h}" for t, b, h in LSTM_SHAPES])
+def test_cuda_b2_bf16_matches_plain(cuda_device, T, B, H, masked):
+    """bfloat16 B2a/B2b/B2c (design 1) against their plain versions on
+    the same bfloat16 inputs run on the CPU (JAX's arithmetic bit for
+    bit), peepholes on: the outputs held by `ops/lstm.bf16_check`, B2b
+    bit-equal to B2a, dRW and dP within contract C13's bound
+    (`c13_bound`) of the plain running sum on the kernel's own dxw."""
+    ins = [t.bfloat16() for t in _lstm_inputs(cuda_device, T, B, H, True,
+                                              masked, seed=6)]
+    before = dict(lk.LAUNCHES_BY_DESIGN)
+    got = lk.lstm_fwd(*ins, with_residuals=True)
+    inf = lk.lstm_fwd(*ins, with_residuals=False)
+    ref = lk.lstm_fwd_plain(*[t.cpu() for t in ins], with_residuals=True)
+    for k in ("lstm_fwd", "lstm_fwd_inference"):
+        assert lk.LAUNCHES_BY_DESIGN[(k, "cluster_bf16")] == \
+            before[(k, "cluster_bf16")] + 1
+    for name, a, b in zip(("hs", "cs", "gates", "hT", "cT"), got, ref):
+        assert a.dtype == torch.bfloat16, name
+        check = lk.bf16_check(name, a.cpu(), b)
+        assert check[0], (name, check)
+    assert torch.equal(got[0], inf[0]) and torch.equal(got[3], inf[3]) \
+        and torch.equal(got[4], inf[4])
+    g = torch.Generator().manual_seed(7)
+    dhs, dhT, dcT = (torch.randn(*s, generator=g).to(cuda_device,
+                                                      torch.bfloat16)
+                     for s in ((T, B, H), (B, H), (B, H)))
+    rw, p, h0, c0, mask = ins[1], ins[2], ins[3], ins[4], ins[5]
+    hs, cs, gates = (t.to(cuda_device) for t in ref[:3])
+    bw = (rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT)
+    gk = [t.cpu() for t in lk.lstm_bwd(*bw)]
+    host = [t.cpu() for t in bw]
+    gr = lk.lstm_bwd_plain(*host)
+    wts = (host[3], host[6], gk[0], host[4], host[7])
+    run = lk.lstm_weights_plain(*wts)
+    bound = lk.c13_bound(*wts)
+    assert lk.LAUNCHES_BY_DESIGN[("lstm_bwd", "cluster_bf16")] == \
+        before[("lstm_bwd", "cluster_bf16")] + 1
+    assert lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", "tiled_bf16")] == \
+        before[("lstm_bwd_weights", "tiled_bf16")] + 1
+    for name, a, b in zip(("dxw", "dh0", "dc0"), gk, gr):
+        check = lk.bf16_check(name, a, b)
+        assert check[0], (name, check)
+    for name, a, b, lim in zip(("dRW", "dP"), gk[3:], run, bound):
+        err = (a.float() - b.float()).abs()
+        assert bool((err <= lim).all()), (name, int((err > lim).sum()),
+                                          float((err / lim).max()))
+
+
+def _lstm_session_net(dev):
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import LSTM, RnnOutputLayer
+
+    conf = (NeuralNetConfiguration.builder().seed(5).activation("tanh")
+            .list(LSTM(n_out=64), LSTM(n_out=64),
+                  RnnOutputLayer(n_out=11, activation="softmax"))
+            .set_input_type(InputType.recurrent(11)).build())
+    return MultiLayerNetwork(conf, device=dev).init()
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_session_window_k8_replayed_equals_k1(cuda_device):
+    """A recurrent net's decode window at K 8, captured then replayed
+    (its h/c written back into the pool's tensors inside the graph),
+    equals eight K 1 windows and the eager K 8 window, token for token
+    and h/c bit for bit, with an inactive lane held."""
+    import numpy as np
+
+    S, n = 4, 24
+    net = _lstm_session_net(cuda_device)
+    knobs = dict(temperature=np.ones(S, np.float32),
+                 top_k=np.full(S, 11, np.int32),
+                 top_p=np.ones(S, np.float32), greedy=np.ones(S, bool),
+                 keys=np.zeros((S, 2), np.uint32),
+                 eos_ids=np.full(S, -1, np.int32))
+    active = np.array([True, True, False, True])
+
+    def run(k, graphs):
+        net.cuda_graphs = graphs
+        c = net.session_carries(S)
+        tok = np.array([1, 5, 7, 3], np.int32)
+        out = []
+        for w in range(n // k):
+            offs = np.full(S, w * k, np.int32)
+            toks, emits, c = net.session_decode_window(
+                tok, c, active=active, k=k, offsets=offs,
+                budgets=np.full(S, n, np.int32) - offs, **knobs)
+            toks = toks.cpu().numpy()
+            out.append(toks)
+            tok = np.where(active, toks[:, -1], tok).astype(np.int32)
+        net.cuda_graphs = True
+        return np.concatenate(out, axis=1), c
+
+    k8, c8 = run(8, True)
+    k1, c1 = run(1, True)
+    eager, ce = run(8, False)
+    assert net._graphs.stats["decode_window"]["replays"] > 0
+    assert (k8 == k1).all() and (k8 == eager).all()
+    assert (k8[2] == -1).all()
+    for name in c8:
+        for leaf in ("h", "c"):
+            assert torch.equal(c8[name][leaf], c1[name][leaf])
+            assert torch.equal(c8[name][leaf], ce[name][leaf])
+            assert not c8[name][leaf][2].any()      # the idle lane held
 
 
 # ----------------------------------------------- quantized decode (B5q, B6q)

@@ -345,16 +345,26 @@ def test_graph_configuration_json_both_ways():
 
 
 def test_graph_configuration_refuses_unported_vertex():
-    """A vertex the port has not ported yet (`LastTimeStepVertex`, A3)
-    is refused when the configuration is read."""
+    """`LastTimeStepVertex` (refused until A3) now reads and writes back
+    JAX's JSON; a vertex holding a layer the port has not ported yet
+    (`Upsampling2DLayer`) is still refused when the configuration is
+    read."""
     g = (NeuralNetConfiguration.builder().graph_builder().add_inputs("in")
          .set_input_types(InputType.recurrent(4, 3)))
-    g.add_layer("d", players.DenseLayer(n_out=4), "in")
+    g.add_vertex("last", pgraph.LastTimeStepVertex(mask_input="in"), "in")
+    g.add_layer("d", players.DenseLayer(n_out=4), "last")
     g.set_outputs("d")
-    text = g.build().to_json().replace('"@class": "DenseLayer"',
-                                       '"@class": "LastTimeStepVertex"')
-    with pytest.raises(NotImplementedError, match="LastTimeStepVertex"):
-        ComputationGraphConfiguration.from_json(text)
+    text = g.build().to_json()
+    conf = ComputationGraphConfiguration.from_json(text)
+    assert conf.vertices["last"] == pgraph.LastTimeStepVertex(
+        name="last", mask_input="in")
+    assert conf.to_json() == text
+    assert jgraph.ComputationGraphConfiguration.from_json(
+        text).to_json() == text
+    bad = text.replace('"@class": "DenseLayer"',
+                       '"@class": "Upsampling2DLayer"')
+    with pytest.raises(NotImplementedError, match="Upsampling2DLayer"):
+        ComputationGraphConfiguration.from_json(bad)
 
 
 def test_graph_builder_checks():
@@ -597,25 +607,33 @@ def test_fit_refuses_what_is_not_ported(kw, item):
         net.fit(_data(), **kw)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("optimization_algo", "lbfgs", None),
-    ("tbptt_fwd_length", 5, "A3"),
+@pytest.mark.parametrize("field,value", [
+    ("optimization_algo", "lbfgs"),
+    ("tbptt_fwd_length", 5),
 ], ids=["solver", "tbptt"])
-def test_fit_refuses_unported_config(field, value, item):
-    """tBPTT is still refused (A3); a solver (once refused naming A1)
-    fits: one L-BFGS run a batch lowers the loss (its parity with JAX
-    is in `test_torch_a1b_solvers.py`)."""
+def test_fit_refuses_unported_config(field, value):
+    """Both configurations, once refused, fit. A solver (refused naming
+    A1 until slice 17): one L-BFGS run a batch lowers the loss (its
+    parity with JAX is in `test_torch_a1b_solvers.py`). tBPTT (refused
+    naming A3 until slice 18) applies, as in JAX, only to a batch whose
+    inputs are all 3-D: on this graph's 2-D batch the step is the plain
+    one, bit for bit (the chunked fit is in
+    `test_torch_graph_recurrent.py`)."""
     net = _graph()
     net.conf = dataclasses.replace(net.conf, **{field: value})
-    if item is None:
-        net.conf = dataclasses.replace(net.conf, solver_iterations=5)
-        before = net.score(_data())
+    if field == "tbptt_fwd_length":
+        plain = _graph()
         net.fit(_data())
-        assert net.score(_data()) < before
-        assert net._solver.algo == value and net._solver.solver_syncs >= 5
+        plain.fit(_data())
+        for name, leaves in plain.params_tree.items():
+            for k, a in leaves.items():
+                assert torch.equal(net.params_tree[name][k], a), (name, k)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        net.fit(_data())
+    net.conf = dataclasses.replace(net.conf, solver_iterations=5)
+    before = net.score(_data())
+    net.fit(_data())
+    assert net.score(_data()) < before
+    assert net._solver.algo == value and net._solver.solver_syncs >= 5
 
 
 def test_fit_with_gradient_checkpointing_runs():
