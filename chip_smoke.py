@@ -1504,7 +1504,8 @@ def run_lstm_case(c, flush, gen):
 def lstm_bf16_cases():
     """bfloat16 B2a/B2b/B2c at `path_l_bf16`'s shape (T 128, B 64, H 512,
     its main path), `path_g`'s chunk (T 50) and step (T 1) at B 32, H 256,
-    and an odd shape (H 37: the strip copies 4 bytes at a time)."""
+    and an odd shape (H 37: the strip copies 4 bytes at a time, and the
+    weight product stays on "tiled")."""
     main = ("lstm_fwd_bf16", "lstm_fwd_inference_bf16", "lstm_bwd_bf16",
             "lstm_bwd_weights_bf16")
     return [dict(T=128, B=64, H=512, F=128, main=main),
@@ -1513,30 +1514,79 @@ def lstm_bf16_cases():
             dict(T=7, B=5, H=37, F=11, main=())]
 
 
+def bf16_weights_check(name, tag, got, wts):
+    """dRW and dP of a bfloat16 weight launch (on the CPU) against the
+    plain versions on the same inputs `wts` (hs, h0, dxw, cs, c0): within
+    contract C13's elementwise bound (`c13_bound`) of the plain running
+    bfloat16 sum, and within a bfloat16 step of their own size plus two
+    float32 sums' error (`weights_f32_err`) of a float32 sum rounded
+    once. Returns ({"drw": figures, "dp": figures}, the largest error
+    against the sum rounded once)."""
+    from deeplearning4j_tpu_torch.ops import lstm as lk
+
+    run = lk.lstm_weights_plain(*wts)
+    once = lk.lstm_weights_plain(*wts, running=False)
+    out, worst = {}, 0.0
+    for part, a, r, o, bnd, f32 in zip(
+            ("drw", "dp"), got, run, once, lk.c13_bound(*wts),
+            lk.weights_f32_err(*wts)):
+        e_run = (a.float() - r.float()).abs()
+        check(bool((e_run <= bnd).all()),
+              f"{name} {tag}: {part} outside C13's bound at "
+              f"{int((e_run > bnd).sum())} elements")
+        o = o.float()
+        e_once = (a.float() - o).abs()
+        tol_once = lk.BF16_STEP * o.abs() + 2 * f32
+        check(bool((e_once <= tol_once).all()),
+              f"{name} {tag}: {part} more than a bfloat16 step from a "
+              f"float32 sum rounded once")
+        out[part] = {"max_abs_err_running": e_run.max().item(),
+                     "max_bound": bnd.max().item(),
+                     "max_err_share_of_bound":
+                         (e_run / bnd.clamp_min(1e-30)).max().item(),
+                     "max_abs_err_once": e_once.max().item(),
+                     "max_abs": r.float().abs().max().item()}
+        worst = max(worst, e_once.max().item())
+    return out, worst
+
+
 def run_lstm_bf16_case(c, flush, gen):
     """The bfloat16 kernels of one shape, peepholes on and masked (a row
     of T 1 held), against their plain versions on the same bfloat16
     inputs, run on the CPU, whose arithmetic is JAX's bit for bit. The
-    forwards (design 1, "cluster_bf16") held by `ops/lstm.bf16_check`
-    (2^-5 absolute on hs and the gates, 2^-5 of the largest magnitude on
-    cs, at most 2^-3 of hs, cs and the gates different at all); B2b
-    bit-equal to B2a's common outputs. The backward from the CPU's
-    residuals: dxw, dh0, dc0 by `bf16_check` (2^-4 of the largest
-    magnitude, at most 2^-3 of dxw different); dRW and dP (the
-    "tiled_bf16" weight product on the kernel's own dxw) within contract
-    C13's elementwise bound (`c13_bound`) of the plain running bfloat16
-    sum, and within a bfloat16 step of their own size plus two float32
-    sums' error (`weights_f32_err`) of a float32 sum rounded once
-    (`lstm_weights_plain(..., running=False)`). Times (cold L2) beside
-    the bound at the bfloat16 peak and element size, the plain versions'
-    on the card at the main shape, and cuDNN's LSTM in bfloat16 (a
-    yardstick the port never calls, with the
-    input projection and no peepholes or mask)."""
+    forwards run in the design `b2_design` picks ("persistent_bf16", the
+    tensor-core grid, from T 8 where a tile fits; else "cluster_bf16"),
+    held by `ops/lstm.bf16_check` (2^-5 absolute on hs and the gates,
+    2^-5 of the largest magnitude on cs, at most 2^-3 of hs, cs and the
+    gates different at all); B2b bit-equal to B2a's common outputs. Where
+    design 2 runs, design 1 is held to the same check and timed on the
+    same inputs, and design 2 is launched twice for bit-equal outputs.
+    The backward from the CPU's residuals: the recurrence
+    ("cluster_bf16") by `bf16_check` (2^-4 of the largest magnitude, at
+    most 2^-3 of dxw different); dRW and dP on the kernel's own dxw in the
+    design `b2c_weights_design` picks ("wgmma_bf16" where H is a multiple
+    of 8, else "tiled_bf16") within contract C13's bound of the plain
+    running bfloat16 sum and a bfloat16 step of a float32 sum rounded
+    once (`bf16_weights_check`); where "wgmma" runs, "tiled" is held to
+    the same and timed on the same inputs, and "wgmma" launched twice
+    for bit-equal outputs. Times (cold L2) beside the bound at the
+    bfloat16 peak and element size, the plain versions' on the card at
+    the main shape, and cuDNN's LSTM in bfloat16 (a yardstick the port
+    never calls, with the input projection and no peepholes or mask) or,
+    for the weight product, one bfloat16 `torch.matmul`."""
     from deeplearning4j_tpu_torch.ops import lstm as lk
 
     dev = flush.device
     bf = torch.bfloat16
     T, B, H, F = c["T"], c["B"], c["H"], c["F"]
+    design = lk.b2_design(T, B, H, *lk.card_limits(dev), bf)
+    w_design = lk.b2c_weights_design(H, bf)
+    # the design each launch takes, and design 1 beside it where it does
+    # not run
+    designs = {"lstm_fwd": design, "lstm_fwd_inference": design,
+               "lstm_bwd": "cluster", "lstm_bwd_weights": w_design}
+    others = {k: lk.BF16_DESIGNS[k][0] for k, d in designs.items()
+              if d != lk.BF16_DESIGNS[k][0]}
 
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=gen)).to(dev, bf)
@@ -1551,23 +1601,36 @@ def run_lstm_bf16_case(c, flush, gen):
     before = dict(lk.LAUNCHES_BY_DESIGN)
     got = lk.lstm_fwd(*ins, with_residuals=True)
     inf = lk.lstm_fwd(*ins, with_residuals=False)
-    check(all(lk.LAUNCHES_BY_DESIGN[(k, "cluster_bf16")]
-              == before[(k, "cluster_bf16")] + 1
+    check(all(lk.LAUNCHES_BY_DESIGN[(k, design + "_bf16")]
+              == before[(k, design + "_bf16")] + 1
               for k in ("lstm_fwd", "lstm_fwd_inference")),
-          f"lstm {tag}: the forwards did not run on cluster_bf16")
+          f"lstm {tag}: the forwards did not run on {design}_bf16")
     host = [t.cpu() for t in ins]
     ref = lk.lstm_fwd_plain(*host, with_residuals=True)
     errs, shares = {}, {}
-    for name, a, b in zip(("hs", "cs", "gates", "hT", "cT"), got, ref):
-        a = a.cpu()
-        ok, d, share = lk.bf16_check(name, a, b)
-        check(a.dtype == bf and ok, f"lstm_fwd {tag}: {name} err {d} "
-              f"(limit {lk.bf16_atol(name, b)}), {share} of it differs")
-        errs["fwd"] = max(errs.get("fwd", 0.0), d)
-        shares[name] = share
+
+    def fwd_check(outs, what):
+        e, sh = 0.0, {}
+        for name, a, b in zip(("hs", "cs", "gates", "hT", "cT"), outs, ref):
+            a = a.cpu()
+            ok, d, share = lk.bf16_check(name, a, b)
+            check(a.dtype == bf and ok, f"lstm_fwd {tag} ({what}): {name} "
+                  f"err {d} (limit {lk.bf16_atol(name, b)}), {share} of it "
+                  f"differs")
+            e = max(e, d)
+            sh[name] = share
+        return e, sh
+
+    errs["fwd"], shares["fwd"] = fwd_check(got, design)
     check(all(torch.equal(a, b) for a, b in
               ((got[0], inf[0]), (got[3], inf[3]), (got[4], inf[4]))),
           f"lstm_fwd_inference {tag} differs from lstm_fwd")
+    if design == "persistent":
+        again = lk.lstm_fwd(*ins, with_residuals=True)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"lstm_fwd {tag}: two persistent_bf16 launches differ")
+        errs["fwd_other"], shares["fwd_cluster"] = fwd_check(
+            lk.launch_fwd(*ins, True, "cluster"), "cluster")
     dhs, dhT, dcT = rnd(T, B, H), rnd(B, H), rnd(B, H)
     hs, cs, gates = (t.to(dev) for t in ref[:3])
     bw = (rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT)
@@ -1576,55 +1639,46 @@ def run_lstm_bf16_case(c, flush, gen):
     gk = lk.lstm_bwd(*bw)
     check(lk.LAUNCHES_BY_DESIGN[("lstm_bwd", "cluster_bf16")]
           == before[("lstm_bwd", "cluster_bf16")] + 1
-          and lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", "tiled_bf16")]
-          == before[("lstm_bwd_weights", "tiled_bf16")] + 1,
-          f"lstm_bwd {tag}: not on cluster_bf16 + tiled_bf16")
+          and lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", w_design + "_bf16")]
+          == before[("lstm_bwd_weights", w_design + "_bf16")] + 1,
+          f"lstm_bwd {tag}: not on cluster_bf16 + {w_design}_bf16")
     gr = lk.lstm_bwd_plain(*bw_host)
     gk_host = [t.cpu() for t in gk]
+    shares["bwd"] = {}
     for name, a, b in zip(("dxw", "dh0", "dc0"), gk_host, gr):
         ok, d, share = lk.bf16_check(name, a, b)
         check(a.dtype == bf and ok, f"lstm_bwd {tag}: {name} err {d} "
               f"(limit {lk.bf16_atol(name, b)}), {share} of it differs")
         errs["bwd"] = max(errs.get("bwd", 0.0), d)
-        shares[name] = share
+        shares["bwd"][name] = share
     # the weight launch on the kernel's own dxw, on the CPU
     wts = (bw_host[3], bw_host[6], gk_host[0], bw_host[4], bw_host[7])
-    run = lk.lstm_weights_plain(*wts)
-    once = lk.lstm_weights_plain(*wts, running=False)
-    c13 = {}
-    for name, a, r, o, bnd, f32 in zip(
-            ("drw", "dp"), gk_host[3:], run, once, lk.c13_bound(*wts),
-            lk.weights_f32_err(*wts)):
-        e_run = (a.float() - r.float()).abs()
-        check(bool((e_run <= bnd).all()),
-              f"lstm_bwd_weights {tag}: {name} outside C13's bound at "
-              f"{int((e_run > bnd).sum())} elements")
-        o = o.float()
-        e_once = (a.float() - o).abs()
-        tol_once = lk.BF16_STEP * o.abs() + 2 * f32
-        check(bool((e_once <= tol_once).all()),
-              f"lstm_bwd_weights {tag}: {name} more than a bfloat16 step "
-              f"from a float32 sum rounded once")
-        c13[name] = {"max_abs_err_running": e_run.max().item(),
-                     "max_bound": bnd.max().item(),
-                     "max_err_share_of_bound":
-                         (e_run / bnd.clamp_min(1e-30)).max().item(),
-                     "max_abs_err_once": e_once.max().item(),
-                     "max_abs": r.float().abs().max().item()}
-        errs["weights"] = max(errs.get("weights", 0.0), e_once.max().item())
-    emit({"phase": "kernels", "kernel": "lstm_bwd_weights_bf16",
-          "check": "c13", "T": T, "B": B, "H": H, **c13,
-          "share_differing": shares})
-
+    c13, errs["weights"] = bf16_weights_check("lstm_bwd_weights", tag,
+                                              gk_host[3:], wts)
     rec = lk.launch_bwd_recurrence(rw, p, mask, cs, gates, c0, dhs, dhT,
                                    dcT, "cluster")
-    runs = {"lstm_fwd_bf16": lambda: lk.lstm_fwd(*ins, with_residuals=True),
-            "lstm_fwd_inference_bf16": lambda: lk.lstm_fwd(
-                *ins, with_residuals=False),
-            "lstm_bwd_bf16": lambda: lk.launch_bwd_recurrence(
-                rw, p, mask, cs, gates, c0, dhs, dhT, dcT, "cluster"),
-            "lstm_bwd_weights_bf16": lambda: lk.launch_bwd_weights(
-                hs, h0, rec[0], rec[3], "tiled")}
+    if w_design == "wgmma":
+        two = [lk.launch_bwd_weights(hs, h0, rec[0], rec[3], "wgmma")
+               for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in zip(*two)),
+              f"lstm_bwd_weights {tag}: two wgmma_bf16 launches differ")
+        tiled = lk.launch_bwd_weights(hs, h0, rec[0], rec[3], "tiled")
+        wts_k = wts[:2] + (rec[0].cpu(),) + wts[3:]
+        c13["tiled_bf16"], errs["weights_other"] = bf16_weights_check(
+            "lstm_bwd_weights (tiled)", tag, [t.cpu() for t in tiled],
+            wts_k)
+    emit({"phase": "kernels", "kernel": "lstm_bwd_weights_bf16",
+          "check": "c13", "design": w_design + "_bf16", "T": T, "B": B,
+          "H": H, **c13, "share_differing": shares})
+
+    def launch(name, d):
+        if name in ("lstm_fwd", "lstm_fwd_inference"):
+            return lambda: lk.launch_fwd(*ins, name == "lstm_fwd", d)
+        if name == "lstm_bwd":
+            return lambda: lk.launch_bwd_recurrence(
+                rw, p, mask, cs, gates, c0, dhs, dhT, dcT, d)
+        return lambda: lk.launch_bwd_weights(hs, h0, rec[0], rec[3], d)
+
     plain = {"lstm_fwd_bf16": lambda: lk.lstm_fwd_plain(*ins),
              "lstm_fwd_inference_bf16": lambda: lk.lstm_fwd_plain(
                  *ins, with_residuals=False),
@@ -1649,22 +1703,38 @@ def run_lstm_bf16_case(c, flush, gen):
                y, wrt, dhs, retain_graph=True),
            "lstm_bwd_weights_bf16": lambda: torch.matmul(hprev.t(), flat)}
     bounds = lstm_bounds(T, B, H, bf)
-    err_of = {"lstm_fwd_bf16": "fwd", "lstm_fwd_inference_bf16": "fwd",
-              "lstm_bwd_bf16": "bwd", "lstm_bwd_weights_bf16": "weights"}
+    err_of = {"lstm_fwd": "fwd", "lstm_fwd_inference": "fwd",
+              "lstm_bwd": "bwd", "lstm_bwd_weights": "weights"}
+    flops = 2.0 * T * B * H * 4 * H
     rows = []
-    for name, fn in runs.items():
-        base = name[:-len("_bf16")]
-        ms = time_ms(fn, flush)
+    for base, d in designs.items():
+        name = base + "_bf16"
+        ms = time_ms(launch(base, d), flush)
         row = {"phase": "kernels", "kernel": name, "dtype": "bfloat16",
-               "T": T, "B": B, "H": H, "max_abs_err": errs[err_of[name]],
+               "T": T, "B": B, "H": H, "max_abs_err": errs[err_of[base]],
                "ms": ms,
                "plain_ms": time_ms(plain[name], flush, iters=3)
                if name in c["main"] else None,
                "library_ms": time_ms(lib[name], flush),
                "bound_ms": bounds[base][0], "bound_by": bounds[base][1],
                "bound_share": bounds[base][0] / ms,
-               "design": lk.BF16_DESIGNS[base] + "_bf16",
+               "tflops": flops / ms * 1e-9,
+               "design": d + "_bf16",
                "main_path_shape": name in c["main"]}
+        if base in others:
+            o = others[base]
+            other_ms = time_ms(launch(base, o), flush)
+            row.update({f"{o}_bf16_ms": other_ms,
+                        f"speedup_over_{o}_bf16": other_ms / ms,
+                        f"{o}_bf16_max_abs_err": errs[err_of[base]
+                                                      + "_other"]})
+        if base == "lstm_bwd_weights" and d == "wgmma":
+            row["splits"] = lk.b2c_wgmma_splits(
+                T, B, H, lk.card_limits(dev)[0], lk.wgmma_clusters(dev))
+        if base == "lstm_fwd":
+            row["share_differing"] = shares["fwd"]
+            if "fwd_cluster" in shares:
+                row["cluster_bf16_share_differing"] = shares["fwd_cluster"]
         emit(row)
         rows.append(row)
     return rows
@@ -3533,9 +3603,11 @@ def path_l_bf16(rng, epochs=3):
     """`path_l` in bfloat16: GravesLSTM(512) x 2, T 128, batch 64, its
     Nesterovs(0.01, 0.9) on bfloat16 leaves, 4 fixed batches (two
     masked) x 3 epochs = 12 steps through `net.fit` (`timed_fit`): B2a
-    and B2c in bfloat16 twice a step, every launch on design 1
-    ("cluster_bf16", the weight product "tiled_bf16"), no float32 LSTM
-    launch, B1b once a step; then `output()`, B2b in bfloat16 twice."""
+    and B2c in bfloat16 twice a step, the forward on design 2
+    ("persistent_bf16"), B2c's recurrence on design 1 ("cluster_bf16")
+    and its weight product on design 2 ("wgmma_bf16"), no float32 LSTM
+    launch, B1b once a step; then `output()`, B2b in bfloat16 twice on
+    "persistent_bf16"."""
     from deeplearning4j_tpu_torch.ops import lstm as lk
     from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
 
@@ -3558,10 +3630,11 @@ def path_l_bf16(rng, epochs=3):
           f"path_l_bf16: nesterov_update launched "
           f"{launches['nesterov_update']} times, want one a step")
     by_design = launches_by_design(lk)
-    check(by_design["lstm_fwd/cluster_bf16"] == 2 * steps
+    check(by_design["lstm_fwd/persistent_bf16"] == 2 * steps
           and by_design["lstm_bwd/cluster_bf16"] == 2 * steps
-          and by_design["lstm_bwd_weights/tiled_bf16"] == 2 * steps,
-          f"path_l_bf16: not all on design 1: {by_design}")
+          and by_design["lstm_bwd_weights/wgmma_bf16"] == 2 * steps,
+          f"path_l_bf16: not on persistent_bf16, cluster_bf16 and "
+          f"wgmma_bf16: {by_design}")
     torch.cuda.synchronize()
     reset_all_counts()
     probs = net.output(batches[0].features)
@@ -3570,17 +3643,22 @@ def path_l_bf16(rng, epochs=3):
     check(probs.dtype == torch.bfloat16 and tuple(probs.shape) == (B, T, 64)
           and bool(torch.isfinite(probs).all()),
           f"path_l_bf16: output {probs.dtype} {tuple(probs.shape)}")
+    out_by_design = launches_by_design(lk)
     check(out_launches["lstm_fwd_inference_bf16"] == 2
-          and launches_by_design(lk)["lstm_fwd_inference/cluster_bf16"] == 2
+          and out_by_design["lstm_fwd_inference/persistent_bf16"] == 2
           and sum(plain.values()) == 0,
-          f"path_l_bf16: output() launches {out_launches}, plain {plain}")
+          f"path_l_bf16: output() launches {out_launches} "
+          f"({out_by_design}), plain {plain}")
     row = {"phase": "path_l_bf16",
            "model": "GravesLSTM x 2 + RnnOutputLayer", "hidden": 512,
            "n_in": 128, "classes": 64, "T": T, "batch": B,
            "dtype": "bfloat16", "updater": str(net.conf.updater),
            "masked_batches": 2, **fit, "launches_by_design": by_design,
            "output_launches": {k: v for k, v in out_launches.items()
-                               if k.startswith("lstm")}}
+                               if k.startswith("lstm")},
+           "output_launches_by_design": {
+               k: v for k, v in out_by_design.items()
+               if k.startswith("lstm_fwd_inference/")}}
     emit(row)
     row["launches"] = {**launches, "lstm_fwd_inference_bf16":
                        out_launches["lstm_fwd_inference_bf16"]}
@@ -5878,18 +5956,21 @@ def main() -> int:
                          "launches_path_t": t32["launches"][name]})
         if name.endswith("_bf16"):
             base = name[:-len("_bf16")]
-            d = lk.BF16_DESIGNS[base] + "_bf16"
-            by = (lb["output_launches"] if base == "lstm_fwd_inference"
+            by = (lb["output_launches_by_design"]
+                  if base == "lstm_fwd_inference"
                   else lb["launches_by_design"])
             summary[-1].update(
-                dtype="bfloat16", design=d,
-                bound_share=main_row["bound_share"],
-                launches_by_design={d: by[name] if base ==
-                                    "lstm_fwd_inference"
-                                    else by[f"{base}/{d}"]},
+                {k: main_row[k] for k in main_row
+                 if k in ("dtype", "design", "bound_share", "tflops")
+                 or k.endswith("_bf16_ms")
+                 or k.startswith("speedup_over_")},
+                launches_by_design={
+                    d + "_bf16": by[f"{base}/{d}_bf16"]
+                    for d in lk.BF16_DESIGNS[base]},
                 shapes=[{k: r[k] for k in (
-                    "T", "B", "H", "ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by", "max_abs_err")} for r in mine])
+                    "T", "B", "H", "design", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "max_abs_err")
+                    if k in r} for r in mine])
         elif name in lk.LAUNCHES:
             by = (g["launches_by_design"] if name == "lstm_fwd_inference"
                   else lp["launches_by_design"])

@@ -15,9 +15,11 @@
 //   16-byte chunks permuted by (row % 8), so 8 rows form a 1024-byte atom
 //   that must start 1024-byte aligned;
 // - `wgmma.mma_async` m64nNk16, bfloat16 in, float32 accumulators, for
-//   N in {64, 128, 256}, A K-major from shared memory, B K-major or
-//   N-major (the transpose bit: a [K, N] row-major operand is read as it
-//   lies, without a transposed copy); and for N in {64, 128} with A from
+//   N in {64, 128, 256}, A K-major or M-major from shared memory and B
+//   K-major or N-major (the transpose bits, which 16-bit types allow: a
+//   [K, M] or [K, N] row-major operand is read as it lies, without a
+//   transposed copy; first user of the M-major A: the bfloat16 weight
+//   gradient of lstm.cu, hprev^T dxw); and for N in {64, 128} with A from
 //   registers (the RS form), whose A fragments `acc_to_a` makes from the
 //   float32 accumulator of an earlier product (first user: the flash
 //   backward of flash_attention.cu, where P and dS feed the next product);
@@ -194,13 +196,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[kN]) {
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[N / 2] += A (64 x 16, K-major, descriptor a) x B (16 x N, descriptor
-// b; kTransB 1: N-major, 0: K-major)
-template <int N, int kTransB>
+// d[N / 2] += A (64 x 16, descriptor a; kTransA 1: M-major, 0: K-major)
+// x B (16 x N, descriptor b; kTransB 1: N-major, 0: K-major). An M-major
+// A tile is 128B-swizzled like an N-major B: [16 rows of K][64 of M], the
+// k16 slice's two 8-row atoms sbo = 1024 apart.
+template <int N, int kTransB, int kTransA = 0>
 struct WgmmaBf16;
 
-template <int kTransB>
-struct WgmmaBf16<64, kTransB> {
+template <int kTransB, int kTransA>
+struct WgmmaBf16<64, kTransB, kTransA> {
   // d = A x B where scale_d is 0 (d's old values are ignored: a product
   // starts without zeroing d, so no other instruction defines d while
   // earlier wgmmas are in flight), d += A x B where it is 1
@@ -212,7 +216,7 @@ struct WgmmaBf16<64, kTransB> {
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
         "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -220,7 +224,7 @@ struct WgmmaBf16<64, kTransB> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
   }
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t a,
                                              uint64_t b) {
@@ -228,8 +232,8 @@ struct WgmmaBf16<64, kTransB> {
   }
 };
 
-template <int kTransB>
-struct WgmmaBf16<128, kTransB> {
+template <int kTransB, int kTransA>
+struct WgmmaBf16<128, kTransB, kTransA> {
   static __device__ __forceinline__ void run(float (&d)[64], uint64_t a,
                                              uint64_t b) {
     asm volatile(
@@ -241,7 +245,7 @@ struct WgmmaBf16<128, kTransB> {
         "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
         "%60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, %66;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %66;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -255,12 +259,12 @@ struct WgmmaBf16<128, kTransB> {
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "n"(kTransB));
+        : "l"(a), "l"(b), "n"(kTransB), "n"(kTransA));
   }
 };
 
-template <int kTransB>
-struct WgmmaBf16<256, kTransB> {
+template <int kTransB, int kTransA>
+struct WgmmaBf16<256, kTransB, kTransA> {
   static __device__ __forceinline__ void run(float (&d)[128], uint64_t a,
                                              uint64_t b) {
     asm volatile(
@@ -277,7 +281,7 @@ struct WgmmaBf16<256, kTransB> {
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, %130;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %130;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -304,7 +308,7 @@ struct WgmmaBf16<256, kTransB> {
           "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
           "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "n"(kTransB));
+        : "l"(a), "l"(b), "n"(kTransB), "n"(kTransA));
   }
 };
 

@@ -1,5 +1,4 @@
-// Fused LSTM sequence kernels for Hopper (sm_90a), float32 and, in design
-// 1, bfloat16.
+// Fused LSTM sequence kernels for Hopper (sm_90a), float32 and bfloat16.
 //
 //   lstm_fwd_kernel<true>  — replaces the TPU kernel B2a,
 //     deeplearning4j_tpu/ops/lstm.py `_fwd_kernel`: the recurrence over all
@@ -14,6 +13,11 @@
 //   persist::lstm_bwd_persistent_kernel<BR> and
 //     pipe::lstm_drw_pipelined_kernel — design 2 of B2c's two launches
 //     (ops/lstm.py `b2c_design`), below the forward's design 2.
+//   persist::lstm_fwd_persistent_bf16_kernel<BR, RESID> — design 2 of
+//     B2a and B2b in bfloat16, the float32 design 2 with its product on
+//     the tensor cores (`mma.sync`), below the float32 one.
+//   wg::lstm_drw_wgmma_kernel — design 2 of B2c's weight launch in
+//     bfloat16: dRW on the tensor cores (`wgmma` fed by TMA), last.
 //
 // One step (gate order i, f, g, o; sigmoid gates, tanh cell; peepholes p,
 // zeros disable them):
@@ -78,25 +82,54 @@
 // the tolerance. A sum of H products is taken as Q interleaved partial
 // sums; the plain version's matmul sums in another order.
 //
-// bfloat16 (design 1 only: ops/lstm.py `b2_design` and `b2c_design` send
-// it there). Every tensor is read and written as bfloat16 except RW, which
-// the wrapper widens to float32 once a call (as the backward already takes
-// a transposed copy), and dP's per-cluster partials, float32 scratch. The
-// math is float32 and rounds to bfloat16 (`rnd<E>`) after each operation
-// of the cell, as the Pallas body evaluated by XLA does: the recurrent
-// product is rounded, then added to xw[t]; sigmoid is 1 / (1 + exp(-x)),
-// each of its three operations rounded; h and c are carried rounded. So
-// the kernel differs from the plain version only where a float32 sum in
-// another order, or expf/tanhf against the host's, lands on the other
-// side of a bfloat16 rounding. dRW and dP are float32 sums rounded once,
-// where the Pallas kernel keeps a running bfloat16 sum over T: contract
-// C13 (ROADMAP §C) bounds the difference.
+// bfloat16. Every tensor is read and written as bfloat16 except, in
+// design 1, RW, which the wrapper widens to float32 once a call (as the
+// backward already takes a transposed copy), and dP's per-cluster
+// partials, float32 scratch. The math is float32 and rounds to bfloat16
+// (`rnd<E>`) after each operation of the cell, as the Pallas body
+// evaluated by XLA does: the recurrent product is rounded, then added to
+// xw[t]; sigmoid is 1 / (1 + exp(-x)), each of its three operations
+// rounded; h and c are carried rounded. So a kernel differs from the
+// plain version only where a float32 sum in another order, or expf/tanhf
+// against the host's, lands on the other side of a bfloat16 rounding. dRW
+// and dP are float32 sums rounded once, where the Pallas kernel keeps a
+// running bfloat16 sum over T: contract C13 (ROADMAP §C) bounds the
+// difference. ops/lstm.py `b2_design` and `b2c_weights_design` choose by
+// shape, as for float32; the recurrence of B2c stays on design 1.
+//
+// Design 2 of the bfloat16 forward (`persist::lstm_fwd_persistent_bf16_
+// kernel`) keeps the float32 design 2's grid, resident strip, double-
+// buffered h in global memory and counter barrier, and replaces design
+// 1's strip of float32 RW streamed from L2 every step (the cluster kernel
+// ran at 0.9% of its bound, slower than cuDNN). Bound: the same as
+// float32's, B·H·4H·T multiply-adds, now at the bfloat16 tensor-core
+// rate, against xw in and hs, cs, gates out. The strip is bfloat16, half
+// float32's bytes, so at H 512 a block of 8 batch rows (128 gate columns,
+// 130 KB of strip) fits, and a step copies 8 KB of h where float32's
+// 16-row tile copies 32 KB. A
+// step's product is 128 x 8 x H, too small for `wgmma`'s 64-row tiles to
+// pay for their warpgroup fences and descriptors: each warp runs
+// `mma.sync` m16n8k16 on one 16 x 8 tile over all of K, four accumulator
+// chains deep, so the step waits on H / 64 dependent products and not on
+// the tensor cores' rate. What bounds a step is its latency: the h copy,
+// the product, the cell, the barrier.
+//
+// Design 2 of the bfloat16 weight product (`wg::lstm_drw_wgmma_kernel`)
+// replaces design 1's float32 FFMA on 2-byte loads (`lstm_drw_kernel`,
+// 61.7x slower than one bfloat16 `torch.matmul`). Bound: 2·T·B·H·4H flops
+// at the bfloat16 tensor-core rate (17.2 GFLOP, 0.0174 ms at path_l's
+// shape) against hs, dxw in and dRW out. Only 32 tiles of 128 x 256 cover
+// dRW at H 512, so K = T·B is split into slices (`b2c_wgmma_splits`), the
+// slices of a tile one cluster that adds its float32 sums in distributed
+// shared memory, so that no partial leaves the SMs.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_gemm.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -969,6 +1002,241 @@ cudaError_t launch(Args a, cudaStream_t st) {
                                      dim3(kThreads), args, smem, st);
 }
 
+// ------------------------------------------- forward, design 2, bfloat16
+// The float32 design's grid, barrier and cell in bfloat16, with the
+// product on the tensor cores (see the top of this file). Block (s, r)
+// owns HC = 256 / BR hidden columns and BR batch rows; its strip of RW
+// (NC = 4 HC gate columns, gates side by side as in float32) is staged
+// once, TRANSPOSED and in bfloat16: ws[4 jc + g][k] = RW[k][g H + j0 +
+// jc], K running along a row, so that it is the row-major A operand of
+// `mma.sync` m16n8k16 (gate columns as M) and h's tile, [BR][K] as h
+// lies, the column-major B (batch rows as N). The NC x BR outputs are
+// 8 tiles of 16 x 8 whatever BR is: warp w takes tile w over all of K,
+// with four accumulators (k16 step s into d[s % 4]) added in order at the
+// end, so a step's chain is H / 64 products long. Fragments come from
+// shared memory by `ldmatrix`; a staged row is K padded to 16 plus 8
+// elements, so the 8 rows an `ldmatrix` reads lie in 8 different bank
+// groups. K is padded with zeros in the strip and in h.
+template <int BR>
+struct TileBf16 {
+  static constexpr int NC = 1024 / BR;   // gate columns
+  static constexpr int HC = NC / 4;      // hidden columns
+  static constexpr int MT = NC / 16;     // the product's 16-column tiles
+};
+
+// K padded to the product's depth, and a staged row's length (elements)
+__host__ __device__ constexpr int bf16_hk(int H) { return (H + 15) / 16 * 16; }
+__host__ __device__ constexpr int bf16_row(int H) { return bf16_hk(H) + 8; }
+
+// bytes of shared memory: the strip [NC][row], h's tile [BR][row], and
+// the rounded products zs [BR][NC] float32 (ops/lstm.py `b2_rows` with
+// esize 2 computes the same)
+template <int BR>
+__host__ __device__ constexpr size_t bf16_smem_bytes(int H) {
+  return (size_t)2 * bf16_row(H) * (TileBf16<BR>::NC + BR) +
+         (size_t)4 * BR * TileBf16<BR>::NC;
+}
+
+// The arguments of `dl4j_lstm_fwd_persistent_bf16`: every tensor
+// bfloat16; hbuf [2][Bp][hk] (Bp = gridDim.y BR, hk = bf16_hk(H)) carries
+// h between the steps, a batch row's K contiguous, zeros past H;
+// counters [gridDim.y] start at 0.
+struct ArgsBf16 {
+  const __nv_bfloat16 *xw, *rw, *p, *h0, *c0, *mask;
+  __nv_bfloat16 *hs, *cs, *gates, *hT, *cT, *hbuf;
+  unsigned* counters;
+  int T, B, H;
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += A (16 x 16, row-major fragments a) x B (16 x 8, column-major
+// fragments b0 b1), bfloat16 in, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Block (s, r): hidden columns j0 = s HC .., batch rows b0 = r BR ..
+template <int BR, bool RESID>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd_persistent_bf16_kernel(const ArgsBf16 a) {
+  using BF = __nv_bfloat16;
+  using G = TileBf16<BR>;
+  using E = Elt<BF>;
+  const int T = a.T, B = a.B, H = a.H, H4 = 4 * H;
+  const int HK = bf16_hk(H), RS = bf16_row(H), ksteps = HK / 16;
+  extern __shared__ float4 smem4[];
+  BF* ws = reinterpret_cast<BF*>(smem4);            // [NC][RS]
+  BF* hsm = ws + (size_t)G::NC * RS;                // [BR][RS]
+  float* zs = reinterpret_cast<float*>(hsm + (size_t)BR * RS);  // [BR][NC]
+  const int j0 = blockIdx.x * G::HC, b0 = blockIdx.y * BR;
+  const int Bp = gridDim.y * BR;
+  unsigned* counter = a.counters + blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the product: warp w's tile, gate columns mc .. + 15, batch rows nb ..
+  // + 7
+  const int mc = 16 * (warp % G::MT), nb = 8 * (warp / G::MT);
+  // the cell: thread (row, jj) owns batch row b and hidden column j
+  const int row = threadIdx.x / G::HC, jj = threadIdx.x % G::HC;
+  const int b = b0 + row, j = j0 + jj;
+  const bool col_ok = j < H, row_ok = b < B;
+
+  // the strip, resident for the whole sequence (RW's columns read in
+  // order, a gate at a time); zeros past H in K and in the columns
+  for (int idx = threadIdx.x; idx < HK * G::NC; idx += kThreads) {
+    const int k = idx / G::NC, c = idx % G::NC;
+    const int g = c / G::HC, jc = c % G::HC, cj = j0 + jc;
+    ws[(size_t)(4 * jc + g) * RS + k] =
+        (k < H && cj < H) ? a.rw[(size_t)k * H4 + g * H + cj]
+                          : __float2bfloat16_rn(0.f);
+  }
+  float c_reg = 0.f, h_reg = 0.f, p0 = 0.f, p1 = 0.f, p2 = 0.f;
+  if (col_ok && row_ok) {
+    c_reg = ldf(a.c0, (size_t)b * H + j);
+    h_reg = ldf(a.h0, (size_t)b * H + j);
+  }
+  if (col_ok) {
+    p0 = ldf(a.p, j);
+    p1 = ldf(a.p, H + j);
+    p2 = ldf(a.p, 2 * H + j);
+    a.hbuf[(size_t)b * HK + j] = E::st(h_reg);   // rows past B carry zeros
+  }
+  unsigned target = 0;
+  tile_barrier(counter, target);         // h0 is complete in hbuf[0]
+
+  // `ldmatrix` rows: A's lane i gives row (i % 8) + 8 ((i / 8) % 2), K
+  // 8 (i / 16) of the k16 step (its four 8 x 8 matrices are the fragments
+  // a0-a3); B's gives batch row i % 8, K 8 (i / 8), so one x4 load holds
+  // two k16 steps' b0 b1
+  const uint32_t a_addr = hopper::smem_u32(
+      ws + (size_t)(mc + (lane & 7) + 8 * ((lane >> 3) & 1)) * RS +
+      8 * (lane >> 4));
+  const uint32_t b_addr =
+      hopper::smem_u32(hsm + (size_t)(nb + (lane & 7)) * RS + 8 * (lane >> 3));
+  const int chunks = HK / 8;             // 16-byte copies a row of h
+
+  for (int t = 0; t < T; ++t) {
+    // this step's inputs for the cell, in flight during the product
+    float xv[4] = {0.f, 0.f, 0.f, 0.f}, m = 0.f;
+    if (col_ok && row_ok) {
+      const BF* x = a.xw + ((size_t)t * B + b) * H4 + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xv[g] = E::ld(x[g * H]);
+      m = ldf(a.mask, (size_t)t * B + b);
+    }
+    // h_{t-1}'s tile: hsm[i][k] = hbuf[t & 1][b0 + i][k]
+    const BF* hin = a.hbuf + ((size_t)(t & 1) * Bp + b0) * HK;
+    for (int idx = threadIdx.x; idx < BR * chunks; idx += kThreads) {
+      const int r = idx / chunks, q = idx % chunks;
+      cp_async16_cg(reinterpret_cast<float*>(hsm + (size_t)r * RS + 8 * q),
+                    reinterpret_cast<const float*>(hin + (size_t)r * HK +
+                                                   8 * q));
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    float d[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[u][e] = 0.f;
+    for (int s0 = 0; s0 < ksteps; s0 += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; u += 2) {
+        const int s = s0 + u;
+        if (s < ksteps) {          // warp-uniform
+          uint32_t bf[4], af[4];
+          ldmatrix_x4(bf, b_addr + 32 * s);
+          ldmatrix_x4(af, a_addr + 32 * s);
+          mma_bf16(d[u], af, bf[0], bf[1]);
+          if (s + 1 < ksteps) {
+            ldmatrix_x4(af, a_addr + 32 * (s + 1));
+            mma_bf16(d[u + 1], af, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    // the sum rounded once to bfloat16 (as the Pallas body's product in
+    // h's dtype), into zs[batch row][gate column]: a thread holds columns
+    // mc + lane / 4 (+ 8) of batch rows nb + 2 (lane % 4) (+ 1)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = ((d[0][e] + d[1][e]) + d[2][e]) + d[3][e];
+      const int cc = mc + lane / 4 + 8 * (e / 2);
+      const int rr = nb + 2 * (lane % 4) + (e % 2);
+      zs[rr * G::NC + cc] = rnd<BF>(v);
+    }
+    __syncthreads();
+    // the cell, rounding after each operation as design 1 does
+    const float4 zv =
+        *reinterpret_cast<const float4*>(zs + row * G::NC + 4 * jj);
+    const float zi = rnd<BF>(zv.x + xv[0]);
+    const float zf = rnd<BF>(zv.y + xv[1]);
+    const float zg = rnd<BF>(zv.z + xv[2]);
+    const float zo = rnd<BF>(zv.w + xv[3]);
+    const float cp = c_reg, hp = h_reg;
+    const float ig = sigm_r<BF>(rnd<BF>(zi + rnd<BF>(cp * p0)));
+    const float fg = sigm_r<BF>(rnd<BF>(zf + rnd<BF>(cp * p1)));
+    const float gg = rnd<BF>(tanhf(zg));
+    const float c_new = rnd<BF>(rnd<BF>(fg * cp) + rnd<BF>(ig * gg));
+    const float og = sigm_r<BF>(rnd<BF>(zo + rnd<BF>(c_new * p2)));
+    const float h_new = rnd<BF>(og * rnd<BF>(tanhf(c_new)));
+    const float keep = rnd<BF>(1.0f - m);
+    h_reg = rnd<BF>(rnd<BF>(m * h_new) + rnd<BF>(keep * hp));
+    c_reg = rnd<BF>(rnd<BF>(m * c_new) + rnd<BF>(keep * cp));
+    if (col_ok) {
+      if (row_ok) {
+        const size_t at = ((size_t)t * B + b) * H + j;
+        a.hs[at] = E::st(h_reg);
+        if (RESID) {
+          a.cs[at] = E::st(c_reg);
+          BF* gt = a.gates + ((size_t)t * B + b) * H4 + j;
+          gt[0] = E::st(ig);
+          gt[H] = E::st(fg);
+          gt[2 * H] = E::st(gg);
+          gt[3 * H] = E::st(og);
+        }
+      }
+      a.hbuf[((size_t)((t + 1) & 1) * Bp + b) * HK + j] = E::st(h_reg);
+    }
+    tile_barrier(counter, target);   // h_t is complete in hbuf
+  }
+  if (col_ok && row_ok) {
+    a.hT[(size_t)b * H + j] = E::st(h_reg);
+    a.cT[(size_t)b * H + j] = E::st(c_reg);
+  }
+}
+
+template <int BR, bool RESID>
+cudaError_t launch_bf16(ArgsBf16 a, cudaStream_t st) {
+  using G = TileBf16<BR>;
+  auto kernel = lstm_fwd_persistent_bf16_kernel<BR, RESID>;
+  const size_t smem = bf16_smem_bytes<BR>(a.H);
+  if (smem > (size_t)kSmemFloats * sizeof(float)) return cudaErrorInvalidValue;
+  static bool raised = false;
+  cudaError_t e = raise_smem_limit(kernel, &raised);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.H + G::HC - 1) / G::HC, (a.B + BR - 1) / BR);
+  // as the float32 design's: the launch fails where the grid cannot be
+  // resident at once
+  void* args[] = {&a};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid,
+                                     dim3(kThreads), args, smem, st);
+}
+
 // ----------------------------------------------------- backward, design 2
 // The same grid as the forward's: block (s, r) owns HC = 256 / BR hidden
 // columns and BR batch rows, a thread the cell of one (row, column), and
@@ -1453,6 +1721,236 @@ cudaError_t launch(const float* hs, const float* h0, const float* dxw,
 
 }  // namespace pipe
 
+// ---------------------------------- weight gradients, design 2, bfloat16
+// dRW [H, 4H] = hprev^T dxw over K = T·B rows, bfloat16 operands on the
+// tensor cores (see the top of this file). Both operands lie with K
+// outermost, so both are read through the transpose bits: A (hprev, M =
+// H) M-major, B (dxw, N = 4H) N-major. A block owns a 128 x 256 tile of
+// dRW (two consumer warpgroups of m64n256k16, 64 rows each) and one slice
+// of the K tiles; a producer warp keeps TMA loads of 64-deep K tiles (A:
+// two [64][64] boxes, B: four) in flight through a 4-stage ring of
+// full/empty mbarriers. hprev straddles two tensors, so the K tiles come
+// in two runs: ceil(B / 64) tiles of h0 (rows past B zero-filled by TMA,
+// against dxw's first rows), then ceil((T - 1) B / 64) tiles of hs
+// against dxw from row B on (rows past T·B zero-filled), which takes any
+// B. The S slices of a tile are one cluster (S <= 8): each block stages
+// its float32 sums in its own shared memory (the ring, idle by then), and
+// after a cluster barrier block r adds rows [r 128 / S, (r + 1) 128 / S)
+// of the S tiles through distributed shared memory in slice order and
+// writes them rounded once to bfloat16. No float32 partials leave the
+// SMs (at path_l's 4 slices they would be 16 MB, which with the 40 MB of
+// operands overflows L2, and their stores and reads took longer than the
+// products), no atomics, and two launches are bit-equal. TMA needs
+// 16-byte rows, so H is a multiple of 8.
+namespace wg {
+
+using namespace hopper;
+
+constexpr int BM = 128, BN = 256, BK = 64, kStages = 4;
+constexpr int kThreads = 384;     // warpgroups 0, 1 compute; 2 loads
+constexpr int kBox = 64 * BK * 2;             // one [BK][64] box: 8 KB
+constexpr int kStageBytes = (BM / 64 + BN / 64) * kBox;   // 48 KB
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+constexpr int kMaxSplits = 8;                 // a portable cluster
+constexpr int kRowF = BN + 8;     // a staged row of sums (floats; the pad
+                                  // spreads a warp's 8 rows over the banks)
+static_assert(BM * kRowF * 4 <= kStages * kStageBytes, "sums fit the ring");
+
+// n0: the K tiles of h0; nk: all K tiles; per: the K tiles a slice; the
+// slices of a tile (gridDim.z) are one cluster
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_drw_wgmma_kernel(const __grid_constant__ CUtensorMap h0map,
+                      const __grid_constant__ CUtensorMap hsmap,
+                      const __grid_constant__ CUtensorMap dmap,
+                      __nv_bfloat16* __restrict__ drw, int B, int H, int n0,
+                      int nk, int per) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  float* sums = reinterpret_cast<float*>(ring);   // [BM][kRowF], at the end
+  cg::cluster_group cluster = cg::this_cluster();
+  const int M = H, N = 4 * H;
+  const int nt0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int splits = gridDim.z, rank = blockIdx.z;
+  const int kt0 = rank * per;
+  const int kt1 = min(nk, kt0 + per);
+  const int wgi = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);    // one arrival from each warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<40>();
+    if (t == 0) {
+      for (int kt = kt0, it = 0; kt < kt1; ++kt, ++it) {
+        const int s = it % kStages, round = it / kStages;
+        if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+        uint8_t* st = ring + s * kStageBytes;
+        mbar_expect_tx(&full[s], kStageBytes);
+        const bool first = kt < n0;
+        const CUtensorMap* amap = first ? &h0map : &hsmap;
+        const int arow = (first ? kt : kt - n0) * BK;
+        const int drow = first ? kt * BK : B + (kt - n0) * BK;
+#pragma unroll
+        for (int i = 0; i < BM / 64; ++i)
+          tma_load_2d(st + i * kBox, amap, &full[s], m0 + 64 * i, arow);
+#pragma unroll
+        for (int i = 0; i < BN / 64; ++i)
+          tma_load_2d(st + (BM / 64 + i) * kBox, &dmap, &full[s],
+                      nt0 + 64 * i, drow);
+      }
+    }
+    __syncwarp();
+    cluster.sync();      // the slices' sums are staged
+    cluster.sync();      // every block is done reading them
+    return;
+  }
+
+  // ------------------------------------------------------------- consumers
+  reg_alloc<232>();
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  int prev = 0;
+  for (int kt = kt0, it = 0; kt < kt1; ++kt, ++it) {
+    const int s = it % kStages;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    const uint8_t* a = ring + s * kStageBytes + wgi * kBox;
+    const uint8_t* b = ring + s * kStageBytes + (BM / 64) * kBox;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      WgmmaBf16<BN, 1, 1>::run(acc, sw128_desc(a + kk * 2048, kBox, 1024),
+                               sw128_desc(b + kk * 2048, kBox, 1024));
+    wgmma_commit();
+    fence_regs(acc);
+    // the previous tile's products are done: its stage goes back
+    wgmma_wait<1>();
+    fence_regs(acc);
+    if (it > 0 && t == 0) mbar_arrive(&empty[prev]);
+    prev = s;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  bar_sync(1, 256);      // both warpgroups are done with the ring
+
+  // the block's sums into sums[row][col]: a thread holds rows r0 (+ 8),
+  // columns 8 j + 2 (lane % 4) (+ 1)
+  const int warp = t / 32, lane = t % 32;
+  const int r0 = wgi * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(sums + (r0 + 8 * h) * kRowF + 8 * j +
+                                 2 * (lane % 4)) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  cluster.sync();
+
+  // block `rank` adds its rows of the tile over the slices in order
+  const float* src[kMaxSplits];
+#pragma unroll
+  for (int q = 0; q < kMaxSplits; ++q)
+    src[q] = q < splits ? cluster.map_shared_rank(sums, q) : sums;
+  const int rlo = rank * BM / splits, rhi = (rank + 1) * BM / splits;
+  for (int i = t + 128 * wgi; i < (rhi - rlo) * (BN / 4); i += 256) {
+    const int row = rlo + i / (BN / 4), c4 = 4 * (i % (BN / 4));
+    const int m = m0 + row, n = nt0 + c4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < kMaxSplits; ++q) {
+      if (q < splits) {
+        const float4 u =
+            *reinterpret_cast<const float4*>(src[q] + row * kRowF + c4);
+        v.x += u.x;
+        v.y += u.y;
+        v.z += u.z;
+        v.w += u.w;
+      }
+    }
+    if (m < M && n < N) {      // N is a multiple of 32: all four or none
+      __nv_bfloat162* d =
+          reinterpret_cast<__nv_bfloat162*>(drw + (size_t)m * N + n);
+      d[0] = __floats2bfloat162_rn(v.x, v.y);
+      d[1] = __floats2bfloat162_rn(v.z, v.w);
+    }
+  }
+  cluster.sync();
+}
+
+// the K tiles of h0 and of all of hprev
+__host__ __device__ inline int ktiles_h0(int B) { return (B + BK - 1) / BK; }
+__host__ __device__ inline int ktiles(int T, int B) {
+  return ktiles_h0(B) + (int)(((long long)(T - 1) * B + BK - 1) / BK);
+}
+
+cudaError_t raise_smem() {
+  static bool raised = false;
+  if (!raised) {
+    cudaError_t e = cudaFuncSetAttribute(
+        lstm_drw_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (e != cudaSuccess) return e;
+    raised = true;
+  }
+  return cudaSuccess;
+}
+
+cudaLaunchConfig_t config(dim3 grid, cudaStream_t st,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = grid.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t launch(const void* hs, const void* h0, const void* dxw,
+                   void* drw, int T, int B, int H, int splits,
+                   cudaStream_t st) {
+  CUtensorMap h0m, hsm, dm;
+  const uint32_t box[2] = {64, BK};
+  const uint64_t hstride[1] = {(uint64_t)H * 2};
+  const uint64_t h0d[2] = {(uint64_t)H, (uint64_t)B};
+  const uint64_t hsd[2] = {(uint64_t)H, (uint64_t)T * B};
+  const uint64_t dd[2] = {(uint64_t)4 * H, (uint64_t)T * B};
+  const uint64_t dstride[1] = {(uint64_t)8 * H};
+  int rc = encode_tensor_map(&h0m, h0, 2, h0d, hstride, box);
+  if (rc == 0) rc = encode_tensor_map(&hsm, hs, 2, hsd, hstride, box);
+  if (rc == 0) rc = encode_tensor_map(&dm, dxw, 2, dd, dstride, box);
+  if (rc) return static_cast<cudaError_t>(rc);
+  cudaError_t e = raise_smem();
+  if (e != cudaSuccess) return e;
+  const int nk = ktiles(T, B);
+  const int per = (nk + splits - 1) / splits;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config(
+      dim3((4 * H + BN - 1) / BN, (H + BM - 1) / BM, splits), st, attr);
+  e = cudaLaunchKernelEx(
+      &cfg, lstm_drw_wgmma_kernel, h0m, hsm, dm,
+      static_cast<__nv_bfloat16*>(drw), B, H, ktiles_h0(B), nk, per);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // Design 1's launches by element type (the C functions below pick one).
@@ -1587,6 +2085,46 @@ int dl4j_lstm_fwd_persistent(const void* xw, const void* rw, const void* p,
   return (int)e;
 }
 
+// Design 2 of B2a (`residuals`) and B2b in bfloat16: the persistent grid
+// with the product on the tensor cores, `rows` batch rows a block (64, 32,
+// 16 or 8; ops/lstm.py `b2_rows` with esize 2 chooses it). Every tensor
+// bfloat16, RW too, as `dl4j_lstm_fwd` takes them; hbuf [2, Bp, hk]
+// bfloat16 ZEROS (Bp = B rounded up to `rows`, hk = H rounded up to 16)
+// and counters [Bp / rows] uint32 zeros. Returns 0 or a cudaError_t.
+int dl4j_lstm_fwd_persistent_bf16(const void* xw, const void* rw,
+                                  const void* p, const void* h0,
+                                  const void* c0, const void* mask, void* hs,
+                                  void* cs, void* gates, void* hT, void* cT,
+                                  void* hbuf, void* counters, int T, int B,
+                                  int H, int rows, int residuals,
+                                  void* stream) {
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (residuals && (cs == nullptr || gates == nullptr))
+    return (int)cudaErrorInvalidValue;
+  using C = const __nv_bfloat16*;
+  using W = __nv_bfloat16*;
+  const persist::ArgsBf16 a{
+      static_cast<C>(xw), static_cast<C>(rw), static_cast<C>(p),
+      static_cast<C>(h0), static_cast<C>(c0), static_cast<C>(mask),
+      static_cast<W>(hs), static_cast<W>(cs), static_cast<W>(gates),
+      static_cast<W>(hT), static_cast<W>(cT), static_cast<W>(hbuf),
+      static_cast<unsigned*>(counters), T, B, H};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+#define DL4J_LSTM_PERSIST_BF16(R)                                           \
+  e = residuals ? persist::launch_bf16<R, true>(a, st)                      \
+                : persist::launch_bf16<R, false>(a, st)
+  switch (rows) {
+    case 64: DL4J_LSTM_PERSIST_BF16(64); break;
+    case 32: DL4J_LSTM_PERSIST_BF16(32); break;
+    case 16: DL4J_LSTM_PERSIST_BF16(16); break;
+    case 8: DL4J_LSTM_PERSIST_BF16(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DL4J_LSTM_PERSIST_BF16
+  return (int)e;
+}
+
 // The reverse-time recurrence of B2c, design 1. Contiguous, of `dtype`
 // (0 float32, 1 bfloat16) but rwT and dp_part, float32 in both: dhs [T, B,
 // H], gates [T, B, 4H], cs [T, B, H], rwT [4H, H] (RW transposed), p [3,
@@ -1677,6 +2215,49 @@ int dl4j_lstm_bwd_weights_pipelined(const void* hs, const void* h0,
   lstm_dp_reduce_kernel<float><<<(3 * H + 255) / 256, 256, 0, st>>>(
       static_cast<F>(dp_part), static_cast<float*>(dp), tiles, H);
   return (int)cudaGetLastError();
+}
+
+// Design 2 of B2c's weight gradients in bfloat16: drw [H, 4H] by the
+// `wgmma` GEMM over `splits` slices of K = T·B's tiles, at most 8, one
+// cluster a tile of drw (ops/lstm.py `b2c_wgmma_splits`), then dp [3, H]
+// from dp_part [tiles, 3, H] as design 1. hs [T, B, H], h0 [B, H], dxw
+// [T, B, 4H], drw and dp bfloat16, H a multiple of 8, 16-byte aligned.
+// Returns 0 or a cudaError_t.
+int dl4j_lstm_bwd_weights_wgmma(const void* hs, const void* h0,
+                                const void* dxw, const void* dp_part,
+                                void* drw, void* dp, int T, int B, int H,
+                                int tiles, int splits, void* stream) {
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(hs) | reinterpret_cast<uintptr_t>(h0) |
+        reinterpret_cast<uintptr_t>(dxw) | reinterpret_cast<uintptr_t>(drw)) &
+       15) == 0;
+  if (T < 1 || B < 1 || H < 8 || H % 8 || H > 65535 || tiles < 1 ||
+      splits < 1 || splits > wg::kMaxSplits || !aligned ||
+      (long long)T * B > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = wg::launch(hs, h0, dxw, drw, T, B, H, splits, st);
+  if (e != cudaSuccess) return (int)e;
+  lstm_dp_reduce_kernel<__nv_bfloat16><<<(3 * H + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(dp_part), static_cast<__nv_bfloat16*>(dp),
+      tiles, H);
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of `size` blocks (1 to 8: the slices of one tile) of
+// the bfloat16 weight product the current card runs at once: a cluster's
+// blocks share a GPC, so this can fall short of SMs / size. Returns the
+// count, or minus a cudaError_t.
+int dl4j_lstm_wgmma_max_clusters(int size) {
+  if (size < 1 || size > wg::kMaxSplits) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = wg::raise_smem();
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = wg::config(dim3(1, 1, size), 0, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(
+      &n, reinterpret_cast<void*>(wg::lstm_drw_wgmma_kernel), &cfg);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 const char* dl4j_cuda_error_string(int code) {

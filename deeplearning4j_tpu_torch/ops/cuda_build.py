@@ -131,6 +131,18 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         # splits, stream
         "dl4j_lstm_bwd_weights_pipelined": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        # design 2 in bfloat16: xw rw p h0 c0 mask hs cs gates hT cT hbuf
+        # counters, T B H, rows, residuals, stream
+        "dl4j_lstm_fwd_persistent_bf16": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                 _I, _I, _I, _P]),
+        # design 2 in bfloat16: hs h0 dxw dp_part drw dp, T B H, tiles
+        # splits, stream
+        "dl4j_lstm_bwd_weights_wgmma": (
+            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        # clusters of `size` blocks of the bfloat16 weight product the card
+        # holds at once (or minus a cudaError_t)
+        "dl4j_lstm_wgmma_max_clusters": (_I, [_I]),
         "dl4j_lstm_batch_tile": (_I, []),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },

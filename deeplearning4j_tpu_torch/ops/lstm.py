@@ -31,14 +31,21 @@ as the forward is; its weight product "tiled" (design 1) or "pipelined"
 needs no residency and takes every shape. `LAUNCHES_BY_DESIGN[(kernel,
 design)]` counts the launches of each.
 
-bfloat16 runs design 1 of every launch (`b2_design`, `b2c_design`,
-`b2c_weights_design`), counted as `LAUNCHES["<kernel>_bf16"]` and
-`LAUNCHES_BY_DESIGN[(kernel, "<design>_bf16")]`. Its arithmetic rounds
-where the Pallas body's does, which is after every operation (the plain
-versions, run on bfloat16 tensors, equal JAX's interpret run bit for
-bit, sigmoid written as 1 / (1 + exp(-x)) as XLA expands it); dRW and dP
-alone differ by design: the Pallas kernel keeps a running bfloat16 sum
-over T, the CUDA kernels a float32 sum rounded once, and `c13_bound`
+bfloat16 has two designs of the forward ("cluster" and "persistent",
+the latter with its product on the tensor cores, chosen by `b2_design`
+with bfloat16's shared-memory arithmetic) and of the weight product
+("tiled" and "wgmma", a tensor-core GEMM fed by TMA, chosen by
+`b2c_weights_design` where H is a multiple of 8); B2c's recurrence runs
+design 1 ("cluster"). Its launches count as `LAUNCHES["<kernel>_bf16"]`
+and `LAUNCHES_BY_DESIGN[(kernel, "<design>_bf16")]` (`BF16_DESIGNS`),
+and each wrapper's choice as `kernel_dispatch_total{op="lstm",
+impl="<kernel>/<design>"}`. Its arithmetic rounds where the Pallas
+body's does, which is after every operation (the plain versions, run on
+bfloat16 tensors, equal JAX's interpret run bit for bit, sigmoid written
+as 1 / (1 + exp(-x)) as XLA expands it); dRW and dP alone differ by
+design: the Pallas kernel keeps a running bfloat16 sum over T, the CUDA
+kernels a float32 sum (in "wgmma", of float32 slices added in order:
+`lstm_weights_plain(..., slices=...)`) rounded once, and `c13_bound`
 states how far apart that may put them (contract C13). `bf16_check`
 holds every other output to its plain version (`bf16_atol`, and the
 share of elements that differ, `BF16_SHARE`).
@@ -62,7 +69,7 @@ one to `PLAIN_ON_CUDA[name]` when handed CUDA tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -80,16 +87,22 @@ PLAIN_ON_CUDA: Dict[str, int] = {"lstm_fwd": 0, "lstm_fwd_inference": 0,
 B2C_DESIGNS = {"lstm_bwd": ("cluster", "persistent"),
                "lstm_bwd_weights": ("tiled", "pipelined")}
 WEIGHT_TILE = 128                     # the pipelined SGEMM's tile of dRW
+# the bfloat16 wgmma GEMM's tile of dRW (rows, columns) and its K tile
+WGMMA_TILE = (128, 256)
+WGMMA_DEPTH = 64
+WGMMA_MAX_SPLITS = 8                  # the slices of a tile: one cluster
 
-# bfloat16 runs design 1 of each launch, counted as "<design>_bf16"
-BF16_DESIGNS = {"lstm_fwd": "cluster", "lstm_fwd_inference": "cluster",
-                "lstm_bwd": "cluster", "lstm_bwd_weights": "tiled"}
+# the designs each launch has in bfloat16, design 1 first, counted as
+# "<design>_bf16"; B2c's recurrence has design 1 only
+BF16_DESIGNS = {"lstm_fwd": DESIGNS, "lstm_fwd_inference": DESIGNS,
+                "lstm_bwd": ("cluster",),
+                "lstm_bwd_weights": ("tiled", "wgmma")}
 
 LAUNCHES_BY_DESIGN: Dict[Tuple[str, str], int] = {
     **{(k, d): 0 for k in ("lstm_fwd", "lstm_fwd_inference")
        for d in DESIGNS},
     **{(k, d): 0 for k, ds in B2C_DESIGNS.items() for d in ds},
-    **{(k, d + "_bf16"): 0 for k, d in BF16_DESIGNS.items()}}
+    **{(k, d + "_bf16"): 0 for k, ds in BF16_DESIGNS.items() for d in ds}}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype codes
 
 
@@ -189,21 +202,34 @@ def lstm_bwd_plain(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT):
     return (dxw, dh, dc, *lstm_weights_plain(hs, h0, dxw, cs, c0))
 
 
-def lstm_weights_plain(hs, h0, dxw, cs, c0, running: bool = True):
+def lstm_weights_plain(hs, h0, dxw, cs, c0, running: bool = True,
+                       slices=None):
     """(dRW, dP) of B2c's second launch from the recurrence's dxw, as
     plain tensor ops: with `running`, the Pallas kernel's running sum
     over T (from T - 1 down) in the tensors' dtype, `lstm_bwd_plain`'s;
     else each a float32 sum over T·B rounded once to the dtype, the CUDA
-    kernels' arithmetic. In float32 the two differ only in summation
-    order. dP's products are summed unrounded, as XLA fuses them into
-    the reduce; a step's sums round before the running sum."""
-    T, _, H = hs.shape
+    kernels' arithmetic. With `slices` ((k0, k1) ranges of the T·B rows
+    of hprev = [h0; hs[:-1]], as `b2c_wgmma_slices` gives them; implies
+    not `running`), dRW is the sum of the slices' float32 products added
+    in slice order, as the "wgmma" design adds its partials. In float32
+    the forms differ only in summation order. dP's products are summed
+    unrounded, as XLA fuses them into the reduce; a step's sums round
+    before the running sum."""
+    T, B, H = hs.shape
     dt = hs.dtype
     h_prev = torch.cat([h0[None], hs[:-1]])
     c_prev = torch.cat([c0[None], cs[:-1]])
-    if not running:
+    if not running or slices is not None:
         w = _wide
-        drw = torch.einsum("tbk,tbn->kn", w(h_prev), w(dxw))
+        if slices is None:
+            drw = torch.einsum("tbk,tbn->kn", w(h_prev), w(dxw))
+        else:
+            hp = w(h_prev).reshape(T * B, H)
+            d = w(dxw).reshape(T * B, 4 * H)
+            drw = None
+            for k0, k1 in slices:
+                prod = hp[k0:k1].T @ d[k0:k1]
+                drw = prod if drw is None else drw + prod
         dp = torch.stack([(w(dxw[..., :H]) * w(c_prev)).sum((0, 1)),
                           (w(dxw[..., H:2 * H]) * w(c_prev)).sum((0, 1)),
                           (w(dxw[..., 3 * H:]) * w(cs)).sum((0, 1))])
@@ -367,21 +393,29 @@ def _stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def b2_rows(B: int, H: int, sms: int, smem: int) -> Optional[int]:
+def b2_rows(B: int, H: int, sms: int, smem: int,
+            esize: int = 4) -> Optional[int]:
     """The batch rows a design-2 block takes (BR; it computes BR x 1024
     / BR pre-activations, so 256 / BR hidden columns), or None where no BR
     fits: the smallest BR of `PERSISTENT_ROWS` (the least of h a block
     copies a step) whose grid, ceil(B / BR) x ceil(H / (256 / BR))
     blocks, fits one block on each of `sms` SMs, and whose shared memory
-    (the resident strip of RW, [H, 1024 / BR] float32, beside the h tile
-    [H, BR] or the 8 warps' partial sums, whichever is larger) fits the
-    `smem` bytes a block may ask for. `csrc/lstm.cu` `persist::launch`
-    computes the same grid and shared memory."""
+    fits the `smem` bytes a block may ask for. For float32 (`esize` 4):
+    the resident strip of RW, [H, 1024 / BR] float32, beside the h tile
+    [H, BR] or the 8 warps' partial sums, whichever is larger
+    (`csrc/lstm.cu` `persist::launch`). For bfloat16 (`esize` 2,
+    `persist::launch_bf16`): the strip [1024 / BR, row] and the h tile
+    [BR, row] in bfloat16, a row being H rounded up to 16 plus 8, and the
+    rounded products [BR, 1024 / BR] float32; so BR 8 fits at H 512."""
     for br in PERSISTENT_ROWS:
         nc = 1024 // br
         blocks = -(-B // br) * -(-H // (nc // 4))
-        floats = H * nc + max(H * br, 8 * br * (nc + 4))
-        if blocks <= sms and 4 * floats <= smem:
+        if esize == 2:
+            row = -(-H // 16) * 16 + 8
+            nbytes = 2 * row * (nc + br) + 4 * br * nc
+        else:
+            nbytes = 4 * (H * nc + max(H * br, 8 * br * (nc + 4)))
+        if blocks <= sms and nbytes <= smem:
             return br
     return None
 
@@ -404,12 +438,13 @@ def b2_design(T: int, B: int, H: int, sms: int, smem: int,
     MAX_HIDDEN). Design 2 pays a fixed cost a call (a cooperative launch
     whose blocks stage their strips of RW) for cheaper steps, so a short
     sequence (`rnn_time_step`'s T 1) stays on design 1 (`chip_smoke.py`
-    times both designs at T 1, 4, 8, 50 and 200). bfloat16 takes design
-    1 at every shape: design 2 is float32 only (as B5 and B6 keep bf16
-    caches on design 1). A pure function of the shape, the dtype and the
-    card, decided before the launch."""
-    if dtype == torch.bfloat16 or T < PERSISTENT_MIN_STEPS \
-            or b2_rows(B, H, sms, smem) is None:
+    times both designs at T 1, 4, 8, 50 and 200). bfloat16 takes the
+    same rule with its own shared-memory arithmetic (`b2_rows` with
+    `esize` 2: its strip is bfloat16 and its product runs on the tensor
+    cores). A pure function of the shape, the dtype and the card, decided
+    before the launch."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    if T < PERSISTENT_MIN_STEPS or b2_rows(B, H, sms, smem, esize) is None:
         return "cluster"
     return "persistent"
 
@@ -456,20 +491,23 @@ def b2c_design(T: int, B: int, H: int, sms: int, smem: int,
     `b2c_rows` finds a tile whose grid can be resident at once, else
     "cluster" (design 1, which takes every hidden size up to MAX_HIDDEN;
     `chip_smoke.py` times both at its LSTM shapes from T 4 to 200). The
-    weight product takes "pipelined" at every shape (`b2c_weights_design`).
-    bfloat16 takes design 1 of both launches at every shape. A pure
-    function of the shape, the dtype and the card, decided before the
-    launch."""
+    weight product's design is `b2c_weights_design`'s. bfloat16 takes
+    design 1 of the recurrence at every shape. A pure function of the
+    shape, the dtype and the card, decided before the launch."""
     if dtype == torch.bfloat16 or T < PERSISTENT_MIN_STEPS \
             or b2c_rows(B, H, sms, smem) is None:
         return "cluster"
     return "persistent"
 
 
-def b2c_weights_design(dtype=torch.float32) -> str:
-    """The design of B2c's weight product: "pipelined" (design 2) in
-    float32, "tiled" (design 1) in bfloat16."""
-    return "tiled" if dtype == torch.bfloat16 else "pipelined"
+def b2c_weights_design(H: int, dtype=torch.float32) -> str:
+    """The design of B2c's weight product at hidden size H: "pipelined"
+    (design 2) in float32 at every H; in bfloat16 "wgmma" (design 2, the
+    tensor-core GEMM, whose TMA loads want 16-byte rows) where H is a
+    multiple of 8, else "tiled" (design 1). Decided before the launch."""
+    if dtype != torch.bfloat16:
+        return "pipelined"
+    return "wgmma" if H % 8 == 0 else "tiled"
 
 
 def b2c_splits(T: int, B: int, H: int, sms: int) -> int:
@@ -479,6 +517,84 @@ def b2c_splits(T: int, B: int, H: int, sms: int) -> int:
     a slice, and at most 16 (`path_l`: 4 on 132 SMs)."""
     tiles = -(-H // WEIGHT_TILE) * -(-4 * H // WEIGHT_TILE)
     return max(1, min(2 * sms // tiles, T * B // 256, 16))
+
+
+def _wgmma_ktiles(T: int, B: int) -> Tuple[int, int]:
+    """The "wgmma" weight product's K tiles of WGMMA_DEPTH rows: (those
+    of h0, all of hprev = [h0; hs[:-1]]). hprev straddles two tensors,
+    so its tiles come in two runs: h0's B rows, then hs's (T - 1) B."""
+    n0 = -(-B // WGMMA_DEPTH)
+    return n0, n0 + -(-(T - 1) * B // WGMMA_DEPTH)
+
+
+def b2c_wgmma_splits(T: int, B: int, H: int, sms: int,
+                     clusters=None) -> int:
+    """The slices of the K tiles that the "wgmma" weight product splits
+    over. The slices of a tile of dRW are one cluster, so: the most
+    slices, at most WGMMA_MAX_SPLITS and with at least 4 K tiles (256
+    rows) each, for which the card holds the clusters of all ceil(H /
+    128) x ceil(4H / 256) tiles at once (`clusters(size)`: the clusters
+    of `size` blocks it runs together, `wgmma_clusters` on a card; by
+    default `sms // size`, one block an SM with no GPC left short); then
+    as few as give each slice the same count of K tiles, ceil(tiles /
+    slices), so that none is empty. `path_l`: 32 tiles of dRW and 128 K
+    tiles; 4 slices on 132 SMs by default, 3 on an H100 whose GPCs hold
+    fewer than 32 clusters of 4."""
+    tiles = -(-H // WGMMA_TILE[0]) * -(-4 * H // WGMMA_TILE[1])
+    nk = _wgmma_ktiles(T, B)[1]
+    if clusters is None:
+        clusters = lambda size: sms // size  # noqa: E731
+    splits = 1
+    for s in range(2, min(nk // 4, WGMMA_MAX_SPLITS) + 1):
+        if clusters(s) >= tiles:
+            splits = s
+    per = -(-nk // splits)
+    return -(-nk // per)
+
+
+_CLUSTERS: Dict[Tuple[int, int], int] = {}
+
+
+def wgmma_clusters(device) -> Callable[[int], int]:
+    """`clusters(size)` for `b2c_wgmma_splits` on a CUDA card: how many
+    clusters of `size` blocks of the "wgmma" weight product it runs at
+    once (`cudaOccupancyMaxActiveClusters`), asked once a size."""
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+
+    def clusters(size: int) -> int:
+        key = (index, size)
+        if key not in _CLUSTERS:
+            lib = cuda_build.library("lstm")
+            with torch.cuda.device(index):
+                n = lib.dl4j_lstm_wgmma_max_clusters(size)
+            if n < 0:
+                cuda_build.check(lib, -n, "lstm wgmma cluster occupancy")
+            _CLUSTERS[key] = n
+        return _CLUSTERS[key]
+
+    return clusters
+
+
+def b2c_wgmma_slices(T: int, B: int,
+                     splits: int) -> List[Tuple[int, int]]:
+    """The (k0, k1) ranges of hprev's T·B rows that the "wgmma" weight
+    product's `splits` slices sum, in order (`csrc/lstm.cu`
+    `wg::launch`): slice s takes K tiles [s per, (s + 1) per), per =
+    ceil(tiles / splits); tile i < n0 covers h0's rows [64 i, 64 (i + 1))
+    and tile n0 + j hs's, rows [B + 64 j, B + 64 (j + 1)) of hprev, each
+    cut at its run's end."""
+    n0, nk = _wgmma_ktiles(T, B)
+    per = -(-nk // splits)
+
+    def start(i):
+        return min(WGMMA_DEPTH * i, B) if i < n0 \
+            else B + WGMMA_DEPTH * (i - n0)
+
+    bounds = [start(i) for i in range(0, nk, per)] + [T * B]
+    return list(zip(bounds, bounds[1:]))
 
 
 def lstm_fwd(xw, rw, p, h0, c0, mask, with_residuals: bool = True):
@@ -491,6 +607,8 @@ def lstm_fwd(xw, rw, p, h0, c0, mask, with_residuals: bool = True):
     T, B, H4 = xw.shape
     _check_hidden(H4 // 4)
     design = b2_design(T, B, H4 // 4, *card_limits(xw.device), xw.dtype)
+    name = "lstm_fwd" if with_residuals else "lstm_fwd_inference"
+    _record(name, design, xw.dtype)
     return launch_fwd(xw, rw, p, h0, c0, mask, with_residuals, design)
 
 
@@ -498,16 +616,17 @@ def launch_fwd(xw, rw, p, h0, c0, mask, with_residuals: bool = True,
                design: str = "cluster"):
     """Kernel B2a (`with_residuals`) or B2b alone, on checked CUDA
     tensors, in `design` (the wrapper passes `b2_design`'s choice;
-    `chip_smoke.py` also times design 1 where design 2 runs; bfloat16
-    runs design 1 only): returns (hs, cs, gates, hT, cT)."""
+    `chip_smoke.py` also times design 1 where design 2 runs): returns
+    (hs, cs, gates, hT, cT)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("lstm")
     T, B, H4 = xw.shape
     H = H4 // 4
-    bf16 = _bf16_design(xw, design, "cluster")
-    if bf16:
-        rw = rw.float()      # the streamed strip is float32 in both
+    name = "lstm_fwd" if with_residuals else "lstm_fwd_inference"
+    bf16 = _bf16_design(xw, design, name)
+    if bf16 and design == "cluster":
+        rw = rw.float()      # design 1 streams a float32 strip in both
     new = lambda *s: torch.empty(s, dtype=xw.dtype, device=xw.device)  # noqa
     hs, hT, cT = new(T, B, H), new(B, H), new(B, H)
     cs = new(T, B, H) if with_residuals else None
@@ -518,34 +637,44 @@ def launch_fwd(xw, rw, p, h0, c0, mask, with_residuals: bool = True,
             None if gates is None else gates.data_ptr(), hT.data_ptr(),
             cT.data_ptr())
     if design == "persistent":
-        rows = b2_rows(B, H, *card_limits(xw.device))
+        rows = b2_rows(B, H, *card_limits(xw.device), xw.element_size())
         if rows is None:
             raise ValueError(f"no design-2 LSTM tile fits B {B}, H {H} on "
                              f"this card")
         bp = -(-B // rows) * rows
         # h between the steps, double-buffered, and the barriers' counters
-        hbuf = torch.empty((2, H, bp), dtype=xw.dtype, device=xw.device)
         counters = torch.zeros(bp // rows, dtype=torch.int32,
                                device=xw.device)
-        rc = lib.dl4j_lstm_fwd_persistent(
-            *args, hbuf.data_ptr(), counters.data_ptr(), T, B, H, rows,
-            int(with_residuals), _stream(xw.device))
-    else:
+        if bf16:
+            # [2, Bp, H rounded up to 16]: the pad is the product's zero K
+            hbuf = torch.zeros((2, bp, -(-H // 16) * 16), dtype=xw.dtype,
+                               device=xw.device)
+            rc = lib.dl4j_lstm_fwd_persistent_bf16(
+                *args, hbuf.data_ptr(), counters.data_ptr(), T, B, H, rows,
+                int(with_residuals), _stream(xw.device))
+        else:
+            hbuf = torch.empty((2, H, bp), dtype=xw.dtype, device=xw.device)
+            rc = lib.dl4j_lstm_fwd_persistent(
+                *args, hbuf.data_ptr(), counters.data_ptr(), T, B, H, rows,
+                int(with_residuals), _stream(xw.device))
+    elif design == "cluster":
         rc = lib.dl4j_lstm_fwd(*args, T, B, H, int(with_residuals),
                                DTYPES[xw.dtype], _stream(xw.device))
-    name = "lstm_fwd" if with_residuals else "lstm_fwd_inference"
+    else:
+        raise ValueError(f"no LSTM forward design {design!r}")
     cuda_build.check(lib, rc, f"{name} ({design}, {xw.dtype})")
     _count(name, design, bf16)
     return hs, cs, gates, hT, cT
 
 
-def _bf16_design(x, design: str, want: str) -> bool:
-    """True for a bfloat16 launch, which only `want` (design 1) takes."""
+def _bf16_design(x, design: str, kernel: str) -> bool:
+    """True for a bfloat16 launch of `kernel`, which takes only its
+    designs of `BF16_DESIGNS`."""
     if x.dtype != torch.bfloat16:
         return False
-    if design != want:
-        raise ValueError(f"the bfloat16 LSTM kernels run design {want!r}, "
-                         f"not {design!r}")
+    if design not in BF16_DESIGNS[kernel]:
+        raise ValueError(f"the bfloat16 {kernel} kernel runs designs "
+                         f"{BF16_DESIGNS[kernel]}, not {design!r}")
     return True
 
 
@@ -553,6 +682,16 @@ def _count(name: str, design: str, bf16: bool) -> None:
     sfx = "_bf16" if bf16 else ""
     LAUNCHES[name + sfx] += 1
     LAUNCHES_BY_DESIGN[(name, design + sfx)] += 1
+
+
+def _record(name: str, design: str, dtype) -> None:
+    """A wrapper's choice of design, on the metrics spine:
+    `kernel_dispatch_total{op="lstm", impl="<kernel>/<design>"}` (the
+    design with "_bf16" in bfloat16, as `LAUNCHES_BY_DESIGN` keys it)."""
+    from deeplearning4j_tpu_torch.ops.kernel_defaults import record_dispatch
+
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    record_dispatch("lstm", f"{name}/{design}{sfx}")
 
 
 def lstm_bwd(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT):
@@ -566,10 +705,12 @@ def lstm_bwd(rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT):
     _check_cuda(dict(hs=hs, rw=rw, p=p, mask=mask, cs=cs, gates=gates,
                      h0=h0, c0=c0, dhs=dhs, dhT=dhT, dcT=dcT))
     design = b2c_design(T, B, H, *card_limits(hs.device), hs.dtype)
+    w_design = b2c_weights_design(H, hs.dtype)
+    _record("lstm_bwd", design, hs.dtype)
+    _record("lstm_bwd_weights", w_design, hs.dtype)
     dxw, dh0, dc0, dp_part = launch_bwd_recurrence(
         rw, p, mask, cs, gates, c0, dhs, dhT, dcT, design)
-    drw, dp = launch_bwd_weights(hs, h0, dxw, dp_part,
-                                 b2c_weights_design(hs.dtype))
+    drw, dp = launch_bwd_weights(hs, h0, dxw, dp_part, w_design)
     return dxw, dh0, dc0, drw, dp
 
 
@@ -585,7 +726,7 @@ def launch_bwd_recurrence(rw, p, mask, cs, gates, c0, dhs, dhT, dcT,
     lib = cuda_build.library("lstm")
     T, B, H = cs.shape
     dev = cs.device
-    bf16 = _bf16_design(cs, design, "cluster")
+    bf16 = _bf16_design(cs, design, "lstm_bwd")
     new = lambda *s: torch.empty(s, dtype=cs.dtype, device=dev)  # noqa
     dxw, dh0, dc0 = new(T, B, 4 * H), new(B, H), new(B, H)
     if design == "persistent":
@@ -628,14 +769,15 @@ def launch_bwd_recurrence(rw, p, mask, cs, gates, c0, dhs, dhT, dcT,
 def launch_bwd_weights(hs, h0, dxw, dp_part, design: str = "tiled"):
     """The weight-gradient launch of B2c alone, on checked CUDA tensors,
     in `design` (the wrapper's `b2c_weights_design`: "pipelined" in
-    float32, "tiled" in bfloat16, which runs design 1 only): returns
-    (dRW [H, 4H], dP [3, H])."""
+    float32, "wgmma" in bfloat16 where H is a multiple of 8, else
+    "tiled"; `chip_smoke.py` also times "tiled" beside the others):
+    returns (dRW [H, 4H], dP [3, H])."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("lstm")
     T, B, H = hs.shape
     dev = hs.device
-    bf16 = _bf16_design(hs, design, "tiled")
+    bf16 = _bf16_design(hs, design, "lstm_bwd_weights")
     drw = torch.empty((H, 4 * H), dtype=hs.dtype, device=dev)
     dp = torch.empty((3, H), dtype=hs.dtype, device=dev)
     args = (hs.data_ptr(), h0.data_ptr(), dxw.data_ptr(), dp_part.data_ptr(),
@@ -653,6 +795,16 @@ def launch_bwd_weights(hs, h0, dxw, dp_part, design: str = "tiled"):
             *args, None if part is None else part.data_ptr(),
             counters.data_ptr(), T, B, H, dp_part.shape[0], splits,
             _stream(dev))
+    elif design == "wgmma":
+        if H % 8:
+            raise ValueError(f"the wgmma LSTM weight product takes H a "
+                             f"multiple of 8 (16-byte TMA rows); got {H}")
+        # the slices of a tile of dRW are one cluster, which adds their
+        # float32 sums in slice order in shared memory
+        splits = b2c_wgmma_splits(T, B, H, card_limits(dev)[0],
+                                  wgmma_clusters(dev))
+        rc = lib.dl4j_lstm_bwd_weights_wgmma(
+            *args, T, B, H, dp_part.shape[0], splits, _stream(dev))
     elif design == "tiled":
         rc = lib.dl4j_lstm_bwd_weights(*args, T, B, H, dp_part.shape[0],
                                        DTYPES[hs.dtype], _stream(dev))

@@ -844,10 +844,21 @@ def test_cuda_lstm_refuses_what_the_kernels_do_not_take(cuda_device):
                     mask.half())
     with pytest.raises(TypeError):
         lk.lstm_fwd(xw.bfloat16(), rw, p, h0, c0, mask)
-    with pytest.raises(ValueError, match="design 'cluster'"):
-        lk.launch_fwd(xw.bfloat16(), rw.bfloat16(), p.bfloat16(),
-                      h0.bfloat16(), c0.bfloat16(), mask.bfloat16(),
-                      design="persistent")
+    # bfloat16 has no design 2 of B2c's recurrence and no "pipelined"
+    # weight product
+    b16 = [t.bfloat16() for t in (xw, rw, p, h0, c0, mask)]
+    hs, cs, gates, _, _ = lk.lstm_fwd_plain(*b16)
+    with pytest.raises(ValueError, match="runs designs"):
+        lk.launch_bwd_recurrence(b16[1], b16[2], b16[5], cs, gates, b16[4],
+                                 hs, b16[3], b16[4], "persistent")
+    dp_part = torch.zeros(1, 3, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="runs designs"):
+        lk.launch_bwd_weights(hs, b16[3], torch.zeros_like(b16[0]), dp_part,
+                              "pipelined")
+    with pytest.raises(ValueError, match="runs designs"):
+        lk.launch_fwd(*b16, design="wgmma")
+    with pytest.raises(ValueError, match="no LSTM forward design"):
+        lk.launch_fwd(xw, rw, p, h0, c0, mask, design="wgmma")
     with pytest.raises(ValueError):
         lk.lstm_fwd(xw.transpose(0, 1).contiguous().transpose(0, 1), rw, p,
                     h0, c0, mask)
@@ -861,20 +872,24 @@ def test_cuda_lstm_refuses_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.parametrize("T,B,H", LSTM_SHAPES,
                          ids=[f"T{t}B{b}H{h}" for t, b, h in LSTM_SHAPES])
 def test_cuda_b2_bf16_matches_plain(cuda_device, T, B, H, masked):
-    """bfloat16 B2a/B2b/B2c (design 1) against their plain versions on
-    the same bfloat16 inputs run on the CPU (JAX's arithmetic bit for
-    bit), peepholes on: the outputs held by `ops/lstm.bf16_check`, B2b
+    """bfloat16 B2a/B2b/B2c, each launch in the design its wrapper picks
+    (the forward by `b2_design`, the weight product by
+    `b2c_weights_design`), against their plain versions on the same
+    bfloat16 inputs run on the CPU (JAX's arithmetic bit for bit),
+    peepholes on: the outputs held by `ops/lstm.bf16_check`, B2b
     bit-equal to B2a, dRW and dP within contract C13's bound
     (`c13_bound`) of the plain running sum on the kernel's own dxw."""
     ins = [t.bfloat16() for t in _lstm_inputs(cuda_device, T, B, H, True,
                                               masked, seed=6)]
+    design = lk.b2_design(T, B, H, *lk.card_limits(cuda_device),
+                          torch.bfloat16) + "_bf16"
+    w_design = lk.b2c_weights_design(H, torch.bfloat16) + "_bf16"
     before = dict(lk.LAUNCHES_BY_DESIGN)
     got = lk.lstm_fwd(*ins, with_residuals=True)
     inf = lk.lstm_fwd(*ins, with_residuals=False)
     ref = lk.lstm_fwd_plain(*[t.cpu() for t in ins], with_residuals=True)
     for k in ("lstm_fwd", "lstm_fwd_inference"):
-        assert lk.LAUNCHES_BY_DESIGN[(k, "cluster_bf16")] == \
-            before[(k, "cluster_bf16")] + 1
+        assert lk.LAUNCHES_BY_DESIGN[(k, design)] == before[(k, design)] + 1
     for name, a, b in zip(("hs", "cs", "gates", "hT", "cT"), got, ref):
         assert a.dtype == torch.bfloat16, name
         check = lk.bf16_check(name, a.cpu(), b)
@@ -896,8 +911,8 @@ def test_cuda_b2_bf16_matches_plain(cuda_device, T, B, H, masked):
     bound = lk.c13_bound(*wts)
     assert lk.LAUNCHES_BY_DESIGN[("lstm_bwd", "cluster_bf16")] == \
         before[("lstm_bwd", "cluster_bf16")] + 1
-    assert lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", "tiled_bf16")] == \
-        before[("lstm_bwd_weights", "tiled_bf16")] + 1
+    assert lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", w_design)] == \
+        before[("lstm_bwd_weights", w_design)] + 1
     for name, a, b in zip(("dxw", "dh0", "dc0"), gk, gr):
         check = lk.bf16_check(name, a, b)
         assert check[0], (name, check)
@@ -905,6 +920,159 @@ def test_cuda_b2_bf16_matches_plain(cuda_device, T, B, H, masked):
         err = (a.float() - b.float()).abs()
         assert bool((err <= lim).all()), (name, int((err > lim).sum()),
                                           float((err / lim).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", lk.DESIGNS)
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+@pytest.mark.parametrize("T,B,H", LSTM_SHAPES,
+                         ids=[f"T{t}B{b}H{h}" for t, b, h in LSTM_SHAPES])
+def test_cuda_b2ab_bf16_each_design_matches_plain(cuda_device, T, B, H,
+                                                  masked, design):
+    """Both bfloat16 forward designs launched by hand at every shape,
+    whichever `b2_design` picks there: B2a by `bf16_check` against the
+    plain version run on the CPU, B2b bit-equal to its common outputs;
+    design 2 ("persistent", the tensor-core grid) twice bit-equal."""
+    ins = [t.bfloat16() for t in _lstm_inputs(cuda_device, T, B, H, True,
+                                              masked, seed=9)]
+    before = dict(lk.LAUNCHES_BY_DESIGN)
+    got = lk.launch_fwd(*ins, with_residuals=True, design=design)
+    inf = lk.launch_fwd(*ins, with_residuals=False, design=design)
+    again = lk.launch_fwd(*ins, with_residuals=True, design=design)
+    ref = lk.lstm_fwd_plain(*[t.cpu() for t in ins], with_residuals=True)
+    for k, n in (("lstm_fwd", 2), ("lstm_fwd_inference", 1)):
+        key = (k, design + "_bf16")
+        assert lk.LAUNCHES_BY_DESIGN[key] == before[key] + n
+    for name, a, b in zip(("hs", "cs", "gates", "hT", "cT"), got, ref):
+        assert a.dtype == torch.bfloat16, name
+        check = lk.bf16_check(name, a.cpu(), b)
+        assert check[0], (name, check)
+    assert torch.equal(got[0], inf[0]) and torch.equal(got[3], inf[3]) \
+        and torch.equal(got[4], inf[4])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _bf16_weight_inputs(dev, T, B, H, seed):
+    """hs, h0, dxw, cs, c0 (bfloat16: the plain forward's residuals and
+    a seeded dxw) and two batch tiles' float32 dP partials, on the
+    card."""
+    ins = [t.bfloat16() for t in _lstm_inputs(dev, T, B, H, True, True,
+                                              seed=seed)]
+    hs, cs, _, _, _ = lk.lstm_fwd_plain(*ins)
+    g = torch.Generator().manual_seed(seed + 1)
+    dxw = (0.1 * torch.randn(T, B, 4 * H, generator=g)).to(dev,
+                                                           torch.bfloat16)
+    dp_part = torch.randn(2, 3, H, generator=g).to(dev)
+    return hs, ins[3], dxw, cs, ins[4], dp_part
+
+
+# every LSTM shape whose H is a multiple of 8, path_l's, path_g's chunk
+# and lstm_parity_bf16's, and a batch past one K tile of h0
+B2C_WGMMA_SHAPES = [(t, b, h) for t, b, h in LSTM_SHAPES if h % 8 == 0] + [
+    (128, 64, 512), (50, 32, 256), (32, 8, 512), (9, 70, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["tiled", "wgmma"])
+@pytest.mark.parametrize("T,B,H", B2C_WGMMA_SHAPES,
+                         ids=[f"T{t}B{b}H{h}" for t, b, h in B2C_WGMMA_SHAPES])
+def test_cuda_b2c_bf16_weight_designs_hold_c13(cuda_device, T, B, H, design):
+    """Both bfloat16 weight products by hand: dRW within contract C13's
+    bound of the plain running sum (`c13_bound`) and within a bfloat16
+    step plus two float32 sums' error (`weights_f32_err`) of the plain
+    version's own arithmetic (for "wgmma" its slices,
+    `lstm_weights_plain(..., slices=b2c_wgmma_slices(...))`); dP, which
+    the launch reduces from the recurrence's partials, the partials
+    added in tile order and rounded once; two launches bit-equal."""
+    hs, h0, dxw, cs, c0, dp_part = _bf16_weight_inputs(cuda_device, T, B, H,
+                                                       seed=T + B)
+    before = lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", design + "_bf16")]
+    got = lk.launch_bwd_weights(hs, h0, dxw, dp_part, design)
+    again = lk.launch_bwd_weights(hs, h0, dxw, dp_part, design)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", design + "_bf16")] \
+        == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    wts = [t.cpu() for t in (hs, h0, dxw, cs, c0)]
+    run = lk.lstm_weights_plain(*wts)
+    slices = None
+    if design == "wgmma":
+        sms = lk.card_limits(cuda_device)[0]
+        splits = lk.b2c_wgmma_splits(T, B, H, sms,
+                                     lk.wgmma_clusters(cuda_device))
+        slices = lk.b2c_wgmma_slices(T, B, splits)
+    mine = lk.lstm_weights_plain(*wts, running=False, slices=slices)
+    a = got[0].cpu().float()
+    err = (a - run[0].float()).abs()
+    bnd = lk.c13_bound(*wts)[0]
+    assert bool((err <= bnd).all()), int((err > bnd).sum())
+    o = mine[0].float()
+    f32 = lk.weights_f32_err(*wts)[0]
+    assert bool(((a - o).abs() <= lk.BF16_STEP * o.abs() + 2 * f32).all())
+    assert torch.equal(got[1], (dp_part[0] + dp_part[1]).bfloat16())
+
+
+# path_l_bf16's shape, path_g's chunk and lstm_parity_bf16's
+B2_BF16_DESIGN_2_SHAPES = [(128, 64, 512), (50, 32, 256), (32, 8, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", B2_BF16_DESIGN_2_SHAPES,
+                         ids=[f"T{t}B{b}H{h}"
+                              for t, b, h in B2_BF16_DESIGN_2_SHAPES])
+def test_cuda_b2_bf16_takes_design_2_on_the_paths_shapes(cuda_device, T, B,
+                                                         H):
+    """On the bfloat16 recurrent paths' shapes the wrappers run the
+    forward on "persistent_bf16" and B2c on "cluster_bf16" +
+    "wgmma_bf16", never design 1 of the forward or "tiled", and say so
+    in `kernel_dispatch_total{op="lstm"}`; two calls bit-equal; the
+    outputs held as in `test_cuda_b2_bf16_matches_plain`."""
+    from deeplearning4j_tpu_torch.observe import get_registry
+
+    ins = [t.bfloat16() for t in _lstm_inputs(cuda_device, T, B, H, True,
+                                              True, seed=T)]
+    sms, smem = lk.card_limits(cuda_device)
+    assert lk.b2_design(T, B, H, sms, smem, torch.bfloat16) == "persistent"
+    assert lk.b2c_weights_design(H, torch.bfloat16) == "wgmma"
+    chosen = {impl: get_registry().counter("kernel_dispatch_total",
+                                           op="lstm", impl=impl)
+              for impl in ("lstm_fwd/persistent_bf16",
+                           "lstm_bwd/cluster_bf16",
+                           "lstm_bwd_weights/wgmma_bf16")}
+    seen = {k: c.value for k, c in chosen.items()}
+    lk.reset_counts()
+    got = lk.lstm_fwd(*ins, with_residuals=True)
+    again = lk.lstm_fwd(*ins, with_residuals=True)
+    ref = lk.lstm_fwd_plain(*[t.cpu() for t in ins], with_residuals=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for name, a, b in zip(("hs", "cs", "gates", "hT", "cT"), got, ref):
+        check = lk.bf16_check(name, a.cpu(), b)
+        assert check[0], (name, check)
+    g = torch.Generator().manual_seed(T + 1)
+    dhs, dhT, dcT = (torch.randn(*s, generator=g).to(cuda_device,
+                                                      torch.bfloat16)
+                     for s in ((T, B, H), (B, H), (B, H)))
+    rw, p, h0, c0, mask = ins[1], ins[2], ins[3], ins[4], ins[5]
+    hs, cs, gates = (t.to(cuda_device) for t in ref[:3])
+    bw = (rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT)
+    gk = lk.lstm_bwd(*bw)
+    gk2 = lk.lstm_bwd(*bw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(gk, gk2))
+    assert lk.LAUNCHES_BY_DESIGN == {
+        **{k: 0 for k in lk.LAUNCHES_BY_DESIGN},
+        ("lstm_fwd", "persistent_bf16"): 2, ("lstm_bwd", "cluster_bf16"): 2,
+        ("lstm_bwd_weights", "wgmma_bf16"): 2}
+    # the wrappers' choices on the metrics spine
+    assert {k: c.value - seen[k] for k, c in chosen.items()} == {
+        k: 2 for k in chosen}
+    host = [t.cpu() for t in bw]
+    wts = (host[3], host[6], gk[0].cpu(), host[4], host[7])
+    for name, a, b, lim in zip(("dRW", "dP"), gk[3:],
+                               lk.lstm_weights_plain(*wts),
+                               lk.c13_bound(*wts)):
+        err = (a.cpu().float() - b.float()).abs()
+        assert bool((err <= lim).all()), (name, int((err > lim).sum()))
 
 
 def _lstm_session_net(dev):

@@ -24,6 +24,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "torch_b5_phases.py",
     ROOT / "tools" / "torch_b4_exp_forms.py",
     ROOT / "tools" / "torch_b2c_phases.py",
+    ROOT / "tools" / "torch_b2_bf16_phases.py",
     ROOT / "tools" / "torch_lstm_graph.py",
     ROOT / "tools" / "torch_c10_lenet.py",
     ROOT / "tools" / "torch_http_probe.py"]

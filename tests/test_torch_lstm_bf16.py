@@ -189,14 +189,20 @@ def test_plain_bf16_misses_a_step_against_itself_in_another_sum_order():
 
 
 def test_bf16_runs_design_1_and_other_dtypes_are_refused():
+    """bfloat16 keeps design 1 where design 2 does not apply: a sequence
+    shorter than PERSISTENT_MIN_STEPS, B2c's recurrence at every shape,
+    the weight product where H is no multiple of 8; each bf16 kernel
+    refuses a design it does not have; float16 and mixed dtypes are
+    refused."""
     for T, B, H in ((128, 64, 512), (50, 32, 256), (1, 32, 256)):
-        assert lk.b2_design(T, B, H, 132, 232448, torch.bfloat16) == \
-            "cluster"
         assert lk.b2c_design(T, B, H, 132, 232448, torch.bfloat16) == \
             "cluster"
+    for T, B, H in ((1, 32, 256), (7, 5, 37)):
+        assert lk.b2_design(T, B, H, 132, 232448, torch.bfloat16) == \
+            "cluster"
     assert lk.b2_design(128, 64, 512, 132, 232448) == "persistent"
-    assert lk.b2c_weights_design(torch.bfloat16) == "tiled"
-    assert lk.b2c_weights_design(torch.float32) == "pipelined"
+    assert lk.b2c_weights_design(37, torch.bfloat16) == "tiled"
+    assert lk.b2c_weights_design(37, torch.float32) == "pipelined"
     z = torch.zeros(4, 4)
     lk._check_cuda(dict(a=z, b=z))
     lk._check_cuda(dict(a=z.bfloat16(), b=z.bfloat16()))
@@ -204,9 +210,172 @@ def test_bf16_runs_design_1_and_other_dtypes_are_refused():
         lk._check_cuda(dict(a=z.half(), b=z.half()))
     with pytest.raises(TypeError, match="one dtype a call"):
         lk._check_cuda(dict(a=z.bfloat16(), b=z))
-    with pytest.raises(ValueError, match="design 'cluster'"):
-        lk._bf16_design(z.bfloat16(), "persistent", "cluster")
-    assert not lk._bf16_design(z, "persistent", "cluster")
+    with pytest.raises(ValueError, match="runs designs"):
+        lk._bf16_design(z.bfloat16(), "persistent", "lstm_bwd")
+    with pytest.raises(ValueError, match="runs designs"):
+        lk._bf16_design(z.bfloat16(), "pipelined", "lstm_bwd_weights")
+    assert lk._bf16_design(z.bfloat16(), "persistent", "lstm_fwd")
+    assert lk._bf16_design(z.bfloat16(), "wgmma", "lstm_bwd_weights")
+    assert not lk._bf16_design(z, "persistent", "lstm_bwd")
+
+
+H100 = (132, 232448)      # SMs, shared-memory bytes a block may ask for
+SMALL_CARD = (64, 232448)
+
+
+# (T, B, H, the forward's design on an H100, on a 64-SM card, the weight
+# product's design)
+BF16_DESIGN_CASES = [
+    (128, 64, 512, "persistent", "cluster", "wgmma"),   # path_l_bf16
+    (50, 32, 256, "persistent", "persistent", "wgmma"),  # path_g's chunks
+    (32, 8, 512, "persistent", "persistent", "wgmma"),   # lstm_parity_bf16
+    (lk.PERSISTENT_MIN_STEPS, 32, 256, "persistent", "persistent",
+     "wgmma"),
+    (1, 32, 256, "cluster", "cluster", "wgmma"),         # rnn_time_step
+    (7, 5, 37, "cluster", "cluster", "tiled"),           # H % 8 != 0
+    (40, 6, 100, "persistent", "persistent", "tiled"),
+    (12, 3, 8, "persistent", "persistent", "wgmma"),
+    (128, 64, 1024, "cluster", "cluster", "wgmma"),      # no tile fits
+]
+
+
+@pytest.mark.parametrize("T,B,H,big,small,weights", BF16_DESIGN_CASES,
+                         ids=[f"T{c[0]}B{c[1]}H{c[2]}"
+                              for c in BF16_DESIGN_CASES])
+def test_bf16_design_by_shape(T, B, H, big, small, weights):
+    """Which design takes a bfloat16 call, by shape and card: the forward
+    (one rule for B2a and B2b) on design 2 from PERSISTENT_MIN_STEPS
+    steps where a bfloat16 tile fits (`b2_rows` with esize 2), the
+    recurrence of B2c on design 1, the weight product on "wgmma" where H
+    is a multiple of 8."""
+    assert lk.b2_design(T, B, H, *H100, torch.bfloat16) == big
+    assert lk.b2_design(T, B, H, *SMALL_CARD, torch.bfloat16) == small
+    for card in (H100, SMALL_CARD):
+        assert lk.b2c_design(T, B, H, *card, torch.bfloat16) == "cluster"
+    assert lk.b2c_weights_design(H, torch.bfloat16) == weights
+    assert lk.b2c_weights_design(H) == "pipelined"
+
+
+def _bf16_smem(B, H, rows):
+    """The bfloat16 design 2's shared memory (`csrc/lstm.cu`
+    `persist::bf16_smem_bytes`): the strip [NC][row] and the h tile
+    [BR][row] in bfloat16, row = H rounded up to 16 plus 8, and the
+    rounded products [BR][NC] float32."""
+    nc, row = 1024 // rows, -(-H // 16) * 16 + 8
+    return 2 * row * (nc + rows) + 4 * rows * nc
+
+
+@pytest.mark.parametrize("B,H,rows", [
+    (64, 512, 8),         # path_l_bf16: 8 x 16 blocks (float32 needs 16)
+    (32, 256, 8),
+    (8, 512, 8),          # lstm_parity_bf16
+    (4, 1024, 16),        # 8 rows would need 284,800 bytes
+    (5, 37, 8),
+    (64, 1024, None),     # 256 blocks at every tile: past 132 SMs
+    (128, 512, None),
+])
+def test_bf16_rows_follow_the_element_size(B, H, rows):
+    """`b2_rows(..., esize=2)`: the smallest tile whose grid fits the
+    SMs and whose bfloat16 strip, h tile and float32 products fit a
+    block's shared memory; a smaller tile does not fit; at most the
+    float32 tile wherever both fit."""
+    assert lk.b2_rows(B, H, *H100, 2) == rows
+    for r in lk.PERSISTENT_ROWS:
+        fits = (-(-B // r) * -(-H // (256 // r)) <= H100[0]
+                and _bf16_smem(B, H, r) <= H100[1])
+        if rows is None or r < rows:
+            assert not fits, r
+        elif r == rows:
+            assert fits
+    f32 = lk.b2_rows(B, H, *H100)
+    assert f32 is None or (rows is not None and rows <= f32)
+
+
+@pytest.mark.parametrize("T,B,H,sms,splits", [
+    (128, 64, 512, 132, 4),     # path_l_bf16: 32 tiles of dRW x 4 slices
+    (50, 32, 256, 132, 6),      # 26 K tiles: 5 a slice
+    (32, 8, 512, 132, 1),       # lstm_parity_bf16: 5 K tiles
+    (128, 64, 512, 64, 2),
+    (128, 64, 1024, 132, 1),    # 128 tiles of dRW fill the card alone
+])
+def test_wgmma_splits_and_slices_cover_k_once(T, B, H, sms, splits):
+    """`b2c_wgmma_splits` (one block a SM, at least 4 K tiles a slice, no
+    slice empty) and `b2c_wgmma_slices`: the slices cover the T·B rows of
+    hprev once, in order, each cut where a K tile ends (h0's B rows first,
+    then hs's in tiles of WGMMA_DEPTH)."""
+    assert lk.b2c_wgmma_splits(T, B, H, sms) == splits
+    tiles = -(-H // lk.WGMMA_TILE[0]) * -(-4 * H // lk.WGMMA_TILE[1])
+    assert splits == 1 or tiles * splits <= sms
+    slices = lk.b2c_wgmma_slices(T, B, splits)
+    assert len(slices) == splits
+    assert slices[0][0] == 0 and slices[-1][1] == T * B
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    assert all(k1 > k0 for k0, k1 in slices)
+    ends = {min(lk.WGMMA_DEPTH * i, B) for i in range(1, B + 1)} | {
+        B + lk.WGMMA_DEPTH * j for j in range(T * B)}
+    assert all(k1 in ends or k1 == T * B for _, k1 in slices)
+
+
+@pytest.mark.parametrize("T,B,H,splits", [(12, 4, 16, 2), (24, 3, 8, 3),
+                                          (9, 70, 8, 4)],
+                         ids=["T12B4", "T24B3", "T9B70"])
+def test_wgmma_sliced_sum_holds_c13_against_the_pallas_backward(T, B, H,
+                                                                splits):
+    """The "wgmma" weight product's arithmetic (`lstm_weights_plain` with
+    `slices`: each K slice summed in float32, the slices added in slice
+    order, rounded once) on JAX's dxw, against the Pallas backward's
+    running bfloat16 dRW in interpret mode: within `c13_bound`, and the
+    slices' order parts from one float32 sum by no more than two float32
+    sums' error (`weights_f32_err`) before rounding. B 70 straddles a K
+    tile of 64 rows in h0."""
+    jin, (dhs, dhT, dcT) = _inputs(T, B, H, seed=5)
+    xw, rw, p, h0, c0, mask = jin
+    hs, cs, gates, _, _ = _run_forward(*jin, interpret=True)
+    want = _run_backward((rw, p, mask, hs, cs, gates, h0, c0), dhs, dhT,
+                         dcT, interpret=True)
+    wts = [_t(a) for a in (hs, h0, want[0], cs, c0)]
+    slices = lk.b2c_wgmma_slices(T, B, splits)
+    assert len(slices) == splits
+    got = lk.lstm_weights_plain(*wts, slices=slices)
+    once = lk.lstm_weights_plain(*wts, running=False)
+    bound = lk.c13_bound(*wts)
+    for name, g, w, b in zip(("dRW", "dP"), got, want[3:], bound):
+        assert g.dtype == torch.bfloat16, name
+        w = torch.from_numpy(np.array(w.astype(jnp.float32)))
+        err = (g.float() - w).abs()
+        assert torch.all(err <= b), name
+    assert torch.equal(got[1], once[1])     # dP does not slice
+    f32 = lk.weights_f32_err(*wts)[0]
+    hp = torch.cat([wts[1][None], wts[0][:-1]]).float().reshape(T * B, H)
+    d = wts[2].float().reshape(T * B, 4 * H)
+    sliced = sum((hp[a:b].T @ d[a:b] for a, b in slices[1:]),
+                 hp[slices[0][0]:slices[0][1]].T @ d[slices[0][0]:
+                                                     slices[0][1]])
+    assert torch.all((sliced - hp.T @ d).abs() <= 2 * f32)
+    assert torch.equal(got[0], sliced.bfloat16())
+
+
+def test_bf16_design_2_counts_have_their_own_keys_and_stay_zero_on_cpu():
+    """The bfloat16 design-2 launches count under keys of their own,
+    beside design 1's; on the CPU (the plain versions) nothing is
+    counted, at a shape where a card would run design 2."""
+    assert {("lstm_fwd", "persistent_bf16"),
+            ("lstm_fwd_inference", "persistent_bf16"),
+            ("lstm_bwd_weights", "wgmma_bf16"),
+            ("lstm_fwd", "cluster_bf16"),
+            ("lstm_bwd_weights", "tiled_bf16")} <= set(lk.LAUNCHES_BY_DESIGN)
+    assert ("lstm_bwd", "persistent_bf16") not in lk.LAUNCHES_BY_DESIGN
+    lk.LAUNCHES_BY_DESIGN[("lstm_fwd", "persistent_bf16")] = 3
+    lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", "wgmma_bf16")] = 3
+    lk.reset_counts()
+    jin, _ = _inputs(lk.PERSISTENT_MIN_STEPS, 3, 8)
+    tin = [_t(a).requires_grad_(i < 5) for i, a in enumerate(jin)]
+    hs, _, _ = lk.fused_lstm(*tin)
+    torch.autograd.grad(hs.float().sum(), tin[:5])
+    with torch.no_grad():
+        lk.fused_lstm(*tin)
+    assert set(lk.LAUNCHES.values()) == {0}
+    assert set(lk.LAUNCHES_BY_DESIGN.values()) == {0}
 
 
 def test_bf16_counts_have_their_own_keys_and_stay_zero_on_cpu():
