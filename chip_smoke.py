@@ -1561,15 +1561,19 @@ def run_lstm_bf16_case(c, flush, gen):
     gates different at all); B2b bit-equal to B2a's common outputs. Where
     design 2 runs, design 1 is held to the same check and timed on the
     same inputs, and design 2 is launched twice for bit-equal outputs.
-    The backward from the CPU's residuals: the recurrence
-    ("cluster_bf16") by `bf16_check` (2^-4 of the largest magnitude, at
-    most 2^-3 of dxw different); dRW and dP on the kernel's own dxw in the
-    design `b2c_weights_design` picks ("wgmma_bf16" where H is a multiple
-    of 8, else "tiled_bf16") within contract C13's bound of the plain
-    running bfloat16 sum and a bfloat16 step of a float32 sum rounded
-    once (`bf16_weights_check`); where "wgmma" runs, "tiled" is held to
-    the same and timed on the same inputs, and "wgmma" launched twice
-    for bit-equal outputs. Times (cold L2) beside the bound at the
+    The backward from the CPU's residuals: the recurrence in the design
+    `b2c_design` picks ("persistent_bf16", the tensor-core grid, from T 8
+    where a tile fits; else "cluster_bf16") by `bf16_check` (2^-4 of the
+    largest magnitude, at most 2^-3 of dxw different); where design 2
+    runs, design 1 is held to the same check and timed on the same
+    inputs, and design 2 launched twice for bit-equal outputs. dRW and dP
+    on the kernel's own dxw and dP partials in the design
+    `b2c_weights_design` picks ("wgmma_bf16" where H is a multiple of 8,
+    else "tiled_bf16") within contract C13's bound of the plain running
+    bfloat16 sum and a bfloat16 step of a float32 sum rounded once
+    (`bf16_weights_check`); where "wgmma" runs, "tiled" is held to the
+    same and timed on the same inputs, and "wgmma" launched twice for
+    bit-equal outputs. Times (cold L2) beside the bound at the
     bfloat16 peak and element size, the plain versions' on the card at
     the main shape, and cuDNN's LSTM in bfloat16 (a yardstick the port
     never calls, with the input projection and no peepholes or mask) or,
@@ -1580,11 +1584,12 @@ def run_lstm_bf16_case(c, flush, gen):
     bf = torch.bfloat16
     T, B, H, F = c["T"], c["B"], c["H"], c["F"]
     design = lk.b2_design(T, B, H, *lk.card_limits(dev), bf)
+    r_design = lk.b2c_design(T, B, H, *lk.card_limits(dev), bf)
     w_design = lk.b2c_weights_design(H, bf)
     # the design each launch takes, and design 1 beside it where it does
     # not run
     designs = {"lstm_fwd": design, "lstm_fwd_inference": design,
-               "lstm_bwd": "cluster", "lstm_bwd_weights": w_design}
+               "lstm_bwd": r_design, "lstm_bwd_weights": w_design}
     others = {k: lk.BF16_DESIGNS[k][0] for k, d in designs.items()
               if d != lk.BF16_DESIGNS[k][0]}
 
@@ -1637,26 +1642,39 @@ def run_lstm_bf16_case(c, flush, gen):
     bw_host = [t.cpu() for t in bw]
     before = dict(lk.LAUNCHES_BY_DESIGN)
     gk = lk.lstm_bwd(*bw)
-    check(lk.LAUNCHES_BY_DESIGN[("lstm_bwd", "cluster_bf16")]
-          == before[("lstm_bwd", "cluster_bf16")] + 1
+    check(lk.LAUNCHES_BY_DESIGN[("lstm_bwd", r_design + "_bf16")]
+          == before[("lstm_bwd", r_design + "_bf16")] + 1
           and lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", w_design + "_bf16")]
           == before[("lstm_bwd_weights", w_design + "_bf16")] + 1,
-          f"lstm_bwd {tag}: not on cluster_bf16 + {w_design}_bf16")
+          f"lstm_bwd {tag}: not on {r_design}_bf16 + {w_design}_bf16")
     gr = lk.lstm_bwd_plain(*bw_host)
     gk_host = [t.cpu() for t in gk]
-    shares["bwd"] = {}
-    for name, a, b in zip(("dxw", "dh0", "dc0"), gk_host, gr):
-        ok, d, share = lk.bf16_check(name, a, b)
-        check(a.dtype == bf and ok, f"lstm_bwd {tag}: {name} err {d} "
-              f"(limit {lk.bf16_atol(name, b)}), {share} of it differs")
-        errs["bwd"] = max(errs.get("bwd", 0.0), d)
-        shares["bwd"][name] = share
-    # the weight launch on the kernel's own dxw, on the CPU
+
+    def bwd_check(outs, what):
+        e, sh = 0.0, {}
+        for name, a, b in zip(("dxw", "dh0", "dc0"), outs, gr):
+            a = a.cpu()
+            ok, d, share = lk.bf16_check(name, a, b)
+            check(a.dtype == bf and ok, f"lstm_bwd {tag} ({what}): {name} "
+                  f"err {d} (limit {lk.bf16_atol(name, b)}), {share} of it "
+                  f"differs")
+            e = max(e, d)
+            sh[name] = share
+        return e, sh
+
+    errs["bwd"], shares["bwd"] = bwd_check(gk_host, r_design)
+    # the weight launch on the kernel's own dxw and dP partials, on the CPU
     wts = (bw_host[3], bw_host[6], gk_host[0], bw_host[4], bw_host[7])
     c13, errs["weights"] = bf16_weights_check("lstm_bwd_weights", tag,
                                               gk_host[3:], wts)
     rec = lk.launch_bwd_recurrence(rw, p, mask, cs, gates, c0, dhs, dhT,
-                                   dcT, "cluster")
+                                   dcT, r_design)
+    if r_design == "persistent":
+        check(all(torch.equal(a, b) for a, b in zip(rec[:3], gk[:3])),
+              f"lstm_bwd {tag}: two persistent_bf16 launches differ")
+        errs["bwd_other"], shares["bwd_cluster"] = bwd_check(
+            lk.launch_bwd_recurrence(rw, p, mask, cs, gates, c0, dhs, dhT,
+                                     dcT, "cluster"), "cluster")
     if w_design == "wgmma":
         two = [lk.launch_bwd_weights(hs, h0, rec[0], rec[3], "wgmma")
                for _ in range(2)]
@@ -1731,10 +1749,12 @@ def run_lstm_bf16_case(c, flush, gen):
         if base == "lstm_bwd_weights" and d == "wgmma":
             row["splits"] = lk.b2c_wgmma_splits(
                 T, B, H, lk.card_limits(dev)[0], lk.wgmma_clusters(dev))
-        if base == "lstm_fwd":
-            row["share_differing"] = shares["fwd"]
-            if "fwd_cluster" in shares:
-                row["cluster_bf16_share_differing"] = shares["fwd_cluster"]
+        if base in ("lstm_fwd", "lstm_bwd"):
+            part = "fwd" if base == "lstm_fwd" else "bwd"
+            row["share_differing"] = shares[part]
+            if part + "_cluster" in shares:
+                row["cluster_bf16_share_differing"] = \
+                    shares[part + "_cluster"]
         emit(row)
         rows.append(row)
     return rows
@@ -3603,10 +3623,10 @@ def path_l_bf16(rng, epochs=3):
     """`path_l` in bfloat16: GravesLSTM(512) x 2, T 128, batch 64, its
     Nesterovs(0.01, 0.9) on bfloat16 leaves, 4 fixed batches (two
     masked) x 3 epochs = 12 steps through `net.fit` (`timed_fit`): B2a
-    and B2c in bfloat16 twice a step, the forward on design 2
-    ("persistent_bf16"), B2c's recurrence on design 1 ("cluster_bf16")
-    and its weight product on design 2 ("wgmma_bf16"), no float32 LSTM
-    launch, B1b once a step; then `output()`, B2b in bfloat16 twice on
+    and B2c in bfloat16 twice a step, the forward, B2c's recurrence
+    ("persistent_bf16" both, none on "cluster_bf16") and its weight
+    product ("wgmma_bf16") on design 2, no float32 LSTM launch, B1b once
+    a step; then `output()`, B2b in bfloat16 twice on
     "persistent_bf16"."""
     from deeplearning4j_tpu_torch.ops import lstm as lk
     from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
@@ -3631,10 +3651,11 @@ def path_l_bf16(rng, epochs=3):
           f"{launches['nesterov_update']} times, want one a step")
     by_design = launches_by_design(lk)
     check(by_design["lstm_fwd/persistent_bf16"] == 2 * steps
-          and by_design["lstm_bwd/cluster_bf16"] == 2 * steps
+          and by_design["lstm_bwd/persistent_bf16"] == 2 * steps
+          and by_design["lstm_bwd/cluster_bf16"] == 0
           and by_design["lstm_bwd_weights/wgmma_bf16"] == 2 * steps,
-          f"path_l_bf16: not on persistent_bf16, cluster_bf16 and "
-          f"wgmma_bf16: {by_design}")
+          f"path_l_bf16: not on persistent_bf16 (forward and recurrence) "
+          f"and wgmma_bf16: {by_design}")
     torch.cuda.synchronize()
     reset_all_counts()
     probs = net.output(batches[0].features)
@@ -5962,7 +5983,7 @@ def main() -> int:
             summary[-1].update(
                 {k: main_row[k] for k in main_row
                  if k in ("dtype", "design", "bound_share", "tflops")
-                 or k.endswith("_bf16_ms")
+                 or k.endswith("_bf16_ms") or k.endswith("share_differing")
                  or k.startswith("speedup_over_")},
                 launches_by_design={
                     d + "_bf16": by[f"{base}/{d}_bf16"]

@@ -16,6 +16,10 @@
 //   persist::lstm_fwd_persistent_bf16_kernel<BR, RESID> — design 2 of
 //     B2a and B2b in bfloat16, the float32 design 2 with its product on
 //     the tensor cores (`mma.sync`), below the float32 one.
+//   persist::lstm_bwd_persistent_bf16_kernel<BR> — design 2 of B2c's
+//     recurrence in bfloat16: the float32 design 2's grid and exchange
+//     with a bfloat16 strip of RW and the product on `mma.sync`, below
+//     the float32 backward's design 2.
 //   wg::lstm_drw_wgmma_kernel — design 2 of B2c's weight launch in
 //     bfloat16: dRW on the tensor cores (`wgmma` fed by TMA), last.
 //
@@ -94,8 +98,8 @@
 // against the host's, lands on the other side of a bfloat16 rounding. dRW
 // and dP are float32 sums rounded once, where the Pallas kernel keeps a
 // running bfloat16 sum over T: contract C13 (ROADMAP §C) bounds the
-// difference. ops/lstm.py `b2_design` and `b2c_weights_design` choose by
-// shape, as for float32; the recurrence of B2c stays on design 1.
+// difference. ops/lstm.py `b2_design`, `b2c_design` and
+// `b2c_weights_design` choose by shape, as for float32.
 //
 // Design 2 of the bfloat16 forward (`persist::lstm_fwd_persistent_bf16_
 // kernel`) keeps the float32 design 2's grid, resident strip, double-
@@ -113,6 +117,15 @@
 // chains deep, so the step waits on H / 64 dependent products and not on
 // the tensor cores' rate. What bounds a step is its latency: the h copy,
 // the product, the cell, the barrier.
+//
+// Design 2 of the bfloat16 recurrence (`persist::lstm_bwd_persistent_
+// bf16_kernel`) does the same for B2c's reverse-time step, replacing
+// design 1's float32 copy of RW^T streamed from L2 every step by 64
+// blocks: the strip stays resident in bfloat16, as RW lies (the A operand
+// of `mma.sync` with k as M), the step's BR x H partial of dgates RW^T
+// runs on the tensor cores, and the partials meet through L2 at one
+// counter barrier a step. A step is latency: the cell, the product, the
+// barrier, the exchange.
 //
 // Design 2 of the bfloat16 weight product (`wg::lstm_drw_wgmma_kernel`)
 // replaces design 1's float32 FFMA on 2-byte loads (`lstm_drw_kernel`,
@@ -466,6 +479,53 @@ lstm_fwd_kernel(const E* __restrict__ xw, const float* __restrict__ rw,
 }
 
 // ----------------------------------------------------------------- backward
+// what the cell of (b, j) reads at step t: the gates, c_t, c_{t-1} (c0 at
+// t = 0), the output's cotangent and the mask; zeros outside the shape
+struct Resid {
+  float i, f, g, o, c, cp, dho, m;
+};
+
+// One cell's step of the backward: from the residuals r and the carried
+// dh and dc, the gate gradients dg (i, f, g, o), the next dc, the step's
+// peephole terms added into dpa; returns the mask's pass-through of dh.
+// Each operation is rounded to E in the order the plain version
+// (lstm_bwd_plain) writes it; in float32 rnd is nothing.
+template <typename E>
+__device__ __forceinline__ float cell_bwd(const Resid& r, float dh,
+                                          float& dc, float p0, float p1,
+                                          float p2, float (&dg)[4],
+                                          float (&dpa)[3]) {
+  const float keep = rnd<E>(1.0f - r.m);
+  const float dh_in = rnd<E>(r.dho + dh);
+  const float dh_t = rnd<E>(r.m * dh_in);
+  const float pass_h = rnd<E>(keep * dh_in);
+  const float tanh_c = rnd<E>(tanhf(r.c));
+  const float do_pre = rnd<E>(rnd<E>(rnd<E>(dh_t * tanh_c) * r.o)
+                              * rnd<E>(1.0f - r.o));
+  const float dc_new = rnd<E>(
+      rnd<E>(rnd<E>(r.m * dc)
+             + rnd<E>(rnd<E>(dh_t * r.o)
+                      * rnd<E>(1.0f - rnd<E>(tanh_c * tanh_c))))
+      + rnd<E>(do_pre * p2));
+  const float di_pre = rnd<E>(rnd<E>(rnd<E>(dc_new * r.g) * r.i)
+                              * rnd<E>(1.0f - r.i));
+  const float df_pre = rnd<E>(rnd<E>(rnd<E>(dc_new * r.cp) * r.f)
+                              * rnd<E>(1.0f - r.f));
+  const float dg_pre = rnd<E>(rnd<E>(dc_new * r.i)
+                              * rnd<E>(1.0f - rnd<E>(r.g * r.g)));
+  dc = rnd<E>(rnd<E>(rnd<E>(rnd<E>(dc_new * r.f) + rnd<E>(keep * dc))
+                     + rnd<E>(di_pre * p0))
+              + rnd<E>(df_pre * p1));
+  dpa[0] += di_pre * r.cp;
+  dpa[1] += df_pre * r.cp;
+  dpa[2] += do_pre * r.c;
+  dg[0] = di_pre;
+  dg[1] = df_pre;
+  dg[2] = dg_pre;
+  dg[3] = do_pre;
+  return pass_h;
+}
+
 // rwT is RW transposed, [4H, H], float32 for every E; dp_part is float32
 // [batch tiles, 3, H], one partial of dP a cluster, summed afterwards in
 // tile order. In bfloat16 the step's arithmetic rounds where the Pallas
@@ -530,61 +590,34 @@ lstm_bwd_kernel(const E* __restrict__ dhs, const E* __restrict__ gates,
 #pragma unroll
     for (int pi = 0; pi < 2; ++pi) {
       const int row = b0 + 2 * rp + pi;
-      float ig = 0.f, fg = 0.f, gg = 0.f, og = 0.f, c_t = 0.f, c_prev = 0.f,
-            dh_o = 0.f, m = 0.f;
+      Resid r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       const bool ok = col_ok && row < B;
       if (ok) {
         const size_t at = ((size_t)t * B + row) * H + j;
         const E* gt = gates + ((size_t)t * B + row) * H4 + j;
-        ig = Elt<E>::ld(gt[0]);
-        fg = Elt<E>::ld(gt[H]);
-        gg = Elt<E>::ld(gt[2 * H]);
-        og = Elt<E>::ld(gt[3 * H]);
-        c_t = ldf(cs, at);
+        r.i = Elt<E>::ld(gt[0]);
+        r.f = Elt<E>::ld(gt[H]);
+        r.g = Elt<E>::ld(gt[2 * H]);
+        r.o = Elt<E>::ld(gt[3 * H]);
+        r.c = ldf(cs, at);
         // the predecessor of step 0 is the initial carry
-        c_prev = t == 0 ? ldf(c0, (size_t)row * H + j)
-                        : ldf(cs, at - (size_t)B * H);
-        dh_o = ldf(dhs, at);
-        m = ldf(mask, (size_t)t * B + row);
+        r.cp = t == 0 ? ldf(c0, (size_t)row * H + j)
+                      : ldf(cs, at - (size_t)B * H);
+        r.dho = ldf(dhs, at);
+        r.m = ldf(mask, (size_t)t * B + row);
       }
-      // each operation rounded to E in the order the plain version
-      // (lstm_bwd_plain) writes it; in float32 rnd is nothing
-      const float keep = rnd<E>(1.0f - m);
-      const float dh_in = rnd<E>(dh_o + dh_reg[pi]);
-      const float dh_t = rnd<E>(m * dh_in);
-      pass_h[pi] = rnd<E>(keep * dh_in);
-      const float tanh_c = rnd<E>(tanhf(c_t));
-      const float do_pre = rnd<E>(rnd<E>(rnd<E>(dh_t * tanh_c) * og)
-                                  * rnd<E>(1.0f - og));
-      const float dc_new = rnd<E>(
-          rnd<E>(rnd<E>(m * dc_reg[pi])
-                 + rnd<E>(rnd<E>(dh_t * og)
-                          * rnd<E>(1.0f - rnd<E>(tanh_c * tanh_c))))
-          + rnd<E>(do_pre * p2));
-      const float di_pre = rnd<E>(rnd<E>(rnd<E>(dc_new * gg) * ig)
-                                  * rnd<E>(1.0f - ig));
-      const float df_pre = rnd<E>(rnd<E>(rnd<E>(dc_new * c_prev) * fg)
-                                  * rnd<E>(1.0f - fg));
-      const float dg_pre = rnd<E>(rnd<E>(dc_new * ig)
-                                  * rnd<E>(1.0f - rnd<E>(gg * gg)));
-      dc_reg[pi] = rnd<E>(rnd<E>(rnd<E>(rnd<E>(dc_new * fg)
-                                        + rnd<E>(keep * dc_reg[pi]))
-                                 + rnd<E>(di_pre * p0))
-                          + rnd<E>(df_pre * p1));
-      dpa[0] += di_pre * c_prev;
-      dpa[1] += df_pre * c_prev;
-      dpa[2] += do_pre * c_t;
+      float dg[4];
+      pass_h[pi] = cell_bwd<E>(r, dh_reg[pi], dc_reg[pi], p0, p1, p2, dg,
+                               dpa);
       if (ok) {
         E* dx = dxw + ((size_t)t * B + row) * H4 + j;
-        dx[0] = Elt<E>::st(di_pre);
-        dx[H] = Elt<E>::st(df_pre);
-        dx[2 * H] = Elt<E>::st(dg_pre);
-        dx[3 * H] = Elt<E>::st(do_pre);
+        dx[0] = Elt<E>::st(dg[0]);
+        dx[H] = Elt<E>::st(dg[1]);
+        dx[2 * H] = Elt<E>::st(dg[2]);
+        dx[3 * H] = Elt<E>::st(dg[3]);
       }
-      dgate[0][pi] = di_pre;
-      dgate[1][pi] = df_pre;
-      dgate[2][pi] = dg_pre;
-      dgate[3][pi] = do_pre;
+#pragma unroll
+      for (int gg = 0; gg < 4; ++gg) dgate[gg][pi] = dg[gg];
     }
     if (col_ok) {
 #pragma unroll
@@ -1094,13 +1127,41 @@ lstm_fwd_persistent_bf16_kernel(const ArgsBf16 a) {
   const bool col_ok = j < H, row_ok = b < B;
 
   // the strip, resident for the whole sequence (RW's columns read in
-  // order, a gate at a time); zeros past H in K and in the columns
-  for (int idx = threadIdx.x; idx < HK * G::NC; idx += kThreads) {
-    const int k = idx / G::NC, c = idx % G::NC;
-    const int g = c / G::HC, jc = c % G::HC, cj = j0 + jc;
-    ws[(size_t)(4 * jc + g) * RS + k] =
-        (k < H && cj < H) ? a.rw[(size_t)k * H4 + g * H + cj]
-                          : __float2bfloat16_rn(0.f);
+  // order, a gate at a time); zeros past H in K and in the columns. Where
+  // H and HC are multiples of 8: 16-byte loads of 8 columns of one gate
+  // in rows k and k + 1, stored as the pairs (k, k + 1) of their 8
+  // transposed rows (2-byte loads took 31 us of a launch at path_l's
+  // shape on an H100: tools/torch_b2_bf16_phases.py)
+  if (H % 8 == 0 && G::HC % 8 == 0) {
+    constexpr int CH = G::NC / 8;
+    for (int idx = threadIdx.x; idx < HK / 2 * CH; idx += kThreads) {
+      const int k = 2 * (idx / CH), c = 8 * (idx % CH);
+      const int g = c / G::HC, jc = c % G::HC, cj = j0 + jc;
+      uint4 r0 = make_uint4(0u, 0u, 0u, 0u), r1 = r0;
+      if (k < H && cj < H) {
+        const BF* src = a.rw + (size_t)k * H4 + g * H + cj;
+        r0 = __ldg(reinterpret_cast<const uint4*>(src));
+        r1 = __ldg(reinterpret_cast<const uint4*>(src + H4));
+      }
+      const uint32_t w0[4] = {r0.x, r0.y, r0.z, r0.w};
+      const uint32_t w1[4] = {r1.x, r1.y, r1.z, r1.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        // column jc + e: the low (even e) or high half of word e / 2
+        const uint32_t lo = (w0[e / 2] >> (16 * (e & 1))) & 0xffffu;
+        const uint32_t hi = (w1[e / 2] >> (16 * (e & 1))) & 0xffffu;
+        *reinterpret_cast<uint32_t*>(ws + (size_t)(4 * (jc + e) + g) * RS +
+                                     k) = lo | (hi << 16);
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < HK * G::NC; idx += kThreads) {
+      const int k = idx / G::NC, c = idx % G::NC;
+      const int g = c / G::HC, jc = c % G::HC, cj = j0 + jc;
+      ws[(size_t)(4 * jc + g) * RS + k] =
+          (k < H && cj < H) ? a.rw[(size_t)k * H4 + g * H + cj]
+                            : __float2bfloat16_rn(0.f);
+    }
   }
   float c_reg = 0.f, h_reg = 0.f, p0 = 0.f, p1 = 0.f, p2 = 0.f;
   if (col_ok && row_ok) {
@@ -1288,38 +1349,38 @@ __host__ __device__ size_t bwd_smem_floats(int H) {
   return (size_t)NC * (Hp + 4) + NC * BR + (Q > 1 ? (size_t)Q * BR * Hp : 0);
 }
 
-// The arguments of `dl4j_lstm_bwd_persistent`: part [2][S][Bp][Hp] (S =
-// gridDim.x, Bp = gridDim.y BR) carries the partial dh_prev of each block
-// between the product and the exchange; counters [gridDim.y] start at 0.
-struct BwdArgs {
-  const float *dhs, *gates, *cs, *rw, *p, *mask, *dhT, *dcT, *c0;
-  float *dxw, *dh0, *dc0, *dp_part, *part;
+// The arguments of `dl4j_lstm_bwd_persistent` (E float) and
+// `dl4j_lstm_bwd_persistent_bf16` (E bfloat16): part [2][S][Bp][Hp] (S =
+// gridDim.x, Bp = gridDim.y BR; bfloat16: Hp = bf16_hk(H)) float32 carries
+// the partial dh_prev of each block between the product and the exchange;
+// counters [gridDim.y] start at 0.
+template <typename E>
+struct BwdArgsT {
+  const E *dhs, *gates, *cs, *rw, *p, *mask, *dhT, *dcT, *c0;
+  E *dxw, *dh0, *dc0;
+  float *dp_part, *part;
   unsigned* counters;
   int T, B, H;
 };
+using BwdArgs = BwdArgsT<float>;
 
-// what the cell of (b, j) reads at step t: the gates, c_t, c_{t-1} (c0 at
-// t = 0), the output's cotangent and the mask; zeros outside the shape
-struct Resid {
-  float i, f, g, o, c, cp, dho, m;
-};
-
-__device__ __forceinline__ Resid load_resid(const BwdArgs& a, int t, int b,
-                                            int j, bool ok) {
+template <typename E>
+__device__ __forceinline__ Resid load_resid(const BwdArgsT<E>& a, int t,
+                                            int b, int j, bool ok) {
   Resid r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (ok) {
     const int B = a.B, H = a.H;
     const size_t at = ((size_t)t * B + b) * H + j;
-    const float* gt = a.gates + ((size_t)t * B + b) * 4 * H + j;
-    r.i = __ldg(gt);
-    r.f = __ldg(gt + H);
-    r.g = __ldg(gt + 2 * H);
-    r.o = __ldg(gt + 3 * H);
-    r.c = __ldg(a.cs + at);
-    r.cp = t == 0 ? __ldg(a.c0 + (size_t)b * H + j)
-                  : __ldg(a.cs + at - (size_t)B * H);
-    r.dho = __ldg(a.dhs + at);
-    r.m = __ldg(a.mask + (size_t)t * B + b);
+    const E* gt = a.gates + ((size_t)t * B + b) * 4 * H + j;
+    r.i = Elt<E>::ld(__ldg(gt));
+    r.f = Elt<E>::ld(__ldg(gt + H));
+    r.g = Elt<E>::ld(__ldg(gt + 2 * H));
+    r.o = Elt<E>::ld(__ldg(gt + 3 * H));
+    r.c = Elt<E>::ld(__ldg(a.cs + at));
+    r.cp = Elt<E>::ld(t == 0 ? __ldg(a.c0 + (size_t)b * H + j)
+                             : __ldg(a.cs + at - (size_t)B * H));
+    r.dho = Elt<E>::ld(__ldg(a.dhs + at));
+    r.m = Elt<E>::ld(__ldg(a.mask + (size_t)t * B + b));
   }
   return r;
 }
@@ -1500,6 +1561,247 @@ cudaError_t launch_bwd(BwdArgs a, cudaStream_t st) {
   if (e != cudaSuccess) return e;
   const dim3 grid((a.H + HC - 1) / HC, (a.B + BR - 1) / BR);
   // as the forward's: the launch fails where the grid cannot be resident
+  void* args[] = {&a};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid,
+                                     dim3(kThreads), args, smem, st);
+}
+
+// ------------------------------------------ backward, design 2, bfloat16
+// The float32 design 2's grid, exchange and barrier in bfloat16, with the
+// step's product on the tensor cores as in the bfloat16 forward. Design 1
+// (`lstm_bwd_kernel<__nv_bfloat16>`) streamed a float32 copy of RW^T from
+// L2 every step, in 8-block clusters of 8 batch rows (64 blocks at
+// path_l's shape), with FFMA on 2-byte loads and two cluster barriers a
+// step. Block (s, r) owns HC = 256 / BR hidden columns and BR batch rows;
+// its strip of RW, the NC = 4 HC gate columns c = g HC + jc (RW's column
+// g H + j0 + jc) over all H rows, is staged once in bfloat16 as RW lies:
+// ws[k][c], the row-major A operand of `mma.sync` m16n8k16 with k as M
+// and the gate columns as K, so no transposed or widened copy of RW is
+// made. At H 512 BR 8 fits (141 KB), 8 batch tiles x 16 column blocks =
+// 128 blocks. A step, in reverse time:
+//   1. the cell (`cell_bwd`, design 1's rounding): dxw[t], and the gate
+//      gradients, exact in bfloat16, into dgs[row][c], the column-major B
+//      operand (batch rows as N);
+//   2. the product: the block's partial dh_prev[b, k] = sum over its NC
+//      columns c of dgs[b][c] ws[k][c], for its BR rows and every k: HK /
+//      16 x BR / 8 tiles of 16 x 8 (HK = H rounded up to 16), each a chain
+//      of NC / 16 `mma.sync`; warp w takes tiles w, w + 8, .. four at a
+//      time (independent chains) and stores its float32 sums into part
+//      [2][S][Bp][HK], double-buffered by t & 1;
+//   3. the exchange, after one tile barrier: a thread adds the S blocks'
+//      partials of its (row, column) in block order through L2, rounds the
+//      sum to bfloat16 (where the Pallas body's product is emitted in dh's
+//      dtype), adds the mask's pass-through and rounds again.
+// A staged row is NC + 8 elements, so the 8 rows an `ldmatrix` reads lie
+// in 8 different bank groups. The strip's copy (16-byte cp.async where H
+// and HC are multiples of 8) is in flight during the first step's cell.
+// dP as float32's: float32 sums a thread, the block's rows in order into
+// dp_part. No atomics on data: two launches are bit-equal.
+template <int BR>
+struct BwdTileBf16 {
+  static constexpr int NC = 1024 / BR;   // gate columns
+  static constexpr int HC = NC / 4;      // hidden columns
+  static constexpr int RS = NC + 8;      // a staged row (elements)
+  static constexpr int NT = BR / 8;      // the product's 8-row batch tiles
+  static constexpr int KS = NC / 16;     // its k16 steps
+};
+
+// bytes of shared memory: the strip [HK][RS] and dgs [BR][RS] in bfloat16
+// (ops/lstm.py `b2c_rows` with esize 2 computes the same); dP's block sum
+// [3][BR][HC] float32, 3 KB, reuses them after the last step (they are at
+// least 3840 bytes)
+template <int BR>
+__host__ __device__ constexpr size_t bwd_bf16_smem_bytes(int H) {
+  return (size_t)2 * BwdTileBf16<BR>::RS * (bf16_hk(H) + BR);
+}
+
+using BwdArgsBf16 = BwdArgsT<__nv_bfloat16>;
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+// Block (s, r): hidden columns j0 = s HC .., batch rows b0 = r BR ..
+template <int BR>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_persistent_bf16_kernel(const BwdArgsBf16 a) {
+  using BF = __nv_bfloat16;
+  using G = BwdTileBf16<BR>;
+  using E = Elt<BF>;
+  constexpr int NC = G::NC, HC = G::HC, RS = G::RS;
+  const int T = a.T, B = a.B, H = a.H, H4 = 4 * H;
+  const int HK = bf16_hk(H), MT = HK / 16, tiles = MT * G::NT;
+  extern __shared__ float4 smem4[];
+  BF* ws = reinterpret_cast<BF*>(smem4);          // [HK][RS]
+  BF* dgs = ws + (size_t)HK * RS;                 // [BR][RS]
+  const int S = gridDim.x, Bp = gridDim.y * BR;
+  const int j0 = blockIdx.x * HC, b0 = blockIdx.y * BR;
+  unsigned* counter = a.counters + blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the cell: thread (row, jj) owns batch row b and hidden column j
+  const int row = threadIdx.x / HC, jj = threadIdx.x % HC;
+  const int b = b0 + row, j = j0 + jj;
+  const bool col_ok = j < H, ok = col_ok && b < B;
+
+  // the strip, resident for the whole sequence: ws[k][g HC + jc] =
+  // RW[k][g H + j0 + jc], zeros past H
+  if (H % 8 == 0 && HC % 8 == 0) {     // 16-byte chunks of one gate
+    constexpr int CH = NC / 8;
+    for (int idx = threadIdx.x; idx < HK * CH; idx += kThreads) {
+      const int k = idx / CH, c = 8 * (idx % CH);
+      const int cj = j0 + c % HC;
+      BF* dst = ws + (size_t)k * RS + c;
+      if (k < H && cj < H)
+        cp_async16_cg(reinterpret_cast<float*>(dst),
+                      reinterpret_cast<const float*>(
+                          a.rw + (size_t)k * H4 + (c / HC) * H + cj));
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < HK * NC; idx += kThreads) {
+      const int k = idx / NC, c = idx % NC;
+      const int cj = j0 + c % HC;
+      ws[(size_t)k * RS + c] = (k < H && cj < H)
+          ? a.rw[(size_t)k * H4 + (c / HC) * H + cj]
+          : __float2bfloat16_rn(0.f);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  float p0 = 0.f, p1 = 0.f, p2 = 0.f, dh = 0.f, dc = 0.f;
+  if (col_ok) {
+    p0 = ldf(a.p, j);
+    p1 = ldf(a.p, H + j);
+    p2 = ldf(a.p, 2 * H + j);
+  }
+  if (ok) {
+    dh = ldf(a.dhT, (size_t)b * H + j);
+    dc = ldf(a.dcT, (size_t)b * H + j);
+  }
+  float dpa[3] = {0.f, 0.f, 0.f};
+  Resid cur = load_resid(a, T - 1, b, j, ok);
+  unsigned target = 0;
+  // `ldmatrix` rows: A's lane i gives strip row (i % 8) + 8 ((i / 8) % 2)
+  // of its M tile, columns 8 (i / 16) of the k16 step (fragments a0-a3);
+  // B's (x2, lanes 0-15) batch row i % 8 of its N tile, columns 8 ((i / 8)
+  // % 2) (b0, b1)
+  const uint32_t a_lane = hopper::smem_u32(
+      ws + (size_t)((lane & 7) + 8 * ((lane >> 3) & 1)) * RS +
+      8 * (lane >> 4));
+  const uint32_t b_lane = hopper::smem_u32(
+      dgs + (size_t)(lane & 7) * RS + 8 * ((lane >> 3) & 1));
+
+  for (int t = T - 1; t >= 0; --t) {
+    // 1. the cell
+    float dg[4];
+    const float pass_h = cell_bwd<BF>(cur, dh, dc, p0, p1, p2, dg, dpa);
+    if (ok) {
+      BF* dx = a.dxw + ((size_t)t * B + b) * H4 + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dx[g * H] = E::st(dg[g]);
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) dgs[row * RS + g * HC + jj] = E::st(dg[g]);
+    // the next step's residuals, in flight during the product and the wait
+    if (t > 0) cur = load_resid(a, t - 1, b, j, ok);
+    if (t == T - 1) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();     // dgs is complete (and at t = T - 1, the strip)
+
+    // 2. the product, four tiles a warp at a time
+    float* out = a.part + ((size_t)((t & 1) * S + blockIdx.x) * Bp + b0) * HK;
+    for (int i0 = warp; i0 < tiles; i0 += 4 * kWarps) {
+      float d[4][4];
+      uint32_t aa[4], ba[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = min(i0 + u * kWarps, tiles - 1);
+        aa[u] = a_lane + 2 * 16 * RS * (i % MT);
+        ba[u] = b_lane + 2 * 8 * RS * (i / MT);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[u][e] = 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < G::KS; ++s) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (i0 + u * kWarps < tiles) {     // warp-uniform
+            uint32_t af[4], bfr[2];
+            ldmatrix_x2(bfr, ba[u] + 32 * s);
+            ldmatrix_x4(af, aa[u] + 32 * s);
+            mma_bf16(d[u], af, bfr[0], bfr[1]);
+          }
+        }
+      }
+      // a lane holds k 16 mt + lane / 4 (+ 8) of batch rows 8 nt + 2 (lane
+      // % 4) (+ 1)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * kWarps;
+        if (i < tiles) {
+          float* o = out + (size_t)(8 * (i / MT) + 2 * (lane % 4)) * HK +
+                     16 * (i % MT) + lane / 4;
+          o[0] = d[u][0];
+          o[HK] = d[u][1];
+          o[8] = d[u][2];
+          o[HK + 8] = d[u][3];
+        }
+      }
+    }
+    tile_barrier(counter, target);   // every block's bf16 partial is out
+
+    // 3. the exchange: the blocks' partials in block order, through L2
+    if (col_ok) {
+      const float* in = a.part + ((size_t)(t & 1) * S * Bp + b) * HK + j;
+      const size_t step = (size_t)Bp * HK;
+      float v[32];       // up to 32 blocks' partials in flight at once
+#pragma unroll
+      for (int sb = 0; sb < 32; ++sb)
+        v[sb] = sb < S ? __ldcg(in + sb * step) : 0.f;
+      float s = 0.f;
+#pragma unroll
+      for (int sb = 0; sb < 32; ++sb)
+        if (sb < S) s += v[sb];
+      for (int sb = 32; sb < S; ++sb) s += __ldcg(in + sb * step);
+      dh = rnd<BF>(rnd<BF>(s) + pass_h);
+    }
+  }
+
+  if (ok) {
+    a.dh0[(size_t)b * H + j] = E::st(dh);
+    a.dc0[(size_t)b * H + j] = E::st(dc);
+  }
+  // dP: the block's rows added in row order, over the strip (free after
+  // the last barrier)
+  float* sdp = reinterpret_cast<float*>(smem4);   // [3][BR][HC]
+#pragma unroll
+  for (int q = 0; q < 3; ++q) sdp[(q * BR + row) * HC + jj] = dpa[q];
+  __syncthreads();
+  if (threadIdx.x < 3 * HC) {
+    const int q = threadIdx.x / HC, jc = threadIdx.x % HC;
+    if (j0 + jc < H) {
+      float s = 0.f;
+      for (int r = 0; r < BR; ++r) s += sdp[(q * BR + r) * HC + jc];
+      a.dp_part[((size_t)blockIdx.y * 3 + q) * H + j0 + jc] = s;
+    }
+  }
+}
+
+template <int BR>
+cudaError_t launch_bwd_bf16(BwdArgsBf16 a, cudaStream_t st) {
+  constexpr int HC = BwdTileBf16<BR>::HC;
+  auto kernel = lstm_bwd_persistent_bf16_kernel<BR>;
+  const size_t smem = bwd_bf16_smem_bytes<BR>(a.H);
+  if (smem > (size_t)kSmemFloats * sizeof(float)) return cudaErrorInvalidValue;
+  static bool raised = false;
+  cudaError_t e = raise_smem_limit(kernel, &raised);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.H + HC - 1) / HC, (a.B + BR - 1) / BR);
+  // as the float32 design's: the launch fails where the grid cannot be
+  // resident at once
   void* args[] = {&a};
   return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid,
                                      dim3(kThreads), args, smem, st);
@@ -2188,6 +2490,41 @@ int dl4j_lstm_bwd_persistent(const void* dhs, const void* gates,
     case 32: return (int)persist::launch_bwd<32>(a, st);
     case 16: return (int)persist::launch_bwd<16>(a, st);
     case 8: return (int)persist::launch_bwd<8>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Design 2 of B2c's recurrence in bfloat16: the persistent grid with the
+// product on the tensor cores, `rows` batch rows a block (64, 32, 16 or 8;
+// ops/lstm.py `b2c_rows` with esize 2 chooses it). The arguments of
+// `dl4j_lstm_bwd_persistent`, every tensor bfloat16 (RW [H, 4H] as it is)
+// but dp_part [Bp / rows, 3, H] and the scratch part [2, ceil(H / (256 /
+// rows)), Bp, hk] float32 (hk = H rounded up to 16); counters [Bp / rows]
+// uint32 zeros. Returns 0 or a cudaError_t.
+int dl4j_lstm_bwd_persistent_bf16(const void* dhs, const void* gates,
+                                  const void* cs, const void* rw,
+                                  const void* p, const void* mask,
+                                  const void* dhT, const void* dcT,
+                                  const void* c0, void* dxw, void* dh0,
+                                  void* dc0, void* dp_part, void* part,
+                                  void* counters, int T, int B, int H,
+                                  int rows, void* stream) {
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  using C = const __nv_bfloat16*;
+  using W = __nv_bfloat16*;
+  const persist::BwdArgsBf16 a{
+      static_cast<C>(dhs), static_cast<C>(gates), static_cast<C>(cs),
+      static_cast<C>(rw), static_cast<C>(p), static_cast<C>(mask),
+      static_cast<C>(dhT), static_cast<C>(dcT), static_cast<C>(c0),
+      static_cast<W>(dxw), static_cast<W>(dh0), static_cast<W>(dc0),
+      static_cast<float*>(dp_part), static_cast<float*>(part),
+      static_cast<unsigned*>(counters), T, B, H};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+    case 64: return (int)persist::launch_bwd_bf16<64>(a, st);
+    case 32: return (int)persist::launch_bwd_bf16<32>(a, st);
+    case 16: return (int)persist::launch_bwd_bf16<16>(a, st);
+    case 8: return (int)persist::launch_bwd_bf16<8>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

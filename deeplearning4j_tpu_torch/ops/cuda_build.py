@@ -136,6 +136,11 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "dl4j_lstm_fwd_persistent_bf16": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                  _I, _I, _I, _P]),
+        # design 2 of the recurrence in bfloat16: the arguments of
+        # dl4j_lstm_bwd_persistent
+        "dl4j_lstm_bwd_persistent_bf16": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _P]),
         # design 2 in bfloat16: hs h0 dxw dp_part drw dp, T B H, tiles
         # splits, stream
         "dl4j_lstm_bwd_weights_wgmma": (

@@ -31,12 +31,13 @@ as the forward is; its weight product "tiled" (design 1) or "pipelined"
 needs no residency and takes every shape. `LAUNCHES_BY_DESIGN[(kernel,
 design)]` counts the launches of each.
 
-bfloat16 has two designs of the forward ("cluster" and "persistent",
-the latter with its product on the tensor cores, chosen by `b2_design`
-with bfloat16's shared-memory arithmetic) and of the weight product
-("tiled" and "wgmma", a tensor-core GEMM fed by TMA, chosen by
-`b2c_weights_design` where H is a multiple of 8); B2c's recurrence runs
-design 1 ("cluster"). Its launches count as `LAUNCHES["<kernel>_bf16"]`
+bfloat16 has two designs of each launch: the forward and B2c's
+recurrence "cluster" and "persistent" (the latter with its product on
+the tensor cores and a bfloat16 strip of RW, chosen by `b2_design` and
+`b2c_design` with bfloat16's shared-memory arithmetic), the weight
+product "tiled" and "wgmma" (a tensor-core GEMM fed by TMA, chosen by
+`b2c_weights_design` where H is a multiple of 8). Its launches count as
+`LAUNCHES["<kernel>_bf16"]`
 and `LAUNCHES_BY_DESIGN[(kernel, "<design>_bf16")]` (`BF16_DESIGNS`),
 and each wrapper's choice as `kernel_dispatch_total{op="lstm",
 impl="<kernel>/<design>"}`. Its arithmetic rounds where the Pallas
@@ -93,9 +94,9 @@ WGMMA_DEPTH = 64
 WGMMA_MAX_SPLITS = 8                  # the slices of a tile: one cluster
 
 # the designs each launch has in bfloat16, design 1 first, counted as
-# "<design>_bf16"; B2c's recurrence has design 1 only
+# "<design>_bf16"
 BF16_DESIGNS = {"lstm_fwd": DESIGNS, "lstm_fwd_inference": DESIGNS,
-                "lstm_bwd": ("cluster",),
+                "lstm_bwd": ("cluster", "persistent"),
                 "lstm_bwd_weights": ("tiled", "wgmma")}
 
 LAUNCHES_BY_DESIGN: Dict[Tuple[str, str], int] = {
@@ -460,25 +461,34 @@ def _b2c_ksplit(tiles: int) -> int:
     return q
 
 
-def b2c_rows(B: int, H: int, sms: int, smem: int) -> Optional[int]:
+def b2c_rows(B: int, H: int, sms: int, smem: int,
+             esize: int = 4) -> Optional[int]:
     """The batch rows a block of B2c's design-2 recurrence takes (BR; its
     256 threads hold BR x 256 / BR cells, so 256 / BR hidden columns and
     their NC = 1024 / BR gate columns), or None where none fits: the
     smallest BR of `PERSISTENT_ROWS` (the least partial dh a block
     writes and reads a step) whose grid, ceil(B / BR) x ceil(H / (256 /
     BR)) blocks, fits one block on each of `sms` SMs, and whose shared
-    memory fits the `smem` bytes a block may ask for: the resident strip
+    memory fits the `smem` bytes a block may ask for. For float32
+    (`esize` 4, `csrc/lstm.cu` `persist::launch_bwd`): the resident strip
     of RW transposed, [NC, Hp + 4] float32 (Hp = H rounded up to 4), the
     step's gate gradients [NC, BR], and where the product's thread tiles
     are fewer than the threads (`_b2c_ksplit`), the groups' sums [Q, BR,
-    Hp]. `csrc/lstm.cu` `persist::launch_bwd` computes the same."""
+    Hp]. For bfloat16 (`esize` 2, `persist::launch_bwd_bf16`): the strip
+    as RW lies, [HK, NC + 8], and the gate gradients [BR, NC + 8], both
+    bfloat16 (HK = H rounded up to 16; a row padded by 8 for `ldmatrix`),
+    and no reduction buffer; so BR 8 fits at H 512 (141,440 bytes)."""
     hp = -(-H // 4) * 4
     for br in PERSISTENT_ROWS:
         nc = 1024 // br
         blocks = -(-B // br) * -(-H // (nc // 4))
-        q = _b2c_ksplit(br // 8 * hp // 4)
-        floats = nc * (hp + 4) + nc * br + (q * br * hp if q > 1 else 0)
-        if blocks <= sms and 4 * floats <= smem:
+        if esize == 2:
+            nbytes = 2 * (nc + 8) * (-(-H // 16) * 16 + br)
+        else:
+            q = _b2c_ksplit(br // 8 * hp // 4)
+            nbytes = 4 * (nc * (hp + 4) + nc * br
+                          + (q * br * hp if q > 1 else 0))
+        if blocks <= sms and nbytes <= smem:
             return br
     return None
 
@@ -492,10 +502,13 @@ def b2c_design(T: int, B: int, H: int, sms: int, smem: int,
     "cluster" (design 1, which takes every hidden size up to MAX_HIDDEN;
     `chip_smoke.py` times both at its LSTM shapes from T 4 to 200). The
     weight product's design is `b2c_weights_design`'s. bfloat16 takes
-    design 1 of the recurrence at every shape. A pure function of the
-    shape, the dtype and the card, decided before the launch."""
-    if dtype == torch.bfloat16 or T < PERSISTENT_MIN_STEPS \
-            or b2c_rows(B, H, sms, smem) is None:
+    the same rule with its own shared-memory arithmetic (`b2c_rows` with
+    `esize` 2: its strip is bfloat16 and its product runs on the tensor
+    cores), so T < 8 and H 1024 at B 64 stay on design 1. A pure
+    function of the shape, the dtype and the card, decided before the
+    launch."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    if T < PERSISTENT_MIN_STEPS or b2c_rows(B, H, sms, smem, esize) is None:
         return "cluster"
     return "persistent"
 
@@ -718,9 +731,8 @@ def launch_bwd_recurrence(rw, p, mask, cs, gates, c0, dhs, dhT, dcT,
                           design: str = "cluster"):
     """The reverse-time kernel of B2c alone, on checked CUDA tensors, in
     `design` (the wrapper passes `b2c_design`'s choice; `chip_smoke.py`
-    also times the other design on the same inputs; bfloat16 runs design
-    1 only): returns (dxw, dh0, dc0, dp_part [batch tiles, 3, H] float32,
-    the tiles the design's)."""
+    also times the other design on the same inputs): returns (dxw, dh0,
+    dc0, dp_part [batch tiles, 3, H] float32, the tiles the design's)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("lstm")
@@ -730,22 +742,27 @@ def launch_bwd_recurrence(rw, p, mask, cs, gates, c0, dhs, dhT, dcT,
     new = lambda *s: torch.empty(s, dtype=cs.dtype, device=dev)  # noqa
     dxw, dh0, dc0 = new(T, B, 4 * H), new(B, H), new(B, H)
     if design == "persistent":
-        rows = b2c_rows(B, H, *card_limits(dev))
+        rows = b2c_rows(B, H, *card_limits(dev), cs.element_size())
         if rows is None:
             raise ValueError(f"no design-2 LSTM backward tile fits B {B}, "
                              f"H {H} on this card")
         tiles = -(-B // rows)
-        dp_part = new(tiles, 3, H)
-        # each block's partial dh between the steps, double-buffered, and
+        dp_part = torch.empty((tiles, 3, H), dtype=torch.float32,
+                              device=dev)
+        # each block's float32 partial dh between the steps, double-
+        # buffered (k padded to 4, in bfloat16 to the product's 16), and
         # the barriers' counters
-        part = new(2, -(-H // (256 // rows)), tiles * rows, -(-H // 4) * 4)
+        part = torch.empty((2, -(-H // (256 // rows)), tiles * rows,
+                            -(-H // 16) * 16 if bf16 else -(-H // 4) * 4),
+                           dtype=torch.float32, device=dev)
         counters = torch.zeros(tiles, dtype=torch.int32, device=dev)
-        rc = lib.dl4j_lstm_bwd_persistent(
-            dhs.data_ptr(), gates.data_ptr(), cs.data_ptr(), rw.data_ptr(),
-            p.data_ptr(), mask.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
-            c0.data_ptr(), dxw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            dp_part.data_ptr(), part.data_ptr(), counters.data_ptr(), T, B,
-            H, rows, _stream(dev))
+        fn = lib.dl4j_lstm_bwd_persistent_bf16 if bf16 \
+            else lib.dl4j_lstm_bwd_persistent
+        rc = fn(dhs.data_ptr(), gates.data_ptr(), cs.data_ptr(),
+                rw.data_ptr(), p.data_ptr(), mask.data_ptr(), dhT.data_ptr(),
+                dcT.data_ptr(), c0.data_ptr(), dxw.data_ptr(), dh0.data_ptr(),
+                dc0.data_ptr(), dp_part.data_ptr(), part.data_ptr(),
+                counters.data_ptr(), T, B, H, rows, _stream(dev))
     elif design == "cluster":
         # RW transposed once a call, in float32 (a copy, not a product), so
         # the kernel's reads of RW^T coalesce as the forward's reads of RW

@@ -844,13 +844,13 @@ def test_cuda_lstm_refuses_what_the_kernels_do_not_take(cuda_device):
                     mask.half())
     with pytest.raises(TypeError):
         lk.lstm_fwd(xw.bfloat16(), rw, p, h0, c0, mask)
-    # bfloat16 has no design 2 of B2c's recurrence and no "pipelined"
-    # weight product
+    # bfloat16 has no "wgmma" recurrence and no "pipelined" weight
+    # product
     b16 = [t.bfloat16() for t in (xw, rw, p, h0, c0, mask)]
     hs, cs, gates, _, _ = lk.lstm_fwd_plain(*b16)
     with pytest.raises(ValueError, match="runs designs"):
         lk.launch_bwd_recurrence(b16[1], b16[2], b16[5], cs, gates, b16[4],
-                                 hs, b16[3], b16[4], "persistent")
+                                 hs, b16[3], b16[4], "wgmma")
     dp_part = torch.zeros(1, 3, 8, device=cuda_device)
     with pytest.raises(ValueError, match="runs designs"):
         lk.launch_bwd_weights(hs, b16[3], torch.zeros_like(b16[0]), dp_part,
@@ -873,8 +873,9 @@ def test_cuda_lstm_refuses_what_the_kernels_do_not_take(cuda_device):
                          ids=[f"T{t}B{b}H{h}" for t, b, h in LSTM_SHAPES])
 def test_cuda_b2_bf16_matches_plain(cuda_device, T, B, H, masked):
     """bfloat16 B2a/B2b/B2c, each launch in the design its wrapper picks
-    (the forward by `b2_design`, the weight product by
-    `b2c_weights_design`), against their plain versions on the same
+    (the forward by `b2_design`, the recurrence by `b2c_design`, the
+    weight product by `b2c_weights_design`), against their plain
+    versions on the same
     bfloat16 inputs run on the CPU (JAX's arithmetic bit for bit),
     peepholes on: the outputs held by `ops/lstm.bf16_check`, B2b
     bit-equal to B2a, dRW and dP within contract C13's bound
@@ -883,6 +884,8 @@ def test_cuda_b2_bf16_matches_plain(cuda_device, T, B, H, masked):
                                               masked, seed=6)]
     design = lk.b2_design(T, B, H, *lk.card_limits(cuda_device),
                           torch.bfloat16) + "_bf16"
+    r_design = lk.b2c_design(T, B, H, *lk.card_limits(cuda_device),
+                             torch.bfloat16) + "_bf16"
     w_design = lk.b2c_weights_design(H, torch.bfloat16) + "_bf16"
     before = dict(lk.LAUNCHES_BY_DESIGN)
     got = lk.lstm_fwd(*ins, with_residuals=True)
@@ -909,8 +912,8 @@ def test_cuda_b2_bf16_matches_plain(cuda_device, T, B, H, masked):
     wts = (host[3], host[6], gk[0], host[4], host[7])
     run = lk.lstm_weights_plain(*wts)
     bound = lk.c13_bound(*wts)
-    assert lk.LAUNCHES_BY_DESIGN[("lstm_bwd", "cluster_bf16")] == \
-        before[("lstm_bwd", "cluster_bf16")] + 1
+    assert lk.LAUNCHES_BY_DESIGN[("lstm_bwd", r_design)] == \
+        before[("lstm_bwd", r_design)] + 1
     assert lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", w_design)] == \
         before[("lstm_bwd_weights", w_design)] + 1
     for name, a, b in zip(("dxw", "dh0", "dc0"), gk, gr):
@@ -1023,9 +1026,9 @@ B2_BF16_DESIGN_2_SHAPES = [(128, 64, 512), (50, 32, 256), (32, 8, 512)]
 def test_cuda_b2_bf16_takes_design_2_on_the_paths_shapes(cuda_device, T, B,
                                                          H):
     """On the bfloat16 recurrent paths' shapes the wrappers run the
-    forward on "persistent_bf16" and B2c on "cluster_bf16" +
-    "wgmma_bf16", never design 1 of the forward or "tiled", and say so
-    in `kernel_dispatch_total{op="lstm"}`; two calls bit-equal; the
+    forward on "persistent_bf16" and B2c on "persistent_bf16" +
+    "wgmma_bf16", never design 1 of either recurrence or "tiled", and say
+    so in `kernel_dispatch_total{op="lstm"}`; two calls bit-equal; the
     outputs held as in `test_cuda_b2_bf16_matches_plain`."""
     from deeplearning4j_tpu_torch.observe import get_registry
 
@@ -1033,11 +1036,12 @@ def test_cuda_b2_bf16_takes_design_2_on_the_paths_shapes(cuda_device, T, B,
                                               True, seed=T)]
     sms, smem = lk.card_limits(cuda_device)
     assert lk.b2_design(T, B, H, sms, smem, torch.bfloat16) == "persistent"
+    assert lk.b2c_design(T, B, H, sms, smem, torch.bfloat16) == "persistent"
     assert lk.b2c_weights_design(H, torch.bfloat16) == "wgmma"
     chosen = {impl: get_registry().counter("kernel_dispatch_total",
                                            op="lstm", impl=impl)
               for impl in ("lstm_fwd/persistent_bf16",
-                           "lstm_bwd/cluster_bf16",
+                           "lstm_bwd/persistent_bf16",
                            "lstm_bwd_weights/wgmma_bf16")}
     seen = {k: c.value for k, c in chosen.items()}
     lk.reset_counts()
@@ -1061,7 +1065,8 @@ def test_cuda_b2_bf16_takes_design_2_on_the_paths_shapes(cuda_device, T, B,
     assert all(torch.equal(a, b) for a, b in zip(gk, gk2))
     assert lk.LAUNCHES_BY_DESIGN == {
         **{k: 0 for k in lk.LAUNCHES_BY_DESIGN},
-        ("lstm_fwd", "persistent_bf16"): 2, ("lstm_bwd", "cluster_bf16"): 2,
+        ("lstm_fwd", "persistent_bf16"): 2,
+        ("lstm_bwd", "persistent_bf16"): 2,
         ("lstm_bwd_weights", "wgmma_bf16"): 2}
     # the wrappers' choices on the metrics spine
     assert {k: c.value - seen[k] for k, c in chosen.items()} == {
@@ -1069,6 +1074,61 @@ def test_cuda_b2_bf16_takes_design_2_on_the_paths_shapes(cuda_device, T, B,
     host = [t.cpu() for t in bw]
     wts = (host[3], host[6], gk[0].cpu(), host[4], host[7])
     for name, a, b, lim in zip(("dRW", "dP"), gk[3:],
+                               lk.lstm_weights_plain(*wts),
+                               lk.c13_bound(*wts)):
+        err = (a.cpu().float() - b.float()).abs()
+        assert bool((err <= lim).all()), (name, int((err > lim).sum()))
+
+
+# path_l_bf16's shape (masked), path_g's chunk, lstm_parity_bf16's, a batch
+# that is no multiple of 8 rows and an H that is no multiple of 16
+B2C_BF16_SHAPES = [(128, 64, 512), (50, 32, 256), (32, 8, 512),
+                   (16, 70, 256), (40, 6, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", B2C_BF16_SHAPES,
+                         ids=[f"T{t}B{b}H{h}" for t, b, h in B2C_BF16_SHAPES])
+def test_cuda_b2c_bf16_recurrence_designs_hold_bf16_check(cuda_device, T, B,
+                                                          H):
+    """Both bfloat16 recurrences of B2c by hand on the same inputs (masked,
+    peepholes on; the residuals of the plain forward run on the CPU):
+    dxw, dh0 and dc0 of each held by `bf16_check` to `lstm_bwd_plain` run
+    on the CPU; the persistent design launched twice bit-equal, and its
+    float32 dP partials fed to the weight launch `b2c_weights_design`
+    picks, whose dRW and dP hold contract C13 (`c13_bound`)."""
+    ins = [t.bfloat16() for t in _lstm_inputs(cuda_device, T, B, H, True,
+                                              True, seed=T + H)]
+    host_in = [t.cpu() for t in ins]
+    hs, cs, gates, _, _ = lk.lstm_fwd_plain(*host_in)
+    g = torch.Generator().manual_seed(T + H + 1)
+    dhs, dhT, dcT = (torch.randn(*s, generator=g).bfloat16()
+                     for s in ((T, B, H), (B, H), (B, H)))
+    rw, p, h0, c0, mask = host_in[1:]
+    host = (rw, p, mask, hs, cs, gates, h0, c0, dhs, dhT, dcT)
+    bw = [t.to(cuda_device) for t in host]
+    rec_in = (bw[0], bw[1], bw[2], bw[4], bw[5], bw[7], bw[8], bw[9],
+              bw[10])
+    before = dict(lk.LAUNCHES_BY_DESIGN)
+    got = {d: lk.launch_bwd_recurrence(*rec_in, d)
+           for d in ("cluster", "persistent")}
+    again = lk.launch_bwd_recurrence(*rec_in, "persistent")
+    torch.cuda.synchronize()
+    for d, n in (("cluster", 1), ("persistent", 2)):
+        assert lk.LAUNCHES_BY_DESIGN[("lstm_bwd", d + "_bf16")] == \
+            before[("lstm_bwd", d + "_bf16")] + n
+    assert all(torch.equal(a, b) for a, b in zip(got["persistent"], again))
+    gr = lk.lstm_bwd_plain(*host)
+    for d, outs in got.items():
+        for name, a, b in zip(("dxw", "dh0", "dc0"), outs, gr):
+            assert a.dtype == torch.bfloat16, (d, name)
+            check = lk.bf16_check(name, a.cpu(), b)
+            assert check[0], (d, name, check)
+    dxw, dp_part = got["persistent"][0], got["persistent"][3]
+    drw, dp = lk.launch_bwd_weights(bw[3], bw[6], dxw, dp_part,
+                                    lk.b2c_weights_design(H, torch.bfloat16))
+    wts = (hs, h0, dxw.cpu(), cs, c0)
+    for name, a, b, lim in zip(("dRW", "dP"), (drw, dp),
                                lk.lstm_weights_plain(*wts),
                                lk.c13_bound(*wts)):
         err = (a.cpu().float() - b.float()).abs()

@@ -274,7 +274,8 @@ def test_lstm_launch_counts_by_design_reset_and_stay_zero_on_cpu():
         ("lstm_fwd", "cluster_bf16"), ("lstm_fwd_inference", "cluster_bf16"),
         ("lstm_fwd", "persistent_bf16"),
         ("lstm_fwd_inference", "persistent_bf16"),
-        ("lstm_bwd", "cluster_bf16"), ("lstm_bwd_weights", "tiled_bf16"),
+        ("lstm_bwd", "cluster_bf16"), ("lstm_bwd", "persistent_bf16"),
+        ("lstm_bwd_weights", "tiled_bf16"),
         ("lstm_bwd_weights", "wgmma_bf16")}
     tin = _t(_inputs(masked=True), grad=True)
     hs, _, _ = lk.fused_lstm(*tin)

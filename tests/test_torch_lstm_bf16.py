@@ -79,6 +79,69 @@ def test_plain_b2c_equals_the_pallas_backward(T, B, H):
     _equal(got, want, ("dxw", "dh0", "dc0", "dRW", "dP"))
 
 
+def _bwd_bf16_in_design_2_order(rw, p, mask, cs, gates, c0, dhs, dhT, dcT,
+                                hc):
+    """The bfloat16 recurrence with design 2's sums (`csrc/lstm.cu`
+    `persist::lstm_bwd_persistent_bf16_kernel`): the cell as
+    `lstm_bwd_plain` rounds it, dh_prev as float32 partials of column
+    blocks of `hc` hidden columns (their four gate columns each) added in
+    block order, rounded once to bfloat16, then the mask's pass-through
+    added and rounded again. Returns (dxw, dh0, dc0)."""
+    T, _, H = cs.shape
+    blocks = [torch.cat([torch.arange(g * H + s, g * H + min(s + hc, H))
+                         for g in range(4)]) for s in range(0, H, hc)]
+    dh, dc = dhT, dcT
+    dxw = [None] * T
+    for t in range(T - 1, -1, -1):
+        gt = gates[t]
+        i, f, g, o = (gt[:, :H], gt[:, H:2 * H], gt[:, 2 * H:3 * H],
+                      gt[:, 3 * H:])
+        c_t = cs[t]
+        c_prev = c0 if t == 0 else cs[t - 1]
+        m = mask[t][:, None]
+        dh_in = dhs[t] + dh
+        dh_t = m * dh_in
+        pass_h = (1.0 - m) * dh_in
+        tanh_c = torch.tanh(c_t)
+        do_pre = dh_t * tanh_c * o * (1.0 - o)
+        dc_new = (m * dc + dh_t * o * (1.0 - tanh_c * tanh_c)
+                  + do_pre * p[2:3])
+        di_pre = dc_new * g * i * (1.0 - i)
+        df_pre = dc_new * c_prev * f * (1.0 - f)
+        dg_pre = dc_new * i * (1.0 - g * g)
+        dc = (dc_new * f + (1.0 - m) * dc + di_pre * p[0:1]
+              + df_pre * p[1:2])
+        dgates = torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=-1)
+        total = torch.zeros(dh.shape, dtype=torch.float32)
+        for cols in blocks:
+            total = total + dgates[:, cols].float() @ rw[:, cols].float().T
+        dh = total.bfloat16() + pass_h
+        dxw[t] = dgates
+    return torch.stack(dxw), dh, dc
+
+
+@pytest.mark.parametrize("hc", [8, 16, 5], ids=["hc8", "hc16", "hc5"])
+def test_bf16_design_2_summation_order_holds_against_the_pallas_backward(hc):
+    """The bfloat16 recurrence of design 2 sums dh_prev as column blocks'
+    float32 partials in block order (`_bwd_bf16_in_design_2_order`):
+    masked rows, peepholes, H 24 in column blocks of 8, 16 (a ragged last
+    block) or 5, against the Pallas backward in interpret mode, within
+    `bf16_check` (at this size the float32 sums in block order round to
+    the same bfloat16 as the Pallas kernel's: bit-equal)."""
+    T, B, H = 9, 5, 24
+    jin, (dhs, dhT, dcT) = _inputs(T, B, H, seed=13)
+    xw, rw, p, h0, c0, mask = jin
+    hs, cs, gates, _, _ = _run_forward(*jin, interpret=True)
+    want = _run_backward((rw, p, mask, hs, cs, gates, h0, c0), dhs, dhT,
+                         dcT, interpret=True)
+    got = _bwd_bf16_in_design_2_order(
+        *[_t(a) for a in (rw, p, mask, cs, gates, c0, dhs, dhT, dcT)], hc)
+    for name, g, w in zip(("dxw", "dh0", "dc0"), got, want):
+        assert g.dtype == torch.bfloat16, name
+        ok, err, share = lk.bf16_check(name, g, _t(w))
+        assert ok, (name, err, share)
+
+
 def _backward(T=12, B=4, H=16, seed=2):
     jin, cot = _inputs(T, B, H, seed=seed)
     tin = [_t(a) for a in jin]
@@ -190,13 +253,16 @@ def test_plain_bf16_misses_a_step_against_itself_in_another_sum_order():
 
 def test_bf16_runs_design_1_and_other_dtypes_are_refused():
     """bfloat16 keeps design 1 where design 2 does not apply: a sequence
-    shorter than PERSISTENT_MIN_STEPS, B2c's recurrence at every shape,
-    the weight product where H is no multiple of 8; each bf16 kernel
-    refuses a design it does not have; float16 and mixed dtypes are
-    refused."""
-    for T, B, H in ((128, 64, 512), (50, 32, 256), (1, 32, 256)):
+    shorter than PERSISTENT_MIN_STEPS, B2c's recurrence where no
+    bfloat16 tile's grid fits (H 1024 at B 64), the weight product where
+    H is no multiple of 8; each bf16 kernel refuses a design it does not
+    have; float16 and mixed dtypes are refused."""
+    for T, B, H in ((1, 32, 256), (4, 32, 256), (128, 64, 1024)):
         assert lk.b2c_design(T, B, H, 132, 232448, torch.bfloat16) == \
             "cluster"
+    for T, B, H in ((128, 64, 512), (50, 32, 256)):
+        assert lk.b2c_design(T, B, H, 132, 232448, torch.bfloat16) == \
+            "persistent"
     for T, B, H in ((1, 32, 256), (7, 5, 37)):
         assert lk.b2_design(T, B, H, 132, 232448, torch.bfloat16) == \
             "cluster"
@@ -211,10 +277,11 @@ def test_bf16_runs_design_1_and_other_dtypes_are_refused():
     with pytest.raises(TypeError, match="one dtype a call"):
         lk._check_cuda(dict(a=z.bfloat16(), b=z))
     with pytest.raises(ValueError, match="runs designs"):
-        lk._bf16_design(z.bfloat16(), "persistent", "lstm_bwd")
+        lk._bf16_design(z.bfloat16(), "wgmma", "lstm_bwd")
     with pytest.raises(ValueError, match="runs designs"):
         lk._bf16_design(z.bfloat16(), "pipelined", "lstm_bwd_weights")
     assert lk._bf16_design(z.bfloat16(), "persistent", "lstm_fwd")
+    assert lk._bf16_design(z.bfloat16(), "persistent", "lstm_bwd")
     assert lk._bf16_design(z.bfloat16(), "wgmma", "lstm_bwd_weights")
     assert not lk._bf16_design(z, "persistent", "lstm_bwd")
 
@@ -223,35 +290,49 @@ H100 = (132, 232448)      # SMs, shared-memory bytes a block may ask for
 SMALL_CARD = (64, 232448)
 
 
-# (T, B, H, the forward's design on an H100, on a 64-SM card, the weight
-# product's design)
+# (T, B, H, the forward's design on an H100, on a 64-SM card, B2c's
+# recurrence's on an H100, on a 64-SM card, the weight product's design)
 BF16_DESIGN_CASES = [
-    (128, 64, 512, "persistent", "cluster", "wgmma"),   # path_l_bf16
-    (50, 32, 256, "persistent", "persistent", "wgmma"),  # path_g's chunks
-    (32, 8, 512, "persistent", "persistent", "wgmma"),   # lstm_parity_bf16
+    (128, 64, 512, "persistent", "cluster", "persistent", "cluster",
+     "wgmma"),                                           # path_l_bf16
+    (50, 32, 256, "persistent", "persistent", "persistent", "persistent",
+     "wgmma"),                                           # path_g's chunks
+    (32, 8, 512, "persistent", "persistent", "persistent", "persistent",
+     "wgmma"),                                           # lstm_parity_bf16
     (lk.PERSISTENT_MIN_STEPS, 32, 256, "persistent", "persistent",
+     "persistent", "persistent", "wgmma"),
+    (1, 32, 256, "cluster", "cluster", "cluster", "cluster",
+     "wgmma"),                                           # rnn_time_step
+    (4, 32, 256, "cluster", "cluster", "cluster", "cluster", "wgmma"),
+    (7, 5, 37, "cluster", "cluster", "cluster", "cluster",
+     "tiled"),                                           # H % 8 != 0
+    (40, 6, 100, "persistent", "persistent", "persistent", "persistent",
+     "tiled"),
+    (16, 70, 256, "persistent", "cluster", "persistent", "cluster",
+     "wgmma"),                                           # B % 8 != 0
+    (12, 3, 8, "persistent", "persistent", "persistent", "persistent",
      "wgmma"),
-    (1, 32, 256, "cluster", "cluster", "wgmma"),         # rnn_time_step
-    (7, 5, 37, "cluster", "cluster", "tiled"),           # H % 8 != 0
-    (40, 6, 100, "persistent", "persistent", "tiled"),
-    (12, 3, 8, "persistent", "persistent", "wgmma"),
-    (128, 64, 1024, "cluster", "cluster", "wgmma"),      # no tile fits
+    (128, 64, 1024, "cluster", "cluster", "cluster", "cluster",
+     "wgmma"),                                           # no tile fits
 ]
 
 
-@pytest.mark.parametrize("T,B,H,big,small,weights", BF16_DESIGN_CASES,
+@pytest.mark.parametrize("T,B,H,big,small,rec_big,rec_small,weights",
+                         BF16_DESIGN_CASES,
                          ids=[f"T{c[0]}B{c[1]}H{c[2]}"
                               for c in BF16_DESIGN_CASES])
-def test_bf16_design_by_shape(T, B, H, big, small, weights):
+def test_bf16_design_by_shape(T, B, H, big, small, rec_big, rec_small,
+                              weights):
     """Which design takes a bfloat16 call, by shape and card: the forward
     (one rule for B2a and B2b) on design 2 from PERSISTENT_MIN_STEPS
     steps where a bfloat16 tile fits (`b2_rows` with esize 2), the
-    recurrence of B2c on design 1, the weight product on "wgmma" where H
-    is a multiple of 8."""
+    recurrence of B2c by the same rule with its own tile (`b2c_rows`
+    with esize 2), the weight product on "wgmma" where H is a multiple
+    of 8."""
     assert lk.b2_design(T, B, H, *H100, torch.bfloat16) == big
     assert lk.b2_design(T, B, H, *SMALL_CARD, torch.bfloat16) == small
-    for card in (H100, SMALL_CARD):
-        assert lk.b2c_design(T, B, H, *card, torch.bfloat16) == "cluster"
+    assert lk.b2c_design(T, B, H, *H100, torch.bfloat16) == rec_big
+    assert lk.b2c_design(T, B, H, *SMALL_CARD, torch.bfloat16) == rec_small
     assert lk.b2c_weights_design(H, torch.bfloat16) == weights
     assert lk.b2c_weights_design(H) == "pipelined"
 
@@ -288,6 +369,41 @@ def test_bf16_rows_follow_the_element_size(B, H, rows):
         elif r == rows:
             assert fits
     f32 = lk.b2_rows(B, H, *H100)
+    assert f32 is None or (rows is not None and rows <= f32)
+
+
+def _bf16_bwd_smem(H, rows):
+    """The bfloat16 recurrence's shared memory (`csrc/lstm.cu`
+    `persist::bwd_bf16_smem_bytes`): the strip [HK][NC + 8] and the gate
+    gradients [BR][NC + 8] in bfloat16, HK = H rounded up to 16."""
+    nc = 1024 // rows
+    return 2 * (nc + 8) * (-(-H // 16) * 16 + rows)
+
+
+@pytest.mark.parametrize("B,H,rows", [
+    (64, 512, 8),         # path_l_bf16: 8 x 16 blocks (float32 needs 16)
+    (32, 256, 8),         # path_g's chunks
+    (8, 512, 8),          # lstm_parity_bf16
+    (70, 256, 8),         # a batch past a multiple of 8: 9 x 8 blocks
+    (6, 100, 8),          # H not a multiple of 16: HK 112
+    (4, 1024, 16),        # 8 rows would need 280,704 bytes
+    (64, 1024, None),     # 256 blocks at every tile: past 132 SMs
+    (128, 512, None),
+])
+def test_bf16_b2c_rows_follow_the_element_size(B, H, rows):
+    """`b2c_rows(..., esize=2)`: the smallest tile whose grid fits the
+    SMs and whose bfloat16 strip and gate gradients fit a block's shared
+    memory; a smaller tile does not fit; at most the float32 tile
+    wherever both fit."""
+    assert lk.b2c_rows(B, H, *H100, 2) == rows
+    for r in lk.PERSISTENT_ROWS:
+        fits = (-(-B // r) * -(-H // (256 // r)) <= H100[0]
+                and _bf16_bwd_smem(H, r) <= H100[1])
+        if rows is None or r < rows:
+            assert not fits, r
+        elif r == rows:
+            assert fits
+    f32 = lk.b2c_rows(B, H, *H100)
     assert f32 is None or (rows is not None and rows <= f32)
 
 
@@ -364,8 +480,9 @@ def test_bf16_design_2_counts_have_their_own_keys_and_stay_zero_on_cpu():
             ("lstm_bwd_weights", "wgmma_bf16"),
             ("lstm_fwd", "cluster_bf16"),
             ("lstm_bwd_weights", "tiled_bf16")} <= set(lk.LAUNCHES_BY_DESIGN)
-    assert ("lstm_bwd", "persistent_bf16") not in lk.LAUNCHES_BY_DESIGN
+    assert ("lstm_bwd", "persistent_bf16") in lk.LAUNCHES_BY_DESIGN
     lk.LAUNCHES_BY_DESIGN[("lstm_fwd", "persistent_bf16")] = 3
+    lk.LAUNCHES_BY_DESIGN[("lstm_bwd", "persistent_bf16")] = 3
     lk.LAUNCHES_BY_DESIGN[("lstm_bwd_weights", "wgmma_bf16")] = 3
     lk.reset_counts()
     jin, _ = _inputs(lk.PERSISTENT_MIN_STEPS, 3, 8)

@@ -4,24 +4,30 @@
     python3 tools/torch_b2_bf16_phases.py [--shape T,B,H]
 
 The forward (`persist::lstm_fwd_persistent_bf16_kernel`, B2a with
-residuals): builds `csrc/lstm.cu` five times, each a copy of the package
-under `deeplearning4j_tpu_torch/_build/phases_bf16/<variant>/` with one
-edit of the kernel's source:
+residuals) and the recurrence of the backward
+(`persist::lstm_bwd_persistent_bf16_kernel`, B2c's dxw, dh0, dc0):
+builds `csrc/lstm.cu` six times, each a copy of the package under
+`deeplearning4j_tpu_torch/_build/phases_bf16/<variant>/` with edits of
+both kernels' source:
 
 - `full`: as it is;
-- `no_product`: the step's `mma.sync` loop runs no iteration;
-- `no_copy`: the step copies no h tile from the global buffer;
+- `no_product`: the step's `mma.sync` loop runs no iteration (both);
+- `no_copy`: the forward's step copies no h tile from the global buffer,
+  the backward's exchange reads no partial;
 - `no_barrier`: the step's tile barrier is a block barrier
-  (`__syncthreads`);
-- `none`: all three (the cell, the stores and the block barriers left).
+  (`__syncthreads`; both);
+- `none`: all three (the cell, the stores and the block barriers left);
+- `no_stage`: neither kernel stages its strip of RW (the 16-byte copy
+  loop, taken where H is a multiple of 8, runs no iteration).
 
 The knocked-out kernels compute wrong outputs: they are timed, never
 used. Each variant, in a process of its own, times `launch_fwd(...,
-"persistent")` (CUDA events around each launch after a 256 MB L2 flush,
-20 launches after 3) at the shape (default path_l's, T 128, B 64, H 512,
-unmasked) and at T 8; `full` also at T 1. A step's cost is (ms at T -
-ms at 8) / (T - 8); the launch's fixed cost (the strip's staging) is ms
-at 8 less 8 steps.
+"persistent")` and `launch_bwd_recurrence(..., "persistent")` (CUDA
+events around each launch after a 256 MB L2 flush, 20 launches after 3)
+at the shape (default path_l's, T 128, B 64, H 512, unmasked) and at T
+8; `full` also at T 1. A step's cost is (ms at T - ms at 8) / (T - 8);
+the launch's fixed cost is ms at 8 less 8 steps, and the strip's
+staging is `full` less `no_stage` at T.
 
 The weight product (`wg::lstm_drw_wgmma_kernel`, B2c's dRW): the clusters
 of each size (1-8 blocks) the card runs at once
@@ -48,6 +54,7 @@ PKG = ROOT / "deeplearning4j_tpu_torch"
 WORK = PKG / "_build" / "phases_bf16"
 
 EDITS = {
+    # the forward
     "product": ("    for (int s0 = 0; s0 < ksteps; s0 += 4) {",
                 "    for (int s0 = 0; s0 < 0; s0 += 4) {"),
     "copy": ("    for (int idx = threadIdx.x; idx < BR * chunks; "
@@ -58,16 +65,36 @@ EDITS = {
                 "H + j] = E::st",
                 "    __syncthreads();\n  }\n  if (col_ok && row_ok) {\n    "
                 "a.hT[(size_t)b * H + j] = E::st"),
+    "stage": ("    for (int idx = threadIdx.x; idx < HK / 2 * CH; "
+              "idx += kThreads) {",
+              "    for (int idx = threadIdx.x; idx < 0; idx += kThreads) {"),
+    # the backward's recurrence
+    "b_product": ("    for (int i0 = warp; i0 < tiles; i0 += 4 * kWarps) {",
+                  "    for (int i0 = warp; i0 < 0; i0 += 4 * kWarps) {"),
+    "b_exchange": ("    if (col_ok) {\n      const float* in = a.part + "
+                   "((size_t)(t & 1) * S * Bp + b) * HK + j;",
+                   "    if (false) {\n      const float* in = a.part + "
+                   "((size_t)(t & 1) * S * Bp + b) * HK + j;"),
+    "b_barrier": ("    tile_barrier(counter, target);   // every block's "
+                  "bf16 partial is out",
+                  "    __syncthreads();"),
+    "b_stage": ("    for (int idx = threadIdx.x; idx < HK * CH; "
+                "idx += kThreads) {",
+                "    for (int idx = threadIdx.x; idx < 0; "
+                "idx += kThreads) {"),
 }
 VARIANTS = {
     "full": (),
-    "no_product": ("product",),
-    "no_copy": ("copy",),
-    "no_barrier": ("barrier",),
-    "none": ("product", "copy", "barrier"),
+    "no_product": ("product", "b_product"),
+    "no_copy": ("copy", "b_exchange"),
+    "no_barrier": ("barrier", "b_barrier"),
+    "none": ("product", "copy", "barrier", "b_product", "b_exchange",
+             "b_barrier"),
+    "no_stage": ("stage", "b_stage"),
 }
 
-# run in each variant's copy: prints {T: ms} for the lengths given
+# run in each variant's copy: prints {"fwd": {T: ms}, "bwd": {T: ms}} for
+# the lengths given
 TIMER = r"""
 import json, sys, torch
 from deeplearning4j_tpu_torch.ops import lstm as lk
@@ -88,15 +115,22 @@ def time_ms(fn, iters=20):
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in ev) / iters
 
-out = {}
+out = {"fwd": {}, "bwd": {}}
 for t in (int(v) for v in sys.argv[3:]):
     g = torch.Generator().manual_seed(0)
     rnd = lambda *s, scale=1.0: (scale * torch.randn(*s, generator=g)).to(
         dev, torch.bfloat16)
-    ins = (rnd(t, B, 4 * H), rnd(H, 4 * H, scale=H ** -0.5),
-           rnd(3, H, scale=.5), rnd(B, H, scale=.5), rnd(B, H, scale=.5),
-           torch.ones(t, B, device=dev, dtype=torch.bfloat16))
-    out[t] = time_ms(lambda: lk.launch_fwd(*ins, True, "persistent"))
+    rw, p = rnd(H, 4 * H, scale=H ** -0.5), rnd(3, H, scale=.5)
+    c0, mask = rnd(B, H, scale=.5), torch.ones(t, B, device=dev,
+                                               dtype=torch.bfloat16)
+    ins = (rnd(t, B, 4 * H), rw, p, rnd(B, H, scale=.5), c0, mask)
+    out["fwd"][t] = time_ms(lambda: lk.launch_fwd(*ins, True, "persistent"))
+    # the backward's residuals: gates in (0, 1), cells and cotangents
+    gates = torch.sigmoid(rnd(t, B, 4 * H))
+    bw = (rw, p, mask, rnd(t, B, H, scale=.5), gates, c0, rnd(t, B, H),
+          rnd(B, H), rnd(B, H))
+    out["bwd"][t] = time_ms(
+        lambda: lk.launch_bwd_recurrence(*bw, "persistent"))
 print(json.dumps(out))
 """
 
@@ -192,29 +226,37 @@ def main() -> int:
         return 2
     dirs = {name: make_variant(name, edits)
             for name, edits in VARIANTS.items()}
-    # the five builds at once, one nvcc each
+    # the six builds at once, one nvcc each
     builds = [subprocess.Popen(
         [sys.executable, "-c", "from deeplearning4j_tpu_torch.ops import "
          "cuda_build; cuda_build.build(['lstm'])"], cwd=d)
         for d in dirs.values()]
     if any(b.wait() for b in builds):
         return 1
-    ms, step_us = {}, {}
+    ms = {k: {} for k in ("fwd", "bwd")}
     for name, d in dirs.items():
         lengths = (T, 8, 1) if name == "full" else (T, 8)
-        ms[name] = {int(k): v for k, v in
-                    run(TIMER, d, B, H, *lengths).items()}
-        step_us[name] = (ms[name][T] - ms[name][8]) / (T - 8) * 1e3
-    full = step_us["full"]
+        got = run(TIMER, d, B, H, *lengths)
+        for k in ms:
+            ms[k][name] = {int(t): v for t, v in got[k].items()}
+
+    def split(kernel, copy):
+        m = ms[kernel]
+        step_us = {name: (m[name][T] - m[name][8]) / (T - 8) * 1e3
+                   for name in m}
+        full = step_us["full"]
+        return {"ms": m, "step_us": step_us,
+                "fixed_us": m["full"][8] * 1e3 - 8 * full,
+                "staging_us": (m["full"][T] - m["no_stage"][T]) * 1e3,
+                "share_us": {"product": full - step_us["no_product"],
+                             copy: full - step_us["no_copy"],
+                             "barrier": full - step_us["no_barrier"],
+                             "rest": step_us["none"]}}
+
     print(json.dumps({
         "T": T, "B": B, "H": H,
-        "forward": {
-            "ms": ms, "step_us": step_us,
-            "fixed_us": ms["full"][8] * 1e3 - 8 * full,
-            "share_us": {"product": full - step_us["no_product"],
-                         "copy": full - step_us["no_copy"],
-                         "barrier": full - step_us["no_barrier"],
-                         "rest": step_us["none"]}},
+        "forward": split("fwd", "copy"),
+        "backward": split("bwd", "exchange"),
         "weights": run(WEIGHTS, ROOT, T, B, H)}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
