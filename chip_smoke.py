@@ -43,8 +43,10 @@ exits non-zero with no result line:
      two launches of design 2 bit-equal;
    - the fused Adam B1a over the training path's leaves and odd sizes,
      float32 and bfloat16, steps 1 and 1000, over LeNet's bfloat16
-     leaves (`path_m`) and over `path_p`'s VAE and center-loss head
-     (float32, step 12), against
+     leaves (`path_m`), over `path_p`'s VAE and center-loss head
+     (float32, step 12) and over `path_i`'s InceptionResNetV1 (every
+     leaf, Adam(1e-3), step 4) and Keras VGG transfer head (its
+     unfrozen leaves, Adam(1e-5), step 6), against
      `torch.optim.Adam(fused=True)` (which puts ε inside the bias
      correction: a time yardstick, not the same function);
    - the fused LSTM forward B2a (with residuals) and B2b (inference) and
@@ -62,7 +64,9 @@ exits non-zero with no result line:
      product "pipelined", design 1 "tiled"), both designs of both
      launches held to the plain backward at every shape with T > 1;
    - the fused Nesterovs B1b over the LSTM training path's leaves and
-     odd sizes, float32 and bfloat16, against `torch.optim.SGD(momentum,
+     odd sizes, float32 and bfloat16, and over `path_p`'s first RBM and
+     `path_i`'s GoogLeNet and AlexNet (every leaf, float32, momentum
+     0.9), against `torch.optim.SGD(momentum,
      nesterov=True, fused=True)` (PyTorch's form of Nesterov momentum,
      not ND4J's: a time yardstick);
    - the conv+BN statistics kernels B7a (1x1 as a matmul) and B7b (3x3
@@ -212,6 +216,22 @@ exits non-zero with no result line:
     step (the source's reshuffle and slices, the fit loop's wait for a
     batch, its enqueue), the idle share (profiler) and the pump's hit
     ratio.
+22. path_i: the rest of the CNN family and model import (slice 21) at
+    full width, float32: GoogLeNet (224x224x3, 1000 classes, batch 32,
+    6 steps, Nesterovs: B1b once a step), InceptionResNetV1 (160x160x3,
+    batch 32, 4 steps, Adam: B1a), AlexNet (224x224x3, batch 64, 6
+    steps, B1b), and a VGG16-shaped Keras Sequential configuration
+    (`keras_vgg`: DepthwiseConv2D, SeparableConv2D, Conv2DTranspose,
+    UpSampling2D and Cropping2D among its convolutions, a 4096-4096
+    dense head) imported from its JSON with Keras-layout weights from
+    numpy, its convolution stack frozen by `TransferLearning`, its head
+    replaced by 10 classes, 6 Adam(1e-5) steps (B1a over the head alone,
+    the frozen tensors bit-equal). Each: step ms p50, images/s, B1a/B1b
+    launches equal to the steps, finite losses, and the card's
+    pre-softmax outputs against the port's on the CPU on the same
+    weights; before the VGG fit, one Adam step on one batch at lr 1e-5
+    and 1e-7 from the same weights, that batch's loss read before and
+    after (the gradient points down: the smaller step lowers it).
 
 Weights are random, from fixed seeds. Each path resets the kernels'
 launch counts just before it runs and reads them just after; a kernel
@@ -223,6 +243,7 @@ card's name and power limit, and `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1082,6 +1103,48 @@ def run_banded_case(c, flush, gen):
 
 
 # ------------------------------------------------- kernels: Adam (B1a)
+PATH_I_LEAVES = ("inception_resnet_v1", "vgg_head", "googlenet", "alexnet")
+
+
+def shapes_of_leaves(tree):
+    from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
+
+    return [tuple(p.shape) for p in tree_leaves(tree)]
+
+
+def path_i_leaves():
+    """The leaf shapes of `path_i`'s two B1a updates: every leaf of
+    InceptionResNetV1 at 160x160x3 and 1000 classes, and the unfrozen
+    layers' leaves of the Keras VGG transfer (`vgg_transfer`)."""
+    from deeplearning4j_tpu_torch import zoo
+
+    net = zoo.InceptionResNetV1(num_classes=1000,
+                                input_shape=(160, 160, 3)).init(device="cuda")
+    irv1 = shapes_of_leaves(net.params_tree)
+    del net
+    net = vgg_transfer(*keras_vgg(np.random.default_rng(22)))
+    head = [s for layer in net.layers if not layer.frozen
+            for s in shapes_of_leaves(net.params_tree[layer.name])]
+    del net
+    torch.cuda.empty_cache()
+    return irv1, head
+
+
+def path_i_nesterov_leaves():
+    """The leaf shapes of `path_i`'s two B1b updates: every leaf of
+    GoogLeNet and of AlexNet at 224x224x3 and 1000 classes."""
+    from deeplearning4j_tpu_torch import zoo
+
+    out = []
+    for model in (zoo.GoogLeNet, zoo.AlexNet):
+        net = model(num_classes=1000, input_shape=(224, 224, 3)).init(
+            device="cuda")
+        out.append(shapes_of_leaves(net.params_tree))
+        del net
+    torch.cuda.empty_cache()
+    return out
+
+
 def adam_bound(n, esize):
     """Bytes bound: read p, g, m, v and write p, m, v once (7 tensors of
     n elements) over HBM bandwidth; ~12 flops an element is far below."""
@@ -1096,16 +1159,16 @@ def run_adam_phase(flush, gen):
     leaves (`path_m`'s update: 431,080 parameters, Adam(1e-3), step 12)
     and over `path_p`'s two float32 updates at step 12: the VAE's 14
     leaves (535,828 elements, Adam(1e-3)) and the fine-tune's
-    center-loss head, 30 x 10 and 10 (Adam(1e-2))."""
+    center-loss head, 30 x 10 and 10 (Adam(1e-2)); and over `path_i`'s
+    two float32 updates: InceptionResNetV1's leaves (Adam(1e-3), step 4)
+    and the Keras VGG transfer's unfrozen head (a 25088 x 4096 leaf
+    among them; Adam(1e-5), step 6), their inputs drawn on the card from
+    a generator of their own."""
     from deeplearning4j_tpu_torch.models import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import fused_update as fu
-    from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
 
     dev = flush.device
-
-    def shapes_of(tree):
-        return [tuple(p.shape) for p in tree_leaves(tree)]
-
+    shapes_of = shapes_of_leaves
     real = shapes_of(build_net("cuda", num_blocks=6, seed=3).params_tree)
     lenet = shapes_of(MultiLayerNetwork(lenet_conf(), device="cuda")
                       .init().params_tree)
@@ -1114,7 +1177,9 @@ def run_adam_phase(flush, gen):
     ft = finetune_net("cuda", [])
     head = shapes_of(ft.params_tree[ft.conf.layers[-1].name])
     del ft
+    irv1, vgg_head = path_i_leaves()
     odd = [(1,), (127,), (4097,), ((1 << 20) + 3,)]
+    igen = torch.Generator(device=dev).manual_seed(21)
     rows = []
     cases = [(dt, step, leafset, hyper, 3e-4)
              for dt in (torch.float32, torch.bfloat16) for step in (1, 1000)
@@ -1122,19 +1187,30 @@ def run_adam_phase(flush, gen):
                                     ("odd", (0.8, 0.99, 1e-6)))]
     cases += [(torch.bfloat16, 12, "lenet", (0.9, 0.999, 1e-8), 1e-3),
               (torch.float32, 12, "vae", (0.9, 0.999, 1e-8), 1e-3),
-              (torch.float32, 12, "head", (0.9, 0.999, 1e-8), 1e-2)]
+              (torch.float32, 12, "head", (0.9, 0.999, 1e-8), 1e-2),
+              (torch.float32, 4, "inception_resnet_v1", (0.9, 0.999, 1e-8),
+               1e-3),
+              (torch.float32, 6, "vgg_head", (0.9, 0.999, 1e-8), 1e-5)]
     for dt, step, leafset, hyper, lr in cases:
         shapes = {"real": real, "odd": odd, "lenet": lenet, "vae": vae,
-                  "head": head}[leafset]
+                  "head": head, "inception_resnet_v1": irv1,
+                  "vgg_head": vgg_head}[leafset]
         b1, b2, eps = hyper
         t = step + 1
         lrbc = torch.tensor(lr * (1 - b2 ** t) ** 0.5
                             / (1 - b1 ** t), device=dev)
-        leaves = [(torch.randn(s, generator=gen).to(dev, dt),
-                   torch.randn(s, generator=gen).to(dev, dt),
-                   (0.1 * torch.randn(s, generator=gen)).to(dev, dt),
-                   torch.rand(s, generator=gen).to(dev, dt))
-                  for s in shapes]
+        if leafset in PATH_I_LEAVES:
+            leaves = [(torch.randn(s, generator=igen, device=dev),
+                       torch.randn(s, generator=igen, device=dev),
+                       0.1 * torch.randn(s, generator=igen, device=dev),
+                       torch.rand(s, generator=igen, device=dev))
+                      for s in shapes]
+        else:
+            leaves = [(torch.randn(s, generator=gen).to(dev, dt),
+                       torch.randn(s, generator=gen).to(dev, dt),
+                       (0.1 * torch.randn(s, generator=gen)).to(dev, dt),
+                       torch.rand(s, generator=gen).to(dev, dt))
+                      for s in shapes]
         ref = [fu.adam_update_plain(*leaf, lrbc, beta1=b1, beta2=b2,
                                     eps=eps) for leaf in leaves]
         fu.adam_update(*zip(*leaves), lrbc, beta1=b1, beta2=b2,
@@ -1157,7 +1233,7 @@ def run_adam_phase(flush, gen):
                "dtype": str(dt).replace("torch.", ""), "step": step,
                "leaves": leafset, "n_leaves": len(leaves),
                "elements": n, "beta1": b1, "beta2": b2, "eps": eps,
-               "max_abs_err": err, "rtol": rtol,
+               "max_abs_err": err, "rtol": rtol, "lr": lr,
                "main_path_shape": main}
         row["bound_ms"], row["bound_by"] = adam_bound(
             n, leaves[0][0].element_size())
@@ -1186,9 +1262,12 @@ def run_adam_phase(flush, gen):
 def run_nesterov_phase(flush, gen):
     """B1b against its plain version over the LSTM training path's real
     leaves (its Nesterovs(0.01, 0.9)) and odd sizes (another momentum),
-    float32 and bfloat16, and over `path_p`'s first RBM's leaves (784 x
-    1000, float32: its largest pretrain step). Bound: read p, g, v and write p, v once (5
-    tensors of n elements) over HBM bandwidth."""
+    float32 and bfloat16, over `path_p`'s first RBM's leaves (784 x
+    1000, float32: its largest pretrain step) and over `path_i`'s
+    GoogLeNet and AlexNet (every leaf, float32, their Nesterovs(1e-2,
+    0.9); inputs drawn on the card from a generator of their own).
+    Bound: read p, g, v and write p, v once (5 tensors of n elements)
+    over HBM bandwidth."""
     from deeplearning4j_tpu_torch.ops import fused_update as fu
     from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
 
@@ -1200,16 +1279,26 @@ def run_nesterov_phase(flush, gen):
     rows = []
     # path_p's largest pretrain step: the first RBM's W, hb, vb
     rbm = [(DEEP_AE[0], DEEP_AE[1]), (DEEP_AE[1],), (DEEP_AE[0],)]
+    googlenet, alexnet = path_i_nesterov_leaves()
+    igen = torch.Generator(device=dev).manual_seed(21)
     for dt in (torch.float32, torch.bfloat16):
-        for leafset, mu in (("real", 0.9), ("odd", 0.8), ("rbm", 0.9)):
-            if leafset == "rbm" and dt != torch.float32:
+        for leafset, mu in (("real", 0.9), ("odd", 0.8), ("rbm", 0.9),
+                            ("googlenet", 0.9), ("alexnet", 0.9)):
+            if leafset not in ("real", "odd") and dt != torch.float32:
                 continue
-            shapes = {"real": real, "odd": odd, "rbm": rbm}[leafset]
+            shapes = {"real": real, "odd": odd, "rbm": rbm,
+                      "googlenet": googlenet, "alexnet": alexnet}[leafset]
             lr = torch.tensor(0.01, device=dev)
-            leaves = [(torch.randn(s, generator=gen).to(dev, dt),
-                       torch.randn(s, generator=gen).to(dev, dt),
-                       (0.1 * torch.randn(s, generator=gen)).to(dev, dt))
-                      for s in shapes]
+            if leafset in PATH_I_LEAVES:
+                leaves = [(torch.randn(s, generator=igen, device=dev),
+                           torch.randn(s, generator=igen, device=dev),
+                           0.1 * torch.randn(s, generator=igen, device=dev))
+                          for s in shapes]
+            else:
+                leaves = [(torch.randn(s, generator=gen).to(dev, dt),
+                           torch.randn(s, generator=gen).to(dev, dt),
+                           (0.1 * torch.randn(s, generator=gen)).to(dev, dt))
+                          for s in shapes]
             ref = [fu.nesterov_update_plain(*leaf, lr, momentum=mu)
                    for leaf in leaves]
             fu.nesterov_update(*zip(*leaves), lr, momentum=mu)
@@ -3022,9 +3111,12 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
     check(sum(plain_on_cuda.values()) == 0,
           f"{name}: plain versions ran on CUDA tensors: {plain_on_cuda}")
     graphs = net._graphs.stats.get("fit", {})
-    rates = {f"{unit}_per_s_steps_5_12": (steps - 4) * tokens_per_step
-             / (ev[4].elapsed_time(ev[steps]) / 1e3)}
-    if k == 1:
+    rates = {}
+    if steps > 4:
+        rates[f"{unit}_per_s_steps_5_12"] = (
+            (steps - 4) * tokens_per_step
+            / (ev[4].elapsed_time(ev[steps]) / 1e3))
+    if k == 1 and steps > 2:
         rates[f"{unit}_per_s_steps_3_12"] = (
             (steps - 2) * tokens_per_step
             / (ev[2].elapsed_time(ev[steps]) / 1e3))
@@ -5760,6 +5852,284 @@ def path_m_async(epochs=3, batch=1024, per_epoch=4, reps=3):
     return row
 
 
+# ------------------------------------ the CNN family and model import (A2b)
+# card against CPU on the same weights: the largest |card - CPU| of the
+# pre-softmax outputs over the largest |CPU| one (float32, TF32 off)
+I_LOGIT_RTOL = 1e-5
+
+
+def keras_vgg(rng, size=224, classes=1000, div=1):
+    """A VGG16-shaped Keras Sequential configuration (five blocks of 3x3
+    convolutions at 64-128-256-512-512 channels over `div`, max pools to
+    7x7, a 4096-4096-`classes` dense head) with the slice's layers among
+    its convolutions: DepthwiseConv2D and SeparableConv2D in blocks 1-3,
+    and block 5 as UpSampling2D, a stride-2 Conv2D, a Conv2DTranspose
+    (valid: truncate, p 0) and Cropping2D. Returns (the model's JSON,
+    Keras layer name -> its weights in Keras's layouts, He-scaled,
+    float32, from `rng`), and the index of the last convolution-stack
+    layer among the port's layers (Flatten maps to none)."""
+    def c(n):
+        return max(n // div, 1)
+
+    layers, weights = [], {}
+    ch = [3]
+
+    def he(shape, fan_in):
+        return (rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)
+                ).astype(np.float32)
+
+    def add(cls, cfg, w=None, out=None):
+        name = f"{cls.lower()}_{len(layers)}"
+        cfg = dict(cfg, name=name)
+        if not layers:
+            cfg["batch_input_shape"] = [None, size, size, 3]
+        layers.append({"class_name": cls, "config": cfg})
+        if w:
+            weights[name] = w
+        if out:
+            ch[0] = out
+
+    def conv(n, k=3, stride=1, padding="same"):
+        add("Conv2D", {"filters": n, "kernel_size": [k, k],
+                       "strides": [stride, stride], "padding": padding,
+                       "activation": "relu", "use_bias": True},
+            [he((k, k, ch[0], n), k * k * ch[0]),
+             np.zeros(n, np.float32)], n)
+
+    def pool():
+        add("MaxPooling2D", {"pool_size": [2, 2], "strides": [2, 2],
+                             "padding": "valid"})
+
+    conv(c(64))
+    add("DepthwiseConv2D", {"kernel_size": [3, 3], "strides": [1, 1],
+                            "padding": "same", "depth_multiplier": 1,
+                            "activation": "relu", "use_bias": True},
+        [he((3, 3, ch[0], 1), 9), np.zeros(ch[0], np.float32)])
+    pool()
+    for n in (c(128), c(256)):
+        add("SeparableConv2D", {"filters": n, "kernel_size": [3, 3],
+                                "strides": [1, 1], "padding": "same",
+                                "depth_multiplier": 1, "activation": "relu",
+                                "use_bias": True},
+            [he((3, 3, ch[0], 1), 9), he((1, 1, ch[0], n), ch[0]),
+             np.zeros(n, np.float32)], n)
+        conv(n)
+        if n == c(256):
+            conv(n)
+        pool()
+    for _ in range(3):
+        conv(c(512))
+    pool()                                          # 14
+    add("UpSampling2D", {"size": [2, 2]})           # 28
+    conv(c(512), stride=2, padding="valid")         # 13
+    n = c(512)
+    add("Conv2DTranspose", {"filters": n, "kernel_size": [3, 3],
+                            "strides": [1, 1], "padding": "valid",
+                            "activation": "relu", "use_bias": True},
+        [he((3, 3, n, ch[0]), 9 * ch[0]), np.zeros(n, np.float32)], n)
+    add("Cropping2D", {"cropping": [[1, 0], [1, 0]]})   # 15 -> 14
+    pool()                                          # 7
+    last_conv = len(layers) - 1
+    add("Flatten", {})
+    flat = ch[0] * (size // 32) ** 2
+    for i, n in enumerate((c(4096), c(4096), classes)):
+        fan = flat if i == 0 else c(4096)
+        add("Dense", {"units": n, "use_bias": True,
+                      "activation": "softmax" if n == classes else "relu"},
+            [he((fan, n), fan), np.zeros(n, np.float32)])
+    conf = {"class_name": "Sequential", "config": {"layers": layers}}
+    return json.dumps(conf), weights, last_conv
+
+
+def logit_conf(conf):
+    """`conf` with its output layer's activation set to identity: the
+    same net's pre-softmax outputs (a graph's first output)."""
+    def ident(layer):
+        return dataclasses.replace(layer, activation="identity")
+
+    if hasattr(conf, "vertices"):
+        out = conf.network_outputs[0]
+        v = conf.vertices[out]
+        return dataclasses.replace(conf, vertices={
+            **conf.vertices, out: dataclasses.replace(v, layer=ident(v.layer))})
+    return dataclasses.replace(
+        conf, layers=(*conf.layers[:-1], ident(conf.layers[-1])))
+
+
+def card_vs_cpu_gaps(net, x):
+    """The card's outputs of `x` against the CPU's (plain versions) on
+    the net's trained weights and running statistics, copied into twins
+    of its configuration: (largest |card - CPU| of `output(x)`, largest
+    |card - CPU| of the pre-softmax outputs over the largest |CPU| one,
+    that largest |CPU| one). The pre-softmax outputs come from twins
+    whose output layer's activation is identity (`logit_conf`), on the
+    card and on the CPU."""
+    from deeplearning4j_tpu_torch.models.convert import (
+        params_from_numpy, state_from_numpy,
+    )
+    from deeplearning4j_tpu_torch.utils.pytrees import tree_to_numpy
+
+    params = tree_to_numpy(net.params_tree)
+    state = tree_to_numpy(net.state_tree)
+
+    def twin(conf, device):
+        t = type(net)(conf, device=device).init()
+        params_from_numpy(t, params)
+        state_from_numpy(t, state)
+        return t
+
+    def out(n):
+        y = n.output(x)
+        y = y[0] if isinstance(y, (list, tuple)) else y
+        check(bool(torch.isfinite(y).all()), f"{n.device} output not finite")
+        return y.float().cpu()
+
+    card, cpu = out(net), out(twin(net.conf, "cpu"))
+    check(tuple(card.shape) == tuple(cpu.shape),
+          f"output shapes {tuple(card.shape)} != {tuple(cpu.shape)}")
+    lconf = logit_conf(net.conf)
+    lcard, lcpu = out(twin(lconf, "cuda")), out(twin(lconf, "cpu"))
+    scale = float(lcpu.abs().max())
+    return (float((card - cpu).abs().max()),
+            float((lcard - lcpu).abs().max()) / scale, scale)
+
+
+def vgg_transfer(text, weights, last_conv, lr=1e-5):
+    """`path_i`'s Keras VGG transfer on the card: `keras_vgg`'s
+    configuration imported with its weights, its convolution stack
+    frozen, its head's n_out replaced by 10 (Xavier), the head
+    fine-tuned under Adam(`lr`)."""
+    from deeplearning4j_tpu_torch.keras_import import (
+        import_keras_configuration,
+    )
+    from deeplearning4j_tpu_torch.models.transfer import (
+        FineTuneConfiguration, TransferLearning,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    src = import_keras_configuration(text, device="cuda", weights=weights)
+    return (TransferLearning.builder(src)
+            .fine_tune_configuration(FineTuneConfiguration(
+                updater=Adam(lr)))
+            .set_feature_extractor(last_conv)
+            .n_out_replace(len(src.layers) - 1, 10, weight_init="xavier")
+            .build())
+
+
+def vgg_descent_probe(text, weights, last_conv, batch, lrs=(1e-5, 1e-7)):
+    """One Adam step of the VGG transfer on `batch` at each of `lrs`,
+    each from the imported weights: {lr: (the batch's loss before, after)}.
+    Adam's first step is about lr·sign(g), so its first-order change of
+    the loss is -lr·|g|_1: the smallest lr must lower the loss, or the
+    gradient is wrong."""
+    probe = {}
+    for lr in lrs:
+        net = vgg_transfer(text, weights, last_conv, lr)
+        before = net.score(batch)
+        net.fit([batch], epochs=1)
+        probe[str(lr)] = [before, net.score(batch)]
+        del net
+        torch.cuda.empty_cache()
+    low = probe[str(min(lrs))]
+    check(low[1] < low[0], f"path_i_keras_vgg: one Adam step at lr "
+          f"{min(lrs)} raised the batch's loss {low[0]} -> {low[1]}")
+    return probe
+
+
+def path_i_model(name, net, batches, epochs, kernel, frozen=(),
+                 cpu_rows=2, **info):
+    """`timed_fit` of one path_i model: `kernel` (B1a or B1b) once a
+    step and the other updater kernel never; finite losses; the tensors
+    of the `frozen` layers bit-equal after the fit; then the card's
+    pre-softmax outputs of `cpu_rows` images against the CPU's
+    (`card_vs_cpu_gaps`), held to `I_LOGIT_RTOL`."""
+    other = {"adam_update": "nesterov_update",
+             "nesterov_update": "adam_update"}[kernel]
+    before = {(n, k): t.clone() for n in frozen
+              for k, t in net.params_tree[n].items()}
+    batch = batches[0].features.shape[0]
+    fit = timed_fit(name, net, batches, epochs, batch, unit="images",
+                    loss_must_fall=False)
+    steps, launches = fit["steps"], fit["launches"]
+    check(launches[kernel] == steps,
+          f"{name}: {kernel} launched {launches[kernel]} times, want one "
+          f"a step x {steps}")
+    check(launches[other] == 0, f"{name}: {other} launched "
+          f"{launches[other]} times")
+    frozen_equal = all(torch.equal(net.params_tree[n][k], t)
+                       for (n, k), t in before.items())
+    check(frozen_equal, f"{name}: a frozen tensor moved")
+    gap, logit_gap, scale = card_vs_cpu_gaps(
+        net, batches[0].features[:cpu_rows])
+    check(logit_gap <= I_LOGIT_RTOL, f"{name}: card and CPU pre-softmax "
+          f"outputs differ by {logit_gap} of their largest |value| {scale}")
+    updater = net.layers[-1].updater if hasattr(net, "layers") else None
+    row = {"phase": name, **info, "batch": batch, "dtype": "float32",
+           "updater": str(updater or net.conf.updater), "steps": steps,
+           "step_ms_p50": fit["step_ms_p50"], "step_ms_max":
+           fit["step_ms_max"], "step_ms_first": fit["step_ms_first"],
+           "images_per_s": batch * (steps - 1)
+           / (sum(fit["step_ms"][1:]) / 1e3),
+           "adam_update_launches": launches["adam_update"],
+           "nesterov_update_launches": launches["nesterov_update"],
+           "losses": fit["losses"], "losses_finite": True,
+           "frozen_tensors": len(before),
+           "frozen_bit_equal": frozen_equal if before else None,
+           "max_output_abs_err_card_vs_cpu": gap,
+           "logit_rel_err_card_vs_cpu": logit_gap,
+           "logit_max_abs_cpu": scale, "tol_logit_rel": I_LOGIT_RTOL,
+           "cpu_rows": cpu_rows,
+           "max_memory_allocated_bytes": fit["max_memory_allocated_bytes"],
+           "launches": {k: launches[k] for k in ("adam_update",
+                                                 "nesterov_update")}}
+    emit(row)
+    return row
+
+
+def path_i(rng):
+    """GoogLeNet, InceptionResNetV1, AlexNet at their published widths
+    and the Keras VGG16-shaped transfer (module docstring, 22)."""
+    from deeplearning4j_tpu_torch import zoo
+
+    rows = {}
+    for key, model, size, batch, n, epochs, kernel in (
+            ("googlenet", zoo.GoogLeNet, 224, 32, 3, 2, "nesterov_update"),
+            ("inception_resnet_v1", zoo.InceptionResNetV1, 160, 32, 2, 2,
+             "adam_update"),
+            ("alexnet", zoo.AlexNet, 224, 64, 3, 2, "nesterov_update")):
+        net = model(num_classes=1000, input_shape=(size, size, 3)).init(
+            device="cuda")
+        rows[key] = path_i_model(
+            f"path_i_{key}", net, image_batches(rng, n, batch, size, 1000),
+            epochs, kernel, model=model.__name__,
+            input=[size, size, 3], classes=1000)
+        del net
+        torch.cuda.empty_cache()
+
+    text, weights, last_conv = keras_vgg(rng)
+    vgg_batches = image_batches(rng, 3, 32, 224, 10)
+    probe = vgg_descent_probe(text, weights, last_conv, vgg_batches[0])
+    net = vgg_transfer(text, weights, last_conv)
+    frozen = [l.name for l in net.layers if l.frozen]
+    check(len(frozen) == last_conv + 1,
+          f"path_i_keras_vgg: {len(frozen)} frozen layers")
+    kinds = sorted({type(l).__name__ for l in net.layers})
+    for k in ("Cropping2DLayer", "Deconvolution2DLayer",
+              "DepthwiseConvolution2DLayer", "SeparableConvolution2DLayer",
+              "Upsampling2DLayer"):
+        check(k in kinds, f"path_i_keras_vgg: no {k} among {kinds}")
+    rows["keras_vgg"] = path_i_model(
+        "path_i_keras_vgg", net, vgg_batches, 2,
+        "adam_update", frozen=frozen, model="Keras VGG16-shaped Sequential",
+        input=[224, 224, 3], classes=10, frozen_layers=len(frozen),
+        layer_kinds=kinds, params=net.num_params(), descent_probe=probe)
+    del net
+    torch.cuda.empty_cache()
+    return {"rows": rows,
+            "launches": {k: sum(r["launches"][k] for r in rows.values())
+                         for k in ("adam_update", "nesterov_update")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -5861,6 +6231,7 @@ def main() -> int:
     pp = path_p()
     p_parity()
     ma = path_m_async()
+    pi = path_i(np.random.default_rng(22))
 
     b5q = {"banded_decode_attention_q":
            qb_fp8["launches"]["banded_decode_attention_q"]
@@ -5945,6 +6316,13 @@ def main() -> int:
         if name in ("adam_update", "nesterov_update"):
             summary[-1]["launches_path_p"] = pp["launches"][name]
             summary[-1]["launches_path_m_async"] = ma["launches"][name]
+            summary[-1]["launches_path_i"] = pi["launches"][name]
+        if name in ("adam_update", "nesterov_update"):
+            # path_i's updates, each over its model's leaves
+            summary[-1]["path_i"] = [{k: r[k] for k in (
+                "leaves", "dtype", "elements", "n_leaves", "ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err")} for r in mine if r["leaves"] in PATH_I_LEAVES]
         if name == "nesterov_update":
             rbm = next(r for r in mine if r["leaves"] == "rbm")
             summary[-1]["path_p"] = {k: rbm[k] for k in (

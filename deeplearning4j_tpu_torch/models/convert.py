@@ -30,31 +30,54 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(net, tree: Mapping[str, Any]):
+def params_from_numpy(net, tree: Mapping[str, Any], *,
+                      partial: bool = False, resize=()):
     """Load a JAX net's `params_tree` (as numpy) into the port's `net`
     in place, cast to the net's dtype on its device. The LSTM leaves (`W`
     [n_in, 4H], `RW` [H, 4H], `b` [4H], `P` [3, H]) have the same layout
     in both packages, and the bidirectional wrappers' nested `fwd`/`bwd`
     trees copy as they are. Raises KeyError on a missing or extra
-    layer/parameter and ValueError on a shape mismatch. Returns `net`."""
+    layer/parameter and ValueError on a shape mismatch. With `partial`
+    (an importer's arrays) `tree` may leave out layers and keys, which
+    keep their values; a key named in `resize` (a Keras PReLU's alpha,
+    which keeps Keras's shape) may take another shape, as a new tensor
+    of the net's dtype on its device. Returns `net`."""
     net._check_init()
-    if set(tree) != set(net.params_tree):
-        raise KeyError(f"layers differ: port {sorted(net.params_tree)}, "
-                       f"given {sorted(tree)}")
-    for lname, params in net.params_tree.items():
-        _copy_tree(params, tree[lname], lname)
+    _copy_layers(net.params_tree, tree, partial, frozenset(resize),
+                 net.dtype)
     return net
 
 
-def _copy_tree(dst: Any, src: Any, path: str) -> None:
-    """Copy nested numpy dicts into the same-shaped nested tensor dicts."""
+def _copy_layers(dst: Mapping[str, Any], tree: Mapping[str, Any],
+                 partial: bool = False, resize: frozenset = frozenset(),
+                 dtype=None) -> None:
+    """`_copy_tree` of each layer of `tree` into its entry of `dst`."""
+    if not (set(tree) <= set(dst) if partial else set(tree) == set(dst)):
+        raise KeyError(f"layers differ: port {sorted(dst)}, "
+                       f"given {sorted(tree)}")
+    for lname, src in tree.items():
+        _copy_tree(dst[lname], src, lname, partial, resize, dtype)
+
+
+@torch.no_grad()
+def _copy_tree(dst: Any, src: Any, path: str, partial: bool = False,
+               resize: frozenset = frozenset(), dtype=None) -> None:
+    """Copy nested numpy dicts into the same-shaped nested tensor dicts
+    (`params_from_numpy`'s `partial` and `resize`)."""
     if isinstance(dst, dict):
-        if not isinstance(src, Mapping) or set(src) != set(dst):
+        if not isinstance(src, Mapping) or not (
+                set(src) <= set(dst) if partial else set(src) == set(dst)):
             got = sorted(src) if isinstance(src, Mapping) else type(src)
             raise KeyError(f"{path}: keys differ: port {sorted(dst)}, "
                            f"given {got}")
-        for k, d in dst.items():
-            _copy_tree(d, src[k], f"{path}/{k}")
+        for k, v in src.items():
+            d = dst[k]
+            if k in resize and isinstance(d, torch.Tensor) and \
+                    tuple(np.shape(v)) != tuple(d.shape):
+                dst[k] = torch.tensor(np.asarray(v), dtype=dtype or d.dtype,
+                                      device=d.device)
+                continue
+            _copy_tree(d, v, f"{path}/{k}", partial, resize, dtype)
         return
     if isinstance(dst, tuple) and not dst:
         if src not in ((), None) and not (
@@ -75,24 +98,18 @@ def updater_state_from_numpy(net, tree: Mapping[str, Any]):
     missing or extra layer or moment, ValueError on a shape mismatch.
     Returns `net`."""
     net._check_init()
-    if set(tree) != set(net.updater_state):
-        raise KeyError(f"layers differ: port {sorted(net.updater_state)}, "
-                       f"given {sorted(tree)}")
-    for lname, state in net.updater_state.items():
-        _copy_tree(state, tree[lname], lname)
+    _copy_layers(net.updater_state, tree)
     return net
 
 
-def state_from_numpy(net, tree: Mapping[str, Any]):
+def state_from_numpy(net, tree: Mapping[str, Any], *,
+                     partial: bool = False):
     """Load a JAX net's `state_tree` (as numpy) into the port's `net` in
     place: the running mean/var of `BatchNormalization` (in the net's
     dtype) and of `FusedConvBNLayer` (float32), each cast to the port
     tensor's own dtype. Vertices or layers without state are empty dicts
-    on both sides. Checks as `params_from_numpy`. Returns `net`."""
+    on both sides. Checks and `partial` as `params_from_numpy`. Returns
+    `net`."""
     net._check_init()
-    if set(tree) != set(net.state_tree):
-        raise KeyError(f"layers differ: port {sorted(net.state_tree)}, "
-                       f"given {sorted(tree)}")
-    for lname, state in net.state_tree.items():
-        _copy_tree(state, tree[lname], lname)
+    _copy_layers(net.state_tree, tree, partial)
     return net

@@ -36,6 +36,18 @@ from deeplearning4j_tpu_torch.utils.serde import (
 )
 
 
+class GradientNormalization:
+    """Reference: `nn/conf/GradientNormalization.java` enum: the mode
+    strings `gradient_normalization(...)` takes."""
+
+    NONE = "none"
+    RENORMALIZE_L2_PER_LAYER = "renormalize_l2_per_layer"
+    RENORMALIZE_L2_PER_PARAM_TYPE = "renormalize_l2_per_param_type"
+    CLIP_ELEMENTWISE_ABSOLUTE_VALUE = "clip_elementwise_absolute_value"
+    CLIP_L2_PER_LAYER = "clip_l2_per_layer"
+    CLIP_L2_PER_PARAM_TYPE = "clip_l2_per_param_type"
+
+
 @register_serde
 @dataclasses.dataclass(frozen=True)
 class MultiLayerConfiguration:
@@ -328,8 +340,11 @@ def _expected_kind(layer: Layer, cur: InputType) -> str:
     `CONSUMES` first, then the layer's type."""
     from deeplearning4j_tpu_torch.nn.layers import (
         BaseRecurrentLayer, BatchNormalization, Bidirectional,
-        ConvolutionLayer, GlobalPoolingLayer, GravesBidirectionalLSTM,
-        LastTimeStep, MultiHeadAttention, RnnOutputLayer, SubsamplingLayer,
+        Convolution1DLayer, ConvolutionLayer, Cropping2DLayer,
+        DepthwiseConvolution2DLayer, GlobalPoolingLayer,
+        GravesBidirectionalLSTM, LastTimeStep, LocalResponseNormalization,
+        MultiHeadAttention, RnnOutputLayer, SeparableConvolution2DLayer,
+        Subsampling1DLayer, SubsamplingLayer, Upsampling2DLayer,
         ZeroPaddingLayer,
     )
 
@@ -339,12 +354,16 @@ def _expected_kind(layer: Layer, cur: InputType) -> str:
     if declared is not None:
         return declared
     if isinstance(layer, (ConvolutionLayer, SubsamplingLayer,
-                          ZeroPaddingLayer)):
+                          ZeroPaddingLayer, Upsampling2DLayer,
+                          Cropping2DLayer, DepthwiseConvolution2DLayer,
+                          SeparableConvolution2DLayer)):
         return "cnn"
     if isinstance(layer, (BaseRecurrentLayer, Bidirectional,
                           GravesBidirectionalLSTM, RnnOutputLayer,
-                          LastTimeStep, MultiHeadAttention)):
+                          LastTimeStep, Convolution1DLayer,
+                          Subsampling1DLayer, MultiHeadAttention)):
         return "rnn"
-    if isinstance(layer, (BatchNormalization, GlobalPoolingLayer)):
+    if isinstance(layer, (BatchNormalization, LocalResponseNormalization,
+                          GlobalPoolingLayer)):
         return cur.kind
     return "ff"

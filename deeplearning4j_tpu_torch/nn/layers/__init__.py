@@ -10,13 +10,17 @@ from deeplearning4j_tpu_torch.nn.layers.special import (
     RBM, CenterLossOutputLayer, FrozenLayer, VariationalAutoencoder,
 )
 from deeplearning4j_tpu_torch.nn.layers.convolution import (
-    ConvolutionLayer, FusedConvBNLayer, SpaceToDepthLayer, SubsamplingLayer,
-    ZeroPaddingLayer,
+    Convolution1DLayer, ConvolutionLayer, Cropping2DLayer,
+    Deconvolution2DLayer, DepthwiseConvolution2DLayer, FusedConvBNLayer,
+    SeparableConvolution2DLayer, SpaceToDepthLayer, Subsampling1DLayer,
+    SubsamplingLayer, Upsampling2DLayer, ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
-    BatchNormalization,
+    BatchNormalization, LayerNormalization, LocalResponseNormalization,
 )
-from deeplearning4j_tpu_torch.nn.layers.pooling import GlobalPoolingLayer
+from deeplearning4j_tpu_torch.nn.layers.pooling import (
+    GlobalPoolingLayer, PoolingType,
+)
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     GRU, LSTM, BaseRecurrentLayer, Bidirectional, GravesBidirectionalLSTM,
     GravesLSTM, LastTimeStep, RnnOutputLayer, SimpleRnn,
@@ -34,7 +38,11 @@ __all__ = [
     "PositionEmbeddingLayer", "TransformerEncoderBlock", "ActivationLayer",
     "DropoutLayer", "ConvolutionLayer", "SubsamplingLayer",
     "ZeroPaddingLayer", "SpaceToDepthLayer", "FusedConvBNLayer",
-    "BatchNormalization", "GlobalPoolingLayer", "LossLayer", "PReLULayer",
+    "Convolution1DLayer", "Subsampling1DLayer", "Upsampling2DLayer",
+    "SeparableConvolution2DLayer", "Deconvolution2DLayer",
+    "DepthwiseConvolution2DLayer", "Cropping2DLayer",
+    "BatchNormalization", "LocalResponseNormalization", "LayerNormalization",
+    "GlobalPoolingLayer", "PoolingType", "LossLayer", "PReLULayer",
     "AutoEncoder", "FrozenLayer", "CenterLossOutputLayer",
     "VariationalAutoencoder", "RBM",
 ]

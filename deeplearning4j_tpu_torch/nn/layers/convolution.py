@@ -1,7 +1,10 @@
-"""Convolution, pooling and padding layers (port of part of
+"""Convolution, pooling and padding layers (port of
 `deeplearning4j_tpu/nn/layers/convolution.py`): `ConvolutionLayer`,
-`SubsamplingLayer`, `ZeroPaddingLayer`, `SpaceToDepthLayer` and the
-fused `FusedConvBNLayer`.
+`Deconvolution2DLayer`, `DepthwiseConvolution2DLayer`,
+`SeparableConvolution2DLayer`, `SubsamplingLayer`, `ZeroPaddingLayer`,
+`Cropping2DLayer`, `Upsampling2DLayer`, `SpaceToDepthLayer`,
+`Convolution1DLayer`, `Subsampling1DLayer` and the fused
+`FusedConvBNLayer`.
 
 Layouts are the JAX package's: activations NHWC, kernels HWIO, so its
 params load unchanged. `F.conv2d` and the pooling functions take NCHW
@@ -16,6 +19,15 @@ after). PyTorch's `padding=1` would pad both sides and shift every
 window. The layers compute XLA's pads and apply them with `F.pad`
 (-inf for max pooling, 0 otherwise); average pooling divides by the
 count of real elements, as `lax.reduce_window` over a ones map does.
+The 1-D layers work on [batch, time, features] (NWC, kernels WIO) with
+the same rules along time.
+
+`Deconvolution2DLayer` keeps the JAX parametrisation (W [kh, kw, n_in,
+n_out], the zero-dilated input correlated with W unflipped) but pads
+truncate mode by k−1−p a side, so that its output has the size its
+`output_type` states, s·(h−1)+k−2p, as DL4J's and Keras's do. The JAX
+layer pads (p, p) and agrees with its own `output_type` only at p =
+(k−1)/2 and in "same" mode (C15, reference-side).
 """
 
 from __future__ import annotations
@@ -86,6 +98,30 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def _conv_out_type(layer, input_type: InputType, channels: int) -> InputType:
+    kh, kw = _pair(layer.kernel)
+    sh, sw = _pair(layer.stride)
+    ph, pw = _pair(layer.padding)
+    m = layer.convolution_mode
+    return InputType.convolutional(_out_size(input_type.height, kh, sh, ph, m),
+                                   _out_size(input_type.width, kw, sw, pw, m),
+                                   channels)
+
+
+def _conv2d(x, w_hwio, layer, groups: int = 1):
+    """NHWC `x` through an HWIO kernel with XLA's padding for `layer`'s
+    kernel, stride, padding, mode (and dilation, where it has one);
+    `groups` is `lax`'s `feature_group_count`: output channel j reads
+    input group j // (n_out / groups) in both."""
+    dilation = getattr(layer, "dilation", (1, 1))
+    pads = _padding_2d(layer.convolution_mode, layer.kernel, layer.stride,
+                       layer.padding, x.shape[1:3], dilation)
+    return _nhwc(F.conv2d(_nchw(_pad_nhwc(x, pads)),
+                          w_hwio.permute(3, 2, 0, 1),
+                          stride=_pair(layer.stride),
+                          dilation=_pair(dilation), groups=groups))
+
+
 @register_layer
 @dataclasses.dataclass(frozen=True)
 class ConvolutionLayer(Layer):
@@ -107,13 +143,7 @@ class ConvolutionLayer(Layer):
         return self
 
     def output_type(self, input_type: InputType) -> InputType:
-        kh, kw = _pair(self.kernel)
-        sh, sw = _pair(self.stride)
-        ph, pw = _pair(self.padding)
-        m = self.convolution_mode
-        h = _out_size(input_type.height, kh, sh, ph, m)
-        w = _out_size(input_type.width, kw, sw, pw, m)
-        return InputType.convolutional(h, w, self.n_out)
+        return _conv_out_type(self, input_type, self.n_out)
 
     def init_params(self, gen, input_type, dtype=torch.float32):
         kh, kw = _pair(self.kernel)
@@ -125,12 +155,7 @@ class ConvolutionLayer(Layer):
         return params, {}
 
     def pre_output(self, params, x):
-        pads = _padding_2d(self.convolution_mode, self.kernel, self.stride,
-                           self.padding, x.shape[1:3], self.dilation)
-        y = _nhwc(F.conv2d(_nchw(_pad_nhwc(x, pads)),
-                           params["W"].permute(3, 2, 0, 1),
-                           stride=_pair(self.stride),
-                           dilation=_pair(self.dilation)))
+        y = _conv2d(x, params["W"], self)
         if self.has_bias:
             y = y + params["b"]
         return y
@@ -139,6 +164,136 @@ class ConvolutionLayer(Layer):
               mask=None):
         x = self._maybe_dropout(x, train, rng)
         return self._act(self.pre_output(params, x)), state
+
+
+def _transpose_pads(mode: str, k: int, s: int, p: int) -> Tuple[int, int]:
+    """Pads of the zero-dilated input along one axis of a transposed
+    convolution: `lax.conv_transpose`'s SAME pads in "same" mode (output
+    s·h), else k−1−p a side (output s·(h−1)+k−2p, `output_type`'s)."""
+    if mode == "same":
+        pad_len = k + s - 2
+        before = k - 1 if s > k - 1 else -(-pad_len // 2)
+        return before, pad_len - before
+    return k - 1 - p, k - 1 - p
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Deconvolution2DLayer(ConvolutionLayer):
+    """Transposed 2-D convolution over NHWC input, W [kh, kw, n_in,
+    n_out]: the input dilated by the stride, padded (`_transpose_pads`)
+    and correlated with W unflipped. `F.conv_transpose2d` (cuDNN on the
+    card) computes that with W flipped and its channel axes swapped; its
+    full output is then cut (or zero-extended) to the pads, by `F.pad`."""
+
+    def output_type(self, input_type: InputType) -> InputType:
+        kh, kw = _pair(self.kernel)
+        sh, sw = _pair(self.stride)
+        ph, pw = _pair(self.padding)
+        if self.convolution_mode == "same":
+            h, w = input_type.height * sh, input_type.width * sw
+        else:
+            h = sh * (input_type.height - 1) + kh - 2 * ph
+            w = sw * (input_type.width - 1) + kw - 2 * pw
+        return InputType.convolutional(h, w, self.n_out)
+
+    def pre_output(self, params, x):
+        (kh, kw), (sh, sw), (ph, pw) = (_pair(self.kernel),
+                                        _pair(self.stride),
+                                        _pair(self.padding))
+        wt = params["W"].flip(0, 1).permute(2, 3, 0, 1)   # [in, out, kh, kw]
+        full = F.conv_transpose2d(_nchw(x), wt, stride=(sh, sw))
+        (ta, tb) = _transpose_pads(self.convolution_mode, kh, sh, ph)
+        (la, lb) = _transpose_pads(self.convolution_mode, kw, sw, pw)
+        y = _nhwc(F.pad(full, (la - (kw - 1), lb - (kw - 1),
+                               ta - (kh - 1), tb - (kh - 1))))
+        if self.has_bias:
+            y = y + params["b"]
+        return y
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class DepthwiseConvolution2DLayer(Layer):
+    """Depthwise convolution: W [kh, kw, 1, n_in·depth_multiplier], one
+    group a input channel (`groups=n_in`); output channel j reads input
+    channel j // depth_multiplier."""
+
+    n_in: Optional[int] = None
+    depth_multiplier: int = 1
+    kernel: Any = (3, 3)
+    stride: Any = (1, 1)
+    padding: Any = (0, 0)
+    convolution_mode: str = "truncate"
+    has_bias: bool = True
+
+    def infer_n_in(self, input_type: InputType):
+        if self.n_in is None:
+            return dataclasses.replace(self, n_in=input_type.channels)
+        return self
+
+    @property
+    def n_out(self):
+        return self.n_in * self.depth_multiplier
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return _conv_out_type(self, input_type, self.n_out)
+
+    def init_params(self, gen, input_type, dtype=torch.float32):
+        kh, kw = _pair(self.kernel)
+        params = {"W": self._winit()(gen, (kh, kw, 1, self.n_out), dtype)}
+        if self.has_bias:
+            params["b"] = torch.zeros((self.n_out,), dtype=dtype)
+        return params, {}
+
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
+        y = _conv2d(x, params["W"], self, groups=self.n_in)
+        if self.has_bias:
+            y = y + params["b"]
+        return self._act(y), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class SeparableConvolution2DLayer(Layer):
+    """Depthwise-separable convolution: the depthwise `dW` [kh, kw, 1,
+    n_in·depth_multiplier], then the pointwise `pW` [1, 1, mid, n_out],
+    then one bias."""
+
+    n_in: Optional[int] = None
+    n_out: Optional[int] = None
+    depth_multiplier: int = 1
+    kernel: Any = (3, 3)
+    stride: Any = (1, 1)
+    padding: Any = (0, 0)
+    convolution_mode: str = "truncate"
+    has_bias: bool = True
+
+    def infer_n_in(self, input_type: InputType):
+        if self.n_in is None:
+            return dataclasses.replace(self, n_in=input_type.channels)
+        return self
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return _conv_out_type(self, input_type, self.n_out)
+
+    def init_params(self, gen, input_type, dtype=torch.float32):
+        kh, kw = _pair(self.kernel)
+        mid = self.n_in * self.depth_multiplier
+        params = {"dW": self._winit()(gen, (kh, kw, 1, mid), dtype),
+                  "pW": self._winit()(gen, (1, 1, mid, self.n_out), dtype)}
+        if self.has_bias:
+            params["b"] = torch.zeros((self.n_out,), dtype=dtype)
+        return params, {}
+
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
+        y = _conv2d(x, params["dW"], self, groups=self.n_in)
+        y = _nhwc(F.conv2d(_nchw(y), params["pW"].permute(3, 2, 0, 1)))
+        if self.has_bias:
+            y = y + params["b"]
+        return self._act(y), state
 
 
 @register_layer
@@ -155,14 +310,7 @@ class SubsamplingLayer(Layer):
     pnorm: int = 2
 
     def output_type(self, input_type: InputType) -> InputType:
-        kh, kw = _pair(self.kernel)
-        sh, sw = _pair(self.stride)
-        ph, pw = _pair(self.padding)
-        m = self.convolution_mode
-        return InputType.convolutional(
-            _out_size(input_type.height, kh, sh, ph, m),
-            _out_size(input_type.width, kw, sw, pw, m),
-            input_type.channels)
+        return _conv_out_type(self, input_type, input_type.channels)
 
     def apply(self, params, x, *, state=None, train=False, rng=None,
               mask=None):
@@ -218,6 +366,57 @@ class ZeroPaddingLayer(Layer):
 
 @register_layer
 @dataclasses.dataclass(frozen=True)
+class Cropping2DLayer(Layer):
+    """Cropping of the spatial axes: `crop` (ch, cw) or ((top, bottom),
+    (left, right))."""
+
+    crop: Any = (0, 0)
+
+    def _crops(self):
+        c = self.crop
+        if isinstance(c, (tuple, list)) and len(c) == 2 and \
+                isinstance(c[0], (tuple, list)):
+            return tuple(c[0]), tuple(c[1])
+        ch, cw = _pair(c)
+        return (ch, ch), (cw, cw)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        (ct, cb), (cl, cr) = self._crops()
+        return InputType.convolutional(input_type.height - ct - cb,
+                                       input_type.width - cl - cr,
+                                       input_type.channels)
+
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
+        (ct, cb), (cl, cr) = self._crops()
+        h, w = x.shape[1], x.shape[2]
+        return x[:, ct:h - cb, cl:w - cr, :], state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Upsampling2DLayer(Layer):
+    """Nearest-neighbour upsampling: every pixel repeated `size` (sh, sw)
+    times along height and width."""
+
+    size: Any = (2, 2)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        sh, sw = _pair(self.size)
+        return InputType.convolutional(input_type.height * sh,
+                                       input_type.width * sw,
+                                       input_type.channels)
+
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
+        sh, sw = _pair(self.size)
+        B, H, W, C = x.shape
+        y = x[:, :, None, :, None, :].expand(B, H, sh, W, sw, C)
+        return y.reshape(B, H * sh, W * sw, C), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
 class SpaceToDepthLayer(Layer):
     """Fold `block`×`block` spatial tiles into channels: [B, H, W, C] ->
     [B, H/b, W/b, b·b·C], channel order (dy, dx, c) — the stem transform
@@ -241,6 +440,95 @@ class SpaceToDepthLayer(Layer):
         B, H, W, C = x.shape
         y = x.reshape(B, H // b, b, W // b, b, C).permute(0, 1, 3, 2, 4, 5)
         return y.reshape(B, H // b, W // b, b * b * C), state
+
+
+def _time_pads(mode: str, t: int, k: int, s: int, p: int
+               ) -> Tuple[int, int]:
+    """Pads of a 1-D window op along time: XLA's SAME (the odd pad at the
+    end) in "same" mode, else p a side."""
+    return _same_pads(t, k, s) if mode == "same" else (p, p)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Convolution1DLayer(Layer):
+    """1-D (temporal) convolution over [batch, time, features], W [k,
+    n_in, n_out] (WIO), `F.conv1d` over the permuted view."""
+
+    n_in: Optional[int] = None
+    n_out: Optional[int] = None
+    kernel: int = 3
+    stride: int = 1
+    padding: int = 0
+    convolution_mode: str = "same"
+    has_bias: bool = True
+
+    def infer_n_in(self, input_type: InputType):
+        if self.n_in is None:
+            return dataclasses.replace(self, n_in=input_type.size)
+        return self
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t = input_type.timesteps
+        if t is not None:
+            t = _out_size(t, self.kernel, self.stride, self.padding,
+                          self.convolution_mode)
+        return InputType.recurrent(self.n_out, t)
+
+    def init_params(self, gen, input_type, dtype=torch.float32):
+        params = {"W": self._winit()(gen, (self.kernel, self.n_in,
+                                           self.n_out), dtype)}
+        if self.has_bias:
+            params["b"] = torch.zeros((self.n_out,), dtype=dtype)
+        return params, {}
+
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
+        pa, pb = _time_pads(self.convolution_mode, x.shape[1], self.kernel,
+                            self.stride, self.padding)
+        y = F.conv1d(F.pad(x, (0, 0, pa, pb)).permute(0, 2, 1),
+                     params["W"].permute(2, 1, 0), stride=self.stride)
+        y = y.permute(0, 2, 1)
+        if self.has_bias:
+            y = y + params["b"]
+        return self._act(y), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Subsampling1DLayer(Layer):
+    """1-D pooling over [batch, time, features]: "max" pads with −inf,
+    any other pooling averages over the real elements of each window."""
+
+    pooling: str = "max"
+    kernel: int = 2
+    stride: int = 2
+    padding: int = 0
+    convolution_mode: str = "truncate"
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t = input_type.timesteps
+        if t is not None:
+            t = _out_size(t, self.kernel, self.stride, self.padding,
+                          self.convolution_mode)
+        return InputType.recurrent(input_type.size, t)
+
+    def apply(self, params, x, *, state=None, train=False, rng=None,
+              mask=None):
+        pa, pb = _time_pads(self.convolution_mode, x.shape[1], self.kernel,
+                            self.stride, self.padding)
+        k, s = self.kernel, self.stride
+        if self.pooling == "max":
+            xp = F.pad(x, (0, 0, pa, pb), value=float("-inf"))
+            y = F.max_pool1d(xp.permute(0, 2, 1), k, s)
+        else:
+            def window_sum(v):
+                v = F.pad(v, (0, 0, pa, pb)).permute(0, 2, 1).unsqueeze(2)
+                return F.avg_pool2d(v, (1, k), (1, s),
+                                    divisor_override=1).squeeze(2)
+
+            y = window_sum(x) / window_sum(torch.ones_like(x[:1, :, :1]))
+        return y.permute(0, 2, 1), state
 
 
 @register_layer

@@ -12,6 +12,15 @@ from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 
 
+class PoolingType:
+    """Reference: `PoolingType` (the pooling names the layers take)."""
+
+    MAX = "max"
+    AVG = "avg"
+    SUM = "sum"
+    PNORM = "pnorm"
+
+
 @register_layer
 @dataclasses.dataclass(frozen=True)
 class GlobalPoolingLayer(Layer):

@@ -174,15 +174,14 @@ class ParallelInference:
                 total += nxt[0].shape[0]
             try:
                 ys = self._run(np.concatenate([b[0] for b in batch], axis=0))
-                off = 0
-                for x, fut in batch:
-                    if not fut.done():
-                        fut.set_result(ys[off:off + x.shape[0]])
-                    off += x.shape[0]
             except Exception as e:
                 for _x, fut in batch:
-                    if not fut.done():
-                        fut.set_exception(e)
+                    _settle(fut, exception=e)
+                continue
+            off = 0
+            for x, fut in batch:
+                _settle(fut, result=ys[off:off + x.shape[0]])
+                off += x.shape[0]
         # requests still queued at shutdown fail loudly: a dropped future
         # would block its caller forever
         while True:
@@ -190,7 +189,24 @@ class ParallelInference:
                 item = self._queue.get_nowait()
             except queue.Empty:
                 break
-            if item is not None and not item[1].done():
-                item[1].set_exception(RuntimeError(
+            if item is not None:
+                _settle(item[1], exception=RuntimeError(
                     "ParallelInference shut down before serving this "
                     "request"))
+
+
+def _settle(fut: Future, result=None, exception=None) -> None:
+    """Complete one request's future unless it is done already. `output()`
+    may fail a future from its own thread at any moment (a shutdown), so
+    the check and the call can interleave with it: the InvalidStateError
+    that follows is that request's alone and must not reach the others
+    of its batch (C14)."""
+    if fut.done():
+        return
+    try:
+        if exception is not None:
+            fut.set_exception(exception)
+        else:
+            fut.set_result(result)
+    except InvalidStateError:
+        pass

@@ -2,8 +2,9 @@
 control plane (registry with hot-swap, scheduler, metrics) and stateful
 decode sessions over the KV slot pool, speculative decoding included.
 
-The fleet (`serving/fleet/`), the k-NN server and the Keras gateway are
-not ported yet (ROADMAP S5, A7).
+`KerasGatewayServer` imports, fits and serves Keras models over HTTP.
+The fleet (`serving/fleet/`) and the k-NN server are not ported yet
+(ROADMAP S5, A7).
 """
 
 from deeplearning4j_tpu_torch.serving.http_base import (
@@ -12,6 +13,7 @@ from deeplearning4j_tpu_torch.serving.http_base import (
 from deeplearning4j_tpu_torch.serving.inference_server import (
     InferenceServer, ModelServer,
 )
+from deeplearning4j_tpu_torch.serving.keras_gateway import KerasGatewayServer
 from deeplearning4j_tpu_torch.serving.kv_pool import (
     IncompatibleSessionSwapError, KVSlotPool, SlotPoolExhaustedError,
 )
@@ -32,7 +34,8 @@ __all__ = [
     "AdmissionPolicy", "ContinuousBatchingScheduler", "DecodeSession",
     "DecodeSessionManager", "DeadlineExceededError",
     "DeployRolledBackError", "HttpError", "IncompatibleSessionSwapError",
-    "InferenceServer", "JsonHttpServer", "KVSlotPool", "ModelEntry",
+    "InferenceServer", "JsonHttpServer", "KerasGatewayServer", "KVSlotPool",
+    "ModelEntry",
     "ModelRegistry", "ModelServer", "PrefixCache", "RequestShedError",
     "SchedulerClosedError", "ServingStats", "SlotPoolExhaustedError",
     "StreamResponse", "TextResponse", "WorkerCrashError",

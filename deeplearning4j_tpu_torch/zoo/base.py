@@ -1,9 +1,12 @@
 """ZooModel base (port of `deeplearning4j_tpu/zoo/base.py`): `conf()`
-builds the configuration, `init(device)` builds and seeds the network.
-Pretrained weights are not part of the port: nothing is downloaded."""
+builds the configuration, `init(device)` builds and seeds the network,
+`init_pretrained(kind, path=..., device=...)` loads weights (an explicit
+file, the model's cache file, or the catalog's download, Adler32-checked;
+`zoo/pretrained.py`)."""
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple, Type
 
 ZOO_REGISTRY: Dict[str, Type] = {}
@@ -47,3 +50,35 @@ class ZooModel:
         if isinstance(conf, MultiLayerConfiguration):
             return MultiLayerNetwork(conf, device=device).init()
         return ComputationGraph(conf, device=device).init()
+
+    def pretrained_path(self, kind: str = "imagenet") -> str:
+        """Kind-specific cache location (a kind-less name would let a
+        cached imagenet file satisfy a cifar10 request)."""
+        from deeplearning4j_tpu_torch.data.datasets import data_dir
+
+        return os.path.join(data_dir(), "zoo",
+                            f"{type(self).__name__.lower()}_{kind}.zip")
+
+    def pretrained_available(self, kind: str = "imagenet") -> bool:
+        """Reference: `ZooModel.pretrainedAvailable`."""
+        from deeplearning4j_tpu_torch.zoo.pretrained import PRETRAINED_CATALOG
+
+        return (type(self).__name__, kind) in PRETRAINED_CATALOG
+
+    def init_pretrained(self, kind: str = "imagenet", *,
+                        path: Optional[str] = None, device=None):
+        """Reference: `ZooModel.initPretrained():40-75` — resolve weights
+        (explicit path → model-named cache file → catalog fetch with
+        Adler32 verification) and load any supported format (native zip,
+        DL4J zip, Keras .h5) onto `device` (CUDA by default)."""
+        from deeplearning4j_tpu_torch.zoo.pretrained import (
+            fetch_pretrained, load_pretrained,
+        )
+
+        if path is None:
+            local = self.pretrained_path(kind)
+            if os.path.exists(local):
+                path = local
+            else:
+                path = fetch_pretrained(type(self).__name__, kind)
+        return load_pretrained(path, device=device)

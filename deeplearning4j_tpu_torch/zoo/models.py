@@ -1,16 +1,16 @@
 """Sequential zoo models (port of `deeplearning4j_tpu/zoo/models.py`):
-LeNet, SimpleCNN, VGG16/19 and TextGenerationLSTM, with the same
-configuration for the same arguments, the default updater included.
-AlexNet needs LocalResponseNormalization, which is not ported: its
-`conf()` refuses."""
+LeNet, AlexNet, SimpleCNN, VGG16/19 and TextGenerationLSTM, with the
+same configuration for the same arguments, the default updater
+included."""
 
 from __future__ import annotations
 
 from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers import (
-    LSTM, BatchNormalization, ConvolutionLayer, DenseLayer, OutputLayer,
-    RnnOutputLayer, SubsamplingLayer,
+    LSTM, BatchNormalization, ConvolutionLayer, DenseLayer,
+    LocalResponseNormalization, OutputLayer, RnnOutputLayer,
+    SubsamplingLayer,
 )
 from deeplearning4j_tpu_torch.optim.updaters import Adam, Nesterovs
 from deeplearning4j_tpu_torch.zoo.base import ZooModel, register_zoo
@@ -49,16 +49,39 @@ class LeNet(ZooModel):
 
 @register_zoo
 class AlexNet(ZooModel):
-    """Reference: `zoo/model/AlexNet.java` (5 conv + LRN + 3 dense). Its
-    LocalResponseNormalization layers are not ported."""
+    """Reference: `zoo/model/AlexNet.java` (5 conv + LRN + 3 dense)."""
 
     num_classes = 1000
     input_shape = (224, 224, 3)
 
     def conf(self):
-        from deeplearning4j_tpu_torch.models.multilayer import _refuse
-
-        _refuse("AlexNet (LocalResponseNormalization)", "A2b")
+        h, w, c = self.input_shape
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(self.kw.get("updater", Nesterovs(1e-2, 0.9)))
+                .weight_init("normal")
+                .activation("relu")
+                .list(
+                    ConvolutionLayer(n_out=96, kernel=(11, 11), stride=(4, 4)),
+                    LocalResponseNormalization(),
+                    SubsamplingLayer(pooling="max", kernel=(3, 3),
+                                     stride=(2, 2)),
+                    ConvolutionLayer(n_out=256, kernel=(5, 5), stride=(1, 1),
+                                     padding=(2, 2)),
+                    LocalResponseNormalization(),
+                    SubsamplingLayer(pooling="max", kernel=(3, 3),
+                                     stride=(2, 2)),
+                    ConvolutionLayer(n_out=384, kernel=(3, 3), padding=(1, 1)),
+                    ConvolutionLayer(n_out=384, kernel=(3, 3), padding=(1, 1)),
+                    ConvolutionLayer(n_out=256, kernel=(3, 3), padding=(1, 1)),
+                    SubsamplingLayer(pooling="max", kernel=(3, 3),
+                                     stride=(2, 2)),
+                    DenseLayer(n_out=4096, dropout=0.5),
+                    DenseLayer(n_out=4096, dropout=0.5),
+                    OutputLayer(n_out=self.num_classes, activation="softmax",
+                                loss="mcxent"))
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
 
 
 @register_zoo

@@ -347,8 +347,8 @@ def test_graph_configuration_json_both_ways():
 def test_graph_configuration_refuses_unported_vertex():
     """`LastTimeStepVertex` (refused until A3) now reads and writes back
     JAX's JSON; a vertex holding a layer the port has not ported yet
-    (`Upsampling2DLayer`) is still refused when the configuration is
-    read."""
+    (`MoEFeedForward`, A6; `Upsampling2DLayer` until A2b) is still
+    refused when the configuration is read."""
     g = (NeuralNetConfiguration.builder().graph_builder().add_inputs("in")
          .set_input_types(InputType.recurrent(4, 3)))
     g.add_vertex("last", pgraph.LastTimeStepVertex(mask_input="in"), "in")
@@ -362,8 +362,8 @@ def test_graph_configuration_refuses_unported_vertex():
     assert jgraph.ComputationGraphConfiguration.from_json(
         text).to_json() == text
     bad = text.replace('"@class": "DenseLayer"',
-                       '"@class": "Upsampling2DLayer"')
-    with pytest.raises(NotImplementedError, match="Upsampling2DLayer"):
+                       '"@class": "MoEFeedForward"')
+    with pytest.raises(NotImplementedError, match="MoEFeedForward"):
         ComputationGraphConfiguration.from_json(bad)
 
 

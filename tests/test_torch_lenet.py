@@ -5,7 +5,7 @@ same; equal parameter counts), LeNet's training under SGD, Adam and
 Nesterovs (3 steps, float32, batch 16, on JAX's weights carried across
 with `params_from_numpy`), SimpleCNN's `output()` (eval mode, JAX's
 weights and running statistics) and its batch-norm running statistics
-after a step, and AlexNet's refusal (LocalResponseNormalization, A2b).
+after a step, and AlexNet's configuration (its refusal until A2b).
 
 Tolerances, float32: losses within 1e-5 relative; parameters within
 2e-5 absolute after three steps (sums taken in another order, amplified
@@ -157,8 +157,11 @@ def test_simplecnn_running_statistics_after_a_step_match_jax():
 
 
 def test_alexnet_refuses_naming_a2b():
-    with pytest.raises(NotImplementedError, match="A2b"):
-        zoo.AlexNet().conf()
+    """AlexNet refused naming A2b until its LocalResponseNormalization
+    was ported; now its configuration is JAX's and it builds."""
+    conf = zoo.AlexNet().conf()
+    assert conf.to_json() == jax_zoo.AlexNet().conf().to_json()
+    assert "alexnet" in ZOO_REGISTRY
 
 
 def test_quickstart_zoo_fit_evaluate_save_load(tmp_path, monkeypatch):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's training step goes, on one card.
 
-    python3 tools/torch_train_profile.py [--path t|w|l|g|r|m]
+    python3 tools/torch_train_profile.py [--path t|w|l|g|r|m|i|ir]
                                          [--dtype float32|bfloat16]
                                          [--steps-per-dispatch K]
 
@@ -32,12 +32,17 @@ the same method as `tools/torch_decode_profile.py`:
   train steps (B7a 36 and B7b 16 launches a step, B1b once);
 - `--path m`, `path_m`: the zoo's LeNet, bfloat16, batch 1024, its
   default Adam(1e-3) (B1a once a step), on the synthetic MNIST
-  surrogate; six traced train steps (two batches, three epochs).
+  surrogate; six traced train steps (two batches, three epochs);
+- `--path i`, `path_i`'s GoogLeNet at 224x224, 1000 classes, float32,
+  batch 32, its default Nesterovs(0.01, 0.9) (B1b once a step); `--path
+  ir`, its InceptionResNetV1 at 160x160, batch 32, Adam(1e-3) (B1a);
+  two traced train steps each.
 
-`--steps-per-dispatch K` (paths t and m) trains through
+`--steps-per-dispatch K` (paths t, m, i and ir) trains through
 `fit(steps_per_dispatch=K)`, K steps one CUDA graph replay: the warm-up
 fit runs one window (eager, then captured) and the traced window is
-replayed windows of K batches (t: one window; m: three epochs of one).
+replayed windows of K batches (t, i, ir: one window; m: three epochs of
+one).
 
 Prints one JSON line: the traced window's wall time, the time the card
 was busy (the union of kernel intervals), the idle share, kernels
@@ -75,7 +80,8 @@ from torch_decode_profile import busy_us, kernel_events  # noqa: E402
 
 # the dtype each path trains or runs in (`--dtype` changes path t's only)
 PATH_DTYPES = {"t": "float32", "w": "float32", "l": "float32",
-               "g": "float32", "r": "bfloat16", "m": "bfloat16"}
+               "g": "float32", "r": "bfloat16", "m": "bfloat16",
+               "i": "float32", "ir": "float32"}
 
 
 def recompute_correlations(trace_path):
@@ -150,13 +156,29 @@ def kernel_class(name):
     return "other"
 
 
+def inception_net(path):
+    """(net on the card, input size): `path_i`'s GoogLeNet at 224 ("i")
+    or InceptionResNetV1 at 160 ("ir"), 1000 classes."""
+    from deeplearning4j_tpu_torch import zoo
+
+    model, size = ((zoo.GoogLeNet, 224) if path == "i"
+                   else (zoo.InceptionResNetV1, 160))
+    return model(num_classes=1000, input_shape=(size, size, 3)).init(
+        device="cuda"), size
+
+
 def traced_window(path, dtype="float32", k=1):
     """(run, units, unit name, work a unit): `run()` drives the traced
     window; the warm-up has been done when this returns. `dtype` is
-    `path_t`'s; `k` > 1 trains paths t and m K steps a dispatch."""
+    `path_t`'s; `k` > 1 trains paths t, m, i and ir K steps a dispatch."""
     rng = np.random.default_rng(0)
+    if path in ("i", "ir"):
+        net, size = inception_net(path)
     if k > 1:
-        if path == "m":
+        if path in ("i", "ir"):
+            data = cs.image_batches(rng, k, 32, size, 1000)
+            units, work, epochs = k, 32, 1
+        elif path == "m":
             from deeplearning4j_tpu_torch.data import MnistDataSetIterator
             from deeplearning4j_tpu_torch.models import MultiLayerNetwork
 
@@ -178,6 +200,10 @@ def traced_window(path, dtype="float32", k=1):
         it = MnistDataSetIterator(1024, num_examples=2048, seed=0)
         net.fit(it, epochs=1)                       # warm, untraced
         return (lambda: net.fit(it, epochs=3)), 6, "step", 1024
+    if path in ("i", "ir"):
+        batches = cs.image_batches(rng, 3, 32, size, 1000)
+        net.fit(batches[:1], epochs=1)              # warm, untraced
+        return (lambda: net.fit(batches[1:], epochs=1)), 2, "step", 32
     if path == "r":
         from deeplearning4j_tpu_torch.models import ComputationGraph
 
@@ -218,19 +244,21 @@ def traced_window(path, dtype="float32", k=1):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("t", "w", "l", "g", "r", "m"),
+    ap.add_argument("--path", choices=("t", "w", "l", "g", "r", "m", "i",
+                                       "ir"),
                     default="t")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     help="path_t's dtype (--path t only; default float32)")
     ap.add_argument("--steps-per-dispatch", type=int, default=1,
-                    help="K train steps a CUDA graph (--path t or m)")
+                    help="K train steps a CUDA graph (--path t, m, i, ir)")
     args = ap.parse_args()
     if args.dtype is not None and args.path != "t":
         ap.error(f"--dtype applies to --path t only: --path {args.path} "
                  f"runs in {PATH_DTYPES[args.path]}")
     k = args.steps_per_dispatch
-    if k > 1 and args.path not in ("t", "m"):
-        ap.error("--steps-per-dispatch applies to --path t and m only")
+    if k > 1 and args.path not in ("t", "m", "i", "ir"):
+        ap.error("--steps-per-dispatch applies to --path t, m, i and ir "
+                 "only")
     dtype = args.dtype or PATH_DTYPES[args.path]
     if not torch.cuda.is_available():
         print("torch_train_profile: needs a CUDA card", file=sys.stderr)
@@ -270,7 +298,8 @@ def main() -> int:
         "dtype": dtype, "steps_per_dispatch": k,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": cs.gpu_name_and_limit(), f"{unit}s": units,
-        f"{'images' if args.path in 'rm' else 'tokens'}_per_{unit}": tokens,
+        f"{'images' if args.path in ('r', 'm', 'i', 'ir') else 'tokens'}"
+        f"_per_{unit}": tokens,
         f"wall_ms_per_{unit}": wall_us / 1e3 / units,
         f"device_busy_ms_per_{unit}": busy / 1e3 / units,
         "idle_share": 1.0 - busy / wall_us,
