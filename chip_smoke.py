@@ -244,6 +244,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -282,6 +283,10 @@ REPLACES = {
         "deeplearning4j_tpu/ops/fused_update.py:46 (_adam_kernel)",
     "nesterov_update":
         "deeplearning4j_tpu/ops/fused_update.py:63 (_nesterov_kernel)",
+    # no Pallas body: JAX's Adam computes its bias-corrected rate with XLA
+    # operations, which the port's updater launches one kernel for
+    "adam_lrbc": "deeplearning4j_tpu/optim/updaters.py:193 (Adam's "
+                 "bias-corrected rate, XLA operations)",
     "lstm_fwd": "deeplearning4j_tpu/ops/lstm.py:61 (_fwd_kernel)",
     "lstm_fwd_inference":
         "deeplearning4j_tpu/ops/lstm.py:92 (_fwd_kernel_inference)",
@@ -320,6 +325,7 @@ SOURCES = {
         "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
     "adam_update": "deeplearning4j_tpu_torch/csrc/fused_update.cu",
     "nesterov_update": "deeplearning4j_tpu_torch/csrc/fused_update.cu",
+    "adam_lrbc": "deeplearning4j_tpu_torch/csrc/fused_update.cu",
     "lstm_fwd": "deeplearning4j_tpu_torch/csrc/lstm.cu",
     "lstm_fwd_inference": "deeplearning4j_tpu_torch/csrc/lstm.cu",
     "lstm_bwd": "deeplearning4j_tpu_torch/csrc/lstm.cu",
@@ -365,6 +371,27 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 30) -> float:
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def queued_ms(fn, flush: torch.Tensor, iters: int = 30,
+              lead_cycles: int = 2_000_000) -> float:
+    """`time_ms` with the host ahead of the card: before each flush the
+    card spins `lead_cycles` cycles (about 1 ms), so the launch is queued
+    before the card reaches it and the events time the kernel alone, not
+    a host that is slower than the flush (a B1 launch checks every
+    gradient on the host)."""
+    for _ in range(3):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    for s, e in zip(starts, ends):
+        torch.cuda._sleep(lead_cycles)
         flush.zero_()
         s.record()
         fn()
@@ -1102,242 +1129,403 @@ def run_banded_case(c, flush, gen):
     return row
 
 
-# ------------------------------------------------- kernels: Adam (B1a)
+# ------------------------------------------ kernels: Adam, Nesterovs (B1)
 PATH_I_LEAVES = ("inception_resnet_v1", "vgg_head", "googlenet", "alexnet")
+B1_DESIGNS = ("multi", "persistent")
+# the leaf sets whose updater call is timed: each one path's update
+B1_UPDATER_SETS = ("real", "lenet", "vae", "head", "rbm") + PATH_I_LEAVES
 
 
-def shapes_of_leaves(tree):
-    from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
+def shape_tree(tree):
+    """A params tree's structure with each leaf's shape in its place."""
+    return {k: shape_tree(v) if isinstance(v, dict) else tuple(v.shape)
+            for k, v in tree.items()}
 
-    return [tuple(p.shape) for p in tree_leaves(tree)]
+
+def tree_shapes(stree):
+    """A shape tree's shapes in `tree_leaves` order."""
+    return [s for v in stree.values()
+            for s in (tree_shapes(v) if isinstance(v, dict) else [v])]
+
+
+def fill_tree(stree, it):
+    """The shape tree's structure with the next tensor of `it` at each
+    leaf, in `tree_leaves` order."""
+    return {k: fill_tree(v, it) if isinstance(v, dict) else next(it)
+            for k, v in stree.items()}
+
+
+def flat_tree(shapes):
+    """A two-level tree of `shapes`, one leaf a layer."""
+    return {f"l{i}": {"W": s} for i, s in enumerate(shapes)}
 
 
 def path_i_leaves():
-    """The leaf shapes of `path_i`'s two B1a updates: every leaf of
-    InceptionResNetV1 at 160x160x3 and 1000 classes, and the unfrozen
-    layers' leaves of the Keras VGG transfer (`vgg_transfer`)."""
+    """The shape trees of `path_i`'s two B1a updates: InceptionResNetV1
+    at 160x160x3 and 1000 classes, and the unfrozen layers of the Keras
+    VGG transfer (`vgg_transfer`)."""
     from deeplearning4j_tpu_torch import zoo
 
     net = zoo.InceptionResNetV1(num_classes=1000,
                                 input_shape=(160, 160, 3)).init(device="cuda")
-    irv1 = shapes_of_leaves(net.params_tree)
+    irv1 = shape_tree(net.params_tree)
     del net
     net = vgg_transfer(*keras_vgg(np.random.default_rng(22)))
-    head = [s for layer in net.layers if not layer.frozen
-            for s in shapes_of_leaves(net.params_tree[layer.name])]
+    head = {layer.name: shape_tree(net.params_tree[layer.name])
+            for layer in net.layers if not layer.frozen}
     del net
     torch.cuda.empty_cache()
     return irv1, head
 
 
 def path_i_nesterov_leaves():
-    """The leaf shapes of `path_i`'s two B1b updates: every leaf of
-    GoogLeNet and of AlexNet at 224x224x3 and 1000 classes."""
+    """The shape trees of `path_i`'s two B1b updates: GoogLeNet and
+    AlexNet at 224x224x3 and 1000 classes."""
     from deeplearning4j_tpu_torch import zoo
 
     out = []
     for model in (zoo.GoogLeNet, zoo.AlexNet):
         net = model(num_classes=1000, input_shape=(224, 224, 3)).init(
             device="cuda")
-        out.append(shapes_of_leaves(net.params_tree))
+        out.append(shape_tree(net.params_tree))
         del net
     torch.cuda.empty_cache()
     return out
 
 
-def adam_bound(n, esize):
-    """Bytes bound: read p, g, m, v and write p, m, v once (7 tensors of
-    n elements) over HBM bandwidth; ~12 flops an element is far below."""
-    return 7 * n * esize / HBM_BYTES_PER_S * 1e3, "bytes"
+def b1_leaves(kind, shapes, dt, seed, misaligned=False):
+    """One B1 case's leaves, (p, g, m, v) or (p, g, v) a leaf, drawn on
+    the card from a generator seeded with `seed` (so every call gives the
+    same values). `misaligned`: each tensor a view one element into a
+    buffer of its own, so no address is 16-byte aligned."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(s, scale=1.0, uniform=False):
+        n = int(np.prod(s))
+        size = (n + 1,) if misaligned else s
+        x = (torch.rand(size, generator=g, device=dev) if uniform
+             else scale * torch.randn(size, generator=g, device=dev))
+        x = x.to(dt)
+        return x[1:] if misaligned else x
+
+    return [(draw(s), draw(s), draw(s, 0.1), draw(s, uniform=True))
+            if kind == "adam" else (draw(s), draw(s), draw(s, 0.1))
+            for s in shapes]
+
+
+def b1_errs(kind, leaves, ref, dt):
+    """(max abs error, within tolerance) of updated `leaves` against the
+    plain version's `ref`: 2^-22 of |ref| in float32 (two ulps; the
+    kernels round every operation as the plain version does), one bf16
+    step (2^-7) in bfloat16."""
+    rtol = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -22
+    err, ok = 0.0, True
+    for leaf, r in zip(leaves, ref):
+        outs = (leaf[0], leaf[2], leaf[3]) if kind == "adam" \
+            else (leaf[0], leaf[2])
+        for got, want in zip(outs, r):
+            d = (got.float() - want.float()).abs()
+            err = max(err, d.max().item() if d.numel() else 0.0)
+            ok = ok and bool((d <= rtol * want.float().abs()).all())
+    return err, ok, rtol
+
+
+def b1_case(kind, leafset, stree, dt, seed, scalar, hyper, flush, *,
+            lr=None, step=None, misaligned=False):
+    """One B1 case: both designs (`B1_DESIGNS`) held to the plain version
+    on the same inputs; each design timed on one plan (`UpdatePlan`:
+    multi, persistent, persistent, multi, after a 256 MB L2 flush each,
+    `queued_ms`: the kernel, not the host's checks);
+    for the leaf sets of `B1_UPDATER_SETS`, the updater's own call over
+    the leaf set's tree (`update_with_params`, as the train step calls
+    it: the host clock over 50 calls without a sync, `host_ms`, and the
+    events with the flush, `updater_ms`), its result held to the plain
+    version too; the plain version's time and `torch.optim`'s fused step
+    (`library_ms`) beside them."""
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+
+    shapes = tree_shapes(stree)
+    adam = kind == "adam"
+    plain = fu.adam_update_plain if adam else fu.nesterov_update_plain
+    update = fu.adam_update if adam else fu.nesterov_update
+    kernel = "adam_update" if adam else "nesterov_update"
+    ref = [plain(*leaf, scalar, **hyper)
+           for leaf in b1_leaves(kind, shapes, dt, seed, misaligned)]
+    row = {"phase": "kernels", "kernel": kernel,
+           "dtype": str(dt).replace("torch.", ""), "leaves": leafset,
+           "n_leaves": len(shapes), "misaligned": misaligned, **hyper}
+    err = 0.0
+    for d in B1_DESIGNS:
+        leaves = b1_leaves(kind, shapes, dt, seed, misaligned)
+        update(*zip(*leaves), scalar, design=d, **hyper)
+        torch.cuda.synchronize()
+        e, ok, rtol = b1_errs(kind, leaves, ref, dt)
+        check(ok, f"{kernel} {leafset} {dt} {d}: max abs err {e} past "
+              f"{rtol} of |ref|")
+        row[f"{d}_max_abs_err"], err = e, max(err, e)
+    del ref
+    leaves = b1_leaves(kind, shapes, dt, seed, misaligned)
+    n = sum(leaf[0].numel() for leaf in leaves)
+    esize = leaves[0][0].element_size()
+    row.update(max_abs_err=err, rtol=rtol, elements=n,
+               bound_ms=(7 if adam else 5) * n * esize
+               / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    cols = list(zip(*leaves))
+    plan = fu.UpdatePlan(kind, cols[0], cols[2] if adam else None, cols[-1])
+    grads = list(cols[1])
+    design = fu.DEFAULT_DESIGN
+    times = {d: [] for d in B1_DESIGNS}
+    for d in B1_DESIGNS + B1_DESIGNS[::-1]:
+        times[d].append(queued_ms(lambda: plan.launch(
+            grads, scalar, design=d, **hyper), flush))
+    for d in B1_DESIGNS:
+        row[f"{d}_ms"] = float(np.mean(times[d]))
+        row[f"{d}_ms_runs"] = times[d]
+    row.update(design=design, ms=row[f"{design}_ms"],
+               speedup_over_multi=row["multi_ms"] / row[f"{design}_ms"],
+               bound_share=row["bound_ms"] / row[f"{design}_ms"],
+               blocks=len(plan.blocks), chunks=plan.n_chunks)
+    if leafset in B1_UPDATER_SETS:
+        row.update(b1_updater_call(kind, stree, leaves, scalar, hyper, lr,
+                                   step, dt, flush))
+        row["plain_ms"] = time_ms(lambda: [plain(*leaf, scalar, **hyper)
+                                           for leaf in leaves], flush,
+                                  iters=10)
+        ps = [torch.nn.Parameter(p) for p, *_ in leaves]
+        for prm, leaf in zip(ps, leaves):
+            prm.grad = leaf[1]
+        opt = (torch.optim.Adam(ps, lr=lr, betas=(hyper["beta1"],
+                                                  hyper["beta2"]),
+                                eps=hyper["eps"], fused=True) if adam
+               else torch.optim.SGD(ps, lr=lr, momentum=hyper["momentum"],
+                                    nesterov=True, fused=True))
+        row["library_ms"] = time_ms(opt.step, flush)
+        del opt, ps
+    emit(row)
+    del leaves, cols, grads, plan
+    return row
+
+
+def b1_updater_call(kind, stree, leaves, scalar, hyper, lr, step, dt,
+                    flush):
+    """The updater's own call over `leaves` laid out as `stree`: Adam
+    (its lrbc from the step counter on the card) or Nesterovs, a
+    constant rate `lr`, each call with a gradient tree of its own, as a
+    training step's backward makes them (distinct sets at their own
+    addresses, cycled where memory allows fewer than the calls). Its
+    first call is held to the plain version; then `host_ms` (the host
+    clock over 50 calls, no sync: what the train step waits for) and its
+    parts on the same calls: finding the plans (a walk of the params and
+    state trees, each tensor's identity), reading the gradient tree's
+    leaves, checking them (count, numel, dtype, device, contiguity) and
+    the launch that follows; `updater_ms` (`time_ms`'s events, the
+    device's time for the call with the host's in it where the host is
+    the slower), with the B1 launches and `adam_lrbc` launches of one
+    call."""
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.optim.updaters import Adam, Nesterovs
+
+    adam = kind == "adam"
+    dev = leaves[0][0].device
+    cols = list(zip(*leaves))
+    p_tree, g_tree, v_tree = (fill_tree(stree, iter(c))
+                              for c in (cols[0], cols[1], cols[-1]))
+    if adam:
+        u = Adam(lr, beta1=hyper["beta1"], beta2=hyper["beta2"],
+                 epsilon=hyper["eps"])
+        state = {"m": fill_tree(stree, iter(cols[2])), "v": v_tree}
+        rate = fu.adam_lrbc_plain(torch.tensor(step, device=dev), lr,
+                                  hyper["beta1"], hyper["beta2"])
+    else:
+        u = Nesterovs(lr, momentum=hyper["momentum"])
+        state = {"v": v_tree}
+        rate = torch.tensor(lr, dtype=torch.float32, device=dev)
+    step_t = torch.tensor(step or 0, dtype=torch.int64, device=dev)
+    plain = fu.adam_update_plain if adam else fu.nesterov_update_plain
+    ref = [plain(*leaf, rate, **hyper) for leaf in leaves]
+    fu.reset_counts()
+    u.update_with_params(g_tree, state, p_tree, step_t)
+    torch.cuda.synchronize()
+    launches = dict(fu.LAUNCHES)
+    e, ok, rtol = b1_errs(kind, leaves, ref, dt)
+    check(ok, f"{kind} updater call over {len(leaves)} leaves: max abs "
+          f"err {e} past {rtol} of |ref|")
+    del ref
+    calls = 50
+    set_bytes = sum(g.numel() * g.element_size() for g in cols[1])
+    n_sets = max(2, min(calls, int(4e9 // max(set_bytes, 1))))
+    g_sets = [fill_tree(stree, iter([g.clone() for g in cols[1]]))
+              for _ in range(n_sets)]
+    nxt = iter(range(1 << 30))
+
+    def g_next():
+        return g_sets[next(nxt) % n_sets]
+
+    def host(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        ms = (time.perf_counter() - t0) / calls * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    plans = fu.leaf_plans(kind, p_tree, state.get("m"), v_tree)
+    plan = plans.groups[0][1]
+    g_lists = [plans.grads(t) for t in g_sets]
+    k = iter(range(1 << 30))
+    row = {"host_ms": host(lambda: u.update_with_params(
+               g_next(), state, p_tree, step_t)),
+           "grad_sets": n_sets,
+           "host_ms_plan_lookup": host(lambda: fu.leaf_plans(
+               kind, p_tree, state.get("m"), v_tree)),
+           "host_ms_grad_leaves": host(lambda: plans.grads(g_next())),
+           "host_ms_grad_check": host(lambda: plan._check_grads(
+               g_lists[next(k) % n_sets]))
+           if len(plans.groups) == 1 else None,
+           "updater_ms": time_ms(lambda: u.update_with_params(
+               g_next(), state, p_tree, step_t), flush),
+           "updater_max_abs_err": e,
+           "updater_launches": {k: v for k, v in launches.items() if v}}
+    del g_sets, g_lists
+    return row
 
 
 def run_adam_phase(flush, gen):
-    """B1a against its plain version over the training path's real
-    leaves (default hyperparameters) and odd sizes (non-default ones),
-    float32 and bfloat16, at steps 1 and 1000; then, each with its own
-    time, bound and `Adam(fused=True)` time, over LeNet's 8 bfloat16
+    """B1a, both designs, against its plain version over the training
+    path's real leaves (default hyperparameters), odd sizes and the same
+    odd sizes as misaligned views (non-default ones), float32 and
+    bfloat16, at steps 1 and 1000; then, each with its own time, bound,
+    updater call and `Adam(fused=True)` time, over LeNet's 8 bfloat16
     leaves (`path_m`'s update: 431,080 parameters, Adam(1e-3), step 12)
     and over `path_p`'s two float32 updates at step 12: the VAE's 14
     leaves (535,828 elements, Adam(1e-3)) and the fine-tune's
     center-loss head, 30 x 10 and 10 (Adam(1e-2)); and over `path_i`'s
-    two float32 updates: InceptionResNetV1's leaves (Adam(1e-3), step 4)
-    and the Keras VGG transfer's unfrozen head (a 25088 x 4096 leaf
-    among them; Adam(1e-5), step 6), their inputs drawn on the card from
-    a generator of their own."""
+    two float32 updates: InceptionResNetV1's 272 leaves (Adam(1e-3),
+    step 4) and the Keras VGG transfer's unfrozen head (a 25088 x 4096
+    leaf among them; Adam(1e-5), step 6). Each case's inputs are drawn
+    on the card from a seed of its own (`b1_leaves`)."""
     from deeplearning4j_tpu_torch.models import MultiLayerNetwork
-    from deeplearning4j_tpu_torch.ops import fused_update as fu
 
-    dev = flush.device
-    shapes_of = shapes_of_leaves
-    real = shapes_of(build_net("cuda", num_blocks=6, seed=3).params_tree)
-    lenet = shapes_of(MultiLayerNetwork(lenet_conf(), device="cuda")
-                      .init().params_tree)
-    vae = shapes_of(MultiLayerNetwork(vae_conf(), device="cuda")
-                    .init().params_tree)
+    real = shape_tree(build_net("cuda", num_blocks=6, seed=3).params_tree)
+    lenet = shape_tree(MultiLayerNetwork(lenet_conf(), device="cuda")
+                       .init().params_tree)
+    vae = shape_tree(MultiLayerNetwork(vae_conf(), device="cuda")
+                     .init().params_tree)
     ft = finetune_net("cuda", [])
-    head = shapes_of(ft.params_tree[ft.conf.layers[-1].name])
+    head = {"head": shape_tree(ft.params_tree[ft.conf.layers[-1].name])}
     del ft
     irv1, vgg_head = path_i_leaves()
-    odd = [(1,), (127,), (4097,), ((1 << 20) + 3,)]
-    igen = torch.Generator(device=dev).manual_seed(21)
+    odd = flat_tree([(1,), (127,), (4097,), ((1 << 20) + 3,)])
     rows = []
-    cases = [(dt, step, leafset, hyper, 3e-4)
+    cases = [(dt, step, leafset, hyper, 3e-4, False)
              for dt in (torch.float32, torch.bfloat16) for step in (1, 1000)
              for leafset, hyper in (("real", (0.9, 0.999, 1e-8)),
                                     ("odd", (0.8, 0.99, 1e-6)))]
-    cases += [(torch.bfloat16, 12, "lenet", (0.9, 0.999, 1e-8), 1e-3),
-              (torch.float32, 12, "vae", (0.9, 0.999, 1e-8), 1e-3),
-              (torch.float32, 12, "head", (0.9, 0.999, 1e-8), 1e-2),
+    cases += [(dt, 1, "misaligned", (0.8, 0.99, 1e-6), 3e-4, True)
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [(torch.bfloat16, 12, "lenet", (0.9, 0.999, 1e-8), 1e-3, False),
+              (torch.float32, 12, "vae", (0.9, 0.999, 1e-8), 1e-3, False),
+              (torch.float32, 12, "head", (0.9, 0.999, 1e-8), 1e-2, False),
               (torch.float32, 4, "inception_resnet_v1", (0.9, 0.999, 1e-8),
-               1e-3),
-              (torch.float32, 6, "vgg_head", (0.9, 0.999, 1e-8), 1e-5)]
-    for dt, step, leafset, hyper, lr in cases:
-        shapes = {"real": real, "odd": odd, "lenet": lenet, "vae": vae,
-                  "head": head, "inception_resnet_v1": irv1,
-                  "vgg_head": vgg_head}[leafset]
+               1e-3, False),
+              (torch.float32, 6, "vgg_head", (0.9, 0.999, 1e-8), 1e-5,
+               False)]
+    for i, (dt, step, leafset, hyper, lr, misaligned) in enumerate(cases):
+        stree = {"real": real, "odd": odd, "misaligned": odd,
+                 "lenet": lenet, "vae": vae, "head": head,
+                 "inception_resnet_v1": irv1, "vgg_head": vgg_head}[leafset]
         b1, b2, eps = hyper
         t = step + 1
-        lrbc = torch.tensor(lr * (1 - b2 ** t) ** 0.5
-                            / (1 - b1 ** t), device=dev)
-        if leafset in PATH_I_LEAVES:
-            leaves = [(torch.randn(s, generator=igen, device=dev),
-                       torch.randn(s, generator=igen, device=dev),
-                       0.1 * torch.randn(s, generator=igen, device=dev),
-                       torch.rand(s, generator=igen, device=dev))
-                      for s in shapes]
-        else:
-            leaves = [(torch.randn(s, generator=gen).to(dev, dt),
-                       torch.randn(s, generator=gen).to(dev, dt),
-                       (0.1 * torch.randn(s, generator=gen)).to(dev, dt),
-                       torch.rand(s, generator=gen).to(dev, dt))
-                      for s in shapes]
-        ref = [fu.adam_update_plain(*leaf, lrbc, beta1=b1, beta2=b2,
-                                    eps=eps) for leaf in leaves]
-        fu.adam_update(*zip(*leaves), lrbc, beta1=b1, beta2=b2,
-                       eps=eps)
-        torch.cuda.synchronize()
-        rtol = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -22
-        err, ok = 0.0, True
-        for (p, _, m, v), r in zip(leaves, ref):
-            for got, want in zip((p, m, v), r):
-                d = (got.float() - want.float()).abs()
-                err = max(err, d.max().item())
-                ok = ok and bool((d <= rtol * want.float().abs())
-                                 .all())
-        check(ok, f"adam_update {leafset} {dt} step {step}: max "
-              f"abs err {err} past {rtol} of |ref|")
-        n = sum(p.numel() for p, *_ in leaves)
-        main = leafset == "real" and dt == torch.float32 \
-            and step == 1000
-        row = {"phase": "kernels", "kernel": "adam_update",
-               "dtype": str(dt).replace("torch.", ""), "step": step,
-               "leaves": leafset, "n_leaves": len(leaves),
-               "elements": n, "beta1": b1, "beta2": b2, "eps": eps,
-               "max_abs_err": err, "rtol": rtol, "lr": lr,
-               "main_path_shape": main}
-        row["bound_ms"], row["bound_by"] = adam_bound(
-            n, leaves[0][0].element_size())
-        lists = list(zip(*leaves))
-        row["ms"] = time_ms(lambda: fu.adam_update(
-            *lists, lrbc, beta1=b1, beta2=b2, eps=eps), flush)
-        if leafset != "odd":
-            row["plain_ms"] = time_ms(lambda: [
-                fu.adam_update_plain(*leaf, lrbc, beta1=b1,
-                                     beta2=b2, eps=eps)
-                for leaf in leaves], flush, iters=10)
-            ps = [torch.nn.Parameter(p) for p, *_ in leaves]
-            for prm, (_, g, _, _) in zip(ps, leaves):
-                prm.grad = g
-            opt = torch.optim.Adam(ps, lr=lr, betas=(b1, b2),
-                                   eps=eps, fused=True)
-            row["library_ms"] = time_ms(opt.step, flush)
-            del opt, ps
-        emit(row)
+        lrbc = torch.tensor(lr * (1 - b2 ** t) ** 0.5 / (1 - b1 ** t),
+                            device="cuda")
+        row = b1_case("adam", leafset, stree, dt, 100 + i, lrbc,
+                      dict(beta1=b1, beta2=b2, eps=eps), flush, lr=lr,
+                      step=step, misaligned=misaligned)
+        row.update(step=step, lr=lr, main_path_shape=leafset == "real"
+                   and dt == torch.float32 and step == 1000)
         rows.append(row)
-        del leaves, ref, lists
+        torch.cuda.empty_cache()
     return rows
+
+
+def run_lrbc_phase(flush):
+    """`adam_lrbc` (Adam's bias-corrected rate from the step counter)
+    against its plain version, bit for bit, over steps from 0 to 2^20
+    under the paths' betas, a constant rate and a schedule's (a device
+    scalar); timed at `path_t`'s Adam(3e-4), step 1000. Bound: the 8
+    bytes of the step and the 4 of the rate read, 4 written."""
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+
+    dev = torch.device("cuda")
+    err = 0.0
+    for b1, b2 in ((0.9, 0.999), (0.8, 0.99), (0.85, 0.995)):
+        for step in (0, 1, 2, 3, 4, 6, 11, 12, 999, 1000, 12345,
+                     (1 << 20) - 1):
+            s = torch.tensor(step, dtype=torch.int64, device=dev)
+            for lr in (3e-4, 1e-2, torch.tensor(0.037, device=dev)):
+                got = fu.adam_lrbc(s, lr, b1, b2)
+                want = fu.adam_lrbc_plain(s, lr, b1, b2)
+                d = (got - want).abs().item()
+                err = max(err, d)
+                check(d <= 2.0 ** -22 * abs(want.item()),
+                      f"adam_lrbc step {step} betas {b1} {b2} lr {lr}: "
+                      f"{got.item()} against {want.item()}")
+    s = torch.tensor(1000, dtype=torch.int64, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    row = {"phase": "kernels", "kernel": "adam_lrbc", "dtype": "float32",
+           "max_abs_err": err, "rtol": 2.0 ** -22, "lr": 3e-4, "step": 1000,
+           "ms": time_ms(lambda: fu.adam_lrbc(s, 3e-4, 0.9, 0.999,
+                                              out=out), flush),
+           "plain_ms": time_ms(lambda: fu.adam_lrbc_plain(s, 3e-4, 0.9,
+                                                          0.999), flush),
+           "bound_ms": 16 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None, "main_path_shape": True}
+    emit(row)
+    return [row]
 
 
 # --------------------------------------------- kernels: Nesterovs (B1b)
 def run_nesterov_phase(flush, gen):
-    """B1b against its plain version over the LSTM training path's real
-    leaves (its Nesterovs(0.01, 0.9)) and odd sizes (another momentum),
-    float32 and bfloat16, over `path_p`'s first RBM's leaves (784 x
-    1000, float32: its largest pretrain step) and over `path_i`'s
-    GoogLeNet and AlexNet (every leaf, float32, their Nesterovs(1e-2,
-    0.9); inputs drawn on the card from a generator of their own).
-    Bound: read p, g, v and write p, v once (5 tensors of n elements)
-    over HBM bandwidth."""
-    from deeplearning4j_tpu_torch.ops import fused_update as fu
-    from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
-
-    dev = flush.device
+    """B1b, both designs, against its plain version over the LSTM
+    training path's real leaves (its Nesterovs(0.01, 0.9)), odd sizes
+    and the same as misaligned views (another momentum), float32 and
+    bfloat16, over `path_p`'s first RBM's leaves (784 x 1000, float32:
+    its largest pretrain step) and over `path_i`'s GoogLeNet (173
+    leaves) and AlexNet (every leaf, float32, their Nesterovs(1e-2,
+    0.9)), with `b1_case`'s timings. Bound: read p, g, v and write p, v
+    once (5 tensors of n elements) over HBM bandwidth."""
     net = build_lstm_net("cuda", seed=3)
-    real = [tuple(p.shape) for p in tree_leaves(net.params_tree)]
+    real = shape_tree(net.params_tree)
     del net
-    odd = [(1,), (127,), (4097,), ((1 << 20) + 3,)]
+    odd = flat_tree([(1,), (127,), (4097,), ((1 << 20) + 3,)])
     rows = []
     # path_p's largest pretrain step: the first RBM's W, hb, vb
-    rbm = [(DEEP_AE[0], DEEP_AE[1]), (DEEP_AE[1],), (DEEP_AE[0],)]
+    rbm = {"rbm": {"W": (DEEP_AE[0], DEEP_AE[1]), "hb": (DEEP_AE[1],),
+                   "vb": (DEEP_AE[0],)}}
     googlenet, alexnet = path_i_nesterov_leaves()
-    igen = torch.Generator(device=dev).manual_seed(21)
+    i = 0
     for dt in (torch.float32, torch.bfloat16):
-        for leafset, mu in (("real", 0.9), ("odd", 0.8), ("rbm", 0.9),
-                            ("googlenet", 0.9), ("alexnet", 0.9)):
-            if leafset not in ("real", "odd") and dt != torch.float32:
+        for leafset, mu in (("real", 0.9), ("odd", 0.8), ("misaligned", 0.8),
+                            ("rbm", 0.9), ("googlenet", 0.9),
+                            ("alexnet", 0.9)):
+            if leafset not in ("real", "odd", "misaligned") and \
+                    dt != torch.float32:
                 continue
-            shapes = {"real": real, "odd": odd, "rbm": rbm,
-                      "googlenet": googlenet, "alexnet": alexnet}[leafset]
-            lr = torch.tensor(0.01, device=dev)
-            if leafset in PATH_I_LEAVES:
-                leaves = [(torch.randn(s, generator=igen, device=dev),
-                           torch.randn(s, generator=igen, device=dev),
-                           0.1 * torch.randn(s, generator=igen, device=dev))
-                          for s in shapes]
-            else:
-                leaves = [(torch.randn(s, generator=gen).to(dev, dt),
-                           torch.randn(s, generator=gen).to(dev, dt),
-                           (0.1 * torch.randn(s, generator=gen)).to(dev, dt))
-                          for s in shapes]
-            ref = [fu.nesterov_update_plain(*leaf, lr, momentum=mu)
-                   for leaf in leaves]
-            fu.nesterov_update(*zip(*leaves), lr, momentum=mu)
-            torch.cuda.synchronize()
-            rtol = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -22
-            err, ok = 0.0, True
-            for (p, _, v), r in zip(leaves, ref):
-                for got, want in zip((p, v), r):
-                    d = (got.float() - want.float()).abs()
-                    err = max(err, d.max().item())
-                    ok = ok and bool((d <= rtol * want.float().abs()).all())
-            check(ok, f"nesterov_update {leafset} {dt}: max abs err {err} "
-                  f"past {rtol} of |ref|")
-            n = sum(p.numel() for p, *_ in leaves)
-            row = {"phase": "kernels", "kernel": "nesterov_update",
-                   "dtype": str(dt).replace("torch.", ""),
-                   "leaves": leafset, "n_leaves": len(leaves),
-                   "elements": n, "momentum": mu, "max_abs_err": err,
-                   "rtol": rtol, "main_path_shape":
-                   leafset == "real" and dt == torch.float32,
-                   "bound_ms": 5 * n * leaves[0][0].element_size()
-                   / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
-            lists = list(zip(*leaves))
-            row["ms"] = time_ms(lambda: fu.nesterov_update(
-                *lists, lr, momentum=mu), flush)
-            if leafset != "odd":
-                row["plain_ms"] = time_ms(lambda: [
-                    fu.nesterov_update_plain(*leaf, lr, momentum=mu)
-                    for leaf in leaves], flush, iters=10)
-                ps = [torch.nn.Parameter(p) for p, *_ in leaves]
-                for prm, (_, g, _) in zip(ps, leaves):
-                    prm.grad = g
-                opt = torch.optim.SGD(ps, lr=0.01, momentum=mu,
-                                      nesterov=True, fused=True)
-                row["library_ms"] = time_ms(opt.step, flush)
-                del opt, ps
-            emit(row)
+            stree = {"real": real, "odd": odd, "misaligned": odd, "rbm": rbm,
+                     "googlenet": googlenet, "alexnet": alexnet}[leafset]
+            lr = torch.tensor(0.01, device="cuda")
+            row = b1_case("nesterov", leafset, stree, dt, 200 + i, lr,
+                          dict(momentum=mu), flush, lr=0.01,
+                          misaligned=leafset == "misaligned")
+            row["main_path_shape"] = leafset == "real" and \
+                dt == torch.float32
             rows.append(row)
-            del leaves, ref, lists
+            i += 1
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -3094,6 +3282,13 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_on_cuda = read_all_counts()
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+    b1_by_design = launches_by_design(fu)
+    for kernel in ("adam_update", "nesterov_update"):
+        check(sum(b1_by_design[f"{kernel}/{d}"] for d in fu.DESIGNS)
+              == launches[kernel],
+              f"{name}: {kernel} launches by design {b1_by_design} do not "
+              f"add up to {launches[kernel]}")
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in clock.losses]       # read after the steps
     steps = len(losses)
@@ -3127,6 +3322,7 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
             "max_memory_allocated_bytes": peak,
             "epoch_mean_loss": epoch_loss, "losses": losses,
             "launches": launches, "plain_on_cuda": plain_on_cuda,
+            "b1_launches_by_design": b1_by_design,
             **{c: net.fit_stats[c] - stats0[c] for c in stats0},
             "graph_captures": graphs.get("captures", 0),
             "capture_ms": graphs.get("capture_ms", 0.0),
@@ -6048,8 +6244,9 @@ def path_i_model(name, net, batches, epochs, kernel, frozen=(),
     before = {(n, k): t.clone() for n in frozen
               for k, t in net.params_tree[n].items()}
     batch = batches[0].features.shape[0]
-    fit = timed_fit(name, net, batches, epochs, batch, unit="images",
-                    loss_must_fall=False)
+    with b1_host_clock() as (host_ms, parts):
+        fit = timed_fit(name, net, batches, epochs, batch, unit="images",
+                        loss_must_fall=False)
     steps, launches = fit["steps"], fit["launches"]
     check(launches[kernel] == steps,
           f"{name}: {kernel} launched {launches[kernel]} times, want one "
@@ -6063,6 +6260,8 @@ def path_i_model(name, net, batches, epochs, kernel, frozen=(),
         net, batches[0].features[:cpu_rows])
     check(logit_gap <= I_LOGIT_RTOL, f"{name}: card and CPU pre-softmax "
           f"outputs differ by {logit_gap} of their largest |value| {scale}")
+    b1 = b1_step_share(net, batches[:2], host_ms, parts,
+                       fit["step_ms_p50"])
     updater = net.layers[-1].updater if hasattr(net, "layers") else None
     row = {"phase": name, **info, "batch": batch, "dtype": "float32",
            "updater": str(updater or net.conf.updater), "steps": steps,
@@ -6080,10 +6279,100 @@ def path_i_model(name, net, batches, epochs, kernel, frozen=(),
            "logit_max_abs_cpu": scale, "tol_logit_rel": I_LOGIT_RTOL,
            "cpu_rows": cpu_rows,
            "max_memory_allocated_bytes": fit["max_memory_allocated_bytes"],
+           **b1,
            "launches": {k: launches[k] for k in ("adam_update",
                                                  "nesterov_update")}}
     emit(row)
     return row
+
+
+@contextlib.contextmanager
+def b1_host_clock():
+    """Times every `Adam` / `Nesterovs.update_with_params` call on the
+    host clock (ms, in call order) while the block runs: the B1 part of
+    a K 1 step the host waits for (the call's launches, not the card);
+    and, inside those calls, its parts, each summed over a call: finding
+    the plans (`leaf_plans`), checking the gradients
+    (`UpdatePlan._check_grads`) and the B1 launches with their checks
+    (`UpdatePlan.launch`). Yields (call ms, {part: ms a call})."""
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.optim.updaters import Adam, Nesterovs
+
+    times, parts, saved = [], {}, []
+
+    def clocked(owner, attr, sink):
+        orig = getattr(owner, attr)
+        saved.append((owner, attr, orig))
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            sink((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(owner, attr, timed)
+
+    current = {}
+
+    def part(name):
+        def add(ms):
+            current[name] = current.get(name, 0.0) + ms
+        return add
+
+    def call(ms):
+        times.append(ms)
+        for name, v in current.items():
+            parts.setdefault(name, []).append(v)
+        current.clear()
+
+    for cls in (Adam, Nesterovs):
+        clocked(cls, "update_with_params", call)
+    clocked(fu, "leaf_plans", part("plan_lookup"))
+    clocked(fu.UpdatePlan, "_check_grads", part("grad_check"))
+    clocked(fu.UpdatePlan, "launch", part("launch"))
+    try:
+        yield times, parts
+    finally:
+        for owner, attr, orig in reversed(saved):
+            setattr(owner, attr, orig)
+
+
+def b1_step_share(net, batches, host_ms, parts, step_ms):
+    """B1's share of a K 1 step: its host ms a step (`b1_host_clock` over
+    the timed fit, the steps after the first: the first builds the
+    plans) with its parts' medians, and its device ms a step from a
+    `torch.profiler` trace of
+    `len(batches)` more steps (the B1a/B1b kernels and `adam_lrbc`),
+    beside the traced steps' busy time and the untraced step's p50."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        net.fit(batches, epochs=1)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        kernels = kernel_events(path)
+    steps = len(batches)
+    check(bool(kernels), "b1_step_share: the profiler saw no kernels")
+    b1 = sum(e["dur"] for e in kernels
+             if "AdamRule" in e["name"] or "NesterovRule" in e["name"]
+             or "adam_lrbc" in e["name"]) / 1e3 / steps
+    busy = busy_us(kernels) / 1e3 / steps
+    later = host_ms[1:] or host_ms
+    return {"b1_host_ms_per_step": float(np.median(later)),
+            "b1_host_ms_parts_per_step": {
+                k: float(np.median(v[1:] or v)) for k, v in parts.items()},
+            "b1_host_ms_first_step": host_ms[0],
+            "b1_device_ms_per_step": b1,
+            "b1_traced_busy_ms_per_step": busy,
+            "b1_share_of_step_p50": max(float(np.median(later)), b1)
+            / step_ms,
+            "b1_device_share_of_busy": b1 / busy}
 
 
 def path_i(rng):
@@ -6157,6 +6446,7 @@ def main() -> int:
         rows += run_flash_case(c, flush, gen)
     rows += [run_banded_case(c, flush, gen) for c in banded_cases()]
     rows += run_adam_phase(flush, gen)
+    rows += run_lrbc_phase(flush)
     rows += run_nesterov_phase(flush, gen)
     for c in lstm_cases():
         rows += run_lstm_case(c, flush, gen)
@@ -6248,6 +6538,7 @@ def main() -> int:
             ("flash_attention_bwd_dq", t["launches"]),
             ("adam_update", t32["launches"]),
             ("nesterov_update", lp["launches"]),
+            ("adam_lrbc", t32["launches"]),
             ("lstm_fwd", lp["launches"]),
             ("lstm_fwd_inference", g["launches"]),
             ("lstm_bwd", lp["launches"]),
@@ -6318,11 +6609,31 @@ def main() -> int:
             summary[-1]["launches_path_m_async"] = ma["launches"][name]
             summary[-1]["launches_path_i"] = pi["launches"][name]
         if name in ("adam_update", "nesterov_update"):
+            # both designs (design 2 is "persistent") and the
+            # updater's own call, at the main path's shape and over
             # path_i's updates, each over its model's leaves
+            b1_keys = ("design", "multi_ms", "persistent_ms",
+                       "speedup_over_multi", "bound_share", "host_ms",
+                       "host_ms_plan_lookup", "host_ms_grad_leaves",
+                       "host_ms_grad_check", "updater_ms",
+                       "updater_launches")
+            summary[-1].update({k: main_row[k] for k in b1_keys})
+            fit = t32 if name == "adam_update" else lp
+            summary[-1]["launches_by_design"] = {
+                d: fit["b1_launches_by_design"][f"{name}/{d}"]
+                for d in B1_DESIGNS}
             summary[-1]["path_i"] = [{k: r[k] for k in (
                 "leaves", "dtype", "elements", "n_leaves", "ms",
                 "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "max_abs_err")} for r in mine if r["leaves"] in PATH_I_LEAVES]
+                "max_abs_err") + b1_keys}
+                for r in mine if r["leaves"] in PATH_I_LEAVES]
+            summary[-1]["path_i_steps"] = {
+                key: {k: row[k] for k in row if k.startswith("b1_")}
+                for key, row in pi["rows"].items()}
+            summary[-1]["misaligned"] = [
+                {k: r[k] for k in ("dtype", "multi_ms", "persistent_ms",
+                                   "max_abs_err")}
+                for r in mine if r["misaligned"]]
         if name == "nesterov_update":
             rbm = next(r for r in mine if r["leaves"] == "rbm")
             summary[-1]["path_p"] = {k: rbm[k] for k in (

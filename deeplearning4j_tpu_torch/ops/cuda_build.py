@@ -97,10 +97,23 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_update": {
+        "dl4j_fused_update_prepare": (_I, []),
+        # design 1: table, gaddr (host int64, the gradients' addresses),
+        # n_leaves n_chunks chunk, lrbc, b1 c1 b2 c2 eps, dtype, stream
         "dl4j_adam_multi": (
-            _I, [_P, _I, _I, _I, _P, _F, _F, _F, _F, _F, _I, _P]),
+            _I, [_P, _P, _I, _I, _I, _P, _F, _F, _F, _F, _F, _I, _P]),
+        # table gaddr, n_leaves n_chunks chunk, lr, mu, dtype, stream
         "dl4j_nesterov_multi": (
-            _I, [_P, _I, _I, _I, _P, _F, _I, _P]),
+            _I, [_P, _P, _I, _I, _I, _P, _F, _I, _P]),
+        # design 2: table gaddr blocks, n_blocks n_leaves n_chunks chunk,
+        # then design 1's scalars
+        "dl4j_adam_persistent": (
+            _I, [_P, _P, _P, _I, _I, _I, _I, _P, _F, _F, _F, _F, _F, _I,
+                 _P]),
+        "dl4j_nesterov_persistent": (
+            _I, [_P, _P, _P, _I, _I, _I, _I, _P, _F, _I, _P]),
+        # step lr_ptr, lr b1 b2, out, stream
+        "dl4j_adam_lrbc": (_I, [_P, _P, _F, _F, _F, _P, _P]),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "lstm": {

@@ -251,10 +251,13 @@ class FusedUpdatePolicy(NamedTuple):
     reason: str
 
 
-def fused_update_policy(kind: str, device="cuda") -> FusedUpdatePolicy:
+def fused_update_policy(kind: str, device="cuda",
+                        design: Optional[str] = None) -> FusedUpdatePolicy:
     """Optimizer read-modify-write: Adam goes to the fused kernel B1a and
     Nesterovs to B1b on the card, each to its kernel's plain version on
-    CPU tensors."""
+    CPU tensors. Each launch asks once (`fused_update.UpdatePlan.launch`)
+    and counts `kernel_dispatch_total{op="adam_update"|"nesterov_update"}`
+    with impl "fused/<design>" on the card, "plain" on the CPU."""
     op = {"adam": "adam_update", "nesterov": "nesterov_update"}.get(kind)
     if op is None:
         raise ValueError(f"unknown fused update {kind!r} "
@@ -265,7 +268,8 @@ def fused_update_policy(kind: str, device="cuda") -> FusedUpdatePolicy:
     else:
         pol = FusedUpdatePolicy("plain", "the kernel's plain version "
                                 "(CPU tensors)")
-    record_dispatch(op, pol.kind)
+    record_dispatch(op, f"{pol.kind}/{design}"
+                    if design and pol.kind == "fused" else pol.kind)
     return pol
 
 

@@ -19,9 +19,13 @@ schedule's learning rate and Adam's bias correction are computed there
 and never read back to the host.
 
 `Adam.update_with_params` and `Nesterovs.update_with_params` go
-through the fused kernels B1a and B1b (`ops/fused_update.adam_update`,
-`nesterov_update`): one launch for every leaf of the trees they are
-given, the kernels' plain versions on CPU tensors.
+through the fused kernels B1a and B1b: one launch a dtype group for
+every leaf of the trees they are given, the kernels' plain versions on
+CPU tensors. They keep a launch plan a leaf set
+(`ops/fused_update.leaf_plans`: checked once, valid while every p, m and
+v is the tensor it was built on), so a step reads the gradient tree and
+nothing else of the trees; on the card Adam's bias-corrected rate comes
+from the step counter in one launch (`fused_update.adam_lrbc`).
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ from typing import Any, List
 
 import torch
 
-from deeplearning4j_tpu_torch.optim.schedules import as_schedule
+from deeplearning4j_tpu_torch.optim.schedules import (
+    FixedSchedule, Schedule, as_schedule,
+)
 from deeplearning4j_tpu_torch.utils.pytrees import tree_map
 from deeplearning4j_tpu_torch.utils.serde import register_serde
 
@@ -58,17 +64,16 @@ def _first_leaf(tree):
     return leaves[0]
 
 
-def _by_dtype(*trees):
-    """The trees' leaves zipped leaf by leaf and grouped by the first
-    tree's dtype: one fused launch takes one dtype."""
-    groups = {}
-    for leaf in zip(*(tree_leaves(t) for t in trees)):
-        groups.setdefault(leaf[0].dtype, []).append(leaf)
-    return list(groups.values())
-
-
 def _lr(self, step):
     return as_schedule(self.learning_rate).value(step)
+
+
+def _constant_lr(self):
+    """The learning rate as a float where it is constant, else None."""
+    lr = self.learning_rate
+    if isinstance(lr, FixedSchedule):
+        return lr.value_
+    return None if isinstance(lr, Schedule) else float(lr)
 
 
 class Updater:
@@ -140,18 +145,15 @@ class Nesterovs(Updater):
         arithmetic lives only there (`ops/fused_update`), so Nesterovs
         has no separate `apply`."""
         from deeplearning4j_tpu_torch.ops import fused_update as fu
-        from deeplearning4j_tpu_torch.ops.kernel_defaults import (
-            fused_update_policy,
-        )
 
-        first = _first_leaf(params)
-        fused_update_policy("nesterov", first.device)
-        lr = torch.as_tensor(self.lr(_step_f32(step, first)),
-                             dtype=torch.float32, device=first.device)
-        with torch.no_grad():
-            for group in _by_dtype(params, grads, state["v"]):
-                fu.nesterov_update(*zip(*group), lr,
-                                   momentum=self.momentum)
+        plans = fu.leaf_plans("nesterov", params, None, state["v"])
+        lr = _constant_lr(self)
+        if lr is None:
+            lr = torch.as_tensor(self.lr(_step_f32(step, plans)),
+                                 dtype=torch.float32, device=plans.device)
+        else:
+            lr = plans.constant(lr)
+        plans.run(plans.grads(grads), lr, momentum=self.momentum)
         return params, state
 
 
@@ -169,28 +171,20 @@ class Adam(Updater):
         return {"m": tree_map(torch.zeros_like, params),
                 "v": tree_map(torch.zeros_like, params)}
 
-    def _lrbc(self, step, like):
-        t = _step_f32(step, like) + 1.0
-        b1, b2 = self.beta1, self.beta2
-        return self.lr(t - 1.0) * torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
-
     def update_with_params(self, grads, state, params, step):
         """One fused read-modify-write of every leaf (kernel B1a): one
         launch a dtype on the card, the plain version on the CPU. Adam's
         arithmetic lives only there (`ops/fused_update`), so Adam has no
         separate `apply`."""
         from deeplearning4j_tpu_torch.ops import fused_update as fu
-        from deeplearning4j_tpu_torch.ops.kernel_defaults import (
-            fused_update_policy,
-        )
 
-        first = _first_leaf(params)
-        fused_update_policy("adam", first.device)
-        lrbc = self._lrbc(step, first)
-        with torch.no_grad():
-            for group in _by_dtype(params, grads, state["m"], state["v"]):
-                fu.adam_update(*zip(*group), lrbc, beta1=self.beta1,
-                               beta2=self.beta2, eps=self.epsilon)
+        plans = fu.leaf_plans("adam", params, state["m"], state["v"])
+        lr = _constant_lr(self)
+        if lr is None:              # a schedule's rate at this step
+            lr = self.lr(_step_f32(step, plans) + 1.0 - 1.0)
+        lrbc = plans.adam_lrbc(step, lr, self.beta1, self.beta2)
+        plans.run(plans.grads(grads), lrbc, beta1=self.beta1,
+                  beta2=self.beta2, eps=self.epsilon)
         return params, state
 
 

@@ -3,7 +3,8 @@ card: the decode kernels B5 and B6 (native, and their int8/e4m3
 scale-row variants B5q and B6q; each in both designs), the banded
 attention B4 (both designs), the
 flash-attention forward B3a and backward B3b/B3c (each in both designs),
-the fused Adam B1a and Nesterovs B1b, the fused LSTM forward B2a/B2b and
+the fused Adam B1a and Nesterovs B1b (both designs) and Adam's
+bias-corrected rate, the fused LSTM forward B2a/B2b and
 backward B2c (both designs of each), and the conv+BN statistics kernels B7a/B7b.
 These tests import only torch, so they run on a machine with a card and
 no JAX:
@@ -564,6 +565,249 @@ def test_cuda_b1b_refuses_a_host_learning_rate(cuda_device):
     p = torch.zeros(8, device=cuda_device)
     with pytest.raises(ValueError):
         fu.nesterov_update([p], [p.clone()], [p.clone()], 0.01)
+
+
+# ---------------------------------------------- B1 design 2 (persistent)
+# odd lengths, leaves shorter than a stage (2048 elements), a stage and
+# one more, bf16 lengths not a multiple of 8
+B1_SIZES = [1, 7, 127, 2047, 2048, 2049, 4097, (1 << 20) + 3, 3 * fu.CHUNK]
+
+
+def _b1_leaves(kind, sizes, dtype, dev, seed, offset=0):
+    """(p, g, m, v) or (p, g, v) a leaf; `offset` > 0 makes each tensor
+    a view that many elements into a buffer of its own (no address
+    16-byte aligned)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(n, scale=1.0, uniform=False):
+        x = (torch.rand(n + offset, generator=g) if uniform
+             else scale * torch.randn(n + offset, generator=g))
+        return x.to(dev, dtype)[offset:]
+
+    return [(draw(n), draw(n), draw(n, 0.1), draw(n, uniform=True))
+            if kind == "adam" else (draw(n), draw(n), draw(n, 0.1))
+            for n in sizes]
+
+
+def _b1_run(kind, leaves, design, scalar):
+    cols = list(zip(*leaves))
+    if kind == "adam":
+        fu.adam_update(*cols, scalar, beta1=0.8, beta2=0.99, eps=1e-6,
+                       design=design)
+    else:
+        fu.nesterov_update(*cols, scalar, momentum=0.8, design=design)
+
+
+def _b1_ref(kind, leaves, scalar):
+    if kind == "adam":
+        return [fu.adam_update_plain(*leaf, scalar, beta1=0.8, beta2=0.99,
+                                     eps=1e-6) for leaf in leaves]
+    return [fu.nesterov_update_plain(*leaf, scalar, momentum=0.8)
+            for leaf in leaves]
+
+
+def _b1_assert_close(kind, leaves, ref, dtype):
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    for leaf, r in zip(leaves, ref):
+        outs = (leaf[0], leaf[2], leaf[3]) if kind == "adam" \
+            else (leaf[0], leaf[2])
+        for got, want in zip(outs, r):
+            got, want = got.float(), want.float()
+            assert ((got - want).abs() <= 1e-30 + tol * want.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", fu.DESIGNS)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["adam", "nesterov"])
+def test_cuda_b1_designs_match_plain(cuda_device, kind, dtype, offset,
+                                     design):
+    """Both designs of B1a and B1b against the plain version over odd
+    lengths, leaves shorter than a stage, a stage and one more, aligned
+    and as views one element off (the scalar path inside design 2's
+    stages); one launch on the named design."""
+    leaves = _b1_leaves(kind, B1_SIZES, dtype, cuda_device, 5, offset)
+    if offset:
+        assert all(t.data_ptr() % 16 for leaf in leaves for t in leaf)
+    scalar = torch.tensor(1e-3, dtype=torch.float32, device=cuda_device)
+    ref = _b1_ref(kind, leaves, scalar)
+    kernel = "adam_update" if kind == "adam" else "nesterov_update"
+    before = fu.LAUNCHES_BY_DESIGN[(kernel, design)]
+    _b1_run(kind, leaves, design, scalar)
+    torch.cuda.synchronize()
+    assert fu.LAUNCHES_BY_DESIGN[(kernel, design)] == before + 1
+    _b1_assert_close(kind, leaves, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["adam", "nesterov"])
+def test_cuda_b1_design_2_over_272_leaves_equals_design_1(cuda_device,
+                                                          kind):
+    """272 leaves shaped like InceptionResNetV1's (most of them a few
+    hundred elements or fewer, some over a million): design 2 against the
+    plain version and bit for bit against design 1 on the same inputs
+    (both round every operation as the plain version does)."""
+    rng = torch.Generator().manual_seed(272)
+    sizes = [int(n) for n in torch.randint(1, 400, (230,), generator=rng)]
+    sizes += [int(n) for n in torch.randint(2000, 1 << 17, (38,),
+                                            generator=rng)]
+    sizes += [1 << 20, (1 << 20) + 1, 3 * 3 * 320 * 1088, 1792 * 1000]
+    assert len(sizes) == 272
+    scalar = torch.tensor(3e-3, dtype=torch.float32, device=cuda_device)
+    runs = {}
+    for design in fu.DESIGNS:
+        leaves = _b1_leaves(kind, sizes, torch.float32, cuda_device, 9)
+        if design == "persistent":
+            ref = _b1_ref(kind, leaves, scalar)
+        _b1_run(kind, leaves, design, scalar)
+        runs[design] = leaves
+    torch.cuda.synchronize()
+    _b1_assert_close(kind, runs["persistent"], ref, torch.float32)
+    for a, b in zip(*runs.values()):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("updater", ["adam", "nesterovs"])
+def test_cuda_b1_one_launch_a_dtype_group_a_step(cuda_device, updater):
+    """An updater over a tree mixing float32 and bfloat16 leaves: one B1
+    launch a dtype group a step, on design 2 (and Adam's one `adam_lrbc`
+    a step); its plans built once; the leaves as the plain version makes
+    them, step after step."""
+    from deeplearning4j_tpu_torch.optim.updaters import Adam, Nesterovs
+
+    g = torch.Generator().manual_seed(12)
+
+    def tree():
+        return {"a": {"W": torch.randn(300, 70, generator=g),
+                      "b": torch.randn(70, generator=g)},
+                "b": {"W": torch.randn(4097, generator=g).to(torch.bfloat16),
+                      "b": torch.randn(3, generator=g).to(torch.bfloat16)}}
+
+    def on(t, dev):
+        return {n: {k: x.to(dev) for k, x in sub.items()}
+                for n, sub in t.items()}
+
+    u = Adam(1e-2) if updater == "adam" else Nesterovs(0.05, 0.9)
+    params = tree()
+    cpu_p = on(params, "cpu")
+    cuda_p = on(params, cuda_device)
+    cpu_s, cuda_s = u.init(cpu_p), u.init(cuda_p)
+    kernel = "adam_update" if updater == "adam" else "nesterov_update"
+    fu.reset_counts()
+    for step in range(3):
+        grads = tree()
+        u.update_with_params(on(grads, "cpu"), cpu_s, cpu_p,
+                             torch.tensor(step))
+        u.update_with_params(on(grads, cuda_device), cuda_s, cuda_p,
+                             torch.tensor(step, device=cuda_device))
+    torch.cuda.synchronize()
+    assert fu.LAUNCHES[kernel] == 6
+    assert fu.LAUNCHES_BY_DESIGN[(kernel, "persistent")] == 6
+    assert fu.LAUNCHES["adam_lrbc"] == (3 if updater == "adam" else 0)
+    assert sum(fu.PLAIN_ON_CUDA.values()) == 0
+    for n in cpu_p:
+        for k in cpu_p[n]:
+            a, b = cuda_p[n][k].cpu().float(), cpu_p[n][k].float()
+            tol = 2.0 ** -7 if cpu_p[n][k].dtype == torch.bfloat16 \
+                else 1e-6
+            assert ((a - b).abs() <= 1e-7 + tol * b.abs()).all(), (n, k)
+
+
+@pytest.mark.cuda
+def test_cuda_adam_lrbc_matches_plain_bit_for_bit(cuda_device):
+    """`adam_lrbc` against its plain version (the updater's tensor
+    operations): the same float32 bits at steps from 0 to 2^20, for a
+    constant rate and a schedule's rate on the card."""
+    for b1, b2 in ((0.9, 0.999), (0.8, 0.99)):
+        for step in (0, 1, 2, 9, 999, 1000, 65535, (1 << 20) - 1):
+            s = torch.tensor(step, dtype=torch.int64, device=cuda_device)
+            for lr in (3e-4, torch.tensor(0.0123, device=cuda_device)):
+                got = fu.adam_lrbc(s, lr, b1, b2)
+                want = fu.adam_lrbc_plain(s, lr, b1, b2)
+                assert torch.equal(got, want), (step, b1, b2, lr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", fu.DESIGNS)
+def test_cuda_b1_gradients_at_new_addresses_every_step(cuda_device, design):
+    """30, 600 and `MAX_LEAVES` leaves (both sizes of the launch's
+    gradient-address parameter), each step with gradients at new
+    addresses: both designs equal the plain version step after step, one
+    launch a step."""
+    g = torch.Generator().manual_seed(450)
+    kernel = "adam_update"
+    for n_leaves in (30, 600, fu.MAX_LEAVES):
+        sizes = [int(n) for n in torch.randint(1, 3000, (n_leaves,),
+                                               generator=g)]
+        leaves = _b1_leaves("adam", sizes, torch.float32, cuda_device, 4)
+        ps, _, ms, vs = (list(c) for c in zip(*leaves))
+        plan = fu.UpdatePlan("adam", ps, ms, vs)
+        scalar = torch.tensor(1e-3, device=cuda_device)
+        kept = []
+        before = fu.LAUNCHES_BY_DESIGN[(kernel, design)]
+        for step in range(3):
+            grads = [torch.randn(n, generator=g).to(cuda_device)
+                     for n in sizes]
+            kept.append(grads)
+            ref = [fu.adam_update_plain(p, gr, m, v, scalar, beta1=0.8,
+                                        beta2=0.99, eps=1e-6)
+                   for p, gr, m, v in zip(ps, grads, ms, vs)]
+            plan.launch(grads, scalar, design=design, beta1=0.8, beta2=0.99,
+                        eps=1e-6)
+            torch.cuda.synchronize()
+            _b1_assert_close("adam", list(zip(ps, grads, ms, vs)), ref,
+                             torch.float32)
+        assert fu.LAUNCHES_BY_DESIGN[(kernel, design)] == before + 3
+
+
+@pytest.mark.cuda
+def test_cuda_b1_plans_inside_a_captured_graph(cuda_device):
+    """An Adam step captured in a CUDA graph (the plans built eagerly
+    first, then a leaf set seen first inside the capture) replays as the
+    eager steps run, and one captured step's launches (one B1a, one
+    `adam_lrbc`) are counted once, at capture."""
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    g = torch.Generator().manual_seed(3)
+    shapes = {"a": {"W": (64, 33), "b": (33,)}, "b": {"W": (5000,)}}
+
+    def tree(dev):
+        return {n: {k: torch.randn(s, generator=g).to(dev)
+                    for k, s in sub.items()} for n, sub in shapes.items()}
+
+    u = Adam(1e-2)
+    for seen_eagerly in (True, False):
+        p = tree(cuda_device)
+        twin = {n: {k: t.clone() for k, t in sub.items()}
+                for n, sub in p.items()}
+        st, twin_st = u.init(p), u.init(twin)
+        grads = tree(cuda_device)
+        step = torch.zeros((), dtype=torch.int64, device=cuda_device)
+        if seen_eagerly:
+            u.update_with_params(grads, st, p, step)
+            u.update_with_params(grads, twin_st, twin, step)
+            step.fill_(1)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        fu.reset_counts()
+        with torch.cuda.graph(graph, stream=side):
+            u.update_with_params(grads, st, p, step)
+        assert fu.LAUNCHES["adam_update"] == 1
+        assert fu.LAUNCHES["adam_lrbc"] == 1
+        for i in range(3):
+            graph.replay()
+            u.update_with_params(grads, twin_st, twin, step)
+            step.add_(1)
+        torch.cuda.synchronize()
+        for n in shapes:
+            for k in shapes[n]:
+                assert torch.equal(p[n][k], twin[n][k]), (seen_eagerly, n, k)
+                for key in ("m", "v"):
+                    assert torch.equal(st[key][n][k], twin_st[key][n][k])
 
 
 # ------------------------------------------------- fused LSTM (B2a-c)
@@ -1959,13 +2203,13 @@ def test_cuda_pretrain_launches_one_fused_update_a_step(cuda_device,
     before = {n: {k: v.clone() for k, v in net.params_tree[n].items()}
               for n in names}
     seen = []
-    launch = getattr(fu, kernel)
+    launch = fu.UpdatePlan.launch
 
-    def record(params, *rest, **kw):
-        seen.append({p.data_ptr() for p in params})
-        return launch(params, *rest, **kw)
+    def record(plan, *args, **kw):
+        seen.append({p.data_ptr() for p in plan.leaves()[0]})
+        return launch(plan, *args, **kw)
 
-    monkeypatch.setattr(fu, kernel, record)
+    monkeypatch.setattr(fu.UpdatePlan, "launch", record)
     fu.reset_counts()
     x = torch.rand(32, 10, generator=torch.Generator().manual_seed(0))
     net.pretrain(x.numpy(), epochs=1, batch_size=8)

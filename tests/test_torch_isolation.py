@@ -20,6 +20,8 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "torch_b3a_exp_forms.py",
     ROOT / "tools" / "torch_path_l_steps.py",
     ROOT / "tools" / "torch_b6_splits.py",
+    ROOT / "tools" / "torch_b1_variants.py",
+    ROOT / "tools" / "torch_b1_updater.py",
     ROOT / "tools" / "torch_b5_splits.py",
     ROOT / "tools" / "torch_b5_phases.py",
     ROOT / "tools" / "torch_b4_exp_forms.py",
