@@ -29,12 +29,17 @@ exits non-zero with no result line:
      and bfloat16 and at ragged, cross, narrow and wide variants of
      both, against SDPA's forward and backward; each row names the
      design that ran (bfloat16 at Dh 64 and 128 on the tensor cores,
-     "wgmma", else float32 FMA, "ffma"), its TFLOP/s and its share of
-     the bound, and the bfloat16 main shape also times design 1 on the
-     same inputs (`ffma_ms`); a bfloat16 forward or backward must lie
-     nearer the plain version that rounds P and dS (C6) than the one
-     that does not; then design 2 twice at that shape and at Dh 128, o,
-     lse, dq, dk and dv bit-equal (`flash_repeat`);
+     "wgmma"; the float32 backward there on the tensor cores as three
+     TF32 products, "tf32x3"; else float32 FMA, "ffma"), its TFLOP/s and
+     its share of its design's bound (`flash_rate`), and the bfloat16
+     main shape and every "tf32x3" row also time design 1 on the same
+     inputs (`ffma_ms`); a "tf32x3" row also holds both designs against
+     the plain backward in float64 (the guard: at most twice design 1's
+     error) and its SDPA yardstick names the kernels SDPA ran; a
+     bfloat16 forward or backward must lie nearer the plain version that
+     rounds P and dS (C6) than the one that does not; then designs 2 and
+     3 twice at that shape and at Dh 128, o, lse, dq, dk and dv
+     bit-equal (`flash_repeat`);
    - the banded forward B4 at `path_w`'s shape and its variants
      (`banded_cases`), against SDPA with the band as a mask; each row
      names its design (float32 at Dh 32/64/128 on the folded grid,
@@ -255,6 +260,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# float32 products on the tensor cores as three TF32 products (design 3
+# of B3b/B3c): the dense TF32 rate, 495 TFLOP/s, over three
+PEAK_FLOPS_TF32X3 = 495e12 / 3
 # (atol, rtol) of a kernel against its plain version, in the working
 # dtype. Both compute in float32 and round once; in bfloat16 they may
 # then land one bf16 step apart, at most 2**-7 of the value.
@@ -714,8 +722,9 @@ def flash_cases():
     """The training paths' shape (B 8 x H 8 = BH 64, T 2048, Dh 64,
     causal) in float32 (`path_t`) and bfloat16 (`path_t_bf16`), and the
     variants the kernels must hold: a ragged T, Tq != Tk, head dims 32
-    and 128, in float32 (B3b/B3c design 1) and bfloat16 (design 2 at Dh
-    64 and 128, design 1 at Dh 32)."""
+    and 128, in float32 (B3a on design 1; B3b/B3c on design 3 at Dh 64
+    and 128, design 1 at Dh 32) and bfloat16 (design 2 at Dh 64 and 128,
+    design 1 at Dh 32)."""
     f32, bf16 = torch.float32, torch.bfloat16
     base = dict(bh=64, causal=True, dtype=f32, main=False, dh=64)
     cases = [dict(base, tq=2048, tk=2048, main=True),
@@ -731,9 +740,9 @@ def flash_cases():
 def cross_flash_cases():
     """`path_x`'s cross-attention shape (BH 64, Tq 2048, Tk 1024, Dh 64,
     not causal) and Tk 1000, which ends in a partial key tile, in
-    float32 (design 1) and bfloat16 (design 2). They draw their inputs
-    from a generator of their own, so the cases before them keep the
-    inputs they always had."""
+    float32 (B3a on design 1, B3b/B3c on design 3) and bfloat16 (design
+    2). They draw their inputs from a generator of their own, so the
+    cases before them keep the inputs they always had."""
     base = dict(bh=64, causal=False, main=False, dh=64, tq=2048)
     return [dict(base, dtype=dt, tk=tk, path_x=tk == 1024)
             for dt in (torch.float32, torch.bfloat16) for tk in (1024, 1000)]
@@ -747,11 +756,19 @@ def flash_flops(name, c):
     return FLASH_PRODUCTS[name] * 2 * dh * pairs
 
 
-def flash_bound(name, c):
-    """(bound_ms, bound_by) of one flash kernel: its products
-    (`flash_flops`) at the peak rate of the dtype, or the bytes it must
-    move (inputs read once, outputs written once, row statistics float32)
-    over HBM bandwidth."""
+def flash_rate(c, design):
+    """The peak rate a flash kernel's products are bound by: the dtype's
+    (FMA in float32, the tensor cores in bfloat16), or the 3xTF32 rate
+    for design 3."""
+    return PEAK_FLOPS_TF32X3 if design == "tf32x3" else \
+        PEAK_FLOPS[c["dtype"]]
+
+
+def flash_bound(name, c, design="ffma"):
+    """(bound_ms, bound_by) of one flash kernel in `design`: its products
+    (`flash_flops`) at the design's peak rate (`flash_rate`), or the
+    bytes it must move (inputs read once, outputs written once, row
+    statistics float32) over HBM bandwidth."""
     es = torch.tensor([], dtype=c["dtype"]).element_size()
     bh, tq, tk, dh = c["bh"], c["tq"], c["tk"], c["dh"]
     qe, ke = bh * tq * dh, bh * tk * dh
@@ -761,7 +778,7 @@ def flash_bound(name, c):
               "flash_attention_bwd_dq": (3 * qe + 2 * ke) * es
               + 8 * bh * tq}[name]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flash_flops(name, c) / PEAK_FLOPS[c["dtype"]] * 1e3
+    t_ops = flash_flops(name, c) / flash_rate(c, design) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -786,6 +803,38 @@ def flash_err(got, ref, dtype, atol):
 # reads the excess (`excess_share`) against the plain version left
 # unrounded (`unrounded_excess_share`) and must lie nearer the rounded one.
 FLASH_GRAD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+
+def flash_want(dtype, dh, kernel):
+    """The design `ops.attention.b3_design` must give `kernel` on aligned
+    tensors: bfloat16 at Dh 64/128 "wgmma"; the float32 backward (B3b,
+    B3c) there "tf32x3"; every other call "ffma"."""
+    if dh not in (64, 128):
+        return "ffma"
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "ffma" if kernel == "flash_attention_fwd" else "tf32x3"
+
+
+def f64_share(grads, refs):
+    """The largest error of `grads` against the float64 `refs`, a share of
+    the largest |ref| of each (the guard of design 3)."""
+    return max(((g.double() - r).abs().max() / r.abs().max()).item()
+               for g, r in zip(grads, refs))
+
+
+def cuda_kernel_names(fn, stream):
+    """The names of the CUDA kernels one call of `fn` on `stream` runs
+    (`torch.profiler`), each cut to 120 characters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.cuda.stream(stream):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return sorted({e.key[:120] for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"})
 
 
 def new_design(by_design, before, kernel):
@@ -860,11 +909,17 @@ def run_flash_case(c, flush, gen):
         check(ok, f"flash backward {shape} {dt} ({design}): {name} err "
               f"{err}, tolerance {atol} ({FLASH_GRAD_ATOL[dt]} of the "
               f"largest |ref|)")
-    want = "wgmma" if dt == torch.bfloat16 and dh in fa.WGMMA_HEAD_DIMS \
-        else "ffma"
-    check(design == want and fwd_design == want,
+    want = (flash_want(dt, dh, "flash_attention_fwd"),
+            flash_want(dt, dh, "flash_attention_bwd_dq"))
+    check((fwd_design, design) == want,
           f"flash {shape} {dt} ran designs {fwd_design} (forward) and "
           f"{design} (backward), want {want}")
+    g64 = None
+    if design == "tf32x3":
+        # the guard's reference: the plain backward in float64 on the
+        # same float32 inputs
+        g64 = fa.flash_attention_bwd_plain(
+            *(x.double() for x in (q, k, v, o_ref, lse_ref, do)), causal)
 
     delta = (do.float() * o_ref.float()).sum(dim=-1)
     runs = {
@@ -934,6 +989,10 @@ def run_flash_case(c, flush, gen):
             og, (qg, kg, vg), do4, retain_graph=True), flush, side)
         host_bwd = time_ms(lambda: torch.autograd.grad(
             og, (qg, kg, vg), do4, retain_graph=True), flush)
+        # the kernels SDPA's backward ran (float32: PyTorch's
+        # memory-efficient kernel on CUTLASS's 3xTF32 products)
+        lib_names = cuda_kernel_names(lambda: torch.autograd.grad(
+            og, (qg, kg, vg), do4, retain_graph=True), side)
         lib = {"flash_attention_fwd": lib_fwd,
                "flash_attention_bwd_dkdv": lib_bwd,
                "flash_attention_bwd_dq": lib_bwd}
@@ -942,12 +1001,12 @@ def run_flash_case(c, flush, gen):
                 "flash_attention_bwd_dq": host_bwd}
     rows = []
     for name, fn in runs.items():
-        bms, by = flash_bound(name, c)
+        d_row = fwd_design if name == "flash_attention_fwd" else design
+        bms, by = flash_bound(name, c, d_row)
         ms = time_ms(fn, flush)
         row = {"phase": "kernels", "kernel": name,
                "dtype": str(dt).replace("torch.", ""), **shape,
-               "design": fwd_design if name == "flash_attention_fwd"
-               else design,
+               "design": d_row,
                "max_abs_err": errs_of[name],
                "excess_share": share.get(name),
                "grad_limit_share": None if name == "flash_attention_fwd"
@@ -960,10 +1019,13 @@ def run_flash_case(c, flush, gen):
                "plain_ms": plain.get(name), "library_ms": lib.get(name),
                "library_ms_with_host_launches": host.get(name),
                "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
+               "bound_rate_tflops": flash_rate(c, d_row) / 1e12,
                "main_path_shape": c["main"],
                "path_x_shape": c.get("path_x", False)}
-        if design == "wgmma" and name != "flash_attention_fwd" and \
-                c["main"]:
+        if timed_plain and name != "flash_attention_fwd":
+            row["library_kernels"] = lib_names
+        if name != "flash_attention_fwd" and (
+                design == "tf32x3" or design == "wgmma" and c["main"]):
             # design 1 on the same inputs, to compare the two in one run
             launch = fa.launch_bwd_dkdv if name.endswith("dkdv") \
                 else fa.launch_bwd_dq
@@ -980,6 +1042,22 @@ def run_flash_case(c, flush, gen):
             row["ffma_excess_share"] = max(e[3] for e in e1.values())
             row["ffma_ms"] = time_ms(run1, flush)
             row["speedup_over_ffma"] = row["ffma_ms"] / ms
+            if design == "tf32x3":
+                # design 1's own bound, and the guard: both designs
+                # against the float64 plain backward on the same inputs
+                fb, _ = flash_bound(name, c, "ffma")
+                sl = slice(0, 1) if name.endswith("dq") else slice(1, 3)
+                got1 = run1()
+                f3 = f64_share(grads[sl], g64[sl])
+                f1 = f64_share(got1 if isinstance(got1, tuple)
+                               else (got1,), g64[sl])
+                row.update(ffma_bound_ms=fb,
+                           ffma_bound_share=fb / row["ffma_ms"],
+                           f64_share=f3, ffma_f64_share=f1,
+                           guard_ratio=f3 / f1, guard_limit=2.0)
+                check(f3 <= 2 * f1, f"{name} {shape} float32 (tf32x3): "
+                      f"{f3} of the largest |ref| from the float64 "
+                      f"backward, design 1 {f1}: past twice design 1's")
         if name == "flash_attention_fwd":
             row["past_2e-5_limit"] = past_fwd
             if fwd_design == "wgmma" and c["main"]:
@@ -992,38 +1070,46 @@ def run_flash_case(c, flush, gen):
                 row["speedup_over_ffma"] = row["ffma_ms"] / ms
         emit(row)
         rows.append(row)
+    del g64
     return rows
 
 
 def run_flash_repeat(gen):
-    """Design 2 launched twice at `path_t_bf16`'s shape and at Dh 128:
-    o and lse bit-equal (B3a), dq, dk and dv bit-equal (B3b, B3c: two
-    kernels, no atomics)."""
+    """Every kernel launched twice at `path_t_bf16`'s and `path_t`'s shape
+    and at Dh 128, in bfloat16 (all on design 2) and float32 (B3a on
+    design 1, B3b/B3c on design 3): o and lse bit-equal (B3a), dq, dk
+    and dv bit-equal (B3b, B3c: two kernels, no atomics)."""
     from deeplearning4j_tpu_torch.ops import attention as fa
 
     rows = []
-    for bh, t, dh in ((64, 2048, 64), (16, 2048, 128)):
-        q, k, v, do = (torch.randn(bh, t, dh, generator=gen)
-                       .to("cuda", torch.bfloat16) for _ in range(4))
-        before = dict(fa.LAUNCHES_BY_DESIGN)
-        o, lse = fa.flash_attention_fwd(q, k, v, True)
-        o2, lse2 = fa.flash_attention_fwd(q, k, v, True)
-        a = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
-        b = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
-        torch.cuda.synchronize()
-        check(all(fa.LAUNCHES_BY_DESIGN[(kk, "wgmma")] == before[(kk, "wgmma")]
-                  + 2 for kk in FLASH_KERNELS),
-              f"flash repeat BH {bh} T {t} Dh {dh}: design 2 did not take "
-              f"both launches of every kernel")
-        equal = [torch.equal(x, y) for x, y in zip((o, lse, *a),
-                                                   (o2, lse2, *b))]
-        check(all(equal), f"flash repeat BH {bh} T {t} Dh {dh}: two "
-              f"launches differ (o, lse, dq, dk, dv equal: {equal})")
-        rows.append({"phase": "flash_repeat", "bh": bh, "t": t, "dh": dh,
-                     "causal": True, "dtype": "bfloat16", "design": "wgmma",
-                     "bit_equal": dict(zip(("o", "lse", "dq", "dk", "dv"),
-                                           equal))})
-        emit(rows[-1])
+    for dt in (torch.bfloat16, torch.float32):
+        for bh, t, dh in ((64, 2048, 64), (16, 2048, 128)):
+            q, k, v, do = (torch.randn(bh, t, dh, generator=gen)
+                           .to("cuda", dt) for _ in range(4))
+            before = dict(fa.LAUNCHES_BY_DESIGN)
+            o, lse = fa.flash_attention_fwd(q, k, v, True)
+            o2, lse2 = fa.flash_attention_fwd(q, k, v, True)
+            a = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+            b = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+            torch.cuda.synchronize()
+            designs = {kk: flash_want(dt, dh, kk) for kk in FLASH_KERNELS}
+            check(all(fa.LAUNCHES_BY_DESIGN[(kk, d)] == before[(kk, d)] + 2
+                      for kk, d in designs.items()),
+                  f"flash repeat {dt} BH {bh} T {t} Dh {dh}: {designs} did "
+                  f"not take both launches of every kernel")
+            equal = [torch.equal(x, y) for x, y in zip((o, lse, *a),
+                                                       (o2, lse2, *b))]
+            check(all(equal), f"flash repeat {dt} BH {bh} T {t} Dh {dh}: "
+                  f"two launches differ (o, lse, dq, dk, dv equal: "
+                  f"{equal})")
+            rows.append({"phase": "flash_repeat", "bh": bh, "t": t,
+                         "dh": dh, "causal": True,
+                         "dtype": str(dt).replace("torch.", ""),
+                         "design": designs,
+                         "bit_equal": dict(zip(("o", "lse", "dq", "dk",
+                                                "dv"), equal))})
+            emit(rows[-1])
+            del q, k, v, do, o, o2, lse, lse2, a, b
     return rows
 
 
@@ -3337,9 +3423,10 @@ FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
 def path_t(rng, epochs=3, dtype="float32"):
     """Full width training: 6 blocks, T 2048, batch 8, the zoo's default
     Adam(3e-4), 4 fixed batches x 3 epochs = 12 steps through `net.fit`
-    (`timed_fit`). float32 (`path_t`): B3a-c on design 1; bfloat16
-    (`path_t_bf16`, `bench.py`'s dtype for this model: BENCH_DTYPE's
-    default, `bench.py:586`): B3a-c on design 2, the tensor cores."""
+    (`timed_fit`). float32 (`path_t`): B3a on design 1, B3b/B3c on
+    design 3 (3xTF32 on the tensor cores); bfloat16 (`path_t_bf16`,
+    `bench.py`'s dtype for this model: BENCH_DTYPE's default,
+    `bench.py:586`): B3a-c on design 2, the tensor cores."""
     from deeplearning4j_tpu_torch.ops import attention as fa
     from deeplearning4j_tpu_torch.optim.updaters import Adam
 
@@ -3360,16 +3447,17 @@ def path_t(rng, epochs=3, dtype="float32"):
           f"{name}: adam_update launched {launches['adam_update']} times, "
           f"want one a step x {steps}")
     by_design = launches_by_design(fa)
-    design = "wgmma" if dtype == "bfloat16" else "ffma"
-    other = "ffma" if design == "wgmma" else "wgmma"
-    for kernel in FLASH_KERNELS:
+    designs = {kernel: flash_want(getattr(torch, dtype), 64, kernel)
+               for kernel in FLASH_KERNELS}
+    for kernel, design in designs.items():
         check(by_design[f"{kernel}/{design}"] == blocks * steps
-              and by_design[f"{kernel}/{other}"] == 0,
+              and all(by_design[f"{kernel}/{d}"] == 0
+                      for d in fa.DESIGNS if d != design),
               f"{name}: {kernel} not all on {design}: {by_design}")
     row = {"phase": name, "model": "TextGenerationTransformer",
            "d_model": 512, "heads": 8, "blocks": blocks, "T": T,
            "batch": B, "dtype": dtype, "updater": str(net.conf.updater),
-           **fit, "launches_by_design": by_design}
+           **fit, "flash_designs": designs, "launches_by_design": by_design}
     emit(row)
     del net
     torch.cuda.empty_cache()
@@ -3500,11 +3588,15 @@ def train_parity(rng, name="train_parity", kernel="flash_attention_fwd",
             check(launches[kernel] == 2 * steps,
                   f"{name}: {kernel} launched {launches[kernel]} times, "
                   f"want 2 layers x {steps} steps")
-            if dtype == "bfloat16" and kernel == "flash_attention_fwd":
+            if kernel == "flash_attention_fwd":
+                # bfloat16: B3a-c on design 2; float32: B3a on design 1,
+                # B3b/B3c on design 3
                 by_design = launches_by_design(fa)
-                check(all(by_design[f"{k}/wgmma"] == 2 * steps
-                          for k in FLASH_KERNELS[1:]),
-                      f"{name}: B3b/B3c not on design 2: {by_design}")
+                want = {k: flash_want(getattr(torch, dtype), 64, k)
+                        for k in FLASH_KERNELS}
+                check(all(by_design[f"{k}/{d}"] == 2 * steps
+                          for k, d in want.items()),
+                      f"{name}: B3a-c not on {want}: {by_design}")
         losses[d] = [sc for _, sc in scores.scores]
         leaves[d] = [p.float().cpu() for p in tree_leaves(net.params_tree)]
         moves[d] = [p.double() - p0 for p, p0 in zip(leaves[d], start)]
@@ -5435,7 +5527,8 @@ def path_x(rng, epochs=2, batch=8, tq=2048, tk=1024, width=512):
     """Cross-attention through MultiDataSet feeding (A4): the seq2seq
     graph at width (Tq 2048, Tk 1024, batch 8) trained 8 Adam steps (4
     MultiDataSets x 2 epochs) at K 1 and at K 4, in bfloat16 (B3a-c
-    non-causal at Tq != Tk on design 2) and float32 (design 1), each
+    non-causal at Tq != Tk on design 2) and float32 (B3a on design 1,
+    B3b/B3c on design 3), each
     kernel once a step and B1a once; K 4 against K 1; then the graph at
     Tq 256, Tk 200 in float32, 2 steps on the card against the CPU."""
     from deeplearning4j_tpu_torch.models import ComputationGraph
@@ -5449,7 +5542,9 @@ def path_x(rng, epochs=2, batch=8, tq=2048, tk=1024, width=512):
     batches = seq2seq_batches(rng, 4, B, TQ, TK)
     row = {"phase": "path_x", "Tq": TQ, "Tk": TK, "batch": B,
            "width": width, "heads": 8, "classes": 256}
-    for dtype, design in (("bfloat16", "wgmma"), ("float32", "ffma")):
+    for dtype in ("bfloat16", "float32"):
+        design = {kernel: flash_want(getattr(torch, dtype), width // 8,
+                                     kernel) for kernel in FLASH_KERNELS}
         runs = {}
         for k in (1, 4):
             net = ComputationGraph(seq2seq_conf(dtype, TQ, TK, width),
@@ -5463,9 +5558,10 @@ def path_x(rng, epochs=2, batch=8, tq=2048, tk=1024, width=512):
                       f"path_x {dtype} K{k}: {kernel} launched "
                       f"{fit['launches'][kernel]} times, want one a step")
                 if kernel in FLASH_KERNELS:
-                    check(by_design[f"{kernel}/{design}"] == fit["steps"],
-                          f"path_x {dtype}: {kernel} not all on {design}: "
-                          f"{by_design}")
+                    check(by_design[f"{kernel}/{design[kernel]}"]
+                          == fit["steps"],
+                          f"path_x {dtype}: {kernel} not all on "
+                          f"{design[kernel]}: {by_design}")
             runs[k] = (fit, [p.detach().float().cpu()
                              for p in tree_leaves(net.params_tree)])
             del net
@@ -6658,12 +6754,22 @@ def main() -> int:
                  if k in main_row},
                 launches_by_design={
                     d: t["launches_by_design"][f"{name}/{d}"]
-                    for d in ("ffma", "wgmma")},
-                float32={"ms": f32["ms"], "design": f32["design"],
-                         "bound_ms": f32["bound_ms"],
-                         "plain_ms": f32["plain_ms"],
-                         "library_ms": f32["library_ms"],
-                         "launches_path_t": t32["launches"][name]})
+                    for d in ("ffma", "wgmma", "tf32x3")},
+                # path_t's float32 row: B3a on design 1, B3b/B3c on
+                # design 3 (3xTF32) beside design 1 on the same inputs,
+                # each against its own bound, and the guard against a
+                # float64 backward
+                float32={**{k: f32.get(k) for k in (
+                    "design", "ms", "plain_ms", "library_ms",
+                    "library_kernels", "bound_ms", "bound_by",
+                    "bound_rate_tflops", "bound_share", "ffma_ms",
+                    "speedup_over_ffma", "ffma_bound_ms",
+                    "ffma_bound_share", "f64_share", "ffma_f64_share",
+                    "guard_ratio", "max_abs_err")},
+                    "launches_path_t": t32["launches"][name],
+                    "launches_path_t_by_design": {
+                        d: t32["launches_by_design"][f"{name}/{d}"]
+                        for d in ("ffma", "wgmma", "tf32x3")}})
         if name.endswith("_bf16"):
             base = name[:-len("_bf16")]
             by = (lb["output_launches_by_design"]

@@ -10,11 +10,13 @@
 //   flash_bwd_dq_kernel    — replaces B3c, `_flash_bwd_dq_kernel`: dQ with
 //     one Q tile pinned while the K tiles are swept.
 //
-// Each comes in two designs, chosen per call by `b3_design` in
-// ops/attention.py (by dtype, head dim and alignment, before the launch;
-// neither falls back to the other): design 1 above, and design 2,
-// `tc::fwd_wgmma_kernel`, `tc::bwd_dkdv_wgmma_kernel` and
-// `tc::bwd_dq_wgmma_kernel`, below.
+// Each comes in two designs, and the backward pair in three, chosen per
+// call by `b3_design` in ops/attention.py (by dtype, head dim, alignment
+// and direction, before the launch; none falls back to another): design 1
+// above; design 2, `tc::fwd_wgmma_kernel`, `tc::bwd_dkdv_wgmma_kernel` and
+// `tc::bwd_dq_wgmma_kernel`, for bfloat16; and design 3,
+// `tf32x3::bwd_dkdv_tf32x3_kernel` and `tf32x3::bwd_dq_tf32x3_kernel`, for
+// the float32 backward, all below.
 //
 // The backward rematerializes each score tile from the saved lse, as the
 // TPU kernels do (`_bwd_tile`): p = exp(s - L), ds = p * (dp - delta) *
@@ -25,10 +27,15 @@
 // 2 products forward and 5 backward (S, dP, dV, dK, dQ), 2 Dh flops a pair
 // each. At T 2048 and Dh 64 that is about 64 flops a byte moved, so the
 // kernels are bound by the arithmetic rate, not by memory: 67 TFLOP/s on
-// the FMA units in float32, 989 on the tensor cores in bfloat16.
+// the FMA units in float32 (design 1), 989 on the tensor cores in bfloat16
+// (design 2), 495 / 3 in float32 as three TF32 products (design 3).
 //
-// Design 1. Exact float32 arithmetic on the FMA units (no tensor cores and
-// no TF32: the port's float32 path is exact float32); bfloat16 inputs are
+// Float32 contract: no float32 operand is ever rounded to a single TF32
+// term. The float32 forward runs on design 1 (FMA); the float32 backward
+// at Dh 64 and 128 runs on design 3 (3xTF32, about 22 bits of each
+// operand: as accurate as FMA), every other float32 shape on design 1.
+//
+// Design 1. Float32 arithmetic on the FMA units; bfloat16 inputs are
 // widened to float32 as they are staged and rounded once on output. One
 // block of 256 threads owns a 64-row tile; its partner tiles (64 keys, or
 // 64 queries in the dK/dV kernel) are staged in shared memory, float32,
@@ -1213,6 +1220,604 @@ int run(Which w, const Args& a, void* stream) {
 
 }  // namespace tc
 
+// ------------------------------------------------------------------------
+// Design 3 of B3b and B3c: float32 on the tensor cores as 3xTF32
+// ------------------------------------------------------------------------
+// Float32 at Dh 64 and 128 with q, k, v and dO 16-byte aligned. Design 1
+// runs its products on the FMA units (67 TFLOP/s on an H100) from 4 x 4
+// micro-tiles that read both operands from shared memory every few FMAs,
+// stages its tiles synchronously and passes P^T and dS^T through shared
+// memory. Here the products run on the tensor cores, `mma.sync` m16n8k8
+// with tf32 operands and float32 accumulators. Each float32 operand x is
+// split into big = tf32(x) and small = tf32(x - big) (both rounded to
+// nearest, ties away, as `cvt.rna`), and each product is taken as small *
+// big + big * small + big * big, the two small ones first (see "Sums"
+// below for where each is added). That keeps about 22 bits of each
+// operand: the result is as accurate as float32 FMA, never the one-pass
+// TF32 product (`ops/attention.py` `tf32x3_split` emulates the split on
+// the CPU). Three TF32 products a float32 product: the bound is 495 / 3
+// TFLOP/s. `mma.sync` and not `wgmma`: `wgmma` reads tf32 operands from
+// shared memory K-major only (the transpose bit is for 16-bit types), and
+// the backward reads Q, dO and K transposed; `mma.sync` fragments are
+// loaded by index, so a transpose costs nothing.
+//
+// A block is 8 warps, one block an SM; a warp owns 16 rows of the
+// block's 128-row pinned tile (keys in dK/dV, with K and V pinned;
+// queries in dQ, with Q, dO, lse and delta pinned), loaded once. The
+// streamed tiles of kCols rows (Q, dO and their lse and delta in dK/dV; K
+// and V in dQ) come through a ring of kStages buffers filled by 16-byte
+// `cp.async` (4-byte for lse and delta), the next tile in flight during
+// this one's products. Every warp reads every element of a streamed tile
+// as a B operand, and the split was most of the instructions; so at Dh 64
+// (64-row tiles) the block splits each streamed tile once, in place (big)
+// and into a plane of its own (small), behind a second barrier, and the
+// fragments read both planes. At Dh 128 those planes do not fit beside
+// the pinned tile: the streamed tiles are 32 rows (so that dK and dV's
+// 128 accumulators leave room in the registers) and each warp splits its
+// B fragments as it loads them. The pinned A operands and P^T, dS^T are
+// split as their fragments are loaded. Rows are padded to Dh + 4 floats,
+// so every fragment read (a lane reads row g or 2t of 8, column t or g)
+// falls in 32 distinct banks. Per streamed tile a warp computes, in the
+// accumulator layout of a 16 x kCols m16n8 product (lane (g, t) holds
+// rows g, g + 8 and columns 2t, 2t + 1 of each 8-column tile):
+//   dK/dV: S^T = K Q^T, dP^T = V dO^T; P^T = exp(S^T scale - lse),
+//          dS^T = P^T (dP^T - delta) scale; dV += P^T dO, dK += dS^T Q
+//   dQ:    S = Q K^T, dP = dO V^T; P, dS likewise; dQ += dS K
+// P^T and dS^T stay in registers: an accumulator holds columns 2t and
+// 2t + 1 of each 8-column tile where the A fragment of the next product
+// wants columns t and t + 4, so the reduction index of that product is
+// permuted (A column t <- 2t, t + 4 <- 2t + 1) and B's rows (dO, Q or K)
+// are read in the same permuted order; a sum does not depend on the order
+// of its terms. Causal: dead tiles are skipped (for a block, and for a
+// warp whose 16 rows a tile near the diagonal does not reach), only tiles
+// that cross the diagonal or an end are masked, and the blocks with the
+// most tiles start first (dK/dV: key blocks on y, the first keys sweep
+// the most Q tiles; dQ: query blocks reversed).
+// Numerics as design 1: p = expf(s scale - lse) (IEEE: built without
+// --use_fast_math), delta from the caller in float32, dS from the
+// unrounded p, the mask value -1e30 (a masked p is 0); no atomics, so two
+// launches give the same bits. Nothing float32 is rounded to a single
+// TF32 term.
+namespace tf32x3 {
+
+constexpr int kStages = 2;            // depth of the streamed-tile ring
+constexpr int kRows = 128;            // the pinned tile: 8 warps of 16
+constexpr int kThreads = 32 * (kRows / 16);
+
+template <int DH>
+struct Geo3 {
+  // Dh 64: 64-row streamed tiles, split once a block; Dh 128: 32-row
+  // streamed tiles, split at each fragment load
+  static constexpr bool kPreSplit = DH == 64;
+  static constexpr int kCols = DH == 64 ? 64 : 32;  // a streamed tile
+  static constexpr int CT = kCols / 8;         // its 8-row tiles
+  static constexpr int LD = DH + 4;            // padded shared-memory row
+  static constexpr int kTile = kCols * LD;     // floats of a streamed tile
+  // a stage: two tiles and, in dK/dV, their lse and delta values
+  static constexpr int kStage = 2 * kTile + 2 * kCols;
+  // the pinned tiles, the ring, the small planes of a stage's two tiles
+  static constexpr int kBytes =
+      (2 * kRows * LD + kStages * kStage + (kPreSplit ? 2 * kTile : 0)) * 4;
+  static constexpr int NT = DH / 8;            // 8-column tiles of Dh
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows r0 .. r0 + R - 1 of a row-major [n, DH] float32 matrix into dst
+// (rows LD apart), 16 bytes a copy; rows past n are zero-filled.
+template <int DH, int R>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           int r0, int n) {
+  using G = Geo3<DH>;
+  constexpr int kChunks = DH / 4;  // 16-byte chunks a row
+  static_assert(R * kChunks % kThreads == 0, "tile copies");
+#pragma unroll
+  for (int c = 0; c < R * kChunks / kThreads; ++c) {
+    const int i = threadIdx.x + c * kThreads;
+    const int r = i / kChunks, col = 4 * (i % kChunks);
+    const bool live = r0 + r < n;
+    cp_async16(dst + r * G::LD + col,
+               src + (size_t)(live ? r0 + r : 0) * DH + col, live);
+  }
+}
+
+// C lse values (threads 0 .. C - 1) and C delta values (C .. 2C - 1) of
+// rows r0 ..; past n zeros.
+template <int C>
+__device__ __forceinline__ void stage_stats(float* dst, const float* lse,
+                                            const float* delta, int r0,
+                                            int n) {
+  if (threadIdx.x >= 2 * C) return;
+  const int r = threadIdx.x % C;
+  const bool live = r0 + r < n;
+  const float* src = threadIdx.x < C ? lse : delta;
+  cp_async4(dst + (threadIdx.x < C ? 0 : C) + r,
+            src + (live ? r0 + r : 0), live);
+}
+
+// x rounded to tf32 (10 stored mantissa bits), to nearest, ties away from
+// zero, as `cvt.rna.tf32.f32` rounds a finite x: half of the dropped unit
+// added to the magnitude's bits, the 13 low bits cleared (the value is
+// exact as float32). Two integer instructions; `cvt.rna` compiles to
+// four or five on sm_90a (it also tests for NaN and infinity).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// Split a stage's two streamed tiles (2 x kCols rows, LD apart) in place:
+// big over x, small into the plane `small` of the same layout.
+template <int DH>
+__device__ __forceinline__ void split_tiles(float* x, float* small) {
+  using G = Geo3<DH>;
+  constexpr int kChunks = DH / 4;
+  static_assert(2 * G::kCols * kChunks % kThreads == 0, "tile split");
+#pragma unroll
+  for (int c = 0; c < 2 * G::kCols * kChunks / kThreads; ++c) {
+    const int i = threadIdx.x + c * kThreads;
+    const int o = (i / kChunks) * G::LD + 4 * (i % kChunks);
+    const float4 v = *reinterpret_cast<const float4*>(x + o);
+    uint4 b, s;
+    split(v.x, b.x, s.x);
+    split(v.y, b.y, s.y);
+    split(v.z, b.z, s.z);
+    split(v.w, b.w, s.w);
+    *reinterpret_cast<uint4*>(x + o) = b;
+    *reinterpret_cast<uint4*>(small + o) = s;
+  }
+}
+
+// The B operand of a product: a streamed tile split once for the block
+// into big and small planes (Dh 64), or the float32 tile, split here as
+// each fragment element is loaded (Dh 128). `at(o)` is the element o
+// floats from the operand's base.
+struct BSplit {
+  const float* big;
+  const float* small;
+  __device__ __forceinline__ void at(int o, uint32_t& b,
+                                     uint32_t& s) const {
+    b = __float_as_uint(big[o]);
+    s = __float_as_uint(small[o]);
+  }
+  __device__ __forceinline__ BSplit operator+(int o) const {
+    return {big + o, small + o};
+  }
+};
+struct BRaw {
+  const float* x;
+  __device__ __forceinline__ void at(int o, uint32_t& b,
+                                     uint32_t& s) const {
+    split(x[o], b, s);
+  }
+  __device__ __forceinline__ BRaw operator+(int o) const { return {x + o}; }
+};
+
+// d += a b, m16n8k8, tf32 operands, float32 accumulator
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a b from a zero accumulator
+__device__ __forceinline__ void mma0(float (&d)[4], const uint32_t (&a)[4],
+                                     uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// A float32 A fragment (a[0..3] at rows g, g + 8, g, g + 8 and columns
+// t, t, t + 4, t + 4), split.
+struct FragA {
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ FragA(float a0, float a1, float a2, float a3) {
+    split(a0, big[0], small[0]);
+    split(a1, big[1], small[1]);
+    split(a2, big[2], small[2]);
+    split(a3, big[3], small[3]);
+  }
+};
+
+// Sums. The tensor cores add a product's 8 terms and its accumulator
+// aligned to the largest of them and truncated, so a long chain of
+// products into one accumulator drifts: chained over a 64-key tile, the
+// gradients lay 2.5-3.6 times design 1's error from a float64 backward,
+// over the whole sweep 8-16 times (PERF.md). So a k-step's big * big
+// product (its 8 terms) is taken from a zero accumulator and added to the
+// float32 sum on the FMA units, rounded to nearest, as design 1 adds; the
+// two small products (small * big, then big * small), about 2^-11 of it,
+// are chained on the tensor cores in an accumulator of their own (its
+// drift is 2^-11 smaller), added to the sum once a tile.
+
+// d += a b in 3xTF32: small * big and big * small into lo, in that
+// order; big * big from zero, added to d. (bb0, bs0), (bb1, bs1): the B
+// fragment's two elements (rows t and t + 4 of column g), split.
+__device__ __forceinline__ void mma3(float (&d)[4], float (&lo)[4],
+                                     const FragA& a, uint32_t bb0,
+                                     uint32_t bs0, uint32_t bb1,
+                                     uint32_t bs1) {
+  mma(lo, a.small, bb0, bb1);
+  mma(lo, a.big, bs0, bs1);
+  float hi[4];
+  mma0(hi, a.big, bb0, bb1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += hi[e];
+}
+
+template <int N, int M>
+__device__ __forceinline__ void zero(float (&x)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) x[i][j] = 0.f;
+}
+
+// acc[n] = A B^T over the Dh columns: A the warp's 16 pinned rows (sA,
+// rows LD apart), B the kCols rows of a streamed tile; acc[n] the m16n8
+// accumulator of B's rows 8n .. 8n + 7.
+template <int DH, typename B>
+__device__ __forceinline__ void rows_product(
+    float (&acc)[Geo3<DH>::CT][4], const float* __restrict__ sA,
+    const B& sB, int g, int t) {
+  constexpr int LD = Geo3<DH>::LD, CT = Geo3<DH>::CT;
+  float lo[CT][4];
+  zero(acc);
+  zero(lo);
+  // rolled by two: fully unrolled, the sweep's body outgrows the
+  // instruction cache (2% slower at path_t's shape)
+#pragma unroll 2
+  for (int kk = 0; kk < DH / 8; ++kk) {
+    const float* a = sA + g * LD + 8 * kk + t;
+    const FragA fa(a[0], a[8 * LD], a[4], a[8 * LD + 4]);
+    const B b = sB + (g * LD + 8 * kk + t);
+#pragma unroll
+    for (int n = 0; n < CT; ++n) {
+      uint32_t bb0, bs0, bb1, bs1;
+      b.at(8 * n * LD, bb0, bs0);
+      b.at(8 * n * LD + 4, bb1, bs1);
+      mma3(acc[n], lo[n], fa, bb0, bs0, bb1, bs1);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < CT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += lo[n][e];
+}
+
+// acc[n] += P B: P [16 x kCols] in the accumulator layout of rows_product
+// (p[j] holds columns 8j + 2t, 8j + 2t + 1 of rows g, g + 8), B the kCols
+// x Dh streamed tile; acc[n] the m16n8 accumulator of B's columns 8n ..
+// 8n + 7. The reduction index of k-step j is permuted so that p[j] is the
+// A fragment as it lies: A column t is B row 8j + 2t, A column t + 4 is B
+// row 8j + 2t + 1. At Dh 128 the columns go in two halves of 64, so that
+// the small products' accumulator stays 32 registers (P's split is taken
+// again for the second).
+template <int DH, typename B>
+__device__ __forceinline__ void cols_product(
+    float (&acc)[DH / 8][4], const float (&p)[Geo3<DH>::CT][4],
+    const B& sB, int g, int t) {
+  constexpr int LD = Geo3<DH>::LD;
+#pragma unroll
+  for (int c = 0; c < DH / 64; ++c) {
+    float lo[8][4];
+    zero(lo);
+#pragma unroll
+    for (int j = 0; j < Geo3<DH>::CT; ++j) {
+      const FragA fa(p[j][0], p[j][2], p[j][1], p[j][3]);
+      const B b = sB + ((8 * j + 2 * t) * LD + 64 * c + g);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        uint32_t bb0, bs0, bb1, bs1;
+        b.at(8 * n, bb0, bs0);
+        b.at(LD + 8 * n, bb1, bs1);
+        mma3(acc[8 * c + n], lo[n], fa, bb0, bs0, bb1, bs1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[8 * c + n][e] += lo[n][e];
+  }
+}
+
+// a warp's m16n8 accumulators (rows r, r + 8; columns 8n + 2t, + 1) into
+// a row-major [n_rows, DH] float32 output; rows past n_rows skipped
+template <int DH>
+__device__ __forceinline__ void store_acc(float* __restrict__ out,
+                                          const float (&acc)[DH / 8][4],
+                                          int r, int n_rows, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= n_rows) continue;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<float2*>(out + (size_t)(r + 8 * h) * DH + 8 * n +
+                                 2 * t) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+
+// The B operands of a stage's two tiles (X at `stage`, Y after it): split
+// planes at Dh 64, the raw tiles at Dh 128.
+template <int DH>
+struct StageB {
+  using B = typename std::conditional<Geo3<DH>::kPreSplit, BSplit,
+                                      BRaw>::type;
+  B x, y;
+  __device__ __forceinline__ StageB(const float* stage,
+                                    const float* small) {
+    if constexpr (Geo3<DH>::kPreSplit) {
+      x = B{stage, small};
+      y = B{stage + Geo3<DH>::kTile, small + Geo3<DH>::kTile};
+    } else {
+      x = B{stage};
+      y = B{stage + Geo3<DH>::kTile};
+    }
+  }
+};
+
+// B3b, design 3. Block (bh, kb) owns kRows keys from k0 = kRows kb, K and
+// V pinned; the Q and dO tiles (with their lse and delta) are streamed
+// from the key tile's diagonal on (causal) or from the first.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_dkdv_tf32x3_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dk, float* __restrict__ dv,
+                       int Tq, int Tk, float scale, int causal) {
+  using G = Geo3<DH>;
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);
+  float* sV = sK + kRows * G::LD;
+  float* ring = sV + kRows * G::LD;
+  float* small = ring + kStages * G::kStage;
+  const size_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* qb = q + bh * Tq * DH;
+  const float* ob = dout + bh * Tq * DH;
+  constexpr int C = G::kCols;
+  // causal: a Q tile above this key tile's first row sees none of it
+  const int qt0 = causal ? k0 / C : 0;
+  const int nt = (Tq + C - 1) / C - qt0;
+  auto issue = [&](int i) {
+    if (i < nt) {
+      float* st = ring + (i % kStages) * G::kStage;
+      const int q0 = (qt0 + i) * C;
+      stage_tile<DH, C>(st, qb, q0, Tq);
+      stage_tile<DH, C>(st + G::kTile, ob, q0, Tq);
+      stage_stats<C>(st + 2 * G::kTile, lse + bh * Tq, delta + bh * Tq,
+                     q0, Tq);
+    }
+    cp_async_commit();  // an empty group past the last tile
+  };
+  stage_tile<DH, kRows>(sK, k + bh * Tk * DH, k0, Tk);
+  stage_tile<DH, kRows>(sV, v + bh * Tk * DH, k0, Tk);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+
+  float dka[G::NT][4], dva[G::NT][4];
+  zero(dka);
+  zero(dva);
+  const float* wK = sK + 16 * warp * G::LD;
+  const float* wV = sV + 16 * warp * G::LD;
+  const int kr = k0 + 16 * warp + g;  // this lane's keys kr, kr + 8
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile i landed; tile i - 1's buffers are free
+    issue(i + kStages - 1);
+    float* st = ring + (i % kStages) * G::kStage;
+    if constexpr (G::kPreSplit) {
+      split_tiles<DH>(st, small);
+      __syncthreads();
+    }
+    const StageB<DH> b(st, small);  // x: Q, y: dO
+    const float* sL = st + 2 * G::kTile;
+    const float* sD = sL + C;
+    const int q0 = (qt0 + i) * C;
+    // causal: a warp whose first key is past the tile's last query sees
+    // none of it
+    if (causal && q0 + C <= k0 + 16 * warp) continue;
+    float s[G::CT][4], dp[G::CT][4];
+    rows_product<DH>(s, wK, b.x, g, t);   // S^T = K Q^T
+    rows_product<DH>(dp, wV, b.y, g, t);  // dP^T = V dO^T
+    const bool edge =
+        (causal && q0 < k0 + kRows) || q0 + C > Tq || k0 + kRows > Tk;
+#pragma unroll
+    for (int j = 0; j < G::CT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int lc = 8 * j + 2 * t + (e & 1);
+        const int qc = q0 + lc, kc = kr + 8 * (e >> 1);
+        const bool live =
+            !edge || (kc < Tk && qc < Tq && (!causal || qc >= kc));
+        const float p = live ? expf(s[j][e] * scale - sL[lc]) : 0.f;
+        dp[j][e] = p * (dp[j][e] - sD[lc]) * scale;  // dS^T
+        s[j][e] = p;                                 // P^T
+      }
+    cols_product<DH>(dva, s, b.y, g, t);   // dV += P^T dO
+    cols_product<DH>(dka, dp, b.x, g, t);  // dK += dS^T Q
+  }
+  cp_async_wait<0>();
+  store_acc<DH>(dk + bh * Tk * DH, dka, kr, Tk, t);
+  store_acc<DH>(dv + bh * Tk * DH, dva, kr, Tk, t);
+}
+
+// B3c, design 3. Block (bh, qb) owns kRows queries from q0 = kRows qb, Q,
+// dO and their lse and delta pinned; the K and V tiles are streamed up to
+// the query tile's diagonal (causal) or to the end. Causal grids reverse
+// qb, so the blocks that sweep the most key tiles start first.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_dq_tf32x3_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     float* __restrict__ dq, int Tq, int Tk, float scale,
+                     int causal) {
+  using G = Geo3<DH>;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sO = sQ + kRows * G::LD;
+  float* ring = sO + kRows * G::LD;
+  float* small = ring + kStages * G::kStage;
+  const size_t bh = blockIdx.x;
+  const int nqt = (Tq + kRows - 1) / kRows;
+  const int qt = causal ? nqt - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = qt * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* kb = k + bh * Tk * DH;
+  const float* vb = v + bh * Tk * DH;
+  constexpr int C = G::kCols;
+  int nt = (Tk + C - 1) / C;
+  if (causal) nt = min(nt, (q0 + kRows - 1) / C + 1);
+  auto issue = [&](int i) {
+    if (i < nt) {
+      float* st = ring + (i % kStages) * G::kStage;
+      stage_tile<DH, C>(st, kb, i * C, Tk);
+      stage_tile<DH, C>(st + G::kTile, vb, i * C, Tk);
+    }
+    cp_async_commit();
+  };
+  stage_tile<DH, kRows>(sQ, q + bh * Tq * DH, q0, Tq);
+  stage_tile<DH, kRows>(sO, dout + bh * Tq * DH, q0, Tq);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+
+  const int qr = q0 + 16 * warp + g;  // this lane's queries qr, qr + 8
+  float L[2], D[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = qr + 8 * h < Tq;
+    L[h] = in ? lse[bh * Tq + qr + 8 * h] : 0.f;
+    D[h] = in ? delta[bh * Tq + qr + 8 * h] : 0.f;
+  }
+  float dqa[G::NT][4];
+  zero(dqa);
+  const float* wQ = sQ + 16 * warp * G::LD;
+  const float* wO = sO + 16 * warp * G::LD;
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    issue(i + kStages - 1);
+    float* st = ring + (i % kStages) * G::kStage;
+    if constexpr (G::kPreSplit) {
+      split_tiles<DH>(st, small);
+      __syncthreads();
+    }
+    const StageB<DH> b(st, small);  // x: K, y: V
+    const int k0 = i * C;
+    // causal: a warp whose last query is before the tile's first key sees
+    // none of it
+    if (causal && k0 > q0 + 16 * warp + 15) continue;
+    float s[G::CT][4], dp[G::CT][4];
+    rows_product<DH>(s, wQ, b.x, g, t);   // S = Q K^T
+    rows_product<DH>(dp, wO, b.y, g, t);  // dP = dO V^T
+    const bool edge =
+        (causal && k0 + C > q0) || k0 + C > Tk || q0 + kRows > Tq;
+#pragma unroll
+    for (int j = 0; j < G::CT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kc = k0 + 8 * j + 2 * t + (e & 1);
+        const int h = e >> 1, qc = qr + 8 * h;
+        const bool live =
+            !edge || (qc < Tq && kc < Tk && (!causal || kc <= qc));
+        const float p = live ? expf(s[j][e] * scale - L[h]) : 0.f;
+        s[j][e] = p * (dp[j][e] - D[h]) * scale;  // dS
+      }
+    cols_product<DH>(dqa, s, b.x, g, t);  // dQ += dS K
+  }
+  cp_async_wait<0>();
+  store_acc<DH>(dq + bh * Tq * DH, dqa, qr, Tq, t);
+}
+
+template <int DH>
+int launch(Which w, const Args& a, cudaStream_t st) {
+  using G = Geo3<DH>;
+  constexpr int smem = G::kBytes;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* o = static_cast<const float*>(a.dout);
+  if (w == kDkdv) {
+    static const cudaError_t once = cudaFuncSetAttribute(
+        bwd_dkdv_tf32x3_kernel<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (once != cudaSuccess) return (int)once;
+    bwd_dkdv_tf32x3_kernel<DH>
+        <<<dim3(a.BH, (a.Tk + kRows - 1) / kRows), kThreads, smem,
+           st>>>(q, k, v, o, a.lse, a.delta, static_cast<float*>(a.dk),
+                 static_cast<float*>(a.dv), a.Tq, a.Tk, a.scale, a.causal);
+  } else {
+    static const cudaError_t once = cudaFuncSetAttribute(
+        bwd_dq_tf32x3_kernel<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (once != cudaSuccess) return (int)once;
+    bwd_dq_tf32x3_kernel<DH>
+        <<<dim3(a.BH, (a.Tq + kRows - 1) / kRows), kThreads, smem,
+           st>>>(q, k, v, o, a.lse, a.delta, static_cast<float*>(a.dq),
+                 a.Tq, a.Tk, a.scale, a.causal);
+  }
+  return (int)cudaGetLastError();
+}
+
+int run(Which w, const Args& a, void* stream) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) |
+                         reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v) |
+                         reinterpret_cast<uintptr_t>(a.dout);
+  if (w == kFwd || (a.Dh != 64 && a.Dh != 128) || (ptrs & 15) ||
+      a.Tq < 0 || a.Tk < 1 || a.BH < 0 || (a.causal && a.Tq != a.Tk) ||
+      (a.Tq + kRows - 1) / kRows > 65535 ||
+      (a.Tk + kRows - 1) / kRows > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (a.BH == 0 || a.Tq == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return a.Dh == 64 ? launch<64>(w, a, st) : launch<128>(w, a, st);
+}
+
+}  // namespace tf32x3
+
 }  // namespace
 
 extern "C" {
@@ -1295,6 +1900,36 @@ int dl4j_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v,
   a.BH = BH; a.Tq = Tq; a.Tk = Tk; a.Dh = Dh; a.scale = scale;
   a.causal = causal;
   return tc::run(kDq, a, stream);
+}
+
+// Design 3 of B3b and B3c, float32 on the tensor cores as 3xTF32: q, k, v,
+// dout float32 [BH, T, Dh] with Dh 64 or 128 and 16-byte aligned data; lse
+// and delta float32 [BH, Tq]; dk, dv, dq float32. Returns 0 or a
+// cudaError_t.
+int dl4j_flash_bwd_dkdv_tf32x3(const void* q, const void* k, const void* v,
+                               const void* dout, const float* lse,
+                               const float* delta, void* dk, void* dv,
+                               int BH, int Tq, int Tk, int Dh, float scale,
+                               int causal, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = const_cast<float*>(lse);
+  a.delta = delta; a.dk = dk; a.dv = dv;
+  a.BH = BH; a.Tq = Tq; a.Tk = Tk; a.Dh = Dh; a.scale = scale;
+  a.causal = causal;
+  return tf32x3::run(kDkdv, a, stream);
+}
+
+int dl4j_flash_bwd_dq_tf32x3(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, void* dq, int BH, int Tq,
+                             int Tk, int Dh, float scale, int causal,
+                             void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = const_cast<float*>(lse);
+  a.delta = delta; a.dq = dq;
+  a.BH = BH; a.Tq = Tq; a.Tk = Tk; a.Dh = Dh; a.scale = scale;
+  a.causal = causal;
+  return tf32x3::run(kDq, a, stream);
 }
 
 const char* dl4j_cuda_error_string(int code) {

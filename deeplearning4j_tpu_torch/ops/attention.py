@@ -12,15 +12,26 @@ Three kernels, hand-written in CUDA C++ for Hopper
   swept, from the saved lse and Δ = rowsum(dO·O) (computed here in f32,
   as JAX computes it in XLA).
 
-Each kernel comes in two designs, chosen by `b3_design` from the dtype
-and the shape before the launch (neither is a fallback of the other):
-"wgmma" (design 2) for bfloat16 at Dh 64 and 128 — TMA-fed tiles and
-`wgmma` on the tensor cores, P and dS rounded to bfloat16 as operands —
-and "ffma" (design 1, exact float32 FMA) for float32 and every other
-shape. `LAUNCHES_BY_DESIGN[(kernel, design)]` counts their launches.
-In bfloat16 every design, and the plain versions, round the
-probabilities and score gradients to bfloat16 where they meet the
-second products, as the TPU kernels do (C6); float32 never rounds.
+Each kernel comes in two designs, and B3b/B3c in three, chosen by
+`b3_design` from the dtype, the shape and the direction before the launch
+(none is a fallback of another): "wgmma" (design 2) for bfloat16 at Dh 64
+and 128 — TMA-fed tiles and `wgmma` on the tensor cores, P and dS rounded
+to bfloat16 as operands; "tf32x3" (design 3) for the float32 backward at
+Dh 64 and 128 — `mma.sync` on the tensor cores, each float32 operand
+split into two TF32 terms (`tf32x3_split`) and each product taken as
+three TF32 products; and "ffma" (design 1, float32 FMA) for the float32
+forward and every other shape. `LAUNCHES_BY_DESIGN[(kernel, design)]`
+counts their launches. In bfloat16 every design, and the plain versions,
+round the probabilities and score gradients to bfloat16 where they meet
+the second products, as the TPU kernels do (C6); float32 never rounds.
+
+The float32 contract: no design rounds a float32 operand to a single TF32
+term. 3xTF32 keeps about 22 bits of each operand, so design 3 is as
+accurate as design 1's FMA: on the card its largest error against a
+float64 backward stays within twice design 1's on the same inputs, which
+a one-pass TF32 product misses by far (`tests/test_torch_b3_tf32.py`
+shows both on the CPU through `flash_attention_bwd_plain(...,
+products=...)`).
 
 `flash_attention` is a `torch.autograd.Function` over the two. Beside
 each kernel stands its plain PyTorch version: `flash_attention_plain`
@@ -61,7 +72,7 @@ FWD_WGMMA_SHARE = 4e-4
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd_dkdv": 0,
                             "flash_attention_bwd_dq": 0}
-DESIGNS = ("ffma", "wgmma")
+DESIGNS = ("ffma", "wgmma", "tf32x3")
 LAUNCHES_BY_DESIGN: Dict[Tuple[str, str], int] = {
     (k, d): 0 for k in LAUNCHES for d in DESIGNS}
 PLAIN_ON_CUDA: Dict[str, int] = {"flash_attention_fwd": 0,
@@ -82,8 +93,48 @@ def _acc_dtype(dtype):
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _scores(q, k, causal: bool, scale: float, acc):
-    s = torch.einsum("bqd,bkd->bqk", q.to(acc), k.to(acc)) * scale
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 stored mantissa bits), to nearest
+    with ties away from zero, as `cvt.rna.tf32.f32` rounds it: a float's
+    bits are sign and magnitude, so adding half of the dropped unit to
+    the magnitude's bits and clearing the 13 low bits rounds the
+    magnitude. For finite inputs."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32x3_split(x: torch.Tensor):
+    """(big, small) with big = tf32(x), small = tf32(x - big), the split
+    design 3 makes of each float32 operand: big + small rebuilds x within
+    2^-22 of |x|. Plain emulation for the CPU tests; nothing on the
+    card's path calls it."""
+    big = tf32_rna(x)
+    return big, tf32_rna(x - big)
+
+
+def _split_product(eq: str, a, b, products: Optional[str]):
+    """einsum(eq, a, b) in float32 with its operands as the named
+    tensor-core scheme takes them: None, the plain product; "tf32x3",
+    small·big + big·small + big·big, each term's products exact in
+    float32 (11-bit significands), the small terms first; "tf32", the
+    one-pass big·big."""
+    if products is None:
+        return torch.einsum(eq, a, b)
+    ab, as_ = tf32x3_split(a)
+    bb, bs = tf32x3_split(b)
+    if products == "tf32":
+        return torch.einsum(eq, ab, bb)
+    if products != "tf32x3":
+        raise ValueError(f"products must be None, 'tf32x3' or 'tf32'; got "
+                         f"{products!r}")
+    return (torch.einsum(eq, as_, bb) + torch.einsum(eq, ab, bs)) \
+        + torch.einsum(eq, ab, bb)
+
+
+def _scores(q, k, causal: bool, scale: float, acc,
+            products: Optional[str] = None):
+    s = _split_product("bqd,bkd->bqk", q.to(acc), k.to(acc),
+                       products) * scale
     if causal:
         tq, tk = s.shape[-2], s.shape[-1]
         keep = torch.ones((tq, tk), dtype=torch.bool,
@@ -141,7 +192,8 @@ def flash_attention_plain(q, k, v, causal: bool,
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None,
+                              products: Optional[str] = None):
     """Plain version of kernels B3b and B3c: (dq, dk, dv) from the saved
     lse through p = exp(s - L), ds = p * (dp - Δ) * scale with
     Δ = rowsum(do · o), the identity the TPU kernels' `_bwd_tile` uses.
@@ -149,24 +201,35 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
     dO rounded to do's dtype and ds meets q and k rounded to theirs (C6:
     `_flash_bwd_dkdv_kernel`'s `p.astype(do.dtype)`,
     `ds.astype(q.dtype)`; `_flash_bwd_dq_kernel`'s `ds.astype(k.dtype)`);
-    float32 and float64 do not round."""
+    float32 and float64 do not round.
+
+    `products` ("tf32x3" or "tf32", float32 only) takes each of the five
+    products as that tensor-core scheme does (`_split_product`): the
+    CPU's emulation of design 3 and of the one-pass TF32 product it
+    avoids."""
     if q.is_cuda:
         PLAIN_ON_CUDA["flash_attention_bwd"] += 1
     acc = _acc_dtype(q.dtype)
+    if products is not None and acc != torch.float32:
+        raise ValueError(f"products={products!r} emulates float32 "
+                         f"products; got {q.dtype}")
     sc = scale if scale is not None else q.shape[-1] ** -0.5
-    s = _scores(q, k, causal, sc, acc)
+    s = _scores(q, k, causal, sc, acc, products)
     p = torch.exp(s - lse.to(acc)[..., None])
     dof = do.to(acc)
-    dp = torch.einsum("bqd,bkd->bqk", dof, v.to(acc))
+    dp = _split_product("bqd,bkd->bqk", dof, v.to(acc), products)
     delta = (dof * o.to(acc)).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta) * sc
 
     def operand(x, dtype):
         return x.to(dtype).to(acc)
 
-    dq = torch.einsum("bqk,bkd->bqd", operand(ds, k.dtype), k.to(acc))
-    dk = torch.einsum("bqk,bqd->bkd", operand(ds, q.dtype), q.to(acc))
-    dv = torch.einsum("bqk,bqd->bkd", operand(p, do.dtype), dof)
+    dq = _split_product("bqk,bkd->bqd", operand(ds, k.dtype), k.to(acc),
+                        products)
+    dk = _split_product("bqk,bqd->bkd", operand(ds, q.dtype), q.to(acc),
+                        products)
+    dv = _split_product("bqk,bqd->bkd", operand(p, do.dtype), dof,
+                        products)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -272,7 +335,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
     delta = (do.float() * o.float()).sum(dim=-1)
     _check_cuda(dict(q=q, k=k, v=v, o=o, do=do, lse=lse, delta=delta),
                 q.dtype)
-    design = b3_design(q.dtype, q.shape[2], (q, k, v, do))
+    design = b3_design(q.dtype, q.shape[2], (q, k, v, do), backward=True)
     dk, dv = launch_bwd_dkdv(q, k, v, do, lse, delta, causal, scale, design)
     dq = launch_bwd_dq(q, k, v, do, lse, delta, causal, scale, design)
     return dq, dk, dv
@@ -296,25 +359,41 @@ def fwd_atol(o_ref: torch.Tensor, design: str) -> float:
     return 2e-5 + share * o_ref.float().abs().max().item()
 
 
-def b3_design(dtype, dh: int, tensors: Sequence[torch.Tensor]) -> str:
-    """The design that takes a B3a or B3b/B3c call: "wgmma" (design 2,
-    the tensor cores) for bfloat16 with Dh 64 or 128 whose `tensors` (the
-    operands the tensor maps read: q, k, v forward, and dO backward)
-    start 16-byte aligned; "ffma" (design 1, exact float32 FMA) for
-    float32 and every other shape. The wrapper has checked that they are
+def b3_design(dtype, dh: int, tensors: Sequence[torch.Tensor],
+              backward: bool = False) -> str:
+    """The design that takes a B3a (`backward` false) or B3b/B3c call
+    whose `tensors` (q, k, v forward, and dO backward: the operands the
+    tensor maps or the 16-byte copies read) start 16-byte aligned at Dh
+    64 or 128: "wgmma" (design 2, the tensor cores) for bfloat16;
+    "tf32x3" (design 3, the tensor cores as three TF32 products) for the
+    float32 backward. "ffma" (design 1, float32 FMA) for the float32
+    forward and every other shape. The wrapper has checked that they are
     contiguous."""
-    if dtype != torch.bfloat16 or dh not in WGMMA_HEAD_DIMS or \
-            any(t.data_ptr() % 16 for t in tensors):
+    if dh not in WGMMA_HEAD_DIMS or any(t.data_ptr() % 16 for t in tensors):
         return "ffma"
-    return "wgmma"
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32 and backward:
+        return "tf32x3"
+    return "ffma"
 
 
 def _bwd_args(q, k, causal, scale, design):
     bh, tq, dh = q.shape
     sc = scale if scale is not None else dh ** -0.5
-    dtype = () if design == "wgmma" else (_DTYPE_CODES[q.dtype],)
+    dtype = (_DTYPE_CODES[q.dtype],) if design == "ffma" else ()
     return (bh, tq, k.shape[1], dh, sc, int(causal), *dtype,
             _stream(q.device))
+
+
+# kernel -> design -> the C entry point that launches it
+_BWD_ENTRY = {
+    "flash_attention_bwd_dkdv": {"ffma": "dl4j_flash_bwd_dkdv",
+                                 "wgmma": "dl4j_flash_bwd_dkdv_wgmma",
+                                 "tf32x3": "dl4j_flash_bwd_dkdv_tf32x3"},
+    "flash_attention_bwd_dq": {"ffma": "dl4j_flash_bwd_dq",
+                               "wgmma": "dl4j_flash_bwd_dq_wgmma",
+                               "tf32x3": "dl4j_flash_bwd_dq_tf32x3"}}
 
 
 def _count(kernel, design):
@@ -326,13 +405,13 @@ def launch_bwd_dkdv(q, k, v, do, lse, delta, causal: bool,
                     scale: Optional[float] = None, design: str = "ffma"):
     """Kernel B3b alone, on checked CUDA tensors, in `design` (the
     wrapper passes `b3_design`'s choice; `chip_smoke.py` also times
-    design 1 on bfloat16 to compare the two): returns (dk, dv)."""
+    design 1 on the inputs of designs 2 and 3 to compare them): returns
+    (dk, dv)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("flash_attention")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = lib.dl4j_flash_bwd_dkdv_wgmma if design == "wgmma" \
-        else lib.dl4j_flash_bwd_dkdv
+    fn = getattr(lib, _BWD_ENTRY["flash_attention_bwd_dkdv"][design])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *_bwd_args(q, k, causal, scale, design))
@@ -349,8 +428,7 @@ def launch_bwd_dq(q, k, v, do, lse, delta, causal: bool,
 
     lib = cuda_build.library("flash_attention")
     dq = torch.empty_like(q)
-    fn = lib.dl4j_flash_bwd_dq_wgmma if design == "wgmma" \
-        else lib.dl4j_flash_bwd_dq
+    fn = getattr(lib, _BWD_ENTRY["flash_attention_bwd_dq"][design])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             *_bwd_args(q, k, causal, scale, design))

@@ -94,6 +94,12 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         # q k v dout lse delta dq, BH Tq Tk Dh, scale, causal, stream
         "dl4j_flash_bwd_dq_wgmma": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
+        # design 3, float32 as 3xTF32: the same arguments as design 2's
+        "dl4j_flash_bwd_dkdv_tf32x3": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                 _P]),
+        "dl4j_flash_bwd_dq_tf32x3": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_update": {

@@ -2,7 +2,8 @@
 card: the decode kernels B5 and B6 (native, and their int8/e4m3
 scale-row variants B5q and B6q; each in both designs), the banded
 attention B4 (both designs), the
-flash-attention forward B3a and backward B3b/B3c (each in both designs),
+flash-attention forward B3a (both designs) and backward B3b/B3c (three
+designs: the float32 tensor-core one held also against a float64 backward),
 the fused Adam B1a and Nesterovs B1b (both designs) and Adam's
 bias-corrected rate, the fused LSTM forward B2a/B2b and
 backward B2c (both designs of each), and the conv+BN statistics kernels B7a/B7b.
@@ -331,11 +332,71 @@ def test_cuda_b3_wgmma_gradients_are_bit_equal(cuda_device, bh, tq, tk, dh,
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# float32 shapes of design 3 (tf32x3): path_t's, a ragged T, Tq != Tk
+# not causal at Dh 128, Dh 128 causal, path_x's Tq 2048 with a tail key
+# tile
+B3_TF32_CASES = [(64, 2048, 2048, 64, True), (4, 1000, 1000, 64, True),
+                 (2, 512, 768, 128, False), (4, 1024, 1024, 128, True),
+                 (8, 2048, 1000, 64, False)]
+
+
+def _f64_share(grads, refs):
+    """The largest error of `grads` against float64 `refs`, a share of
+    the largest |ref| of each."""
+    return max(((g.double() - r).abs().max() / r.abs().max()).item()
+               for g, r in zip(grads, refs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,dh,causal", B3_TF32_CASES)
+def test_cuda_b3b_b3c_float32_take_the_tf32x3_design(cuda_device, bh, tq,
+                                                     tk, dh, causal):
+    """Design 3 (3xTF32 on the tensor cores) takes every float32 Dh
+    64/128 backward: both launches counted under "tf32x3", none under
+    design 1, the plain version not reached; the gradients within 1e-4 of
+    the largest |ref| of the plain version; the guard: each kernel's
+    largest error against the float64 plain backward on the same inputs
+    at most twice design 1's (one-pass TF32 misses it by about 1000x:
+    `tests/test_torch_b3_tf32.py`); two calls bit-equal."""
+    dt = torch.float32
+    q, k, v, do = _flash_inputs(bh, tq, tk, dh, dt, cuda_device, tq + tk)
+    o, lse = fa.flash_attention_plain(q, k, v, causal)
+    assert fa.b3_design(dt, dh, (q, k, v, do), backward=True) == "tf32x3"
+    before = dict(fa.LAUNCHES_BY_DESIGN)
+    plain = fa.PLAIN_ON_CUDA["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert fa.PLAIN_ON_CUDA["flash_attention_bwd"] == plain
+    for kern in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        assert fa.LAUNCHES_BY_DESIGN[(kern, "tf32x3")] == \
+            before[(kern, "tf32x3")] + 2
+        for d in ("ffma", "wgmma"):
+            assert fa.LAUNCHES_BY_DESIGN[(kern, d)] == before[(kern, d)]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    for g_, r_ in zip(got, ref):
+        assert g_.dtype == dt
+        assert _close(g_, r_, dt, _grad_atol(r_, dt))
+    del ref
+    ref64 = fa.flash_attention_bwd_plain(
+        *(x.double() for x in (q, k, v, o, lse, do)), causal)
+    delta = (do * o).sum(dim=-1)
+    dk1, dv1 = fa.launch_bwd_dkdv(q, k, v, do, lse, delta, causal,
+                                  design="ffma")
+    dq1 = fa.launch_bwd_dq(q, k, v, do, lse, delta, causal, design="ffma")
+    torch.cuda.synchronize()
+    assert _f64_share(got[1:], ref64[1:]) <= 2 * _f64_share((dk1, dv1),
+                                                            ref64[1:])
+    assert _f64_share(got[:1], ref64[:1]) <= 2 * _f64_share((dq1,),
+                                                            ref64[:1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh,dtype", [(32, torch.bfloat16),
                                       (48, torch.bfloat16),
-                                      (64, torch.float32),
-                                      (128, torch.float32)])
+                                      (32, torch.float32),
+                                      (48, torch.float32)])
 def test_cuda_b3_float32_and_other_head_dims_take_the_ffma_design(
         cuda_device, dh, dtype):
     q, k, v, do = _flash_inputs(2, 256, 256, dh, dtype, cuda_device, dh)

@@ -198,14 +198,14 @@ def test_plain_forward_blocks_change_nothing_in_float32():
     (torch.bfloat16, 32, 0, "ffma"),      # no 64-column box
     (torch.bfloat16, 48, 0, "ffma"),
     (torch.bfloat16, 64, 4, "ffma"),      # q 8 bytes into its storage
-    (torch.float32, 64, 0, "ffma"),       # float32 stays exact
-    (torch.float32, 128, 0, "ffma"),
+    (torch.float32, 64, 0, "tf32x3"),     # 3xTF32, float32-accurate
+    (torch.float32, 128, 0, "tf32x3"),
 ])
 def test_b3_design_by_dtype_head_dim_and_alignment(dtype, dh, offset, want):
     buf = torch.zeros(offset + 2 * 100 * dh, dtype=dtype)
     q = buf[offset:].view(2, 100, dh)
     k, v, do = (torch.zeros(2, 77, dh, dtype=dtype) for _ in range(3))
-    assert fa.b3_design(dtype, dh, (q, k, v, do)) == want
+    assert fa.b3_design(dtype, dh, (q, k, v, do), backward=True) == want
 
 
 @pytest.mark.parametrize("dtype,dh,offset,want", [
@@ -247,7 +247,7 @@ def test_launch_counts_reset_by_design():
     assert set(fa.LAUNCHES_BY_DESIGN) == {
         (k, d) for k in ("flash_attention_fwd", "flash_attention_bwd_dkdv",
                          "flash_attention_bwd_dq")
-        for d in ("ffma", "wgmma")}
+        for d in ("ffma", "wgmma", "tf32x3")}
 
 
 # --------------------- C7: the contract of a tensor-core forward (bf16)
