@@ -29,13 +29,14 @@ exits non-zero with no result line:
      and bfloat16 and at ragged, cross, narrow and wide variants of
      both, against SDPA's forward and backward; each row names the
      design that ran (bfloat16 at Dh 64 and 128 on the tensor cores,
-     "wgmma"; the float32 backward there on the tensor cores as three
-     TF32 products, "tf32x3"; else float32 FMA, "ffma"), its TFLOP/s and
-     its share of its design's bound (`flash_rate`), and the bfloat16
-     main shape and every "tf32x3" row also time design 1 on the same
-     inputs (`ffma_ms`); a "tf32x3" row also holds both designs against
-     the plain backward in float64 (the guard: at most twice design 1's
-     error) and its SDPA yardstick names the kernels SDPA ran; a
+     "wgmma"; float32 there, forward and backward, on the tensor cores
+     as three TF32 products, "tf32x3"; else float32 FMA, "ffma"), its
+     TFLOP/s and its share of its design's bound (`flash_rate`), and the
+     bfloat16 main shape and every "tf32x3" row also time design 1 on the
+     same inputs (`ffma_ms`); a "tf32x3" row also holds both designs
+     against the plain forward (o and lse) or backward in float64 (the
+     guard: at most twice design 1's error) and its SDPA yardstick names
+     the kernels SDPA ran; a
      bfloat16 forward or backward must lie nearer the plain version that
      rounds P and dS (C6) than the one that does not; then designs 2 and
      3 twice at that shape and at Dh 128, o, lse, dq, dk and dv
@@ -104,7 +105,8 @@ exits non-zero with no result line:
      `POST /output` (batch 8, within 1e-5 of `net.output`); `deploy()`
      of another seed while 4 streams run (they complete, a later stream
      equals the new net's), and a candidate with 2 KV heads rolled back;
-     B6 on design 2 throughout, B3a on `/output` and the warm-ups; a
+     B6 on design 2 throughout, B3a on `/output` and the warm-ups (all
+     on design 3); a
      padded `/output` batch (9 rows in the bucket of 32) timed against
      the exact one;
    - path_s: speculative decoding with a 1-block truncated draft sharing
@@ -117,9 +119,9 @@ exits non-zero with no result line:
 6. path_t: training of the same model at full width (6 blocks, T 2048,
    batch 8, float32, its default Adam(3e-4)) through `net.fit`: 4 fixed
    batches of random tokens, 3 epochs, 12 steps; B3a/B3b/B3c carry the
-   attention and B1a the update; steps 2-12 run under
-   `torch.cuda.set_sync_debug_mode("error")`, and the losses are read
-   after the steps;
+   attention (all on design 3, 3xTF32) and B1a the update; steps 2-12
+   run under `torch.cuda.set_sync_debug_mode("error")`, and the losses
+   are read after the steps;
 7. train_parity: two Adam steps of a 2-block model at T 256 on the card
    against the same on the CPU, same weights and batch;
    then path_t_bf16: `path_t` in bfloat16, the dtype `bench.py` trains
@@ -203,7 +205,7 @@ exits non-zero with no result line:
 19. path_x: `examples/seq2seq_cross_attention.py`'s graph at width
     (Tq 2048, Tk 1024, batch 8) fed MultiDataSets, 8 Adam steps at K 1
     and K 4 in bfloat16 (B3a-c non-causal on design 2) and float32
-    (design 1), then card against CPU at Tq 256, Tk 200.
+    (design 3), then card against CPU at Tq 256, Tk 200.
 20. path_p: DL4J's fit stages besides SGD (A1b) at its examples' widths
     on the MNIST iterator: `pretrain` of DeepAutoEncoderExample's nine
     RBMs (784-1000-500-250-100-30 and back, batch 1000, 4 batches a
@@ -722,9 +724,9 @@ def flash_cases():
     """The training paths' shape (B 8 x H 8 = BH 64, T 2048, Dh 64,
     causal) in float32 (`path_t`) and bfloat16 (`path_t_bf16`), and the
     variants the kernels must hold: a ragged T, Tq != Tk, head dims 32
-    and 128, in float32 (B3a on design 1; B3b/B3c on design 3 at Dh 64
-    and 128, design 1 at Dh 32) and bfloat16 (design 2 at Dh 64 and 128,
-    design 1 at Dh 32)."""
+    and 128, in float32 (B3a-c on design 3 at Dh 64 and 128, design 1 at
+    Dh 32) and bfloat16 (design 2 at Dh 64 and 128, design 1 at Dh
+    32)."""
     f32, bf16 = torch.float32, torch.bfloat16
     base = dict(bh=64, causal=True, dtype=f32, main=False, dh=64)
     cases = [dict(base, tq=2048, tk=2048, main=True),
@@ -740,9 +742,9 @@ def flash_cases():
 def cross_flash_cases():
     """`path_x`'s cross-attention shape (BH 64, Tq 2048, Tk 1024, Dh 64,
     not causal) and Tk 1000, which ends in a partial key tile, in
-    float32 (B3a on design 1, B3b/B3c on design 3) and bfloat16 (design
-    2). They draw their inputs from a generator of their own, so the
-    cases before them keep the inputs they always had."""
+    float32 (B3a-c on design 3) and bfloat16 (design 2). They draw
+    their inputs from a generator of their own, so the cases before them
+    keep the inputs they always had."""
     base = dict(bh=64, causal=False, main=False, dh=64, tq=2048)
     return [dict(base, dtype=dt, tk=tk, path_x=tk == 1024)
             for dt in (torch.float32, torch.bfloat16) for tk in (1024, 1000)]
@@ -806,14 +808,12 @@ FLASH_GRAD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 
 
 def flash_want(dtype, dh, kernel):
-    """The design `ops.attention.b3_design` must give `kernel` on aligned
-    tensors: bfloat16 at Dh 64/128 "wgmma"; the float32 backward (B3b,
-    B3c) there "tf32x3"; every other call "ffma"."""
+    """The design `ops.attention.b3_design` must give `kernel` (any of
+    B3a-c) on aligned tensors: bfloat16 at Dh 64/128 "wgmma"; float32
+    there "tf32x3"; every other call "ffma"."""
     if dh not in (64, 128):
         return "ffma"
-    if dtype == torch.bfloat16:
-        return "wgmma"
-    return "ffma" if kernel == "flash_attention_fwd" else "tf32x3"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def f64_share(grads, refs):
@@ -975,6 +975,12 @@ def run_flash_case(c, flush, gen):
                            for t in (q, k, v, do))
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal), flush)
+        # the kernels SDPA's forward ran (float32: PyTorch's
+        # memory-efficient kernel)
+        lib_fwd_names = cuda_kernel_names(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   is_causal=causal),
+            torch.cuda.current_stream())
         qg, kg, vg = (t.clone().requires_grad_() for t in (q4, k4, v4))
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -1022,8 +1028,9 @@ def run_flash_case(c, flush, gen):
                "bound_rate_tflops": flash_rate(c, d_row) / 1e12,
                "main_path_shape": c["main"],
                "path_x_shape": c.get("path_x", False)}
-        if timed_plain and name != "flash_attention_fwd":
-            row["library_kernels"] = lib_names
+        if timed_plain:
+            row["library_kernels"] = lib_fwd_names \
+                if name == "flash_attention_fwd" else lib_names
         if name != "flash_attention_fwd" and (
                 design == "tf32x3" or design == "wgmma" and c["main"]):
             # design 1 on the same inputs, to compare the two in one run
@@ -1060,25 +1067,55 @@ def run_flash_case(c, flush, gen):
                       f"backward, design 1 {f1}: past twice design 1's")
         if name == "flash_attention_fwd":
             row["past_2e-5_limit"] = past_fwd
-            if fwd_design == "wgmma" and c["main"]:
+            if fwd_design == "tf32x3" or fwd_design == "wgmma" and c["main"]:
                 # design 1 on the same inputs, held to its own limit
                 def run1():
                     return fa.launch_fwd(q, k, v, causal, design="ffma")
 
-                row["ffma_max_abs_err"] = fwd_errs(*run1(), "ffma")[0]
+                o1, lse1 = run1()
+                row["ffma_max_abs_err"] = fwd_errs(o1, lse1, "ffma")[0]
                 row["ffma_ms"] = time_ms(run1, flush)
                 row["speedup_over_ffma"] = row["ffma_ms"] / ms
+                if fwd_design == "tf32x3":
+                    row.update(fwd_guard(name, c, q, k, v, o, lse, o1, lse1,
+                                         row["ffma_ms"]))
+                del o1, lse1
         emit(row)
         rows.append(row)
     del g64
     return rows
 
 
+def fwd_guard(name, c, q, k, v, o, lse, o1, lse1, ffma_ms):
+    """Design 3's forward beside design 1's on the same inputs (o1, lse1,
+    timed at `ffma_ms`): design 1's own bound and the guard, both designs'
+    largest error against the plain forward in float64, on o and on lse
+    (the backward rebuilds p from lse), each a share of the largest
+    |ref|; design 3 within twice design 1's on both."""
+    from deeplearning4j_tpu_torch.ops import attention as fa
+
+    fb, _ = flash_bound(name, c, "ffma")
+    o64, lse64 = fa.flash_attention_plain(q.double(), k.double(), v.double(),
+                                          c["causal"])
+    f3 = {"o": f64_share((o,), (o64,)), "lse": f64_share((lse,), (lse64,))}
+    f1 = {"o": f64_share((o1,), (o64,)),
+          "lse": f64_share((lse1,), (lse64,))}
+    del o64, lse64
+    ratio = {x: f3[x] / f1[x] for x in f3}
+    shape = {kk: c[kk] for kk in ("bh", "tq", "tk", "dh", "causal")}
+    check(all(f3[x] <= 2 * f1[x] for x in f3),
+          f"{name} {shape} float32 (tf32x3): {f3} of the largest |ref| "
+          f"from the float64 forward, design 1 {f1}: past twice design 1's")
+    return dict(ffma_bound_ms=fb, ffma_bound_share=fb / ffma_ms,
+                f64_share=f3, ffma_f64_share=f1, guard_ratio=ratio,
+                guard_limit=2.0)
+
+
 def run_flash_repeat(gen):
     """Every kernel launched twice at `path_t_bf16`'s and `path_t`'s shape
-    and at Dh 128, in bfloat16 (all on design 2) and float32 (B3a on
-    design 1, B3b/B3c on design 3): o and lse bit-equal (B3a), dq, dk
-    and dv bit-equal (B3b, B3c: two kernels, no atomics)."""
+    and at Dh 128, in bfloat16 (all on design 2) and float32 (all on
+    design 3): o and lse bit-equal (B3a), dq, dk and dv bit-equal (B3b,
+    B3c: two kernels, no atomics)."""
     from deeplearning4j_tpu_torch.ops import attention as fa
 
     rows = []
@@ -3044,6 +3081,11 @@ def path_h(prompts, max_new=64, long_prompt=128, long_new=1900,
                    plain)
     check(flash["flash_attention_fwd"] > 0,
           "path_h: /output and the warm-ups never launched B3a")
+    # float32 at Dh 64: every B3a launch on design 3
+    fwd_design = flash_want(torch.float32, 64, "flash_attention_fwd")
+    check(flash_by_design[f"flash_attention_fwd/{fwd_design}"]
+          == flash["flash_attention_fwd"],
+          f"path_h: B3a not all on {fwd_design}: {flash_by_design}")
     row.update(launches=launches, launches_by_design=by_design,
                plain_on_cuda=plain, flash_launches=flash,
                flash_launches_by_design=flash_by_design,
@@ -3423,8 +3465,8 @@ FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
 def path_t(rng, epochs=3, dtype="float32"):
     """Full width training: 6 blocks, T 2048, batch 8, the zoo's default
     Adam(3e-4), 4 fixed batches x 3 epochs = 12 steps through `net.fit`
-    (`timed_fit`). float32 (`path_t`): B3a on design 1, B3b/B3c on
-    design 3 (3xTF32 on the tensor cores); bfloat16 (`path_t_bf16`,
+    (`timed_fit`). float32 (`path_t`): B3a-c on design 3 (3xTF32 on the
+    tensor cores); bfloat16 (`path_t_bf16`,
     `bench.py`'s dtype for this model: BENCH_DTYPE's default,
     `bench.py:586`): B3a-c on design 2, the tensor cores."""
     from deeplearning4j_tpu_torch.ops import attention as fa
@@ -3589,8 +3631,7 @@ def train_parity(rng, name="train_parity", kernel="flash_attention_fwd",
                   f"{name}: {kernel} launched {launches[kernel]} times, "
                   f"want 2 layers x {steps} steps")
             if kernel == "flash_attention_fwd":
-                # bfloat16: B3a-c on design 2; float32: B3a on design 1,
-                # B3b/B3c on design 3
+                # bfloat16: B3a-c on design 2; float32: on design 3
                 by_design = launches_by_design(fa)
                 want = {k: flash_want(getattr(torch, dtype), 64, k)
                         for k in FLASH_KERNELS}
@@ -5527,8 +5568,8 @@ def path_x(rng, epochs=2, batch=8, tq=2048, tk=1024, width=512):
     """Cross-attention through MultiDataSet feeding (A4): the seq2seq
     graph at width (Tq 2048, Tk 1024, batch 8) trained 8 Adam steps (4
     MultiDataSets x 2 epochs) at K 1 and at K 4, in bfloat16 (B3a-c
-    non-causal at Tq != Tk on design 2) and float32 (B3a on design 1,
-    B3b/B3c on design 3), each
+    non-causal at Tq != Tk on design 2) and float32 (B3a-c on design
+    3), each
     kernel once a step and B1a once; K 4 against K 1; then the graph at
     Tq 256, Tk 200 in float32, 2 steps on the card against the CPU."""
     from deeplearning4j_tpu_torch.models import ComputationGraph
@@ -6755,10 +6796,10 @@ def main() -> int:
                 launches_by_design={
                     d: t["launches_by_design"][f"{name}/{d}"]
                     for d in ("ffma", "wgmma", "tf32x3")},
-                # path_t's float32 row: B3a on design 1, B3b/B3c on
-                # design 3 (3xTF32) beside design 1 on the same inputs,
-                # each against its own bound, and the guard against a
-                # float64 backward
+                # path_t's float32 row: B3a-c on design 3 (3xTF32)
+                # beside design 1 on the same inputs, each against its
+                # own bound, and the guard against a float64 forward (o
+                # and lse) or backward
                 float32={**{k: f32.get(k) for k in (
                     "design", "ms", "plain_ms", "library_ms",
                     "library_kernels", "bound_ms", "bound_by",

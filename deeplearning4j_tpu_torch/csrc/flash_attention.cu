@@ -15,8 +15,8 @@
 // and direction, before the launch; none falls back to another): design 1
 // above; design 2, `tc::fwd_wgmma_kernel`, `tc::bwd_dkdv_wgmma_kernel` and
 // `tc::bwd_dq_wgmma_kernel`, for bfloat16; and design 3,
-// `tf32x3::bwd_dkdv_tf32x3_kernel` and `tf32x3::bwd_dq_tf32x3_kernel`, for
-// the float32 backward, all below.
+// `tf32x3::fwd_tf32x3_kernel`, `tf32x3::bwd_dkdv_tf32x3_kernel` and
+// `tf32x3::bwd_dq_tf32x3_kernel`, for float32, all below.
 //
 // The backward rematerializes each score tile from the saved lse, as the
 // TPU kernels do (`_bwd_tile`): p = exp(s - L), ds = p * (dp - delta) *
@@ -31,9 +31,9 @@
 // (design 2), 495 / 3 in float32 as three TF32 products (design 3).
 //
 // Float32 contract: no float32 operand is ever rounded to a single TF32
-// term. The float32 forward runs on design 1 (FMA); the float32 backward
-// at Dh 64 and 128 runs on design 3 (3xTF32, about 22 bits of each
-// operand: as accurate as FMA), every other float32 shape on design 1.
+// term. The float32 forward and backward at Dh 64 and 128 run on design
+// 3 (3xTF32, about 22 bits of each operand: as accurate as FMA), every
+// other float32 shape on design 1 (FMA).
 //
 // Design 1. Float32 arithmetic on the FMA units; bfloat16 inputs are
 // widened to float32 as they are staged and rounded once on output. One
@@ -1221,31 +1221,33 @@ int run(Which w, const Args& a, void* stream) {
 }  // namespace tc
 
 // ------------------------------------------------------------------------
-// Design 3 of B3b and B3c: float32 on the tensor cores as 3xTF32
+// Design 3 of B3a, B3b and B3c: float32 on the tensor cores as 3xTF32
 // ------------------------------------------------------------------------
 // Float32 at Dh 64 and 128 with q, k, v and dO 16-byte aligned. Design 1
 // runs its products on the FMA units (67 TFLOP/s on an H100) from 4 x 4
 // micro-tiles that read both operands from shared memory every few FMAs,
-// stages its tiles synchronously and passes P^T and dS^T through shared
-// memory. Here the products run on the tensor cores, `mma.sync` m16n8k8
-// with tf32 operands and float32 accumulators. Each float32 operand x is
-// split into big = tf32(x) and small = tf32(x - big) (both rounded to
-// nearest, ties away, as `cvt.rna`), and each product is taken as small *
-// big + big * small + big * big, the two small ones first (see "Sums"
-// below for where each is added). That keeps about 22 bits of each
-// operand: the result is as accurate as float32 FMA, never the one-pass
-// TF32 product (`ops/attention.py` `tf32x3_split` emulates the split on
-// the CPU). Three TF32 products a float32 product: the bound is 495 / 3
-// TFLOP/s. `mma.sync` and not `wgmma`: `wgmma` reads tf32 operands from
-// shared memory K-major only (the transpose bit is for 16-bit types), and
-// the backward reads Q, dO and K transposed; `mma.sync` fragments are
-// loaded by index, so a transpose costs nothing.
+// stages its tiles synchronously and passes P (forward), P^T and dS^T
+// (backward) through shared memory. Here the products run on the tensor
+// cores, `mma.sync` m16n8k8 with tf32 operands and float32 accumulators.
+// Each float32 operand x is split into big = tf32(x) and small = tf32(x -
+// big) (both rounded to nearest, ties away, as `cvt.rna`), and each
+// product is taken as small * big + big * small + big * big, the two
+// small ones first (see "Sums" below for where each is added). That keeps
+// about 22 bits of each operand: the result is as accurate as float32
+// FMA, never the one-pass TF32 product (`ops/attention.py`
+// `tf32x3_split` emulates the split on the CPU). Three TF32 products a
+// float32 product: the bound is 495 / 3 TFLOP/s. `mma.sync` and not
+// `wgmma`: `wgmma` reads tf32 operands from shared memory K-major only
+// (the transpose bit is for 16-bit types), and the backward reads Q, dO
+// and K transposed, the forward V; `mma.sync` fragments are loaded by
+// index, so a transpose costs nothing.
 //
 // A block is 8 warps, one block an SM; a warp owns 16 rows of the
 // block's 128-row pinned tile (keys in dK/dV, with K and V pinned;
-// queries in dQ, with Q, dO, lse and delta pinned), loaded once. The
-// streamed tiles of kCols rows (Q, dO and their lse and delta in dK/dV; K
-// and V in dQ) come through a ring of kStages buffers filled by 16-byte
+// queries in dQ, with Q, dO, lse and delta pinned; queries in the
+// forward, with Q pinned), loaded once. The streamed tiles of kCols rows
+// (Q, dO and their lse and delta in dK/dV; K and V in dQ and the
+// forward) come through a ring of kStages buffers filled by 16-byte
 // `cp.async` (4-byte for lse and delta), the next tile in flight during
 // this one's products. Every warp reads every element of a streamed tile
 // as a B operand, and the split was most of the instructions; so at Dh 64
@@ -1254,30 +1256,37 @@ int run(Which w, const Args& a, void* stream) {
 // fragments read both planes. At Dh 128 those planes do not fit beside
 // the pinned tile: the streamed tiles are 32 rows (so that dK and dV's
 // 128 accumulators leave room in the registers) and each warp splits its
-// B fragments as it loads them. The pinned A operands and P^T, dS^T are
-// split as their fragments are loaded. Rows are padded to Dh + 4 floats,
-// so every fragment read (a lane reads row g or 2t of 8, column t or g)
-// falls in 32 distinct banks. Per streamed tile a warp computes, in the
+// B fragments as it loads them. The forward splits its streamed K and V
+// tiles at fragment load at both Dh: each is read by one product there,
+// not two, and the split pass with its second barrier ran 6-7% slower at
+// Dh 64 (`tools/torch_b3a_variants.py`, PERF.md). The pinned A operands
+// (the forward's Q too: split once into two planes it ran within 4% of
+// this, either way by shape) and P, P^T, dS^T are split as their
+// fragments are loaded. Rows are padded to Dh + 4 floats, so every
+// fragment read (a lane reads row g or 2t of 8, column t or g) falls in
+// 32 distinct banks. Per streamed tile a warp computes, in the
 // accumulator layout of a 16 x kCols m16n8 product (lane (g, t) holds
 // rows g, g + 8 and columns 2t, 2t + 1 of each 8-column tile):
 //   dK/dV: S^T = K Q^T, dP^T = V dO^T; P^T = exp(S^T scale - lse),
 //          dS^T = P^T (dP^T - delta) scale; dV += P^T dO, dK += dS^T Q
 //   dQ:    S = Q K^T, dP = dO V^T; P, dS likewise; dQ += dS K
-// P^T and dS^T stay in registers: an accumulator holds columns 2t and
+//   fwd:   S = Q K^T; the online softmax (m, l, alpha); O = O alpha + P V
+// P^T, dS^T and P stay in registers: an accumulator holds columns 2t and
 // 2t + 1 of each 8-column tile where the A fragment of the next product
 // wants columns t and t + 4, so the reduction index of that product is
-// permuted (A column t <- 2t, t + 4 <- 2t + 1) and B's rows (dO, Q or K)
-// are read in the same permuted order; a sum does not depend on the order
-// of its terms. Causal: dead tiles are skipped (for a block, and for a
+// permuted (A column t <- 2t, t + 4 <- 2t + 1) and B's rows (dO, Q, K or
+// V) are read in the same permuted order; a sum does not depend on the
+// order of its terms. Causal: dead tiles are skipped (for a block, and for a
 // warp whose 16 rows a tile near the diagonal does not reach), only tiles
 // that cross the diagonal or an end are masked, and the blocks with the
 // most tiles start first (dK/dV: key blocks on y, the first keys sweep
-// the most Q tiles; dQ: query blocks reversed).
+// the most Q tiles; dQ and the forward: query blocks reversed).
 // Numerics as design 1: p = expf(s scale - lse) (IEEE: built without
 // --use_fast_math), delta from the caller in float32, dS from the
-// unrounded p, the mask value -1e30 (a masked p is 0); no atomics, so two
-// launches give the same bits. Nothing float32 is rounded to a single
-// TF32 term.
+// unrounded p, the mask value -1e30 (a masked p is 0); the forward's
+// running max starts at -1e30, keys past Tk get p = 0, l is clamped at
+// 1e-30, o = acc / l, lse = m + logf(l); no atomics, so two launches give
+// the same bits. Nothing float32 is rounded to a single TF32 term.
 namespace tf32x3 {
 
 constexpr int kStages = 2;            // depth of the streamed-tile ring
@@ -1298,6 +1307,8 @@ struct Geo3 {
   // the pinned tiles, the ring, the small planes of a stage's two tiles
   static constexpr int kBytes =
       (2 * kRows * LD + kStages * kStage + (kPreSplit ? 2 * kTile : 0)) * 4;
+  // the forward: Q pinned and the ring (its tiles split at fragment load)
+  static constexpr int kFwdBytes = (kRows * LD + kStages * kStage) * 4;
   static constexpr int NT = DH / 8;            // 8-column tiles of Dh
 };
 
@@ -1458,7 +1469,8 @@ struct FragA {
 // float32 sum on the FMA units, rounded to nearest, as design 1 adds; the
 // two small products (small * big, then big * small), about 2^-11 of it,
 // are chained on the tensor cores in an accumulator of their own (its
-// drift is 2^-11 smaller), added to the sum once a tile.
+// drift is 2^-11 smaller), added to the sum once a tile. The forward sums
+// both its products so too.
 
 // d += a b in 3xTF32: small * big and big * small into lo, in that
 // order; big * big from zero, added to d. (bb0, bs0), (bb1, bs1): the B
@@ -1485,8 +1497,11 @@ __device__ __forceinline__ void zero(float (&x)[N][M]) {
 
 // acc[n] = A B^T over the Dh columns: A the warp's 16 pinned rows (sA,
 // rows LD apart), B the kCols rows of a streamed tile; acc[n] the m16n8
-// accumulator of B's rows 8n .. 8n + 7.
-template <int DH, typename B>
+// accumulator of B's rows 8n .. 8n + 7. The k-steps are unrolled by
+// kUnroll: by two in the backward (fully unrolled, its sweep's body
+// outgrows the instruction cache: 2% slower at path_t's shape), fully in
+// the forward (1-5% faster at its shapes in `tools/torch_b3a_variants.py`).
+template <int DH, int kUnroll = 2, typename B>
 __device__ __forceinline__ void rows_product(
     float (&acc)[Geo3<DH>::CT][4], const float* __restrict__ sA,
     const B& sB, int g, int t) {
@@ -1494,9 +1509,7 @@ __device__ __forceinline__ void rows_product(
   float lo[CT][4];
   zero(acc);
   zero(lo);
-  // rolled by two: fully unrolled, the sweep's body outgrows the
-  // instruction cache (2% slower at path_t's shape)
-#pragma unroll 2
+#pragma unroll (kUnroll)
   for (int kk = 0; kk < DH / 8; ++kk) {
     const float* a = sA + g * LD + 8 * kk + t;
     const FragA fa(a[0], a[8 * LD], a[4], a[8 * LD + 4]);
@@ -1771,6 +1784,135 @@ bwd_dq_tf32x3_kernel(const float* __restrict__ q,
   store_acc<DH>(dq + bh * Tq * DH, dqa, qr, Tq, t);
 }
 
+// B3a, design 3. Block (bh, qb) owns kRows queries from q0 = kRows qb, Q
+// pinned; the K and V tiles are streamed up to the query tile's diagonal
+// (causal) or to the end, as in B3c, every operand split as its fragments
+// are loaded (one barrier a tile). Per tile a warp computes S = Q K^T
+// for its 16 rows, then the online softmax in registers: a row's scores
+// lie in one quad (lane (g, t) holds rows g and g + 8), so its tile max
+// is two shuffles; m_new = max(m, tile max), alpha = exp(m - m_new), p =
+// exp(s scale - m_new), the lane's share of l = l alpha + sum p (the
+// quad's shares are summed once, at the end); the O accumulators are
+// scaled by alpha and O += P V takes P from the accumulators as the A
+// fragment (`cols_product`'s permuted reduction index). Keys past Tk get
+// p = 0 and stay out of the max; causal-masked scores are -1e30, as in
+// design 1. Causal grids reverse qb, so the blocks that sweep the most
+// key tiles start first. o = acc / l (a division) and lse = m + log(l),
+// l clamped at 1e-30.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int Tq, int Tk, float scale,
+                  int causal) {
+  using G = Geo3<DH>;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* ring = sQ + kRows * G::LD;
+  const size_t bh = blockIdx.x;
+  const int nqt = (Tq + kRows - 1) / kRows;
+  const int qt = causal ? nqt - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = qt * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* kb = k + bh * Tk * DH;
+  const float* vb = v + bh * Tk * DH;
+  constexpr int C = G::kCols;
+  int nt = (Tk + C - 1) / C;
+  if (causal) nt = min(nt, (q0 + kRows - 1) / C + 1);
+  auto issue = [&](int i) {
+    if (i < nt) {
+      float* st = ring + (i % kStages) * G::kStage;
+      stage_tile<DH, C>(st, kb, i * C, Tk);
+      stage_tile<DH, C>(st + G::kTile, vb, i * C, Tk);
+    }
+    cp_async_commit();
+  };
+  stage_tile<DH, kRows>(sQ, q + bh * Tq * DH, q0, Tq);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+
+  const int qr = q0 + 16 * warp + g;  // this lane's queries qr, qr + 8
+  const float* wQ = sQ + 16 * warp * G::LD;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float oa[G::NT][4];
+  zero(oa);
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile i (and, at i 0, Q) landed; i - 1's are free
+    issue(i + kStages - 1);
+    const float* st = ring + (i % kStages) * G::kStage;
+    const BRaw bk{st}, bv{st + G::kTile};
+    const int k0 = i * C;
+    // causal: a warp whose last query is before the tile's first key sees
+    // none of it
+    if (causal && k0 > q0 + 16 * warp + 15) continue;
+    float s[G::CT][4];
+    rows_product<DH, DH / 8>(s, wQ, bk, g, t);  // S = Q K^T
+    const bool edge =
+        (causal && k0 + C - 1 > q0 + 16 * warp) || k0 + C > Tk;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < G::CT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float x = s[j][e] * scale;
+        if (edge) {
+          const int kc = k0 + 8 * j + 2 * t + (e & 1);
+          if (kc >= Tk)
+            x = -__int_as_float(0x7f800000);  // -inf: p 0, not in the max
+          else if (causal && kc > qr + 8 * h)
+            x = kNegInf;
+        }
+        s[j][e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < G::CT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);
+        s[j][e] = p;  // P
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < G::NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oa[n][e] *= alpha[e >> 1];
+    cols_product<DH>(oa, s, bv, g, t);  // O += P V
+  }
+  cp_async_wait<0>();
+  float li[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    li[h] = fmaxf(l[h], 1e-30f);
+  }
+  // o = acc / l, divided as the TPU kernel divides (not times 1 / l)
+#pragma unroll
+  for (int n = 0; n < G::NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oa[n][e] = oa[n][e] / li[e >> 1];
+  store_acc<DH>(o + bh * Tq * DH, oa, qr, Tq, t);
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (qr + 8 * h < Tq) lse[bh * Tq + qr + 8 * h] = m[h] + logf(li[h]);
+  }
+}
+
 template <int DH>
 int launch(Which w, const Args& a, cudaStream_t st) {
   using G = Geo3<DH>;
@@ -1779,7 +1921,16 @@ int launch(Which w, const Args& a, cudaStream_t st) {
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
   const float* o = static_cast<const float*>(a.dout);
-  if (w == kDkdv) {
+  if (w == kFwd) {
+    static const cudaError_t once = cudaFuncSetAttribute(
+        fwd_tf32x3_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        G::kFwdBytes);
+    if (once != cudaSuccess) return (int)once;
+    fwd_tf32x3_kernel<DH><<<dim3(a.BH, (a.Tq + kRows - 1) / kRows),
+                            kThreads, G::kFwdBytes, st>>>(
+        q, k, v, static_cast<float*>(a.o), a.lse, a.Tq, a.Tk, a.scale,
+        a.causal);
+  } else if (w == kDkdv) {
     static const cudaError_t once = cudaFuncSetAttribute(
         bwd_dkdv_tf32x3_kernel<DH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1806,7 +1957,7 @@ int run(Which w, const Args& a, void* stream) {
                          reinterpret_cast<uintptr_t>(a.k) |
                          reinterpret_cast<uintptr_t>(a.v) |
                          reinterpret_cast<uintptr_t>(a.dout);
-  if (w == kFwd || (a.Dh != 64 && a.Dh != 128) || (ptrs & 15) ||
+  if ((a.Dh != 64 && a.Dh != 128) || (ptrs & 15) ||
       a.Tq < 0 || a.Tk < 1 || a.BH < 0 || (a.causal && a.Tq != a.Tk) ||
       (a.Tq + kRows - 1) / kRows > 65535 ||
       (a.Tk + kRows - 1) / kRows > 65535)
@@ -1900,6 +2051,19 @@ int dl4j_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v,
   a.BH = BH; a.Tq = Tq; a.Tk = Tk; a.Dh = Dh; a.scale = scale;
   a.causal = causal;
   return tc::run(kDq, a, stream);
+}
+
+// Design 3 of B3a, float32 on the tensor cores as 3xTF32: q, k, v float32
+// [BH, T, Dh] with Dh 64 or 128 and 16-byte aligned data; o float32; lse
+// float32 [BH, Tq] or null. Returns 0 or a cudaError_t.
+int dl4j_flash_fwd_tf32x3(const void* q, const void* k, const void* v,
+                          void* o, float* lse, int BH, int Tq, int Tk,
+                          int Dh, float scale, int causal, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
+  a.BH = BH; a.Tq = Tq; a.Tk = Tk; a.Dh = Dh; a.scale = scale;
+  a.causal = causal;
+  return tf32x3::run(kFwd, a, stream);
 }
 
 // Design 3 of B3b and B3c, float32 on the tensor cores as 3xTF32: q, k, v,

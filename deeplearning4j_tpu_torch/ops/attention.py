@@ -12,15 +12,15 @@ Three kernels, hand-written in CUDA C++ for Hopper
   swept, from the saved lse and Δ = rowsum(dO·O) (computed here in f32,
   as JAX computes it in XLA).
 
-Each kernel comes in two designs, and B3b/B3c in three, chosen by
-`b3_design` from the dtype, the shape and the direction before the launch
-(none is a fallback of another): "wgmma" (design 2) for bfloat16 at Dh 64
-and 128 — TMA-fed tiles and `wgmma` on the tensor cores, P and dS rounded
-to bfloat16 as operands; "tf32x3" (design 3) for the float32 backward at
-Dh 64 and 128 — `mma.sync` on the tensor cores, each float32 operand
-split into two TF32 terms (`tf32x3_split`) and each product taken as
-three TF32 products; and "ffma" (design 1, float32 FMA) for the float32
-forward and every other shape. `LAUNCHES_BY_DESIGN[(kernel, design)]`
+Each kernel comes in three designs, chosen by `b3_design` from the
+dtype, the head dim and the operands' alignment before the launch (none
+is a fallback of another): "wgmma" (design 2) for bfloat16 at Dh 64 and
+128 — TMA-fed tiles and `wgmma` on the tensor cores, P and dS rounded to
+bfloat16 as operands; "tf32x3" (design 3) for float32 at Dh 64 and 128 —
+`mma.sync` on the tensor cores, each float32 operand split into two TF32
+terms (`tf32x3_split`) and each product taken as three TF32 products,
+the forward's online softmax in registers; and "ffma" (design 1, float32
+FMA) for every other shape. `LAUNCHES_BY_DESIGN[(kernel, design)]`
 counts their launches. In bfloat16 every design, and the plain versions,
 round the probabilities and score gradients to bfloat16 where they meet
 the second products, as the TPU kernels do (C6); float32 never rounds.
@@ -28,10 +28,11 @@ the second products, as the TPU kernels do (C6); float32 never rounds.
 The float32 contract: no design rounds a float32 operand to a single TF32
 term. 3xTF32 keeps about 22 bits of each operand, so design 3 is as
 accurate as design 1's FMA: on the card its largest error against a
-float64 backward stays within twice design 1's on the same inputs, which
-a one-pass TF32 product misses by far (`tests/test_torch_b3_tf32.py`
-shows both on the CPU through `flash_attention_bwd_plain(...,
-products=...)`).
+float64 forward (o and lse) or backward stays within twice design 1's on
+the same inputs, which a one-pass TF32 product misses by far
+(`tests/test_torch_b3_tf32.py` and `tests/test_torch_b3a_tf32.py` show
+both on the CPU through `flash_attention_plain(..., products=...)` and
+`flash_attention_bwd_plain(..., products=...)`).
 
 `flash_attention` is a `torch.autograd.Function` over the two. Beside
 each kernel stands its plain PyTorch version: `flash_attention_plain`
@@ -131,6 +132,12 @@ def _split_product(eq: str, a, b, products: Optional[str]):
         + torch.einsum(eq, ab, bb)
 
 
+def _check_products(products, acc, dtype) -> None:
+    if products is not None and acc != torch.float32:
+        raise ValueError(f"products={products!r} emulates float32 "
+                         f"products; got {dtype}")
+
+
 def _scores(q, k, causal: bool, scale: float, acc,
             products: Optional[str] = None):
     s = _split_product("bqd,bkd->bqk", q.to(acc), k.to(acc),
@@ -144,7 +151,7 @@ def _scores(q, k, causal: bool, scale: float, acc,
 
 
 # ------------------------------------------------------------ plain versions
-def _pv(s, v, acc, block_k):
+def _pv(s, v, acc, block_k, products: Optional[str] = None):
     """(P·V, l, m) for scores s [BH, Tq, Tk] (masked entries -1e30):
     p = exp(s - m) with m the running max over key blocks of `block_k`
     (None: one block, the row max), l = Σp unrounded, m [BH, Tq, 1] the
@@ -153,7 +160,9 @@ def _pv(s, v, acc, block_k):
     rounded to v's dtype, as the TPU kernel's `p.astype(v.dtype)`; each
     block's product is then rescaled to the final max, as an online
     softmax rescales its accumulator. Float32 and float64 never round,
-    so there the blocks change nothing and one block is taken."""
+    so there the blocks change nothing and one block is taken.
+    `products` takes P·V as that tensor-core scheme does
+    (`_split_product`)."""
     tk = s.shape[-1]
     bk = tk if block_k is None or v.dtype == acc else block_k
     nb = -(-tk // bk)
@@ -167,13 +176,15 @@ def _pv(s, v, acc, block_k):
     l = torch.clamp((p.sum(dim=-1) * c).sum(dim=-1, keepdim=True),
                     min=1e-30)
     vb = F.pad(v.to(acc), (0, 0, 0, pad)).unflatten(-2, (nb, bk))
-    pv = torch.einsum("bqnk,bnkd->bqnd", p.to(v.dtype).to(acc), vb)
+    pv = _split_product("bqnk,bnkd->bqnd", p.to(v.dtype).to(acc), vb,
+                        products)
     return (pv * c[..., None]).sum(dim=-2), l, m_run[..., -1:]
 
 
 def flash_attention_plain(q, k, v, causal: bool,
                           scale: Optional[float] = None,
-                          block_k: Optional[int] = None):
+                          block_k: Optional[int] = None,
+                          products: Optional[str] = None):
     """Plain version of kernel B3a: q [BH, Tq, Dh], k/v [BH, Tk, Dh];
     returns (o in q's dtype, lse [BH, Tq] in float32, float64 for float64
     inputs). In bfloat16 the probabilities meet v rounded to bfloat16
@@ -182,12 +193,19 @@ def flash_attention_plain(q, k, v, causal: bool,
     depends on its `block_k`; `block_k` here rounds against the running
     max of blocks of that many keys, as a kernel with that tile does
     (the CUDA kernel's is `KERNEL_BLOCK_K`). The row sum l is taken from
-    the unrounded p, and o is rounded once."""
+    the unrounded p, and o is rounded once.
+
+    `products` ("tf32x3" or "tf32", float32 only) takes S = Q·K^T and P·V
+    as that tensor-core scheme does (`_split_product`): the CPU's
+    emulation of design 3's forward and of the one-pass TF32 product it
+    avoids."""
     if q.is_cuda:
         PLAIN_ON_CUDA["flash_attention_fwd"] += 1
     acc = _acc_dtype(q.dtype)
+    _check_products(products, acc, q.dtype)
     sc = scale if scale is not None else q.shape[-1] ** -0.5
-    pv, l, m = _pv(_scores(q, k, causal, sc, acc), v, acc, block_k)
+    pv, l, m = _pv(_scores(q, k, causal, sc, acc, products), v, acc,
+                   block_k, products)
     return (pv / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
@@ -210,9 +228,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
     if q.is_cuda:
         PLAIN_ON_CUDA["flash_attention_bwd"] += 1
     acc = _acc_dtype(q.dtype)
-    if products is not None and acc != torch.float32:
-        raise ValueError(f"products={products!r} emulates float32 "
-                         f"products; got {q.dtype}")
+    _check_products(products, acc, q.dtype)
     sc = scale if scale is not None else q.shape[-1] ** -0.5
     s = _scores(q, k, causal, sc, acc, products)
     p = torch.exp(s - lse.to(acc)[..., None])
@@ -296,7 +312,8 @@ def launch_fwd(q, k, v, causal: bool, scale: Optional[float] = None,
                with_lse: bool = True, design: str = "ffma"):
     """Kernel B3a alone, on checked CUDA tensors, in `design` (the
     wrapper passes `b3_design`'s choice; `chip_smoke.py` also times
-    design 1 on bfloat16 to compare the two): returns (o, lse or None)."""
+    design 1 on the inputs of designs 2 and 3 to compare them): returns
+    (o, lse or None)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("flash_attention")
@@ -308,8 +325,9 @@ def launch_fwd(q, k, v, causal: bool, scale: Optional[float] = None,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(), bh, tq, k.shape[1], dh,
             sc, int(causal))
-    if design == "wgmma":
-        rc = lib.dl4j_flash_fwd_wgmma(*args, _stream(q.device))
+    if design in ("wgmma", "tf32x3"):
+        fn = getattr(lib, f"dl4j_flash_fwd_{design}")
+        rc = fn(*args, _stream(q.device))
     else:
         rc = lib.dl4j_flash_fwd(*args, _DTYPE_CODES[q.dtype],
                                 _stream(q.device))
@@ -335,7 +353,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
     delta = (do.float() * o.float()).sum(dim=-1)
     _check_cuda(dict(q=q, k=k, v=v, o=o, do=do, lse=lse, delta=delta),
                 q.dtype)
-    design = b3_design(q.dtype, q.shape[2], (q, k, v, do), backward=True)
+    design = b3_design(q.dtype, q.shape[2], (q, k, v, do))
     dk, dv = launch_bwd_dkdv(q, k, v, do, lse, delta, causal, scale, design)
     dq = launch_bwd_dq(q, k, v, do, lse, delta, causal, scale, design)
     return dq, dk, dv
@@ -359,21 +377,19 @@ def fwd_atol(o_ref: torch.Tensor, design: str) -> float:
     return 2e-5 + share * o_ref.float().abs().max().item()
 
 
-def b3_design(dtype, dh: int, tensors: Sequence[torch.Tensor],
-              backward: bool = False) -> str:
-    """The design that takes a B3a (`backward` false) or B3b/B3c call
-    whose `tensors` (q, k, v forward, and dO backward: the operands the
-    tensor maps or the 16-byte copies read) start 16-byte aligned at Dh
-    64 or 128: "wgmma" (design 2, the tensor cores) for bfloat16;
-    "tf32x3" (design 3, the tensor cores as three TF32 products) for the
-    float32 backward. "ffma" (design 1, float32 FMA) for the float32
-    forward and every other shape. The wrapper has checked that they are
-    contiguous."""
+def b3_design(dtype, dh: int, tensors: Sequence[torch.Tensor]) -> str:
+    """The design that takes a B3a or B3b/B3c call whose `tensors` (q, k,
+    v forward, and dO backward: the operands the tensor maps or the
+    16-byte copies read) start 16-byte aligned at Dh 64 or 128: "wgmma"
+    (design 2, the tensor cores) for bfloat16; "tf32x3" (design 3, the
+    tensor cores as three TF32 products) for float32. "ffma" (design 1,
+    float32 FMA) for every other shape. The wrapper has checked that
+    they are contiguous."""
     if dh not in WGMMA_HEAD_DIMS or any(t.data_ptr() % 16 for t in tensors):
         return "ffma"
     if dtype == torch.bfloat16:
         return "wgmma"
-    if dtype == torch.float32 and backward:
+    if dtype == torch.float32:
         return "tf32x3"
     return "ffma"
 

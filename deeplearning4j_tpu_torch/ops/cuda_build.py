@@ -80,6 +80,9 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         # stream
         "dl4j_flash_fwd_wgmma": (
             _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
+        # design 3, float32 as 3xTF32: the same arguments as design 2's
+        "dl4j_flash_fwd_tf32x3": (
+            _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
         "dl4j_flash_bwd_dkdv": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                  _I, _P]),

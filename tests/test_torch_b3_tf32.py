@@ -34,8 +34,8 @@ def _operands(dtype, dh, offset=0, bh=2, t=100):
     (torch.float32, 32, 0, True, "ffma"),       # no 64-wide tile
     (torch.float32, 48, 0, True, "ffma"),
     (torch.float32, 64, 2, True, "ffma"),       # q 8 bytes into storage
-    (torch.float32, 64, 0, False, "ffma"),      # the forward stays FMA
-    (torch.float32, 128, 0, False, "ffma"),
+    (torch.float32, 64, 0, False, "tf32x3"),    # the forward too
+    (torch.float32, 128, 0, False, "tf32x3"),
     (torch.bfloat16, 64, 0, True, "wgmma"),     # bfloat16 unchanged
     (torch.bfloat16, 64, 0, False, "wgmma"),
     (torch.bfloat16, 32, 0, True, "ffma"),
@@ -43,8 +43,7 @@ def _operands(dtype, dh, offset=0, bh=2, t=100):
 def test_b3_design_sends_the_float32_backward_to_tf32x3(dtype, dh, offset,
                                                         backward, want):
     ops = _operands(dtype, dh, offset)
-    assert fa.b3_design(dtype, dh, ops if backward else ops[:3],
-                        backward=backward) == want
+    assert fa.b3_design(dtype, dh, ops if backward else ops[:3]) == want
 
 
 def test_every_operand_is_held_to_16_byte_alignment():
@@ -52,8 +51,7 @@ def test_every_operand_is_held_to_16_byte_alignment():
     q, k, v, _ = _operands(torch.float32, 64)
     buf = torch.zeros(1 + 2 * 100 * 64)
     do = buf[1:].view(2, 100, 64)
-    assert fa.b3_design(torch.float32, 64, (q, k, v, do),
-                        backward=True) == "ffma"
+    assert fa.b3_design(torch.float32, 64, (q, k, v, do)) == "ffma"
 
 
 def test_designs_and_entry_points():

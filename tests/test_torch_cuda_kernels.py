@@ -2,8 +2,9 @@
 card: the decode kernels B5 and B6 (native, and their int8/e4m3
 scale-row variants B5q and B6q; each in both designs), the banded
 attention B4 (both designs), the
-flash-attention forward B3a (both designs) and backward B3b/B3c (three
-designs: the float32 tensor-core one held also against a float64 backward),
+flash-attention forward B3a and backward B3b/B3c (three designs each:
+the float32 tensor-core one held also against a float64 forward and
+backward),
 the fused Adam B1a and Nesterovs B1b (both designs) and Adam's
 bias-corrected rate, the fused LSTM forward B2a/B2b and
 backward B2c (both designs of each), and the conv+BN statistics kernels B7a/B7b.
@@ -196,7 +197,7 @@ FLASH_CASES = [
     (2, 100, 100, 48, True, torch.float32),         # Dh inside the 64 tile
     (2, 300, 300, 64, True, torch.bfloat16),
     # cross-attention (path_x): not causal, Tq != Tk, a tail key tile, on
-    # design 1 (design 2's bf16 case is in B3_WGMMA_CASES)
+    # design 3 (design 2's bf16 case is in B3_WGMMA_CASES)
     (2, 2048, 1000, 64, False, torch.float32),
 ]
 
@@ -235,7 +236,8 @@ def _close(got, ref, dtype, atol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,tq,tk,dh,causal,dtype", FLASH_CASES)
 def test_cuda_b3a_matches_plain(cuda_device, bh, tq, tk, dh, causal, dtype):
-    """float32: design 1 within 2e-5. bfloat16 (C7): both designs on the
+    """float32: the wrapper's design (3 at Dh 64/128, else 1) within 2e-5.
+    bfloat16 (C7): both designs on the
     same inputs, design 1 within 2e-5 plus one bf16 step, design 2 (the
     wrapper's choice at Dh 64) within `fwd_atol(o_ref, "wgmma")` and
     nearer the plain version that rounds p than the one that does not —
@@ -361,7 +363,7 @@ def test_cuda_b3b_b3c_float32_take_the_tf32x3_design(cuda_device, bh, tq,
     dt = torch.float32
     q, k, v, do = _flash_inputs(bh, tq, tk, dh, dt, cuda_device, tq + tk)
     o, lse = fa.flash_attention_plain(q, k, v, causal)
-    assert fa.b3_design(dt, dh, (q, k, v, do), backward=True) == "tf32x3"
+    assert fa.b3_design(dt, dh, (q, k, v, do)) == "tf32x3"
     before = dict(fa.LAUNCHES_BY_DESIGN)
     plain = fa.PLAIN_ON_CUDA["flash_attention_bwd"]
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
@@ -485,13 +487,20 @@ def test_cuda_b3a_wgmma_is_bit_equal(cuda_device, bh, tq, tk, dh, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,dtype", [(32, torch.bfloat16),
-                                      (48, torch.bfloat16),
-                                      (64, torch.float32),
-                                      (128, torch.float32)])
+@pytest.mark.parametrize("dh,dtype,offset", [(32, torch.bfloat16, 0),
+                                             (48, torch.bfloat16, 0),
+                                             (32, torch.float32, 0),
+                                             (64, torch.float32, 2)])
 def test_cuda_b3a_float32_and_other_head_dims_take_the_ffma_design(
-        cuda_device, dh, dtype):
+        cuda_device, dh, dtype, offset):
+    """Design 1 takes B3a at Dh 32/48 in both dtypes and a float32 q 8
+    bytes into its storage (the 16-byte copies cannot read it)."""
     q, k, v, _ = _flash_inputs(2, 256, 256, dh, dtype, cuda_device, dh + 1)
+    if offset:
+        buf = torch.empty(offset + q.numel(), dtype=dtype,
+                          device=cuda_device)
+        q = buf[offset:].view(q.shape).copy_(q)
+    assert fa.b3_design(dtype, dh, (q, k, v)) == "ffma"
     before = dict(fa.LAUNCHES_BY_DESIGN)
     o, lse = fa.flash_attention_fwd(q, k, v, True)
     o_ref, lse_ref = fa.flash_attention_plain(q, k, v, True,
@@ -503,6 +512,56 @@ def test_cuda_b3a_float32_and_other_head_dims_take_the_ffma_design(
         before[("flash_attention_fwd", "wgmma")]
     assert _close(o, o_ref, dtype, 2e-5)
     assert (lse - lse_ref).abs().max().item() <= 2e-5
+
+
+# float32 shapes of B3a's design 3 (tf32x3): path_t's, a ragged T,
+# path_x's Tq 2048 with a tail key tile, Tq != Tk with a ragged Tq, Dh 128
+# causal and not
+B3A_TF32_CASES = [(64, 2048, 2048, 64, True), (4, 1000, 1000, 64, True),
+                  (8, 2048, 1000, 64, False), (2, 130, 77, 64, False),
+                  (4, 1024, 1024, 128, True), (2, 512, 768, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,dh,causal", B3A_TF32_CASES)
+def test_cuda_b3a_float32_takes_the_tf32x3_design(cuda_device, bh, tq, tk,
+                                                  dh, causal):
+    """Design 3 (3xTF32 on the tensor cores) takes every float32 Dh
+    64/128 forward: the launch counted under "tf32x3", none under design
+    1, the plain version not reached; o and lse within 2e-5 of the plain
+    version; the guard: the largest error against the float64 plain
+    forward on the same inputs at most twice design 1's, on o and on lse
+    (one-pass TF32 misses it by far: `tests/test_torch_b3a_tf32.py`);
+    two calls bit-equal, and `with_lse=False` gives the same o."""
+    dt = torch.float32
+    q, k, v, _ = _flash_inputs(bh, tq, tk, dh, dt, cuda_device, tq + 5 * dh)
+    assert fa.b3_design(dt, dh, (q, k, v)) == "tf32x3"
+    before = dict(fa.LAUNCHES_BY_DESIGN)
+    plain = fa.PLAIN_ON_CUDA["flash_attention_fwd"]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.PLAIN_ON_CUDA["flash_attention_fwd"] == plain
+    kern = "flash_attention_fwd"
+    assert fa.LAUNCHES_BY_DESIGN[(kern, "tf32x3")] == \
+        before[(kern, "tf32x3")] + 1
+    for d in ("ffma", "wgmma"):
+        assert fa.LAUNCHES_BY_DESIGN[(kern, d)] == before[(kern, d)]
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal)
+    o3, none = fa.flash_attention_fwd(q, k, v, causal, with_lse=False)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert none is None and torch.equal(o3, o)
+    assert o.dtype == dt and _close(o, o_ref, dt, 2e-5)
+    assert (lse - lse_ref).abs().max().item() <= 2e-5
+    del o_ref, lse_ref
+    o64, lse64 = fa.flash_attention_plain(q.double(), k.double(),
+                                          v.double(), causal)
+    o1, lse1 = fa.launch_fwd(q, k, v, causal, design="ffma")
+    torch.cuda.synchronize()
+    assert _f64_share((o,), (o64,)) <= 2 * _f64_share((o1,), (o64,))
+    assert _f64_share((lse,), (lse64,)) <= 2 * _f64_share((lse1,),
+                                                          (lse64,))
 
 
 @pytest.mark.cuda

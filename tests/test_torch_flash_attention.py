@@ -205,7 +205,7 @@ def test_b3_design_by_dtype_head_dim_and_alignment(dtype, dh, offset, want):
     buf = torch.zeros(offset + 2 * 100 * dh, dtype=dtype)
     q = buf[offset:].view(2, 100, dh)
     k, v, do = (torch.zeros(2, 77, dh, dtype=dtype) for _ in range(3))
-    assert fa.b3_design(dtype, dh, (q, k, v, do), backward=True) == want
+    assert fa.b3_design(dtype, dh, (q, k, v, do)) == want
 
 
 @pytest.mark.parametrize("dtype,dh,offset,want", [
@@ -214,8 +214,8 @@ def test_b3_design_by_dtype_head_dim_and_alignment(dtype, dh, offset, want):
     (torch.bfloat16, 32, 0, "ffma"),
     (torch.bfloat16, 48, 0, "ffma"),
     (torch.bfloat16, 64, 4, "ffma"),      # k 8 bytes into its storage
-    (torch.float32, 64, 0, "ffma"),       # float32 stays exact
-    (torch.float32, 128, 0, "ffma"),
+    (torch.float32, 64, 0, "tf32x3"),     # 3xTF32, float32-accurate
+    (torch.float32, 128, 0, "tf32x3"),
 ])
 def test_b3_design_of_the_forward_by_dtype_head_dim_and_alignment(
         dtype, dh, offset, want):
@@ -251,16 +251,17 @@ def test_launch_counts_reset_by_design():
 
 
 # --------------------- C7: the contract of a tensor-core forward (bf16)
-def _scores_in_float64(q, k, causal, scale, acc):
+def _scores_in_float64(q, k, causal, scale, acc, products=None):
     """The same exact products (bf16 x bf16 fits float32), summed in
-    float64 and rounded once."""
+    float64 and rounded once (`products`, float32 only, is None here)."""
     return _PLAIN_SCORES(q.double(), k.double(), causal, scale,
-                         torch.float64).to(acc)
+                         torch.float64, products).to(acc)
 
 
-def _scores_dh_reversed(q, k, causal, scale, acc):
+def _scores_dh_reversed(q, k, causal, scale, acc, products=None):
     """The same products, summed over Dh in reversed order."""
-    return _PLAIN_SCORES(q.flip(-1), k.flip(-1), causal, scale, acc)
+    return _PLAIN_SCORES(q.flip(-1), k.flip(-1), causal, scale, acc,
+                         products)
 
 
 _PLAIN_SCORES = fa._scores

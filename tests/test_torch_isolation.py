@@ -29,7 +29,9 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "torch_b2_bf16_phases.py",
     ROOT / "tools" / "torch_lstm_graph.py",
     ROOT / "tools" / "torch_c10_lenet.py",
-    ROOT / "tools" / "torch_http_probe.py"]
+    ROOT / "tools" / "torch_http_probe.py",
+    ROOT / "tools" / "torch_b3_tf32.py",
+    ROOT / "tools" / "torch_b3a_variants.py"]
 
 
 def _imported_modules(path):
