@@ -80,9 +80,13 @@ exits non-zero with no result line:
      15 and 4 shapes) and at ragged ones, float32 and bfloat16, against
      `torch.matmul` / `F.conv2d` computing y alone (a time yardstick);
      each row names the design that ran (bfloat16 on the tensor cores,
-     "wgmma", or float32 FMA, "ffma"), its TFLOP/s and its share of the
-     bound; then design 2 twice on a shape of each kernel, y and the
-     statistics bit-equal;
+     "wgmma"; aligned float32 on the tensor cores as 3xTF32, "tf32x3";
+     otherwise exact FMA, "ffma"), its TFLOP/s and its share of the
+     bound at the design's rate; rows on "wgmma" and "tf32x3" also time
+     design 1 on the same inputs, and float32 rows on "tf32x3" hold the
+     guard (y, Σy and Σy² against float64 within twice design 1's error)
+     and two launches bit-equal; then designs 2 and 3 twice on a shape of
+     each kernel, y and the statistics bit-equal;
 3. path_a: decode serving of `TextGenerationTransformer` at the width
    of the repo's largest transformer (d_model 512, 8 heads, 6 blocks,
    T 2048) through `DecodeSessionManager`, prefix cache on, so the
@@ -160,9 +164,11 @@ exits non-zero with no result line:
     times a step, every launch on design 2, B1b once; steps 2-12 under
     `torch.cuda.set_sync_debug_mode("error")`; then `output()`, which
     launches no B7; then the same 12 steps unfused (cuDNN convolutions,
-    plain batch norms), as information;
+    plain batch norms), as information; then `path_r_f32`, the same
+    fused and unfused in float32 (the zoo's dtype), TF32 off: every B7
+    launch on design 3, "tf32x3";
 12. resnet_parity: the fused ResNet-50 at 64x64, batch 16, float32 (B7
-    on design 1): two Nesterovs steps on the card against the CPU, then
+    on design 3): two Nesterovs steps on the card against the CPU, then
     `output()` of both on the card's trained weights;
 13. path_m: LeNet as a user drives it (the zoo's LeNet, bfloat16 as
     `bench.py` trains it, its default Adam(1e-3): B1a once a step) on the
@@ -2223,6 +2229,17 @@ def b7_cases():
     return cases
 
 
+def b7_data_cases():
+    """float32 cases of other data than Gaussians, for design 3: x after a
+    ReLU (nonnegative, as ResNet's activations), and small integers, on
+    which every product and sum is exact in TF32, so design 3 must be
+    exact where design 1 is. Not on the main path (`per_step` 0)."""
+    return [dict(kernel=k, shape=s, per_step=0, data=d)
+            for d in ("relu", "ints")
+            for k, s in (("conv1x1_bn_stats", (100352, 256, 128)),
+                         ("conv3x3_bn_stats", (128, 14, 14, 256, 256)))]
+
+
 def b7_flops(kernel, shape):
     """2·M·K·N of one B7 call (K = 9·C for the 3x3)."""
     if kernel == "conv1x1_bn_stats":
@@ -2232,9 +2249,17 @@ def b7_flops(kernel, shape):
     return 2.0 * b * h * w * 9 * c * n
 
 
-def b7_bound(kernel, shape, dtype):
-    """(bound_ms, bound_by): 2·M·K·N flops over the dtype's peak against
-    x, w read once, y written once and the 2·N float32 sums over HBM."""
+def b7_rate(dtype, design="ffma"):
+    """The peak rate a B7 call's products are bound by: the dtype's (FMA
+    in float32, the tensor cores in bfloat16), or the 3xTF32 rate for
+    design 3."""
+    return PEAK_FLOPS_TF32X3 if design == "tf32x3" else PEAK_FLOPS[dtype]
+
+
+def b7_bound(kernel, shape, dtype, design="ffma"):
+    """(bound_ms, bound_by): 2·M·K·N flops at the design's peak
+    (`b7_rate`) against x, w read once, y written once and the 2·N
+    float32 sums over HBM."""
     es = torch.tensor([], dtype=dtype).element_size()
     if kernel == "conv1x1_bn_stats":
         m, k, n = shape
@@ -2242,11 +2267,22 @@ def b7_bound(kernel, shape, dtype):
     else:
         b, h, w, c, n = shape
         m, k, x_elems = b * h * w, 9 * c, b * h * w * c
-    ops_ms = b7_flops(kernel, shape) / PEAK_FLOPS[dtype] * 1e3
+    ops_ms = b7_flops(kernel, shape) / b7_rate(dtype, design) * 1e3
     bytes_ms = ((x_elems + k * n + m * n) * es + 8 * n) \
         / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms \
         else (bytes_ms, "bytes")
+
+
+B7_OUTPUTS = ("y", "sums", "sumsqs")
+
+
+def b7_f64_shares(got, ref64):
+    """{output: largest error against the float64 plain version, a share
+    of the largest |ref|} for y, Σy and Σy² (the guard of design 3)."""
+    return {n: ((a.double().reshape(r.shape) - r).abs().max()
+                / r.abs().max()).item()
+            for n, a, r in zip(B7_OUTPUTS, got, ref64)}
 
 
 def run_b7_case(c, dtype, flush, gen):
@@ -2259,26 +2295,37 @@ def run_b7_case(c, dtype, flush, gen):
     yardstick — `torch.matmul` (B7a) or `F.conv2d` (B7b) computing y
     alone, without the statistics, in the same dtype (bf16 on the tensor
     cores; float32 with TF32 off). The row names the design that ran
-    (`ops.conv_fused.b7_design`: "wgmma" for aligned bfloat16, "ffma"
-    otherwise), its TFLOP/s and its share of the bound."""
+    (`ops.conv_fused.b7_design`: "wgmma" for aligned bfloat16, "tf32x3"
+    for aligned float32, "ffma" otherwise), its TFLOP/s and its share of
+    the bound at the design's rate. A row on design 2 or 3 also times
+    design 1 on the same inputs (`ffma_ms`); on design 3 it holds the
+    guard, each of y, Σy and Σy² against the plain version in float64 at
+    most twice design 1's error (`guard_ratio`), and two launches
+    bit-equal."""
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.ops import conv_fused as cf
 
     dev = flush.device
     kernel, shape = c["kernel"], c["shape"]
+    data = c.get("data", "gauss")
+    if data != "gauss":
+        x, w = b7_data(kernel, shape, data, gen)
+        x, w = x.to(dev, dtype), w.to(dev, dtype)
     if kernel == "conv1x1_bn_stats":
         m, k, n = shape
-        x = torch.randn(m, k, generator=gen).to(dev, dtype)
-        w = (torch.randn(k, n, generator=gen) / k ** 0.5).to(dev, dtype)
+        if data == "gauss":
+            x = torch.randn(m, k, generator=gen).to(dev, dtype)
+            w = (torch.randn(k, n, generator=gen) / k ** 0.5).to(dev, dtype)
         run = lambda: cf.matmul_with_channel_stats(x, w)  # noqa: E731
         plain = lambda: cf.matmul_with_channel_stats_plain(x, w)  # noqa
         lib = lambda: torch.matmul(x, w)  # noqa: E731
     else:
         b, h, wd, cin, n = shape
-        x = torch.randn(b, h, wd, cin, generator=gen).to(dev, dtype)
-        w = (torch.randn(3, 3, cin, n, generator=gen)
-             / (9 * cin) ** 0.5).to(dev, dtype)
+        if data == "gauss":
+            x = torch.randn(b, h, wd, cin, generator=gen).to(dev, dtype)
+            w = (torch.randn(3, 3, cin, n, generator=gen)
+                 / (9 * cin) ** 0.5).to(dev, dtype)
         run = lambda: cf.conv3x3_with_channel_stats(x, w)  # noqa: E731
         plain = lambda: cf.conv3x3_with_channel_stats_plain(x, w)  # noqa
         xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
@@ -2294,7 +2341,7 @@ def run_b7_case(c, dtype, flush, gen):
     check(len(ran) == 1, f"{kernel}: launches by design {ran}")
     yf, yrf = y.float(), yr.float()
     err_y = (yf - yrf).abs().max().item()
-    tag = f"{kernel} {shape} {dtype}"
+    tag = f"{kernel} {shape} {dtype} {data}"
     if dtype == torch.float32:
         tol = 2e-5 * max(1.0, yrf.abs().max().item())
         check(err_y <= tol, f"{tag}: y err {err_y} past {tol}")
@@ -2310,7 +2357,7 @@ def run_b7_case(c, dtype, flush, gen):
           f"{tag}: sums of squares err {err_q}")
     del y, s, q, yr, sr, qr, yf, yrf
     row = {"phase": "kernels", "kernel": kernel, "shape": list(shape),
-           "dtype": str(dtype).replace("torch.", ""),
+           "dtype": str(dtype).replace("torch.", ""), "data": data,
            "launches_per_path_r_step": c["per_step"],
            "max_abs_err": max(err_y, err_s, err_q), "max_abs_err_y": err_y,
            "max_abs_err_sums": err_s, "max_abs_err_sumsq": err_q,
@@ -2319,78 +2366,141 @@ def run_b7_case(c, dtype, flush, gen):
            "library_ms": time_ms(lib, flush),
            "library": "torch.matmul (y only)" if kernel == "conv1x1_bn_stats"
            else "F.conv2d (y only)",
-           "main_path_shape": c["per_step"] > 0
-           and dtype == torch.bfloat16, "design": ran[0]}
-    row["bound_ms"], row["bound_by"] = b7_bound(kernel, shape, dtype)
+           "main_path_shape": c["per_step"] > 0, "design": ran[0]}
+    row["bound_ms"], row["bound_by"] = b7_bound(kernel, shape, dtype,
+                                                ran[0])
     row["tflops"] = b7_flops(kernel, shape) / row["ms"] / 1e9
     row["bound_share"] = row["bound_ms"] / row["ms"]
-    if ran[0] == "wgmma":
+    if ran[0] in ("wgmma", "tf32x3"):
         # design 1 on the same inputs, timed only: the redesign's gain
         row["ffma_ms"] = time_ms(
             lambda: cf._launch(kernel, x, w, shape, "ffma"), flush)
+        row["speedup_over_ffma"] = row["ffma_ms"] / row["ms"]
+    if ran[0] == "tf32x3":
+        row.update(b7_guard(kernel, shape, x, w, run, tag))
     emit(row)
     return row
 
 
+def b7_data(kernel, shape, data, gen):
+    """float32 inputs on the host: "relu", x = relu(N(0, 1)) and w scaled
+    by its fan in; "ints", both in -3..3 (exact in TF32)."""
+    *lead, cin, n = shape
+    kshape = (cin, n) if kernel == "conv1x1_bn_stats" else (3, 3, cin, n)
+    if data == "ints":
+        return (torch.randint(-3, 4, (*lead, cin), generator=gen).float(),
+                torch.randint(-3, 4, kshape, generator=gen).float())
+    fan = cin * (9 if kernel == "conv3x3_bn_stats" else 1)
+    return (torch.relu(torch.randn(*lead, cin, generator=gen)),
+            torch.randn(*kshape, generator=gen) / fan ** 0.5)
+
+
+def b7_guard(kernel, shape, x, w, run, tag):
+    """Design 3 against design 1 on the same float32 inputs, each against
+    the plain version in float64: the largest error of y, Σy and Σy² (a
+    share of the largest |ref|) must stay within twice design 1's (so be
+    exact where design 1 is: TF32-exact data); and two launches of
+    design 3 bit-equal (fixed-order sums, no atomics)."""
+    from deeplearning4j_tpu_torch.ops import conv_fused as cf
+
+    plain = cf.matmul_with_channel_stats_plain \
+        if kernel == "conv1x1_bn_stats" \
+        else cf.conv3x3_with_channel_stats_plain
+    ref64 = plain(x.double(), w.double())
+    first, again = run(), run()
+    d1 = cf._launch(kernel, x, w, shape, "ffma")
+    torch.cuda.synchronize()
+    mine = b7_f64_shares(first, ref64)
+    ffma = b7_f64_shares(d1, ref64)
+    ratio = {n: mine[n] / ffma[n] if ffma[n] else
+             (0.0 if mine[n] == 0 else float("inf")) for n in B7_OUTPUTS}
+    equal = [torch.equal(a, b) for a, b in zip(first, again)]
+    check(all(mine[n] <= 2.0 * ffma[n] for n in B7_OUTPUTS),
+          f"{tag}: design 3's guard {ratio} past 2 (design 3 {mine}, "
+          f"design 1 {ffma})")
+    check(all(equal), f"{tag}: two design 3 launches differ {equal}")
+    return {"f64_share": mine, "ffma_f64_share": ffma,
+            "guard_ratio": ratio, "bit_equal_repeat": equal,
+            "ffma_bound_ms": b7_bound(kernel, shape, x.dtype)[0]}
+
+
 def run_b7_repeat(gen):
-    """Design 2 launched twice on two `path_r` shapes, one of each
-    kernel: y and the statistics must be bit-equal (fixed-order sums, no
-    atomics)."""
+    """Design 2 (bfloat16) and design 3 (float32) each launched twice on
+    two `path_r` shapes, one of each kernel: y and the statistics must be
+    bit-equal (fixed-order sums, no atomics). The float32 cases draw
+    after the bfloat16 ones, which keep the inputs they always had."""
     from deeplearning4j_tpu_torch.ops import conv_fused as cf
 
     rows = []
-    for kernel, shape in (("conv1x1_bn_stats", (401408, 64, 256)),
-                          ("conv3x3_bn_stats", (128, 14, 14, 256, 256))):
-        *lead, cin, n = shape
-        x = torch.randn(*lead, cin, generator=gen).to("cuda", torch.bfloat16)
-        if kernel == "conv1x1_bn_stats":
-            w = torch.randn(cin, n, generator=gen).to("cuda", torch.bfloat16)
-            run = cf.matmul_with_channel_stats
-        else:
-            w = torch.randn(3, 3, cin, n, generator=gen).to("cuda",
-                                                            torch.bfloat16)
-            run = cf.conv3x3_with_channel_stats
-        before = cf.LAUNCHES_BY_DESIGN[(kernel, "wgmma")]
-        a, b = run(x, w), run(x, w)
-        torch.cuda.synchronize()
-        check(cf.LAUNCHES_BY_DESIGN[(kernel, "wgmma")] == before + 2,
-              f"{kernel} {shape}: design 2 did not take both launches")
-        equal = [torch.equal(u, v) for u, v in zip(a, b)]
-        check(all(equal), f"{kernel} {shape}: two launches differ "
-              f"(y, sums, sums of squares equal: {equal})")
-        rows.append({"phase": "b7_repeat", "kernel": kernel,
-                     "shape": list(shape), "design": "wgmma",
-                     "bit_equal": equal})
-        emit(rows[-1])
-        del x, w, a, b
+    for dtype, design in ((torch.bfloat16, "wgmma"),
+                          (torch.float32, "tf32x3")):
+        for kernel, shape in (("conv1x1_bn_stats", (401408, 64, 256)),
+                              ("conv3x3_bn_stats", (128, 14, 14, 256, 256))):
+            *lead, cin, n = shape
+            x = torch.randn(*lead, cin, generator=gen).to("cuda", dtype)
+            if kernel == "conv1x1_bn_stats":
+                w = torch.randn(cin, n, generator=gen).to("cuda", dtype)
+                run = cf.matmul_with_channel_stats
+            else:
+                w = torch.randn(3, 3, cin, n, generator=gen).to("cuda",
+                                                                dtype)
+                run = cf.conv3x3_with_channel_stats
+            before = cf.LAUNCHES_BY_DESIGN[(kernel, design)]
+            a, b = run(x, w), run(x, w)
+            torch.cuda.synchronize()
+            check(cf.LAUNCHES_BY_DESIGN[(kernel, design)] == before + 2,
+                  f"{kernel} {shape}: {design} did not take both launches")
+            equal = [torch.equal(u, v) for u, v in zip(a, b)]
+            check(all(equal), f"{kernel} {shape} {dtype}: two launches "
+                  f"differ (y, sums, sums of squares equal: {equal})")
+            rows.append({"phase": "b7_repeat", "kernel": kernel,
+                         "shape": list(shape), "design": design,
+                         "dtype": str(dtype).replace("torch.", ""),
+                         "bit_equal": equal})
+            emit(rows[-1])
+            del x, w, a, b
     return rows
 
 
-def b7_step_totals(rows, kernel):
-    """A summary row of one B7 kernel: its times a `path_r` step (bf16),
-    each shape's per-launch time times its launches a step, summed; the
-    bound by the larger summed side; design 1's bf16 time on the same
-    inputs (`ffma_ms`) and the same kernel's float32 time."""
-    mine = [r for r in rows if r["kernel"] == kernel]
+def b7_step_totals(rows, kernel, dtype):
+    """The times of one B7 kernel a `path_r` step in `dtype` ("bfloat16"
+    for `path_r`, "float32" for `path_r_f32`): each shape's per-launch
+    time times its launches a step, summed; the bound by the larger
+    summed side, at the design's rate; design 1's time on the same
+    inputs (`ffma_ms`); the library's; the largest error against the
+    plain version on the Gaussian cases; design 3's guard at its worst
+    on every case."""
+    mine = [r for r in rows if r["kernel"] == kernel
+            and r["dtype"] == dtype]
     main = [r for r in mine if r["main_path_shape"]]
+    gauss = [r for r in mine if r["data"] == "gauss"]
     tot = {key: sum(r.get(key, r["ms"]) * r["launches_per_path_r_step"]
                     for r in main)
            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                        "ffma_ms")}
-    tot["ms_float32"] = sum(r["ms"] * r["launches_per_path_r_step"]
-                            for r in mine if r["dtype"] == "float32")
     by_ops = sum(r["bound_ms"] * r["launches_per_path_r_step"]
                  for r in main if r["bound_by"] == "operations")
     flops = sum(b7_flops(kernel, tuple(r["shape"]))
                 * r["launches_per_path_r_step"] for r in main)
-    return {**tot, "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "bound_by": "operations" if by_ops >= tot["bound_ms"] / 2
-            else "bytes", "design": sorted({r["design"] for r in main}),
-            "tflops": flops / tot["ms"] / 1e9,
-            "bound_share": tot["bound_ms"] / tot["ms"],
-            "speedup_over_ffma": tot["ffma_ms"] / tot["ms"],
-            "per": f"path_r step: {sum(r['launches_per_path_r_step'] for r in main)} "
-                   f"launches over {len(main)} shapes, bfloat16"}
+    out = {**tot, "max_abs_err": max(r["max_abs_err"] for r in gauss),
+           "bound_by": "operations" if by_ops >= tot["bound_ms"] / 2
+           else "bytes", "design": sorted({r["design"] for r in main}),
+           "tflops": flops / tot["ms"] / 1e9,
+           "bound_share": tot["bound_ms"] / tot["ms"],
+           "speedup_over_ffma": tot["ffma_ms"] / tot["ms"],
+           "speedup_over_library": tot["library_ms"] / tot["ms"],
+           "per": f"path_r step: "
+                  f"{sum(r['launches_per_path_r_step'] for r in main)} "
+                  f"launches over {len(main)} shapes, {dtype}"}
+    guarded = [r for r in mine if "guard_ratio" in r]
+    if guarded:
+        out["guard_ratio_max"] = {n: max(r["guard_ratio"][n]
+                                         for r in guarded)
+                                  for n in B7_OUTPUTS}
+        out["ffma_bound_ms"] = sum(r["ffma_bound_ms"]
+                                   * r["launches_per_path_r_step"]
+                                   for r in main)
+    return out
 
 
 # ------------------------------------------------------ serving phases
@@ -4470,22 +4580,46 @@ def launches_by_design(mod):
     return {f"{k}/{d}": n for (k, d), n in mod.LAUNCHES_BY_DESIGN.items()}
 
 
-def path_r(batches, epochs=3, fused=True):
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for `torch.matmul` and cuDNN inside, restored after: no
+    float32 product on a float32 path is then single-pass TF32."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+# the B7 design each dtype of path_r takes at every shape
+PATH_R_DESIGN = {"bfloat16": "wgmma", "float32": "tf32x3"}
+
+
+def path_r(batches, epochs=3, fused=True, dtype="bfloat16"):
     """`bench.py`'s ResNet-50 at full width (224x224, 1000 classes,
-    bfloat16, batch 128; Nesterovs(0.01, 0.9): `resnet_conf`), 4 fixed
-    batches x 3 epochs
-    = 12 steps through `net.fit` (`timed_fit`): with `fused`, B7a 36 and
-    B7b 16 times a step and B1b once, then one `output()`, which folds
-    the running statistics and launches no B7. Unfused (information
-    only): cuDNN convolutions and plain batch norms, no B7."""
+    batch 128; Nesterovs(0.01, 0.9): `resnet_conf`) in `dtype`: bfloat16
+    (`path_r`, the bench's) or float32 (`path_r_f32`, the zoo's own, TF32
+    off: `tf32_off`), 4 fixed batches x 3 epochs = 12 steps through
+    `net.fit` (`timed_fit`): with `fused`, B7a 36 and B7b 16 times a
+    step, all on the dtype's design (`PATH_R_DESIGN`: "wgmma" or
+    "tf32x3"), and B1b once, then one `output()`, which folds the running
+    statistics and launches no B7. Unfused (information only): cuDNN
+    convolutions and plain batch norms, no B7."""
     from deeplearning4j_tpu_torch.models import ComputationGraph
     from deeplearning4j_tpu_torch.ops import conv_fused as cf
 
-    name = "path_r" if fused else "path_r_unfused"
+    name = ("path_r" if dtype == "bfloat16" else "path_r_f32") \
+        + ("" if fused else "_unfused")
     batch = batches[0].features.shape[0]
-    net = ComputationGraph(resnet_conf(fused=fused), device="cuda").init()
-    fit = timed_fit(name, net, batches, epochs, batch, unit="images",
-                    loss_must_fall=fused)
+    with tf32_off():
+        net = ComputationGraph(resnet_conf(fused=fused, dtype=dtype),
+                               device="cuda").init()
+        fit = timed_fit(name, net, batches, epochs, batch, unit="images",
+                        loss_must_fall=fused)
     steps, launches = fit["steps"], fit["launches"]
     per_step = {"conv1x1_bn_stats": 36, "conv3x3_bn_stats": 16} if fused \
         else {"conv1x1_bn_stats": 0, "conv3x3_bn_stats": 0}
@@ -4496,33 +4630,37 @@ def path_r(batches, epochs=3, fused=True):
           f"{name}: nesterov_update launched {launches['nesterov_update']} "
           f"times, want one a step x {steps}")
     by_design = launches_by_design(cf)
+    want = PATH_R_DESIGN[dtype]
     for k, n in per_step.items():
-        check(by_design[f"{k}/wgmma"] == n * steps
-              and by_design[f"{k}/ffma"] == 0,
-              f"{name}: bfloat16 {k} not all on design 2: {by_design}")
+        check(all(by_design[f"{k}/{d}"] == (n * steps if d == want else 0)
+                  for d in cf.DESIGNS),
+              f"{name}: {dtype} {k} not all on {want}: {by_design}")
     row = {"phase": name, "model": "ResNet50", "fused": fused,
            "input": [224, 224, 3], "classes": 1000, "batch": batch,
-           "dtype": "bfloat16", "updater": str(net.conf.updater), **fit,
+           "dtype": dtype, "updater": str(net.conf.updater), **fit,
            "launches_by_design": by_design}
     if fused:
         t0 = time.perf_counter()
-        probs = net.output(batches[0].features)
+        with tf32_off():
+            probs = net.output(batches[0].features)
         torch.cuda.synchronize()
         row["output_s"] = time.perf_counter() - t0
         after, plain = read_all_counts()
         row["output_launches"] = {k: after[k] - launches[k]
                                   for k in B7_KERNELS}
         check(sum(row["output_launches"].values()) == 0,
-              f"path_r: output() launched B7: {row['output_launches']}")
+              f"{name}: output() launched B7: {row['output_launches']}")
         check(sum(plain.values()) == 0,
-              f"path_r: plain versions ran on CUDA tensors: {plain}")
+              f"{name}: plain versions ran on CUDA tensors: {plain}")
         check(tuple(probs.shape) == (batch, 1000),
-              f"path_r: output {tuple(probs.shape)}")
-        check(bool(torch.isfinite(probs).all()), "path_r: output not finite")
+              f"{name}: output {tuple(probs.shape)}")
+        check(bool(torch.isfinite(probs).all()), f"{name}: output not finite")
         row["output_row_sum_max_err"] = float(
             (probs.float().sum(-1) - 1).abs().max())
-        check(row["output_row_sum_max_err"] < 2e-2,
-              "path_r: output rows do not sum to 1 (bf16)")
+        # a softmax's rows: one bf16 step in bfloat16, float32 rounding
+        tol = 2e-2 if dtype == "bfloat16" else 1e-4
+        check(row["output_row_sum_max_err"] < tol,
+              f"{name}: output rows do not sum to 1 ({dtype})")
     emit(row)
     del net
     torch.cuda.empty_cache()
@@ -4571,9 +4709,9 @@ def resnet_parity(rng, tol_first=1e-4, tol_loss=2e-2, tol_param=5e-3,
                   and launches["conv3x3_bn_stats"] == 32,
                   f"resnet_parity: B7 launches {launches}")
             by_design = launches_by_design(cf)
-            check(by_design["conv1x1_bn_stats/ffma"] == 72
-                  and by_design["conv3x3_bn_stats/ffma"] == 32,
-                  f"resnet_parity: float32 B7 not on design 1: {by_design}")
+            check(by_design["conv1x1_bn_stats/tf32x3"] == 72
+                  and by_design["conv3x3_bn_stats/tf32x3"] == 32,
+                  f"resnet_parity: float32 B7 not on design 3: {by_design}")
             check(sum(plain.values()) == 0,
                   f"resnet_parity: plain versions on CUDA: {plain}")
         nets[d], losses[d] = net, [sc for _, sc in scores.scores]
@@ -6573,6 +6711,7 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0, "built": built})
 
+    from deeplearning4j_tpu_torch.ops import conv_fused as cf
     from deeplearning4j_tpu_torch.ops import lstm as lk
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
@@ -6595,6 +6734,10 @@ def main() -> int:
             rows.append(run_b7_case(c, dt, flush, gen))
             torch.cuda.empty_cache()
     run_b7_repeat(gen)
+    data_gen = torch.Generator().manual_seed(25)
+    for c in b7_data_cases():
+        rows.append(run_b7_case(c, torch.float32, flush, data_gen))
+        torch.cuda.empty_cache()
     run_flash_repeat(gen)
     cross_gen = torch.Generator().manual_seed(16)
     for c in cross_flash_cases():
@@ -6645,6 +6788,8 @@ def main() -> int:
     images = image_batches(rng, 4, 128, 224, 1000)
     r = path_r(images)
     path_r(images, fused=False)
+    r32 = path_r(images, dtype="float32")
+    path_r(images, fused=False, dtype="float32")
     del images
     resnet_parity(rng)
     m = path_m()
@@ -6874,14 +7019,21 @@ def main() -> int:
             summary[-1].update({f"{k}_at_T1": t1[k] for k in (
                 "ms", "design", "bound_ms", "bound_by", "library_ms")})
     for name in B7_KERNELS:
-        # many shapes a step: the times are a path_r step's, summed
+        # many shapes a step: the times are a path_r_f32 step's, summed
+        # (this slice's path: design 3), with path_r's bfloat16 beside
+        by32, by16 = (run["launches_by_design"] for run in (r32, r))
         summary.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": r["launches"][name],
-                        **b7_step_totals(rows, name),
+                        "launches": r32["launches"][name],
+                        **b7_step_totals(rows, name, "float32"),
                         "launches_by_design": {
-                            d: r["launches_by_design"][f"{name}/{d}"]
-                            for d in ("ffma", "wgmma")}})
+                            d: by32[f"{name}/{d}"] for d in cf.DESIGNS},
+                        "bfloat16": {
+                            **b7_step_totals(rows, name, "bfloat16"),
+                            "launches_path_r": r["launches"][name],
+                            "launches_by_design": {
+                                d: by16[f"{name}/{d}"]
+                                for d in cf.DESIGNS}}})
     for entry in summary:
         # a kernel with one design: all its launches are design 1's
         entry.setdefault("launches_by_design",

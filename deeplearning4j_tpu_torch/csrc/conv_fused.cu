@@ -1,7 +1,7 @@
 // Fused convolution + batch-norm statistics for Hopper (sm_90a), float32
-// and bfloat16 inputs, float32 accumulation. Two designs of each kernel,
+// and bfloat16 inputs, float32 accumulation. Three designs of each kernel,
 // chosen per call by `b7_design` in ops/conv_fused.py (by dtype and
-// alignment, before the launch; neither falls back to the other):
+// alignment, before the launch; none falls back to another):
 //
 //   B7a replaces deeplearning4j_tpu/ops/conv_fused.py `_mm_stats_kernel`:
 //     y = x2d @ w ([M, K] @ [K, N], the 1x1 convolution over NHWC rows).
@@ -10,7 +10,8 @@
 //     M = B·H·W output pixels, K = 9·C (tap dh, tap dw, input channel: the
 //     row order of the HWIO kernel read as [9·C, N]), N = C_out.
 //   stats_reduce_kernel — the second launch of both: the per-tile column
-//     partials summed over the M tiles in a fixed order.
+//     partials summed over the M tiles in a fixed order (design 3 in
+//     double, rounded once).
 //
 // Both write y rounded once to the working dtype and, while the output
 // tile is still in registers, its column partials of Σy and Σy² taken
@@ -46,9 +47,64 @@
 // on the 7x7 and 14x14 maps. The price: each tap re-reads x (9x, from L2),
 // which bounds the 56x56 C 64 shape, where BN is 64, by L2 bandwidth.
 //
-// Design 1, `stats_gemm_kernel` — float32 (exact FMA, as the CPU tests and
-// the card-against-CPU checks need) and the bfloat16 shapes design 2 does
-// not take. Each block owns a 128x64 tile of y and walks K itself, 16
+// Design 3, `tf3::tf32x3_stats_kernel` — float32 whose rows are 16-byte
+// aligned (K or C and N multiples of 4, aligned data): every shape of
+// ResNet-50's training step in float32. Design 1 runs on the FMA units (67
+// TFLOP/s) and reached 41-47% of that bound, so no FMA kernel would come
+// near cuBLAS's or cuDNN's float32 times; the tensor cores take float32
+// only as TF32, so each operand x is split into big = tf32(x) and small =
+// tf32(x - big) (rounded to nearest, ties away, as `cvt.rna`) and each
+// product taken as small·big + big·small + big·big: three TF32 products
+// (bound 495 / 3 TFLOP/s), about 22 bits of each operand kept, never a
+// float32 operand rounded to one TF32 term (C17, as the float32 flash
+// kernels). Design 2's skeleton: a persistent block a SM, one producer
+// thread keeping TMA loads in flight through a ring across tiles, two
+// consumer warpgroups on 64 rows each of a 128 x BN tile (BN 64 or 128).
+// What float32 changes:
+// - tf32 `wgmma` (m64nBNk8) reads B from shared memory K-major only (no
+//   transpose bit), so a split pass at the start of the call rewrites w
+//   ([K, N], or [9, C, N]) once into two K-major planes [2, 9, N, C]: big
+//   and small. w is at most 9·512·512 floats: microseconds.
+// - x is never rewritten: the consumers load their A fragments of each
+//   32-deep slice (128 bytes a row, 128-byte swizzle) from shared memory
+//   into registers, split them there and multiply in `wgmma`'s
+//   register-A form against the two planes' boxes. A split pass over x
+//   would triple x's traffic on the shapes bound by bytes.
+// - Sums: the tensor cores add a product's terms and its accumulator
+//   aligned and truncated toward zero, so every `wgmma` that chains onto
+//   an accumulator leaves it short by up to a unit in the last place of
+//   its running value, always toward zero: a long chain drifts (as
+//   measured on the float32 flash kernels), and Σy², which sums y² over
+//   up to 401,408 rows, adds that drift up coherently. So a group of
+//   kFlush k8 steps takes its products into a fresh accumulator, first
+//   every small·big and big·small product (their truncations fall at the
+//   small terms' magnitude, about 2^-11 of y's), then the big·big ones,
+//   so that only the group's kFlush big·big steps truncate at y's own
+//   magnitude; the group is then added to the float32 sum on the FMA
+//   units, rounded to nearest. Nothing is added back for the truncation:
+//   where every product and partial sum is exact in the tensor cores
+//   (TF32-exact data such as small integers or one-hot rows) y is exact,
+//   as design 1's; elsewhere |y| stays a fraction of a unit short on
+//   average, and the guard (y, Σy and Σy² against float64 within twice
+//   design 1's error; C17 in ROADMAP.md) is what bounds it, and chose
+//   kFlush 1: with 2 or 4 the guard read 2.2-2.5 on post-ReLU x (PERF.md,
+//   B7 float32). Two accumulators of 64 x BN: so BN <= 128, and N
+//   256-2048 runs as column tiles. The tiles' partial statistics are
+//   summed in float64.
+// - B7b's taps: a channel slice's x tile with its halo, rows m0 - W - 1
+//   .. m0 + 128 + W, is staged once in a slot of its own and read at each
+//   tap's row offset, as the TPU kernel's `xpad` is; rows whose tap pixel
+//   is off the map are zeroed in registers (no shared-memory write, no
+//   fence). The tile is one TMA box of at most 256 rows, so W <= 63
+//   (every ResNet-50 map); wider maps stay on design 1 (`b7_design`).
+// - y is written from the accumulator as float2 pairs (whole 32-byte
+//   sectors), not staged: float32 y would take the ring's room.
+// The statistics are design 2's, from the float32 sum.
+//
+// Design 1, `stats_gemm_kernel` — the float32 and bfloat16 shapes designs
+// 2 and 3 do not take (ragged K, C or N, unaligned data, float32 maps
+// wider than 63), in exact
+// float32 FMA. Each block owns a 128x64 tile of y and walks K itself, 16
 // deep: the next slice's loads are in flight in registers while the
 // current one, staged in shared memory as float32, is multiplied, 8x4
 // outputs a thread (the 128x64 SGEMM tile of `lstm_drw_kernel` in
@@ -66,6 +122,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 #include "hopper_gemm.cuh"
@@ -82,6 +139,37 @@ constexpr int kRowsA = kTileM * kDepth / kThreads;   // 8 A loads a thread
 constexpr int kRowsB = kTileN * kDepth / kThreads;   // 4 B loads a thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kFarRow = 0x7fff;          // an out-of-map row for B7b's loads
+constexpr int kMaxSmem = 232448;         // a block's shared memory on sm_90
+
+// the card's SM count, which sizes the persistent grids of designs 2, 3
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+constexpr int kMaxDevices = 64;
+
+// Lets `kernel` take a block's whole shared memory (kMaxSmem, so every
+// size) on the current device, set once per device and instantiation
+// (`set`, the caller's own flags), not on every launch: a launch that a
+// CUDA graph captures sets nothing. A failure is returned and not
+// remembered, so the next launch tries again. Returns 0 or a cudaError_t.
+template <typename Kernel>
+int allow_max_smem(Kernel kernel, std::atomic<bool> (&set)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices && set[dev].load(std::memory_order_acquire))
+    return 0;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmem);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices) set[dev].store(true, std::memory_order_release);
+  return 0;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -245,27 +333,30 @@ stats_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // sums[which, n] = Σ over the M tiles of part[which, tile, n]: 16 strided
-// running sums a column, then those 16 in order
+// running sums a column, then those 16 in order, in Acc (float for designs
+// 1 and 2; design 3 sums in double and rounds once, so its statistics keep
+// the kernel's own error and not the reduction's: PERF.md, B7 float32)
 constexpr int kRedCols = 32;
 constexpr int kRedRows = 16;
 
+template <typename Acc>
 __global__ void stats_reduce_kernel(const float* __restrict__ part,
                                     float* __restrict__ sums, int tiles,
                                     int N) {
-  __shared__ float red[kRedRows][kRedCols];
+  __shared__ Acc red[kRedRows][kRedCols];
   const int n = blockIdx.x * kRedCols + threadIdx.x;
   const int which = blockIdx.y;
-  float t = 0.f;
+  Acc t = 0;
   if (n < N)
     for (int i = threadIdx.y; i < tiles; i += kRedRows)
       t += part[((int64_t)which * tiles + i) * N + n];
   red[threadIdx.y][threadIdx.x] = t;
   __syncthreads();
   if (threadIdx.y == 0 && n < N) {
-    float tot = 0.f;
+    Acc tot = 0;
 #pragma unroll
     for (int r = 0; r < kRedRows; ++r) tot += red[r][threadIdx.x];
-    sums[which * N + n] = tot;
+    sums[which * N + n] = static_cast<float>(tot);
   }
 }
 
@@ -279,8 +370,8 @@ int launch(const void* x, const void* w, void* y, void* part, void* sums,
       static_cast<float*>(part), M, K, N, H, W, C);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  stats_reduce_kernel<<<dim3((N + kRedCols - 1) / kRedCols, 2),
-                        dim3(kRedCols, kRedRows), 0, st>>>(
+  stats_reduce_kernel<float><<<dim3((N + kRedCols - 1) / kRedCols, 2),
+                               dim3(kRedCols, kRedRows), 0, st>>>(
       static_cast<const float*>(part), static_cast<float*>(sums), tiles, N);
   return (int)cudaGetLastError();
 }
@@ -556,15 +647,13 @@ int launch(const void* x, const void* w, void* y, void* part, void* sums,
   rc = encode_tensor_map(&ym, y, 2, yd, ysd, yb);
   if (rc) return rc;
 
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
   const int smem = smem_bytes(BN, stages);
-  e = cudaFuncSetAttribute(tc_stats_kernel<BN, kConv>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
+  static std::atomic<bool> limit_set[kMaxDevices];
+  rc = allow_max_smem(tc_stats_kernel<BN, kConv>, limit_set);
+  if (rc) return rc;
   const int cslices = (kdim + kK - 1) / kK;
   const int kslices = kConv ? 9 * cslices : cslices;
   const int tiles_m = (M + kM - 1) / kM;
@@ -575,8 +664,8 @@ int launch(const void* x, const void* w, void* y, void* part, void* sums,
       H, W);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  stats_reduce_kernel<<<dim3((N + kRedCols - 1) / kRedCols, 2),
-                        dim3(kRedCols, kRedRows), 0, st>>>(
+  stats_reduce_kernel<float><<<dim3((N + kRedCols - 1) / kRedCols, 2),
+                               dim3(kRedCols, kRedRows), 0, st>>>(
       static_cast<const float*>(part), static_cast<float*>(sums), tiles_m,
       N);
   return (int)cudaGetLastError();
@@ -592,7 +681,7 @@ int dispatch(const void* x, const void* w, void* y, void* part, void* sums,
   // the ring must hold two slices: a consumer gives a stage back one
   // slice after it was filled
   if (!aligned || M < 1 || kdim < 8 || N < 8 || kdim % 8 || N % 8 ||
-      stages < 2 || smem_bytes(bn, stages) > 232448 ||
+      stages < 2 || smem_bytes(bn, stages) > kMaxSmem ||
       (M + kM - 1) / kM > 65535)
     return (int)cudaErrorInvalidValue;
   if (bn == 64)
@@ -608,6 +697,403 @@ int dispatch(const void* x, const void* w, void* y, void* part, void* sums,
 }
 
 }  // namespace tc
+
+// ------------------------------------------------------------------------
+// Design 3: float32 on the tensor cores as 3xTF32 (wgmma fed by TMA)
+// ------------------------------------------------------------------------
+namespace tf3 {
+
+using namespace hopper;
+
+constexpr int kM = 128;               // rows of a y tile (2 warpgroups x 64)
+constexpr int kK = 32;                // a K slice: 32 float32 = 128 bytes
+constexpr int kThreads = 384;         // warpgroups 0, 1 compute; 2 loads
+constexpr int kABytes = kM * kK * 4;  // 16 KB of x a stage
+constexpr int kHaloSlots = 2;         // x tiles with their halo in flight
+constexpr int kMaxBoxRows = 256;      // a TMA box's largest side
+// k8 steps whose products share a fresh accumulator before it is added to
+// the float32 sum: every k8 step, as the guard decides (tools/
+// torch_b7_tf32.py builds 2 and 4, once a slice: faster, but past the
+// guard on post-ReLU data)
+constexpr int kFlush = 1;
+static_assert(kK / 8 % kFlush == 0, "a flush group divides a slice");
+
+// one plane's box of w: bn rows of a 32-deep K slice
+__host__ __device__ constexpr int b_bytes(int bn) { return bn * kK * 4; }
+// a ring stage: the x slice (B7a; B7b reads x from its halo tiles) and
+// both planes
+__host__ __device__ constexpr int stage_bytes(int bn, bool conv) {
+  return (conv ? 0 : kABytes) + 2 * b_bytes(bn);
+}
+// B7b's x tile: an M tile's rows with every tap's neighbours, output rows
+// m0 - W - 1 .. m0 + 128 + W, in a slot of whole swizzle atoms
+__host__ __device__ constexpr int halo_rows(int w) { return kM + 2 * w + 2; }
+__host__ __device__ constexpr int halo_bytes(int w) {
+  return (halo_rows(w) * kK * 4 + 1023) / 1024 * 1024;
+}
+// shared memory of a block: alignment slack, the ring, the halo slots
+// (halo_w < 0: none), the column partials [2][8 warps][bn], the barriers
+__host__ __device__ constexpr int smem_bytes(int bn, int stages,
+                                             int halo_w) {
+  return 1024 + stages * stage_bytes(bn, halo_w >= 0) +
+         (halo_w >= 0 ? kHaloSlots * halo_bytes(halo_w) : 0) +
+         2 * 8 * bn * 4 + 2 * (stages + kHaloSlots) * 8;
+}
+
+// x rounded to tf32 (10 stored mantissa bits), to nearest, ties away from
+// zero, as `cvt.rna.tf32.f32` rounds a finite x (two integer
+// instructions; ops/tf32.py `tf32_rna` is the same on the CPU)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// The split pass: w [taps, R, N] (R = K or C) into planes [2, taps, N, R],
+// big = tf32(w) then small = tf32(w - big), each transposed so that R runs
+// fastest (tf32 `wgmma` reads B K-major only). 32 x 32 tiles through
+// shared memory, so both sides are read and written in whole rows.
+__global__ void split_w_kernel(const float* __restrict__ w,
+                               float* __restrict__ planes, int taps, int R,
+                               int N) {
+  __shared__ float tile[32][33];
+  const int n0 = blockIdx.x * 32, r0 = blockIdx.y * 32, tap = blockIdx.z;
+  const float* src = w + (int64_t)tap * R * N;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int r = r0 + i, n = n0 + threadIdx.x;
+    tile[i][threadIdx.x] = (r < R && n < N) ? src[(int64_t)r * N + n] : 0.f;
+  }
+  __syncthreads();
+  const int64_t plane = (int64_t)taps * N * R;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int n = n0 + i, r = r0 + threadIdx.x;
+    if (n < N && r < R) {
+      uint32_t b, s;
+      split(tile[threadIdx.x][i], b, s);
+      const int64_t o = ((int64_t)tap * N + n) * R + r;
+      planes[o] = __uint_as_float(b);
+      planes[plane + o] = __uint_as_float(s);
+    }
+  }
+}
+
+// x: [M, K] rows (kConv false) or the NHWC input as [M, C] rows (kConv
+// true, M = B·H·W, K = 9·C), float32, through a tensor map of 32-float
+// boxes (128 x 32; kConv: halo_rows(W) x 32); wmap: the planes [2, taps,
+// N, R] as a 3-D map {R, N, 2 taps} of bn x 32 boxes; y [M, N] float32,
+// part [2, tiles_m, N]. A persistent block walks the tiles blockIdx.x, +
+// gridDim.x, ... (N fastest); its producer thread runs ahead through the
+// ring across tiles. The K slices are 32 deep; kConv takes them in
+// (channel slice, tap) order, a channel slice's nine taps read from one x
+// tile with its halo.
+template <int BN, bool kConv>
+__global__ void __launch_bounds__(kThreads, 1)
+tf32x3_stats_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    float* __restrict__ y, float* __restrict__ part, int M,
+                    int N, int cslices, int stages, int H, int W) {
+  constexpr int kStage = stage_bytes(BN, kConv);
+  constexpr int kTaps = kConv ? 9 : 1;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* hring = ring + stages * kStage;
+  const int hbytes = kConv ? halo_bytes(W) : 0;
+  float* red = reinterpret_cast<float*>(hring + kHaloSlots * hbytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * 8 * BN);
+  uint64_t* empty = full + stages;
+  uint64_t* hfull = empty + stages;
+  uint64_t* hempty = hfull + kHaloSlots;
+  const int kslices = kTaps * cslices;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles_m = (M + kM - 1) / kM;
+  const int tiles = tiles_m * tiles_n;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    // a stage goes back when each of the 8 consumer warps is done with it
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    for (int s = 0; s < kHaloSlots; ++s) {
+      mbar_init(&hfull[s], 1);
+      mbar_init(&hempty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    if constexpr (BN == 128) reg_dealloc<40>();
+    if (t == 0) {
+      int it = 0, ih = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * kM, n0 = (tile % tiles_n) * BN;
+        for (int kt = 0; kt < kslices; ++kt, ++it) {
+          const int tap = kConv ? kt % 9 : 0;
+          const int c0 = (kConv ? kt / 9 : kt) * kK;
+          if constexpr (kConv) {
+            if (tap == 0) {
+              const int sh = ih % kHaloSlots, round = ih / kHaloSlots;
+              if (round > 0) mbar_wait(&hempty[sh], (round - 1) & 1);
+              mbar_expect_tx(&hfull[sh], halo_rows(W) * kK * 4);
+              tma_load_2d(hring + sh * hbytes, &xmap, &hfull[sh], c0,
+                          m0 - W - 1);
+              ++ih;
+            }
+          }
+          const int s = it % stages, round = it / stages;
+          if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+          uint8_t* b = ring + s * kStage;
+          mbar_expect_tx(&full[s], kStage);
+          if constexpr (!kConv) {
+            tma_load_2d(b, &xmap, &full[s], c0, m0);
+            b += kABytes;
+          }
+          tma_load_3d(b, &wmap, &full[s], c0, n0, tap);
+          tma_load_3d(b + b_bytes(BN), &wmap, &full[s], c0, n0,
+                      kTaps + tap);
+        }
+      }
+    }
+    return;
+  }
+
+  // ----------------------------------------------------------- consumers
+  if constexpr (BN == 128) reg_alloc<232>();
+  const int warp = t / 32, lane = t % 32, g = lane / 4, q = lane % 4;
+  // this thread's rows of a tile: r0 and r0 + 8 (A fragment and
+  // accumulator alike)
+  const int r0 = wg * 64 + warp * 16 + g;
+  float acc[BN / 2], sum[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sum[i] = 0.f;
+  int it = 0, ih = 0;
+  const uint8_t* hx = nullptr;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int tm = tile / tiles_n, m0 = tm * kM, n0 = (tile % tiles_n) * BN;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    // B7b: the output pixels of the two rows; a row past M lies off the
+    // map for every tap
+    int ph[2] = {-4, -4}, pw[2] = {0, 0};
+    if constexpr (kConv) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + r0 + 8 * e;
+        if (m < M) {
+          ph[e] = (m / W) % H;
+          pw[e] = m % W;
+        }
+      }
+    }
+    for (int kt = 0; kt < kslices; ++kt, ++it) {
+      const int tap = kConv ? kt % 9 : 0;
+      if constexpr (kConv) {
+        if (tap == 0) {
+          mbar_wait(&hfull[ih % kHaloSlots], (ih / kHaloSlots) & 1);
+          hx = hring + (ih % kHaloSlots) * hbytes;
+        }
+      }
+      const int s = it % stages;
+      mbar_wait(&full[s], (it / stages) & 1);
+      const uint8_t* st = ring + s * kStage;
+      // A: the x slice of the stage, or the halo tile at the tap's offset
+      const uint8_t* a = kConv ? hx : st;
+      const int arow = kConv ? r0 + (tap / 3) * W + tap % 3 : r0;
+      const uint8_t* bbig = kConv ? st : st + kABytes;
+      const uint8_t* bsmall = bbig + b_bytes(BN);
+      bool ok[2] = {true, true};
+      if constexpr (kConv) {
+        const int dh = tap / 3 - 1, dw = tap % 3 - 1;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          ok[e] = (unsigned)(ph[e] + dh) < (unsigned)H &&
+                  (unsigned)(pw[e] + dw) < (unsigned)W;
+      }
+      // the slice's A fragments, split: every load of the slice comes
+      // before its first product, so a warp whose products are done has
+      // read the stage
+      uint32_t ab[4][4], as[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = arow + 8 * (i & 1), col = 8 * kk + q + 4 * (i >> 1);
+          const float v =
+              ok[i & 1] ? *reinterpret_cast<const float*>(
+                              a + sw128_offset(row, col >> 2) + (col & 3) * 4)
+                        : 0.f;
+          split(v, ab[kk][i], as[kk][i]);
+        }
+      // a group's products into `sum` from zero: its small·big and
+      // big·small ones, then its big·big ones, which alone truncate at
+      // y's magnitude; then `sum` into the float32 sum
+#pragma unroll
+      for (int k0 = 0; k0 < 4; k0 += kFlush) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = k0; kk < k0 + kFlush; ++kk) {
+          WgmmaTf32RS<BN>::run(sum, as[kk], sw128_desc(bbig + kk * 32, 16,
+                                                       1024),
+                               kk == k0 ? 0 : 1);
+          WgmmaTf32RS<BN>::run(
+              sum, ab[kk], sw128_desc(bsmall + kk * 32, 16, 1024), 1);
+        }
+#pragma unroll
+        for (int kk = k0; kk < k0 + kFlush; ++kk)
+          WgmmaTf32RS<BN>::run(sum, ab[kk],
+                               sw128_desc(bbig + kk * 32, 16, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sum);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          fence_regs(ab[j]);
+          fence_regs(as[j]);
+        }
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += sum[i];
+      }
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if constexpr (kConv) {
+        if (tap == 8) {
+          if (lane == 0) mbar_arrive(&hempty[ih % kHaloSlots]);
+          ++ih;
+        }
+      }
+    }
+
+    // epilogue: y, each thread's float2 column pairs of its two rows
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * q;
+      if (col >= N) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = m0 + r0 + 8 * e;
+        if (row < M)
+          *reinterpret_cast<float2*>(y + (int64_t)row * N + col) =
+              make_float2(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
+      }
+    }
+    // every consumer is done reading the last tile's partials
+    bar_sync(1, 256);
+    // Σy and Σy² of each column, as design 2 sums them
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float a0 = acc[4 * j], a1 = acc[4 * j + 1];
+      const float a2 = acc[4 * j + 2], a3 = acc[4 * j + 3];
+      acc[4 * j] = a0 + a2;
+      acc[4 * j + 1] = a1 + a3;
+      acc[4 * j + 2] = fmaf(a0, a0, a2 * a2);
+      acc[4 * j + 3] = fmaf(a1, a1, a3 * a3);
+    }
+    constexpr int kV = BN / 2;
+    tc::trade_half<kV / 2, 16>(acc, lane);
+    tc::trade_half<kV / 4, 8>(acc, lane);
+    tc::trade_half<kV / 8, 4>(acc, lane);
+    const int base = ((lane >> 4) & 1) * (kV / 2) +
+                     ((lane >> 3) & 1) * (kV / 4) +
+                     ((lane >> 2) & 1) * (kV / 8);
+    const int row = wg * 4 + warp;
+#pragma unroll
+    for (int i = 0; i < kV / 8; ++i) {
+      const int idx = base + i, e = idx % 4;
+      const int c = 8 * (idx / 4) + 2 * (lane % 4) + (e & 1);
+      red[((e >> 1) * 8 + row) * BN + c] = acc[i];
+    }
+    bar_sync(1, 256);
+    for (int i = threadIdx.x; i < 2 * BN; i += 256) {
+      const int which = i / BN, c = i % BN;
+      float tot = 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) tot += red[(which * 8 + u) * BN + c];
+      if (n0 + c < N)
+        part[((int64_t)which * tiles_m + tm) * N + n0 + c] = tot;
+    }
+  }
+}
+
+// kdim: K (kConv false) or C; returns 0 or a cudaError_t
+template <int BN, bool kConv>
+int launch(const float* x, const float* w, float* planes, float* y,
+           float* part, float* sums, int M, int kdim, int N, int H, int W,
+           int stages, cudaStream_t st) {
+  constexpr int kTaps = kConv ? 9 : 1;
+  split_w_kernel<<<dim3((N + 31) / 32, (kdim + 31) / 32, kTaps),
+                   dim3(32, 8), 0, st>>>(w, planes, kTaps, kdim, N);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap xm, wm;
+  const uint64_t xd[2] = {(uint64_t)kdim, (uint64_t)M};
+  const uint64_t xs[1] = {(uint64_t)kdim * 4};
+  const uint32_t xb[2] = {kK, (uint32_t)(kConv ? halo_rows(W) : kM)};
+  int rc = encode_tensor_map(&xm, x, 2, xd, xs, xb,
+                             CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (rc) return rc;
+  const uint64_t wd[3] = {(uint64_t)kdim, (uint64_t)N, 2 * kTaps};
+  const uint64_t ws[2] = {(uint64_t)kdim * 4, (uint64_t)N * kdim * 4};
+  const uint32_t wb[3] = {kK, BN, 1};
+  rc = encode_tensor_map(&wm, planes, 3, wd, ws, wb,
+                         CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (rc) return rc;
+  int sms = 0;
+  e = sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  static std::atomic<bool> limit_set[kMaxDevices];
+  rc = allow_max_smem(tf32x3_stats_kernel<BN, kConv>, limit_set);
+  if (rc) return rc;
+  const int smem = smem_bytes(BN, stages, kConv ? W : -1);
+  const int cslices = (kdim + kK - 1) / kK;
+  const int tiles_m = (M + kM - 1) / kM;
+  const int tiles = tiles_m * ((N + BN - 1) / BN);
+  tf32x3_stats_kernel<BN, kConv>
+      <<<tiles < sms ? tiles : sms, kThreads, smem, st>>>(
+          xm, wm, y, part, M, N, cslices, stages, H, W);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  stats_reduce_kernel<double><<<dim3((N + kRedCols - 1) / kRedCols, 2),
+                                dim3(kRedCols, kRedRows), 0, st>>>(
+      part, sums, tiles_m, N);
+  return (int)cudaGetLastError();
+}
+
+template <bool kConv>
+int dispatch(const void* x, const void* w, void* planes, void* y,
+             void* part, void* sums, int M, int kdim, int N, int H, int W,
+             int bn, int stages, cudaStream_t st) {
+  // TMA: 16-byte aligned bases and row strides (kdim and N multiples of
+  // 4), B7b's x tile with its halo in one box; y is written as float2
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+        reinterpret_cast<uintptr_t>(planes) |
+        reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  if (!aligned || M < 1 || kdim < 4 || N < 4 || kdim % 4 || N % 4 ||
+      stages < 2 || (kConv && halo_rows(W) > kMaxBoxRows) ||
+      smem_bytes(bn, stages, kConv ? W : -1) > kMaxSmem ||
+      (M + kM - 1) / kM > 65535)
+    return (int)cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  float* pf = static_cast<float*>(planes);
+  float* yf = static_cast<float*>(y);
+  float* partf = static_cast<float*>(part);
+  float* sf = static_cast<float*>(sums);
+  if (bn == 64)
+    return launch<64, kConv>(xf, wf, pf, yf, partf, sf, M, kdim, N, H, W,
+                             stages, st);
+  if (bn == 128)
+    return launch<128, kConv>(xf, wf, pf, yf, partf, sf, M, kdim, N, H, W,
+                              stages, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tf3
 
 }  // namespace
 
@@ -675,6 +1161,33 @@ int dl4j_conv3x3_stats_wgmma(const void* x, const void* w, void* y,
     return (int)cudaErrorInvalidValue;
   return tc::dispatch<true>(x, w, y, part, sums, (int)M, C, N, H, W, bn,
                             stages, static_cast<cudaStream_t>(stream));
+}
+
+// Design 3 of B7a, float32 as 3xTF32 on the tensor cores: x [M, K], w
+// [K, N], y [M, N] float32 with K and N multiples of 4 and 16-byte aligned
+// data; planes: scratch of 2·K·N floats (w split and transposed, the
+// first of the call's three launches); part and sums as above. bn: columns
+// of a y tile (64 or 128); stages: the ring's depth.
+int dl4j_matmul_stats_tf32x3(const void* x, const void* w, void* planes,
+                             void* y, void* part, void* sums, int M, int K,
+                             int N, int bn, int stages, void* stream) {
+  return tf3::dispatch<false>(x, w, planes, y, part, sums, M, K, N, 1, 1,
+                              bn, stages,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Design 3 of B7b: x [B, H, W, C], w [3, 3, C, N], y [B, H, W, N]
+// float32, C and N multiples of 4, W <= 63; planes 2·9·C·N floats.
+int dl4j_conv3x3_stats_tf32x3(const void* x, const void* w, void* planes,
+                              void* y, void* part, void* sums, int B, int H,
+                              int W, int C, int N, int bn, int stages,
+                              void* stream) {
+  const int64_t M = (int64_t)B * H * W;
+  if (B < 1 || H < 1 || W < 1 || M > INT32_MAX / 2)
+    return (int)cudaErrorInvalidValue;
+  return tf3::dispatch<true>(x, w, planes, y, part, sums, (int)M, C, N, H,
+                             W, bn, stages,
+                             static_cast<cudaStream_t>(stream));
 }
 
 const char* dl4j_cuda_error_string(int code) {

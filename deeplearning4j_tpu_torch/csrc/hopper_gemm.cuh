@@ -23,14 +23,23 @@
 //   registers (the RS form), whose A fragments `acc_to_a` makes from the
 //   float32 accumulator of an earlier product (first user: the flash
 //   backward of flash_attention.cu, where P and dS feed the next product);
+// - `wgmma.mma_async` m64nNk8 with tf32 operands, A from registers and B
+//   K-major from shared memory (tf32 has no transpose bit), for N in {64,
+//   128} (first user: design 3 of the float32 conv+BN statistics kernels,
+//   three TF32 products a float32 one). A tf32 row of 32 floats is one
+//   128-byte line, so a k8 step is 32 bytes of it, as a k16 step of
+//   bfloat16 is;
 // - named barriers and `setmaxnreg` for warp-specialised blocks;
 // - on the host, `encode_tensor_map`: `cuTensorMapEncodeTiled` reached
 //   through `cudaGetDriverEntryPointByVersion`, so a library needs no
 //   -lcuda.
 //
-// Accumulator fragment of m64nNk16 (float32): thread t of the warpgroup
-// holds d[4 j + e], j < N / 8, at row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2)
-// and column 8 j + 2 (t % 4) + (e % 2).
+// Accumulator fragment of m64nNk16 and m64nNk8 (float32): thread t of the
+// warpgroup holds d[4 j + e], j < N / 8, at row 16 (t / 32) + (t % 32) / 4
+// + 8 (e / 2) and column 8 j + 2 (t % 4) + (e % 2).
+// A fragment of m64nNk8 with tf32 A in registers: thread t holds a[i] at
+// row 16 (t / 32) + (t % 32) / 4 + 8 (i % 2) and column (t % 4) + 4 (i / 2),
+// as `mma.sync` m16n8k8 lays out its tf32 A.
 // A fragment of m64nNk16 with A in registers (bfloat16): thread t holds
 // four 32-bit registers a[i], each a pair of bfloat16 (low half first),
 // at row 16 (t / 32) + (t % 32) / 4 + 8 (i % 2) and columns
@@ -439,6 +448,76 @@ struct WgmmaBf16RS<128, kTransB> {
   }
 };
 
+// d[N / 2] += A (64 x 8 tf32, from registers) x B (8 x N tf32, K-major,
+// descriptor b); with scale_d 0, d = A x B. The operands are float32
+// registers and words whose 13 low mantissa bits the caller has cleared
+// (rounded to tf32).
+template <int N>
+struct WgmmaTf32RS;
+
+template <>
+struct WgmmaTf32RS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32RS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// keeps the compiler from reusing A-fragment registers that an RS-form
+// `wgmma` in flight still reads: fenced after the wait that retires it
+template <int kN>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 // ------------------------------------------------------------------ host
 using EncodeTiledFn = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -459,12 +538,14 @@ inline EncodeTiledFn tensor_map_encoder() {
   return fn;
 }
 
-// A bfloat16 tensor map of `rank` dims (innermost first), row strides in
-// bytes (rank - 1 of them), box sizes in elements; 128-byte swizzle, zero
-// fill out of bounds. Returns 0 or a cudaError_t.
-inline int encode_tensor_map(CUtensorMap* map, const void* base, int rank,
-                             const uint64_t* dims, const uint64_t* strides,
-                             const uint32_t* box) {
+// A bfloat16 (or `type`) tensor map of `rank` dims (innermost first), row
+// strides in bytes (rank - 1 of them), box sizes in elements; 128-byte
+// swizzle, zero fill out of bounds (also at negative coordinates).
+// Returns 0 or a cudaError_t.
+inline int encode_tensor_map(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t d[5], s[4];
@@ -475,7 +556,7 @@ inline int encode_tensor_map(CUtensorMap* map, const void* base, int rank,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+  CUresult r = encode(map, type,
                       static_cast<cuuint32_t>(rank), const_cast<void*>(base),
                       d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B,

@@ -58,6 +58,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+# the float32 split of design 3, shared with ops/conv_fused.py
+from deeplearning4j_tpu_torch.ops.tf32 import (  # noqa: F401
+    tf32_rna, tf32x3_split)
+
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128        # the kernels' largest head-dim tile
 _MAX_BH = 65535           # grid.y
@@ -92,25 +96,6 @@ def _acc_dtype(dtype):
     """float64 stays float64 (gradcheck); everything else computes in
     float32, as the kernels do."""
     return torch.float64 if dtype == torch.float64 else torch.float32
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """float32 x rounded to TF32 (10 stored mantissa bits), to nearest
-    with ties away from zero, as `cvt.rna.tf32.f32` rounds it: a float's
-    bits are sign and magnitude, so adding half of the dropped unit to
-    the magnitude's bits and clearing the 13 low bits rounds the
-    magnitude. For finite inputs."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def tf32x3_split(x: torch.Tensor):
-    """(big, small) with big = tf32(x), small = tf32(x - big), the split
-    design 3 makes of each float32 operand: big + small rebuilds x within
-    2^-22 of |x|. Plain emulation for the CPU tests; nothing on the
-    card's path calls it."""
-    big = tf32_rna(x)
-    return big, tf32_rna(x - big)
 
 
 def _split_product(eq: str, a, b, products: Optional[str]):

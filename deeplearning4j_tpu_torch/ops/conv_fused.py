@@ -16,8 +16,8 @@ epilogue then reads y once.
   convolution over NHWC input with an HWIO kernel, as an implicit GEMM.
 
 Both are hand-written CUDA C++ for Hopper (`csrc/conv_fused.cu`), in
-two designs chosen by `b7_design` from the dtype and the shape before the
-launch (neither is a fallback of the other):
+three designs chosen by `b7_design` from the dtype and the shape before
+the launch (none is a fallback of another):
 - "wgmma" (design 2): bfloat16 whose rows are 16-byte aligned (K or C,
   and N, multiples of 8; 16-byte aligned data) — every `path_r` shape.
   A producer warp keeps TMA loads of 64-deep K slices in flight into a
@@ -25,8 +25,25 @@ launch (neither is a fallback of the other):
   (`wgmma`, float32 accumulators) into a 128 x BN tile of y, BN from
   `wgmma_tile`; the 3x3 reads each tap's rows of x shifted by the tap's
   offset and zeroes the rows whose tap pixel is off the map;
-- "ffma" (design 1): exact float32 FMA tiles, every other shape and
-  every float32 call.
+- "tf32x3" (design 3): float32 whose rows are 16-byte aligned (K or C,
+  and N, multiples of 4; 16-byte aligned data) — every `path_r` shape in
+  float32. Design 2's ring and warpgroups with 32-deep K slices of
+  float32; the products on the tensor cores as three TF32 products
+  (`wgmma` m64nBNk8, BN 64 or 128: `tf32x3_tile`), each float32 operand
+  split into big = tf32(x) and small = tf32(x - big) (`ops/tf32.py`): x
+  where the consumers load it into registers, w by a split pass at the
+  start of the call into two K-major planes (tf32 `wgmma` reads B
+  K-major only). Each group of `TF32_FLUSH_DEPTH` K values takes its
+  products into a fresh accumulator, small·big and big·small first, then
+  big·big, and is then added to the float32 sum, so the tensor cores'
+  truncating sums never run long (C17; nothing is added back for their
+  truncation, so TF32-exact data comes out exact), and the tiles'
+  partial sums are added in float64. B7b reads a channel slice's x tile
+  with its halo rows once for its nine taps, one TMA box, so maps up to
+  `TF32_HALO_MAX_W` wide;
+- "ffma" (design 1): exact float32 FMA tiles, every other shape (ragged
+  or unaligned float32 and bfloat16, float32 maps wider than
+  `TF32_HALO_MAX_W`).
 In both, the epilogue writes y rounded once to the working dtype and
 per-tile column partials of Σy and Σy² from the unrounded float32
 accumulator, then a second launch sums the partials in a fixed order
@@ -37,7 +54,11 @@ tensors, as JAX's `_acc_dtype`).
 
 Beside each kernel stands its plain version: B7a one product in the
 accumulation dtype then the sums over rows; B7b nine shifted products
-over a zero-padded input, as the Pallas body does. A wrapper takes its
+over a zero-padded input, as the Pallas body does. With `products`
+("tf32x3" or "tf32", float32 only) they emulate design 3's sums on the
+CPU: groups of K each from a fresh float32 sum of the split terms
+(or of the one-pass TF32 product), added in order — for the tests' guard,
+never on the card's path. A wrapper takes its
 plain version only for CPU tensors; on a CUDA tensor it launches its
 kernel or raises. `LAUNCHES[name]` counts launches (one a call: the
 GEMM and its reduction), `LAUNCHES_BY_DESIGN[(name, design)]` the same
@@ -61,14 +82,25 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.ops.tf32 import tf32x3_split
+
 LAUNCHES: Dict[str, int] = {"conv1x1_bn_stats": 0, "conv3x3_bn_stats": 0}
-DESIGNS = ("ffma", "wgmma")
+DESIGNS = ("ffma", "wgmma", "tf32x3")
 LAUNCHES_BY_DESIGN: Dict[Tuple[str, str], int] = {
     (k, d): 0 for k in LAUNCHES for d in DESIGNS}
 PLAIN_ON_CUDA: Dict[str, int] = {"conv1x1_bn_stats": 0,
                                  "conv3x3_bn_stats": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# design 3 (csrc/conv_fused.cu, namespace tf3): the K values whose
+# products share a fresh accumulator before it is added to the float32
+# sum (its kFlush k8 steps, 1 as the guard decides: PERF.md), and
+# the widest B7b map whose x tile with its halo, 128 + 2 W + 2 rows, is
+# one TMA box of at most 256 rows
+TF32_FLUSH_DEPTH = 8
+TF32_HALO_MAX_W = 63
+SMEM_BYTES = 232448           # a block's shared memory on an H100
 
 
 def reset_counts() -> None:
@@ -83,19 +115,53 @@ def _acc_dtype(dtype):
 
 
 # ------------------------------------------------------------ plain versions
-def matmul_with_channel_stats_plain(x2d, w):
+def _check_products(products, dtype) -> None:
+    if products not in (None, "tf32x3", "tf32"):
+        raise ValueError(f"products must be None, 'tf32x3' or 'tf32'; got "
+                         f"{products!r}")
+    if products is not None and dtype != torch.float32:
+        raise ValueError(f"products={products!r} emulates float32 "
+                         f"products; got {dtype}")
+
+
+def _sliced_product(xs, w, products):
+    """xs @ w ([M, K] @ [K, N], float32) as design 3 sums it: each group
+    of `TF32_FLUSH_DEPTH` K values from a fresh float32 sum —
+    small·big + big·small, then big·big ("tf32x3"), or the one-pass
+    big·big ("tf32") — added to the total in order. The tensor cores'
+    truncation is the card's and is not emulated."""
+    xb, xsm = tf32x3_split(xs)
+    wb, wsm = tf32x3_split(w)
+    tot = torch.zeros((xs.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=xs.device)
+    for k0 in range(0, xs.shape[1], TF32_FLUSH_DEPTH):
+        k = slice(k0, k0 + TF32_FLUSH_DEPTH)
+        if products == "tf32":
+            tot += xb[:, k] @ wb[k]
+        else:
+            tot += (xsm[:, k] @ wb[k] + xb[:, k] @ wsm[k]) + xb[:, k] @ wb[k]
+    return tot
+
+
+def matmul_with_channel_stats_plain(x2d, w, products=None):
     """Plain version of kernel B7a: (y, Σy, Σy²) with the sums taken from
-    the unrounded product."""
+    the unrounded product. `products` ("tf32x3" or "tf32") emulates
+    design 3's split products and sums on float32 inputs."""
+    _check_products(products, x2d.dtype)
     if x2d.is_cuda:
         PLAIN_ON_CUDA["conv1x1_bn_stats"] += 1
     acc = _acc_dtype(x2d.dtype)
-    y = x2d.to(acc) @ w.to(acc)
+    y = x2d.to(acc) @ w.to(acc) if products is None \
+        else _sliced_product(x2d, w, products)
     return y.to(x2d.dtype), y.sum(0), (y * y).sum(0)
 
 
-def conv3x3_with_channel_stats_plain(x, w):
+def conv3x3_with_channel_stats_plain(x, w, products=None):
     """Plain version of kernel B7b: nine shifted products over the
-    zero-padded NHWC input, then the sums over B, H, W."""
+    zero-padded NHWC input, then the sums over B, H, W. `products` as in
+    `matmul_with_channel_stats_plain`, tap by tap (design 3 takes the
+    same groups, each tap's channel slices, in another order)."""
+    _check_products(products, x.dtype)
     if x.is_cuda:
         PLAIN_ON_CUDA["conv3x3_bn_stats"] += 1
     acc = _acc_dtype(x.dtype)
@@ -107,7 +173,8 @@ def conv3x3_with_channel_stats_plain(x, w):
     for dh in range(3):
         for dw in range(3):
             xs = xpad[:, dh:dh + h, dw:dw + wd, :].reshape(m, cin)
-            tot += xs @ wa[dh, dw]
+            tot += xs @ wa[dh, dw] if products is None \
+                else _sliced_product(xs, wa[dh, dw], products)
     return (tot.reshape(b, h, wd, -1).to(x.dtype), tot.sum(0),
             (tot * tot).sum(0))
 
@@ -137,17 +204,22 @@ def _check_cuda(**tensors) -> None:
 
 
 def b7_design(dtype, shape: Sequence[int], ptrs: Sequence[int]) -> str:
-    """The design that takes a B7 call: "wgmma" for bfloat16 whose rows
-    are 16-byte aligned — K (B7a) or C (B7b) and N multiples of 8 and
+    """The design that takes a B7 call: rows 16-byte aligned — K (B7a)
+    or C (B7b) and N multiples of 8 in bfloat16, of 4 in float32 — and
     the data pointers in `ptrs` (x, w) multiples of 16, as the tensor
-    maps need — else "ffma" (float32, and the unaligned bfloat16
-    shapes). `shape` is (M, K, N) for B7a and (B, H, W, C, N) for B7b.
-    y is fresh from the allocator, so aligned."""
+    maps need, go to "wgmma" (bfloat16) or "tf32x3" (float32, B7b maps
+    up to `TF32_HALO_MAX_W` wide); every other call to "ffma". `shape`
+    is (M, K, N) for B7a and (B, H, W, C, N) for B7b. y and design 3's
+    planes are fresh from the allocator, so aligned."""
     k, n = shape[-2], shape[-1]
-    if dtype != torch.bfloat16 or k % 8 or n % 8 or \
+    per16 = {torch.bfloat16: 8, torch.float32: 4}.get(dtype)
+    if per16 is None or k % per16 or n % per16 or \
             any(p % 16 for p in ptrs):
         return "ffma"
-    return "wgmma"
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "ffma" if len(shape) == 5 and shape[2] > TF32_HALO_MAX_W \
+        else "tf32x3"
 
 
 def wgmma_tile(shape: Sequence[int]) -> Tuple[int, int]:
@@ -162,15 +234,43 @@ def wgmma_tile(shape: Sequence[int]) -> Tuple[int, int]:
     return bn, 3 if bn == 256 else 4
 
 
+def tf32x3_smem(bn: int, stages: int, halo_w=None) -> int:
+    """Design 3's shared memory (`tf3::smem_bytes` in csrc/conv_fused.cu):
+    alignment slack; the ring, a stage the 128 x 32 slice of x (B7a) and
+    two bn x 32 boxes of the planes; B7b (`halo_w`, its map's W): two
+    slots of x tiles with their halo, 128 + 2 W + 2 rows of 32 floats in
+    whole 1 KB atoms; the partials; the barriers."""
+    stage = (0 if halo_w is not None else 128 * 32 * 4) + 2 * bn * 32 * 4
+    halo = 0 if halo_w is None else \
+        2 * (-(-(128 + 2 * halo_w + 2) * 128 // 1024) * 1024)
+    return 1024 + stages * stage + halo + 2 * 8 * bn * 4 \
+        + 2 * (stages + 2) * 8
+
+
+def tf32x3_tile(shape: Sequence[int]) -> Tuple[int, int]:
+    """(bn, stages) of design 3 for a B7a (M, K, N) or B7b (B, H, W, C, N)
+    shape: 64 columns where N <= 64, else 128 (a warpgroup holds the
+    float32 sum and the flush group's accumulator, 64 + 64 registers a
+    thread at 128), and as many ring stages as fit, at most 6 (B7b:
+    beside the halo slots)."""
+    bn = 64 if shape[-1] <= 64 else 128
+    halo_w = shape[2] if len(shape) == 5 else None
+    stages = 2
+    while stages < 6 and tf32x3_smem(bn, stages + 1, halo_w) <= SMEM_BYTES:
+        stages += 1
+    return bn, stages
+
+
 _C_NAMES = {"conv1x1_bn_stats": "dl4j_matmul_stats",
             "conv3x3_bn_stats": "dl4j_conv3x3_stats"}
 
 
 def _launch(kernel, x, w, shape, design):
     """Allocate y [M, N] and the statistics, launch `kernel` (GEMM +
-    fixed-order reduction of the per-tile partials) in `design` and
-    count it. The wrappers pass `b7_design`'s choice; `chip_smoke.py`
-    also times design 1 on bfloat16 shapes to compare the two."""
+    fixed-order reduction of the per-tile partials; design 3 splits w
+    first, into planes of its own) in `design` and count it. The wrappers
+    pass `b7_design`'s choice; `chip_smoke.py` also times design 1 on the
+    shapes designs 2 and 3 take to compare them."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("conv_fused")
@@ -182,14 +282,18 @@ def _launch(kernel, x, w, shape, design):
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     part = torch.empty((2, tiles, n), dtype=torch.float32, device=dev)
     sums = torch.empty((2, n), dtype=torch.float32, device=dev)
+    ptrs = (x.data_ptr(), w.data_ptr())
     if design == "wgmma":
         fn, extra = f"{_C_NAMES[kernel]}_wgmma", wgmma_tile(shape)
+    elif design == "tf32x3":
+        fn, extra = f"{_C_NAMES[kernel]}_tf32x3", tf32x3_tile(shape)
+        planes = torch.empty(2 * w.numel(), dtype=torch.float32, device=dev)
+        ptrs += (planes.data_ptr(),)
     else:
         fn, extra = _C_NAMES[kernel], (_DTYPE_CODES[x.dtype],)
     rc = getattr(lib, fn)(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
-        sums.data_ptr(), *shape, *extra,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        *ptrs, y.data_ptr(), part.data_ptr(), sums.data_ptr(), *shape,
+        *extra, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     cuda_build.check(lib, rc, f"{kernel} ({design})")
     LAUNCHES[kernel] += 1
     LAUNCHES_BY_DESIGN[(kernel, design)] += 1

@@ -186,6 +186,13 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         # x w y part sums, B H W C N, bn stages, stream
         "dl4j_conv3x3_stats_wgmma": (
             _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+        # design 3, float32 as 3xTF32: x w planes y part sums, M K N, bn
+        # stages, stream
+        "dl4j_matmul_stats_tf32x3": (
+            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        # x w planes y part sums, B H W C N, bn stages, stream
+        "dl4j_conv3x3_stats_tf32x3": (
+            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
         "dl4j_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }

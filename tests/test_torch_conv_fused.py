@@ -275,13 +275,15 @@ def _path_r_shapes():
 
 def test_b7_design_routes_by_dtype_shape_and_alignment():
     """Design 2 takes every path_r bfloat16 shape and the aligned ragged
-    ones; float32, the unaligned shapes and a pointer off 16 bytes stay
-    on design 1."""
+    ones, design 3 every path_r float32 shape; the unaligned shapes and a
+    pointer off 16 bytes stay on design 1."""
     aligned = (0, 256, 4096)
     for _, shape in _path_r_shapes():
         assert cf.b7_design(torch.bfloat16, shape, aligned) == "wgmma"
-        assert cf.b7_design(torch.float32, shape, aligned) == "ffma"
+        assert cf.b7_design(torch.float32, shape, aligned) == "tf32x3"
         assert cf.b7_design(torch.bfloat16, shape, (8, 256, 4096)) == \
+            "ffma"
+        assert cf.b7_design(torch.float32, shape, (8, 256, 4096)) == \
             "ffma"
     for (_, shape), want in RAGGED.items():
         assert cf.b7_design(torch.bfloat16, shape, aligned) == want

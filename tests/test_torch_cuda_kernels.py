@@ -35,10 +35,12 @@ is the fused Nesterovs kernel. The LSTM kernels sum H products a step in another
 plain version's matmul, and the difference is carried through T steps:
 1e-4 absolute on hs and the gates (which lie in [-1, 1]), 1e-4 of the
 reference's largest magnitude on the unbounded cell states (at least 1)
-and on every gradient. B7a/B7b, in both designs (bfloat16 on the tensor
-cores, float32 FMA): y within 2e-5 of its largest magnitude in float32
-or one bf16 step; the statistics, from the float32 accumulator in both
-dtypes, within 1e-5 of Σ|y| and of Σy²."""
+and on every gradient. B7a/B7b, in all three designs (bfloat16 on the
+tensor cores, float32 as 3xTF32 on the tensor cores, exact FMA): y
+within 2e-5 of its largest magnitude in float32 or one bf16 step; the
+statistics, from the float32 accumulator in both dtypes, within 1e-5 of
+Σ|y| and of Σy²; design 3's y, Σy and Σy² within twice design 1's error
+against a float64 plain version on the same inputs (the guard)."""
 
 import pytest
 import torch
@@ -2164,15 +2166,67 @@ def test_cuda_b7_wgmma_statistics_are_bit_equal(cuda_device, kernel, shape):
     assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
+def _f64_shares(got, ref64):
+    """y, Σy and Σy²: the largest error against the float64 plain version,
+    a share of the largest |ref|."""
+    return [((a.double().reshape(r.shape) - r).abs().max()
+             / r.abs().max()).item() for a, r in zip(got, ref64)]
+
+
+# aligned float32 shapes off the tiles: the deep ones held to the guard
+# too, the small ones (a few K or C steps, where design 1's largest error
+# is a unit or two in the last place) to the plain version
+B7_RAGGED_TF32X3 = [("conv1x1_bn_stats", (147, 2048, 512), True),
+                    ("conv3x3_bn_stats", (3, 7, 7, 512, 512), True),
+                    ("conv1x1_bn_stats", (1000, 40, 136), False),
+                    ("conv3x3_bn_stats", (2, 5, 6, 4, 12), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kernel,shape,guard",
+    [(k, s, True) for k, s in B7_PATH_R_SHAPES] + B7_RAGGED_TF32X3,
+    ids=[f"{k[:7]}-{'x'.join(map(str, s))}" for k, s in B7_PATH_R_SHAPES]
+    + [f"{k[:7]}-{'x'.join(map(str, s))}" for k, s, _ in B7_RAGGED_TF32X3])
+def test_cuda_b7_float32_takes_the_tf32x3_design(cuda_device, kernel,
+                                                 shape, guard):
+    """Design 3 (3xTF32 on `wgmma`) on every path_r float32 shape and on
+    aligned ragged ones: the launch counted under design 3, y and the
+    statistics at `_stats_close`'s tolerances against the plain version,
+    two launches bit-equal; and the guard, at every path_r shape and the
+    deep ragged ones: y, Σy and Σy² against the plain version in float64
+    within twice design 1's error on the same inputs."""
+    x, w, run, plain = _b7_inputs(kernel, shape, torch.float32,
+                                  cuda_device, sum(shape) + 1)
+    before = dict(cfk.LAUNCHES_BY_DESIGN)
+    got, again = run(x, w), run(x, w)
+    ref = plain(x, w)
+    torch.cuda.synchronize()
+    assert cfk.LAUNCHES_BY_DESIGN[(kernel, "tf32x3")] == \
+        before[(kernel, "tf32x3")] + 2
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.float32
+    assert _stats_close(got, ref, ref[0].float(), torch.float32)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    if guard:
+        ref64 = plain(x.double(), w.double())
+        d1 = cfk._launch(kernel, x, w, shape, "ffma")
+        mine, ffma = _f64_shares(got, ref64), _f64_shares(d1, ref64)
+        assert all(a <= 2 * b for a, b in zip(mine, ffma)), (mine, ffma)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,shape,dtype", [
-    ("conv1x1_bn_stats", (3136, 64, 256), torch.float32),
-    ("conv3x3_bn_stats", (3, 7, 7, 64, 64), torch.float32),
+    ("conv1x1_bn_stats", (1000, 37, 130), torch.float32),
+    ("conv1x1_bn_stats", (129, 18, 66), torch.float32),
+    ("conv3x3_bn_stats", (2, 5, 6, 3, 4), torch.float32),
+    ("conv3x3_bn_stats", (1, 1, 1, 5, 7), torch.float32),
     ("conv1x1_bn_stats", (1000, 37, 130), torch.bfloat16),
     ("conv1x1_bn_stats", (129, 19, 65), torch.bfloat16),
     ("conv3x3_bn_stats", (2, 5, 6, 3, 4), torch.bfloat16)])
-def test_cuda_b7_float32_and_unaligned_take_the_ffma_design(
+def test_cuda_b7_ragged_and_unaligned_take_the_ffma_design(
         cuda_device, kernel, shape, dtype):
+    """K or C, or N, off a 16-byte row (4 float32 values, 8 bfloat16):
+    design 1, in either dtype."""
     x, w, run, plain = _b7_inputs(kernel, shape, dtype, cuda_device, 4)
     before = dict(cfk.LAUNCHES_BY_DESIGN)
     got = run(x, w)
@@ -2180,9 +2234,129 @@ def test_cuda_b7_float32_and_unaligned_take_the_ffma_design(
     torch.cuda.synchronize()
     assert cfk.LAUNCHES_BY_DESIGN[(kernel, "ffma")] == \
         before[(kernel, "ffma")] + 1
-    assert cfk.LAUNCHES_BY_DESIGN[(kernel, "wgmma")] == \
-        before[(kernel, "wgmma")]
+    for d in ("wgmma", "tf32x3"):
+        assert cfk.LAUNCHES_BY_DESIGN[(kernel, d)] == before[(kernel, d)]
     assert _stats_close(got, ref, ref[0].float(), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_b7_unaligned_float32_pointer_takes_the_ffma_design(
+        cuda_device):
+    """A contiguous float32 view 8 bytes into its storage: design 1."""
+    g = torch.Generator().manual_seed(6)
+    buf = torch.randn(2 + 256 * 64, generator=g).to(cuda_device)
+    x = buf[2:].view(256, 64)
+    w = (torch.randn(64, 128, generator=g) / 8).to(cuda_device)
+    before = dict(cfk.LAUNCHES_BY_DESIGN)
+    got = cfk.matmul_with_channel_stats(x, w)
+    ref = cfk.matmul_with_channel_stats_plain(x, w)
+    torch.cuda.synchronize()
+    key = ("conv1x1_bn_stats", "ffma")
+    assert cfk.LAUNCHES_BY_DESIGN[key] == before[key] + 1
+    assert _stats_close(got, ref, ref[0].float(), torch.float32)
+
+
+def _b7_data(kernel, shape, data, device, seed):
+    """float32 B7 inputs of another kind than `_b7_inputs`' Gaussians:
+    "ints", small integers (every product and sum exact in TF32 and in
+    float32); "onehot", x one-hot rows and integer w (exact too);
+    "relu", x = relu(N(0, 1)), as ResNet's post-ReLU activations."""
+    g = torch.Generator().manual_seed(seed)
+    *lead, cin, n = shape
+    kshape = (cin, n) if kernel == "conv1x1_bn_stats" else (3, 3, cin, n)
+    if data == "ints":
+        x = torch.randint(-3, 4, (*lead, cin), generator=g).float()
+        w = torch.randint(-3, 4, kshape, generator=g).float()
+    elif data == "onehot":
+        hot = torch.randint(0, cin, tuple(lead), generator=g)
+        x = torch.nn.functional.one_hot(hot, cin).float()
+        w = torch.randint(-8, 9, kshape, generator=g).float()
+    else:
+        fan = cin * (9 if kernel == "conv3x3_bn_stats" else 1)
+        x = torch.relu(torch.randn(*lead, cin, generator=g))
+        w = torch.randn(*kshape, generator=g) / fan ** 0.5
+    return x.to(device), w.to(device)
+
+
+B7_DATA_SHAPES = [("conv1x1_bn_stats", (100352, 256, 128)),
+                  ("conv1x1_bn_stats", (6272, 2048, 512)),
+                  ("conv3x3_bn_stats", (128, 14, 14, 256, 256)),
+                  ("conv3x3_bn_stats", (128, 56, 56, 64, 64))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", ["ints", "onehot"])
+@pytest.mark.parametrize(
+    "kernel,shape", B7_DATA_SHAPES,
+    ids=[f"{k[:7]}-{'x'.join(map(str, s))}" for k, s in B7_DATA_SHAPES])
+def test_cuda_b7_tf32x3_is_exact_on_tf32_exact_data(cuda_device, kernel,
+                                                    shape, data):
+    """Where every product and partial sum is exact in TF32, design 3
+    adds nothing for the tensor cores' truncation, so its y is the exact
+    product: bit-equal to design 1's and to the plain version's; the
+    statistics at `_stats_close`'s tolerances."""
+    x, w = _b7_data(kernel, shape, data, cuda_device, sum(shape) + 2)
+    run = cfk.matmul_with_channel_stats if kernel == "conv1x1_bn_stats" \
+        else cfk.conv3x3_with_channel_stats
+    plain = cfk.matmul_with_channel_stats_plain \
+        if kernel == "conv1x1_bn_stats" \
+        else cfk.conv3x3_with_channel_stats_plain
+    before = cfk.LAUNCHES_BY_DESIGN[(kernel, "tf32x3")]
+    got = run(x, w)
+    d1 = cfk._launch(kernel, x, w, shape, "ffma")
+    ref = plain(x, w)
+    torch.cuda.synchronize()
+    assert cfk.LAUNCHES_BY_DESIGN[(kernel, "tf32x3")] == before + 1
+    assert torch.equal(got[0].reshape(d1[0].shape), d1[0])
+    assert torch.equal(got[0], ref[0])
+    assert _stats_close(got, ref, ref[0].float(), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kernel,shape", B7_DATA_SHAPES,
+    ids=[f"{k[:7]}-{'x'.join(map(str, s))}" for k, s in B7_DATA_SHAPES])
+def test_cuda_b7_tf32x3_guard_on_post_relu_inputs(cuda_device, kernel,
+                                                  shape):
+    """Nonnegative x, as ResNet's activations after a ReLU: design 3
+    against the plain version at `_stats_close`'s tolerances, and y, Σy
+    and Σy² against the float64 plain version within twice design 1's
+    error on the same inputs."""
+    x, w = _b7_data(kernel, shape, "relu", cuda_device, sum(shape) + 3)
+    run = cfk.matmul_with_channel_stats if kernel == "conv1x1_bn_stats" \
+        else cfk.conv3x3_with_channel_stats
+    plain = cfk.matmul_with_channel_stats_plain \
+        if kernel == "conv1x1_bn_stats" \
+        else cfk.conv3x3_with_channel_stats_plain
+    before = cfk.LAUNCHES_BY_DESIGN[(kernel, "tf32x3")]
+    got = run(x, w)
+    ref = plain(x, w)
+    d1 = cfk._launch(kernel, x, w, shape, "ffma")
+    torch.cuda.synchronize()
+    assert cfk.LAUNCHES_BY_DESIGN[(kernel, "tf32x3")] == before + 1
+    assert _stats_close(got, ref, ref[0].float(), torch.float32)
+    ref64 = plain(x.double(), w.double())
+    mine, ffma = _f64_shares(got, ref64), _f64_shares(d1, ref64)
+    assert all(a <= 2 * b for a, b in zip(mine, ffma)), (mine, ffma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 64, 16, 32), (1, 3, 112, 8, 8)])
+def test_cuda_b7b_float32_maps_past_63_wide_take_the_ffma_design(
+        cuda_device, shape):
+    """Design 3 reads a B7b tile's rows with their halo as one TMA box of
+    at most 256 rows, so W <= 63: a wider float32 map goes to design 1."""
+    x, w, run, plain = _b7_inputs("conv3x3_bn_stats", shape, torch.float32,
+                                  cuda_device, 9)
+    before = dict(cfk.LAUNCHES_BY_DESIGN)
+    got = run(x, w)
+    ref = plain(x, w)
+    torch.cuda.synchronize()
+    key = ("conv3x3_bn_stats", "ffma")
+    assert cfk.LAUNCHES_BY_DESIGN[key] == before[key] + 1
+    assert cfk.LAUNCHES_BY_DESIGN[("conv3x3_bn_stats", "tf32x3")] == \
+        before[("conv3x3_bn_stats", "tf32x3")]
+    assert _stats_close(got, ref, ref[0].float(), torch.float32)
 
 
 @pytest.mark.cuda

@@ -31,7 +31,8 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "torch_c10_lenet.py",
     ROOT / "tools" / "torch_http_probe.py",
     ROOT / "tools" / "torch_b3_tf32.py",
-    ROOT / "tools" / "torch_b3a_variants.py"]
+    ROOT / "tools" / "torch_b3a_variants.py",
+    ROOT / "tools" / "torch_b7_tf32.py"]
 
 
 def _imported_modules(path):
