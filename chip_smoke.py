@@ -113,6 +113,19 @@ exits non-zero with no result line:
      on design 3); a
      padded `/output` batch (9 rows in the bucket of 32) timed against
      the exact one;
+   - path_o: the observe plane on `path_h`'s serving path (slice 26):
+     Path A's net through `InferenceServer(..., slo=True,
+     series_interval=0.25)` with every request traced, the 8 cold
+     prompts as SSE streams equal to `path_h`'s direct ones; a trace id
+     on every frame and error body, `/trace/<id>`'s tree (`http.generate`
+     over `queue.wait`, `dispatch` / `session.window`, `session.close`),
+     `/flight`'s `session_open` events and a `POST /flight/dump` the dump
+     CLI reads back, `/series`, `/slo`, `/devices` (`cuda:0`, the
+     allocator's bytes and the card's memory), `/healthz` ok; a deploy
+     under a threshold-1 watchdog rolled back ("watchdog"), counted and
+     flight-recorded, version 1 serving on; the traced wave's TTFT p50/
+     p99, ITL p50 and tokens/s beside `path_h`'s untraced wave; B6 on
+     design 2, B3a on `/output` and the warm-up;
    - path_s: speculative decoding with a 1-block truncated draft sharing
      the target's weights (spec_k 8) through `InferenceServer`: streams
      equal the non-spec decode's; the windows eager against graphed
@@ -135,7 +148,12 @@ exits non-zero with no result line:
    guard; then `path_t_bf16_k`: the same 12 steps at K 1 twice and at
    K 4 (`fit(steps_per_dispatch=4)`: window 1 eager, then captured,
    windows 2-3 replayed), K 4 bit-equal to K 1 or within the two K 1
-   runs' spread, with the same launch counts; and train_parity_bf16,
+   runs' spread, with the same launch counts; then obs_train (slice
+   26): the same model at K 4 under `HostSyncMonitor` with a
+   `PerformanceListener` given `step_flops`: at most one host sync an
+   epoch, attribution's device ms a step beside the CUDA events', the
+   counted flops beside the analytic count, the MFU against the card's
+   peak; and train_parity_bf16,
    `train_parity` in bfloat16 with the tolerances bf16 training allows
    (`TRAIN_PARITY_BF16`), each leaf's update also within 15% of the
    CPU's;
@@ -3208,6 +3226,220 @@ def path_h(prompts, max_new=64, long_prompt=128, long_new=1900,
     return row, direct
 
 
+def trace_shape(node):
+    """A trace tree's span names and parentage."""
+    return (node["name"], [trace_shape(c) for c in node["children"]])
+
+
+def path_o(prompts, direct, untraced, max_new=64):
+    """The observe plane on the serving path (slice 26): Path A's net
+    through `InferenceServer(..., slo=True, series_interval=0.25)`, every
+    request traced (`DL4J_TPU_TRACE_SAMPLE=1`), Path A's 8 cold prompts
+    as SSE streams of `max_new` greedy tokens, token for token equal to
+    `path_h`'s direct streams (`direct`). Every frame, the `/output`
+    body and a 400's error body carry a trace id; `/trace/<id>` holds
+    the `http.generate` root with the scheduler's `queue.wait` and
+    `dispatch` spans and the session's `session.window` and
+    `session.close` spans under it; `/flight` holds the `session_open`
+    events and `POST /flight/dump` writes a file the dump CLI reads back;
+    `/series` holds `serving_` series and `/slo` has evaluated;
+    `/devices` reports `cuda:0` with the allocator's bytes in use (at
+    least `torch.cuda.memory_allocated()` read before the call) and the
+    card's memory as its limit; `/healthz` is healthy. Then a deploy
+    under a threshold-1 watchdog: its warm-up trips it, the deploy rolls
+    back with "watchdog", counted once in
+    `serving_deploy_rollbacks_total` and in the flight recorder, and
+    version 1 keeps serving the same tokens. Prints the traced wave's
+    TTFT p50/p99, ITL p50 and tokens/s beside `path_h`'s untraced wave
+    (`untraced`) in the same process, B6's launches (all design 2) and
+    B3a's (the `/output` forward and the deploy's warm-up)."""
+    import os
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.observe.dump import dump_file
+    from deeplearning4j_tpu_torch.ops import attention as fa
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+    from deeplearning4j_tpu_torch.serving import (
+        DeployRolledBackError, InferenceServer,
+    )
+
+    net = build_net("cuda", num_blocks=6, seed=7)
+    x = np.random.default_rng(26).integers(
+        0, 256, (8, net.conf.input_type.timesteps, 1)).astype(np.float32)
+    prev_env = os.environ.get("DL4J_TPU_TRACE_SAMPLE")
+    os.environ["DL4J_TPU_TRACE_SAMPLE"] = "1"
+    dump_dir = tempfile.mkdtemp(prefix="path_o_flight_")
+    prev_store = observe.set_trace_store(observe.TraceStore())
+    prev_flight = observe.set_flight(observe.FlightRecorder(dump_dir=dump_dir))
+    prev_wd = observe.get_watchdog()
+    reg = observe.get_registry()
+    rollbacks = reg.counter("serving_deploy_rollbacks_total",
+                            model="default")
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    srv = InferenceServer(net, decode_slots=8, decode_prefill_chunk=128,
+                          decode_fused_k=8, slo=True, series_interval=0.25)
+    row = {"phase": "path_o", "kernel": "paged_decode_attention",
+           "untraced_http": untraced}
+    try:
+        port = srv.start()
+        st, _, _ = http_call(port, "/healthz")
+        check(st == 200, f"path_o: /healthz answered {st}")
+        torch.cuda.synchronize()
+        ba.reset_counts()
+        t0 = time.perf_counter()
+        clients = [SseClient(port, p, max_new) for p in prompts]
+        streams = [c.result() for c in clients]
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches, by_design, plain = decode_counts(ba)
+        check_streams(net, prompts, streams, direct, "path_o traced HTTP")
+        ttft = [c.ttft_ms() for c in clients]
+        n_tok = sum(len(s) for s in streams)
+        st, _, metrics = http_call(port, "/metrics")
+        dec = metrics["decode"]["default"]
+        wave = {"sessions": len(clients), "new_tokens": n_tok,
+                "wall_s": wall, "tokens_per_s": n_tok / wall,
+                "ttft_ms_p50": pct(ttft, 50), "ttft_ms_p99": pct(ttft, 99),
+                "itl_ms_p50": dec["itl_ms"]["p50"]}
+        row["traced_http"] = wave
+        row["traced_over_untraced"] = {
+            k: wave[k] / untraced[k] for k in (
+                "ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50", "tokens_per_s")
+            if wave.get(k) and untraced.get(k)}
+        # a trace id on every frame; the trees under them
+        tids = []
+        for c in clients:
+            ids = {f.get("trace_id") for f in c.frames}
+            check(len(ids) == 1 and None not in ids,
+                  f"path_o: a stream's frames carry trace ids {ids}")
+            tids.append(ids.pop())
+        check(len(set(tids)) == len(clients),
+              f"path_o: streams share trace ids {tids}")
+        shapes = []
+        for tid in tids:
+            st, _, tree = http_call(port, f"/trace/{tid}")
+            check(st == 200 and len(tree["tree"]) == 1,
+                  f"path_o: /trace/{tid} answered {st}: {str(tree)[:200]}")
+            root = tree["tree"][0]
+            kids = [c["name"] for c in root["children"]]
+            leaves = {g["name"] for c in root["children"]
+                      for g in c["children"]}
+            check(root["name"] == "http.generate"
+                  and {"queue.wait", "dispatch", "session.close"}
+                  <= set(kids) and leaves == {"session.window"},
+                  f"path_o: trace {tid}: {trace_shape(root)}")
+            shapes.append({"spans": tree["spans"], "depth": tree["depth"],
+                           "dispatches": kids.count("dispatch")})
+        row["traces"] = shapes
+        st, _, out = http_call(port, "/output", {"ndarray": x.tolist()})
+        check(st == 200 and out.get("trace_id"),
+              f"path_o: /output answered {st} without a trace id")
+        st, _, bad = http_call(port, "/generate",
+                               {"prompt_ids": [999], "max_tokens": 4})
+        check(st == 400 and bad.get("trace_id"),
+              f"path_o: a bad prompt answered {st}: {bad}")
+        # the flight recorder and its dump
+        st, _, flight = http_call(port, "/flight")
+        opened = [e for e in flight["events"]
+                  if e["kind"] == "session_open"]
+        check(st == 200 and len(opened) >= len(clients),
+              f"path_o: /flight holds {len(opened)} session_open events")
+        st, _, dumped = http_call(port, "/flight/dump", {"reason": "path_o"})
+        check(st == 200 and dumped["ok"],
+              f"path_o: POST /flight/dump answered {st}: {dumped}")
+        table = dump_file(dumped["path"])
+        check("jit_compiles" in table,
+              f"path_o: the dump CLI read back {table[:200]!r}")
+        # the series sampler and the SLO engine, on their own thread
+        deadline = time.monotonic() + 30
+        while True:
+            st, _, series = http_call(port, "/series?prefix=serving_")
+            if series.get("ticks", 0) >= 2 and series["series"]:
+                break
+            check(time.monotonic() < deadline,
+                  f"path_o: the sampler ticked {series.get('ticks')} times")
+            time.sleep(0.05)
+        st, _, slo = http_call(port, "/slo")
+        check(st == 200 and slo["evaluations"] >= 1 and slo["slos"],
+              f"path_o: /slo answered {st}: {str(slo)[:200]}")
+        allocated = torch.cuda.memory_allocated()
+        st, _, devices = http_call(port, "/devices")
+        card = devices["devices"][0]
+        total = torch.cuda.get_device_properties(0).total_memory
+        check(st == 200 and card["device"] == "cuda:0"
+              and card["bytes_in_use"] >= allocated
+              and card["bytes_limit"] == total,
+              f"path_o: /devices gave {card}; allocated {allocated}, "
+              f"total {total}")
+        st, _, health = http_call(port, "/healthz")
+        check(st == 200 and health["status"] == "ok",
+              f"path_o: /healthz says {health}")
+        row.update(series_keys=len(series["series"]),
+                   sampler_ticks=series["ticks"],
+                   slo={"evaluations": slo["evaluations"],
+                        "firing": slo["firing"],
+                        "burn_fast": {s["name"]: s["burn_fast"]
+                                      for s in slo["slos"]}},
+                   devices=card, healthz=health["status"],
+                   flight_events=flight["recorded_total"],
+                   flight_dump=os.path.basename(dumped["path"]))
+        # the deploy gate: a threshold-1 watchdog trips on the warm-up
+        observe.set_watchdog(observe.RecompileWatchdog(threshold=1))
+        before = rollbacks.value
+        t0 = time.perf_counter()
+        try:
+            srv.deploy("default", 2, build_net("cuda", num_blocks=6,
+                                               seed=8))
+            check(False, "path_o: a deploy tripping the watchdog went live")
+        except DeployRolledBackError as e:
+            check("watchdog" in str(e), f"path_o: rolled back for {e}")
+            rollback_s = time.perf_counter() - t0
+        events = [e["data"] for e in observe.get_flight().events()
+                  if e["kind"] == "deploy_rollback"]
+        check(rollbacks.value == before + 1 and len(events) == 1
+              and events[0]["watchdog_tripped"],
+              f"path_o: rollbacks {rollbacks.value - before}, events "
+              f"{events}")
+        st, _, models = http_call(port, "/models")
+        again = SseClient(port, prompts[0], 16).result()
+        check(models["models"]["default"]["version"] == 1
+              and again == direct[0][:16],
+              f"path_o: after the rollback /models says {models}")
+        row["rollback"] = {"wall_s": rollback_s, "version_serving": 1,
+                           "event": events[0]}
+    finally:
+        srv.stop()
+        observe.set_watchdog(prev_wd)
+        observe.set_flight(prev_flight)
+        observe.set_trace_store(prev_store)
+        shutil.rmtree(dump_dir, ignore_errors=True)
+        if prev_env is None:
+            os.environ.pop("DL4J_TPU_TRACE_SAMPLE", None)
+        else:
+            os.environ["DL4J_TPU_TRACE_SAMPLE"] = prev_env
+    check(not srv._sampler.running, "path_o: the sampler outlived stop()")
+    torch.cuda.synchronize()
+    flash, flash_by_design = dict(fa.LAUNCHES), launches_by_design(fa)
+    check_design_2("path_o", "paged_decode_attention", launches, by_design,
+                   plain)
+    fwd_design = flash_want(torch.float32, 64, "flash_attention_fwd")
+    check(flash["flash_attention_fwd"] > 0
+          and flash_by_design[f"flash_attention_fwd/{fwd_design}"]
+          == flash["flash_attention_fwd"],
+          f"path_o: B3a {flash}, by design {flash_by_design}")
+    row.update(launches=launches, launches_by_design=by_design,
+               plain_on_cuda=plain, flash_launches=flash,
+               flash_launches_by_design=flash_by_design,
+               streams_equal_direct=True)
+    emit(row)
+    del net
+    torch.cuda.empty_cache()
+    return row
+
+
 def spec_wave(net, draft, prompts, max_new, *, kv_dtype=None):
     """A greedy wave through a speculating manager (spec_k 8); returns the
     streams, the wave's numbers and the manager's snapshot."""
@@ -3610,6 +3842,108 @@ def path_t(rng, epochs=3, dtype="float32"):
            "d_model": 512, "heads": 8, "blocks": blocks, "T": T,
            "batch": B, "dtype": dtype, "updater": str(net.conf.updater),
            **fit, "flash_designs": designs, "launches_by_design": by_design}
+    emit(row)
+    del net
+    torch.cuda.empty_cache()
+    return row
+
+
+def obs_train(rng, epochs=2):
+    """The training hooks of the observe plane (slice 26) on
+    `path_t_bf16`'s model and shape (6 blocks, d_model 512, T 2048,
+    batch 8, bfloat16): 4 fixed batches at K 4, one warm-up epoch (its
+    window eager, then captured), then `epochs` epochs (each one graph
+    replay of 4 steps) under `HostSyncMonitor`, with a
+    `PerformanceListener` given `step_flops`. Checks and prints: the
+    syncs (at most one an epoch: the loss tracker's read); attribution's
+    device ms a step beside the CUDA events' step ms; `step_flops`
+    beside the analytic count of the step's products (6 · params ·
+    tokens for the weights, plus the causal attention products: 6 half
+    T x T squares a layer), the count being exactly the weights' and
+    the plain attention's full squares (7 a layer: the forward's two,
+    the backward's four and its recompute of Q·Kᵀ), so between 1 and
+    7/3 of the analytic count (1.33 here); the MFU against
+    `peak_flops()` for the card, from the listener (counted flops over
+    attribution's device ms) and from the events with the analytic
+    count. B3a-c (design 2) six times a step each and B1a once."""
+    from deeplearning4j_tpu_torch.observe import HostSyncMonitor
+    from deeplearning4j_tpu_torch.ops import attention as fa
+    from deeplearning4j_tpu_torch.ops import fused_update as fu
+    from deeplearning4j_tpu_torch.optim.listeners import PerformanceListener
+    from deeplearning4j_tpu_torch.utils.profiling import (
+        peak_flops, step_cost,
+    )
+
+    B, T, D, H, L, V, K = 8, 2048, 512, 8, 6, 256, 4
+    net = build_net("cuda", num_blocks=L, seed=5, dtype="bfloat16")
+    batches = lm_batches(rng, K, B, T, V)
+    t0 = time.perf_counter()
+    cost = step_cost(net, batches[0].features, batches[0].labels)
+    count_s = time.perf_counter() - t0
+    check(cost is not None, "obs_train: step_cost failed")
+    n_mm = L * (4 * D * D + 2 * D * 4 * D) + D * V
+    tokens = B * T
+    square = 2 * B * H * T * T * (D // H)
+    check(cost.by_op == {"aten.mm": 6 * n_mm * tokens,
+                         "aten.bmm": 7 * square * L},
+          f"obs_train: counted {cost.by_op}")
+    analytic = 6 * n_mm * tokens + 3 * square * L
+    peak = peak_flops()
+    check(peak is not None,
+          f"obs_train: no peak for {torch.cuda.get_device_name(0)}")
+    net.fit(batches, epochs=1, steps_per_dispatch=K)    # the warm-up
+    torch.cuda.synchronize()
+    reports = []
+    perf = PerformanceListener(frequency=K, report=reports.append,
+                               flops_per_step=cost.flops)
+    net.listeners.append(perf)
+    reset_all_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    with HostSyncMonitor() as mon:
+        net.fit(batches, epochs=epochs, steps_per_dispatch=K)
+        end.record()
+        by_seam = mon.snapshot()["by_seam"]
+    torch.cuda.synchronize()
+    steps = epochs * K
+    events_ms = start.elapsed_time(end) / steps
+    launches, plain = read_all_counts()
+    syncs = sum(by_seam.values())
+    check(syncs <= epochs and by_seam == {"__float__": syncs},
+          f"obs_train: {by_seam} host syncs over {epochs} epochs")
+    by_design = launches_by_design(fa)
+    for kernel in FLASH_KERNELS:
+        design = flash_want(torch.bfloat16, D // H, kernel)
+        check(launches[kernel] == L * steps
+              and by_design[f"{kernel}/{design}"] == L * steps,
+              f"obs_train: {kernel} {launches[kernel]}, {by_design}")
+    b1 = launches_by_design(fu)
+    check(launches["adam_update"] == steps
+          and b1["adam_update/persistent"] == steps,
+          f"obs_train: adam_update {launches['adam_update']}, {b1}")
+    check(sum(plain.values()) == 0, f"obs_train: plain on CUDA {plain}")
+    attr = net._attribution.snapshot()
+    dev_ms = attr["last_device_step_ms"]
+    check(dev_ms and perf.last_mfu and perf.last_device_step_ms,
+          f"obs_train: attribution {attr}, listener MFU {perf.last_mfu}")
+    row = {"phase": "obs_train", "model": "TextGenerationTransformer",
+           "d_model": D, "blocks": L, "T": T, "batch": B,
+           "dtype": "bfloat16", "steps_per_dispatch": K,
+           "measured_epochs": epochs, "host_syncs": syncs,
+           "host_syncs_by_seam": by_seam,
+           "attribution": attr, "device_ms_per_step": dev_ms,
+           "events_ms_per_step": events_ms,
+           "step_flops": cost.flops, "step_flops_by_op": cost.by_op,
+           "analytic_flops": analytic,
+           "counted_over_analytic": cost.flops / analytic,
+           "count_s": count_s, "peak_flops": peak,
+           "mfu_listener": perf.last_mfu,
+           "listener_device_ms": perf.last_device_step_ms,
+           "mfu_events_analytic": analytic / (events_ms / 1e3) / peak,
+           "mfu_events_counted": cost.flops / (events_ms / 1e3) / peak,
+           "listener_report": reports[-1] if reports else None,
+           "launches": launches, "flash_launches_by_design": by_design,
+           "b1_launches_by_design": b1}
     emit(row)
     del net
     torch.cuda.empty_cache()
@@ -6751,6 +7085,7 @@ def main() -> int:
     cpu_parity(rng)
     qa, qb_fp8, qb_int8 = path_q(native_a, native_b)
     ph, ph_direct = path_h(native_a[0])
+    po = path_o(native_a[0], ph_direct, ph["http"])
     ps = path_s(native_a[0], ph_direct, ph["http"])
     t32 = path_t(rng)
     train_parity(rng)
@@ -6764,6 +7099,7 @@ def main() -> int:
              lambda: bf16_batches, 8 * 2048,
              FLASH_KERNELS + ("adam_update",))
     del bf16_batches
+    ot = obs_train(np.random.default_rng(26))
     train_parity(rng, "train_parity_bf16", **TRAIN_PARITY_BF16)
     w = path_w(rng)
     train_parity(rng, "window_parity", "banded_attention", window=32,
@@ -6844,6 +7180,11 @@ def main() -> int:
             "library_ms": main_row["library_ms"]})
         if name == "paged_decode_attention":
             summary[-1]["launches_path_h"] = ph["launches"][name]
+            summary[-1]["launches_path_o"] = po["launches"][name]
+        if name == "flash_attention_fwd":
+            summary[-1]["launches_path_o"] = po["flash_launches"][name]
+        if name in FLASH_KERNELS + ("adam_update",):
+            summary[-1]["launches_obs_train"] = ot["launches"][name]
         if name == "banded_decode_attention":
             summary[-1].update(
                 launches_path_gen=gen["greedy"]["launches"][name],

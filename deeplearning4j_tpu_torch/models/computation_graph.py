@@ -96,7 +96,7 @@ class ComputationGraph:
         self._rng.manual_seed(int(conf.seed))
         self._step_t: Optional[torch.Tensor] = None
         self.cuda_graphs = True
-        self._graphs = NetGraphs(self.device)
+        self._graphs = NetGraphs(self.device, owner=self)
         self.fit_stats = {"graph_windows": 0, "eager_steps": 0}
         self._decode_state = DecodeState()
         self._solver = None

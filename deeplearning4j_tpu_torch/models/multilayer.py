@@ -476,7 +476,7 @@ class MultiLayerNetwork:
         self._step_t: Optional[torch.Tensor] = None
         self._decode_state = DecodeState()
         self.cuda_graphs = True
-        self._graphs = NetGraphs(self.device)
+        self._graphs = NetGraphs(self.device, owner=self)
         self.fit_stats = {"graph_windows": 0, "eager_steps": 0}
         self._solver = None
         self.pretrain_losses: Dict[str, List[torch.Tensor]] = {}

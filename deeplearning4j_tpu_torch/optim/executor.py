@@ -15,8 +15,17 @@
   differs from the buffer's and a batch `can_fuse` turns down (a tBPTT
   batch) drain the buffer through the per-step path.
 
-Not ported yet: the recovery hooks (checkpointing, resume, stop) and the
-tracing spans.
+Observe hooks: the run is a `fit` span with a `fit.epoch` span an
+epoch; with request tracing sampled (`DL4J_TPU_TRACE_SAMPLE`) each
+epoch is a `train.epoch` trace whose `train.dispatch` spans are its
+step windows (host enqueue time, never a device wait). `StepAttribution`
+splits each step into etl / dispatch / host time and infers the device
+time at the epoch's one loss read (the tracker's `on_block`); the net
+keeps it as `_attribution` for `PerformanceListener`. An exception that
+escapes the loop dumps the flight recorder. `maybe_start_monitor()`
+starts the device-memory poller when `DL4J_TPU_DEVICEMON` asks.
+
+Not ported yet: the recovery hooks (checkpointing, resume, stop).
 """
 
 from __future__ import annotations
@@ -26,14 +35,21 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
-from deeplearning4j_tpu_torch.observe import get_registry
+from deeplearning4j_tpu_torch.observe import get_registry, reqtrace, span
+from deeplearning4j_tpu_torch.observe.attribution import (
+    StepAttribution, attribution_enabled,
+)
+from deeplearning4j_tpu_torch.observe.devicemon import maybe_start_monitor
+from deeplearning4j_tpu_torch.observe.flight import get_flight
 
 __all__ = ["LossTracker", "TrainingExecutor", "batch_signature"]
 
 
 class LossTracker:
     """Deferred-sync score holder. ``host_syncs`` counts the reads that
-    waited for the device."""
+    waited for the device. ``on_block(block_ms)``, when set, is called
+    after a loss tensor is read, with how long the read waited: the
+    block point `StepAttribution` infers device time from."""
 
     def __init__(self, sync_every: int = 0):
         self.sync_every = int(sync_every)
@@ -42,6 +58,7 @@ class LossTracker:
         self._since_sync = 0
         self.host_syncs = 0
         self.updates = 0
+        self.on_block: Optional[Callable[[float], None]] = None
 
     def set(self, loss) -> None:
         self._raw = loss
@@ -60,9 +77,13 @@ class LossTracker:
         if self._raw is None:
             return None
         if self._cached is None:
-            if isinstance(self._raw, torch.Tensor) and self._raw.is_cuda:
+            blocked = isinstance(self._raw, torch.Tensor)
+            if blocked and self._raw.is_cuda:
                 self.host_syncs += 1
+            t0 = time.perf_counter()
             self._cached = float(self._raw)
+            if blocked and self.on_block is not None:
+                self.on_block((time.perf_counter() - t0) * 1e3)
             self._since_sync = 0
         return self._cached
 
@@ -107,6 +128,10 @@ class TrainingExecutor:
         self.fused_step = fused_step
         self.can_fuse = can_fuse or (lambda ds: False)
         self.k = max(1, int(steps_per_dispatch or 1))
+        self._attr: Optional[StepAttribution] = None
+        # the epoch's request trace; None when sampling is off, so the
+        # hot loop pays one attribute read a dispatch window
+        self._rt = None
         reg = get_registry()
         self._iter_counter = reg.counter("train_iterations")
         self._etl_hist = reg.histogram("train_etl_ms")
@@ -115,55 +140,110 @@ class TrainingExecutor:
     def run(self, iterable, epochs: int):
         net = self.net
         listeners = net.listeners
-        for l in listeners:
-            l.on_fit_start(net)
-        for _ in range(epochs):
-            for l in listeners:
-                l.on_epoch_start(net, net.epoch)
-            buf: List = []
-            etl_start = time.perf_counter()
-            for ds in iter(iterable):
-                etl_ms = (time.perf_counter() - etl_start) * 1e3
-                fusible = (self.k > 1 and self.fused_step is not None
-                           and self.can_fuse(ds))
-                if fusible and buf and \
-                        batch_signature(buf[0][0]) != batch_signature(ds):
-                    self._drain(buf)
-                    buf = []
-                if fusible:
-                    buf.append((ds, etl_ms))
-                    if len(buf) == self.k:
-                        self._run_fused(buf)
-                        buf = []
-                else:
-                    self._drain(buf)
-                    buf = []
-                    self._drain([(ds, etl_ms)])
-                etl_start = time.perf_counter()
-            self._drain(buf)
-            for l in listeners:
-                l.on_epoch_end(net, net.epoch)
-            net.epoch += 1
-            # the one read an epoch: score_ is a float at every epoch end
-            net._loss_tracker.materialize()
-        for l in listeners:
-            l.on_fit_end(net)
+        # the black box and the device poller, wired before the first
+        # fit span so a crash dump carries this run from its start
+        flight = get_flight()
+        maybe_start_monitor()
+        tracker = net._loss_tracker
+        attr = None
+        if attribution_enabled():
+            attr = StepAttribution(get_registry())
+            # PerformanceListener reads the device step time here
+            net._attribution = attr
+            tracker.on_block = attr.on_device_block
+        self._attr = attr
+        try:
+            with span("fit", epochs=epochs, steps_per_dispatch=self.k):
+                for l in listeners:
+                    l.on_fit_start(net)
+                for _ in range(epochs):
+                    ep = net.epoch
+                    self._rt = reqtrace.new_trace("train.epoch")
+                    with span("fit.epoch", epoch=ep):
+                        self._epoch(iterable)
+                    self._finish_epoch_trace(ep)
+                for l in listeners:
+                    l.on_fit_end(net)
+        except BaseException as e:
+            # close the epoch trace first, so the dump's trace block
+            # carries the crashed epoch's dispatch windows
+            self._finish_epoch_trace(net.epoch, error=type(e).__name__)
+            flight.dump("training_exception", exc=e)
+            raise
+        finally:
+            tracker.on_block = None
         return net
+
+    def _epoch(self, iterable) -> None:
+        net = self.net
+        for l in net.listeners:
+            l.on_epoch_start(net, net.epoch)
+        buf: List = []
+        etl_start = time.perf_counter()
+        for bi, ds in enumerate(iter(iterable)):
+            etl_ms = (time.perf_counter() - etl_start) * 1e3
+            fusible = (self.k > 1 and self.fused_step is not None
+                       and self.can_fuse(ds))
+            if fusible and buf and \
+                    batch_signature(buf[0][1]) != batch_signature(ds):
+                self._drain(buf)
+                buf = []
+            if fusible:
+                buf.append((bi, ds, etl_ms))
+                if len(buf) == self.k:
+                    self._run_fused(buf)
+                    buf = []
+            else:
+                self._drain(buf)
+                buf = []
+                self._drain([(bi, ds, etl_ms)])
+            etl_start = time.perf_counter()
+        self._drain(buf)
+        for l in net.listeners:
+            l.on_epoch_end(net, net.epoch)
+        net.epoch += 1
+        # the one read an epoch: score_ is a float at every epoch end,
+        # and the block point attribution infers device time from
+        net._loss_tracker.materialize()
+
+    def _finish_epoch_trace(self, epoch: int, **attrs) -> None:
+        """Close the epoch's trace root (None-safe; resets _rt)."""
+        rt, self._rt = self._rt, None
+        reqtrace.finish_root(rt, epoch=epoch, iteration=self.net.iteration,
+                             steps_per_dispatch=self.k, **attrs)
+
+    def _trace_window(self, bi_lo: int, bi_hi: int, dur_ms: float,
+                      fused: bool = False) -> None:
+        """One `train.dispatch` span a step window, keyed (epoch, batch
+        range); `dur_ms` is the host's enqueue time, never a device
+        wait."""
+        rt = self._rt
+        if rt is None:
+            return
+        ep = self.net.epoch
+        reqtrace.record_span(
+            rt.trace_id, "train.dispatch", parent_id=rt.span_id,
+            dur_ms=dur_ms, epoch=ep, window=f"{ep}:{bi_lo}-{bi_hi}",
+            steps=bi_hi - bi_lo + 1, fused=fused)
 
     def _drain(self, buf) -> None:
         """Batches through the per-step path (a short tail would need a
         K'-step graph of its own)."""
-        for ds, etl_ms in buf:
+        for bi, ds, etl_ms in buf:
             t_d = time.perf_counter()
             loss = self.step(ds)
-            self._finish(loss, etl_ms, (time.perf_counter() - t_d) * 1e3)
+            dispatch_ms = (time.perf_counter() - t_d) * 1e3
+            self._trace_window(bi, bi, dispatch_ms)
+            self._finish(loss, etl_ms, dispatch_ms)
 
     def _run_fused(self, buf) -> None:
         t_d = time.perf_counter()
-        losses = self.fused_step([ds for ds, _ in buf])
+        losses = self.fused_step([ds for _, ds, _ in buf])
         # one dispatch for K steps: its enqueue time shared evenly
         dispatch_ms = (time.perf_counter() - t_d) * 1e3 / len(buf)
-        for j, (_, etl_ms) in enumerate(buf):
+        self._trace_window(buf[0][0], buf[-1][0], dispatch_ms * len(buf),
+                           fused=True)
+        for j, (_, _, etl_ms) in enumerate(buf):
             # losses[j] stays on the device: indexing does not sync
             self._finish(losses[j], etl_ms, dispatch_ms)
 
@@ -175,8 +255,12 @@ class TrainingExecutor:
         self._etl_hist.observe(etl_ms)
         # host-side enqueue time of the step, not its device time
         self._dispatch_hist.observe(dispatch_ms)
+        t_h = time.perf_counter()
         for l in net.listeners:
             if hasattr(l, "set_etl_time"):
                 l.set_etl_time(etl_ms)
             l.iteration_done(net, net.iteration, net.epoch,
                              net._loss_tracker.peek())
+        if self._attr is not None:
+            self._attr.record_iteration(
+                etl_ms, dispatch_ms, (time.perf_counter() - t_h) * 1e3)

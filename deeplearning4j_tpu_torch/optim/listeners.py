@@ -68,10 +68,21 @@ class PerformanceListener(TrainingListener):
     time axis of a sequence batch) and batches a second, ms a step and
     ETL time, every `frequency` iterations. Reads no score, so it adds no
     sync: in a pipelined loop its rate is the host's enqueue rate until
-    the queue fills, then the device's."""
+    the queue fills, then the device's.
+
+    With `flops_per_step` (`utils.profiling.step_flops(model, x, y)`) it
+    reports the MFU against `peak_flops` (default: the peak table's bf16
+    figure for CUDA device 0, looked up once here; an unknown card
+    leaves it None and the MFU unreported). The MFU's denominator is the
+    attribution's device ms a step (`last_device_step_ms`) once the fit
+    loop has closed a window, the wall ms a step before. Under a
+    `HostSyncMonitor` it reports syncs a step
+    (`train_host_syncs_per_step`)."""
 
     def __init__(self, frequency: int = 10,
-                 report: Optional[Callable] = None):
+                 report: Optional[Callable] = None, *,
+                 flops_per_step: Optional[float] = None,
+                 peak_flops: Optional[float] = None):
         self.frequency = max(1, frequency)
         self._report = report or (lambda msg: logger.info(msg))
         self._last_time = None
@@ -81,12 +92,26 @@ class PerformanceListener(TrainingListener):
         self.last_batches_per_sec = 0.0
         self.last_step_ms: Optional[float] = None
         self.last_etl_ms = 0.0
+        self.flops_per_step = flops_per_step
+        if flops_per_step and peak_flops is None:
+            from deeplearning4j_tpu_torch.utils.profiling import (
+                peak_flops as _peak,
+            )
+            peak_flops = _peak()
+        if peak_flops is not None and not peak_flops > 0:
+            peak_flops = None      # NaN/0/negative: no gauge
+        self.peak_flops = peak_flops
+        self.last_mfu: Optional[float] = None
+        self.last_device_step_ms: Optional[float] = None
+        self.last_syncs_per_step: Optional[float] = None
         from deeplearning4j_tpu_torch.observe import get_registry
 
         reg = get_registry()
         self._g_sps = reg.gauge("train_samples_per_sec")
         self._g_tps = reg.gauge("train_tokens_per_sec")
         self._g_step_ms = reg.gauge("train_step_ms")
+        self._g_mfu = reg.gauge("train_mfu")
+        self._g_syncs = reg.gauge("train_host_syncs_per_step")
 
     def set_etl_time(self, ms: float) -> None:
         self.last_etl_ms = ms
@@ -109,11 +134,33 @@ class PerformanceListener(TrainingListener):
         self._g_sps.set(self.last_samples_per_sec)
         self._g_tps.set(self.last_tokens_per_sec)
         self._g_step_ms.set(self.last_step_ms)
-        self._report(f"iteration {iteration}: "
-                     f"{self.last_samples_per_sec:.1f} samples/sec, "
-                     f"{self.last_tokens_per_sec:.1f} tokens/sec, "
-                     f"{self.last_step_ms:.1f} ms/step, "
-                     f"ETL {self.last_etl_ms:.1f} ms")
+        # the device ms a step of the latest attribution window (the fit
+        # loop parks its StepAttribution on the net)
+        attr = getattr(model, "_attribution", None)
+        dev_ms = attr.last_device_step_ms() if attr is not None else None
+        self.last_device_step_ms = dev_ms
+        msg = (f"iteration {iteration}: "
+               f"{self.last_samples_per_sec:.1f} samples/sec, "
+               f"{self.last_tokens_per_sec:.1f} tokens/sec, "
+               f"{self.last_step_ms:.1f} ms/step, "
+               f"ETL {self.last_etl_ms:.1f} ms")
+        if dev_ms:
+            msg += f", device {dev_ms:.2f} ms/step"
+        if self.flops_per_step and self.peak_flops:
+            step_s = dev_ms / 1e3 if dev_ms else dt / n
+            self.last_mfu = self.flops_per_step / step_s / self.peak_flops
+            self._g_mfu.set(self.last_mfu)
+            msg += (f", MFU {self.last_mfu:.1%}"
+                    + (" (device)" if dev_ms else ""))
+        from deeplearning4j_tpu_torch.observe import current_monitor
+
+        mon = current_monitor()
+        if mon is not None:
+            # syncs since the last report window
+            self.last_syncs_per_step = mon.take() / n
+            self._g_syncs.set(self.last_syncs_per_step)
+            msg += f", {self.last_syncs_per_step:.2f} syncs/step"
+        self._report(msg)
         self._last_time, self._last_iter = now, iteration
 
 

@@ -7,7 +7,10 @@ INPLACE and BATCHED. A batch is padded to the smallest bucket that holds
 it (repeating its first row) and run as one `net.output` call; a batch
 past the largest bucket is run in chunks of it and reassembled in order.
 Buckets keep the shapes a model sees few and fixed, as the JAX runner's
-per-bucket jit cache does. In BATCHED mode a collector thread coalesces
+per-bucket jit cache does; a bucket's first forward is reported to the
+recompile watchdog under the runner's `owner_tag` (the counterpart of
+the JAX runner's per-bucket compile), which the registry's deploy gate
+reads after a warm-up. In BATCHED mode a collector thread coalesces
 concurrent `output()` requests up to `max_batch_size` rows or
 `max_wait_ms`, runs them as one batch and hands each caller its rows.
 
@@ -50,6 +53,11 @@ class ParallelInference:
         self.max_wait = max_wait_ms / 1e3
         self.buckets = sorted(set(batch_buckets
                                   or [1, 8, 32, max_batch_size]))
+        from deeplearning4j_tpu_torch.observe.watchdog import owner_tag
+
+        self.owner_tag = owner_tag(self)
+        self._seen_buckets: set = set()
+        self._seen_lock = threading.Lock()
         self._queue: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         # every future enqueued on the collector is counted until it
@@ -138,6 +146,17 @@ class ParallelInference:
         self._m_dispatches.inc()
         self._m_rows.observe(n)
         b = self._bucket(n)
+        key = (b, *x.shape[1:], str(x.dtype))
+        with self._seen_lock:
+            new = key not in self._seen_buckets
+            self._seen_buckets.add(key)
+        if new:
+            from deeplearning4j_tpu_torch.observe.watchdog import (
+                get_watchdog,
+            )
+
+            get_watchdog().record_compile(self.owner_tag,
+                                          type(self).__name__, key)
         if n < b:
             x = np.concatenate([x, np.repeat(x[:1], b - n, axis=0)], axis=0)
         y = self.net.output(x)

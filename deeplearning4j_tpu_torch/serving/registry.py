@@ -7,12 +7,18 @@ bucket, chunks past the largest), and is the scheduler's
 `acquire()/release()` seam. `deploy(name, version, net)`:
 
 1. builds the new entry's runner and warms it (one forward at every
-   bucket) while the old version keeps serving; deploy hooks then run
-   their "warm" phase (a decode-session manager checks that its live
-   sessions can move onto the candidate and runs the candidate's
-   session programs once); if the warm-up or a hook raises, the flip
-   never happens, the previous version keeps serving and
-   `DeployRolledBackError` is raised;
+   bucket) while the old version keeps serving. The warm-up is the
+   canary: if it raises, or it trips the recompile watchdog on the new
+   runner's tag (the version would pay a bucket's first forward under
+   live traffic, `observe/watchdog.py`), the flip never happens, the
+   previous version keeps serving and `DeployRolledBackError` is raised;
+   the rollback is counted in `serving_deploy_rollbacks_total` and
+   flight-recorded. A watchdog trip on a FIRST deploy (nothing to roll
+   back to) proceeds with a warning — degraded beats dark. Deploy hooks
+   then run their "warm" phase (a decode-session manager checks that
+   its live sessions can move onto the candidate and runs the
+   candidate's session programs once); a hook that raises rolls the
+   deploy back the same way;
 2. flips the active pointer under the registry lock, atomic with
    `acquire`, so a request routes to exactly one version; "flipped"
    hooks run next (the session manager rebinds its pool: live sessions
@@ -21,10 +27,7 @@ bucket, chunks past the largest), and is the scheduler's
    runner down.
 
 External runners (the decode session manager) join through
-`register_entry`. The JAX registry also rolls a deploy back when the
-warm-up trips its recompile watchdog; the port has no watchdog yet
-(ROADMAP A8), so a warm-up that raises and a hook that raises are the
-rollback's only causes here.
+`register_entry`.
 """
 
 from __future__ import annotations
@@ -42,9 +45,10 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 
 class DeployRolledBackError(RuntimeError):
-    """`deploy()` refused to flip: the warm-up or a warm-phase hook
-    raised, and the previously active version (when one exists) was left
-    serving. The failed runner is already shut down."""
+    """`deploy()` refused to flip: the warm-up raised or tripped the
+    recompile watchdog, or a warm-phase hook raised, and the previously
+    active version (when one exists) was left serving. The failed runner
+    is already shut down."""
 
 
 class ModelEntry:
@@ -119,8 +123,9 @@ class ModelRegistry:
         """Deploy `net` as the active version of `name`; returns the new
         entry after the old one (if any) is drained and retired. With
         `warm`, the runner's warm-up and the warm-phase hooks are the
-        canary: if either raises, nothing flips and DeployRolledBackError
-        is raised."""
+        canary: if either raises, or the warm-up trips the recompile
+        watchdog while a previous version serves, nothing flips and
+        DeployRolledBackError is raised."""
         with self._lock:
             cur = self._active.get(name)
         if cur is not None and cur._external:
@@ -134,13 +139,27 @@ class ModelRegistry:
         entry = ModelEntry(name, version, net, runner)
         if warm:
             shape = feat_shape or self._infer_feat_shape(net)
-            try:
-                if shape:
+            if shape:
+                try:
                     runner.warmup(shape)
-                for hook in self._hooks_for(name):
+                except Exception as e:
+                    self._reject_deploy(name, version, runner, cause=e)
+                if self._warmup_tripped(runner):
+                    with self._lock:
+                        has_previous = name in self._active
+                    if has_previous:
+                        self._reject_deploy(name, version, runner,
+                                            cause=None)
+                    logger.warning(
+                        "deploy(%s@%r): warmup tripped the recompile "
+                        "watchdog but no previous version exists — "
+                        "deploying anyway (degraded beats dark)",
+                        name, version)
+            for hook in self._hooks_for(name):
+                try:
                     hook("warm", name, version, net)
-            except Exception as e:
-                self._reject_deploy(name, version, runner, e)
+                except Exception as e:
+                    self._reject_deploy(name, version, runner, cause=e)
         with self._lock:
             old = self._active.get(name)
             self._active[name] = entry
@@ -151,29 +170,51 @@ class ModelRegistry:
         for hook in self._hooks_for(name):
             try:
                 hook("flipped", name, version, net)
-            except Exception:
+            except Exception as e:
                 logger.exception("deploy(%s@%r): post-flip hook failed",
                                  name, version)
+                from deeplearning4j_tpu_torch.observe import get_flight
+
+                get_flight().record("deploy_hook_failed", model=name,
+                                    version=version,
+                                    error=type(e).__name__)
         if old is not None:
             self._retire(old)
         return entry
 
-    def _reject_deploy(self, name, version, runner, cause):
-        """Tear down the failed candidate and raise; the active pointer
-        was never touched, so the old version (if any) keeps serving."""
-        runner.shutdown()
-        from deeplearning4j_tpu_torch.observe import get_registry
+    @staticmethod
+    def _warmup_tripped(runner: ParallelInference) -> bool:
+        """Did warming THIS runner cross the watchdog's churn threshold?
+        The tag is per instance, so a trip here is the new version's own
+        churn, never residue from an old one."""
+        from deeplearning4j_tpu_torch.observe.watchdog import get_watchdog
 
-        get_registry().counter("serving_deploy_rollbacks_total",
-                               model=name).inc()
+        return get_watchdog().warned(runner.owner_tag)
+
+    def _reject_deploy(self, name, version, runner, *, cause):
+        """Tear down the failed candidate and raise; the active pointer
+        was never touched, so the old version (if any) keeps serving.
+        `cause` None: the warm-up tripped the watchdog."""
+        runner.shutdown()
+        from deeplearning4j_tpu_torch.observe import get_flight, get_registry
+
+        reason = (f"warm-up raised {type(cause).__name__}: {cause}"
+                  if cause is not None
+                  else "warmup tripped the recompile watchdog")
         with self._lock:
             has_previous = name in self._active
+        get_registry().counter("serving_deploy_rollbacks_total",
+                               model=name).inc()
+        get_flight().record(
+            "deploy_rollback", model=name, version=version,
+            reason=reason, watchdog_tripped=cause is None,
+            previous_kept=has_previous,
+            error=None if cause is None else type(cause).__name__)
         logger.warning("deploy(%s@%r) rolled back: %s%s", name, version,
-                       cause, " — previous version keeps serving"
+                       reason, " — previous version keeps serving"
                        if has_previous else "")
         raise DeployRolledBackError(
-            f"deploy {name}@{version!r} rolled back: warm-up raised "
-            f"{type(cause).__name__}: {cause}") from cause
+            f"deploy {name}@{version!r} rolled back: {reason}") from cause
 
     # ---------------------------------------------- entries and hooks
     def register_entry(self, name: str, entry: ModelEntry) -> ModelEntry:

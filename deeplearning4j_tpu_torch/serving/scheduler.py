@@ -18,8 +18,20 @@ consecutive crashes the held batch fails with WorkerCrashError.
 
 The workers run the device work, so they get the device explicitly:
 each worker thread makes `device` its current CUDA device before it
-takes a batch. Not ported yet: request tracing spans, the flight
-recorder, sequence-parallel batch keys and the chaos fault seam.
+takes a batch.
+
+Observe hooks (`observe/reqtrace.py`, `observe/flight.py`): a request
+carries the TraceContext its HTTP edge minted (or the edge's contextvar
+carrier) across admission; at dispatch each traced request closes a
+`queue.wait` span and the co-batched traces share one `dispatch` span
+each (the fan-in window `run_batch` parents its per-row spans on). Shed,
+expired and crashed requests are traced whatever the sampling rate, and
+the trace id rides the raised exception (`trace_id`). A worker crash
+dumps the flight recorder; a failed dispatch leaves a
+`serving_dispatch_error` event in it.
+
+Not ported yet: sequence-parallel batch keys and the chaos fault seam
+(ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.observe import reqtrace
 from deeplearning4j_tpu_torch.serving.metrics import ServingStats
 
 
@@ -73,15 +86,20 @@ class _WorkerCrashed(BaseException):
 
 
 class _Request:
-    __slots__ = ("x", "fut", "model", "deadline", "t_enqueue", "ctx")
+    __slots__ = ("x", "fut", "model", "deadline", "t_enqueue", "ctx",
+                 "trace", "t_wall")
 
-    def __init__(self, x, fut, model, deadline, ctx):
+    def __init__(self, x, fut, model, deadline, ctx, trace=None):
         self.x = x
         self.fut = fut
         self.model = model
         self.deadline = deadline
         self.t_enqueue = time.monotonic()
         self.ctx = ctx
+        # None on the sampled-off path (no span objects); t_wall anchors
+        # the queue.wait span
+        self.trace = trace
+        self.t_wall = time.time() if trace is not None else 0.0
 
 
 class ContinuousBatchingScheduler:
@@ -150,24 +168,38 @@ class ContinuousBatchingScheduler:
         self.stats.worker_streak(worst)
 
     def submit(self, model: str, x,
-               deadline_ms: Optional[float] = None) -> Future:
+               deadline_ms: Optional[float] = None, *,
+               trace=None) -> Future:
         """Admit one request; returns a Future resolving to the output
         rows. Raises RequestShedError / DeadlineExceededError /
-        SchedulerClosedError per the admission contract."""
+        SchedulerClosedError per the admission contract.
+
+        `trace` carries the request's TraceContext across admission
+        (decode sessions resubmit from worker threads, where the edge's
+        contextvar is not in scope); when omitted,
+        `reqtrace.current_trace()` is picked up. Shed and expired
+        requests are traced whatever the sampling rate, and the trace
+        id is stamped on the raised exception."""
         x = np.asarray(x)
         now = time.monotonic()
         dl_s = (deadline_ms / 1e3 if deadline_ms is not None
                 else self.default_deadline)
         deadline = now + dl_s if dl_s is not None else None
+        if trace is None:
+            trace = reqtrace.current_trace()
         with self._cv:
             if self._closed:
                 raise SchedulerClosedError("scheduler is shut down")
             if self._depth >= self.capacity:
                 if self.policy == AdmissionPolicy.SHED:
                     self.stats.shed(model)
-                    raise RequestShedError(
+                    err = RequestShedError(
                         f"admission queue full "
                         f"({self._depth}/{self.capacity})")
+                    err.trace_id = reqtrace.error_trace(
+                        "request.shed", ctx=trace, model=model,
+                        queue_depth=self._depth, capacity=self.capacity)
+                    raise err
                 limit = now + self.block_timeout
                 if deadline is not None:
                     limit = min(limit, deadline)
@@ -177,17 +209,26 @@ class ContinuousBatchingScheduler:
                         if (deadline is not None
                                 and time.monotonic() >= deadline):
                             self.stats.expired(model)
-                            raise DeadlineExceededError(
+                            err = DeadlineExceededError(
                                 "deadline passed waiting for admission")
+                            err.trace_id = reqtrace.error_trace(
+                                "request.expired", ctx=trace, model=model,
+                                where="admission")
+                            raise err
                         self.stats.shed(model)
-                        raise RequestShedError(
+                        err = RequestShedError(
                             f"admission blocked > {self.block_timeout}s")
+                        err.trace_id = reqtrace.error_trace(
+                            "request.shed", ctx=trace, model=model,
+                            queue_depth=self._depth,
+                            blocked_s=round(self.block_timeout, 3))
+                        raise err
                     self._cv.wait(remaining)
                 if self._closed:
                     raise SchedulerClosedError("scheduler is shut down")
             fut: Future = Future()
             req = _Request(x, fut, model, deadline,
-                           contextvars.copy_context())
+                           contextvars.copy_context(), trace)
             self._queues.setdefault(model, deque()).append(req)
             self._depth += 1
             self.stats.admitted(model)
@@ -255,12 +296,21 @@ class ContinuousBatchingScheduler:
             streak[0] += 1
             self._note_streak(streak[0])
             self.stats.worker_restarted()
+            # a dead worker is a silent outage: black box first
+            from deeplearning4j_tpu_torch.observe.flight import get_flight
+
+            get_flight().dump("scheduler_worker_crash", exc=cause)
             if streak[0] > self.max_worker_restarts:
                 for r in batch:
+                    exc = WorkerCrashError(
+                        f"worker crashed {streak[0]} consecutive "
+                        f"times holding this batch: {cause!r}")
+                    exc.trace_id = reqtrace.error_trace(
+                        "request.worker_crash", ctx=r.trace,
+                        model=r.model, crashes=streak[0],
+                        cause=type(cause).__name__)
                     if not r.fut.done():
-                        r.fut.set_exception(WorkerCrashError(
-                            f"worker crashed {streak[0]} consecutive "
-                            f"times holding this batch: {cause!r}"))
+                        r.fut.set_exception(exc)
                     self.stats.completed(r.model, 0.0, ok=False)
                 streak[0] = 0
                 self._note_streak(0)
@@ -322,10 +372,14 @@ class ContinuousBatchingScheduler:
         for r in batch:
             if r.deadline is not None and now >= r.deadline:
                 self.stats.expired(r.model)
+                exc = DeadlineExceededError(
+                    f"deadline exceeded after "
+                    f"{now - r.t_enqueue:.3f}s in queue")
+                exc.trace_id = reqtrace.error_trace(
+                    "request.expired", ctx=r.trace, model=r.model,
+                    where="queue", queue_s=round(now - r.t_enqueue, 3))
                 if not r.fut.done():
-                    r.fut.set_exception(DeadlineExceededError(
-                        f"deadline exceeded after "
-                        f"{now - r.t_enqueue:.3f}s in queue"))
+                    r.fut.set_exception(exc)
                 continue
             live.append(r)
         if not live:
@@ -341,25 +395,52 @@ class ContinuousBatchingScheduler:
                     r.fut.set_exception(e)
                 self.stats.completed(r.model, 0.0, ok=False)
             return
+        dt = None
         try:
             xs = (live[0].x if len(live) == 1
                   else np.concatenate([r.x for r in live], axis=0))
             self.stats.batch_dispatched(xs.shape[0], self.max_batch)
+            traced = [r for r in live if r.trace is not None]
+            if traced:
+                # fan-in: close each trace's admission wait, then open ONE
+                # dispatch window joining the co-batched traces, pinned
+                # to this worker thread (run_batch parents on it)
+                t_w = time.time()
+                for r in traced:
+                    reqtrace.record_span(
+                        r.trace.trace_id, "queue.wait",
+                        parent_id=r.trace.span_id, ts=r.t_wall,
+                        dur_ms=(t_w - r.t_wall) * 1e3, model=model)
+                dt = reqtrace.begin_dispatch([r.trace for r in traced])
             ys = live[0].ctx.run(entry.run_batch, xs)
             done = time.monotonic()
             ver = getattr(entry, "version", None)
+            reqtrace.end_dispatch(dt, model=model, rows=int(xs.shape[0]),
+                                  requests=len(live), version=ver)
+            dt = None
             off = 0
             for r in live:
                 n = r.x.shape[0]
                 if not r.fut.done():
                     r.fut.version = ver
                     r.fut.set_result(ys[off:off + n])
-                self.stats.completed(r.model, done - r.t_enqueue)
+                self.stats.completed(
+                    r.model, done - r.t_enqueue,
+                    trace_id=r.trace.trace_id if r.trace else None)
                 off += n
         except BaseException as e:
+            reqtrace.end_dispatch(dt, model=model, requests=len(live),
+                                  error=type(e).__name__)
             for r in live:
                 if not r.fut.done():
                     r.fut.set_exception(e)
                 self.stats.completed(r.model, 0.0, ok=False)
+            # per-batch faults reach the futures and stats; a ring event
+            # keeps them visible in a later crash dump too
+            from deeplearning4j_tpu_torch.observe.flight import get_flight
+
+            get_flight().record("serving_dispatch_error", model=model,
+                                error=type(e).__name__,
+                                requests=len(live))
         finally:
             self.registry.release(entry)

@@ -59,9 +59,17 @@ for padded and inactive lanes, and the windows write them back into the
 pool's tensors. Their carries cannot rewind or be paged, so such a
 manager runs with speculation and the prefix cache off.
 
+Observe hooks: a session carries its request's TraceContext through
+every resubmitted row; each dispatch records one `session.window` span
+per traced row under that trace's `dispatch` span (phase, window,
+tokens emitted, bucket, kernel), and a finished session a
+`session.close` span. `session_open`, `session_close` and
+`decode_sessions_migrated` (a hot-swap flip) are flight-recorder
+events; TTFT and ITL observations carry the trace id as exemplar.
+
 Not ported yet: the fleet's prefill-only role and page export/import
-(`open_prefill`, ROADMAP S5), and the request-trace, flight-recorder and
-comms-monitor hooks (S6): both wait for the observe modules (A8).
+(`open_prefill`, ROADMAP S5), and the comms-monitor seams that wait for
+collectives (A6).
 """
 
 from __future__ import annotations
@@ -76,6 +84,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.observe import get_flight, reqtrace
 from deeplearning4j_tpu_torch.ops.kernel_defaults import (
     decode_attention_policy, decode_loop_policy, kv_dtype_policy,
     prefix_cache_policy, spec_decode_policy,
@@ -108,10 +117,13 @@ class DecodeSession:
     def __init__(self, sid: str, slot: int, prompt: np.ndarray, *,
                  max_tokens: int, params: SamplingParams,
                  seed: Optional[int], deadline_ms: Optional[float],
-                 eos_id: Optional[int]):
+                 eos_id: Optional[int], trace=None):
         self.id = sid
         self.slot = slot
         self.prompt = prompt
+        # a sampled request's TraceContext rides every resubmitted row;
+        # None on the sampled-off path
+        self.trace = trace
         self.max_tokens = int(max_tokens)
         self.params = params
         # sampling runs on the device inside the window: token i of the
@@ -185,7 +197,9 @@ class DecodeSession:
                 "generated": len(self.generated),
                 "max_tokens": self.max_tokens,
                 "ttft_ms": self.ttft_ms,
-                "outcome": self.outcome}
+                "outcome": self.outcome,
+                "trace_id": (self.trace.trace_id
+                             if self.trace is not None else None)}
 
 
 class DecodeSessionManager:
@@ -401,7 +415,8 @@ class DecodeSessionManager:
                      greedy: bool = False, seed: Optional[int] = None,
                      deadline_ms: Optional[float] = None,
                      eos_id: Optional[int] = None,
-                     alloc_timeout_s: float = 0.0) -> DecodeSession:
+                     alloc_timeout_s: float = 0.0,
+                     trace=None) -> DecodeSession:
         """Admit one generation: claim a slot (SlotPoolExhaustedError ->
         503 upstream), check the token budget against the net's decode
         limit, and start the prefill -> decode callback chain. Returns
@@ -445,7 +460,7 @@ class DecodeSessionManager:
         sess = DecodeSession(
             f"s{next(self._sid):06d}", slot, prompt,
             max_tokens=max_tokens, params=params, seed=seed,
-            deadline_ms=deadline_ms, eos_id=eos_id)
+            deadline_ms=deadline_ms, eos_id=eos_id, trace=trace)
         sess._pages = pages
         sess._cached_len = cached_len
         sess._gen = gen
@@ -456,6 +471,10 @@ class DecodeSessionManager:
             n_active = len(self._sessions)
         self._c_opened.inc()
         self._g_active.set(n_active)
+        get_flight().record("session_open", model=self.model,
+                            session=sess.id, slot=slot,
+                            prompt_len=int(prompt.size),
+                            max_tokens=int(max_tokens))
         self._submit_next(sess)
         return sess
 
@@ -569,8 +588,11 @@ class DecodeSessionManager:
             return
         row = self._next_row(sess)
         try:
+            # explicit trace: resubmits run on scheduler worker threads,
+            # where the edge's contextvar carrier is not in scope
             fut = self.scheduler.submit(self.decode_name, row,
-                                        deadline_ms=rem)
+                                        deadline_ms=rem,
+                                        trace=sess.trace)
         except BaseException as e:
             self._finish(sess, error=e)
             return
@@ -598,15 +620,16 @@ class DecodeSessionManager:
                 return
             toks = np.asarray(y)[0, 1:1 + n].astype(np.int64)
             now = time.monotonic()
+            tid = sess.trace.trace_id if sess.trace is not None else None
             if sess.ttft_ms is None:
                 sess.ttft_ms = (now - sess.opened_at) * 1000.0
-                self._h_ttft.observe(sess.ttft_ms)
+                self._h_ttft.observe(sess.ttft_ms, exemplar=tid)
             else:
                 # tokens arrive in a burst of n: the per-token latency is
                 # the window gap amortized over the window
                 gap_ms = (now - sess._last_tok_at) * 1000.0
                 for _ in range(n):
-                    self._h_itl.observe(gap_ms / n)
+                    self._h_itl.observe(gap_ms / n, exemplar=tid)
             sess._last_tok_at = now
             hit_eos, appended = False, 0
             for t in toks:
@@ -639,6 +662,13 @@ class DecodeSessionManager:
                        else "failed")
         sess.outcome = outcome
         sess.error = error
+        if sess.trace is not None:
+            reqtrace.record_span(
+                sess.trace.trace_id, "session.close",
+                parent_id=sess.trace.span_id, session=sess.id,
+                slot=sess.slot, outcome=outcome,
+                tokens=len(sess.generated),
+                error=None if error is None else type(error).__name__)
         # release the session's page references (pages the radix index
         # adopted survive on its own refcount) and its slot in ONE
         # critical section: an admission waiting for a slot counts the
@@ -654,6 +684,10 @@ class DecodeSessionManager:
             self.pool.free_locked(sess.slot)
         self._c_out[outcome].inc()
         self._g_active.set(n_active)
+        get_flight().record(
+            "session_close", model=self.model, session=sess.id,
+            outcome=outcome, tokens=len(sess.generated),
+            error=None if error is None else type(error).__name__)
         if error is not None:
             sess._events.put({"error": str(error), "outcome": outcome})
         else:
@@ -681,6 +715,10 @@ class DecodeSessionManager:
                 f"decode rows must be [k, {3 + self.prefill_chunk}], "
                 f"got {xs.shape}")
         k = xs.shape[0]
+        # the fan-in window the scheduler worker opened when a row of
+        # this dispatch is traced; None keeps the untraced path bare
+        dtrace = reqtrace.active_dispatch()
+        t0 = time.perf_counter() if dtrace is not None else 0.0
         slots_idx = xs[:, 0].astype(np.int64)
         phase = xs[:, 1].astype(np.int64)
         nvalid = xs[:, 2].astype(np.int64)
@@ -691,6 +729,9 @@ class DecodeSessionManager:
         W = (self.spec_k + 1) if self.spec_enabled else K
         ys = np.zeros((k, 1 + W), np.float32)
 
+        bucket = 0
+        emit_n: Dict[int, int] = {}
+        acc_n: Dict[int, int] = {}
         if pre.size:
             need = int(nvalid[pre].max())
             bucket = min(b for b in self.buckets if b >= need)
@@ -792,6 +833,7 @@ class DecodeSessionManager:
                 # the accepted drafts actually emitted: a budget or EOS
                 # cut truncates an accepted run
                 acc = min(int(ph[s, 1]), n)
+                emit_n[s], acc_n[s] = n, acc
                 ys[i, 0] = n
                 ys[i, 1:1 + n] = ph[s, 3:3 + n]
                 sess = by_slot.get(s)
@@ -819,6 +861,7 @@ class DecodeSessionManager:
                 if not act_d[s]:
                     continue
                 n = int(emits_h[s].sum())
+                emit_n[s] = n
                 ys[i, 0] = n
                 ys[i, 1:1 + K] = toks_h[s]
                 wtoks += n
@@ -828,7 +871,47 @@ class DecodeSessionManager:
         self._c_rows.inc(k)
         if k >= 2:
             self._c_shared.inc()
+        if dtrace is not None:
+            self._trace_windows(dtrace, slots_idx, phase, nvalid, emit_n,
+                                acc_n, bucket, k,
+                                (time.perf_counter() - t0) * 1e3)
         return ys
+
+    def _trace_windows(self, dtrace, slots_idx, phase, nvalid,
+                       emit_n: dict, acc_n: dict, bucket: int, k: int,
+                       dur_ms: float) -> None:
+        """One `session.window` span per traced row of this dispatch,
+        parented on that trace's dispatch span: the phase, the window
+        (`win`: K or spec_k for a decode row, the chunk for a prefill
+        row), the tokens it emitted, and the decode kernel the target's
+        attention runs (host scalars only)."""
+        with self._lock:
+            by_slot = {s.slot: s for s in self._sessions.values()
+                       if s.trace is not None}
+            kernels = ",".join(sorted({r["kernel"] for r in
+                                       self._kernel_policy_rows
+                                       if r["net"] == "target"})) or "n/a"
+        for i in range(slots_idx.shape[0]):
+            s = int(slots_idx[i])
+            sess = by_slot.get(s)
+            if sess is None:
+                continue
+            sid = dtrace.span_ids.get(sess.trace.trace_id)
+            if sid is None:
+                continue        # co-batched with a different endpoint
+            decode = int(phase[i]) == 1
+            reqtrace.record_span(
+                sess.trace.trace_id, "session.window", parent_id=sid,
+                dur_ms=dur_ms, session=sess.id, slot=sess.slot,
+                phase="decode" if decode else "prefill",
+                step=len(sess.generated),
+                win=int((self.spec_k if self.spec_enabled
+                         else self.fused_k) if decode else nvalid[i]),
+                tokens=int(emit_n.get(s, 0)), bucket=bucket, rows=k,
+                spec=bool(self.spec_enabled and decode),
+                accepted=int(acc_n.get(s, 0)),
+                prefix_cache=int(sess._cached_len),
+                kernel=kernels, loop=self.loop_kind)
 
     # --------------------------------------------------------- hot-swap
     def _deploy_hook(self, phase: str, name: str, version, net) -> None:
@@ -855,6 +938,8 @@ class DecodeSessionManager:
                 n = len(self._sessions)
             self.entry.net = net
             self.entry.version = version
+            get_flight().record("decode_sessions_migrated", model=name,
+                                version=version, live_sessions=n)
             logger.info("decode sessions migrated to %s@%r (%d live)",
                         name, version, n)
 

@@ -21,6 +21,11 @@ reads in place (parameters, optimizer state, KV caches): a call whose
 addresses differ drops the entry and captures anew rather than replay
 a graph over freed memory.
 
+Every entry made (a key's first call, or a capture anew after an
+address change) is reported to the recompile watchdog under the owning
+net's tag (`observe/watchdog.py`): it is the port's counterpart of a
+jit compile, and shape churn shows as a climbing count.
+
 On the CPU there are no graphs: the same static buffers are filled and
 the function is called on them directly, so an output that aliases a
 static buffer shows in a CPU test as it would on the card. A capture
@@ -114,10 +119,15 @@ class NetGraphs:
     key, the counts by kind (a key's first element): `replays`, `eager`
     calls (warm-ups, and every call on the CPU), `captures`,
     `capture_ms`; and whether the latest call was a replay
-    (`replayed`)."""
+    (`replayed`). `owner` (the net) names the watchdog's owner tag."""
 
-    def __init__(self, device):
+    def __init__(self, device, owner=None):
+        from deeplearning4j_tpu_torch.observe.watchdog import owner_tag
+
         self.device = torch.device(device)
+        owner = self if owner is None else owner
+        self.owner_class = type(owner).__name__
+        self.owner_tag = owner_tag(owner)
         self._entries: Dict[Hashable, _Entry] = {}
         self._stream = None
         self._pool = None
@@ -151,6 +161,12 @@ class NetGraphs:
             del self._entries[key]
             e = None
         if e is None:
+            from deeplearning4j_tpu_torch.observe.watchdog import (
+                get_watchdog,
+            )
+
+            get_watchdog().record_compile(self.owner_tag, self.owner_class,
+                                          key)
             e = _Entry(_static_like(tuple(inputs)), addresses)
             self._entries[key] = e
         _fill(e.static, tuple(inputs))

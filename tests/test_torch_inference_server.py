@@ -7,9 +7,10 @@ weights (a 2-block TextGenerationTransformer, d_model 32, vocabulary
 token for token, `/output` within 1e-5, `/metrics` must carry JAX's JSON
 keys and Prometheus content type; the error statuses (400 on a bad body,
 503 on slot exhaustion), `/generate/cancel`, the three dispatch modes,
-and the routes that wait for the observe modules (501 naming A8). Every
-HTTP call and future has a timeout, and every server is stopped in a
-`finally`."""
+and the observe routes (`/devices`, `/flight`, `/trace`, `/series`,
+`/slo`, `POST /flight/dump`), which answer with JAX's statuses and JSON
+keys. Every HTTP call and future has a timeout, and every server is
+stopped in a `finally`."""
 
 import functools
 import json
@@ -218,30 +219,38 @@ def test_slot_exhaustion_is_503_and_cancel_frees_the_slot():
                                   "/series", "/slo", "/trace/abc",
                                   "/flight/latest"])
 def test_observe_routes_answer_501_naming_a8(servers, path):
-    status, body = _json(servers["torch"], path)
-    assert status == 501 and "A8" in body["error"]
+    """The routes that answered 501 until the observe modules were
+    ported now answer as JAX's do: the same status (404 for an unknown
+    trace) and, for a 200, JAX's JSON keys."""
+    got = {k: _json(s, path) for k, s in servers.items()}
+    assert got["torch"][0] == got["jax"][0] != 501, got
+    if got["jax"][0] == 200:
+        assert set(got["jax"][1]) <= set(got["torch"][1]), got
 
 
 def test_refusals_name_their_roadmap_items():
+    """A mesh still refuses naming A6; `slo=True` runs the sampler and
+    `POST /flight/dump` writes a dump, as in JAX."""
     from deeplearning4j_tpu_torch.serving import InferenceServer
 
-    with pytest.raises(NotImplementedError, match="A8"):
-        InferenceServer(slo=True)
     with pytest.raises(NotImplementedError, match="A6"):
         InferenceServer(mesh=object())
     status, body = _json_post_501()
-    assert status == 501 and "A8" in body["error"]
+    assert status == 200 and body["ok"] and body["reason"] == "x"
+    assert json.load(open(body["path"]))["reason"] == "x"
 
 
 def _json_post_501():
     from deeplearning4j_tpu_torch.serving import InferenceServer
 
-    srv = InferenceServer()
+    srv = InferenceServer(slo=True, series_interval=60.0)
     srv.start()
     try:
+        assert srv._sampler.running
         return _json(srv, "/flight/dump", {"reason": "x"})
     finally:
         srv.stop()
+        assert not srv._sampler.running
 
 
 @pytest.mark.parametrize("mode", [dict(scheduler="collect"),
@@ -331,8 +340,23 @@ def test_stop_returns_while_a_session_never_finishes(manager_ends_it):
                                 dict(series_interval=1.0)],
                          ids=["slo_objectives", "series_interval"])
 def test_observe_arguments_refuse_naming_a8(kw):
+    """`slo_objectives=` and `series_interval=` take effect with
+    `slo=True`, and are ignored without it, as in JAX."""
+    from deeplearning4j_tpu.serving.inference_server import (
+        InferenceServer as JaxServer,
+    )
     from deeplearning4j_tpu_torch.serving import InferenceServer
 
-    with pytest.raises(NotImplementedError, match="A8") as e:
-        InferenceServer(**kw)
-    assert next(iter(kw)) in str(e.value)
+    for cls in (JaxServer, InferenceServer):
+        srv = cls(**kw)
+        assert srv._sampler is None
+        srv.stop()
+        srv = cls(slo=True, **kw)
+        try:
+            if "slo_objectives" in kw:
+                assert srv._slo.slos == []
+                assert srv._slo_route()["slos"] == []
+            else:
+                assert srv._sampler.interval == 1.0
+        finally:
+            srv.stop()

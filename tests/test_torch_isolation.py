@@ -75,6 +75,42 @@ def test_port_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= 25
 
 
+def test_observe_dump_cli_runs_with_jax_blocked(tmp_path):
+    """`python -m deeplearning4j_tpu_torch.observe.dump` on a flight dump
+    (its registry table) and on a span log, in a process where `jax`
+    cannot be imported; the observe modules import there too."""
+    code = (
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "from deeplearning4j_tpu_torch import observe as o\n"
+        "r = o.MetricsRegistry(); o.set_registry(r)\n"
+        "r.counter('jit_compiles', owner='NetGraphs').inc(3)\n"
+        "fr = o.FlightRecorder(dump_dir=sys.argv[1]); o.set_flight(fr)\n"
+        "log = o.install_span_log(sys.argv[1] + '/spans.jsonl')\n"
+        "with o.span('fit', epochs=1):\n"
+        "    pass\n"
+        "o.uninstall_span_log()\n"
+        "path = fr.dump('cli')\n"
+        "for arg in (path, sys.argv[1] + '/spans.jsonl'):\n"
+        "    sys.argv = ['dump', arg]\n"
+        "    try:\n"
+        "        runpy.run_module('deeplearning4j_tpu_torch.observe.dump',\n"
+        "                         run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
+        "leak = [m for m in sys.modules if m.split('.')[0] in\n"
+        "        ('jax', 'deeplearning4j_tpu') and sys.modules[m]]\n"
+        "assert not leak, leak\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "jit_compiles" in out.stdout and "owner=NetGraphs" in out.stdout
+    assert "fit" in out.stdout
+
+
 def test_chip_smoke_refuses_to_run_without_a_card():
     env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
@@ -118,23 +154,29 @@ def test_every_counted_kernel_has_a_source_and_a_tpu_body():
 # Names of a JAX `__all__` the port does not resolve yet, each with its
 # ROADMAP item (a name here must not resolve to a working object).
 WAITING = {
-    # utils/profiling.py with an H100 peak table: they resolve to
-    # functions that raise naming the item
-    "utils": {"ProfilerListener": "A8", "peak_flops": "A8",
-              "peak_hbm_bytes": "A8", "peak_ici_bytes": "A8",
-              "step_flops": "A8", "trace": "A8"},
     # the Pallas kernels' TPU-backend checks: no counterpart on the card
     "ops": {"banded_eligible": "TPU-only",
             "fused_update_available": "TPU-only"},
+    # the lock, donation and collective witnesses wait for A6; the jit
+    # cache wrapper has no counterpart (the port keeps no jit cache)
+    "observe": {**{n: "A6" for n in (
+        "LockWitness", "MonitoredLock", "get_witness", "lockmon_enabled",
+        "reset_witness", "DonationWitness", "UseAfterDonateError",
+        "donatemon_enabled", "get_donation_witness", "instrument",
+        "reset_donation_witness", "ReshardWitness", "commsmon_enabled",
+        "get_reshard_witness", "reset_reshard_witness",
+        "parse_hlo_collectives", "summarize_collectives")},
+        "WatchedJitCache": "JAX-only"},
 }
 # Names that resolve to a module holding the exported object: the port's
 # `ops.banded_attention` is the B4/B5/B6 kernel module, as every kernel
 # module of `ops` is addressed by its name.
 IN_MODULE = {"ops": {"banded_attention"}}
-# the ported subpackages; `parallel`, `serving` and `observe` are ported
-# in part and wait for A6, S5 and A8
+# the ported subpackages; `parallel` and `serving` are ported in part and
+# wait for A6 and S5
 SURFACE = ["", "nn", "nn.layers", "nn.config", "optim", "utils", "ops",
-           "models", "zoo", "keras_import", "interop", "data", "eval"]
+           "models", "zoo", "keras_import", "interop", "data", "eval",
+           "observe"]
 
 
 @pytest.mark.parametrize("sub", SURFACE, ids=[s or "root" for s in SURFACE])
@@ -159,7 +201,7 @@ def test_every_jax_export_resolves_in_the_port(sub):
             assert callable(getattr(getattr(pmod, name), name)), name
             continue
         if name in waiting:
-            if waiting[name] == "TPU-only":
+            if waiting[name] in ("TPU-only", "JAX-only"):
                 assert not hasattr(pmod, name), name
             else:
                 with pytest.raises(NotImplementedError,

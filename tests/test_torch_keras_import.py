@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 from jax import lax
 
 import test_keras_import as jk
@@ -69,6 +70,28 @@ def _both(path):
     pnet = pki.import_keras_model_and_weights(path, device="cpu")
     assert pnet.conf.to_json() == jnet.conf.to_json()
     return jnet, pnet
+
+
+@pytest.fixture
+def numpy_jax_init(monkeypatch):
+    """JAX's random initializers compile a program for each tensor shape
+    (about 0.45 s a convolution kernel on the CPU, 45 s for the
+    InceptionV3 fixture's 95). Where the file's weights overwrite the
+    initial values, JAX draws zeros from numpy instead, which compiles
+    nothing; a tensor the file left out would still differ from the
+    port's own initial value and fail `_equal_trees`."""
+    from deeplearning4j_tpu.nn import initializers as jinit
+
+    def zeros(key, shape, dtype=jnp.float32):
+        return jnp.asarray(np.zeros(shape, np.dtype(dtype)))
+
+    for name in ("normal", "uniform", "xavier", "xavier_uniform",
+                 "xavier_fan_in", "relu", "he", "relu_uniform",
+                 "sigmoid_uniform", "lecun_normal", "lecun_uniform",
+                 "orthogonal"):
+        monkeypatch.setitem(jinit._REGISTRY, name, zeros)
+    # a layer without a weight init takes the module's `xavier`
+    monkeypatch.setattr(jinit, "xavier", zeros)
 
 
 def _same_predictions(jnet, pnet, x):
@@ -318,7 +341,8 @@ def test_gaussian_noise_is_dropped(tmp_path):
                          "Cropping2DLayer"]
 
 
-def test_inception_v3_fixture_imports_as_jax_imports_it(tmp_path):
+def test_inception_v3_fixture_imports_as_jax_imports_it(tmp_path,
+                                                        numpy_jax_init):
     p = str(tmp_path / "inception_v3.h5")
     make_inception_v3_h5(p, scale=16, classes=8, input_size=75)
     jnet, pnet = _both(p)
@@ -499,7 +523,8 @@ def test_conv2d_transpose_follows_keras_not_jax(padding, tmp_path):
         jnet.output(x)
 
 
-def test_json_with_numpy_weights_is_the_h5_import(tmp_path):
+def test_json_with_numpy_weights_is_the_h5_import(tmp_path,
+                                                  numpy_jax_init):
     """`import_keras_configuration(json, weights=...)` (no h5py: the card's
     path) gives the `.h5` import of the same model: the configuration of
     `chip_smoke.keras_vgg` at 1/16 width on 64x64 inputs (every layer of
