@@ -133,6 +133,24 @@ exits non-zero with no result line:
      0.85 and an EOS inside a window; an int8 leg (B5q) against
      non-spec int8, and the silenced pair at int8 (acceptance at least
      0.85); the draft's steps on B5 (B5q), design 2;
+   - path_f: the serving fleet (slice 27): a prefill `ReplicaServer`, a
+     decode `ReplicaServer` (each Path A's net through a registered
+     builder, paged, pages of 128) and a `FleetRouter` with
+     `disaggregate=True` in this process; Path A's 6 greedy prompts as
+     SSE streams through the router equal `path_a`'s, one handoff a
+     request, none failed, each import's `cached_len` the 1023-token
+     stem and a radix hit on the decode replica, B6 on design 2 on the
+     decode replica and no decode window on the prefill replica,
+     `/trace/<id>` one stitched tree (router, prefill hop, handoff,
+     decode hop); TTFT through the router beside `path_h`'s direct one,
+     prefill / export / import ms and payload bytes a request, tokens/s;
+     the same at int8 (int8 pages with float32 scale rows on the wire,
+     B6q on design 2) against one int8 manager; then `bench_lm` replica
+     processes on the card from the launcher (a prefill and two decode
+     ones), a stream through the router equal to an in-process
+     `bench_lm` server's, a stitched trace of 3 processes, and a SIGKILL
+     of the serving decode replica mid-stream: the stream ends on the
+     other, byte-equal;
 6. path_t: training of the same model at full width (6 blocks, T 2048,
    batch 8, float32, its default Adam(3e-4)) through `net.fit`: 4 fixed
    batches of random tokens, 3 epochs, 12 steps; B3a/B3b/B3c carry the
@@ -3650,6 +3668,426 @@ def path_s(prompts, plain, http_plain, max_new=64):
     return row
 
 
+# ------------------------------------------------------ the serving fleet
+FLEET_BENCH = {"kind": "bench_lm", "seed": 0, "vocab": 32, "chunk": 8,
+               "max_cache": 256, "blocks": 2}
+
+
+def fleet_cfg(name, role, model, **kw):
+    return {"name": name, "role": role, "model": model, **kw}
+
+
+class HandoffClock:
+    """Wraps `handoff.export_prefix` / `install_prefix` (which the replicas
+    call through the module) to time each call and keep each payload's
+    leaf dtypes and bytes; `restore()` puts them back."""
+
+    def __init__(self):
+        from deeplearning4j_tpu_torch.serving.fleet import handoff
+
+        self.mod = handoff
+        self.orig = (handoff.export_prefix, handoff.install_prefix)
+        self.exports, self.imports = [], []
+
+        def export(*a, **kw):
+            t0 = time.perf_counter()
+            out = self.orig[0](*a, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            if out is not None:
+                self.exports.append({
+                    "ms": ms, "key": tuple(out["tokens"][:32]),
+                    "bytes": handoff.payload_bytes(out),
+                    "pages": len(out["pages"]),
+                    "cached_len": out["cached_len"],
+                    "dtypes": sorted({(k.rsplit("/", 1)[1], v["dtype"])
+                                      for p in out["pages"]
+                                      for k, v in p.items()})})
+            return out
+
+        def install(*a, **kw):
+            t0 = time.perf_counter()
+            n = self.orig[1](*a, **kw)
+            self.imports.append({"ms": (time.perf_counter() - t0) * 1e3,
+                                 "key": tuple(a[2]["tokens"][:32]),
+                                 "cached_len": n})
+            return n
+
+        handoff.export_prefix, handoff.install_prefix = export, install
+
+    def restore(self):
+        self.mod.export_prefix, self.mod.install_prefix = self.orig
+
+
+def stitched_tree_check(what, router_port, store, tid, processes=None):
+    """`/trace/<tid>` on the router: one tree rooted at `fleet.generate`
+    with `route`, `prefill.hop`, `handoff` and `decode.hop` under it, each
+    hop with its replica's subtree grafted at a process boundary, and a
+    span count equal to the router's spans plus the replicas' (read from
+    `store`, the process's trace store, when the replicas share it)."""
+    st, _, doc = http_call(router_port, f"/trace/{tid}")
+    check(st == 200 and doc.get("stitched") and len(doc["tree"]) == 1,
+          f"{what}: /trace/{tid} answered {st}: {str(doc)[:300]}")
+    root = doc["tree"][0]
+    kids = {c["name"]: c for c in root["children"]}
+    check(root["name"] == "fleet.generate" and {
+        "route", "prefill.hop", "handoff", "decode.hop"} <= set(kids),
+        f"{what}: trace {tid}: {trace_shape(root)}")
+    for hop in ("prefill.hop", "decode.hop"):
+        sub = kids[hop]["children"]
+        check(sub and sub[0]["attrs"].get("boundary") == "process",
+              f"{what}: {hop} has no grafted replica subtree: "
+              f"{trace_shape(kids[hop])}")
+    if store is not None:
+        mine = store.spans(tid)
+        remote = sum(len(store.spans(kids[h]["attrs"]["replica_trace"]))
+                     for h in ("prefill.hop", "decode.hop"))
+        check(doc["spans"] == len(mine) + remote
+              and doc["grafted_spans"] == remote,
+              f"{what}: stitched {doc['spans']} spans, {doc['grafted_spans']}"
+              f" grafted; the router recorded {len(mine)}, the replicas "
+              f"{remote}")
+    if processes is not None:
+        check(doc["processes"] == processes,
+              f"{what}: the stitched trace spans {doc['processes']} "
+              f"processes, want {processes}")
+    return {"spans": doc["spans"], "grafted_spans": doc["grafted_spans"],
+            "depth": doc["depth"], "processes": doc["processes"]}
+
+
+def fleet_wave(name, prompts, want, max_new, *, kv_dtype=None):
+    """Path A's net on a prefill and a decode `ReplicaServer` (paged, pages
+    of 128, 8 slots, chunk 128, K 8) behind a `FleetRouter` with
+    `disaggregate=True`, all in this process; `prompts` as greedy SSE
+    streams through the router, every launch count zeroed just before the
+    wave and read just after. Returns the phase's row."""
+    from deeplearning4j_tpu_torch import observe
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+    from deeplearning4j_tpu_torch.serving.fleet.replica_main import (
+        make_server,
+    )
+    from deeplearning4j_tpu_torch.serving.fleet.router import FleetRouter
+
+    kernel = ("paged_decode_attention_q" if kv_dtype
+              else "paged_decode_attention")
+    model = {"kind": "path_a", "seed": 7}
+    cfg = dict(decode_slots=8, prefill_chunk=128, fused_k=8, page_len=128,
+               kv_dtype=kv_dtype, max_batch_size=16)
+    servers = {n: make_server(fleet_cfg(n, role, model, **cfg))
+               for n, role in (("pf0", "prefill"), ("dc0", "decode"))}
+    nets = {n: s.registry.get("default").net for n, s in servers.items()}
+    ports = {n: s.start() for n, s in servers.items()}
+    router = FleetRouter([(n, f"http://127.0.0.1:{ports[n]}",
+                           servers[n].role) for n in servers],
+                         poll_interval=None, disaggregate=True)
+    rport = router.start()
+    store = observe.TraceStore()
+    prev_store = observe.set_trace_store(store)
+    clock = HandoffClock()
+    mgrs = {n: s._decode["default"] for n, s in servers.items()}
+    try:
+        before = {n: window_graph_counts(net) for n, net in nets.items()}
+        hits0 = mgrs["dc0"].prefix_cache.stats()
+        torch.cuda.synchronize()
+        ba.reset_counts()
+        t0 = time.perf_counter()
+        clients = [SseClient(rport, p, max_new) for p in prompts]
+        streams = [c.result() for c in clients]
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches, by_design, plain = decode_counts(ba)
+        graphs = {n: {c: v - before[n][c]
+                      for c, v in window_graph_counts(net).items()}
+                  for n, net in nets.items()}
+        windows = {n: m.snapshot()["dispatches"]["windows"]
+                   for n, m in mgrs.items()}
+        hits = mgrs["dc0"].prefix_cache.stats()
+        tids = [c.frames[0].get("trace_id") for c in clients]
+        spans = [store.spans(t) for t in tids]
+        trees = [stitched_tree_check(name, rport, store, t) for t in tids]
+        counters = {k: getattr(router, f"_c_{k}").value for k in (
+            "requests", "handoffs", "handoff_fail", "handoff_bytes",
+            "failed", "reroutes")}
+        st, _, fleet = http_call(rport, "/fleet?refresh=1")
+    finally:
+        clock.restore()
+        router.stop()
+        for s in servers.values():
+            s.stop()
+        observe.set_trace_store(prev_store)
+    check_streams(nets["dc0"], prompts, streams, want, f"{name} router")
+    n = len(prompts)
+    stem = len(prompts[0]) - 1
+    # the router lets the decode replica prefill for itself when a
+    # handoff fails, with the same tokens: count the handoffs
+    check(counters["requests"] == n and counters["handoffs"] == n
+          and counters["handoff_fail"] == 0 and counters["failed"] == 0,
+          f"{name}: router counters {counters} for {n} requests")
+    hand = [next(sp for sp in s if sp["name"] == "handoff") for s in spans]
+    check(all(h["attrs"]["cached_len"] == stem for h in hand)
+          and [i["cached_len"] for i in clock.imports] == [stem] * n,
+          f"{name}: imports cached {[h['attrs'] for h in hand]}, stem {stem}")
+    check(hits["hits"] - hits0["hits"] == n
+          and hits["hit_tokens"] - hits0["hit_tokens"] == n * stem,
+          f"{name}: the decode replica's radix {hits0} -> {hits}")
+    check_design_2(name, kernel, launches, by_design, plain)
+    check(windows["pf0"] == 0 and graphs["pf0"]["replays"] == 0
+          and graphs["pf0"]["eager"] == 0 and windows["dc0"] > 0
+          and graphs["dc0"]["replays"] == windows["dc0"],
+          f"{name}: decode windows {windows}, graph counts {graphs}: the "
+          f"prefill replica must run none")
+    ttft = [c.ttft_ms() for c in clients]
+    pre = [next(sp for sp in s if sp["name"] == "prefill.hop")
+           for s in spans]
+    # each request's export and import, found by its stem's first tokens
+    exp_of = {e["key"]: e["ms"] for e in clock.exports}
+    imp_of = {i["key"]: i["ms"] for i in clock.imports}
+    keys = [tuple(int(t) for t in p[:32]) for p in prompts]
+    check(len(set(keys)) == n and set(keys) == set(exp_of) == set(imp_of),
+          f"{name}: exports and imports do not match the requests")
+    per = [{"ttft_ms": ttft[i], "prefill_ms": pre[i]["attrs"]["prefill_ms"],
+            "export_ms": exp_of[keys[i]], "import_ms": imp_of[keys[i]],
+            "prefill_hop_ms": pre[i]["dur_ms"],
+            "import_hop_ms": hand[i]["dur_ms"],
+            "payload_bytes": hand[i]["attrs"]["bytes"],
+            "pages": hand[i]["attrs"]["pages"]} for i in range(n)]
+    exp_ms = [e["ms"] for e in clock.exports]
+    imp_ms = [i["ms"] for i in clock.imports]
+
+    def p50_max(vals):
+        return {"p50": pct(vals, 50), "max": max(vals)}
+
+    row = {"phase": name, "kernel": kernel, "kv_dtype": kv_dtype or "native",
+           "requests": n, "stem": stem, "max_new": max_new,
+           "streams_equal_reference": True, "router": counters,
+           "launches": launches, "launches_by_design": by_design,
+           "plain_on_cuda": plain, "decode_windows": windows,
+           "window_graph_counts": graphs,
+           "decode_prefix_cache": {k: hits[k] - hits0[k]
+                                   for k in ("hits", "hit_tokens")},
+           "wave": {"new_tokens": sum(len(s) for s in streams),
+                    "wall_s": wall, "tokens_per_s":
+                    sum(len(s) for s in streams) / wall,
+                    "ttft_ms": p50_max(ttft)},
+           "handoff": {"prefill_ms": p50_max([p["prefill_ms"] for p in per]),
+                       "prefill_hop_ms": p50_max([p["prefill_hop_ms"]
+                                                  for p in per]),
+                       "export_ms": p50_max(exp_ms),
+                       "import_ms": p50_max(imp_ms),
+                       "import_hop_ms": p50_max([p["import_hop_ms"]
+                                                 for p in per]),
+                       "payload_bytes": p50_max([p["payload_bytes"]
+                                                 for p in per]),
+                       "wire_dtypes": sorted({tuple(d) for e in clock.exports
+                                              for d in e["dtypes"]}),
+                       "wire_dtypes_every_request_alike": all(
+                           e["dtypes"] == clock.exports[0]["dtypes"]
+                           for e in clock.exports)},
+           "per_request": per, "traces": trees,
+           "fleet_replicas": [r["name"] for r in fleet["replicas"]]}
+    del servers, nets, mgrs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, streams
+
+
+def path_f(prompts, a_streams, ph, max_new=64, greedy_n=6):
+    """The serving fleet at Path A's width (slice 27; `chip_smoke.py`'s
+    docstring, path_f). `a_streams` are `path_a`'s wave-1 streams (its
+    first `greedy_n` greedy), `ph` `path_h`'s row (its direct TTFT)."""
+    import os
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.ops import banded_attention as ba
+    from deeplearning4j_tpu_torch.serving.fleet.replica import (
+        register_model_builder,
+    )
+
+    register_model_builder("path_a", lambda spec: build_net(
+        "cuda", num_blocks=6, seed=int(spec["seed"])))
+    prompts = [np.asarray(p) for p in prompts[:greedy_n]]
+    saved = {k: os.environ.get(k) for k in (
+        "DL4J_TPU_TRACE_SAMPLE", "DL4J_TPU_INCIDENT_DIR",
+        "FLEET_REPLICA_PLATFORM")}
+    incidents = tempfile.mkdtemp(prefix="path_f_incidents_")
+    os.environ["DL4J_TPU_TRACE_SAMPLE"] = "1"
+    os.environ["DL4J_TPU_INCIDENT_DIR"] = incidents
+    # the replicas, in this process and the launched ones, take the
+    # default: the card
+    os.environ.pop("FLEET_REPLICA_PLATFORM", None)
+    try:
+        row, _ = fleet_wave("path_f", prompts, a_streams[:greedy_n],
+                            max_new)
+        row["ttft_vs_direct"] = {
+            "router_p50_ms": row["wave"]["ttft_ms"]["p50"],
+            "path_h_direct_p50_ms": ph["direct"]["ttft_ms_p50"],
+            "path_h_http_p50_ms": ph["http"]["ttft_ms_p50"],
+            "router_over_direct": row["wave"]["ttft_ms"]["p50"]
+            / ph["direct"]["ttft_ms_p50"]}
+        emit(row)
+
+        # int8: the reference is one int8 manager on the same prompts
+        net = build_net("cuda", num_blocks=6, seed=7)
+        registry, sched, mgr = control_plane(net, slots=8, chunk=128, k=8,
+                                             kv_dtype="int8")
+        try:
+            q_want, _ = serve_wave(mgr, prompts, [True] * len(prompts),
+                                   max_new, 256)
+        finally:
+            sched.shutdown()
+            registry.close()
+        del net, registry, sched, mgr
+        q_row, _ = fleet_wave("path_f_int8", prompts, q_want, max_new,
+                              kv_dtype="int8")
+        check(q_row["launches"]["paged_decode_attention"] == 0,
+              "path_f_int8: the float32 B6 ran on an int8 pool")
+        check(q_row["handoff"]["wire_dtypes"] == [
+            ("cache_k", "int8"), ("cache_v", "int8"),
+            ("scale_k", "float32"), ("scale_v", "float32")]
+            and q_row["handoff"]["wire_dtypes_every_request_alike"],
+            f"path_f_int8: payload leaves {q_row['handoff']}")
+        emit(q_row)
+
+        p_row = fleet_processes(ba)
+        emit(p_row)
+    finally:
+        shutil.rmtree(incidents, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"launches": row["launches"], "int8": q_row["launches"],
+            "processes": p_row}
+
+
+def fleet_processes(ba, prompt_len=40, max_new=160):
+    """`bench_lm` replicas as processes on the card (`launch_replica`, no
+    FLEET_REPLICA_PLATFORM): a prefill one and two decode ones behind a
+    router in this process. A greedy stream through the router equals
+    an in-process `bench_lm` server's of the same spec and seed (whose
+    B6 launches name the design that takes bench_lm's Dh 8), its trace
+    stitches 3 processes; then the decode replica serving a stream is
+    killed with SIGKILL at its first token, and the stream ends on the
+    other decode replica, byte-equal. The decode windows are one step
+    (`fused_k` 1), so the stream is still running when the kill lands."""
+    import shutil
+    import tempfile
+    import threading
+
+    from deeplearning4j_tpu_torch.serving.fleet.launcher import (
+        launch_replica,
+    )
+    from deeplearning4j_tpu_torch.serving.fleet.replica_main import (
+        make_server,
+    )
+    from deeplearning4j_tpu_torch.serving.fleet.router import FleetRouter
+
+    prompt = np.random.default_rng(27).integers(0, FLEET_BENCH["vocab"],
+                                                prompt_len)
+    cfg = dict(decode_slots=4, prefill_chunk=8, page_len=16, fused_k=1)
+    # the in-process reference, on the card; its B6 launches are counted
+    ref_srv = make_server(fleet_cfg("ref", "mixed", dict(FLEET_BENCH), **cfg))
+    try:
+        torch.cuda.synchronize()
+        ba.reset_counts()
+        ref = SseClient(ref_srv.start(), prompt, max_new).result()
+        torch.cuda.synchronize()
+        b6, b6_by_design, b6_plain = decode_counts(ba)
+    finally:
+        ref_srv.stop()
+    design = ba.b6_design(torch.float32, torch.float32, 4, 4, 8)
+    check(b6["paged_decode_attention"] > 0 and sum(b6_plain.values()) == 0
+          and b6_by_design[f"paged_decode_attention/{design}"]
+          == b6["paged_decode_attention"],
+          f"path_f processes: bench_lm's B6 {b6}, by design {b6_by_design}, "
+          f"plain on cuda {b6_plain}; {design!r} should take Dh 8")
+
+    logs = tempfile.mkdtemp(prefix="path_f_replicas_")
+    procs, errors = {}, []
+
+    def launch(name, role):
+        try:
+            procs[name] = launch_replica(
+                fleet_cfg(name, role, dict(FLEET_BENCH), **cfg),
+                timeout_s=300, log_dir=logs)
+        except Exception as e:           # reported below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=launch, args=a) for a in (
+        ("pf0", "prefill"), ("dc0", "decode"), ("dc1", "decode"))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    launch_s = time.perf_counter() - t0
+    router = None
+    try:
+        check(not errors, f"path_f processes: a replica failed to start: "
+              f"{errors}")
+        router = FleetRouter([p.handle() for p in procs.values()],
+                             poll_interval=None, disaggregate=True)
+        rport = router.start()
+        first = SseClient(rport, prompt, max_new)
+        got = first.result()
+        check(got == ref, f"path_f processes: the router's stream {got} "
+              f"differs from the in-process server's {ref}")
+        tree = stitched_tree_check("path_f processes", rport, None,
+                                   first.frames[0]["trace_id"], processes=3)
+        home = first.frames[0]["replica"]
+        check(router._c_handoffs.value == 1
+              and router._c_handoff_fail.value == 0,
+              f"path_f processes: {router._c_handoffs.value} handoffs, "
+              f"{router._c_handoff_fail.value} failed")
+
+        # SIGKILL the decode replica serving the stream at its first token
+        from deeplearning4j_tpu_torch.serving.fleet import client
+
+        victim, tokens, homes = None, [], set()
+        for ev in client.sse_events(
+                f"http://127.0.0.1:{rport}", "/generate",
+                {"prompt_ids": [int(t) for t in prompt],
+                 "max_tokens": max_new, "greedy": True}, timeout=120.0):
+            if victim is None and "replica" in ev and "token" not in ev:
+                victim = procs[ev["replica"]]
+            if "token" in ev:
+                tokens.append(int(ev["token"]))
+                homes.add(ev["replica"])
+                if len(tokens) == 1:
+                    victim.proc.kill()
+            check("error" not in ev, f"path_f processes: the stream "
+                  f"failed after the kill: {ev}")
+        victim.proc.wait(timeout=30)
+        check(tokens == ref and not victim.alive() and len(homes) == 2
+              and router._c_reroutes.value >= 1
+              and router._c_failed.value == 0,
+              f"path_f processes: after killing {victim.name} the stream "
+              f"gave {tokens} on {homes} (want {ref}), reroutes "
+              f"{router._c_reroutes.value}, failed {router._c_failed.value}")
+        router.obsplane.wait_idle(30.0)
+        row = {"phase": "path_f_processes", "spec": FLEET_BENCH,
+               "prompt_len": prompt_len, "max_new": max_new,
+               "launch_s": launch_s, "first_home": home,
+               "stream_equal_in_process": True, "trace": tree,
+               "b6_in_process": b6["paged_decode_attention"],
+               "b6_design_at_dh8": design,
+               "b6_launches_by_design_in_process": b6_by_design,
+               "killed": victim.name, "resumed_on": sorted(homes - {
+                   victim.name}),
+               "reroutes": router._c_reroutes.value,
+               "stream_after_kill_equal": True}
+    finally:
+        if router is not None:
+            router.stop()
+        for p in procs.values():
+            p.terminate()
+        shutil.rmtree(logs, ignore_errors=True)
+    check(all(not p.alive() for p in procs.values()),
+          "path_f processes: a replica process outlived terminate()")
+    return row
+
+
 # ------------------------------------------------------ training phases
 def lm_batches(rng, n, batch, t, vocab=256):
     """`n` fixed DataSets of random tokens [batch, t, 1] with next-token
@@ -7087,6 +7525,7 @@ def main() -> int:
     ph, ph_direct = path_h(native_a[0])
     po = path_o(native_a[0], ph_direct, ph["http"])
     ps = path_s(native_a[0], ph_direct, ph["http"])
+    pfleet = path_f(native_a[0], native_a[1], ph)
     t32 = path_t(rng)
     train_parity(rng)
     t = path_t(rng, dtype="bfloat16")
@@ -7181,6 +7620,9 @@ def main() -> int:
         if name == "paged_decode_attention":
             summary[-1]["launches_path_h"] = ph["launches"][name]
             summary[-1]["launches_path_o"] = po["launches"][name]
+            summary[-1]["launches_path_f"] = pfleet["launches"][name]
+        if name == "paged_decode_attention_q":
+            summary[-1]["launches_path_f_int8"] = pfleet["int8"][name]
         if name == "flash_attention_fwd":
             summary[-1]["launches_path_o"] = po["flash_launches"][name]
         if name in FLASH_KERNELS + ("adam_update",):

@@ -26,6 +26,9 @@ Contracts:
 Head-based sampling is deterministic (every round(1/rate)-th eligible
 request), not random, so a run is reproducible. The store is bounded (`DL4J_TPU_TRACE_CAP` traces, oldest
 evicted) so an unbounded request stream cannot grow memory.
+
+The fleet stitches one tree across processes with `pid_of_trace_id`,
+`tree_stats` and `graft_subtree` (host-side tree surgery only).
 """
 
 from __future__ import annotations
@@ -338,3 +341,72 @@ def end_dispatch(dt: Optional["_DispatchTrace"], **attrs) -> None:
         record_span(tid, "dispatch", span_id=sid,
                     parent_id=dt.parents[tid], ts=dt.ts, dur_ms=dur,
                     co_traces=dt.co_traces, **attrs)
+
+
+# ------------------------------------------- cross-process graft (fleet)
+
+def pid_of_trace_id(trace_id: str) -> Optional[int]:
+    """Recover the minting process's pid from a trace id (the
+    `t{pid:x}-{seq:06x}` scheme) — how stitched trees label process
+    boundaries without an extra endpoint."""
+    try:
+        if not trace_id or trace_id[0] != "t":
+            return None
+        return int(trace_id[1:].split("-", 1)[0], 16)
+    except (ValueError, IndexError):
+        return None
+
+
+def tree_stats(doc: dict) -> dict:
+    """Recompute span count / depth / distinct-pid count over a (possibly
+    stitched) tree doc in place; returns the doc."""
+    pids = set()
+    count = [0]
+
+    def walk(node, d):
+        count[0] += 1
+        tid = node.get("trace_id")
+        pid = pid_of_trace_id(tid) if isinstance(tid, str) else None
+        if pid is not None:
+            pids.add(pid)
+        return max([walk(c, d + 1) for c in node.get("children", ())],
+                   default=d)
+
+    doc["depth"] = max([walk(r, 1) for r in doc.get("tree", ())],
+                       default=0)
+    doc["spans"] = count[0]
+    doc["processes"] = len(pids) or 1
+    return doc
+
+
+def graft_subtree(hop_node: dict, subdoc: dict, *, skew_s: float = 0.0,
+                  **boundary_attrs) -> int:
+    """Graft a remote trace tree under a hop span of a local tree.
+
+    `subdoc` is another process's `TraceStore.tree()` document; its roots
+    become children of `hop_node`. Every grafted timestamp is shifted by
+    `-skew_s` (the estimated remote-minus-local clock offset) so the
+    waterfall lines up on the LOCAL clock; each grafted root is stamped
+    with `boundary="process"` plus `boundary_attrs` (replica name, pid,
+    skew) so renderers can draw the process-boundary rule. Returns the
+    number of spans grafted. Purely host-side tree surgery — no network,
+    no locks, no device access."""
+    roots = subdoc.get("tree") or []
+    n = [0]
+
+    def shift(node):
+        n[0] += 1
+        if skew_s and isinstance(node.get("ts"), (int, float)):
+            node["ts"] = round(node["ts"] - skew_s, 6)
+        for c in node.get("children", ()):
+            shift(c)
+
+    for root in roots:
+        shift(root)
+        attrs = dict(root.get("attrs") or {})
+        attrs["boundary"] = "process"
+        attrs.update(boundary_attrs)
+        root["attrs"] = attrs
+        hop_node.setdefault("children", []).append(root)
+    hop_node["children"].sort(key=lambda c: c.get("ts", 0))
+    return n[0]

@@ -3,8 +3,8 @@ control plane (registry with hot-swap, scheduler, metrics) and stateful
 decode sessions over the KV slot pool, speculative decoding included.
 
 `KerasGatewayServer` imports, fits and serves Keras models over HTTP.
-The fleet (`serving/fleet/`) and the k-NN server are not ported yet
-(ROADMAP S5, A7).
+The fleet (`serving/fleet/`: replicas, the router, the KV handoff) is a
+tier above one server. The k-NN server is not ported yet (ROADMAP A7).
 """
 
 from deeplearning4j_tpu_torch.serving.http_base import (

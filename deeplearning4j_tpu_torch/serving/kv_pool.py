@@ -25,7 +25,13 @@ their addresses, so graphs captured over them stay valid. `reset(slot)`
 zeroes a slot's rows without releasing it (the draft pool mirrors the
 target pool's slots and is reset, not freed).
 
-Not ported yet: fleet page export/import (ROADMAP A8, S5).
+Fleet handoff: `export_page_locked` reads one physical page of every
+cache leaf back to the host at its stored dtype (quantized codes with
+their float32 scale rows, never dequantized), and `import_page_locked`
+writes a handed-off page into the live page tensors in place. A leaf is
+named by its carry-tree path (`leaf_key`), the string JAX's pool puts on
+the wire ("layer2_transformerencoderblock/attn/cache_k"), and its dtype
+by `dtype_name`, which is numpy's name of it.
 """
 
 from __future__ import annotations
@@ -54,6 +60,22 @@ def _leaves(tree, path=()):
             yield from _leaves(v, path + (k,))
         else:
             yield path + (k,), v
+
+
+# the wire's dtype names (numpy's, as JAX's pool writes `str(dtype)`)
+DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64",
+               torch.float16: "float16", torch.bfloat16: "bfloat16",
+               torch.int8: "int8", torch.float8_e4m3fn: "float8_e4m3fn"}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype: a handoff leaf's wire dtype."""
+    return DTYPE_NAMES[dtype]
+
+
+def leaf_key(path) -> str:
+    """The wire identity of a carry-tree leaf: its path joined by "/"."""
+    return "/".join(path)
 
 
 def carry_layout(tree) -> list:
@@ -238,6 +260,76 @@ class KVSlotPool:
             if path[-1] in self._CACHE_KEYS:
                 a[dst].copy_(a[src])
 
+    # ---------------------------------------------------- fleet handoff
+    def _cache_leaves(self):
+        """(leaf_key, page tensor) of every per-page cache leaf."""
+        return [(leaf_key(path), a) for path, a in _leaves(self.carries)
+                if path[-1] in self._CACHE_KEYS]
+
+    def cache_leaf_meta(self) -> dict:
+        """{leaf_key: (page_shape, dtype name)} of every per-page cache
+        leaf: the schema a handoff payload must match."""
+        with self._cv:
+            return {k: (tuple(a.shape[1:]), dtype_name(a.dtype))
+                    for k, a in self._cache_leaves()}
+
+    def export_pages_locked(self, pages) -> list:
+        """`export_page_locked` of each of `pages`, read back in ONE
+        device-to-host copy: every leaf's page rows are gathered into one
+        byte buffer on the device first. This is the handoff's host sync;
+        it runs on the handoff path, never inside a decode window."""
+        leaves = self._cache_leaves()
+        if not pages:
+            return []
+        idx = torch.as_tensor(list(pages), dtype=torch.long)
+        parts, spans = [], []
+        for key, a in leaves:
+            rows = a.index_select(0, idx.to(a.device)).contiguous()
+            parts.append(rows.view(-1).view(torch.uint8))
+            spans.append((key, rows.shape, a.dtype))
+        flat = torch.cat(parts).cpu()
+        out = [{} for _ in pages]
+        off = 0
+        for key, shape, dtype in spans:
+            n = shape.numel() * torch.tensor([], dtype=dtype).element_size()
+            # a copy of its own: a leaf's offset in `flat` need not be a
+            # multiple of its element size
+            rows = flat[off:off + n].clone().view(dtype).view(shape)
+            off += n
+            for i, page_out in enumerate(out):
+                page_out[key] = rows[i]
+        return out
+
+    def export_page_locked(self, page: int) -> dict:
+        """Read one physical page's K/V (and in-page scale rows) back to
+        the host as {leaf_key: CPU tensor} at the STORED dtype: int8/fp8
+        pages come back as codes with their float32 scale rows."""
+        return self.export_pages_locked([page])[0]
+
+    def import_page_locked(self, page: int, leaves: dict) -> None:
+        """Write a handed-off page into physical page `page`, in place.
+        `leaves` is {leaf_key: tensor} as `export_page_locked` gives it:
+        the pool's leaf set, page shapes and dtypes exactly (quantized
+        codes go straight into the quantized pool). The leaves keep their
+        addresses, so decode-window graphs captured over them stay valid;
+        a leaf set, shape or dtype that differs is refused."""
+        have = {k: a for k, a in self._cache_leaves()}
+        if set(leaves) != set(have):
+            raise IncompatibleSessionSwapError(
+                f"handoff payload leaves {sorted(leaves)} do not match "
+                f"this pool's cache leaves {sorted(have)}")
+        for k, t in leaves.items():
+            a = have[k]
+            shape, dtype = tuple(a.shape[1:]), dtype_name(a.dtype)
+            got = DTYPE_NAMES.get(t.dtype, str(t.dtype))
+            if tuple(t.shape) != shape or got != dtype:
+                raise IncompatibleSessionSwapError(
+                    f"handoff leaf {k}: got {tuple(t.shape)}/{got}, pool "
+                    f"holds {shape}/{dtype} — dtype-preserving install "
+                    f"refused (no dequant round-trip)")
+        for k, t in leaves.items():
+            have[k][page].copy_(t)
+
     # ------------------------------------------------------- step seam
     def swap_carries(self, new_carries) -> None:
         """Install the post-step carry tree (callers hold `lock()`)."""
@@ -278,6 +370,10 @@ class KVSlotPool:
             self.net = net
 
     # ------------------------------------------------------ inspection
+    def in_use(self) -> int:
+        with self._cv:
+            return self.slots - len(self._free)
+
     def _slot_bytes(self) -> tuple:
         """(actual, native) bytes a slot across the carry tree: the
         caches at their stored width against the net dtype's, the scale

@@ -67,9 +67,12 @@ tokens emitted, bucket, kernel), and a finished session a
 `decode_sessions_migrated` (a hot-swap flip) are flight-recorder
 events; TTFT and ITL observations carry the trace id as exemplar.
 
-Not ported yet: the fleet's prefill-only role and page export/import
-(`open_prefill`, ROADMAP S5), and the comms-monitor seams that wait for
-collectives (A6).
+Prefill-only sessions (`open_prefill`, the fleet's prefill role) run the
+prompt stem through chunked prefill, offer its pages to the radix index
+and finish with no token generated; the fleet's handoff then exports the
+warm stem (`serving/fleet/handoff.py`).
+
+Not ported yet: the comms-monitor seams that wait for collectives (A6).
 """
 
 from __future__ import annotations
@@ -160,6 +163,9 @@ class DecodeSession:
         # the prefix generation at admission: after a hot-swap flip this
         # session's KV belongs to the old weights and is never indexed
         self._gen = 0
+        # the fleet's prefill role: prefill the stem, index its pages and
+        # finish without sampling (another replica decodes from them)
+        self._prefill_only = False
 
     # -------------------------------------------------------- client API
     def stream(self, timeout: Optional[float] = None):
@@ -416,7 +422,8 @@ class DecodeSessionManager:
                      deadline_ms: Optional[float] = None,
                      eos_id: Optional[int] = None,
                      alloc_timeout_s: float = 0.0,
-                     trace=None) -> DecodeSession:
+                     trace=None,
+                     prefill_only: bool = False) -> DecodeSession:
         """Admit one generation: claim a slot (SlotPoolExhaustedError ->
         503 upstream), check the token budget against the net's decode
         limit, and start the prefill -> decode callback chain. Returns
@@ -464,6 +471,7 @@ class DecodeSessionManager:
         sess._pages = pages
         sess._cached_len = cached_len
         sess._gen = gen
+        sess._prefill_only = bool(prefill_only)
         # prefill resumes AFTER the cached prefix
         sess._off = cached_len
         with self._lock:
@@ -477,6 +485,25 @@ class DecodeSessionManager:
                             max_tokens=int(max_tokens))
         self._submit_next(sess)
         return sess
+
+    def open_prefill(self, prompt_ids, *,
+                     deadline_ms: Optional[float] = None,
+                     alloc_timeout_s: float = 0.0,
+                     trace=None) -> DecodeSession:
+        """Admit a prefill-ONLY session (the fleet's prefill role): run
+        the prompt stem through chunked prefill, offer the pages to the
+        radix index, and finish with zero generated tokens. The warm stem
+        is then exportable through the fleet handoff. Needs the prefix
+        cache: without an index the prefilled pages would be unreachable
+        the moment the slot frees."""
+        if not self.prefix_enabled:
+            raise ValueError(
+                "prefill-only sessions require a paged pool with the "
+                "prefix cache enabled (page_len=...)")
+        return self.open_session(
+            prompt_ids, max_tokens=1, greedy=True,
+            deadline_ms=deadline_ms, alloc_timeout_s=alloc_timeout_s,
+            trace=trace, prefill_only=True)
 
     def get_session(self, sid: str) -> Optional[DecodeSession]:
         with self._lock:
@@ -585,6 +612,15 @@ class DecodeSessionManager:
         if rem is not None and rem <= 0:
             self._finish(sess, error=DeadlineExceededError(
                 f"session {sess.id} deadline passed"))
+            return
+        if sess._prefill_only and sess._off >= sess.prompt.size - 1:
+            # the fleet's prefill role: the stem is prefilled; index its
+            # pages (the handoff exports them from the radix) and finish
+            # without entering a decode window
+            if self.prefix_enabled and not sess._prefix_inserted:
+                sess._prefix_inserted = True
+                self._insert_prefix(sess)
+            self._finish(sess, outcome="completed")
             return
         row = self._next_row(sess)
         try:

@@ -246,3 +246,69 @@ def test_package_import_is_lazy_and_needs_neither_h5py_nor_yaml():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_fleet_exports_what_the_jax_fleet_exports():
+    """Every name JAX's `serving/fleet/__init__.py` imports resolves in
+    the port's `serving.fleet`, and so does `observe.fedmon`'s surface."""
+    import importlib
+
+    tree = ast.parse((ROOT / "deeplearning4j_tpu" / "serving" / "fleet" /
+                      "__init__.py").read_text())
+    names = [a.name for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) for a in node.names]
+    assert len(names) >= 9
+    fleet = importlib.import_module("deeplearning4j_tpu_torch.serving.fleet")
+    assert [n for n in names if not hasattr(fleet, n)] == []
+    fedmon = importlib.import_module("deeplearning4j_tpu_torch.observe.fedmon")
+    for name in ("FleetFederation", "quantile_from_buckets",
+                 "default_fleet_slos", "ENV_STALE_S"):
+        assert hasattr(fedmon, name), name
+
+
+def test_replica_main_runs_with_jax_blocked():
+    """`python -m deeplearning4j_tpu_torch.serving.fleet.replica_main` in a
+    process where neither `jax` nor the JAX package can be imported: it
+    reports ready, answers `/fleet/info` and streams a greedy request,
+    and ends on SIGTERM."""
+    import json
+    import signal
+    import urllib.request
+
+    code = (
+        "import sys, runpy\n"
+        "for m in ('jax', 'jaxlib', 'deeplearning4j_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "runpy.run_module('deeplearning4j_tpu_torch.serving.fleet."
+        "replica_main', run_name='__main__')\n")
+    config = {"name": "iso0", "role": "decode", "decode_slots": 2,
+              "prefill_chunk": 4, "page_len": 4,
+              "model": {"kind": "bench_lm", "seed": 0, "vocab": 17,
+                        "chunk": 4, "max_cache": 32, "blocks": 1}}
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               FLEET_REPLICA_PLATFORM="cpu",
+               FLEET_REPLICA_CONFIG=json.dumps(config))
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        line = proc.stdout.readline().strip()
+        assert line.startswith("FLEET_REPLICA_READY port="), \
+            (line, proc.stderr.read() if proc.poll() is not None else "")
+        url = f"http://127.0.0.1:{int(line.split('port=')[1])}"
+        with urllib.request.urlopen(url + "/fleet/info", timeout=60) as r:
+            info = json.loads(r.read())
+        assert info["name"] == "iso0" and info["role"] == "decode"
+        req = urllib.request.Request(
+            url + "/generate", data=json.dumps({
+                "prompt_ids": [3, 1, 4, 1, 5], "max_tokens": 3,
+                "greedy": True, "stream": False}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            out = json.loads(r.read())
+        assert out["outcome"] == "completed" and len(out["tokens"]) == 3
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0, proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
