@@ -281,6 +281,32 @@ exits non-zero with no result line:
     weights; before the VGG fit, one Adam step on one batch at lr 1e-5
     and 1e-7 from the same weights, that batch's loss read before and
     after (the gradient points down: the smaller step lowers it).
+23. path_u: DL4J's training UI, clustering and k-NN server (slice 28):
+    (a) the zoo LeNet of `path_m` (bf16, batch 1024, 2 epochs x 4
+    batches) under `StatsListener(frequency=1, collect_histograms=True,
+    collect_activations=True)` and `ConvolutionalIterationListener(
+    frequency=2)` into a `FileStatsStorage` served by a `UIServer`, the
+    same records posted by a `RemoteStatsRouter` to a second server with
+    the remote listener on: every GET route of both answers, their
+    overview and model JSON agree, the file replays, the activation PNG
+    decodes, B1a ran 8 times, each report's histograms agree with numpy
+    on the same values (counts differ only by values within one float32
+    ulp of an edge; totals, min and max equal) and its statistics with
+    float64 numpy within 1e-6; the step time with and without the
+    listeners, the listener's host ms a report; (b) `path_r`'s bf16
+    ResNet-50 (batch 128, 4 steps) under `StatsListener(frequency=1)`
+    without and then with histograms: B7a 36, B7b 16 and B1b once a step,
+    the histograms against numpy, the step time against `path_r`'s and
+    the bytes read back a report; (c) the trained LeNet's 500-wide dense
+    activations over the 10,000-image test split through
+    `BarnesHutTsne` (the blocked path, 500 iterations), an exact-path
+    t-SNE of the first 2,000 and `KMeansClustering(k=10)` on the card:
+    the first 10 iterations of each t-SNE against the port's float64 run
+    on the CPU, the full runs finite, centred, no host read an iteration
+    and their 10-NN overlap with the input above 50x chance; the embedding
+    uploaded to the UI's `/tsne`; (d) `NearestNeighborsServer` over the
+    same features, 100 `/knn` and 100 `/knnindex` requests over HTTP
+    held against a brute-force search on the card, p50/p99 latency.
 
 Weights are random, from fixed seeds. Each path resets the kernels'
 launch counts just before it runs and reads them just after; a kernel
@@ -7466,6 +7492,529 @@ def path_i(rng):
                          for k in ("adam_update", "nesterov_update")}}
 
 
+# ------------------------------------------------------------ path_u
+# the GET routes of `ui/server.py`'s handler
+UI_ROUTES = ("/", "/train", "/train/overview.html", "/train/overview",
+             "/train/model", "/train/model.html", "/train/model/components",
+             "/train/histogram", "/train/histogram.html", "/train/flow",
+             "/train/flow.html", "/train/updates", "/train/system",
+             "/train/system.html", "/train/sessions", "/tsne", "/tsne.html",
+             "/js/app.js", "/train/activations.html", "/train/activations",
+             "/train/activations/data", "/lang")
+U_STAT_RTOL = 1e-6       # the listener's float64 sums against numpy's
+U_EXACT_TOL = 1e-9       # exact t-SNE, float64 both: of the largest |y|
+U_KNN_RTOL = 1e-9        # VP-tree (numpy float64) against the card's
+# blocked t-SNE: the card's 10th iteration (float32) against the same
+# iterations in float64 on the CPU (`tsne_blocked_float64`), of the
+# largest |y|: float32 rounding carried through 10 momentum steps, and
+# neighbours swapped where two distances tie in float32
+U_BLOCKED_TOL = 2e-3
+# 10-NN overlap floor of a t-SNE embedding with its input: 50x the
+# chance level k / (n - 1) of an embedding that keeps no neighbourhood at
+# n 10,000 (0.001; 10x chance at the exact path's 2,000 points)
+U_KNN_OVERLAP_FLOOR = 0.05
+
+
+def ui_get(port, path):
+    """A UI route's body (parsed when JSON); anything but 200 fails."""
+    status, _, body = http_call(port, path)
+    check(status == 200, f"path_u: GET {path} answered {status}")
+    return body
+
+
+def png_pixels(png: bytes):
+    """(height, width) of an 8-bit grayscale PNG whose scanlines inflate
+    to height x (1 + width) bytes, each row's filter byte 0."""
+    import struct
+    import zlib
+
+    check(png[:8] == b"\x89PNG\r\n\x1a\n", "path_u: not a PNG")
+    pos, idat, hw = 8, b"", None
+    while pos < len(png):
+        n, tag = struct.unpack(">I4s", png[pos:pos + 8])
+        body = png[pos + 8:pos + 8 + n]
+        check(struct.unpack(">I", png[pos + 8 + n:pos + 12 + n])[0]
+              == zlib.crc32(tag + body) & 0xFFFFFFFF,
+              f"path_u: PNG chunk {tag} CRC")
+        if tag == b"IHDR":
+            hw = struct.unpack(">II", body[:8])[::-1]
+            check(body[8:10] == b"\x08\x00", "path_u: PNG not 8-bit gray")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = zlib.decompress(idat)
+    h, w = hw
+    check(len(raw) == h * (w + 1) and all(raw[r * (w + 1)] == 0
+                                          for r in range(h)),
+          f"path_u: PNG scanlines {len(raw)} for {h}x{w}")
+    return h, w
+
+
+def ui_report_check(name, net, report):
+    """A report's parameter statistics and histograms against numpy on
+    the same values (the net's parameters after the report's step): each
+    statistic within U_STAT_RTOL of float64 numpy's (relative, or of the
+    leaf's largest |value|); each histogram's total, min and max equal to
+    `np.histogram(x, 20)`'s, its counts different only where values lie
+    within one float32 ulp of an interior edge (the card's quotient may
+    land an edge value in the next bin)."""
+    from deeplearning4j_tpu_torch.ui.stats import named_leaves
+
+    hists = report.get("param_histograms")
+    worst, moved, elements = 0.0, 0, 0
+    for n, leaf in named_leaves(net.params_tree):
+        x = leaf.detach().float().reshape(-1).cpu().numpy()
+        xd = x.astype(np.float64)
+        st = report["param_stats"][n]
+        scale = max(abs(float(xd.max())), abs(float(xd.min())), 1e-30)
+        want = {"max": xd.max(), "min": xd.min(), "mean": xd.mean(),
+                "std": xd.std(), "norm2": np.sqrt((xd * xd).sum()),
+                "mean_magnitude": np.abs(xd).mean()}
+        for k, v in want.items():
+            err = abs(st[k] - v) / max(abs(v), scale)
+            worst = max(worst, err)
+            check(err <= U_STAT_RTOL, f"{name}: {n} {k} {st[k]} against "
+                  f"numpy's {v}")
+        elements += x.size
+        if hists is None:
+            continue
+        counts, edges = np.histogram(x, bins=20)
+        h = hists[n]
+        check(sum(h["counts"]) == x.size == int(counts.sum()),
+              f"{name}: {n} histogram holds {sum(h['counts'])} of {x.size}")
+        check(h["min"] == float(edges[0]) and h["max"] == float(edges[-1]),
+              f"{name}: {n} histogram spans [{h['min']}, {h['max']}], "
+              f"numpy's [{edges[0]}, {edges[-1]}]")
+        gap = np.abs(np.cumsum(h["counts"])[:-1] - np.cumsum(counts)[:-1])
+        inner = edges[1:-1].astype(np.float32)
+        near = [int((np.abs(x - e) <= np.spacing(np.abs(e))).sum())
+                for e in inner]
+        check(all(g <= m for g, m in zip(gap, near)),
+              f"{name}: {n} histogram {h['counts']} against numpy's "
+              f"{counts.tolist()} moves values away from the edges")
+        moved += int(gap.sum())
+    return {"leaves": len(report["param_stats"]), "elements": elements,
+            "stats_max_rel_err": worst,
+            "histogram_counts_off_by_ulp_edges": moved}
+
+
+def knn_overlap(a, b, k=10, chunk=2048):
+    """Mean share of each point's k nearest neighbours in `a` (rows)
+    that are among its k nearest in `b`, by brute force on the card."""
+    def neighbours(x):
+        x = torch.as_tensor(x, device="cuda", dtype=torch.float32)
+        sq = (x * x).sum(1)
+        out = []
+        for i in range(0, len(x), chunk):
+            d = sq[i:i + chunk, None] - 2.0 * x[i:i + chunk] @ x.T \
+                + sq[None, :]
+            rows = torch.arange(i, min(i + chunk, len(x)), device="cuda")
+            d[rows - i, rows] = float("inf")
+            out.append(torch.topk(d, k, largest=False).indices)
+        return torch.cat(out)
+
+    na, nb = neighbours(a), neighbours(b)
+    hits = (na[:, :, None] == nb[:, None, :]).any(-1).sum()
+    return float(hits) / (len(na) * k)
+
+
+def tsne_blocked_float64(x, n_iter):
+    """`BarnesHutTsne`'s blocked path (its defaults) on the CPU in
+    float64: the port's own steps (`clustering/tsne.py`) run at double
+    the card's precision, the plain reference for its float32 run."""
+    from deeplearning4j_tpu_torch.clustering import tsne
+
+    t = tsne.BarnesHutTsne(device="cpu")
+    n = x.shape[0]
+    perp = min(t.perplexity, (n - 1) / 3)
+    k, block = min(n - 1, max(4, int(3 * perp))), min(t.block, n)
+    d2, idx = tsne._knn_blocked(torch.as_tensor(x, dtype=torch.float64),
+                                k, block)
+    p = tsne._calibrate_p_knn(d2, perp)
+    rows = torch.arange(n).repeat_interleave(k)
+    cols = idx.reshape(-1)
+    rows, cols = torch.cat([rows, cols]), torch.cat([cols, rows])
+    vals = torch.cat([p.reshape(-1), p.reshape(-1)]) / (2.0 * n)
+    y = torch.as_tensor(np.random.default_rng(t.seed).standard_normal(
+        (n, t.n_components)) * 1e-2)
+    gains, vel = torch.ones_like(y), torch.zeros_like(y)
+    exag = int(n_iter * 0.25)
+    for it in range(n_iter):
+        y, gains, vel = tsne._tsne_step_blocked(
+            y, rows, cols, vals * t.early_exaggeration if it < exag
+            else vals, gains, vel, *t._rates(it, exag), block)
+    return y.numpy()
+
+
+def tsne_checks(name, emb, feats, ref10, card10, tol_at_10):
+    """A full t-SNE run's invariants and its first 10 iterations against
+    the CPU's; returns the figures."""
+    n = len(emb)
+    big = float(np.abs(emb).max())
+    check(emb.shape == (n, 2) and bool(np.isfinite(emb).all()),
+          f"{name}: embedding {emb.shape} not finite")
+    centre = float(np.abs(emb.astype(np.float64).mean(0)).max())
+    check(centre <= 1e-5 * big, f"{name}: mean {centre} of a {big} spread")
+    gap = np.abs(card10.astype(np.float64) - ref10)
+    scale = float(np.abs(ref10).max())
+    overlap = knn_overlap(feats, emb)
+    chance = 10 / (n - 1)
+    row = {"n": n, "max_abs": big, "centre_max_abs": centre,
+           "gap_at_10_max": float(gap.max()) / scale,
+           "gap_at_10_p999": float(np.quantile(gap, 0.999)) / scale,
+           "knn10_overlap": overlap, "knn10_chance": chance}
+    check(row["gap_at_10_max"] <= tol_at_10,
+          f"{name}: 10 iterations on the card {row['gap_at_10_max']} of "
+          f"the largest |y| off the CPU's (tolerance {tol_at_10})")
+    check(overlap >= U_KNN_OVERLAP_FLOOR,
+          f"{name}: 10-NN overlap {overlap} under {U_KNN_OVERLAP_FLOOR} "
+          f"(chance {chance})")
+    return row
+
+
+class Tee:
+    """A router that puts every record into each of `routers`."""
+
+    def __init__(self, *routers):
+        self.routers = routers
+
+    def put_static_info(self, record):
+        for r in self.routers:
+            r.put_static_info(record)
+
+    def put_update(self, record):
+        for r in self.routers:
+            r.put_update(record)
+
+
+def path_u_lenet(tmp):
+    """(a): LeNet under the UI's listeners, two servers, every route."""
+    import os
+
+    from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
+    from deeplearning4j_tpu_torch.ui import (
+        FileStatsStorage, RemoteStatsRouter, StatsListener, UIServer,
+    )
+    from deeplearning4j_tpu_torch.ui.convolutional import (
+        ConvolutionalIterationListener,
+    )
+
+    def batches():
+        return MnistDataSetIterator(1024, num_examples=4 * 1024, seed=0)
+
+    bare = MultiLayerNetwork(lenet_conf(), device="cuda").init()
+    plain = timed_fit("path_u_lenet_bare", bare, batches(), 2, 1024,
+                      unit="images", per_epoch=4)
+    del bare
+
+    path = os.path.join(tmp, "lenet_stats.jsonl")
+    storage = FileStatsStorage(path)
+    local, remote = UIServer(port=0), UIServer(port=0)
+    try:
+        local.attach(storage)
+        remote.enable_remote_listener()
+        router = RemoteStatsRouter(f"http://127.0.0.1:{remote.port}",
+                                   raise_on_error=True, timeout=30.0)
+        tee = Tee(storage, router)
+        net = MultiLayerNetwork(lenet_conf(), device="cuda").init()
+        stats = StatsListener(tee, frequency=1, session_id="lenet",
+                              collect_histograms=True,
+                              collect_activations=True)
+        conv = ConvolutionalIterationListener(tee, frequency=2,
+                                              session_id="lenet")
+        host_ms, readback = [], []
+
+        class After(TrainingListener):
+            def iteration_done(self, model, iteration, epoch, score):
+                host_ms.append(stats.last_report_ms)
+                readback.append(stats.last_readback_bytes)
+
+        net.set_listeners(stats, conv, After())
+        fit = timed_fit("path_u_lenet", net, batches(), 2, 1024,
+                        unit="images", per_epoch=4)
+        check(fit["launches"]["adam_update"] == 8,
+              f"path_u_lenet: adam_update launched "
+              f"{fit['launches']['adam_update']} times, want 8")
+        ups = storage.get_all_updates("lenet", "StatsListener", "local")
+        check(len(ups) == 8, f"path_u_lenet: {len(ups)} reports")
+        last = ups[-1].content
+        for key in ("param_stats", "update_stats", "param_histograms",
+                    "update_histograms", "activation_stats",
+                    "device_memory"):
+            check(key in last, f"path_u_lenet: the report lacks {key}")
+        hist = ui_report_check("path_u_lenet", net, last)
+
+        bodies = {}
+        for srv in (local, remote):
+            bodies[srv.port] = {r: ui_get(srv.port, r) for r in UI_ROUTES}
+        for key in ("/train/overview", "/train/model", "/train/histogram",
+                    "/train/flow", "/train/system"):
+            mine, theirs = (bodies[s.port][key] for s in (local, remote))
+            check(mine == theirs,
+                  f"path_u_lenet: {key} differs between the servers")
+        ov = bodies[local.port]["/train/overview"]
+        check(len(ov["scores"]) == 8 and all(np.isfinite(ov["scores"])),
+              f"path_u_lenet: overview scores {ov['scores']}")
+        check(ov["static"]["backend"] == "cuda",
+              f"path_u_lenet: backend {ov['static']}")
+        png = bodies[local.port]["/train/activations/data"]
+        png_hw = png_pixels(png)
+        check(png == bodies[remote.port]["/train/activations/data"],
+              "path_u_lenet: the servers' activation PNGs differ")
+        rec = storage.get_static_info("lenet", "ConvolutionalListener",
+                                      "local").content
+        check(rec["iteration"] == last["iteration"]
+              and len(rec["layers"]) == 4,
+              f"path_u_lenet: conv record {rec['iteration']}, "
+              f"{rec['layers']}")
+        storage.close()
+        back = FileStatsStorage(path)
+        try:
+            check([u.content for u in back.get_all_updates(
+                "lenet", "StatsListener", "local")] == [u.content
+                                                        for u in ups],
+                  "path_u_lenet: the file does not replay its reports")
+            check(back.get_static_info("lenet", "ConvolutionalListener",
+                                       "local").content == rec,
+                  "path_u_lenet: the file does not replay the PNG record")
+        finally:
+            back.close()
+        row = {"phase": "path_u_lenet", "model": "LeNet", "batch": 1024,
+               "dtype": "bfloat16", "steps": fit["steps"],
+               "launches": {"adam_update": fit["launches"]["adam_update"]},
+               "b1_launches_by_design": fit["b1_launches_by_design"],
+               "step_ms_p50": fit["step_ms_p50"],
+               "step_ms_p50_without_listeners": plain["step_ms_p50"],
+               "step_ms": fit["step_ms"],
+               "step_ms_without_listeners": plain["step_ms"],
+               "listener_host_ms": host_ms,
+               "listener_host_ms_p50": float(np.median(host_ms[1:])),
+               "readback_bytes_a_report": readback[-1],
+               "routes": len(UI_ROUTES), "servers": 2,
+               "file_bytes": os.path.getsize(path),
+               "activation_png": {"bytes": len(png), "height": png_hw[0],
+                                  "width": png_hw[1]}, **hist}
+        emit(row)
+        return net, local, row
+    except BaseException:
+        local.stop()
+        raise
+    finally:
+        remote.stop()
+
+
+def path_u_resnet(images, path_r_step_ms):
+    """(b): ResNet-50 under StatsListener, without and with histograms."""
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import conv_fused as cf
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage, StatsListener
+
+    rows = {}
+    for hists in (False, True):
+        name = "path_u_resnet" + ("_histograms" if hists else "")
+        storage = InMemoryStatsStorage()
+        with tf32_off():
+            net = ComputationGraph(resnet_conf(), device="cuda").init()
+            lis = StatsListener(storage, frequency=1, session_id=name,
+                                collect_histograms=hists)
+            net.set_listeners(lis)
+            fit = timed_fit(name, net, images, 1, len(images[0].features),
+                            unit="images", loss_must_fall=False)
+        steps, launches = fit["steps"], fit["launches"]
+        for k, n in (("conv1x1_bn_stats", 36), ("conv3x3_bn_stats", 16),
+                     ("nesterov_update", 1)):
+            check(launches[k] == n * steps,
+                  f"{name}: {k} launched {launches[k]} times, want {n} a "
+                  f"step x {steps}")
+        by_design = launches_by_design(cf)
+        for k in B7_KERNELS:
+            check(by_design[f"{k}/wgmma"] == launches[k],
+                  f"{name}: bf16 {k} not all on wgmma: {by_design}")
+        ups = storage.get_all_updates(name, "StatsListener", "local")
+        check(len(ups) == steps, f"{name}: {len(ups)} reports")
+        rows[name] = {
+            "phase": name, "model": "ResNet50", "batch": 128,
+            "dtype": "bfloat16", "steps": steps,
+            "launches": {k: launches[k] for k in
+                         B7_KERNELS + ("nesterov_update",)},
+            "launches_by_design": by_design,
+            "b1_launches_by_design": fit["b1_launches_by_design"],
+            "step_ms_p50": fit["step_ms_p50"], "step_ms": fit["step_ms"],
+            "path_r_step_ms_p50": path_r_step_ms,
+            "readback_bytes_a_report": lis.last_readback_bytes,
+            "listener_host_ms_last": lis.last_report_ms,
+            "parameters": net.num_params(),
+            **ui_report_check(name, net, ups[-1].content)}
+        emit(rows[name])
+        del net
+        torch.cuda.empty_cache()
+    return rows
+
+
+def path_u_features(net):
+    """The trained LeNet's 500-wide dense activations over the
+    10,000-image test split, float32 on the card, and the labels."""
+    from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+
+    dense = next(i for i, l in enumerate(net.layers)
+                 if type(l).__name__ == "DenseLayer" and l.n_out == 500)
+    feats, labels = [], []
+    for ds in MnistDataSetIterator(1024, train=False, shuffle=False):
+        feats.append(net.feed_forward(ds.features)[dense].float())
+        labels.append(ds.labels.argmax(-1))
+    f = torch.cat(feats)
+    check(tuple(f.shape) == (10000, 500) and bool(torch.isfinite(f).all()),
+          f"path_u: features {tuple(f.shape)}")
+    return f.cpu().numpy(), np.concatenate(labels)
+
+
+def path_u_tsne(feats, labels, ui):
+    """(c): t-SNE (blocked and exact) and k-means on the card."""
+    from deeplearning4j_tpu_torch.clustering import (
+        BarnesHutTsne, KMeansClustering,
+    )
+    from deeplearning4j_tpu_torch.observe.syncmon import HostSyncMonitor
+
+    def run(n_iter, x, method, device="cuda"):
+        t = BarnesHutTsne(n_iter=n_iter, method=method, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with HostSyncMonitor() as mon:
+            emb = t.fit_transform(x)
+        return emb, time.perf_counter() - t0, mon.syncs
+
+    rows = {}
+    for name, x, method, tol, dtype in (
+            ("blocked", feats, "auto", U_BLOCKED_TOL, np.float32),
+            ("exact", feats[:2000], "exact", U_EXACT_TOL, np.float64)):
+        t0 = time.perf_counter()
+        ref10 = (tsne_blocked_float64(x, 10) if name == "blocked"
+                 else run(10, x, method, device="cpu")[0])
+        cpu10_s = time.perf_counter() - t0
+        card10, s10, syncs10 = run(10, x, method)
+        emb, s500, syncs500 = run(500, x, method)
+        # "auto" at 10,000 points takes the blocked path (float32)
+        check(emb.dtype == card10.dtype == dtype and ref10.dtype
+              == np.float64, f"path_u_tsne_{name}: a {emb.dtype} embedding")
+        per_iter = (syncs500 - syncs10) / 490
+        check(per_iter == 0, f"path_u_tsne_{name}: {syncs500} host reads "
+              f"in 500 iterations, {syncs10} in 10")
+        rows[name] = {
+            "method": name, "dtype": np.dtype(dtype).name,
+            "iterations": 500, "s": s500, "s_at_10": s10,
+            "s_per_iteration": (s500 - s10) / 490,
+            "cpu_s_at_10": cpu10_s, "host_reads": syncs500,
+            "host_reads_per_iteration": per_iter,
+            **tsne_checks(f"path_u_tsne_{name}", emb, x, ref10, card10,
+                          tol)}
+        if name == "blocked":
+            ui.upload_tsne(emb, labels.tolist())
+            shown = ui_get(ui.port, "/tsne")
+            check(len(shown["x"]) == 10000 and shown["x"][:5] == [
+                float(v) for v in emb[:5, 0]],
+                  "path_u: /tsne does not show the embedding")
+            ui_get(ui.port, "/tsne.html")
+
+    km = KMeansClustering(10, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with HostSyncMonitor() as mon:
+        km.fit(feats)
+    km_s = time.perf_counter() - t0
+    pred = km.predict(feats)
+    purity = sum(np.bincount(labels[pred == c]).max()
+                 for c in range(10) if (pred == c).any()) / len(labels)
+    inertia = km.inertia(feats)
+    check(np.isfinite(inertia) and km.centroids.shape == (10, 500),
+          f"path_u_kmeans: inertia {inertia}")
+    rows["kmeans"] = {"k": 10, "iterations": mon.syncs - 1, "s": km_s,
+                      "inertia": inertia, "purity": purity}
+    row = {"phase": "path_u_tsne", "points": len(feats),
+           "features": feats.shape[1], **rows}
+    emit(row)
+    return row
+
+
+def path_u_knn(feats, queries=100, k=10):
+    """(d): the k-NN server over the features, against brute force."""
+    from deeplearning4j_tpu_torch.serving import NearestNeighborsServer
+
+    t0 = time.perf_counter()
+    srv = NearestNeighborsServer(feats, port=0)
+    build_s = time.perf_counter() - t0
+    port = srv.start()
+    dev = torch.as_tensor(feats, dtype=torch.float64, device="cuda")
+    rng = np.random.default_rng(28)
+    lat = {"/knn": [], "/knnindex": []}
+    try:
+        for q in range(queries):
+            for route in ("/knn", "/knnindex"):
+                i = int(rng.integers(len(feats)))
+                if route == "/knn":
+                    vec = feats[i].astype(np.float64) \
+                        + rng.standard_normal(feats.shape[1]) * 0.01
+                    body = {"ndarray": vec.tolist(), "k": k}
+                else:
+                    vec = feats[i].astype(np.float64)
+                    body = {"index": i, "k": k}
+                t0 = time.perf_counter()
+                status, _, out = http_call(port, route, body)
+                lat[route].append((time.perf_counter() - t0) * 1e3)
+                check(status == 200, f"path_u_knn: {route} answered "
+                      f"{status}: {out}")
+                got = out["results"]
+                d = ((dev - torch.as_tensor(vec, device="cuda")) ** 2).sum(
+                    1).sqrt()
+                if route == "/knnindex":
+                    d[i] = float("inf")
+                want, _ = torch.topk(d, k, largest=False)
+                want = want.cpu().numpy()
+                idx = [r["index"] for r in got]
+                dist = np.array([r["distance"] for r in got])
+                mine = d[torch.as_tensor(idx, device="cuda")].cpu().numpy()
+                check(len(got) == k and np.allclose(dist, want,
+                                                    rtol=U_KNN_RTOL,
+                                                    atol=0)
+                      and np.allclose(mine, dist, rtol=U_KNN_RTOL, atol=0),
+                      f"path_u_knn: {route} {body.get('index')} answered "
+                      f"{dist} ({mine} by brute force), want {want}")
+    finally:
+        srv.stop()
+    row = {"phase": "path_u_knn", "points": len(feats),
+           "features": feats.shape[1], "k": k, "queries": queries,
+           "tree_build_s": build_s}
+    for route, ms in lat.items():
+        row[route] = {"p50_ms": pct(ms, 50), "p99_ms": pct(ms, 99)}
+    emit(row)
+    return row
+
+
+def path_u(images, path_r_step_ms=None):
+    """DL4J's training UI on LeNet and ResNet-50 fits, t-SNE and k-means
+    of the trained LeNet's features, and the k-NN server (module
+    docstring, 23)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        net, ui, a = path_u_lenet(tmp)
+        try:
+            b = path_u_resnet(images, path_r_step_ms)
+            feats, labels = path_u_features(net)
+            del net
+            torch.cuda.empty_cache()
+            c = path_u_tsne(feats, labels, ui)
+        finally:
+            ui.stop()
+    d = path_u_knn(feats)
+    launches = {"adam_update": a["launches"]["adam_update"],
+                **{k: sum(r["launches"][k] for r in b.values())
+                   for k in B7_KERNELS + ("nesterov_update",)}}
+    return {"launches": launches, "lenet": a, "resnet": b, "tsne": c,
+            "knn": d}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -7579,6 +8128,8 @@ def main() -> int:
     p_parity()
     ma = path_m_async()
     pi = path_i(np.random.default_rng(22))
+    pu = path_u(image_batches(np.random.default_rng(28), 4, 128, 224, 1000),
+                r["step_ms_p50"])
 
     b5q = {"banded_decode_attention_q":
            qb_fp8["launches"]["banded_decode_attention_q"]
@@ -7673,6 +8224,7 @@ def main() -> int:
             summary[-1]["launches_path_p"] = pp["launches"][name]
             summary[-1]["launches_path_m_async"] = ma["launches"][name]
             summary[-1]["launches_path_i"] = pi["launches"][name]
+            summary[-1]["launches_path_u"] = pu["launches"][name]
         if name in ("adam_update", "nesterov_update"):
             # both designs (design 2 is "persistent") and the
             # updater's own call, at the main path's shape and over
@@ -7808,6 +8360,7 @@ def main() -> int:
         summary.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": r32["launches"][name],
+                        "launches_path_u": pu["launches"][name],
                         **b7_step_totals(rows, name, "float32"),
                         "launches_by_design": {
                             d: by32[f"{name}/{d}"] for d in cf.DESIGNS},

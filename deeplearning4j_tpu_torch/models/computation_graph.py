@@ -414,6 +414,10 @@ class ComputationGraph:
     def _check_batch(self, ds) -> None:
         self._check_inputs(self._to_dicts(ds)[0])
 
+    def _note_features(self, ds) -> None:
+        """A graph keeps no `_last_features` (nor does the JAX package's
+        ComputationGraph), so the listeners' own forwards skip it."""
+
     def _fit_batch(self, ds):
         """One train step on one batch (one solver run under a non-SGD
         algorithm, the chunks of `_fit_tbptt` under truncated BPTT when

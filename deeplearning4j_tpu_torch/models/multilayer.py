@@ -752,6 +752,7 @@ class MultiLayerNetwork:
 
         ds = self._on_device(ds)
         self._check_batch(ds)
+        self._note_features(ds)
         self.fit_stats["eager_steps"] += 1
         return fit_with_solver(self, *self._batch_fields(ds))
 
@@ -782,10 +783,18 @@ class MultiLayerNetwork:
     def _check_batch(self, ds: DataSet) -> None:
         self._check_input(ds.features)
 
+    def _note_features(self, ds: DataSet) -> None:
+        """Keep the batch's features (on the device) for the listeners
+        that run a forward of their own (`ui.StatsListener`'s activation
+        statistics, `ConvolutionalIterationListener`): the JAX package's
+        `_last_features`, set by its per-step and K-step dispatch."""
+        self._last_features = ds.features
+
     def _fit_batch(self, ds: DataSet):
         """One train step on one batch; returns the device loss."""
         ds = self._on_device(ds)
         self._check_batch(ds)
+        self._note_features(ds)
         self.fit_stats["eager_steps"] += 1
         return self._train_step(*self._batch_fields(ds))
 
@@ -823,6 +832,7 @@ class MultiLayerNetwork:
         losses."""
         batches = [self._on_device(b) for b in batches]
         self._check_batch(batches[0])
+        self._note_features(batches[-1])
         k = len(batches)
         if not self.cuda_graphs:
             return torch.stack([self._fit_batch(b) for b in batches])

@@ -15,16 +15,23 @@ CUDA kernels take any length. So full-context attention goes to the
 flash kernels and windowed attention to the banded kernel at any T, a
 sigmoid/tanh LSTM to the fused sequence
 kernels, and Adam and Nesterovs to the fused update kernels, wherever
-the shape allows — JAX's measured-winner tables describe another chip. The
-JAX package's env hatches are not mirrored; callers choose through the
-arguments.
+the shape allows — JAX's measured-winner tables describe another chip. Of
+the JAX package's env hatches only the prefix cache's are mirrored
+(`DL4J_TPU_PREFIX_CACHE`, `DL4J_TPU_KV_PAGE`); elsewhere callers choose
+through the arguments.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import torch
+
+
+def _env(name: str, default: str = "auto") -> str:
+    v = os.environ.get(name, default).strip().lower()
+    return v or default
 
 
 def record_dispatch(op: str, impl: str) -> None:
@@ -181,27 +188,49 @@ def prefix_cache_policy(page_len: Optional[int] = None, *,
                         capable: bool = True,
                         record: bool = True) -> PrefixCachePolicy:
     """Paged KV storage + radix prefix cache vs monolithic per-slot
-    caches. On whenever the model is capable (no recurrent carries, no
-    rolling rings, uniform max_cache, no active draft). The page length
-    (default 128) is snapped down to the largest divisor of `max_cache`;
-    the paged kernel takes any length."""
-    if not capable:
-        if record:
-            record_dispatch("prefix_cache", "off")
-        return PrefixCachePolicy("off", 0, "model cannot page its KV "
-                                 "(recurrent carries, rolling rings, "
-                                 "non-uniform max_cache, or active draft "
-                                 "model)")
+    caches, in the JAX package's order and with its reasons: the
+    environment's force (`DL4J_TPU_PREFIX_CACHE=off|on`), then
+    capability, then the structural default, ON when the model is capable
+    (no recurrent carries, no rolling rings, uniform max_cache, no active
+    draft). The page length (`DL4J_TPU_KV_PAGE`, else `page_len`, default
+    128) is snapped down to the largest divisor of `max_cache`; the paged
+    kernel takes any length."""
+    forced = _env("DL4J_TPU_PREFIX_CACHE")
+    env_p = os.environ.get("DL4J_TPU_KV_PAGE", "").strip()
+    if env_p:
+        page_len = int(env_p)
     want = max(1, int(page_len)) if page_len else 128
     if max_cache:
         mc = int(max_cache)
         want = min(want, mc)
         while mc % want:
             want -= 1
-    if record:
-        record_dispatch("prefix_cache", "paged")
-    return PrefixCachePolicy("paged", want, "structural default: a warm "
-                             "prefix replaces its whole prefill")
+
+    def paged(reason):
+        if record:
+            record_dispatch("prefix_cache", "paged")
+        return PrefixCachePolicy("paged", want, reason)
+
+    def off(reason):
+        if record:
+            record_dispatch("prefix_cache", "off")
+        return PrefixCachePolicy("off", 0, reason)
+
+    if forced == "off":
+        return off("forced by DL4J_TPU_PREFIX_CACHE=off")
+    if forced == "on":
+        if not capable:
+            return off("DL4J_TPU_PREFIX_CACHE=on but the model cannot "
+                       "page its KV (recurrent carries, rolling rings, "
+                       "non-uniform max_cache, or active draft model)")
+        return paged("forced by DL4J_TPU_PREFIX_CACHE=on")
+    if not capable:
+        return off("model cannot page its KV (recurrent carries, "
+                   "rolling rings, non-uniform max_cache, or active "
+                   "draft model)")
+    return paged("structural default: a warm prefix replaces its whole "
+                 "prefill; admission-time bookkeeping costs the "
+                 "steady-state window nothing")
 
 
 class AttentionPolicy(NamedTuple):

@@ -4,7 +4,8 @@ decode sessions over the KV slot pool, speculative decoding included.
 
 `KerasGatewayServer` imports, fits and serves Keras models over HTTP.
 The fleet (`serving/fleet/`: replicas, the router, the KV handoff) is a
-tier above one server. The k-NN server is not ported yet (ROADMAP A7).
+tier above one server. `NearestNeighborsServer` answers k-NN queries
+over a VP-tree.
 """
 
 from deeplearning4j_tpu_torch.serving.http_base import (
@@ -14,6 +15,7 @@ from deeplearning4j_tpu_torch.serving.inference_server import (
     InferenceServer, ModelServer,
 )
 from deeplearning4j_tpu_torch.serving.keras_gateway import KerasGatewayServer
+from deeplearning4j_tpu_torch.serving.knn_server import NearestNeighborsServer
 from deeplearning4j_tpu_torch.serving.kv_pool import (
     IncompatibleSessionSwapError, KVSlotPool, SlotPoolExhaustedError,
 )
@@ -36,7 +38,8 @@ __all__ = [
     "DeployRolledBackError", "HttpError", "IncompatibleSessionSwapError",
     "InferenceServer", "JsonHttpServer", "KerasGatewayServer", "KVSlotPool",
     "ModelEntry",
-    "ModelRegistry", "ModelServer", "PrefixCache", "RequestShedError",
+    "ModelRegistry", "ModelServer", "NearestNeighborsServer", "PrefixCache",
+    "RequestShedError",
     "SchedulerClosedError", "ServingStats", "SlotPoolExhaustedError",
     "StreamResponse", "TextResponse", "WorkerCrashError",
 ]

@@ -444,9 +444,21 @@ class TestPrefillOnly:
 
     def test_prefill_only_requires_paged_pool(self):
         # a rolling ring cannot page, so its pool has no prefix cache
-        # (JAX's case turns paging off with DL4J_TPU_PREFIX_CACHE=off,
-        # a knob the port's policy does not read)
+        # (JAX's form, paging turned off on a capable net, follows)
         pnet = _twin(_make_jax_net(rolling=True))
+        plane = _plane(pnet, page_len=None)
+        assert not plane[2].prefix_enabled
+        try:
+            with pytest.raises(ValueError, match="prefill-only"):
+                plane[2].open_prefill(np.asarray(self.PROMPT))
+        finally:
+            _close(plane)
+
+    def test_prefill_only_requires_paged_pool_with_paging_off(
+            self, monkeypatch):
+        # JAX's case: the policy would otherwise page this capable net
+        monkeypatch.setenv("DL4J_TPU_PREFIX_CACHE", "off")
+        pnet = _twin(_make_jax_net())
         plane = _plane(pnet, page_len=None)
         assert not plane[2].prefix_enabled
         try:

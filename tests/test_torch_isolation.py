@@ -172,11 +172,10 @@ WAITING = {
 # `ops.banded_attention` is the B4/B5/B6 kernel module, as every kernel
 # module of `ops` is addressed by its name.
 IN_MODULE = {"ops": {"banded_attention"}}
-# the ported subpackages; `parallel` and `serving` are ported in part and
-# wait for A6 and S5
+# the ported subpackages; `parallel` is ported in part and waits for A6
 SURFACE = ["", "nn", "nn.layers", "nn.config", "optim", "utils", "ops",
            "models", "zoo", "keras_import", "interop", "data", "eval",
-           "observe"]
+           "observe", "serving", "ui", "clustering"]
 
 
 @pytest.mark.parametrize("sub", SURFACE, ids=[s or "root" for s in SURFACE])
@@ -312,3 +311,53 @@ def test_replica_main_runs_with_jax_blocked():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def test_ui_and_clustering_run_with_jax_blocked():
+    """A fit under the port's StatsListener, served by its UIServer, and
+    k-means, t-SNE and the k-NN server, in a process where neither `jax`
+    nor the JAX package can be imported."""
+    code = (
+        "import sys, json, urllib.request\n"
+        "for m in ('jax', 'jaxlib', 'deeplearning4j_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from deeplearning4j_tpu_torch import ui, clustering\n"
+        "from deeplearning4j_tpu_torch.models import MultiLayerNetwork\n"
+        "from deeplearning4j_tpu_torch.nn.config import "
+        "NeuralNetConfiguration\n"
+        "from deeplearning4j_tpu_torch.nn.layers import DenseLayer, "
+        "OutputLayer\n"
+        "from deeplearning4j_tpu_torch.serving import "
+        "NearestNeighborsServer\n"
+        "conf = (NeuralNetConfiguration.builder().seed(1).list()\n"
+        "        .layer(DenseLayer(n_in=4, n_out=8, activation='tanh'))\n"
+        "        .layer(OutputLayer(n_in=8, n_out=3, activation='softmax'))"
+        "\n        .build())\n"
+        "net = MultiLayerNetwork(conf, device='cpu').init()\n"
+        "st = ui.InMemoryStatsStorage()\n"
+        "net.set_listeners(ui.StatsListener(st, 1, collect_histograms=True,"
+        "\n                                   collect_activations=True))\n"
+        "rng = np.random.default_rng(0)\n"
+        "x = rng.standard_normal((64, 4)).astype(np.float32)\n"
+        "y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 64)]\n"
+        "net.fit(x, y, epochs=1, batch_size=32)\n"
+        "srv = ui.UIServer(port=0); srv.attach(st)\n"
+        "o = json.loads(urllib.request.urlopen(\n"
+        "    f'http://127.0.0.1:{srv.port}/train/overview').read())\n"
+        "srv.stop()\n"
+        "assert len(o['scores']) == 2, o\n"
+        "km = clustering.KMeansClustering(3, device='cpu').fit(x)\n"
+        "emb = clustering.BarnesHutTsne(n_iter=5, perplexity=5,\n"
+        "                               device='cpu').fit_transform(x)\n"
+        "assert km.centroids.shape == (3, 4) and emb.shape == (64, 2)\n"
+        "knn = NearestNeighborsServer(x, port=0); knn.start(); knn.stop()\n"
+        "leak = [m for m in sys.modules if m.split('.')[0] in\n"
+        "        ('jax', 'deeplearning4j_tpu') and sys.modules[m]]\n"
+        "assert not leak, leak\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

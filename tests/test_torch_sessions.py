@@ -305,6 +305,35 @@ def test_policies_keep_the_jax_defaults():
                                           record=False).kernel == kernel
 
 
+# (DL4J_TPU_PREFIX_CACHE, DL4J_TPU_KV_PAGE, capable, page_len, max_cache)
+PREFIX_ENV_CASES = [
+    (None, None, True, None, 2048), ("off", None, True, None, 2048),
+    ("on", None, True, None, 2048), ("on", None, False, None, 2048),
+    (None, None, False, None, 2048), ("auto", None, True, 64, 2048),
+    (None, "8", True, None, 32), ("on", "12", True, 4, 32),
+    ("off", "8", True, 8, 32)]
+
+
+@pytest.mark.parametrize("force,page,capable,page_len,max_cache",
+                         PREFIX_ENV_CASES)
+def test_prefix_cache_policy_reads_the_environment_as_jax(
+        monkeypatch, force, page, capable, page_len, max_cache):
+    """C20: both packages choose the same mode, page length and reason
+    under each `DL4J_TPU_PREFIX_CACHE` / `DL4J_TPU_KV_PAGE` setting."""
+    from deeplearning4j_tpu.ops import kernel_defaults as jkd
+
+    for name, value in (("DL4J_TPU_PREFIX_CACHE", force),
+                        ("DL4J_TPU_KV_PAGE", page)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    kw = dict(max_cache=max_cache, capable=capable, record=False)
+    got = kd.prefix_cache_policy(page_len, **kw)
+    want = jkd.prefix_cache_policy(page_len, **kw)
+    assert tuple(got) == tuple(want)
+
+
 @pytest.mark.parametrize("h,hkv,dh", [(16, 1, 64), (8, 8, 256), (8, 8, 63)])
 def test_decode_kernels_refuse_shapes_past_their_register_tiles(h, hkv, dh):
     """There is no dense decode path on the card: a shape the CUDA
