@@ -307,6 +307,36 @@ exits non-zero with no result line:
     uploaded to the UI's `/tsne`; (d) `NearestNeighborsServer` over the
     same features, 100 `/knn` and 100 `/knnindex` requests over HTTP
     held against a brute-force search on the card, p50/p99 latency.
+24. path_n: DL4J's NLP and graph embeddings (slice 29), on synthetic
+    data from seeds: a 1M-token corpus of 50,000 sentences of 20 words,
+    each sentence from one of 20 topic vocabularies (2,500 types each,
+    Zipf over their ranks). (a) `Word2Vec` skip-gram with negative
+    sampling at word2vec's published settings (-size 300 -window 5
+    -negative 5 -sample 1e-3 -min-count 5), batch 8192, one epoch, lr
+    0.025 → 1e-4; (b) CBOW-NS and skip-gram-HS on a 200k-token cut;
+    (c) `ParagraphVectors` DM and DBOW on 2,000 documents of 50 words,
+    one label a document, with `infer_vector` of 20 of them on the card
+    and on the CPU and the label nearest each inferred vector (a document
+    of the same topic); (d) `Glove` on the cut; (e) `DeepWalk` (d 128,
+    window 10, walk length 40, 10 walks a vertex) on a 5,000-vertex
+    stochastic block graph (10 communities, mean degree 10). Each fit's
+    first 10 steps are held against the same steps on the CPU from the
+    same tables and inputs (`StepTape`; all draws are numpy on the host,
+    so a CPU fit from the seed takes the same ones) within 1e-5 of each
+    table's largest |value|; each reports steps, device ms a step and
+    pairs/s; (a)'s 10 nearest words of 100 topic words and (e)'s of 100
+    vertices lie mostly (floor 0.5, chance ~0.05 and ~0.1) in the
+    query's topic or community. (f) (a)'s table through the Google
+    binary format (the native codec, which must build) and the text
+    format, read back equal. (g) BASELINE config #3: 2,048 synthetic
+    reviews of 64-256 words (class 0 from topics 0-9, class 1 from
+    10-19) through `SentenceDataSetIterator(word_vectors=(a),
+    max_length=256, batch_size=32)` into `bench.py`'s sentiment net
+    (GravesLSTM(256) → global max pool → OutputLayer(2), Adam(2e-3),
+    float32), 2 epochs through `net.fit`: B2a, B2c's two launches and
+    B1a once a step, the first step against the CPU within 1e-5 (Adam's ε
+    1e-3 there, as `lenet_parity`), the epoch mean loss falling. Each
+    part prints its seconds.
 
 Weights are random, from fixed seeds. Each path resets the kernels'
 launch counts just before it runs and reads them just after; a kernel
@@ -8015,6 +8045,531 @@ def path_u(images, path_r_step_ms=None):
             "knn": d}
 
 
+# ------------------------------------------------ slice 29 (A7: nlp, graph)
+N_TOPICS, N_TYPES = 20, 50_000
+# the card's first N_REPLAY steps of a fit against the same steps on the
+# CPU from the same tables and inputs: the largest gap over every table,
+# as a share of that table's largest |value| (float32; the card sums a
+# row's contributions with atomics, in another order than the CPU)
+N_REPLAY, N_REPLAY_RTOL = 10, 1e-5
+# GloVe's AdaGrad starts from a history of 1e-8, so its first update of
+# an element is lr * g / sqrt(1e-8 + g²): ±lr wherever |g| >> 1e-4, and
+# wherever a row's contributions nearly cancel (|g| ~ 1e-4) a last-bit
+# change of their sum moves it by a share of lr (as Adam's at ε 1e-8,
+# `lenet_parity`); the next steps' gradients, and so the history, then
+# carry that. Its tables (parameters and history) are held by their
+# change over the replayed steps: the norm of the card's less the CPU's
+# over the norm of the CPU's, per table.
+N_GLOVE_UPDATE_GAP = 1e-3
+# the nearest-neighbour floors, each well above its chance level (stated
+# in the row): a query word's or vertex's 10 nearest in its own topic or
+# community, and an inferred document vector's nearest label a document
+# of its own topic
+N_NEAREST_FLOOR, N_LABEL_FLOOR = 0.5, 0.25
+N_SENTIMENT_TOL = 1e-5          # PR 13's float32 1e-5 (`lenet_parity`)
+
+
+def n_host(x):
+    """`x` with every tensor in it copied to the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().clone()
+    if isinstance(x, dict):
+        return {k: n_host(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(n_host(v) for v in x)
+    return x
+
+
+def n_leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [("", x)]
+    if isinstance(x, dict):
+        return [(f"{k}{'/' + n if n else ''}", t) for k, v in x.items()
+                for n, t in n_leaves(v)]
+    return [(f"{i}{'/' + n if n else ''}", t) for i, v in enumerate(x)
+            for n, t in n_leaves(v)]
+
+
+class StepTape:
+    """Watches one fit's device steps: every step's device time (CUDA
+    events around its call) and pairs, and of the first `N_REPLAY` steps
+    the state before the first (`state` arguments: the tables, and
+    GloVe's AdaGrad history), each step's other inputs and the state
+    after the last, all copied to the host. `replay()` runs those steps
+    from the same state through the step built for the CPU and returns
+    the gap to the card's, table by table."""
+
+    def __init__(self, state=1):
+        self.k, self.n = state, N_REPLAY
+        self.events, self.inputs, self.pairs = [], [], 0
+        self.before = self.after = self.cpu_step = None
+
+    def wrap(self, step, cpu_step):
+        self.cpu_step = cpu_step
+
+        def run(*args):
+            i = len(self.events)
+            if i == 0:
+                self.before = n_host(args[:self.k])
+            if i < self.n:
+                self.inputs.append(n_host(args[self.k:]))
+            self.pairs += int(args[self.k].shape[0])
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(*args)
+            e1.record()
+            self.events.append((e0, e1))
+            if i == self.n - 1:
+                self.after = n_host(out if self.k > 1 else (out,))
+            return out
+        return run
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+    def replay(self, name, by_update=()):
+        """Tables under the state arguments listed in `by_update` are
+        held by their update (N_GLOVE_UPDATE_GAP), the rest by
+        N_REPLAY_RTOL of their largest |value|."""
+        check(len(self.events) >= self.n,
+              f"{name}: {len(self.events)} steps, fewer than {self.n}")
+        state = self.before
+        for args in self.inputs:
+            out = self.cpu_step(*state, *args)
+            state = out if self.k > 1 else (out,)
+        gaps, moves = {}, {}
+        for (key, card), (_, cpu), (_, start) in zip(
+                n_leaves(self.after), n_leaves(state),
+                n_leaves(self.before)):
+            scale = float(cpu.abs().max())
+            gaps[key] = float((card - cpu).abs().max()) / max(scale, 1e-30)
+            if int(key.split("/")[0]) in by_update:
+                moves[key] = float((card - cpu).norm()
+                                   / max(float((cpu - start).norm()),
+                                         1e-30))
+        held = {k: v for k, v in gaps.items() if k not in moves}
+        check(max(held.values(), default=0.0) <= N_REPLAY_RTOL,
+              f"{name}: the card's first {self.n} steps lie {held} (of each "
+              f"table's largest |value|) from the CPU's, limit "
+              f"{N_REPLAY_RTOL}")
+        check(not moves or max(moves.values()) <= N_GLOVE_UPDATE_GAP,
+              f"{name}: the card's updates over {self.n} steps lie {moves} "
+              f"(of the CPU's) from the CPU's, limit {N_GLOVE_UPDATE_GAP}")
+        row = {"replay_steps": self.n, "replay_rel_gap": gaps,
+               "replay_rel_gap_max": max(held.values(), default=None),
+               "replay_rtol": N_REPLAY_RTOL}
+        if moves:
+            row.update(replay_update_gap=moves,
+                       replay_update_gap_limit=N_GLOVE_UPDATE_GAP)
+        return row
+
+
+@contextlib.contextmanager
+def n_taped(owner, attr, tape, factory):
+    """Routes `owner.attr` through `tape` for the block: a step factory,
+    where `factory(original, *args)` returns (card step, CPU step), or
+    with no `factory` a step that runs on either."""
+    orig = owner.__dict__[attr]
+
+    def patched(*args, **kw):
+        return tape.wrap(*factory(orig, *args, **kw))
+
+    setattr(owner, attr, tape.wrap(orig, orig) if factory is None
+            else patched)
+    try:
+        yield tape
+    finally:
+        setattr(owner, attr, orig)
+
+
+def n_sv_factory(orig, alg, model, hs_tables=None):
+    """`SkipGram.make_step`: the card's step, and the same algorithm's
+    step built for a CPU model (the hierarchical-softmax tables there)."""
+    import copy
+
+    cpu = copy.copy(model)
+    cpu.device = torch.device("cpu")
+    return orig(alg, model, hs_tables), orig(alg, cpu, hs_tables)
+
+
+def n_pv_factory(orig, model):
+    return orig(model), orig(model)
+
+
+def n_fit(name, fit, tape_on, by_update=()):
+    """`fit()` on the card under a tape, every kernel count
+    zeroed before and read after (the embedding steps are tensor code:
+    no kernel of the port may run, and no plain version on CUDA)."""
+    torch.cuda.synchronize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with tape_on as tape:
+        fit()
+    ms = tape.step_ms()
+    wall = time.perf_counter() - t0
+    launches, plain = read_all_counts()
+    check(sum(plain.values()) == 0,
+          f"{name}: plain versions ran on CUDA tensors: {plain}")
+    check(sum(launches.values()) == 0,
+          f"{name}: kernels launched in an embedding fit: {launches}")
+    return {"steps": len(ms), "pairs": tape.pairs, "fit_s": wall,
+                  "step_ms_p50": float(np.median(ms)),
+                  "step_ms_max": max(ms), "device_s": sum(ms) / 1e3,
+                  "pairs_per_s": tape.pairs / wall,
+                  **tape.replay(name, by_update)}
+
+
+def topic_corpus(rng, sentences, length, zipf=1.0):
+    """`sentences` sentences of `length` words, each drawn from one of
+    N_TOPICS topic vocabularies (N_TYPES / N_TOPICS types each, disjoint)
+    by a Zipf law of exponent `zipf` over the topic's ranks. Words are
+    "w<id>"; a word's topic is id // (N_TYPES / N_TOPICS)."""
+    per = N_TYPES // N_TOPICS
+    p = 1.0 / np.arange(1, per + 1) ** zipf
+    topic = rng.integers(0, N_TOPICS, sentences)
+    ids = rng.choice(per, size=(sentences, length), p=p / p.sum())
+    ids += (topic * per)[:, None]
+    return [[f"w{i}" for i in row] for row in ids.tolist()], topic
+
+
+def word_topic(word):
+    return int(word[1:]) // (N_TYPES // N_TOPICS)
+
+
+def n_nearest(name, model, per_topic=5):
+    """The 10 nearest words of each topic's `per_topic` most frequent
+    words: the share in the query's own topic, against chance (a random
+    other word of the vocabulary)."""
+    words = [w.word for w in model.vocab.words]
+    size = np.bincount([word_topic(w) for w in words], minlength=N_TOPICS)
+    same = chance = 0.0
+    queries = []
+    for t in range(N_TOPICS):
+        queries += [w for w in words if word_topic(w) == t][:per_topic]
+    for q in queries:
+        near = model.words_nearest(q, 10)
+        same += np.mean([word_topic(w) == word_topic(q) for w in near])
+        chance += (size[word_topic(q)] - 1) / (len(words) - 1)
+    share, chance = same / len(queries), chance / len(queries)
+    check(share >= N_NEAREST_FLOOR,
+          f"{name}: {share} of the nearest words in the query's topic, "
+          f"floor {N_NEAREST_FLOOR} (chance {chance})")
+    return {"nearest_queries": len(queries), "nearest_same_topic": share,
+            "nearest_chance": chance, "nearest_floor": N_NEAREST_FLOOR}
+
+
+def n_word2vec(name, corpus, **kw):
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.nlp import sequence_vectors as sv
+
+    model = Word2Vec(layer_size=300, window=5, negative=5, subsampling=1e-3,
+                     min_count=5, batch_size=8192, epochs=1,
+                     learning_rate=0.025, min_learning_rate=1e-4, seed=29,
+                     device="cuda", **kw)
+    row = n_fit(name, lambda: model.fit(corpus),
+                n_taped(sv.SkipGram, "make_step", StepTape(), n_sv_factory))
+    check(model.syn0.shape == (len(model.vocab), 300)
+          and np.isfinite(model.syn0).all()
+          and np.isfinite(model._syn1).all(),
+          f"{name}: tables {model.syn0.shape} not finite or misshapen")
+    row.update(phase=name, tokens=sum(map(len, corpus)),
+               vocab=len(model.vocab), syn1_rows=model._syn1.shape[0],
+               **{k: getattr(model, k) for k in ("window", "negative",
+                                                  "subsampling", "hs")},
+               algorithm=model.algorithm.name)
+    return model, row
+
+
+def n_paragraph_vectors(rng, docs, topics, dm, infer=20):
+    """ParagraphVectors over `docs`, one label a document (a label shared
+    by ~100 documents diverges at batch 8192 in both packages: its ~400
+    contributions a batch are summed into one update, ROADMAP C21), then
+    `infer_vector` of `infer` training documents on the card and the CPU
+    and the label nearest each inferred vector."""
+    from deeplearning4j_tpu_torch.nlp import ParagraphVectors
+
+    labels = [f"doc{i}" for i in range(len(docs))]
+    name = f"path_n_pv_{'dm' if dm else 'dbow'}"
+    pv = ParagraphVectors(dm=dm, layer_size=300, window=5, negative=5,
+                          batch_size=8192, seed=29, device="cuda")
+    row = n_fit(name, lambda: pv.fit(docs, labels),
+                n_taped(ParagraphVectors, "_make_pv_step", StepTape(),
+                        n_pv_factory))
+    import copy
+
+    cpu = copy.copy(pv)
+    cpu.device = torch.device("cpu")
+    picks = rng.choice(len(docs), infer, replace=False)
+    gaps, hits, own = [], 0, 0
+    t0 = time.perf_counter()
+    for i in picks:
+        v = pv.infer_vector(docs[i])
+        ref = cpu.infer_vector(docs[i])
+        gaps.append(float(np.abs(v - ref).max() / np.abs(ref).max()))
+        sims = pv.doc_vectors @ v / (
+            np.linalg.norm(pv.doc_vectors, axis=1) * np.linalg.norm(v)
+            + 1e-12)
+        near = int(pv.labels[int(np.argmax(sims))][3:])
+        hits += topics[near] == topics[i]
+        own += near == i
+    infer_s = time.perf_counter() - t0
+    check(max(gaps) <= N_REPLAY_RTOL,
+          f"{name}: infer_vector on the card lies {max(gaps)} (of the "
+          f"largest |value|) from the CPU's, limit {N_REPLAY_RTOL}")
+    chance = float(np.mean([(np.sum(topics == topics[i]) - 1)
+                            / (len(docs) - 1) for i in picks]))
+    check(hits / infer >= N_LABEL_FLOOR,
+          f"{name}: {hits}/{infer} inferred vectors nearest a document of "
+          f"their topic, floor {N_LABEL_FLOOR} (chance {chance})")
+    row.update(phase=name, documents=len(docs), labels=len(pv.labels),
+               vocab=len(pv.vocab), infer_documents=infer,
+               infer_rel_gap_max=max(gaps), infer_s=infer_s,
+               nearest_label_same_topic=hits / infer,
+               nearest_label_chance=chance, nearest_label_floor=N_LABEL_FLOOR,
+               nearest_label_own=own / infer)
+    return row
+
+
+def n_glove(corpus):
+    from deeplearning4j_tpu_torch.nlp import Glove
+    from deeplearning4j_tpu_torch.nlp import glove as gl
+
+    model = Glove(layer_size=300, window=5, min_count=5, batch_size=8192,
+                  seed=29, device="cuda")
+    row = n_fit("path_n_glove", lambda: model.fit(corpus),
+                n_taped(gl, "_glove_step", StepTape(state=2), None),
+                by_update=(0, 1))
+    check(np.isfinite(model.syn0).all(), "path_n_glove: table not finite")
+    row.update(phase="path_n_glove", tokens=sum(map(len, corpus)),
+               vocab=len(model.vocab), optimizer="AdaGrad",
+               learning_rate=model.lr, x_max=model.x_max, alpha=model.alpha)
+    return row
+
+
+def block_graph(rng, vertices=5000, blocks=10, degree=10, inside=0.8):
+    """A stochastic block graph: `blocks` equal communities, mean degree
+    `degree`, `inside` of each vertex's expected edges in its own
+    community. Returns the graph and each vertex's community."""
+    from deeplearning4j_tpu_torch.graph import Graph
+
+    per = vertices // blocks
+    comm = np.arange(vertices) // per
+    p_in = degree * inside / (per - 1)
+    p_out = degree * (1 - inside) / (vertices - per)
+    g = Graph(vertices)
+    for i in range(vertices - 1):
+        j = np.arange(i + 1, vertices)
+        p = np.where(comm[j] == comm[i], p_in, p_out)
+        for k in j[rng.random(len(j)) < p].tolist():
+            g.add_edge(i, k)
+    return g, comm
+
+
+def n_deepwalk(rng):
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+    from deeplearning4j_tpu_torch.nlp import sequence_vectors as sv
+
+    t0 = time.perf_counter()
+    g, comm = block_graph(rng)
+    graph_s = time.perf_counter() - t0
+    dw = DeepWalk(vector_size=128, window_size=10, walks_per_vertex=10,
+                  seed=29, device="cuda")
+    row = n_fit("path_n_deepwalk", lambda: dw.fit(g, walk_length=40),
+                n_taped(sv.SkipGram, "make_step", StepTape(), n_sv_factory))
+    queries = rng.choice(g.num_vertices(), 100, replace=False)
+    share = float(np.mean([np.mean(comm[dw.vertices_nearest(int(v), 10)]
+                                   == comm[v]) for v in queries]))
+    per = g.num_vertices() // (comm.max() + 1)
+    chance = (per - 1) / (g.num_vertices() - 1)
+    check(share >= N_NEAREST_FLOOR,
+          f"path_n_deepwalk: {share} of the nearest vertices in the "
+          f"query's community, floor {N_NEAREST_FLOOR} (chance {chance})")
+    check(np.isfinite(dw.vertex_vectors).all(),
+          "path_n_deepwalk: vectors not finite")
+    row.update(phase="path_n_deepwalk", vertices=g.num_vertices(),
+               edges=g.num_edges() // 2, communities=int(comm.max() + 1),
+               graph_s=graph_s, vector_size=128, window=10, walk_length=40,
+               walks_per_vertex=10, learning_rate=dw.learning_rate,
+               nearest_queries=100, nearest_same_community=share,
+               nearest_chance=chance, nearest_floor=N_NEAREST_FLOOR)
+    return row
+
+
+def n_files(model):
+    """(a)'s table through the Google binary format (read by the native
+    codec, which must have built) and the text format."""
+    import os
+    import tempfile
+
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.nlp import (
+        read_binary, read_word_vectors, write_binary, write_word_vectors,
+    )
+
+    check(native.available(), "path_n_files: the native library did not "
+          "build")
+    words = [w.word for w in model.vocab.words]
+    row = {"phase": "path_n_files", "native": True,
+           "rows": model.syn0.shape[0], "dim": model.syn0.shape[1]}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_binary(model, f"{tmp}/v.bin")
+        vocab, mat = read_binary(f"{tmp}/v.bin")
+        row["binary_s"] = time.perf_counter() - t0
+        check([w.word for w in vocab.words] == words
+              and np.array_equal(mat, model.syn0),
+              "path_n_files: the binary file read back differs")
+        t0 = time.perf_counter()
+        write_word_vectors(model, f"{tmp}/v.txt")
+        vocab, mat = read_word_vectors(f"{tmp}/v.txt")
+        row["text_s"] = time.perf_counter() - t0
+        # the text format keeps 6 decimals: half a unit of the last, and
+        # the float32 that the decimal is read back to, one ulp at most
+        gap = float(np.abs(mat - model.syn0).max())
+        limit = 5e-7 + float(np.spacing(np.abs(model.syn0).max()))
+        check([w.word for w in vocab.words] == words and gap <= limit,
+              f"path_n_files: the text file read back differs by {gap} "
+              f"(limit {limit})")
+        row["binary_bytes"] = os.path.getsize(f"{tmp}/v.bin")
+        row["text_max_abs_gap"] = gap
+        row["text_limit"] = limit
+    return row
+
+
+def sentiment_net(device, updater=None):
+    """`bench.py`'s BASELINE config #3 net: GravesLSTM(256) tanh →
+    GlobalPoolingLayer max → OutputLayer(2, softmax) on 300-d word
+    vectors, Adam(2e-3) (or `updater`), float32, seed 0."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        GlobalPoolingLayer, GravesLSTM, OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import Adam
+
+    conf = (NeuralNetConfiguration.builder().seed(0)
+            .updater(updater or Adam(2e-3)).activation("tanh")
+            .list(GravesLSTM(n_out=256), GlobalPoolingLayer(pooling="max"),
+                  OutputLayer(n_out=2, activation="softmax"))
+            .set_input_type(InputType.recurrent(300)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def reviews(rng, n=2048, lo=64, hi=256):
+    """`n` synthetic reviews of `lo`..`hi` words, class 0 from topics
+    0-9 and class 1 from topics 10-19 (one topic a review), words by the
+    corpus's Zipf law."""
+    labels = rng.integers(0, 2, n)
+    per = N_TYPES // N_TOPICS
+    p = 1.0 / np.arange(1, per + 1)
+    p /= p.sum()
+    out = []
+    for y in labels:
+        topic = 10 * y + rng.integers(0, 10)
+        ids = rng.choice(per, rng.integers(lo, hi + 1), p=p) + topic * per
+        out.append(" ".join(f"w{i}" for i in ids))
+    return out, labels
+
+
+def n_sentiment(rng, w2v, epochs=2):
+    """BASELINE config #3 end to end (module docstring, 24 (g))."""
+    from deeplearning4j_tpu_torch.nlp.sentence_data import (
+        SentenceDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.ops import lstm as lk
+    from deeplearning4j_tpu_torch.optim.listeners import (
+        CollectScoresIterationListener,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import Adam, tree_leaves
+
+    texts, labels = reviews(rng)
+    it = SentenceDataSetIterator(texts, labels, word_vectors=w2v,
+                                 max_length=256, batch_size=32)
+    per_epoch = -(-len(texts) // 32)
+    # the first step on the card against the CPU on the first batch, as
+    # `lenet_parity` (Adam's ε 1e-3: at 1e-8 a near-zero gradient's first
+    # update is ±lr whatever its size)
+    first = next(iter(it))
+    losses, leaves = {}, {}
+    for d in ("cuda", "cpu"):
+        net = sentiment_net(d, Adam(2e-3, epsilon=1e-3))
+        scores = CollectScoresIterationListener()
+        net.listeners.append(scores)
+        net.fit([first], epochs=1)
+        losses[d] = scores.scores[0][1]
+        leaves[d] = [p.float().cpu() for p in tree_leaves(net.params_tree)]
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    dp = max((a - b).abs().max().item()
+             for a, b in zip(leaves["cuda"], leaves["cpu"]))
+    check(rel <= N_SENTIMENT_TOL and dp <= N_SENTIMENT_TOL,
+          f"path_n_sentiment: the first step's loss {losses} differs by "
+          f"{rel} relative, parameters by {dp}")
+    net = sentiment_net("cuda")
+    fit = timed_fit("path_n_sentiment", net, it, epochs, 32 * 256,
+                    per_epoch=per_epoch)
+    steps, launches = fit["steps"], fit["launches"]
+    for k in ("lstm_fwd", "lstm_bwd", "lstm_bwd_weights", "adam_update"):
+        check(launches[k] == steps, f"path_n_sentiment: {k} launched "
+              f"{launches[k]} times, want one a step x {steps}")
+    check(launches["lstm_fwd_inference"] == 0,
+          "path_n_sentiment: the inference kernel ran in a train step")
+    row = {"phase": "path_n_sentiment", "reviews": len(texts), "T": 256,
+           "batch": 32, "features": 300, "hidden": 256,
+           "model": "GravesLSTM(256) + GlobalPooling(max) + Output(2)",
+           "updater": str(net.conf.updater), "dtype": "float32",
+           "first_step": {"losses": losses, "loss_rel_err": rel,
+                          "max_param_abs_err": dp, "tol": N_SENTIMENT_TOL},
+           **{k: v for k, v in fit.items()
+              if k not in ("losses", "step_ms", "etl_ms")},
+           "launches_by_design": launches_by_design(lk)}
+    return row
+
+
+def path_n(rng):
+    """DL4J's NLP and graph embeddings on the card, feeding BASELINE
+    config #3 (module docstring, 24)."""
+    parts, seconds = {}, {}
+
+    def part(key, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[key] = time.perf_counter() - t0
+        row = out[1] if isinstance(out, tuple) else out
+        row["seconds"] = seconds[key]
+        emit(row)
+        parts[key] = row
+        return out
+
+    t0 = time.perf_counter()
+    corpus, _ = topic_corpus(rng, 50_000, 20)
+    seconds["corpus"] = time.perf_counter() - t0
+
+    def word2vec():
+        model, row = n_word2vec("path_n_word2vec", corpus)
+        return model, {**row, **n_nearest("path_n_word2vec", model)}
+
+    w2v, _ = part("a", word2vec)
+    cut = corpus[:10_000]
+    part("b_cbow", lambda: n_word2vec("path_n_cbow", cut, use_cbow=True))
+    part("b_hs", lambda: n_word2vec("path_n_hs", cut,
+                                    hierarchic_softmax=True))
+    docs, topics = topic_corpus(rng, 2000, 50)
+    for dm in (True, False):
+        part(f"c_{'dm' if dm else 'dbow'}", n_paragraph_vectors, rng, docs,
+             topics, dm)
+    part("d", n_glove, cut)
+    part("e", n_deepwalk, rng)
+    part("f", n_files, w2v)
+    g = part("g", n_sentiment, rng, w2v)
+    row = {"phase": "path_n", "seconds": seconds,
+           "total_s": sum(seconds.values())}
+    emit(row)
+    return {"launches": g["launches"], "parts": parts, **row}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -8130,6 +8685,7 @@ def main() -> int:
     pi = path_i(np.random.default_rng(22))
     pu = path_u(image_batches(np.random.default_rng(28), 4, 128, 224, 1000),
                 r["step_ms_p50"])
+    pn = path_n(np.random.default_rng(29))
 
     b5q = {"banded_decode_attention_q":
            qb_fp8["launches"]["banded_decode_attention_q"]
@@ -8193,6 +8749,7 @@ def main() -> int:
                     "adam_update"):
             summary[-1]["launches_path_gt"] = gt["launches"][name]
             summary[-1]["launches_path_s2s"] = s2s["launches"][name]
+            summary[-1]["launches_path_n"] = pn["launches"][name]
         if name in FLASH_KERNELS + ("adam_update",):
             summary[-1]["launches_path_ckpt"] = ckpt["launches"][name]
             summary[-1]["launches_path_x"] = xa["launches"][name]

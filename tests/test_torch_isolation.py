@@ -175,7 +175,7 @@ IN_MODULE = {"ops": {"banded_attention"}}
 # the ported subpackages; `parallel` is ported in part and waits for A6
 SURFACE = ["", "nn", "nn.layers", "nn.config", "optim", "utils", "ops",
            "models", "zoo", "keras_import", "interop", "data", "eval",
-           "observe", "serving", "ui", "clustering"]
+           "observe", "serving", "ui", "clustering", "nlp", "graph"]
 
 
 @pytest.mark.parametrize("sub", SURFACE, ids=[s or "root" for s in SURFACE])
