@@ -338,6 +338,43 @@ exits non-zero with no result line:
     1e-3 there, as `lenet_parity`), the epoch mean loss falling. Each
     part prints its seconds.
 
+25. path_dp: parallelism and preemption-proof training (slice 30) on
+    BASELINE config #5's model, `path_r`'s ResNet-50 (bf16, fused,
+    Nesterovs). (a) `ParallelWrapper` over a one-rank NCCL mesh, 6 steps
+    of 128 on `path_r`'s batches under PyTorch's deterministic
+    algorithms: losses and every parameter, moment and running statistic
+    equal to the plain `net.fit`'s bit for bit; B7a 36, B7b 16 and B1b 1
+    a step; step ms beside `path_r`'s. (b) Two ranks on the one card over
+    gloo (spawned processes, `dp_rank_main`), global batch 64, sharded
+    Nesterov moments, 3 steps on deterministic algorithms: each rank's
+    first loss against the one-process fit's on the same global batch
+    within PERF.md §2's bf16 1e-3 relative (the parameters and later
+    losses are reported: at initialization the 53 training-mode batch
+    norms amplify a rounding difference by orders of magnitude within
+    one step); the group sums held in float32 on one res2a bottleneck
+    block (`bottleneck_conf`, `dp_f32_gaps`): the ranks' first step
+    (gradients after the all-reduce, parameters after the update)
+    against the same step in float64 on the host within 1e-5 of each
+    leaf's largest |value| or twice one process's float32 error there,
+    whichever is larger, and a control with each rank's own batch
+    statistics that must miss that bound; each rank's `v`
+    about half of (a)'s, B1b once a step on the rank's slices, the
+    ledger's all-reduce and all-gather bytes a step equal to the count
+    from the parameter tree, the exchange's ms a step; then an
+    `ElasticTrainer` stopped after iteration 2 (`resumable`). (c)
+    `net.fit(checkpointer=ShardedCheckpointer, checkpoint_every=2,
+    preemption=True)` with `SigtermAtStep(5)` over 8 steps of 32, then a
+    fresh net with `resume="auto"`: steps 6-8 against the uninterrupted
+    run (two uninterrupted runs give the determinism finding the resume
+    is held to); a `CheckpointIOFault` after the first shard file leaves
+    its step invisible and resume takes the previous one; a save's
+    blocking ms and the writer's s. (d) (b)'s 2-rank checkpoint restored
+    into (a)'s one-rank wrapper: parameters and running statistics equal
+    to the ranks', each Nesterov moment their two slices side by side,
+    bit for bit; it continues one step (its loss beside the 2-rank
+    run's); the `ReshardWitness` records the reshard. Each part prints
+    its seconds.
+
 Weights are random, from fixed seeds. Each path resets the kernels'
 launch counts just before it runs and reads them just after; a kernel
 of the path that was never launched, or a plain version called on a
@@ -4185,7 +4222,7 @@ def read_all_counts():
 
 
 def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
-              loss_must_fall=True, per_epoch=None, k=1):
+              loss_must_fall=True, per_epoch=None, k=1, fit=None):
     """`net.fit(batches, epochs, steps_per_dispatch=k)` with every launch
     count zeroed just before and read just after. Step times come from
     CUDA events recorded after each step is enqueued (at K > 1 a window's
@@ -4199,7 +4236,8 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
     `unit` (`tokens_per_step` of them a step) over steps 3-12 (K 1) and
     over steps 5-12 (any K: windows 2-3 at K 4), and the net's graph
     windows and eager steps. `batches` is a list of DataSets or an
-    iterator of `per_epoch` batches an epoch."""
+    iterator of `per_epoch` batches an epoch; `fit` (default `net.fit`)
+    is the entry point driven, a `ParallelWrapper`'s for `path_dp`."""
     from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
 
     class Clock(TrainingListener):
@@ -4242,7 +4280,7 @@ def timed_fit(name, net, batches, epochs, tokens_per_step, unit="tokens",
     torch.cuda.reset_peak_memory_stats()
     reset_all_counts()
     t0 = time.perf_counter()
-    net.fit(batches, epochs=epochs, steps_per_dispatch=k)
+    (fit or net.fit)(batches, epochs=epochs, steps_per_dispatch=k)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_on_cuda = read_all_counts()
@@ -8570,7 +8608,669 @@ def path_n(rng):
     return {"launches": g["launches"], "parts": parts, **row}
 
 
+# path_dp (b): the global batch of the two ranks, its batches' seed
+DP_BATCH, DP_SEED, DP_STEPS = 64, 30, 3
+BF16_LOSS_RTOL = 1e-3     # PERF.md §2: bf16 losses, relative
+# PERF.md §2's float32 bound, here of each leaf's largest |value|. The
+# ranks' first float32 step of one bottleneck block (gradients after the
+# all-reduce, parameters after the update) is held against the same
+# step in float64 on the host to this bound or twice one process's
+# float32 error there, whichever is larger (the guard of the repo's
+# 3xTF32 designs: a weight gradient sums 200,704 rows with cancellation,
+# so float32 itself may miss 1e-5); a batch statistic over one rank's
+# rows moves it ~1e-1, and that control must miss the bound. The whole
+# ResNet-50 at initialization is not held to it: its gradients through
+# 53 training-mode batch norms amplify a rounding difference by orders
+# of magnitude (its own twin on row-reversed rows shows it), so its
+# first step is reported
+F32_LEAF_RTOL = 1e-5
+
+
+def bf16_param_gap(got, want):
+    """The largest |got - want| over a leaf in units of two bf16 steps at
+    |want| plus 1e-5 (PERF.md §2's bf16 parameter bound): <= 1 holds."""
+    g, w = got.float(), want.float()
+    tol = 2 * 2.0 ** -7 * w.abs() + 1e-5
+    return float(((g - w).abs() / tol).max())
+
+
+def worst_leaves(got, want, n=4, gap=bf16_param_gap):
+    """The `n` leaves farthest apart in `gap`'s units, with their largest
+    absolute gap and largest |value|."""
+    rows = sorted(((gap(got[k], want[k]), k,
+                    float((got[k].float() - want[k].float()).abs().max()),
+                    float(want[k].float().abs().max())) for k in want),
+                  reverse=True)
+    return rows[:n]
+
+
+def leaf_rel_gap(got, want):
+    """max |got - want| over a leaf, over the leaf's largest |want|."""
+    g, w = got.double(), want.double()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def named_cpu(tree):
+    """{"layer/param": host copy} of a {layer: {param: tensor}} tree."""
+    return {f"{n}/{k}": t.detach().cpu().clone()
+            for n, sub in tree.items() if isinstance(sub, dict)
+            for k, t in sub.items()}
+
+
+class FirstStep:
+    """A listener keeping every step's loss and the parameters after the
+    first step (on the host)."""
+
+    def __init__(self):
+        from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
+
+        outer = self
+        self.losses, self.params = [], None
+
+        class Rec(TrainingListener):
+            def iteration_done(self, model, iteration, epoch, score):
+                outer.losses.append(score)
+                if outer.params is None:
+                    outer.params = named_cpu(model.params_tree)
+
+        self.listener = Rec()
+
+
+def bottleneck_conf(dtype="float32"):
+    """One ResNet-50 conv block at res2a's shapes (56x56, 64 -> 64 -> 256
+    channels, the projection shortcut, fused conv+BN) behind a plain
+    batch norm, then `resnet_conf`'s head: the batch-statistics layers
+    of `path_dp`'s path (B7a, B7b and the plain batch norm) on inputs
+    where float32 rounding is not amplified."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization, GlobalPoolingLayer, OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    zoo = ResNet50(num_classes=1000, fused=True)
+    g = (NeuralNetConfiguration.builder().seed(12345)
+         .updater(Nesterovs(0.01, 0.9)).weight_init("relu")
+         .graph_builder().add_inputs("input")
+         .set_input_types(InputType.convolutional(56, 56, 64)))
+    g.add_layer("in_bn", BatchNormalization(activation="relu"), "input")
+    x = zoo._conv_block(g, "res2a", "in_bn", (64, 64, 256), (1, 1))
+    g.add_layer("avgpool", GlobalPoolingLayer(pooling="avg"), x)
+    g.add_layer("output", OutputLayer(n_out=1000, activation="softmax",
+                                      loss="mcxent"), "avgpool")
+    g.set_outputs("output")
+    return dataclasses.replace(g.build(), dtype=dtype)
+
+
+def bottleneck_batch(batch=DP_BATCH):
+    """`bottleneck_conf`'s global batch: standard-normal 56x56x64 maps,
+    random one-hot labels, from DP_SEED."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    rng = np.random.default_rng(DP_SEED + 1)
+    return DataSet(rng.standard_normal((batch, 56, 56, 64)).astype(
+        np.float32), np.eye(1000, dtype=np.float32)[
+        rng.integers(0, 1000, batch)])
+
+
+def first_step(batch, conf=None, wrap=False, local_stats=False,
+               device="cuda"):
+    """One step of `conf` (`resnet_conf`'s float32 ResNet-50 by default)
+    on `batch` on `device`: the plain fit, or under a `ParallelWrapper`
+    (`wrap`; `local_stats` drops the data group from batch
+    normalization: the control that shows what a check sees when a
+    group sum is missing). Returns the loss, the global-mean gradients
+    the updaters got and the parameters after the update, on the
+    host."""
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.models import multilayer as mm
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    net = ComputationGraph(conf or resnet_conf(dtype="float32"),
+                           device=device).init()
+    fit = net.fit
+    if wrap:
+        pw = ParallelWrapper(net)
+        if local_stats:
+            net._dp.stats_group = None
+        fit = pw.fit
+    seen, norm = {}, mm._normalize_grads
+
+    def spy(grads, mode, thr):
+        seen.setdefault("grads", named_cpu(grads))
+        return norm(grads, mode, thr)
+
+    rec = FirstStep()
+    net.listeners.append(rec.listener)
+    mm._normalize_grads = spy
+    try:
+        with tf32_off(), deterministic():
+            fit([batch], epochs=1)
+    finally:
+        mm._normalize_grads = norm
+    return float(rec.losses[0]), seen["grads"], rec.params
+
+
+def dp_f32_gaps(tmp, ranks, batch):
+    """`path_dp` (b)'s float32 check (`F32_LEAF_RTOL`'s note): the
+    ranks' first float32 step of the bottleneck block and one process's,
+    each against the step in float64 on the host (each leaf's largest
+    gap over its largest |value|, the worst leaf); the control (each
+    rank's batch statistics of its own rows) must miss the bound. The
+    whole ResNet-50's ranks and its row-reversed twin are reported
+    against one process."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    def gaps(got, ref):
+        (loss, grads, params), (loss1, grads1, params1) = got, ref
+        return {"loss_rel_gap": abs(loss - loss1) / abs(loss1),
+                "grad_gap": max(leaf_rel_gap(grads[k], grads1[k])
+                                for k in grads1),
+                "param_gap": max(leaf_rel_gap(params[k], params1[k])
+                                 for k in params1),
+                "worst_grads": worst_leaves(grads, grads1, gap=leaf_rel_gap)}
+
+    def ranks_step(name):
+        two = torch.load(f"{tmp}/{name}.pt")
+        return ranks[0][name]["loss"], two["grads"], two["params"]
+
+    resnet = first_step(batch)
+    f32 = {"bound_leaf_rel": F32_LEAF_RTOL,
+           "resnet_ranks": gaps(ranks_step("f32_resnet"), resnet),
+           "resnet_reversed_rows": gaps(first_step(DataSet(
+               batch.features[::-1].copy(), batch.labels[::-1].copy())),
+               resnet)}
+    del resnet
+    block = bottleneck_batch()
+    one = first_step(block, bottleneck_conf("float32"))
+    t0 = time.perf_counter()
+    truth = first_step(block, bottleneck_conf("float64"), device="cpu")
+    f32["float64_host_s"] = time.perf_counter() - t0
+    f32["block_one_process"] = gaps(one, truth)
+    f32["block_ranks"] = gaps(ranks_step("f32_block"), truth)
+    f32["block_ranks_vs_one_process"] = gaps(ranks_step("f32_block"), one)
+    f32["block_control"] = gaps(ranks_step("f32_block_local_stats"), truth)
+    f32["ranks_loss_rel_gap"] = max(
+        abs(doc["f32_block"]["loss"] - one[0]) / one[0] for doc in ranks)
+    bound = max(F32_LEAF_RTOL, 2 * f32["block_one_process"]["grad_gap"],
+                2 * f32["block_one_process"]["param_gap"])
+    f32["bound"] = bound
+    emit({"phase": "path_dp_b_f32", **f32})
+    ok = f32["block_ranks"]
+    check(max(ok["grad_gap"], ok["param_gap"]) <= bound and
+          f32["ranks_loss_rel_gap"] <= F32_LEAF_RTOL,
+          f"path_dp (b): the ranks' first float32 step of the bottleneck "
+          f"block off the float64 step by {ok['grad_gap']} (gradients), "
+          f"{ok['param_gap']} (parameters) of each leaf's largest |value| "
+          f"(bound {bound}), its loss off one process's by "
+          f"{f32['ranks_loss_rel_gap']} (§2: {F32_LEAF_RTOL})")
+    check(f32["block_control"]["grad_gap"] > bound,
+          "path_dp (b): the control without the group sums meets the "
+          "float32 bound: the check cannot see a missing group sum")
+    return f32
+
+
+def dp_rank_main(rank, world, port, directory):
+    """One rank of `path_dp` (b): joins a gloo group of `world` ranks on
+    the one card, fits `resnet_conf()`'s ResNet-50 under a
+    `ParallelWrapper` (sharded moments) on the global batches of
+    DP_SEED, then an `ElasticTrainer` stopped after iteration 2 into
+    `directory/ck`, then the first float32 steps `dp_f32_gaps` reads
+    (`first_step`); writes its measurements, parameters, the elastic
+    run's state and (rank 0) the float32 steps' gradients there."""
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.observe.commsmon import get_comm_ledger
+    from deeplearning4j_tpu_torch.observe.devicemon import (
+        device_memory_summary,
+    )
+    from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
+    from deeplearning4j_tpu_torch.parallel import (
+        ElasticTrainer, ParallelWrapper, initialize_distributed,
+    )
+    from deeplearning4j_tpu_torch.parallel import data_parallel as dpm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                           backend="gloo", timeout_s=120)
+    batches = image_batches(np.random.default_rng(DP_SEED), DP_STEPS,
+                            DP_BATCH, 224, 1000)
+    exchange = {"ms": 0.0}
+
+    def timed(fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            exchange["ms"] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    dpm._DataParallelStep.reduce = timed(dpm._DataParallelStep.reduce)
+    dpm._DataParallelStep._all_gather = timed(
+        dpm._DataParallelStep._all_gather)
+
+    net = ComputationGraph(resnet_conf(), device="cuda").init()
+    pw = ParallelWrapper(net)
+    v_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+        {n: s["v"] for n, s in net.updater_state.items() if s}))
+    rec = FirstStep()
+    net.listeners.append(rec.listener)
+    ledger = get_comm_ledger()
+    mark = ledger.mark()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with deterministic():
+        pw.fit(batches, epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches, plain = read_all_counts()
+    ops = ledger.since(mark)
+    by = {}
+    for op in ops:
+        row = by.setdefault(f"{op['kind']}:{op['purpose']}",
+                            {"ops": 0, "payload_bytes": 0, "wire_bytes": 0,
+                             "staged": 0})
+        row["ops"] += 1
+        row["payload_bytes"] += op["payload_bytes"]
+        row["wire_bytes"] += op["wire_bytes"]
+        row["staged"] += int(op["staged"])
+    torch.save({"step1": rec.params, "last": named_cpu(net.params_tree)},
+               f"{directory}/params-{rank}.pt")
+    doc = {"rank": rank, "losses": [float(x) for x in rec.losses],
+           "launches": launches, "plain_on_cuda": plain, "v_bytes": v_bytes,
+           "ledger": by, "exchange_ms_per_step": exchange["ms"] / DP_STEPS,
+           "fit_s": fit_s, "memory": device_memory_summary()}
+    del net, pw
+    torch.cuda.empty_cache()
+    net2 = ComputationGraph(resnet_conf(), device="cuda").init()
+    trainer = ElasticTrainer(net2, f"{directory}/ck", checkpoint_every=1,
+                             stop_fn=lambda: net2.iteration >= 2)
+    # deterministic, as the fit above: its first two steps are that fit's
+    with deterministic():
+        doc["elastic"] = trainer.fit(batches, epochs=1, batch_size=DP_BATCH)
+    # the state the checkpoint holds: whole parameters and running
+    # statistics, this rank's slices of the Nesterov moments
+    torch.save({"params": named_cpu(net2.params_tree),
+                "state": named_cpu(net2.state_tree),
+                "v": named_cpu({n: s["v"] for n, s in
+                                net2.updater_state.items() if s}),
+                "placements": net2._placements["updater"]},
+               f"{directory}/elastic-{rank}.pt")
+    del net2, trainer
+    torch.cuda.empty_cache()
+    # the first float32 steps (`dp_f32_gaps`): the whole ResNet-50 on the
+    # first global batch, one bottleneck block with the batch statistics
+    # over the data group and, as the control, without
+    block, block_conf = bottleneck_batch(), bottleneck_conf("float32")
+    for name, batch, conf, local in (
+            ("f32_resnet", batches[0], None, False),
+            ("f32_block", block, block_conf, False),
+            ("f32_block_local_stats", block, block_conf, True)):
+        loss, grads, params = first_step(batch, conf, wrap=True,
+                                         local_stats=local)
+        doc[name] = {"loss": loss}
+        if rank == 0:
+            torch.save({"grads": grads, "params": params},
+                       f"{directory}/{name}.pt")
+        del grads, params
+    with open(f"{directory}/rank-{rank}.json", "w") as f:
+        json.dump(doc, f)
+    torch.distributed.destroy_process_group()
+
+
+def dp_check_restored(tmp, net):
+    """`path_dp` (d): the 2-rank checkpoint restored into `net` is a
+    copy: its parameters and running statistics equal a rank's, each
+    Nesterov moment the ranks' slices laid side by side, bit for bit.
+    Returns the number of split moments."""
+    saved = [torch.load(f"{tmp}/elastic-{r}.pt") for r in range(2)]
+    for tree, name in ((net.params_tree, "params"),
+                       (net.state_tree, "state")):
+        for k, t in named_cpu(tree).items():
+            check(torch.equal(t, saved[0][name][k]),
+                  f"path_dp (d): the restored {name} {k} differ from the "
+                  f"2-rank run's")
+    split = 0
+    for k, t in named_cpu({n: s["v"] for n, s in
+                           net.updater_state.items() if s}).items():
+        layer, pname = k.split("/", 1)
+        _, bounds = saved[0]["placements"].get(f"{layer}/v/{pname}",
+                                               (None, None))
+        if bounds is None:
+            whole = saved[0]["v"][k]
+        else:
+            d = next(i for i, (lo, hi) in enumerate(bounds)
+                     if (lo, hi) != (0, t.shape[i]))
+            whole = torch.cat([saved[r]["v"][k] for r in range(2)], d)
+            split += 1
+        check(torch.equal(t, whole),
+              f"path_dp (d): the restored v {k} is not the ranks' slices")
+    check(split > 0 and net.iteration == 2,
+          f"path_dp (d): {split} split moments, iteration {net.iteration}")
+    return split
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def path_dp(images, r_step_ms_p50):
+    """Parallelism and preemption-proof training on ResNet-50 (module
+    docstring, 25)."""
+    import os
+    import signal
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.observe import commsmon
+    from deeplearning4j_tpu_torch.optim.updaters import tree_leaves
+    from deeplearning4j_tpu_torch.parallel import (
+        CheckpointIOFault, InjectedFault, ParallelWrapper,
+        ShardedCheckpointer, SigtermAtStep,
+    )
+
+    seconds, row = {}, {"phase": "path_dp"}
+    tmp = tempfile.mkdtemp(prefix="path_dp_")
+
+    def resnet():
+        return ComputationGraph(resnet_conf(), device="cuda").init()
+
+    # (a) one rank, NCCL: the wrapper against the plain fit
+    t0 = time.perf_counter()
+    six = list(images) + list(images[:2])
+    with tf32_off(), deterministic():
+        plain_net = resnet()
+        plain = timed_fit("path_dp_plain", plain_net, six, 1, 128,
+                          unit="images", loss_must_fall=False)
+        plain_leaves = leaves_of(plain_net)
+        del plain_net
+        torch.cuda.empty_cache()
+        net_a = resnet()
+        pw = ParallelWrapper(net_a)
+        a = timed_fit("path_dp_a", net_a, six, 1, 128, unit="images",
+                      loss_must_fall=False, fit=pw.fit)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "path_dp (a): the wrapper's mesh is not one NCCL rank")
+    check(a["losses"] == plain["losses"],
+          f"path_dp (a): losses {a['losses']} != plain {plain['losses']}")
+    check(all(torch.equal(x, y)
+              for x, y in zip(leaves_of(net_a), plain_leaves)),
+          "path_dp (a): the wrapper's trees differ from the plain fit's")
+    del plain_leaves
+    for k, n in (("conv1x1_bn_stats", 36), ("conv3x3_bn_stats", 16),
+                 ("nesterov_update", 1)):
+        check(a["launches"][k] == n * 6,
+              f"path_dp (a): {k} launched {a['launches'][k]}, want {n} x 6")
+    v_bytes_a = sum(t.numel() * t.element_size() for t in tree_leaves(
+        {n: s["v"] for n, s in net_a.updater_state.items() if s}))
+    row["a"] = {"steps": a["steps"], "step_ms_p50": a["step_ms_p50"],
+                "plain_step_ms_p50": plain["step_ms_p50"],
+                "path_r_step_ms_p50": r_step_ms_p50,
+                "wrapper_over_plain": a["step_ms_p50"] / plain["step_ms_p50"],
+                "losses": a["losses"], "launches": a["launches"],
+                "bit_equal_plain": True, "v_bytes": v_bytes_a}
+    seconds["a"] = time.perf_counter() - t0
+
+    # (b) two ranks on the one card over gloo
+    t0 = time.perf_counter()
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), "2",
+         str(port), tmp], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            errs.append(err[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"path_dp (b): a rank failed: {errs}")
+    ranks = [json.load(open(f"{tmp}/rank-{r}.json")) for r in range(2)]
+    seconds["b_ranks"] = time.perf_counter() - t0
+    batches = image_batches(np.random.default_rng(DP_SEED), DP_STEPS,
+                            DP_BATCH, 224, 1000)
+    # the one-process fit on the same global batches: the first step's
+    # loss (a forward on the same parameters) is held to §2's bf16
+    # bound; the parameters are reported: at initialization the 53
+    # batch norms amplify a rounding difference by orders of magnitude
+    # on its way to the stem's gradients (`F32_LEAF_RTOL`'s note), so
+    # the group sums are held in float32 on one block (`dp_f32_gaps`)
+    with tf32_off(), deterministic():
+        ref_net = resnet()
+        ref_rec = FirstStep()
+        ref_net.listeners.append(ref_rec.listener)
+        ref = timed_fit("path_dp_b_ref", ref_net, batches, 1, DP_BATCH,
+                        unit="images", loss_must_fall=False)
+    ref_params = {f"{n}/{p}": t for n, sub in ref_net.params_tree.items()
+                  for p, t in sub.items()}
+    ref_host = {k: t.cpu() for k, t in ref_params.items()}
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in ref_params.values())
+    split_bytes = sum(t.numel() * t.element_size()
+                      for t in ref_params.values()
+                      if any(d % 2 == 0 for d in t.shape))
+    got = [torch.load(f"{tmp}/params-{r}.pt") for r in range(2)]
+    b = {"ranks": [], "ref_losses": ref["losses"],
+         "ref_step_ms_p50": ref["step_ms_p50"],
+         "loss_bound_rel_step1": BF16_LOSS_RTOL}
+    emit({"phase": "path_dp_b_gaps", "ref_losses": ref["losses"],
+          "rank_losses": [doc["losses"] for doc in ranks],
+          "rank_worst_leaves_step1": [
+              worst_leaves(got[r]["step1"], ref_rec.params)
+              for r in range(2)],
+          "rank_worst_leaves_last": [worst_leaves(got[r]["last"], ref_host)
+                                     for r in range(2)]})
+    for r, doc in enumerate(ranks):
+        gaps = [abs(x - y) / abs(y)
+                for x, y in zip(doc["losses"], ref["losses"])]
+        gap1 = max(bf16_param_gap(got[r]["step1"][k], ref_rec.params[k])
+                   for k in ref_rec.params)
+        led = doc["ledger"]
+        check(gaps[0] <= BF16_LOSS_RTOL,
+              f"path_dp (b) rank {r}: step 1 loss {doc['losses'][0]} vs one "
+              f"process {ref['losses'][0]} (§2: {BF16_LOSS_RTOL} relative)")
+        check(abs(doc["v_bytes"] / v_bytes_a - 0.5) < 0.01,
+              f"path_dp (b) rank {r}: v holds {doc['v_bytes']} bytes, "
+              f"(a) {v_bytes_a}")
+        check(doc["launches"]["nesterov_update"] == DP_STEPS and all(
+            doc["launches"][k] == n * DP_STEPS for k, n in (
+                ("conv1x1_bn_stats", 36), ("conv3x3_bn_stats", 16))),
+            f"path_dp (b) rank {r}: launches {doc['launches']}")
+        check(sum(doc["plain_on_cuda"].values()) == 0,
+              f"path_dp (b) rank {r}: plain versions on CUDA tensors")
+        ring = lambda n: n // 2
+        want = {"all-reduce:grads": DP_STEPS * param_bytes,
+                "all-gather:params": DP_STEPS * split_bytes,
+                "all-reduce:loss": DP_STEPS * 4}
+        for key, n in want.items():
+            check(led[key]["payload_bytes"] == n and
+                  led[key]["wire_bytes"] == DP_STEPS * ring(n // DP_STEPS)
+                  and led[key]["ops"] == DP_STEPS,
+                  f"path_dp (b) rank {r}: ledger {key} {led[key]}, want "
+                  f"{n} bytes over {DP_STEPS} steps")
+        b["ranks"].append({
+            "losses": doc["losses"], "loss_rel_gaps": gaps,
+            "param_gap_step1_in_bf16_bounds": gap1,
+            "param_gap_last_in_bf16_bounds": max(
+                bf16_param_gap(got[r]["last"][k], ref_host[k])
+                for k in ref_host),
+            "v_bytes": doc["v_bytes"],
+            "v_share_of_a": doc["v_bytes"] / v_bytes_a,
+            "launches": {k: doc["launches"][k] for k in B7_KERNELS
+                         + ("nesterov_update",)},
+            "ledger_per_step": {k: {c: v[c] / DP_STEPS for c in v}
+                                for k, v in led.items()},
+            "exchange_ms_per_step": doc["exchange_ms_per_step"],
+            "fit_s": doc["fit_s"], "memory": doc["memory"],
+            "elastic": doc["elastic"]})
+    for k in ref_params:
+        check(torch.equal(got[0]["last"][k], got[1]["last"][k]),
+              f"path_dp (b): the ranks' {k} differ")
+    b["param_bytes"], b["split_bytes"] = param_bytes, split_bytes
+    del ref_net, ref_params, ref_host, got, ref_rec
+    torch.cuda.empty_cache()
+    f32 = dp_f32_gaps(tmp, ranks, batches[0])
+    b["f32_first_step"] = f32
+    row["b"] = b
+    torch.cuda.empty_cache()
+    seconds["b"] = time.perf_counter() - t0
+
+    # (c) recovery on one card: SIGTERM at step 5, resume
+    t0 = time.perf_counter()
+    rc = image_batches(np.random.default_rng(31), 8, 32, 224, 1000)
+
+    def fit_c(net, **kw):
+        from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
+
+        class Rec(TrainingListener):
+            def __init__(self):
+                self.losses = []
+
+            def iteration_done(self, model, iteration, epoch, score):
+                self.losses.append(score)
+
+        rec = Rec()
+        net.listeners.append(rec)
+        with tf32_off(), deterministic():
+            net.fit(rc, **kw)
+        return [float(x) for x in rec.losses]
+
+    refs = []
+    for _ in range(2):
+        net = resnet()
+        refs.append((fit_c(net), leaves_of(net)))
+        del net
+    spread = max([abs(x - y) for x, y in zip(refs[0][0], refs[1][0])]
+                 + [(x.float() - y.float()).abs().max().item()
+                    for x, y in zip(refs[0][1], refs[1][1])])
+    ck = ShardedCheckpointer(f"{tmp}/ck_c")
+    blocking, writer = [], []
+    save, write = ck.save, ck._write
+
+    def timed_save(*args, **kw):
+        s0 = time.perf_counter()
+        out = save(*args, **kw)
+        blocking.append((time.perf_counter() - s0) * 1e3)
+        return out
+
+    def timed_write(job):
+        s0 = time.perf_counter()
+        write(job)
+        writer.append(time.perf_counter() - s0)
+
+    ck.save, ck._write = timed_save, timed_write
+    prev = signal.getsignal(signal.SIGTERM)
+    net_b = resnet()
+    sig = SigtermAtStep(5)
+    net_b.listeners.append(sig)
+    lb = fit_c(net_b, checkpointer=ck, checkpoint_every=2, preemption=True)
+    check(sig.fired and net_b.stopped_early and len(lb) == 5,
+          f"path_dp (c): the SIGTERM run took {len(lb)} steps")
+    check(signal.getsignal(signal.SIGTERM) is prev,
+          "path_dp (c): the SIGTERM handler was not restored")
+    check(ck.steps() == [2, 4, 5], f"path_dp (c): steps {ck.steps()}")
+    ck.fault_hook = CheckpointIOFault(fail_after=1, kind="shard")
+    ck.save(net_b, step=6, position={"batch_in_epoch": 6})
+    try:
+        ck.wait()
+        faulted = False
+    except InjectedFault:
+        faulted = True
+    check(faulted and ck.latest_step() == 5 and not os.path.exists(
+        f"{tmp}/ck_c/step-0000000006/process-0/COMMIT"),
+        "path_dp (c): the faulted step 6 is visible or raised nothing")
+    del net_b
+    net_r = resnet()
+    lr_ = fit_c(net_r, checkpointer=ShardedCheckpointer(f"{tmp}/ck_c"),
+                resume="auto")
+    resume_gap = max([abs(x - y) for x, y in zip(lr_, refs[0][0][5:])]
+                     + [(x.float() - y.float()).abs().max().item()
+                        for x, y in zip(leaves_of(net_r), refs[0][1])])
+    check(len(lr_) == 3, f"path_dp (c): the resume ran {len(lr_)} steps")
+    check(resume_gap <= spread, f"path_dp (c): the resumed steps 6-8 "
+          f"differ from the uninterrupted run by {resume_gap}, two "
+          f"uninterrupted runs by {spread}")
+    row["c"] = {"uninterrupted_runs_spread": spread,
+                "deterministic": spread == 0.0, "resume_gap": resume_gap,
+                "resume_bit_equal": resume_gap == 0.0,
+                "losses": refs[0][0], "preempted_losses": lb,
+                "resumed_losses": lr_, "save_blocking_ms": blocking,
+                "writer_s": writer, "faulted_step_invisible": True}
+    del net_r, refs
+    torch.cuda.empty_cache()
+    seconds["c"] = time.perf_counter() - t0
+
+    # (d) the 2-rank checkpoint into (a)'s one-rank wrapper
+    t0 = time.perf_counter()
+    stop = ranks[0]["elastic"]
+    check(stop["resumable"] and stop["preempted"] and stop["iteration"] == 2,
+          f"path_dp (d): the 2-rank ElasticTrainer returned {stop}")
+    os.environ["DL4J_TPU_COMMSMON"] = "1"
+    commsmon.reset_reshard_witness()
+    try:
+        pos = ShardedCheckpointer(f"{tmp}/ck").restore_into_wrapper(pw)
+        split = dp_check_restored(tmp, net_a)
+        from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
+
+        class Last(TrainingListener):
+            def __init__(self):
+                self.losses = []
+
+            def iteration_done(self, model, iteration, epoch, score):
+                self.losses.append(float(score))
+
+        last = Last()
+        net_a.listeners = [last]
+        with tf32_off(), deterministic():
+            pw.fit(batches, epochs=1, resume=pos)
+        reshards = commsmon.get_reshard_witness().report()["reshards"]
+    finally:
+        os.environ.pop("DL4J_TPU_COMMSMON")
+        commsmon.reset_reshard_witness()
+    want = ranks[0]["losses"][2]
+    check(len(last.losses) == 1 and np.isfinite(last.losses[0]),
+          f"path_dp (d): the restored wrapper's step 3 losses {last.losses}")
+    check(any(e["what"] == "restore" and e["from_ranks"] == 2 and
+              e["to_ranks"] == 1 for e in reshards),
+          f"path_dp (d): no 2 -> 1 reshard recorded: {reshards}")
+    row["d"] = {"position": pos, "loss": last.losses, "two_rank_loss": want,
+                "loss_rel_gap": abs(last.losses[0] - want) / abs(want),
+                "restored_bit_equal": True, "split_moments": split,
+                "reshards": reshards}
+    seconds["d"] = time.perf_counter() - t0
+    del net_a, pw
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    row["seconds"] = seconds
+    row["total_s"] = sum(seconds.values())
+    emit(row)
+    return {"launches": a["launches"], "rank_launches": ranks[0]["launches"],
+            **row}
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":
+        dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                     sys.argv[5])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
@@ -8686,6 +9386,8 @@ def main() -> int:
     pu = path_u(image_batches(np.random.default_rng(28), 4, 128, 224, 1000),
                 r["step_ms_p50"])
     pn = path_n(np.random.default_rng(29))
+    pdp = path_dp(image_batches(np.random.default_rng(30), 4, 128, 224,
+                                1000), r["step_ms_p50"])
 
     b5q = {"banded_decode_attention_q":
            qb_fp8["launches"]["banded_decode_attention_q"]
@@ -8782,6 +9484,10 @@ def main() -> int:
             summary[-1]["launches_path_m_async"] = ma["launches"][name]
             summary[-1]["launches_path_i"] = pi["launches"][name]
             summary[-1]["launches_path_u"] = pu["launches"][name]
+        if name == "nesterov_update":
+            summary[-1]["launches_path_dp"] = pdp["launches"][name]
+            summary[-1]["launches_path_dp_rank"] = \
+                pdp["rank_launches"][name]
         if name in ("adam_update", "nesterov_update"):
             # both designs (design 2 is "persistent") and the
             # updater's own call, at the main path's shape and over
@@ -8918,6 +9624,8 @@ def main() -> int:
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": r32["launches"][name],
                         "launches_path_u": pu["launches"][name],
+                        "launches_path_dp": pdp["launches"][name],
+                        "launches_path_dp_rank": pdp["rank_launches"][name],
                         **b7_step_totals(rows, name, "float32"),
                         "launches_by_design": {
                             d: by32[f"{name}/{d}"] for d in cf.DESIGNS},

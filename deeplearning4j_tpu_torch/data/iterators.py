@@ -170,6 +170,7 @@ class DevicePrefetchIterator(DataSetIterator):
         self._inner: Optional[Iterator] = None
         self._buf: collections.deque = collections.deque()
         self._exhausted = False
+        self._pending: Optional[BaseException] = None
         reg = get_registry()
         self._m_hits = reg.counter("prefetch_hits_total", stage="device")
         self._m_misses = reg.counter("prefetch_misses_total",
@@ -180,6 +181,7 @@ class DevicePrefetchIterator(DataSetIterator):
         self._inner = iter(self._base)
         self._buf.clear()
         self._exhausted = False
+        self._pending = None
 
     def _copy(self, ds: DataSet):
         """(batch on the device, its copy's event or None)."""
@@ -196,11 +198,18 @@ class DevicePrefetchIterator(DataSetIterator):
         return out, ev
 
     def _fill(self):
-        while not self._exhausted and len(self._buf) < self._depth:
+        while (not self._exhausted and self._pending is None
+               and len(self._buf) < self._depth):
             try:
                 self._buf.append(self._copy(next(self._inner)))
             except StopIteration:
                 self._exhausted = True
+            except BaseException as e:
+                # a failed fetch AHEAD must not poison the batches in
+                # hand: the error is raised when the consumer reaches its
+                # position (a resume cursor then counts every batch that
+                # trained), as in the JAX package
+                self._pending = e
 
     def __next__(self):
         if self._inner is None:
@@ -208,6 +217,9 @@ class DevicePrefetchIterator(DataSetIterator):
         ready = bool(self._buf)
         self._fill()
         if not self._buf:
+            if self._pending is not None:
+                e, self._pending = self._pending, None
+                raise e
             raise StopIteration
         (self._m_hits if ready else self._m_misses).inc()
         self._m_batches.inc()

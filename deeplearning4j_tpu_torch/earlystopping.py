@@ -9,8 +9,8 @@ LocalFile).
 
 The trainer runs the net's own train step (`_fit_batch`) batch by batch
 and reads each step's loss on the host, since the iteration conditions
-inspect every score: one host sync a step. The parallel trainer (early
-stopping over data-parallel replicas) is not ported and refuses.
+inspect every score: one host sync a step. The parallel trainer runs
+each batch as one `ParallelWrapper` step.
 """
 
 from __future__ import annotations
@@ -308,11 +308,23 @@ class EarlyStoppingTrainer:
 
 
 class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
-    """Early stopping over data-parallel replicas (ParallelWrapper in the
-    JAX package): not ported."""
+    """Early stopping over data-parallel ranks. Reference:
+    `parallelism/EarlyStoppingParallelTrainer.java` — early stopping
+    wrapped around ParallelWrapper: each batch is one data-parallel step
+    (the global batch padded, this rank's rows, the gradients
+    all-reduced), with the same termination and saving hooks."""
 
-    def __init__(self, *args, **kwargs):
-        from deeplearning4j_tpu_torch.models.multilayer import _refuse
+    def __init__(self, config: EarlyStoppingConfiguration, net,
+                 train_iterator, *, mesh=None, param_rules=None):
+        super().__init__(config, net, train_iterator)
+        from deeplearning4j_tpu_torch.parallel.data_parallel import (
+            ParallelWrapper,
+        )
 
-        _refuse("EarlyStoppingParallelTrainer (data-parallel replicas)",
-                "A6")
+        self._pw = ParallelWrapper(net, mesh=mesh, param_rules=param_rules,
+                                   prefetch_buffer=0)
+
+    def _fit_batch(self, ds) -> float:
+        score = float(self._pw._step(ds))
+        self.net._loss_tracker.set(score)
+        return score

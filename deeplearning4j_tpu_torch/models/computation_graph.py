@@ -37,8 +37,8 @@ Truncated BPTT (`tbptt_fwd_length`, `tbptt_back_length`) cuts every
 chunk, and hands the recurrent vertices' carries from chunk to chunk
 detached, as JAX's `_fit_tbptt` does.
 
-Not ported yet, and refused rather than ignored: the recovery arguments
-(ROADMAP A6).
+The recovery arguments (checkpoints, resume, stop, preemption) are
+`MultiLayerNetwork.fit`'s (`optim/recovery.py`).
 """
 
 from __future__ import annotations
@@ -50,23 +50,19 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.data.iterators import (
-    DevicePrefetchIterator, as_iterator,
-)
+from deeplearning4j_tpu_torch.data.iterators import as_iterator
 from deeplearning4j_tpu_torch.models.decode_state import DecodeState
 from deeplearning4j_tpu_torch.models.multilayer import (
     _DTYPES, MultiLayerNetwork, _argmax_i32, _as_tensor, _check_decode_budget,
-    _checkpointed, _copy_states, _grad_and_update, _host, _is_recurrent,
-    _refuse, _reorder_carries, _stateful_step, _to_device, _updater_groups,
-    _validate_causal_decode,
+    _checkpointed, _copy_states, _fit_with_plan, _grad_and_update, _host,
+    _is_recurrent, _reorder_carries, _stateful_step, _to_device,
+    _updater_groups, _validate_causal_decode, _with_stats_group,
 )
 from deeplearning4j_tpu_torch.nn.graph import (
     ComputationGraphConfiguration, LayerVertex, resolve_output_type,
 )
 from deeplearning4j_tpu_torch.nn.layers.special import CenterLossOutputLayer
-from deeplearning4j_tpu_torch.optim.executor import (
-    LossTracker, TrainingExecutor,
-)
+from deeplearning4j_tpu_torch.optim.executor import LossTracker
 from deeplearning4j_tpu_torch.optim.listeners import TrainingListener
 from deeplearning4j_tpu_torch.optim.updaters import (
     NoOp, Updater, resolve_updater, tree_leaves, tree_map,
@@ -77,6 +73,12 @@ from deeplearning4j_tpu_torch.utils.device import resolve_device
 
 class ComputationGraph:
     """DAG network runtime over a ComputationGraphConfiguration."""
+
+    # a `ParallelWrapper`'s hooks, as on `MultiLayerNetwork`
+    _dp = None
+    _comm_owner = None
+    _placements = None
+    stopped_early = False
 
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
@@ -179,7 +181,7 @@ class ComputationGraph:
     def _forward(self, params, states, inputs: Dict[str, Any], *,
                  train: bool, rng=None, fmasks=None,
                  scoring: bool = False, carries=None,
-                 stop_before: Optional[str] = None):
+                 stop_before: Optional[str] = None, stats_group=None):
         """Fold over the topological order. Returns (values, out_inputs,
         new_states): `out_inputs[name]` is the input each output layer
         saw (after its preprocessor), which its fused loss scores. With
@@ -190,7 +192,8 @@ class ComputationGraph:
         named network input's. Under `gradient_checkpointing` every
         layer vertex but an output layer is checkpointed in training
         (`_checkpointed`); parameterless vertices are not wrapped. The
-        fold stops at `stop_before`, which is not run."""
+        fold stops at `stop_before`, which is not run. `stats_group` (a
+        data-parallel step's ranks) goes to every batch-norm layer."""
         values: Dict[str, Any] = dict(inputs)
         out_inputs: Dict[str, Any] = {}
         new_states: Dict[str, Any] = {}
@@ -224,9 +227,12 @@ class ComputationGraph:
                     continue
                 y, new_st = v.layer.apply(params[name], x, state=st,
                                           train=train, rng=rng, mask=mask)
-            elif ckpt and isinstance(v, LayerVertex):
-                y, new_st = _checkpointed(v.apply, params[name], ins, st,
-                                          rng, mask)
+            elif isinstance(v, LayerVertex):
+                apply = _with_stats_group(v.layer, v.apply, stats_group)
+                y, new_st = (_checkpointed(apply, params[name], ins, st,
+                                           rng, mask) if ckpt else
+                             apply(params[name], ins, state=st, train=train,
+                                   rng=rng, mask=mask))
             else:
                 y, new_st = v.apply(params[name], ins, state=st, train=train,
                                     rng=rng, mask=mask)
@@ -236,10 +242,11 @@ class ComputationGraph:
 
     # ------------------------------------------------------------- loss
     def _loss(self, params, states, inputs, labels: Dict[str, Any], fmasks,
-              lmasks, rng, train: bool = True, carries=None):
+              lmasks, rng, train: bool = True, carries=None,
+              stats_group=None):
         _, out_inputs, new_states = self._forward(
             params, states, inputs, train=train, rng=rng, fmasks=fmasks,
-            scoring=True, carries=carries)
+            scoring=True, carries=carries, stats_group=stats_group)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for name in self.conf.network_outputs:
             v = self.conf.vertices[name]
@@ -279,14 +286,17 @@ class ComputationGraph:
         groups = _updater_groups(self._vertex_updaters)
         stateful = self._stateful
         rnn_names = self._rnn_vertex_names
+        dp = self._dp
+        stats_group = dp.stats_group if dp is not None else None
 
         def step_fn(params, opt_state, states, step, inputs, labels, fmasks,
                     lmasks, rng, carries=None):
             loss, new_states = _grad_and_update(
                 lambda live: self._loss(live, states, inputs, labels, fmasks,
                                         lmasks, rng, train=True,
-                                        carries=carries),
-                params, opt_state, groups, mode, thr, step)
+                                        carries=carries,
+                                        stats_group=stats_group),
+                params, opt_state, groups, mode, thr, step, dp)
             persist = {n: (tree_map(torch.detach, new_states[n])
                            if n in stateful else states.get(n, {}))
                        for n in states}
@@ -358,7 +368,8 @@ class ComputationGraph:
     def fit(self, data, labels=None, *, epochs: int = 1,
             batch_size: int = 32, steps_per_dispatch: int = 1,
             device_prefetch: bool = True, sync_every: int = 0,
-            checkpointer=None, resume=None, stop_fn=None, preemption=None):
+            checkpointer=None, checkpoint_every: int = 1, resume=None,
+            stop_fn=None, preemption=None):
         """Train on arrays, a DataSet, a DataSetIterator or any iterable
         of DataSets. The loss stays on the device (``score_`` reads it;
         ``sync_every=N`` reads it every N steps); ``device_prefetch``
@@ -368,25 +379,16 @@ class ComputationGraph:
         `MultiLayerNetwork.fit`; under truncated BPTT a batch whose inputs
         are all 3-D runs step by step instead (`_fit_tbptt`: its chunks
         hand carries on). A MultiDataSet (or an iterable of them) feeds
-        every input and output. Refused rather than ignored, until
-        ported: the recovery arguments."""
+        every input and output. The recovery arguments are
+        `MultiLayerNetwork.fit`'s (`optim/recovery.RecoveryPlan`)."""
         self._check_init()
-        if checkpointer is not None or resume is not None or \
-                stop_fn is not None or preemption:
-            _refuse("checkpointed, resumable or stoppable fit "
-                    "(optim/recovery.py)", "A6")
-        k = max(1, int(steps_per_dispatch))
-        it = as_iterator(data, labels, batch_size)
-        if device_prefetch:
-            it = DevicePrefetchIterator(it, self._put_batch,
-                                        depth=max(2, k), device=self.device)
-        self._loss_tracker.sync_every = int(sync_every)
-        self._start_steps()
-        TrainingExecutor(self, step=self._fit_batch,
-                         fused_step=self._fused_dispatch,
-                         can_fuse=self._can_fuse,
-                         steps_per_dispatch=k).run(it, epochs)
-        return self
+        return _fit_with_plan(self, self._fit_batch, data, labels, epochs,
+                              batch_size, steps_per_dispatch,
+                              device_prefetch, sync_every,
+                              checkpointer=checkpointer,
+                              checkpoint_every=checkpoint_every,
+                              resume=resume, stop_fn=stop_fn,
+                              preemption=preemption)
 
     # the step counter, the addresses a graph reads, the generators it
     # draws from and the K-step dispatch, as `MultiLayerNetwork`'s

@@ -48,6 +48,7 @@ of the cache write itself.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -147,6 +148,14 @@ def _checkpointed(apply_fn, params, x, st, rng, mask):
 
     return torch.utils.checkpoint.checkpoint(
         run, params, x, use_reentrant=False, preserve_rng_state=False)
+
+
+def _with_stats_group(layer, apply_fn, group):
+    """`apply_fn` with a data-parallel step's `group` bound where the
+    layer reduces over the batch (`Layer.BATCH_STATS`)."""
+    if group is None or not layer.BATCH_STATS:
+        return apply_fn
+    return functools.partial(apply_fn, stats_group=group)
 
 
 def _stateful_step(net, fwd, xs: tuple, carries):
@@ -301,14 +310,18 @@ def _updater_groups(updaters: Dict[str, Updater]
 
 
 def _grad_and_update(loss_fn, params, opt_state, groups, mode: str,
-                     threshold: float, step):
+                     threshold: float, step, dp=None):
     """One train step's gradients and update. `loss_fn(live)` returns
     (loss, aux) for `live`, the params with every trained leaf replaced
     by a detached view that requires grad: the stored tensors stay plain,
     so the update, IN PLACE into `params` and `opt_state`, needs no
     autograd bookkeeping. Gradients are made contiguous (the fused update
     kernels read them densely; a convolution's weight gradient can come
-    back permuted). Returns (loss detached, aux)."""
+    back permuted). Under a `ParallelWrapper`, `dp` (the net's `_dp`)
+    turns the rank's loss and gradients into the global means before
+    the normalization, hands the updaters the rank's slices of the
+    parameters and gradients, and gathers every rank's updated slices
+    after them. Returns (loss detached, aux)."""
     trained = [n for _, names in groups for n in names]
     live = {n: (tree_map(lambda v: v.detach().requires_grad_(True), sub)
                 if n in trained else sub)
@@ -324,15 +337,22 @@ def _grad_and_update(loss_fn, params, opt_state, groups, mode: str,
         return torch.zeros_like(v) if g is None else g.contiguous()
 
     grads = {n: tree_map(grad_of, params[n]) for n in trained}
+    loss = loss.detach()
+    if dp is not None:
+        loss, grads = dp.reduce(loss, grads)
     grads = _normalize_grads(grads, mode, threshold)
+    upd_params, upd_grads = (params, grads) if dp is None else \
+        dp.slices(params, grads)
     for u, names in groups:
         st = {n: opt_state[n] for n in names}
         first = st[names[0]]
         group_state = ({key: {n: st[n][key] for n in names} for key in first}
                        if isinstance(first, dict) else ())
-        u.update_with_params({n: grads[n] for n in names}, group_state,
-                             {n: params[n] for n in names}, step)
-    return loss.detach(), aux
+        u.update_with_params({n: upd_grads[n] for n in names}, group_state,
+                             {n: upd_params[n] for n in names}, step)
+    if dp is not None:
+        dp.gather(params)
+    return loss, aux
 
 
 def _copy_states(states: dict, new: dict) -> None:
@@ -446,14 +466,44 @@ def _window_k(k, what: str) -> int:
     return k
 
 
-def _refuse(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md {item}); the port refuses "
-        f"it rather than ignore it")
+def _fit_with_plan(net, step, data, labels, epochs, batch_size,
+                   steps_per_dispatch, device_prefetch, sync_every, **rec):
+    """The fit loop both nets share: the recovery plan (None without a
+    recovery argument), the device prefetch, the executor."""
+    from deeplearning4j_tpu_torch.optim.recovery import (
+        build_plan, run_with_recovery,
+    )
+
+    plan = build_plan(net, **rec)
+    k = max(1, int(steps_per_dispatch))
+    it = as_iterator(data, labels, batch_size)
+    if device_prefetch:
+        it = DevicePrefetchIterator(it, net._put_batch, depth=max(2, k),
+                                    device=net.device)
+    net._loss_tracker.sync_every = int(sync_every)
+    net._start_steps()
+    execu = TrainingExecutor(
+        net, step=step, fused_step=net._fused_dispatch,
+        can_fuse=net._can_fuse, steps_per_dispatch=k,
+        before_batch=plan.before_batch if plan else None,
+        after_dispatch=plan.after_dispatch if plan else None,
+        epoch_start=plan.epoch_start if plan else None,
+        epoch_end=plan.epoch_end if plan else None)
+    run_with_recovery(execu, plan, it, epochs)
+    net.stopped_early = execu.stopped
+    return net
 
 
 class MultiLayerNetwork:
     """Sequential network runtime over a MultiLayerConfiguration."""
+
+    # set by a `ParallelWrapper`: its data-parallel step hooks, the
+    # owner tag its collectives are priced under, the placements of the
+    # replica-sharded moments (the checkpointer reads them)
+    _dp = None
+    _comm_owner = None
+    _placements = None
+    stopped_early = False
 
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         self.conf = conf
@@ -535,7 +585,8 @@ class MultiLayerNetwork:
     # ---------------------------------------------------------- forward
     def _forward(self, params, x, *, train: bool = False, rng=None,
                  fmask=None, carries=None, stop: Optional[int] = None,
-                 states=None, acts: Optional[list] = None):
+                 states=None, acts: Optional[list] = None,
+                 stats_group=None):
         """Run layers[:stop] (all by default), each after its input
         preprocessor; returns (output, new states by layer name). A
         layer's state is its entry in `carries` (recurrent carries), else
@@ -544,7 +595,8 @@ class MultiLayerNetwork:
         `train`. Under `gradient_checkpointing` every layer but the
         output layer is checkpointed in training (`_checkpointed`); the
         output layer's input is kept for the loss anyway. With `acts` a
-        list, each layer's output is appended to it."""
+        list, each layer's output is appended to it. `stats_group` (a
+        data-parallel step's ranks) goes to every batch-norm layer."""
         new_states = {}
         pps = self.conf.preprocessors
         states = self.state_tree if states is None else states
@@ -556,13 +608,14 @@ class MultiLayerNetwork:
                 st = carries[layer.name]
             else:
                 st = states.get(layer.name) or None
+            apply = _with_stats_group(layer, layer.apply, stats_group)
             if train and self.conf.gradient_checkpointing and not (
                     layer.is_output_layer and i == n - 1):
-                x, new_st = _checkpointed(layer.apply, params[layer.name],
+                x, new_st = _checkpointed(apply, params[layer.name],
                                           x, st, rng, fmask)
             else:
-                x, new_st = layer.apply(params[layer.name], x, state=st,
-                                        train=train, rng=rng, mask=fmask)
+                x, new_st = apply(params[layer.name], x, state=st,
+                                  train=train, rng=rng, mask=fmask)
             new_states[layer.name] = new_st
             if acts is not None:
                 acts.append(x)
@@ -570,7 +623,8 @@ class MultiLayerNetwork:
 
     # ------------------------------------------------------------- loss
     def _loss(self, params, features, labels, fmask, lmask, rng,
-              train: bool = True, carries=None, states=None):
+              train: bool = True, carries=None, states=None,
+              stats_group=None):
         """Score = output-layer loss + L1/L2 regularization + any layer's
         `aux_loss`. The output layer scores its INPUT (its softmax is
         fused into the loss), so the stack runs up to it. A
@@ -583,7 +637,8 @@ class MultiLayerNetwork:
         last = len(self.layers) - 1
         out_in, new_states = self._forward(
             params, features, train=train, rng=rng, fmask=fmask,
-            carries=carries, stop=last, states=states)
+            carries=carries, stop=last, states=states,
+            stats_group=stats_group)
         if last in self.conf.preprocessors:
             out_in = self.conf.preprocessors[last].apply(out_in, fmask)
         score_mask = lmask if lmask is not None else (
@@ -617,14 +672,17 @@ class MultiLayerNetwork:
         groups = _updater_groups(self._layer_updaters)
         stateful = self._stateful
         rnn_names = self._rnn_layer_names
+        dp = self._dp
+        stats_group = dp.stats_group if dp is not None else None
 
         def step_fn(params, opt_state, states, step, features, labels,
                     fmask, lmask, rng, carries):
             loss, new_states = _grad_and_update(
                 lambda live: self._loss(live, features, labels, fmask,
                                         lmask, rng, train=True,
-                                        carries=carries, states=states),
-                params, opt_state, groups, mode, thr, step)
+                                        carries=carries, states=states,
+                                        stats_group=stats_group),
+                params, opt_state, groups, mode, thr, step, dp)
             persist = {n: (tree_map(torch.detach, new_states[n])
                            if n in stateful else states.get(n, {}))
                        for n in states}
@@ -638,7 +696,8 @@ class MultiLayerNetwork:
     def fit(self, data, labels=None, *, epochs: int = 1,
             batch_size: int = 32, steps_per_dispatch: int = 1,
             device_prefetch: bool = True, sync_every: int = 0,
-            checkpointer=None, resume=None, stop_fn=None, preemption=None):
+            checkpointer=None, checkpoint_every: int = 1, resume=None,
+            stop_fn=None, preemption=None):
         """Train on arrays, a DataSet, a DataSetIterator or any iterable
         of DataSets (reference: `fit(DataSetIterator)`). The loss stays
         on the device (``score_`` reads it; ``sync_every=N`` reads it
@@ -662,25 +721,22 @@ class MultiLayerNetwork:
         full-batch solver run of ``conf.solver_iterations`` iterations
         (`optim/solvers.fit_with_solver`), never fused.
 
-        Refused rather than ignored, until ported: ``checkpointer``,
-        ``resume``, ``stop_fn`` and ``preemption``."""
+        Recovery (`optim/recovery.RecoveryPlan`): a ``checkpointer`` (a
+        `parallel.ShardedCheckpointer`) saves every ``checkpoint_every``
+        iterations, asynchronously; ``resume`` ("auto" or a position
+        dict) continues mid-epoch from the exact batch, generator state
+        and step, and ``epochs`` then counts the whole run's epochs;
+        ``stop_fn`` / ``preemption=True`` stop cleanly at a batch
+        boundary with a final exact-position snapshot. None of these
+        adds a host sync a step."""
         self._check_init()
-        if checkpointer is not None or resume is not None or \
-                stop_fn is not None or preemption:
-            _refuse("checkpointed, resumable or stoppable fit "
-                    "(optim/recovery.py)", "A6")
-        k = max(1, int(steps_per_dispatch))
-        it = as_iterator(data, labels, batch_size)
-        if device_prefetch:
-            it = DevicePrefetchIterator(it, self._put_batch,
-                                        depth=max(2, k), device=self.device)
-        self._loss_tracker.sync_every = int(sync_every)
-        self._start_steps()
-        TrainingExecutor(self, step=self._dispatch_batch,
-                         fused_step=self._fused_dispatch,
-                         can_fuse=self._can_fuse,
-                         steps_per_dispatch=k).run(it, epochs)
-        return self
+        return _fit_with_plan(self, self._dispatch_batch, data, labels,
+                              epochs, batch_size, steps_per_dispatch,
+                              device_prefetch, sync_every,
+                              checkpointer=checkpointer,
+                              checkpoint_every=checkpoint_every,
+                              resume=resume, stop_fn=stop_fn,
+                              preemption=preemption)
 
     def _start_steps(self):
         """Fill the device step counter from `iteration` (a fill, no

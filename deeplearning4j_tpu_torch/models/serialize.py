@@ -22,8 +22,8 @@ A loaded net resumes where the file left it: `iteration` and `epoch`
 come from the metadata, and the next `fit` starts its device step
 counter (Adam's bias correction, a schedule's rate) from `iteration`.
 
-Sharded checkpoints (`CheckpointManager`, Orbax in the JAX package) are
-not ported and refuse.
+Sharded checkpoints: `CheckpointManager` (Orbax in the JAX package)
+runs on `parallel.ShardedCheckpointer` in the port.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import io
 import json
 import os
 import zipfile
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -184,10 +184,35 @@ def load_model(path: Union[str, os.PathLike], *, device=None,
 
 
 class CheckpointManager:
-    """Sharded asynchronous checkpoints (Orbax in the JAX package): not
-    ported."""
+    """Asynchronous checkpoints with rotation, the JAX package's API
+    (`save(step, net)`, `restore(net, step=None)`, `wait()`, `close()`).
+    The JAX package's is built on Orbax, which the port does not have;
+    the port's is built on `parallel.ShardedCheckpointer`, so its
+    directory holds that checkpointer's `step-<n>/process-<k>/` layout,
+    not Orbax's: the two packages' directories differ here. Params,
+    updater state, layer state, iteration and epoch round-trip, each
+    rank's placement of them under a `ParallelWrapper`."""
 
-    def __init__(self, *args, **kwargs):
-        from deeplearning4j_tpu_torch.models.multilayer import _refuse
+    def __init__(self, directory, *, max_to_keep: int = 3,
+                 async_save: bool = True):
+        from deeplearning4j_tpu_torch.parallel.checkpoint import (
+            ShardedCheckpointer,
+        )
 
-        _refuse("CheckpointManager (sharded asynchronous checkpoints)", "A6")
+        self.directory = os.path.abspath(directory)
+        self._ckpt = ShardedCheckpointer(self.directory,
+                                         max_to_keep=max_to_keep,
+                                         async_save=async_save)
+
+    def save(self, step: int, net) -> None:
+        self._ckpt.save(net, step=int(step))
+
+    def restore(self, net, step: Optional[int] = None):
+        self._ckpt.restore_into(net, step=step)
+        return net
+
+    def wait(self):
+        self._ckpt.wait()
+
+    def close(self):
+        self._ckpt.wait()

@@ -93,6 +93,11 @@ class Layer:
     bias_init: Optional[float] = None
     frozen: bool = False
 
+    # a layer whose training forward reduces over the batch (batch norm)
+    # takes `stats_group=` in `apply`: a data-parallel step passes its
+    # ranks (`parallel.distributed.BatchStatsGroup`) there
+    BATCH_STATS = False
+
     # ---- wiring API ----
     def with_defaults(self, **defaults) -> "Layer":
         """Fill None fields from global defaults (config cascade)."""

@@ -543,6 +543,7 @@ class FusedConvBNLayer(Layer):
     followed by BatchNormalization(activation=...)."""
 
     CONSUMES = "cnn"
+    BATCH_STATS = True
 
     n_in: Optional[int] = None
     n_out: Optional[int] = None
@@ -584,7 +585,7 @@ class FusedConvBNLayer(Layer):
         return params, state
 
     def apply(self, params, x, *, state=None, train=False, rng=None,
-              mask=None):
+              mask=None, stats_group=None):
         from deeplearning4j_tpu_torch.ops.conv_fused import (
             conv1x1_bn_act, conv3x3_bn_act,
         )
@@ -598,7 +599,9 @@ class FusedConvBNLayer(Layer):
         relu = act == "relu"
         is3x3 = _pair(self.kernel) == (3, 3)
         bn = dict(eps=self.eps, relu=relu, train=train)
-        if not train:
+        if train:
+            bn.update(group=stats_group)
+        else:
             bn.update(mean=state["mean"], var=state["var"])
         if is3x3:
             res = conv3x3_bn_act(x, params["W"], params["gamma"],

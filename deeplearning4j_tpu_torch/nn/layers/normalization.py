@@ -22,11 +22,26 @@ from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 
 
+def _batch_moments(x, axes, group=None):
+    """The batch mean and biased variance over `axes`: of this rank's
+    rows, or, with a data-parallel step's `group` (a `parallel.
+    distributed.BatchStatsGroup`), of the GLOBAL batch across its ranks,
+    as the JAX package's sharded step computes them."""
+    if group is None:
+        return x.mean(axes), x.var(axes, correction=0)
+    count = (x.numel() // x.shape[-1]) * group.size
+    mean = group.sum(x.sum(axes)) / count
+    var = group.sum(((x - mean) ** 2).sum(axes)) / count
+    return mean, var
+
+
 @register_layer
 @dataclasses.dataclass(frozen=True)
 class BatchNormalization(Layer):
     """Batch norm over the trailing axis; gamma/beta trainable, running
     mean/var state."""
+
+    BATCH_STATS = True
 
     n_out: Optional[int] = None   # feature count, inferred
     decay: float = 0.9
@@ -56,11 +71,10 @@ class BatchNormalization(Layer):
         return params, state
 
     def apply(self, params, x, *, state=None, train=False, rng=None,
-              mask=None):
+              mask=None, stats_group=None):
         axes = tuple(range(x.ndim - 1))
         if train:
-            mean = x.mean(axes)
-            var = x.var(axes, correction=0)
+            mean, var = _batch_moments(x, axes, stats_group)
             d = self.decay
             new_state = {"mean": d * state["mean"] + (1 - d) * mean.detach(),
                          "var": d * state["var"] + (1 - d) * var.detach()}

@@ -27,11 +27,17 @@ and serving (the counterpart of `deeplearning4j_tpu/observe/`).
 - `StepAttribution` (`attribution.py`) — a step's etl / dispatch / host
   / device split, measured at the fit loop's one sync an epoch.
 
-The JAX package's lock, donation and collective witnesses (`lockmon`,
-`donatemon`, `commsmon`) wait for the port's collectives and buffer
-reuse (ROADMAP A6): their names resolve to functions that raise naming
-the item. `WatchedJitCache` has no counterpart: the port keeps no jit
-cache, its owners report to the watchdog directly.
+- `LockWitness` (`lockmon.py`) and `DonationWitness` (`donatemon.py`)
+  — the JAX package's opt-in lock-order and use-after-donate witnesses,
+  copied (stdlib only).
+- `commsmon.py` — the comm ledger every collective of
+  `parallel/distributed.py` records into (kind, payload, group size,
+  wire bytes under the one-pass ring convention), the JAX package's HLO
+  collective parser, and the `ReshardWitness` of the port's explicit
+  reshards.
+
+`WatchedJitCache` has no counterpart: the port keeps no jit cache, its
+owners report to the watchdog directly.
 """
 
 from deeplearning4j_tpu_torch.observe.registry import (
@@ -68,39 +74,19 @@ from deeplearning4j_tpu_torch.observe.series import (
 from deeplearning4j_tpu_torch.observe.slo import (
     SLO, AnomalyWatch, SLOEngine, default_slos,
 )
-
-# names of the JAX package's witnesses, each with its ROADMAP item
-WAITING = {name: "A6" for name in (
-    "LockWitness", "MonitoredLock", "get_witness", "lockmon_enabled",
-    "reset_witness",
-    "DonationWitness", "UseAfterDonateError", "donatemon_enabled",
-    "get_donation_witness", "instrument", "reset_donation_witness",
-    "ReshardWitness", "commsmon_enabled", "get_reshard_witness",
-    "reset_reshard_witness", "parse_hlo_collectives",
-    "summarize_collectives")}
-
-
-def _waiting(name: str, item: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"observe.{name} is not ported yet (ROADMAP.md {item}); the "
-            f"port refuses it rather than ignore it")
-
-    refuse.__name__ = name
-    refuse.__qualname__ = name
-    refuse.__doc__ = f"Not ported yet (ROADMAP.md {item}): raises."
-    return refuse
-
-
-def __getattr__(name):
-    """A name waiting for its ROADMAP item resolves to a function that
-    raises naming it."""
-    if name in WAITING:
-        value = _waiting(name, WAITING[name])
-        globals()[name] = value
-        return value
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
+from deeplearning4j_tpu_torch.observe.lockmon import (
+    LockWitness, MonitoredLock, get_witness, lockmon_enabled,
+    reset_witness,
+)
+from deeplearning4j_tpu_torch.observe.donatemon import (
+    DonationWitness, UseAfterDonateError, donatemon_enabled,
+    get_donation_witness, instrument, reset_donation_witness,
+)
+from deeplearning4j_tpu_torch.observe.commsmon import (
+    CommLedger, ReshardWitness, commsmon_enabled, get_comm_ledger,
+    get_reshard_witness, parse_hlo_collectives, reset_reshard_witness,
+    summarize_collectives,
+)
 
 __all__ = [
     "MetricsRegistry", "get_registry", "set_registry",
@@ -117,4 +103,11 @@ __all__ = [
     "current_trace", "begin_dispatch", "active_dispatch", "end_dispatch",
     "SeriesRing", "SeriesSampler", "SeriesStore", "series_key",
     "SLO", "AnomalyWatch", "SLOEngine", "default_slos",
-] + list(WAITING)
+    "LockWitness", "MonitoredLock", "get_witness", "lockmon_enabled",
+    "reset_witness",
+    "DonationWitness", "UseAfterDonateError", "donatemon_enabled",
+    "get_donation_witness", "instrument", "reset_donation_witness",
+    "CommLedger", "ReshardWitness", "commsmon_enabled", "get_comm_ledger",
+    "get_reshard_witness", "reset_reshard_witness", "parse_hlo_collectives",
+    "summarize_collectives",
+]

@@ -257,11 +257,15 @@ class FlightRecorder:
 
     @staticmethod
     def _commsmon_snapshot():
-        # the dump keeps the JAX package's schema: the per-owner comm
-        # ledger; the reshard witness waits for the collectives (A6)
+        # the JAX package's schema: the per-owner comm ledger and the
+        # reshard witness's report when it is live
+        from deeplearning4j_tpu_torch.observe.commsmon import (
+            get_reshard_witness,
+        )
         from deeplearning4j_tpu_torch.observe.watchdog import get_watchdog
+        wit = get_reshard_witness()
         return {"comm_totals": get_watchdog().comm_totals(),
-                "reshard": None}
+                "reshard": wit.report() if wit is not None else None}
 
     @staticmethod
     def _device_sample():

@@ -29,9 +29,11 @@ and the watchdog:
 deploy back whose warm-up tripped the candidate runner's tag.
 
 Counting costs one lock acquisition per first call, never per step.
-The JAX watchdog's XLA cost probe and collective ledger have no
-counterpart here: `owner_comm_totals` answers None until the port has
-collectives (ROADMAP A6).
+The JAX watchdog's XLA cost probe has no counterpart here. Its
+collective ledger has one: an owner whose step runs collectives
+(`parallel.ParallelWrapper`) prices one step of each key through
+`observe/commsmon.py`'s runtime ledger and hands the summary to
+`record_collectives`, which `owner_comm_totals` and `comm_totals` read.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ class RecompileWatchdog:
         self._counts: Dict[str, int] = {}
         self._signatures: Dict[str, List[str]] = {}
         self._warned: set = set()
+        self._collectives: Dict[str, Dict[str, dict]] = {}
 
     def _registry(self):
         with self._lock:
@@ -140,15 +143,54 @@ class RecompileWatchdog:
                 return self._counts.get(owner_tag, 0)
             return sum(self._counts.values())
 
+    def record_collectives(self, owner_tag: str, owner_class: str, key,
+                           summary: dict) -> None:
+        """Attach one step's collective inventory (the ledger block from
+        `commsmon.summarize_collectives`) to an owner's key; publishes
+        `jit_collective_ops_total` / `jit_collective_bytes_total{owner,
+        kind}` as the JAX package does for a compiled program."""
+        with self._lock:
+            rows = self._collectives.setdefault(owner_tag, {})
+            sig = repr(key)
+            if len(rows) < _MAX_SIGNATURES or sig in rows:
+                rows[sig] = dict(summary)
+        from deeplearning4j_tpu_torch.observe.commsmon import (
+            publish_collectives,
+        )
+        publish_collectives(owner_class, summary,
+                            registry=self._registry())
+        if summary.get("ops"):
+            fr = _flight()
+            if fr is not None:
+                fr.record("compile_collectives", owner=owner_class,
+                          tag=owner_tag, key=repr(key)[:160],
+                          ops=summary["ops"],
+                          wire_bytes=summary["wire_bytes"])
+
     def owner_comm_totals(self, owner_tag: str) -> Optional[dict]:
-        """Collective totals of an owner's programs; None: the port has
-        no collectives to count yet (ROADMAP A6)."""
-        return None
+        """Collective totals across every step key this owner priced
+        ({"programs", "ops", "wire_bytes"}), or None when it priced
+        none. Degenerate single-rank ops never count."""
+        with self._lock:
+            rows = self._collectives.get(owner_tag)
+            if rows is None:
+                return None
+            return {"programs": len(rows),
+                    "ops": sum(r.get("ops", 0) for r in rows.values()),
+                    "wire_bytes": sum(r.get("wire_bytes", 0)
+                                      for r in rows.values())}
 
     def comm_totals(self) -> dict:
         """Whole-process comm rollup keyed by owner tag (flight dumps
-        embed it); empty until the port has collectives."""
-        return {}
+        embed it)."""
+        with self._lock:
+            tags = list(self._collectives)
+        out = {}
+        for tag in tags:
+            tot = self.owner_comm_totals(tag)
+            if tot is not None:
+                out[tag] = tot
+        return out
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -158,6 +200,9 @@ class RecompileWatchdog:
                 "per_owner": {
                     tag: {"compiles": n,
                           "signatures": list(self._signatures.get(tag, ())),
+                          "collectives": {
+                              sig: dict(row) for sig, row in
+                              self._collectives.get(tag, {}).items()},
                           "warned": tag in self._warned}
                     for tag, n in self._counts.items()},
             }
@@ -166,6 +211,7 @@ class RecompileWatchdog:
         with self._lock:
             self._counts.clear()
             self._signatures.clear()
+            self._collectives.clear()
             self._warned.clear()
 
 

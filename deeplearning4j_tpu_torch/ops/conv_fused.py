@@ -363,10 +363,13 @@ def _bn_eval_fold(y, gamma, beta, mean, var, eps, relu, acc, out_dtype):
 
 
 def _bn_backward(dout, y, gamma, beta, mean, var, eps, relu, axes, mval,
-                 ct):
+                 ct, group=None):
     """Training-mode BN backward through the epilogue: (dy with respect
     to the linear op's output, dgamma, dbeta) in `ct`. The running
-    statistics carry no gradient."""
+    statistics carry no gradient. With a data-parallel `group` (a
+    `parallel.distributed.BatchStatsGroup`) the two batch sums are
+    summed over its ranks (one all-reduce) and `mval` is the global row
+    count."""
     inv = torch.rsqrt(var + eps)
     xhat = (y.to(ct) - mean) * inv
     g = dout.to(ct)
@@ -376,9 +379,23 @@ def _bn_backward(dout, y, gamma, beta, mean, var, eps, relu, axes, mval,
     dbeta = g.sum(axes)
     dgamma = (g * xhat).sum(axes)
     dxhat = g * gam
-    dy = inv * (dxhat - dxhat.sum(axes) / mval
-                - xhat * (dxhat * xhat).sum(axes) / mval)
+    if group is None:
+        dy = inv * (dxhat - dxhat.sum(axes) / mval
+                    - xhat * (dxhat * xhat).sum(axes) / mval)
+    else:
+        sums = group.sum(torch.stack([dxhat.sum(axes),
+                                      (dxhat * xhat).sum(axes)]))
+        dy = inv * (dxhat - sums[0] / mval - xhat * sums[1] / mval)
     return dy, dgamma, dbeta
+
+
+def _global_stats(s, q, rows, group):
+    """(Σy, Σy², row count): over the ranks of a data-parallel step's
+    `group` (one all-reduce of both sums), else this rank's."""
+    if group is None:
+        return s, q, rows
+    sq = group.sum(torch.stack([s, q]))
+    return sq[0], sq[1], rows * group.size
 
 
 # ---------------------------------------------------------------- train path
@@ -387,13 +404,14 @@ class Conv1x1BNTrain(torch.autograd.Function):
     the backward is `_bn_backward` then the product's two transposes."""
 
     @staticmethod
-    def forward(ctx, x2d, w, gamma, beta, eps, relu):
+    def forward(ctx, x2d, w, gamma, beta, eps, relu, group):
         acc = _acc_dtype(x2d.dtype)
         y, s, q = matmul_with_channel_stats(x2d, w)
-        out, mean, var = _bn_train_epilogue(y, s, q, x2d.shape[0], gamma,
+        s, q, rows = _global_stats(s, q, x2d.shape[0], group)
+        out, mean, var = _bn_train_epilogue(y, s, q, rows, gamma,
                                             beta, eps, relu, acc)
         ctx.save_for_backward(x2d, w, gamma, beta, y, mean, var)
-        ctx.eps, ctx.relu = eps, relu
+        ctx.eps, ctx.relu, ctx.rows, ctx.group = eps, relu, rows, group
         ctx.mark_non_differentiable(mean, var)
         return out.to(x2d.dtype), mean, var
 
@@ -402,13 +420,13 @@ class Conv1x1BNTrain(torch.autograd.Function):
         x2d, w, gamma, beta, y, mean, var = ctx.saved_tensors
         ct = _acc_dtype(x2d.dtype)
         dy, dgamma, dbeta = _bn_backward(dout, y, gamma, beta, mean, var,
-                                         ctx.eps, ctx.relu, 0, x2d.shape[0],
-                                         ct)
+                                         ctx.eps, ctx.relu, 0, ctx.rows,
+                                         ct, ctx.group)
         dx = (dy @ w.to(ct).t()).to(x2d.dtype) \
             if ctx.needs_input_grad[0] else None
         dw = (x2d.to(ct).t() @ dy).to(w.dtype)
         return dx, dw, dgamma.to(gamma.dtype), dbeta.to(beta.dtype), None, \
-            None
+            None, None
 
 
 class Conv3x3BNTrain(torch.autograd.Function):
@@ -417,14 +435,15 @@ class Conv3x3BNTrain(torch.autograd.Function):
     backward (cuDNN on the card) in the accumulation dtype."""
 
     @staticmethod
-    def forward(ctx, x, w, gamma, beta, eps, relu):
+    def forward(ctx, x, w, gamma, beta, eps, relu, group):
         b, h, wd, _ = x.shape
         acc = _acc_dtype(x.dtype)
         y, s, q = conv3x3_with_channel_stats(x, w)
-        out, mean, var = _bn_train_epilogue(y, s, q, b * h * wd, gamma,
+        s, q, rows = _global_stats(s, q, b * h * wd, group)
+        out, mean, var = _bn_train_epilogue(y, s, q, rows, gamma,
                                             beta, eps, relu, acc)
         ctx.save_for_backward(x, w, gamma, beta, y, mean, var)
-        ctx.eps, ctx.relu = eps, relu
+        ctx.eps, ctx.relu, ctx.rows, ctx.group = eps, relu, rows, group
         ctx.mark_non_differentiable(mean, var)
         return out.to(x.dtype), mean, var
 
@@ -435,7 +454,7 @@ class Conv3x3BNTrain(torch.autograd.Function):
         ct = _acc_dtype(x.dtype)
         dy, dgamma, dbeta = _bn_backward(dout, y, gamma, beta, mean, var,
                                          ctx.eps, ctx.relu, (0, 1, 2),
-                                         b * h * wd, ct)
+                                         ctx.rows, ct, ctx.group)
         # NHWC / HWIO seen as NCHW / OIHW views (channels-last strides)
         dx, dw, _ = torch.ops.aten.convolution_backward(
             dy.permute(0, 3, 1, 2), x.to(ct).permute(0, 3, 1, 2),
@@ -443,12 +462,14 @@ class Conv3x3BNTrain(torch.autograd.Function):
             False, [0, 0], 1, [ctx.needs_input_grad[0], True, False])
         dx = None if dx is None else dx.permute(0, 2, 3, 1).to(x.dtype)
         return (dx, dw.permute(2, 3, 1, 0).to(w.dtype).contiguous(),
-                dgamma.to(gamma.dtype), dbeta.to(beta.dtype), None, None)
+                dgamma.to(gamma.dtype), dbeta.to(beta.dtype), None, None,
+                None)
 
 
 # ------------------------------------------------------------- public API
 def conv1x1_bn_act(x, w, gamma, beta, *, mean=None, var=None, stride=(1, 1),
-                   eps: float = 1e-5, relu: bool = True, train: bool = False):
+                   eps: float = 1e-5, relu: bool = True, train: bool = False,
+                   group=None):
     """Fused 1×1 conv + batch norm + (optional) relu over NHWC input.
 
     x [B, H, W, C_in]; w [C_in, C_out]; gamma/beta [C_out].
@@ -457,7 +478,9 @@ def conv1x1_bn_act(x, w, gamma, beta, *, mean=None, var=None, stride=(1, 1),
     gradient). train=False: out, normalized with the given running
     mean/var folded into one epilogue of a plain product.
     A stride takes the strided rows first, as a copy (B7a reads dense
-    rows; reading by strides is later work)."""
+    rows; reading by strides is later work). In training, `group` (a
+    `parallel.distributed.BatchStatsGroup`, from a data-parallel step)
+    makes the batch statistics those of the ranks' global batch."""
     sh, sw = stride
     if (sh, sw) != (1, 1):
         x = x[:, ::sh, ::sw, :]
@@ -466,7 +489,7 @@ def conv1x1_bn_act(x, w, gamma, beta, *, mean=None, var=None, stride=(1, 1),
     x2d = x.reshape(b * h * wd, c).contiguous()
     if train:
         out2d, bmean, bvar = Conv1x1BNTrain.apply(x2d, w.contiguous(), gamma,
-                                                  beta, eps, relu)
+                                                  beta, eps, relu, group)
         return out2d.reshape(b, h, wd, n), bmean, bvar
     acc = _acc_dtype(x.dtype)
     pre = x2d.to(acc) @ w.to(acc)
@@ -476,13 +499,13 @@ def conv1x1_bn_act(x, w, gamma, beta, *, mean=None, var=None, stride=(1, 1),
 
 def conv3x3_bn_act(x, w, gamma, beta, *, mean=None, var=None,
                    eps: float = 1e-5, relu: bool = True,
-                   train: bool = False):
+                   train: bool = False, group=None):
     """Fused 3×3 stride-1 SAME conv + batch norm + (optional) relu over
     NHWC input with an HWIO kernel; the contract of `conv1x1_bn_act`,
     with kernel B7b in training and `F.conv2d` in eval."""
     if train:
         return Conv3x3BNTrain.apply(x.contiguous(), w.contiguous(), gamma,
-                                    beta, eps, relu)
+                                    beta, eps, relu, group)
     acc = _acc_dtype(x.dtype)
     y = F.conv2d(x.to(acc).permute(0, 3, 1, 2),
                  w.to(acc).permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)

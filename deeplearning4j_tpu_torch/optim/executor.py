@@ -15,6 +15,17 @@
   differs from the buffer's and a batch `can_fuse` turns down (a tBPTT
   batch) drain the buffer through the per-step path.
 
+Recovery seams (`optim/recovery.RecoveryPlan` plugs into them, as in
+JAX): `before_batch(bi, ds)` returns the batch, `SKIP` (a resume
+replaying batches already trained) or `STOP` (a clean stop at a batch
+boundary); `after_dispatch(bi)` fires once a dispatch (a step, or a
+K-step window) where params, moments and the generator are a
+consistent snapshot (the checkpoint seam); `epoch_start()` /
+`epoch_end()` bracket each epoch. A resume whose position falls inside
+a window skips to it and fills the window from there; a short tail
+drains step by step, so the resumed steps equal the uninterrupted ones.
+`mesh_ctx` scopes a `parallel.mesh.MeshContext` over the run.
+
 Observe hooks: the run is a `fit` span with a `fit.epoch` span an
 epoch; with request tracing sampled (`DL4J_TPU_TRACE_SAMPLE`) each
 epoch is a `train.epoch` trace whose `train.dispatch` spans are its
@@ -24,8 +35,6 @@ time at the epoch's one loss read (the tracker's `on_block`); the net
 keeps it as `_attribution` for `PerformanceListener`. An exception that
 escapes the loop dumps the flight recorder. `maybe_start_monitor()`
 starts the device-memory poller when `DL4J_TPU_DEVICEMON` asks.
-
-Not ported yet: the recovery hooks (checkpointing, resume, stop).
 """
 
 from __future__ import annotations
@@ -42,7 +51,12 @@ from deeplearning4j_tpu_torch.observe.attribution import (
 from deeplearning4j_tpu_torch.observe.devicemon import maybe_start_monitor
 from deeplearning4j_tpu_torch.observe.flight import get_flight
 
-__all__ = ["LossTracker", "TrainingExecutor", "batch_signature"]
+__all__ = ["LossTracker", "TrainingExecutor", "batch_signature", "SKIP",
+           "STOP"]
+
+# before_batch sentinels: skip this batch (resume replay) / stop cleanly
+SKIP = object()
+STOP = object()
 
 
 class LossTracker:
@@ -122,12 +136,25 @@ class TrainingExecutor:
     def __init__(self, net, *, step: Callable,
                  fused_step: Optional[Callable] = None,
                  can_fuse: Optional[Callable] = None,
-                 steps_per_dispatch: int = 1):
+                 steps_per_dispatch: int = 1,
+                 before_batch: Optional[Callable] = None,
+                 after_step: Optional[Callable] = None,
+                 after_dispatch: Optional[Callable] = None,
+                 epoch_start: Optional[Callable] = None,
+                 epoch_end: Optional[Callable] = None,
+                 mesh_ctx=None):
         self.net = net
+        self.mesh_ctx = mesh_ctx
         self.step = step
         self.fused_step = fused_step
         self.can_fuse = can_fuse or (lambda ds: False)
         self.k = max(1, int(steps_per_dispatch or 1))
+        self.before_batch = before_batch
+        self.after_step = after_step
+        self.after_dispatch = after_dispatch
+        self.epoch_start = epoch_start
+        self.epoch_end = epoch_end
+        self.stopped = False
         self._attr: Optional[StepAttribution] = None
         # the epoch's request trace; None when sampling is off, so the
         # hot loop pays one attribute read a dispatch window
@@ -137,7 +164,16 @@ class TrainingExecutor:
         self._etl_hist = reg.histogram("train_etl_ms")
         self._dispatch_hist = reg.histogram("train_dispatch_ms")
 
-    def run(self, iterable, epochs: int):
+    def run(self, iterable, epochs: int, *, start_epoch: int = 0):
+        if self.mesh_ctx is not None:
+            from deeplearning4j_tpu_torch.parallel.mesh import (
+                use_mesh_context,
+            )
+            with use_mesh_context(self.mesh_ctx):
+                return self._run(iterable, epochs, start_epoch)
+        return self._run(iterable, epochs, start_epoch)
+
+    def _run(self, iterable, epochs: int, start_epoch: int):
         net = self.net
         listeners = net.listeners
         # the black box and the device poller, wired before the first
@@ -153,14 +189,19 @@ class TrainingExecutor:
             tracker.on_block = attr.on_device_block
         self._attr = attr
         try:
-            with span("fit", epochs=epochs, steps_per_dispatch=self.k):
+            with span("fit", epochs=epochs, start_epoch=start_epoch,
+                      steps_per_dispatch=self.k):
                 for l in listeners:
                     l.on_fit_start(net)
-                for _ in range(epochs):
+                self.stopped = False
+                for _ in range(start_epoch, epochs):
                     ep = net.epoch
                     self._rt = reqtrace.new_trace("train.epoch")
                     with span("fit.epoch", epoch=ep):
                         self._epoch(iterable)
+                    if self.stopped:
+                        self._finish_epoch_trace(ep, stopped=True)
+                        break
                     self._finish_epoch_trace(ep)
                 for l in listeners:
                     l.on_fit_end(net)
@@ -176,12 +217,22 @@ class TrainingExecutor:
 
     def _epoch(self, iterable) -> None:
         net = self.net
+        if self.epoch_start is not None:
+            self.epoch_start()
         for l in net.listeners:
             l.on_epoch_start(net, net.epoch)
         buf: List = []
         etl_start = time.perf_counter()
         for bi, ds in enumerate(iter(iterable)):
             etl_ms = (time.perf_counter() - etl_start) * 1e3
+            if self.before_batch is not None:
+                ds = self.before_batch(bi, ds)
+                if ds is SKIP:
+                    etl_start = time.perf_counter()
+                    continue
+                if ds is STOP:
+                    self.stopped = True
+                    break
             fusible = (self.k > 1 and self.fused_step is not None
                        and self.can_fuse(ds))
             if fusible and buf and \
@@ -199,9 +250,13 @@ class TrainingExecutor:
                 self._drain([(bi, ds, etl_ms)])
             etl_start = time.perf_counter()
         self._drain(buf)
+        if self.stopped:
+            return
         for l in net.listeners:
             l.on_epoch_end(net, net.epoch)
         net.epoch += 1
+        if self.epoch_end is not None:
+            self.epoch_end()
         # the one read an epoch: score_ is a float at every epoch end,
         # and the block point attribution infers device time from
         net._loss_tracker.materialize()
@@ -221,10 +276,24 @@ class TrainingExecutor:
         if rt is None:
             return
         ep = self.net.epoch
+        attrs = dict(dur_ms=dur_ms, epoch=ep, window=f"{ep}:{bi_lo}-{bi_hi}",
+                     steps=bi_hi - bi_lo + 1, fused=fused)
+        comm = self._comm_totals()
+        if comm is not None:
+            attrs["comm_ops"] = comm["ops"]
+            attrs["comm_bytes"] = comm["wire_bytes"]
         reqtrace.record_span(
-            rt.trace_id, "train.dispatch", parent_id=rt.span_id,
-            dur_ms=dur_ms, epoch=ep, window=f"{ep}:{bi_lo}-{bi_hi}",
-            steps=bi_hi - bi_lo + 1, fused=fused)
+            rt.trace_id, "train.dispatch", parent_id=rt.span_id, **attrs)
+
+    def _comm_totals(self) -> Optional[dict]:
+        """The collective totals the watchdog holds for the owner whose
+        steps run collectives (a `ParallelWrapper` sets the net's
+        `_comm_owner` to its tag for a fit), or None."""
+        tag = getattr(self.net, "_comm_owner", None)
+        if tag is None:
+            return None
+        from deeplearning4j_tpu_torch.observe.watchdog import get_watchdog
+        return get_watchdog().owner_comm_totals(tag)
 
     def _drain(self, buf) -> None:
         """Batches through the per-step path (a short tail would need a
@@ -234,7 +303,9 @@ class TrainingExecutor:
             loss = self.step(ds)
             dispatch_ms = (time.perf_counter() - t_d) * 1e3
             self._trace_window(bi, bi, dispatch_ms)
-            self._finish(loss, etl_ms, dispatch_ms)
+            self._finish(bi, loss, etl_ms, dispatch_ms)
+            if self.after_dispatch is not None:
+                self.after_dispatch(bi)
 
     def _run_fused(self, buf) -> None:
         t_d = time.perf_counter()
@@ -243,11 +314,16 @@ class TrainingExecutor:
         dispatch_ms = (time.perf_counter() - t_d) * 1e3 / len(buf)
         self._trace_window(buf[0][0], buf[-1][0], dispatch_ms * len(buf),
                            fused=True)
-        for j, (_, _, etl_ms) in enumerate(buf):
+        for j, (bi, _, etl_ms) in enumerate(buf):
             # losses[j] stays on the device: indexing does not sync
-            self._finish(losses[j], etl_ms, dispatch_ms)
+            self._finish(bi, losses[j], etl_ms, dispatch_ms)
+        if self.after_dispatch is not None:
+            # once a window: params reflect all K steps, a consistent
+            # (step, generator, cursor) snapshot
+            self.after_dispatch(buf[-1][0])
 
-    def _finish(self, loss, etl_ms: float, dispatch_ms: float) -> None:
+    def _finish(self, bi: int, loss, etl_ms: float,
+                dispatch_ms: float) -> None:
         net = self.net
         net._loss_tracker.update(loss)
         net.iteration += 1
@@ -261,6 +337,8 @@ class TrainingExecutor:
                 l.set_etl_time(etl_ms)
             l.iteration_done(net, net.iteration, net.epoch,
                              net._loss_tracker.peek())
+        if self.after_step is not None:
+            self.after_step(bi)
         if self._attr is not None:
             self._attr.record_iteration(
                 etl_ms, dispatch_ms, (time.perf_counter() - t_h) * 1e3)

@@ -266,9 +266,34 @@ def test_gradient_check_refuses_a_net_on_the_card():
 
 
 def test_checkpoint_manager_and_parallel_trainer_refuse_naming_a6(tmp_path):
-    with pytest.raises(NotImplementedError, match="A6"):
-        CheckpointManager(tmp_path)
+    """Both refused naming A6 until slice 30. Now `CheckpointManager`
+    round-trips a net and the parallel trainer, on a one-rank mesh,
+    trains as the plain trainer does (their 2-rank and JAX cases are in
+    `test_torch_recovery.py` and `test_torch_parallel.py`)."""
+    import torch
+
     net = MultiLayerNetwork(_mlp_conf(), device="cpu").init()
-    with pytest.raises(NotImplementedError, match="A6"):
-        pes.EarlyStoppingParallelTrainer(pes.EarlyStoppingConfiguration(),
-                                         net, ArrayDataSetIterator(*_toy(8)))
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(0, net)
+    mgr.wait()
+    other = MultiLayerNetwork(_mlp_conf(), device="cpu").init()
+    other.params_tree["layer0_denselayer"]["W"].add_(1.0)
+    mgr.restore(other)
+    assert torch.equal(other.params_tree["layer0_denselayer"]["W"],
+                       net.params_tree["layer0_denselayer"]["W"])
+    cfg = lambda: pes.EarlyStoppingConfiguration(
+        epoch_termination_conditions=[pes.MaxEpochsTerminationCondition(2)])
+    plain = MultiLayerNetwork(_mlp_conf(), device="cpu").init()
+    try:
+        got = pes.EarlyStoppingParallelTrainer(
+            cfg(), net, ArrayDataSetIterator(*_toy(8))).fit()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    want = pes.EarlyStoppingTrainer(
+        cfg(), plain, ArrayDataSetIterator(*_toy(8))).fit()
+    assert (got.termination_reason, got.total_epochs) == \
+        (want.termination_reason, want.total_epochs)
+    for name, sub in plain.params_tree.items():
+        for k, v in sub.items():
+            assert torch.equal(net.params_tree[name][k], v), (name, k)

@@ -594,17 +594,31 @@ def test_resnet50_fused_nesterovs_steps_match_jax():
 
 # ----------------------------------------------------------------- refusals
 REFUSALS = [
-    (dict(checkpointer=object()), "A6"),
+    (dict(checkpointer="ckpt"), "A6"),
     (dict(stop_fn=lambda *_: False), "A6"),
 ]
 
 
 @pytest.mark.parametrize("kw,item", REFUSALS,
                          ids=["checkpointer", "stop_fn"])
-def test_fit_refuses_what_is_not_ported(kw, item):
-    net = _graph()
-    with pytest.raises(NotImplementedError, match=item):
-        net.fit(_data(), **kw)
+def test_fit_refuses_what_is_not_ported(kw, item, tmp_path):
+    """Refused naming `item` until slice 30; a graph's fit now takes the
+    recovery arguments (`optim/recovery.py`): a checkpointer commits its
+    last step, a stop_fn that never fires trains every batch, each with
+    the plain fit's parameters."""
+    from deeplearning4j_tpu_torch.parallel import ShardedCheckpointer
+
+    if "checkpointer" in kw:
+        kw = dict(checkpointer=ShardedCheckpointer(str(tmp_path / "ck")))
+    net, plain = _graph(), _graph()
+    net.fit(_data(), **kw)
+    plain.fit(_data())
+    assert net.iteration == plain.iteration and not net.stopped_early
+    for name, sub in plain.params_tree.items():
+        for k, v in sub.items():
+            assert torch.equal(net.params_tree[name][k], v), (name, k)
+    if "checkpointer" in kw:
+        assert kw["checkpointer"].latest_step() == net.iteration
 
 
 @pytest.mark.parametrize("field,value", [

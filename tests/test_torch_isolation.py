@@ -32,7 +32,8 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "torch_http_probe.py",
     ROOT / "tools" / "torch_b3_tf32.py",
     ROOT / "tools" / "torch_b3a_variants.py",
-    ROOT / "tools" / "torch_b7_tf32.py"]
+    ROOT / "tools" / "torch_b7_tf32.py",
+    ROOT / "tools" / "torch_dp_multicard.py"]
 
 
 def _imported_modules(path):
@@ -157,25 +158,32 @@ WAITING = {
     # the Pallas kernels' TPU-backend checks: no counterpart on the card
     "ops": {"banded_eligible": "TPU-only",
             "fused_update_available": "TPU-only"},
-    # the lock, donation and collective witnesses wait for A6; the jit
-    # cache wrapper has no counterpart (the port keeps no jit cache)
-    "observe": {**{n: "A6" for n in (
-        "LockWitness", "MonitoredLock", "get_witness", "lockmon_enabled",
-        "reset_witness", "DonationWitness", "UseAfterDonateError",
-        "donatemon_enabled", "get_donation_witness", "instrument",
-        "reset_donation_witness", "ReshardWitness", "commsmon_enabled",
-        "get_reshard_witness", "reset_reshard_witness",
-        "parse_hlo_collectives", "summarize_collectives")},
+    # the jit cache wrapper has no counterpart (the port keeps no jit
+    # cache); the witnesses are ported (slice 30)
+    "observe": {
         "WatchedJitCache": "JAX-only"},
+    # A6's second part: tensor, pipeline and expert parallelism, the
+    # asynchronous parameter server, the training masters, the estimator
+    "parallel": {n: "A6" for n in (
+        "AsyncParameterServer", "AsyncTrainer", "PipelineParallel",
+        "PipelinedNetwork", "make_pipeline_fn", "make_pipeline_1f1b_fn",
+        "partition_for_pipeline", "stack_stage_params",
+        "split_microbatches", "MoEFeedForward", "moe_ffn", "top_k_gating",
+        "expert_sharding", "expert_mesh", "TrainingMaster",
+        "ParameterAveragingTrainingMaster", "DistributedTrainingMaster",
+        "PhaseStats", "NetworkEstimator", "distributed_evaluate",
+        "export_timeline_html")},
 }
 # Names that resolve to a module holding the exported object: the port's
 # `ops.banded_attention` is the B4/B5/B6 kernel module, as every kernel
 # module of `ops` is addressed by its name.
 IN_MODULE = {"ops": {"banded_attention"}}
-# the ported subpackages; `parallel` is ported in part and waits for A6
+# the ported subpackages (`parallel` in part: its `WAITING` names wait
+# for A6's second part)
 SURFACE = ["", "nn", "nn.layers", "nn.config", "optim", "utils", "ops",
            "models", "zoo", "keras_import", "interop", "data", "eval",
-           "observe", "serving", "ui", "clustering", "nlp", "graph"]
+           "observe", "serving", "ui", "clustering", "nlp", "graph",
+           "parallel"]
 
 
 @pytest.mark.parametrize("sub", SURFACE, ids=[s or "root" for s in SURFACE])

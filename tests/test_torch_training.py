@@ -294,15 +294,35 @@ def test_attention_policy_refuses_head_dims_past_the_kernels_on_the_card():
 
 # ------------------------------------------------------------- refusals
 @pytest.mark.parametrize("kw,item", [
-    (dict(checkpointer=object()), "A6"),
+    (dict(checkpointer="ckpt"), "A6"),
     (dict(resume="auto"), "A6"),
     (dict(preemption=True), "A6"),
     (dict(stop_fn=lambda: False), "A6")])
-def test_fit_refuses_what_is_not_ported(kw, item):
+def test_fit_refuses_what_is_not_ported(kw, item, tmp_path):
+    """The recovery arguments, refused naming `item` until slice 30, now
+    run (`optim/recovery.py`; their resume cases are in
+    `test_torch_recovery.py`): a checkpointer commits the fit's last
+    step, `resume="auto"` with nothing to restore from raises as JAX's
+    does, preemption and a stop_fn that never fires train every batch
+    with the same loss as a plain fit."""
+    from deeplearning4j_tpu_torch.parallel import ShardedCheckpointer
+
     _, pnet = _pair("gpt", T=8, d=16, blocks=1)
+    _, plain = _pair("gpt", T=8, d=16, blocks=1)
     x, y = _lm_batch(np.random.default_rng(8), 2, 8)
-    with pytest.raises(NotImplementedError, match=item):
-        pnet.fit(x, y, **kw)
+    if kw.get("resume") == "auto":
+        with pytest.raises(ValueError, match="nothing to restore"):
+            pnet.fit(x, y, **kw)
+        return
+    if "checkpointer" in kw:
+        kw = dict(checkpointer=ShardedCheckpointer(str(tmp_path / "ck")))
+    pnet.fit(x, y, **kw)
+    plain.fit(x, y)
+    assert pnet.iteration == plain.iteration == 1
+    assert not pnet.stopped_early
+    assert pnet.score_ == plain.score_
+    if "checkpointer" in kw:
+        assert kw["checkpointer"].latest_step() == 1
 
 
 @pytest.mark.parametrize("field,value,item", [
